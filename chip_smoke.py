@@ -5,20 +5,32 @@
 
 Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
 
-1. holds each kernel against its plain PyTorch version on the card at
+1. holds each of K1-K3 against its plain PyTorch version on the card at
    ResNet-50's shapes (batch 64, 224x224) and times both with CUDA events;
 2. drives the main path: ``hvd.init()`` on NCCL, ``ResNet50(fused_bn=True)``
    in bf16, ``broadcast_parameters``, ``DistributedOptimizer(SGD)``, a few
    training steps on a fixed synthetic batch (losses finite and falling);
 3. runs ``hvd.grouped_allreduce`` on the step's gradients with the pack
-   kernel on (``HOROVOD_PALLAS_PACK=1``), at op Sum and Average.
+   kernel on (``HOROVOD_PALLAS_PACK=1``), at op Sum and Average;
+4. holds the four K6 flash-attention kernels against their plain versions
+   computed in fp32 from the same bf16 inputs, at the flagship LM's
+   attention (B4 H16 T2048 D128, causal), ViT-B/16's (B32 H12 T197 D64,
+   full) and a causal T = 1000 tail-tile shape, and times them beside
+   ``scaled_dot_product_attention`` (a yardstick only, never on the path);
+5. trains the flagship decoder LM (d2048 x 4 layers, T 2048, batch 4,
+   bf16, ``attention="flash"``) through ``broadcast_parameters`` and
+   ``DistributedOptimizer(AdamW)`` (losses finite and falling, tokens/s);
+6. runs ``hvd.grouped_allreduce`` on the LM's gradients through the pack
+   kernel (the 268 MB embedding gradient is a bucket of its own);
+7. trains ViT-B/16 at batch 32, 224 px, three SGD-momentum steps.
 
-Launch counts are zeroed just before phase 2 and read after phase 3; every
-kernel must have launched there (53 BN layers per step for each BN kernel,
-one pack per 64 MB bucket). Any failed check exits non-zero with no result.
-The line before the last is ``nvidia-smi``'s name and power limit, the one
-before it the ``kernels`` JSON, and the last line
-``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7) and
+read just after it; every kernel of the path must have launched there (53
+BN layers per ResNet step for each BN kernel, one pack per 64 MB bucket,
+one of each K6 kernel per attention layer and step). Any failed check
+exits non-zero with no result. The line before the last is
+``nvidia-smi``'s name and power limit, the one before it the ``kernels``
+JSON, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -33,7 +45,20 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 BN_REL_TOL = 1e-5              # of sum |terms|: fp32 sums in another order
+
+# K6 at the main path's attention calls: (what, B, H, T, D, causal)
+FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 128, True),
+                ("ViT-B/16", 32, 12, 197, 64, False),
+                ("tail tile", 4, 8, 1000, 64, True))
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
+                 "flash_bwd_dq")
+# the flagship LM (bench.py's bench_transformer configuration)
+LM_DIMS = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=4,
+               d_ff=8192, max_seq=2048)
+LM_WINDOW_STEPS = 5            # steps in each timed window of the LM
+VIT_LAYERS = 12
 
 
 class SmokeFailure(Exception):
@@ -200,6 +225,196 @@ def check_pack_kernel(torch, K, bucket_by_size, dev, shapes, flush, reps,
     return row, grads
 
 
+def flash_pairs(b, h, t, causal):
+    """The (q, kv) pairs this run's mask lets through."""
+    return b * h * (t * (t + 1) // 2 if causal else t * t)
+
+
+def flash_work(b, h, t, d, causal):
+    """Per K6 kernel: (bytes, operations, peak operations/s). Bytes count
+    each input read once and each output written once; operations are the
+    products over the (q, kv) pairs this run's mask lets through."""
+    pairs = flash_pairs(b, h, t, causal)
+    x = b * h * t * d * 2          # one bf16 [B, H, T, D] tensor
+    st = b * h * t * 4             # one fp32 [B, H, T] tensor (lse, di)
+    return {
+        # S = QK^T and O = PV
+        "flash_fwd": (4 * x + st, 4 * d * pairs, BF16_FLOPS),
+        # di = rowsum(dO * O), fp32 outside the tensor cores
+        "flash_bwd_pre": (2 * x + st, 2 * b * h * t * d, FP32_FLOPS),
+        # S^T, dV += P^T dO, dP^T = V dO^T, dK += dS^T Q
+        "flash_bwd_dkdv": (6 * x + 2 * st, 8 * d * pairs, BF16_FLOPS),
+        # S, dP = dO V^T, dQ += dS K
+        "flash_bwd_dq": (5 * x + 2 * st, 6 * d * pairs, BF16_FLOPS),
+    }
+
+
+def check_flash_kernels(torch, K, dev, flush, reps, log):
+    """K6 against its plain versions at each of FLASH_SHAPES: each output's
+    error against the plain version in fp32 (from the same bf16 inputs) is
+    at most twice the bf16 plain version's, plus 1e-3 of the largest entry.
+    Returns a row per kernel (numbers at the flagship shape, every shape
+    under "shapes") and a fwd/fwd+bwd summary per shape beside SDPA's."""
+    import torch.nn.functional as F
+    rows = {n: {"shapes": []} for n in FLASH_KERNELS}
+    summary = []
+    for what, b, h, t, d, causal in FLASH_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(2)
+        # laid out [B, T, H, D], as the models project them; the kernels
+        # take the [B, H, T, D] views with their strides
+        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+        scale = d ** -0.5
+        f32 = [x.float() for x in (q, k, v, do)]
+        o32, lse32 = K.flash_attention_fwd_plain(*f32[:3], causal, scale)
+        di32 = K.flash_bwd_pre_plain(o32, f32[3])
+        dk32, dv32 = K.flash_bwd_dkdv_plain(*f32, lse32, di32, causal, scale)
+        dq32 = K.flash_bwd_dq_plain(*f32, lse32, di32, causal, scale)
+        del f32, di32
+        ob, lseb = K.flash_attention_fwd_plain(q, k, v, causal, scale)
+        dib = K.flash_bwd_pre_plain(ob, do)
+        dkb, dvb = K.flash_bwd_dkdv_plain(q, k, v, do, lseb, dib, causal,
+                                          scale)
+        dqb = K.flash_bwd_dq_plain(q, k, v, do, lseb, dib, causal, scale)
+        o, lse = K.flash_fwd(q, k, v, causal, scale)
+        di = K.flash_bwd_pre(o, do)
+        dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale)
+        dq = K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+        torch.cuda.synchronize()
+        err = {}
+        for name, got, want, plain in (
+                ("o", o, o32, ob), ("lse", lse, lse32, lseb),
+                ("dq", dq, dq32, dqb), ("dk", dk, dk32, dkb),
+                ("dv", dv, dv32, dvb)):
+            err[name] = float((got.float() - want).abs().max())
+            base = float((plain.float() - want).abs().max())
+            limit = 2 * base + 1e-3 * float(want.abs().max())
+            log(f"  {what} {name}: kernel error {err[name]:.4g}, bf16 "
+                f"plain error {base:.4g}, limit {limit:.4g}")
+            check(err[name] <= limit,
+                  f"K6 {what} {name}: error {err[name]:.4g} > {limit:.4g}")
+        di_ref = K.flash_bwd_pre_plain(o, do)
+        err["di"] = float((di - di_ref).abs().max())
+        # fp32 sums of the same products in another order
+        check(err["di"] <= 1e-5 * float(di_ref.abs().max()) + 1e-6,
+              f"K6 {what} di: error {err['di']:.4g}")
+        del o32, lse32, dq32, dk32, dv32, ob, lseb, dib, dkb, dvb, dqb
+        errors = {"flash_fwd": max(err["o"], err["lse"]),
+                  "flash_bwd_pre": err["di"],
+                  "flash_bwd_dkdv": max(err["dk"], err["dv"]),
+                  "flash_bwd_dq": err["dq"]}
+
+        calls = {
+            "flash_fwd": (lambda: K.flash_fwd(q, k, v, causal, scale),
+                          lambda: K.flash_attention_fwd_plain(
+                              q, k, v, causal, scale)),
+            "flash_bwd_pre": (lambda: K.flash_bwd_pre(o, do),
+                              lambda: K.flash_bwd_pre_plain(o, do)),
+            "flash_bwd_dkdv": (
+                lambda: K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale),
+                lambda: K.flash_bwd_dkdv_plain(q, k, v, do, lse, di, causal,
+                                               scale)),
+            "flash_bwd_dq": (
+                lambda: K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale),
+                lambda: K.flash_bwd_dq_plain(q, k, v, do, lse, di, causal,
+                                             scale)),
+        }
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                  is_causal=causal)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            return torch.autograd.grad(out, (qg, kg, vg), do)
+
+        def kernel_fwd_bwd():
+            o_, lse_ = K.flash_fwd(q, k, v, causal, scale)
+            di_ = K.flash_bwd_pre(o_, do)
+            K.flash_bwd_dkdv(q, k, v, do, lse_, di_, causal, scale)
+            return K.flash_bwd_dq(q, k, v, do, lse_, di_, causal, scale)
+
+        with torch.no_grad():
+            sdpa_fwd_ms, _ = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), flush, reps)
+        sdpa_bwd_ms, _ = time_ms(
+            torch, lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                               retain_graph=True),
+            flush, reps)
+        sdpa_fb_ms, _ = time_ms(torch, sdpa_fwd_bwd, flush, reps)
+        fb_ms, fb_host_ms = time_ms(torch, kernel_fwd_bwd, flush, reps)
+        work = flash_work(b, h, t, d, causal)
+        for name, (kern, plain) in calls.items():
+            ms, host_ms = time_ms(torch, kern, flush, reps)
+            plain_ms, _ = time_ms(torch, plain, flush, max(3, reps // 4))
+            nbytes, ops, peak = work[name]
+            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)
+            entry = dict(what=what, shape=[b, h, t, d], causal=causal, ms=ms,
+                         host_ms=host_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms,
+                         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                                   >= ops / peak else "operations"),
+                         library_ms=(sdpa_fwd_ms if name == "flash_fwd"
+                                     else None),
+                         max_abs_err=errors[name])
+            rows[name]["shapes"].append(entry)
+            log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
+                f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({entry['bound_by']})")
+        # attention forward and backward as one function: the products of
+        # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
+        # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
+        # reads dO and O for di, which the backward's dS waits for. The
+        # kernels' own bounds add up to more: dq recomputes S and dP.
+        fb_bound = 1e3 * (14 * d * flash_pairs(b, h, t, causal) / BF16_FLOPS
+                          + work["flash_bwd_pre"][0] / HBM_BYTES_PER_S)
+        summary.append(dict(what=what, fwd_ms=rows["flash_fwd"]["shapes"][-1]
+                            ["ms"], fwd_bwd_ms=fb_ms,
+                            fwd_bwd_host_ms=fb_host_ms,
+                            fwd_bwd_bound_ms=fb_bound,
+                            sdpa_fwd_ms=sdpa_fwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
+                            sdpa_fwd_bwd_ms=sdpa_fb_ms))
+        log(f"  {what}: K6 fwd+bwd {fb_ms:.4f} ms (bound {fb_bound:.4f} "
+            f"ms); SDPA fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms, "
+            f"fwd+bwd {sdpa_fb_ms:.4f} ms")
+        del q, k, v, do, o, lse, di, dk, dv, dq, qg, kg, vg, sdpa_out
+        torch.cuda.empty_cache()
+    for name in FLASH_KERNELS:
+        first = rows[name]["shapes"][0]
+        rows[name].update({key: first[key] for key in
+                           ("ms", "host_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")})
+        rows[name]["max_abs_err"] = max(e["max_abs_err"]
+                                        for e in rows[name]["shapes"])
+    return rows, summary
+
+
+def make_lm_trainer(torch, hvd, tm, dev, batch):
+    """The flagship LM, its data and optimizer; returns one train step."""
+    cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                               **LM_DIMS)
+    model = tm.Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq + 1),
+                           device=dev, generator=gen)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    # optax.adamw(3e-4)'s settings (PyTorch's weight decay default is 1e-2)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4), op=hvd.Average)
+
+    def step():
+        opt.zero_grad()
+        loss = tm.lean_lm_loss(model, inputs, targets)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return cfg, model, step
+
+
 def make_trainer(torch, hvd, ResNet50, dev, batch):
     """The main path's model, data and optimizer; returns one train step."""
     model = ResNet50(num_classes=1000, dtype=torch.bfloat16, fused_bn=True,
@@ -242,11 +457,12 @@ def train(torch, step, batch, warmup, steps, windows, log):
 
 
 KERNEL_GROUPS = (   # kernel-name patterns -> layer of the step, first match
+    ("flash-attention kernels (csrc/flash_attn.cu)", ("flash_",)),
     ("bn_stats kernels (csrc/bn_stats.cu)", ("bn_partial", "bn_finalize")),
     ("pack kernel (csrc/pack.cu)", ("pack_kernel",)),
     ("convolutions and dense (cuDNN/cuBLAS)",
      ("conv", "gemm", "xmma", "cudnn", "sm90", "cutlass", "dgrad", "wgrad",
-      "nchwToNhwc", "nhwcToNchw")),
+      "nvjet", "nchwToNhwc", "nhwcToNchw")),
     ("reductions (torch)", ("reduce",)),
     ("elementwise and copies (torch)",
      ("elementwise", "vectorized", "copy", "fill", "Memcpy", "Memset")),
@@ -269,7 +485,10 @@ def profile_steps(torch, step, n, log):
     kernels = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and str(ev.device_type).endswith("CUDA"):
+        # a user annotation (the optimizer's step range) spans kernels that
+        # are counted on their own
+        if us > 0 and str(ev.device_type).endswith("CUDA") \
+                and not getattr(ev, "is_user_annotation", False):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
     busy = sum(kernels.values())
     check(busy > 0, "the profiler recorded no device time")
@@ -300,8 +519,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20,
                     help="timed launches per kernel and shape")
     ap.add_argument("--profile", type=int, default=0, metavar="N",
-                    help="after the timed steps, trace N more with "
-                         "torch.profiler and print device time by layer")
+                    help="after the timed steps of ResNet-50 and of the LM, "
+                         "trace N more with torch.profiler and print device "
+                         "time by layer")
     args = ap.parse_args(argv)
 
     import torch
@@ -314,7 +534,9 @@ def main(argv=None) -> int:
     os.environ["HOROVOD_PALLAS_PACK"] = "1"
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.core.engine import bucket_by_size
+    from horovod_tpu_torch.models import transformer as tm
     from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.models.vit import ViT_B16
     from horovod_tpu_torch.ops import build, kernels as K
 
     def log(msg):
@@ -389,6 +611,104 @@ def main(argv=None) -> int:
         check(counts["pack"] == 2 * pack_row["buckets"],
               f"pack launched {counts['pack']}, expected "
               f"{2 * pack_row['buckets']}")
+        del model, step, grads, outs
+        torch.cuda.empty_cache()
+
+        log("phase 4: K6 flash-attention kernels against their plain "
+            "versions")
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+        flash_rows, attention = check_flash_kernels(torch, K, dev, flush,
+                                                    args.reps, log)
+        del flush
+        torch.cuda.empty_cache()
+
+        lm_batch = 4
+        log(f"phase 5: flagship LM training, batch {lm_batch} x "
+            f"{LM_DIMS['max_seq']} tokens, {args.warmup} + {args.windows} x "
+            f"{LM_WINDOW_STEPS} steps")
+        lm_cfg, lm, lm_step = make_lm_trainer(torch, hvd, tm, dev, lm_batch)
+        n_params = sum(p.numel() for p in lm.parameters())
+        log(f"  {n_params / 1e6:.1f} M parameters")
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        tokens = lm_batch * lm_cfg.max_seq
+        lm_losses, tok_s, tok_rates = train(torch, lm_step, tokens,
+                                            args.warmup, LM_WINDOW_STEPS,
+                                            args.windows, log)
+        check(all(v == v and abs(v) != float("inf") for v in lm_losses),
+              "non-finite LM loss")
+        check(lm_losses[-1] < lm_losses[0],
+              "LM loss did not fall on the fixed batch")
+        if args.profile:
+            profile_steps(torch, lm_step, args.profile, log)
+        lm_steps = (args.warmup + args.windows * LM_WINDOW_STEPS
+                    + args.profile)
+        lm_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        lm_counts = K.launch_counts()
+        log(f"  {tok_s:.1f} tokens/s over all timed steps (windows: "
+            f"{', '.join(f'{r:.1f}' for r in tok_rates)}), peak memory "
+            f"{lm_peak:.2f} GiB")
+        log(f"  launches on the LM path: {lm_counts} over {lm_steps} steps")
+        for name in FLASH_KERNELS:
+            want = lm_cfg.n_layers * lm_steps
+            check(lm_counts[name] == want,
+                  f"{name} launched {lm_counts[name]} on the LM path, "
+                  f"expected {want}")
+
+        log("phase 6: grouped_allreduce of the LM's gradients through the "
+            "pack kernel")
+        grads = [p.grad for p in lm.parameters()]
+        buckets = bucket_by_size(grads, 64 * 1024 * 1024)
+        check(buckets[0] == [0] and grads[0].shape == lm.embed.shape,
+              "the embedding gradient is not a bucket of its own")
+        K.reset_launch_counts()
+        for op in (hvd.Sum, hvd.Average):
+            outs = hvd.grouped_allreduce(grads, name=f"lm.{op.name}", op=op)
+            torch.cuda.synchronize()
+            check(all(torch.equal(o, g) for o, g in zip(outs, grads)),
+                  f"grouped_allreduce op={op.name} of the LM's gradients at "
+                  "size 1 changed its inputs")
+        lm_pack = K.launch_counts()["pack"]
+        log(f"  {len(buckets)} buckets ({grads[0].nbytes / 2**20:.0f} MiB "
+            f"embedding gradient alone), {lm_pack} pack launches")
+        check(lm_pack == 2 * len(buckets),
+              f"pack launched {lm_pack}, expected {2 * len(buckets)}")
+        del lm, lm_step, grads, outs
+        torch.cuda.empty_cache()
+
+        vit_batch = 32
+        log(f"phase 7: ViT-B/16 training, batch {vit_batch}, 224 px, 3 "
+            "steps")
+        vit = ViT_B16(num_classes=1000, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        images = torch.rand(vit_batch, 224, 224, 3, device=dev,
+                            generator=gen)
+        labels = torch.randint(0, 1000, (vit_batch,), device=dev,
+                               generator=gen)
+        hvd.broadcast_parameters(vit.state_dict(), root_rank=0)
+        vit_opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(vit.parameters(), lr=0.01, momentum=0.9),
+            op=hvd.Average)
+        K.reset_launch_counts()
+        vit_losses = []
+        for _ in range(3):
+            vit_opt.zero_grad()
+            loss = torch.nn.functional.cross_entropy(vit(images), labels)
+            loss.backward()
+            vit_opt.step()
+            vit_losses.append(float(loss.detach()))
+        vit_counts = K.launch_counts()
+        log(f"  losses: {' '.join(f'{v:.4f}' for v in vit_losses)}; "
+            f"launches: {vit_counts}")
+        check(all(v == v and abs(v) != float("inf") for v in vit_losses),
+              "non-finite ViT loss")
+        for name in FLASH_KERNELS:
+            check(vit_counts[name] == VIT_LAYERS * 3,
+                  f"{name} launched {vit_counts[name]} on the ViT path, "
+                  f"expected {VIT_LAYERS * 3}")
+        del vit, vit_opt, images
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -401,7 +721,8 @@ def main(argv=None) -> int:
              plain_ms=pack_row["plain_ms"],
              bound_ms=pack_row["bound_ms"], bound_by="bytes",
              library_ms=pack_row["library_ms"], ok=True,
-             work="ResNet-50 fp32 gradients, 2 buckets at 64 MB"),
+             work="ResNet-50 fp32 gradients, 2 buckets at 64 MB",
+             lm_launches=lm_pack),
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
              launches=counts["bn_stats"], library_ms=None, bound_by="bytes",
@@ -413,9 +734,21 @@ def main(argv=None) -> int:
              bound_by="bytes", ok=True,
              work=f"53 BN layers of ResNet-50, batch {args.batch}",
              **bn_rows["bn_bwd_stats"]),
-    ]
+    ] + [
+        # the forward and the custom-VJP backward of the jax library kernel
+        # that flash_attention_local calls there
+        dict(name=name, route="cuda", source=f"{src}/flash_attn.cu",
+             replaces="horovod_tpu/parallel/flash_attention.py:226",
+             launches=lm_counts[name], vit_launches=vit_counts[name], ok=True,
+             work="one attention layer of the flagship LM (B4 H16 T2048 "
+                  "D128, causal); shapes lists every shape",
+             **flash_rows[name])
+        for name in FLASH_KERNELS]
     print(json.dumps({"kernels": kernels, "img_per_s": img_s,
-                      "img_per_s_windows": rates, "batch": args.batch}))
+                      "img_per_s_windows": rates, "batch": args.batch,
+                      "tokens_per_s": tok_s, "tokens_per_s_windows":
+                      tok_rates, "lm_batch": lm_batch,
+                      "lm_peak_gib": lm_peak, "attention": attention}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ package's Pallas kernels rewritten by hand in CUDA C++ for Hopper::
 
 Ported so far: the world, the eager engine (allreduce, grouped allreduce,
 allgather, broadcast, barrier, async handles), ``DistributedOptimizer``, the
-broadcast helpers, and ResNet with the fused BatchNorm.
+broadcast helpers, ResNet with the fused BatchNorm, and the decoder LM and
+ViT on the flash-attention kernel.
 """
 
 from __future__ import annotations

@@ -1,0 +1,596 @@
+// Flash attention, forward and backward, bf16 in and out, fp32 softmax.
+//
+// Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py
+// :flash_attention_local takes from jax's library: flash_attention /
+// splash_attention forward (online softmax, causal blocks skipped) and its
+// custom-VJP backward (_flash_attention_bwd_dkv, _flash_attention_bwd_dq).
+//
+// What bounds them on an H100: operations. At the flagship shape (B4 H16
+// T2048 D128, causal) the forward does 2*B*H*T^2*D = 69 GFLOP and moves
+// 8 MB per input, about 3,900 operations per byte, far above the card's 295.
+// So the products run on the tensor cores, and S = QK^T and P never go to
+// device memory: O(T) memory, no T^2 buffer.
+//
+// Design (a first, simple Hopper version):
+// - mma.sync m16n8k16, bf16 operands, fp32 accumulators. Each warp owns 16
+//   rows of its block's tile; 4 warps a block. Tiles of Q, K, V, dO are
+//   staged in shared memory with 16-byte loads (rows padded by 16 bytes so
+//   the fragment loads hit 32 distinct banks). A fragments come from shared
+//   memory as 32-bit pairs; B fragments that need the transpose (V in PV,
+//   dO, Q and K in the gradient products) are gathered as two 16-bit loads.
+// - The score accumulators of two n-tiles are, element for element, the A
+//   fragment of the next product, so P (and dS) go from registers to the
+//   tensor cores after one bf16 rounding, as the reference casts p to
+//   v.dtype before its PV product.
+// - flash_fwd: one block per (b*h, 64-row q tile); K/V tiles of 64 rows;
+//   online softmax with a running max m and sum l per row in log2 units;
+//   O in fp32 registers, written bf16; lse = m ln2 + ln l. Causal: kv tiles
+//   past the diagonal are never loaded; the diagonal tile and the tail tile
+//   (T not a multiple of 64) are masked, so any T >= 1 runs.
+// - flash_bwd_pre: di = rowsum(dO * O), one warp per row.
+// - flash_bwd_dkdv: one block per (b*h, 64-row kv tile), looping over
+//   32-row q tiles from the diagonal on; recomputes p = exp(s*scale - lse)
+//   and accumulates dV += P^T dO, dK += dS^T Q * scale in registers.
+// - flash_bwd_dq: one block per (b*h, 64-row q tile), looping over 32-row
+//   kv tiles up to the diagonal; dQ += dS K * scale. A separate pass means
+//   no float atomics: results repeat bitwise.
+// The backward takes lse and di from outside, so under a global lse it is
+// ring attention's per-block backward as well.
+// Not yet here (later work): cp.async/TMA double buffering, wgmma, warp
+// specialisation, ldmatrix.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;   // bf16 elements of padding at the end of a row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A [B, H, T, D] view: base pointer and element strides of B, H and T (the
+// D stride is 1).
+struct View {
+  const bf16* p;
+  long long sb, sh, st;
+};
+
+struct Params {
+  View q, k, v, o, dout, dq, dk, dv;
+  const float* lse_in;
+  const float* di_in;
+  float* lse_out;
+  float* di_out;
+  int B, H, T, causal;
+  float scale;
+};
+
+__device__ __forceinline__ const bf16* head_ptr(const View& t, int b, int h) {
+  return t.p + (long long)b * t.sb + (long long)h * t.sh;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* s) {
+  return *reinterpret_cast<const uint32_t*>(s);
+}
+
+// Two bf16 from two places, the first in the low half.
+__device__ __forceinline__ uint32_t ld2x16(const bf16* lo, const bf16* hi) {
+  const uint32_t a = *reinterpret_cast<const uint16_t*>(lo);
+  const uint32_t b = *reinterpret_cast<const uint16_t*>(hi);
+  return a | (b << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a * b, a 16x16 (row), b 16x8 (col), c 16x8, fp32 accumulate.
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// rows [row0, row0 + ROWS) of one head into shared memory (row pitch
+// D + kPad); rows at or past T are zero.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* head,
+                                          long long st, int row0, int T) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < T)
+      val = *reinterpret_cast<const uint4*>(head + (long long)(row0 + r) * st +
+                                            c * 8);
+    *reinterpret_cast<uint4*>(s + r * (D + kPad) + c * 8) = val;
+  }
+}
+
+// A fragment of rows [r0, r0 + 16), cols [c0, c0 + 16) of a row-major tile.
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int r0,
+                                       int c0, int g, int tig) {
+  const bf16* p = s + (r0 + g) * LD + c0 + tig * 2;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * LD);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * LD + 8);
+}
+
+// c[j] += A * B^T over D, B rows n0 + 8j .. (the "NT" product: S = Q K^T).
+template <int D, int NT>
+__device__ __forceinline__ void gemm_nt(float c[NT][4], const bf16* sa,
+                                        int ra, const bf16* sb, int g,
+                                        int tig) {
+  constexpr int LD = D + kPad;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    frag_a<LD>(a, sa, ra, kk * 16, g, tig);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* p = sb + (j * 8 + g) * LD + kk * 16 + tig * 2;
+      mma(c[j], a, ld32(p), ld32(p + 8));
+    }
+  }
+}
+
+// acc[dj] += P * B over the KT = 16*KS rows of a tile B (row-major, D cols),
+// P given as score accumulators p[2*KS][4] (rounded to bf16 here).
+template <int D, int KS>
+__device__ __forceinline__ void gemm_pv(float acc[D / 8][4],
+                                        const float p[2 * KS][4],
+                                        const bf16* sb, int g, int tig) {
+  constexpr int LD = D + kPad;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[4];
+    a[0] = pack_bf16(p[2 * ks][0], p[2 * ks][1]);
+    a[1] = pack_bf16(p[2 * ks][2], p[2 * ks][3]);
+    a[2] = pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]);
+    a[3] = pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+    const bf16* base = sb + (ks * 16 + tig * 2) * LD + g;
+#pragma unroll
+    for (int dj = 0; dj < D / 8; ++dj) {
+      const bf16* p0 = base + dj * 8;
+      mma(acc[dj], a, ld2x16(p0, p0 + LD), ld2x16(p0 + 8 * LD, p0 + 9 * LD));
+    }
+  }
+}
+
+// rows r_lo = r0 + g and r_lo + 8 of a 16 x D accumulator, times mul[i],
+// to the rows < T of one head of `out`.
+template <int D>
+__device__ __forceinline__ void store_rows(const View& out, int b, int h,
+                                           int r_lo, int T,
+                                           const float acc[D / 8][4],
+                                           const float mul[2], int tig) {
+  bf16* head = const_cast<bf16*>(head_ptr(out, b, h));
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    if (r >= T) continue;
+    bf16* row = head + (long long)r * out.st;
+#pragma unroll
+    for (int dj = 0; dj < D / 8; ++dj) {
+      *reinterpret_cast<uint32_t*>(row + dj * 8 + tig * 2) =
+          pack_bf16(acc[dj][2 * i] * mul[i], acc[dj][2 * i + 1] * mul[i]);
+    }
+  }
+}
+
+template <int D>
+constexpr int fwd_smem() { return 3 * 64 * (D + kPad) * 2; }
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const Params p) {
+  constexpr int BQ = 64, BK = 64, LD = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + BQ * LD;
+  bf16* vs = ks + BK * LD;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // causal: the longest rows first, so the last wave is short
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int r_lo = q0 + warp * 16 + g;
+  const float sl2 = p.scale * kLog2e;
+
+  load_tile<D, BQ>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.T);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+  zero(o);
+
+  const int kv_end = p.causal ? min(p.T, q0 + BQ) : p.T;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
+    __syncthreads();   // the previous tile is consumed
+    load_tile<D, BK>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.T);
+    load_tile<D, BK>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.T);
+    __syncthreads();
+    float s[BK / 8][4];
+    zero(s);
+    gemm_nt<D, BK / 8>(s, qs, warp * 16, ks, g, tig);
+
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r_lo + 8 * (e >> 1);
+        const int col = kv0 + j * 8 + tig * 2 + (e & 1);
+        const bool ok = col < p.T && (!p.causal || col <= row);
+        s[j][e] = ok ? s[j][e] * sl2 : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+    }
+    float alpha[2], msub[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float mnew = fmaxf(m[i], mt[i]);
+      // nothing seen yet in this row: nothing to rescale
+      alpha[i] = mnew == -INFINITY ? 1.f : exp2f(m[i] - mnew);
+      msub[i] = mnew == -INFINITY ? 0.f : mnew;
+      m[i] = mnew;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - msub[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int dj = 0; dj < D / 8; ++dj) {
+      o[dj][0] *= alpha[0];
+      o[dj][1] *= alpha[0];
+      o[dj][2] *= alpha[1];
+      o[dj][3] *= alpha[1];
+    }
+    gemm_pv<D, BK / 16>(o, s, vs, g, tig);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    inv[i] = 1.f / l[i];
+  }
+  store_rows<D>(p.o, b, h, r_lo, p.T, o, inv, tig);
+  if (tig == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      if (r < p.T)
+        p.lse_out[(long long)bh * p.T + r] = m[i] * kLn2 + logf(l[i]);
+    }
+  }
+}
+
+// di[row] = sum_d dO[row, d] * O[row, d]; one warp per row of B*H*T.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_pre_kernel(const Params p) {
+  const long long rows = (long long)p.B * p.H * p.T;
+  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const long long bh = row / p.T;
+  const int t = (int)(row % p.T), b = (int)(bh / p.H), h = (int)(bh % p.H);
+  const bf16* orow = head_ptr(p.o, b, h) + (long long)t * p.o.st;
+  const bf16* drow = head_ptr(p.dout, b, h) + (long long)t * p.dout.st;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane * 2; d < D; d += 64) {
+    const float2 of = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(orow + d));
+    const float2 df = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(drow + d));
+    acc += of.x * df.x + of.y * df.y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.di_out[row] = acc;
+}
+
+template <int D>
+constexpr int dkdv_smem() {
+  return (2 * 64 + 2 * 32) * (D + kPad) * 2 + 2 * 32 * 4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const Params p) {
+  constexpr int BKV = 64, BQ = 32, LD = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + BKV * LD;
+  bf16* qs = vs + BKV * LD;
+  bf16* dos = qs + BQ * LD;
+  float* lse_s = reinterpret_cast<float*>(dos + BQ * LD);
+  float* di_s = lse_s + BQ;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // causal: the first kv tiles see the most q tiles; they start first
+  const int kv0 = blockIdx.y * BKV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int r_lo = kv0 + warp * 16 + g;   // kv rows of this thread
+  const float sl2 = p.scale * kLog2e;
+  const float* lse = p.lse_in + (long long)bh * p.T;
+  const float* di = p.di_in + (long long)bh * p.T;
+
+  load_tile<D, BKV>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.T);
+  load_tile<D, BKV>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.T);
+  float dk[D / 8][4], dv[D / 8][4];
+  zero(dk);
+  zero(dv);
+
+  const int q_start = p.causal ? (kv0 / BQ) * BQ : 0;
+  for (int q0 = q_start; q0 < p.T; q0 += BQ) {
+    __syncthreads();
+    load_tile<D, BQ>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.T);
+    load_tile<D, BQ>(dos, head_ptr(p.dout, b, h), p.dout.st, q0, p.T);
+    if (threadIdx.x < BQ) {
+      const int r = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = r < p.T ? lse[r] * kLog2e : 0.f;
+      di_s[threadIdx.x] = r < p.T ? di[r] : 0.f;
+    }
+    __syncthreads();
+    // P^T = exp(K Q^T * scale - lse), masked
+    float pt[BQ / 8][4];
+    zero(pt);
+    gemm_nt<D, BQ / 8>(pt, ks, warp * 16, qs, g, tig);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r_lo + 8 * (e >> 1);
+        const int c = j * 8 + tig * 2 + (e & 1);
+        const int col = q0 + c;
+        const bool ok = col < p.T && row < p.T && (!p.causal || col >= row);
+        pt[j][e] = ok ? exp2f(pt[j][e] * sl2 - lse_s[c]) : 0.f;
+      }
+    }
+    gemm_pv<D, BQ / 16>(dv, pt, dos, g, tig);
+    // dP^T = V dO^T; dS^T = P^T * (dP^T - di)
+    float dst[BQ / 8][4];
+    zero(dst);
+    gemm_nt<D, BQ / 8>(dst, vs, warp * 16, dos, g, tig);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + tig * 2 + (e & 1);
+        dst[j][e] = pt[j][e] * (dst[j][e] - di_s[c]);
+      }
+    }
+    gemm_pv<D, BQ / 16>(dk, dst, qs, g, tig);
+  }
+  const float one[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
+  store_rows<D>(p.dk, b, h, r_lo, p.T, dk, sc, tig);
+  store_rows<D>(p.dv, b, h, r_lo, p.T, dv, one, tig);
+}
+
+template <int D>
+constexpr int dq_smem() { return (2 * 64 + 2 * 32) * (D + kPad) * 2; }
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const Params p) {
+  constexpr int BQ = 64, BKV = 32, LD = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + BQ * LD;
+  bf16* ks = dos + BQ * LD;
+  bf16* vs = ks + BKV * LD;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int r_lo = q0 + warp * 16 + g;
+  const float sl2 = p.scale * kLog2e;
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    lse_r[i] = r < p.T ? p.lse_in[(long long)bh * p.T + r] * kLog2e : 0.f;
+    di_r[i] = r < p.T ? p.di_in[(long long)bh * p.T + r] : 0.f;
+  }
+  load_tile<D, BQ>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.T);
+  load_tile<D, BQ>(dos, head_ptr(p.dout, b, h), p.dout.st, q0, p.T);
+  float dq[D / 8][4];
+  zero(dq);
+
+  const int kv_end = p.causal ? min(p.T, q0 + BQ) : p.T;
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+    __syncthreads();
+    load_tile<D, BKV>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.T);
+    load_tile<D, BKV>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.T);
+    __syncthreads();
+    float s[BKV / 8][4], dp[BKV / 8][4];
+    zero(s);
+    zero(dp);
+    gemm_nt<D, BKV / 8>(s, qs, warp * 16, ks, g, tig);
+    gemm_nt<D, BKV / 8>(dp, dos, warp * 16, vs, g, tig);
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, row = r_lo + 8 * i;
+        const int col = kv0 + j * 8 + tig * 2 + (e & 1);
+        const bool ok = col < p.T && row < p.T && (!p.causal || col <= row);
+        const float pe = ok ? exp2f(s[j][e] * sl2 - lse_r[i]) : 0.f;
+        s[j][e] = pe * (dp[j][e] - di_r[i]);   // dS
+      }
+    }
+    gemm_pv<D, BKV / 16>(dq, s, ks, g, tig);
+  }
+  const float sc[2] = {p.scale, p.scale};
+  store_rows<D>(p.dq, b, h, r_lo, p.T, dq, sc, tig);
+}
+
+View view(const void* ptr, const long long* strides, int i) {
+  return View{reinterpret_cast<const bf16*>(ptr), strides[3 * i],
+              strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// Opt a kernel into more than 48 KB of dynamic shared memory. The attribute
+// belongs to the current device, so it is set at every launch: a process
+// may launch on several cards, and the call costs little.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D>
+int launch_fwd(const Params& p, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
+  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_pre(const Params& p, cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.H * p.T;
+  flash_bwd_pre_kernel<D>
+      <<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkdv(const Params& p, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
+  flash_bwd_dkdv_kernel<D><<<grid, kThreads, dkdv_smem<D>(), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const Params& p, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, dq_smem<D>());
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
+  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int (*L64)(const Params&, cudaStream_t),
+          int (*L128)(const Params&, cudaStream_t)>
+int dispatch(int device, const Params& p, int D, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (p.B <= 0 || p.H <= 0 || p.T <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return D == 64 ? L64(p, (cudaStream_t)stream)
+                 : L128(p, (cudaStream_t)stream);
+}
+
+Params base(int B, int H, int T, int causal, float scale) {
+  Params p = {};
+  p.B = B;
+  p.H = H;
+  p.T = T;
+  p.causal = causal;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every tensor argument is a bf16 [B, H, T, D] view, D = 64 or 128
+// contiguous, with the element strides of B, H and T given three by three
+// in `strides` (host memory), in argument order. lse and di are fp32
+// [B, H, T] contiguous. device: the CUDA ordinal of the tensors and stream.
+
+// o = softmax(q k^T * scale) v, lse = logsumexp(q k^T * scale).
+// strides: q, k, v, o.
+int hvd_flash_fwd(int device, const void* q, const void* k, const void* v,
+                  void* o, float* lse, const long long* strides, int B, int H,
+                  int T, int D, int causal, float scale, void* stream) {
+  Params p = base(B, H, T, causal, scale);
+  p.q = view(q, strides, 0);
+  p.k = view(k, strides, 1);
+  p.v = view(v, strides, 2);
+  p.o = view(o, strides, 3);
+  p.lse_out = lse;
+  return dispatch<launch_fwd<64>, launch_fwd<128>>(device, p, D, stream);
+}
+
+// di = rowsum(dout * o). strides: o, dout.
+int hvd_flash_bwd_pre(int device, const void* o, const void* dout, float* di,
+                      const long long* strides, int B, int H, int T, int D,
+                      void* stream) {
+  Params p = base(B, H, T, 0, 0.f);
+  p.o = view(o, strides, 0);
+  p.dout = view(dout, strides, 1);
+  p.di_out = di;
+  return dispatch<launch_pre<64>, launch_pre<128>>(device, p, D, stream);
+}
+
+// dk = ds^T q * scale, dv = p^T dout, p = exp(q k^T * scale - lse),
+// ds = p * (dout v^T - di). strides: q, k, v, dout, dk, dv.
+int hvd_flash_bwd_dkdv(int device, const void* q, const void* k,
+                       const void* v, const void* dout, const float* lse,
+                       const float* di, void* dk, void* dv,
+                       const long long* strides, int B, int H, int T, int D,
+                       int causal, float scale, void* stream) {
+  Params p = base(B, H, T, causal, scale);
+  p.q = view(q, strides, 0);
+  p.k = view(k, strides, 1);
+  p.v = view(v, strides, 2);
+  p.dout = view(dout, strides, 3);
+  p.dk = view(dk, strides, 4);
+  p.dv = view(dv, strides, 5);
+  p.lse_in = lse;
+  p.di_in = di;
+  return dispatch<launch_dkdv<64>, launch_dkdv<128>>(device, p, D, stream);
+}
+
+// dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
+int hvd_flash_bwd_dq(int device, const void* q, const void* k, const void* v,
+                     const void* dout, const float* lse, const float* di,
+                     void* dq, const long long* strides, int B, int H, int T,
+                     int D, int causal, float scale, void* stream) {
+  Params p = base(B, H, T, causal, scale);
+  p.q = view(q, strides, 0);
+  p.k = view(k, strides, 1);
+  p.v = view(v, strides, 2);
+  p.dout = view(dout, strides, 3);
+  p.dq = view(dq, strides, 4);
+  p.lse_in = lse;
+  p.di_in = di;
+  return dispatch<launch_dq<64>, launch_dq<128>>(device, p, D, stream);
+}
+
+}  // extern "C"

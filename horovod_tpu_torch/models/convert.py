@@ -1,4 +1,4 @@
-"""Carry the JAX package's ResNet weights into the port.
+"""Carry the JAX package's weights into the port.
 
 ``resnet_from_flax(variables)`` turns the ``{"params", "batch_stats"}`` trees
 of ``horovod_tpu.models.resnet.ResNet`` (leaves as numpy arrays, or anything
@@ -10,6 +10,9 @@ of ``horovod_tpu.models.resnet.ResNet`` (leaves as numpy arrays, or anything
   bias, mean and var become weight, bias, running_mean and running_var;
 - ``BottleneckBlock_i`` becomes ``blocks.i``, ``Conv_k`` ``conv{k}``,
   ``Dense_0`` ``fc``.
+
+``transformer_from_jax`` and ``vit_from_flax`` do the same for the decoder
+LM and the ViT.
 """
 
 from __future__ import annotations
@@ -73,4 +76,59 @@ def resnet_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
         for k in [k for k in out if k.endswith(".running_mean")]:
             out[k[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0)
+    return out
+
+
+def transformer_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """State dict of the port's :class:`Transformer` from the reference's
+    ``init_params`` tree: ``embed`` and ``ln_f`` as they are, each
+    ``layers`` leaf (stacked on a leading n_layers axis) unstacked into
+    ``layers.{i}.{name}``. The leaf shapes are the same in both."""
+    out = {name: torch.tensor(np.asarray(params[name], dtype=np.float32))
+           for name in ("embed", "ln_f")}
+    for name, stacked in params["layers"].items():
+        arr = np.asarray(stacked, dtype=np.float32)
+        if arr.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{name} stacks {arr.shape[0]} layers, "
+                             f"the config has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{name}"] = torch.tensor(arr[i])
+    return out
+
+
+_VIT_MODULES = {"LayerNorm_0": "ln1", "LayerNorm_1": "ln2", "q": "wq",
+                "k": "wk", "v": "wv", "o": "wo", "Dense_0": "fc1",
+                "Dense_1": "fc2"}
+_LN_LEAVES = {"scale": "weight", "bias": "bias"}
+
+
+def vit_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's :class:`ViT` from the flax model's
+    ``params``: ``block_i`` becomes ``blocks.i``; the LayerNorms' scale and
+    bias become weight and bias; the ``DenseGeneral`` q/k/v/o kernels keep
+    their [D, H, Dh] / [H, Dh, D] shapes; ``Dense`` kernels are transposed;
+    the patchify kernel goes from HWIO to OIHW."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, key, arr in _leaves(params):
+        if path and path[0].startswith("block_"):
+            block = f"blocks.{path[0][len('block_'):]}"
+            module = _VIT_MODULES[path[1]]
+            if module.startswith("w"):
+                name = f"{block}.{module}"
+            elif module.startswith("ln"):
+                name = f"{block}.{module}.{_LN_LEAVES[key]}"
+            elif key == "kernel":                       # Dense: (in, out)
+                name, arr = f"{block}.{module}.weight", arr.T
+            else:
+                name = f"{block}.{module}.{key}"
+        elif not path:                                  # cls, pos_embed
+            name = key
+        elif path[0] == "LayerNorm_0":
+            name = f"ln_f.{_LN_LEAVES[key]}"
+        elif key == "kernel":                           # patchify, head
+            name = f"{path[0]}.weight"
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        else:
+            name = f"{path[0]}.{key}"
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -27,6 +27,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _LLP = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
 # C entry points and their argument types: every pointer and the stream are
 # c_void_p (ctypes would otherwise pass a Python int as a 32-bit int)
 SIGNATURES = {
@@ -35,6 +36,14 @@ SIGNATURES = {
     "hvd_bn_stats": [_I, _P, _I, _LL, _I, _I, _P, _P, _P, _P],
     "hvd_bn_bwd_stats": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _P,
                          _P],
+    # (device, tensors..., strides, B, H, T, D, [causal, scale,] stream)
+    "hvd_flash_fwd": [_I, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F,
+                      _P],
+    "hvd_flash_bwd_pre": [_I, _P, _P, _P, _LLP, _I, _I, _I, _I, _P],
+    "hvd_flash_bwd_dkdv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I,
+                           _I, _I, _I, _F, _P],
+    "hvd_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I,
+                         _I, _I, _F, _P],
 }
 RESTYPES = {"hvd_pack_tile_bytes": ctypes.c_longlong}
 

@@ -2,13 +2,17 @@
 
 Counterpart of ``horovod_tpu/ops/pallas_kernels.py``:
 
-==========================  ==============================  ===============
-TPU kernel (Pallas)         CUDA kernel (``csrc/``)         wrapper here
-==========================  ==============================  ===============
-``pack_pallas``             ``pack.cu``                     :func:`pack`
-``bn_stats_pallas``         ``bn_stats.cu`` (forward)       :func:`bn_stats`
-``bn_bwd_stats_pallas``     ``bn_stats.cu`` (backward)      :func:`bn_bwd_stats`
-==========================  ==============================  ===============
+=========================  ===================  ==========================
+TPU kernel (Pallas)        CUDA (``csrc/``)     wrapper here
+=========================  ===================  ==========================
+``pack_pallas``            ``pack.cu``          :func:`pack`
+``bn_stats_pallas``        ``bn_stats.cu``      :func:`bn_stats`
+``bn_bwd_stats_pallas``    ``bn_stats.cu``      :func:`bn_bwd_stats`
+jax's flash forward        ``flash_attn.cu``    :func:`flash_fwd`
+jax's flash backward       ``flash_attn.cu``    :func:`flash_bwd_pre`,
+                                                :func:`flash_bwd_dkdv`,
+                                                :func:`flash_bwd_dq`
+=========================  ===================  ==========================
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -19,6 +23,7 @@ count. There is no fallback from a CUDA tensor to the plain version.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Sequence, Tuple
 
@@ -210,7 +215,207 @@ def bn_bwd_stats(dy2d, x2d, mean, invstd):
 bn_bwd_stats.launches = 0
 
 
-KERNELS = (pack, bn_stats, bn_bwd_stats)
+# ---------------------------------------------------------------------------
+# K6: flash attention, forward and backward
+# ---------------------------------------------------------------------------
+#
+# Every tensor is a [B, H, T, D] view with any strides for B, H and T (a
+# [B, T, H, D] tensor transposed is taken as it is). lse and di are fp32
+# [B, H, T], contiguous. The backward takes lse and di from outside: under a
+# global lse, as ring attention's per-block backward needs, it is the same
+# kernel.
+
+FLASH_HEAD_DIMS = (64, 128)
+
+
+def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
+    return torch.ones(tq, tk, dtype=torch.bool, device=device).tril()
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool, scale: float):
+    """(o, lse): softmax(q kᵀ · scale) v with the reference's casts (scores
+    and softmax in fp32, p cast to ``v.dtype`` before the PV product, o in
+    ``q.dtype``) and lse = logsumexp of the scaled scores, fp32 [B, H, T]."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(s.shape[-2], s.shape[-1], s.device),
+                          float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype), lse
+
+
+def flash_bwd_pre_plain(o, do):
+    """di = rowsum(do ∘ o) in fp32, [B, H, T]."""
+    return (o.float() * do.float()).sum(-1)
+
+
+def _flash_bwd_p_ds(q, k, v, do, lse, di, causal, scale):
+    """The flash backward's p = exp(s·scale − lse) and ds = p ∘ (dp − di),
+    with dp = do vᵀ, all fp32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_mask(p.shape[-2], p.shape[-1], p.device),
+                          0.0)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - di[..., None])
+
+
+def flash_bwd_dkdv_plain(q, k, v, do, lse, di, causal: bool, scale: float):
+    """(dk, dv) = (dsᵀ q · scale, pᵀ do), with p and ds cast to the input
+    dtype before their products (the kernel's rounding points)."""
+    p, ds = _flash_bwd_p_ds(q, k, v, do, lse, di, causal, scale)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                      q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, di, causal: bool, scale: float):
+    """dq = ds k · scale, ds cast to the input dtype before the product."""
+    _, ds = _flash_bwd_p_ds(q, k, v, do, lse, di, causal, scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
+                              scale: float):
+    """(dq, dk, dv) of :func:`flash_attention_fwd_plain` by the flash
+    backward's own formulas: di = rowsum(do ∘ o), p = exp(s·scale − lse),
+    ds = p ∘ (dp − di)."""
+    di = flash_bwd_pre_plain(o, do)
+    dk, dv = flash_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
+    return flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale), dk, dv
+
+
+def flash_strides_ok(t: torch.Tensor) -> bool:
+    """Whether the CUDA kernels take ``t``'s memory as it is: a contiguous
+    head dim, B/H/T strides that are multiples of 8 elements and 16-byte
+    aligned data."""
+    return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_flash(named, shape=None, device=None):
+    """Raise on what the CUDA kernels do not take; return (B, H, T, D)."""
+    for name, t in named:
+        if t.device.type != "cuda" or (device is not None
+                                       and t.device != device):
+            raise ValueError(f"flash attention: {name} is on {t.device}, "
+                             f"expected {device or 'a CUDA device'}")
+        device = t.device
+        if t.dtype != torch.bfloat16:
+            raise ValueError(
+                f"flash attention on CUDA takes bfloat16; {name} is "
+                f"{t.dtype} (other dtypes are not ported: ROADMAP B2)")
+        if t.dim() != 4 or (shape is not None and t.shape != shape):
+            raise ValueError(f"flash attention: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape or '4-d'}")
+        shape = t.shape
+        if shape[-1] not in FLASH_HEAD_DIMS:
+            raise ValueError(
+                f"flash attention on CUDA takes head dim in "
+                f"{FLASH_HEAD_DIMS}; {name} has {shape[-1]} (other head "
+                "dims are not ported: ROADMAP B2)")
+        if not flash_strides_ok(t):
+            raise ValueError(
+                f"flash attention: {name} needs a contiguous head dim, B/H/T "
+                f"strides that are multiples of 8 and 16-byte aligned data; "
+                f"got strides {t.stride()}")
+    return tuple(shape), device
+
+
+def _check_stats(named, bht, device):
+    for name, t in named:
+        if t.dtype != torch.float32 or tuple(t.shape) != bht \
+                or t.device != device or not t.is_contiguous():
+            raise ValueError(f"flash attention: {name} must be a contiguous "
+                             f"float32 {bht} tensor on {device}")
+
+
+def _strides(*ts) -> ctypes.Array:
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *[s for t in ts for s in t.stride()[:3]])
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float):
+    """(o, lse) of attention on [B, H, T, D] views; o is laid out as q."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal, scale)
+    (b, h, t, d), device = _check_flash((("q", q), ("k", k), ("v", v)))
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=device)
+    _check(_lib().hvd_flash_fwd(
+        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _strides(q, k, v, o), b, h, t, d, int(causal),
+        scale, _stream(device)), "flash_fwd")
+    flash_fwd.launches += 1
+    return o, lse
+
+
+flash_fwd.launches = 0
+
+
+def flash_bwd_pre(o, do):
+    """di = rowsum(do ∘ o), fp32 [B, H, T]."""
+    if o.device.type == "cpu":
+        return flash_bwd_pre_plain(o, do)
+    (b, h, t, d), device = _check_flash((("o", o), ("do", do)))
+    di = torch.empty(b, h, t, dtype=torch.float32, device=device)
+    _check(_lib().hvd_flash_bwd_pre(
+        device.index, o.data_ptr(), do.data_ptr(), di.data_ptr(),
+        _strides(o, do), b, h, t, d, _stream(device)), "flash_bwd_pre")
+    flash_bwd_pre.launches += 1
+    return di
+
+
+flash_bwd_pre.launches = 0
+
+
+def flash_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
+    """(dk, dv) under the given lse and di; laid out as k and v."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
+    (b, h, t, d), device = _check_flash(
+        (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_stats((("lse", lse), ("di", di)), (b, h, t), device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _check(_lib().hvd_flash_bwd_dkdv(
+        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, t, d,
+        int(causal), scale, _stream(device)), "flash_bwd_dkdv")
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkdv.launches = 0
+
+
+def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
+    """dq under the given lse and di; laid out as q."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
+    (b, h, t, d), device = _check_flash(
+        (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_stats((("lse", lse), ("di", di)), (b, h, t), device)
+    dq = torch.empty_like(q)
+    _check(_lib().hvd_flash_bwd_dq(
+        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        _strides(q, k, v, do, dq), b, h, t, d, int(causal), scale,
+        _stream(device)), "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+KERNELS = (pack, bn_stats, bn_bwd_stats, flash_fwd, flash_bwd_pre,
+           flash_bwd_dkdv, flash_bwd_dq)
 
 
 def reset_launch_counts():

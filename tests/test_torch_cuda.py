@@ -1,6 +1,7 @@
 """horovod_tpu_torch on the card: each CUDA kernel against its plain
 version, the fused BatchNorm and a small ResNet training through the
-kernels, and the engine's grouped allreduce through the pack kernel on NCCL.
+kernels, a small LM and ViT through the flash-attention kernels, and the
+engine's grouped allreduce through the pack kernel on NCCL.
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -13,7 +14,10 @@ NCCL and skip with fewer than two cards.
 Without a GPU every test skips. Tolerances: the BN statistics are fp32 sums
 of the same values in another order; a thread of the kernel sums up to a few
 thousand terms in sequence, so they agree within 1e-4 of sum |terms|. The
-pack is a copy and must be bitwise.
+pack is a copy and must be bitwise. The flash-attention kernels are held to
+an fp32 computation from the same bf16 inputs: their error may be twice the
+bf16 plain version's, plus 1e-3 of the largest entry (see
+``_assert_flash_close``).
 """
 
 import numpy as np
@@ -23,8 +27,13 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.core.engine import bucket_by_size
 from horovod_tpu_torch.models.resnet import ResNet18ish
+from horovod_tpu_torch.models.transformer import (Transformer,
+                                                  TransformerConfig,
+                                                  lean_lm_loss)
+from horovod_tpu_torch.models.vit import ViT
 from horovod_tpu_torch.ops import kernels as K
 from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
+from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
 from torch_worker import mlp_data, mlp_params, run_world, shard_rows
 
 pytestmark = pytest.mark.cuda
@@ -148,6 +157,152 @@ def test_cuda_grouped_allreduce_through_the_pack_kernel(cuda, monkeypatch):
         assert K.launch_counts()["pack"] == 2 * n_buckets
     finally:
         hvd.shutdown()
+
+
+def _flash_inputs(dev, b, h, t, d, layout, seed=0):
+    """bf16 q, k, v, do as [B, H, T, D] views of tensors laid out as
+    ``layout`` (a "bthk" tensor is passed transposed, with its strides)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, t, h, d) if layout == "bthk" else (b, h, t, d)
+    ts = [torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+          for _ in range(4)]
+    return [x.transpose(1, 2) for x in ts] if layout == "bthk" else ts
+
+
+def _assert_flash_close(name, got, want32, plain):
+    """The kernel's error against the fp32 plain version is at most twice
+    the bf16 plain version's, plus 1e-3 of the largest entry (other
+    rounding points: p relative to the running max, sums in another order),
+    plus 1e-5 for outputs that are zero up to rounding (dq and dk at
+    T = 1)."""
+    err = float((got.float() - want32).abs().max())
+    base = float((plain.float() - want32).abs().max())
+    bound = 2 * base + 1e-3 * float(want32.abs().max()) + 1e-5
+    assert err <= bound, f"{name}: error {err:.3g} > {bound:.3g}"
+
+
+@pytest.mark.parametrize("layout", ["bhtk", "bthk"])
+@pytest.mark.parametrize("t", [1, 63, 64, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_kernels_match_plain(cuda, d, causal, t, layout):
+    q, k, v, do = _flash_inputs(cuda, 2, 3, t, d, layout)
+    scale = d ** -0.5
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, lse32 = K.flash_attention_fwd_plain(*f32[:3], causal, scale)
+    dq32, dk32, dv32 = K.flash_attention_bwd_plain(
+        *f32[:3], o32, lse32, f32[3], causal, scale)
+    ob, lseb = K.flash_attention_fwd_plain(q, k, v, causal, scale)
+    dqb, dkb, dvb = K.flash_attention_bwd_plain(q, k, v, ob, lseb, do,
+                                                causal, scale)
+    n0 = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, causal, scale)
+    di = K.flash_bwd_pre(o, do)
+    dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale)
+    dq = K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+    torch.cuda.synchronize()
+    assert o.stride() == q.stride() and dq.stride() == q.stride()
+    for name, got, want, plain in (("o", o, o32, ob),
+                                   ("lse", lse, lse32, lseb),
+                                   ("dq", dq, dq32, dqb),
+                                   ("dk", dk, dk32, dkb),
+                                   ("dv", dv, dv32, dvb)):
+        _assert_flash_close(name, got, want, plain)
+    torch.testing.assert_close(di, K.flash_bwd_pre_plain(o, do), rtol=1e-5,
+                               atol=1e-5)
+    counts = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
+                 "flash_bwd_dq"):
+        assert counts[name] == n0[name] + 1
+    again = K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+    assert torch.equal(again, dq)        # no atomics: bitwise repeatable
+
+
+def test_cuda_flash_rejects_what_it_does_not_take(cuda):
+    q, k, v, _ = _flash_inputs(cuda, 1, 2, 64, 64, "bhtk")
+    with pytest.raises(ValueError, match="bfloat16"):
+        K.flash_fwd(q.float(), k.float(), v.float(), True, 0.125)
+    q96 = torch.zeros(1, 2, 64, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        K.flash_fwd(q96, q96, q96, True, 0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_local(q96, q96, q96, layout="bhtk")
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention_local(q.float(), k.float(), v.float(), layout="bhtk")
+
+
+@pytest.mark.parametrize("layout", ["bthk", "bhtk"])
+def test_cuda_flash_attention_local_autograd(cuda, layout):
+    """The autograd function on the card against the plain path on the
+    CPU, and one launch of each kernel per forward and backward."""
+    q, k, v, do = _flash_inputs(cuda, 2, 4, 197, 64, layout, seed=1)
+    if layout == "bthk":
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ins = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        n0 = K.launch_counts()
+        out = flash_attention_local(*ins, causal=False, layout=layout)
+        out.backward(do.to(dev))
+        outs[dev] = [out.detach().float().cpu()] + [
+            x.grad.float().cpu() for x in ins]
+        n1 = K.launch_counts()
+        assert all(n1[name] - n0[name] == (dev == "cuda")
+                   for name in ("flash_fwd", "flash_bwd_pre",
+                                "flash_bwd_dkdv", "flash_bwd_dq"))
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=2e-2,
+                                   atol=2e-2 * float(a.abs().max()))
+
+
+def test_cuda_flash_backward_takes_an_expanded_gradient(cuda):
+    """out.sum() hands the backward a stride-0 gradient: it is copied, not
+    refused, and the result is the plain version's."""
+    q, k, v, _ = _flash_inputs(cuda, 1, 2, 70, 64, "bhtk", seed=2)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        ins = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        flash_attention_local(*ins, layout="bhtk").sum().backward()
+        grads[dev] = [x.grad.float().cpu() for x in ins]
+    for a, b in zip(grads["cpu"], grads["cuda"]):
+        torch.testing.assert_close(b, a, rtol=2e-2,
+                                   atol=2e-2 * float(a.abs().max()))
+
+
+def test_cuda_transformer_trains_through_the_flash_kernels(cuda):
+    cfg = TransformerConfig(vocab_size=256, d_model=256, n_heads=2,
+                            n_layers=2, d_ff=512, max_seq=128,
+                            dtype=torch.bfloat16, attention="flash")
+    model = Transformer(cfg).to(cuda)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, 256, (2, 129), device=cuda, generator=gen)
+    K.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = lean_lm_loss(model, tokens[:, :-1], tokens[:, 1:])
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    counts = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
+                 "flash_bwd_dq"):
+        assert counts[name] == 2 * 3, (name, counts)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_cuda_vit_runs_the_flash_kernels(cuda):
+    model = ViT(num_classes=10, patch=16, d_model=128, n_layers=2,
+                n_heads=2, d_ff=256, image_size=64).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(4, 64, 64, 3, device=cuda, generator=gen)
+    K.reset_launch_counts()
+    logits = model(x)
+    logits.float().square().mean().backward()
+    assert logits.shape == (4, 10) and bool(torch.isfinite(logits).all())
+    assert K.launch_counts()["flash_fwd"] == 2
+    assert K.launch_counts()["flash_bwd_dq"] == 2
 
 
 @pytest.fixture

@@ -158,7 +158,54 @@ def _optimizer_scenario(hvd, rank: int, size: int) -> dict:
     return {"traj": traj}
 
 
-SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario}
+def lm_config():
+    """The tiny fp32 decoder LM of the ``lm`` scenario."""
+    import torch
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(vocab_size=64, d_model=32, n_heads=4,
+                             n_layers=2, d_ff=64, max_seq=16,
+                             dtype=torch.float32, attention="flash")
+
+
+def lm_tokens():
+    """4 sequences of 17 tokens: inputs are [:, :-1], targets [:, 1:]."""
+    return np.random.RandomState(9).randint(0, 64, size=(4, 17))
+
+
+LM_STEPS = 3
+
+
+def _lm_scenario(hvd, rank: int, size: int) -> dict:
+    """The flagship loop at toy size: broadcast_parameters, then
+    DistributedOptimizer(AdamW) on this rank's rows of the batch."""
+    import torch
+    from horovod_tpu_torch.models.transformer import Transformer, lean_lm_loss
+    # every rank starts from its own weights: broadcast_parameters must make
+    # them rank 0's
+    model = Transformer(lm_config(),
+                        generator=torch.Generator().manual_seed(rank))
+    model.to(hvd.device())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        op=hvd.Average)
+    tokens = lm_tokens()[shard_rows(rank, size, 4)]
+    x = torch.from_numpy(tokens[:, :-1]).to(hvd.device())
+    y = torch.from_numpy(tokens[:, 1:]).to(hvd.device())
+    losses = []
+    for _ in range(LM_STEPS):
+        opt.zero_grad()
+        loss = lean_lm_loss(model, x, y)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    return {"losses": losses,
+            "params": {n: p.detach().cpu().numpy()
+                       for n, p in model.named_parameters()}}
+
+
+SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
+             "lm": _lm_scenario}
 
 
 def main(argv):
