@@ -22,12 +22,23 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    ``DistributedOptimizer(AdamW)`` (losses finite and falling, tokens/s);
 6. runs ``hvd.grouped_allreduce`` on the LM's gradients through the pack
    kernel (the 268 MB embedding gradient is a bucket of its own);
-7. trains ViT-B/16 at batch 32, 224 px, three SGD-momentum steps.
+7. trains ViT-B/16 at batch 32, 224 px, three SGD-momentum steps;
+8. holds the three K7 ring-segment kernels against their plain versions
+   computed in fp32 from the same bf16 inputs, at the zig-zag ring's FULL
+   and DIAG half-segments of B1 H16 T8192 D128 (strided lse/di halves),
+   the contiguous n=1 ring's whole segment and a T = 2000, D 64 tail-tile
+   shape, and times them beside SDPA's forward (a yardstick only);
+9. drives ring attention's multi-rank code path on one card
+   (``ring_attention_p(..., force_ring=True)``) at bench.py's
+   ``bench_sp_ring`` shape, B1 T8192 H16 D128 bf16, zig-zag and
+   contiguous, forward and backward of sum(out²), against K6 on the same
+   inputs, and times the three in turns.
 
-Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7) and
-read just after it; every kernel of the path must have launched there (53
-BN layers per ResNet step for each BN kernel, one pack per 64 MB bucket,
-one of each K6 kernel per attention layer and step). Any failed check
+Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9)
+and read just after it; every kernel of the path must have launched there
+(53 BN layers per ResNet step for each BN kernel, one pack per 64 MB
+bucket, one of each K6 kernel per attention layer and step, 3 of each K7
+kernel per zig-zag ring call and 1 per contiguous one). Any failed check
 exits non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -59,6 +70,23 @@ LM_DIMS = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=4,
                d_ff=8192, max_seq=2048)
 LM_WINDOW_STEPS = 5            # steps in each timed window of the LM
 VIT_LAYERS = 12
+# K7 at the ring path's segments: (what, B, H, T, D, part) with q, k, v
+# [B, T, H, D]; "full" is q's zig-zag hi half against the lo half of k/v
+# (S = T/2, every key visible), "diag" the lo halves (the causal diagonal),
+# "whole" the contiguous n=1 ring's one segment (S = T). lse and di are the
+# causal attention's over all T, their halves strided as the ring has them.
+SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full"),
+              ("zigzag half, DIAG", 1, 16, 8192, 128, "diag"),
+              ("contiguous n=1, DIAG", 1, 16, 8192, 128, "whole"),
+              ("tail tile, FULL", 4, 8, 2000, 64, "full"),
+              ("tail tile, DIAG", 4, 8, 2000, 64, "diag"))
+SEG_KERNELS = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
+# the ring path on one card: bench.py:bench_sp_ring's shape, B, T, H, D
+RING_SHAPE = (1, 8192, 16, 128)
+RING_WINDOWS = 5               # timed windows of each ring-path variant
+RING_WINDOW_CALLS = 4          # forward + backward calls in each window
+# K7 launches of one ring forward + backward at n = 1, per layout
+RING_LAUNCHES = {"zigzag": 3, "contiguous": 1}
 
 
 class SmokeFailure(Exception):
@@ -389,6 +417,239 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
     return rows, summary
 
 
+def seg_work(b, h, s, d, causal):
+    """Per K7 kernel on one [B, H, S, D] segment: (bytes, operations, peak
+    operations/s), counted as for K6 with fp32 outputs."""
+    pairs = flash_pairs(b, h, s, causal)
+    x = b * h * s * d * 2          # one bf16 [B, H, S, D] tensor
+    xf = 2 * x                     # one fp32 [B, H, S, D] tensor
+    st = b * h * s * 4             # one fp32 [B, H, S] tensor (lse, di)
+    return {
+        "flash_seg_fwd": (3 * x + xf + st, 4 * d * pairs, BF16_FLOPS),
+        "flash_seg_bwd_dkdv": (4 * x + 2 * st + 2 * xf, 8 * d * pairs,
+                               BF16_FLOPS),
+        "flash_seg_bwd_dq": (4 * x + 2 * st + xf, 6 * d * pairs, BF16_FLOPS),
+    }
+
+
+def check_seg_kernels(torch, K, dev, flush, reps, log):
+    """K7 against its plain versions at each of SEG_SHAPES, as phase 4 holds
+    K6: each output's error against the plain version in fp32 (from the
+    same bf16 inputs) is at most twice the bf16 plain version's, plus 1e-3
+    of the largest entry, and the kernels give the same bits on the strided
+    views as on contiguous copies of them. Returns a row per kernel
+    (numbers at the first shape, every shape under "shapes")."""
+    import torch.nn.functional as F
+    rows = {n: {"shapes": []} for n in SEG_KERNELS}
+    for what, b, h, t, d, part in SEG_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+        scale = d ** -0.5
+        # the global lse and di of causal attention over all T (K6)
+        o, lse = K.flash_fwd(q, k, v, True, scale)
+        di = K.flash_bwd_pre(o, do)
+        del o
+        s = t if part == "whole" else t // 2
+        rows_q = slice(t - s, t) if part == "full" else slice(0, s)
+        rows_kv = slice(0, s)
+        causal = part != "full"
+        seg = (q[:, :, rows_q], k[:, :, rows_kv], v[:, :, rows_kv],
+               do[:, :, rows_q], lse[:, :, rows_q], di[:, :, rows_q])
+        sq, sk, sv, sdo, slse, sdi = seg
+        f32 = [x.float() for x in seg]
+        o32, lse32 = K.flash_seg_fwd_plain(*f32[:3], causal, scale)
+        dq32, dk32, dv32 = K.flash_seg_bwd_plain(
+            f32[0], f32[1], f32[2], f32[4], f32[3], f32[5], causal, scale)
+        del f32
+        ob, lseb = K.flash_seg_fwd_plain(sq, sk, sv, causal, scale)
+        dqb, dkb, dvb = K.flash_seg_bwd_plain(sq, sk, sv, slse, sdo, sdi,
+                                              causal, scale)
+        kargs = (sq, sk, sv, sdo, slse, sdi, causal, scale)
+        o_k, lse_k = K.flash_seg_fwd(sq, sk, sv, causal, scale)
+        dk_k, dv_k = K.flash_seg_bwd_dkdv(*kargs)
+        dq_k = K.flash_seg_bwd_dq(*kargs)
+        cont = [x.contiguous() for x in seg]
+        again = (*K.flash_seg_fwd(*cont[:3], causal, scale),
+                 *K.flash_seg_bwd_dkdv(*cont, causal, scale),
+                 K.flash_seg_bwd_dq(*cont, causal, scale))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b_) for a, b_ in
+                  zip((o_k, lse_k, dk_k, dv_k, dq_k), again)),
+              f"K7 {what}: strided views and contiguous copies differ")
+        del cont, again
+        err = {}
+        for name, got, want, plain in (
+                ("o", o_k, o32, ob), ("lse", lse_k, lse32, lseb),
+                ("dq", dq_k, dq32, dqb), ("dk", dk_k, dk32, dkb),
+                ("dv", dv_k, dv32, dvb)):
+            check(bool(torch.isfinite(got).all()),
+                  f"K7 {what} {name}: not finite")
+            err[name] = float((got.float() - want).abs().max())
+            base = float((plain.float() - want).abs().max())
+            limit = 2 * base + 1e-3 * float(want.abs().max())
+            log(f"  {what} {name}: kernel error {err[name]:.4g}, bf16 "
+                f"plain error {base:.4g}, limit {limit:.4g}")
+            check(err[name] <= limit,
+                  f"K7 {what} {name}: error {err[name]:.4g} > {limit:.4g}")
+        del o32, lse32, dq32, dk32, dv32, ob, lseb, dqb, dkb, dvb
+        errors = {"flash_seg_fwd": max(err["o"], err["lse"]),
+                  "flash_seg_bwd_dkdv": max(err["dk"], err["dv"]),
+                  "flash_seg_bwd_dq": err["dq"]}
+        calls = {
+            "flash_seg_fwd": (
+                lambda: K.flash_seg_fwd(sq, sk, sv, causal, scale),
+                lambda: K.flash_seg_fwd_plain(sq, sk, sv, causal, scale)),
+            "flash_seg_bwd_dkdv": (
+                lambda: K.flash_seg_bwd_dkdv(*kargs),
+                lambda: K.flash_seg_bwd_dkdv_plain(*kargs)),
+            "flash_seg_bwd_dq": (
+                lambda: K.flash_seg_bwd_dq(*kargs),
+                lambda: K.flash_seg_bwd_dq_plain(*kargs)),
+        }
+        with torch.no_grad():
+            sdpa_ms, _ = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, is_causal=causal), flush, reps)
+        work = seg_work(b, h, s, d, causal)
+        for name, (kern, plain) in calls.items():
+            ms, host_ms = time_ms(torch, kern, flush, reps)
+            plain_ms, _ = time_ms(torch, plain, flush, max(3, reps // 4))
+            nbytes, ops, peak = work[name]
+            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)
+            entry = dict(what=what, shape=[b, h, s, d], causal=causal,
+                         ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms,
+                         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                                   >= ops / peak else "operations"),
+                         library_ms=(sdpa_ms if name == "flash_seg_fwd"
+                                     else None),
+                         max_abs_err=errors[name])
+            rows[name]["shapes"].append(entry)
+            log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
+                f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({entry['bound_by']})"
+                + (f", SDPA forward {sdpa_ms:.4f} ms"
+                   if name == "flash_seg_fwd" else ""))
+        del q, k, v, do, lse, di, seg, sq, sk, sv, sdo, slse, sdi, kargs
+        del o_k, lse_k, dk_k, dv_k, dq_k, calls
+        torch.cuda.empty_cache()
+    for name in SEG_KERNELS:
+        first = rows[name]["shapes"][0]
+        rows[name].update({key: first[key] for key in
+                           ("ms", "host_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")})
+        rows[name]["max_abs_err"] = max(e["max_abs_err"]
+                                        for e in rows[name]["shapes"])
+    return rows
+
+
+def run_ring_path(torch, K, R, fa, dev, log):
+    """Phase 9: ring attention's multi-rank code path on one card
+    (``force_ring=True``, identity hop), zig-zag and contiguous, forward
+    and backward of sum(out²) at RING_SHAPE, against K6 on the same inputs.
+    Checks the outputs and gradients, the K7 launches of each call, and
+    times the three in turns. Returns the ``ring`` summary."""
+    b, t, h, d = RING_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(4)
+    base = [(torch.randn(b, t, h, d, device=dev, generator=gen) * 0.3)
+            .to(torch.bfloat16) for _ in range(3)]
+
+    def fwd_bwd(fn):
+        q, k, v = (x.detach().requires_grad_() for x in base)
+        out = fn(q, k, v)
+        (out.float() ** 2).sum().backward()
+        return out.detach(), q.grad, k.grad, v.grad
+
+    paths = {
+        layout: (lambda q, k, v, layout=layout: R.ring_attention_p(
+            q, k, v, None, 1, causal=True, layout=layout, force_ring=True))
+        for layout in RING_LAUNCHES}
+    paths["flash"] = lambda q, k, v: fa.flash_attention_local(q, k, v,
+                                                              causal=True)
+
+    # references, [B, H, T, D]: fp32 from the same bf16 inputs, and the
+    # bf16 plain version, each with its own loss's gradient 2·out
+    f32 = [x.float().transpose(1, 2) for x in base]
+    o32, lse32 = K.flash_attention_fwd_plain(*f32, True, scale)
+    ref32 = (o32, *K.flash_attention_bwd_plain(*f32, o32, lse32, 2 * o32,
+                                               True, scale))
+    del f32, lse32
+    bf = [x.transpose(1, 2) for x in base]
+    ob, lseb = K.flash_attention_fwd_plain(*bf, True, scale)
+    refb = (ob, *K.flash_attention_bwd_plain(
+        *bf, ob, lseb, (2 * ob.float()).to(torch.bfloat16), True, scale))
+    del bf, lseb
+    names = ("out", "dq", "dk", "dv")
+    base_err = [float((x.float() - w).abs().max())
+                for x, w in zip(refb, ref32)]
+    limits = [2 * e + 1e-3 * float(w.abs().max())
+              for e, w in zip(base_err, ref32)]
+    del refb
+
+    K.reset_launch_counts()
+    results, per_call = {}, {}
+    for name, fn in paths.items():
+        n0 = K.launch_counts()
+        res = fwd_bwd(fn)
+        torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        per_call[name] = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+        results[name] = [x.transpose(1, 2) for x in res]
+    log(f"  launches per forward + backward: {per_call}")
+    for layout, count in RING_LAUNCHES.items():
+        for kern in SEG_KERNELS:
+            check(per_call[layout].get(kern, 0) == count,
+                  f"{layout} ring: {kern} launched "
+                  f"{per_call[layout].get(kern, 0)} times, expected {count}")
+        check(per_call[layout].get("flash_fwd", 0) == 0,
+              f"{layout} ring launched K6's forward")
+    errors = {}
+    for layout in RING_LAUNCHES:
+        for name, got, want, w32, lim in zip(
+                names, results[layout], results["flash"], ref32, limits):
+            e = float((got.float() - want.float()).abs().max())
+            e32 = float((got.float() - w32).abs().max())
+            errors[f"{layout}_{name}"] = e
+            log(f"  {layout} ring {name}: against K6 {e:.4g} (limit "
+                f"{lim:.4g}), against fp32 {e32:.4g}")
+            check(bool(torch.isfinite(got).all()),
+                  f"{layout} ring {name}: not finite")
+            check(e <= lim, f"{layout} ring {name}: {e:.4g} from K6 > "
+                  f"{lim:.4g}")
+    del results, ref32
+
+    windows = {name: [] for name in paths}
+    for _ in range(RING_WINDOWS):
+        for name, fn in paths.items():   # in turns: drift hits all alike
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(RING_WINDOW_CALLS):
+                fwd_bwd(fn)
+            end.record()
+            torch.cuda.synchronize()
+            windows[name].append(start.elapsed_time(end) / RING_WINDOW_CALLS)
+    ms = {name: statistics.median(w) for name, w in windows.items()}
+    pairs = flash_pairs(b, h, t, True)
+    products_ms = 1e3 * 14 * d * pairs / BF16_FLOPS
+    di_ms = 1e3 * (2 * b * h * t * d * 2 + b * h * t * 4) / HBM_BYTES_PER_S
+    for name, w in windows.items():
+        log(f"  {name}: {ms[name]:.4f} ms per forward + backward (windows "
+            f"{', '.join(f'{x:.4f}' for x in w)})")
+    ratio = ms["flash"] / ms["zigzag"]
+    log(f"  K6 / zig-zag ring time (the reference's sp_ring_path_vs_flash): "
+        f"{ratio:.4f}; bound {products_ms + di_ms:.4f} ms ({products_ms:.4f} "
+        f"ms of products, {di_ms:.4f} ms of di bytes)")
+    return dict(shape=list(RING_SHAPE), ms=ms, windows=windows,
+                ring_path_vs_flash=ratio,
+                bound_ms=products_ms + di_ms, products_bound_ms=products_ms,
+                launches_per_call=per_call, max_abs_err_vs_flash=errors,
+                limits=dict(zip(names, limits)))
+
+
 def make_lm_trainer(torch, hvd, tm, dev, batch):
     """The flagship LM, its data and optimizer; returns one train step."""
     cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
@@ -538,6 +799,7 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.models.resnet import ResNet50
     from horovod_tpu_torch.models.vit import ViT_B16
     from horovod_tpu_torch.ops import build, kernels as K
+    from horovod_tpu_torch.parallel import flash_attention, ring_attention
 
     def log(msg):
         print(msg, flush=True)
@@ -709,6 +971,22 @@ def main(argv=None) -> int:
                   f"expected {VIT_LAYERS * 3}")
         del vit, vit_opt, images
         torch.cuda.empty_cache()
+
+        log("phase 8: K7 ring-segment kernels against their plain versions")
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+        seg_rows = check_seg_kernels(torch, K, dev, flush, args.reps, log)
+        del flush
+        torch.cuda.empty_cache()
+
+        b, t, h, d = RING_SHAPE
+        log(f"phase 9: the ring path on one card (force_ring), B{b} T{t} "
+            f"H{h} D{d} causal, zig-zag and contiguous, against K6")
+        K.reset_launch_counts()
+        ring = run_ring_path(torch, K, ring_attention, flash_attention, dev,
+                             log)
+        ring_counts = K.launch_counts()
+        log(f"  launches on the ring path: {ring_counts}")
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -743,12 +1021,22 @@ def main(argv=None) -> int:
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
              **flash_rows[name])
-        for name in FLASH_KERNELS]
+        for name in FLASH_KERNELS] + [
+        # the ring's per-segment kernels: _seg_fwd_pallas and the two
+        # library backward kernels _seg_bwd_pallas calls
+        dict(name=name, route="cuda", source=f"{src}/flash_attn.cu",
+             replaces=f"horovod_tpu/parallel/ring_attention.py:{line}",
+             launches=ring_counts[name], ok=True,
+             work="the zig-zag ring's FULL half-segment (B1 H16 S4096 D128); "
+                  "shapes lists every shape",
+             **seg_rows[name])
+        for name, line in zip(SEG_KERNELS, (169, 188, 194))]
     print(json.dumps({"kernels": kernels, "img_per_s": img_s,
                       "img_per_s_windows": rates, "batch": args.batch,
                       "tokens_per_s": tok_s, "tokens_per_s_windows":
                       tok_rates, "lm_batch": lm_batch,
-                      "lm_peak_gib": lm_peak, "attention": attention}))
+                      "lm_peak_gib": lm_peak, "attention": attention,
+                      "ring": ring}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,10 @@ package's Pallas kernels rewritten by hand in CUDA C++ for Hopper::
 
 Ported so far: the world, the eager engine (allreduce, grouped allreduce,
 allgather, broadcast, barrier, async handles), ``DistributedOptimizer``, the
-broadcast helpers, ResNet with the fused BatchNorm, and the decoder LM and
-ViT on the flash-attention kernel.
+broadcast helpers, ResNet with the fused BatchNorm, the decoder LM and ViT
+on the flash-attention kernel, and sequence parallelism (ring attention,
+Ulysses, the LM's loss and train step over a (data, seq) mesh;
+``horovod_tpu_torch.parallel``).
 """
 
 from __future__ import annotations

@@ -36,8 +36,20 @@
 //   no float atomics: results repeat bitwise.
 // The backward takes lse and di from outside, so under a global lse it is
 // ring attention's per-block backward as well.
+//
+// K7, ring attention's per-segment kernels (horovod_tpu/parallel/
+// ring_attention.py :_seg_fwd_pallas, :_seg_bwd_pallas), are the same
+// three kernels instantiated with fp32 outputs (OutT = float): the ring
+// merges block outputs and adds block gradients over its hops in fp32, so
+// o, dq, dk and dv leave the registers unrounded. Their lse and di are
+// [B, H, S] views with B and H strides (the zig-zag halves of a [B, H, T]
+// tensor). A row that sees no key writes o = 0 and lse = -1e30, a finite
+// sentinel the ring's merge needs (logaddexp(-inf, -inf) is NaN). A
+// segment is the aligned causal diagonal (DIAG, causal=1) or all-visible
+// (FULL, causal=0): K6's two cases. Bounded by operations, like K6.
 // Not yet here (later work): cp.async/TMA double buffering, wgmma, warp
-// specialisation, ldmatrix.
+// specialisation, ldmatrix; fusing the ring's fp32 accumulation into the
+// stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,26 +65,56 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;   // bf16 elements of padding at the end of a row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
 
 // A [B, H, T, D] view: base pointer and element strides of B, H and T (the
 // D stride is 1).
-struct View {
-  const bf16* p;
+template <typename T>
+struct ViewT {
+  const T* p;
   long long sb, sh, st;
+};
+typedef ViewT<bf16> View;
+typedef ViewT<float> FView;
+
+// A [B, H, T] fp32 statistic (lse, di): base pointer and the element
+// strides of B and H (the T stride is 1).
+struct Stat {
+  float* p;
+  long long sb, sh;
 };
 
 struct Params {
-  View q, k, v, o, dout, dq, dk, dv;
-  const float* lse_in;
-  const float* di_in;
-  float* lse_out;
-  float* di_out;
+  View q, k, v, o, dout, dq, dk, dv;   // bf16 tensors (K6's outputs)
+  FView of, dqf, dkf, dvf;             // fp32 outputs (K7)
+  Stat lse_in, di_in, lse_out, di_out;
   int B, H, T, causal;
   float scale;
 };
 
-__device__ __forceinline__ const bf16* head_ptr(const View& t, int b, int h) {
+template <typename T>
+__device__ __forceinline__ const T* head_ptr(const ViewT<T>& t, int b,
+                                             int h) {
   return t.p + (long long)b * t.sb + (long long)h * t.sh;
+}
+
+__device__ __forceinline__ float* stat_row(const Stat& s, int b, int h) {
+  return s.p + (long long)b * s.sb + (long long)h * s.sh;
+}
+
+// The output view of the element type OutT: K6's bf16 one or K7's fp32 one.
+template <typename OutT>
+__device__ __forceinline__ const ViewT<OutT>& pick(const View& b,
+                                                   const FView& f);
+template <>
+__device__ __forceinline__ const View& pick<bf16>(const View& b,
+                                                  const FView&) {
+  return b;
+}
+template <>
+__device__ __forceinline__ const FView& pick<float>(const View&,
+                                                    const FView& f) {
+  return f;
 }
 
 __device__ __forceinline__ uint32_t ld32(const bf16* s) {
@@ -175,23 +217,31 @@ __device__ __forceinline__ void gemm_pv(float acc[D / 8][4],
   }
 }
 
+// Two neighbouring output elements: rounded to one bf16 pair, or as fp32.
+__device__ __forceinline__ void store2(bf16* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store2(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
 // rows r_lo = r0 + g and r_lo + 8 of a 16 x D accumulator, times mul[i],
 // to the rows < T of one head of `out`.
-template <int D>
-__device__ __forceinline__ void store_rows(const View& out, int b, int h,
-                                           int r_lo, int T,
+template <int D, typename OutT>
+__device__ __forceinline__ void store_rows(const ViewT<OutT>& out, int b,
+                                           int h, int r_lo, int T,
                                            const float acc[D / 8][4],
                                            const float mul[2], int tig) {
-  bf16* head = const_cast<bf16*>(head_ptr(out, b, h));
+  OutT* head = const_cast<OutT*>(head_ptr(out, b, h));
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_lo + 8 * i;
     if (r >= T) continue;
-    bf16* row = head + (long long)r * out.st;
+    OutT* row = head + (long long)r * out.st;
 #pragma unroll
     for (int dj = 0; dj < D / 8; ++dj) {
-      *reinterpret_cast<uint32_t*>(row + dj * 8 + tig * 2) =
-          pack_bf16(acc[dj][2 * i] * mul[i], acc[dj][2 * i + 1] * mul[i]);
+      store2(row + dj * 8 + tig * 2, acc[dj][2 * i] * mul[i],
+             acc[dj][2 * i + 1] * mul[i]);
     }
   }
 }
@@ -199,7 +249,7 @@ __device__ __forceinline__ void store_rows(const View& out, int b, int h,
 template <int D>
 constexpr int fwd_smem() { return 3 * 64 * (D + kPad) * 2; }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
   constexpr int BQ = 64, BK = 64, LD = D + kPad;
@@ -278,15 +328,17 @@ flash_fwd_kernel(const Params p) {
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
+    // a row that saw no key: o = 0, lse = the finite sentinel
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
-  store_rows<D>(p.o, b, h, r_lo, p.T, o, inv, tig);
+  store_rows<D>(pick<OutT>(p.o, p.of), b, h, r_lo, p.T, o, inv, tig);
   if (tig == 0) {
+    float* lse = stat_row(p.lse_out, b, h);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r_lo + 8 * i;
       if (r < p.T)
-        p.lse_out[(long long)bh * p.T + r] = m[i] * kLn2 + logf(l[i]);
+        lse[r] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
     }
   }
 }
@@ -315,7 +367,7 @@ flash_bwd_pre_kernel(const Params p) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.di_out[row] = acc;
+  if (lane == 0) stat_row(p.di_out, b, h)[t] = acc;
 }
 
 template <int D>
@@ -323,7 +375,7 @@ constexpr int dkdv_smem() {
   return (2 * 64 + 2 * 32) * (D + kPad) * 2 + 2 * 32 * 4;
 }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const Params p) {
   constexpr int BKV = 64, BQ = 32, LD = D + kPad;
@@ -341,8 +393,8 @@ flash_bwd_dkdv_kernel(const Params p) {
   const int g = lane >> 2, tig = lane & 3;
   const int r_lo = kv0 + warp * 16 + g;   // kv rows of this thread
   const float sl2 = p.scale * kLog2e;
-  const float* lse = p.lse_in + (long long)bh * p.T;
-  const float* di = p.di_in + (long long)bh * p.T;
+  const float* lse = stat_row(p.lse_in, b, h);
+  const float* di = stat_row(p.di_in, b, h);
 
   load_tile<D, BKV>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.T);
   load_tile<D, BKV>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.T);
@@ -392,14 +444,14 @@ flash_bwd_dkdv_kernel(const Params p) {
     gemm_pv<D, BQ / 16>(dk, dst, qs, g, tig);
   }
   const float one[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
-  store_rows<D>(p.dk, b, h, r_lo, p.T, dk, sc, tig);
-  store_rows<D>(p.dv, b, h, r_lo, p.T, dv, one, tig);
+  store_rows<D>(pick<OutT>(p.dk, p.dkf), b, h, r_lo, p.T, dk, sc, tig);
+  store_rows<D>(pick<OutT>(p.dv, p.dvf), b, h, r_lo, p.T, dv, one, tig);
 }
 
 template <int D>
 constexpr int dq_smem() { return (2 * 64 + 2 * 32) * (D + kPad) * 2; }
 
-template <int D>
+template <int D, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Params p) {
   constexpr int BQ = 64, BKV = 32, LD = D + kPad;
@@ -414,12 +466,14 @@ flash_bwd_dq_kernel(const Params p) {
   const int g = lane >> 2, tig = lane & 3;
   const int r_lo = q0 + warp * 16 + g;
   const float sl2 = p.scale * kLog2e;
+  const float* lse = stat_row(p.lse_in, b, h);
+  const float* di = stat_row(p.di_in, b, h);
   float lse_r[2], di_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_lo + 8 * i;
-    lse_r[i] = r < p.T ? p.lse_in[(long long)bh * p.T + r] * kLog2e : 0.f;
-    di_r[i] = r < p.T ? p.di_in[(long long)bh * p.T + r] : 0.f;
+    lse_r[i] = r < p.T ? lse[r] * kLog2e : 0.f;
+    di_r[i] = r < p.T ? di[r] : 0.f;
   }
   load_tile<D, BQ>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.T);
   load_tile<D, BQ>(dos, head_ptr(p.dout, b, h), p.dout.st, q0, p.T);
@@ -451,12 +505,33 @@ flash_bwd_dq_kernel(const Params p) {
     gemm_pv<D, BKV / 16>(dq, s, ks, g, tig);
   }
   const float sc[2] = {p.scale, p.scale};
-  store_rows<D>(p.dq, b, h, r_lo, p.T, dq, sc, tig);
+  store_rows<D>(pick<OutT>(p.dq, p.dqf), b, h, r_lo, p.T, dq, sc, tig);
+}
+
+template <typename T>
+ViewT<T> view_of(const void* ptr, const long long* strides, int i) {
+  return ViewT<T>{reinterpret_cast<const T*>(ptr), strides[3 * i],
+                  strides[3 * i + 1], strides[3 * i + 2]};
 }
 
 View view(const void* ptr, const long long* strides, int i) {
-  return View{reinterpret_cast<const bf16*>(ptr), strides[3 * i],
-              strides[3 * i + 1], strides[3 * i + 2]};
+  return view_of<bf16>(ptr, strides, i);
+}
+
+FView fview(const void* ptr, const long long* strides, int i) {
+  return view_of<float>(ptr, strides, i);
+}
+
+// A statistic whose B and H strides follow the n tensors' strides, two by
+// two: strides[3n + 2j], strides[3n + 2j + 1].
+Stat stat(const float* ptr, const long long* strides, int n, int j) {
+  return Stat{const_cast<float*>(ptr), strides[3 * n + 2 * j],
+              strides[3 * n + 2 * j + 1]};
+}
+
+// A contiguous [B, H, T] statistic.
+Stat dense_stat(const float* ptr, int H, int T) {
+  return Stat{const_cast<float*>(ptr), (long long)H * T, (long long)T};
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory. The attribute
@@ -468,12 +543,12 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch_fwd(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, fwd_smem<D>());
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, OutT>, fwd_smem<D>());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
-  flash_fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), stream>>>(p);
+  flash_fwd_kernel<D, OutT><<<grid, kThreads, fwd_smem<D>(), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -485,21 +560,23 @@ int launch_pre(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch_dkdv(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, dkdv_smem<D>());
+  cudaError_t err =
+      allow_smem(flash_bwd_dkdv_kernel<D, OutT>, dkdv_smem<D>());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, dkdv_smem<D>(), stream>>>(p);
+  flash_bwd_dkdv_kernel<D, OutT>
+      <<<grid, kThreads, dkdv_smem<D>(), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OutT>
 int launch_dq(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, dq_smem<D>());
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, OutT>, dq_smem<D>());
   if (err != cudaSuccess) return (int)err;
   dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
-  flash_bwd_dq_kernel<D><<<grid, kThreads, dq_smem<D>(), stream>>>(p);
+  flash_bwd_dq_kernel<D, OutT><<<grid, kThreads, dq_smem<D>(), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -524,27 +601,40 @@ Params base(int B, int H, int T, int causal, float scale) {
   return p;
 }
 
+// q, k, v (and dout) of a forward or backward launch: the first n views.
+Params inputs(const void* q, const void* k, const void* v, const void* dout,
+              const long long* strides, int B, int H, int T, int causal,
+              float scale) {
+  Params p = base(B, H, T, causal, scale);
+  p.q = view(q, strides, 0);
+  p.k = view(k, strides, 1);
+  p.v = view(v, strides, 2);
+  if (dout != nullptr) p.dout = view(dout, strides, 3);
+  return p;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Every tensor argument is a bf16 [B, H, T, D] view, D = 64 or 128
+// Every bf16 tensor argument is a [B, H, T, D] view, D = 64 or 128
 // contiguous, with the element strides of B, H and T given three by three
-// in `strides` (host memory), in argument order. lse and di are fp32
-// [B, H, T] contiguous. device: the CUDA ordinal of the tensors and stream.
+// in `strides` (host memory), in argument order. device: the CUDA ordinal
+// of the tensors and stream.
+//
+// K6 (flash attention): outputs are bf16 views as well; lse and di are
+// fp32 [B, H, T] contiguous.
 
 // o = softmax(q k^T * scale) v, lse = logsumexp(q k^T * scale).
 // strides: q, k, v, o.
 int hvd_flash_fwd(int device, const void* q, const void* k, const void* v,
                   void* o, float* lse, const long long* strides, int B, int H,
                   int T, int D, int causal, float scale, void* stream) {
-  Params p = base(B, H, T, causal, scale);
-  p.q = view(q, strides, 0);
-  p.k = view(k, strides, 1);
-  p.v = view(v, strides, 2);
+  Params p = inputs(q, k, v, nullptr, strides, B, H, T, causal, scale);
   p.o = view(o, strides, 3);
-  p.lse_out = lse;
-  return dispatch<launch_fwd<64>, launch_fwd<128>>(device, p, D, stream);
+  p.lse_out = dense_stat(lse, H, T);
+  return dispatch<launch_fwd<64, bf16>, launch_fwd<128, bf16>>(device, p, D,
+                                                               stream);
 }
 
 // di = rowsum(dout * o). strides: o, dout.
@@ -554,7 +644,7 @@ int hvd_flash_bwd_pre(int device, const void* o, const void* dout, float* di,
   Params p = base(B, H, T, 0, 0.f);
   p.o = view(o, strides, 0);
   p.dout = view(dout, strides, 1);
-  p.di_out = di;
+  p.di_out = dense_stat(di, H, T);
   return dispatch<launch_pre<64>, launch_pre<128>>(device, p, D, stream);
 }
 
@@ -565,16 +655,13 @@ int hvd_flash_bwd_dkdv(int device, const void* q, const void* k,
                        const float* di, void* dk, void* dv,
                        const long long* strides, int B, int H, int T, int D,
                        int causal, float scale, void* stream) {
-  Params p = base(B, H, T, causal, scale);
-  p.q = view(q, strides, 0);
-  p.k = view(k, strides, 1);
-  p.v = view(v, strides, 2);
-  p.dout = view(dout, strides, 3);
+  Params p = inputs(q, k, v, dout, strides, B, H, T, causal, scale);
   p.dk = view(dk, strides, 4);
   p.dv = view(dv, strides, 5);
-  p.lse_in = lse;
-  p.di_in = di;
-  return dispatch<launch_dkdv<64>, launch_dkdv<128>>(device, p, D, stream);
+  p.lse_in = dense_stat(lse, H, T);
+  p.di_in = dense_stat(di, H, T);
+  return dispatch<launch_dkdv<64, bf16>, launch_dkdv<128, bf16>>(device, p, D,
+                                                                 stream);
 }
 
 // dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
@@ -582,15 +669,60 @@ int hvd_flash_bwd_dq(int device, const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* di,
                      void* dq, const long long* strides, int B, int H, int T,
                      int D, int causal, float scale, void* stream) {
-  Params p = base(B, H, T, causal, scale);
-  p.q = view(q, strides, 0);
-  p.k = view(k, strides, 1);
-  p.v = view(v, strides, 2);
-  p.dout = view(dout, strides, 3);
+  Params p = inputs(q, k, v, dout, strides, B, H, T, causal, scale);
   p.dq = view(dq, strides, 4);
-  p.lse_in = lse;
-  p.di_in = di;
-  return dispatch<launch_dq<64>, launch_dq<128>>(device, p, D, stream);
+  p.lse_in = dense_stat(lse, H, T);
+  p.di_in = dense_stat(di, H, T);
+  return dispatch<launch_dq<64, bf16>, launch_dq<128, bf16>>(device, p, D,
+                                                             stream);
+}
+
+// K7 (ring attention's segments, T = the segment length S): the same
+// functions with fp32 outputs, [B, H, S, D] views whose strides follow the
+// bf16 inputs' in `strides`; lse and di are fp32 [B, H, S] views whose B and
+// H strides come last in `strides`, two by two (their T stride is 1).
+
+// (o, lse) of one segment. strides: q, k, v, o; then lse.
+int hvd_flash_seg_fwd(int device, const void* q, const void* k,
+                      const void* v, float* o, float* lse,
+                      const long long* strides, int B, int H, int T, int D,
+                      int causal, float scale, void* stream) {
+  Params p = inputs(q, k, v, nullptr, strides, B, H, T, causal, scale);
+  p.of = fview(o, strides, 3);
+  p.lse_out = stat(lse, strides, 4, 0);
+  return dispatch<launch_fwd<64, float>, launch_fwd<128, float>>(device, p,
+                                                                 D, stream);
+}
+
+// (dk, dv) of one segment under the given lse and di.
+// strides: q, k, v, dout, dk, dv; then lse, di.
+int hvd_flash_seg_bwd_dkdv(int device, const void* q, const void* k,
+                           const void* v, const void* dout, const float* lse,
+                           const float* di, float* dk, float* dv,
+                           const long long* strides, int B, int H, int T,
+                           int D, int causal, float scale, void* stream) {
+  Params p = inputs(q, k, v, dout, strides, B, H, T, causal, scale);
+  p.dkf = fview(dk, strides, 4);
+  p.dvf = fview(dv, strides, 5);
+  p.lse_in = stat(lse, strides, 6, 0);
+  p.di_in = stat(di, strides, 6, 1);
+  return dispatch<launch_dkdv<64, float>, launch_dkdv<128, float>>(
+      device, p, D, stream);
+}
+
+// dq of one segment under the given lse and di.
+// strides: q, k, v, dout, dq; then lse, di.
+int hvd_flash_seg_bwd_dq(int device, const void* q, const void* k,
+                         const void* v, const void* dout, const float* lse,
+                         const float* di, float* dq, const long long* strides,
+                         int B, int H, int T, int D, int causal, float scale,
+                         void* stream) {
+  Params p = inputs(q, k, v, dout, strides, B, H, T, causal, scale);
+  p.dqf = fview(dq, strides, 4);
+  p.lse_in = stat(lse, strides, 5, 0);
+  p.di_in = stat(di, strides, 5, 1);
+  return dispatch<launch_dq<64, float>, launch_dq<128, float>>(device, p, D,
+                                                               stream);
 }
 
 }  // extern "C"

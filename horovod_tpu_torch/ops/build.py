@@ -45,6 +45,13 @@ SIGNATURES = {
     "hvd_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I,
                          _I, _I, _F, _P],
 }
+# K7 takes K6's arguments, with fp32 outputs and the statistics' strides
+# appended to `strides`
+SIGNATURES.update({
+    "hvd_flash_seg_fwd": SIGNATURES["hvd_flash_fwd"],
+    "hvd_flash_seg_bwd_dkdv": SIGNATURES["hvd_flash_bwd_dkdv"],
+    "hvd_flash_seg_bwd_dq": SIGNATURES["hvd_flash_bwd_dq"],
+})
 RESTYPES = {"hvd_pack_tile_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()

@@ -12,6 +12,9 @@ jax's flash forward        ``flash_attn.cu``    :func:`flash_fwd`
 jax's flash backward       ``flash_attn.cu``    :func:`flash_bwd_pre`,
                                                 :func:`flash_bwd_dkdv`,
                                                 :func:`flash_bwd_dq`
+``_seg_fwd_pallas``        ``flash_attn.cu``    :func:`flash_seg_fwd`
+``_seg_bwd_pallas``        ``flash_attn.cu``    :func:`flash_seg_bwd_dkdv`,
+                                                :func:`flash_seg_bwd_dq`
 =========================  ===================  ==========================
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
@@ -414,8 +417,157 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
 flash_bwd_dq.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K7: ring attention's per-segment kernels
+# ---------------------------------------------------------------------------
+#
+# One (q block, kv block) interaction of the ring, on [B, H, S, D] views of
+# equal length S: the aligned causal diagonal (DIAG, causal=True) or a block
+# that sees every key (FULL, causal=False). The forward gives the block's
+# output normalised within the block and its lse, both fp32, for the ring's
+# fp32 merge; the backward gives fp32 (dq, dk, dv) under the ring's GLOBAL
+# lse and di, which the ring adds up over its hops. K6's tile code with fp32
+# stores; lse and di may be strided [B, H, S] views (the zig-zag halves).
+
+NEG_INF = -1e30   # the lse of a row that sees no key: finite, so merges stay
+
+
+def flash_seg_fwd_plain(q, k, v, causal: bool, scale: float):
+    """(o, lse), both fp32: the reference's ``_seg_fwd_jax`` semantics.
+    Scores and softmax in fp32, p cast to ``v.dtype`` before the PV product
+    (fp32 accumulation), o normalised within the block, never rounded. A
+    row that sees no key gets o = 0 and lse = -1e30, not -inf or NaN."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(s.shape[-2], s.shape[-1], s.device),
+                          float("-inf"))
+    m = s.amax(-1)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    seen = l > 0
+    o = o / torch.where(seen, l, torch.ones_like(l))[..., None]
+    lse = torch.where(seen, m + torch.log(torch.where(seen, l, 1.0)),
+                      torch.full_like(l, NEG_INF))
+    return o, lse
+
+
+def _seg_bwd_p_ds(q, k, v, do, lse, di, causal, scale):
+    """p = exp(s·scale − lse), masked entries 0, and ds = p ∘ (dp − di),
+    fp32, both cast to the input dtype as the kernel does before its
+    products (a no-op in fp32, where this is ``_seg_bwd_jax`` exactly)."""
+    p, ds = _flash_bwd_p_ds(q, k, v, do, lse, di, causal, scale)
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def flash_seg_bwd_dkdv_plain(q, k, v, do, lse, di, causal: bool,
+                             scale: float):
+    """fp32 (dk, dv) = (dsᵀ q · scale, pᵀ do) under the given lse and di."""
+    p, ds = _seg_bwd_p_ds(q, k, v, do, lse, di, causal, scale)
+    dv = torch.matmul(p.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dk, dv
+
+
+def flash_seg_bwd_dq_plain(q, k, v, do, lse, di, causal: bool, scale: float):
+    """fp32 dq = ds k · scale under the given lse and di."""
+    _, ds = _seg_bwd_p_ds(q, k, v, do, lse, di, causal, scale)
+    return torch.matmul(ds, k.float()) * scale
+
+
+def flash_seg_bwd_plain(q, k, v, lse, do, di, causal: bool, scale: float):
+    """fp32 (dq, dk, dv) of one segment under the ring's global lse and di:
+    the reference's ``_seg_bwd_jax`` (argument order included). No
+    lse-cotangent term: p is the block's slice of the global softmax."""
+    dk, dv = flash_seg_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
+    return flash_seg_bwd_dq_plain(q, k, v, do, lse, di, causal, scale), dk, dv
+
+
+def _check_seg_stats(named, bhs, device):
+    """lse and di: fp32 [B, H, S] views with a unit T stride and 16-byte
+    aligned rows, as a zig-zag half of a contiguous [B, H, T] tensor is."""
+    for name, t in named:
+        if t.dtype != torch.float32 or tuple(t.shape) != bhs \
+                or t.device != device or t.stride(-1) != 1:
+            raise ValueError(f"ring segment: {name} must be a float32 {bhs} "
+                             f"view on {device} with a unit last stride")
+
+
+def _seg_strides(bf16s, f32s, stats) -> ctypes.Array:
+    """The strides the C entry points take: B, H and T of each [B, H, S, D]
+    tensor, then B and H of each [B, H, S] statistic."""
+    vals = [s for t in bf16s + f32s for s in t.stride()[:3]]
+    vals += [s for t in stats for s in t.stride()[:2]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _seg_out(q):
+    b, h, s, d = q.shape
+    return torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)
+
+
+def flash_seg_fwd(q, k, v, causal: bool, scale: float):
+    """(o fp32 [B, H, S, D], lse fp32 [B, H, S]) of one ring segment."""
+    if q.device.type == "cpu":
+        return flash_seg_fwd_plain(q, k, v, causal, scale)
+    (b, h, s, d), device = _check_flash((("q", q), ("k", k), ("v", v)))
+    o = _seg_out(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=device)
+    _check(_lib().hvd_flash_seg_fwd(
+        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _seg_strides([q, k, v], [o], [lse]), b, h, s, d,
+        int(causal), scale, _stream(device)), "flash_seg_fwd")
+    flash_seg_fwd.launches += 1
+    return o, lse
+
+
+flash_seg_fwd.launches = 0
+
+
+def flash_seg_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
+    """fp32 (dk, dv) of one ring segment under the global lse and di."""
+    if q.device.type == "cpu":
+        return flash_seg_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
+    (b, h, s, d), device = _check_flash(
+        (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_seg_stats((("lse", lse), ("di", di)), (b, h, s), device)
+    dk, dv = _seg_out(k), _seg_out(v)
+    _check(_lib().hvd_flash_seg_bwd_dkdv(
+        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _seg_strides([q, k, v, do], [dk, dv], [lse, di]), b,
+        h, s, d, int(causal), scale, _stream(device)), "flash_seg_bwd_dkdv")
+    flash_seg_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_seg_bwd_dkdv.launches = 0
+
+
+def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
+    """fp32 dq of one ring segment under the global lse and di."""
+    if q.device.type == "cpu":
+        return flash_seg_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
+    (b, h, s, d), device = _check_flash(
+        (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_seg_stats((("lse", lse), ("di", di)), (b, h, s), device)
+    dq = _seg_out(q)
+    _check(_lib().hvd_flash_seg_bwd_dq(
+        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, d,
+        int(causal), scale, _stream(device)), "flash_seg_bwd_dq")
+    flash_seg_bwd_dq.launches += 1
+    return dq
+
+
+flash_seg_bwd_dq.launches = 0
+
+
 KERNELS = (pack, bn_stats, bn_bwd_stats, flash_fwd, flash_bwd_pre,
-           flash_bwd_dkdv, flash_bwd_dq)
+           flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd, flash_seg_bwd_dkdv,
+           flash_seg_bwd_dq)
 
 
 def reset_launch_counts():

@@ -34,7 +34,9 @@ from horovod_tpu_torch.models.vit import ViT
 from horovod_tpu_torch.ops import kernels as K
 from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
-from torch_worker import mlp_data, mlp_params, run_world, shard_rows
+from torch_worker import (SP_CARD_DIMS, SP_LRS, SP_STEPS, SP_VARIANTS,
+                          mlp_data, mlp_params, run_world, shard_rows,
+                          sp_card_model, sp_card_tokens)
 
 pytestmark = pytest.mark.cuda
 
@@ -305,6 +307,116 @@ def test_cuda_vit_runs_the_flash_kernels(cuda):
     assert K.launch_counts()["flash_bwd_dq"] == 2
 
 
+def _seg_case(dev, b, h, s, d, part, seed=0):
+    """One ring segment as the zig-zag ring hands it: q, k, v, do halves of
+    [B, 2S, H, D] tensors (taken as [B, H, T, D] views) and the strided
+    halves of the causal attention's lse and di over all 2S rows."""
+    q, k, v, do = _flash_inputs(dev, b, h, 2 * s, d, "bthk", seed)
+    o, lse = K.flash_fwd(q, k, v, True, d ** -0.5)
+    di = K.flash_bwd_pre(o, do)
+    rows_q = slice(s, 2 * s) if part == "full" else slice(0, s)
+    lo = slice(0, s)
+    return (q[:, :, rows_q], k[:, :, lo], v[:, :, lo], do[:, :, rows_q],
+            lse[:, :, rows_q], di[:, :, rows_q]), part == "diag"
+
+
+@pytest.mark.parametrize("part", ["full", "diag"])
+@pytest.mark.parametrize("s", [1, 64, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_seg_kernels_match_plain(cuda, d, s, part):
+    """K7 on strided halves against its plain versions in fp32 (the same
+    bound as K6's), bitwise equal to itself on contiguous copies, fp32
+    outputs, one launch counted per call."""
+    seg, causal = _seg_case(cuda, 2, 3, s, d, part)
+    scale = d ** -0.5
+    f32 = [x.float() for x in seg]
+    o32, lse32 = K.flash_seg_fwd_plain(*f32[:3], causal, scale)
+    dq32, dk32, dv32 = K.flash_seg_bwd_plain(
+        f32[0], f32[1], f32[2], f32[4], f32[3], f32[5], causal, scale)
+    ob, lseb = K.flash_seg_fwd_plain(*seg[:3], causal, scale)
+    dqb, dkb, dvb = K.flash_seg_bwd_plain(seg[0], seg[1], seg[2], seg[4],
+                                          seg[3], seg[5], causal, scale)
+    n0 = K.launch_counts()
+    o, lse = K.flash_seg_fwd(*seg[:3], causal, scale)
+    dk, dv = K.flash_seg_bwd_dkdv(*seg, causal, scale)
+    dq = K.flash_seg_bwd_dq(*seg, causal, scale)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for name in ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq"):
+        assert counts[name] == n0[name] + 1
+    assert counts["flash_fwd"] == n0["flash_fwd"]
+    for name, got, want, plain in (("o", o, o32, ob),
+                                   ("lse", lse, lse32, lseb),
+                                   ("dq", dq, dq32, dqb),
+                                   ("dk", dk, dk32, dkb),
+                                   ("dv", dv, dv32, dvb)):
+        assert got.dtype == torch.float32
+        _assert_flash_close(name, got, want, plain)
+    cont = [x.contiguous() for x in seg]
+    again = (*K.flash_seg_fwd(*cont[:3], causal, scale),
+             *K.flash_seg_bwd_dkdv(*cont, causal, scale),
+             K.flash_seg_bwd_dq(*cont, causal, scale))
+    for a, b in zip((o, lse, dk, dv, dq), again):
+        assert torch.equal(a, b)
+
+
+def test_cuda_k6_keeps_its_bf16_outputs(cuda):
+    """K6 and K7 share their tile code; K6's outputs stay bf16, laid out
+    as its inputs."""
+    q, k, v, do = _flash_inputs(cuda, 1, 2, 100, 64, "bthk", seed=3)
+    o, lse = K.flash_fwd(q, k, v, True, 0.125)
+    di = K.flash_bwd_pre(o, do)
+    dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, True, 0.125)
+    assert o.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert o.stride() == q.stride() and lse.is_contiguous()
+    o32, _ = K.flash_seg_fwd(q, k, v, True, 0.125)
+    torch.testing.assert_close(o.float(), o32, rtol=0, atol=2 ** -8 *
+                               float(o32.abs().max()))
+
+
+@pytest.mark.parametrize("layout", ["zigzag", "contiguous"])
+def test_cuda_ring_path_matches_flash(cuda, layout):
+    """The ring at n = 1 (force_ring) against K6 on the same inputs, output
+    and gradients of sum(out²), within twice the bf16 plain version's error
+    against fp32 plus 1e-3 of the largest entry; 3 (zig-zag) or 1
+    (contiguous) launch of each K7 kernel a call, none of K6's forward."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention_p
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    base = [(0.3 * torch.randn(2, 256, 4, 64, device=cuda, generator=gen))
+            .to(torch.bfloat16) for _ in range(3)]
+    outs = {}
+    for name in ("ring", "flash"):
+        q, k, v = (x.detach().requires_grad_() for x in base)
+        n0 = K.launch_counts()
+        if name == "ring":
+            out = ring_attention_p(q, k, v, None, 1, causal=True,
+                                   layout=layout, force_ring=True)
+        else:
+            out = flash_attention_local(q, k, v, causal=True)
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        if name == "ring":
+            want = 3 if layout == "zigzag" else 1
+            for kern in ("flash_seg_fwd", "flash_seg_bwd_dkdv",
+                         "flash_seg_bwd_dq"):
+                assert n1[kern] - n0[kern] == want
+            assert n1["flash_fwd"] == n0["flash_fwd"]
+        outs[name] = [out.detach(), q.grad, k.grad, v.grad]
+    f32 = [x.float().transpose(1, 2) for x in base]
+    o32, lse32 = K.flash_attention_fwd_plain(*f32, True, 0.125)
+    ref32 = (o32, *K.flash_attention_bwd_plain(*f32, o32, lse32, 2 * o32,
+                                               True, 0.125))
+    bf = [x.transpose(1, 2) for x in base]
+    ob, lseb = K.flash_attention_fwd_plain(*bf, True, 0.125)
+    refb = (ob, *K.flash_attention_bwd_plain(
+        *bf, ob, lseb, (2 * ob.float()).to(torch.bfloat16), True, 0.125))
+    for got, want, w32, wb in zip(outs["ring"], outs["flash"], ref32, refb):
+        err = float((got.float() - want.float()).abs().max())
+        base_err = float((wb.float() - w32).abs().max())
+        assert err <= 2 * base_err + 1e-3 * float(w32.abs().max())
+
+
 @pytest.fixture
 def cards(cuda):
     n = torch.cuda.device_count()
@@ -363,3 +475,43 @@ def test_cuda_cards_optimizer_on_nccl(cards, tmp_path):
             np.testing.assert_allclose(
                 got[1], ref[2].weight.detach().numpy().T, rtol=1e-4,
                 atol=1e-5)
+
+
+@pytest.mark.parametrize("seq", [2, 4])
+def test_cuda_cards_sp_train_step_on_nccl(cards, tmp_path, seq):
+    """The LM's sequence-parallel train step with ``seq`` cards on the seq
+    axis (ring contiguous, ring zig-zag, Ulysses; K7 or K6 on NCCL) against
+    one card training on the whole batch with K6: the ranks agree bitwise,
+    the losses to 2e-2 relative and each parameter's change over two SGD
+    steps to 5e-2 of its largest entry (bf16 attention, rounded at other
+    places by the two paths)."""
+    from horovod_tpu_torch.models.transformer import (TransformerConfig,
+                                                      _local_loss)
+    if seq > cards:
+        pytest.skip(f"needs {seq} CUDA devices")
+    res = run_world("sp_cards", seq, tmp_path, device="cuda")
+    dev = torch.device("cuda", 0)
+    x, y = (torch.from_numpy(a).to(dev) for a in sp_card_tokens())
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                            **SP_CARD_DIMS)
+    model = sp_card_model(cfg, dev)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = torch.optim.SGD(model.parameters(), lr=SP_LRS["sgd"])
+    losses = []
+    for _ in range(SP_STEPS):
+        opt.zero_grad()
+        total, count = _local_loss(model, x, y)
+        (total / count).backward()
+        opt.step()
+        losses.append(float(total.detach() / count))
+    for case in SP_VARIANTS:
+        for r in res[1:]:
+            for name, p in res[0][case]["params"].items():
+                np.testing.assert_array_equal(r[case]["params"][name], p)
+        np.testing.assert_allclose(res[0][case]["losses"], losses,
+                                   rtol=2e-2)
+        for name, p in model.named_parameters():
+            want = (p.detach() - start[name]).cpu().numpy()
+            got = res[0][case]["params"][name] - start[name].cpu().numpy()
+            assert np.abs(got - want).max() <= \
+                5e-2 * np.abs(want).max() + 1e-6, (case, name)

@@ -32,6 +32,9 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.ops.build\n"
         "import horovod_tpu_torch.parallel.flash_attention\n"
         "import horovod_tpu_torch.parallel.ring_attention\n"
+        "import horovod_tpu_torch.parallel.ulysses\n"
+        "import horovod_tpu_torch.parallel.mesh\n"
+        "import horovod_tpu_torch.parallel\n"
         "import horovod_tpu_torch.models.transformer\n"
         "import horovod_tpu_torch.models.vit\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -46,36 +46,50 @@ def shard_rows(rank: int, size: int, n: int) -> slice:
     return slice(rank * n // size, (rank + 1) * n // size)
 
 
+class World:
+    """``scenario`` running in ``size`` fresh processes; :meth:`results`
+    waits for them (at most ``WORLD_TIMEOUT_S``, so a hang fails instead of
+    stalling) and returns each rank's result dict, in rank order."""
+
+    def __init__(self, scenario: str, size: int, out_dir, device="cpu"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        self.scenario = scenario
+        self.outs = [Path(out_dir) / f"{scenario}.rank{r}.pkl"
+                     for r in range(size)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, __file__, scenario, str(r), str(size),
+             str(port), str(self.outs[r]), device], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(size)]
+
+    def results(self) -> list:
+        logs = []
+        try:
+            for p in self.procs:
+                logs.append(p.communicate(timeout=WORLD_TIMEOUT_S)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(self.procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {r} of {self.scenario!r} exited "
+                                   f"{p.returncode}:\n{logs[r]}")
+        results = []
+        for path in self.outs:
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
 def run_world(scenario: str, size: int, out_dir, device="cpu") -> list:
     """Run ``scenario`` in ``size`` fresh processes and return each rank's
     result dict, in rank order."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    outs = [Path(out_dir) / f"{scenario}.rank{r}.pkl" for r in range(size)]
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, scenario, str(r), str(size), str(port),
-         str(outs[r]), device], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(size)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=WORLD_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            raise RuntimeError(f"rank {r} of {scenario!r} exited "
-                               f"{p.returncode}:\n{logs[r]}")
-    results = []
-    for path in outs:
-        with open(path, "rb") as f:
-            results.append(pickle.load(f))
-    return results
+    return World(scenario, size, out_dir, device).results()
 
 
 def _engine_scenario(hvd, rank: int, size: int) -> dict:
@@ -204,8 +218,198 @@ def _lm_scenario(hvd, rank: int, size: int) -> dict:
                        for n, p in model.named_parameters()}}
 
 
+RING_DIMS = (2, 4, 4, 8)     # B, T_local, H, D of the ring worlds
+# (attention, causal, layout) of each case of the ``ring`` scenario
+RING_CASES = tuple((att, causal, layout)
+                   for causal in (True, False)
+                   for att, layout in (("ring", "contiguous"),
+                                       ("ring", "zigzag"),
+                                       ("ulysses", "contiguous")))
+
+
+def ring_inputs(n: int, causal: bool, layout: str):
+    """Global fp32 q, k, v and the output cotangent [B, n*T_local, H, D],
+    their sequence already in ``layout`` order (zig-zag permuted)."""
+    b, t, h, d = RING_DIMS
+    rng = np.random.RandomState(20 + n + 2 * causal)
+    xs = [rng.randn(b, n * t, h, d).astype(np.float32) for _ in range(4)]
+    if layout == "zigzag":
+        idx = zigzag_order(n * t, n)
+        xs = [x[:, idx] for x in xs]
+    return xs
+
+
+def zigzag_order(t_global: int, n: int) -> np.ndarray:
+    """The port's zigzag permutation as a numpy index (the tests hold it
+    equal to the reference's)."""
+    from horovod_tpu_torch.parallel.ring_attention import zigzag_indices
+    return zigzag_indices(t_global, n)[0].numpy()
+
+
+def _ring_scenario(hvd, rank: int, size: int) -> dict:
+    """Ring attention (both layouts) and Ulysses over the whole world as
+    the sequence group: each rank's output block, its q/k/v gradients and
+    the segments each pass ran."""
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel import ring_attention as R
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention_p
+    torch.set_num_threads(1)     # tiny tensors; the ranks share the cores
+    group = dist.new_group(list(range(size)))
+    t = RING_DIMS[1]
+    out = {}
+    for att, causal, layout in RING_CASES:
+        q, k, v, do = (torch.from_numpy(x[:, rank * t:(rank + 1) * t].copy())
+                       for x in ring_inputs(size, causal, layout))
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        R.SEGMENTS.update(forward=0, backward=0)
+        if att == "ring":
+            o = R.ring_attention_p(q, k, v, group, size, causal=causal,
+                                   layout=layout)
+        else:
+            o = ulysses_attention_p(q, k, v, group, size, causal=causal)
+        o.backward(do)
+        out[(att, causal, layout)] = {
+            "out": o.detach().numpy(),
+            "grads": [x.grad.numpy() for x in (q, k, v)],
+            "segments": dict(R.SEGMENTS)}
+    return out
+
+
+SP_DIMS = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+               max_seq=16)
+SP_MESHES = ((1, 4), (2, 2))                 # (data, seq)
+SP_VARIANTS = (("ring", "contiguous"), ("ring", "zigzag"),
+               ("ulysses", "contiguous"))
+SP_STEPS = 2
+SP_LRS = {"sgd": 0.1, "adamw": 1e-3}
+
+
+def sp_params() -> dict:
+    """The LM's weights in the reference's tree (layers stacked), fp32,
+    with the reference's scales and norm scales away from 1."""
+    rng = np.random.RandomState(11)
+    d, h, f, v, n = (SP_DIMS[k] for k in ("d_model", "n_heads", "d_ff",
+                                           "vocab_size", "n_layers"))
+    dh = d // h
+
+    def normal(shape, fan_in):
+        return (rng.randn(*shape) * fan_in ** -0.5).astype(np.float32)
+
+    layers = {"ln1": (1 + 0.1 * rng.randn(n, d)).astype(np.float32),
+              "wq": normal((n, d, h, dh), d), "wk": normal((n, d, h, dh), d),
+              "wv": normal((n, d, h, dh), d), "wo": normal((n, h, dh, d), d),
+              "ln2": (1 + 0.1 * rng.randn(n, d)).astype(np.float32),
+              "w1": normal((n, d, f), d), "w2": normal((n, f, d), f)}
+    return {"embed": normal((v, d), 1) * 0.5, "layers": layers,
+            "ln_f": (1 + 0.1 * rng.randn(d)).astype(np.float32)}
+
+
+def sp_tokens():
+    """(inputs, targets) [4, 16] of the SP scenario."""
+    rng = np.random.RandomState(12)
+    return (rng.randint(0, SP_DIMS["vocab_size"], size=(4, 16)),
+            rng.randint(0, SP_DIMS["vocab_size"], size=(4, 16)))
+
+
+def _sp_lm_scenario(hvd, rank: int, size: int) -> dict:
+    """The LM's sequence-parallel loss and train steps on (data, seq)
+    meshes, for each attention variant and optimizer."""
+    import torch
+    from horovod_tpu_torch.models.convert import transformer_from_jax
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, make_spmd_loss, make_train_step,
+        shard_tokens)
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    torch.set_num_threads(1)     # tiny tensors; the ranks share the cores
+    out = {}
+    try:
+        training_mesh({"data": 1, "seq": size // 2, "tensor": 2})
+    except NotImplementedError as e:
+        out["tensor_error"] = str(e)
+    meshes = {shape: training_mesh({"data": shape[0], "seq": shape[1],
+                                    "tensor": 1}) for shape in SP_MESHES}
+    inputs, targets = sp_tokens()
+    for (d, s), mesh in meshes.items():
+        for attention, layout in SP_VARIANTS:
+            cfg = TransformerConfig(dtype=torch.float32, attention=attention,
+                                    sp_layout=layout, **SP_DIMS)
+            x, y = inputs, targets
+            if layout == "zigzag":
+                idx = zigzag_order(x.shape[1], s)
+                x, y = x[:, idx], y[:, idx]
+            x, y = (shard_tokens(mesh, torch.from_numpy(a)) for a in (x, y))
+            state = transformer_from_jax(sp_params(), cfg)
+            model = Transformer(cfg)
+            model.load_state_dict(state)
+            case = {"loss": float(make_spmd_loss(mesh, cfg)(model, x, y))}
+            for name, lr in SP_LRS.items():
+                model.load_state_dict(state)
+                opt = (torch.optim.SGD(model.parameters(), lr=lr)
+                       if name == "sgd" else
+                       torch.optim.AdamW(model.parameters(), lr=lr,
+                                         betas=(0.9, 0.999), eps=1e-8,
+                                         weight_decay=1e-4))
+                step = make_train_step(mesh, cfg, opt)
+                losses = [float(step(model, x, y)) for _ in range(SP_STEPS)]
+                case[name] = {"losses": losses, "params": {
+                    n: p.detach().numpy().copy()
+                    for n, p in model.named_parameters()}}
+            out[((d, s), attention, layout)] = case
+    return out
+
+
+SP_CARD_DIMS = dict(vocab_size=256, d_model=256, n_heads=4, n_layers=2,
+                    d_ff=512, max_seq=256)
+
+
+def sp_card_tokens():
+    """(inputs, targets) [2, 256] of the card SP scenario."""
+    rng = np.random.RandomState(13)
+    return (rng.randint(0, 256, size=(2, 256)),
+            rng.randint(0, 256, size=(2, 256)))
+
+
+def sp_card_model(cfg, device):
+    """The bf16 LM of the card SP scenario, the same weights on every rank
+    and in the one-card reference."""
+    import torch
+    from horovod_tpu_torch.models.transformer import Transformer
+    return Transformer(cfg, generator=torch.Generator().manual_seed(0)).to(
+        device)
+
+
+def _sp_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """Two SGD steps of the bf16 LM, the whole world on the seq axis, on
+    the card (NCCL, kernels K6/K7), for each attention variant."""
+    import torch
+    from horovod_tpu_torch.models.transformer import (
+        TransformerConfig, make_train_step, shard_tokens)
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    mesh = training_mesh({"data": 1, "seq": size, "tensor": 1})
+    inputs, targets = sp_card_tokens()
+    out = {}
+    for attention, layout in SP_VARIANTS:
+        cfg = TransformerConfig(dtype=torch.bfloat16, attention=attention,
+                                sp_layout=layout, **SP_CARD_DIMS)
+        x, y = inputs, targets
+        if layout == "zigzag":
+            idx = zigzag_order(x.shape[1], size)
+            x, y = x[:, idx], y[:, idx]
+        x, y = (shard_tokens(mesh, torch.from_numpy(a)).to(hvd.device())
+                for a in (x, y))
+        model = sp_card_model(cfg, hvd.device())
+        step = make_train_step(mesh, cfg, torch.optim.SGD(
+            model.parameters(), lr=SP_LRS["sgd"]))
+        losses = [float(step(model, x, y)) for _ in range(SP_STEPS)]
+        out[(attention, layout)] = {"losses": losses, "params": {
+            n: p.detach().cpu().numpy() for n, p in model.named_parameters()}}
+    return out
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
-             "lm": _lm_scenario}
+             "lm": _lm_scenario, "ring": _ring_scenario,
+             "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario}
 
 
 def main(argv):
