@@ -32,13 +32,26 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    (``ring_attention_p(..., force_ring=True)``) at bench.py's
    ``bench_sp_ring`` shape, B1 T8192 H16 D128 bf16, zig-zag and
    contiguous, forward and backward of sum(out²), against K6 on the same
-   inputs, and times the three in turns.
+   inputs, and times the three in turns;
+10. holds Adasum's combine kernels K4 (the fp32 triple) and K5 (the scaled
+    add) against float64 and their plain versions at every gradient size
+    of the flagship LM and at tails, in fp32 and bf16 (bitwise repeatable,
+    swap-symmetric, a zero operand), and times them beside ``torch.dot``
+    (a yardstick of one read of both operands, never on the path);
+11. reduces the flagship LM's 34 fp32 gradients of 4 ranks (one sequence
+    each of the flagship batch of 4) with ``adasum_stacked``, the VHDD
+    schedule in one process, flat (2 levels) and hierarchical (local size
+    2), against a float64 VHDD of the same gradients, times each whole
+    reduction, and applies one AdamW step through
+    ``DistributedOptimizer(op=Adasum)``.
 
-Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9)
-and read just after it; every kernel of the path must have launched there
-(53 BN layers per ResNet step for each BN kernel, one pack per 64 MB
-bucket, one of each K6 kernel per attention layer and step, 3 of each K7
-kernel per zig-zag ring call and 1 per contiguous one). Any failed check
+Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9, and
+each form of 11) and read just after it; every kernel of the path must have
+launched there (53 BN layers per ResNet step for each BN kernel, one pack
+per 64 MB bucket, one of each K6 kernel per attention layer and step, 3 of
+each K7 kernel per zig-zag ring call and 1 per contiguous one, one K4 and
+one K5 per pair, level and tensor: 136 each for the flat form, 68 for the
+hierarchical one, whose 2 shards a pair halve the work). Any failed check
 exits non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -48,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -87,6 +101,16 @@ RING_WINDOWS = 5               # timed windows of each ring-path variant
 RING_WINDOW_CALLS = 4          # forward + backward calls in each window
 # K7 launches of one ring forward + backward at n = 1, per layout
 RING_LAUNCHES = {"zigzag": 3, "contiguous": 1}
+# K4/K5 at the Adasum path's tensors: every distinct gradient size of the
+# flagship LM, then tails
+ADASUM_SIZES = (("tied embedding", 67108864), ("d_ff matrix", 16777216),
+                ("attention projection", 4194304), ("norm scale", 2048),
+                ("tail", 1), ("tail", 1000), ("tail", 65537))
+ADASUM_KERNELS = ("adasum_triple", "adasum_scale")
+ADASUM_TRIPLE_TOL = 1e-5       # of sum |terms|: fp32 sums in another order
+ADASUM_RANKS = 4               # stacked ranks of phase 11
+ADASUM_LOCAL = 2               # the hierarchical form's local size
+ADASUM_WINDOWS = 5             # timed whole reductions of each form
 
 
 class SmokeFailure(Exception):
@@ -650,6 +674,249 @@ def run_ring_path(torch, K, R, fa, dev, log):
                 limits=dict(zip(names, limits)))
 
 
+def adasum_work(n, itemsize):
+    """Per K4/K5 call on n elements: (bytes, fp32 operations). K4 reads a
+    and b and writes the triple, 3 fused multiply-adds an element; K5
+    reads the triple, a and b and writes the output, 3 operations an
+    element."""
+    return {"adasum_triple": (2 * n * itemsize + 12, 6 * n),
+            "adasum_scale": (3 * n * itemsize + 12, 3 * n)}
+
+
+def triple64(torch, a, b):
+    af, bf = a.double(), b.double()
+    return torch.stack([(af * bf).sum(), (af * af).sum(), (bf * bf).sum()])
+
+
+def combine64(torch, a, b):
+    """The float64 pairwise Adasum (the reference's adasum_reference)."""
+    dot, na, nb = (float(v) for v in triple64(torch, a, b))
+    ca = 0.0 if na == 0 else 1.0 - dot / (2 * na)
+    cb = 0.0 if nb == 0 else 1.0 - dot / (2 * nb)
+    return ca * a.double() + cb * b.double()
+
+
+def check_adasum_kernels(torch, K, dev, flush, reps, log):
+    """Phase 10: K4/K5 at each of ADASUM_SIZES in fp32 and bf16. K4's
+    triple within ADASUM_TRIPLE_TOL of sum |terms| of float64's; K5's
+    output within twice the plain version's error against float64 plus
+    the dtype's epsilon and 1e-6 of the largest entry; bitwise repeatable,
+    swap-symmetric, and a zero operand gives the other bit for bit.
+    Returns a row per kernel (numbers at the embedding in fp32, every case
+    under "shapes")."""
+    rows = {n: {"shapes": []} for n in ADASUM_KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        for what, n in ADASUM_SIZES:
+            gen = torch.Generator(device=dev).manual_seed(6)
+            a = torch.randn(n, device=dev, generator=gen)
+            b = 0.6 * a + torch.randn(n, device=dev, generator=gen)
+            a, b = a.to(dtype), b.to(dtype)
+            t = K.adasum_triple(a, b)
+            out = K.adasum_scale(t, a, b)
+            t_sw = K.adasum_triple(b, a)
+            same = (torch.equal(K.adasum_triple(a, b), t)
+                    and torch.equal(K.adasum_scale(t, a, b), out))
+            sym = (torch.equal(t_sw, t[[0, 2, 1]])
+                   and torch.equal(K.adasum_scale(t_sw, b, a), out))
+            z = torch.zeros_like(a)
+            zero = (torch.equal(K.adasum_scale(K.adasum_triple(z, b), z, b),
+                                b)
+                    and torch.equal(K.adasum_scale(K.adasum_triple(a, z), a,
+                                                   z), a))
+            torch.cuda.synchronize()
+            case = f"{what} n={n} {str(dtype)[6:]}"
+            check(same, f"K4/K5 {case}: two runs differ")
+            check(sym, f"K4/K5 {case}: not swap-symmetric bit for bit")
+            check(zero, f"K4/K5 {case}: a zero operand does not give the "
+                  "other operand")
+            t64 = triple64(torch, a, b)
+            terms = torch.stack([(a.double() * b.double()).abs().sum(),
+                                 t64[1], t64[2]])
+            t_abs = float((t.double() - t64).abs().max())
+            t_rel = float(((t.double() - t64).abs() / terms).max())
+            check(t_rel <= ADASUM_TRIPLE_TOL,
+                  f"K4 {case}: error {t_rel:.3g} of sum|terms| > "
+                  f"{ADASUM_TRIPLE_TOL}")
+            ref = combine64(torch, a, b)
+            plain = K.adasum_scale_plain(K.adasum_triple_plain(a, b), a, b)
+            err = float((out.double() - ref).abs().max())
+            base = float((plain.double() - ref).abs().max())
+            big = float(ref.abs().max())
+            limit = 2 * base + (torch.finfo(dtype).eps + 1e-6) * big
+            log(f"  {case}: K4 error {t_rel:.3g} of sum|terms|; K5 error "
+                f"{err:.4g}, plain error {base:.4g}, limit {limit:.4g}")
+            check(err <= limit, f"K5 {case}: error {err:.4g} > {limit:.4g}")
+            del ref, plain, z, terms
+            calls = {
+                "adasum_triple": (lambda: K.adasum_triple(a, b),
+                                  lambda: K.adasum_triple_plain(a, b)),
+                "adasum_scale": (lambda: K.adasum_scale(t, a, b),
+                                 lambda: K.adasum_scale_plain(t, a, b)),
+            }
+            errors = {"adasum_triple": t_abs, "adasum_scale": err}
+            dot_ms, _ = time_ms(torch, lambda: torch.dot(a, b), flush, reps)
+            work = adasum_work(n, a.element_size())
+            timed = []
+            for name, (kern, plain_fn) in calls.items():
+                ms, host_ms = time_ms(torch, kern, flush, reps)
+                plain_ms, _ = time_ms(torch, plain_fn, flush,
+                                      max(3, reps // 4))
+                nbytes, ops = work[name]
+                bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     ops / FP32_FLOPS)
+                rows[name]["shapes"].append(dict(
+                    what=what, n=n, dtype=str(dtype)[6:], ms=ms,
+                    host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                              >= ops / FP32_FLOPS else "operations"),
+                    library_ms=None, dot_ms=dot_ms,
+                    max_abs_err=errors[name],
+                    **({"max_rel_err": t_rel} if name == "adasum_triple"
+                       else {"limit": limit})))
+                timed.append(f"{name} {ms:.4f} ms (host {host_ms:.4f}), "
+                             f"plain {plain_ms:.4f}, bound {bound_ms:.4f}")
+            log(f"  {case}: {'; '.join(timed)}; torch.dot {dot_ms:.4f} ms")
+            del a, b, t, out, t_sw, calls
+        torch.cuda.empty_cache()
+    for name in ADASUM_KERNELS:
+        first = rows[name]["shapes"][0]
+        rows[name].update({key: first[key] for key in
+                           ("ms", "host_ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms", "dot_ms")})
+        rows[name]["max_abs_err"] = first["max_abs_err"]
+    return rows
+
+
+def plain_stacked(torch, x, local, combine):
+    """The (n, *s) stack's Adasum by the plain formula: the VHDD over the
+    ranks, or over the nodes' means for the hierarchical form."""
+    vs = list(x)
+    if local > 1:
+        vs = [x[c * local:(c + 1) * local].mean(0)
+              for c in range(len(vs) // local)]
+    d = 1
+    while d < len(vs):
+        vs = [combine(vs[r], vs[r ^ d]) for r in range(len(vs))]
+        d *= 2
+    return vs[0]
+
+
+def run_adasum_path(torch, hvd, tm, K, A, dev, log):
+    """Phase 11: the flagship LM's fp32 gradients of ADASUM_RANKS ranks
+    (one sequence each) reduced by ``adasum_stacked``, flat and
+    hierarchical, each driven with the launch counts zeroed just before it
+    and read just after; each result against the float64 VHDD of the same
+    gradients within twice the fp32 plain VHDD's error plus 1e-6 of its
+    largest entry; the whole reduction timed in windows; one AdamW step
+    through DistributedOptimizer(op=Adasum) with the flat result. Returns
+    the ``adasum`` summary and the launches of each form."""
+    cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                               **LM_DIMS)
+    model = tm.Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    params = list(model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (ADASUM_RANKS, cfg.max_seq + 1),
+                           device=dev, generator=gen)
+    per_rank = []
+    for r in range(ADASUM_RANKS):
+        model.zero_grad(set_to_none=True)
+        tm.lean_lm_loss(model, tokens[r:r + 1, :-1],
+                        tokens[r:r + 1, 1:]).backward()
+        per_rank.append([p.grad for p in params])
+    model.zero_grad(set_to_none=True)
+    stacked = [torch.stack(gs) for gs in zip(*per_rank)]
+    del per_rank
+    n_elems = sum(p.numel() for p in params)
+    check(len(stacked) == 34 and all(s.dtype == torch.float32
+                                     for s in stacked),
+          f"{len(stacked)} gradients, expected 34 fp32")
+    log(f"  {len(stacked)} fp32 gradients, {n_elems} elements a rank, "
+        f"{ADASUM_RANKS} ranks")
+    summary, launches, flat_out = {}, {}, None
+    for form, local in (("flat", 0), ("hierarchical", ADASUM_LOCAL)):
+        K.reset_launch_counts()
+        outs = [A.adasum_stacked(s, local_size=local) for s in stacked]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        launches[form] = {k: counts[k] for k in ADASUM_KERNELS}
+        if local:
+            cross = ADASUM_RANKS // local
+            combines = (cross // 2) * int(math.log2(cross)) * local
+            nbytes = (cross // 2) * int(math.log2(cross)) * 5 * 4 * n_elems
+        else:
+            combines = (ADASUM_RANKS // 2) * int(math.log2(ADASUM_RANKS))
+            nbytes = combines * 5 * 4 * n_elems
+        want = combines * len(stacked)
+        log(f"  {form}: launches {launches[form]}, expected {want} each")
+        for name in ADASUM_KERNELS:
+            check(counts[name] == want, f"{form} Adasum: {name} launched "
+                  f"{counts[name]}, expected {want}")
+        worst, worst_plain = 0.0, 0.0
+        for i, (s, o) in enumerate(zip(stacked, outs)):
+            ref = plain_stacked(torch, s.double(), local,
+                                lambda a, b: combine64(torch, a, b))
+            plain = plain_stacked(
+                torch, s, local, lambda a, b: K.adasum_scale_plain(
+                    K.adasum_triple_plain(a, b), a, b))
+            check(bool(torch.isfinite(o).all()),
+                  f"{form} Adasum: gradient {i} not finite")
+            big = float(ref.abs().max())
+            err = float((o.double() - ref).abs().max())
+            base = float((plain.double() - ref).abs().max())
+            limit = 2 * base + 1e-6 * big
+            check(err <= limit, f"{form} Adasum gradient {i} "
+                  f"{tuple(s.shape[1:])}: error {err:.4g} > {limit:.4g}")
+            worst = max(worst, err / big)
+            worst_plain = max(worst_plain, base / big)
+            del ref, plain
+        log(f"  {form}: largest error against float64 {worst:.3g} of the "
+            f"tensor's largest entry (fp32 plain VHDD {worst_plain:.3g})")
+        windows, hosts = [], []
+        for _ in range(ADASUM_WINDOWS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            for s in stacked:
+                A.adasum_stacked(s, local_size=local)
+            hosts.append(1e3 * (time.perf_counter() - t0))
+            end.record()
+            torch.cuda.synchronize()
+            windows.append(start.elapsed_time(end))
+        bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ms = statistics.median(windows)
+        log(f"  {form}: {ms:.3f} ms a whole reduction (windows "
+            f"{', '.join(f'{w:.3f}' for w in windows)}; host "
+            f"{statistics.median(hosts):.3f} ms), bound of its K4/K5 "
+            f"bytes {bound_ms:.3f} ms")
+        summary[form] = dict(local_size=local, ms=ms, windows=windows,
+                             host_ms=statistics.median(hosts),
+                             bound_ms=bound_ms, launches=launches[form],
+                             max_rel_err=worst, plain_max_rel_err=worst_plain)
+        if not local:
+            flat_out = outs
+        del outs
+    del stacked
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                          weight_decay=1e-4), op=hvd.Adasum)
+    for p, g in zip(params, flat_out):
+        p.grad = g
+    opt.step()
+    with torch.no_grad():
+        loss = float(tm.lean_lm_loss(model, tokens[:, :-1], tokens[:, 1:]))
+    check(loss == loss and abs(loss) != float("inf"),
+          "non-finite LM loss after the Adasum step")
+    log(f"  loss on the batch of {ADASUM_RANKS} after one AdamW step with the "
+        f"flat Adasum gradients: {loss:.4f}")
+    summary.update(ranks=ADASUM_RANKS, tensors=34, elements=n_elems,
+                   loss_after_step=loss)
+    del model, params, opt, flat_out
+    return summary, launches
+
+
 def make_lm_trainer(torch, hvd, tm, dev, batch):
     """The flagship LM, its data and optimizer; returns one train step."""
     cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
@@ -798,6 +1065,7 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.models import transformer as tm
     from horovod_tpu_torch.models.resnet import ResNet50
     from horovod_tpu_torch.models.vit import ViT_B16
+    from horovod_tpu_torch.ops import adasum as adasum_ops
     from horovod_tpu_torch.ops import build, kernels as K
     from horovod_tpu_torch.parallel import flash_attention, ring_attention
 
@@ -987,6 +1255,21 @@ def main(argv=None) -> int:
         ring_counts = K.launch_counts()
         log(f"  launches on the ring path: {ring_counts}")
         torch.cuda.empty_cache()
+
+        log("phase 10: K4/K5 Adasum combine kernels against float64 and "
+            "their plain versions")
+        flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+        adasum_rows = check_adasum_kernels(torch, K, dev, flush, args.reps,
+                                           log)
+        del flush
+        torch.cuda.empty_cache()
+
+        log(f"phase 11: the flagship LM's Adasum reduction, {ADASUM_RANKS} "
+            f"stacked ranks, flat and hierarchical (local size "
+            f"{ADASUM_LOCAL})")
+        adasum, adasum_launches = run_adasum_path(torch, hvd, tm, K,
+                                                  adasum_ops, dev, log)
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -1030,13 +1313,23 @@ def main(argv=None) -> int:
              work="the zig-zag ring's FULL half-segment (B1 H16 S4096 D128); "
                   "shapes lists every shape",
              **seg_rows[name])
-        for name, line in zip(SEG_KERNELS, (169, 188, 194))]
+        for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
+        # adasum_combine_pallas's two passes
+        dict(name=name, route="cuda", source=f"{src}/adasum.cu",
+             replaces=f"horovod_tpu/ops/pallas_kernels.py:{line}",
+             launches=adasum_launches["flat"][name],
+             hierarchical_launches=adasum_launches["hierarchical"][name],
+             ok=True,
+             work="the flagship LM's tied embedding gradient (67,108,864 "
+                  "fp32); shapes lists every size and dtype",
+             **adasum_rows[name])
+        for name, line in zip(ADASUM_KERNELS, (58, 77))]
     print(json.dumps({"kernels": kernels, "img_per_s": img_s,
                       "img_per_s_windows": rates, "batch": args.batch,
                       "tokens_per_s": tok_s, "tokens_per_s_windows":
                       tok_rates, "lm_batch": lm_batch,
                       "lm_peak_gib": lm_peak, "attention": attention,
-                      "ring": ring}))
+                      "ring": ring, "adasum": adasum}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,12 @@ package's Pallas kernels rewritten by hand in CUDA C++ for Hopper::
     out = hvd.synchronize(h)
 
 Ported so far: the world, the eager engine (allreduce, grouped allreduce,
-allgather, broadcast, barrier, async handles), ``DistributedOptimizer``, the
-broadcast helpers, ResNet with the fused BatchNorm, the decoder LM and ViT
-on the flash-attention kernel, and sequence parallelism (ring attention,
-Ulysses, the LM's loss and train step over a (data, seq) mesh;
-``horovod_tpu_torch.parallel``).
+allgather, broadcast, reducescatter, barrier, async handles), Adasum (flat
+and hierarchical, ``op=hvd.Adasum``), ``DistributedOptimizer`` and
+``DistributedDeltaAdasumOptimizer``, the broadcast helpers, ResNet with
+the fused BatchNorm, the decoder LM and ViT on the flash-attention kernel,
+and sequence parallelism (ring attention, Ulysses, the LM's loss and train
+step over a (data, seq) mesh; ``horovod_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -130,6 +131,11 @@ def allreduce_async(tensor, name: Optional[str] = None, op=None,
                     average=None, prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0):
     op = handle_average_backwards_compatibility(op, average)
+    if op == Adasum:
+        from .ops.adasum import adasum_allreduce_handle
+        return adasum_allreduce_handle(_engine(), tensor, name,
+                                       prescale_factor=prescale_factor,
+                                       postscale_factor=postscale_factor)
     return _engine().allreduce(tensor, name=name, op=op,
                                prescale_factor=prescale_factor,
                                postscale_factor=postscale_factor)
@@ -146,6 +152,16 @@ def grouped_allreduce_async(tensors: Sequence, name: Optional[str] = None,
                             prescale_factor: float = 1.0,
                             postscale_factor: float = 1.0):
     op = handle_average_backwards_compatibility(op, average)
+    if op == Adasum:
+        # Adasum's coefficients are per tensor, so fusing tensors into one
+        # buffer would change the numerics: one reduction per tensor
+        from .ops.adasum import adasum_allreduce_handle
+        eng = _engine()
+        return [adasum_allreduce_handle(
+            eng, t, None if name is None else f"{name}.{i}",
+            prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor)
+            for i, t in enumerate(tensors)]
     return _engine().grouped_allreduce(tensors, name=name, op=op,
                                        prescale_factor=prescale_factor,
                                        postscale_factor=postscale_factor)
@@ -175,6 +191,17 @@ def broadcast(tensor, root_rank: int, name: Optional[str] = None):
     return broadcast_async(tensor, root_rank, name).synchronize()
 
 
+def reducescatter_async(tensor, name: Optional[str] = None, op=None):
+    op = ReduceOp.SUM if op is None else ReduceOp(op)
+    return _engine().reducescatter(tensor, name=name, op=op)
+
+
+def reducescatter(tensor, name: Optional[str] = None, op=None):
+    """Sum (or Average) over the world, this rank keeping its rows of dim 0
+    (rows [r·c, min((r+1)·c, d0)), c = ceil(d0 / size))."""
+    return reducescatter_async(tensor, name, op).synchronize()
+
+
 def barrier():
     _engine().barrier()
 
@@ -187,7 +214,8 @@ def synchronize(handle):
     return handle.synchronize()
 
 
-from .optimizer import DistributedOptimizer  # noqa: E402
+from .optimizer import (  # noqa: E402
+    DistributedDeltaAdasumOptimizer, DistributedOptimizer)
 from .ops.compression import Compression  # noqa: E402
 from .functions import (  # noqa: E402
     allgather_object, broadcast_object, broadcast_optimizer_state,
@@ -198,9 +226,11 @@ __all__ = [
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
     "allreduce", "allreduce_async", "grouped_allreduce",
     "grouped_allreduce_async", "allgather", "allgather_async", "broadcast",
-    "broadcast_async", "barrier", "poll", "synchronize",
+    "broadcast_async", "reducescatter", "reducescatter_async", "barrier",
+    "poll", "synchronize",
     "broadcast_parameters", "broadcast_object", "allgather_object",
-    "broadcast_optimizer_state", "DistributedOptimizer", "Compression",
+    "broadcast_optimizer_state", "DistributedOptimizer",
+    "DistributedDeltaAdasumOptimizer", "Compression",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "HorovodInternalError", "HostsUpdatedInterrupt", "DuplicateNameError",
     "__version__",

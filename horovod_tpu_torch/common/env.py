@@ -22,6 +22,7 @@ HOROVOD_TPU_NUM_PROCESSES = "HOROVOD_TPU_NUM_PROCESSES"
 HOROVOD_TPU_PROCESS_ID = "HOROVOD_TPU_PROCESS_ID"
 HOROVOD_TPU_SHUTDOWN_TIMEOUT = "HOROVOD_TPU_SHUTDOWN_TIMEOUT"
 HOROVOD_PALLAS_PACK = "HOROVOD_PALLAS_PACK"
+HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 
@@ -51,6 +52,10 @@ class Config:
     # HOROVOD_PALLAS_PACK keeps the JAX package's name so launch scripts run
     # unchanged; in the port it selects the hand-written CUDA pack kernel
     pack_kernel: bool = False
+    # HOROVOD_HIERARCHICAL_ALLREDUCE: the two-level (local, cross) form where
+    # the agreed topology has one. So far it selects hierarchical Adasum
+    # only; hierarchical Sum/Average is not ported (ROADMAP A11)
+    hierarchical_allreduce: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -58,4 +63,5 @@ class Config:
             fusion_threshold_bytes=_get_int(HOROVOD_FUSION_THRESHOLD,
                                             DEFAULT_FUSION_THRESHOLD_BYTES),
             pack_kernel=_get_bool(HOROVOD_PALLAS_PACK),
+            hierarchical_allreduce=_get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE),
         )

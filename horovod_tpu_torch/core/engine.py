@@ -1,16 +1,19 @@
 """Eager collective engine on ``torch.distributed``.
 
 The port's counterpart of ``horovod_tpu/core/engine.py``, plain path only:
-named async collectives returning handles, duplicate-name detection, and
+named async collectives returning handles, duplicate-name detection,
 tensor fusion (per-dtype buckets of at most ``HOROVOD_FUSION_THRESHOLD``
-bytes, one collective per bucket). An async handle wraps the
-``async_op=True`` work object of its collective: ``poll()`` is
-``is_completed()`` and ``synchronize()`` is ``wait()``, then the Average
-divide and the postscale, once per launch.
+bytes, one collective per bucket), reducescatter, and the collectively
+agreed hierarchy (local and cross process groups) that hierarchical Adasum
+runs on. An async handle wraps the ``async_op=True`` work object of its
+collective: ``poll()`` is ``is_completed()`` and ``synchronize()`` is
+``wait()``, then the Average divide and the postscale, once per launch.
+Adasum (``ops/adasum.py``) issues its own exchanges and registers its
+result through :meth:`Engine.track_result`.
 
-Not ported yet (the reference's other engine paths): join, alltoall,
-reducescatter, the ZeRO-1 sharded step, step replay, overlap, wire codecs,
-algorithm selection, autotune, metrics and tracing.
+Not ported yet (the reference's other engine paths): join, alltoall, the
+ZeRO-1 sharded step, step replay, overlap, wire codecs, algorithm selection
+(hierarchical Sum/Average), autotune, metrics and tracing.
 """
 
 from __future__ import annotations
@@ -63,6 +66,10 @@ def _check_average_dtype(x: torch.Tensor, op):
 
 
 def _dist_op(op: ReduceOp):
+    if op == ReduceOp.ADASUM:
+        raise ValueError("op=Adasum is not a torch.distributed reduction: "
+                         "hvd.allreduce and hvd.grouped_allreduce route it "
+                         "through horovod_tpu_torch.ops.adasum")
     if op not in _DIST_OPS:
         raise NotImplementedError(
             f"op {ReduceOp(op).name} is not ported to horovod_tpu_torch yet")
@@ -95,6 +102,27 @@ class LaunchGroup:
                 if self._finish is not None:
                     self._finish()
                 self._done = True
+
+
+class _StreamWork:
+    """The work object of a result computed on this process's current
+    stream: complete when the stream has run the work issued up to now (on
+    the CPU, at once). ``wait()`` orders the current stream after it
+    without blocking the host, as an NCCL work object's does."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._event = None
+        if device.type == "cuda":
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(device))
+
+    def is_completed(self) -> bool:
+        return self._event is None or self._event.query()
+
+    def wait(self):
+        if self._event is not None:
+            torch.cuda.current_stream(self._device).wait_event(self._event)
 
 
 class Handle:
@@ -149,6 +177,8 @@ class Engine:
         self._outstanding: Dict[str, Handle] = {}
         self._lock = threading.Lock()
         self._auto_counter: Dict[str, int] = {}
+        self._hier_ok: Optional[bool] = None
+        self._hier_groups = None
 
     # -- internals ---------------------------------------------------------
 
@@ -297,6 +327,44 @@ class Engine:
         h.recv_sizes = np.asarray(sizes)
         return self._track(h)
 
+    def reducescatter(self, tensor, name: Optional[str] = None,
+                      op: ReduceOp = ReduceOp.SUM) -> Handle:
+        """Sum (or Average) over the world, scattered along dim 0: rank r
+        gets rows [r·c, min((r+1)·c, d0)) with c = ceil(d0 / size), so
+        trailing ranks may get fewer (or no) rows and the ranks' outputs
+        concatenate to the whole reduced tensor."""
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise ValueError(
+                f"reducescatter supports Sum and Average, got {op!r}")
+        x = self._tensor(tensor)
+        _check_average_dtype(x, op)
+        if x.dim() == 0:
+            raise ValueError("reducescatter requires a tensor with dim 0")
+        name = self._register(name, "reducescatter")
+        size, rank = self.backend.size(), self.backend.rank()
+        d0 = int(x.shape[0])
+        chunk = -(-d0 // size)
+        rows = [min(chunk, max(d0 - r * chunk, 0)) for r in range(size)]
+        flat = x.contiguous()
+        if chunk * size != d0:
+            flat = torch.cat([flat, flat.new_zeros(
+                (chunk * size - d0,) + tuple(x.shape[1:]))])
+        out = x.new_empty((chunk,) + tuple(x.shape[1:]))
+        work = _translate_failure(C.reduce_scatter, out, flat, None,
+                                  async_op=True)
+        n = size if op == ReduceOp.AVERAGE else 1
+        group = LaunchGroup(work, lambda: C.finish_reduce(out, n, 1.0))
+        h = Handle(name, group, lambda: out[:rows[rank]], self)
+        h.recv_sizes = np.asarray(rows)
+        return self._track(h)
+
+    def track_result(self, name: str, out: torch.Tensor) -> Handle:
+        """Register ``out``, computed under the name ``name`` on this
+        process's current stream (the Adasum path), as a handle: it
+        completes when the stream has run that work."""
+        return self._track(Handle(name, LaunchGroup(_StreamWork(out.device)),
+                                  lambda: out, self))
+
     def barrier(self):
         """Blocks until every rank has reached it."""
         z = torch.zeros(1, dtype=torch.int32, device=self.backend.device)
@@ -309,6 +377,41 @@ class Engine:
         if not 0 <= root_rank < self.backend.size():
             raise ValueError(f"root_rank {root_rank} is outside the world "
                              f"[0, {self.backend.size()})")
+
+    def _hierarchical_ok(self) -> bool:
+        """Whether the world has a usable (cross, local) layout, decided
+        once and agreed by every rank: an allgather of the local sizes,
+        true only when they are equal and 1 < local < size, size % local
+        == 0 (a rank-local test could pick different programs on
+        different ranks)."""
+        if self._hier_ok is None:
+            size = self.backend.size()
+            local = self.backend.local_size()
+            sizes = self._exchange_sizes(local) if size > 1 else [local]
+            self._hier_ok = (all(s == sizes[0] for s in sizes)
+                             and 1 < local < size and size % local == 0)
+        return self._hier_ok
+
+    def hierarchical_groups(self):
+        """(local group, cross group) of this rank, ranks laid out as
+        c·local + l: local group c holds the ranks of node c, cross group l
+        the l-th rank of every node. Created the first time they are asked
+        for (after :meth:`_hierarchical_ok`, which every rank passes),
+        every group on every rank in one order: ``dist.new_group`` is
+        collective."""
+        if self._hier_groups is None:
+            local = self.backend.local_size()
+            cross = self.backend.size() // local
+            rank = self.backend.rank()
+            local_groups = [dist.new_group([c * local + l
+                                            for l in range(local)])
+                            for c in range(cross)]
+            cross_groups = [dist.new_group([c * local + l
+                                            for c in range(cross)])
+                            for l in range(local)]
+            self._hier_groups = (local_groups[rank // local],
+                                 cross_groups[rank % local])
+        return self._hier_groups
 
     def _exchange_sizes(self, d0: int) -> List[int]:
         mine = torch.tensor([d0], dtype=torch.int64,

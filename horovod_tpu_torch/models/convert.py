@@ -11,14 +11,14 @@ of ``horovod_tpu.models.resnet.ResNet`` (leaves as numpy arrays, or anything
 - ``BottleneckBlock_i`` becomes ``blocks.i``, ``Conv_k`` ``conv{k}``,
   ``Dense_0`` ``fc``.
 
-``transformer_from_jax`` and ``vit_from_flax`` do the same for the decoder
-LM and the ViT.
+``transformer_from_jax``, ``vit_from_flax`` and ``mlp_from_jax`` do the same
+for the decoder LM, the ViT and the MLP.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -131,4 +131,17 @@ def vit_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             name = f"{path[0]}.{key}"
         out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def mlp_from_jax(params: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
+    """State dict of the port's :class:`MLP` from the reference's
+    ``init_mlp`` list of ``{"w": (in, out), "b": (out,)}`` layers: layer i's
+    ``w`` transposed is ``layers.i.weight``, its ``b`` ``layers.i.bias``."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(params):
+        out[f"layers.{i}.weight"] = torch.tensor(
+            np.ascontiguousarray(np.asarray(layer["w"], dtype=np.float32).T))
+        out[f"layers.{i}.bias"] = torch.tensor(
+            np.asarray(layer["b"], dtype=np.float32))
     return out

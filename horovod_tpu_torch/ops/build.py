@@ -52,6 +52,12 @@ SIGNATURES.update({
     "hvd_flash_seg_bwd_dkdv": SIGNATURES["hvd_flash_bwd_dkdv"],
     "hvd_flash_seg_bwd_dq": SIGNATURES["hvd_flash_bwd_dq"],
 })
+# K4/K5: (device, [triple,] a, b, [out,] dtype, n, aligned, blocks,
+# [partial, triple,] stream)
+SIGNATURES.update({
+    "hvd_adasum_triple": [_I, _P, _P, _I, _LL, _I, _I, _P, _P, _P],
+    "hvd_adasum_scale": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P],
+})
 RESTYPES = {"hvd_pack_tile_bytes": ctypes.c_longlong}
 
 _lock = threading.Lock()

@@ -13,6 +13,7 @@ import math
 from typing import List, Sequence
 
 import torch
+import torch.distributed as dist
 
 from . import kernels
 
@@ -54,3 +55,22 @@ def unpack_flat(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
         out.append(flat[offset:offset + size].view(shape))
         offset += size
     return out
+
+
+def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group,
+                   async_op: bool = False):
+    """Sum ``inp`` over ``group`` (the world when None), this rank keeping
+    its dim-0 chunk in ``out``: ``reduce_scatter_single`` where torch has
+    it, else its older name ``reduce_scatter_tensor``."""
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    return fn(out, inp, group=group, async_op=async_op)
+
+
+def all_gather(out: torch.Tensor, inp: torch.Tensor, group,
+               async_op: bool = False):
+    """Concatenate every rank's ``inp`` of ``group`` along dim 0 into
+    ``out`` (``all_gather_single``, else ``all_gather_into_tensor``)."""
+    fn = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    return fn(out, inp, group=group, async_op=async_op)

@@ -8,6 +8,8 @@ TPU kernel (Pallas)        CUDA (``csrc/``)     wrapper here
 ``pack_pallas``            ``pack.cu``          :func:`pack`
 ``bn_stats_pallas``        ``bn_stats.cu``      :func:`bn_stats`
 ``bn_bwd_stats_pallas``    ``bn_stats.cu``      :func:`bn_bwd_stats`
+``_triple_kernel``         ``adasum.cu``        :func:`adasum_triple`
+``_scale_kernel``          ``adasum.cu``        :func:`adasum_scale`
 jax's flash forward        ``flash_attn.cu``    :func:`flash_fwd`
 jax's flash backward       ``flash_attn.cu``    :func:`flash_bwd_pre`,
                                                 :func:`flash_bwd_dkdv`,
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -216,6 +219,126 @@ def bn_bwd_stats(dy2d, x2d, mean, invstd):
 
 
 bn_bwd_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4/K5: Adasum's pairwise combine
+# ---------------------------------------------------------------------------
+#
+# K4 gives the fp32 triple [a·b, |a|², |b|²] of two same-shape tensors, K5
+# the combine ca·a + cb·b from that triple (ca = 1 − a·b / (2|a|²), 0 when
+# |a|² = 0, cb likewise) in the input dtype. The triple stays on the device
+# between the two, so a collective can sum it over a group first (the
+# sharded combine). Both are swap-symmetric bit for bit: triple(b, a) is
+# triple(a, b) with its norms swapped, and scale(swapped triple, b, a) is
+# scale(triple, a, b).
+
+ADASUM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ADASUM_THREADS = 256        # threads per block of adasum.cu's kernels
+_ADASUM_TRIPLE_BLOCKS_PER_SM = 4
+_ADASUM_SCALE_BLOCKS_PER_SM = 8
+
+
+def adasum_triple_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 [a·b, |a|², |b|²] (the reference's ``_triple_kernel``)."""
+    af, bf = a.float(), b.float()
+    return torch.stack([(af * bf).sum(), (af * af).sum(), (bf * bf).sum()])
+
+
+def _adasum_coefficients(triple: torch.Tensor):
+    dot, na, nb = triple.unbind()
+    ca = torch.where(na == 0, 0.0, 1 - dot / (2 * torch.where(na == 0, 1.0,
+                                                               na)))
+    cb = torch.where(nb == 0, 0.0, 1 - dot / (2 * torch.where(nb == 0, 1.0,
+                                                               nb)))
+    return ca, cb
+
+
+def adasum_scale_plain(triple: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """ca·a + cb·b in fp32, in ``a``'s dtype (the reference's
+    ``_scale_kernel`` with its coefficients)."""
+    ca, cb = _adasum_coefficients(triple)
+    return (ca * a.float() + cb * b.float()).to(a.dtype)
+
+
+def _check_adasum(named, shape):
+    """Raise on what K4/K5 do not take; return (device, dtype code)."""
+    device, dtype = named[0][1].device, named[0][1].dtype
+    for name, t in named:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"adasum: {name} is on {t.device}, expected "
+                             f"{device} (a CUDA device)")
+        if t.dtype not in ADASUM_DTYPES or t.dtype != dtype:
+            raise ValueError(f"adasum: {name} is {t.dtype}; the kernels take "
+                             "float32, bfloat16 or float16, one dtype for "
+                             "both operands")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"adasum: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"adasum: {name} is not contiguous")
+    if not math.prod(shape):
+        raise ValueError("adasum: the operands are empty")
+    return device, ADASUM_DTYPES[dtype]
+
+
+def _adasum_blocks(device, groups: int, per_sm: int) -> int:
+    return max(1, min(groups, per_sm * _sm_count(device.index)))
+
+
+def _aligned(*ts) -> int:
+    return int(all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+def adasum_triple(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 [a·b, |a|², |b|²] of two same-shape contiguous tensors in one
+    read of each (K4); deterministic and swap-symmetric bit for bit."""
+    if a.device.type == "cpu":
+        return adasum_triple_plain(a, b)
+    device, code = _check_adasum((("a", a), ("b", b)), a.shape)
+    n = a.numel()
+    vec = 16 // a.element_size()
+    blocks = _adasum_blocks(device, -(-n // (vec * _ADASUM_THREADS * 4)),
+                            _ADASUM_TRIPLE_BLOCKS_PER_SM)
+    partial = torch.empty(3 * blocks, dtype=torch.float32, device=device)
+    triple = torch.empty(3, dtype=torch.float32, device=device)
+    _check(_lib().hvd_adasum_triple(
+        device.index, a.data_ptr(), b.data_ptr(), code, n, _aligned(a, b),
+        blocks, partial.data_ptr(), triple.data_ptr(), _stream(device)),
+        "adasum_triple")
+    adasum_triple.launches += 1
+    return triple
+
+
+adasum_triple.launches = 0
+
+
+def adasum_scale(triple: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """A new tensor ca·a + cb·b (K5), with the coefficients computed on the
+    card from the fp32 ``triple`` in device memory: no host round trip."""
+    if a.device.type == "cpu":
+        return adasum_scale_plain(triple, a, b)
+    device, code = _check_adasum((("a", a), ("b", b)), a.shape)
+    if triple.dtype != torch.float32 or tuple(triple.shape) != (3,) \
+            or triple.device != device or not triple.is_contiguous():
+        raise ValueError(f"adasum: the triple must be a contiguous float32 "
+                         f"(3,) tensor on {device}")
+    out = torch.empty_like(a)
+    n = a.numel()
+    vec = 16 // a.element_size()
+    blocks = _adasum_blocks(device, -(-(n // vec) // _ADASUM_THREADS),
+                            _ADASUM_SCALE_BLOCKS_PER_SM)
+    _check(_lib().hvd_adasum_scale(
+        device.index, triple.data_ptr(), a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), code, n, _aligned(a, b, out), blocks,
+        _stream(device)), "adasum_scale")
+    adasum_scale.launches += 1
+    return out
+
+
+adasum_scale.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -565,9 +688,9 @@ def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
 flash_seg_bwd_dq.launches = 0
 
 
-KERNELS = (pack, bn_stats, bn_bwd_stats, flash_fwd, flash_bwd_pre,
-           flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd, flash_seg_bwd_dkdv,
-           flash_seg_bwd_dq)
+KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
+           flash_fwd, flash_bwd_pre, flash_bwd_dkdv, flash_bwd_dq,
+           flash_seg_fwd, flash_seg_bwd_dkdv, flash_seg_bwd_dq)
 
 
 def reset_launch_counts():

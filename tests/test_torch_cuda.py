@@ -1,7 +1,9 @@
 """horovod_tpu_torch on the card: each CUDA kernel against its plain
 version, the fused BatchNorm and a small ResNet training through the
-kernels, a small LM and ViT through the flash-attention kernels, and the
-engine's grouped allreduce through the pack kernel on NCCL.
+kernels, a small LM and ViT through the flash-attention kernels, the
+engine's grouped allreduce through the pack kernel on NCCL, and Adasum's
+combine kernels (K4/K5) alone and training the flagship LM on 2 and 4
+cards.
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -17,8 +19,13 @@ thousand terms in sequence, so they agree within 1e-4 of sum |terms|. The
 pack is a copy and must be bitwise. The flash-attention kernels are held to
 an fp32 computation from the same bf16 inputs: their error may be twice the
 bf16 plain version's, plus 1e-3 of the largest entry (see
-``_assert_flash_close``).
+``_assert_flash_close``). K4's triple is an fp32 sum in another order
+than a float64 one: within 1e-5 of sum |terms|; K5's output within twice
+the plain version's error against float64, plus the dtype's epsilon and
+1e-6 of the largest entry (see ``test_cuda_adasum_kernels_match_plain``).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -31,12 +38,13 @@ from horovod_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig,
                                                   lean_lm_loss)
 from horovod_tpu_torch.models.vit import ViT
-from horovod_tpu_torch.ops import kernels as K
+from horovod_tpu_torch.ops import adasum as A, kernels as K
 from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
-from torch_worker import (SP_CARD_DIMS, SP_LRS, SP_STEPS, SP_VARIANTS,
-                          mlp_data, mlp_params, run_world, shard_rows,
-                          sp_card_model, sp_card_tokens)
+from torch_worker import (ADASUM_CARD_STEPS, SP_CARD_DIMS, SP_LRS,
+                          SP_STEPS, SP_VARIANTS, mlp_data, mlp_params,
+                          run_world, shard_rows, sp_card_model,
+                          sp_card_tokens)
 
 pytestmark = pytest.mark.cuda
 
@@ -417,6 +425,106 @@ def test_cuda_ring_path_matches_flash(cuda, layout):
         assert err <= 2 * base_err + 1e-3 * float(w32.abs().max())
 
 
+# every distinct gradient size of the flagship LM, and tails
+ADASUM_SIZES = (67108864, 16777216, 4194304, 2048, 1, 1000, 65537)
+
+
+def _adasum_operands(dev, n, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(n, device=dev, generator=gen)
+    b = 0.6 * a + torch.randn(n, device=dev, generator=gen)
+    return a.to(dtype), b.to(dtype)
+
+
+def _combine64(triple, a, b):
+    dot, na, nb = (float(v) for v in triple)
+    ca = 0.0 if na == 0 else 1.0 - dot / (2 * na)
+    cb = 0.0 if nb == 0 else 1.0 - dot / (2 * nb)
+    return ca * a.double() + cb * b.double()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ADASUM_SIZES)
+def test_cuda_adasum_kernels_match_plain(cuda, n, dtype):
+    """K4's triple within 1e-5 of sum |terms| of float64's; K5's output
+    within twice the plain version's error against float64 plus the
+    dtype's epsilon and 1e-6 of the largest entry (the two round the same
+    fp32 value, from coefficients a few ulps apart); bitwise repeatable and
+    swap-symmetric; one launch each."""
+    a, b = _adasum_operands(cuda, n, dtype)
+    n0 = K.launch_counts()
+    t = K.adasum_triple(a, b)
+    out = K.adasum_scale(t, a, b)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    assert n1["adasum_triple"] == n0["adasum_triple"] + 1
+    assert n1["adasum_scale"] == n0["adasum_scale"] + 1
+    assert out.dtype == dtype and t.dtype == torch.float32
+    af, bf = a.double(), b.double()
+    t64 = torch.stack([(af * bf).sum(), (af * af).sum(), (bf * bf).sum()])
+    terms = torch.stack([(af * bf).abs().sum(), t64[1], t64[2]])
+    assert bool(((t.double() - t64).abs() <= 1e-5 * terms).all())
+    ref = _combine64(t64, a, b)
+    plain = K.adasum_scale_plain(K.adasum_triple_plain(a, b), a, b)
+    err = float((out.double() - ref).abs().max())
+    base = float((plain.double() - ref).abs().max())
+    big = float(ref.abs().max())
+    assert err <= 2 * base + (torch.finfo(dtype).eps + 1e-6) * big
+    assert torch.equal(K.adasum_triple(a, b), t)
+    assert torch.equal(K.adasum_scale(t, a, b), out)
+    t_ba = K.adasum_triple(b, a)
+    assert torch.equal(t_ba, t[[0, 2, 1]])
+    assert torch.equal(K.adasum_scale(t_ba, b, a), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_adasum_alignment_does_not_change_the_bits(cuda, dtype):
+    """Views that are not 16-byte aligned are read element by element into
+    the same lanes: the same bits as aligned copies."""
+    a, b = _adasum_operands(cuda, 65541, dtype, seed=1)
+    av, bv = a[1:65538], b[3:65540]          # 65537 elements each
+    ac, bc = av.clone(), bv.clone()
+    assert av.data_ptr() % 16 and not ac.data_ptr() % 16
+    assert torch.equal(K.adasum_triple(av, bv), K.adasum_triple(ac, bc))
+    t = K.adasum_triple(ac, bc)
+    assert torch.equal(K.adasum_scale(t, av, bv), K.adasum_scale(t, ac, bc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_adasum_combine_with_a_zero_operand(cuda, dtype):
+    """adasum_combine is K4 then K5 on the card: a zero operand has a zero
+    coefficient, so 0 combined with b is b, bit for bit."""
+    a, b = _adasum_operands(cuda, 4194304, dtype, seed=2)
+    z = torch.zeros_like(a)
+    n0 = K.launch_counts()
+    assert torch.equal(A.adasum_combine(z, b), b)
+    assert torch.equal(A.adasum_combine(a, z), a)
+    assert torch.equal(A.adasum_combine(z, z), z)
+    n1 = K.launch_counts()
+    for name in ("adasum_triple", "adasum_scale"):
+        assert n1[name] == n0[name] + 3
+
+
+def test_cuda_adasum_kernels_reject_what_they_do_not_take(cuda):
+    a = torch.zeros(64, device=cuda)
+    t = K.adasum_triple(a, a)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        K.adasum_triple(a.double(), a.double())
+    with pytest.raises(ValueError, match="one dtype"):
+        K.adasum_triple(a, a.bfloat16())
+    with pytest.raises(ValueError, match="not contiguous"):
+        K.adasum_triple(torch.zeros(128, device=cuda)[::2], a)
+    with pytest.raises(ValueError, match="shape"):
+        K.adasum_scale(t, a, torch.zeros(65, device=cuda))
+    with pytest.raises(ValueError, match="triple"):
+        K.adasum_scale(t.double(), a, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.adasum_triple(a, a.cpu())
+    with pytest.raises(ValueError, match="empty"):
+        K.adasum_triple(a[:0], a[:0])
+
+
 @pytest.fixture
 def cards(cuda):
     n = torch.cuda.device_count()
@@ -515,3 +623,47 @@ def test_cuda_cards_sp_train_step_on_nccl(cards, tmp_path, seq):
             got = res[0][case]["params"][name] - start[name].cpu().numpy()
             assert np.abs(got - want).max() <= \
                 5e-2 * np.abs(want).max() + 1e-6, (case, name)
+
+
+LM_TENSORS = 34        # the flagship LM's gradients: embed, 8 x 4, ln_f
+
+
+@pytest.mark.parametrize("n,local", [(2, 0), (4, 0), (4, 2)])
+def test_cuda_cards_adasum_lm_on_nccl(cards, tmp_path, n, local):
+    """The flagship LM, one sequence a card, three AdamW steps through
+    DistributedOptimizer(op=Adasum) and DistributedDeltaAdasumOptimizer on
+    NCCL, flat or hierarchical (local size 2 at 4 cards): ranks agree
+    bitwise, every reduced gradient of the first step matches
+    ``adasum_stacked`` of the gathered per-rank gradients on one card to
+    1e-6 of its largest entry, and K4/K5 launch once a tensor and level on
+    every rank. Prints tokens/s per card and the ms of one Adasum
+    reduction of the 34 gradients."""
+    if n > cards:
+        pytest.skip(f"needs {n} CUDA devices")
+    env = {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"} if local else None
+    res = run_world("adasum_cards", n, tmp_path, device="cuda",
+                    local_size=local or None, env=env, timeout=600)
+    levels = int(math.log2(n // max(local, 1)))
+    want = ADASUM_CARD_STEPS * LM_TENSORS * levels
+    for kind in ("grad", "delta"):
+        assert len({r[kind]["digest"] for r in res}) == 1, kind
+        for r in res:
+            assert np.isfinite(r[kind]["losses"]).all()
+            assert r[kind]["launches"] == {"adasum_triple": want,
+                                           "adasum_scale": want}, kind
+    for r in res:
+        assert r["local_size"] == local
+        assert len(r["grad"]["rel_err"]) == LM_TENSORS
+        assert max(r["grad"]["rel_err"]) <= 1e-6
+    for kind in ("grad", "delta"):
+        step_s = [float(np.median(r[kind]["step_s"][1:])) for r in res]
+        print(f"adasum_cards n={n} local={local} {kind}: "
+              f"{res[0]['tokens_per_step'] / max(step_s):.1f} tokens/s per "
+              f"card (step {1e3 * max(step_s):.2f} ms, the slowest rank's "
+              f"median of steps 2-{ADASUM_CARD_STEPS}), losses "
+              f"{res[0][kind]['losses']}"
+              + (f", one Adasum reduction of the {LM_TENSORS} gradients "
+                 f"{1e3 * max(r['grad']['adasum_s'] for r in res):.2f} ms, "
+                 f"largest error against adasum_stacked "
+                 f"{max(max(r['grad']['rel_err']) for r in res):.3g}"
+                 if kind == "grad" else ""))

@@ -37,6 +37,8 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.parallel\n"
         "import horovod_tpu_torch.models.transformer\n"
         "import horovod_tpu_torch.models.vit\n"
+        "import horovod_tpu_torch.models.mlp\n"
+        "import horovod_tpu_torch.ops.adasum\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

@@ -4,7 +4,8 @@ np=2 on gloo: each rank trains the same MLP on its half of the data; the
 trajectory must equal the reference math (the two shard gradients averaged,
 then optax.sgd(0.01, momentum=0.9)) to fp32 rounding (rtol 1e-5 over three
 steps) and be bitwise identical on both ranks. At np=1 the wrapper must take
-the size-1 shortcut and step exactly like the wrapped optimizer.
+the size-1 shortcut and step exactly like the wrapped optimizer, with
+op=Adasum and in the delta-Adasum form too.
 """
 
 import numpy as np
@@ -113,10 +114,23 @@ def test_backward_passes_per_step_sums_the_passes(world1):
         torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-7)
 
 
-def test_adasum_is_not_ported_yet(world1):
-    with pytest.raises(NotImplementedError):
-        hvd.DistributedOptimizer(torch.optim.SGD(_model().parameters(),
-                                                 lr=0.1), op=hvd.Adasum)
+@pytest.mark.parametrize("wrap", ["grad", "delta"])
+def test_size1_adasum_optimizers_step_like_the_inner_one(world1, wrap):
+    """In a size-1 world Adasum of one rank is the identity: both Adasum
+    optimizers step exactly like the wrapped AdamW."""
+    x = torch.tensor(mlp_data()[0])
+    a, b = _model(), _model()
+    plain = torch.optim.AdamW(a.parameters(), lr=0.01)
+    inner = torch.optim.AdamW(b.parameters(), lr=0.01)
+    dist = (hvd.DistributedOptimizer(inner, op=hvd.Adasum) if wrap == "grad"
+            else hvd.DistributedDeltaAdasumOptimizer(inner))
+    for _ in range(3):
+        for m, o in ((a, plain), (b, dist)):
+            o.zero_grad()
+            m(x).pow(2).mean().backward()
+            o.step()
+    for p, q in zip(a.parameters(), b.parameters()):
+        assert torch.equal(p, q)
 
 
 def test_fp16_compression_round_trip():

@@ -3,9 +3,12 @@
 Imports only torch, numpy and the port (never jax or horovod_tpu), so a
 spawned rank starts in about two seconds. Run by the ``test_torch_*`` files:
 
-    python tests/torch_worker.py SCENARIO RANK SIZE PORT OUT_FILE [DEVICE]
+    python tests/torch_worker.py SCENARIO RANK SIZE PORT OUT_FILE [DEVICE
+                                 [LOCAL_SIZE]]
 
 DEVICE is ``cpu`` (gloo, the default) or ``cuda`` (NCCL, rank r on card r).
+LOCAL_SIZE (default SIZE) lays the ranks out as nodes of that many ranks
+(``HOROVOD_LOCAL_SIZE``, local rank = rank % LOCAL_SIZE).
 
 Each scenario makes its inputs from a seed with numpy, drives the port's
 public API, and pickles a dict of numpy results to OUT_FILE. The tests call
@@ -51,17 +54,21 @@ class World:
     waits for them (at most ``WORLD_TIMEOUT_S``, so a hang fails instead of
     stalling) and returns each rank's result dict, in rank order."""
 
-    def __init__(self, scenario: str, size: int, out_dir, device="cpu"):
+    def __init__(self, scenario: str, size: int, out_dir, device="cpu",
+                 local_size=None, env=None, timeout=WORLD_TIMEOUT_S):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        env = dict(os.environ, PYTHONPATH=str(REPO))
+        env = dict(os.environ, PYTHONPATH=str(REPO), **(env or {}))
         self.scenario = scenario
-        self.outs = [Path(out_dir) / f"{scenario}.rank{r}.pkl"
+        self.timeout = timeout
+        tag = f"{scenario}.n{size}.l{local_size or size}"
+        self.outs = [Path(out_dir) / f"{tag}.rank{r}.pkl"
                      for r in range(size)]
         self.procs = [subprocess.Popen(
             [sys.executable, __file__, scenario, str(r), str(size),
-             str(port), str(self.outs[r]), device], env=env,
+             str(port), str(self.outs[r]), device,
+             str(local_size or size)], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(size)]
 
@@ -69,7 +76,7 @@ class World:
         logs = []
         try:
             for p in self.procs:
-                logs.append(p.communicate(timeout=WORLD_TIMEOUT_S)[0])
+                logs.append(p.communicate(timeout=self.timeout)[0])
         finally:
             for p in self.procs:
                 if p.poll() is None:
@@ -86,10 +93,11 @@ class World:
         return results
 
 
-def run_world(scenario: str, size: int, out_dir, device="cpu") -> list:
+def run_world(scenario: str, size: int, out_dir, device="cpu",
+              **kwargs) -> list:
     """Run ``scenario`` in ``size`` fresh processes and return each rank's
-    result dict, in rank order."""
-    return World(scenario, size, out_dir, device).results()
+    result dict, in rank order (``kwargs`` as :class:`World` takes them)."""
+    return World(scenario, size, out_dir, device, **kwargs).results()
 
 
 def _engine_scenario(hvd, rank: int, size: int) -> dict:
@@ -407,25 +415,223 @@ def _sp_cards_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+ADASUM_MLP_SIZES = (12, 16, 8, 4)    # the MLP of the ``adasum`` scenario
+ADASUM_ROWS = 4                      # its rows of data per rank
+ADASUM_STEPS = 2
+ADASUM_SGD_LR = 0.1
+ADASUM_ADAMW = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-8,
+                    weight_decay=1e-4)
+ADASUM_GROUP_SHAPES = ((4,), (3, 5), (1,), (1000,))
+
+
+def adasum_mlp_params():
+    """The MLP's starting weights as the reference's ``init_mlp`` list,
+    biases away from zero."""
+    rng = np.random.RandomState(21)
+    sizes = ADASUM_MLP_SIZES
+    return [{"w": (rng.randn(i, o) * (2.0 / i) ** 0.5).astype(np.float32),
+             "b": (0.1 * rng.randn(o)).astype(np.float32)}
+            for i, o in zip(sizes[:-1], sizes[1:])]
+
+
+def adasum_mlp_data(size: int):
+    """(inputs, int labels) of the world's batch, ADASUM_ROWS a rank."""
+    rng = np.random.RandomState(22)
+    n = size * ADASUM_ROWS
+    return (rng.randn(n, ADASUM_MLP_SIZES[0]).astype(np.float32),
+            rng.randint(0, ADASUM_MLP_SIZES[-1], size=n))
+
+
+def adasum_inputs(rank: int) -> dict:
+    """A rank's tensors for the ``adasum`` scenario's collectives."""
+    rng = np.random.RandomState(300 + rank)
+    return {"single": rng.randn(7, 5).astype(np.float32),
+            "group": [rng.randn(*s).astype(np.float32)
+                      for s in ADASUM_GROUP_SHAPES],
+            "bf16": rng.randn(64).astype(np.float32),
+            "rs": rng.randn(5, 3).astype(np.float32)}
+
+
+def _adasum_scenario(hvd, rank: int, size: int) -> dict:
+    """op=Adasum through allreduce (plain, scaled, bf16, async) and
+    grouped_allreduce, reducescatter (Sum, Average), and two steps each of
+    DistributedOptimizer(SGD, op=Adasum) and
+    DistributedDeltaAdasumOptimizer(AdamW) on the MLP."""
+    import torch
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.models.convert import mlp_from_jax
+    from horovod_tpu_torch.models.mlp import MLP, mlp_loss
+    from horovod_tpu_torch.ops.adasum import hierarchical_local_size
+    torch.set_num_threads(1)     # tiny tensors; the ranks share the cores
+    ins = adasum_inputs(rank)
+    t = {k: torch.from_numpy(v) for k, v in ins.items() if k != "group"}
+    out = {"local_size": hierarchical_local_size(engine())}
+    out["single"] = hvd.allreduce(t["single"], name="ad.single",
+                                  op=hvd.Adasum).numpy()
+    out["scaled"] = hvd.allreduce(t["single"], name="ad.scaled",
+                                  op=hvd.Adasum, prescale_factor=0.5,
+                                  postscale_factor=3.0).numpy()
+    out["group"] = [g.numpy() for g in hvd.grouped_allreduce(
+        [torch.from_numpy(g) for g in ins["group"]], name="ad.group",
+        op=hvd.Adasum)]
+    out["bf16"] = hvd.allreduce(t["bf16"].bfloat16(), name="ad.bf16",
+                                op=hvd.Adasum).float().numpy()
+    h = hvd.allreduce_async(t["single"], name="ad.async", op=hvd.Adasum)
+    out["async"] = hvd.synchronize(h).numpy()
+    out["async_poll_after"] = hvd.poll(h)
+    h = hvd.reducescatter_async(t["rs"], name="rs.sum")
+    out["rs_sum"] = h.synchronize().numpy()
+    out["rs_sizes"] = h.recv_sizes
+    out["rs_avg"] = hvd.reducescatter(t["rs"], name="rs.avg",
+                                      op=hvd.Average).numpy()
+    x, y = adasum_mlp_data(size)
+    shard = shard_rows(rank, size, len(x))
+    batch = (torch.from_numpy(x[shard]), torch.from_numpy(y[shard]))
+    for kind in ("grad", "delta"):
+        model = MLP(ADASUM_MLP_SIZES)
+        model.load_state_dict(mlp_from_jax(adasum_mlp_params()))
+        if kind == "grad":
+            opt = hvd.DistributedOptimizer(torch.optim.SGD(
+                model.parameters(), lr=ADASUM_SGD_LR), op=hvd.Adasum)
+        else:
+            opt = hvd.DistributedDeltaAdasumOptimizer(torch.optim.AdamW(
+                model.parameters(), **ADASUM_ADAMW))
+        traj = []
+        for _ in range(ADASUM_STEPS):
+            opt.zero_grad()
+            mlp_loss(model, batch).backward()
+            opt.step()
+            traj.append({n: p.detach().numpy().copy()
+                         for n, p in model.named_parameters()})
+        out[kind] = traj
+    return out
+
+
+ADASUM_CARD_STEPS = 3
+ADASUM_CARD_DIMS = dict(vocab_size=32768, d_model=2048, n_heads=16,
+                        n_layers=4, d_ff=8192, max_seq=2048)  # flagship LM
+ADASUM_CPU_DIMS = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
+                       d_ff=64, max_seq=16)
+
+
+def _adasum_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """Three AdamW steps of the bf16 LM (the flagship on the card, a tiny
+    one on the CPU rehearsal), one sequence a rank, through
+    DistributedOptimizer(op=Adasum) and DistributedDeltaAdasumOptimizer.
+    After the first grad-Adasum step every reduced gradient is held against
+    ``adasum_stacked`` of the gathered per-rank gradients. Returns the
+    losses, a digest of the parameters (ranks must agree bitwise), K4/K5
+    launches, step times and the time of one Adasum reduction of the
+    gradients."""
+    import hashlib
+    import time
+    import torch
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lean_lm_loss)
+    from horovod_tpu_torch.ops import adasum as A, kernels as K
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    dims = ADASUM_CARD_DIMS if dev.type == "cuda" else ADASUM_CPU_DIMS
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **dims)
+    local = A.hierarchical_local_size(engine())
+    tokens = np.random.RandomState(14).randint(
+        0, cfg.vocab_size, size=(size, cfg.max_seq + 1))
+    x = torch.from_numpy(tokens[rank:rank + 1, :-1]).to(dev)
+    y = torch.from_numpy(tokens[rank:rank + 1, 1:]).to(dev)
+    out = {"local_size": local, "tokens_per_step": cfg.max_seq}
+    names = ("adasum_triple", "adasum_scale")
+    for kind in ("grad", "delta"):
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+        model.to(dev)
+        params = list(model.parameters())
+        inner = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999),
+                                  eps=1e-8, weight_decay=1e-4)
+        opt = (hvd.DistributedOptimizer(inner, op=hvd.Adasum)
+               if kind == "grad" else
+               hvd.DistributedDeltaAdasumOptimizer(inner))
+        res = {"losses": [], "step_s": [], "launches": dict.fromkeys(names, 0)}
+        for step in range(ADASUM_CARD_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            check = kind == "grad" and step == 0
+            if check:
+                local_grads = [p.grad.detach().clone() for p in params]
+            n0 = K.launch_counts()
+            opt.step()
+            n1 = K.launch_counts()
+            sync()
+            res["step_s"].append(time.perf_counter() - t0)
+            res["losses"].append(float(loss.detach()))
+            for k in names:
+                res["launches"][k] += n1[k] - n0[k]
+            if check:
+                # the reduced gradients (p.grad after the step) against the
+                # one-process schedule on the gathered local gradients
+                res["rel_err"] = []
+                for i, (g, p) in enumerate(zip(local_grads, params)):
+                    want = A.adasum_stacked(
+                        hvd.allgather(g[None], name=f"check.{i}"),
+                        local_size=local)
+                    res["rel_err"].append(float(
+                        (p.grad - want).abs().max()
+                        / want.abs().max().clamp_min(1e-30)))
+                del local_grads, want
+        if kind == "grad":
+            grads = [p.grad for p in params]
+            times = []
+            for rep in range(3):
+                sync()
+                t0 = time.perf_counter()
+                hvd.grouped_allreduce(grads, name=f"time.{rep}",
+                                      op=hvd.Adasum)
+                sync()
+                times.append(time.perf_counter() - t0)
+            res["adasum_s"] = sorted(times)[1]
+            del grads
+        digest = hashlib.sha256()
+        for p in params:
+            digest.update(p.detach().cpu().numpy().tobytes())
+        res["digest"] = digest.hexdigest()
+        out[kind] = res
+        del model, params, inner, opt
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
-             "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario}
+             "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
+             "adasum": _adasum_scenario,
+             "adasum_cards": _adasum_cards_scenario}
 
 
 def main(argv):
     scenario, rank, size, port, out_file = argv[:5]
     device = argv[5] if len(argv) > 5 else "cpu"
+    local = int(argv[6]) if len(argv) > 6 else int(size)
     os.environ.update({
         "HOROVOD_TPU_COORDINATOR": f"127.0.0.1:{port}",
         "HOROVOD_TPU_NUM_PROCESSES": size,
         "HOROVOD_TPU_PROCESS_ID": rank,
-        "HOROVOD_LOCAL_RANK": rank,
-        "HOROVOD_LOCAL_SIZE": size,
+        "HOROVOD_LOCAL_RANK": str(int(rank) % local),
+        "HOROVOD_LOCAL_SIZE": str(local),
         "HOROVOD_TPU_SHUTDOWN_TIMEOUT": "60",
         "HOROVOD_FUSION_THRESHOLD": "64",
     })
     import horovod_tpu_torch as hvd
-    hvd.init(device=device)
+    # rank r on card r, whatever its local rank
+    hvd.init(device=f"cuda:{rank}" if device == "cuda" else device)
     try:
         result = SCENARIOS[scenario](hvd, int(rank), int(size))
     finally:
