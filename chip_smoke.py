@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
+Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` (printing
+the registers and spill bytes of each flash-forward instantiation from the
+build's ``ptxas`` report) and then:
 
 1. holds each of K1-K3 against its plain PyTorch version on the card at
-   ResNet-50's shapes (batch 64, 224x224) and times both with CUDA events;
+   ResNet-50's shapes (batch 64, 224x224) and times both with CUDA events,
+   K2 beside ``torch.batch_norm_stats`` and K3 beside
+   ``torch.batch_norm_backward_reduce`` (yardsticks only, never on the
+   path);
 2. drives the main path: ``hvd.init()`` on NCCL, ``ResNet50(fused_bn=True)``
    in bf16, ``broadcast_parameters``, ``DistributedOptimizer(SGD)``, a few
    training steps on a fixed synthetic batch (losses finite and falling);
@@ -16,7 +21,8 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    computed in fp32 from the same bf16 inputs, at the flagship LM's
    attention (B4 H16 T2048 D128, causal), ViT-B/16's (B32 H12 T197 D64,
    full) and a causal T = 1000 tail-tile shape, and times them beside
-   ``scaled_dot_product_attention`` (a yardstick only, never on the path);
+   ``scaled_dot_product_attention`` (a yardstick only, never on the path),
+   the forward with its achieved TFLOP/s and its share of the bound;
 5. trains the flagship decoder LM (d2048 x 4 layers, T 2048, batch 4,
    bf16, ``attention="flash"``) through ``broadcast_parameters`` and
    ``DistributedOptimizer(AdamW)`` (losses finite and falling, tokens/s);
@@ -27,7 +33,8 @@ Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` and then:
    computed in fp32 from the same bf16 inputs, at the zig-zag ring's FULL
    and DIAG half-segments of B1 H16 T8192 D128 (strided lse/di halves),
    the contiguous n=1 ring's whole segment and a T = 2000, D 64 tail-tile
-   shape, and times them beside SDPA's forward (a yardstick only);
+   shape, and times them beside SDPA's forward (a yardstick only), the
+   forward with its achieved TFLOP/s and its share of the bound;
 9. drives ring attention's multi-rank code path on one card
    (``ring_attention_p(..., force_ring=True)``) at bench.py's
    ``bench_sp_ring`` shape, B1 T8192 H16 D128 bf16, zig-zag and
@@ -63,6 +70,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -149,6 +157,25 @@ def resnet50_bn_shapes(batch: int, image: int = 224):
     return shapes
 
 
+def forward_ptxas(build, log):
+    """Registers and spill bytes of the flash forward's instantiations
+    (csrc/flash_fwd_sm90.cu) from the build's ptxas report, by output type:
+    {"bf16" (K6a), "fp32" (K7a): {"registers": max, "spill_bytes": sum}}."""
+    out = {"bf16": {"registers": 0, "spill_bytes": 0},
+           "fp32": {"registers": 0, "spill_bytes": 0}}
+    for name, r in sorted(build.ptxas_report("flash_fwd_sm90").items()):
+        m = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)E", name)
+        check(m is not None and len(r) == 3,
+              f"unexpected ptxas entry {name}: {r}")
+        kind = "fp32" if m.group(2) == "f" else "bf16"
+        spill = r["spill_stores"] + r["spill_loads"]
+        out[kind]["registers"] = max(out[kind]["registers"], r["registers"])
+        out[kind]["spill_bytes"] += spill
+        log(f"  flash forward D{m.group(1)} {kind} output: {r['registers']} "
+            f"registers, {spill} bytes spilled")
+    return out
+
+
 HEAD_START_CYCLES = 2_000_000  # about 1 ms of the card spinning
 
 
@@ -188,7 +215,8 @@ def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
     rows = {}
     for name in ("bn_stats", "bn_bwd_stats"):
         rows[name] = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
-                      "bound_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+                      "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                      "max_rel_err": 0.0}
     for (m, c), n in counts.items():
         x = torch.randn(m, c, device=dev, generator=gen).to(torch.bfloat16)
         dy = torch.randn(m, c, device=dev, generator=gen).to(torch.bfloat16)
@@ -198,19 +226,42 @@ def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
                              + 1e-5)
         xf, dyf = x.float(), dy.float()
         xh = (xf - mean) * invstd
+        # the library yardsticks compute neighbours of K2/K3: mean and
+        # invstd instead of the sums; sum dy and sum dy*(x - mean) without
+        # K3's invstd factor. They must agree with K2/K3's plain versions.
+        lib_mean, lib_invstd = torch.batch_norm_stats(x, 1e-5)
+        lib_dy, lib_dyxmu, _, _ = torch.batch_norm_backward_reduce(
+            dy, x, mean, invstd, None, True, False, False)
+        s1_ref, s2_ref = K.bn_bwd_stats_plain(dy, x, mean, invstd)
+        for what, got, want, mag in (
+                ("mean", lib_mean * m, s_ref, xf.abs().sum(0)),
+                ("invstd", lib_invstd, invstd, invstd.abs()),
+                ("sum dy", lib_dy, s1_ref, dyf.abs().sum(0)),
+                ("sum dy (x - mean) invstd", lib_dyxmu * invstd, s2_ref,
+                 (dyf * xh).abs().sum(0))):
+            check(bool(((got.float() - want).abs() <= 1e-3 * mag + 1e-6)
+                       .all()),
+                  f"library yardstick {what} {(m, c)} disagrees with the "
+                  "plain version")
+        del lib_mean, lib_invstd, lib_dy, lib_dyxmu
         cases = {
             "bn_stats": (lambda: K.bn_stats(x), (s_ref, q_ref),
                          (xf.abs().sum(0), (xf * xf).sum(0)),
-                         lambda: K.bn_stats_plain(x), m * c * 2 + 2 * c * 4,
-                         3 * m * c),
+                         lambda: K.bn_stats_plain(x),
+                         lambda: torch.batch_norm_stats(x, 1e-5),
+                         m * c * 2 + 2 * c * 4, 3 * m * c),
             "bn_bwd_stats": (lambda: K.bn_bwd_stats(dy, x, mean, invstd),
-                             K.bn_bwd_stats_plain(dy, x, mean, invstd),
+                             (s1_ref, s2_ref),
                              (dyf.abs().sum(0), (dyf * xh).abs().sum(0)),
                              lambda: K.bn_bwd_stats_plain(dy, x, mean,
                                                           invstd),
+                             lambda: torch.batch_norm_backward_reduce(
+                                 dy, x, mean, invstd, None, True, False,
+                                 False),
                              2 * m * c * 2 + 4 * c * 4, 5 * m * c),
         }
-        for name, (kern, ref, mag, plain, nbytes, flops) in cases.items():
+        for name, (kern, ref, mag, plain, library, nbytes,
+                   flops) in cases.items():
             got = kern()
             again = kern()
             torch.cuda.synchronize()
@@ -225,18 +276,20 @@ def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
                   f"> {BN_REL_TOL}")
             ms, host_ms = time_ms(torch, kern, flush, reps)
             plain_ms, _ = time_ms(torch, plain, flush, reps)
+            lib_ms, _ = time_ms(torch, library, flush, reps)
             bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
                                  flops / FP32_FLOPS)
             row = rows[name]
             row["ms"] += n * ms
             row["host_ms"] += n * host_ms
             row["plain_ms"] += n * plain_ms
+            row["library_ms"] += n * lib_ms
             row["bound_ms"] += n * bound_ms
             row["max_abs_err"] = max(row["max_abs_err"], abs_err)
             row["max_rel_err"] = max(row["max_rel_err"], rel_err)
             log(f"  {name} M={m} C={c} x{n}: kernel {ms:.4f} ms (host "
-                f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms, abs err "
+                f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+                f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms, abs err "
                 f"{abs_err:.3g}, err/sum|terms| {rel_err:.3g}")
         del x, dy, xf, dyf, xh
     return rows
@@ -299,6 +352,19 @@ def flash_work(b, h, t, d, causal):
         # S, dP = dO V^T, dQ += dS K
         "flash_bwd_dq": (5 * x + 2 * st, 6 * d * pairs, BF16_FLOPS),
     }
+
+
+def forward_rate(ops, ms, bound_ms):
+    """A forward's achieved rate on its products and its share of the
+    bound (bound time over kernel time)."""
+    return {"tflops": ops / (ms * 1e9), "bound_share": bound_ms / ms}
+
+
+def rate_text(entry):
+    if "tflops" not in entry:
+        return ""
+    return (f", {entry['tflops']:.1f} TFLOP/s, "
+            f"{100 * entry['bound_share']:.1f}% of the bound")
 
 
 def check_flash_kernels(torch, K, dev, flush, reps, log):
@@ -409,10 +475,12 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
                          library_ms=(sdpa_fwd_ms if name == "flash_fwd"
                                      else None),
                          max_abs_err=errors[name])
+            if name == "flash_fwd":
+                entry.update(forward_rate(ops, ms, bound_ms))
             rows[name]["shapes"].append(entry)
             log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({entry['bound_by']})")
+                f"({entry['bound_by']})" + rate_text(entry))
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
@@ -435,10 +503,17 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         first = rows[name]["shapes"][0]
         rows[name].update({key: first[key] for key in
                            ("ms", "host_ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")})
+                            "bound_by", "library_ms", "tflops", "bound_share")
+                           if key in first})
         rows[name]["max_abs_err"] = max(e["max_abs_err"]
                                         for e in rows[name]["shapes"])
     return rows, summary
+
+
+def flash_source(name):
+    """The source of a K6/K7 kernel: the Hopper forward, or the backward."""
+    return ("flash_fwd_sm90.cu" if name in ("flash_fwd", "flash_seg_fwd")
+            else "flash_attn.cu")
 
 
 def seg_work(b, h, s, d, causal):
@@ -549,10 +624,12 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
                          library_ms=(sdpa_ms if name == "flash_seg_fwd"
                                      else None),
                          max_abs_err=errors[name])
+            if name == "flash_seg_fwd":
+                entry.update(forward_rate(ops, ms, bound_ms))
             rows[name]["shapes"].append(entry)
             log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({entry['bound_by']})"
+                f"({entry['bound_by']})" + rate_text(entry)
                 + (f", SDPA forward {sdpa_ms:.4f} ms"
                    if name == "flash_seg_fwd" else ""))
         del q, k, v, do, lse, di, seg, sq, sk, sv, sdo, slse, sdi, kargs
@@ -562,7 +639,8 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
         first = rows[name]["shapes"][0]
         rows[name].update({key: first[key] for key in
                            ("ms", "host_ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")})
+                            "bound_by", "library_ms", "tflops", "bound_share")
+                           if key in first})
         rows[name]["max_abs_err"] = max(e["max_abs_err"]
                                         for e in rows[name]["shapes"])
     return rows
@@ -985,7 +1063,8 @@ def train(torch, step, batch, warmup, steps, windows, log):
 
 
 KERNEL_GROUPS = (   # kernel-name patterns -> layer of the step, first match
-    ("flash-attention kernels (csrc/flash_attn.cu)", ("flash_",)),
+    ("flash-attention kernels (csrc/flash_fwd_sm90.cu, flash_attn.cu)",
+     ("flash_",)),
     ("bn_stats kernels (csrc/bn_stats.cu)", ("bn_partial", "bn_finalize")),
     ("pack kernel (csrc/pack.cu)", ("pack_kernel",)),
     ("convolutions and dense (cuDNN/cuBLAS)",
@@ -1079,6 +1158,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    fwd_ptxas = forward_ptxas(build, log)
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.benchmark = True
@@ -1286,33 +1366,34 @@ def main(argv=None) -> int:
              lm_launches=lm_pack),
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
-             launches=counts["bn_stats"], library_ms=None, bound_by="bytes",
+             launches=counts["bn_stats"], bound_by="bytes",
              ok=True, work=f"53 BN layers of ResNet-50, batch {args.batch}",
              **bn_rows["bn_stats"]),
         dict(name="bn_bwd_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:265",
-             launches=counts["bn_bwd_stats"], library_ms=None,
-             bound_by="bytes", ok=True,
+             launches=counts["bn_bwd_stats"], bound_by="bytes", ok=True,
              work=f"53 BN layers of ResNet-50, batch {args.batch}",
              **bn_rows["bn_bwd_stats"]),
     ] + [
         # the forward and the custom-VJP backward of the jax library kernel
         # that flash_attention_local calls there
-        dict(name=name, route="cuda", source=f"{src}/flash_attn.cu",
+        dict(name=name, route="cuda", source=f"{src}/{flash_source(name)}",
              replaces="horovod_tpu/parallel/flash_attention.py:226",
              launches=lm_counts[name], vit_launches=vit_counts[name], ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
-             **flash_rows[name])
+             **flash_rows[name],
+             **(fwd_ptxas["bf16"] if name == "flash_fwd" else {}))
         for name in FLASH_KERNELS] + [
         # the ring's per-segment kernels: _seg_fwd_pallas and the two
         # library backward kernels _seg_bwd_pallas calls
-        dict(name=name, route="cuda", source=f"{src}/flash_attn.cu",
+        dict(name=name, route="cuda", source=f"{src}/{flash_source(name)}",
              replaces=f"horovod_tpu/parallel/ring_attention.py:{line}",
              launches=ring_counts[name], ok=True,
              work="the zig-zag ring's FULL half-segment (B1 H16 S4096 D128); "
                   "shapes lists every shape",
-             **seg_rows[name])
+             **seg_rows[name],
+             **(fwd_ptxas["fp32"] if name == "flash_seg_fwd" else {}))
         for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",

@@ -1,32 +1,27 @@
-// Flash attention, forward and backward, bf16 in and out, fp32 softmax.
+// Flash attention backward, bf16 in, fp32 softmax statistics.
 //
-// Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py
-// :flash_attention_local takes from jax's library: flash_attention /
-// splash_attention forward (online softmax, causal blocks skipped) and its
-// custom-VJP backward (_flash_attention_bwd_dkv, _flash_attention_bwd_dq).
+// Replaces the custom-VJP backward of the Pallas kernels that
+// horovod_tpu/parallel/flash_attention.py:flash_attention_local takes from
+// jax's library (_flash_attention_bwd_dkv, _flash_attention_bwd_dq). The
+// forward is flash_fwd_sm90.cu, a TMA and wgmma kernel; these are the first
+// Hopper versions, on the older tile code.
 //
 // What bounds them on an H100: operations. At the flagship shape (B4 H16
-// T2048 D128, causal) the forward does 2*B*H*T^2*D = 69 GFLOP and moves
-// 8 MB per input, about 3,900 operations per byte, far above the card's 295.
-// So the products run on the tensor cores, and S = QK^T and P never go to
-// device memory: O(T) memory, no T^2 buffer.
+// T2048 D128, causal) dk/dv do 8*D and dq 6*D operations a (q, kv) pair,
+// far above the card's 295 operations a byte. So the products run on the
+// tensor cores, and S, P, dP and dS never go to device memory: O(T)
+// memory, no T^2 buffer.
 //
 // Design (a first, simple Hopper version):
 // - mma.sync m16n8k16, bf16 operands, fp32 accumulators. Each warp owns 16
 //   rows of its block's tile; 4 warps a block. Tiles of Q, K, V, dO are
 //   staged in shared memory with 16-byte loads (rows padded by 16 bytes so
 //   the fragment loads hit 32 distinct banks). A fragments come from shared
-//   memory as 32-bit pairs; B fragments that need the transpose (V in PV,
-//   dO, Q and K in the gradient products) are gathered as two 16-bit loads.
+//   memory as 32-bit pairs; B fragments that need the transpose (dO, Q and
+//   K in the gradient products) are gathered as two 16-bit loads.
 // - The score accumulators of two n-tiles are, element for element, the A
-//   fragment of the next product, so P (and dS) go from registers to the
-//   tensor cores after one bf16 rounding, as the reference casts p to
-//   v.dtype before its PV product.
-// - flash_fwd: one block per (b*h, 64-row q tile); K/V tiles of 64 rows;
-//   online softmax with a running max m and sum l per row in log2 units;
-//   O in fp32 registers, written bf16; lse = m ln2 + ln l. Causal: kv tiles
-//   past the diagonal are never loaded; the diagonal tile and the tail tile
-//   (T not a multiple of 64) are masked, so any T >= 1 runs.
+//   fragment of the next product, so P and dS go from registers to the
+//   tensor cores after one bf16 rounding.
 // - flash_bwd_pre: di = rowsum(dO * O), one warp per row.
 // - flash_bwd_dkdv: one block per (b*h, 64-row kv tile), looping over
 //   32-row q tiles from the diagonal on; recomputes p = exp(s*scale - lse)
@@ -34,22 +29,21 @@
 // - flash_bwd_dq: one block per (b*h, 64-row q tile), looping over 32-row
 //   kv tiles up to the diagonal; dQ += dS K * scale. A separate pass means
 //   no float atomics: results repeat bitwise.
-// The backward takes lse and di from outside, so under a global lse it is
-// ring attention's per-block backward as well.
+// Causal: tiles past the diagonal are never loaded; the diagonal tile and
+// the tail tile (T not a multiple of the tile) are masked, so any T >= 1
+// runs. The backward takes lse and di from outside, so under a global lse
+// it is ring attention's per-block backward as well.
 //
-// K7, ring attention's per-segment kernels (horovod_tpu/parallel/
-// ring_attention.py :_seg_fwd_pallas, :_seg_bwd_pallas), are the same
-// three kernels instantiated with fp32 outputs (OutT = float): the ring
-// merges block outputs and adds block gradients over its hops in fp32, so
-// o, dq, dk and dv leave the registers unrounded. Their lse and di are
-// [B, H, S] views with B and H strides (the zig-zag halves of a [B, H, T]
-// tensor). A row that sees no key writes o = 0 and lse = -1e30, a finite
-// sentinel the ring's merge needs (logaddexp(-inf, -inf) is NaN). A
-// segment is the aligned causal diagonal (DIAG, causal=1) or all-visible
-// (FULL, causal=0): K6's two cases. Bounded by operations, like K6.
-// Not yet here (later work): cp.async/TMA double buffering, wgmma, warp
-// specialisation, ldmatrix; fusing the ring's fp32 accumulation into the
-// stores.
+// K7's backward, ring attention's per-segment kernels (horovod_tpu/
+// parallel/ring_attention.py :_seg_bwd_pallas), are the same kernels
+// instantiated with fp32 outputs (OutT = float): the ring adds block
+// gradients over its hops in fp32, so dq, dk and dv leave the registers
+// unrounded. Their lse and di are [B, H, S] views with B and H strides (the
+// zig-zag halves of a [B, H, T] tensor). A segment is the aligned causal
+// diagonal (DIAG, causal=1) or all-visible (FULL, causal=0).
+// Not yet here (later work): TMA pipelining, wgmma and warp specialisation
+// on the helpers of sm90.cuh, as the forward has them; fusing the ring's
+// fp32 accumulation into the stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,8 +58,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;   // bf16 elements of padding at the end of a row
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
 
 // A [B, H, T, D] view: base pointer and element strides of B, H and T (the
 // D stride is 1).
@@ -86,8 +78,8 @@ struct Stat {
 
 struct Params {
   View q, k, v, o, dout, dq, dk, dv;   // bf16 tensors (K6's outputs)
-  FView of, dqf, dkf, dvf;             // fp32 outputs (K7)
-  Stat lse_in, di_in, lse_out, di_out;
+  FView dqf, dkf, dvf;                 // fp32 outputs (K7)
+  Stat lse_in, di_in, di_out;
   int B, H, T, causal;
   float scale;
 };
@@ -242,103 +234,6 @@ __device__ __forceinline__ void store_rows(const ViewT<OutT>& out, int b,
     for (int dj = 0; dj < D / 8; ++dj) {
       store2(row + dj * 8 + tig * 2, acc[dj][2 * i] * mul[i],
              acc[dj][2 * i + 1] * mul[i]);
-    }
-  }
-}
-
-template <int D>
-constexpr int fwd_smem() { return 3 * 64 * (D + kPad) * 2; }
-
-template <int D, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  constexpr int BQ = 64, BK = 64, LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + BQ * LD;
-  bf16* vs = ks + BK * LD;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  // causal: the longest rows first, so the last wave is short
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int r_lo = q0 + warp * 16 + g;
-  const float sl2 = p.scale * kLog2e;
-
-  load_tile<D, BQ>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.T);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
-  zero(o);
-
-  const int kv_end = p.causal ? min(p.T, q0 + BQ) : p.T;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    __syncthreads();   // the previous tile is consumed
-    load_tile<D, BK>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.T);
-    load_tile<D, BK>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.T);
-    __syncthreads();
-    float s[BK / 8][4];
-    zero(s);
-    gemm_nt<D, BK / 8>(s, qs, warp * 16, ks, g, tig);
-
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r_lo + 8 * (e >> 1);
-        const int col = kv0 + j * 8 + tig * 2 + (e & 1);
-        const bool ok = col < p.T && (!p.causal || col <= row);
-        s[j][e] = ok ? s[j][e] * sl2 : -INFINITY;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2], msub[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float mnew = fmaxf(m[i], mt[i]);
-      // nothing seen yet in this row: nothing to rescale
-      alpha[i] = mnew == -INFINITY ? 1.f : exp2f(m[i] - mnew);
-      msub[i] = mnew == -INFINITY ? 0.f : mnew;
-      m[i] = mnew;
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - msub[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int dj = 0; dj < D / 8; ++dj) {
-      o[dj][0] *= alpha[0];
-      o[dj][1] *= alpha[0];
-      o[dj][2] *= alpha[1];
-      o[dj][3] *= alpha[1];
-    }
-    gemm_pv<D, BK / 16>(o, s, vs, g, tig);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    // a row that saw no key: o = 0, lse = the finite sentinel
-    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
-  }
-  store_rows<D>(pick<OutT>(p.o, p.of), b, h, r_lo, p.T, o, inv, tig);
-  if (tig == 0) {
-    float* lse = stat_row(p.lse_out, b, h);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r_lo + 8 * i;
-      if (r < p.T)
-        lse[r] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
     }
   }
 }
@@ -543,15 +438,6 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, typename OutT>
-int launch_fwd(const Params& p, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, OutT>, fwd_smem<D>());
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((unsigned)(p.B * p.H), (unsigned)((p.T + 63) / 64));
-  flash_fwd_kernel<D, OutT><<<grid, kThreads, fwd_smem<D>(), stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 template <int D>
 int launch_pre(const Params& p, cudaStream_t stream) {
   const long long rows = (long long)p.B * p.H * p.T;
@@ -623,19 +509,8 @@ extern "C" {
 // of the tensors and stream.
 //
 // K6 (flash attention): outputs are bf16 views as well; lse and di are
-// fp32 [B, H, T] contiguous.
-
-// o = softmax(q k^T * scale) v, lse = logsumexp(q k^T * scale).
-// strides: q, k, v, o.
-int hvd_flash_fwd(int device, const void* q, const void* k, const void* v,
-                  void* o, float* lse, const long long* strides, int B, int H,
-                  int T, int D, int causal, float scale, void* stream) {
-  Params p = inputs(q, k, v, nullptr, strides, B, H, T, causal, scale);
-  p.o = view(o, strides, 3);
-  p.lse_out = dense_stat(lse, H, T);
-  return dispatch<launch_fwd<64, bf16>, launch_fwd<128, bf16>>(device, p, D,
-                                                               stream);
-}
+// fp32 [B, H, T] contiguous. The forward, hvd_flash_fwd, is in
+// flash_fwd_sm90.cu.
 
 // di = rowsum(dout * o). strides: o, dout.
 int hvd_flash_bwd_pre(int device, const void* o, const void* dout, float* di,
@@ -680,19 +555,8 @@ int hvd_flash_bwd_dq(int device, const void* q, const void* k, const void* v,
 // K7 (ring attention's segments, T = the segment length S): the same
 // functions with fp32 outputs, [B, H, S, D] views whose strides follow the
 // bf16 inputs' in `strides`; lse and di are fp32 [B, H, S] views whose B and
-// H strides come last in `strides`, two by two (their T stride is 1).
-
-// (o, lse) of one segment. strides: q, k, v, o; then lse.
-int hvd_flash_seg_fwd(int device, const void* q, const void* k,
-                      const void* v, float* o, float* lse,
-                      const long long* strides, int B, int H, int T, int D,
-                      int causal, float scale, void* stream) {
-  Params p = inputs(q, k, v, nullptr, strides, B, H, T, causal, scale);
-  p.of = fview(o, strides, 3);
-  p.lse_out = stat(lse, strides, 4, 0);
-  return dispatch<launch_fwd<64, float>, launch_fwd<128, float>>(device, p,
-                                                                 D, stream);
-}
+// H strides come last in `strides`, two by two (their T stride is 1). The
+// forward, hvd_flash_seg_fwd, is in flash_fwd_sm90.cu.
 
 // (dk, dv) of one segment under the given lse and di.
 // strides: q, k, v, dout, dk, dv; then lse, di.

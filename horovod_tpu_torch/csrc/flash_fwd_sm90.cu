@@ -1,0 +1,495 @@
+// Flash attention forward for Hopper: K6a (flash attention, bf16 o) and
+// K7a (ring attention's segment, fp32 o), one kernel.
+//
+// Replaces the forward Pallas kernels that horovod_tpu/parallel/
+// flash_attention.py:flash_attention_local takes from jax's library
+// (flash_attention / splash_attention forward) and horovod_tpu/parallel/
+// ring_attention.py:_seg_fwd_pallas: o = softmax(q k^T * scale) v and
+// lse = logsumexp(q k^T * scale), fp32 softmax statistics, p rounded to
+// bf16 before the PV product (the reference casts p to v.dtype).
+//
+// What bounds it on an H100: operations. At the flagship shape (B4 H16
+// T2048 D128, causal) it does 69 GFLOP on 24 MB of input, some 2,900
+// operations a byte against the card's 295, so the work is the tensor
+// cores' and the design is about keeping them fed:
+// - Block = 3 warpgroups, one block an SM. Warpgroup 0 is the producer
+//   (setmaxnreg 24): one of its threads issues TMA loads, the block's
+//   128-row Q tile once, then K and V tiles of 96 rows into rings of 2
+//   slots each (4 at D 64) on full/empty mbarriers, K one tile ahead of V,
+//   each slot refilled as soon as both consumers release it. Warpgroups 1
+//   and 2 are consumers (setmaxnreg 240), 64 q rows each, unsynchronised,
+//   so one's softmax also overlaps the other's products.
+// - A consumer computes S = Q K^T with wgmma from shared memory (m64n96k16,
+//   both operands K-major) and O += P V with wgmma taking P from registers
+//   and V as an MN-major B (m64nDk16). The two products of consecutive
+//   tiles overlap the softmax: S_i and P_{i-1} V_{i-1} are issued together,
+//   the online softmax of S_i (log2 units, fp32) runs while the second is
+//   in flight, then O is rescaled and P_i rounded pairwise to bf16 in place
+//   (the accumulator layout is the register-A layout). O, m and l stay in
+//   registers; S and P never leave them.
+// - Why 96 kv rows: during the overlap a consumer thread holds S (48
+//   registers), O (D/2) and P (24) at once. ptxas kept the consumers within
+//   the kernel's 168 registers whatever setmaxnreg allowed, and with 128-row
+//   tiles (S 64, P 32) the overlap spilled and ran slower than no overlap;
+//   96 rows fit with no spill.
+// - TMA zero-fills rows past T, so any T >= 1 runs; only a tile that
+//   crosses the causal diagonal or T runs the per-element mask. Causal
+//   tiles past the diagonal are never loaded, and blocks start with the
+//   longest rows so the last wave is short.
+// - The epilogue divides by l and stores o (bf16 or fp32) and lse from
+//   registers, rows < T only. A row that sees no key writes o = 0 and
+//   lse = -1e30, a finite sentinel the ring's merge needs.
+// The arithmetic does not depend on the views' strides and nothing is
+// accumulated across blocks: strided views and contiguous copies give the
+// same bits, and runs repeat bitwise.
+// Not yet here (later work): ping-pong scheduling of the consumers' turns
+// (tried: no faster than this), a persistent tile scheduler, a TMA store
+// epilogue.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kBQ = 128;      // q rows of a block, 64 a consumer
+constexpr int kBK = 96;       // kv rows of a tile
+constexpr int kSlab = 64;     // bf16 columns of a 128-byte swizzled slab
+constexpr int kThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
+
+template <int D>
+struct Tiles {
+  // ring slots of K and of V (3 at D 128 ran no faster than 2)
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kQElems = kBQ * D;         // the Q tile
+  static constexpr int kTileElems = kBK * D;      // a K or V tile
+  static constexpr uint32_t kTileBytes = kTileElems * 2;
+  // the tiles, their barriers, and room to align the base to 1024 bytes
+  static constexpr int kSmem =
+      (kQElems + 2 * kStages * kTileElems) * 2 + 256 + 1024;
+};
+
+// A [B, H, T, D] output view: base pointer and element strides of B, H, T.
+struct OutView {
+  void* p;
+  long long sb, sh, st;
+};
+
+struct FwdParams {
+  OutView o;
+  float* lse;             // [B, H, T] with strides lse_sb, lse_sh, 1
+  long long lse_sb, lse_sh;
+  int H, T, causal, n_qt;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void store2(bf16* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
+}
+__device__ __forceinline__ void store2(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
+struct Barriers {
+  uint64_t* q_full;
+  // a ring slot of K or V: filled by TMA (1 arrival and the tile's
+  // bytes), emptied by the consumers (256 arrivals: every thread of both)
+  uint64_t* k_full;
+  uint64_t* k_empty;
+  uint64_t* v_full;
+  uint64_t* v_empty;
+};
+
+// The i-th K or V tile (kv rows i * kBK ..) into its ring slot, once the
+// consumers have emptied the slot's previous tile.
+template <int D>
+__device__ __forceinline__ void load_kv(const CUtensorMap* map, bf16* ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        int i, int b, int h) {
+  using C = Tiles<D>;
+  const int st = i % C::kStages;
+  sm90::mbar_wait(empty + st, ((i / C::kStages) & 1) ^ 1);
+  sm90::mbar_arrive_expect_tx(full + st, C::kTileBytes);
+  bf16* dst = ring + st * C::kTileElems;
+#pragma unroll
+  for (int s = 0; s < D / kSlab; ++s)
+    sm90::tma_load_4d(dst + s * kBK * kSlab, map, full + st, s * kSlab,
+                      i * kBK, h, b);
+}
+
+// Warpgroup 0, one thread: Q once, then the kv tiles, K one tile ahead of
+// V, in the order the consumers take them.
+template <int D>
+__device__ __forceinline__ void produce(const CUtensorMap* tq,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, bf16* qs,
+                                        bf16* ks, bf16* vs,
+                                        const Barriers& bar, int b, int h,
+                                        int q0, int n_kv) {
+  using C = Tiles<D>;
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  sm90::mbar_arrive_expect_tx(bar.q_full, C::kQElems * 2);
+#pragma unroll
+  for (int s = 0; s < D / kSlab; ++s)
+    sm90::tma_load_4d(qs + s * kBQ * kSlab, tq, bar.q_full, s * kSlab, q0, h,
+                      b);
+  for (int i = 0; i < n_kv; ++i) {
+    load_kv<D>(tk, ks, bar.k_full, bar.k_empty, i, b, h);
+    if (i > 0) load_kv<D>(tv, vs, bar.v_full, bar.v_empty, i - 1, b, h);
+  }
+  load_kv<D>(tv, vs, bar.v_full, bar.v_empty, n_kv - 1, b, h);
+}
+
+// Scale a score tile into log2 units, masking what the row may not see
+// (columns at or past T; causal: past the row) to -inf, and return the
+// tile's running max of the thread's two rows.
+template <bool kMask>
+__device__ __forceinline__ void scale_mask(float (&s)[kBK / 2], float sl2,
+                                           int kv0, int r_lo, int t, int T,
+                                           int causal, float (&mt)[2]) {
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    float x = s[i] * sl2;
+    if (kMask) {
+      const int col = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
+      const int row = r_lo + 8 * ((i / 2) & 1);
+      if (col >= T || (causal && col > row)) x = -INFINITY;
+    }
+    s[i] = x;
+    mt[(i / 2) & 1] = fmaxf(mt[(i / 2) & 1], x);
+  }
+}
+
+// The online softmax of one score tile, in place: s becomes
+// p = exp2(s * scale * log2(e) - m_new), m the new running max of the
+// thread's two rows; alpha[i] = exp2(m_old - m_new) rescales what was
+// summed before, rs[i] is the new p's sum over this thread's columns. Only
+// a tile that crosses T or the diagonal runs the per-element mask.
+__device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
+                                               float (&m)[2],
+                                               float (&alpha)[2],
+                                               float (&rs)[2], bool mask,
+                                               float sl2, int kv0, int r_lo,
+                                               int t, int T, int causal) {
+  float mt[2] = {-INFINITY, -INFINITY};
+  if (mask)
+    scale_mask<true>(s, sl2, kv0, r_lo, t, T, causal, mt);
+  else
+    scale_mask<false>(s, sl2, kv0, r_lo, t, T, causal, mt);
+  float msub[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+    mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+    const float mnew = fmaxf(m[i], mt[i]);
+    // nothing seen yet in this row: nothing to rescale
+    alpha[i] = mnew == -INFINITY ? 1.f : exp2f(m[i] - mnew);
+    msub[i] = mnew == -INFINITY ? 0.f : mnew;
+    m[i] = mnew;
+    rs[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) {
+    s[i] = exp2f(s[i] - msub[(i / 2) & 1]);
+    rs[(i / 2) & 1] += s[i];
+  }
+}
+
+// P, rounded pairwise to bf16, in the A-operand layout: registers
+// 8kk .. 8kk + 7 of s are the A operand of the kk-th 16 kv rows (row g:
+// 8kk + 0, 1, 4, 5; row g + 8: + 2, 3, 6, 7).
+__device__ __forceinline__ void to_bf16(const float (&s)[kBK / 2],
+                                        uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+// S = Q K^T over D (D/16 steps, 4 a slab), issued and committed.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const bf16* qw,
+                                         const bf16* kt) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int slab = kk / 4, col = (kk % 4) * 16;
+    sm90::Wgmma<kBK>::template ss<0, 0>(
+        s, sm90::desc_k_major(qw + slab * kBQ * kSlab + col),
+        sm90::desc_k_major(kt + slab * kBK * kSlab + col), kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// O += P V over one V tile (kBK/16 steps of 16 kv rows, 2 KB of a slab),
+// issued and committed.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         uint32_t (&pa)[kBK / 16][4],
+                                         const bf16* vt) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    sm90::Wgmma<D>::template rs<1>(
+        o, pa[kk], sm90::desc_mn_major(vt + kk * 16 * kSlab, kBK * kSlab * 2),
+        1);
+  sm90::wgmma_commit();
+}
+
+template <int D>
+__device__ __forceinline__ void fence_pv(float (&o)[D / 2],
+                                         uint32_t (&pa)[kBK / 16][4]) {
+  sm90::fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) sm90::fence_regs(pa[kk]);
+}
+
+// The consumer warpgroups: 64 q rows each, every kv tile of the block. The
+// products of one tile overlap the softmax of the next: S_i = Q K_i^T and
+// O += P_{i-1} V_{i-1} are issued together, the softmax of S_i runs while
+// the second is in flight, and O is rescaled and P_i formed after it. Each
+// tile's arithmetic, and its order, are those of the plain online softmax.
+// The first tile is peeled off, so no product is issued under a branch.
+template <int D, typename OutT>
+__device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
+                                        const bf16* ks, const bf16* vs,
+                                        const Barriers& bar, int wg, int b,
+                                        int h, int q0, int n_kv) {
+  using C = Tiles<D>;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * wg;            // the warpgroup's first q row
+  const int r_lo = qw0 + 16 * warp + g;    // this thread's rows: r_lo, +8
+  const float sl2 = p.scale * kLog2e;
+  // this warpgroup's 64 rows of each Q slab
+  const bf16* qw = qs + wg * 64 * kSlab;
+  // a tile needs the mask if it crosses T or, causal, the diagonal
+  auto mask = [&](int kv0) {
+    return kv0 + kBK > p.T || (p.causal && kv0 + kBK - 1 > qw0);
+  };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2];
+  float s[kBK / 2];
+  uint32_t pa[kBK / 16][4];   // P of the tile whose PV is next
+
+  sm90::mbar_wait(bar.q_full, 0);
+  sm90::mbar_wait(bar.k_full, 0);
+  sm90::wgmma_fence();
+  issue_qk<D>(s, qw, ks);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  sm90::mbar_arrive(bar.k_empty);
+  online_softmax(s, m, alpha, l, mask(0), sl2, 0, r_lo, t, p.T, p.causal);
+  to_bf16(s, pa);
+
+  for (int it = 1; it < n_kv; ++it) {
+    const int st = it % C::kStages, prev = (it - 1) % C::kStages;
+    const int kv0 = it * kBK;
+    sm90::mbar_wait(bar.k_full + st, (it / C::kStages) & 1);
+    sm90::wgmma_fence();
+    issue_qk<D>(s, qw, ks + st * C::kTileElems);
+    sm90::mbar_wait(bar.v_full + prev, ((it - 1) / C::kStages) & 1);
+    issue_pv<D>(o, pa, vs + prev * C::kTileElems);
+    sm90::wgmma_wait<1>();      // S_i is done; P_{i-1} V_{i-1} may not be
+    sm90::fence_regs(s);
+    sm90::mbar_arrive(bar.k_empty + st);
+    float rs[2];
+    online_softmax(s, m, alpha, rs, mask(kv0), sl2, kv0, r_lo, t, p.T,
+                   p.causal);
+    sm90::wgmma_wait<0>();
+    fence_pv<D>(o, pa);
+    sm90::mbar_arrive(bar.v_empty + prev);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+    to_bf16(s, pa);
+  }
+  const int last = (n_kv - 1) % C::kStages;
+  sm90::mbar_wait(bar.v_full + last, ((n_kv - 1) / C::kStages) & 1);
+  sm90::wgmma_fence();
+  issue_pv<D>(o, pa, vs + last * C::kTileElems);
+  sm90::wgmma_wait<0>();
+  fence_pv<D>(o, pa);
+  sm90::mbar_arrive(bar.v_empty + last);
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    // a row that saw no key: o = 0, lse = the finite sentinel
+    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
+  }
+  OutT* head = reinterpret_cast<OutT*>(p.o.p) + b * p.o.sb + h * p.o.sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    if (r >= p.T) continue;
+    OutT* row = head + r * p.o.st;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(row + 8 * j + 2 * t, o[4 * j + 2 * i] * inv[i],
+             o[4 * j + 2 * i + 1] * inv[i]);
+  }
+  if (t == 0) {
+    float* lse = p.lse + b * p.lse_sb + h * p.lse_sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      if (r < p.T) lse[r] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
+    }
+  }
+}
+
+template <int D, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const FwdParams p) {
+  using C = Tiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is anchored to 1024-byte atoms: align the tiles to them
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* ks = qs + C::kQElems;
+  bf16* vs = ks + C::kStages * C::kTileElems;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kTileElems);
+  const Barriers bar{bars, bars + 1, bars + 1 + C::kStages,
+                     bars + 1 + 2 * C::kStages, bars + 1 + 3 * C::kStages};
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // causal: the longest rows first, so the last wave is short
+  const int q0 = (p.n_qt - 1 - blockIdx.y) * kBQ;
+  const int kv_end = p.causal ? min(p.T, q0 + kBQ) : p.T;
+  const int n_kv = (kv_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(bar.k_full + s, 1);
+      sm90::mbar_init(bar.k_empty + s, 256);
+      sm90::mbar_init(bar.v_full + s, 1);
+      sm90::mbar_init(bar.v_empty + s, 256);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 0)
+      produce<D>(&tq, &tk, &tv, qs, ks, vs, bar, b, h, q0, n_kv);
+  } else {
+    sm90::reg_alloc<240>();
+    consume<D, OutT>(p, qs, ks, vs, bar, threadIdx.x / 128 - 1, b, h, q0,
+                     n_kv);
+  }
+}
+
+template <int D, typename OutT>
+cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
+                   const CUtensorMap& tv, const FwdParams& p, int B,
+                   cudaStream_t stream) {
+  constexpr int smem = Tiles<D>::kSmem;
+  // the attribute belongs to the current device: set at every launch
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_kernel<D, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(B * p.H), (unsigned)p.n_qt);
+  flash_fwd_sm90_kernel<D, OutT><<<grid, kThreads, smem, stream>>>(tq, tk, tv,
+                                                                   p);
+  return cudaGetLastError();
+}
+
+// q, k, v: [B, H, T, D] bf16 views with element strides (B, H, T) at
+// strides[0..8]; o as described by `out`; lse with B/H strides.
+template <typename OutT>
+int forward(int device, const void* q, const void* k, const void* v,
+            const OutView& out, float* lse, long long lse_sb,
+            long long lse_sh, const long long* strides, int B, int H, int T,
+            int D, int causal, float scale, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    err = sm90::bhtd_bf16_map(&maps[i], ptrs[i], B, H, T, D, strides[3 * i],
+                              strides[3 * i + 1], strides[3 * i + 2],
+                              i == 0 ? kBQ : kBK);
+    if (err != cudaSuccess) return (int)err;
+  }
+  FwdParams p;
+  p.o = out;
+  p.lse = lse;
+  p.lse_sb = lse_sb;
+  p.lse_sh = lse_sh;
+  p.H = H;
+  p.T = T;
+  p.causal = causal;
+  p.n_qt = (T + kBQ - 1) / kBQ;
+  p.scale = scale;
+  const cudaStream_t s = (cudaStream_t)stream;
+  err = D == 64 ? launch<64, OutT>(maps[0], maps[1], maps[2], p, B, s)
+                : launch<128, OutT>(maps[0], maps[1], maps[2], p, B, s);
+  return (int)err;
+}
+
+OutView out_view(void* o, const long long* strides) {
+  return OutView{o, strides[9], strides[10], strides[11]};
+}
+
+}  // namespace
+
+extern "C" {
+
+// K6: o = softmax(q k^T * scale) v, lse = logsumexp(q k^T * scale). Every
+// tensor argument is a [B, H, T, D] bf16 view, D = 64 or 128 contiguous,
+// with the element strides of B, H and T three by three in `strides` (host
+// memory): q, k, v, o. lse is fp32 [B, H, T] contiguous. device: the CUDA
+// ordinal of the tensors and stream.
+int hvd_flash_fwd(int device, const void* q, const void* k, const void* v,
+                  void* o, float* lse, const long long* strides, int B, int H,
+                  int T, int D, int causal, float scale, void* stream) {
+  return forward<bf16>(device, q, k, v, out_view(o, strides), lse,
+                       (long long)H * T, (long long)T, strides, B, H, T, D,
+                       causal, scale, stream);
+}
+
+// K7 (one ring segment, T = its length S): the same function with an fp32
+// o, a [B, H, S, D] view whose strides follow the inputs' in `strides`, and
+// lse an fp32 [B, H, S] view whose B and H strides come last (strides[12],
+// strides[13]; its T stride is 1).
+int hvd_flash_seg_fwd(int device, const void* q, const void* k,
+                      const void* v, float* o, float* lse,
+                      const long long* strides, int B, int H, int T, int D,
+                      int causal, float scale, void* stream) {
+  return forward<float>(device, q, k, v, out_view(o, strides), lse,
+                        strides[12], strides[13], strides, B, H, T, D, causal,
+                        scale, stream);
+}
+
+}  // extern "C"

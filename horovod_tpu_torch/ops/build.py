@@ -6,7 +6,9 @@ with a plain C interface, and loaded with ``ctypes``. No PyTorch header is
 included, so a build takes seconds. The library goes under ``build/`` beside
 the package, in a directory keyed by a hash of the sources and flags, so an
 edit rebuilds and an unchanged tree loads what is there. Nothing is built
-at import: the first CUDA launch builds.
+at import: the first CUDA launch builds. Beside the library, each source's
+``ptxas`` report (registers and spills of every kernel) is kept as
+``<stem>.ptxas.txt``; :func:`ptxas_report` reads it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "horovod_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F, _LLP = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
@@ -108,12 +111,15 @@ def build() -> Path:
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        objs, errors = [], []
+        objs, errors, reports = [], [], []
         for cmd, obj, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"$ {' '.join(cmd)}\n{out}")
             objs.append(str(obj))
+            report = Path(tmp) / (obj.stem + ".ptxas.txt")
+            report.write_text(out)
+            reports.append(report)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         tmp_lib = Path(tmp) / lib_path.name
@@ -124,8 +130,36 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n$ {' '.join(cmd)}\n"
                                f"{res.stdout}")
         # atomic publish: concurrent ranks may build the same key
+        for report in reports:
+            os.replace(report, out_dir / report.name)
         os.replace(tmp_lib, lib_path)
     return lib_path
+
+
+def parse_ptxas(text: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    (spills in bytes) from the output of ``nvcc -Xptxas -v``."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels[name].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels[name]["registers"] = int(m.group(1))
+    return kernels
+
+
+def ptxas_report(stem: str) -> dict:
+    """:func:`parse_ptxas` of the report that the build of ``csrc/<stem>.cu``
+    left beside the library (building it if need be)."""
+    return parse_ptxas((build().parent / f"{stem}.ptxas.txt").read_text())
 
 
 def library() -> ctypes.CDLL:

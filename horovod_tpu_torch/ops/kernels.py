@@ -2,22 +2,22 @@
 
 Counterpart of ``horovod_tpu/ops/pallas_kernels.py``:
 
-=========================  ===================  ==========================
-TPU kernel (Pallas)        CUDA (``csrc/``)     wrapper here
-=========================  ===================  ==========================
-``pack_pallas``            ``pack.cu``          :func:`pack`
-``bn_stats_pallas``        ``bn_stats.cu``      :func:`bn_stats`
-``bn_bwd_stats_pallas``    ``bn_stats.cu``      :func:`bn_bwd_stats`
-``_triple_kernel``         ``adasum.cu``        :func:`adasum_triple`
-``_scale_kernel``          ``adasum.cu``        :func:`adasum_scale`
-jax's flash forward        ``flash_attn.cu``    :func:`flash_fwd`
-jax's flash backward       ``flash_attn.cu``    :func:`flash_bwd_pre`,
-                                                :func:`flash_bwd_dkdv`,
-                                                :func:`flash_bwd_dq`
-``_seg_fwd_pallas``        ``flash_attn.cu``    :func:`flash_seg_fwd`
-``_seg_bwd_pallas``        ``flash_attn.cu``    :func:`flash_seg_bwd_dkdv`,
-                                                :func:`flash_seg_bwd_dq`
-=========================  ===================  ==========================
+=========================  =====================  ========================
+TPU kernel (Pallas)        CUDA (``csrc/``)       wrapper here
+=========================  =====================  ========================
+``pack_pallas``            ``pack.cu``            :func:`pack`
+``bn_stats_pallas``        ``bn_stats.cu``        :func:`bn_stats`
+``bn_bwd_stats_pallas``    ``bn_stats.cu``        :func:`bn_bwd_stats`
+``_triple_kernel``         ``adasum.cu``          :func:`adasum_triple`
+``_scale_kernel``          ``adasum.cu``          :func:`adasum_scale`
+jax's flash forward        ``flash_fwd_sm90.cu``  :func:`flash_fwd`
+jax's flash backward       ``flash_attn.cu``      :func:`flash_bwd_pre`,
+                                                  :func:`flash_bwd_dkdv`,
+                                                  :func:`flash_bwd_dq`
+``_seg_fwd_pallas``        ``flash_fwd_sm90.cu``  :func:`flash_seg_fwd`
+``_seg_bwd_pallas``        ``flash_attn.cu``      :func:`flash_seg_bwd_dkdv`,
+                                                  :func:`flash_seg_bwd_dq`
+=========================  =====================  ========================
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -549,7 +549,7 @@ flash_bwd_dq.launches = 0
 # that sees every key (FULL, causal=False). The forward gives the block's
 # output normalised within the block and its lse, both fp32, for the ring's
 # fp32 merge; the backward gives fp32 (dq, dk, dv) under the ring's GLOBAL
-# lse and di, which the ring adds up over its hops. K6's tile code with fp32
+# lse and di, which the ring adds up over its hops. K6's kernels with fp32
 # stores; lse and di may be strided [B, H, S] views (the zig-zag halves).
 
 NEG_INF = -1e30   # the lse of a row that sees no key: finite, so merges stay

@@ -2,11 +2,12 @@
 
 The port's counterpart of ``horovod_tpu/parallel/flash_attention.py``
 (:189-228): :func:`flash_attention_local` computes causal or full softmax
-attention with scale 1/sqrt(D) through kernel K6 (``csrc/flash_attn.cu``:
-online-softmax forward, and a backward of three launches under the saved
-lse). On a CUDA tensor it always launches K6, for any sequence length
-T >= 1, in both layouts; it raises for what K6 does not take (a dtype other
-than bfloat16, a head dim other than 64 or 128). On a CPU tensor it runs
+attention with scale 1/sqrt(D) through kernel K6 (the online-softmax
+forward on TMA and wgmma, ``csrc/flash_fwd_sm90.cu``, and a backward of
+three launches under the saved lse, ``csrc/flash_attn.cu``). On a CUDA
+tensor it always launches K6, for any sequence length T >= 1, in both
+layouts; it raises for what K6 does not take (a dtype other than bfloat16,
+a head dim other than 64 or 128). On a CPU tensor it runs
 K6's plain PyTorch versions, which agree with
 :func:`horovod_tpu_torch.parallel.ring_attention.local_attention`, the
 reference's CPU path.

@@ -192,10 +192,14 @@ def _assert_flash_close(name, got, want32, plain):
 
 
 @pytest.mark.parametrize("layout", ["bhtk", "bthk"])
-@pytest.mark.parametrize("t", [1, 63, 64, 200])
+@pytest.mark.parametrize("t", [1, 63, 64, 127, 128, 129, 200, 257])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_flash_kernels_match_plain(cuda, d, causal, t, layout):
+    """K6 against its plain versions, across the forward's 128-row tiles
+    (127, 128, 129, 257) and the backward's 64-row ones; the forward
+    repeats bitwise and gives the same bits on strided views as on
+    contiguous copies."""
     q, k, v, do = _flash_inputs(cuda, 2, 3, t, d, layout)
     scale = d ** -0.5
     f32 = [x.float() for x in (q, k, v, do)]
@@ -226,6 +230,11 @@ def test_cuda_flash_kernels_match_plain(cuda, d, causal, t, layout):
         assert counts[name] == n0[name] + 1
     again = K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
     assert torch.equal(again, dq)        # no atomics: bitwise repeatable
+    o2, lse2 = K.flash_fwd(q, k, v, causal, scale)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    oc, lsec = K.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal, scale)
+    assert torch.equal(oc, o) and torch.equal(lsec, lse)
 
 
 def test_cuda_flash_rejects_what_it_does_not_take(cuda):
@@ -329,12 +338,13 @@ def _seg_case(dev, b, h, s, d, part, seed=0):
 
 
 @pytest.mark.parametrize("part", ["full", "diag"])
-@pytest.mark.parametrize("s", [1, 64, 1000])
+@pytest.mark.parametrize("s", [1, 64, 129, 1000])
 @pytest.mark.parametrize("d", [64, 128])
 def test_cuda_seg_kernels_match_plain(cuda, d, s, part):
     """K7 on strided halves against its plain versions in fp32 (the same
-    bound as K6's), bitwise equal to itself on contiguous copies, fp32
-    outputs, one launch counted per call."""
+    bound as K6's), bitwise equal to itself on contiguous copies and from
+    run to run, fp32 outputs, one launch counted per call. S = 129 and
+    1000 end inside a 128-row tile of the forward."""
     seg, causal = _seg_case(cuda, 2, 3, s, d, part)
     scale = d ** -0.5
     f32 = [x.float() for x in seg]
@@ -366,11 +376,13 @@ def test_cuda_seg_kernels_match_plain(cuda, d, s, part):
              K.flash_seg_bwd_dq(*cont, causal, scale))
     for a, b in zip((o, lse, dk, dv, dq), again):
         assert torch.equal(a, b)
+    o2, lse2 = K.flash_seg_fwd(*seg[:3], causal, scale)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
 def test_cuda_k6_keeps_its_bf16_outputs(cuda):
-    """K6 and K7 share their tile code; K6's outputs stay bf16, laid out
-    as its inputs."""
+    """K6 and K7 share their kernels; K6's outputs stay bf16, laid out as
+    its inputs."""
     q, k, v, do = _flash_inputs(cuda, 1, 2, 100, 64, "bthk", seed=3)
     o, lse = K.flash_fwd(q, k, v, True, 0.125)
     di = K.flash_bwd_pre(o, do)

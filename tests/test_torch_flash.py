@@ -64,7 +64,7 @@ def _scores(q, k, causal):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("layout", ["bthk", "bhtk"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("t", [64, 17])
+@pytest.mark.parametrize("t", [64, 17, 129])
 def test_flash_forward_matches_reference(t, causal, layout, dtype):
     (qj, qt), (kj, kt), (vj, vt) = _inputs(t, dtype)
 

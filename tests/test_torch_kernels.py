@@ -113,3 +113,27 @@ def test_bn_chunks_fill_an_h100_at_resnet50_shapes(m, c):
 def test_bn_chunks_keep_rows_per_thread_on_tiny_inputs():
     assert K.bn_chunks(10, 64, 4, 132) == 1
     assert K.bn_chunks(0, 64, 2, 132) == 1
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z5fwd64v' for 'sm_90a'
+ptxas info    : Function properties for _Z5fwd64v
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_Z6fwd128v' for 'sm_90a'
+ptxas info    : Function properties for _Z6fwd128v
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_is_parsed_per_kernel():
+    """The build keeps nvcc's -Xptxas -v report beside the library; each
+    kernel's registers and spill bytes are read from it by name."""
+    from horovod_tpu_torch.ops.build import parse_ptxas
+    assert parse_ptxas(PTXAS_SAMPLE) == {
+        "_Z5fwd64v": {"spill_stores": 0, "spill_loads": 0, "registers": 168},
+        "_Z6fwd128v": {"spill_stores": 12, "spill_loads": 16,
+                       "registers": 255}}
+    assert parse_ptxas("") == {}
