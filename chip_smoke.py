@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` (printing
-the registers and spill bytes of each flash-forward instantiation from the
-build's ``ptxas`` report) and then:
+the registers and spill bytes of each attention kernel's instantiations,
+forward and backward, from the build's ``ptxas`` report) and then:
 
 1. holds each of K1-K3 against its plain PyTorch version on the card at
    ResNet-50's shapes (batch 64, 224x224) and times both with CUDA events,
@@ -18,11 +18,16 @@ build's ``ptxas`` report) and then:
 3. runs ``hvd.grouped_allreduce`` on the step's gradients with the pack
    kernel on (``HOROVOD_PALLAS_PACK=1``), at op Sum and Average;
 4. holds the four K6 flash-attention kernels against their plain versions
-   computed in fp32 from the same bf16 inputs, at the flagship LM's
-   attention (B4 H16 T2048 D128, causal), ViT-B/16's (B32 H12 T197 D64,
-   full) and a causal T = 1000 tail-tile shape, and times them beside
-   ``scaled_dot_product_attention`` (a yardstick only, never on the path),
-   the forward with its achieved TFLOP/s and its share of the bound;
+   computed in fp32 from the same inputs, at the flagship LM's attention
+   (B4 H16 T2048 D128, causal) in bf16 and in fp16, ViT-B/16's (B32 H12
+   T197 D64, full), a causal T = 1000 tail-tile shape, fp32 inputs (B2 H8
+   T1024 D64 causal, and phase 12's ViT_Tiny attention, B32 H4 T65 D16
+   full: the tf32 family), ViT_Tiny's head dim 16 in bf16 and head dims 80
+   and 96 (padded to 128), and q and k/v of different lengths, causal and
+   full; and times them beside
+   ``scaled_dot_product_attention``'s forward and backward (a yardstick
+   only, never on the path), the forward with its achieved TFLOP/s and its
+   share of the bound;
 5. trains the flagship decoder LM (d2048 x 4 layers, T 2048, batch 4,
    bf16, ``attention="flash"``) through ``broadcast_parameters`` and
    ``DistributedOptimizer(AdamW)`` (losses finite and falling, tokens/s);
@@ -33,8 +38,10 @@ build's ``ptxas`` report) and then:
    computed in fp32 from the same bf16 inputs, at the zig-zag ring's FULL
    and DIAG half-segments of B1 H16 T8192 D128 (strided lse/di halves),
    the contiguous n=1 ring's whole segment and a T = 2000, D 64 tail-tile
-   shape, and times them beside SDPA's forward (a yardstick only), the
-   forward with its achieved TFLOP/s and its share of the bound;
+   shape, and times them beside SDPA's forward and backward (a yardstick
+   only: with the segment's own lse, SDPA's backward of the same segment,
+   causal or full, computes the same dq, dk and dv), the forward with its
+   achieved TFLOP/s and its share of the bound;
 9. drives ring attention's multi-rank code path on one card
    (``ring_attention_p(..., force_ring=True)``) at bench.py's
    ``bench_sp_ring`` shape, B1 T8192 H16 D128 bf16, zig-zag and
@@ -50,16 +57,20 @@ build's ``ptxas`` report) and then:
     schedule in one process, flat (2 levels) and hierarchical (local size
     2), against a float64 VHDD of the same gradients, times each whole
     reduction, and applies one AdamW step through
-    ``DistributedOptimizer(op=Adasum)``.
+    ``DistributedOptimizer(op=Adasum)``;
+12. trains ViT_Tiny (head dim 16, padded to 64) in fp32 at batch 32, 64 px,
+    three SGD-momentum steps, through the tf32 kernels, its first logits
+    against the same model's on the CPU.
 
-Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9, and
-each form of 11) and read just after it; every kernel of the path must have
-launched there (53 BN layers per ResNet step for each BN kernel, one pack
-per 64 MB bucket, one of each K6 kernel per attention layer and step, 3 of
-each K7 kernel per zig-zag ring call and 1 per contiguous one, one K4 and
-one K5 per pair, level and tensor: 136 each for the flat form, 68 for the
-hierarchical one, whose 2 shards a pair halve the work). Any failed check
-exits non-zero with no result. The line before the last is
+Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
+each form of 11, and 12) and read just after it; every kernel of the path
+must have launched there (53 BN layers per ResNet step for each BN kernel,
+one pack per 64 MB bucket, one of each K6 kernel per attention layer and
+step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
+one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
+68 for the hierarchical one, whose 2 shards a pair halve the work; one of
+each tf32 kernel per layer and step of ViT_Tiny). Any failed check exits
+non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -67,6 +78,7 @@ JSON, and the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -78,13 +90,33 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32, outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+BF16_FLOPS = 989e12            # H100 SXM bf16 and fp16 tensor cores, dense
+TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
+# fp32 inputs run on tf32 tensor cores (10 mantissa bits, unit roundoff
+# 2^-11): a kernel's error limit is twice the plain version's in tf32
+# (plain_matmuls), plus this share of the largest entry (half tf32's
+# roundoff, as bf16's 1e-3 is about half of 2^-9)
+TF32_FLOOR = 2.0 ** -12
+# phase 12: ViT_Tiny's logits on the card (tf32 attention) against the CPU's
+TINY_REL_TOL = 1e-2
 BN_REL_TOL = 1e-5              # of sum |terms|: fp32 sums in another order
 
-# K6 at the main path's attention calls: (what, B, H, T, D, causal)
-FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 128, True),
-                ("ViT-B/16", 32, 12, 197, 64, False),
-                ("tail tile", 4, 8, 1000, 64, True))
+# K6 at the main path's attention calls and at what else the reference
+# computes: (what, B, H, Tq, Tk, D, causal, dtype)
+FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
+                ("ViT-B/16", 32, 12, 197, 197, 64, False, "bfloat16"),
+                ("tail tile", 4, 8, 1000, 1000, 64, True, "bfloat16"),
+                ("flagship LM fp16", 4, 16, 2048, 2048, 128, True,
+                 "float16"),
+                ("fp32", 2, 8, 1024, 1024, 64, True, "float32"),
+                ("ViT_Tiny fp32", 32, 4, 65, 65, 16, False, "float32"),
+                ("ViT_Tiny D16 bf16", 32, 4, 65, 65, 16, False, "bfloat16"),
+                ("D80", 4, 16, 1024, 1024, 80, True, "bfloat16"),
+                ("D96", 4, 16, 1024, 1024, 96, True, "bfloat16"),
+                ("Tq<Tk causal", 4, 16, 1024, 2048, 128, True, "bfloat16"),
+                ("Tq>Tk full", 4, 16, 2048, 1024, 128, False, "bfloat16"))
+# the shape whose numbers the tf32 family's rows carry: phase 12's path
+TF32_SHAPE = "ViT_Tiny fp32"
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
                  "flash_bwd_dq")
 # the flagship LM (bench.py's bench_transformer configuration)
@@ -119,6 +151,8 @@ ADASUM_TRIPLE_TOL = 1e-5       # of sum |terms|: fp32 sums in another order
 ADASUM_RANKS = 4               # stacked ranks of phase 11
 ADASUM_LOCAL = 2               # the hierarchical form's local size
 ADASUM_WINDOWS = 5             # timed whole reductions of each form
+# phase 12: ViT_Tiny in fp32 (head dim 16), batch, image size, steps
+TINY_BATCH, TINY_IMAGE, TINY_STEPS = 32, 64, 3
 
 
 class SmokeFailure(Exception):
@@ -157,23 +191,43 @@ def resnet50_bn_shapes(batch: int, image: int = 224):
     return shapes
 
 
-def forward_ptxas(build, log):
-    """Registers and spill bytes of the flash forward's instantiations
-    (csrc/flash_fwd_sm90.cu) from the build's ptxas report, by output type:
-    {"bf16" (K6a), "fp32" (K7a): {"registers": max, "spill_bytes": sum}}."""
-    out = {"bf16": {"registers": 0, "spill_bytes": 0},
-           "fp32": {"registers": 0, "spill_bytes": 0}}
-    for name, r in sorted(build.ptxas_report("flash_fwd_sm90").items()):
-        m = re.search(r"ILi(\d+)E(f|13__nv_bfloat16)E", name)
-        check(m is not None and len(r) == 3,
-              f"unexpected ptxas entry {name}: {r}")
-        kind = "fp32" if m.group(2) == "f" else "bf16"
-        spill = r["spill_stores"] + r["spill_loads"]
-        out[kind]["registers"] = max(out[kind]["registers"], r["registers"])
-        out[kind]["spill_bytes"] += spill
-        log(f"  flash forward D{m.group(1)} {kind} output: {r['registers']} "
-            f"registers, {spill} bytes spilled")
-    return out
+def attention_ptxas(build, log):
+    """Registers and spill bytes of the attention kernels from the build's
+    ptxas report, by row of the ``kernels`` line: {row name: {"registers":
+    the most of any instantiation, "spill_bytes": their sum}}. The Hopper
+    kernels with In outputs are K6's rows, with fp32 outputs K7's; the tf32
+    family's rows are ``<name>_tf32``."""
+    rows = {}
+    names = {  # kernel -> (K6 row, K7 row)
+        "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
+        "flash_bwd_dkdv_sm90_kernel": ("flash_bwd_dkdv",
+                                       "flash_seg_bwd_dkdv"),
+        "flash_bwd_dq_sm90_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
+        "flash_bwd_pre_kernel": ("flash_bwd_pre", "flash_bwd_pre"),
+        "flash_fwd_tf32_kernel": ("flash_fwd_tf32", "flash_fwd_tf32"),
+        "flash_bwd_dkdv_tf32_kernel": ("flash_bwd_dkdv_tf32",
+                                       "flash_bwd_dkdv_tf32"),
+        "flash_bwd_dq_tf32_kernel": ("flash_bwd_dq_tf32",
+                                     "flash_bwd_dq_tf32"),
+    }
+    for stem in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attn"):
+        for mangled, r in sorted(build.ptxas_report(stem).items()):
+            # the kernel's name follows its length (the file's does not)
+            m = re.search(r"(?<=\d)(flash_\w+?_kernel)ILi(\d+)E(\w*?)EEv",
+                          mangled)
+            check(m is not None and m.group(1) in names and len(r) == 3,
+                  f"unexpected ptxas entry {mangled}: {r}")
+            kernel, d, types = m.groups()
+            # In then OutT: "S1_" repeats In (K6), "f" is fp32 (K7)
+            k7 = kernel.endswith("sm90_kernel") and types.endswith("f")
+            row = names[kernel][int(k7)]
+            spill = r["spill_stores"] + r["spill_loads"]
+            entry = rows.setdefault(row, {"registers": 0, "spill_bytes": 0})
+            entry["registers"] = max(entry["registers"], r["registers"])
+            entry["spill_bytes"] += spill
+            log(f"  {kernel} D{d} {types or 'fp32'}: {r['registers']} "
+                f"registers, {spill} bytes spilled")
+    return rows
 
 
 HEAD_START_CYCLES = 2_000_000  # about 1 ms of the card spinning
@@ -330,28 +384,44 @@ def check_pack_kernel(torch, K, bucket_by_size, dev, shapes, flush, reps,
     return row, grads
 
 
-def flash_pairs(b, h, t, causal):
-    """The (q, kv) pairs this run's mask lets through."""
-    return b * h * (t * (t + 1) // 2 if causal else t * t)
+def flash_pairs(b, h, tq, tk, causal):
+    """The (q, kv) pairs this run's mask lets through: causal, key <= query
+    by absolute index."""
+    if not causal:
+        return b * h * tq * tk
+    n = min(tq, tk)
+    return b * h * (n * (n + 1) // 2 + (tq - n) * tk)
 
 
-def flash_work(b, h, t, d, causal):
+def flash_work(b, h, tq, tk, d, causal, itemsize):
     """Per K6 kernel: (bytes, operations, peak operations/s). Bytes count
     each input read once and each output written once; operations are the
-    products over the (q, kv) pairs this run's mask lets through."""
-    pairs = flash_pairs(b, h, t, causal)
-    x = b * h * t * d * 2          # one bf16 [B, H, T, D] tensor
-    st = b * h * t * 4             # one fp32 [B, H, T] tensor (lse, di)
+    products over the (q, kv) pairs this run's mask lets through, at the
+    caller's head dim (the padded columns are no work the function
+    needs), on the tensor cores (tf32 for fp32 inputs)."""
+    pairs = flash_pairs(b, h, tq, tk, causal)
+    xq = b * h * tq * d * itemsize   # one [B, H, Tq, D] tensor
+    xk = b * h * tk * d * itemsize   # one [B, H, Tk, D] tensor
+    st = b * h * tq * 4              # one fp32 [B, H, Tq] tensor (lse, di)
+    peak = TF32_FLOPS if itemsize == 4 else BF16_FLOPS
     return {
         # S = QK^T and O = PV
-        "flash_fwd": (4 * x + st, 4 * d * pairs, BF16_FLOPS),
+        "flash_fwd": (2 * xq + 2 * xk + st, 4 * d * pairs, peak),
         # di = rowsum(dO * O), fp32 outside the tensor cores
-        "flash_bwd_pre": (2 * x + st, 2 * b * h * t * d, FP32_FLOPS),
+        "flash_bwd_pre": (2 * xq + st, 2 * b * h * tq * d, FP32_FLOPS),
         # S^T, dV += P^T dO, dP^T = V dO^T, dK += dS^T Q
-        "flash_bwd_dkdv": (6 * x + 2 * st, 8 * d * pairs, BF16_FLOPS),
+        "flash_bwd_dkdv": (2 * xq + 4 * xk + 2 * st, 8 * d * pairs, peak),
         # S, dP = dO V^T, dQ += dS K
-        "flash_bwd_dq": (5 * x + 2 * st, 6 * d * pairs, BF16_FLOPS),
+        "flash_bwd_dq": (3 * xq + 2 * xk + 2 * st, 6 * d * pairs, peak),
     }
+
+
+def bound(nbytes, ops, peak):
+    """(bound ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def forward_rate(ops, ms, bound_ms):
@@ -367,21 +437,55 @@ def rate_text(entry):
             f"{100 * entry['bound_share']:.1f}% of the bound")
 
 
+def flash_limit(want, plain_err, dtype):
+    """A kernel output's error limit against the fp32 plain version: twice
+    the plain version's error in the input dtype (fp32: in tf32, see
+    plain_matmuls) plus a floor of the largest entry, 1e-3 for bf16 and
+    fp16 and TF32_FLOOR for fp32."""
+    big = float(want.abs().max())
+    return 2 * plain_err + (TF32_FLOOR if dtype == "float32" else 1e-3) * big
+
+
+def plain_matmuls(torch, dtype):
+    """The context in which the plain versions run in the input dtype: for
+    fp32, a mode in which torch.matmul rounds both operands to tf32 (10
+    mantissa bits, to nearest with ties away, as the kernels' cvt.rna) and
+    sums in fp32, so every product is rounded where the tf32 kernels round
+    it, whatever kernel cuBLAS picks (with tf32 allowed it still runs head
+    dim 16 in fp32)."""
+    if dtype != "float32":
+        return contextlib.nullcontext()
+
+    def tf32(x):
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    class Tf32Matmuls(torch.overrides.TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.matmul:
+                args = tuple(tf32(a) for a in args)
+            return func(*args, **(kwargs or {}))
+
+    return Tf32Matmuls()
+
+
 def check_flash_kernels(torch, K, dev, flush, reps, log):
     """K6 against its plain versions at each of FLASH_SHAPES: each output's
-    error against the plain version in fp32 (from the same bf16 inputs) is
-    at most twice the bf16 plain version's, plus 1e-3 of the largest entry.
-    Returns a row per kernel (numbers at the flagship shape, every shape
-    under "shapes") and a fwd/fwd+bwd summary per shape beside SDPA's."""
+    error against the plain version in fp32 (from the same inputs) within
+    :func:`flash_limit`. Returns a row per kernel (numbers at the flagship
+    shape, every shape under "shapes"), the tf32 family's rows (numbers at
+    TF32_SHAPE) and a fwd/fwd+bwd summary per shape beside SDPA's."""
     import torch.nn.functional as F
     rows = {n: {"shapes": []} for n in FLASH_KERNELS}
+    tf32_rows = {}
     summary = []
-    for what, b, h, t, d, causal in FLASH_SHAPES:
+    for what, b, h, tq, tk, d, causal, dtype in FLASH_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(2)
+        dt = getattr(torch, dtype)
         # laid out [B, T, H, D], as the models project them; the kernels
         # take the [B, H, T, D] views with their strides
-        q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
-                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+        q, k, v, do = (torch.randn(b, rows_, h, d, device=dev, generator=gen)
+                       .to(dt).transpose(1, 2)
+                       for rows_ in (tq, tk, tk, tq))
         scale = d ** -0.5
         f32 = [x.float() for x in (q, k, v, do)]
         o32, lse32 = K.flash_attention_fwd_plain(*f32[:3], causal, scale)
@@ -389,11 +493,12 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         dk32, dv32 = K.flash_bwd_dkdv_plain(*f32, lse32, di32, causal, scale)
         dq32 = K.flash_bwd_dq_plain(*f32, lse32, di32, causal, scale)
         del f32, di32
-        ob, lseb = K.flash_attention_fwd_plain(q, k, v, causal, scale)
-        dib = K.flash_bwd_pre_plain(ob, do)
-        dkb, dvb = K.flash_bwd_dkdv_plain(q, k, v, do, lseb, dib, causal,
-                                          scale)
-        dqb = K.flash_bwd_dq_plain(q, k, v, do, lseb, dib, causal, scale)
+        with plain_matmuls(torch, dtype):
+            ob, lseb = K.flash_attention_fwd_plain(q, k, v, causal, scale)
+            dib = K.flash_bwd_pre_plain(ob, do)
+            dkb, dvb = K.flash_bwd_dkdv_plain(q, k, v, do, lseb, dib, causal,
+                                              scale)
+            dqb = K.flash_bwd_dq_plain(q, k, v, do, lseb, dib, causal, scale)
         o, lse = K.flash_fwd(q, k, v, causal, scale)
         di = K.flash_bwd_pre(o, do)
         dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale)
@@ -404,11 +509,14 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
                 ("o", o, o32, ob), ("lse", lse, lse32, lseb),
                 ("dq", dq, dq32, dqb), ("dk", dk, dk32, dkb),
                 ("dv", dv, dv32, dvb)):
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                  f"K6 {what} {name}: shape {tuple(got.shape)} or not finite")
             err[name] = float((got.float() - want).abs().max())
             base = float((plain.float() - want).abs().max())
-            limit = 2 * base + 1e-3 * float(want.abs().max())
-            log(f"  {what} {name}: kernel error {err[name]:.4g}, bf16 "
-                f"plain error {base:.4g}, limit {limit:.4g}")
+            limit = flash_limit(want, base, dtype)
+            log(f"  {what} {name}: kernel error {err[name]:.4g}, "
+                f"{'tf32' if dtype == 'float32' else dtype} plain error "
+                f"{base:.4g}, limit {limit:.4g}")
             check(err[name] <= limit,
                   f"K6 {what} {name}: error {err[name]:.4g} > {limit:.4g}")
         di_ref = K.flash_bwd_pre_plain(o, do)
@@ -451,6 +559,7 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
             K.flash_bwd_dkdv(q, k, v, do, lse_, di_, causal, scale)
             return K.flash_bwd_dq(q, k, v, do, lse_, di_, causal, scale)
 
+        # SDPA takes causal as the same top-left rule (key <= query)
         with torch.no_grad():
             sdpa_fwd_ms, _ = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
@@ -461,42 +570,50 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
             flush, reps)
         sdpa_fb_ms, _ = time_ms(torch, sdpa_fwd_bwd, flush, reps)
         fb_ms, fb_host_ms = time_ms(torch, kernel_fwd_bwd, flush, reps)
-        work = flash_work(b, h, t, d, causal)
+        work = flash_work(b, h, tq, tk, d, causal, dt.itemsize)
+        library = {"flash_fwd": sdpa_fwd_ms, "flash_bwd_dkdv": sdpa_bwd_ms,
+                   "flash_bwd_dq": sdpa_bwd_ms}
+        entries = {}
         for name, (kern, plain) in calls.items():
             ms, host_ms = time_ms(torch, kern, flush, reps)
             plain_ms, _ = time_ms(torch, plain, flush, max(3, reps // 4))
             nbytes, ops, peak = work[name]
-            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)
-            entry = dict(what=what, shape=[b, h, t, d], causal=causal, ms=ms,
-                         host_ms=host_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms,
-                         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                                   >= ops / peak else "operations"),
-                         library_ms=(sdpa_fwd_ms if name == "flash_fwd"
-                                     else None),
+            bound_ms, bound_by = bound(nbytes, ops, peak)
+            entry = dict(what=what, shape=[b, h, tq, tk, d], dtype=dtype,
+                         causal=causal, ms=ms, host_ms=host_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=library.get(name),
                          max_abs_err=errors[name])
             if name == "flash_fwd":
                 entry.update(forward_rate(ops, ms, bound_ms))
+            entries[name] = entry
             rows[name]["shapes"].append(entry)
             log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({entry['bound_by']})" + rate_text(entry))
+                f"({bound_by})" + rate_text(entry))
+        if what == TF32_SHAPE:
+            tf32_rows = {f"{n}_tf32": entries[n] for n in
+                         ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
         # reads dO and O for di, which the backward's dS waits for. The
         # kernels' own bounds add up to more: dq recomputes S and dP.
-        fb_bound = 1e3 * (14 * d * flash_pairs(b, h, t, causal) / BF16_FLOPS
+        peak = work["flash_fwd"][2]
+        fb_bound = 1e3 * (14 * d * flash_pairs(b, h, tq, tk, causal) / peak
                           + work["flash_bwd_pre"][0] / HBM_BYTES_PER_S)
-        summary.append(dict(what=what, fwd_ms=rows["flash_fwd"]["shapes"][-1]
-                            ["ms"], fwd_bwd_ms=fb_ms,
+        bwd_ms = sum(entries[n]["ms"] for n in FLASH_KERNELS[1:])
+        summary.append(dict(what=what, dtype=dtype,
+                            fwd_ms=entries["flash_fwd"]["ms"],
+                            bwd_ms=bwd_ms, fwd_bwd_ms=fb_ms,
                             fwd_bwd_host_ms=fb_host_ms,
                             fwd_bwd_bound_ms=fb_bound,
                             sdpa_fwd_ms=sdpa_fwd_ms, sdpa_bwd_ms=sdpa_bwd_ms,
                             sdpa_fwd_bwd_ms=sdpa_fb_ms))
-        log(f"  {what}: K6 fwd+bwd {fb_ms:.4f} ms (bound {fb_bound:.4f} "
-            f"ms); SDPA fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms, "
-            f"fwd+bwd {sdpa_fb_ms:.4f} ms")
+        log(f"  {what}: K6 backward (di + dk/dv + dq) {bwd_ms:.4f} ms "
+            f"against SDPA's backward {sdpa_bwd_ms:.4f} ms; K6 fwd+bwd "
+            f"{fb_ms:.4f} ms (bound {fb_bound:.4f} ms); SDPA fwd "
+            f"{sdpa_fwd_ms:.4f} ms, fwd+bwd {sdpa_fb_ms:.4f} ms")
         del q, k, v, do, o, lse, di, dk, dv, dq, qg, kg, vg, sdpa_out
         torch.cuda.empty_cache()
     for name in FLASH_KERNELS:
@@ -507,19 +624,21 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
                            if key in first})
         rows[name]["max_abs_err"] = max(e["max_abs_err"]
                                         for e in rows[name]["shapes"])
-    return rows, summary
+    return rows, tf32_rows, summary
 
 
 def flash_source(name):
-    """The source of a K6/K7 kernel: the Hopper forward, or the backward."""
-    return ("flash_fwd_sm90.cu" if name in ("flash_fwd", "flash_seg_fwd")
-            else "flash_attn.cu")
+    """The source of a K6/K7 kernel's 16-bit instantiations: the Hopper
+    forward or backward, or (di) flash_attn.cu."""
+    if name in ("flash_fwd", "flash_seg_fwd"):
+        return "flash_fwd_sm90.cu"
+    return "flash_attn.cu" if name == "flash_bwd_pre" else "flash_bwd_sm90.cu"
 
 
 def seg_work(b, h, s, d, causal):
     """Per K7 kernel on one [B, H, S, D] segment: (bytes, operations, peak
     operations/s), counted as for K6 with fp32 outputs."""
-    pairs = flash_pairs(b, h, s, causal)
+    pairs = flash_pairs(b, h, s, s, causal)
     x = b * h * s * d * 2          # one bf16 [B, H, S, D] tensor
     xf = 2 * x                     # one fp32 [B, H, S, D] tensor
     st = b * h * s * 4             # one fp32 [B, H, S] tensor (lse, di)
@@ -610,28 +729,40 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
             sdpa_ms, _ = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, is_causal=causal), flush, reps)
+        # SDPA's backward of the same segment (its own lse: the same dq,
+        # dk and dv as K7b and K7c under a lse that is the segment's)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (sq, sk, sv))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                  is_causal=causal)
+        sdpa_bwd_ms, _ = time_ms(
+            torch, lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), sdo,
+                                               retain_graph=True),
+            flush, reps)
+        del qg, kg, vg, sdpa_out
+        library = {"flash_seg_fwd": sdpa_ms, "flash_seg_bwd_dkdv": sdpa_bwd_ms,
+                   "flash_seg_bwd_dq": sdpa_bwd_ms}
         work = seg_work(b, h, s, d, causal)
         for name, (kern, plain) in calls.items():
             ms, host_ms = time_ms(torch, kern, flush, reps)
             plain_ms, _ = time_ms(torch, plain, flush, max(3, reps // 4))
-            nbytes, ops, peak = work[name]
-            bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / peak)
+            bound_ms, bound_by = bound(*work[name])
             entry = dict(what=what, shape=[b, h, s, d], causal=causal,
                          ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms,
-                         bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
-                                   >= ops / peak else "operations"),
-                         library_ms=(sdpa_ms if name == "flash_seg_fwd"
-                                     else None),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library[name],
                          max_abs_err=errors[name])
             if name == "flash_seg_fwd":
-                entry.update(forward_rate(ops, ms, bound_ms))
+                entry.update(forward_rate(work[name][1], ms, bound_ms))
             rows[name]["shapes"].append(entry)
             log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({entry['bound_by']})" + rate_text(entry)
+                f"({bound_by})" + rate_text(entry)
                 + (f", SDPA forward {sdpa_ms:.4f} ms"
                    if name == "flash_seg_fwd" else ""))
+        bwd_ms = sum(rows[n]["shapes"][-1]["ms"] for n in SEG_KERNELS[1:])
+        log(f"  {what}: K7b + K7c {bwd_ms:.4f} ms against SDPA's "
+            f"{'causal' if causal else 'non-causal'} backward of the segment "
+            f"{sdpa_bwd_ms:.4f} ms")
         del q, k, v, do, lse, di, seg, sq, sk, sv, sdo, slse, sdi, kargs
         del o_k, lse_k, dk_k, dv_k, dq_k, calls
         torch.cuda.empty_cache()
@@ -735,7 +866,7 @@ def run_ring_path(torch, K, R, fa, dev, log):
             torch.cuda.synchronize()
             windows[name].append(start.elapsed_time(end) / RING_WINDOW_CALLS)
     ms = {name: statistics.median(w) for name, w in windows.items()}
-    pairs = flash_pairs(b, h, t, True)
+    pairs = flash_pairs(b, h, t, t, True)
     products_ms = 1e3 * 14 * d * pairs / BF16_FLOPS
     di_ms = 1e3 * (2 * b * h * t * d * 2 + b * h * t * 4) / HBM_BYTES_PER_S
     for name, w in windows.items():
@@ -1114,6 +1245,54 @@ def profile_steps(torch, step, n, log):
         log(f"    kernel {ms / n:.3f} ms/step  {name[:110]}")
 
 
+def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
+    """Phase 12: ViT_Tiny (4 heads of 16) in fp32 on the card, through the
+    tf32 kernels with the head dim padded to 64: its first logits against
+    the same model's on the CPU (K6's plain versions), then TINY_STEPS
+    SGD-momentum steps (losses finite). Returns the summary and the launch
+    counts of the path."""
+    model = ViT_Tiny(num_classes=10, dtype=torch.float32,
+                     image_size=TINY_IMAGE,
+                     generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(5)
+    images = torch.rand(TINY_BATCH, TINY_IMAGE, TINY_IMAGE, 3, generator=gen)
+    labels = torch.randint(0, 10, (TINY_BATCH,), generator=gen)
+    with torch.no_grad():
+        want = model(images)
+    model = model.to(dev)
+    images, labels = images.to(dev), labels.to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+        op=hvd.Average)
+    K.reset_launch_counts()
+    losses = []
+    for i in range(TINY_STEPS):
+        opt.zero_grad()
+        logits = model(images)
+        if i == 0:
+            err = float((logits.detach().cpu() - want).abs().max())
+            limit = TINY_REL_TOL * float(want.abs().max())
+        loss = torch.nn.functional.cross_entropy(logits, labels)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    log(f"  logits against the CPU: {err:.4g} (limit {limit:.4g}); losses: "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; launches: {counts}")
+    check(err <= limit, f"ViT_Tiny logits: {err:.4g} from the CPU's")
+    check(all(v == v and abs(v) != float("inf") for v in losses),
+          "non-finite ViT_Tiny loss")
+    layers = len(model.blocks)
+    for name in ("flash_fwd_tf32", "flash_bwd_dkdv_tf32",
+                 "flash_bwd_dq_tf32"):
+        check(counts[name] == layers * TINY_STEPS,
+              f"{name} launched {counts[name]} on the ViT_Tiny path, "
+              f"expected {layers * TINY_STEPS}")
+    return (dict(logits_err=err, logits_limit=limit, losses=losses),
+            counts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=64)
@@ -1143,7 +1322,7 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.core.engine import bucket_by_size
     from horovod_tpu_torch.models import transformer as tm
     from horovod_tpu_torch.models.resnet import ResNet50
-    from horovod_tpu_torch.models.vit import ViT_B16
+    from horovod_tpu_torch.models.vit import ViT_B16, ViT_Tiny
     from horovod_tpu_torch.ops import adasum as adasum_ops
     from horovod_tpu_torch.ops import build, kernels as K
     from horovod_tpu_torch.parallel import flash_attention, ring_attention
@@ -1158,7 +1337,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    fwd_ptxas = forward_ptxas(build, log)
+    ptxas = attention_ptxas(build, log)
+    check(all(r["spill_bytes"] == 0 for r in ptxas.values()),
+          f"an attention kernel spills: {ptxas}")
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.benchmark = True
@@ -1227,8 +1408,8 @@ def main(argv=None) -> int:
         log("phase 4: K6 flash-attention kernels against their plain "
             "versions")
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
-        flash_rows, attention = check_flash_kernels(torch, K, dev, flush,
-                                                    args.reps, log)
+        flash_rows, tf32_rows, attention = check_flash_kernels(
+            torch, K, dev, flush, args.reps, log)
         del flush
         torch.cuda.empty_cache()
 
@@ -1350,6 +1531,11 @@ def main(argv=None) -> int:
         adasum, adasum_launches = run_adasum_path(torch, hvd, tm, K,
                                                   adasum_ops, dev, log)
         torch.cuda.empty_cache()
+
+        log(f"phase 12: ViT_Tiny (head dim 16) in fp32 through the tf32 "
+            f"kernels, batch {TINY_BATCH}, {TINY_IMAGE} px, {TINY_STEPS} "
+            "steps")
+        tiny, tiny_counts = run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log)
     finally:
         hvd.shutdown()
 
@@ -1382,9 +1568,22 @@ def main(argv=None) -> int:
              launches=lm_counts[name], vit_launches=vit_counts[name], ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
-             **flash_rows[name],
-             **(fwd_ptxas["bf16"] if name == "flash_fwd" else {}))
+             **flash_rows[name], **ptxas[name],
+             **({"library_call": "SDPA backward (dq, dk and dv together)"}
+                if name in ("flash_bwd_dkdv", "flash_bwd_dq") else {}))
         for name in FLASH_KERNELS] + [
+        # the fp32 family: the same functions on tf32 tensor cores
+        dict(name=name, route="cuda", source=f"{src}/flash_attn.cu",
+             replaces="horovod_tpu/parallel/flash_attention.py:226",
+             launches=tiny_counts[name], ok=True,
+             work="ViT_Tiny's attention in fp32 (B32 H4 T65, D16 padded "
+                  "to 64, full), the shape phase 12 runs; launches: phase 12",
+             **{key: tf32_rows[name][key] for key in
+                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err")},
+             **ptxas[name])
+        for name in ("flash_fwd_tf32", "flash_bwd_dkdv_tf32",
+                     "flash_bwd_dq_tf32")] + [
         # the ring's per-segment kernels: _seg_fwd_pallas and the two
         # library backward kernels _seg_bwd_pallas calls
         dict(name=name, route="cuda", source=f"{src}/{flash_source(name)}",
@@ -1392,8 +1591,10 @@ def main(argv=None) -> int:
              launches=ring_counts[name], ok=True,
              work="the zig-zag ring's FULL half-segment (B1 H16 S4096 D128); "
                   "shapes lists every shape",
-             **seg_rows[name],
-             **(fwd_ptxas["fp32"] if name == "flash_seg_fwd" else {}))
+             **seg_rows[name], **ptxas[name],
+             **({"library_call": "SDPA backward of the segment (dq, dk "
+                                 "and dv together)"}
+                if name != "flash_seg_fwd" else {}))
         for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",
@@ -1410,7 +1611,7 @@ def main(argv=None) -> int:
                       "tokens_per_s": tok_s, "tokens_per_s_windows":
                       tok_rates, "lm_batch": lm_batch,
                       "lm_peak_gib": lm_peak, "attention": attention,
-                      "ring": ring, "adasum": adasum}))
+                      "ring": ring, "adasum": adasum, "vit_tiny": tiny}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,7 +54,8 @@ class Config:
     pack_kernel: bool = False
     # HOROVOD_HIERARCHICAL_ALLREDUCE: the two-level (local, cross) form where
     # the agreed topology has one. So far it selects hierarchical Adasum
-    # only; hierarchical Sum/Average is not ported (ROADMAP A11)
+    # only; hierarchical Sum/Average is not ported (ROADMAP A11), and such
+    # an allreduce warns once that it runs flat (core/engine.py)
     hierarchical_allreduce: bool = False
 
     @classmethod

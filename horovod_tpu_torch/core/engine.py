@@ -13,11 +13,15 @@ result through :meth:`Engine.track_result`.
 
 Not ported yet (the reference's other engine paths): join, alltoall, the
 ZeRO-1 sharded step, step replay, overlap, wire codecs, algorithm selection
-(hierarchical Sum/Average), autotune, metrics and tracing.
+(hierarchical Sum/Average), autotune, metrics and tracing. Until algorithm
+selection is ported, a Sum/Average allreduce under
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat and says so once per process,
+as the reference does when it demotes an algorithm.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -30,6 +34,19 @@ from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..common.reduce_ops import ReduceOp
 from ..ops import collectives as C
 from .backend import Backend
+
+logger = logging.getLogger("horovod_tpu_torch")
+
+_warned_demotions: set = set()
+
+
+def _demote(key: tuple, msg: str):
+    """One WARNING per process and reason that a collective runs flat (the
+    reference's ``_demote``, ``horovod_tpu/ops/collectives.py``)."""
+    if key not in _warned_demotions:
+        _warned_demotions.add(key)
+        logger.warning("collective algorithm selection: %s; using flat", msg)
+
 
 _DIST_OPS = {
     ReduceOp.SUM: dist.ReduceOp.SUM,
@@ -216,6 +233,12 @@ class Engine:
                        prescale_factor: float,
                        postscale_factor: float) -> LaunchGroup:
         """Launch the in-place allreduce of one private flat buffer."""
+        if self.config.hierarchical_allreduce and op in (ReduceOp.SUM,
+                                                         ReduceOp.AVERAGE):
+            _demote(("allreduce", "hierarchical"),
+                    "HOROVOD_HIERARCHICAL_ALLREDUCE asks for the two-level "
+                    "Sum/Average allreduce, which is not ported yet "
+                    "(ROADMAP A11; it selects hierarchical Adasum only)")
         C.prescale(flat, prescale_factor)
         work = _translate_failure(dist.all_reduce, flat, op=_dist_op(op),
                                   async_op=True)

@@ -1,0 +1,46 @@
+// What the attention sources share: the arguments of one launch (every
+// attention kernel takes them as its parameter), and the functions that
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu give the C entry points in
+// flash_attn.cu.
+//
+// Inputs are bf16 or fp16 (the Hopper kernels: TMA and wgmma) or fp32 (the
+// tf32 mma.sync kernels of flash_attn.cu), D = 64 or 128 (the wrapper pads
+// other head dims with zeros), q of Tq rows and k, v of Tk rows. Causal
+// means the library kernel's rule: key <= query by absolute index.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace flash {
+
+enum DType { kBF16 = 0, kF16 = 1, kF32 = 2 };
+
+// A [B, H, T, D] view, D contiguous: base pointer and the element strides
+// of B, H and T.
+struct View {
+  void* p;
+  long long sb, sh, st;
+};
+
+// A [B, H, T] fp32 statistic (lse, di): base pointer and the element
+// strides of B and H (the T stride is 1).
+struct Stat {
+  float* p;
+  long long sb, sh;
+};
+
+struct Args {
+  View q, k, v, o, dout, dq, dk, dv;
+  Stat lse, di;
+  int B, H, Tq, Tk, D, causal, dtype;
+  int out_f32;   // fp32 outputs (K7) instead of the input type (K6)
+  float scale;
+};
+
+// The Hopper kernels, for dtype kBF16 or kF16.
+cudaError_t fwd_sm90(const Args& a, cudaStream_t stream);
+cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream);
+cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream);
+
+}  // namespace flash

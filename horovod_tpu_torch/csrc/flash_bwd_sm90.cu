@@ -1,0 +1,644 @@
+// Flash attention backward for Hopper: K6c (dk, dv) and K6d (dq) of flash
+// attention, outputs in the input type, and K7b / K7c, ring attention's
+// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In).
+//
+// Replaces the custom-VJP backward of the Pallas kernels that
+// horovod_tpu/parallel/flash_attention.py:flash_attention_local takes from
+// jax's library (_flash_attention_bwd_dkv, _flash_attention_bwd_dq) and the
+// same two kernels under horovod_tpu/parallel/ring_attention.py:
+// _seg_bwd_pallas. Under the lse and di given from outside (K6: the
+// forward's; K7: the ring's global ones):
+//   P = exp(S * scale - lse), S = Q K^T;   dS = P o (dO V^T - di);
+//   dV = P^T dO;   dK = scale * dS^T Q;   dQ = scale * dS K;
+// P and dS are rounded to In before their products, as the plain versions
+// (ops/kernels.py) round them; q has Tq rows and k, v Tk; causal is the
+// library kernel's rule, key <= query by absolute index.
+//
+// What bounds them on an H100: operations. At the flagship shape (B4 H16
+// T2048 D128, causal) dk/dv do 8 D and dq 6 D operations a visible
+// (q, kv) pair, some 2,000 operations a byte of their inputs against the
+// card's 295, so the work is the tensor cores' (wgmma) and S, P, dP and dS
+// never go to device memory. The design, on the helpers of sm90.cuh:
+// - dk/dv: a block holds 64 kv rows of K and V (TMA, once) and a producer
+//   thread streams the Q and dO tiles of 64 q rows through a ring of 3
+//   slots on full/empty mbarriers; a second producer warp writes each
+//   tile's lse (times log2 e; +inf past Tq, so P is 0 there with no test)
+//   and di rows into the slot beside it and arrives on the same full
+//   barrier, so a slot's tiles and its statistics complete in one phase.
+//   Two consumer warpgroups split the roles over the same 64 kv rows:
+//   warpgroup 1 computes S^T = K Q^T (wgmma, both operands K-major), P^T,
+//   and dV += P^T dO (P^T from registers, dO an MN-major B), and hands
+//   P^T in fp32 to warpgroup 2 through a shared-memory buffer of the ring
+//   slot (thread i writes the values thread i of the other warpgroup
+//   holds in the same layout; a per-slot mbarrier of 128 arrivals says
+//   it is there); warpgroup 2 computes dP^T = V dO^T, dS^T, and
+//   dK += dS^T Q. Each thread then holds one D-wide accumulator (64
+//   registers at D 128) beside one 64 x 64 tile (32), which fits the 168
+//   registers a thread of a 384-thread block has with no spill; holding
+//   dK and dV in one warpgroup would need 192 and more. The two products
+//   of each warpgroup run side by side, 4 products a tile.
+// - dq: a block holds 128 q rows of Q and dO (TMA, once; 64 a consumer
+//   warpgroup) and the producer streams K and V tiles of 64 kv rows
+//   through a ring of 2 slots. A consumer computes S = Q K^T and
+//   dP = dO V^T (one commit group), P and dS in registers (lse and di of
+//   its two rows held in registers), and dQ += dS K (dS from registers, K
+//   an MN-major B). Blocks start with the longest rows.
+// - Only a tile that crosses the causal diagonal, or Tk in dq, runs the
+//   per-element mask; TMA zero-fills rows past Tq and Tk, whose outputs
+//   are never stored. A dk/dv block past every query (causal, Tk > Tq)
+//   loads nothing and stores zeros.
+// Nothing is accumulated across blocks and dQ has a pass of its own (no
+// float atomics), and the arithmetic never sees the views' strides: runs
+// repeat bitwise, and strided views give the bits of contiguous copies.
+// Tried and not kept (slower at the flagship shape): one warpgroup holding
+// both dK and dV of its 64 kv rows under setmaxnreg 240 (it spilled: ptxas
+// held the consumers to the block's 168 registers), S^T computed by both
+// warpgroups instead of handed over (5 products a tile), and issuing the
+// next tile's S^T / dP^T / S, dP behind the current tile's last product
+// (ptxas reported the products serialized, C7512 / C7519).
+// Not here (later work): a persistent scheduler, a TMA store epilogue.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using flash::Args;
+using flash::View;
+
+constexpr int kSlab = 64;      // 16-bit columns of a 128-byte swizzled slab
+constexpr int kThreads = 384;  // a producer warpgroup and two consumers
+constexpr float kLog2e = 1.4426950408889634f;
+
+constexpr int kKV = 64;        // dk/dv: kv rows of a block
+constexpr int kBQ = 64;        // dk/dv: q rows of a ring tile
+constexpr int kQ = 128;        // dq: q rows of a block, 64 a consumer
+constexpr int kBK = 64;        // dq: kv rows of a ring tile
+
+template <int D>
+struct DkdvTiles {
+  static constexpr int kStages = 3;
+  static constexpr int kKVElems = kKV * D;   // the K or the V tile
+  static constexpr int kQElems = kBQ * D;    // a Q or a dO tile
+  static constexpr uint32_t kSlotBytes = 2 * kQElems * 2;
+  static constexpr int kStatFloats = 2 * kBQ;  // lse, then di, of a slot
+  // a slot's P^T, handed from the dV warpgroup to the dK one: kBQ / 2
+  // values of each of 128 threads, value-major (conflict-free)
+  static constexpr int kPFloats = kBQ / 2 * 128;
+  static constexpr int kSmem = (2 * kKVElems + 2 * kStages * kQElems) * 2 +
+                               kStages * (kStatFloats + kPFloats) * 4 + 256 +
+                               1024;
+};
+
+template <int D>
+struct DqTiles {
+  static constexpr int kStages = 2;
+  static constexpr int kQElems = kQ * D;       // the Q or the dO tile
+  static constexpr int kTileElems = kBK * D;   // a K or a V tile
+  static constexpr uint32_t kSlotBytes = 2 * kTileElems * 2;
+  static constexpr int kSmem =
+      (2 * kQElems + 2 * kStages * kTileElems) * 2 + 256 + 1024;
+};
+
+// Two neighbouring output elements: a pair of In, or two floats.
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = sm90::pack2<T>(lo, hi);
+}
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
+// A warpgroup's 64 x D accumulator times `mul`, rows r_lo and r_lo + 8 of
+// this thread, to the rows < T of one head of `out`.
+template <int D, typename OutT>
+__device__ __forceinline__ void store_acc(const View& out, int b, int h,
+                                          int r_lo, int T,
+                                          const float (&acc)[D / 2],
+                                          float mul, int t) {
+  OutT* head = reinterpret_cast<OutT*>(out.p) + b * out.sb + h * out.sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    if (r >= T) continue;
+    OutT* row = head + r * out.st;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(row + 8 * j + 2 * t, acc[4 * j + 2 * i] * mul,
+             acc[4 * j + 2 * i + 1] * mul);
+  }
+}
+
+// acc (=) A B^T over depth D: A's 64 rows and B's N rows both K-major in
+// slabs of 64 columns (slab strides a_rows and b_rows rows), issued, not
+// committed.
+template <int D, int N, typename In>
+__device__ __forceinline__ void issue_nt(float (&acc)[N / 2], const In* a,
+                                         int a_rows, const In* b,
+                                         int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int slab = kk / 4, col = (kk % 4) * 16;
+    sm90::Wgmma<N, In>::template ss<0, 0>(
+        acc, sm90::desc_k_major(a + slab * a_rows * kSlab + col),
+        sm90::desc_k_major(b + slab * b_rows * kSlab + col), kk > 0);
+  }
+}
+
+// acc += A B over depth K: A in registers (K/16 operands), B a tile of K
+// rows and D columns in slabs of 64, MN-major; issued and committed.
+template <int D, int K, typename In>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[K / 16][4],
+                                         const In* b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    sm90::Wgmma<D, In>::template rs<1>(
+        acc, a[kk], sm90::desc_mn_major(b + kk * 16 * kSlab, K * kSlab * 2),
+        1);
+  sm90::wgmma_commit();
+}
+
+// ---------------------------------------------------------------------------
+// dk / dv
+
+struct DkdvShared {
+  uint64_t* kv_full;   // the block's K and V tiles
+  // a ring slot: filled by TMA (1 arrival and the tiles' bytes) and the
+  // statistics warp (32 arrivals), emptied by both consumers (256)
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* p_full;   // a slot's P^T written by the dV warpgroup (128)
+};
+
+// Producer thread: K and V once, then the Q and dO tiles in ring order.
+template <int D, typename In>
+__device__ __forceinline__ void dkdv_produce(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, In* ks, In* vs, In* qr, In* dr,
+    const DkdvShared& bar, int b, int h, int kv0, int q_first, int n_q) {
+  using C = DkdvTiles<D>;
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  sm90::prefetch_tensor_map(tdo);
+  sm90::mbar_arrive_expect_tx(bar.kv_full, 2 * C::kKVElems * 2);
+#pragma unroll
+  for (int s = 0; s < D / kSlab; ++s) {
+    sm90::tma_load_4d(ks + s * kKV * kSlab, tk, bar.kv_full, s * kSlab, kv0,
+                      h, b);
+    sm90::tma_load_4d(vs + s * kKV * kSlab, tv, bar.kv_full, s * kSlab, kv0,
+                      h, b);
+  }
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % C::kStages, q0 = q_first + i * kBQ;
+    sm90::mbar_wait(bar.empty + st, ((i / C::kStages) & 1) ^ 1);
+    sm90::mbar_arrive_expect_tx(bar.full + st, C::kSlotBytes);
+    In* qd = qr + st * C::kQElems;
+    In* dd = dr + st * C::kQElems;
+#pragma unroll
+    for (int s = 0; s < D / kSlab; ++s) {
+      sm90::tma_load_4d(qd + s * kBQ * kSlab, tq, bar.full + st, s * kSlab,
+                        q0, h, b);
+      sm90::tma_load_4d(dd + s * kBQ * kSlab, tdo, bar.full + st, s * kSlab,
+                        q0, h, b);
+    }
+  }
+}
+
+// Statistics warp: each slot's lse (log2 units) and di rows, in ring order.
+template <int D>
+__device__ __forceinline__ void dkdv_stats(const Args& p,
+                                           float* stats,
+                                           const DkdvShared& bar, int b,
+                                           int h, int q_first, int n_q) {
+  using C = DkdvTiles<D>;
+  const int lane = threadIdx.x % 32;
+  const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
+  const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % C::kStages, q0 = q_first + i * kBQ;
+    sm90::mbar_wait(bar.empty + st, ((i / C::kStages) & 1) ^ 1);
+    float* ls = stats + st * C::kStatFloats;
+    for (int r = lane; r < kBQ; r += 32) {
+      const int q = q0 + r;
+      ls[r] = q < p.Tq ? lse[q] * kLog2e : INFINITY;
+      ls[kBQ + r] = q < p.Tq ? di[q] : 0.f;
+    }
+    sm90::mbar_arrive(bar.full + st);
+  }
+}
+
+// P^T in place of S^T: exp2(S^T * scale * log2 e - lse * log2 e), 0 where
+// causal hides the pair (kv row > q column), only on a tile that crosses
+// the diagonal.
+__device__ __forceinline__ void p_transposed(float (&s)[kBQ / 2],
+                                             const float* ls, float sl2,
+                                             bool mask, int q0, int r_lo,
+                                             int t) {
+#pragma unroll
+  for (int e = 0; e < kBQ / 2; ++e) {
+    const int c = 8 * (e / 4) + 2 * t + (e & 1);
+    float x = exp2f(s[e] * sl2 - ls[c]);
+    if (mask && r_lo + 8 * ((e / 2) & 1) > q0 + c) x = 0.f;
+    s[e] = x;
+  }
+}
+
+// Consumer warpgroup 1: dV of the block's 64 kv rows.
+template <int D, typename In, typename OutT>
+__device__ __forceinline__ void dkdv_consume_dv(
+    const Args& p, const In* ks, const In* qr, const In* dr,
+    const float* stats, float* pbuf, const DkdvShared& bar, int b, int h,
+    int kv0, int q_first, int n_q) {
+  using C = DkdvTiles<D>;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3, r_lo = kv0 + 16 * warp + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_q > 0) sm90::mbar_wait(bar.kv_full, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % C::kStages, q0 = q_first + i * kBQ;
+    const In* qt = qr + st * C::kQElems;
+    const In* dt = dr + st * C::kQElems;
+    sm90::mbar_wait(bar.full + st, (i / C::kStages) & 1);
+    float s[kBQ / 2];
+    sm90::wgmma_fence();
+    issue_nt<D, kBQ>(s, ks, kKV, qt, kBQ);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    p_transposed(s, stats + st * C::kStatFloats, sl2,
+                 p.causal && kv0 + kKV - 1 > q0, q0, r_lo, t);
+    // P^T to the dK warpgroup, whose thread i holds the same elements
+    float* pw = pbuf + st * C::kPFloats + threadIdx.x % 128;
+#pragma unroll
+    for (int e = 0; e < kBQ / 2; ++e) pw[e * 128] = s[e];
+    sm90::mbar_arrive(bar.p_full + st);
+    uint32_t pa[kBQ / 16][4];
+    sm90::to_operand<In>(s, pa);
+    sm90::wgmma_fence();
+    issue_rs<D, kBQ>(acc, pa, dt);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(pa);
+    sm90::mbar_arrive(bar.empty + st);
+  }
+  store_acc<D, OutT>(p.dv, b, h, r_lo, p.Tk, acc, 1.f, t);
+}
+
+// Consumer warpgroup 2: dK of the block's 64 kv rows.
+template <int D, typename In, typename OutT>
+__device__ __forceinline__ void dkdv_consume_dk(
+    const Args& p, const In* vs, const In* qr, const In* dr,
+    const float* stats, const float* pbuf, const DkdvShared& bar, int b,
+    int h, int kv0, int n_q) {
+  using C = DkdvTiles<D>;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3, r_lo = kv0 + 16 * warp + (lane >> 2);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_q > 0) sm90::mbar_wait(bar.kv_full, 0);
+  for (int i = 0; i < n_q; ++i) {
+    const int st = i % C::kStages;
+    const In* qt = qr + st * C::kQElems;
+    const In* dt = dr + st * C::kQElems;
+    const float* ls = stats + st * C::kStatFloats;
+    sm90::mbar_wait(bar.full + st, (i / C::kStages) & 1);
+    float dp[kBQ / 2];
+    sm90::wgmma_fence();
+    issue_nt<D, kBQ>(dp, vs, kKV, dt, kBQ);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+    // P^T from the dV warpgroup, then dS^T = P^T o (dP^T - di)
+    sm90::mbar_wait(bar.p_full + st, (i / C::kStages) & 1);
+    const float* pr = pbuf + st * C::kPFloats + threadIdx.x % 128;
+#pragma unroll
+    for (int e = 0; e < kBQ / 2; ++e) {
+      const int c = 8 * (e / 4) + 2 * t + (e & 1);
+      dp[e] = pr[e * 128] * (dp[e] - ls[kBQ + c]);
+    }
+    uint32_t da[kBQ / 16][4];
+    sm90::to_operand<In>(dp, da);
+    sm90::wgmma_fence();
+    issue_rs<D, kBQ>(acc, da, qt);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(da);
+    sm90::mbar_arrive(bar.empty + st);
+  }
+  store_acc<D, OutT>(p.dk, b, h, r_lo, p.Tk, acc, p.scale, t);
+}
+
+template <int D, typename In, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const Args p) {
+  using C = DkdvTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is anchored to 1024-byte atoms: align the tiles to them
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  In* ks = reinterpret_cast<In*>(base);
+  In* vs = ks + C::kKVElems;
+  In* qr = vs + C::kKVElems;
+  In* dr = qr + C::kStages * C::kQElems;
+  float* stats = reinterpret_cast<float*>(dr + C::kStages * C::kQElems);
+  float* pbuf = stats + C::kStages * C::kStatFloats;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(pbuf + C::kStages * C::kPFloats);
+  const DkdvShared bar{bars, bars + 1, bars + 1 + C::kStages,
+                       bars + 1 + 2 * C::kStages};
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // the first kv rows see the most q tiles (causal): they start first
+  const int kv0 = blockIdx.y * kKV;
+  // causal: key <= query, so the q tiles from the one holding row kv0 on
+  const int q_first = p.causal ? (kv0 / kBQ) * kBQ : 0;
+  const int n_q = q_first < p.Tq ? (p.Tq - q_first + kBQ - 1) / kBQ : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.kv_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(bar.full + s, 1 + 32);
+      sm90::mbar_init(bar.empty + s, 256);
+      sm90::mbar_init(bar.p_full + s, 128);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    if (n_q == 0) return;
+    if (threadIdx.x == 0)
+      dkdv_produce<D>(&tq, &tk, &tv, &tdo, ks, vs, qr, dr, bar, b, h, kv0,
+                      q_first, n_q);
+    else if (threadIdx.x / 32 == 1)
+      dkdv_stats<D>(p, stats, bar, b, h, q_first, n_q);
+  } else if (threadIdx.x < 256) {
+    dkdv_consume_dv<D, In, OutT>(p, ks, qr, dr, stats, pbuf, bar, b, h, kv0,
+                                 q_first, n_q);
+  } else {
+    dkdv_consume_dk<D, In, OutT>(p, vs, qr, dr, stats, pbuf, bar, b, h,
+                                 kv0, n_q);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dq
+
+struct DqShared {
+  uint64_t* q_full;   // the block's Q and dO tiles
+  uint64_t* full;     // a ring slot of K and V: TMA (1 arrival and bytes)
+  uint64_t* empty;    // emptied by both consumers (256 arrivals)
+};
+
+// Producer thread: Q and dO once, then the K and V tiles in ring order.
+template <int D, typename In>
+__device__ __forceinline__ void dq_produce(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, In* qs, In* dos, In* kr, In* vr,
+    const DqShared& bar, int b, int h, int q0, int n_kv) {
+  using C = DqTiles<D>;
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  sm90::prefetch_tensor_map(tdo);
+  sm90::mbar_arrive_expect_tx(bar.q_full, 2 * C::kQElems * 2);
+#pragma unroll
+  for (int s = 0; s < D / kSlab; ++s) {
+    sm90::tma_load_4d(qs + s * kQ * kSlab, tq, bar.q_full, s * kSlab, q0, h,
+                      b);
+    sm90::tma_load_4d(dos + s * kQ * kSlab, tdo, bar.q_full, s * kSlab, q0,
+                      h, b);
+  }
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % C::kStages;
+    sm90::mbar_wait(bar.empty + st, ((j / C::kStages) & 1) ^ 1);
+    sm90::mbar_arrive_expect_tx(bar.full + st, C::kSlotBytes);
+    In* kd = kr + st * C::kTileElems;
+    In* vd = vr + st * C::kTileElems;
+#pragma unroll
+    for (int s = 0; s < D / kSlab; ++s) {
+      sm90::tma_load_4d(kd + s * kBK * kSlab, tk, bar.full + st, s * kSlab,
+                        j * kBK, h, b);
+      sm90::tma_load_4d(vd + s * kBK * kSlab, tv, bar.full + st, s * kSlab,
+                        j * kBK, h, b);
+    }
+  }
+}
+
+// A consumer warpgroup: dQ of its 64 q rows over every kv tile of the block.
+template <int D, typename In, typename OutT>
+__device__ __forceinline__ void dq_consume(const Args& p, const In* qs,
+                                           const In* dos, const In* kr,
+                                           const In* vr, const DqShared& bar,
+                                           int wg, int b, int h, int q0,
+                                           int n_kv) {
+  using C = DqTiles<D>;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int qw0 = q0 + 64 * wg;            // the warpgroup's first q row
+  const int r_lo = qw0 + 16 * warp + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  const In* qw = qs + wg * 64 * kSlab;
+  const In* dw = dos + wg * 64 * kSlab;
+  float lse_r[2], di_r[2];
+  {
+    const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
+    const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      lse_r[i] = r < p.Tq ? lse[r] * kLog2e : 0.f;
+      di_r[i] = r < p.Tq ? di[r] : 0.f;
+    }
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  sm90::mbar_wait(bar.q_full, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % C::kStages, kv0 = j * kBK;
+    const In* kt = kr + st * C::kTileElems;
+    const In* vt = vr + st * C::kTileElems;
+    sm90::mbar_wait(bar.full + st, (j / C::kStages) & 1);
+    float s[kBK / 2], dp[kBK / 2];
+    sm90::wgmma_fence();
+    issue_nt<D, kBK>(s, qw, kQ, kt, kBK);
+    issue_nt<D, kBK>(dp, dw, kQ, vt, kBK);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    // a tile needs the mask if it crosses Tk or, causal, the diagonal
+    const bool mask =
+        kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
+#pragma unroll
+    for (int e = 0; e < kBK / 2; ++e) {
+      const int i = (e / 2) & 1;
+      float x = exp2f(s[e] * sl2 - lse_r[i]);
+      if (mask) {
+        const int col = kv0 + 8 * (e / 4) + 2 * t + (e & 1);
+        if (col >= p.Tk || (p.causal && col > r_lo + 8 * i)) x = 0.f;
+      }
+      dp[e] = x * (dp[e] - di_r[i]);
+    }
+    uint32_t da[kBK / 16][4];
+    sm90::to_operand<In>(dp, da);
+    sm90::wgmma_fence();
+    issue_rs<D, kBK>(acc, da, kt);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(da);
+    sm90::mbar_arrive(bar.empty + st);
+  }
+  store_acc<D, OutT>(p.dq, b, h, r_lo, p.Tq, acc, p.scale, t);
+}
+
+template <int D, typename In, typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const Args p) {
+  using C = DqTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  In* qs = reinterpret_cast<In*>(base);
+  In* dos = qs + C::kQElems;
+  In* kr = dos + C::kQElems;
+  In* vr = kr + C::kStages * C::kTileElems;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(vr + C::kStages * C::kTileElems);
+  const DqShared bar{bars, bars + 1, bars + 1 + C::kStages};
+
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  // causal: the longest rows first, so the last wave is short
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + kQ) : p.Tk;
+  const int n_kv = (kv_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.q_full, 1);
+    for (int s = 0; s < C::kStages; ++s) {
+      sm90::mbar_init(bar.full + s, 1);
+      sm90::mbar_init(bar.empty + s, 256);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0)
+      dq_produce<D>(&tq, &tk, &tv, &tdo, qs, dos, kr, vr, bar, b, h, q0,
+                    n_kv);
+  } else {
+    dq_consume<D, In, OutT>(p, qs, dos, kr, vr, bar, threadIdx.x / 128 - 1,
+                            b, h, q0, n_kv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
+// The tensor maps of q, k, v and dout, in boxes of q_rows and kv_rows rows.
+template <typename In>
+cudaError_t maps(const Args& a, int q_rows, int kv_rows,
+                 CUtensorMap (&m)[4]) {
+  const View* in[4] = {&a.q, &a.k, &a.v, &a.dout};
+  for (int i = 0; i < 4; ++i) {
+    const bool is_q = i == 0 || i == 3;
+    const cudaError_t err = sm90::bhtd_map<In>(
+        &m[i], in[i]->p, a.B, a.H, is_q ? a.Tq : a.Tk, a.D, in[i]->sb,
+        in[i]->sh, in[i]->st, is_q ? q_rows : kv_rows);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// One launch of `kernel` over (B * H, blocks), with the q, k, v and dout
+// maps in boxes of q_rows and kv_rows rows.
+template <typename In, typename K>
+cudaError_t launch(K kernel, int smem, int q_rows, int kv_rows, int blocks,
+                   const Args& a, cudaStream_t stream) {
+  CUtensorMap m[4];
+  cudaError_t err = maps<In>(a, q_rows, kv_rows, m);
+  if (err != cudaSuccess) return err;
+  // the attribute belongs to the current device: set at every launch
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(a.B * a.H), (unsigned)blocks);
+  kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  return cudaGetLastError();
+}
+
+template <int D, typename In, typename OutT>
+struct Dkdv {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return launch<In>(flash_bwd_dkdv_sm90_kernel<D, In, OutT>,
+                      DkdvTiles<D>::kSmem, kBQ, kKV, (a.Tk + kKV - 1) / kKV,
+                      a, s);
+  }
+};
+
+template <int D, typename In, typename OutT>
+struct Dq {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return launch<In>(flash_bwd_dq_sm90_kernel<D, In, OutT>,
+                      DqTiles<D>::kSmem, kQ, kBK, (a.Tq + kQ - 1) / kQ, a, s);
+  }
+};
+
+// The instance for the arguments' head dim, input type and output type.
+template <template <int, typename, typename> class F>
+cudaError_t pick(const Args& a, cudaStream_t stream) {
+  if (a.dtype == flash::kF16) {
+    if (a.out_f32)
+      return a.D == 64 ? F<64, __half, float>::run(a, stream)
+                       : F<128, __half, float>::run(a, stream);
+    return a.D == 64 ? F<64, __half, __half>::run(a, stream)
+                     : F<128, __half, __half>::run(a, stream);
+  }
+  typedef __nv_bfloat16 bf16;
+  if (a.out_f32)
+    return a.D == 64 ? F<64, bf16, float>::run(a, stream)
+                     : F<128, bf16, float>::run(a, stream);
+  return a.D == 64 ? F<64, bf16, bf16>::run(a, stream)
+                   : F<128, bf16, bf16>::run(a, stream);
+}
+
+}  // namespace
+
+namespace flash {
+
+// (dk, dv) under the given lse and di, over [B, H, T, D] views of bf16 or
+// fp16 (D = 64 or 128); outputs in the input type or fp32 (out_f32).
+cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
+  return pick<Dkdv>(a, stream);
+}
+
+// dq under the given lse and di, as bwd_dkdv_sm90.
+cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream) {
+  return pick<Dq>(a, stream);
+}
+
+}  // namespace flash

@@ -1,12 +1,15 @@
-// Flash attention forward for Hopper: K6a (flash attention, bf16 o) and
-// K7a (ring attention's segment, fp32 o), one kernel.
+// Flash attention forward for Hopper: K6a (flash attention, o in the input
+// type) and K7a (ring attention's segment, fp32 o), one kernel, for bf16 or
+// fp16 inputs (In).
 //
 // Replaces the forward Pallas kernels that horovod_tpu/parallel/
 // flash_attention.py:flash_attention_local takes from jax's library
 // (flash_attention / splash_attention forward) and horovod_tpu/parallel/
 // ring_attention.py:_seg_fwd_pallas: o = softmax(q k^T * scale) v and
 // lse = logsumexp(q k^T * scale), fp32 softmax statistics, p rounded to
-// bf16 before the PV product (the reference casts p to v.dtype).
+// In before the PV product (the reference casts p to v.dtype). q has Tq
+// rows and k, v Tk; causal is the library kernel's rule, key <= query by
+// absolute index.
 //
 // What bounds it on an H100: operations. At the flagship shape (B4 H16
 // T2048 D128, causal) it does 69 GFLOP on 24 MB of input, some 2,900
@@ -24,7 +27,7 @@
 //   and V as an MN-major B (m64nDk16). The two products of consecutive
 //   tiles overlap the softmax: S_i and P_{i-1} V_{i-1} are issued together,
 //   the online softmax of S_i (log2 units, fp32) runs while the second is
-//   in flight, then O is rescaled and P_i rounded pairwise to bf16 in place
+//   in flight, then O is rescaled and P_i rounded pairwise to In in place
 //   (the accumulator layout is the register-A layout). O, m and l stay in
 //   registers; S and P never leave them.
 // - Why 96 kv rows: during the overlap a consumer thread holds S (48
@@ -32,12 +35,13 @@
 //   the kernel's 168 registers whatever setmaxnreg allowed, and with 128-row
 //   tiles (S 64, P 32) the overlap spilled and ran slower than no overlap;
 //   96 rows fit with no spill.
-// - TMA zero-fills rows past T, so any T >= 1 runs; only a tile that
-//   crosses the causal diagonal or T runs the per-element mask. Causal
+// - TMA zero-fills rows past Tq or Tk, so any lengths >= 1 run; only a
+//   tile that crosses the causal diagonal or Tk runs the per-element mask.
+//   Causal
 //   tiles past the diagonal are never loaded, and blocks start with the
 //   longest rows so the last wave is short.
-// - The epilogue divides by l and stores o (bf16 or fp32) and lse from
-//   registers, rows < T only. A row that sees no key writes o = 0 and
+// - The epilogue divides by l and stores o (In or fp32) and lse from
+//   registers, rows < Tq only. A row that sees no key writes o = 0 and
 //   lse = -1e30, a finite sentinel the ring's merge needs.
 // The arithmetic does not depend on the views' strides and nothing is
 // accumulated across blocks: strided views and contiguous copies give the
@@ -48,19 +52,32 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using flash::Args;
+
+// What the kernel reads of Args, packed: its parameter. Measured on an
+// H100: with Args itself as the parameter and q0 from gridDim.y, ptxas
+// scheduled the consumers' main loop with more integer work and K7a ran
+// about 4% slower.
+struct FwdParams {
+  flash::View o;
+  flash::Stat lse;
+  int H, Tq, Tk, causal, n_qt;
+  float scale;
+};
 
 constexpr int kBQ = 128;      // q rows of a block, 64 a consumer
 constexpr int kBK = 96;       // kv rows of a tile
-constexpr int kSlab = 64;     // bf16 columns of a 128-byte swizzled slab
+constexpr int kSlab = 64;     // 16-bit columns of a 128-byte swizzled slab
 constexpr int kThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -78,29 +95,13 @@ struct Tiles {
       (kQElems + 2 * kStages * kTileElems) * 2 + 256 + 1024;
 };
 
-// A [B, H, T, D] output view: base pointer and element strides of B, H, T.
-struct OutView {
-  void* p;
-  long long sb, sh, st;
-};
-
-struct FwdParams {
-  OutView o;
-  float* lse;             // [B, H, T] with strides lse_sb, lse_sh, 1
-  long long lse_sb, lse_sh;
-  int H, T, causal, n_qt;
-  float scale;
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two neighbouring output elements: a pair of In, or two floats.
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = sm90::pack2<T>(lo, hi);
 }
-
-__device__ __forceinline__ void store2(bf16* dst, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(lo, hi);
-}
-__device__ __forceinline__ void store2(float* dst, float lo, float hi) {
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float lo, float hi) {
   *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
 }
 
@@ -116,15 +117,15 @@ struct Barriers {
 
 // The i-th K or V tile (kv rows i * kBK ..) into its ring slot, once the
 // consumers have emptied the slot's previous tile.
-template <int D>
-__device__ __forceinline__ void load_kv(const CUtensorMap* map, bf16* ring,
+template <int D, typename In>
+__device__ __forceinline__ void load_kv(const CUtensorMap* map, In* ring,
                                         uint64_t* full, uint64_t* empty,
                                         int i, int b, int h) {
   using C = Tiles<D>;
   const int st = i % C::kStages;
   sm90::mbar_wait(empty + st, ((i / C::kStages) & 1) ^ 1);
   sm90::mbar_arrive_expect_tx(full + st, C::kTileBytes);
-  bf16* dst = ring + st * C::kTileElems;
+  In* dst = ring + st * C::kTileElems;
 #pragma unroll
   for (int s = 0; s < D / kSlab; ++s)
     sm90::tma_load_4d(dst + s * kBK * kSlab, map, full + st, s * kSlab,
@@ -133,11 +134,11 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* map, bf16* ring,
 
 // Warpgroup 0, one thread: Q once, then the kv tiles, K one tile ahead of
 // V, in the order the consumers take them.
-template <int D>
+template <int D, typename In>
 __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tk,
-                                        const CUtensorMap* tv, bf16* qs,
-                                        bf16* ks, bf16* vs,
+                                        const CUtensorMap* tv, In* qs,
+                                        In* ks, In* vs,
                                         const Barriers& bar, int b, int h,
                                         int q0, int n_kv) {
   using C = Tiles<D>;
@@ -157,11 +158,11 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
 }
 
 // Scale a score tile into log2 units, masking what the row may not see
-// (columns at or past T; causal: past the row) to -inf, and return the
+// (columns at or past Tk; causal: past the row) to -inf, and return the
 // tile's running max of the thread's two rows.
 template <bool kMask>
 __device__ __forceinline__ void scale_mask(float (&s)[kBK / 2], float sl2,
-                                           int kv0, int r_lo, int t, int T,
+                                           int kv0, int r_lo, int t, int Tk,
                                            int causal, float (&mt)[2]) {
 #pragma unroll
   for (int i = 0; i < kBK / 2; ++i) {
@@ -169,7 +170,7 @@ __device__ __forceinline__ void scale_mask(float (&s)[kBK / 2], float sl2,
     if (kMask) {
       const int col = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
       const int row = r_lo + 8 * ((i / 2) & 1);
-      if (col >= T || (causal && col > row)) x = -INFINITY;
+      if (col >= Tk || (causal && col > row)) x = -INFINITY;
     }
     s[i] = x;
     mt[(i / 2) & 1] = fmaxf(mt[(i / 2) & 1], x);
@@ -180,18 +181,18 @@ __device__ __forceinline__ void scale_mask(float (&s)[kBK / 2], float sl2,
 // p = exp2(s * scale * log2(e) - m_new), m the new running max of the
 // thread's two rows; alpha[i] = exp2(m_old - m_new) rescales what was
 // summed before, rs[i] is the new p's sum over this thread's columns. Only
-// a tile that crosses T or the diagonal runs the per-element mask.
+// a tile that crosses Tk or the diagonal runs the per-element mask.
 __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
                                                float (&m)[2],
                                                float (&alpha)[2],
                                                float (&rs)[2], bool mask,
                                                float sl2, int kv0, int r_lo,
-                                               int t, int T, int causal) {
+                                               int t, int Tk, int causal) {
   float mt[2] = {-INFINITY, -INFINITY};
   if (mask)
-    scale_mask<true>(s, sl2, kv0, r_lo, t, T, causal, mt);
+    scale_mask<true>(s, sl2, kv0, r_lo, t, Tk, causal, mt);
   else
-    scale_mask<false>(s, sl2, kv0, r_lo, t, T, causal, mt);
+    scale_mask<false>(s, sl2, kv0, r_lo, t, Tk, causal, mt);
   float msub[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -211,26 +212,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
   }
 }
 
-// P, rounded pairwise to bf16, in the A-operand layout: registers
-// 8kk .. 8kk + 7 of s are the A operand of the kk-th 16 kv rows (row g:
-// 8kk + 0, 1, 4, 5; row g + 8: + 2, 3, 6, 7).
-__device__ __forceinline__ void to_bf16(const float (&s)[kBK / 2],
-                                        uint32_t (&pa)[kBK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-}
-
 // S = Q K^T over D (D/16 steps, 4 a slab), issued and committed.
-template <int D>
-__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const bf16* qw,
-                                         const bf16* kt) {
+template <int D, typename In>
+__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const In* qw,
+                                         const In* kt) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int slab = kk / 4, col = (kk % 4) * 16;
-    sm90::Wgmma<kBK>::template ss<0, 0>(
+    sm90::Wgmma<kBK, In>::template ss<0, 0>(
         s, sm90::desc_k_major(qw + slab * kBQ * kSlab + col),
         sm90::desc_k_major(kt + slab * kBK * kSlab + col), kk > 0);
   }
@@ -239,13 +228,13 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const bf16* qw,
 
 // O += P V over one V tile (kBK/16 steps of 16 kv rows, 2 KB of a slab),
 // issued and committed.
-template <int D>
+template <int D, typename In>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          uint32_t (&pa)[kBK / 16][4],
-                                         const bf16* vt) {
+                                         const In* vt) {
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
-    sm90::Wgmma<D>::template rs<1>(
+    sm90::Wgmma<D, In>::template rs<1>(
         o, pa[kk], sm90::desc_mn_major(vt + kk * 16 * kSlab, kBK * kSlab * 2),
         1);
   sm90::wgmma_commit();
@@ -255,8 +244,7 @@ template <int D>
 __device__ __forceinline__ void fence_pv(float (&o)[D / 2],
                                          uint32_t (&pa)[kBK / 16][4]) {
   sm90::fence_regs(o);
-#pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) sm90::fence_regs(pa[kk]);
+  sm90::fence_regs(pa);
 }
 
 // The consumer warpgroups: 64 q rows each, every kv tile of the block. The
@@ -265,9 +253,9 @@ __device__ __forceinline__ void fence_pv(float (&o)[D / 2],
 // the second is in flight, and O is rescaled and P_i formed after it. Each
 // tile's arithmetic, and its order, are those of the plain online softmax.
 // The first tile is peeled off, so no product is issued under a branch.
-template <int D, typename OutT>
-__device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
-                                        const bf16* ks, const bf16* vs,
+template <int D, typename In, typename OutT>
+__device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
+                                        const In* ks, const In* vs,
                                         const Barriers& bar, int wg, int b,
                                         int h, int q0, int n_kv) {
   using C = Tiles<D>;
@@ -277,10 +265,10 @@ __device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
   const int r_lo = qw0 + 16 * warp + g;    // this thread's rows: r_lo, +8
   const float sl2 = p.scale * kLog2e;
   // this warpgroup's 64 rows of each Q slab
-  const bf16* qw = qs + wg * 64 * kSlab;
-  // a tile needs the mask if it crosses T or, causal, the diagonal
+  const In* qw = qs + wg * 64 * kSlab;
+  // a tile needs the mask if it crosses Tk or, causal, the diagonal
   auto mask = [&](int kv0) {
-    return kv0 + kBK > p.T || (p.causal && kv0 + kBK - 1 > qw0);
+    return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
   };
 
   float o[D / 2];
@@ -297,8 +285,8 @@ __device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
   sm90::wgmma_wait<0>();
   sm90::fence_regs(s);
   sm90::mbar_arrive(bar.k_empty);
-  online_softmax(s, m, alpha, l, mask(0), sl2, 0, r_lo, t, p.T, p.causal);
-  to_bf16(s, pa);
+  online_softmax(s, m, alpha, l, mask(0), sl2, 0, r_lo, t, p.Tk, p.causal);
+  sm90::to_operand<In>(s, pa);
 
   for (int it = 1; it < n_kv; ++it) {
     const int st = it % C::kStages, prev = (it - 1) % C::kStages;
@@ -312,7 +300,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
     sm90::fence_regs(s);
     sm90::mbar_arrive(bar.k_empty + st);
     float rs[2];
-    online_softmax(s, m, alpha, rs, mask(kv0), sl2, kv0, r_lo, t, p.T,
+    online_softmax(s, m, alpha, rs, mask(kv0), sl2, kv0, r_lo, t, p.Tk,
                    p.causal);
     sm90::wgmma_wait<0>();
     fence_pv<D>(o, pa);
@@ -321,7 +309,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
-    to_bf16(s, pa);
+    sm90::to_operand<In>(s, pa);
   }
   const int last = (n_kv - 1) % C::kStages;
   sm90::mbar_wait(bar.v_full + last, ((n_kv - 1) / C::kStages) & 1);
@@ -343,7 +331,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_lo + 8 * i;
-    if (r >= p.T) continue;
+    if (r >= p.Tq) continue;
     OutT* row = head + r * p.o.st;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
@@ -351,16 +339,16 @@ __device__ __forceinline__ void consume(const FwdParams& p, const bf16* qs,
              o[4 * j + 2 * i + 1] * inv[i]);
   }
   if (t == 0) {
-    float* lse = p.lse + b * p.lse_sb + h * p.lse_sh;
+    float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = r_lo + 8 * i;
-      if (r < p.T) lse[r] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
+      if (r < p.Tq) lse[r] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
     }
   }
 }
 
-template <int D, typename OutT>
+template <int D, typename In, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -371,9 +359,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   // the swizzle is anchored to 1024-byte atoms: align the tiles to them
   uint8_t* base =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  bf16* qs = reinterpret_cast<bf16*>(base);
-  bf16* ks = qs + C::kQElems;
-  bf16* vs = ks + C::kStages * C::kTileElems;
+  In* qs = reinterpret_cast<In*>(base);
+  In* ks = qs + C::kQElems;
+  In* vs = ks + C::kStages * C::kTileElems;
   uint64_t* bars = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kTileElems);
   const Barriers bar{bars, bars + 1, bars + 1 + C::kStages,
                      bars + 1 + 2 * C::kStages, bars + 1 + 3 * C::kStages};
@@ -381,7 +369,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   // causal: the longest rows first, so the last wave is short
   const int q0 = (p.n_qt - 1 - blockIdx.y) * kBQ;
-  const int kv_end = p.causal ? min(p.T, q0 + kBQ) : p.T;
+  const int kv_end = p.causal ? min(p.Tk, q0 + kBQ) : p.Tk;
   const int n_kv = (kv_end + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -402,94 +390,59 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       produce<D>(&tq, &tk, &tv, qs, ks, vs, bar, b, h, q0, n_kv);
   } else {
     sm90::reg_alloc<240>();
-    consume<D, OutT>(p, qs, ks, vs, bar, threadIdx.x / 128 - 1, b, h, q0,
-                     n_kv);
+    consume<D, In, OutT>(p, qs, ks, vs, bar, threadIdx.x / 128 - 1, b, h, q0,
+                         n_kv);
   }
 }
 
-template <int D, typename OutT>
+template <int D, typename In, typename OutT>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, const FwdParams& p, int B,
+                   const CUtensorMap& tv, const Args& a,
                    cudaStream_t stream) {
   constexpr int smem = Tiles<D>::kSmem;
   // the attribute belongs to the current device: set at every launch
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D, OutT>,
+      flash_fwd_sm90_kernel<D, In, OutT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * p.H), (unsigned)p.n_qt);
-  flash_fwd_sm90_kernel<D, OutT><<<grid, kThreads, smem, stream>>>(tq, tk, tv,
-                                                                   p);
+  const int n_qt = (a.Tq + kBQ - 1) / kBQ;
+  const dim3 grid((unsigned)(a.B * a.H), (unsigned)n_qt);
+  const FwdParams p{a.o, a.lse, a.H, a.Tq, a.Tk, a.causal, n_qt, a.scale};
+  flash_fwd_sm90_kernel<D, In, OutT><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-// q, k, v: [B, H, T, D] bf16 views with element strides (B, H, T) at
-// strides[0..8]; o as described by `out`; lse with B/H strides.
-template <typename OutT>
-int forward(int device, const void* q, const void* k, const void* v,
-            const OutView& out, float* lse, long long lse_sb,
-            long long lse_sh, const long long* strides, int B, int H, int T,
-            int D, int causal, float scale, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || H <= 0 || T <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+template <typename In, typename OutT>
+cudaError_t forward(const Args& a, cudaStream_t stream) {
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
+  const flash::View* in[3] = {&a.q, &a.k, &a.v};
   for (int i = 0; i < 3; ++i) {
-    err = sm90::bhtd_bf16_map(&maps[i], ptrs[i], B, H, T, D, strides[3 * i],
-                              strides[3 * i + 1], strides[3 * i + 2],
-                              i == 0 ? kBQ : kBK);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t err = sm90::bhtd_map<In>(
+        &maps[i], in[i]->p, a.B, a.H, i == 0 ? a.Tq : a.Tk, a.D, in[i]->sb,
+        in[i]->sh, in[i]->st, i == 0 ? kBQ : kBK);
+    if (err != cudaSuccess) return err;
   }
-  FwdParams p;
-  p.o = out;
-  p.lse = lse;
-  p.lse_sb = lse_sb;
-  p.lse_sh = lse_sh;
-  p.H = H;
-  p.T = T;
-  p.causal = causal;
-  p.n_qt = (T + kBQ - 1) / kBQ;
-  p.scale = scale;
-  const cudaStream_t s = (cudaStream_t)stream;
-  err = D == 64 ? launch<64, OutT>(maps[0], maps[1], maps[2], p, B, s)
-                : launch<128, OutT>(maps[0], maps[1], maps[2], p, B, s);
-  return (int)err;
+  return a.D == 64
+             ? launch<64, In, OutT>(maps[0], maps[1], maps[2], a, stream)
+             : launch<128, In, OutT>(maps[0], maps[1], maps[2], a, stream);
 }
 
-OutView out_view(void* o, const long long* strides) {
-  return OutView{o, strides[9], strides[10], strides[11]};
+template <typename In>
+cudaError_t forward_in(const Args& a, cudaStream_t stream) {
+  return a.out_f32 ? forward<In, float>(a, stream)
+                   : forward<In, In>(a, stream);
 }
 
 }  // namespace
 
-extern "C" {
+namespace flash {
 
-// K6: o = softmax(q k^T * scale) v, lse = logsumexp(q k^T * scale). Every
-// tensor argument is a [B, H, T, D] bf16 view, D = 64 or 128 contiguous,
-// with the element strides of B, H and T three by three in `strides` (host
-// memory): q, k, v, o. lse is fp32 [B, H, T] contiguous. device: the CUDA
-// ordinal of the tensors and stream.
-int hvd_flash_fwd(int device, const void* q, const void* k, const void* v,
-                  void* o, float* lse, const long long* strides, int B, int H,
-                  int T, int D, int causal, float scale, void* stream) {
-  return forward<bf16>(device, q, k, v, out_view(o, strides), lse,
-                       (long long)H * T, (long long)T, strides, B, H, T, D,
-                       causal, scale, stream);
+// o = softmax(q k^T * scale) v and lse over [B, H, T, D] views of bf16 or
+// fp16 (D = 64 or 128), o in the input type or fp32 (out_f32).
+cudaError_t fwd_sm90(const Args& a, cudaStream_t stream) {
+  return a.dtype == kF16 ? forward_in<__half>(a, stream)
+                         : forward_in<__nv_bfloat16>(a, stream);
 }
 
-// K7 (one ring segment, T = its length S): the same function with an fp32
-// o, a [B, H, S, D] view whose strides follow the inputs' in `strides`, and
-// lse an fp32 [B, H, S] view whose B and H strides come last (strides[12],
-// strides[13]; its T stride is 1).
-int hvd_flash_seg_fwd(int device, const void* q, const void* k,
-                      const void* v, float* o, float* lse,
-                      const long long* strides, int B, int H, int T, int D,
-                      int causal, float scale, void* stream) {
-  return forward<float>(device, q, k, v, out_view(o, strides), lse,
-                        strides[12], strides[13], strides, B, H, T, D, causal,
-                        scale, stream);
-}
-
-}  // extern "C"
+}  // namespace flash

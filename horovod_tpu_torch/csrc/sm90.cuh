@@ -3,10 +3,11 @@
 // descriptors and products, and register reallocation between warpgroups.
 // Each device wrapper is one PTX instruction or a few; the layouts they
 // assume are written beside them. Nothing here is specific to attention:
-// the forward (flash_fwd_sm90.cu) uses them, a Hopper backward can too.
+// the forward (flash_fwd_sm90.cu) and the backward (flash_bwd_sm90.cu) use
+// them, for bf16 or fp16 inputs (`In`: __nv_bfloat16 or __half).
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
-// a tile of R rows and 64 bf16 columns (128 bytes a row) is a "slab" of
+// a tile of R rows and 64 16-bit columns (128 bytes a row) is a "slab" of
 // R/8 atoms of 8 rows x 128 bytes = 1024 bytes, the 16-byte chunks of row r
 // permuted by XOR with r % 8. A wider tile is several slabs one after the
 // other. Every slab starts on a 1024-byte boundary, so the permutation,
@@ -16,6 +17,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,15 +121,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 
 // ---------------------------------------------------------------------------
 // wgmma: a warpgroup (4 warps, 128 threads) computes a 64 x N tile, N a
-// multiple of 8, over a depth of 16 bf16 values per instruction, fp32
+// multiple of 8, over a depth of 16 bf16 or fp16 values per instruction, fp32
 // accumulators in registers. Thread (warp w, lane 4g + t) holds, for each
 // 8-column block j of the tile, d[4j + 0..1] = row 16w + g, columns
 // 8j + 2t and 8j + 2t + 1, and d[4j + 2..3] = the same columns of row
 // 16w + g + 8. An A operand in registers has the same shape for its 16
 // columns: a[0] = row g columns 2t, 2t+1; a[1] = row g + 8; a[2], a[3] the
-// same rows at columns 2t + 8, 2t + 9; each a bf16 pair, the lower column
+// same rows at columns 2t + 8, 2t + 9; each a pair of In, the lower column
 // in the low half. So d's columns 16k .. 16k + 15 (blocks 2k and 2k + 1),
-// rounded pairwise to bf16, are the A operand of a product over depth 16k.
+// rounded pairwise to In, are the A operand of a product over depth 16k
+// (to_operand below). The products are Wgmma<N, In> (sm90_wgmma.cuh).
+
+// Two floats rounded to a pair of In, the first in the low half.
+template <typename In>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An accumulator of N registers (2N columns), rounded pairwise to In, as
+// the register A operands of N/8 products over depth 16: registers
+// 8kk .. 8kk + 7 of d are the kk-th (row g: 8kk + 0, 1, 4, 5; row g + 8:
+// + 2, 3, 6, 7).
+template <typename In, int N>
+__device__ __forceinline__ void to_operand(const float (&d)[N],
+                                           uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack2<In>(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
 
 // A shared-memory operand: its start address, LBO and SBO (bytes) and the
 // 128-byte swizzle (layout type 1 in bits 62-63).
@@ -185,177 +217,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// m64nNk16 bf16 x bf16 -> fp32, N = 64, 96 (A from shared memory only) or
-// 128. kTransA/kTransB: 0 for a K-major operand, 1 for an MN-major one.
-// accumulate = 0 overwrites d.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  static constexpr int kRegs = 32;
-  // d (+)= A B, A and B from shared memory (descriptors da, db)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
-                                            uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-
-  // d (+)= A B, A from registers (four bf16 pairs, the layout of d's
-  // 16-column blocks two by two), B from shared memory
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[32],
-                                            const uint32_t (&a)[4], uint64_t db,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate), "n"(kTransB));
-  }
-};
-
-template <>
-struct Wgmma<96> {
-  static constexpr int kRegs = 48;
-  // d (+)= A B, A and B from shared memory (descriptors da, db)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[48], uint64_t da,
-                                            uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static constexpr int kRegs = 64;
-  // d (+)= A B, A and B from shared memory (descriptors da, db)
-  template <int kTransA, int kTransB>
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-  }
-
-  // d (+)= A B, A from registers (four bf16 pairs, the layout of d's
-  // 16-column blocks two by two), B from shared memory
-  template <int kTransB>
-  static __device__ __forceinline__ void rs(float (&d)[64],
-                                            const uint32_t (&a)[4], uint64_t db,
-                                            int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-        "%60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(accumulate), "n"(kTransB));
-  }
-};
-
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) fence_regs(r[k]);
+}
 
 // ---------------------------------------------------------------------------
 // Register reallocation between warpgroups. A warpgroup that only issues
@@ -403,14 +269,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a [B, H, T, D] bf16 view (D contiguous, element strides
+// The CUtensorMap element type of In.
+template <typename In>
+constexpr CUtensorMapDataType tma_type();
+template <>
+constexpr CUtensorMapDataType tma_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <>
+constexpr CUtensorMapDataType tma_type<__half>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// The tensor map of a [B, H, T, D] view of In (D contiguous, element strides
 // sb, sh, st) as a 4-d tensor (D, T, H, B), read in boxes of 64 columns by
 // `rows` rows of one (b, h), 128-byte swizzled. TMA needs a 16-byte aligned
 // base and strides that are multiples of 16 bytes; a view without them is
 // refused here (cudaErrorInvalidValue).
-inline cudaError_t bhtd_bf16_map(CUtensorMap* map, const void* ptr, int B,
-                                 int H, int T, int D, long long sb,
-                                 long long sh, long long st, int rows) {
+template <typename In>
+cudaError_t bhtd_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
+                     int D, long long sb, long long sh, long long st,
+                     int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H,
@@ -420,7 +299,7 @@ inline cudaError_t bhtd_bf16_map(CUtensorMap* map, const void* ptr, int B,
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      map, tma_type<In>(), 4, const_cast<void*>(ptr), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -428,3 +307,5 @@ inline cudaError_t bhtd_bf16_map(CUtensorMap* map, const void* ptr, int B,
 }
 
 }  // namespace sm90
+
+#include "sm90_wgmma.cuh"

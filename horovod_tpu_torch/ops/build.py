@@ -39,14 +39,15 @@ SIGNATURES = {
     "hvd_bn_stats": [_I, _P, _I, _LL, _I, _I, _P, _P, _P, _P],
     "hvd_bn_bwd_stats": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _P,
                          _P],
-    # (device, tensors..., strides, B, H, T, D, [causal, scale,] stream)
-    "hvd_flash_fwd": [_I, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F,
-                      _P],
-    "hvd_flash_bwd_pre": [_I, _P, _P, _P, _LLP, _I, _I, _I, _I, _P],
-    "hvd_flash_bwd_dkdv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I,
-                           _I, _I, _I, _F, _P],
-    "hvd_flash_bwd_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I,
-                         _I, _I, _F, _P],
+    # (device, dtype, tensors..., strides, B, H, Tq, [Tk,] D, [causal,
+    # scale,] stream)
+    "hvd_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I,
+                      _I, _F, _P],
+    "hvd_flash_bwd_pre": [_I, _I, _P, _P, _P, _LLP, _I, _I, _I, _I, _P],
+    "hvd_flash_bwd_dkdv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I,
+                           _I, _I, _I, _I, _I, _F, _P],
+    "hvd_flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I,
+                         _I, _I, _I, _I, _F, _P],
 }
 # K7 takes K6's arguments, with fp32 outputs and the statistics' strides
 # appended to `strides`

@@ -11,13 +11,17 @@ TPU kernel (Pallas)        CUDA (``csrc/``)       wrapper here
 ``_triple_kernel``         ``adasum.cu``          :func:`adasum_triple`
 ``_scale_kernel``          ``adasum.cu``          :func:`adasum_scale`
 jax's flash forward        ``flash_fwd_sm90.cu``  :func:`flash_fwd`
-jax's flash backward       ``flash_attn.cu``      :func:`flash_bwd_pre`,
+jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
                                                   :func:`flash_bwd_dkdv`,
                                                   :func:`flash_bwd_dq`
 ``_seg_fwd_pallas``        ``flash_fwd_sm90.cu``  :func:`flash_seg_fwd`
-``_seg_bwd_pallas``        ``flash_attn.cu``      :func:`flash_seg_bwd_dkdv`,
+``_seg_bwd_pallas``        ``flash_bwd_sm90.cu``  :func:`flash_seg_bwd_dkdv`,
                                                   :func:`flash_seg_bwd_dq`
 =========================  =====================  ========================
+
+The attention kernels take bf16 and fp16 on the Hopper kernels above and
+fp32 on ``flash_attn.cu``'s tf32 family (which also holds di and the C
+entry points).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -346,12 +350,20 @@ adasum_scale.launches = 0
 # ---------------------------------------------------------------------------
 #
 # Every tensor is a [B, H, T, D] view with any strides for B, H and T (a
-# [B, T, H, D] tensor transposed is taken as it is). lse and di are fp32
-# [B, H, T], contiguous. The backward takes lse and di from outside: under a
-# global lse, as ring attention's per-block backward needs, it is the same
-# kernel.
+# [B, T, H, D] tensor transposed is taken as it is): q and do of Tq rows, k
+# and v of Tk rows, all of one dtype (bf16, fp16 or fp32). lse and di are
+# fp32 [B, H, Tq], contiguous. Causal is the library kernel's rule, key <=
+# query by absolute index (``_causal_mask``). The backward takes lse and di
+# from outside: under a global lse, as ring attention's per-block backward
+# needs, it is the same kernel. The kernels are built for the head dims of
+# FLASH_HEAD_DIMS; any other D <= 128 is zero-padded to the next of them
+# (zero columns change neither q kᵀ nor the softmax, and the padded columns
+# of o, dq, dk and dv come out 0) and the outputs are views sliced back to
+# D. A head dim above 128 raises (ROADMAP C3: no model the repo ships has
+# one).
 
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 128)      # the head dims the kernels are built for
+_FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
@@ -416,41 +428,72 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
     return flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale), dk, dv
 
 
+def _flash_dim(d: int) -> int:
+    """The built head dim that a head dim of ``d`` runs at."""
+    for built in FLASH_HEAD_DIMS:
+        if d <= built:
+            return built
+    raise ValueError(
+        f"flash attention on CUDA takes head dims up to "
+        f"{FLASH_HEAD_DIMS[-1]}; got {d} (ROADMAP C3: a larger instance "
+        "needs more registers than the kernels' consumers hold)")
+
+
 def flash_strides_ok(t: torch.Tensor) -> bool:
     """Whether the CUDA kernels take ``t``'s memory as it is: a contiguous
     head dim, B/H/T strides that are multiples of 8 elements and 16-byte
-    aligned data."""
+    aligned data. A tensor whose head dim is padded is copied anyway."""
+    if t.shape[-1] not in FLASH_HEAD_DIMS:
+        return True
     return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
 
 
-def _check_flash(named, shape=None, device=None):
-    """Raise on what the CUDA kernels do not take; return (B, H, T, D)."""
+def _check_flash(named):
+    """Raise on what the CUDA kernels do not take: tensors on one CUDA
+    device, of one of the kernels' dtypes, 4-d with one B, H and D (D at
+    most 128), in memory the kernels take unless D is padded. Returns
+    (dtype code, device, the built head dim)."""
+    device = dtype = dims = None
     for name, t in named:
         if t.device.type != "cuda" or (device is not None
                                        and t.device != device):
             raise ValueError(f"flash attention: {name} is on {t.device}, "
                              f"expected {device or 'a CUDA device'}")
         device = t.device
-        if t.dtype != torch.bfloat16:
+        if t.dtype not in _FLASH_DTYPES or (dtype is not None
+                                            and t.dtype != dtype):
             raise ValueError(
-                f"flash attention on CUDA takes bfloat16; {name} is "
-                f"{t.dtype} (other dtypes are not ported: ROADMAP B2)")
-        if t.dim() != 4 or (shape is not None and t.shape != shape):
+                f"flash attention on CUDA takes bfloat16, float16 or "
+                f"float32 inputs of one dtype; {name} is {t.dtype}"
+                + (f" beside {dtype}" if dtype is not None else ""))
+        dtype = t.dtype
+        if t.dim() != 4 or (dims is not None and (t.shape[0], t.shape[1],
+                                                  t.shape[3]) != dims):
             raise ValueError(f"flash attention: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape or '4-d'}")
-        shape = t.shape
-        if shape[-1] not in FLASH_HEAD_DIMS:
-            raise ValueError(
-                f"flash attention on CUDA takes head dim in "
-                f"{FLASH_HEAD_DIMS}; {name} has {shape[-1]} (other head "
-                "dims are not ported: ROADMAP B2)")
+                             f"{tuple(t.shape)}; expected [B, H, T, D] "
+                             "with the B, H and D of the others")
+        dims = (t.shape[0], t.shape[1], t.shape[3])
+        _flash_dim(t.shape[-1])
         if not flash_strides_ok(t):
             raise ValueError(
                 f"flash attention: {name} needs a contiguous head dim, B/H/T "
                 f"strides that are multiples of 8 and 16-byte aligned data; "
                 f"got strides {t.stride()}")
-    return tuple(shape), device
+    return _FLASH_DTYPES[dtype], device, _flash_dim(dims[2])
+
+
+def _same_rows(a, b, names):
+    if a.shape != b.shape:
+        raise ValueError(f"flash attention: {names[0]} {tuple(a.shape)} and "
+                         f"{names[1]} {tuple(b.shape)} differ")
+
+
+def _padded(d: int, *ts):
+    """``ts`` with their head dim zero-padded to ``d`` (as they are if it
+    is theirs)."""
+    return [t if t.shape[-1] == d else
+            torch.nn.functional.pad(t, (0, d - t.shape[-1])) for t in ts]
 
 
 def _check_stats(named, bht, device):
@@ -466,33 +509,47 @@ def _strides(*ts) -> ctypes.Array:
         *[s for t in ts for s in t.stride()[:3]])
 
 
+def _launched(fn, code: int):
+    """One launch of ``fn``'s kernel; fp32 inputs (``flash_attn.cu``'s tf32
+    family, a kernel of its own) are also counted in ``tf32_launches``."""
+    fn.launches += 1
+    if code == _FLASH_DTYPES[torch.float32]:
+        fn.tf32_launches += 1
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """(o, lse) of attention on [B, H, T, D] views; o is laid out as q."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, scale)
-    (b, h, t, d), device = _check_flash((("q", q), ("k", k), ("v", v)))
+    code, device, dp = _check_flash((("q", q), ("k", k), ("v", v)))
+    _same_rows(k, v, ("k", "v"))
+    (b, h, tq, d), tk = q.shape, k.shape[2]
+    q, k, v = _padded(dp, q, k, v)
     o = torch.empty_like(q)
-    lse = torch.empty(b, h, t, dtype=torch.float32, device=device)
+    lse = torch.empty(b, h, tq, dtype=torch.float32, device=device)
     _check(_lib().hvd_flash_fwd(
-        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _strides(q, k, v, o), b, h, t, d, int(causal),
-        scale, _stream(device)), "flash_fwd")
-    flash_fwd.launches += 1
-    return o, lse
+        device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o), b, h, tq, tk, dp,
+        int(causal), scale, _stream(device)), "flash_fwd")
+    _launched(flash_fwd, code)
+    return o[..., :d], lse
 
 
-flash_fwd.launches = 0
+flash_fwd.launches = flash_fwd.tf32_launches = 0
 
 
 def flash_bwd_pre(o, do):
     """di = rowsum(do ∘ o), fp32 [B, H, T]."""
     if o.device.type == "cpu":
         return flash_bwd_pre_plain(o, do)
-    (b, h, t, d), device = _check_flash((("o", o), ("do", do)))
+    code, device, dp = _check_flash((("o", o), ("do", do)))
+    _same_rows(o, do, ("o", "do"))
+    b, h, t, _ = o.shape
+    o, do = _padded(dp, o, do)
     di = torch.empty(b, h, t, dtype=torch.float32, device=device)
     _check(_lib().hvd_flash_bwd_pre(
-        device.index, o.data_ptr(), do.data_ptr(), di.data_ptr(),
-        _strides(o, do), b, h, t, d, _stream(device)), "flash_bwd_pre")
+        device.index, code, o.data_ptr(), do.data_ptr(), di.data_ptr(),
+        _strides(o, do), b, h, t, dp, _stream(device)), "flash_bwd_pre")
     flash_bwd_pre.launches += 1
     return di
 
@@ -500,44 +557,55 @@ def flash_bwd_pre(o, do):
 flash_bwd_pre.launches = 0
 
 
+def _bwd_inputs(q, k, v, do):
+    """Checks the backward's inputs; returns (dtype code, device, built
+    head dim, (B, H, Tq, Tk, D))."""
+    code, device, dp = _check_flash(
+        (("q", q), ("k", k), ("v", v), ("do", do)))
+    _same_rows(k, v, ("k", "v"))
+    _same_rows(q, do, ("q", "do"))
+    (b, h, tq, d), tk = q.shape, k.shape[2]
+    return code, device, dp, (b, h, tq, tk, d)
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
     """(dk, dv) under the given lse and di; laid out as k and v."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
-    (b, h, t, d), device = _check_flash(
-        (("q", q), ("k", k), ("v", v), ("do", do)))
-    _check_stats((("lse", lse), ("di", di)), (b, h, t), device)
+    code, device, dp, (b, h, tq, tk, d) = _bwd_inputs(q, k, v, do)
+    _check_stats((("lse", lse), ("di", di)), (b, h, tq), device)
+    q, k, v, do = _padded(dp, q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _check(_lib().hvd_flash_bwd_dkdv(
-        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, t, d,
+        dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, tq, tk, dp,
         int(causal), scale, _stream(device)), "flash_bwd_dkdv")
-    flash_bwd_dkdv.launches += 1
-    return dk, dv
+    _launched(flash_bwd_dkdv, code)
+    return dk[..., :d], dv[..., :d]
 
 
-flash_bwd_dkdv.launches = 0
+flash_bwd_dkdv.launches = flash_bwd_dkdv.tf32_launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
     """dq under the given lse and di; laid out as q."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
-    (b, h, t, d), device = _check_flash(
-        (("q", q), ("k", k), ("v", v), ("do", do)))
-    _check_stats((("lse", lse), ("di", di)), (b, h, t), device)
+    code, device, dp, (b, h, tq, tk, d) = _bwd_inputs(q, k, v, do)
+    _check_stats((("lse", lse), ("di", di)), (b, h, tq), device)
+    q, k, v, do = _padded(dp, q, k, v, do)
     dq = torch.empty_like(q)
     _check(_lib().hvd_flash_bwd_dq(
-        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, do, dq), b, h, t, d, int(causal), scale,
+        _strides(q, k, v, do, dq), b, h, tq, tk, dp, int(causal), scale,
         _stream(device)), "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
-    return dq
+    _launched(flash_bwd_dq, code)
+    return dq[..., :d]
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.tf32_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +618,8 @@ flash_bwd_dq.launches = 0
 # output normalised within the block and its lse, both fp32, for the ring's
 # fp32 merge; the backward gives fp32 (dq, dk, dv) under the ring's GLOBAL
 # lse and di, which the ring adds up over its hops. K6's kernels with fp32
-# stores; lse and di may be strided [B, H, S] views (the zig-zag halves).
+# stores (for every input dtype and head dim K6 takes); lse and di may be
+# strided [B, H, S] views (the zig-zag halves).
 
 NEG_INF = -1e30   # the lse of a row that sees no key: finite, so merges stay
 
@@ -617,10 +686,10 @@ def _check_seg_stats(named, bhs, device):
                              f"view on {device} with a unit last stride")
 
 
-def _seg_strides(bf16s, f32s, stats) -> ctypes.Array:
+def _seg_strides(ins, outs, stats) -> ctypes.Array:
     """The strides the C entry points take: B, H and T of each [B, H, S, D]
     tensor, then B and H of each [B, H, S] statistic."""
-    vals = [s for t in bf16s + f32s for s in t.stride()[:3]]
+    vals = [s for t in ins + outs for s in t.stride()[:3]]
     vals += [s for t in stats for s in t.stride()[:2]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
@@ -630,73 +699,96 @@ def _seg_out(q):
     return torch.empty(b, h, s, d, dtype=torch.float32, device=q.device)
 
 
+def _seg_inputs(q, k, v, do=None):
+    """Checks a segment's inputs: K6's checks, and q and k/v of one
+    length. Returns (dtype code, device, built head dim, (B, H, S, D))."""
+    named = (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None
+                                              else ())
+    code, device, dp = _check_flash(named)
+    for name, t in named[1:]:
+        _same_rows(q, t, ("q", name))
+    return code, device, dp, tuple(q.shape)
+
+
 def flash_seg_fwd(q, k, v, causal: bool, scale: float):
     """(o fp32 [B, H, S, D], lse fp32 [B, H, S]) of one ring segment."""
     if q.device.type == "cpu":
         return flash_seg_fwd_plain(q, k, v, causal, scale)
-    (b, h, s, d), device = _check_flash((("q", q), ("k", k), ("v", v)))
+    code, device, dp, (b, h, s, d) = _seg_inputs(q, k, v)
+    q, k, v = _padded(dp, q, k, v)
     o = _seg_out(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=device)
     _check(_lib().hvd_flash_seg_fwd(
-        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _seg_strides([q, k, v], [o], [lse]), b, h, s, d,
-        int(causal), scale, _stream(device)), "flash_seg_fwd")
-    flash_seg_fwd.launches += 1
-    return o, lse
+        device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), _seg_strides([q, k, v], [o], [lse]), b,
+        h, s, s, dp, int(causal), scale, _stream(device)), "flash_seg_fwd")
+    _launched(flash_seg_fwd, code)
+    return o[..., :d], lse
 
 
-flash_seg_fwd.launches = 0
+flash_seg_fwd.launches = flash_seg_fwd.tf32_launches = 0
 
 
 def flash_seg_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
     """fp32 (dk, dv) of one ring segment under the global lse and di."""
     if q.device.type == "cpu":
         return flash_seg_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
-    (b, h, s, d), device = _check_flash(
-        (("q", q), ("k", k), ("v", v), ("do", do)))
+    code, device, dp, (b, h, s, d) = _seg_inputs(q, k, v, do)
     _check_seg_stats((("lse", lse), ("di", di)), (b, h, s), device)
+    q, k, v, do = _padded(dp, q, k, v, do)
     dk, dv = _seg_out(k), _seg_out(v)
     _check(_lib().hvd_flash_seg_bwd_dkdv(
-        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _seg_strides([q, k, v, do], [dk, dv], [lse, di]), b,
-        h, s, d, int(causal), scale, _stream(device)), "flash_seg_bwd_dkdv")
-    flash_seg_bwd_dkdv.launches += 1
-    return dk, dv
+        h, s, s, dp, int(causal), scale, _stream(device)),
+        "flash_seg_bwd_dkdv")
+    _launched(flash_seg_bwd_dkdv, code)
+    return dk[..., :d], dv[..., :d]
 
 
-flash_seg_bwd_dkdv.launches = 0
+flash_seg_bwd_dkdv.launches = flash_seg_bwd_dkdv.tf32_launches = 0
 
 
 def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
     """fp32 dq of one ring segment under the global lse and di."""
     if q.device.type == "cpu":
         return flash_seg_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
-    (b, h, s, d), device = _check_flash(
-        (("q", q), ("k", k), ("v", v), ("do", do)))
+    code, device, dp, (b, h, s, d) = _seg_inputs(q, k, v, do)
     _check_seg_stats((("lse", lse), ("di", di)), (b, h, s), device)
+    q, k, v, do = _padded(dp, q, k, v, do)
     dq = _seg_out(q)
     _check(_lib().hvd_flash_seg_bwd_dq(
-        device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, d,
+        _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, s, dp,
         int(causal), scale, _stream(device)), "flash_seg_bwd_dq")
-    flash_seg_bwd_dq.launches += 1
-    return dq
+    _launched(flash_seg_bwd_dq, code)
+    return dq[..., :d]
 
 
-flash_seg_bwd_dq.launches = 0
+flash_seg_bwd_dq.launches = flash_seg_bwd_dq.tf32_launches = 0
 
 
 KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
            flash_fwd, flash_bwd_pre, flash_bwd_dkdv, flash_bwd_dq,
            flash_seg_fwd, flash_seg_bwd_dkdv, flash_seg_bwd_dq)
+# wrappers whose fp32 inputs launch a kernel of their own (the tf32 family)
+TF32_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
+                flash_seg_bwd_dkdv, flash_seg_bwd_dq)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    for k in TF32_KERNELS:
+        k.tf32_launches = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Launches by wrapper (every dtype), and ``<wrapper>_tf32``: those of
+    the tf32 family alone."""
+    counts = {k.__name__: k.launches for k in KERNELS}
+    counts.update({f"{k.__name__}_tf32": k.tf32_launches
+                   for k in TF32_KERNELS})
+    return counts

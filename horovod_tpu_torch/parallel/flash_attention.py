@@ -3,14 +3,17 @@
 The port's counterpart of ``horovod_tpu/parallel/flash_attention.py``
 (:189-228): :func:`flash_attention_local` computes causal or full softmax
 attention with scale 1/sqrt(D) through kernel K6 (the online-softmax
-forward on TMA and wgmma, ``csrc/flash_fwd_sm90.cu``, and a backward of
-three launches under the saved lse, ``csrc/flash_attn.cu``). On a CUDA
-tensor it always launches K6, for any sequence length T >= 1, in both
-layouts; it raises for what K6 does not take (a dtype other than bfloat16,
-a head dim other than 64 or 128). On a CPU tensor it runs
-K6's plain PyTorch versions, which agree with
-:func:`horovod_tpu_torch.parallel.ring_attention.local_attention`, the
-reference's CPU path.
+forward, ``csrc/flash_fwd_sm90.cu``, and a backward of three launches
+under the saved lse, ``csrc/flash_bwd_sm90.cu``: TMA and wgmma for bf16
+and fp16; ``csrc/flash_attn.cu``'s tf32 kernels for fp32). On a CUDA
+tensor it always launches K6, in both layouts, for what the reference
+computes: bf16, fp16 or fp32 inputs, any head dim up to 128 (the kernels
+are built for 64 and 128 and pad the others with zeros), and q and k/v of
+any lengths >= 1, different ones included (causal: key <= query by
+absolute index, the library kernel's rule). A head dim above 128 raises
+(ROADMAP C3). On a CPU tensor it runs K6's plain PyTorch versions, which
+agree with :func:`horovod_tpu_torch.parallel.ring_attention.local_attention`,
+the reference's CPU path.
 
 Three rules of the reference do not carry over, because they are rules of
 the TPU and its kernels, not of the function:

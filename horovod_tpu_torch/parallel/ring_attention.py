@@ -19,7 +19,8 @@ Each (q block, kv block) interaction is FULL (every key visible), DIAG
 (the aligned causal diagonal) or EMPTY. Ranks and owners are known on the
 host, so the kind is a Python branch: an EMPTY segment launches nothing.
 FULL and DIAG run kernel K7 (``csrc/flash_fwd_sm90.cu`` and
-``csrc/flash_attn.cu``, fp32 outputs) through
+``csrc/flash_bwd_sm90.cu``, or ``csrc/flash_attn.cu`` for fp32 inputs; fp32
+outputs, any dtype and head dim that K6 takes) through
 :mod:`horovod_tpu_torch.ops.kernels`, or its plain versions on the CPU.
 
 Zig-zag layout (``layout="zigzag"``): the sequence is cut into 2n stripes

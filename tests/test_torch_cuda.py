@@ -17,14 +17,20 @@ Without a GPU every test skips. Tolerances: the BN statistics are fp32 sums
 of the same values in another order; a thread of the kernel sums up to a few
 thousand terms in sequence, so they agree within 1e-4 of sum |terms|. The
 pack is a copy and must be bitwise. The flash-attention kernels are held to
-an fp32 computation from the same bf16 inputs: their error may be twice the
-bf16 plain version's, plus 1e-3 of the largest entry (see
-``_assert_flash_close``). K4's triple is an fp32 sum in another order
+an fp32 computation from the same bf16 or fp16 inputs: their error may be
+twice the plain version's in the input dtype, plus 1e-3 of the largest
+entry (see ``_assert_flash_close``); with fp32 inputs they run on tf32
+tensor cores (operands keep 10 mantissa bits, unit roundoff 2^-11), and
+their error may be twice the plain version's in tf32 (``_plain_matmuls``),
+plus 2^-12 of the largest entry (``TF32_FLOOR``); a whole attention path in
+fp32 on the card is held to the CPU's within 1e-2 of the largest entry
+(``TF32_PATH_TOL``). K4's triple is an fp32 sum in another order
 than a float64 one: within 1e-5 of sum |terms|; K5's output within twice
 the plain version's error against float64, plus the dtype's epsilon and
 1e-6 of the largest entry (see ``test_cuda_adasum_kernels_match_plain``).
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -169,14 +175,50 @@ def test_cuda_grouped_allreduce_through_the_pack_kernel(cuda, monkeypatch):
         hvd.shutdown()
 
 
-def _flash_inputs(dev, b, h, t, d, layout, seed=0):
-    """bf16 q, k, v, do as [B, H, T, D] views of tensors laid out as
-    ``layout`` (a "bthk" tensor is passed transposed, with its strides)."""
+def _flash_inputs(dev, b, h, t, d, layout, seed=0, dtype=torch.bfloat16,
+                  tk=None):
+    """q, k, v, do of ``dtype`` as [B, H, T, D] views of tensors laid out as
+    ``layout`` (a "bthk" tensor is passed transposed, with its strides); q
+    and do have t rows, k and v tk (default t)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (b, t, h, d) if layout == "bthk" else (b, h, t, d)
-    ts = [torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
-          for _ in range(4)]
-    return [x.transpose(1, 2) for x in ts] if layout == "bthk" else ts
+    ts = []
+    for rows in (t, tk or t, tk or t, t):
+        shape = (b, rows, h, d) if layout == "bthk" else (b, h, rows, d)
+        x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        ts.append(x.transpose(1, 2) if layout == "bthk" else x)
+    return ts
+
+
+# fp32 inputs run on tf32 tensor cores: operands keep 10 mantissa bits (unit
+# roundoff 2^-11). A kernel's error may be twice the plain version's in
+# tf32, plus this share of the largest entry (half tf32's roundoff, as the
+# 16-bit limit's 1e-3 is about half of bf16's 2^-9)
+TF32_FLOOR = 2.0 ** -12
+# a whole attention path in fp32 on the card against the CPU's fp32
+TF32_PATH_TOL = 1e-2
+
+
+def _tf32(x):
+    """fp32 ``x`` rounded to tf32: 10 mantissa bits, to nearest with ties
+    away from zero (the kernels' cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+class _Tf32Matmuls(torch.overrides.TorchFunctionMode):
+    """torch.matmul with both operands rounded to tf32 and fp32 sums: every
+    product rounded where the tf32 kernels round it, whatever kernel cuBLAS
+    picks (with tf32 allowed it still runs head dim 16 in fp32)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.matmul:
+            args = tuple(_tf32(a) for a in args)
+        return func(*args, **(kwargs or {}))
+
+
+def _plain_matmuls(dtype):
+    """The context in which the plain versions run in the input dtype."""
+    return (_Tf32Matmuls() if dtype == torch.float32
+            else contextlib.nullcontext())
 
 
 def _assert_flash_close(name, got, want32, plain):
@@ -238,16 +280,108 @@ def test_cuda_flash_kernels_match_plain(cuda, d, causal, t, layout):
 
 
 def test_cuda_flash_rejects_what_it_does_not_take(cuda):
+    """A head dim above 128 (ROADMAP C3), mixed dtypes and float64 raise;
+    every dtype, head dim and length pair the reference computes runs (the
+    next test)."""
     q, k, v, _ = _flash_inputs(cuda, 1, 2, 64, 64, "bhtk")
-    with pytest.raises(ValueError, match="bfloat16"):
-        K.flash_fwd(q.float(), k.float(), v.float(), True, 0.125)
-    q96 = torch.zeros(1, 2, 64, 96, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        K.flash_fwd(q96, q96, q96, True, 0.1)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_local(q96, q96, q96, layout="bhtk")
-    with pytest.raises(ValueError, match="bfloat16"):
-        flash_attention_local(q.float(), k.float(), v.float(), layout="bhtk")
+    with pytest.raises(ValueError, match="one dtype"):
+        K.flash_fwd(q, k.float(), v, True, 0.125)
+    with pytest.raises(ValueError, match="float32"):
+        K.flash_fwd(q.double(), k.double(), v.double(), True, 0.125)
+    q192 = torch.zeros(1, 2, 64, 192, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        K.flash_fwd(q192, q192, q192, True, 0.1)
+    with pytest.raises(ValueError, match="ROADMAP C3"):
+        flash_attention_local(q192, q192, q192, layout="bhtk")
+
+
+# (dtype, head dim, Tq, Tk): fp16 and fp32 inputs, head dims the kernels pad
+# (ViT_Tiny's 16, 32, 80, 96), and q and k/v of different lengths
+FLASH_CASES = [
+    (torch.float16, 128, 257, 257), (torch.float16, 64, 200, 200),
+    (torch.float32, 64, 200, 200), (torch.float32, 128, 129, 129),
+    (torch.bfloat16, 16, 65, 65), (torch.bfloat16, 32, 130, 130),
+    (torch.bfloat16, 80, 127, 127), (torch.float16, 96, 100, 100),
+    (torch.float32, 16, 65, 65),
+    (torch.bfloat16, 64, 96, 160), (torch.bfloat16, 128, 160, 96),
+    (torch.float16, 64, 1, 129), (torch.float32, 64, 96, 160),
+    (torch.float32, 80, 200, 70),
+]
+
+
+def _check_flash_case(got, want32, plain, name, dtype):
+    """``plain`` is the plain version in the input dtype (for fp32, in
+    tf32: ``_plain_matmuls``)."""
+    if dtype == torch.float32:
+        err = float((got.float() - want32).abs().max())
+        base = float((plain.float() - want32).abs().max())
+        bound = (2 * base + TF32_FLOOR * float(want32.abs().max()) + 1e-5)
+        assert err <= bound, f"{name}: error {err:.3g} > {bound:.3g}"
+    else:
+        _assert_flash_close(name, got, want32, plain)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,d,tq,tk", FLASH_CASES)
+def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
+                                                      causal):
+    """K6 against its plain versions for every input the reference's
+    flash_attention_local computes: fp16 and fp32, head dims the kernels
+    pad, and Tq != Tk (causal: key <= query by absolute index); outputs in
+    the input dtype, sliced back to the head dim, one launch each."""
+    q, k, v, do = _flash_inputs(cuda, 2, 3, tq, d, "bthk", dtype=dtype,
+                                tk=tk)
+    scale = d ** -0.5
+    f32 = [x.float() for x in (q, k, v, do)]
+    o32, lse32 = K.flash_attention_fwd_plain(*f32[:3], causal, scale)
+    dq32, dk32, dv32 = K.flash_attention_bwd_plain(
+        *f32[:3], o32, lse32, f32[3], causal, scale)
+    with _plain_matmuls(dtype):
+        ob, lseb = K.flash_attention_fwd_plain(q, k, v, causal, scale)
+        dqb, dkb, dvb = K.flash_attention_bwd_plain(q, k, v, ob, lseb, do,
+                                                    causal, scale)
+    n0 = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, causal, scale)
+    di = K.flash_bwd_pre(o, do)
+    dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale)
+    dq = K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
+                 "flash_bwd_dq"):
+        assert n1[name] == n0[name] + 1
+    for got, like in ((o, q), (dq, q), (dk, k), (dv, v)):
+        assert got.dtype == dtype and got.shape == like.shape
+    for name, got, want, plain in (("o", o, o32, ob),
+                                   ("lse", lse, lse32, lseb),
+                                   ("dq", dq, dq32, dqb),
+                                   ("dk", dk, dk32, dkb),
+                                   ("dv", dv, dv32, dvb)):
+        assert bool(torch.isfinite(got).all()), name
+        _check_flash_case(got, want, plain, name, dtype)
+    torch.testing.assert_close(di, K.flash_bwd_pre_plain(o, do), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_backward_repeats_bitwise(cuda, dtype, causal):
+    """The Hopper backward gives the same bits from run to run and on
+    strided views as on contiguous copies (no atomics; the arithmetic
+    never sees the strides)."""
+    q, k, v, do = _flash_inputs(cuda, 2, 4, 300, 128, "bthk", seed=4,
+                                dtype=dtype)
+    o, lse = K.flash_fwd(q, k, v, causal, 128 ** -0.5)
+    di = K.flash_bwd_pre(o, do)
+    args = (lse, di, causal, 128 ** -0.5)
+    first = (*K.flash_bwd_dkdv(q, k, v, do, *args),
+             K.flash_bwd_dq(q, k, v, do, *args))
+    again = (*K.flash_bwd_dkdv(q, k, v, do, *args),
+             K.flash_bwd_dq(q, k, v, do, *args))
+    cont = [x.contiguous() for x in (q, k, v, do)]
+    copies = (*K.flash_bwd_dkdv(*cont, *args), K.flash_bwd_dq(*cont, *args))
+    for a, b, c in zip(first, again, copies):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 @pytest.mark.parametrize("layout", ["bthk", "bhtk"])
@@ -308,6 +442,88 @@ def test_cuda_transformer_trains_through_the_flash_kernels(cuda):
     for name in ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
                  "flash_bwd_dq"):
         assert counts[name] == 2 * 3, (name, counts)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype,n_heads", [(torch.float32, 4),
+                                           (torch.float16, 2),
+                                           (torch.bfloat16, 8)])
+def test_cuda_transformer_of_any_dtype_and_head_dim_trains(cuda, dtype,
+                                                           n_heads):
+    """TransformerConfig(attention="flash") in fp32 (head dim 64), fp16
+    (128) and bf16 with head dim 32 (padded): the flash kernels run, the
+    loss is finite and falls."""
+    cfg = TransformerConfig(vocab_size=256, d_model=256, n_heads=n_heads,
+                            n_layers=2, d_ff=512, max_seq=128, dtype=dtype,
+                            attention="flash")
+    model = Transformer(cfg).to(cuda)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, 256, (2, 129), device=cuda, generator=gen)
+    K.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = lean_lm_loss(model, tokens[:, :-1], tokens[:, 1:])
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    counts = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert counts[name] == 2 * 3, (name, counts)
+        assert counts[f"{name}_tf32"] == (6 if dtype == torch.float32
+                                          else 0)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.float16, 128),
+                                     (torch.bfloat16, 16)])
+def test_cuda_flash_attention_local_autograd_dtypes(cuda, dtype, d):
+    """flash_attention_local on the card against its plain path on the CPU
+    for fp32, fp16 and a padded head dim, causal, one launch of each
+    kernel a forward and backward."""
+    q, k, v, do = _flash_inputs(cuda, 2, 2, 150, d, "bhtk", seed=6,
+                                dtype=dtype)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        ins = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        n0 = K.launch_counts()
+        out = flash_attention_local(*ins, causal=True, layout="bhtk")
+        out.backward(do.to(dev))
+        outs[dev] = [out.detach().float().cpu()] + [
+            x.grad.float().cpu() for x in ins]
+        n1 = K.launch_counts()
+        assert all(n1[name] - n0[name] == (dev == "cuda")
+                   for name in ("flash_fwd", "flash_bwd_pre",
+                                "flash_bwd_dkdv", "flash_bwd_dq"))
+    tol = TF32_PATH_TOL if dtype == torch.float32 else 2e-2
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=tol,
+                                   atol=tol * float(a.abs().max()))
+
+
+def test_cuda_vit_tiny_trains_through_the_flash_kernels(cuda):
+    """ViT_Tiny (head dim 16, padded to 64 on the card) in fp32: the
+    kernels run, the loss is finite and falls."""
+    from horovod_tpu_torch.models.vit import ViT_Tiny
+    model = ViT_Tiny(num_classes=10, dtype=torch.float32,
+                     image_size=32).to(cuda)
+    opt = torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(8, 32, 32, 3, device=cuda, generator=gen)
+    y = torch.randint(0, 10, (8,), device=cuda, generator=gen)
+    K.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(model(x).float(), y)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    layers = len(model.blocks)
+    assert K.launch_counts()["flash_fwd"] == 3 * layers
+    assert K.launch_counts()["flash_bwd_dq"] == 3 * layers
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
@@ -380,6 +596,48 @@ def test_cuda_seg_kernels_match_plain(cuda, d, s, part):
     assert torch.equal(o2, o) and torch.equal(lse2, lse)
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 128), (torch.float32, 64),
+                                     (torch.bfloat16, 96)])
+@pytest.mark.parametrize("part", ["full", "diag"])
+def test_cuda_seg_kernels_take_every_dtype(cuda, dtype, d, part):
+    """K7 with fp16 and fp32 inputs and a padded head dim, on strided
+    halves: fp32 outputs within K6's limits, the same bits on contiguous
+    copies."""
+    s = 200
+    q, k, v, do = _flash_inputs(cuda, 2, 3, 2 * s, d, "bthk", seed=7,
+                                dtype=dtype)
+    o, lse = K.flash_fwd(q, k, v, True, d ** -0.5)
+    di = K.flash_bwd_pre(o, do)
+    rows_q = slice(s, 2 * s) if part == "full" else slice(0, s)
+    lo = slice(0, s)
+    seg = (q[:, :, rows_q], k[:, :, lo], v[:, :, lo], do[:, :, rows_q],
+           lse[:, :, rows_q], di[:, :, rows_q])
+    causal, scale = part == "diag", d ** -0.5
+    f32 = [x.float() for x in seg]
+    o32, lse32 = K.flash_seg_fwd_plain(*f32[:3], causal, scale)
+    dq32, dk32, dv32 = K.flash_seg_bwd_plain(
+        f32[0], f32[1], f32[2], f32[4], f32[3], f32[5], causal, scale)
+    with _plain_matmuls(dtype):
+        ob, lseb = K.flash_seg_fwd_plain(*seg[:3], causal, scale)
+        dqb, dkb, dvb = K.flash_seg_bwd_plain(seg[0], seg[1], seg[2], seg[4],
+                                              seg[3], seg[5], causal, scale)
+    got = (*K.flash_seg_fwd(*seg[:3], causal, scale),
+           *K.flash_seg_bwd_dkdv(*seg, causal, scale),
+           K.flash_seg_bwd_dq(*seg, causal, scale))
+    torch.cuda.synchronize()
+    for name, g, want, plain in zip(("o", "lse", "dk", "dv", "dq"), got,
+                                    (o32, lse32, dk32, dv32, dq32),
+                                    (ob, lseb, dkb, dvb, dqb)):
+        assert g.dtype == torch.float32
+        _check_flash_case(g, want, plain, name, dtype)
+    cont = [x.contiguous() for x in seg]
+    again = (*K.flash_seg_fwd(*cont[:3], causal, scale),
+             *K.flash_seg_bwd_dkdv(*cont, causal, scale),
+             K.flash_seg_bwd_dq(*cont, causal, scale))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 def test_cuda_k6_keeps_its_bf16_outputs(cuda):
     """K6 and K7 share their kernels; K6's outputs stay bf16, laid out as
     its inputs."""
@@ -435,6 +693,36 @@ def test_cuda_ring_path_matches_flash(cuda, layout):
         err = float((got.float() - want.float()).abs().max())
         base_err = float((wb.float() - w32).abs().max())
         assert err <= 2 * base_err + 1e-3 * float(w32.abs().max())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float32, 64),
+                                     (torch.bfloat16, 32)])
+@pytest.mark.parametrize("path", ["zigzag", "contiguous", "ulysses"])
+def test_cuda_sequence_parallel_paths_take_every_dtype(cuda, dtype, d,
+                                                       path):
+    """The ring (force_ring at n = 1) and Ulysses (n = 1: K6) with fp16,
+    fp32 and a padded head dim: output and gradients of sum(out²) against
+    the plain path on the CPU."""
+    from horovod_tpu_torch.parallel.ring_attention import ring_attention_p
+    from horovod_tpu_torch.parallel.ulysses import ulysses_attention_p
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    base = [(0.5 * torch.randn(2, 128, 4, d, device=cuda, generator=gen))
+            .to(dtype) for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        q, k, v = (x.detach().to(dev).requires_grad_() for x in base)
+        if path == "ulysses":
+            out = ulysses_attention_p(q, k, v, None, 1, causal=True)
+        else:
+            out = ring_attention_p(q, k, v, None, 1, causal=True,
+                                   layout=path, force_ring=True)
+        (out.float() ** 2).sum().backward()
+        outs[dev] = [x.detach().float().cpu()
+                     for x in (out, q.grad, k.grad, v.grad)]
+    tol = TF32_PATH_TOL if dtype == torch.float32 else 2e-2
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=tol,
+                                   atol=tol * float(a.abs().max()))
 
 
 # every distinct gradient size of the flagship LM, and tails

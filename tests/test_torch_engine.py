@@ -130,6 +130,37 @@ def test_average_of_integers_raises(world1):
         hvd.allreduce(ints, op=hvd.Sum, average=True)
 
 
+def test_hierarchical_sum_warns_once_that_it_runs_flat(monkeypatch, caplog):
+    """HOROVOD_HIERARCHICAL_ALLREDUCE with a Sum or Average allreduce: the
+    two-level ladder is not ported (ROADMAP A11), so the allreduce runs
+    flat, with the right result, and says so once per process (the
+    reference's one-time demotion warning); Max and a world without the
+    knob say nothing."""
+    from horovod_tpu_torch.core import engine as engine_mod
+    monkeypatch.setattr(engine_mod, "_warned_demotions", set())
+    for var in ("HOROVOD_TPU_COORDINATOR", "HOROVOD_TPU_NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
+    x = torch.arange(6, dtype=torch.float32)
+    for knob, ops, warnings in (("0", (hvd.Sum, hvd.Average), 0),
+                                ("1", (hvd.Max,), 0),
+                                ("1", (hvd.Sum, hvd.Average, hvd.Sum), 1)):
+        monkeypatch.setenv("HOROVOD_HIERARCHICAL_ALLREDUCE", knob)
+        hvd.init(device="cpu")
+        caplog.clear()
+        try:
+            with caplog.at_level("WARNING", logger="horovod_tpu_torch"):
+                for op in ops:
+                    assert torch.equal(hvd.allreduce(x, op=op), x)
+                    outs = hvd.grouped_allreduce([x, 2 * x], op=op)
+                    assert torch.equal(outs[1], 2 * x)
+        finally:
+            hvd.shutdown()
+        flat = [r for r in caplog.records if "using flat" in r.getMessage()]
+        assert len(flat) == warnings, (knob, ops, caplog.text)
+        if warnings:
+            assert "HOROVOD_HIERARCHICAL_ALLREDUCE" in flat[0].getMessage()
+
+
 def test_uninitialized_use_raises():
     assert not hvd.is_initialized()
     with pytest.raises(ValueError, match="init"):

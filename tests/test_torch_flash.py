@@ -7,7 +7,13 @@ The same numpy inputs go through both packages. On the CPU the reference's
 and the port's runs K6's plain PyTorch versions through its autograd
 function. Tolerances, of each tensor's largest entry: fp32 results agree to
 1e-5 (the same math, summed in another order); bf16 outputs to 2e-2 (both
-sides round p and the output to bf16, at one ulp, 2^-8, apart at most).
+sides round p and the output to bf16, at one ulp, 2^-8, apart at most),
+fp16 outputs to 2e-3 (the same roundings at fp16's ulp, 2^-11). Head dims
+other than 64 and 128 (16, 32, 80, 96) and q and k/v of different lengths
+run the same functions; causal attention with Tq != Tk follows the library
+kernel's rule (key <= query by absolute index), which the reference's CPU
+path cannot express (it builds a (T, T) mask), so it is held against a
+float64 computation of that rule.
 """
 
 import math
@@ -26,7 +32,7 @@ from horovod_tpu_torch.ops import kernels as K
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
 from horovod_tpu_torch.parallel.ring_attention import local_attention
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}
 B, H, D = 2, 3, 16
 
 
@@ -38,13 +44,14 @@ def _close(got, want, rel):
         (np.abs(got - want).max(), scale)
 
 
-def _inputs(t, dtype, seed=0, n=3):
+def _inputs(t, dtype, seed=0, n=3, d=D, tk=None):
     """n [B, T, H, D] arrays with values exact in ``dtype``, as (jax, torch)
-    pairs."""
+    pairs; with ``tk``, the second and third (k and v) have tk rows."""
     rng = np.random.RandomState(seed)
     out = []
-    for _ in range(n):
-        a = jnp.asarray(rng.randn(B, t, H, D), getattr(jnp, dtype))
+    for i in range(n):
+        rows = tk if tk is not None and i in (1, 2) else t
+        a = jnp.asarray(rng.randn(B, rows, H, d), getattr(jnp, dtype))
         out.append((a, torch.tensor(np.asarray(a, np.float32)).to(
             getattr(torch, dtype))))
     return out
@@ -179,3 +186,75 @@ def test_flash_attention_local_rejects_an_unknown_layout():
     x = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="unknown attention layout"):
         flash_attention_local(x, x, x, layout="bkht")
+
+
+def _reference_out_and_grads(q, k, v, do, causal):
+    """The reference's flash_attention_local (its CPU path) and jax.vjp of
+    it, [B, T, H, D] in and out."""
+    out, vjp = jax.vjp(lambda a, b, c: jax_flash_attention_local(
+        a, b, c, causal=causal), q, k, v)
+    return [np.asarray(out, np.float32)] + [np.asarray(g, np.float32)
+                                            for g in vjp(do)]
+
+
+def _port_out_and_grads(q, k, v, do, causal):
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_local(*ins, causal=causal)
+    out.backward(do)
+    return [out.detach()] + [x.grad for x in ins]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 32, 80, 96])
+def test_flash_head_dims_and_dtypes_match_reference(d, causal, dtype):
+    """Head dims that the CUDA kernels pad to 64 or 128, in fp32, fp16 and
+    bf16: output against the reference's, and (fp32) the gradients against
+    jax.vjp of it."""
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(40, dtype, 7, 4, d)
+    want = _reference_out_and_grads(qj, kj, vj, doj, causal)
+    got = _port_out_and_grads(qt, kt, vt, dot, causal)
+    assert got[0].dtype == qt.dtype and tuple(got[0].shape) == want[0].shape
+    _close(got[0].float().numpy(), want[0], TOL[dtype])
+    if dtype == "float32":
+        for g, w in zip(got[1:], want[1:]):
+            _close(g.numpy(), w, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tq,tk", [(96, 160), (160, 96)])
+def test_flash_full_attention_of_different_lengths_matches_reference(
+        tq, tk, dtype):
+    """Non-causal attention of tq queries over tk keys: output against the
+    reference's and (fp32) gradients against jax.vjp of it."""
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(tq, dtype, 8, 4,
+                                                       tk=tk)
+    want = _reference_out_and_grads(qj, kj, vj, doj, False)
+    got = _port_out_and_grads(qt, kt, vt, dot, False)
+    assert tuple(got[0].shape) == (B, tq, H, D)
+    _close(got[0].float().numpy(), want[0], TOL[dtype])
+    if dtype == "float32":
+        for g, w in zip(got[1:], want[1:]):
+            _close(g.numpy(), w, TOL[dtype])
+
+
+@pytest.mark.parametrize("tq,tk", [(96, 160), (160, 96), (5, 33)])
+def test_flash_causal_attention_of_different_lengths_follows_library_rule(
+        tq, tk):
+    """Causal attention of tq queries over tk keys follows the Pallas
+    library kernel's mask, ``col_ids <= row_ids`` by absolute index
+    (jax/experimental/pallas/ops/tpu/flash_attention.py, the causal branch
+    of _flash_attention_kernel): key j is visible to query i iff j <= i.
+    The port's flash_attention_local (K6's plain versions on the CPU) and
+    its gradients against a float64 computation of that rule."""
+    (_, qt), (_, kt), (_, vt), (_, dot) = _inputs(tq, "float32", 9, 4,
+                                                  tk=tk)
+    got = _port_out_and_grads(qt, kt, vt, dot, True)
+    q64, k64, v64 = (x.double().requires_grad_() for x in (qt, kt, vt))
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64) / math.sqrt(D)
+    visible = torch.arange(tk)[None, :] <= torch.arange(tq)[:, None]
+    p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", p, v64)
+    want.backward(dot.double())
+    for g, w in zip(got, (want.detach(), q64.grad, k64.grad, v64.grad)):
+        _close(g.numpy(), w.numpy(), TOL["float32"])

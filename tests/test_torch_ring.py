@@ -8,9 +8,10 @@ world started before the reference compiles so the two overlap.
 Tolerances: fp32 ring and Ulysses outputs and gradients agree to JAX's own
 ring tests' rtol 2e-4, atol 2e-5 (measured near 1e-6: the same math summed
 in another order); the plain segment kernels to 1e-5 of the largest entry
-in fp32, and to 2e-2 in bf16, where the port rounds p and ds to bf16 before
-their products as the kernel does and the reference's chunked version does
-not (one bf16 ulp, 2^-8, of a product's terms).
+in fp32, to 2e-2 in bf16 and to 2e-3 in fp16, where the port rounds p and
+ds to the input dtype before their products as the kernel does and the
+reference's chunked version does not (one ulp of a product's terms: 2^-8 in
+bf16, 2^-11 in fp16).
 """
 
 import math
@@ -31,7 +32,7 @@ from horovod_tpu_torch.parallel.ulysses import ulysses_attention_p
 from torch_worker import RING_CASES, RING_DIMS, World, ring_inputs
 
 RTOL, ATOL = 2e-4, 2e-5
-SEG = {"float32": 1e-5, "bfloat16": 2e-2}
+SEG = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-3}
 WORLD_SIZES = (2, 4)
 
 
@@ -71,7 +72,7 @@ def _seg_inputs(dtype, seed=0, s=24):
         (jnp.asarray(di), torch.tensor(di))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["DIAG", "FULL"])
 def test_seg_forward_plain_matches_reference(causal, dtype):
     ((qj, qt), (kj, kt), (vj, vt), _), _, _ = _seg_inputs(dtype)
@@ -82,7 +83,7 @@ def test_seg_forward_plain_matches_reference(causal, dtype):
     _close(lse.numpy(), np.asarray(lse_ref), 1e-6)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["DIAG", "FULL"])
 def test_seg_backward_plain_matches_reference(causal, dtype):
     ((qj, qt), (kj, kt), (vj, vt), (doj, dot)), (lj, lt), (dj, dt) = \
