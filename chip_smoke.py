@@ -4,14 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``horovod_tpu_torch/csrc`` (printing
-the registers and spill bytes of each attention kernel's instantiations,
-forward and backward, from the build's ``ptxas`` report) and then:
+the registers and spill bytes of each attention and BatchNorm kernel's
+instantiations from the build's ``ptxas`` report; a spill fails the run)
+and then:
 
 1. holds each of K1-K3 against its plain PyTorch version on the card at
-   ResNet-50's shapes (batch 64, 224x224) and times both with CUDA events,
-   K2 beside ``torch.batch_norm_stats`` and K3 beside
-   ``torch.batch_norm_backward_reduce`` (yardsticks only, never on the
-   path);
+   ResNet-50's shapes (batch 64, 224x224) and times both with CUDA events:
+   K2/K3 in both modes (the raw sums, and the module's per-channel math in
+   the epilogue, which the main path launches), each shape's time beside
+   ``torch.batch_norm_stats`` / ``torch.batch_norm_backward_reduce``
+   (yardsticks only, never on the path) and the bound, summed over the
+   step's 53 layers; the measure's own floor (a memset, K2 on a tiny
+   input, the stem layer with and without the flush); K2/K3 on what the
+   TMA route does not take (fp16 C=3,
+   bf16 C=12, one row, an unaligned view); and one ``FusedBatchNorm``
+   layer's kernel launches forward and backward (at most 2 and 4);
 2. drives the main path: ``hvd.init()`` on NCCL, ``ResNet50(fused_bn=True)``
    in bf16, ``broadcast_parameters``, ``DistributedOptimizer(SGD)``, a few
    training steps on a fixed synthetic batch (losses finite and falling);
@@ -23,8 +30,10 @@ forward and backward, from the build's ``ptxas`` report) and then:
    T197 D64, full), a causal T = 1000 tail-tile shape, fp32 inputs (B2 H8
    T1024 D64 causal, and phase 12's ViT_Tiny attention, B32 H4 T65 D16
    full: the tf32 family), ViT_Tiny's head dim 16 in bf16 and head dims 80
-   and 96 (padded to 128), and q and k/v of different lengths, causal and
-   full; and times them beside
+   and 96 (padded to 128), q and k/v of different lengths, causal and
+   full, and head dims above 128 (bf16 B2 H8 T2048 D256 causal, fp16 D160
+   with 1024 queries over 2048 keys, fp32 D256: the mma.sync family in
+   slices of 128 columns); and times them beside
    ``scaled_dot_product_attention``'s forward and backward (a yardstick
    only, never on the path), the forward with its achieved TFLOP/s and its
    share of the bound;
@@ -37,10 +46,11 @@ forward and backward, from the build's ``ptxas`` report) and then:
 8. holds the three K7 ring-segment kernels against their plain versions
    computed in fp32 from the same bf16 inputs, at the zig-zag ring's FULL
    and DIAG half-segments of B1 H16 T8192 D128 (strided lse/di halves),
-   the contiguous n=1 ring's whole segment and a T = 2000, D 64 tail-tile
-   shape, and times them beside SDPA's forward and backward (a yardstick
-   only: with the segment's own lse, SDPA's backward of the same segment,
-   causal or full, computes the same dq, dk and dv), the forward with its
+   the contiguous n=1 ring's whole segment, a T = 2000, D 64 tail-tile
+   shape and a D 256 FULL half-segment (B1 H8 T4096), and times them
+   beside SDPA's forward and backward (a yardstick only: with the
+   segment's own lse, SDPA's backward of the same segment, causal or
+   full, computes the same dq, dk and dv), the forward with its
    achieved TFLOP/s and its share of the bound;
 9. drives ring attention's multi-rank code path on one card
    (``ring_attention_p(..., force_ring=True)``) at bench.py's
@@ -60,16 +70,29 @@ forward and backward, from the build's ``ptxas`` report) and then:
     ``DistributedOptimizer(op=Adasum)``;
 12. trains ViT_Tiny (head dim 16, padded to 64) in fp32 at batch 32, 64 px,
     three SGD-momentum steps, through the tf32 kernels, its first logits
-    against the same model's on the CPU.
+    against the same model's on the CPU;
+13. runs attention above head dim 128 through the entry points a user
+    calls, ``flash_attention_local`` (bf16 B1 T4096 H8 D256 and fp16 B2
+    T1024 H8 D160, causal) and the zig-zag ring (``force_ring=True``, bf16
+    D256), forward and backward, against the plain versions: the wide
+    kernels' path.
+
+Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
+(3 by default): device time by layer, the busy share and the kernel
+launches per step. ``--resnet-only`` runs phase 2 alone and prints its
+img/s, busy share and launches per step as the last line;
+``--package-root DIR`` imports the package from DIR, so one call can
+measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, and 12) and read just after it; every kernel of the path
+each form of 11, 12 and 13) and read just after it; every kernel of the path
 must have launched there (53 BN layers per ResNet step for each BN kernel,
 one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
 68 for the hierarchical one, whose 2 shards a pair halve the work; one of
-each tf32 kernel per layer and step of ViT_Tiny). Any failed check exits
+each tf32 kernel per layer and step of ViT_Tiny; each wide kernel at least
+once in phase 13). Any failed check exits
 non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -100,6 +123,11 @@ TF32_FLOOR = 2.0 ** -12
 # phase 12: ViT_Tiny's logits on the card (tf32 attention) against the CPU's
 TINY_REL_TOL = 1e-2
 BN_REL_TOL = 1e-5              # of sum |terms|: fp32 sums in another order
+# K2/K3's epilogues against the module's math on the kernel's own sums: the
+# same fp32 operations, rsqrt approximated in both, in units of fp32's
+# epsilon times each output row's largest entry
+BN_ULPS = 8
+BN_EPS32 = 2.0 ** -23
 
 # K6 at the main path's attention calls and at what else the reference
 # computes: (what, B, H, Tq, Tk, D, causal, dtype)
@@ -114,9 +142,23 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
                 ("D80", 4, 16, 1024, 1024, 80, True, "bfloat16"),
                 ("D96", 4, 16, 1024, 1024, 96, True, "bfloat16"),
                 ("Tq<Tk causal", 4, 16, 1024, 2048, 128, True, "bfloat16"),
-                ("Tq>Tk full", 4, 16, 2048, 1024, 128, False, "bfloat16"))
+                ("Tq>Tk full", 4, 16, 2048, 1024, 128, False, "bfloat16"),
+                ("D256", 2, 8, 2048, 2048, 256, True, "bfloat16"),
+                ("D160 fp16 Tq<Tk", 2, 8, 1024, 2048, 160, True, "float16"),
+                ("D256 fp32", 2, 4, 512, 512, 256, True, "float32"))
 # the shape whose numbers the tf32 family's rows carry: phase 12's path
 TF32_SHAPE = "ViT_Tiny fp32"
+# the shapes whose numbers the wide (bf16 and fp16 above head dim 128)
+# instances' rows carry, K6 and K7
+WIDE_SHAPE = "D256"
+WIDE_SEG_SHAPE = "D256 half, FULL"
+# phase 13: attention above head dim 128 through the user entry points:
+# (what, path, B, T, H, D, dtype), q, k, v [B, T, H, D], causal
+WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
+              ("zig-zag ring", "zigzag", 1, 4096, 8, 256, "bfloat16"),
+              ("flash_attention_local", "flash", 2, 1024, 8, 160, "float16"))
+WIDE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                "flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
                  "flash_bwd_dq")
 # the flagship LM (bench.py's bench_transformer configuration)
@@ -133,7 +175,8 @@ SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full"),
               ("zigzag half, DIAG", 1, 16, 8192, 128, "diag"),
               ("contiguous n=1, DIAG", 1, 16, 8192, 128, "whole"),
               ("tail tile, FULL", 4, 8, 2000, 64, "full"),
-              ("tail tile, DIAG", 4, 8, 2000, 64, "diag"))
+              ("tail tile, DIAG", 4, 8, 2000, 64, "diag"),
+              ("D256 half, FULL", 1, 8, 4096, 256, "full"))
 SEG_KERNELS = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the ring path on one card: bench.py:bench_sp_ring's shape, B, T, H, D
 RING_SHAPE = (1, 8192, 16, 128)
@@ -195,8 +238,9 @@ def attention_ptxas(build, log):
     """Registers and spill bytes of the attention kernels from the build's
     ptxas report, by row of the ``kernels`` line: {row name: {"registers":
     the most of any instantiation, "spill_bytes": their sum}}. The Hopper
-    kernels with In outputs are K6's rows, with fp32 outputs K7's; the tf32
-    family's rows are ``<name>_tf32``."""
+    kernels with In outputs are K6's rows, with fp32 outputs K7's; the
+    mma.sync family's rows are ``<name>_tf32`` (fp32 inputs, K6 and K7
+    alike) and ``<name>_wide`` (bf16 and fp16 above head dim 128)."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
         "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
@@ -204,30 +248,50 @@ def attention_ptxas(build, log):
                                        "flash_seg_bwd_dkdv"),
         "flash_bwd_dq_sm90_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
         "flash_bwd_pre_kernel": ("flash_bwd_pre", "flash_bwd_pre"),
-        "flash_fwd_tf32_kernel": ("flash_fwd_tf32", "flash_fwd_tf32"),
-        "flash_bwd_dkdv_tf32_kernel": ("flash_bwd_dkdv_tf32",
-                                       "flash_bwd_dkdv_tf32"),
-        "flash_bwd_dq_tf32_kernel": ("flash_bwd_dq_tf32",
-                                     "flash_bwd_dq_tf32"),
+        "flash_fwd_mma_kernel": ("flash_fwd", "flash_seg_fwd"),
+        "flash_bwd_dkdv_mma_kernel": ("flash_bwd_dkdv", "flash_seg_bwd_dkdv"),
+        "flash_bwd_dq_mma_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
     }
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attn"):
         for mangled, r in sorted(build.ptxas_report(stem).items()):
-            # the kernel's name follows its length (the file's does not)
-            m = re.search(r"(?<=\d)(flash_\w+?_kernel)ILi(\d+)E(\w*?)EEv",
-                          mangled)
+            # the kernel's name follows its length (the file's does not);
+            # then the slice or head dim, then In and OutT
+            m = re.search(
+                r"(?<=\d)(flash_\w+?_kernel)I(?:Li(\d+)E)?(\w*?)EEv",
+                mangled)
             check(m is not None and m.group(1) in names and len(r) == 3,
                   f"unexpected ptxas entry {mangled}: {r}")
             kernel, d, types = m.groups()
-            # In then OutT: "S1_" repeats In (K6), "f" is fp32 (K7)
-            k7 = kernel.endswith("sm90_kernel") and types.endswith("f")
+            types = re.sub(r"Lb[01]E$", "", types)   # the family's ONE flag
+            # "S1_" repeats In (K6), a final "f" is fp32 (K7)
+            k7 = types.endswith("f") and not types.startswith("f")
             row = names[kernel][int(k7)]
+            if kernel.endswith("mma_kernel"):
+                row = (f"{names[kernel][0]}_tf32" if types.startswith("f")
+                       else f"{row}_wide")
             spill = r["spill_stores"] + r["spill_loads"]
             entry = rows.setdefault(row, {"registers": 0, "spill_bytes": 0})
             entry["registers"] = max(entry["registers"], r["registers"])
             entry["spill_bytes"] += spill
-            log(f"  {kernel} D{d} {types or 'fp32'}: {r['registers']} "
-                f"registers, {spill} bytes spilled")
+            log(f"  {kernel} {'D' + d + ' ' if d else ''}{types}: "
+                f"{r['registers']} registers, {spill} bytes spilled")
     return rows
+
+
+def bn_ptxas(build, log):
+    """Registers and spill bytes of K2/K3's instantiations (input type,
+    forward or backward, TMA or plain loads) from the build's report:
+    {"registers": the most, "spill_bytes": their sum}."""
+    entry = {"registers": 0, "spill_bytes": 0}
+    for mangled, r in sorted(build.ptxas_report("bn_stats").items()):
+        check("bn_stats_kernel" in mangled and len(r) == 3,
+              f"unexpected ptxas entry {mangled}: {r}")
+        spill = r["spill_stores"] + r["spill_loads"]
+        entry["registers"] = max(entry["registers"], r["registers"])
+        entry["spill_bytes"] += spill
+        log(f"  {mangled}: {r['registers']} registers, {spill} bytes "
+            "spilled")
+    return entry
 
 
 HEAD_START_CYCLES = 2_000_000  # about 1 ms of the card spinning
@@ -259,31 +323,63 @@ def time_ms(torch, fn, flush, reps: int):
             statistics.median(host))
 
 
+def _bn_fwd_epilogue(torch, s, q, m, scale, bias, eps):
+    """The module's forward math (bn_forward_plain) from given sums."""
+    mean = s / m
+    var = torch.clamp(q / m - mean * mean, min=0.0)
+    invstd = torch.rsqrt(var + eps)
+    a = scale * invstd
+    return torch.stack([mean, var, invstd, a, bias - mean * a])
+
+
+def _bn_bwd_epilogue(torch, s1, s2, m, invstd, scale):
+    """The module's backward math (bn_backward_plain) from given sums."""
+    a = scale * invstd
+    return torch.stack([s2, s1, a, -a * (s1 / m), -a * invstd * (s2 / m)])
+
+
+def _bn_ulps(torch, got, want):
+    """The largest difference in fp32 units of each row's largest entry."""
+    unit = BN_EPS32 * want.abs().amax(-1, keepdim=True) + 1e-30
+    return float(((got - want).abs() / unit).max())
+
+
 def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
-    """K2/K3 against their plain versions at every distinct shape; returns
-    the two kernel rows (times summed over the 53 layers of a step)."""
+    """K2/K3 against their plain versions at every distinct shape, in both
+    modes: the raw sums within BN_REL_TOL of sum |terms|, the epilogues
+    (the module's per-channel math, the EMA in place) within BN_ULPS fp32
+    units of that math on the kernel's own sums, two runs bitwise equal.
+    Times the epilogue mode (what the main path launches) and the raw mode
+    beside the plain versions, the library calls and the bound; returns the
+    two kernel rows (times summed over the 53 layers of a step)."""
     counts = {}
     for shape in shapes:
         counts[shape] = counts.get(shape, 0) + 1
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     for name in ("bn_stats", "bn_bwd_stats"):
-        rows[name] = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
-                      "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                      "max_rel_err": 0.0}
+        rows[name] = {"ms": 0.0, "host_ms": 0.0, "raw_ms": 0.0,
+                      "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                      "max_abs_err": 0.0, "max_rel_err": 0.0,
+                      "max_epilogue_ulps": 0.0, "slower_than_library": []}
+    eps, mom = 1e-5, 0.9
     for (m, c), n in counts.items():
         x = torch.randn(m, c, device=dev, generator=gen).to(torch.bfloat16)
         dy = torch.randn(m, c, device=dev, generator=gen).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+        run_mean = torch.zeros(c, device=dev)
+        run_var = torch.ones(c, device=dev)
         s_ref, q_ref = K.bn_stats_plain(x)
         mean = s_ref / m
         invstd = torch.rsqrt(torch.clamp(q_ref / m - mean * mean, min=0)
-                             + 1e-5)
+                             + eps)
         xf, dyf = x.float(), dy.float()
         xh = (xf - mean) * invstd
         # the library yardsticks compute neighbours of K2/K3: mean and
         # invstd instead of the sums; sum dy and sum dy*(x - mean) without
         # K3's invstd factor. They must agree with K2/K3's plain versions.
-        lib_mean, lib_invstd = torch.batch_norm_stats(x, 1e-5)
+        lib_mean, lib_invstd = torch.batch_norm_stats(x, eps)
         lib_dy, lib_dyxmu, _, _ = torch.batch_norm_backward_reduce(
             dy, x, mean, invstd, None, True, False, False)
         s1_ref, s2_ref = K.bn_bwd_stats_plain(dy, x, mean, invstd)
@@ -298,26 +394,46 @@ def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
                   f"library yardstick {what} {(m, c)} disagrees with the "
                   "plain version")
         del lib_mean, lib_invstd, lib_dy, lib_dyxmu
+        # raw sums against the plain versions, the epilogues against the
+        # module's math on the kernel's own sums
+        raw = {"bn_stats": K.bn_stats(x),
+               "bn_bwd_stats": K.bn_bwd_stats(dy, x, mean, invstd)}
+        fwd = K.bn_forward(x, scale, bias, eps)
+        bwd = K.bn_backward(dy, x, mean, invstd, scale)
+        epi_ulps = {
+            "bn_stats": _bn_ulps(torch, fwd, _bn_fwd_epilogue(
+                torch, *raw["bn_stats"], m, scale, bias, eps)),
+            "bn_bwd_stats": _bn_ulps(torch, bwd, _bn_bwd_epilogue(
+                torch, *raw["bn_bwd_stats"], m, invstd, scale))}
+        torch.cuda.synchronize()
+        check(torch.equal(fwd, K.bn_forward(x, scale, bias, eps))
+              and torch.equal(bwd, K.bn_backward(dy, x, mean, invstd, scale)),
+              f"BN epilogues {(m, c)}: two runs differ")
         cases = {
-            "bn_stats": (lambda: K.bn_stats(x), (s_ref, q_ref),
+            "bn_stats": (lambda: K.bn_forward(x, scale, bias, eps, run_mean,
+                                              run_var, mom),
+                         lambda: K.bn_stats(x), (s_ref, q_ref),
                          (xf.abs().sum(0), (xf * xf).sum(0)),
-                         lambda: K.bn_stats_plain(x),
-                         lambda: torch.batch_norm_stats(x, 1e-5),
-                         m * c * 2 + 2 * c * 4, 3 * m * c),
-            "bn_bwd_stats": (lambda: K.bn_bwd_stats(dy, x, mean, invstd),
+                         lambda: K.bn_forward_plain(x, scale, bias, eps,
+                                                    run_mean, run_var, mom),
+                         lambda: torch.batch_norm_stats(x, eps),
+                         m * c * 2 + 11 * c * 4, 3 * m * c),
+            "bn_bwd_stats": (lambda: K.bn_backward(dy, x, mean, invstd,
+                                                   scale),
+                             lambda: K.bn_bwd_stats(dy, x, mean, invstd),
                              (s1_ref, s2_ref),
                              (dyf.abs().sum(0), (dyf * xh).abs().sum(0)),
-                             lambda: K.bn_bwd_stats_plain(dy, x, mean,
-                                                          invstd),
+                             lambda: K.bn_backward_plain(dy, x, mean, invstd,
+                                                         scale),
                              lambda: torch.batch_norm_backward_reduce(
                                  dy, x, mean, invstd, None, True, False,
                                  False),
-                             2 * m * c * 2 + 4 * c * 4, 5 * m * c),
+                             2 * m * c * 2 + 8 * c * 4, 5 * m * c),
         }
-        for name, (kern, ref, mag, plain, library, nbytes,
+        for name, (kern, kern_raw, ref, mag, plain, library, nbytes,
                    flops) in cases.items():
-            got = kern()
-            again = kern()
+            got = raw[name]
+            again = kern_raw()
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {(m, c)}: two runs differ (not deterministic)")
@@ -328,7 +444,11 @@ def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
             check(rel_err <= BN_REL_TOL,
                   f"{name} {(m, c)}: error {rel_err:.3g} of sum|terms| "
                   f"> {BN_REL_TOL}")
+            check(epi_ulps[name] <= BN_ULPS,
+                  f"{name} {(m, c)}: epilogue {epi_ulps[name]:.3g} fp32 "
+                  f"units from the module's math > {BN_ULPS}")
             ms, host_ms = time_ms(torch, kern, flush, reps)
+            raw_ms, _ = time_ms(torch, kern_raw, flush, reps)
             plain_ms, _ = time_ms(torch, plain, flush, reps)
             lib_ms, _ = time_ms(torch, library, flush, reps)
             bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S,
@@ -336,17 +456,135 @@ def check_bn_kernels(torch, K, dev, shapes, flush, reps, log):
             row = rows[name]
             row["ms"] += n * ms
             row["host_ms"] += n * host_ms
+            row["raw_ms"] += n * raw_ms
             row["plain_ms"] += n * plain_ms
             row["library_ms"] += n * lib_ms
             row["bound_ms"] += n * bound_ms
             row["max_abs_err"] = max(row["max_abs_err"], abs_err)
             row["max_rel_err"] = max(row["max_rel_err"], rel_err)
+            row["max_epilogue_ulps"] = max(row["max_epilogue_ulps"],
+                                           epi_ulps[name])
+            if ms > lib_ms:
+                row["slower_than_library"].append([m, c])
             log(f"  {name} M={m} C={c} x{n}: kernel {ms:.4f} ms (host "
-                f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
-                f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms, abs err "
-                f"{abs_err:.3g}, err/sum|terms| {rel_err:.3g}")
+                f"{host_ms:.4f} ms, raw sums {raw_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms, abs err {abs_err:.3g}, err/sum|terms| "
+                f"{rel_err:.3g}, epilogue {epi_ulps[name]:.3g} fp32 units")
         del x, dy, xf, dyf, xh
+    for name, row in rows.items():
+        log(f"  {name} over a step's 53 layers: kernel {row['ms']:.4f} ms "
+            f"(raw sums {row['raw_ms']:.4f} ms, host {row['host_ms']:.4f} "
+            f"ms), library {row['library_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms; slower than the library at "
+            f"{row['slower_than_library'] or 'no shape'}")
     return rows
+
+
+def bn_measure_floor(torch, K, dev, flush, reps, log):
+    """What phase 1's measure costs any call, beside K2's own floor: a
+    16-byte memset and K2 on (64, 64) after the flush, and K2 at the stem
+    layer (103 MB, past the L2) after the flush and after a 16-byte write
+    (the difference is the write-back of the flush's dirty L2 lines); and
+    the card's capacity that K2/K3's plan reads."""
+    tiny = torch.zeros(16, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    small = torch.randn(64, 64, device=dev, generator=gen).bfloat16()
+    stem = torch.randn(802816, 64, device=dev, generator=gen).bfloat16()
+    out = {"memset_ms": time_ms(torch, tiny.zero_, flush, reps)[0],
+           "k2_64x64_ms": time_ms(torch, lambda: K.bn_stats(small), flush,
+                                  reps)[0],
+           "k2_stem_ms": time_ms(torch, lambda: K.bn_stats(stem), flush,
+                                 reps)[0],
+           "k2_stem_unflushed_ms": time_ms(torch, lambda: K.bn_stats(stem),
+                                           tiny, reps)[0],
+           "card": {"k2": K._bn_card(dev.index, 1, False),
+                    "k3": K._bn_card(dev.index, 1, True)}}
+    log(f"  the measure's floor: a 16-byte memset {out['memset_ms']:.4f} ms,"
+        f" K2 on (64, 64) {out['k2_64x64_ms']:.4f} ms; K2 at M=802816 C=64 "
+        f"{out['k2_stem_ms']:.4f} ms after the flush, "
+        f"{out['k2_stem_unflushed_ms']:.4f} ms without; (slots, SMs, "
+        f"largest cluster) of bf16 K2 {out['card']['k2']}, K3 "
+        f"{out['card']['k3']}")
+    return out
+
+
+def check_bn_inputs(torch, K, dev, log):
+    """K2/K3 on what the TMA route does not take and the reference
+    computes: fp16 C = 3, bf16 C = 12, one row, and a view 2 bytes past a
+    16-byte boundary (bitwise equal to its aligned copy), against the plain
+    versions."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    base = torch.randn(3136 * 512 + 1, device=dev, generator=gen)
+    cases = (("fp16 C=3", torch.randn(4096, 3, device=dev, generator=gen)
+              .half()),
+             ("bf16 C=12", torch.randn(1000, 12, device=dev, generator=gen)
+              .bfloat16()),
+             ("fp16 M=1", torch.randn(1, 64, device=dev, generator=gen)
+              .half()),
+             ("unaligned bf16", base.bfloat16()[1:].view(3136, 512)))
+    for what, x in cases:
+        m, c = x.shape
+        dy = torch.randn(m, c, device=dev, generator=gen).to(x.dtype)
+        scale = torch.ones(c, device=dev)
+        s_ref, q_ref = K.bn_stats_plain(x)
+        mean = s_ref / m
+        invstd = torch.rsqrt(torch.clamp(q_ref / m - mean * mean, min=0)
+                             + 1e-5)
+        got = (*K.bn_stats(x), *K.bn_bwd_stats(dy, x, mean, invstd))
+        want = (s_ref, q_ref, *K.bn_bwd_stats_plain(dy, x, mean, invstd))
+        xf, dyf = x.float(), dy.float()
+        terms = (xf, xf * xf, dyf, dyf * (xf - mean) * invstd)
+        err = max(float(((g - w).abs() / (t.abs().sum(0) + 1e-30)).max())
+                  for g, w, t in zip(got, want, terms))
+        fwd = K.bn_forward(x, scale, torch.zeros_like(scale), 1e-5)
+        ulps = _bn_ulps(torch, fwd, _bn_fwd_epilogue(
+            torch, got[0], got[1], m, scale, torch.zeros_like(scale), 1e-5))
+        same = True
+        if x.data_ptr() % 16:
+            xc = x.clone()
+            same = all(torch.equal(a, b) for a, b in
+                       zip(K.bn_stats(x), K.bn_stats(xc)))
+        torch.cuda.synchronize()
+        log(f"  {what} (M={m}, C={c}): err/sum|terms| {err:.3g}, epilogue "
+            f"{ulps:.3g} fp32 units" + ("" if same is True else
+                                        ", aligned copy differs"))
+        check(err <= BN_REL_TOL and ulps <= BN_ULPS and same,
+              f"BN kernels on {what}: error {err:.3g}, {ulps:.3g} units, "
+              f"aligned copy equal: {same}")
+
+
+def bn_module_launches(torch, FusedBatchNorm, dev, log):
+    """The CUDA kernels one FusedBatchNorm layer (bf16, ResNet-50's
+    stage-3 shape at batch 64) issues forward and backward, counted with
+    torch.profiler: at most 2 and 4."""
+    from torch.profiler import ProfilerActivity, profile
+    bn = FusedBatchNorm(256, dtype=torch.bfloat16).to(dev)
+    x = torch.randn(64, 256, 14, 14, device=dev).bfloat16().contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    dy = torch.randn_like(x)
+    bn(x).backward(dy)
+    bn.zero_grad(set_to_none=True)   # as the step's zero_grad: no adds
+    x.grad = None
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    out = {}
+    fwd = kernels(lambda: out.setdefault("y", bn(x)))
+    bwd = kernels(lambda: out["y"].backward(dy))
+    log(f"  FusedBatchNorm launches per layer: forward {len(fwd)}, backward "
+        f"{len(bwd)} ({', '.join(n[:40] for n in fwd + bwd)})")
+    check(1 <= len(fwd) <= 2 and 1 <= len(bwd) <= 4,
+          f"FusedBatchNorm issues {len(fwd)} kernels forward, {len(bwd)} "
+          "backward (at most 2 and 4)")
+    return {"forward": len(fwd), "backward": len(bwd)}
 
 
 def check_pack_kernel(torch, K, bucket_by_size, dev, shapes, flush, reps,
@@ -472,8 +710,9 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
     """K6 against its plain versions at each of FLASH_SHAPES: each output's
     error against the plain version in fp32 (from the same inputs) within
     :func:`flash_limit`. Returns a row per kernel (numbers at the flagship
-    shape, every shape under "shapes"), the tf32 family's rows (numbers at
-    TF32_SHAPE) and a fwd/fwd+bwd summary per shape beside SDPA's."""
+    shape, every shape under "shapes"), the mma.sync family's rows (the
+    tf32 ones at TF32_SHAPE, the wide ones at WIDE_SHAPE) and a
+    fwd/fwd+bwd summary per shape beside SDPA's."""
     import torch.nn.functional as F
     rows = {n: {"shapes": []} for n in FLASH_KERNELS}
     tf32_rows = {}
@@ -594,6 +833,10 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         if what == TF32_SHAPE:
             tf32_rows = {f"{n}_tf32": entries[n] for n in
                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+        if what == WIDE_SHAPE:
+            tf32_rows.update({f"{n}_wide": entries[n] for n in
+                              ("flash_fwd", "flash_bwd_dkdv",
+                               "flash_bwd_dq")})
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
@@ -881,6 +1124,57 @@ def run_ring_path(torch, K, R, fa, dev, log):
                 bound_ms=products_ms + di_ms, products_bound_ms=products_ms,
                 launches_per_call=per_call, max_abs_err_vs_flash=errors,
                 limits=dict(zip(names, limits)))
+
+
+def run_wide_path(torch, K, R, fa, dev, log):
+    """Phase 13: attention above head dim 128 through the entry points a
+    user calls, ``flash_attention_local`` and ``ring_attention_p``
+    (zig-zag, ``force_ring=True``), forward and backward of sum(out²) at
+    each of WIDE_PATHS: each output and gradient within twice the plain
+    version's error in the input dtype plus 1e-3 of the largest entry of
+    the fp32 plain version's. Returns the summary per path."""
+    summary = []
+    for what, path, b, t, h, d, dtype in WIDE_PATHS:
+        dt = getattr(torch, dtype)
+        scale = d ** -0.5
+        gen = torch.Generator(device=dev).manual_seed(8)
+        base = [(torch.randn(b, t, h, d, device=dev, generator=gen) * 0.3)
+                .to(dt) for _ in range(3)]
+        q, k, v = (x.detach().requires_grad_() for x in base)
+        if path == "flash":
+            out = fa.flash_attention_local(q, k, v, causal=True)
+        else:
+            out = R.ring_attention_p(q, k, v, None, 1, causal=True,
+                                     layout=path, force_ring=True)
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        got = [x.transpose(1, 2) for x in (out.detach(), q.grad, k.grad,
+                                            v.grad)]
+        f32 = [x.float().transpose(1, 2) for x in base]
+        o32, lse32 = K.flash_attention_fwd_plain(*f32, True, scale)
+        ref32 = (o32, *K.flash_attention_bwd_plain(*f32, o32, lse32, 2 * o32,
+                                                   True, scale))
+        del f32, lse32
+        lo = [x.transpose(1, 2) for x in base]
+        ob, lseb = K.flash_attention_fwd_plain(*lo, True, scale)
+        refb = (ob, *K.flash_attention_bwd_plain(
+            *lo, ob, lseb, (2 * ob.float()).to(dt), True, scale))
+        errors = {}
+        for name, g, w32, wb in zip(("out", "dq", "dk", "dv"), got, ref32,
+                                    refb):
+            e = float((g.float() - w32).abs().max())
+            lim = (2 * float((wb.float() - w32).abs().max())
+                   + 1e-3 * float(w32.abs().max()))
+            errors[name] = e
+            log(f"  {what} B{b} T{t} H{h} D{d} {dtype} {name}: error {e:.4g}"
+                f" (limit {lim:.4g})")
+            check(bool(torch.isfinite(g).all()) and e <= lim,
+                  f"{what} D{d} {name}: error {e:.4g} > {lim:.4g}")
+        summary.append(dict(what=what, shape=[b, t, h, d], dtype=dtype,
+                            max_abs_err=errors))
+        del q, k, v, out, got, ref32, refb, base, lo, ob, lseb
+        torch.cuda.empty_cache()
+    return summary
 
 
 def adasum_work(n, itemsize):
@@ -1196,7 +1490,7 @@ def train(torch, step, batch, warmup, steps, windows, log):
 KERNEL_GROUPS = (   # kernel-name patterns -> layer of the step, first match
     ("flash-attention kernels (csrc/flash_fwd_sm90.cu, flash_attn.cu)",
      ("flash_",)),
-    ("bn_stats kernels (csrc/bn_stats.cu)", ("bn_partial", "bn_finalize")),
+    ("bn_stats kernels (csrc/bn_stats.cu)", ("bn_stats_kernel",)),
     ("pack kernel (csrc/pack.cu)", ("pack_kernel",)),
     ("convolutions and dense (cuDNN/cuBLAS)",
      ("conv", "gemm", "xmma", "cudnn", "sm90", "cutlass", "dgrad", "wgrad",
@@ -1220,7 +1514,7 @@ def profile_steps(torch, step, n, log):
             step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {}
+    kernels, launches = {}, 0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
         # a user annotation (the optimizer's step range) spans kernels that
@@ -1228,6 +1522,7 @@ def profile_steps(torch, step, n, log):
         if us > 0 and str(ev.device_type).endswith("CUDA") \
                 and not getattr(ev, "is_user_annotation", False):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+            launches += ev.count
     busy = sum(kernels.values())
     check(busy > 0, "the profiler recorded no device time")
     groups = {}
@@ -1237,12 +1532,15 @@ def profile_steps(torch, step, n, log):
                      "other")
         groups[group] = groups.get(group, 0.0) + ms
     log(f"  profile of {n} steps: wall {wall_ms / n:.2f} ms/step, device "
-        f"busy {busy / n:.2f} ms/step ({100 * busy / wall_ms:.1f}%)")
+        f"busy {busy / n:.2f} ms/step ({100 * busy / wall_ms:.1f}%), "
+        f"{launches / n:.1f} kernel launches/step (CUDA kernel events)")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group}: {ms / n:.3f} ms/step ({100 * ms / busy:.1f}% of "
             f"device time)")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    kernel {ms / n:.3f} ms/step  {name[:110]}")
+    return {"wall_ms_per_step": wall_ms / n, "busy_ms_per_step": busy / n,
+            "busy_share": busy / wall_ms, "launches_per_step": launches / n}
 
 
 def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
@@ -1293,6 +1591,38 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
             counts)
 
 
+def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
+    """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
+    kernel launches per step, as a JSON last line (``--resnet-only``; with
+    ``--package-root`` of a parent checkout, its numbers in the same
+    call)."""
+    try:
+        hvd.init()
+        model, step = make_trainer(torch, hvd, ResNet50, dev, args.batch)
+        K.reset_launch_counts()
+        losses, img_s, rates = train(torch, step, args.batch, args.warmup,
+                                     args.steps, args.windows, log)
+        check(all(v == v and abs(v) != float("inf") for v in losses)
+              and losses[-1] < losses[0], "ResNet-50's loss did not fall")
+        prof = profile_steps(torch, step, max(args.profile, 1), log)
+        n_steps = (args.warmup + args.windows * args.steps
+                   + max(args.profile, 1))
+        counts = K.launch_counts()
+        check(counts["bn_stats"] == 53 * n_steps
+              and counts["bn_bwd_stats"] == 53 * n_steps,
+              f"BN kernels launched {counts['bn_stats']} and "
+              f"{counts['bn_bwd_stats']} times, expected {53 * n_steps}")
+    finally:
+        hvd.shutdown()
+    log(f"  {img_s:.1f} img/s (windows: "
+        f"{', '.join(f'{r:.1f}' for r in rates)})")
+    print(smi)
+    print(json.dumps({"resnet_only": dict(img_per_s=img_s,
+                                          img_per_s_windows=rates,
+                                          losses=losses, **prof)}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=64)
@@ -1304,17 +1634,27 @@ def main(argv=None) -> int:
                          "the img/s over all of them)")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed launches per kernel and shape")
-    ap.add_argument("--profile", type=int, default=0, metavar="N",
+    ap.add_argument("--profile", type=int, default=3, metavar="N",
                     help="after the timed steps of ResNet-50 and of the LM, "
                          "trace N more with torch.profiler and print device "
-                         "time by layer")
+                         "time by layer, the busy share and the kernel "
+                         "launches per step")
+    ap.add_argument("--resnet-only", action="store_true",
+                    help="build, then only train and profile ResNet-50 "
+                         "(phase 2) and print its img/s, busy share and "
+                         "launches per step as the last line")
+    ap.add_argument("--package-root", default=None, metavar="DIR",
+                    help="import horovod_tpu_torch from DIR (a parent "
+                         "checkout, measured with --resnet-only in the same "
+                         "call) instead of this script's directory")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.package_root) if args.package_root
+                    else os.path.dirname(os.path.abspath(__file__)))
     # the repo's kernel configuration of the main path: the pack kernel on
     # (read once at init, as in the reference)
     os.environ["HOROVOD_PALLAS_PACK"] = "1"
@@ -1325,6 +1665,7 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.models.vit import ViT_B16, ViT_Tiny
     from horovod_tpu_torch.ops import adasum as adasum_ops
     from horovod_tpu_torch.ops import build, kernels as K
+    from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
     from horovod_tpu_torch.parallel import flash_attention, ring_attention
 
     def log(msg):
@@ -1336,13 +1677,18 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
     build.library()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+        f"from {os.path.dirname(hvd.__file__)}")
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.benchmark = True
+    if args.resnet_only:
+        return resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log)
     ptxas = attention_ptxas(build, log)
     check(all(r["spill_bytes"] == 0 for r in ptxas.values()),
           f"an attention kernel spills: {ptxas}")
+    bn_regs = bn_ptxas(build, log)
+    check(bn_regs["spill_bytes"] == 0, f"a BN kernel spills: {bn_regs}")
 
-    dev = torch.device("cuda", 0)
-    torch.backends.cudnn.benchmark = True
     try:
         hvd.init()
         check(hvd.size() == 1 and hvd.device() == dev,
@@ -1354,6 +1700,9 @@ def main(argv=None) -> int:
         check(len(bn_shapes) == 53, f"{len(bn_shapes)} BN layers, not 53")
         bn_rows = check_bn_kernels(torch, K, dev, bn_shapes, flush,
                                    args.reps, log)
+        bn_floor = bn_measure_floor(torch, K, dev, flush, args.reps, log)
+        check_bn_inputs(torch, K, dev, log)
+        bn_launches = bn_module_launches(torch, FusedBatchNorm, dev, log)
         param_shapes = [tuple(p.shape) for p in ResNet50(
             num_classes=1000, fused_bn=True).parameters()]
         pack_row, _ = check_pack_kernel(torch, K, bucket_by_size, dev,
@@ -1373,8 +1722,8 @@ def main(argv=None) -> int:
         check(all(v == v and abs(v) != float("inf") for v in losses),
               "non-finite loss")
         check(losses[-1] < losses[0], "loss did not fall on the fixed batch")
-        if args.profile:
-            profile_steps(torch, step, args.profile, log)
+        resnet_profile = (profile_steps(torch, step, args.profile, log)
+                          if args.profile else None)
         n_steps = args.warmup + args.windows * args.steps + args.profile
         grads = [p.grad for p in model.parameters()]
         log(f"  {img_s:.1f} img/s over all timed steps (windows: "
@@ -1536,8 +1885,28 @@ def main(argv=None) -> int:
             f"kernels, batch {TINY_BATCH}, {TINY_IMAGE} px, {TINY_STEPS} "
             "steps")
         tiny, tiny_counts = run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log)
+        torch.cuda.empty_cache()
+
+        log("phase 13: attention above head dim 128 through "
+            "flash_attention_local and the zig-zag ring (the wide kernels)")
+        K.reset_launch_counts()
+        wide = run_wide_path(torch, K, ring_attention, flash_attention, dev,
+                             log)
+        wide_counts = K.launch_counts()
+        log(f"  launches on the wide path: {wide_counts}")
+        for name in WIDE_KERNELS:
+            check(wide_counts[f"{name}_wide"] >= 1,
+                  f"{name}_wide launched no time on the wide path")
     finally:
         hvd.shutdown()
+
+    def wide_entry(name):
+        """The numbers of a wide instance: phase 4's or phase 8's row at
+        the wide shape."""
+        if name.startswith("flash_seg"):
+            return next(e for e in seg_rows[name]["shapes"]
+                        if e["what"] == WIDE_SEG_SHAPE)
+        return tf32_rows[f"{name}_wide"]
 
     src = "horovod_tpu_torch/csrc"
     kernels = [
@@ -1553,13 +1922,17 @@ def main(argv=None) -> int:
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
              launches=counts["bn_stats"], bound_by="bytes",
-             ok=True, work=f"53 BN layers of ResNet-50, batch {args.batch}",
+             ok=True, work=f"53 BN layers of ResNet-50, batch {args.batch}, "
+                           "the epilogue mode (raw_ms: the raw sums)",
+             module_launches_per_layer=bn_launches, measure_floor=bn_floor,
+             **bn_regs,
              **bn_rows["bn_stats"]),
         dict(name="bn_bwd_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:265",
              launches=counts["bn_bwd_stats"], bound_by="bytes", ok=True,
-             work=f"53 BN layers of ResNet-50, batch {args.batch}",
-             **bn_rows["bn_bwd_stats"]),
+             work=f"53 BN layers of ResNet-50, batch {args.batch}, the "
+                  "epilogue mode (raw_ms: the raw sums)",
+             **bn_regs, **bn_rows["bn_bwd_stats"]),
     ] + [
         # the forward and the custom-VJP backward of the jax library kernel
         # that flash_attention_local calls there
@@ -1596,6 +1969,21 @@ def main(argv=None) -> int:
                                  "and dv together)"}
                 if name != "flash_seg_fwd" else {}))
         for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
+        # the wide instances: bf16 and fp16 above head dim 128 on the
+        # mma.sync family, K6's and K7's functions
+        dict(name=f"{name}_wide", route="cuda", source=f"{src}/flash_attn.cu",
+             replaces=(f"horovod_tpu/parallel/ring_attention.py:{line}"
+                       if line else
+                       "horovod_tpu/parallel/flash_attention.py:226"),
+             launches=wide_counts[f"{name}_wide"], ok=True,
+             work=("bf16 D256 causal, "
+                   + ("the FULL half-segment B1 H8 S2048" if line
+                      else "B2 H8 T2048") + "; launches: phase 13"),
+             **{key: wide_entry(name)[key] for key in
+                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "max_abs_err")},
+             **ptxas[f"{name}_wide"])
+        for name, line in zip(WIDE_KERNELS, (0, 0, 0, 169, 188, 194))] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",
              replaces=f"horovod_tpu/ops/pallas_kernels.py:{line}",
@@ -1611,7 +1999,9 @@ def main(argv=None) -> int:
                       "tokens_per_s": tok_s, "tokens_per_s_windows":
                       tok_rates, "lm_batch": lm_batch,
                       "lm_peak_gib": lm_peak, "attention": attention,
-                      "ring": ring, "adasum": adasum, "vit_tiny": tiny}))
+                      "ring": ring, "adasum": adasum, "vit_tiny": tiny,
+                      "wide_attention": wide,
+                      "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,39 +1,54 @@
 // Flash attention: the C entry points of K6 and K7, di = rowsum(dO o O)
-// (K6b) for every input type, and the fp32 family of the forward and the
-// backward on tf32 tensor cores.
+// (K6b) for every input type and head dim, and the mma.sync family of the
+// forward and the backward: fp32 inputs at every head dim, and bf16 and
+// fp16 inputs at head dims above 128.
 //
 // Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py:
 // flash_attention_local takes from jax's library (the flash / splash
 // forward and its custom-VJP backward, _flash_attention_bwd_dkv and
 // _flash_attention_bwd_dq) and ring attention's per-segment kernels
 // (horovod_tpu/parallel/ring_attention.py: _seg_fwd_pallas,
-// _seg_bwd_pallas). bf16 and fp16 inputs run the Hopper kernels of
-// flash_fwd_sm90.cu and flash_bwd_sm90.cu (TMA and wgmma); fp32 inputs run
+// _seg_bwd_pallas). bf16 and fp16 inputs of head dim 64 or 128 run the
+// Hopper kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu (TMA and
+// wgmma), whose consumers are held to 168 registers; everything else runs
 // the kernels below.
 //
-// The fp32 family. wgmma takes tf32 operands K-major only, and four of the
-// attention products (P V, P^T dO, dS^T Q, dS K) would need an MN-major
-// one, so fp32 runs on mma.sync m16n8k8 tf32 instead: the tiles are staged
-// in shared memory as fp32 (rows padded by 4 floats), every fragment is a
-// scalar load from it (so a transposed operand is only another index),
+// The mma.sync family. wgmma takes tf32 operands K-major only, and four of
+// the attention products (P V, P^T dO, dS^T Q, dS K) would need an MN-major
+// one; a wider head dim needs more accumulator registers than the wgmma
+// consumers hold. So these kernels run mma.sync m16n8k8 on tf32: tiles are
+// staged in shared memory as fp32 (rows padded by 4 floats), every fragment
+// is a scalar load from it (so a transposed operand is only another index),
 // operands are rounded to tf32 (cvt.rna) as they are loaded, and the
-// accumulators are fp32. P and dS go from the accumulators to a warp's own
-// rows of shared memory to become the next product's A. Each warp owns 16
-// rows of its block's tile; 4 warps a block, tiles of 64 rows by 32:
+// accumulators are fp32. bf16 and fp16 values are exact in tf32 (8 and 11
+// significant bits of tf32's 11), so 16-bit inputs are staged as fp32 and
+// multiplied exactly, and P and dS are rounded to the input type before
+// their products (as the plain versions round them): the 16-bit results are
+// fp32 sums of the products the plain versions form. P and dS go from the
+// accumulators to a warp's own rows of shared memory to become the next
+// product's A. Each warp owns 16 rows of its block's tile; 4 warps a block,
+// tiles of 64 rows by 32:
 // - forward: a block of 64 q rows, online softmax over kv tiles of 32;
 // - dk/dv: a block of 64 kv rows, q tiles of 32 from the causal diagonal
 //   on, P^T = exp(K Q^T * scale - lse), dV += P^T dO, dK += dS^T Q;
 // - dq: a block of 64 q rows, kv tiles of 32, dQ += dS K.
-// What bounds it: operations, at tf32's 495 TFLOP/s, half of bf16's; no
-// shipped configuration trains attention in fp32, so it is the simple
-// tile code, unpipelined. Its error is tf32's: the operands keep 10
-// mantissa bits (unit roundoff 2^-11).
+// Any head dim: the wrapper pads D to 64, 128 or a multiple of 64 above.
+// The grid's third dimension splits the output columns into slices of DS =
+// min(D, 128); a block holds accumulators for its slice only (dk/dv: two 16
+// x 128 a warp, which fit) and computes S = Q K^T and dP = dO V^T over the
+// whole D in chunks of DS columns staged one after the other. Above 128
+// each slice computes S (and dP) again: at D 256 twice the products of S
+// and dP, the price of holding no more than 128 accumulator columns.
+// What bounds it: operations, at tf32's 495 TFLOP/s, half of bf16's; it is
+// the simple tile code, unpipelined. Its error for fp32 inputs is tf32's:
+// the operands keep 10 mantissa bits (unit roundoff 2^-11).
 //
 // Causal (key <= query by absolute index) tiles past the diagonal are never
 // loaded, and a tile that crosses the diagonal or the end of q or k/v runs
-// the mask; rows past the ends load as zeros and are never stored. The
-// arithmetic never sees the views' strides and nothing is accumulated
-// across blocks: results repeat bitwise, on views as on contiguous copies.
+// the mask; rows past the ends and columns past D load as zeros and are
+// never stored. The arithmetic never sees the views' strides and nothing is
+// accumulated across blocks: results repeat bitwise, on views as on
+// contiguous copies.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -59,8 +74,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
 
-__device__ __forceinline__ float* head_ptr(const View& t, int b, int h) {
-  return reinterpret_cast<float*>(t.p) + b * t.sb + h * t.sh;
+template <typename T>
+__device__ __forceinline__ T* head_ptr(const View& t, int b, int h) {
+  return reinterpret_cast<T*>(t.p) + b * t.sb + h * t.sh;
 }
 
 __device__ __forceinline__ float* stat_row(const Stat& s, int b, int h) {
@@ -71,6 +87,52 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
+}
+
+// x rounded to In (to nearest even), as a float.
+template <typename In>
+__device__ __forceinline__ float round_in(float x);
+template <>
+__device__ __forceinline__ float round_in<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_in<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ float round_in<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
+
+// Four neighbouring elements of In as floats.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Two floats stored as a pair of Out.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 // c += a b, a 16x8 (row), b 8x8 (col), c 16x8; tf32 operands, fp32 sums.
@@ -92,18 +154,20 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
   for (int j = 0; j < N; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
 }
 
-// rows [row0, row0 + ROWS) of one head into shared memory (row pitch
-// D + kPad); rows at or past T are zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* s, const float* head,
-                                          long long st, int row0, int T) {
-  constexpr int kChunks = D / 4;
+// Rows [row0, row0 + ROWS) and columns [col0, col0 + width) of one head into
+// shared memory as fp32 (row pitch LD); rows at or past T and columns past
+// width (up to LD - kPad) are zero. width is a multiple of 4.
+template <int ROWS, int LD, typename In>
+__device__ __forceinline__ void load_tile(float* s, const In* head,
+                                          long long st, int row0, int T,
+                                          int col0, int width) {
+  constexpr int kChunks = (LD - kPad) / 4;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
+    const int r = i / kChunks, c = 4 * (i % kChunks);
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const float4*>(head + (row0 + r) * st + c * 4);
-    *reinterpret_cast<float4*>(s + r * (D + kPad) + c * 4) = val;
+    if (row0 + r < T && c < width)
+      val = load4(head + (row0 + r) * st + col0 + c);
+    *reinterpret_cast<float4*>(s + r * LD + c) = val;
   }
 }
 
@@ -126,6 +190,19 @@ __device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const float* x,
   }
 }
 
+// gemm_nt over a chunk of the depth w = 64 or DS wide (D is a multiple of
+// 64), each width a loop of compile-time length.
+template <int DS, int NT>
+__device__ __forceinline__ void gemm_nt_chunk(float (&c)[NT][4],
+                                              const float* x, int ldx,
+                                              const float* y, int ldy, int w,
+                                              int g, int t) {
+  if (DS == 64 || w == 64)
+    gemm_nt<64, NT>(c, x, ldx, y, ldy, g, t);
+  else
+    gemm_nt<DS, NT>(c, x, ldx, y, ldy, g, t);
+}
+
 // c[j] += X[16 rows][0, K) Y[0, K)[8j + n]: Y stored as rows of the depth
 // (P V, P^T dO, dS^T Q, dS K).
 template <int K, int NT>
@@ -144,8 +221,9 @@ __device__ __forceinline__ void gemm_nn(float (&c)[NT][4], const float* x,
   }
 }
 
-// A warp's 16 x kTile accumulator into its own rows of the staging tile
-// (pitch kLdP), to be read back as the A of the next product.
+// A warp's 16 x kTile accumulator, rounded to In, into its own rows of the
+// staging tile (pitch kLdP), to be read back as the A of the next product.
+template <typename In>
 __device__ __forceinline__ void stage(float* pw,
                                       const float (&c)[kTile / 8][4], int g,
                                       int t) {
@@ -153,43 +231,59 @@ __device__ __forceinline__ void stage(float* pw,
 #pragma unroll
   for (int j = 0; j < kTile / 8; ++j) {
     float* p = pw + g * kLdP + 8 * j + 2 * t;
-    p[0] = c[j][0];
-    p[1] = c[j][1];
-    p[8 * kLdP] = c[j][2];
-    p[8 * kLdP + 1] = c[j][3];
+    p[0] = round_in<In>(c[j][0]);
+    p[1] = round_in<In>(c[j][1]);
+    p[8 * kLdP] = round_in<In>(c[j][2]);
+    p[8 * kLdP + 1] = round_in<In>(c[j][3]);
   }
   __syncwarp();
 }
 
-// rows r_lo and r_lo + 8 of a 16 x D accumulator, times mul[i], to the rows
-// < T of one head of `out`.
-template <int D>
+// Rows r_lo and r_lo + 8 of a 16 x DS accumulator, times mul[i], to the
+// rows < T and columns col0 + [0, DS) < D of one head of `out`.
+template <int DS, typename Out>
 __device__ __forceinline__ void store_rows(const View& out, int b, int h,
-                                           int r_lo, int T,
-                                           const float (&acc)[D / 8][4],
+                                           int r_lo, int T, int col0, int D,
+                                           const float (&acc)[DS / 8][4],
                                            const float (&mul)[2], int t) {
-  float* head = head_ptr(out, b, h);
+  Out* head = head_ptr<Out>(out, b, h);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r_lo + 8 * i;
     if (r >= T) continue;
-    float* row = head + r * out.st;
+    Out* row = head + r * out.st + col0;
 #pragma unroll
-    for (int dj = 0; dj < D / 8; ++dj)
-      *reinterpret_cast<float2*>(row + 8 * dj + 2 * t) =
-          make_float2(acc[dj][2 * i] * mul[i], acc[dj][2 * i + 1] * mul[i]);
+    for (int dj = 0; dj < DS / 8; ++dj)
+      if (col0 + 8 * dj + 2 * t < D)
+        store2(row + 8 * dj + 2 * t, acc[dj][2 * i] * mul[i],
+               acc[dj][2 * i + 1] * mul[i]);
   }
 }
 
-template <int D>
+// The chunks of the depth and the block's slice of the output columns;
+// ONE: D is DS, one chunk and one slice, and every width is a constant
+// (the general loop ran the fp32 forward at D 64 1.29 times as long).
+template <int DS, bool ONE>
+struct Cols {
+  int n_chunks, col0, width;
+  __device__ explicit Cols(int D)
+      : n_chunks(ONE ? 1 : (D + DS - 1) / DS),
+        col0(ONE ? 0 : (int)blockIdx.z * DS),
+        width(ONE ? DS : min(DS, D - (int)blockIdx.z * DS)) {}
+  __device__ static int chunk_width(int D, int ch) {
+    return ONE ? DS : min(DS, D - ch * DS);
+  }
+};
+
+template <int DS>
 constexpr int fwd_smem() {
-  return ((kRows + 2 * kTile) * (D + kPad) + kRows * kLdP) * 4;
+  return ((kRows + 2 * kTile) * (DS + kPad) + kRows * kLdP) * 4;
 }
 
-template <int D>
+template <int DS, typename In, typename Out, bool ONE>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_tf32_kernel(const Args p) {
-  constexpr int LD = D + kPad;
+flash_fwd_mma_kernel(const Args p) {
+  constexpr int LD = DS + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = qs + kRows * LD;
@@ -203,21 +297,33 @@ flash_fwd_tf32_kernel(const Args p) {
   const int r_lo = q0 + warp * 16 + g;
   float* pw = ps + warp * 16 * kLdP;
   const float sl2 = p.scale * kLog2e;
+  const Cols<DS, ONE> cols(p.D);
+  const In* qh = head_ptr<In>(p.q, b, h);
+  const In* kh = head_ptr<In>(p.k, b, h);
+  const In* vh = head_ptr<In>(p.v, b, h);
 
-  load_tile<D, kRows>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.Tq);
+  if (cols.n_chunks == 1)
+    load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, 0, cols.width);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[DS / 8][4];
   zero(o);
 
   const int kv_end = p.causal ? min(p.Tk, q0 + kRows) : p.Tk;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-    __syncthreads();   // the previous tile is consumed
-    load_tile<D, kTile>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.Tk);
-    load_tile<D, kTile>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.Tk);
-    __syncthreads();
     float s[kTile / 8][4];
     zero(s);
-    gemm_nt<D, kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, g, t);
+    for (int ch = 0; ch < cols.n_chunks; ++ch) {
+      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
+      __syncthreads();   // the previous chunk or tile is consumed
+      if (cols.n_chunks > 1)
+        load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, ch * DS, w);
+      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * DS, w);
+      if (ch == cols.n_chunks - 1)
+        load_tile<kTile, LD>(vs, vh, p.v.st, kv0, p.Tk, cols.col0,
+                             cols.width);
+      __syncthreads();
+      gemm_nt_chunk<DS, kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, w, g, t);
+    }
     const bool mask =
         kv0 + kTile > p.Tk || (p.causal && kv0 + kTile - 1 > q0 + warp * 16);
     float mt[2] = {-INFINITY, -INFINITY};
@@ -255,14 +361,14 @@ flash_fwd_tf32_kernel(const Args p) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int dj = 0; dj < D / 8; ++dj) {
+    for (int dj = 0; dj < DS / 8; ++dj) {
       o[dj][0] *= alpha[0];
       o[dj][1] *= alpha[0];
       o[dj][2] *= alpha[1];
       o[dj][3] *= alpha[1];
     }
-    stage(pw, s, g, t);
-    gemm_nn<kTile, D / 8>(o, pw, kLdP, vs, LD, g, t);
+    stage<In>(pw, s, g, t);
+    gemm_nn<kTile, DS / 8>(o, pw, kLdP, vs, LD, g, t);
   }
 
   float inv[2];
@@ -273,8 +379,8 @@ flash_fwd_tf32_kernel(const Args p) {
     // a row that saw no key: o = 0, lse = the finite sentinel
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
-  store_rows<D>(p.o, b, h, r_lo, p.Tq, o, inv, t);
-  if (t == 0) {
+  store_rows<DS, Out>(p.o, b, h, r_lo, p.Tq, cols.col0, p.D, o, inv, t);
+  if (t == 0 && blockIdx.z == 0) {
     float* lse = stat_row(p.lse, b, h);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -284,16 +390,16 @@ flash_fwd_tf32_kernel(const Args p) {
   }
 }
 
-template <int D>
+template <int DS>
 constexpr int dkdv_smem() {
-  return ((2 * kRows + 2 * kTile) * (D + kPad) + kRows * kLdP + 2 * kTile) *
+  return ((2 * kRows + 2 * kTile) * (DS + kPad) + kRows * kLdP + 2 * kTile) *
          4;
 }
 
-template <int D>
+template <int DS, typename In, typename Out, bool ONE>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_tf32_kernel(const Args p) {
-  constexpr int LD = D + kPad;
+flash_bwd_dkdv_mma_kernel(const Args p) {
+  constexpr int LD = DS + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
   float* vs = ks + kRows * LD;
@@ -312,31 +418,49 @@ flash_bwd_dkdv_tf32_kernel(const Args p) {
   const float sl2 = p.scale * kLog2e;
   const float* lse = stat_row(p.lse, b, h);
   const float* di = stat_row(p.di, b, h);
+  const Cols<DS, ONE> cols(p.D);
+  const bool one = cols.n_chunks == 1;   // constant when ONE
+  const In* qh = head_ptr<In>(p.q, b, h);
+  const In* kh = head_ptr<In>(p.k, b, h);
+  const In* vh = head_ptr<In>(p.v, b, h);
+  const In* doh = head_ptr<In>(p.dout, b, h);
 
-  load_tile<D, kRows>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.Tk);
-  load_tile<D, kRows>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.Tk);
-  float dk[D / 8][4], dv[D / 8][4];
+  if (one) {
+    load_tile<kRows, LD>(ks, kh, p.k.st, kv0, p.Tk, 0, cols.width);
+    load_tile<kRows, LD>(vs, vh, p.v.st, kv0, p.Tk, 0, cols.width);
+  }
+  float dk[DS / 8][4], dv[DS / 8][4];
   zero(dk);
   zero(dv);
 
   // causal: key <= query, so the q tiles from the one holding row kv0 on
   const int q_start = p.causal ? kv0 : 0;
   for (int q0 = q_start; q0 < p.Tq; q0 += kTile) {
-    __syncthreads();
-    load_tile<D, kTile>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.Tq);
-    load_tile<D, kTile>(dos, head_ptr(p.dout, b, h), p.dout.st, q0, p.Tq);
-    if (threadIdx.x < kTile) {
-      const int r = q0 + threadIdx.x;
-      // past Tq: lse +inf makes p exactly 0
-      lse_s[threadIdx.x] = r < p.Tq ? lse[r] * kLog2e : INFINITY;
-      di_s[threadIdx.x] = r < p.Tq ? di[r] : 0.f;
-    }
-    __syncthreads();
-    const bool mask = p.causal && kv0 + warp * 16 + 15 > q0;
-    // P^T = exp(K Q^T * scale - lse), masked
+    // P^T = exp(K Q^T * scale - lse), masked, over the chunks of the depth
     float pt[kTile / 8][4];
     zero(pt);
-    gemm_nt<D, kTile / 8>(pt, ks + warp * 16 * LD, LD, qs, LD, g, t);
+    for (int ch = 0; ch < cols.n_chunks; ++ch) {
+      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
+      __syncthreads();
+      if (!one) {
+        load_tile<kRows, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * DS, w);
+        load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, ch * DS, w);
+      } else {
+        load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, 0, cols.width);
+        load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, 0,
+                             cols.width);
+      }
+      if (ch == 0 && threadIdx.x < kTile) {
+        const int r = q0 + threadIdx.x;
+        // past Tq: lse +inf makes p exactly 0
+        lse_s[threadIdx.x] = r < p.Tq ? lse[r] * kLog2e : INFINITY;
+        di_s[threadIdx.x] = r < p.Tq ? di[r] : 0.f;
+      }
+      __syncthreads();
+      gemm_nt_chunk<DS, kTile / 8>(pt, ks + warp * 16 * LD, LD, qs, LD, w,
+                                   g, t);
+    }
+    const bool mask = p.causal && kv0 + warp * 16 + 15 > q0;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
@@ -347,12 +471,29 @@ flash_bwd_dkdv_tf32_kernel(const Args p) {
         pt[j][e] = x;
       }
     }
-    stage(pw, pt, g, t);
-    gemm_nn<kTile, D / 8>(dv, pw, kLdP, dos, LD, g, t);
-    // dP^T = V dO^T; dS^T = P^T * (dP^T - di)
+    // dV += P^T dO over the block's slice of columns
+    if (!one) {
+      __syncthreads();
+      load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, cols.col0,
+                           cols.width);
+      __syncthreads();
+    }
+    stage<In>(pw, pt, g, t);
+    gemm_nn<kTile, DS / 8>(dv, pw, kLdP, dos, LD, g, t);
+    // dP^T = V dO^T over the chunks; dS^T = P^T * (dP^T - di)
     float dst[kTile / 8][4];
     zero(dst);
-    gemm_nt<D, kTile / 8>(dst, vs + warp * 16 * LD, LD, dos, LD, g, t);
+    for (int ch = 0; ch < cols.n_chunks; ++ch) {
+      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
+      if (!one) {
+        __syncthreads();
+        load_tile<kRows, LD>(vs, vh, p.v.st, kv0, p.Tk, ch * DS, w);
+        load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, ch * DS, w);
+        __syncthreads();
+      }
+      gemm_nt_chunk<DS, kTile / 8>(dst, vs + warp * 16 * LD, LD, dos, LD, w,
+                                   g, t);
+    }
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
@@ -361,23 +502,29 @@ flash_bwd_dkdv_tf32_kernel(const Args p) {
         dst[j][e] = pt[j][e] * (dst[j][e] - di_s[c]);
       }
     }
-    stage(pw, dst, g, t);
-    gemm_nn<kTile, D / 8>(dk, pw, kLdP, qs, LD, g, t);
+    // dK += dS^T Q over the block's slice of columns
+    if (!one) {
+      __syncthreads();
+      load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, cols.col0, cols.width);
+      __syncthreads();
+    }
+    stage<In>(pw, dst, g, t);
+    gemm_nn<kTile, DS / 8>(dk, pw, kLdP, qs, LD, g, t);
   }
-  const float one[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
-  store_rows<D>(p.dk, b, h, r_lo, p.Tk, dk, sc, t);
-  store_rows<D>(p.dv, b, h, r_lo, p.Tk, dv, one, t);
+  const float one_[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
+  store_rows<DS, Out>(p.dk, b, h, r_lo, p.Tk, cols.col0, p.D, dk, sc, t);
+  store_rows<DS, Out>(p.dv, b, h, r_lo, p.Tk, cols.col0, p.D, dv, one_, t);
 }
 
-template <int D>
+template <int DS>
 constexpr int dq_smem() {
-  return ((2 * kRows + 2 * kTile) * (D + kPad) + kRows * kLdP) * 4;
+  return ((2 * kRows + 2 * kTile) * (DS + kPad) + kRows * kLdP) * 4;
 }
 
-template <int D>
+template <int DS, typename In, typename Out, bool ONE>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tf32_kernel(const Args p) {
-  constexpr int LD = D + kPad;
+flash_bwd_dq_mma_kernel(const Args p) {
+  constexpr int LD = DS + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* dos = qs + kRows * LD;
@@ -393,6 +540,12 @@ flash_bwd_dq_tf32_kernel(const Args p) {
   const float sl2 = p.scale * kLog2e;
   const float* lse = stat_row(p.lse, b, h);
   const float* di = stat_row(p.di, b, h);
+  const Cols<DS, ONE> cols(p.D);
+  const bool one = cols.n_chunks == 1;   // constant when ONE
+  const In* qh = head_ptr<In>(p.q, b, h);
+  const In* kh = head_ptr<In>(p.k, b, h);
+  const In* vh = head_ptr<In>(p.v, b, h);
+  const In* doh = head_ptr<In>(p.dout, b, h);
   float lse_r[2], di_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -400,22 +553,34 @@ flash_bwd_dq_tf32_kernel(const Args p) {
     lse_r[i] = r < p.Tq ? lse[r] * kLog2e : 0.f;
     di_r[i] = r < p.Tq ? di[r] : 0.f;
   }
-  load_tile<D, kRows>(qs, head_ptr(p.q, b, h), p.q.st, q0, p.Tq);
-  load_tile<D, kRows>(dos, head_ptr(p.dout, b, h), p.dout.st, q0, p.Tq);
-  float dq[D / 8][4];
+  if (one) {
+    load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, 0, cols.width);
+    load_tile<kRows, LD>(dos, doh, p.dout.st, q0, p.Tq, 0,
+                             cols.width);
+  }
+  float dq[DS / 8][4];
   zero(dq);
 
   const int kv_end = p.causal ? min(p.Tk, q0 + kRows) : p.Tk;
   for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-    __syncthreads();
-    load_tile<D, kTile>(ks, head_ptr(p.k, b, h), p.k.st, kv0, p.Tk);
-    load_tile<D, kTile>(vs, head_ptr(p.v, b, h), p.v.st, kv0, p.Tk);
-    __syncthreads();
+    // S = Q K^T and dP = dO V^T over the chunks of the depth
     float s[kTile / 8][4], dp[kTile / 8][4];
     zero(s);
     zero(dp);
-    gemm_nt<D, kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, g, t);
-    gemm_nt<D, kTile / 8>(dp, dos + warp * 16 * LD, LD, vs, LD, g, t);
+    for (int ch = 0; ch < cols.n_chunks; ++ch) {
+      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
+      __syncthreads();
+      if (!one) {
+        load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, ch * DS, w);
+        load_tile<kRows, LD>(dos, doh, p.dout.st, q0, p.Tq, ch * DS, w);
+      }
+      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * DS, w);
+      load_tile<kTile, LD>(vs, vh, p.v.st, kv0, p.Tk, ch * DS, w);
+      __syncthreads();
+      gemm_nt_chunk<DS, kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, w, g, t);
+      gemm_nt_chunk<DS, kTile / 8>(dp, dos + warp * 16 * LD, LD, vs, LD, w,
+                                   g, t);
+    }
     const bool mask =
         kv0 + kTile > p.Tk || (p.causal && kv0 + kTile - 1 > q0 + warp * 16);
 #pragma unroll
@@ -430,11 +595,17 @@ flash_bwd_dq_tf32_kernel(const Args p) {
         s[j][e] = x * (dp[j][e] - di_r[i]);   // dS
       }
     }
-    stage(pw, s, g, t);
-    gemm_nn<kTile, D / 8>(dq, pw, kLdP, ks, LD, g, t);
+    // dQ += dS K over the block's slice of columns
+    if (!one) {
+      __syncthreads();
+      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, cols.col0, cols.width);
+      __syncthreads();
+    }
+    stage<In>(pw, s, g, t);
+    gemm_nn<kTile, DS / 8>(dq, pw, kLdP, ks, LD, g, t);
   }
   const float sc[2] = {p.scale, p.scale};
-  store_rows<D>(p.dq, b, h, r_lo, p.Tq, dq, sc, t);
+  store_rows<DS, Out>(p.dq, b, h, r_lo, p.Tq, cols.col0, p.D, dq, sc, t);
 }
 
 // di[row] = sum_d dO[row, d] * O[row, d]; one warp per row of B*H*T.
@@ -448,6 +619,8 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
+// D = 64 or 128 compile-time (the loop unrolls and its loads issue
+// together), 0 for any other D (a multiple of 64) read from p.
 template <int D, typename In>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_pre_kernel(const Args p) {
@@ -461,10 +634,18 @@ flash_bwd_pre_kernel(const Args p) {
   const In* drow = reinterpret_cast<const In*>(p.dout.p) + b * p.dout.sb +
                    h * p.dout.sh + t * p.dout.st;
   float acc = 0.f;
+  if (D != 0) {
 #pragma unroll
-  for (int d = lane * 2; d < D; d += 64) {
-    const float2 of = load2(orow + d), df = load2(drow + d);
-    acc += of.x * df.x + of.y * df.y;
+    for (int d = lane * 2; d < D; d += 64) {
+      const float2 of = load2(orow + d), df = load2(drow + d);
+      acc += of.x * df.x + of.y * df.y;
+    }
+  } else {
+#pragma unroll 4
+    for (int d = lane * 2; d < p.D; d += 64) {
+      const float2 of = load2(orow + d), df = load2(drow + d);
+      acc += of.x * df.x + of.y * df.y;
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -476,39 +657,86 @@ flash_bwd_pre_kernel(const Args p) {
 // launch
 
 // Opt a kernel into more than 48 KB of dynamic shared memory and launch it
-// over (B * H, the blocks of T rows). The attribute belongs to the current
-// device, so it is set at every launch: a process may launch on several
-// cards, and the call costs little.
+// over (B * H, the blocks of T rows, the slices of the head dim). The
+// attribute belongs to the current device, so it is set at every launch: a
+// process may launch on several cards, and the call costs little.
 template <typename K>
-cudaError_t launch(K kernel, int smem, int T, const Args& a,
+cudaError_t launch(K kernel, int smem, int T, int slices, const Args& a,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(a.B * a.H), (unsigned)((T + kRows - 1) / kRows));
+  const dim3 grid((unsigned)(a.B * a.H), (unsigned)((T + kRows - 1) / kRows),
+                  (unsigned)slices);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-cudaError_t fwd_tf32(const Args& a, cudaStream_t s) {
-  return a.D == 64 ? launch(flash_fwd_tf32_kernel<64>, fwd_smem<64>(), a.Tq,
-                            a, s)
-                   : launch(flash_fwd_tf32_kernel<128>, fwd_smem<128>(),
-                            a.Tq, a, s);
+// The three kernels of the family at slice width DS, for In and Out.
+template <int DS, typename In, typename Out, bool ONE>
+struct Mma {
+  static int slices(const Args& a) { return (a.D + DS - 1) / DS; }
+  static cudaError_t fwd(const Args& a, cudaStream_t s) {
+    return launch(flash_fwd_mma_kernel<DS, In, Out, ONE>, fwd_smem<DS>(),
+                  a.Tq, slices(a), a, s);
+  }
+  static cudaError_t dkdv(const Args& a, cudaStream_t s) {
+    return launch(flash_bwd_dkdv_mma_kernel<DS, In, Out, ONE>,
+                  dkdv_smem<DS>(), a.Tk, slices(a), a, s);
+  }
+  static cudaError_t dq(const Args& a, cudaStream_t s) {
+    return launch(flash_bwd_dq_mma_kernel<DS, In, Out, ONE>, dq_smem<DS>(),
+                  a.Tq, slices(a), a, s);
+  }
+};
+
+// One kernel of the family for a's inputs: fp32 at D 64 or 128 in one
+// slice of D, everything else (D above 128) in slices of 128; outputs of
+// the input type, or fp32 (out_f32).
+template <template <int, typename, typename, bool> class F>
+cudaError_t mma_pick(const Args& a, cudaStream_t s) {
+  switch (a.dtype) {
+    case flash::kF32:
+      return a.D == 64    ? F<64, float, float, true>::run(a, s)
+             : a.D == 128 ? F<128, float, float, true>::run(a, s)
+                          : F<128, float, float, false>::run(a, s);
+    case flash::kF16:
+      return a.out_f32 ? F<128, __half, float, false>::run(a, s)
+                       : F<128, __half, __half, false>::run(a, s);
+    default:
+      return a.out_f32
+                 ? F<128, __nv_bfloat16, float, false>::run(a, s)
+                 : F<128, __nv_bfloat16, __nv_bfloat16, false>::run(a, s);
+  }
 }
 
-cudaError_t dkdv_tf32(const Args& a, cudaStream_t s) {
-  return a.D == 64 ? launch(flash_bwd_dkdv_tf32_kernel<64>, dkdv_smem<64>(),
-                            a.Tk, a, s)
-                   : launch(flash_bwd_dkdv_tf32_kernel<128>,
-                            dkdv_smem<128>(), a.Tk, a, s);
-}
+template <int DS, typename In, typename Out, bool ONE>
+struct FwdMma {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return Mma<DS, In, Out, ONE>::fwd(a, s);
+  }
+};
+template <int DS, typename In, typename Out, bool ONE>
+struct DkdvMma {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return Mma<DS, In, Out, ONE>::dkdv(a, s);
+  }
+};
+template <int DS, typename In, typename Out, bool ONE>
+struct DqMma {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return Mma<DS, In, Out, ONE>::dq(a, s);
+  }
+};
 
-cudaError_t dq_tf32(const Args& a, cudaStream_t s) {
-  return a.D == 64 ? launch(flash_bwd_dq_tf32_kernel<64>, dq_smem<64>(), a.Tq,
-                            a, s)
-                   : launch(flash_bwd_dq_tf32_kernel<128>, dq_smem<128>(),
-                            a.Tq, a, s);
+cudaError_t fwd_mma(const Args& a, cudaStream_t s) {
+  return mma_pick<FwdMma>(a, s);
+}
+cudaError_t dkdv_mma(const Args& a, cudaStream_t s) {
+  return mma_pick<DkdvMma>(a, s);
+}
+cudaError_t dq_mma(const Args& a, cudaStream_t s) {
+  return mma_pick<DqMma>(a, s);
 }
 
 template <int D, typename In>
@@ -521,7 +749,9 @@ cudaError_t pre(const Args& a, cudaStream_t s) {
 
 template <typename In>
 cudaError_t pre_in(const Args& a, cudaStream_t s) {
-  return a.D == 64 ? pre<64, In>(a, s) : pre<128, In>(a, s);
+  return a.D == 64    ? pre<64, In>(a, s)
+         : a.D == 128 ? pre<128, In>(a, s)
+                      : pre<0, In>(a, s);
 }
 
 cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
@@ -538,9 +768,10 @@ cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
 typedef cudaError_t (*Fn)(const Args&, cudaStream_t);
 
 // Checks the arguments every kernel relies on, selects the device, and
-// runs `sm90` (bf16, fp16) or `f32` (fp32).
-int run(int device, const Args& a, void* stream, Fn sm90, Fn f32) {
-  if (a.D != 64 && a.D != 128) return (int)cudaErrorInvalidValue;
+// runs `sm90` (bf16, fp16 at D 64 or 128) or `mma` (fp32, or D above 128).
+int run(int device, const Args& a, void* stream, Fn sm90, Fn mma) {
+  if (a.D < 64 || a.D % 64 != 0 || (a.D > 64 && a.D < 128))
+    return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
     return (int)cudaErrorInvalidValue;
   if (a.dtype != flash::kBF16 && a.dtype != flash::kF16 &&
@@ -548,7 +779,8 @@ int run(int device, const Args& a, void* stream, Fn sm90, Fn f32) {
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return (int)(a.dtype == flash::kF32 ? f32 : sm90)(a, (cudaStream_t)stream);
+  const bool wide = a.dtype == flash::kF32 || a.D > 128;
+  return (int)(wide ? mma : sm90)(a, (cudaStream_t)stream);
 }
 
 View view(const void* ptr, const long long* strides, int i) {
@@ -592,7 +824,8 @@ Args inputs(int dtype, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Every tensor argument is a [B, H, T, D] view, D = 64 or 128 contiguous,
+// Every tensor argument is a [B, H, T, D] view, D = 64, 128 or a multiple
+// of 64 above, contiguous,
 // with the element strides of B, H and T given three by three in
 // `strides` (host memory), in argument order. dtype: 0 bf16, 1 fp16, 2 fp32
 // (the inputs'). q and dout have Tq rows, k and v Tk. device: the CUDA
@@ -611,7 +844,7 @@ int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
                   scale);
   a.o = view(o, strides, 3);
   a.lse = dense_stat(lse, H, Tq);
-  return run(device, a, stream, flash::fwd_sm90, fwd_tf32);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
 }
 
 // di = rowsum(dout * o). strides: o, dout.
@@ -644,7 +877,7 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
   a.dv = view(dv, strides, 5);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_tf32);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma);
 }
 
 // dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
@@ -658,7 +891,7 @@ int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.dq = view(dq, strides, 4);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_tf32);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma);
 }
 
 // K7 (ring attention's segments, Tq = Tk = the segment length S): the same
@@ -676,7 +909,7 @@ int hvd_flash_seg_fwd(int device, int dtype, const void* q, const void* k,
   a.o = view(o, strides, 3);
   a.lse = stat(lse, strides, 4, 0);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::fwd_sm90, fwd_tf32);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
 }
 
 // (dk, dv) of one segment under the given lse and di.
@@ -694,7 +927,7 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
   a.lse = stat(lse, strides, 6, 0);
   a.di = stat(di, strides, 6, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_tf32);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma);
 }
 
 // dq of one segment under the given lse and di.
@@ -710,7 +943,7 @@ int hvd_flash_seg_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.lse = stat(lse, strides, 5, 0);
   a.di = stat(di, strides, 5, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_tf32);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma);
 }
 
 }  // extern "C"

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks for the port's attention kernels: shared
-// memory barriers (mbarrier), TMA tensor loads and their tensor maps, wgmma
+// Hopper (sm_90a) building blocks for the port's kernels: shared memory
+// barriers (mbarrier), TMA tensor loads and their tensor maps, wgmma
 // descriptors and products, and register reallocation between warpgroups.
 // Each device wrapper is one PTX instruction or a few; the layouts they
-// assume are written beside them. Nothing here is specific to attention:
-// the forward (flash_fwd_sm90.cu) and the backward (flash_bwd_sm90.cu) use
-// them, for bf16 or fp16 inputs (`In`: __nv_bfloat16 or __half).
+// assume are written beside them. The attention forward
+// (flash_fwd_sm90.cu) and backward (flash_bwd_sm90.cu) use them for bf16
+// or fp16 inputs (`In`: __nv_bfloat16 or __half); the BatchNorm
+// statistics (bn_stats.cu) use the mbarriers and 2-d TMA loads.
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
 // a tile of R rows and 64 16-bit columns (128 bytes a row) is a "slab" of
@@ -116,6 +117,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-d tensor map at coordinates (c0 innermost, c1), as above.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 

@@ -36,9 +36,13 @@ _F, _LLP = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     "hvd_pack": [_I, _P, _I, _LL, _P, _P],
     "hvd_pack_tile_bytes": [],
-    "hvd_bn_stats": [_I, _P, _I, _LL, _I, _I, _P, _P, _P, _P],
-    "hvd_bn_bwd_stats": [_I, _P, _P, _P, _P, _I, _LL, _I, _I, _P, _P, _P,
-                         _P],
+    # (device, dtype, tensors..., M, C, ctas, cluster, rows_per_cta, work,
+    # tickets, epilogue, epilogue's inputs..., out, stream)
+    "hvd_bn_stats": [_I, _I, _P, _LL, _I, _I, _I, _LL, _P, _P, _I, _P, _P,
+                     _F, _P, _P, _F, _F, _P, _P],
+    "hvd_bn_bwd_stats": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _LL, _P,
+                         _P, _I, _P, _P, _P],
+    "hvd_bn_max_clusters": [_I, _I, _I, _I],
     # (device, dtype, tensors..., strides, B, H, Tq, [Tk,] D, [causal,
     # scale,] stream)
     "hvd_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I,

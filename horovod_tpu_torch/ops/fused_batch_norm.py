@@ -1,22 +1,26 @@
-"""Fused BatchNorm: one-pass statistics kernels + an explicit backward.
+"""Fused BatchNorm: one-launch statistics kernels + an explicit backward.
 
 The port's counterpart of ``horovod_tpu/ops/fused_batch_norm.py``: the same
 training math (:63-109) with use_fast_variance numerics
 (var = E[x^2] - E[x]^2), the running-statistic EMA of flax (:152-157) and the
-eval mode on running statistics (:142-148). The two statistics passes are the
-hand-written kernels of :mod:`horovod_tpu_torch.ops.kernels`.
+eval mode on running statistics (:142-148). The statistics passes are the
+hand-written kernels of :mod:`horovod_tpu_torch.ops.kernels`, which also do
+the per-channel math in their epilogue (:func:`~.kernels.bn_forward`: mean,
+var, invstd, the affine's a and b and the EMA in place;
+:func:`~.kernels.bn_backward`: dgamma, dbeta and dx's coefficients).
 
 Backward (standard BatchNorm vjp):
     xh = (x - mu) * invstd
     dbeta = sum dy            dgamma = sum dy * xh
     dx = gamma * invstd * (dy - dbeta / M - xh * dgamma / M)
-The two reductions are one kernel pass over (dy, x). The cotangents of the
-returned mean and var are ignored: they feed the EMA only.
+The cotangents of the returned mean and var are ignored: they feed the EMA
+only.
 
-The elementwise parts are plain PyTorch, computed in fp32 from the bf16
-tensors as in the reference, with as few passes as eager mode allows: the
-affine is one ``addcmul`` that reads x and writes y in its dtype, and dx is
-three passes with one fp32 temporary.
+The elementwise parts are plain PyTorch, computed in fp32 from the input
+dtype (bf16, fp16 or fp32) as in the reference, with as few passes as eager
+mode allows: the affine is one ``addcmul`` that reads x and writes y in its
+dtype, and dx is three passes with one fp32 temporary. On the card a layer
+issues 2 launches forward (K2, the affine) and 4 backward (K3, dx's three).
 
 Layout: an NCHW activation must be ``channels_last`` so that its
 ``(M, C)`` view is contiguous; the kernels read that view with no copy.
@@ -55,45 +59,48 @@ def _affine(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
 
 class _BatchNormTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, scale, bias, eps: float):
-        x2d = _rows(x)
-        m = x2d.shape[0]
-        s, q = kernels.bn_stats(x2d)
-        mean = s / m
-        var = torch.clamp(q / m - mean * mean, min=0.0)
-        invstd = torch.rsqrt(var + eps)
-        a = scale.float() * invstd
-        b = bias.float() - mean * a
+    def forward(ctx, x, scale, bias, eps: float, running_mean=None,
+                running_var=None, momentum: float = 0.9):
+        stats = kernels.bn_forward(_rows(x), scale.float(), bias.float(), eps,
+                                   running_mean, running_var, momentum)
+        mean, var, invstd, a, b = stats.unbind(0)
         y = _affine(x, a, b)
         ctx.save_for_backward(x, scale, mean, invstd)
         ctx.mark_non_differentiable(mean, var)
+        # no zero-filled cotangents for mean and var: two launches a layer
+        ctx.set_materialize_grads(False)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, scale, mean, invstd = ctx.saved_tensors
-        x2d = _rows(x)
-        m = x2d.shape[0]
-        s1, s2 = kernels.bn_bwd_stats(_rows(dy), x2d, mean, invstd)
-        k1 = s1 / m
-        k2 = s2 / m
-        a = scale.float() * invstd
+        # autograd may hand over a gradient in another layout, or expanded:
+        # the kernel reads the (M, C) view (no copy when it is one already)
+        dy = (dy.contiguous(memory_format=torch.channels_last)
+              if dy.dim() == 4 else dy.contiguous())
+        coef = kernels.bn_backward(_rows(dy), _rows(x), mean, invstd,
+                                   scale.float())
+        dgamma, dbeta, a, c0, c1 = coef.unbind(0)
         # dx = a * (dy - k1 - (x - mean) * invstd * k2)
         #    = (x - mean) * (-a * invstd * k2) + (-a * k1) + a * dy
         u = torch.sub(x, _channel(mean, x))              # fp32
-        torch.addcmul(_channel(-a * k1, x), u, _channel(-a * invstd * k2, x),
-                      out=u)
+        torch.addcmul(_channel(c0, x), u, _channel(c1, x), out=u)
         dx = torch.addcmul(u, dy, _channel(a, x),
                            out=torch.empty_like(x))
-        return dx, s2.to(scale.dtype), s1.to(scale.dtype), None
+        return (dx, dgamma.to(scale.dtype), dbeta.to(scale.dtype), None,
+                None, None, None)
 
 
-def batch_norm_train(x, scale, bias, eps: float):
+def batch_norm_train(x, scale, bias, eps: float, running_mean=None,
+                     running_var=None, momentum: float = 0.9):
     """Training-mode batch norm over every axis but the channel axis.
 
     Returns ``(y, mean, var)``, mean and var in fp32 for the running-stat
-    EMA; gradients flow through ``y`` only."""
-    return _BatchNormTrain.apply(x, scale, bias, eps)
+    EMA; gradients flow through ``y`` only. When ``running_mean`` and
+    ``running_var`` (fp32) are given they take flax's EMA in place
+    (running = momentum * running + (1 - momentum) * batch)."""
+    return _BatchNormTrain.apply(x, scale, bias, eps, running_mean,
+                                 running_var, momentum)
 
 
 class FusedBatchNorm(nn.Module):
@@ -129,9 +136,7 @@ class FusedBatchNorm(nn.Module):
             b = self.bias.float() - self.running_mean * a
             # differentiable: gradients may flow to weight and bias
             return torch.addcmul(_channel(b, x), x, _channel(a, x)).to(dtype)
-        y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
-        with torch.no_grad():
-            mom = self.momentum
-            self.running_mean.copy_(mom * self.running_mean + (1 - mom) * mean)
-            self.running_var.copy_(mom * self.running_var + (1 - mom) * var)
+        y, _, _ = batch_norm_train(x, self.weight, self.bias, self.eps,
+                                   self.running_mean, self.running_var,
+                                   self.momentum)
         return y

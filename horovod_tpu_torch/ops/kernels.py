@@ -6,8 +6,10 @@ Counterpart of ``horovod_tpu/ops/pallas_kernels.py``:
 TPU kernel (Pallas)        CUDA (``csrc/``)       wrapper here
 =========================  =====================  ========================
 ``pack_pallas``            ``pack.cu``            :func:`pack`
-``bn_stats_pallas``        ``bn_stats.cu``        :func:`bn_stats`
-``bn_bwd_stats_pallas``    ``bn_stats.cu``        :func:`bn_bwd_stats`
+``bn_stats_pallas``        ``bn_stats.cu``        :func:`bn_stats`,
+                                                  :func:`bn_forward`
+``bn_bwd_stats_pallas``    ``bn_stats.cu``        :func:`bn_bwd_stats`,
+                                                  :func:`bn_backward`
 ``_triple_kernel``         ``adasum.cu``          :func:`adasum_triple`
 ``_scale_kernel``          ``adasum.cu``          :func:`adasum_scale`
 jax's flash forward        ``flash_fwd_sm90.cu``  :func:`flash_fwd`
@@ -19,9 +21,10 @@ jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
                                                   :func:`flash_seg_bwd_dq`
 =========================  =====================  ========================
 
-The attention kernels take bf16 and fp16 on the Hopper kernels above and
-fp32 on ``flash_attn.cu``'s tf32 family (which also holds di and the C
-entry points).
+The attention kernels take bf16 and fp16 at head dims 64 and 128 (and
+those padded to them) on the Hopper kernels above, and fp32 at any head
+dim and bf16 and fp16 above 128 on ``flash_attn.cu``'s mma.sync family
+(which also holds di and the C entry points).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -35,15 +38,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
-
-_THREADS = 256          # threads per block of the BN kernels (bn_stats.cu)
-_BLOCKS_PER_SM = 8      # BN blocks resident per SM at 256 threads
-_MIN_ROWS_PER_THREAD = 8
-
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
@@ -116,8 +114,78 @@ pack.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2/K3: BatchNorm statistics
+# K2/K3: BatchNorm statistics, with the module's per-channel math
 # ---------------------------------------------------------------------------
+#
+# One kernel launch a call (csrc/bn_stats.cu) for bf16, fp16 or fp32 (M, C)
+# views of any C >= 1, M >= 1 and alignment. Two modes of each kernel: the
+# raw sums (bn_stats, bn_bwd_stats) and the module's per-channel math in the
+# kernel's epilogue (bn_forward, bn_backward), all results in one fp32
+# (rows, C) tensor. Launches of K2 in either mode are counted on bn_stats,
+# of K3 on bn_bwd_stats.
+
+BN_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+BN_ROW_BYTES = 128      # bytes of a channel tile's row (bn_stats.cu)
+BN_STAGE_ROWS = 64      # rows of a stage of the kernels' TMA ring
+BN_MAX_CLUSTER = 8      # CTAs of a cluster of the occupancy plan (portable)
+# A tile whose rows over one cluster's CTAs are at most this many runs as one
+# cluster (of up to 16 CTAs where the card allows it), when that gives the
+# card at least BN_MIN_CTAS CTAs: no partial rows, no ticket.
+BN_ONE_CLUSTER_ROWS = 4096
+BN_MIN_CTAS = 64
+
+
+class BnPlan(NamedTuple):
+    """The grid of one K2/K3 launch: ``ctas`` CTAs for each of ``tiles``
+    channel tiles of ``tile_channels``, in clusters of ``cluster``, each
+    CTA summing ``rows_per_cta`` rows."""
+    tile_channels: int
+    tiles: int
+    ctas: int
+    cluster: int
+    rows_per_cta: int
+
+    @property
+    def clusters(self) -> int:
+        """Clusters of a tile: the partial rows in the workspace."""
+        return self.ctas // self.cluster
+
+    @property
+    def workspace_floats(self) -> int:
+        return self.tiles * self.clusters * 2 * self.tile_channels
+
+
+@functools.lru_cache(maxsize=4096)
+def bn_plan(m: int, c: int, itemsize: int, slots: int, sms: int,
+            max_cluster: int = 16) -> BnPlan:
+    """The grid of K2/K3 on an (m, c) input, on a card of ``sms`` SMs that
+    holds ``slots`` CTAs at once in clusters of ``BN_MAX_CLUSTER`` and runs
+    clusters of up to ``max_cluster``.
+
+    A tile of few rows is one cluster of about sms / tiles CTAs (at least
+    8, at most ``max_cluster``): no partial rows and no ticket, the
+    measured best at ResNet-50's stage 3-4 shapes. Otherwise one wave of
+    ``slots`` spread evenly over the tiles, no more CTAs of a tile than it
+    has stages of rows, in clusters of 4 to 8."""
+    ct = BN_ROW_BYTES // itemsize
+    tiles = -(-c // ct)
+    most = -(-m // BN_STAGE_ROWS)
+    q = min(max_cluster, most, max(BN_MAX_CLUSTER, -(-sms // tiles)))
+    if -(-m // q) <= BN_ONE_CLUSTER_ROWS and (tiles * q >= BN_MIN_CTAS
+                                                or q == most):
+        return BnPlan(ct, tiles, q, q, -(-m // q))
+    n = max(1, min(slots // tiles, most))
+    cluster = min(n, BN_MAX_CLUSTER)
+    if n > BN_MAX_CLUSTER:
+        # the largest cluster that divides n - k, for the smallest k
+        # (one of 4 consecutive counts is a multiple of 4)
+        for k in range(4):
+            q = next((q for q in range(BN_MAX_CLUSTER, 3, -1)
+                      if (n - k) % q == 0), None)
+            if q:
+                n, cluster = n - k, q
+                break
+    return BnPlan(ct, tiles, n, cluster, -(-m // n))
 
 
 def bn_stats_plain(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,59 +203,152 @@ def bn_bwd_stats_plain(dy2d, x2d, mean, invstd):
     return dyf.sum(0), (dyf * xh).sum(0)
 
 
+def bn_forward_plain(x2d, scale, bias, eps: float, running_mean=None,
+                     running_var=None, momentum: float = 0.9):
+    """fp32 [mean, var, invstd, a, b] (5, C) of the reference's
+    ``_fwd_impl`` (fused_batch_norm.py:72-82): var = max(E[x^2] - mean^2,
+    0), invstd = rsqrt(var + eps), a = scale * invstd, b = bias - mean * a;
+    and, when given, flax's EMA of the running statistics in place
+    (running = momentum * running + (1 - momentum) * batch, :152-157)."""
+    s, q = bn_stats_plain(x2d)
+    m = x2d.shape[0]
+    mean = s / m
+    var = torch.clamp(q / m - mean * mean, min=0.0)
+    invstd = torch.rsqrt(var + eps)
+    a = scale.float() * invstd
+    b = bias.float() - mean * a
+    if running_mean is not None:
+        running_mean.copy_(momentum * running_mean + (1 - momentum) * mean)
+        running_var.copy_(momentum * running_var + (1 - momentum) * var)
+    return torch.stack([mean, var, invstd, a, b])
+
+
+def bn_backward_plain(dy2d, x2d, mean, invstd, scale):
+    """fp32 [dgamma, dbeta, a, -a * k1, -a * invstd * k2] (5, C) of the
+    reference's ``_bn_bwd`` (fused_batch_norm.py:90-103): dgamma = sum
+    dy*xhat, dbeta = sum dy, and dx's coefficients, dx = (x - mean) *
+    (-a * invstd * k2) + (-a * k1) + a * dy with a = scale * invstd, k1 =
+    sum dy / M, k2 = sum dy*xhat / M."""
+    s1, s2 = bn_bwd_stats_plain(dy2d, x2d, mean, invstd)
+    m = x2d.shape[0]
+    a = scale.float() * invstd
+    return torch.stack([s2, s1, a, -a * (s1 / m), -a * invstd * (s2 / m)])
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def bn_chunks(m: int, c: int, itemsize: int, sms: int) -> int:
-    """Row chunks of the split-M reduction: enough blocks for one full wave
-    of ``_BLOCKS_PER_SM`` on every SM, but at least
-    ``_MIN_ROWS_PER_THREAD`` rows for every thread."""
-    vcols = c // (16 // itemsize)
-    cols_per_block = min(vcols, _THREADS)
-    rows_per_pass = _THREADS // cols_per_block
-    col_tiles = -(-vcols // cols_per_block)
-    want = -(-(_BLOCKS_PER_SM * sms) // col_tiles)
-    most = -(-m // (rows_per_pass * _MIN_ROWS_PER_THREAD))
-    return max(1, min(want, most))
+@functools.lru_cache(maxsize=None)
+def _bn_card(index: int, code: int, bwd: bool) -> Tuple[int, int, int]:
+    """(slots, SMs, largest cluster) of K2 (K3 with ``bwd``) on device
+    ``index``: the CTAs it holds at once in clusters of BN_MAX_CLUSTER, by
+    the CUDA occupancy calculator, and 16 if it runs clusters of 16."""
+    lib = _lib()
+    n = lib.hvd_bn_max_clusters(index, code, int(bwd), BN_MAX_CLUSTER)
+    if n <= 0:
+        raise RuntimeError(f"bn kernels: no cluster of {BN_MAX_CLUSTER} fits "
+                           f"on device {index} (occupancy {n})")
+    wide = lib.hvd_bn_max_clusters(index, code, int(bwd), 16) > 0
+    return n * BN_MAX_CLUSTER, _sm_count(index), 16 if wide else 8
 
 
 def _check_bn_input(name: str, t: torch.Tensor, c: int, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in (torch.bfloat16, torch.float32):
+    if t.dtype not in BN_DTYPES:
         raise ValueError(f"{name}: dtype {t.dtype} not supported "
-                         "(bfloat16 or float32)")
-    if t.dim() != 2 or t.shape[1] != c:
-        raise ValueError(f"{name}: expected (M, {c}), got {tuple(t.shape)}")
+                         "(float32, bfloat16 or float16)")
+    if t.dim() != 2 or t.shape[1] != c or t.shape[0] < 1:
+        raise ValueError(f"{name}: expected (M >= 1, {c}), got "
+                         f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the (M, C) view is not contiguous (an "
                          "NCHW activation must be channels_last)")
-    vec = 16 // t.element_size()
-    if c % vec or t.data_ptr() % 16:
-        raise ValueError(f"{name}: C={c} must be a multiple of {vec} and the "
-                         "data 16-byte aligned")
+
+
+def _check_channels(named, c: int, device):
+    for name, v in named:
+        if v.shape != (c,) or v.dtype != torch.float32 \
+                or v.device != device or not v.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 ({c},) "
+                             f"tensor on {device}")
+
+
+_BN_WORK = {}   # (device index, stream) -> (fp32 workspace, int32 tickets)
+
+
+def _bn_workspace(device, stream: int, plan: BnPlan):
+    """The workspace and tickets of launches on ``stream``: allocated once
+    and grown, never per call; the kernels leave every ticket at 0."""
+    key = (device.index, stream)
+    have = _BN_WORK.get(key)
+    if have is None or have[0].numel() < plan.workspace_floats \
+            or have[1].numel() < plan.tiles:
+        floats = max(plan.workspace_floats,
+                     have[0].numel() if have else 0)
+        tiles = max(plan.tiles, have[1].numel() if have else 0)
+        have = (torch.empty(floats, dtype=torch.float32, device=device),
+                torch.zeros(tiles, dtype=torch.int32, device=device))
+        _BN_WORK[key] = have
+    return have
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _bn_launch(x2d, dy2d=None, mean=None, invstd=None, epilogue=False,
+               scale=None, bias=None, eps=0.0, running=(None, None),
+               momentum=0.0) -> torch.Tensor:
+    """One launch of K2 (``dy2d`` None) or K3; returns its fp32 (2 or 5, C)
+    output."""
+    m, c = x2d.shape
+    device = x2d.device
+    _check_bn_input("x", x2d, c, device)
+    if dy2d is not None:
+        _check_bn_input("dy", dy2d, c, device)
+        if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype:
+            raise ValueError("dy and x must share shape and dtype")
+        _check_channels((("mean", mean), ("invstd", invstd)), c, device)
+    if epilogue:
+        _check_channels(
+            [("scale", scale)] + ([("bias", bias)] if dy2d is None else [])
+            + [(n, t) for n, t in zip(("running_mean", "running_var"),
+                                      running) if t is not None],
+            c, device)
+    code = BN_DTYPES[x2d.dtype]
+    plan = bn_plan(m, c, x2d.element_size(),
+                   *_bn_card(device.index, code, dy2d is not None))
+    stream = _stream(device)
+    work, tickets = _bn_workspace(device, stream, plan)
+    out = torch.empty(5 if epilogue else 2, c, dtype=torch.float32,
+                      device=device)
+    grid = (plan.ctas, plan.cluster, plan.rows_per_cta, work.data_ptr(),
+            tickets.data_ptr(), int(epilogue))
+    if dy2d is None:
+        _check(_lib().hvd_bn_stats(
+            device.index, code, x2d.data_ptr(), m, c, *grid,
+            _ptr(scale), _ptr(bias), eps, _ptr(running[0]), _ptr(running[1]),
+            momentum, 1.0 - momentum, out.data_ptr(), stream), "bn_stats")
+        bn_stats.launches += 1
+    else:
+        _check(_lib().hvd_bn_bwd_stats(
+            device.index, code, dy2d.data_ptr(),
+            x2d.data_ptr(), mean.data_ptr(), invstd.data_ptr(), m, c, *grid,
+            _ptr(scale), out.data_ptr(), stream), "bn_bwd_stats")
+        bn_bwd_stats.launches += 1
+    return out
 
 
 def bn_stats(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (sum, sum of squares) of an (M, C) activation, fp32 out,
-    in one read of ``x2d``."""
+    in one read of ``x2d`` (K2's raw mode)."""
     if x2d.device.type == "cpu":
         return bn_stats_plain(x2d)
-    m, c = x2d.shape
-    _check_bn_input("x", x2d, c, x2d.device)
-    device = x2d.device
-    chunks = bn_chunks(m, c, x2d.element_size(), _sm_count(device.index))
-    partial = torch.empty(2 * chunks * c, dtype=torch.float32, device=device)
-    s = torch.empty(c, dtype=torch.float32, device=device)
-    q = torch.empty(c, dtype=torch.float32, device=device)
-    _check(_lib().hvd_bn_stats(
-        device.index, x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), m, c,
-        chunks, partial.data_ptr(), s.data_ptr(), q.data_ptr(),
-        _stream(device)), "bn_stats")
-    bn_stats.launches += 1
-    return s, q
+    out = _bn_launch(x2d)
+    return out[0], out[1]
 
 
 bn_stats.launches = 0
@@ -195,34 +356,38 @@ bn_stats.launches = 0
 
 def bn_bwd_stats(dy2d, x2d, mean, invstd):
     """Per-channel (sum(dy), sum(dy * (x - mean) * invstd)) in one read of
-    ``dy2d`` and ``x2d``; ``mean``/``invstd`` are fp32 (C,)."""
+    ``dy2d`` and ``x2d``; ``mean``/``invstd`` are fp32 (C,) (K3's raw
+    mode)."""
     if x2d.device.type == "cpu":
         return bn_bwd_stats_plain(dy2d, x2d, mean, invstd)
-    m, c = x2d.shape
-    device = x2d.device
-    _check_bn_input("x", x2d, c, device)
-    _check_bn_input("dy", dy2d, c, device)
-    if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype:
-        raise ValueError("dy and x must share shape and dtype")
-    for name, v in (("mean", mean), ("invstd", invstd)):
-        if v.shape != (c,) or v.dtype != torch.float32 or v.device != device \
-                or not v.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 ({c},) "
-                             f"tensor on {device}")
-    chunks = bn_chunks(m, c, x2d.element_size(), _sm_count(device.index))
-    partial = torch.empty(2 * chunks * c, dtype=torch.float32, device=device)
-    s1 = torch.empty(c, dtype=torch.float32, device=device)
-    s2 = torch.empty(c, dtype=torch.float32, device=device)
-    _check(_lib().hvd_bn_bwd_stats(
-        device.index, dy2d.data_ptr(), x2d.data_ptr(), mean.data_ptr(),
-        invstd.data_ptr(), int(x2d.dtype == torch.bfloat16), m, c, chunks,
-        partial.data_ptr(), s1.data_ptr(), s2.data_ptr(), _stream(device)),
-        "bn_bwd_stats")
-    bn_bwd_stats.launches += 1
-    return s1, s2
+    out = _bn_launch(x2d, dy2d, mean, invstd)
+    return out[0], out[1]
 
 
 bn_bwd_stats.launches = 0
+
+
+def bn_forward(x2d, scale, bias, eps: float, running_mean=None,
+               running_var=None, momentum: float = 0.9) -> torch.Tensor:
+    """:func:`bn_forward_plain` in one launch of K2 (the EMA, when the
+    running statistics are given, in place in its epilogue); ``scale``,
+    ``bias`` and the running statistics are fp32 (C,)."""
+    if x2d.device.type == "cpu":
+        return bn_forward_plain(x2d, scale, bias, eps, running_mean,
+                                running_var, momentum)
+    if (running_mean is None) != (running_var is None):
+        raise ValueError("bn_forward: give both running statistics or "
+                         "neither")
+    return _bn_launch(x2d, epilogue=True, scale=scale, bias=bias, eps=eps,
+                      running=(running_mean, running_var), momentum=momentum)
+
+
+def bn_backward(dy2d, x2d, mean, invstd, scale) -> torch.Tensor:
+    """:func:`bn_backward_plain` in one launch of K3; ``mean``, ``invstd``
+    and ``scale`` are fp32 (C,)."""
+    if x2d.device.type == "cpu":
+        return bn_backward_plain(dy2d, x2d, mean, invstd, scale)
+    return _bn_launch(x2d, dy2d, mean, invstd, epilogue=True, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -355,14 +520,15 @@ adasum_scale.launches = 0
 # fp32 [B, H, Tq], contiguous. Causal is the library kernel's rule, key <=
 # query by absolute index (``_causal_mask``). The backward takes lse and di
 # from outside: under a global lse, as ring attention's per-block backward
-# needs, it is the same kernel. The kernels are built for the head dims of
-# FLASH_HEAD_DIMS; any other D <= 128 is zero-padded to the next of them
-# (zero columns change neither q kᵀ nor the softmax, and the padded columns
-# of o, dq, dk and dv come out 0) and the outputs are views sliced back to
-# D. A head dim above 128 raises (ROADMAP C3: no model the repo ships has
-# one).
+# needs, it is the same kernel. The Hopper kernels (bf16, fp16) are built
+# for the head dims of FLASH_HEAD_DIMS; any head dim runs: D <= 128 is
+# zero-padded to the next of them, and a larger D to the next multiple of
+# 64 for ``flash_attn.cu``'s mma.sync family, which splits it into slices
+# of 128 output columns (zero columns change neither q kᵀ nor the softmax,
+# and the padded columns of o, dq, dk and dv come out 0); the outputs are
+# views sliced back to D.
 
-FLASH_HEAD_DIMS = (64, 128)      # the head dims the kernels are built for
+FLASH_HEAD_DIMS = (64, 128)      # the head dims of the Hopper kernels
 _FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -429,21 +595,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal: bool,
 
 
 def _flash_dim(d: int) -> int:
-    """The built head dim that a head dim of ``d`` runs at."""
+    """The head dim that a head dim of ``d`` runs at: the next of
+    FLASH_HEAD_DIMS, or above 128 the next multiple of 64."""
     for built in FLASH_HEAD_DIMS:
         if d <= built:
             return built
-    raise ValueError(
-        f"flash attention on CUDA takes head dims up to "
-        f"{FLASH_HEAD_DIMS[-1]}; got {d} (ROADMAP C3: a larger instance "
-        "needs more registers than the kernels' consumers hold)")
+    return -(-d // 64) * 64
 
 
 def flash_strides_ok(t: torch.Tensor) -> bool:
     """Whether the CUDA kernels take ``t``'s memory as it is: a contiguous
     head dim, B/H/T strides that are multiples of 8 elements and 16-byte
     aligned data. A tensor whose head dim is padded is copied anyway."""
-    if t.shape[-1] not in FLASH_HEAD_DIMS:
+    if t.shape[-1] != _flash_dim(t.shape[-1]):
         return True
     return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
@@ -451,9 +615,9 @@ def flash_strides_ok(t: torch.Tensor) -> bool:
 
 def _check_flash(named):
     """Raise on what the CUDA kernels do not take: tensors on one CUDA
-    device, of one of the kernels' dtypes, 4-d with one B, H and D (D at
-    most 128), in memory the kernels take unless D is padded. Returns
-    (dtype code, device, the built head dim)."""
+    device, of one of the kernels' dtypes, 4-d with one B, H and D, in
+    memory the kernels take unless D is padded. Returns (dtype code,
+    device, the head dim the kernels run at)."""
     device = dtype = dims = None
     for name, t in named:
         if t.device.type != "cuda" or (device is not None
@@ -474,7 +638,6 @@ def _check_flash(named):
                              f"{tuple(t.shape)}; expected [B, H, T, D] "
                              "with the B, H and D of the others")
         dims = (t.shape[0], t.shape[1], t.shape[3])
-        _flash_dim(t.shape[-1])
         if not flash_strides_ok(t):
             raise ValueError(
                 f"flash attention: {name} needs a contiguous head dim, B/H/T "
@@ -509,12 +672,16 @@ def _strides(*ts) -> ctypes.Array:
         *[s for t in ts for s in t.stride()[:3]])
 
 
-def _launched(fn, code: int):
-    """One launch of ``fn``'s kernel; fp32 inputs (``flash_attn.cu``'s tf32
-    family, a kernel of its own) are also counted in ``tf32_launches``."""
+def _launched(fn, code: int, dp: int):
+    """One launch of ``fn``'s kernel; the kernels of ``flash_attn.cu``'s
+    mma.sync family, kernels of their own, are also counted apart: fp32
+    inputs in ``tf32_launches``, bf16 and fp16 above head dim 128 in
+    ``wide_launches``."""
     fn.launches += 1
     if code == _FLASH_DTYPES[torch.float32]:
         fn.tf32_launches += 1
+    elif dp > FLASH_HEAD_DIMS[-1]:
+        fn.wide_launches += 1
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):
@@ -531,11 +698,11 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o), b, h, tq, tk, dp,
         int(causal), scale, _stream(device)), "flash_fwd")
-    _launched(flash_fwd, code)
+    _launched(flash_fwd, code, dp)
     return o[..., :d], lse
 
 
-flash_fwd.launches = flash_fwd.tf32_launches = 0
+flash_fwd.launches = 0
 
 
 def flash_bwd_pre(o, do):
@@ -581,11 +748,11 @@ def flash_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, tq, tk, dp,
         int(causal), scale, _stream(device)), "flash_bwd_dkdv")
-    _launched(flash_bwd_dkdv, code)
+    _launched(flash_bwd_dkdv, code, dp)
     return dk[..., :d], dv[..., :d]
 
 
-flash_bwd_dkdv.launches = flash_bwd_dkdv.tf32_launches = 0
+flash_bwd_dkdv.launches = 0
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
@@ -601,11 +768,11 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do, dq), b, h, tq, tk, dp, int(causal), scale,
         _stream(device)), "flash_bwd_dq")
-    _launched(flash_bwd_dq, code)
+    _launched(flash_bwd_dq, code, dp)
     return dq[..., :d]
 
 
-flash_bwd_dq.launches = flash_bwd_dq.tf32_launches = 0
+flash_bwd_dq.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -722,11 +889,11 @@ def flash_seg_fwd(q, k, v, causal: bool, scale: float):
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _seg_strides([q, k, v], [o], [lse]), b,
         h, s, s, dp, int(causal), scale, _stream(device)), "flash_seg_fwd")
-    _launched(flash_seg_fwd, code)
+    _launched(flash_seg_fwd, code, dp)
     return o[..., :d], lse
 
 
-flash_seg_fwd.launches = flash_seg_fwd.tf32_launches = 0
+flash_seg_fwd.launches = 0
 
 
 def flash_seg_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
@@ -743,11 +910,11 @@ def flash_seg_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
         dv.data_ptr(), _seg_strides([q, k, v, do], [dk, dv], [lse, di]), b,
         h, s, s, dp, int(causal), scale, _stream(device)),
         "flash_seg_bwd_dkdv")
-    _launched(flash_seg_bwd_dkdv, code)
+    _launched(flash_seg_bwd_dkdv, code, dp)
     return dk[..., :d], dv[..., :d]
 
 
-flash_seg_bwd_dkdv.launches = flash_seg_bwd_dkdv.tf32_launches = 0
+flash_seg_bwd_dkdv.launches = 0
 
 
 def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
@@ -763,32 +930,38 @@ def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, s, dp,
         int(causal), scale, _stream(device)), "flash_seg_bwd_dq")
-    _launched(flash_seg_bwd_dq, code)
+    _launched(flash_seg_bwd_dq, code, dp)
     return dq[..., :d]
 
 
-flash_seg_bwd_dq.launches = flash_seg_bwd_dq.tf32_launches = 0
+flash_seg_bwd_dq.launches = 0
 
 
 KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
            flash_fwd, flash_bwd_pre, flash_bwd_dkdv, flash_bwd_dq,
            flash_seg_fwd, flash_seg_bwd_dkdv, flash_seg_bwd_dq)
-# wrappers whose fp32 inputs launch a kernel of their own (the tf32 family)
-TF32_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
-                flash_seg_bwd_dkdv, flash_seg_bwd_dq)
+# wrappers some of whose inputs launch the mma.sync family, a kernel of its
+# own: fp32 (tf32) at any head dim, bf16 and fp16 above head dim 128 (wide)
+MMA_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
+               flash_seg_bwd_dkdv, flash_seg_bwd_dq)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
-    for k in TF32_KERNELS:
-        k.tf32_launches = 0
+    for k in MMA_KERNELS:
+        k.tf32_launches = k.wide_launches = 0
 
 
 def launch_counts() -> dict:
-    """Launches by wrapper (every dtype), and ``<wrapper>_tf32``: those of
-    the tf32 family alone."""
+    """Launches by wrapper (every dtype and head dim), ``<wrapper>_tf32``:
+    those of the mma.sync family on fp32 inputs, and ``<wrapper>_wide``:
+    those of the family on bf16 and fp16 inputs above head dim 128."""
     counts = {k.__name__: k.launches for k in KERNELS}
-    counts.update({f"{k.__name__}_tf32": k.tf32_launches
-                   for k in TF32_KERNELS})
+    for k in MMA_KERNELS:
+        counts[f"{k.__name__}_tf32"] = k.tf32_launches
+        counts[f"{k.__name__}_wide"] = k.wide_launches
     return counts
+
+
+reset_launch_counts()

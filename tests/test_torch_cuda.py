@@ -62,18 +62,68 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("m,c", [(802816, 64), (12544, 1024), (3136, 2048),
-                                 (777, 384)])
+# the 12 distinct (M, C) of ResNet-50's 53 BN layers at batch 64, 224 px
+RESNET50_BN_SHAPES = [
+    (802816, 64), (200704, 64), (200704, 256), (200704, 128), (50176, 128),
+    (50176, 512), (50176, 256), (12544, 256), (12544, 1024), (12544, 512),
+    (3136, 512), (3136, 2048)]
+# every ResNet-50 shape in bf16; fp32 at some; inputs the TMA route does
+# not take (fp16 C = 3, bf16 C = 12: a row pitch that is not a multiple of
+# 16 bytes), one row, and a channel count that ends inside a tile
+BN_CASES = ([(torch.bfloat16, m, c) for m, c in RESNET50_BN_SHAPES]
+            + [(torch.float32, m, c) for m, c in
+               [(802816, 64), (12544, 1024), (3136, 2048), (777, 384)]]
+            + [(torch.float16, 4096, 3), (torch.bfloat16, 1000, 12),
+               (torch.float16, 1, 64), (torch.float32, 1, 3),
+               (torch.float16, 50176, 200)])
+EPS32 = 2.0 ** -23
+
+
+def _bn_inputs(dev, m, c, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(m, c, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    dy = torch.randn(m, c, device=dev, generator=gen).to(dtype)
+    scale = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    return x, dy, scale, bias
+
+
+def _fwd_epilogue(s, q, m, scale, bias, eps):
+    """bn_forward_plain's math from given sums."""
+    mean = s / m
+    var = torch.clamp(q / m - mean * mean, min=0.0)
+    invstd = torch.rsqrt(var + eps)
+    a = scale * invstd
+    return torch.stack([mean, var, invstd, a, bias - mean * a])
+
+
+def _bwd_epilogue(s1, s2, m, invstd, scale):
+    """bn_backward_plain's math from given sums."""
+    a = scale * invstd
+    return torch.stack([s2, s1, a, -a * (s1 / m), -a * invstd * (s2 / m)])
+
+
+def _assert_ulps(got, want, n=8):
+    """Within n fp32 units of the largest entry of each row: the epilogue
+    from the same sums, rsqrt approximated in both."""
+    tol = n * EPS32 * want.abs().amax(-1, keepdim=True) + 1e-30
+    assert bool(((got - want).abs() <= tol).all()), \
+        float(((got - want).abs() - tol).max())
+
+
+@pytest.mark.parametrize("dtype,m,c", BN_CASES)
 def test_cuda_bn_kernels_match_plain(cuda, dtype, m, c):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(m, c, device=cuda, generator=gen).to(dtype)
-    dy = torch.randn(m, c, device=cuda, generator=gen).to(dtype)
+    """K2/K3 in both modes against their plain versions: the sums within
+    1e-5 of sum |terms|; the epilogues (and the EMA in place) within a few
+    fp32 units of the module's math on the kernel's own sums; two runs
+    bitwise equal; one launch each."""
+    x, dy, scale, bias = _bn_inputs(cuda, m, c, dtype)
+    n0 = K.launch_counts()
     s, q = K.bn_stats(x)
     s_ref, q_ref = K.bn_stats_plain(x)
     xf, dyf = x.float(), dy.float()
     mean = s_ref / m
-    invstd = torch.rsqrt(q_ref / m - mean * mean + 1e-5)
+    invstd = torch.rsqrt(torch.clamp(q_ref / m - mean * mean, min=0) + 1e-5)
     s1, s2 = K.bn_bwd_stats(dy, x, mean, invstd)
     s1_ref, s2_ref = K.bn_bwd_stats_plain(dy, x, mean, invstd)
     xh = (xf - mean) * invstd
@@ -83,6 +133,47 @@ def test_cuda_bn_kernels_match_plain(cuda, dtype, m, c):
         assert bool(((got - want).abs() <= bound + 1e-6).all())
     again = K.bn_stats(x)
     assert torch.equal(again[0], s) and torch.equal(again[1], q)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rm = torch.randn(c, device=cuda, generator=gen)
+    rv = 1 + torch.rand(c, device=cuda, generator=gen)
+    rm0, rv0 = rm.clone(), rv.clone()
+    fwd = K.bn_forward(x, scale, bias, 1e-5, rm, rv, 0.9)
+    want = _fwd_epilogue(s, q, m, scale, bias, 1e-5)
+    _assert_ulps(fwd, want)
+    _assert_ulps(torch.stack([rm, rv]),
+                 torch.stack([0.9 * rm0 + (1 - 0.9) * fwd[0],
+                              0.9 * rv0 + (1 - 0.9) * fwd[1]]))
+    assert torch.equal(K.bn_forward(x, scale, bias, 1e-5), fwd)
+    bwd = K.bn_backward(dy, x, fwd[0], fwd[2], scale)
+    b1, b2 = K.bn_bwd_stats(dy, x, fwd[0], fwd[2])
+    _assert_ulps(bwd, _bwd_epilogue(b1, b2, m, fwd[2], scale))
+    assert torch.equal(K.bn_backward(dy, x, fwd[0], fwd[2], scale), bwd)
+    counts = K.launch_counts()
+    assert counts["bn_stats"] == n0["bn_stats"] + 4
+    assert counts["bn_bwd_stats"] == n0["bn_bwd_stats"] + 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_cuda_bn_kernels_route_does_not_change_the_bits(cuda, dtype):
+    """An (M, C) view 2 or 4 bytes past a 16-byte boundary takes the plain
+    loads, its aligned copy TMA: the same elements summed in the same
+    order, the same bits, in both modes."""
+    m, c = 3136, 512
+    base = torch.randn(m * c + 1, device=cuda).to(dtype)
+    x = base[1:].view(m, c)
+    dy = torch.randn(m * c + 1, device=cuda).to(dtype)[1:].view(m, c)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    xc, dyc = x.clone(), dy.clone()
+    assert xc.data_ptr() % 16 == 0
+    for a, b in zip(K.bn_stats(x), K.bn_stats(xc)):
+        assert torch.equal(a, b)
+    scale = torch.ones(c, device=cuda)
+    fwd = K.bn_forward(x, scale, torch.zeros(c, device=cuda), 1e-5)
+    assert torch.equal(fwd, K.bn_forward(xc, scale, torch.zeros_like(scale),
+                                         1e-5))
+    assert torch.equal(K.bn_backward(dy, x, fwd[0], fwd[2], scale),
+                       K.bn_backward(dyc, xc, fwd[0], fwd[2], scale))
 
 
 def test_cuda_bn_kernels_reject_what_they_do_not_take(cuda):
@@ -90,9 +181,95 @@ def test_cuda_bn_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         K.bn_stats(x.t())                       # not contiguous
     with pytest.raises(ValueError):
-        K.bn_stats(x.half())                    # dtype
+        K.bn_stats(x.double())                  # dtype
     with pytest.raises(ValueError):
-        K.bn_stats(torch.zeros(64, 12, device=cuda, dtype=torch.bfloat16))
+        K.bn_stats(x[:0])                       # no rows
+    with pytest.raises(ValueError):
+        K.bn_forward(x, torch.ones(128, device=cuda, dtype=torch.float16),
+                     torch.zeros(128, device=cuda), 1e-5)   # scale's dtype
+    with pytest.raises(ValueError):
+        K.bn_bwd_stats(x, x.float(), torch.zeros(128, device=cuda),
+                       torch.ones(128, device=cuda))        # mixed dtypes
+
+
+def _kernel_launches(fn):
+    """The CUDA kernels (and copies) that ``fn`` runs, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_cuda_fused_batch_norm_launches_per_layer(cuda, dtype):
+    """One FusedBatchNorm layer issues at most 2 kernels forward (K2 with
+    the EMA in its epilogue, the affine) and 4 backward (K3, dx's three
+    passes)."""
+    bn = FusedBatchNorm(64, dtype=dtype).to(cuda)
+    x = torch.randn(8, 64, 14, 14, device=cuda).to(dtype).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    dy = torch.randn_like(x)
+    bn(x).backward(dy)                          # warm up
+    bn.zero_grad(set_to_none=True)
+    x.grad = None
+    out = {}
+    fwd = _kernel_launches(lambda: out.setdefault("y", bn(x)))
+    bwd = _kernel_launches(lambda: out["y"].backward(dy))
+    assert 1 <= len(fwd) <= 2, fwd
+    assert 1 <= len(bwd) <= 4, bwd
+    assert sum("bn_stats_kernel" in n for n in fwd + bwd) == 2
+
+
+def test_cuda_fused_batch_norm_fp16_trains(cuda):
+    """FusedBatchNorm(dtype=float16) on the card against its CPU path:
+    outputs and dx within fp16's epsilon of the largest entry, the
+    parameter gradients and running statistics within 1e-3; SGD steps
+    through it stay finite and lower the loss."""
+    rng = np.random.RandomState(1)
+    x = (rng.randn(16, 12, 9, 9) * 2 + 0.5).astype(np.float16)
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        bn = FusedBatchNorm(12, dtype=torch.float16).to(dev)
+        xt = torch.tensor(x, device=dev).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        y = bn(xt)
+        torch.sin(y.float()).sum().backward()
+        outs[dev.type] = [t.detach().float().cpu() for t in
+                          (y, xt.grad, bn.weight.grad, bn.bias.grad,
+                           bn.running_mean, bn.running_var)]
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        tol = (2 * 2.0 ** -10 if i < 2 else 1e-3) * float(a.abs().max())
+        assert float((a - b).abs().max()) <= tol + 1e-6, i
+    bn = FusedBatchNorm(12, dtype=torch.float16).to(cuda)
+    opt = torch.optim.SGD(bn.parameters(), lr=0.1)
+    xt = torch.tensor(x, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    target = torch.randn(xt.shape, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    losses = []
+    for _ in range(5):
+        opt.zero_grad()
+        loss = ((bn(xt).float() - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_cuda_bn_and_mma_kernels_do_not_spill(cuda):
+    """The build's ptxas report: no kernel of bn_stats.cu or flash_attn.cu
+    (the mma.sync family, every slice width and type) spills."""
+    from horovod_tpu_torch.ops import build
+    for stem in ("bn_stats", "flash_attn"):
+        report = build.ptxas_report(stem)
+        assert report, stem
+        for name, r in report.items():
+            assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
 
 
 def test_cuda_pack_is_bitwise(cuda):
@@ -280,19 +457,19 @@ def test_cuda_flash_kernels_match_plain(cuda, d, causal, t, layout):
 
 
 def test_cuda_flash_rejects_what_it_does_not_take(cuda):
-    """A head dim above 128 (ROADMAP C3), mixed dtypes and float64 raise;
-    every dtype, head dim and length pair the reference computes runs (the
-    next test)."""
+    """Mixed dtypes and float64 raise; every dtype, head dim and length
+    pair the reference computes runs (the next tests), a head dim above 128
+    too."""
     q, k, v, _ = _flash_inputs(cuda, 1, 2, 64, 64, "bhtk")
     with pytest.raises(ValueError, match="one dtype"):
         K.flash_fwd(q, k.float(), v, True, 0.125)
     with pytest.raises(ValueError, match="float32"):
         K.flash_fwd(q.double(), k.double(), v.double(), True, 0.125)
     q192 = torch.zeros(1, 2, 64, 192, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        K.flash_fwd(q192, q192, q192, True, 0.1)
-    with pytest.raises(ValueError, match="ROADMAP C3"):
-        flash_attention_local(q192, q192, q192, layout="bhtk")
+    o, lse = K.flash_fwd(q192, q192, q192, True, 0.1)
+    assert o.shape == q192.shape and lse.shape == (1, 2, 64)
+    out = flash_attention_local(q192, q192, q192, layout="bhtk")
+    assert out.shape == q192.shape
 
 
 # (dtype, head dim, Tq, Tk): fp16 and fp32 inputs, head dims the kernels pad
@@ -329,6 +506,37 @@ def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
     flash_attention_local computes: fp16 and fp32, head dims the kernels
     pad, and Tq != Tk (causal: key <= query by absolute index); outputs in
     the input dtype, sliced back to the head dim, one launch each."""
+    _check_k6_case(cuda, dtype, d, tq, tk, causal)
+
+
+# head dims above 128: the mma.sync family in slices of 128 columns
+WIDE_DIMS = [160, 256, 320]
+WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+@pytest.mark.parametrize("causal,tq,tk", [(True, 130, 130), (False, 96, 160),
+                                          (True, 160, 96)])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("dtype", WIDE_DTYPES)
+def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
+    """Every K6 entry point at head dims 160 (padded to 192), 256 and 320
+    in bf16, fp16 and fp32, causal and full, Tq != Tk: within the flash
+    limits, counted as the wide (16-bit) or tf32 instances, dq repeats
+    bitwise."""
+    counted = "tf32" if dtype == torch.float32 else "wide"
+    n0 = K.launch_counts()
+    q, k, v, do, lse, di, dq = _check_k6_case(cuda, dtype, d, tq, tk, causal)
+    n1 = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert n1[f"{name}_{counted}"] == n0[f"{name}_{counted}"] + 1
+    scale = d ** -0.5
+    assert torch.equal(K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale),
+                       dq)
+
+
+def _check_k6_case(cuda, dtype, d, tq, tk, causal):
+    """One K6 forward and backward against the plain versions; returns the
+    inputs, lse, di and dq."""
     q, k, v, do = _flash_inputs(cuda, 2, 3, tq, d, "bthk", dtype=dtype,
                                 tk=tk)
     scale = d ** -0.5
@@ -361,6 +569,7 @@ def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
         _check_flash_case(got, want, plain, name, dtype)
     torch.testing.assert_close(di, K.flash_bwd_pre_plain(o, do), rtol=1e-5,
                                atol=1e-5)
+    return q, k, v, do, lse, di, dq
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -603,6 +812,24 @@ def test_cuda_seg_kernels_take_every_dtype(cuda, dtype, d, part):
     """K7 with fp16 and fp32 inputs and a padded head dim, on strided
     halves: fp32 outputs within K6's limits, the same bits on contiguous
     copies."""
+    _check_k7_case(cuda, dtype, d, part)
+
+
+@pytest.mark.parametrize("part", ["full", "diag"])
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("dtype", WIDE_DTYPES)
+def test_cuda_seg_kernels_take_any_head_dim(cuda, dtype, d, part):
+    """The three K7 entry points at head dims 160, 256 and 320 in bf16,
+    fp16 and fp32 on strided halves, as the previous test."""
+    counted = "tf32" if dtype == torch.float32 else "wide"
+    n0 = K.launch_counts()
+    _check_k7_case(cuda, dtype, d, part)
+    n1 = K.launch_counts()
+    for name in ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq"):
+        assert n1[f"{name}_{counted}"] >= n0[f"{name}_{counted}"] + 2
+
+
+def _check_k7_case(cuda, dtype, d, part):
     s = 200
     q, k, v, do = _flash_inputs(cuda, 2, 3, 2 * s, d, "bthk", seed=7,
                                 dtype=dtype)

@@ -258,3 +258,48 @@ def test_flash_causal_attention_of_different_lengths_follows_library_rule(
     want.backward(dot.double())
     for g, w in zip(got, (want.detach(), q64.grad, k64.grad, v64.grad)):
         _close(g.numpy(), w.numpy(), TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 256, 320])
+def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
+    """Head dims that the CUDA kernels split into slices of 128 columns
+    (160 padded to 192, 256, 320): flash_attention_local's output against
+    the reference's and (fp32) its gradients against jax.vjp of it, and
+    local_attention against the reference's."""
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(24, dtype, 12, 4, d)
+    want = _reference_out_and_grads(qj, kj, vj, doj, causal)
+    got = _port_out_and_grads(qt, kt, vt, dot, causal)
+    assert got[0].dtype == qt.dtype and tuple(got[0].shape) == want[0].shape
+    _close(got[0].float().numpy(), want[0], TOL[dtype])
+    if dtype == "float32":
+        for g, w in zip(got[1:], want[1:]):
+            _close(g.numpy(), w, TOL[dtype])
+    local = local_attention(qt, kt, vt, causal=causal)
+    _close(local.float().numpy(),
+           np.asarray(jax_local_attention(qj, kj, vj, causal=causal),
+                      np.float32), TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [160, 256, 320])
+def test_flash_head_dims_above_128_of_different_lengths(d):
+    """Tq != Tk above head dim 128: full attention against the reference's
+    (output and gradients, fp32), causal attention against a float64
+    computation of the library kernel's rule (key <= query by absolute
+    index)."""
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(20, "float32", 13, 4,
+                                                       d, tk=36)
+    want = _reference_out_and_grads(qj, kj, vj, doj, False)
+    got = _port_out_and_grads(qt, kt, vt, dot, False)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w, TOL["float32"])
+    got = _port_out_and_grads(qt, kt, vt, dot, True)
+    q64, k64, v64 = (x.double().requires_grad_() for x in (qt, kt, vt))
+    s = torch.einsum("bqhd,bkhd->bhqk", q64, k64) / math.sqrt(d)
+    visible = torch.arange(36)[None, :] <= torch.arange(20)[:, None]
+    p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v64)
+    out.backward(dot.double())
+    for g, w in zip(got, (out.detach(), q64.grad, k64.grad, v64.grad)):
+        _close(g.numpy(), w.numpy(), TOL["float32"])

@@ -100,19 +100,56 @@ def test_pack_rejects_mixed_dtypes_and_empty():
         K.pack([])
 
 
+SLOTS = 2 * 132     # 2 CTAs an SM of a 132-SM card, in clusters of 8
+
+
 @pytest.mark.parametrize("m,c", [(802816, 64), (200704, 256),
                                  (12544, 1024), (3136, 2048)])
-def test_bn_chunks_fill_an_h100_at_resnet50_shapes(m, c):
-    """At least 2 blocks per SM of a 132-SM card at every ResNet-50 shape
-    (batch 64), including the small-M layers."""
-    vcols = c // 8
-    col_tiles = -(-vcols // min(vcols, 256))
-    assert K.bn_chunks(m, c, 2, 132) * col_tiles >= 2 * 132
+def test_bn_plan_fills_an_h100_at_resnet50_shapes(m, c):
+    """At least one CTA per SM of a 132-SM card and no more than one wave
+    at every ResNet-50 shape (batch 64, bf16), including the small-M
+    layers; whole clusters of 4 to 16, and every row in some CTA's
+    range."""
+    plan = K.bn_plan(m, c, 2, SLOTS, 132)
+    assert plan.tile_channels == 64 and plan.tiles == -(-c // 64)
+    assert 132 <= plan.tiles * plan.ctas <= SLOTS
+    assert 4 <= plan.cluster <= 16 and plan.ctas % plan.cluster == 0
+    assert plan.ctas * plan.rows_per_cta >= m
 
 
-def test_bn_chunks_keep_rows_per_thread_on_tiny_inputs():
-    assert K.bn_chunks(10, 64, 4, 132) == 1
-    assert K.bn_chunks(0, 64, 2, 132) == 1
+@pytest.mark.parametrize("m,c,itemsize", [(1, 3, 4), (1, 3, 2), (10, 64, 4)])
+def test_bn_plan_keeps_tiny_inputs_in_one_cta(m, c, itemsize):
+    """Fewer rows than one stage: one CTA, a cluster of one, no
+    workspace rows beyond the tile's own."""
+    plan = K.bn_plan(m, c, itemsize, SLOTS, 132)
+    assert (plan.ctas, plan.cluster, plan.clusters) == (1, 1, 1)
+    assert plan.tile_channels == 128 // itemsize
+    assert plan.rows_per_cta >= m
+    assert plan.tiles == -(-c // plan.tile_channels)
+
+
+def test_bn_plan_cluster_and_workspace_at_the_stem():
+    """M=802,816 C=64 is one channel tile of 103 MB: 33 clusters of 8 CTAs
+    each write one partial row, and the last sums all 33; a card that holds
+    fewer clusters gets fewer."""
+    plan = K.bn_plan(802816, 64, 2, SLOTS, 132)
+    assert (plan.tiles, plan.ctas, plan.cluster, plan.clusters) == \
+        (1, 264, 8, 33)
+    assert plan.workspace_floats == 33 * 2 * 64
+    assert plan.rows_per_cta == 3041
+    assert K.bn_plan(802816, 64, 2, 240, 132).clusters == 30
+
+
+def test_bn_plan_clusters_divide_odd_counts():
+    """66 CTAs a tile (M=200704 C=256 on 264 slots) are 11 clusters of 6,
+    with a ticket; a tile of few rows is one cluster, no ticket: 16 CTAs at
+    M=3136 C=512 (8 of them on a card that runs no cluster above 8), 9 at
+    M=12544 C=1024 (16 tiles on 132 SMs)."""
+    assert K.bn_plan(200704, 256, 2, SLOTS, 132)[2:4] == (66, 6)
+    for m, c, cap, n in ((3136, 512, 16, 16), (3136, 512, 8, 8),
+                         (12544, 1024, 16, 9)):
+        plan = K.bn_plan(m, c, 2, SLOTS, 132, cap)
+        assert (plan.ctas, plan.cluster, plan.clusters) == (n, n, 1)
 
 
 PTXAS_SAMPLE = """\

@@ -152,6 +152,32 @@ def test_force_ring_single_rank_matches_reference(layout):
     assert R.SEGMENTS == {"forward": per_pass, "backward": per_pass}
 
 
+@pytest.mark.parametrize("layout,causal", [("zigzag", True),
+                                           ("contiguous", True),
+                                           ("contiguous", False)])
+def test_force_ring_at_head_dim_256_matches_reference(layout, causal):
+    """The ring path (n = 1, force_ring) at head dim 256, which the CUDA
+    segment kernels split into slices of 128 columns: output and q/k/v
+    gradients against the reference's force_ring on a 1-device mesh."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (rng.randn(1, 16, 2, 256).astype(np.float32) * s
+                   for s in (0.1, 0.1, 1.0, 1.0))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("seq",))
+    fn = jax.shard_map(
+        lambda q, k, v: JR.ring_attention_p(q, k, v, "seq", 1, causal=causal,
+                                            layout=layout, force_ring=True),
+        mesh=mesh, in_specs=(P(None, "seq"),) * 3, out_specs=P(None, "seq"))
+    want, want_grads = _out_and_grads(fn, q, k, v, do)
+    ins = [torch.tensor(x).requires_grad_() for x in (q, k, v)]
+    out = R.ring_attention_p(*ins, None, 1, causal=causal, layout=layout,
+                             force_ring=True)
+    out.backward(torch.tensor(do))
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL)
+    for x, w in zip(ins, want_grads):
+        np.testing.assert_allclose(x.grad.numpy(), w, rtol=RTOL, atol=ATOL)
+
+
 def test_single_rank_routes_to_flash_attention():
     rng = np.random.RandomState(6)
     q, k, v = (torch.tensor(rng.randn(1, 12, 2, 8), dtype=torch.float32)
