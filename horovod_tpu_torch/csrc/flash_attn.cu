@@ -1,24 +1,31 @@
 // Flash attention: the C entry points of K6 and K7, di = rowsum(dO o O)
 // (K6b) for every input type and head dim, and the mma.sync family of the
 // forward and the backward: fp32 inputs at every head dim, and bf16 and
-// fp16 inputs at head dims above 128.
+// fp16 inputs where the Hopper kernels do not run.
 //
 // Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py:
 // flash_attention_local takes from jax's library (the flash / splash
 // forward and its custom-VJP backward, _flash_attention_bwd_dkv and
 // _flash_attention_bwd_dq) and ring attention's per-segment kernels
 // (horovod_tpu/parallel/ring_attention.py: _seg_fwd_pallas,
-// _seg_bwd_pallas). bf16 and fp16 inputs of head dim 64 or 128 run the
-// Hopper kernels of flash_fwd_sm90.cu and flash_bwd_sm90.cu (TMA and
-// wgmma), whose consumers are held to 168 registers; everything else runs
-// the kernels below.
+// _seg_bwd_pallas).
 //
-// The mma.sync family. wgmma takes tf32 operands K-major only, and four of
-// the attention products (P V, P^T dO, dS^T Q, dS K) would need an MN-major
-// one; a wider head dim needs more accumulator registers than the wgmma
-// consumers hold. So these kernels run mma.sync m16n8k8 on tf32: tiles are
-// staged in shared memory as fp32 (rows padded by 4 floats), every fragment
-// is a scalar load from it (so a transposed operand is only another index),
+// The route (run() below; ops/kernels.py:flash_route says the same):
+// - bf16 and fp16 at head dim 64 or 128: the Hopper kernels of
+//   flash_fwd_sm90.cu and flash_bwd_sm90.cu (TMA and wgmma);
+// - bf16 and fp16 at head dim 192 or 256: the same Hopper forward and
+//   dk/dv; dq runs the mma.sync kernel below (its redesign is queued);
+// - bf16 and fp16 above 256, and fp32 at every head dim: the mma.sync
+//   family below. wgmma's N is at most 256, and a wider accumulator fits
+//   no register budget; wgmma takes tf32 operands K-major only, and four
+//   of the attention products (P V, P^T dO, dS^T Q, dS K) would need an
+//   MN-major one.
+// There is no fallback: a launch runs its route's kernel or returns the
+// error.
+//
+// The mma.sync family runs mma.sync m16n8k8 on tf32: tiles are staged in
+// shared memory as fp32 (rows padded by 4 floats), every fragment is a
+// scalar load from it (so a transposed operand is only another index),
 // operands are rounded to tf32 (cvt.rna) as they are loaded, and the
 // accumulators are fp32. bf16 and fp16 values are exact in tf32 (8 and 11
 // significant bits of tf32's 11), so 16-bit inputs are staged as fp32 and
@@ -768,8 +775,11 @@ cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
 typedef cudaError_t (*Fn)(const Args&, cudaStream_t);
 
 // Checks the arguments every kernel relies on, selects the device, and
-// runs `sm90` (bf16, fp16 at D 64 or 128) or `mma` (fp32, or D above 128).
-int run(int device, const Args& a, void* stream, Fn sm90, Fn mma) {
+// runs `sm90` (the Hopper kernels: bf16 and fp16 at D 64 or 128, and with
+// `sm90_wide`, the forward and dk/dv, also at D 192 or 256) or `mma` (fp32
+// at every D, and bf16 and fp16 at the other D above 128).
+int run(int device, const Args& a, void* stream, Fn sm90, Fn mma,
+        bool sm90_wide) {
   if (a.D < 64 || a.D % 64 != 0 || (a.D > 64 && a.D < 128))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
@@ -779,8 +789,9 @@ int run(int device, const Args& a, void* stream, Fn sm90, Fn mma) {
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool wide = a.dtype == flash::kF32 || a.D > 128;
-  return (int)(wide ? mma : sm90)(a, (cudaStream_t)stream);
+  const bool hopper = a.dtype != flash::kF32 &&
+                      (a.D <= 128 || (sm90_wide && a.D <= 256));
+  return (int)(hopper ? sm90 : mma)(a, (cudaStream_t)stream);
 }
 
 View view(const void* ptr, const long long* strides, int i) {
@@ -844,7 +855,7 @@ int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
                   scale);
   a.o = view(o, strides, 3);
   a.lse = dense_stat(lse, H, Tq);
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma, true);
 }
 
 // di = rowsum(dout * o). strides: o, dout.
@@ -860,7 +871,7 @@ int hvd_flash_bwd_pre(int device, int dtype, const void* o, const void* dout,
   a.o = view(o, strides, 0);
   a.dout = view(dout, strides, 1);
   a.di = dense_stat(di, H, T);
-  return run(device, a, stream, bwd_pre, bwd_pre);
+  return run(device, a, stream, bwd_pre, bwd_pre, false);
 }
 
 // dk = ds^T q * scale, dv = p^T dout, p = exp(q k^T * scale - lse),
@@ -877,7 +888,7 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
   a.dv = view(dv, strides, 5);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, true);
 }
 
 // dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
@@ -891,7 +902,7 @@ int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.dq = view(dq, strides, 4);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, false);
 }
 
 // K7 (ring attention's segments, Tq = Tk = the segment length S): the same
@@ -909,7 +920,7 @@ int hvd_flash_seg_fwd(int device, int dtype, const void* q, const void* k,
   a.o = view(o, strides, 3);
   a.lse = stat(lse, strides, 4, 0);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma, true);
 }
 
 // (dk, dv) of one segment under the given lse and di.
@@ -927,7 +938,7 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
   a.lse = stat(lse, strides, 6, 0);
   a.di = stat(di, strides, 6, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, true);
 }
 
 // dq of one segment under the given lse and di.
@@ -943,7 +954,7 @@ int hvd_flash_seg_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.lse = stat(lse, strides, 5, 0);
   a.di = stat(di, strides, 5, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, false);
 }
 
 }  // extern "C"

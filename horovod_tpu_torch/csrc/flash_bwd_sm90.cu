@@ -37,6 +37,19 @@
 //   registers a thread of a 384-thread block has with no spill; holding
 //   dK and dV in one warpgroup would need 192 and more. The two products
 //   of each warpgroup run side by side, 4 products a tile.
+// - dk/dv at head dims 192 and 256 (DkdvTiles<D>): ring slots of 2 (shared
+//   memory; at D 256 K, V, two slots and their P^T buffers take 231,680
+//   bytes). At D 192 an accumulator is 96 registers and fits as above. At
+//   D 256 it is 128, beside S^T or dP^T (32) and P^T or dS^T (16): more
+//   than the 168 a thread of a 384-thread block launches with, and ptxas
+//   gives a wgmma consumer's accumulators the launch's count whatever
+//   setmaxnreg asks (any block of more than 8 warps launches with at most
+//   168: 3 warps share one of the SM's 4 register files). So at D 256 the
+//   two consumers are the whole block, 256 threads launched with 255
+//   registers each, and the dK warpgroup, which finishes each tile last,
+//   loads the ring itself: its first warp refills a slot with the tile
+//   two ahead (thread 0 the TMA loads, every lane its lse and di rows) as
+//   soon as the slot's tile is done. S^T and dP^T are computed once.
 // - dq: a block holds 128 q rows of Q and dO (TMA, once; 64 a consumer
 //   warpgroup) and the producer streams K and V tiles of 64 kv rows
 //   through a ring of 2 slots. A consumer computes S = Q K^T and
@@ -74,7 +87,7 @@ using flash::Args;
 using flash::View;
 
 constexpr int kSlab = 64;      // 16-bit columns of a 128-byte swizzled slab
-constexpr int kThreads = 384;  // a producer warpgroup and two consumers
+constexpr int kThreads = 384;  // dq: a producer warpgroup and two consumers
 constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kKV = 64;        // dk/dv: kv rows of a block
@@ -84,7 +97,11 @@ constexpr int kBK = 64;        // dq: kv rows of a ring tile
 
 template <int D>
 struct DkdvTiles {
-  static constexpr int kStages = 3;
+  // at D 256 the consumers load the ring themselves (see the header)
+  static constexpr bool kSelfLoad = D == 256;
+  static constexpr int kThreads = kSelfLoad ? 256 : 384;
+  // ring slots of Q and dO: 3, or 2 above D 128 (shared memory)
+  static constexpr int kStages = D <= 128 ? 3 : 2;
   static constexpr int kKVElems = kKV * D;   // the K or the V tile
   static constexpr int kQElems = kBQ * D;    // a Q or a dO tile
   static constexpr uint32_t kSlotBytes = 2 * kQElems * 2;
@@ -179,62 +196,75 @@ struct DkdvShared {
   uint64_t* p_full;   // a slot's P^T written by the dV warpgroup (128)
 };
 
-// Producer thread: K and V once, then the Q and dO tiles in ring order.
+// What loads a dk/dv block's tiles: the tensor maps, the shared-memory
+// tiles and the block's coordinates.
+template <typename In>
+struct DkdvLoads {
+  const CUtensorMap *tq, *tk, *tv, *tdo;
+  In *ks, *vs, *qr, *dr;
+  float* stats;
+  int b, h, kv0, q_first;
+};
+
+// One thread: the block's K and V tiles.
 template <int D, typename In>
-__device__ __forceinline__ void dkdv_produce(
-    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
-    const CUtensorMap* tdo, In* ks, In* vs, In* qr, In* dr,
-    const DkdvShared& bar, int b, int h, int kv0, int q_first, int n_q) {
+__device__ __forceinline__ void dkdv_load_kv(const DkdvLoads<In>& l,
+                                             const DkdvShared& bar) {
   using C = DkdvTiles<D>;
-  sm90::prefetch_tensor_map(tq);
-  sm90::prefetch_tensor_map(tk);
-  sm90::prefetch_tensor_map(tv);
-  sm90::prefetch_tensor_map(tdo);
+  sm90::prefetch_tensor_map(l.tq);
+  sm90::prefetch_tensor_map(l.tk);
+  sm90::prefetch_tensor_map(l.tv);
+  sm90::prefetch_tensor_map(l.tdo);
   sm90::mbar_arrive_expect_tx(bar.kv_full, 2 * C::kKVElems * 2);
 #pragma unroll
   for (int s = 0; s < D / kSlab; ++s) {
-    sm90::tma_load_4d(ks + s * kKV * kSlab, tk, bar.kv_full, s * kSlab, kv0,
-                      h, b);
-    sm90::tma_load_4d(vs + s * kKV * kSlab, tv, bar.kv_full, s * kSlab, kv0,
-                      h, b);
-  }
-  for (int i = 0; i < n_q; ++i) {
-    const int st = i % C::kStages, q0 = q_first + i * kBQ;
-    sm90::mbar_wait(bar.empty + st, ((i / C::kStages) & 1) ^ 1);
-    sm90::mbar_arrive_expect_tx(bar.full + st, C::kSlotBytes);
-    In* qd = qr + st * C::kQElems;
-    In* dd = dr + st * C::kQElems;
-#pragma unroll
-    for (int s = 0; s < D / kSlab; ++s) {
-      sm90::tma_load_4d(qd + s * kBQ * kSlab, tq, bar.full + st, s * kSlab,
-                        q0, h, b);
-      sm90::tma_load_4d(dd + s * kBQ * kSlab, tdo, bar.full + st, s * kSlab,
-                        q0, h, b);
-    }
+    sm90::tma_load_4d(l.ks + s * kKV * kSlab, l.tk, bar.kv_full, s * kSlab,
+                      l.kv0, l.h, l.b);
+    sm90::tma_load_4d(l.vs + s * kKV * kSlab, l.tv, bar.kv_full, s * kSlab,
+                      l.kv0, l.h, l.b);
   }
 }
 
-// Statistics warp: each slot's lse (log2 units) and di rows, in ring order.
-template <int D>
-__device__ __forceinline__ void dkdv_stats(const Args& p,
-                                           float* stats,
-                                           const DkdvShared& bar, int b,
-                                           int h, int q_first, int n_q) {
+// One thread: the Q and dO tiles of the i-th q tile into its ring slot,
+// once both consumers have released the slot's previous tile.
+template <int D, typename In>
+__device__ __forceinline__ void dkdv_load_tile(const DkdvLoads<In>& l,
+                                               const DkdvShared& bar, int i) {
+  using C = DkdvTiles<D>;
+  const int st = i % C::kStages, q0 = l.q_first + i * kBQ;
+  sm90::mbar_wait(bar.empty + st, ((i / C::kStages) & 1) ^ 1);
+  sm90::mbar_arrive_expect_tx(bar.full + st, C::kSlotBytes);
+  In* qd = l.qr + st * C::kQElems;
+  In* dd = l.dr + st * C::kQElems;
+#pragma unroll
+  for (int s = 0; s < D / kSlab; ++s) {
+    sm90::tma_load_4d(qd + s * kBQ * kSlab, l.tq, bar.full + st, s * kSlab,
+                      q0, l.h, l.b);
+    sm90::tma_load_4d(dd + s * kBQ * kSlab, l.tdo, bar.full + st, s * kSlab,
+                      q0, l.h, l.b);
+  }
+}
+
+// One warp: the i-th q tile's lse (log2 units) and di rows into its slot,
+// then the warp's 32 arrivals on the slot's full barrier.
+template <int D, typename In>
+__device__ __forceinline__ void dkdv_load_stats(const Args& p,
+                                                const DkdvLoads<In>& l,
+                                                const DkdvShared& bar,
+                                                int i) {
   using C = DkdvTiles<D>;
   const int lane = threadIdx.x % 32;
-  const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
-  const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
-  for (int i = 0; i < n_q; ++i) {
-    const int st = i % C::kStages, q0 = q_first + i * kBQ;
-    sm90::mbar_wait(bar.empty + st, ((i / C::kStages) & 1) ^ 1);
-    float* ls = stats + st * C::kStatFloats;
-    for (int r = lane; r < kBQ; r += 32) {
-      const int q = q0 + r;
-      ls[r] = q < p.Tq ? lse[q] * kLog2e : INFINITY;
-      ls[kBQ + r] = q < p.Tq ? di[q] : 0.f;
-    }
-    sm90::mbar_arrive(bar.full + st);
+  const int st = i % C::kStages, q0 = l.q_first + i * kBQ;
+  const float* lse = p.lse.p + l.b * p.lse.sb + l.h * p.lse.sh;
+  const float* di = p.di.p + l.b * p.di.sb + l.h * p.di.sh;
+  sm90::mbar_wait(bar.empty + st, ((i / C::kStages) & 1) ^ 1);
+  float* ls = l.stats + st * C::kStatFloats;
+  for (int r = lane; r < kBQ; r += 32) {
+    const int q = q0 + r;
+    ls[r] = q < p.Tq ? lse[q] * kLog2e : INFINITY;
+    ls[kBQ + r] = q < p.Tq ? di[q] : 0.f;
   }
+  sm90::mbar_arrive(bar.full + st);
 }
 
 // P^T in place of S^T: exp2(S^T * scale * log2 e - lse * log2 e), 0 where
@@ -253,7 +283,7 @@ __device__ __forceinline__ void p_transposed(float (&s)[kBQ / 2],
   }
 }
 
-// Consumer warpgroup 1: dV of the block's 64 kv rows.
+// Consumer warpgroup 1 (0 with kSelfLoad): dV of the block's 64 kv rows.
 template <int D, typename In, typename OutT>
 __device__ __forceinline__ void dkdv_consume_dv(
     const Args& p, const In* ks, const In* qr, const In* dr,
@@ -297,18 +327,30 @@ __device__ __forceinline__ void dkdv_consume_dv(
   store_acc<D, OutT>(p.dv, b, h, r_lo, p.Tk, acc, 1.f, t);
 }
 
-// Consumer warpgroup 2: dK of the block's 64 kv rows.
+// Consumer warpgroup 2 (1 with kSelfLoad): dK of the block's 64 kv rows;
+// with kSelfLoad its first warp also loads K, V and the ring.
 template <int D, typename In, typename OutT>
 __device__ __forceinline__ void dkdv_consume_dk(
     const Args& p, const In* vs, const In* qr, const In* dr,
     const float* stats, const float* pbuf, const DkdvShared& bar, int b,
-    int h, int kv0, int n_q) {
+    int h, int kv0, int n_q, const DkdvLoads<In>& loads) {
   using C = DkdvTiles<D>;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int t = lane & 3, r_lo = kv0 + 16 * warp + (lane >> 2);
+  // the first warp of a self-loading warpgroup fills the ring ahead
+  const bool loader = C::kSelfLoad && warp == 0;
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (loader && n_q > 0) {
+    if (lane == 0) {
+      dkdv_load_kv<D>(loads, bar);
+      for (int j = 0; j < min(n_q, C::kStages); ++j)
+        dkdv_load_tile<D>(loads, bar, j);
+    }
+    for (int j = 0; j < min(n_q, C::kStages); ++j)
+      dkdv_load_stats<D>(p, loads, bar, j);
+  }
   if (n_q > 0) sm90::mbar_wait(bar.kv_full, 0);
   for (int i = 0; i < n_q; ++i) {
     const int st = i % C::kStages;
@@ -338,12 +380,16 @@ __device__ __forceinline__ void dkdv_consume_dk(
     sm90::fence_regs(acc);
     sm90::fence_regs(da);
     sm90::mbar_arrive(bar.empty + st);
+    if (loader && i + C::kStages < n_q) {
+      if (lane == 0) dkdv_load_tile<D>(loads, bar, i + C::kStages);
+      dkdv_load_stats<D>(p, loads, bar, i + C::kStages);
+    }
   }
   store_acc<D, OutT>(p.dk, b, h, r_lo, p.Tk, acc, p.scale, t);
 }
 
 template <int D, typename In, typename OutT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DkdvTiles<D>::kThreads, 1)
 flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -383,19 +429,25 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  if (threadIdx.x < 128) {
+  const DkdvLoads<In> loads{&tq, &tk, &tv, &tdo, ks, vs, qr, dr, stats,
+                            b, h, kv0, q_first};
+  // warpgroup 0 loads (a thread the tiles, a warp the statistics) and 1
+  // and 2 consume; with kSelfLoad 0 and 1 consume and 1 loads
+  const int role = threadIdx.x / 128 - (C::kSelfLoad ? 0 : 1);
+  if (role < 0) {
     if (n_q == 0) return;
-    if (threadIdx.x == 0)
-      dkdv_produce<D>(&tq, &tk, &tv, &tdo, ks, vs, qr, dr, bar, b, h, kv0,
-                      q_first, n_q);
-    else if (threadIdx.x / 32 == 1)
-      dkdv_stats<D>(p, stats, bar, b, h, q_first, n_q);
-  } else if (threadIdx.x < 256) {
+    if (threadIdx.x == 0) {
+      dkdv_load_kv<D>(loads, bar);
+      for (int i = 0; i < n_q; ++i) dkdv_load_tile<D>(loads, bar, i);
+    } else if (threadIdx.x / 32 == 1) {
+      for (int i = 0; i < n_q; ++i) dkdv_load_stats<D>(p, loads, bar, i);
+    }
+  } else if (role == 0) {
     dkdv_consume_dv<D, In, OutT>(p, ks, qr, dr, stats, pbuf, bar, b, h, kv0,
                                  q_first, n_q);
   } else {
     dkdv_consume_dk<D, In, OutT>(p, vs, qr, dr, stats, pbuf, bar, b, h,
-                                 kv0, n_q);
+                                 kv0, n_q, loads);
   }
 }
 
@@ -574,11 +626,11 @@ cudaError_t maps(const Args& a, int q_rows, int kv_rows,
   return cudaSuccess;
 }
 
-// One launch of `kernel` over (B * H, blocks), with the q, k, v and dout
-// maps in boxes of q_rows and kv_rows rows.
+// One launch of `kernel` over (B * H, blocks) in blocks of `threads`, with
+// the q, k, v and dout maps in boxes of q_rows and kv_rows rows.
 template <typename In, typename K>
-cudaError_t launch(K kernel, int smem, int q_rows, int kv_rows, int blocks,
-                   const Args& a, cudaStream_t stream) {
+cudaError_t launch(K kernel, int threads, int smem, int q_rows, int kv_rows,
+                   int blocks, const Args& a, cudaStream_t stream) {
   CUtensorMap m[4];
   cudaError_t err = maps<In>(a, q_rows, kv_rows, m);
   if (err != cudaSuccess) return err;
@@ -587,43 +639,50 @@ cudaError_t launch(K kernel, int smem, int q_rows, int kv_rows, int blocks,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(a.B * a.H), (unsigned)blocks);
-  kernel<<<grid, kThreads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
+  kernel<<<grid, threads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
 }
 
 template <int D, typename In, typename OutT>
 struct Dkdv {
   static cudaError_t run(const Args& a, cudaStream_t s) {
-    return launch<In>(flash_bwd_dkdv_sm90_kernel<D, In, OutT>,
-                      DkdvTiles<D>::kSmem, kBQ, kKV, (a.Tk + kKV - 1) / kKV,
-                      a, s);
+    using C = DkdvTiles<D>;
+    return launch<In>(flash_bwd_dkdv_sm90_kernel<D, In, OutT>, C::kThreads,
+                      C::kSmem, kBQ, kKV, (a.Tk + kKV - 1) / kKV, a, s);
   }
 };
 
 template <int D, typename In, typename OutT>
 struct Dq {
   static cudaError_t run(const Args& a, cudaStream_t s) {
-    return launch<In>(flash_bwd_dq_sm90_kernel<D, In, OutT>,
+    return launch<In>(flash_bwd_dq_sm90_kernel<D, In, OutT>, kThreads,
                       DqTiles<D>::kSmem, kQ, kBK, (a.Tq + kQ - 1) / kQ, a, s);
   }
 };
 
-// The instance for the arguments' head dim, input type and output type.
-template <template <int, typename, typename> class F>
-cudaError_t pick(const Args& a, cudaStream_t stream) {
-  if (a.dtype == flash::kF16) {
-    if (a.out_f32)
-      return a.D == 64 ? F<64, __half, float>::run(a, stream)
-                       : F<128, __half, float>::run(a, stream);
-    return a.D == 64 ? F<64, __half, __half>::run(a, stream)
-                     : F<128, __half, __half>::run(a, stream);
+// The instance for the arguments' head dim, input type and output type:
+// D 64 and 128, and with kWide 192 and 256 (dk/dv; the caller routes no
+// other).
+template <template <int, typename, typename> class F, bool kWide,
+          typename In, typename OutT>
+cudaError_t pick_d(const Args& a, cudaStream_t stream) {
+  if (a.D == 64) return F<64, In, OutT>::run(a, stream);
+  if (a.D == 128) return F<128, In, OutT>::run(a, stream);
+  if constexpr (kWide) {
+    if (a.D == 192) return F<192, In, OutT>::run(a, stream);
+    if (a.D == 256) return F<256, In, OutT>::run(a, stream);
   }
+  return cudaErrorInvalidValue;
+}
+
+template <template <int, typename, typename> class F, bool kWide>
+cudaError_t pick(const Args& a, cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
-  if (a.out_f32)
-    return a.D == 64 ? F<64, bf16, float>::run(a, stream)
-                     : F<128, bf16, float>::run(a, stream);
-  return a.D == 64 ? F<64, bf16, bf16>::run(a, stream)
-                   : F<128, bf16, bf16>::run(a, stream);
+  if (a.dtype == flash::kF16)
+    return a.out_f32 ? pick_d<F, kWide, __half, float>(a, stream)
+                     : pick_d<F, kWide, __half, __half>(a, stream);
+  return a.out_f32 ? pick_d<F, kWide, bf16, float>(a, stream)
+                   : pick_d<F, kWide, bf16, bf16>(a, stream);
 }
 
 }  // namespace
@@ -631,14 +690,15 @@ cudaError_t pick(const Args& a, cudaStream_t stream) {
 namespace flash {
 
 // (dk, dv) under the given lse and di, over [B, H, T, D] views of bf16 or
-// fp16 (D = 64 or 128); outputs in the input type or fp32 (out_f32).
+// fp16 (D = 64, 128, 192 or 256); outputs in the input type or fp32
+// (out_f32).
 cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
-  return pick<Dkdv>(a, stream);
+  return pick<Dkdv, true>(a, stream);
 }
 
-// dq under the given lse and di, as bwd_dkdv_sm90.
+// dq under the given lse and di, as bwd_dkdv_sm90 at D = 64 or 128.
 cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream) {
-  return pick<Dq>(a, stream);
+  return pick<Dq, false>(a, stream);
 }
 
 }  // namespace flash

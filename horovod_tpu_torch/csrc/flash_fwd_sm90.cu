@@ -43,6 +43,17 @@
 // - The epilogue divides by l and stores o (In or fp32) and lse from
 //   registers, rows < Tq only. A row that sees no key writes o = 0 and
 //   lse = -1e30, a finite sentinel the ring's merge needs.
+// - Head dims 192 and 256 (Tiles<D>): the same kernel, S over the whole
+//   depth once. What decides the tiles is registers: ptxas allocates a
+//   wgmma consumer's accumulators within the launch's count whatever
+//   setmaxnreg asks (it starts every accumulator at R24 and, short of
+//   room, spills O around S), and a block of more than 8 warps launches
+//   with at most 168 a thread (3 warps on one of the SM's 4 register
+//   files of 16K). At D 192 O is 96 registers: two consumers, kv tiles of
+//   48 rows (S 24, P 12) in a ring of 4. At D 256 O alone is 128: one
+//   consumer in a block of 256 threads, which launches with 255 registers
+//   a thread (it uses about 200), 64 q rows a block and kv tiles of 64 (Q
+//   32 KB, two K and two V slots 128 KB of shared memory).
 // The arithmetic does not depend on the views' strides and nothing is
 // accumulated across blocks: strided views and contiguous copies give the
 // same bits, and runs repeat bitwise.
@@ -75,18 +86,21 @@ struct FwdParams {
   float scale;
 };
 
-constexpr int kBQ = 128;      // q rows of a block, 64 a consumer
-constexpr int kBK = 96;       // kv rows of a tile
 constexpr int kSlab = 64;     // 16-bit columns of a 128-byte swizzled slab
-constexpr int kThreads = 384;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
 
 template <int D>
 struct Tiles {
+  // consumer warpgroups of a block, 64 q rows each: 2, or 1 at D 256 (its
+  // O alone is 128 registers: see the header)
+  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBQ = 64 * kConsumers;     // q rows of a block
+  static constexpr int kBK = D == 192 ? 48 : D == 256 ? 64 : 96;  // kv rows
   // ring slots of K and of V (3 at D 128 ran no faster than 2)
-  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStages = D == 64 || D == 192 ? 4 : 2;
   static constexpr int kQElems = kBQ * D;         // the Q tile
   static constexpr int kTileElems = kBK * D;      // a K or V tile
   static constexpr uint32_t kTileBytes = kTileElems * 2;
@@ -108,7 +122,7 @@ __device__ __forceinline__ void store2<float>(float* dst, float lo, float hi) {
 struct Barriers {
   uint64_t* q_full;
   // a ring slot of K or V: filled by TMA (1 arrival and the tile's
-  // bytes), emptied by the consumers (256 arrivals: every thread of both)
+  // bytes), emptied by the consumers (an arrival from each thread)
   uint64_t* k_full;
   uint64_t* k_empty;
   uint64_t* v_full;
@@ -128,8 +142,8 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* map, In* ring,
   In* dst = ring + st * C::kTileElems;
 #pragma unroll
   for (int s = 0; s < D / kSlab; ++s)
-    sm90::tma_load_4d(dst + s * kBK * kSlab, map, full + st, s * kSlab,
-                      i * kBK, h, b);
+    sm90::tma_load_4d(dst + s * C::kBK * kSlab, map, full + st, s * kSlab,
+                      i * C::kBK, h, b);
 }
 
 // Warpgroup 0, one thread: Q once, then the kv tiles, K one tile ahead of
@@ -148,8 +162,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
   sm90::mbar_arrive_expect_tx(bar.q_full, C::kQElems * 2);
 #pragma unroll
   for (int s = 0; s < D / kSlab; ++s)
-    sm90::tma_load_4d(qs + s * kBQ * kSlab, tq, bar.q_full, s * kSlab, q0, h,
-                      b);
+    sm90::tma_load_4d(qs + s * C::kBQ * kSlab, tq, bar.q_full, s * kSlab, q0,
+                      h, b);
   for (int i = 0; i < n_kv; ++i) {
     load_kv<D>(tk, ks, bar.k_full, bar.k_empty, i, b, h);
     if (i > 0) load_kv<D>(tv, vs, bar.v_full, bar.v_empty, i - 1, b, h);
@@ -160,12 +174,12 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
 // Scale a score tile into log2 units, masking what the row may not see
 // (columns at or past Tk; causal: past the row) to -inf, and return the
 // tile's running max of the thread's two rows.
-template <bool kMask>
-__device__ __forceinline__ void scale_mask(float (&s)[kBK / 2], float sl2,
+template <bool kMask, int N>
+__device__ __forceinline__ void scale_mask(float (&s)[N], float sl2,
                                            int kv0, int r_lo, int t, int Tk,
                                            int causal, float (&mt)[2]) {
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < N; ++i) {
     float x = s[i] * sl2;
     if (kMask) {
       const int col = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
@@ -182,7 +196,8 @@ __device__ __forceinline__ void scale_mask(float (&s)[kBK / 2], float sl2,
 // thread's two rows; alpha[i] = exp2(m_old - m_new) rescales what was
 // summed before, rs[i] is the new p's sum over this thread's columns. Only
 // a tile that crosses Tk or the diagonal runs the per-element mask.
-__device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N],
                                                float (&m)[2],
                                                float (&alpha)[2],
                                                float (&rs)[2], bool mask,
@@ -206,7 +221,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
     rs[i] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) {
+  for (int i = 0; i < N; ++i) {
     s[i] = exp2f(s[i] - msub[(i / 2) & 1]);
     rs[(i / 2) & 1] += s[i];
   }
@@ -214,8 +229,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
 
 // S = Q K^T over D (D/16 steps, 4 a slab), issued and committed.
 template <int D, typename In>
-__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const In* qw,
-                                         const In* kt) {
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<D>::kBK / 2],
+                                         const In* qw, const In* kt) {
+  constexpr int kBK = Tiles<D>::kBK, kBQ = Tiles<D>::kBQ;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int slab = kk / 4, col = (kk % 4) * 16;
@@ -229,9 +245,9 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], const In* qw,
 // O += P V over one V tile (kBK/16 steps of 16 kv rows, 2 KB of a slab),
 // issued and committed.
 template <int D, typename In>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         uint32_t (&pa)[kBK / 16][4],
-                                         const In* vt) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4], const In* vt) {
+  constexpr int kBK = Tiles<D>::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
     sm90::Wgmma<D, In>::template rs<1>(
@@ -241,8 +257,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 }
 
 template <int D>
-__device__ __forceinline__ void fence_pv(float (&o)[D / 2],
-                                         uint32_t (&pa)[kBK / 16][4]) {
+__device__ __forceinline__ void fence_pv(
+    float (&o)[D / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4]) {
   sm90::fence_regs(o);
   sm90::fence_regs(pa);
 }
@@ -259,6 +275,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
                                         const Barriers& bar, int wg, int b,
                                         int h, int q0, int n_kv) {
   using C = Tiles<D>;
+  constexpr int kBK = C::kBK;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int qw0 = q0 + 64 * wg;            // the warpgroup's first q row
@@ -349,7 +366,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
 }
 
 template <int D, typename In, typename OutT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
@@ -368,64 +385,74 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   // causal: the longest rows first, so the last wave is short
-  const int q0 = (p.n_qt - 1 - blockIdx.y) * kBQ;
-  const int kv_end = p.causal ? min(p.Tk, q0 + kBQ) : p.Tk;
-  const int n_kv = (kv_end + kBK - 1) / kBK;
+  const int q0 = (p.n_qt - 1 - blockIdx.y) * C::kBQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
+  const int n_kv = (kv_end + C::kBK - 1) / C::kBK;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(bar.q_full, 1);
     for (int s = 0; s < C::kStages; ++s) {
       sm90::mbar_init(bar.k_full + s, 1);
-      sm90::mbar_init(bar.k_empty + s, 256);
+      sm90::mbar_init(bar.k_empty + s, 128 * C::kConsumers);
       sm90::mbar_init(bar.v_full + s, 1);
-      sm90::mbar_init(bar.v_empty + s, 256);
+      sm90::mbar_init(bar.v_empty + s, 128 * C::kConsumers);
     }
     sm90::fence_mbar_init();
   }
   __syncthreads();
 
+  // one consumer has the launch's registers; two take the producer's
   if (threadIdx.x < 128) {
-    sm90::reg_dealloc<24>();
+    if constexpr (C::kConsumers == 2) sm90::reg_dealloc<24>();
     if (threadIdx.x == 0)
       produce<D>(&tq, &tk, &tv, qs, ks, vs, bar, b, h, q0, n_kv);
   } else {
-    sm90::reg_alloc<240>();
+    if constexpr (C::kConsumers == 2) sm90::reg_alloc<240>();
     consume<D, In, OutT>(p, qs, ks, vs, bar, threadIdx.x / 128 - 1, b, h, q0,
                          n_kv);
   }
 }
 
 template <int D, typename In, typename OutT>
-cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk,
-                   const CUtensorMap& tv, const Args& a,
-                   cudaStream_t stream) {
-  constexpr int smem = Tiles<D>::kSmem;
-  // the attribute belongs to the current device: set at every launch
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D, In, OutT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int n_qt = (a.Tq + kBQ - 1) / kBQ;
-  const dim3 grid((unsigned)(a.B * a.H), (unsigned)n_qt);
-  const FwdParams p{a.o, a.lse, a.H, a.Tq, a.Tk, a.causal, n_qt, a.scale};
-  flash_fwd_sm90_kernel<D, In, OutT><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, p);
-  return cudaGetLastError();
-}
-
-template <typename In, typename OutT>
-cudaError_t forward(const Args& a, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using C = Tiles<D>;
   CUtensorMap maps[3];
   const flash::View* in[3] = {&a.q, &a.k, &a.v};
   for (int i = 0; i < 3; ++i) {
     const cudaError_t err = sm90::bhtd_map<In>(
         &maps[i], in[i]->p, a.B, a.H, i == 0 ? a.Tq : a.Tk, a.D, in[i]->sb,
-        in[i]->sh, in[i]->st, i == 0 ? kBQ : kBK);
+        in[i]->sh, in[i]->st, i == 0 ? C::kBQ : C::kBK);
     if (err != cudaSuccess) return err;
   }
-  return a.D == 64
-             ? launch<64, In, OutT>(maps[0], maps[1], maps[2], a, stream)
-             : launch<128, In, OutT>(maps[0], maps[1], maps[2], a, stream);
+  // the attribute belongs to the current device: set at every launch
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_sm90_kernel<D, In, OutT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.Tq + C::kBQ - 1) / C::kBQ;
+  const dim3 grid((unsigned)(a.B * a.H), (unsigned)n_qt);
+  const FwdParams p{a.o, a.lse, a.H, a.Tq, a.Tk, a.causal, n_qt, a.scale};
+  flash_fwd_sm90_kernel<D, In, OutT>
+      <<<grid, C::kThreads, C::kSmem, stream>>>(maps[0], maps[1], maps[2], p);
+  return cudaGetLastError();
+}
+
+// The instance for the head dim: 64 and 128, and 192 and 256 (the wide
+// ones; the caller routes no other).
+template <typename In, typename OutT>
+cudaError_t forward(const Args& a, cudaStream_t stream) {
+  switch (a.D) {
+    case 64:
+      return launch<64, In, OutT>(a, stream);
+    case 128:
+      return launch<128, In, OutT>(a, stream);
+    case 192:
+      return launch<192, In, OutT>(a, stream);
+    case 256:
+      return launch<256, In, OutT>(a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename In>
@@ -439,7 +466,7 @@ cudaError_t forward_in(const Args& a, cudaStream_t stream) {
 namespace flash {
 
 // o = softmax(q k^T * scale) v and lse over [B, H, T, D] views of bf16 or
-// fp16 (D = 64 or 128), o in the input type or fp32 (out_f32).
+// fp16 (D = 64, 128, 192 or 256), o in the input type or fp32 (out_f32).
 cudaError_t fwd_sm90(const Args& a, cudaStream_t stream) {
   return a.dtype == kF16 ? forward_in<__half>(a, stream)
                          : forward_in<__nv_bfloat16>(a, stream);

@@ -22,9 +22,11 @@ jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
 =========================  =====================  ========================
 
 The attention kernels take bf16 and fp16 at head dims 64 and 128 (and
-those padded to them) on the Hopper kernels above, and fp32 at any head
-dim and bf16 and fp16 above 128 on ``flash_attn.cu``'s mma.sync family
-(which also holds di and the C entry points).
+those padded to them) on the Hopper kernels above, and the forward and
+dk/dv also at 192 and 256 (160 is padded to 192); fp32 at any head dim,
+bf16 and fp16 above 256, and dq above 128 run ``flash_attn.cu``'s mma.sync
+family (which also holds di and the C entry points). :func:`flash_route`
+says which.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -520,16 +522,21 @@ adasum_scale.launches = 0
 # fp32 [B, H, Tq], contiguous. Causal is the library kernel's rule, key <=
 # query by absolute index (``_causal_mask``). The backward takes lse and di
 # from outside: under a global lse, as ring attention's per-block backward
-# needs, it is the same kernel. The Hopper kernels (bf16, fp16) are built
-# for the head dims of FLASH_HEAD_DIMS; any head dim runs: D <= 128 is
-# zero-padded to the next of them, and a larger D to the next multiple of
-# 64 for ``flash_attn.cu``'s mma.sync family, which splits it into slices
-# of 128 output columns (zero columns change neither q kᵀ nor the softmax,
-# and the padded columns of o, dq, dk and dv come out 0); the outputs are
-# views sliced back to D.
+# needs, it is the same kernel. Any head dim runs: D <= 128 is zero-padded
+# to the next of FLASH_HEAD_DIMS, a larger D to the next multiple of 64
+# (zero columns change neither q kᵀ nor the softmax, and the padded columns
+# of o, dq, dk and dv come out 0); the outputs are views sliced back to D.
+# bf16 and fp16 run the Hopper kernels (TMA, wgmma) at FLASH_HEAD_DIMS, and
+# the forward and dk/dv also at FLASH_WIDE_DIMS; the rest runs
+# ``flash_attn.cu``'s mma.sync family, which splits D into slices of 128
+# output columns (:func:`flash_route`).
 
-FLASH_HEAD_DIMS = (64, 128)      # the head dims of the Hopper kernels
+FLASH_HEAD_DIMS = (64, 128)      # the head dims of every Hopper kernel
+FLASH_WIDE_DIMS = (192, 256)     # and of the Hopper forward and dk/dv
 _FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+# the wrappers whose Hopper kernels take FLASH_WIDE_DIMS
+_SM90_WIDE = ("flash_fwd", "flash_bwd_dkdv", "flash_seg_fwd",
+              "flash_seg_bwd_dkdv")
 
 
 def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
@@ -672,16 +679,39 @@ def _strides(*ts) -> ctypes.Array:
         *[s for t in ts for s in t.stride()[:3]])
 
 
-def _launched(fn, code: int, dp: int):
-    """One launch of ``fn``'s kernel; the kernels of ``flash_attn.cu``'s
-    mma.sync family, kernels of their own, are also counted apart: fp32
-    inputs in ``tf32_launches``, bf16 and fp16 above head dim 128 in
-    ``wide_launches``."""
+def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
+    """The kernel that a K6/K7 wrapper (``kernel``, its name) launches on
+    the card for inputs of ``dtype`` and head dim ``d``: "sm90", the Hopper
+    kernels (bf16 and fp16 at head dims padded to 64 or 128); "sm90_wide",
+    the same kernels at 192 or 256 (the forward and dk/dv); "wide",
+    ``flash_attn.cu``'s mma.sync family on bf16 and fp16 (dq above 128,
+    every kernel above 256); "tf32", the same family on fp32 (every head
+    dim). ``wgmma``'s N is at most 256, and a wider accumulator fits no
+    register budget."""
+    if kernel not in MMA_KERNELS_BY_NAME:
+        raise ValueError(f"flash_route: {kernel!r} is not a K6/K7 wrapper "
+                         f"with a route ({', '.join(MMA_KERNELS_BY_NAME)})")
+    if dtype == torch.float32:
+        return "tf32"
+    if dtype not in _FLASH_DTYPES:
+        raise ValueError(f"flash_route: dtype {dtype} not supported")
+    dp = _flash_dim(d)
+    if dp <= FLASH_HEAD_DIMS[-1]:
+        return "sm90"
+    if dp <= FLASH_WIDE_DIMS[-1] and kernel in _SM90_WIDE:
+        return "sm90_wide"
+    return "wide"
+
+
+def _launched(fn, dtype: torch.dtype, dp: int):
+    """One launch of ``fn``'s kernel, also counted by its route apart from
+    the Hopper kernels at 64 and 128 (:func:`flash_route`): in
+    ``sm90_wide_launches``, ``wide_launches`` or ``tf32_launches``."""
     fn.launches += 1
-    if code == _FLASH_DTYPES[torch.float32]:
-        fn.tf32_launches += 1
-    elif dp > FLASH_HEAD_DIMS[-1]:
-        fn.wide_launches += 1
+    route = flash_route(dtype, dp, fn.__name__)
+    if route != "sm90":
+        setattr(fn, f"{route}_launches",
+                getattr(fn, f"{route}_launches") + 1)
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):
@@ -698,7 +728,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o), b, h, tq, tk, dp,
         int(causal), scale, _stream(device)), "flash_fwd")
-    _launched(flash_fwd, code, dp)
+    _launched(flash_fwd, q.dtype, dp)
     return o[..., :d], lse
 
 
@@ -748,7 +778,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, tq, tk, dp,
         int(causal), scale, _stream(device)), "flash_bwd_dkdv")
-    _launched(flash_bwd_dkdv, code, dp)
+    _launched(flash_bwd_dkdv, q.dtype, dp)
     return dk[..., :d], dv[..., :d]
 
 
@@ -768,7 +798,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         _strides(q, k, v, do, dq), b, h, tq, tk, dp, int(causal), scale,
         _stream(device)), "flash_bwd_dq")
-    _launched(flash_bwd_dq, code, dp)
+    _launched(flash_bwd_dq, q.dtype, dp)
     return dq[..., :d]
 
 
@@ -889,7 +919,7 @@ def flash_seg_fwd(q, k, v, causal: bool, scale: float):
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _seg_strides([q, k, v], [o], [lse]), b,
         h, s, s, dp, int(causal), scale, _stream(device)), "flash_seg_fwd")
-    _launched(flash_seg_fwd, code, dp)
+    _launched(flash_seg_fwd, q.dtype, dp)
     return o[..., :d], lse
 
 
@@ -910,7 +940,7 @@ def flash_seg_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
         dv.data_ptr(), _seg_strides([q, k, v, do], [dk, dv], [lse, di]), b,
         h, s, s, dp, int(causal), scale, _stream(device)),
         "flash_seg_bwd_dkdv")
-    _launched(flash_seg_bwd_dkdv, code, dp)
+    _launched(flash_seg_bwd_dkdv, q.dtype, dp)
     return dk[..., :d], dv[..., :d]
 
 
@@ -930,7 +960,7 @@ def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
         _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, s, dp,
         int(causal), scale, _stream(device)), "flash_seg_bwd_dq")
-    _launched(flash_seg_bwd_dq, code, dp)
+    _launched(flash_seg_bwd_dq, q.dtype, dp)
     return dq[..., :d]
 
 
@@ -940,27 +970,34 @@ flash_seg_bwd_dq.launches = 0
 KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
            flash_fwd, flash_bwd_pre, flash_bwd_dkdv, flash_bwd_dq,
            flash_seg_fwd, flash_seg_bwd_dkdv, flash_seg_bwd_dq)
-# wrappers some of whose inputs launch the mma.sync family, a kernel of its
-# own: fp32 (tf32) at any head dim, bf16 and fp16 above head dim 128 (wide)
+# wrappers whose launches also run a route of their own (flash_route): the
+# mma.sync family on fp32 (tf32) and on bf16 and fp16 (wide), and, for some,
+# the Hopper kernels at head dims 192 and 256 (sm90_wide)
 MMA_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
                flash_seg_bwd_dkdv, flash_seg_bwd_dq)
+MMA_KERNELS_BY_NAME = {k.__name__: k for k in MMA_KERNELS}
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
     for k in MMA_KERNELS:
-        k.tf32_launches = k.wide_launches = 0
+        k.tf32_launches = k.wide_launches = k.sm90_wide_launches = 0
 
 
 def launch_counts() -> dict:
-    """Launches by wrapper (every dtype and head dim), ``<wrapper>_tf32``:
-    those of the mma.sync family on fp32 inputs, and ``<wrapper>_wide``:
-    those of the family on bf16 and fp16 inputs above head dim 128."""
+    """Launches by wrapper (every dtype and head dim), and by route
+    (:func:`flash_route`): ``<wrapper>_tf32``, the mma.sync family on fp32
+    inputs; ``<wrapper>_wide``, the family on bf16 and fp16 (dq above head
+    dim 128, every kernel above 256); ``<wrapper>_sm90_wide`` (the forward
+    and dk/dv wrappers only), the Hopper kernels at head dims 192 and
+    256."""
     counts = {k.__name__: k.launches for k in KERNELS}
     for k in MMA_KERNELS:
         counts[f"{k.__name__}_tf32"] = k.tf32_launches
         counts[f"{k.__name__}_wide"] = k.wide_launches
+        if k.__name__ in _SM90_WIDE:
+            counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches
     return counts
 
 

@@ -272,6 +272,18 @@ def test_cuda_bn_and_mma_kernels_do_not_spill(cuda):
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
 
 
+def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
+    """The build's ptxas report: no instance of the Hopper attention
+    kernels (every head dim, the wide ones at 192 and 256 included, every
+    input and output type) spills."""
+    from horovod_tpu_torch.ops import build
+    for stem in ("flash_fwd_sm90", "flash_bwd_sm90"):
+        report = build.ptxas_report(stem)
+        assert any("Li256E" in name for name in report), stem
+        for name, r in report.items():
+            assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
+
+
 def test_cuda_pack_is_bitwise(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     shapes = [(64, 3, 7, 7), (64,), (1000, 2048), (1000,), (3,), (7, 5)]
@@ -509,9 +521,24 @@ def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
     _check_k6_case(cuda, dtype, d, tq, tk, causal)
 
 
-# head dims above 128: the mma.sync family in slices of 128 columns
-WIDE_DIMS = [160, 256, 320]
+# head dims above 128: bf16 and fp16 forward and dk/dv at 160 (padded to
+# 192), 192 and 256 on the Hopper kernels, the rest on the mma.sync family
+# in slices of 128 columns (flash_route)
+WIDE_DIMS = [160, 192, 256, 320]
 WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _wide_route(dtype, d, name):
+    """The route a wide launch must take: flash_route's answer, checked
+    against the rule it states."""
+    route = K.flash_route(dtype, d, name)
+    if dtype == torch.float32:
+        assert route == "tf32"
+    elif d <= 256 and not name.endswith("dq"):
+        assert route == "sm90_wide"
+    else:
+        assert route == "wide"
+    return route
 
 
 @pytest.mark.parametrize("causal,tq,tk", [(True, 130, 130), (False, 96, 160),
@@ -519,19 +546,50 @@ WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
-    """Every K6 entry point at head dims 160 (padded to 192), 256 and 320
-    in bf16, fp16 and fp32, causal and full, Tq != Tk: within the flash
-    limits, counted as the wide (16-bit) or tf32 instances, dq repeats
-    bitwise."""
-    counted = "tf32" if dtype == torch.float32 else "wide"
+    """Every K6 entry point at head dims 160 (padded to 192), 192, 256 and
+    320 in bf16, fp16 and fp32, causal and full, Tq != Tk: within the flash
+    limits, counted by their route (the Hopper wide kernels, the 16-bit
+    mma.sync instances or the tf32 ones), dq repeats bitwise."""
     n0 = K.launch_counts()
     q, k, v, do, lse, di, dq = _check_k6_case(cuda, dtype, d, tq, tk, causal)
     n1 = K.launch_counts()
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
-        assert n1[f"{name}_{counted}"] == n0[f"{name}_{counted}"] + 1
+        counted = f"{name}_{_wide_route(dtype, d, name)}"
+        assert n1[counted] == n0[counted] + 1
     scale = d ** -0.5
     assert torch.equal(K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale),
                        dq)
+
+
+@pytest.mark.parametrize("tq,tk", [(257, 257), (100, 300), (300, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_flash_wide_hopper_kernels(cuda, dtype, d, causal, tq, tk):
+    """The Hopper forward and dk/dv at head dims 160 (padded to 192), 192
+    and 256: within the flash limits against the plain versions at lengths
+    that end inside the forward's 128-row q tiles and 64-row kv tiles (Tq =
+    Tk, Tq < Tk, Tq > Tk), one launch each counted on the sm90_wide route
+    (dq on the mma.sync family's), the same bits from run to run and on
+    contiguous copies of the strided views."""
+    n0 = K.launch_counts()
+    q, k, v, do, lse, di, _ = _check_k6_case(cuda, dtype, d, tq, tk, causal)
+    n1 = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dkdv"):
+        assert n1[f"{name}_sm90_wide"] == n0[f"{name}_sm90_wide"] + 1
+        assert n1[f"{name}_wide"] == n0[f"{name}_wide"]
+    assert n1["flash_bwd_dq_wide"] == n0["flash_bwd_dq_wide"] + 1
+    scale = d ** -0.5
+    o, lse2 = K.flash_fwd(q, k, v, causal, scale)
+    first = (o, lse2, *K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale))
+    cont = [x.contiguous() for x in (q, k, v, do)]
+    again = (*K.flash_fwd(q, k, v, causal, scale),
+             *K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale))
+    copies = (*K.flash_fwd(*cont[:3], causal, scale),
+              *K.flash_bwd_dkdv(*cont, lse, di, causal, scale))
+    assert torch.equal(lse2, lse)
+    for a, b, c in zip(first, again, copies):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def _check_k6_case(cuda, dtype, d, tq, tk, causal):
@@ -819,14 +877,15 @@ def test_cuda_seg_kernels_take_every_dtype(cuda, dtype, d, part):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_seg_kernels_take_any_head_dim(cuda, dtype, d, part):
-    """The three K7 entry points at head dims 160, 256 and 320 in bf16,
-    fp16 and fp32 on strided halves, as the previous test."""
-    counted = "tf32" if dtype == torch.float32 else "wide"
+    """The three K7 entry points at head dims 160, 192, 256 and 320 in
+    bf16, fp16 and fp32 on strided halves, as the previous test, counted
+    by their route."""
     n0 = K.launch_counts()
     _check_k7_case(cuda, dtype, d, part)
     n1 = K.launch_counts()
     for name in ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq"):
-        assert n1[f"{name}_{counted}"] >= n0[f"{name}_{counted}"] + 2
+        counted = f"{name}_{_wide_route(dtype, d, name)}"
+        assert n1[counted] >= n0[counted] + 2
 
 
 def _check_k7_case(cuda, dtype, d, part):

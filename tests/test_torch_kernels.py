@@ -93,6 +93,75 @@ def test_wrappers_take_the_plain_path_on_cpu():
     assert K.launch_counts() == before   # plain runs are no launches
 
 
+FLASH_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+                "flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 129, 160, 192, 193, 256,
+                               257, 320])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
+    """Which kernel a K6/K7 wrapper launches on the card: bf16 and fp16 at
+    head dims padded to 64 or 128 the Hopper kernels; at 192 or 256 (129
+    and 160 are padded to 192, 193 to 256) the Hopper forward and dk/dv
+    and the mma.sync dq; above 256 the mma.sync family; fp32 the tf32
+    family at every head dim."""
+    padded = K._flash_dim(d)
+    for kernel in FLASH_ROUTED:
+        route = K.flash_route(dtype, d, kernel)
+        if dtype == torch.float32:
+            want = "tf32"
+        elif padded <= 128:
+            want = "sm90"
+        elif padded <= 256 and not kernel.endswith("_dq"):
+            want = "sm90_wide"
+        else:
+            want = "wide"
+        assert route == want, (kernel, route)
+    assert padded in (K.FLASH_HEAD_DIMS + K.FLASH_WIDE_DIMS) \
+        or (padded > 256 and padded % 64 == 0)
+
+
+def test_flash_route_counters_and_refusals():
+    """Each route has its counter in launch_counts (sm90_wide only on the
+    forward and dk/dv wrappers, whose Hopper kernels take head dims 192
+    and 256); di and other dtypes have no route."""
+    counts = K.launch_counts()
+    for kernel in FLASH_ROUTED:
+        for route in ("tf32", "wide"):
+            assert f"{kernel}_{route}" in counts
+        assert (f"{kernel}_sm90_wide" in counts) == \
+            (not kernel.endswith("_dq"))
+    with pytest.raises(ValueError, match="wrapper"):
+        K.flash_route(torch.bfloat16, 256, "flash_bwd_pre")
+    with pytest.raises(ValueError, match="dtype"):
+        K.flash_route(torch.float64, 64, "flash_fwd")
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_wide_flash_wrappers_take_the_plain_path_on_cpu(d):
+    """On the CPU the wrappers at the Hopper wide head dims are their plain
+    versions, bit for bit, and count no launch of any route."""
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.tensor(rng.randn(1, 2, 24, d),
+                                dtype=torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    before = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, True, scale)
+    ow, lsew = K.flash_attention_fwd_plain(q, k, v, True, scale)
+    assert torch.equal(o, ow) and torch.equal(lse, lsew)
+    di = K.flash_bwd_pre(o, do)
+    for a, b in zip(K.flash_bwd_dkdv(q, k, v, do, lse, di, True, scale),
+                    K.flash_bwd_dkdv_plain(q, k, v, do, lse, di, True,
+                                           scale)):
+        assert torch.equal(a, b)
+    for a, b in zip(K.flash_seg_fwd(q, k, v, False, scale),
+                    K.flash_seg_fwd_plain(q, k, v, False, scale)):
+        assert torch.equal(a, b)
+    assert K.launch_counts() == before
+
+
 def test_pack_rejects_mixed_dtypes_and_empty():
     with pytest.raises(ValueError):
         K.pack([torch.zeros(3), torch.zeros(3, dtype=torch.float64)])
