@@ -32,10 +32,10 @@ and then:
    full: the tf32 family), ViT_Tiny's head dim 16 in bf16 and head dims 80
    and 96 (padded to 128), q and k/v of different lengths, causal and
    full, and head dims above 128 (bf16 B2 H8 T2048 D256 causal and fp16
-   D160 with 1024 queries over 2048 keys: the Hopper wide forward and
-   dk/dv, dq on the mma.sync family in slices of 128 columns; fp32 D256 and
-   bf16 B1 H4 T1024 D320: the mma.sync family throughout); and times them
-   beside
+   D160 with 1024 queries over 2048 keys: the Hopper wide kernels; bf16
+   B1 H4 T1024 D320: the Hopper forward, O in two accumulators, and the
+   mma.sync dk/dv and dq in slices of 128 columns; fp32 D256 and bf16
+   D384: the mma.sync family throughout); and times them beside
    ``scaled_dot_product_attention``'s forward and backward (a yardstick
    only, never on the path), the forward with its achieved TFLOP/s and its
    share of the bound;
@@ -49,9 +49,9 @@ and then:
    computed in fp32 from the same bf16 inputs, at the zig-zag ring's FULL
    and DIAG half-segments of B1 H16 T8192 D128 (strided lse/di halves),
    the contiguous n=1 ring's whole segment, a T = 2000, D 64 tail-tile
-   shape, a D 256 FULL half-segment (B1 H8 T4096: the Hopper wide forward
-   and dk/dv) and a D 320 one (B1 H4 T2048: the mma.sync family), and
-   times them
+   shape, a D 256 FULL half-segment (B1 H8 T4096: the Hopper wide
+   kernels), a D 320 one (B1 H4 T2048: the Hopper forward, the mma.sync
+   dk/dv and dq) and a D 384 one (the mma.sync family), and times them
    beside SDPA's forward and backward (a yardstick only: with the
    segment's own lse, SDPA's backward of the same segment, causal or
    full, computes the same dq, dk and dv), the forward with its
@@ -77,13 +77,14 @@ and then:
     against the same model's on the CPU;
 13. runs attention above head dim 128 through the entry points a user
     calls, ``flash_attention_local`` (bf16 B1 T4096 H8 D256, fp16 B2 T1024
-    H8 D160 and bf16 B1 T1024 H4 D320, causal) and the zig-zag ring
-    (``force_ring=True``, bf16 D256 and D320), forward and backward,
+    H8 D160, bf16 B1 T1024 H4 D320 and D384, causal) and the zig-zag ring
+    (``force_ring=True``, bf16 D256, D320 and D384), forward and backward,
     against the plain versions, checks which route each kernel took (the
-    Hopper wide forward and dk/dv up to D 256, the mma.sync family's dq,
-    and every kernel of it at D 320), and times each path's forward +
-    backward with the share of its attention kernels' device time that is
-    dq's: the wide kernels' path.
+    Hopper kernels up to D 256, the Hopper forward and the mma.sync dk/dv
+    and dq at D 320, the mma.sync family at D 384), by its launch counter
+    and by the names of the kernels a profiler trace saw, and times each
+    path's forward + backward with the share of its attention kernels'
+    device time that is dq's: the wide kernels' path.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -99,8 +100,8 @@ one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
 68 for the hierarchical one, whose 2 shards a pair halve the work; one of
-each tf32 kernel per layer and step of ViT_Tiny; each wide kernel, Hopper
-and mma.sync, at least once in phase 13). Any failed check exits
+each tf32 kernel per layer and step of ViT_Tiny; each wide instance,
+Hopper and mma.sync, at least once in phase 13). Any failed check exits
 non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -154,31 +155,40 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
                 ("D256", 2, 8, 2048, 2048, 256, True, "bfloat16"),
                 ("D160 fp16 Tq<Tk", 2, 8, 1024, 2048, 160, True, "float16"),
                 ("D256 fp32", 2, 4, 512, 512, 256, True, "float32"),
-                ("D320", 1, 4, 1024, 1024, 320, True, "bfloat16"))
+                ("D320", 1, 4, 1024, 1024, 320, True, "bfloat16"),
+                ("D384", 1, 4, 1024, 1024, 384, True, "bfloat16"))
 # the shape whose numbers the tf32 family's rows carry: phase 12's path
 TF32_SHAPE = "ViT_Tiny fp32"
-# the shapes whose numbers the rows of the instances above head dim 128
-# carry, K6 and K7: D 256 those of the Hopper wide forward and dk/dv
-# (<name>_sm90_wide) and the mma.sync dq (<name>_wide), D 320 those of the
-# mma.sync forward and dk/dv (<name>_wide)
-WIDE_SHAPE = "D256"
-WIDE_SEG_SHAPE = "D256 half, FULL"
-MMA16_SHAPE = "D320"
-MMA16_SEG_SHAPE = "D320 half, FULL"
+# the rows of the instances above head dim 128, K6 and K7, and the phase-4
+# and phase-8 shapes whose numbers each carries: the Hopper kernels at
+# D 192 and 256 (<name>_sm90_wide) at D 256, the Hopper forward at D 320
+# (<name>_sm90_d320) at D 320, the mma.sync dk/dv and dq above 256
+# (<name>_wide) at D 320, and the mma.sync forward above 320 at D 384
+WIDE_ROW_SHAPES = {"sm90_wide": ("D256", "D256 half, FULL"),
+                   "sm90_d320": ("D320", "D320 half, FULL"),
+                   "wide": ("D320", "D320 half, FULL"),
+                   "wide_fwd": ("D384", "D384 half, FULL")}
 # phase 13: attention above head dim 128 through the user entry points:
 # (what, path, B, T, H, D, dtype), q, k, v [B, T, H, D], causal
 WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
               ("zig-zag ring", "zigzag", 1, 4096, 8, 256, "bfloat16"),
               ("flash_attention_local", "flash", 2, 1024, 8, 160, "float16"),
               ("flash_attention_local", "flash", 1, 1024, 4, 320, "bfloat16"),
-              ("zig-zag ring", "zigzag", 1, 2048, 4, 320, "bfloat16"))
+              ("zig-zag ring", "zigzag", 1, 2048, 4, 320, "bfloat16"),
+              ("flash_attention_local", "flash", 1, 1024, 4, 384, "bfloat16"),
+              ("zig-zag ring", "zigzag", 1, 2048, 4, 384, "bfloat16"))
 WIDE_WINDOWS = 5               # timed windows of each wide path
 WIDE_WINDOW_CALLS = 2          # forward + backward calls in each window
+WIDE_TRACED_CALLS = 2          # forward + backward calls in the trace
 WIDE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                 "flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
-# the wrappers whose Hopper kernels also take head dims 192 and 256
-SM90_WIDE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_seg_fwd",
-                     "flash_seg_bwd_dkdv")
+# the CUDA kernel each wrapper's route launches: the Hopper kernel
+# (sm90_wide) or the mma.sync one (wide), K7's the same as K6's
+ROUTE_KERNELS = {"flash_fwd": "flash_fwd", "flash_seg_fwd": "flash_fwd",
+                 "flash_bwd_dkdv": "flash_bwd_dkdv",
+                 "flash_seg_bwd_dkdv": "flash_bwd_dkdv",
+                 "flash_bwd_dq": "flash_bwd_dq",
+                 "flash_seg_bwd_dq": "flash_bwd_dq"}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
                  "flash_bwd_dq")
 # the flagship LM (bench.py's bench_transformer configuration)
@@ -197,7 +207,8 @@ SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full"),
               ("tail tile, FULL", 4, 8, 2000, 64, "full"),
               ("tail tile, DIAG", 4, 8, 2000, 64, "diag"),
               ("D256 half, FULL", 1, 8, 4096, 256, "full"),
-              ("D320 half, FULL", 1, 4, 2048, 320, "full"))
+              ("D320 half, FULL", 1, 4, 2048, 320, "full"),
+              ("D384 half, FULL", 1, 4, 2048, 384, "full"))
 SEG_KERNELS = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the ring path on one card: bench.py:bench_sp_ring's shape, B, T, H, D
 RING_SHAPE = (1, 8192, 16, 128)
@@ -260,9 +271,9 @@ def attention_ptxas(build, log):
     ptxas report, by row of the ``kernels`` line: {row name: {"registers":
     the most of any instantiation, "spill_bytes": their sum}}. The Hopper
     kernels with In outputs are K6's rows, with fp32 outputs K7's, those at
-    head dims 192 and 256 ``<row>_sm90_wide``; the mma.sync family's rows
-    are ``<name>_tf32`` (fp32 inputs, K6 and K7 alike) and ``<name>_wide``
-    (bf16 and fp16)."""
+    head dims 192 and 256 ``<row>_sm90_wide``, the forward's at 320
+    ``<row>_sm90_d320``; the mma.sync family's rows are ``<name>_tf32``
+    (fp32 inputs, K6 and K7 alike) and ``<name>_wide`` (bf16 and fp16)."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
         "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
@@ -292,7 +303,7 @@ def attention_ptxas(build, log):
                 row = (f"{names[kernel][0]}_tf32" if types.startswith("f")
                        else f"{row}_wide")
             elif d and int(d) > 128:
-                row = f"{row}_sm90_wide"
+                row = f"{row}_sm90_{'d320' if int(d) == 320 else 'wide'}"
             spill = r["spill_stores"] + r["spill_loads"]
             entry = rows.setdefault(row, {"registers": 0, "spill_bytes": 0})
             entry["registers"] = max(entry["registers"], r["registers"])
@@ -735,10 +746,8 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
     error against the plain version in fp32 (from the same inputs) within
     :func:`flash_limit`. Returns a row per kernel (numbers at the flagship
     shape, every shape under "shapes"), the rows of the routes of their
-    own (the tf32 ones at TF32_SHAPE; at WIDE_SHAPE the Hopper wide forward
-    and dk/dv, ``<name>_sm90_wide``, and the mma.sync dq, ``<name>_wide``;
-    the mma.sync forward and dk/dv at MMA16_SHAPE) and a fwd/fwd+bwd
-    summary per shape beside SDPA's."""
+    own (the tf32 ones at TF32_SHAPE) and a fwd/fwd+bwd summary per shape
+    beside SDPA's."""
     import torch.nn.functional as F
     rows = {n: {"shapes": []} for n in FLASH_KERNELS}
     tf32_rows = {}
@@ -859,13 +868,6 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         if what == TF32_SHAPE:
             tf32_rows = {f"{n}_tf32": entries[n] for n in
                          ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
-        if what == WIDE_SHAPE:
-            tf32_rows.update({f"{n}_sm90_wide": entries[n] for n in
-                              ("flash_fwd", "flash_bwd_dkdv")})
-            tf32_rows["flash_bwd_dq_wide"] = entries["flash_bwd_dq"]
-        if what == MMA16_SHAPE:
-            tf32_rows.update({f"{n}_wide": entries[n] for n in
-                              ("flash_fwd", "flash_bwd_dkdv")})
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
@@ -1155,18 +1157,38 @@ def run_ring_path(torch, K, R, fa, dev, log):
                 limits=dict(zip(names, limits)))
 
 
-def wide_route_ok(counts, d, ring):
-    """Whether one wide path's launches took the routes flash_route names:
-    up to head dim 256 the Hopper wide forward and dk/dv and the mma.sync
-    dq, above it the mma.sync family throughout; K7's kernels on the ring,
-    K6's on flash_attention_local (each at least once)."""
+def wide_routes(K, dtype, d, ring):
+    """The route each kernel of one wide path takes (flash_route: up to
+    head dim 256 the Hopper kernels, at 320 the Hopper forward and the
+    mma.sync dk/dv and dq, above it the mma.sync family), K7's on the
+    ring, K6's on flash_attention_local: {wrapper: "sm90_wide" or
+    "wide"}."""
     names = WIDE_KERNELS[3:] if ring else WIDE_KERNELS[:3]
-    for name in names:
-        hopper = d <= 256 and name in SM90_WIDE_KERNELS
-        want, other = (("sm90_wide", "wide") if hopper
-                       else ("wide", "sm90_wide"))
+    return {name: K.flash_route(dtype, d, name) for name in names}
+
+
+def wide_route_ok(counts, routes):
+    """Whether one wide path's launch counts show each wrapper on its route
+    (at least once) and never on the other."""
+    for name, want in routes.items():
+        other = "wide" if want == "sm90_wide" else "sm90_wide"
         if counts.get(f"{name}_{want}", 0) < 1 \
                 or counts.get(f"{name}_{other}", 0) != 0:
+            return False
+    return True
+
+
+def traced_route_ok(names, routes):
+    """Whether the kernel names of a profiler trace agree with the routes:
+    each wrapper's Hopper kernel (``<kernel>_sm90_kernel``) or mma.sync
+    kernel (``<kernel>_mma_kernel``) seen, and the other never."""
+    for name, route in routes.items():
+        base = ROUTE_KERNELS[name]
+        want, other = ((f"{base}_sm90_kernel", f"{base}_mma_kernel")
+                       if route == "sm90_wide" else
+                       (f"{base}_mma_kernel", f"{base}_sm90_kernel"))
+        if not any(want in n for n in names) \
+                or any(other in n for n in names):
             return False
     return True
 
@@ -1177,14 +1199,16 @@ def run_wide_path(torch, K, R, fa, dev, log):
     (zig-zag, ``force_ring=True``), forward and backward of sum(out²) at
     each of WIDE_PATHS: each output and gradient within twice the plain
     version's error in the input dtype plus 1e-3 of the largest entry of
-    the fp32 plain version's; each kernel on its route (wide_route_ok).
-    Times each path's forward + backward (CUDA events, median of
-    WIDE_WINDOWS windows) and, from a torch.profiler trace of one call, the
+    the fp32 plain version's; each kernel on its route, by its launch
+    counter (wide_route_ok) and by the kernels a torch.profiler trace of
+    two calls saw (traced_route_ok). Times each path's forward + backward
+    (CUDA events, median of WIDE_WINDOWS windows) and, from the trace, the
     share of its attention kernels' device time that is dq's. Returns the
     summary per path."""
     from torch.profiler import ProfilerActivity, profile
     summary = []
     for what, path, b, t, h, d, dtype in WIDE_PATHS:
+        path_start = K.launch_counts()
         dt = getattr(torch, dtype)
         scale = d ** -0.5
         gen = torch.Generator(device=dev).manual_seed(8)
@@ -1207,8 +1231,9 @@ def run_wide_path(torch, K, R, fa, dev, log):
         n1 = K.launch_counts()
         counts = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
         log(f"  {what} B{b} T{t} H{h} D{d} {dtype}: launches {counts}")
-        check(wide_route_ok(counts, d, path != "flash"),
-              f"{what} D{d}: kernels off their routes: {counts}")
+        routes = wide_routes(K, dt, d, path != "flash")
+        check(wide_route_ok(counts, routes),
+              f"{what} D{d}: kernels off their routes {routes}: {counts}")
         got = [x.transpose(1, 2) for x in res]
         f32 = [x.float().transpose(1, 2) for x in base]
         o32, lse32 = K.flash_attention_fwd_plain(*f32, True, scale)
@@ -1244,25 +1269,39 @@ def run_wide_path(torch, K, R, fa, dev, log):
             windows.append(start.elapsed_time(end) / WIDE_WINDOW_CALLS)
         ms = statistics.median(windows)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fwd_bwd()
+            # a trace may miss its first kernel: one of no interest goes
+            # first, and more than one call is traced
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            for _ in range(WIDE_TRACED_CALLS):
+                fwd_bwd()
             torch.cuda.synchronize()
         attn = {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", 0.0)
             if us > 0 and "flash_" in ev.key:
-                attn[ev.key] = attn.get(ev.key, 0.0) + us / 1e3
+                attn[ev.key] = (attn.get(ev.key, 0.0)
+                                + us / 1e3 / WIDE_TRACED_CALLS)
         attn_ms = sum(attn.values())
         dq_ms = sum(v for k_, v in attn.items() if "_dq_" in k_)
         check(attn_ms > 0, f"{what} D{d}: the profiler saw no attention "
               "kernel")
+        check(traced_route_ok(attn, routes),
+              f"{what} D{d}: the traced kernels {sorted(attn)} disagree "
+              f"with the counted routes {routes}")
         log(f"  {what} B{b} T{t} H{h} D{d} {dtype}: {ms:.4f} ms a forward + "
             f"backward (windows {', '.join(f'{x:.4f}' for x in windows)}); "
             f"attention kernels {attn_ms:.4f} ms of device time, dq "
             f"{dq_ms:.4f} ms ({100 * dq_ms / attn_ms:.1f}%)")
         summary.append(dict(what=what, shape=[b, t, h, d], dtype=dtype,
+                            routes=routes, traced_kernels=sorted(attn),
                             max_abs_err=errors, launches=counts, ms=ms,
                             windows=windows, attention_kernels_ms=attn_ms,
-                            dq_ms=dq_ms, dq_share=dq_ms / attn_ms))
+                            dq_ms=dq_ms, dq_share=dq_ms / attn_ms,
+                            path_launches={
+                                k: v - path_start[k]
+                                for k, v in K.launch_counts().items()
+                                if v != path_start[k]}))
         del base
         torch.cuda.empty_cache()
     return summary
@@ -1986,35 +2025,61 @@ def main(argv=None) -> int:
         wide_counts = K.launch_counts()
         log(f"  launches on the wide path: {wide_counts}")
         for name in WIDE_KERNELS:
-            check(wide_counts[f"{name}_wide"] >= 1,
-                  f"{name}_wide launched no time on the wide path")
-        for name in SM90_WIDE_KERNELS:
-            check(wide_counts[f"{name}_sm90_wide"] >= 1,
-                  f"{name}_sm90_wide launched no time on the wide path")
+            for route in ("wide", "sm90_wide"):
+                check(wide_counts[f"{name}_{route}"] >= 1,
+                      f"{name}_{route} launched no time on the wide path")
     finally:
         hvd.shutdown()
 
-    def wide_entry(name, route):
-        """The numbers of an instance above head dim 128: phase 4's or
-        phase 8's row at the shape that carries its route (D 256: the
-        Hopper wide forward and dk/dv and the mma.sync dq; D 320: the
-        mma.sync forward and dk/dv)."""
-        d320 = route == "wide" and not name.endswith("_dq")
-        if name.startswith("flash_seg"):
-            shape = MMA16_SEG_SHAPE if d320 else WIDE_SEG_SHAPE
-            return next(e for e in seg_rows[name]["shapes"]
-                        if e["what"] == shape)
-        return tf32_rows[f"{name}_{route}"]
+    def wide_shape(name, row):
+        """The phase-4 (K6) or phase-8 (K7) shape whose numbers the row
+        ``<name>_<row>`` of an instance above head dim 128 carries."""
+        key = "wide_fwd" if row == "wide" and name.endswith("_fwd") else row
+        return WIDE_ROW_SHAPES[key][int(name.startswith("flash_seg"))]
 
-    def wide_work(name, route, seg):
-        d320 = route == "wide" and not name.endswith("_dq")
-        if seg:
-            shape = ("bf16 D320, the FULL half-segment B1 H4 S1024" if d320
-                     else "bf16 D256, the FULL half-segment B1 H8 S2048")
+    def wide_entry(name, row):
+        shape = wide_shape(name, row)
+        rows = seg_rows if name.startswith("flash_seg") else flash_rows
+        return next(e for e in rows[name]["shapes"] if e["what"] == shape)
+
+    def wide_launches(name, row):
+        """The launches of the instance in phase 13 (checks, timing and
+        trace): its route's counter over the paths at the head dims it
+        takes."""
+        route = "wide" if row == "wide" else "sm90_wide"
+
+        def takes(path):
+            d320 = K._flash_dim(path["shape"][3]) == 320
+            return row == "wide" or d320 == (row == "sm90_d320")
+        n = sum(p["path_launches"].get(f"{name}_{route}", 0) for p in wide
+                if takes(p))
+        check(n >= 1, f"{name}_{row} launched no time on the wide path")
+        return n
+
+    def wide_work(name, row):
+        shape = wide_shape(name, row)
+        if name.startswith("flash_seg"):
+            _, b, h, t, d, _ = next(x for x in SEG_SHAPES if x[0] == shape)
+            text = f"bf16 D{d}, the FULL half-segment B{b} H{h} S{t // 2}"
         else:
-            shape = ("bf16 D320, B1 H4 T1024 causal" if d320
-                     else "bf16 D256, B2 H8 T2048 causal")
-        return shape + "; launches: phase 13"
+            _, b, h, tq, _, d, _, _ = next(x for x in FLASH_SHAPES
+                                           if x[0] == shape)
+            text = f"bf16 D{d}, B{b} H{h} T{tq} causal"
+        return text + "; launches: phase 13"
+
+    def wide_row(name, row, line, source):
+        entry = wide_entry(name, row)
+        return dict(
+            name=f"{name}_{row}", route="cuda", source=f"{src}/{source}",
+            replaces=(f"horovod_tpu/parallel/ring_attention.py:{line}"
+                      if name.startswith("flash_seg") else
+                      "horovod_tpu/parallel/flash_attention.py:226"),
+            launches=wide_launches(name, row), ok=True,
+            work=wide_work(name, row),
+            **{key: entry[key] for key in
+               ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")},
+            **ptxas[f"{name}_{row}"])
 
     src = "horovod_tpu_torch/csrc"
     kernels = [
@@ -2077,33 +2142,16 @@ def main(argv=None) -> int:
                                  "and dv together)"}
                 if name != "flash_seg_fwd" else {}))
         for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
-        # above head dim 128, K6's and K7's functions: the Hopper forward
-        # and dk/dv at D 192 and 256
-        dict(name=f"{name}_sm90_wide", route="cuda",
-             source=f"{src}/{flash_source(name)}",
-             replaces=(f"horovod_tpu/parallel/ring_attention.py:{line}"
-                       if line else
-                       "horovod_tpu/parallel/flash_attention.py:226"),
-             launches=wide_counts[f"{name}_sm90_wide"], ok=True,
-             work=wide_work(name, "sm90_wide", bool(line)),
-             **{key: wide_entry(name, "sm90_wide")[key] for key in
-                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err")},
-             **ptxas[f"{name}_sm90_wide"])
-        for name, line in zip(SM90_WIDE_KERNELS, (0, 0, 169, 188))] + [
-        # and the mma.sync family on bf16 and fp16: dq above 128 (numbers
-        # at D 256), every kernel above 256 (forward and dk/dv at D 320)
-        dict(name=f"{name}_wide", route="cuda", source=f"{src}/flash_attn.cu",
-             replaces=(f"horovod_tpu/parallel/ring_attention.py:{line}"
-                       if line else
-                       "horovod_tpu/parallel/flash_attention.py:226"),
-             launches=wide_counts[f"{name}_wide"], ok=True,
-             work=wide_work(name, "wide", bool(line)),
-             **{key: wide_entry(name, "wide")[key] for key in
-                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err")},
-             **ptxas[f"{name}_wide"])
-        for name, line in zip(WIDE_KERNELS, (0, 0, 0, 169, 188, 194))] + [
+        # above head dim 128, K6's and K7's functions: the Hopper kernels
+        # at D 192 and 256, the Hopper forward at 320, and the mma.sync
+        # family on bf16 and fp16 (dk/dv and dq above 256, the forward
+        # above 320)
+        wide_row(name, row, line, source)
+        for name, line in zip(WIDE_KERNELS, (0, 0, 0, 169, 188, 194))
+        for row, source in (("sm90_wide", flash_source(name)),
+                            ("sm90_d320", flash_source(name)),
+                            ("wide", "flash_attn.cu"))
+        if row != "sm90_d320" or name.endswith("_fwd")] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",
              replaces=f"horovod_tpu/ops/pallas_kernels.py:{line}",

@@ -3,10 +3,10 @@
 // flash_fwd_sm90.cu and flash_bwd_sm90.cu give the C entry points in
 // flash_attn.cu.
 //
-// Inputs are bf16 or fp16 at D = 64 or 128, and for the forward and dk/dv
-// also 192 or 256 (the Hopper kernels: TMA and wgmma), or else fp32 at any
-// D and bf16 or fp16 above (the tf32 mma.sync kernels of flash_attn.cu,
-// whose run() routes a launch); D is 64, 128 or a multiple of 64 above
+// Inputs are bf16 or fp16 at D = 64, 128, 192 or 256, and for the forward
+// also 320 (the Hopper kernels: TMA and wgmma), or else fp32 at any D and
+// bf16 or fp16 above (the tf32 mma.sync kernels of flash_attn.cu, whose
+// run() routes a launch); D is 64, 128 or a multiple of 64 above
 // (the wrapper pads other head dims with zeros), q of Tq rows and k, v of
 // Tk rows. Causal means the library kernel's rule: key <= query by
 // absolute index.

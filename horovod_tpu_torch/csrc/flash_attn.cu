@@ -11,15 +11,16 @@
 // _seg_bwd_pallas).
 //
 // The route (run() below; ops/kernels.py:flash_route says the same):
-// - bf16 and fp16 at head dim 64 or 128: the Hopper kernels of
-//   flash_fwd_sm90.cu and flash_bwd_sm90.cu (TMA and wgmma);
-// - bf16 and fp16 at head dim 192 or 256: the same Hopper forward and
-//   dk/dv; dq runs the mma.sync kernel below (its redesign is queued);
-// - bf16 and fp16 above 256, and fp32 at every head dim: the mma.sync
-//   family below. wgmma's N is at most 256, and a wider accumulator fits
-//   no register budget; wgmma takes tf32 operands K-major only, and four
-//   of the attention products (P V, P^T dO, dS^T Q, dS K) would need an
-//   MN-major one.
+// - bf16 and fp16: the Hopper kernels of flash_fwd_sm90.cu and
+//   flash_bwd_sm90.cu (TMA and wgmma) up to a largest head dim per
+//   function: the forward to 320, dk/dv and dq to 256;
+// - bf16 and fp16 above those, and fp32 at every head dim: the mma.sync
+//   family below. wgmma's N is at most 256: the forward's O at 320 is two
+//   accumulators of 192 and 128 columns over the same P, but dK and dV
+//   (held together in a dk/dv block) and dQ beside S and dP fit no
+//   register budget above 256 yet; wgmma takes tf32 operands K-major
+//   only, and four of the attention products (P V, P^T dO, dS^T Q, dS K)
+//   would need an MN-major one.
 // There is no fallback: a launch runs its route's kernel or returns the
 // error.
 //
@@ -774,12 +775,17 @@ cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
 
 typedef cudaError_t (*Fn)(const Args&, cudaStream_t);
 
+// The largest head dim of the Hopper kernels: the forward's, and dk/dv's
+// and dq's (ops/kernels.py:SM90_MAX_DIM holds the same).
+constexpr int kFwdMaxD = 320;
+constexpr int kBwdMaxD = 256;
+
 // Checks the arguments every kernel relies on, selects the device, and
-// runs `sm90` (the Hopper kernels: bf16 and fp16 at D 64 or 128, and with
-// `sm90_wide`, the forward and dk/dv, also at D 192 or 256) or `mma` (fp32
-// at every D, and bf16 and fp16 at the other D above 128).
+// runs `sm90` (the Hopper kernels: bf16 and fp16 at D up to `sm90_max_d`,
+// the function's largest Hopper head dim) or `mma` (fp32 at every D, and
+// bf16 and fp16 above it).
 int run(int device, const Args& a, void* stream, Fn sm90, Fn mma,
-        bool sm90_wide) {
+        int sm90_max_d) {
   if (a.D < 64 || a.D % 64 != 0 || (a.D > 64 && a.D < 128))
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
@@ -789,8 +795,7 @@ int run(int device, const Args& a, void* stream, Fn sm90, Fn mma,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool hopper = a.dtype != flash::kF32 &&
-                      (a.D <= 128 || (sm90_wide && a.D <= 256));
+  const bool hopper = a.dtype != flash::kF32 && a.D <= sm90_max_d;
   return (int)(hopper ? sm90 : mma)(a, (cudaStream_t)stream);
 }
 
@@ -855,7 +860,7 @@ int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
                   scale);
   a.o = view(o, strides, 3);
   a.lse = dense_stat(lse, H, Tq);
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma, true);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma, kFwdMaxD);
 }
 
 // di = rowsum(dout * o). strides: o, dout.
@@ -871,7 +876,7 @@ int hvd_flash_bwd_pre(int device, int dtype, const void* o, const void* dout,
   a.o = view(o, strides, 0);
   a.dout = view(dout, strides, 1);
   a.di = dense_stat(di, H, T);
-  return run(device, a, stream, bwd_pre, bwd_pre, false);
+  return run(device, a, stream, bwd_pre, bwd_pre, 0);
 }
 
 // dk = ds^T q * scale, dv = p^T dout, p = exp(q k^T * scale - lse),
@@ -888,7 +893,7 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
   a.dv = view(dv, strides, 5);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, true);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD);
 }
 
 // dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
@@ -902,7 +907,7 @@ int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.dq = view(dq, strides, 4);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, false);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD);
 }
 
 // K7 (ring attention's segments, Tq = Tk = the segment length S): the same
@@ -920,7 +925,7 @@ int hvd_flash_seg_fwd(int device, int dtype, const void* q, const void* k,
   a.o = view(o, strides, 3);
   a.lse = stat(lse, strides, 4, 0);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma, true);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma, kFwdMaxD);
 }
 
 // (dk, dv) of one segment under the given lse and di.
@@ -938,7 +943,7 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
   a.lse = stat(lse, strides, 6, 0);
   a.di = stat(di, strides, 6, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, true);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD);
 }
 
 // dq of one segment under the given lse and di.
@@ -954,7 +959,7 @@ int hvd_flash_seg_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.lse = stat(lse, strides, 5, 0);
   a.di = stat(di, strides, 5, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, false);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD);
 }
 
 }  // extern "C"

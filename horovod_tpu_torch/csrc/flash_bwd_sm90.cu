@@ -56,6 +56,18 @@
 //   dP = dO V^T (one commit group), P and dS in registers (lse and di of
 //   its two rows held in registers), and dQ += dS K (dS from registers, K
 //   an MN-major B). Blocks start with the longest rows.
+// - dq at head dims 192 and 256 (DqTiles<D>): dQ is 96 or 128 registers
+//   beside S and dP (32 each) and dS (16), more than the 168 a thread of a
+//   384-thread block has. So, as the forward at D 256: one consumer of 64
+//   q rows in a block of 256 threads (255 registers at launch), S and dP
+//   over the whole depth once, dQ over the whole D. With one consumer the
+//   tensor cores would idle while it forms dS, so the products of
+//   consecutive tiles overlap as the forward's do: S_j and dP_j are issued
+//   with dS_{j-1} K_{j-1}, and dS_j is formed while that is in flight.
+//   K_j is read by two tiles' products and V_j by one, so K and V have
+//   rings of their own, 3 K slots and 2 V slots (at D 256 Q, dO and the
+//   rings take 229,376 bytes), each V slot released once dP is done and
+//   each K slot once its dQ product is.
 // - Only a tile that crosses the causal diagonal, or Tk in dq, runs the
 //   per-element mask; TMA zero-fills rows past Tq and Tk, whose outputs
 //   are never stored. A dk/dv block past every query (causal, Tk > Tq)
@@ -66,9 +78,11 @@
 // Tried and not kept (slower at the flagship shape): one warpgroup holding
 // both dK and dV of its 64 kv rows under setmaxnreg 240 (it spilled: ptxas
 // held the consumers to the block's 168 registers), S^T computed by both
-// warpgroups instead of handed over (5 products a tile), and issuing the
-// next tile's S^T / dP^T / S, dP behind the current tile's last product
-// (ptxas reported the products serialized, C7512 / C7519).
+// warpgroups instead of handed over (5 products a tile), and, in the
+// 384-thread blocks, issuing the next tile's S^T / dP^T / S, dP behind the
+// current tile's last product (ptxas reported the products serialized,
+// C7512 / C7519; the wide dq's 256-thread block, 255 registers at launch,
+// overlaps them with no such report and no spill).
 // Not here (later work): a persistent scheduler, a TMA store epilogue.
 
 #include <cuda.h>
@@ -87,12 +101,10 @@ using flash::Args;
 using flash::View;
 
 constexpr int kSlab = 64;      // 16-bit columns of a 128-byte swizzled slab
-constexpr int kThreads = 384;  // dq: a producer warpgroup and two consumers
 constexpr float kLog2e = 1.4426950408889634f;
 
 constexpr int kKV = 64;        // dk/dv: kv rows of a block
 constexpr int kBQ = 64;        // dk/dv: q rows of a ring tile
-constexpr int kQ = 128;        // dq: q rows of a block, 64 a consumer
 constexpr int kBK = 64;        // dq: kv rows of a ring tile
 
 template <int D>
@@ -116,12 +128,22 @@ struct DkdvTiles {
 
 template <int D>
 struct DqTiles {
-  static constexpr int kStages = 2;
-  static constexpr int kQElems = kQ * D;       // the Q or the dO tile
+  // above D 128: one consumer, the products of consecutive tiles
+  // overlapped, K and V in rings of their own (see the header)
+  static constexpr bool kWide = D > 128;
+  static constexpr int kConsumers = kWide ? 1 : 2;
+  // a producer warpgroup and the consumers
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kBQ = 64 * kConsumers;  // q rows of a block
+  // ring slots of K (with K and V in one slot below D 192) and of V
+  static constexpr int kKStages = kWide ? 3 : 2;
+  static constexpr int kVStages = 2;
+  static constexpr int kQElems = kBQ * D;      // the Q or the dO tile
   static constexpr int kTileElems = kBK * D;   // a K or a V tile
-  static constexpr uint32_t kSlotBytes = 2 * kTileElems * 2;
+  // the bytes a full barrier waits for: a K and a V tile, or one of them
+  static constexpr uint32_t kSlotBytes = (kWide ? 1 : 2) * kTileElems * 2;
   static constexpr int kSmem =
-      (2 * kQElems + 2 * kStages * kTileElems) * 2 + 256 + 1024;
+      (2 * kQElems + (kKStages + kVStages) * kTileElems) * 2 + 256 + 1024;
 };
 
 // Two neighbouring output elements: a pair of In, or two floats.
@@ -456,9 +478,31 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 struct DqShared {
   uint64_t* q_full;   // the block's Q and dO tiles
-  uint64_t* full;     // a ring slot of K and V: TMA (1 arrival and bytes)
-  uint64_t* empty;    // emptied by both consumers (256 arrivals)
+  // a ring slot of K and V (below D 192) or of K: TMA (1 arrival and the
+  // bytes), emptied by the consumers (an arrival from each thread)
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* v_full;   // above D 128, a ring slot of V, as above
+  uint64_t* v_empty;
 };
+
+// One thread: the kv tile j of `map` into `ring`'s slot for it, once the
+// consumers have emptied the slot's previous tile; `bytes` completes the
+// slot's full barrier.
+template <int D, int kStages, typename In>
+__device__ __forceinline__ void dq_load_tile(const CUtensorMap* map, In* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             uint32_t bytes, int j, int b,
+                                             int h) {
+  const int st = j % kStages;
+  sm90::mbar_wait(empty + st, ((j / kStages) & 1) ^ 1);
+  sm90::mbar_arrive_expect_tx(full + st, bytes);
+  In* dst = ring + st * DqTiles<D>::kTileElems;
+#pragma unroll
+  for (int s = 0; s < D / kSlab; ++s)
+    sm90::tma_load_4d(dst + s * kBK * kSlab, map, full + st, s * kSlab,
+                      j * kBK, h, b);
+}
 
 // Producer thread: Q and dO once, then the K and V tiles in ring order.
 template <int D, typename In>
@@ -474,24 +518,52 @@ __device__ __forceinline__ void dq_produce(
   sm90::mbar_arrive_expect_tx(bar.q_full, 2 * C::kQElems * 2);
 #pragma unroll
   for (int s = 0; s < D / kSlab; ++s) {
-    sm90::tma_load_4d(qs + s * kQ * kSlab, tq, bar.q_full, s * kSlab, q0, h,
-                      b);
-    sm90::tma_load_4d(dos + s * kQ * kSlab, tdo, bar.q_full, s * kSlab, q0,
+    sm90::tma_load_4d(qs + s * C::kBQ * kSlab, tq, bar.q_full, s * kSlab, q0,
                       h, b);
+    sm90::tma_load_4d(dos + s * C::kBQ * kSlab, tdo, bar.q_full, s * kSlab,
+                      q0, h, b);
   }
   for (int j = 0; j < n_kv; ++j) {
-    const int st = j % C::kStages;
-    sm90::mbar_wait(bar.empty + st, ((j / C::kStages) & 1) ^ 1);
-    sm90::mbar_arrive_expect_tx(bar.full + st, C::kSlotBytes);
-    In* kd = kr + st * C::kTileElems;
-    In* vd = vr + st * C::kTileElems;
+    if constexpr (C::kWide) {
+      dq_load_tile<D, C::kKStages>(tk, kr, bar.full, bar.empty, C::kSlotBytes,
+                                   j, b, h);
+      dq_load_tile<D, C::kVStages>(tv, vr, bar.v_full, bar.v_empty,
+                                   C::kSlotBytes, j, b, h);
+    } else {
+      const int st = j % C::kKStages;
+      sm90::mbar_wait(bar.empty + st, ((j / C::kKStages) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar.full + st, C::kSlotBytes);
+      In* kd = kr + st * C::kTileElems;
+      In* vd = vr + st * C::kTileElems;
 #pragma unroll
-    for (int s = 0; s < D / kSlab; ++s) {
-      sm90::tma_load_4d(kd + s * kBK * kSlab, tk, bar.full + st, s * kSlab,
-                        j * kBK, h, b);
-      sm90::tma_load_4d(vd + s * kBK * kSlab, tv, bar.full + st, s * kSlab,
-                        j * kBK, h, b);
+      for (int s = 0; s < D / kSlab; ++s) {
+        sm90::tma_load_4d(kd + s * kBK * kSlab, tk, bar.full + st, s * kSlab,
+                          j * kBK, h, b);
+        sm90::tma_load_4d(vd + s * kBK * kSlab, tv, bar.full + st, s * kSlab,
+                          j * kBK, h, b);
+      }
     }
+  }
+}
+
+// dS = P o (dP - di) in place of dP, P = exp2(S * scale * log2 e - lse *
+// log2 e) of this thread's two rows; 0 where the pair is masked (columns
+// at or past Tk; causal: past the row), only on a tile that needs it.
+template <int N>
+__device__ __forceinline__ void dq_ds(const float (&s)[N], float (&dp)[N],
+                                      const float (&lse_r)[2],
+                                      const float (&di_r)[2], float sl2,
+                                      bool mask, int kv0, int r_lo, int t,
+                                      int Tk, int causal) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int i = (e / 2) & 1;
+    float x = exp2f(s[e] * sl2 - lse_r[i]);
+    if (mask) {
+      const int col = kv0 + 8 * (e / 4) + 2 * t + (e & 1);
+      if (col >= Tk || (causal && col > r_lo + 8 * i)) x = 0.f;
+    }
+    dp[e] = x * (dp[e] - di_r[i]);
   }
 }
 
@@ -521,50 +593,92 @@ __device__ __forceinline__ void dq_consume(const Args& p, const In* qs,
       di_r[i] = r < p.Tq ? di[r] : 0.f;
     }
   }
+  // a tile needs the mask if it crosses Tk or, causal, the diagonal
+  auto mask = [&](int kv0) {
+    return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
+  };
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   sm90::mbar_wait(bar.q_full, 0);
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j % C::kStages, kv0 = j * kBK;
-    const In* kt = kr + st * C::kTileElems;
-    const In* vt = vr + st * C::kTileElems;
-    sm90::mbar_wait(bar.full + st, (j / C::kStages) & 1);
+  if constexpr (C::kWide) {
+    // S_j and dP_j are issued with dQ += dS_{j-1} K_{j-1}; dS_j is formed
+    // while that product is in flight. The first tile is peeled off, so no
+    // product is issued under a branch.
+    constexpr int kKS = C::kKStages, kVS = C::kVStages;
     float s[kBK / 2], dp[kBK / 2];
+    uint32_t da[kBK / 16][4];   // dS of the tile whose dQ product is next
+    sm90::mbar_wait(bar.full, 0);
+    sm90::mbar_wait(bar.v_full, 0);
     sm90::wgmma_fence();
-    issue_nt<D, kBK>(s, qw, kQ, kt, kBK);
-    issue_nt<D, kBK>(dp, dw, kQ, vt, kBK);
+    issue_nt<D, kBK>(s, qw, C::kBQ, kr, kBK);
+    issue_nt<D, kBK>(dp, dw, C::kBQ, vr, kBK);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    // a tile needs the mask if it crosses Tk or, causal, the diagonal
-    const bool mask =
-        kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
-#pragma unroll
-    for (int e = 0; e < kBK / 2; ++e) {
-      const int i = (e / 2) & 1;
-      float x = exp2f(s[e] * sl2 - lse_r[i]);
-      if (mask) {
-        const int col = kv0 + 8 * (e / 4) + 2 * t + (e & 1);
-        if (col >= p.Tk || (p.causal && col > r_lo + 8 * i)) x = 0.f;
-      }
-      dp[e] = x * (dp[e] - di_r[i]);
-    }
-    uint32_t da[kBK / 16][4];
+    sm90::mbar_arrive(bar.v_empty);
+    dq_ds(s, dp, lse_r, di_r, sl2, mask(0), 0, r_lo, t, p.Tk, p.causal);
     sm90::to_operand<In>(dp, da);
+    for (int j = 1; j < n_kv; ++j) {
+      const int ks = j % kKS, vs = j % kVS, prev = (j - 1) % kKS;
+      sm90::mbar_wait(bar.full + ks, (j / kKS) & 1);
+      sm90::mbar_wait(bar.v_full + vs, (j / kVS) & 1);
+      sm90::wgmma_fence();
+      issue_nt<D, kBK>(s, qw, C::kBQ, kr + ks * C::kTileElems, kBK);
+      issue_nt<D, kBK>(dp, dw, C::kBQ, vr + vs * C::kTileElems, kBK);
+      sm90::wgmma_commit();
+      issue_rs<D, kBK>(acc, da, kr + prev * C::kTileElems);
+      sm90::wgmma_wait<1>();   // S_j and dP_j are done; dQ may not be
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::mbar_arrive(bar.v_empty + vs);
+      dq_ds(s, dp, lse_r, di_r, sl2, mask(j * kBK), j * kBK, r_lo, t, p.Tk,
+            p.causal);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(da);
+      sm90::mbar_arrive(bar.empty + prev);
+      sm90::to_operand<In>(dp, da);
+    }
+    const int last = (n_kv - 1) % kKS;
     sm90::wgmma_fence();
-    issue_rs<D, kBK>(acc, da, kt);
+    issue_rs<D, kBK>(acc, da, kr + last * C::kTileElems);
     sm90::wgmma_wait<0>();
     sm90::fence_regs(acc);
     sm90::fence_regs(da);
-    sm90::mbar_arrive(bar.empty + st);
+    sm90::mbar_arrive(bar.empty + last);
+  } else {
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % C::kKStages, kv0 = j * kBK;
+      const In* kt = kr + st * C::kTileElems;
+      const In* vt = vr + st * C::kTileElems;
+      sm90::mbar_wait(bar.full + st, (j / C::kKStages) & 1);
+      float s[kBK / 2], dp[kBK / 2];
+      sm90::wgmma_fence();
+      issue_nt<D, kBK>(s, qw, C::kBQ, kt, kBK);
+      issue_nt<D, kBK>(dp, dw, C::kBQ, vt, kBK);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      dq_ds(s, dp, lse_r, di_r, sl2, mask(kv0), kv0, r_lo, t, p.Tk,
+            p.causal);
+      uint32_t da[kBK / 16][4];
+      sm90::to_operand<In>(dp, da);
+      sm90::wgmma_fence();
+      issue_rs<D, kBK>(acc, da, kt);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(da);
+      sm90::mbar_arrive(bar.empty + st);
+    }
   }
   store_acc<D, OutT>(p.dq, b, h, r_lo, p.Tq, acc, p.scale, t);
 }
 
 template <int D, typename In, typename OutT>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(DqTiles<D>::kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -577,22 +691,30 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   In* qs = reinterpret_cast<In*>(base);
   In* dos = qs + C::kQElems;
   In* kr = dos + C::kQElems;
-  In* vr = kr + C::kStages * C::kTileElems;
+  In* vr = kr + C::kKStages * C::kTileElems;
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(vr + C::kStages * C::kTileElems);
-  const DqShared bar{bars, bars + 1, bars + 1 + C::kStages};
+      reinterpret_cast<uint64_t*>(vr + C::kVStages * C::kTileElems);
+  const DqShared bar{bars, bars + 1, bars + 1 + C::kKStages,
+                     bars + 1 + 2 * C::kKStages,
+                     bars + 1 + 2 * C::kKStages + C::kVStages};
 
   const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
   // causal: the longest rows first, so the last wave is short
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kQ;
-  const int kv_end = p.causal ? min(p.Tk, q0 + kQ) : p.Tk;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
   const int n_kv = (kv_end + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(bar.q_full, 1);
-    for (int s = 0; s < C::kStages; ++s) {
+    for (int s = 0; s < C::kKStages; ++s) {
       sm90::mbar_init(bar.full + s, 1);
-      sm90::mbar_init(bar.empty + s, 256);
+      sm90::mbar_init(bar.empty + s, 128 * C::kConsumers);
+    }
+    if constexpr (C::kWide) {
+      for (int s = 0; s < C::kVStages; ++s) {
+        sm90::mbar_init(bar.v_full + s, 1);
+        sm90::mbar_init(bar.v_empty + s, 128);
+      }
     }
     sm90::fence_mbar_init();
   }
@@ -655,34 +777,40 @@ struct Dkdv {
 template <int D, typename In, typename OutT>
 struct Dq {
   static cudaError_t run(const Args& a, cudaStream_t s) {
-    return launch<In>(flash_bwd_dq_sm90_kernel<D, In, OutT>, kThreads,
-                      DqTiles<D>::kSmem, kQ, kBK, (a.Tq + kQ - 1) / kQ, a, s);
+    using C = DqTiles<D>;
+    return launch<In>(flash_bwd_dq_sm90_kernel<D, In, OutT>, C::kThreads,
+                      C::kSmem, C::kBQ, kBK, (a.Tq + C::kBQ - 1) / C::kBQ, a,
+                      s);
   }
 };
 
 // The instance for the arguments' head dim, input type and output type:
-// D 64 and 128, and with kWide 192 and 256 (dk/dv; the caller routes no
-// other).
-template <template <int, typename, typename> class F, bool kWide,
-          typename In, typename OutT>
+// D 64, 128, 192 and 256 (the caller routes no other).
+template <template <int, typename, typename> class F, typename In,
+          typename OutT>
 cudaError_t pick_d(const Args& a, cudaStream_t stream) {
-  if (a.D == 64) return F<64, In, OutT>::run(a, stream);
-  if (a.D == 128) return F<128, In, OutT>::run(a, stream);
-  if constexpr (kWide) {
-    if (a.D == 192) return F<192, In, OutT>::run(a, stream);
-    if (a.D == 256) return F<256, In, OutT>::run(a, stream);
+  switch (a.D) {
+    case 64:
+      return F<64, In, OutT>::run(a, stream);
+    case 128:
+      return F<128, In, OutT>::run(a, stream);
+    case 192:
+      return F<192, In, OutT>::run(a, stream);
+    case 256:
+      return F<256, In, OutT>::run(a, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
-template <template <int, typename, typename> class F, bool kWide>
+template <template <int, typename, typename> class F>
 cudaError_t pick(const Args& a, cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
   if (a.dtype == flash::kF16)
-    return a.out_f32 ? pick_d<F, kWide, __half, float>(a, stream)
-                     : pick_d<F, kWide, __half, __half>(a, stream);
-  return a.out_f32 ? pick_d<F, kWide, bf16, float>(a, stream)
-                   : pick_d<F, kWide, bf16, bf16>(a, stream);
+    return a.out_f32 ? pick_d<F, __half, float>(a, stream)
+                     : pick_d<F, __half, __half>(a, stream);
+  return a.out_f32 ? pick_d<F, bf16, float>(a, stream)
+                   : pick_d<F, bf16, bf16>(a, stream);
 }
 
 }  // namespace
@@ -693,12 +821,12 @@ namespace flash {
 // fp16 (D = 64, 128, 192 or 256); outputs in the input type or fp32
 // (out_f32).
 cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
-  return pick<Dkdv, true>(a, stream);
+  return pick<Dkdv>(a, stream);
 }
 
-// dq under the given lse and di, as bwd_dkdv_sm90 at D = 64 or 128.
+// dq under the given lse and di, as bwd_dkdv_sm90.
 cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream) {
-  return pick<Dq, false>(a, stream);
+  return pick<Dq>(a, stream);
 }
 
 }  // namespace flash

@@ -43,9 +43,9 @@
 // - The epilogue divides by l and stores o (In or fp32) and lse from
 //   registers, rows < Tq only. A row that sees no key writes o = 0 and
 //   lse = -1e30, a finite sentinel the ring's merge needs.
-// - Head dims 192 and 256 (Tiles<D>): the same kernel, S over the whole
-//   depth once. What decides the tiles is registers: ptxas allocates a
-//   wgmma consumer's accumulators within the launch's count whatever
+// - Head dims 192, 256 and 320 (Tiles<D>): the same kernel, S over the
+//   whole depth once. What decides the tiles is registers: ptxas allocates
+//   a wgmma consumer's accumulators within the launch's count whatever
 //   setmaxnreg asks (it starts every accumulator at R24 and, short of
 //   room, spills O around S), and a block of more than 8 warps launches
 //   with at most 168 a thread (3 warps on one of the SM's 4 register
@@ -53,7 +53,13 @@
 //   48 rows (S 24, P 12) in a ring of 4. At D 256 O alone is 128: one
 //   consumer in a block of 256 threads, which launches with 255 registers
 //   a thread (it uses about 200), 64 q rows a block and kv tiles of 64 (Q
-//   32 KB, two K and two V slots 128 KB of shared memory).
+//   32 KB, two K and two V slots 128 KB of shared memory). D 320 is laid
+//   out as D 256 (O 160, S 32, P 16; Q 40 KB, the ring 160 KB), but
+//   wgmma's N is at most 256: O += P V is two products over the same P
+//   operands, O's first 192 columns and its last 128, each a whole number
+//   of 64-column slabs of V (issue_pv). O stays one array in the layout
+//   of a 320-column accumulator, so the rescale and the epilogue are
+//   those of every other D. Above 320 the mma.sync family runs.
 // The arithmetic does not depend on the views' strides and nothing is
 // accumulated across blocks: strided views and contiguous copies give the
 // same bits, and runs repeat bitwise.
@@ -93,12 +99,12 @@ constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
 
 template <int D>
 struct Tiles {
-  // consumer warpgroups of a block, 64 q rows each: 2, or 1 at D 256 (its
-  // O alone is 128 registers: see the header)
-  static constexpr int kConsumers = D == 256 ? 1 : 2;
+  // consumer warpgroups of a block, 64 q rows each: 2, or 1 from D 256 on
+  // (its O alone is 128 or 160 registers: see the header)
+  static constexpr int kConsumers = D >= 256 ? 1 : 2;
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kBQ = 64 * kConsumers;     // q rows of a block
-  static constexpr int kBK = D == 192 ? 48 : D == 256 ? 64 : 96;  // kv rows
+  static constexpr int kBK = D == 192 ? 48 : D >= 256 ? 64 : 96;  // kv rows
   // ring slots of K and of V (3 at D 128 ran no faster than 2)
   static constexpr int kStages = D == 64 || D == 192 ? 4 : 2;
   static constexpr int kQElems = kBQ * D;         // the Q tile
@@ -243,16 +249,29 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tiles<D>::kBK / 2],
 }
 
 // O += P V over one V tile (kBK/16 steps of 16 kv rows, 2 KB of a slab),
-// issued and committed.
+// issued and committed. wgmma's N is at most 256: above it, O is two
+// accumulators in one array, its first kN0 columns and the rest, each
+// product over the same P operand and its own slabs of V.
 template <int D, typename In>
 __device__ __forceinline__ void issue_pv(
     float (&o)[D / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4], const In* vt) {
   constexpr int kBK = Tiles<D>::kBK;
+  constexpr int kN0 = D > 256 ? 192 : D;
+  auto& o0 = *reinterpret_cast<float(*)[kN0 / 2]>(o);
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
-    sm90::Wgmma<D, In>::template rs<1>(
-        o, pa[kk], sm90::desc_mn_major(vt + kk * 16 * kSlab, kBK * kSlab * 2),
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    sm90::Wgmma<kN0, In>::template rs<1>(
+        o0, pa[kk], sm90::desc_mn_major(vt + kk * 16 * kSlab, kBK * kSlab * 2),
         1);
+    if constexpr (D > kN0) {
+      auto& o1 = *reinterpret_cast<float(*)[(D - kN0) / 2]>(o + kN0 / 2);
+      sm90::Wgmma<D - kN0, In>::template rs<1>(
+          o1, pa[kk],
+          sm90::desc_mn_major(vt + (kN0 / kSlab * kBK + kk * 16) * kSlab,
+                              kBK * kSlab * 2),
+          1);
+    }
+  }
   sm90::wgmma_commit();
 }
 
@@ -437,8 +456,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The instance for the head dim: 64 and 128, and 192 and 256 (the wide
-// ones; the caller routes no other).
+// The instance for the head dim: 64 and 128, and 192, 256 and 320 (the
+// wide ones; the caller routes no other).
 template <typename In, typename OutT>
 cudaError_t forward(const Args& a, cudaStream_t stream) {
   switch (a.D) {
@@ -450,6 +469,8 @@ cudaError_t forward(const Args& a, cudaStream_t stream) {
       return launch<192, In, OutT>(a, stream);
     case 256:
       return launch<256, In, OutT>(a, stream);
+    case 320:
+      return launch<320, In, OutT>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -466,7 +487,8 @@ cudaError_t forward_in(const Args& a, cudaStream_t stream) {
 namespace flash {
 
 // o = softmax(q k^T * scale) v and lse over [B, H, T, D] views of bf16 or
-// fp16 (D = 64, 128, 192 or 256), o in the input type or fp32 (out_f32).
+// fp16 (D = 64, 128, 192, 256 or 320), o in the input type or fp32
+// (out_f32).
 cudaError_t fwd_sm90(const Args& a, cudaStream_t stream) {
   return a.dtype == kF16 ? forward_in<__half>(a, stream)
                          : forward_in<__nv_bfloat16>(a, stream);

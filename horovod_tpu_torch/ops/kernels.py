@@ -22,11 +22,11 @@ jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
 =========================  =====================  ========================
 
 The attention kernels take bf16 and fp16 at head dims 64 and 128 (and
-those padded to them) on the Hopper kernels above, and the forward and
-dk/dv also at 192 and 256 (160 is padded to 192); fp32 at any head dim,
-bf16 and fp16 above 256, and dq above 128 run ``flash_attn.cu``'s mma.sync
-family (which also holds di and the C entry points). :func:`flash_route`
-says which.
+those padded to them) on the Hopper kernels above, dk/dv and dq also at
+192 and 256 (160 is padded to 192), and the forward also at 320 (288 is
+padded to it); fp32 at any head dim and bf16 and fp16 above those run
+``flash_attn.cu``'s mma.sync family (which also holds di and the C entry
+points). :func:`flash_route` says which.
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -526,17 +526,19 @@ adasum_scale.launches = 0
 # to the next of FLASH_HEAD_DIMS, a larger D to the next multiple of 64
 # (zero columns change neither q kᵀ nor the softmax, and the padded columns
 # of o, dq, dk and dv come out 0); the outputs are views sliced back to D.
-# bf16 and fp16 run the Hopper kernels (TMA, wgmma) at FLASH_HEAD_DIMS, and
-# the forward and dk/dv also at FLASH_WIDE_DIMS; the rest runs
+# bf16 and fp16 run the Hopper kernels (TMA, wgmma) at FLASH_HEAD_DIMS and
+# above them up to each wrapper's SM90_MAX_DIM; the rest runs
 # ``flash_attn.cu``'s mma.sync family, which splits D into slices of 128
 # output columns (:func:`flash_route`).
 
 FLASH_HEAD_DIMS = (64, 128)      # the head dims of every Hopper kernel
-FLASH_WIDE_DIMS = (192, 256)     # and of the Hopper forward and dk/dv
 _FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-# the wrappers whose Hopper kernels take FLASH_WIDE_DIMS
-_SM90_WIDE = ("flash_fwd", "flash_bwd_dkdv", "flash_seg_fwd",
-              "flash_seg_bwd_dkdv")
+# the largest head dim of each wrapper's Hopper kernel (``flash_attn.cu``'s
+# run() takes the same): wgmma's N is at most 256, and only the forward's
+# O is split into two accumulators above it
+SM90_MAX_DIM = {"flash_fwd": 320, "flash_seg_fwd": 320,
+                "flash_bwd_dkdv": 256, "flash_seg_bwd_dkdv": 256,
+                "flash_bwd_dq": 256, "flash_seg_bwd_dq": 256}
 
 
 def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
@@ -683,11 +685,12 @@ def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The kernel that a K6/K7 wrapper (``kernel``, its name) launches on
     the card for inputs of ``dtype`` and head dim ``d``: "sm90", the Hopper
     kernels (bf16 and fp16 at head dims padded to 64 or 128); "sm90_wide",
-    the same kernels at 192 or 256 (the forward and dk/dv); "wide",
-    ``flash_attn.cu``'s mma.sync family on bf16 and fp16 (dq above 128,
-    every kernel above 256); "tf32", the same family on fp32 (every head
-    dim). ``wgmma``'s N is at most 256, and a wider accumulator fits no
-    register budget."""
+    the same kernels at 192 and 256, and the forward's also at 320 (up to
+    the wrapper's SM90_MAX_DIM); "wide", ``flash_attn.cu``'s mma.sync
+    family on bf16 and fp16 above that (dk/dv and dq above 256, the
+    forward above 320); "tf32", the same family on fp32 (every head dim).
+    ``wgmma``'s N is at most 256: the forward's O at 320 is two
+    accumulators, and dK/dV and dQ above 256 fit no register budget yet."""
     if kernel not in MMA_KERNELS_BY_NAME:
         raise ValueError(f"flash_route: {kernel!r} is not a K6/K7 wrapper "
                          f"with a route ({', '.join(MMA_KERNELS_BY_NAME)})")
@@ -698,7 +701,7 @@ def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     dp = _flash_dim(d)
     if dp <= FLASH_HEAD_DIMS[-1]:
         return "sm90"
-    if dp <= FLASH_WIDE_DIMS[-1] and kernel in _SM90_WIDE:
+    if dp <= SM90_MAX_DIM[kernel]:
         return "sm90_wide"
     return "wide"
 
@@ -971,8 +974,8 @@ KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
            flash_fwd, flash_bwd_pre, flash_bwd_dkdv, flash_bwd_dq,
            flash_seg_fwd, flash_seg_bwd_dkdv, flash_seg_bwd_dq)
 # wrappers whose launches also run a route of their own (flash_route): the
-# mma.sync family on fp32 (tf32) and on bf16 and fp16 (wide), and, for some,
-# the Hopper kernels at head dims 192 and 256 (sm90_wide)
+# mma.sync family on fp32 (tf32) and on bf16 and fp16 (wide), and the
+# Hopper kernels above head dim 128 (sm90_wide)
 MMA_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
                flash_seg_bwd_dkdv, flash_seg_bwd_dq)
 MMA_KERNELS_BY_NAME = {k.__name__: k for k in MMA_KERNELS}
@@ -988,16 +991,14 @@ def reset_launch_counts():
 def launch_counts() -> dict:
     """Launches by wrapper (every dtype and head dim), and by route
     (:func:`flash_route`): ``<wrapper>_tf32``, the mma.sync family on fp32
-    inputs; ``<wrapper>_wide``, the family on bf16 and fp16 (dq above head
-    dim 128, every kernel above 256); ``<wrapper>_sm90_wide`` (the forward
-    and dk/dv wrappers only), the Hopper kernels at head dims 192 and
-    256."""
+    inputs; ``<wrapper>_wide``, the family on bf16 and fp16 (dk/dv and dq
+    above head dim 256, the forward above 320); ``<wrapper>_sm90_wide``,
+    the Hopper kernels above 128 (192 and 256, the forward's also 320)."""
     counts = {k.__name__: k.launches for k in KERNELS}
     for k in MMA_KERNELS:
         counts[f"{k.__name__}_tf32"] = k.tf32_launches
         counts[f"{k.__name__}_wide"] = k.wide_launches
-        if k.__name__ in _SM90_WIDE:
-            counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches
+        counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches
     return counts
 
 

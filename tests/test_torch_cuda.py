@@ -274,12 +274,14 @@ def test_cuda_bn_and_mma_kernels_do_not_spill(cuda):
 
 def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
     """The build's ptxas report: no instance of the Hopper attention
-    kernels (every head dim, the wide ones at 192 and 256 included, every
-    input and output type) spills."""
+    kernels (every head dim, the wide ones at 192 and 256, and the
+    forward's at 320, included, every input and output type) spills."""
     from horovod_tpu_torch.ops import build
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90"):
         report = build.ptxas_report(stem)
         assert any("Li256E" in name for name in report), stem
+        assert any("Li320E" in name for name in report) == \
+            (stem == "flash_fwd_sm90"), stem
         for name, r in report.items():
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
 
@@ -521,20 +523,22 @@ def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
     _check_k6_case(cuda, dtype, d, tq, tk, causal)
 
 
-# head dims above 128: bf16 and fp16 forward and dk/dv at 160 (padded to
-# 192), 192 and 256 on the Hopper kernels, the rest on the mma.sync family
-# in slices of 128 columns (flash_route)
-WIDE_DIMS = [160, 192, 256, 320]
+# head dims above 128: bf16 and fp16 at 160 (padded to 192), 192 and 256
+# on the Hopper kernels, the forward also at 320; the rest on the mma.sync
+# family in slices of 128 columns (flash_route)
+WIDE_DIMS = [160, 192, 256, 320, 384]
 WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 def _wide_route(dtype, d, name):
     """The route a wide launch must take: flash_route's answer, checked
-    against the rule it states."""
+    against the rule it states (the Hopper forward to head dim 320, dk/dv
+    and dq to 256)."""
     route = K.flash_route(dtype, d, name)
+    largest = 320 if name.endswith("_fwd") else 256
     if dtype == torch.float32:
         assert route == "tf32"
-    elif d <= 256 and not name.endswith("dq"):
+    elif K._flash_dim(d) <= largest:
         assert route == "sm90_wide"
     else:
         assert route == "wide"
@@ -546,10 +550,10 @@ def _wide_route(dtype, d, name):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
-    """Every K6 entry point at head dims 160 (padded to 192), 192, 256 and
-    320 in bf16, fp16 and fp32, causal and full, Tq != Tk: within the flash
-    limits, counted by their route (the Hopper wide kernels, the 16-bit
-    mma.sync instances or the tf32 ones), dq repeats bitwise."""
+    """Every K6 entry point at head dims 160 (padded to 192), 192, 256,
+    320 and 384 in bf16, fp16 and fp32, causal and full, Tq != Tk: within
+    the flash limits, counted by their route (the Hopper wide kernels, the
+    16-bit mma.sync instances or the tf32 ones), dq repeats bitwise."""
     n0 = K.launch_counts()
     q, k, v, do, lse, di, dq = _check_k6_case(cuda, dtype, d, tq, tk, causal)
     n1 = K.launch_counts()
@@ -566,30 +570,54 @@ def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
 @pytest.mark.parametrize("d", [160, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_cuda_flash_wide_hopper_kernels(cuda, dtype, d, causal, tq, tk):
-    """The Hopper forward and dk/dv at head dims 160 (padded to 192), 192
-    and 256: within the flash limits against the plain versions at lengths
-    that end inside the forward's 128-row q tiles and 64-row kv tiles (Tq =
-    Tk, Tq < Tk, Tq > Tk), one launch each counted on the sm90_wide route
-    (dq on the mma.sync family's), the same bits from run to run and on
-    contiguous copies of the strided views."""
+    """The Hopper forward, dk/dv and dq at head dims 160 (padded to 192),
+    192 and 256: within the flash limits against the plain versions at
+    lengths that end inside the 64-row q and kv tiles (Tq = Tk, Tq < Tk,
+    Tq > Tk), one launch each counted on the sm90_wide route, the same
+    bits from run to run and on contiguous copies of the strided views."""
     n0 = K.launch_counts()
     q, k, v, do, lse, di, _ = _check_k6_case(cuda, dtype, d, tq, tk, causal)
     n1 = K.launch_counts()
-    for name in ("flash_fwd", "flash_bwd_dkdv"):
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         assert n1[f"{name}_sm90_wide"] == n0[f"{name}_sm90_wide"] + 1
         assert n1[f"{name}_wide"] == n0[f"{name}_wide"]
-    assert n1["flash_bwd_dq_wide"] == n0["flash_bwd_dq_wide"] + 1
-    scale = d ** -0.5
-    o, lse2 = K.flash_fwd(q, k, v, causal, scale)
-    first = (o, lse2, *K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale))
-    cont = [x.contiguous() for x in (q, k, v, do)]
-    again = (*K.flash_fwd(q, k, v, causal, scale),
-             *K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale))
-    copies = (*K.flash_fwd(*cont[:3], causal, scale),
-              *K.flash_bwd_dkdv(*cont, lse, di, causal, scale))
-    assert torch.equal(lse2, lse)
+    _check_k6_repeats(q, k, v, do, lse, di, causal, d ** -0.5)
+
+
+def _check_k6_repeats(q, k, v, do, lse, di, causal, scale):
+    """K6's outputs repeat bitwise, and strided views give the bits of
+    contiguous copies."""
+    def run(q, k, v, do):
+        return (*K.flash_fwd(q, k, v, causal, scale),
+                *K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale),
+                K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale))
+    first, again = run(q, k, v, do), run(q, k, v, do)
+    copies = run(*(x.contiguous() for x in (q, k, v, do)))
+    assert torch.equal(first[1], lse)
     for a, b, c in zip(first, again, copies):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("tq,tk", [(257, 257), (100, 300), (300, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [288, 320])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_flash_wide_hopper_forward_at_320(cuda, dtype, d, causal, tq,
+                                               tk):
+    """The Hopper forward at head dims 288 (padded to 320) and 320, O in two
+    accumulators: within the flash limits against the plain version at
+    lengths that end inside the 64-row tiles (Tq = Tk, Tq < Tk, Tq > Tk),
+    one launch counted on the sm90_wide route (dk/dv and dq on the mma.sync
+    family's), the same bits from run to run and on contiguous copies."""
+    n0 = K.launch_counts()
+    q, k, v, do, lse, di, _ = _check_k6_case(cuda, dtype, d, tq, tk, causal)
+    n1 = K.launch_counts()
+    assert n1["flash_fwd_sm90_wide"] == n0["flash_fwd_sm90_wide"] + 1
+    assert n1["flash_fwd_wide"] == n0["flash_fwd_wide"]
+    for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+        assert n1[f"{name}_wide"] == n0[f"{name}_wide"] + 1
+        assert n1[f"{name}_sm90_wide"] == n0[f"{name}_sm90_wide"]
+    _check_k6_repeats(q, k, v, do, lse, di, causal, d ** -0.5)
 
 
 def _check_k6_case(cuda, dtype, d, tq, tk, causal):
@@ -877,7 +905,7 @@ def test_cuda_seg_kernels_take_every_dtype(cuda, dtype, d, part):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_seg_kernels_take_any_head_dim(cuda, dtype, d, part):
-    """The three K7 entry points at head dims 160, 192, 256 and 320 in
+    """The three K7 entry points at head dims 160, 192, 256, 320 and 384 in
     bf16, fp16 and fp32 on strided halves, as the previous test, counted
     by their route."""
     n0 = K.launch_counts()
@@ -888,7 +916,34 @@ def test_cuda_seg_kernels_take_any_head_dim(cuda, dtype, d, part):
         assert n1[counted] >= n0[counted] + 2
 
 
+@pytest.mark.parametrize("part", ["full", "diag"])
+@pytest.mark.parametrize("d", [256, 320])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_seg_wide_hopper_kernels(cuda, dtype, d, part):
+    """K7's Hopper dq at head dim 256 and its Hopper forward at 320 on
+    strided halves: within the flash limits, each call counted on the
+    sm90_wide route (at 320 dk/dv and dq on the mma.sync family's), the
+    same bits from run to run and on contiguous copies."""
+    n0 = K.launch_counts()
+    seg, got = _check_k7_case(cuda, dtype, d, part)
+    n1 = K.launch_counts()
+    for name in ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq"):
+        hopper = d <= 256 or name == "flash_seg_fwd"
+        routes = ("sm90_wide", "wide") if hopper else ("wide", "sm90_wide")
+        assert n1[f"{name}_{routes[0]}"] == n0[f"{name}_{routes[0]}"] + 2
+        assert n1[f"{name}_{routes[1]}"] == n0[f"{name}_{routes[1]}"]
+    causal, scale = part == "diag", d ** -0.5
+    again = (*K.flash_seg_fwd(*seg[:3], causal, scale),
+             *K.flash_seg_bwd_dkdv(*seg, causal, scale),
+             K.flash_seg_bwd_dq(*seg, causal, scale))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
 def _check_k7_case(cuda, dtype, d, part):
+    """K7 on the zig-zag FULL or DIAG half of a causal attention's
+    inputs against the plain versions; the same bits on contiguous
+    copies. Returns the segment's inputs and the kernels' outputs."""
     s = 200
     q, k, v, do = _flash_inputs(cuda, 2, 3, 2 * s, d, "bthk", seed=7,
                                 dtype=dtype)
@@ -922,6 +977,7 @@ def _check_k7_case(cuda, dtype, d, part):
              K.flash_seg_bwd_dq(*cont, causal, scale))
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+    return seg, got
 
 
 def test_cuda_k6_keeps_its_bf16_outputs(cuda):

@@ -262,11 +262,12 @@ def test_flash_causal_attention_of_different_lengths_follows_library_rule(
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [160, 192, 256, 320])
+@pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384])
 def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
     """Head dims above 128 (160 padded to 192, 192 and 256: the Hopper wide
-    forward and dk/dv on the card; 320: the mma.sync family in slices of
-    128 columns): flash_attention_local's output against
+    kernels on the card; 288 padded to 320 and 320: the Hopper forward and
+    the mma.sync dk/dv and dq; 384: the mma.sync family in slices of 128
+    columns): flash_attention_local's output against
     the reference's and (fp32) its gradients against jax.vjp of it, and
     local_attention against the reference's."""
     (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(24, dtype, 12, 4, d)
@@ -283,7 +284,7 @@ def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
                       np.float32), TOL[dtype])
 
 
-@pytest.mark.parametrize("d", [160, 192, 256, 320])
+@pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384])
 def test_flash_head_dims_above_128_of_different_lengths(d):
     """Tq != Tk above head dim 128: full attention against the reference's
     (output and gradients, fp32), causal attention against a float64

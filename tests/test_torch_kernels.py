@@ -98,14 +98,15 @@ FLASH_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 
 
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 129, 160, 192, 193, 256,
-                               257, 320])
+                               257, 288, 320, 384])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
     """Which kernel a K6/K7 wrapper launches on the card: bf16 and fp16 at
     head dims padded to 64 or 128 the Hopper kernels; at 192 or 256 (129
-    and 160 are padded to 192, 193 to 256) the Hopper forward and dk/dv
-    and the mma.sync dq; above 256 the mma.sync family; fp32 the tf32
+    and 160 are padded to 192, 193 to 256) the Hopper forward, dk/dv and
+    dq; at 320 (257 and 288 are padded to it) the Hopper forward and the
+    mma.sync dk/dv and dq; above 320 the mma.sync family; fp32 the tf32
     family at every head dim."""
     padded = K._flash_dim(d)
     for kernel in FLASH_ROUTED:
@@ -114,32 +115,32 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
             want = "tf32"
         elif padded <= 128:
             want = "sm90"
-        elif padded <= 256 and not kernel.endswith("_dq"):
+        elif padded <= 256 or (padded == 320 and kernel.endswith("_fwd")):
             want = "sm90_wide"
         else:
             want = "wide"
         assert route == want, (kernel, route)
-    assert padded in (K.FLASH_HEAD_DIMS + K.FLASH_WIDE_DIMS) \
-        or (padded > 256 and padded % 64 == 0)
+    assert padded >= d and padded % 64 == 0
 
 
 def test_flash_route_counters_and_refusals():
-    """Each route has its counter in launch_counts (sm90_wide only on the
-    forward and dk/dv wrappers, whose Hopper kernels take head dims 192
-    and 256); di and other dtypes have no route."""
+    """Each route has its counter in launch_counts (sm90_wide on all six
+    wrappers, whose Hopper kernels take head dims 192 and 256, the
+    forwards' also 320); di and other dtypes have no route."""
     counts = K.launch_counts()
     for kernel in FLASH_ROUTED:
-        for route in ("tf32", "wide"):
+        for route in ("tf32", "wide", "sm90_wide"):
             assert f"{kernel}_{route}" in counts
-        assert (f"{kernel}_sm90_wide" in counts) == \
-            (not kernel.endswith("_dq"))
+        assert K.SM90_MAX_DIM[kernel] == \
+            (320 if kernel.endswith("_fwd") else 256)
+    assert "flash_bwd_pre_sm90_wide" not in counts
     with pytest.raises(ValueError, match="wrapper"):
         K.flash_route(torch.bfloat16, 256, "flash_bwd_pre")
     with pytest.raises(ValueError, match="dtype"):
         K.flash_route(torch.float64, 64, "flash_fwd")
 
 
-@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("d", [192, 256, 320])
 def test_wide_flash_wrappers_take_the_plain_path_on_cpu(d):
     """On the CPU the wrappers at the Hopper wide head dims are their plain
     versions, bit for bit, and count no launch of any route."""
@@ -156,6 +157,9 @@ def test_wide_flash_wrappers_take_the_plain_path_on_cpu(d):
                     K.flash_bwd_dkdv_plain(q, k, v, do, lse, di, True,
                                            scale)):
         assert torch.equal(a, b)
+    assert torch.equal(K.flash_bwd_dq(q, k, v, do, lse, di, True, scale),
+                       K.flash_bwd_dq_plain(q, k, v, do, lse, di, True,
+                                            scale))
     for a, b in zip(K.flash_seg_fwd(q, k, v, False, scale),
                     K.flash_seg_fwd_plain(q, k, v, False, scale)):
         assert torch.equal(a, b)

@@ -157,10 +157,24 @@ def test_force_ring_single_rank_matches_reference(layout):
                                            ("contiguous", False)])
 def test_force_ring_at_head_dim_256_matches_reference(layout, causal):
     """The ring path (n = 1, force_ring) at head dim 256, which the CUDA
-    segment kernels split into slices of 128 columns: output and q/k/v
-    gradients against the reference's force_ring on a 1-device mesh."""
-    rng = np.random.RandomState(11)
-    q, k, v, do = (rng.randn(1, 16, 2, 256).astype(np.float32) * s
+    segment kernels run on the Hopper wide kernels for bf16 and fp16:
+    output and q/k/v gradients against the reference's force_ring on a
+    1-device mesh."""
+    _check_force_ring(256, layout, causal, seed=11)
+
+
+@pytest.mark.parametrize("layout,causal", [("zigzag", True),
+                                           ("contiguous", True),
+                                           ("contiguous", False)])
+def test_force_ring_at_head_dim_320_matches_reference(layout, causal):
+    """As above at head dim 320, where bf16 and fp16 run the Hopper forward
+    with O in two accumulators and the mma.sync dk/dv and dq."""
+    _check_force_ring(320, layout, causal, seed=12)
+
+
+def _check_force_ring(d, layout, causal, seed):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(1, 16, 2, d).astype(np.float32) * s
                    for s in (0.1, 0.1, 1.0, 1.0))
     mesh = Mesh(np.array(jax.devices()[:1]), ("seq",))
     fn = jax.shard_map(
