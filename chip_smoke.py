@@ -30,12 +30,15 @@ and then:
    T197 D64, full), a causal T = 1000 tail-tile shape, fp32 inputs (B2 H8
    T1024 D64 causal, and phase 12's ViT_Tiny attention, B32 H4 T65 D16
    full: the tf32 family), ViT_Tiny's head dim 16 in bf16 and head dims 80
-   and 96 (padded to 128), q and k/v of different lengths, causal and
-   full, and head dims above 128 (bf16 B2 H8 T2048 D256 causal and fp16
-   D160 with 1024 queries over 2048 keys: the Hopper wide kernels; bf16
-   B1 H4 T1024 D320: the Hopper forward, O in two accumulators, and the
-   mma.sync dk/dv and dq in slices of 128 columns; fp32 D256 and bf16
-   D384: the mma.sync family throughout); and times them beside
+   and 96 (read in place by the D 128 kernels: every such shape logs the
+   wrappers' zero-pad copies, and one on a Hopper route fails the run),
+   q and k/v of different lengths, causal and full, and head dims above
+   128 (bf16 B2 H8 T2048 D256 causal and fp16 D160 with 1024 queries over
+   2048 keys: the Hopper wide kernels; bf16 B1 H4 T1024 D320: the Hopper
+   forward, O in two accumulators, and the mma.sync dk/dv and dq in
+   slices of 128 columns; D384 and D512: the Hopper forward with O's
+   columns split over blocks; fp32 D256 and bf16 B1 H2 T512 D576: the
+   mma.sync family throughout); and times them beside
    ``scaled_dot_product_attention``'s forward and backward (a yardstick
    only, never on the path), the forward with its achieved TFLOP/s and its
    share of the bound;
@@ -50,8 +53,9 @@ and then:
    and DIAG half-segments of B1 H16 T8192 D128 (strided lse/di halves),
    the contiguous n=1 ring's whole segment, a T = 2000, D 64 tail-tile
    shape, a D 256 FULL half-segment (B1 H8 T4096: the Hopper wide
-   kernels), a D 320 one (B1 H4 T2048: the Hopper forward, the mma.sync
-   dk/dv and dq) and a D 384 one (the mma.sync family), and times them
+   kernels), D 320, 384 and 512 ones (B1 H4 T2048: the Hopper forward, the
+   mma.sync dk/dv and dq) and a D 576 one (B1 H2 T1024: the mma.sync
+   family), and times them
    beside SDPA's forward and backward (a yardstick only: with the
    segment's own lse, SDPA's backward of the same segment, causal or
    full, computes the same dq, dk and dv), the forward with its
@@ -77,14 +81,18 @@ and then:
     against the same model's on the CPU;
 13. runs attention above head dim 128 through the entry points a user
     calls, ``flash_attention_local`` (bf16 B1 T4096 H8 D256, fp16 B2 T1024
-    H8 D160, bf16 B1 T1024 H4 D320 and D384, causal) and the zig-zag ring
-    (``force_ring=True``, bf16 D256, D320 and D384), forward and backward,
-    against the plain versions, checks which route each kernel took (the
-    Hopper kernels up to D 256, the Hopper forward and the mma.sync dk/dv
-    and dq at D 320, the mma.sync family at D 384), by its launch counter
-    and by the names of the kernels a profiler trace saw, and times each
-    path's forward + backward with the share of its attention kernels'
-    device time that is dq's: the wide kernels' path.
+    H8 D160, bf16 B1 T1024 H4 D320 and D384, B1 T512 H2 D576, causal) and
+    the zig-zag ring (``force_ring=True``, bf16 D256, D320, D384 and
+    D576), forward and backward, against the plain versions, checks which
+    route each kernel took (the Hopper kernels up to D 256, the Hopper
+    forward and the mma.sync dk/dv and dq at D 320 and 384, the mma.sync
+    family at D 576), by its launch counter and by the names of the
+    kernels a profiler trace saw (at D 384 the forward must be
+    ``flash_fwd_sm90_kernel<384, ...>``), prints the kernels a trace sees
+    per K6 wrapper call at fp16 D160 (one: no zero-pad copy; every path's
+    ``*_pad_copies`` on a Hopper route must be 0), and times each path's
+    forward + backward with the share of its attention kernels' device
+    time that is dq's: the wide kernels' path.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -156,18 +164,23 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
                 ("D160 fp16 Tq<Tk", 2, 8, 1024, 2048, 160, True, "float16"),
                 ("D256 fp32", 2, 4, 512, 512, 256, True, "float32"),
                 ("D320", 1, 4, 1024, 1024, 320, True, "bfloat16"),
-                ("D384", 1, 4, 1024, 1024, 384, True, "bfloat16"))
+                ("D384", 1, 4, 1024, 1024, 384, True, "bfloat16"),
+                ("D512", 1, 4, 1024, 1024, 512, True, "bfloat16"),
+                ("D576", 1, 2, 512, 512, 576, True, "bfloat16"))
 # the shape whose numbers the tf32 family's rows carry: phase 12's path
 TF32_SHAPE = "ViT_Tiny fp32"
 # the rows of the instances above head dim 128, K6 and K7, and the phase-4
 # and phase-8 shapes whose numbers each carries: the Hopper kernels at
 # D 192 and 256 (<name>_sm90_wide) at D 256, the Hopper forward at D 320
-# (<name>_sm90_d320) at D 320, the mma.sync dk/dv and dq above 256
-# (<name>_wide) at D 320, and the mma.sync forward above 320 at D 384
+# (<name>_sm90_d320) at D 320, the Hopper forward with O's columns split
+# over blocks at 384 to 512 (<name>_sm90_split) at D 384, the mma.sync
+# dk/dv and dq above 256 (<name>_wide) at D 320, and the mma.sync forward
+# above 512 at D 576
 WIDE_ROW_SHAPES = {"sm90_wide": ("D256", "D256 half, FULL"),
                    "sm90_d320": ("D320", "D320 half, FULL"),
+                   "sm90_split": ("D384", "D384 half, FULL"),
                    "wide": ("D320", "D320 half, FULL"),
-                   "wide_fwd": ("D384", "D384 half, FULL")}
+                   "wide_fwd": ("D576", "D576 half, FULL")}
 # phase 13: attention above head dim 128 through the user entry points:
 # (what, path, B, T, H, D, dtype), q, k, v [B, T, H, D], causal
 WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
@@ -176,7 +189,9 @@ WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
               ("flash_attention_local", "flash", 1, 1024, 4, 320, "bfloat16"),
               ("zig-zag ring", "zigzag", 1, 2048, 4, 320, "bfloat16"),
               ("flash_attention_local", "flash", 1, 1024, 4, 384, "bfloat16"),
-              ("zig-zag ring", "zigzag", 1, 2048, 4, 384, "bfloat16"))
+              ("zig-zag ring", "zigzag", 1, 2048, 4, 384, "bfloat16"),
+              ("flash_attention_local", "flash", 1, 512, 2, 576, "bfloat16"),
+              ("zig-zag ring", "zigzag", 1, 1024, 2, 576, "bfloat16"))
 WIDE_WINDOWS = 5               # timed windows of each wide path
 WIDE_WINDOW_CALLS = 2          # forward + backward calls in each window
 WIDE_TRACED_CALLS = 2          # forward + backward calls in the trace
@@ -208,7 +223,9 @@ SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full"),
               ("tail tile, DIAG", 4, 8, 2000, 64, "diag"),
               ("D256 half, FULL", 1, 8, 4096, 256, "full"),
               ("D320 half, FULL", 1, 4, 2048, 320, "full"),
-              ("D384 half, FULL", 1, 4, 2048, 384, "full"))
+              ("D384 half, FULL", 1, 4, 2048, 384, "full"),
+              ("D512 half, FULL", 1, 4, 2048, 512, "full"),
+              ("D576 half, FULL", 1, 2, 1024, 576, "full"))
 SEG_KERNELS = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the ring path on one card: bench.py:bench_sp_ring's shape, B, T, H, D
 RING_SHAPE = (1, 8192, 16, 128)
@@ -272,7 +289,8 @@ def attention_ptxas(build, log):
     the most of any instantiation, "spill_bytes": their sum}}. The Hopper
     kernels with In outputs are K6's rows, with fp32 outputs K7's, those at
     head dims 192 and 256 ``<row>_sm90_wide``, the forward's at 320
-    ``<row>_sm90_d320``; the mma.sync family's rows are ``<name>_tf32``
+    ``<row>_sm90_d320`` and at 384 to 512 ``<row>_sm90_split``; the
+    mma.sync family's rows are ``<name>_tf32``
     (fp32 inputs, K6 and K7 alike) and ``<name>_wide`` (bf16 and fp16)."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
@@ -303,7 +321,8 @@ def attention_ptxas(build, log):
                 row = (f"{names[kernel][0]}_tf32" if types.startswith("f")
                        else f"{row}_wide")
             elif d and int(d) > 128:
-                row = f"{row}_sm90_{'d320' if int(d) == 320 else 'wide'}"
+                row += ("_sm90_wide" if int(d) <= 256 else
+                        "_sm90_d320" if int(d) == 320 else "_sm90_split")
             spill = r["spill_stores"] + r["spill_loads"]
             entry = rows.setdefault(row, {"registers": 0, "spill_bytes": 0})
             entry["registers"] = max(entry["registers"], r["registers"])
@@ -773,11 +792,20 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
             dkb, dvb = K.flash_bwd_dkdv_plain(q, k, v, do, lseb, dib, causal,
                                               scale)
             dqb = K.flash_bwd_dq_plain(q, k, v, do, lseb, dib, causal, scale)
+        n0 = K.launch_counts()
         o, lse = K.flash_fwd(q, k, v, causal, scale)
         di = K.flash_bwd_pre(o, do)
         dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale)
         dq = K.flash_bwd_dq(q, k, v, do, lse, di, causal, scale)
         torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        pad_copies = {n: n1[f"{n}_pad_copies"] - n0[f"{n}_pad_copies"]
+                      for n in FLASH_KERNELS}
+        if d != K._flash_dim(d):
+            log(f"  {what}: zero-pad copies {pad_copies}")
+            check(pad_copies_ok(K, dt, d, pad_copies),
+                  f"K6 {what}: a Hopper route copied its inputs: "
+                  f"{pad_copies}")
         err = {}
         for name, got, want, plain in (
                 ("o", o, o32, ob), ("lse", lse, lse32, lseb),
@@ -877,7 +905,7 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         fb_bound = 1e3 * (14 * d * flash_pairs(b, h, tq, tk, causal) / peak
                           + work["flash_bwd_pre"][0] / HBM_BYTES_PER_S)
         bwd_ms = sum(entries[n]["ms"] for n in FLASH_KERNELS[1:])
-        summary.append(dict(what=what, dtype=dtype,
+        summary.append(dict(what=what, dtype=dtype, pad_copies=pad_copies,
                             fwd_ms=entries["flash_fwd"]["ms"],
                             bwd_ms=bwd_ms, fwd_bwd_ms=fb_ms,
                             fwd_bwd_host_ms=fb_host_ms,
@@ -899,6 +927,50 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         rows[name]["max_abs_err"] = max(e["max_abs_err"]
                                         for e in rows[name]["shapes"])
     return rows, tf32_rows, summary
+
+
+def pad_copies_ok(K, dt, d, copies):
+    """Whether no wrapper that runs a Hopper kernel (or di) on 16-bit
+    inputs of head dim ``d`` copied them: those read the views in place;
+    the mma.sync family (tf32, and 16-bit above its Hopper limit) copies."""
+    for name, n in copies.items():
+        hopper = name == "flash_bwd_pre" or (
+            K.flash_route(dt, d, name) in ("sm90", "sm90_wide"))
+        if dt.itemsize == 2 and hopper and n != 0:
+            return False
+    return True
+
+
+def kernels_per_call(torch, calls, n):
+    """Device operations per call from a torch.profiler trace of ``n``
+    calls of each of ``calls`` ({wrapper: (fn, its kernel's name)}), the
+    active step of a schedule whose warm-up step runs the same calls (a
+    trace may miss what runs first): {wrapper: its kernel's launches a
+    call, "other": the operations that are no wrapper's kernel (copies,
+    fills) a call}."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    seen = {}
+
+    def read(prof):   # the active step's events, before they are cleared
+        seen.update({ev.key: ev.count for ev in prof.key_averages()
+                     if getattr(ev, "self_device_time_total", 0.0) > 0})
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=read) as prof:
+        for _ in range(2):
+            for fn, _ in calls.values():
+                for _ in range(n):
+                    fn()
+            torch.cuda.synchronize()
+            prof.step()
+    names = [kernel for _, kernel in calls.values()]
+    out = {w: sum(c for k, c in seen.items() if kernel in k) / n
+           for w, (_, kernel) in calls.items()}
+    out["other"] = sum(c for k, c in seen.items()
+                       if not any(kernel in k for kernel in names)
+                       ) / (n * len(calls))
+    return out
 
 
 def flash_source(name):
@@ -1234,6 +1306,42 @@ def run_wide_path(torch, K, R, fa, dev, log):
         routes = wide_routes(K, dt, d, path != "flash")
         check(wide_route_ok(counts, routes),
               f"{what} D{d}: kernels off their routes {routes}: {counts}")
+        copies = {name: counts.get(f"{name}_pad_copies", 0)
+                  for name in routes}
+        check(pad_copies_ok(K, dt, d, copies),
+              f"{what} D{d}: a Hopper route copied its inputs: {copies}")
+        per_call = None
+        diag = {}
+        if d != K._flash_dim(d) and path == "flash":
+            # the K6 wrappers on the path's [B, H, T, D] views, one at a
+            # time: one kernel a call where nothing is copied
+            diag0 = K.launch_counts()
+            q, k, v, do = (x.transpose(1, 2) for x in base + [base[0]])
+            o, lse = K.flash_fwd(q, k, v, True, scale)
+            di = K.flash_bwd_pre(o, do)
+            calls = {
+                "flash_fwd": (lambda: K.flash_fwd(q, k, v, True, scale),
+                              "flash_fwd_sm90_kernel"),
+                "flash_bwd_pre": (lambda: K.flash_bwd_pre(o, do),
+                                  "flash_bwd_pre_kernel"),
+                "flash_bwd_dkdv": (lambda: K.flash_bwd_dkdv(
+                    q, k, v, do, lse, di, True, scale),
+                    "flash_bwd_dkdv_sm90_kernel"),
+                "flash_bwd_dq": (lambda: K.flash_bwd_dq(
+                    q, k, v, do, lse, di, True, scale),
+                    "flash_bwd_dq_sm90_kernel")}
+            per_call = kernels_per_call(torch, calls, WIDE_TRACED_CALLS)
+            log(f"  {what} B{b} T{t} H{h} D{d} {dtype}: device operations a "
+                f"K6 wrapper call runs (profiler): {per_call}")
+            check(all(per_call[name] == 1 for name in calls)
+                  and per_call["other"] == 0,
+                  f"{what} D{d}: a K6 wrapper call ran more than its "
+                  f"kernel: {per_call}")
+            del q, k, v, do, o, lse, di, calls
+            # these calls are no traffic of the path: path_launches
+            # leaves them out
+            diag = {k_: n_ - diag0[k_]
+                    for k_, n_ in K.launch_counts().items()}
         got = [x.transpose(1, 2) for x in res]
         f32 = [x.float().transpose(1, 2) for x in base]
         o32, lse32 = K.flash_attention_fwd_plain(*f32, True, scale)
@@ -1289,19 +1397,27 @@ def run_wide_path(torch, K, R, fa, dev, log):
         check(traced_route_ok(attn, routes),
               f"{what} D{d}: the traced kernels {sorted(attn)} disagree "
               f"with the counted routes {routes}")
+        dp = K._flash_dim(d)
+        if 320 < dp <= K.SM90_MAX_DIM["flash_fwd"]:
+            fwd = [n for n in attn if f"flash_fwd_sm90_kernel<{dp}," in n]
+            log(f"  {what} D{d}: traced forward {fwd}")
+            check(len(fwd) >= 1, f"{what} D{d}: no flash_fwd_sm90_kernel<"
+                  f"{dp}, ...> in the trace {sorted(attn)}")
         log(f"  {what} B{b} T{t} H{h} D{d} {dtype}: {ms:.4f} ms a forward + "
             f"backward (windows {', '.join(f'{x:.4f}' for x in windows)}); "
             f"attention kernels {attn_ms:.4f} ms of device time, dq "
             f"{dq_ms:.4f} ms ({100 * dq_ms / attn_ms:.1f}%)")
         summary.append(dict(what=what, shape=[b, t, h, d], dtype=dtype,
                             routes=routes, traced_kernels=sorted(attn),
+                            pad_copies=copies,
+                            device_ops_per_wrapper_call=per_call,
                             max_abs_err=errors, launches=counts, ms=ms,
                             windows=windows, attention_kernels_ms=attn_ms,
                             dq_ms=dq_ms, dq_share=dq_ms / attn_ms,
                             path_launches={
-                                k: v - path_start[k]
-                                for k, v in K.launch_counts().items()
-                                if v != path_start[k]}))
+                                k: n - path_start[k] - diag.get(k, 0)
+                                for k, n in K.launch_counts().items()
+                                if n - path_start[k] - diag.get(k, 0)}))
         del base
         torch.cuda.empty_cache()
     return summary
@@ -2049,8 +2165,10 @@ def main(argv=None) -> int:
         route = "wide" if row == "wide" else "sm90_wide"
 
         def takes(path):
-            d320 = K._flash_dim(path["shape"][3]) == 320
-            return row == "wide" or d320 == (row == "sm90_d320")
+            dp = K._flash_dim(path["shape"][3])
+            return {"wide": True, "sm90_wide": dp <= 256,
+                    "sm90_d320": dp == 320,
+                    "sm90_split": 320 < dp <= 512}[row]
         n = sum(p["path_launches"].get(f"{name}_{route}", 0) for p in wide
                 if takes(p))
         check(n >= 1, f"{name}_{row} launched no time on the wide path")
@@ -2143,15 +2261,16 @@ def main(argv=None) -> int:
                 if name != "flash_seg_fwd" else {}))
         for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
         # above head dim 128, K6's and K7's functions: the Hopper kernels
-        # at D 192 and 256, the Hopper forward at 320, and the mma.sync
-        # family on bf16 and fp16 (dk/dv and dq above 256, the forward
-        # above 320)
+        # at D 192 and 256, the Hopper forward at 320 and, O's columns
+        # split over blocks, at 384 to 512, and the mma.sync family on
+        # bf16 and fp16 (dk/dv and dq above 256, the forward above 512)
         wide_row(name, row, line, source)
         for name, line in zip(WIDE_KERNELS, (0, 0, 0, 169, 188, 194))
         for row, source in (("sm90_wide", flash_source(name)),
                             ("sm90_d320", flash_source(name)),
+                            ("sm90_split", flash_source(name)),
                             ("wide", "flash_attn.cu"))
-        if row != "sm90_d320" or name.endswith("_fwd")] + [
+        if row in ("sm90_wide", "wide") or name.endswith("_fwd")] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",
              replaces=f"horovod_tpu/ops/pallas_kernels.py:{line}",

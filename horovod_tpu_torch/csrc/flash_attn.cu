@@ -13,10 +13,12 @@
 // The route (run() below; ops/kernels.py:flash_route says the same):
 // - bf16 and fp16: the Hopper kernels of flash_fwd_sm90.cu and
 //   flash_bwd_sm90.cu (TMA and wgmma) up to a largest head dim per
-//   function: the forward to 320, dk/dv and dq to 256;
+//   function: the forward to 512, dk/dv and dq to 256. They read a head
+//   dim below their instance's in place (Args::Dr);
 // - bf16 and fp16 above those, and fp32 at every head dim: the mma.sync
-//   family below. wgmma's N is at most 256: the forward's O at 320 is two
-//   accumulators of 192 and 128 columns over the same P, but dK and dV
+//   family below, which takes Dr = D. wgmma's N is at most 256: the
+//   forward's O at 320 is two accumulators of 192 and 128 columns over the
+//   same P, above 320 its columns are split over blocks, but dK and dV
 //   (held together in a dk/dv block) and dQ beside S and dP fit no
 //   register budget above 256 yet; wgmma takes tf32 operands K-major
 //   only, and four of the attention products (P V, P^T dO, dS^T Q, dS K)
@@ -40,7 +42,8 @@
 // - dk/dv: a block of 64 kv rows, q tiles of 32 from the causal diagonal
 //   on, P^T = exp(K Q^T * scale - lse), dV += P^T dO, dK += dS^T Q;
 // - dq: a block of 64 q rows, kv tiles of 32, dQ += dS K.
-// Any head dim: the wrapper pads D to 64, 128 or a multiple of 64 above.
+// Any head dim: the wrapper pads D to 64, 128 or a multiple of 64 above
+// (the family reads every view at D columns: Dr = D).
 // The grid's third dimension splits the output columns into slices of DS =
 // min(D, 128); a block holds accumulators for its slice only (dk/dv: two 16
 // x 128 a warp, which fit) and computes S = Q K^T and dP = dO V^T over the
@@ -616,7 +619,8 @@ flash_bwd_dq_mma_kernel(const Args p) {
   store_rows<DS, Out>(p.dq, b, h, r_lo, p.Tq, cols.col0, p.D, dq, sc, t);
 }
 
-// di[row] = sum_d dO[row, d] * O[row, d]; one warp per row of B*H*T.
+// di[row] = sum_d dO[row, d] * O[row, d] over the views' head dim Dr (pairs
+// of columns: Dr is even); one warp per row of B*H*T.
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
@@ -627,8 +631,8 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// D = 64 or 128 compile-time (the loop unrolls and its loads issue
-// together), 0 for any other D (a multiple of 64) read from p.
+// D = 64 or 128 compile-time when Dr is that (the loop unrolls and its
+// loads issue together), 0 for any other Dr, read from p.
 template <int D, typename In>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_pre_kernel(const Args p) {
@@ -650,7 +654,7 @@ flash_bwd_pre_kernel(const Args p) {
     }
   } else {
 #pragma unroll 4
-    for (int d = lane * 2; d < p.D; d += 64) {
+    for (int d = lane * 2; d < p.Dr; d += 64) {
       const float2 of = load2(orow + d), df = load2(drow + d);
       acc += of.x * df.x + of.y * df.y;
     }
@@ -700,9 +704,11 @@ struct Mma {
 
 // One kernel of the family for a's inputs: fp32 at D 64 or 128 in one
 // slice of D, everything else (D above 128) in slices of 128; outputs of
-// the input type, or fp32 (out_f32).
+// the input type, or fp32 (out_f32). The family reads D columns of every
+// view: it takes no narrower one.
 template <template <int, typename, typename, bool> class F>
 cudaError_t mma_pick(const Args& a, cudaStream_t s) {
+  if (a.Dr != a.D) return cudaErrorInvalidValue;
   switch (a.dtype) {
     case flash::kF32:
       return a.D == 64    ? F<64, float, float, true>::run(a, s)
@@ -757,9 +763,9 @@ cudaError_t pre(const Args& a, cudaStream_t s) {
 
 template <typename In>
 cudaError_t pre_in(const Args& a, cudaStream_t s) {
-  return a.D == 64    ? pre<64, In>(a, s)
-         : a.D == 128 ? pre<128, In>(a, s)
-                      : pre<0, In>(a, s);
+  return a.Dr == 64    ? pre<64, In>(a, s)
+         : a.Dr == 128 ? pre<128, In>(a, s)
+                       : pre<0, In>(a, s);
 }
 
 cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
@@ -777,17 +783,18 @@ typedef cudaError_t (*Fn)(const Args&, cudaStream_t);
 
 // The largest head dim of the Hopper kernels: the forward's, and dk/dv's
 // and dq's (ops/kernels.py:SM90_MAX_DIM holds the same).
-constexpr int kFwdMaxD = 320;
+constexpr int kFwdMaxD = 512;
 constexpr int kBwdMaxD = 256;
 
-// Checks the arguments every kernel relies on, selects the device, and
-// runs `sm90` (the Hopper kernels: bf16 and fp16 at D up to `sm90_max_d`,
-// the function's largest Hopper head dim) or `mma` (fp32 at every D, and
-// bf16 and fp16 above it).
-int run(int device, const Args& a, void* stream, Fn sm90, Fn mma,
-        int sm90_max_d) {
-  if (a.D < 64 || a.D % 64 != 0 || (a.D > 64 && a.D < 128))
-    return (int)cudaErrorInvalidValue;
+// Checks the arguments every kernel relies on (the views' head dim Dr
+// even and at least 2), sets the instance's head dim D (64, 128, or Dr
+// rounded up to a multiple of 64: ops/kernels.py:_flash_dim), selects the
+// device, and runs `sm90` (the Hopper kernels: bf16 and fp16 at D up to
+// `sm90_max_d`, the function's largest Hopper head dim) or `mma` (fp32 at
+// every D, and bf16 and fp16 above it).
+int run(int device, Args a, void* stream, Fn sm90, Fn mma, int sm90_max_d) {
+  if (a.Dr < 2 || a.Dr % 2 != 0) return (int)cudaErrorInvalidValue;
+  a.D = a.Dr <= 64 ? 64 : a.Dr <= 128 ? 128 : (a.Dr + 63) / 64 * 64;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
     return (int)cudaErrorInvalidValue;
   if (a.dtype != flash::kBF16 && a.dtype != flash::kF16 &&
@@ -819,14 +826,14 @@ Stat dense_stat(const float* ptr, int H, int T) {
 // The inputs of a launch: q, k, v (and dout) are the first views.
 Args inputs(int dtype, const void* q, const void* k, const void* v,
             const void* dout, const long long* strides, int B, int H, int Tq,
-            int Tk, int D, int causal, float scale) {
+            int Tk, int Dr, int causal, float scale) {
   Args a = {};
   a.dtype = dtype;
   a.B = B;
   a.H = H;
   a.Tq = Tq;
   a.Tk = Tk;
-  a.D = D;
+  a.Dr = Dr;
   a.causal = causal;
   a.scale = scale;
   a.q = view(q, strides, 0);
@@ -840,12 +847,13 @@ Args inputs(int dtype, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Every tensor argument is a [B, H, T, D] view, D = 64, 128 or a multiple
-// of 64 above, contiguous,
+// Every tensor argument is a [B, H, T, Dr] view, its head dim contiguous,
 // with the element strides of B, H and T given three by three in
-// `strides` (host memory), in argument order. dtype: 0 bf16, 1 fp16, 2 fp32
-// (the inputs'). q and dout have Tq rows, k and v Tk. device: the CUDA
-// ordinal of the tensors and stream.
+// `strides` (host memory), in argument order. Dr is their head dim, even;
+// the mma.sync family takes 64, 128 or a multiple of 64 above only (the
+// wrapper pads other head dims with zeros). dtype: 0 bf16, 1
+// fp16, 2 fp32 (the inputs'). q and dout have Tq rows, k and v Tk. device:
+// the CUDA ordinal of the tensors and stream.
 //
 // K6 (flash attention): outputs have the inputs' type; lse and di are fp32
 // [B, H, Tq] contiguous.
@@ -855,9 +863,9 @@ extern "C" {
 int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
                   const void* v, void* o, float* lse,
                   const long long* strides, int B, int H, int Tq, int Tk,
-                  int D, int causal, float scale, void* stream) {
-  Args a = inputs(dtype, q, k, v, nullptr, strides, B, H, Tq, Tk, D, causal,
-                  scale);
+                  int Dr, int causal, float scale, void* stream) {
+  Args a = inputs(dtype, q, k, v, nullptr, strides, B, H, Tq, Tk, Dr,
+                  causal, scale);
   a.o = view(o, strides, 3);
   a.lse = dense_stat(lse, H, Tq);
   return run(device, a, stream, flash::fwd_sm90, fwd_mma, kFwdMaxD);
@@ -866,13 +874,13 @@ int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
 // di = rowsum(dout * o). strides: o, dout.
 int hvd_flash_bwd_pre(int device, int dtype, const void* o, const void* dout,
                       float* di, const long long* strides, int B, int H,
-                      int T, int D, void* stream) {
+                      int T, int Dr, void* stream) {
   Args a = {};
   a.dtype = dtype;
   a.B = B;
   a.H = H;
   a.Tq = a.Tk = T;
-  a.D = D;
+  a.Dr = Dr;
   a.o = view(o, strides, 0);
   a.dout = view(dout, strides, 1);
   a.di = dense_stat(di, H, T);
@@ -885,10 +893,10 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
                        const void* v, const void* dout, const float* lse,
                        const float* di, void* dk, void* dv,
                        const long long* strides, int B, int H, int Tq,
-                       int Tk, int D, int causal, float scale,
+                       int Tk, int Dr, int causal, float scale,
                        void* stream) {
-  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, D, causal,
-                  scale);
+  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, Dr,
+                  causal, scale);
   a.dk = view(dk, strides, 4);
   a.dv = view(dv, strides, 5);
   a.lse = dense_stat(lse, H, Tq);
@@ -900,10 +908,10 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
 int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
                      const float* di, void* dq, const long long* strides,
-                     int B, int H, int Tq, int Tk, int D, int causal,
+                     int B, int H, int Tq, int Tk, int Dr, int causal,
                      float scale, void* stream) {
-  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, D, causal,
-                  scale);
+  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, Dr,
+                  causal, scale);
   a.dq = view(dq, strides, 4);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
@@ -919,9 +927,9 @@ int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
 int hvd_flash_seg_fwd(int device, int dtype, const void* q, const void* k,
                       const void* v, float* o, float* lse,
                       const long long* strides, int B, int H, int Tq, int Tk,
-                      int D, int causal, float scale, void* stream) {
-  Args a = inputs(dtype, q, k, v, nullptr, strides, B, H, Tq, Tk, D, causal,
-                  scale);
+                      int Dr, int causal, float scale, void* stream) {
+  Args a = inputs(dtype, q, k, v, nullptr, strides, B, H, Tq, Tk, Dr,
+                  causal, scale);
   a.o = view(o, strides, 3);
   a.lse = stat(lse, strides, 4, 0);
   a.out_f32 = 1;
@@ -934,10 +942,10 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
                            const void* k, const void* v, const void* dout,
                            const float* lse, const float* di, float* dk,
                            float* dv, const long long* strides, int B, int H,
-                           int Tq, int Tk, int D, int causal, float scale,
-                           void* stream) {
-  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, D, causal,
-                  scale);
+                           int Tq, int Tk, int Dr, int causal,
+                           float scale, void* stream) {
+  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, Dr,
+                  causal, scale);
   a.dk = view(dk, strides, 4);
   a.dv = view(dv, strides, 5);
   a.lse = stat(lse, strides, 6, 0);
@@ -951,10 +959,10 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
 int hvd_flash_seg_bwd_dq(int device, int dtype, const void* q, const void* k,
                          const void* v, const void* dout, const float* lse,
                          const float* di, float* dq, const long long* strides,
-                         int B, int H, int Tq, int Tk, int D, int causal,
-                         float scale, void* stream) {
-  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, D, causal,
-                  scale);
+                         int B, int H, int Tq, int Tk, int Dr,
+                         int causal, float scale, void* stream) {
+  Args a = inputs(dtype, q, k, v, dout, strides, B, H, Tq, Tk, Dr,
+                  causal, scale);
   a.dq = view(dq, strides, 4);
   a.lse = stat(lse, strides, 5, 0);
   a.di = stat(di, strides, 5, 1);

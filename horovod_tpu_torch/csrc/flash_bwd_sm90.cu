@@ -72,6 +72,11 @@
 //   per-element mask; TMA zero-fills rows past Tq and Tk, whose outputs
 //   are never stored. A dk/dv block past every query (causal, Tk > Tq)
 //   loads nothing and stores zeros.
+// - A head dim below the instance's (Args::Dr: 16 or 80 on the D 64 or 128
+//   one, 160 on 192) is read in place: the tensor maps' inner dimension is
+//   the views' own and TMA fills the columns past it with zeros, which add
+//   nothing to S or dP; dq, dk and dv are stored at the views' columns
+//   only. No zero-padded copy is made.
 // Nothing is accumulated across blocks and dQ has a pass of its own (no
 // float atomics), and the arithmetic never sees the views' strides: runs
 // repeat bitwise, and strided views give the bits of contiguous copies.
@@ -157,10 +162,11 @@ __device__ __forceinline__ void store2<float>(float* dst, float lo, float hi) {
 }
 
 // A warpgroup's 64 x D accumulator times `mul`, rows r_lo and r_lo + 8 of
-// this thread, to the rows < T of one head of `out`.
+// this thread, to the rows < T and the columns < dr (the views' head dim)
+// of one head of `out`.
 template <int D, typename OutT>
 __device__ __forceinline__ void store_acc(const View& out, int b, int h,
-                                          int r_lo, int T,
+                                          int r_lo, int T, int dr,
                                           const float (&acc)[D / 2],
                                           float mul, int t) {
   OutT* head = reinterpret_cast<OutT*>(out.p) + b * out.sb + h * out.sh;
@@ -171,8 +177,9 @@ __device__ __forceinline__ void store_acc(const View& out, int b, int h,
     OutT* row = head + r * out.st;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      store2(row + 8 * j + 2 * t, acc[4 * j + 2 * i] * mul,
-             acc[4 * j + 2 * i + 1] * mul);
+      if (8 * j + 2 * t < dr)
+        store2(row + 8 * j + 2 * t, acc[4 * j + 2 * i] * mul,
+               acc[4 * j + 2 * i + 1] * mul);
   }
 }
 
@@ -346,7 +353,7 @@ __device__ __forceinline__ void dkdv_consume_dv(
     sm90::fence_regs(pa);
     sm90::mbar_arrive(bar.empty + st);
   }
-  store_acc<D, OutT>(p.dv, b, h, r_lo, p.Tk, acc, 1.f, t);
+  store_acc<D, OutT>(p.dv, b, h, r_lo, p.Tk, p.Dr, acc, 1.f, t);
 }
 
 // Consumer warpgroup 2 (1 with kSelfLoad): dK of the block's 64 kv rows;
@@ -407,7 +414,7 @@ __device__ __forceinline__ void dkdv_consume_dk(
       dkdv_load_stats<D>(p, loads, bar, i + C::kStages);
     }
   }
-  store_acc<D, OutT>(p.dk, b, h, r_lo, p.Tk, acc, p.scale, t);
+  store_acc<D, OutT>(p.dk, b, h, r_lo, p.Tk, p.Dr, acc, p.scale, t);
 }
 
 template <int D, typename In, typename OutT>
@@ -674,7 +681,7 @@ __device__ __forceinline__ void dq_consume(const Args& p, const In* qs,
       sm90::mbar_arrive(bar.empty + st);
     }
   }
-  store_acc<D, OutT>(p.dq, b, h, r_lo, p.Tq, acc, p.scale, t);
+  store_acc<D, OutT>(p.dq, b, h, r_lo, p.Tq, p.Dr, acc, p.scale, t);
 }
 
 template <int D, typename In, typename OutT>
@@ -733,7 +740,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // launch
 
-// The tensor maps of q, k, v and dout, in boxes of q_rows and kv_rows rows.
+// The tensor maps of q, k, v and dout at the views' head dim (Dr), in boxes
+// of q_rows and kv_rows rows.
 template <typename In>
 cudaError_t maps(const Args& a, int q_rows, int kv_rows,
                  CUtensorMap (&m)[4]) {
@@ -741,7 +749,7 @@ cudaError_t maps(const Args& a, int q_rows, int kv_rows,
   for (int i = 0; i < 4; ++i) {
     const bool is_q = i == 0 || i == 3;
     const cudaError_t err = sm90::bhtd_map<In>(
-        &m[i], in[i]->p, a.B, a.H, is_q ? a.Tq : a.Tk, a.D, in[i]->sb,
+        &m[i], in[i]->p, a.B, a.H, is_q ? a.Tq : a.Tk, a.Dr, in[i]->sb,
         in[i]->sh, in[i]->st, is_q ? q_rows : kv_rows);
     if (err != cudaSuccess) return err;
   }
@@ -817,9 +825,9 @@ cudaError_t pick(const Args& a, cudaStream_t stream) {
 
 namespace flash {
 
-// (dk, dv) under the given lse and di, over [B, H, T, D] views of bf16 or
-// fp16 (D = 64, 128, 192 or 256); outputs in the input type or fp32
-// (out_f32).
+// (dk, dv) under the given lse and di, over [B, H, T, Dr] views of bf16 or
+// fp16 on the instance of head dim D = 64, 128, 192 or 256; outputs in the
+// input type or fp32 (out_f32).
 cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
   return pick<Dkdv>(a, stream);
 }

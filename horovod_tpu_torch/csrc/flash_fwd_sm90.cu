@@ -40,6 +40,11 @@
 //   Causal
 //   tiles past the diagonal are never loaded, and blocks start with the
 //   longest rows so the last wave is short.
+// - A head dim below the instance's (16 or 80 on the D 64 or 128 one, 160
+//   on 192, 288 on 320: FwdParams::d) is read in place: the tensor maps'
+//   inner dimension is the views' own, and TMA fills the columns past it
+//   with zeros, which change neither S nor the softmax; the epilogue stores
+//   the views' columns only. No zero-padded copy is made.
 // - The epilogue divides by l and stores o (In or fp32) and lse from
 //   registers, rows < Tq only. A row that sees no key writes o = 0 and
 //   lse = -1e30, a finite sentinel the ring's merge needs.
@@ -59,7 +64,23 @@
 //   operands, O's first 192 columns and its last 128, each a whole number
 //   of 64-column slabs of V (issue_pv). O stays one array in the layout
 //   of a 320-column accumulator, so the rescale and the epilogue are
-//   those of every other D. Above 320 the mma.sync family runs.
+//   those of every other D.
+// - Head dims 384 and 512: O's columns are split over blocks
+//   (Tiles<D>::kOut, the groups along blockIdx.x beside (b, h)). A block
+//   loads Q and the K tiles at the whole depth and computes S and the same
+//   online softmax as every other group of its rows, but loads V and holds
+//   O for its group only: 192 columns at D 384 (two groups; the D 192
+//   forward's O of 96 registers), 256 at 512 (the D 256 forward's 128).
+//   So the register picture is that of D 192 and 256 in a block of 256
+//   threads (255 registers at launch), and no group needs more than
+//   wgmma's N of 256. The price is S once a group: 1.5 times the products
+//   of D 384 with one group, 2 times at 512. Shared memory decides the kv
+//   tile: Q (128 D bytes), two K slots (kBK D 2 bytes each) and two V
+//   slots (kBK kOut 2) fit 227 KB with kBK 64 at D 384 (197,888 bytes)
+//   and 48 at 512 (214,272). Head dims 385 to 512 run on the 512 instance,
+//   the columns past theirs read as zeros (a box may lie wholly past
+//   them). Every group computes the same m and l: only the first writes
+//   lse. Above 512 the mma.sync family runs.
 // The arithmetic does not depend on the views' strides and nothing is
 // accumulated across blocks: strided views and contiguous copies give the
 // same bits, and runs repeat bitwise.
@@ -89,6 +110,7 @@ struct FwdParams {
   flash::View o;
   flash::Stat lse;
   int H, Tq, Tk, causal, n_qt;
+  int d;         // the views' head dim: o's columns from d on are not stored
   float scale;
 };
 
@@ -99,20 +121,27 @@ constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
 
 template <int D>
 struct Tiles {
+  // the columns of O a block holds: all of them up to D 320, above it a
+  // group of 192 (D 384) or 256 (512) of kGroups (see the header)
+  static constexpr int kOut = D <= 320 ? D : D == 384 ? 192 : 256;
+  static constexpr int kGroups = (D + kOut - 1) / kOut;
   // consumer warpgroups of a block, 64 q rows each: 2, or 1 from D 256 on
-  // (its O alone is 128 or 160 registers: see the header)
+  // (its O alone is 128 registers or more: see the header)
   static constexpr int kConsumers = D >= 256 ? 1 : 2;
   static constexpr int kThreads = 128 * (1 + kConsumers);
   static constexpr int kBQ = 64 * kConsumers;     // q rows of a block
-  static constexpr int kBK = D == 192 ? 48 : D >= 256 ? 64 : 96;  // kv rows
+  // kv rows of a K or V tile
+  static constexpr int kBK = D == 192 || D == 512 ? 48 : D >= 256 ? 64 : 96;
   // ring slots of K and of V (3 at D 128 ran no faster than 2)
   static constexpr int kStages = D == 64 || D == 192 ? 4 : 2;
   static constexpr int kQElems = kBQ * D;         // the Q tile
-  static constexpr int kTileElems = kBK * D;      // a K or V tile
-  static constexpr uint32_t kTileBytes = kTileElems * 2;
+  static constexpr int kKElems = kBK * D;         // a K tile
+  static constexpr int kVElems = kBK * kOut;      // a V tile: kOut columns
   // the tiles, their barriers, and room to align the base to 1024 bytes
   static constexpr int kSmem =
-      (kQElems + 2 * kStages * kTileElems) * 2 + 256 + 1024;
+      (kQElems + kStages * (kKElems + kVElems)) * 2 + 256 + 1024;
+  static_assert(kOut % 64 == 0 && kGroups * kOut == D, "whole slabs of O");
+  static_assert(kSmem <= 232448, "more shared memory than a block has");
 };
 
 // Two neighbouring output elements: a pair of In, or two floats.
@@ -135,32 +164,33 @@ struct Barriers {
   uint64_t* v_empty;
 };
 
-// The i-th K or V tile (kv rows i * kBK ..) into its ring slot, once the
-// consumers have emptied the slot's previous tile.
-template <int D, typename In>
+// The i-th K or V tile (kv rows i * kBK .., kCols columns from col0) into
+// its ring slot, once the consumers have emptied the slot's previous tile.
+template <int D, int kCols, typename In>
 __device__ __forceinline__ void load_kv(const CUtensorMap* map, In* ring,
                                         uint64_t* full, uint64_t* empty,
-                                        int i, int b, int h) {
+                                        int i, int col0, int b, int h) {
   using C = Tiles<D>;
   const int st = i % C::kStages;
   sm90::mbar_wait(empty + st, ((i / C::kStages) & 1) ^ 1);
-  sm90::mbar_arrive_expect_tx(full + st, C::kTileBytes);
-  In* dst = ring + st * C::kTileElems;
+  sm90::mbar_arrive_expect_tx(full + st, C::kBK * kCols * 2);
+  In* dst = ring + st * C::kBK * kCols;
 #pragma unroll
-  for (int s = 0; s < D / kSlab; ++s)
-    sm90::tma_load_4d(dst + s * C::kBK * kSlab, map, full + st, s * kSlab,
-                      i * C::kBK, h, b);
+  for (int s = 0; s < kCols / kSlab; ++s)
+    sm90::tma_load_4d(dst + s * C::kBK * kSlab, map, full + st,
+                      col0 + s * kSlab, i * C::kBK, h, b);
 }
 
 // Warpgroup 0, one thread: Q once, then the kv tiles, K one tile ahead of
-// V, in the order the consumers take them.
+// V (the block's kOut columns from col0), in the order the consumers take
+// them.
 template <int D, typename In>
 __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, In* qs,
                                         In* ks, In* vs,
                                         const Barriers& bar, int b, int h,
-                                        int q0, int n_kv) {
+                                        int q0, int n_kv, int col0) {
   using C = Tiles<D>;
   sm90::prefetch_tensor_map(tq);
   sm90::prefetch_tensor_map(tk);
@@ -170,11 +200,13 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
   for (int s = 0; s < D / kSlab; ++s)
     sm90::tma_load_4d(qs + s * C::kBQ * kSlab, tq, bar.q_full, s * kSlab, q0,
                       h, b);
+  constexpr int kOut = C::kOut;
   for (int i = 0; i < n_kv; ++i) {
-    load_kv<D>(tk, ks, bar.k_full, bar.k_empty, i, b, h);
-    if (i > 0) load_kv<D>(tv, vs, bar.v_full, bar.v_empty, i - 1, b, h);
+    load_kv<D, D>(tk, ks, bar.k_full, bar.k_empty, i, 0, b, h);
+    if (i > 0)
+      load_kv<D, kOut>(tv, vs, bar.v_full, bar.v_empty, i - 1, col0, b, h);
   }
-  load_kv<D>(tv, vs, bar.v_full, bar.v_empty, n_kv - 1, b, h);
+  load_kv<D, kOut>(tv, vs, bar.v_full, bar.v_empty, n_kv - 1, col0, b, h);
 }
 
 // Scale a score tile into log2 units, masking what the row may not see
@@ -249,23 +281,25 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tiles<D>::kBK / 2],
 }
 
 // O += P V over one V tile (kBK/16 steps of 16 kv rows, 2 KB of a slab),
-// issued and committed. wgmma's N is at most 256: above it, O is two
-// accumulators in one array, its first kN0 columns and the rest, each
-// product over the same P operand and its own slabs of V.
+// issued and committed, O and V the block's kOut columns. wgmma's N is at
+// most 256: above it (D 320), O is two accumulators in one array, its
+// first kN0 columns and the rest, each product over the same P operand and
+// its own slabs of V.
 template <int D, typename In>
 __device__ __forceinline__ void issue_pv(
-    float (&o)[D / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4], const In* vt) {
-  constexpr int kBK = Tiles<D>::kBK;
-  constexpr int kN0 = D > 256 ? 192 : D;
+    float (&o)[Tiles<D>::kOut / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4],
+    const In* vt) {
+  constexpr int kBK = Tiles<D>::kBK, kN = Tiles<D>::kOut;
+  constexpr int kN0 = kN > 256 ? 192 : kN;
   auto& o0 = *reinterpret_cast<float(*)[kN0 / 2]>(o);
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     sm90::Wgmma<kN0, In>::template rs<1>(
         o0, pa[kk], sm90::desc_mn_major(vt + kk * 16 * kSlab, kBK * kSlab * 2),
         1);
-    if constexpr (D > kN0) {
-      auto& o1 = *reinterpret_cast<float(*)[(D - kN0) / 2]>(o + kN0 / 2);
-      sm90::Wgmma<D - kN0, In>::template rs<1>(
+    if constexpr (kN > kN0) {
+      auto& o1 = *reinterpret_cast<float(*)[(kN - kN0) / 2]>(o + kN0 / 2);
+      sm90::Wgmma<kN - kN0, In>::template rs<1>(
           o1, pa[kk],
           sm90::desc_mn_major(vt + (kN0 / kSlab * kBK + kk * 16) * kSlab,
                               kBK * kSlab * 2),
@@ -277,7 +311,7 @@ __device__ __forceinline__ void issue_pv(
 
 template <int D>
 __device__ __forceinline__ void fence_pv(
-    float (&o)[D / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4]) {
+    float (&o)[Tiles<D>::kOut / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4]) {
   sm90::fence_regs(o);
   sm90::fence_regs(pa);
 }
@@ -288,13 +322,15 @@ __device__ __forceinline__ void fence_pv(
 // the second is in flight, and O is rescaled and P_i formed after it. Each
 // tile's arithmetic, and its order, are those of the plain online softmax.
 // The first tile is peeled off, so no product is issued under a branch.
+// O is the block's kOut columns from col0.
 template <int D, typename In, typename OutT>
 __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
                                         const In* ks, const In* vs,
                                         const Barriers& bar, int wg, int b,
-                                        int h, int q0, int n_kv) {
+                                        int h, int q0, int n_kv,
+                                        int col0) {
   using C = Tiles<D>;
-  constexpr int kBK = C::kBK;
+  constexpr int kBK = C::kBK, kOut = C::kOut;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int qw0 = q0 + 64 * wg;            // the warpgroup's first q row
@@ -307,9 +343,9 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
     return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
   };
 
-  float o[D / 2];
+  float o[kOut / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kOut / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2];
   float s[kBK / 2];
   uint32_t pa[kBK / 16][4];   // P of the tile whose PV is next
@@ -329,9 +365,9 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
     const int kv0 = it * kBK;
     sm90::mbar_wait(bar.k_full + st, (it / C::kStages) & 1);
     sm90::wgmma_fence();
-    issue_qk<D>(s, qw, ks + st * C::kTileElems);
+    issue_qk<D>(s, qw, ks + st * C::kKElems);
     sm90::mbar_wait(bar.v_full + prev, ((it - 1) / C::kStages) & 1);
-    issue_pv<D>(o, pa, vs + prev * C::kTileElems);
+    issue_pv<D>(o, pa, vs + prev * C::kVElems);
     sm90::wgmma_wait<1>();      // S_i is done; P_{i-1} V_{i-1} may not be
     sm90::fence_regs(s);
     sm90::mbar_arrive(bar.k_empty + st);
@@ -344,13 +380,13 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+    for (int i = 0; i < kOut / 2; ++i) o[i] *= alpha[(i / 2) & 1];
     sm90::to_operand<In>(s, pa);
   }
   const int last = (n_kv - 1) % C::kStages;
   sm90::mbar_wait(bar.v_full + last, ((n_kv - 1) / C::kStages) & 1);
   sm90::wgmma_fence();
-  issue_pv<D>(o, pa, vs + last * C::kTileElems);
+  issue_pv<D>(o, pa, vs + last * C::kVElems);
   sm90::wgmma_wait<0>();
   fence_pv<D>(o, pa);
   sm90::mbar_arrive(bar.v_empty + last);
@@ -370,11 +406,14 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
     if (r >= p.Tq) continue;
     OutT* row = head + r * p.o.st;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(row + 8 * j + 2 * t, o[4 * j + 2 * i] * inv[i],
-             o[4 * j + 2 * i + 1] * inv[i]);
+    for (int j = 0; j < kOut / 8; ++j) {
+      const int c = col0 + 8 * j + 2 * t;
+      if (c < p.d)   // the views' columns only
+        store2(row + c, o[4 * j + 2 * i] * inv[i],
+               o[4 * j + 2 * i + 1] * inv[i]);
+    }
   }
-  if (t == 0) {
+  if (t == 0 && col0 == 0) {
     float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -397,12 +436,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   In* qs = reinterpret_cast<In*>(base);
   In* ks = qs + C::kQElems;
-  In* vs = ks + C::kStages * C::kTileElems;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kTileElems);
+  In* vs = ks + C::kStages * C::kKElems;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kVElems);
   const Barriers bar{bars, bars + 1, bars + 1 + C::kStages,
                      bars + 1 + 2 * C::kStages, bars + 1 + 3 * C::kStages};
 
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int bh = blockIdx.x / C::kGroups, b = bh / p.H, h = bh % p.H;
+  // the first of the block's group of O's columns (and V's)
+  const int col0 = blockIdx.x % C::kGroups * C::kOut;
   // causal: the longest rows first, so the last wave is short
   const int q0 = (p.n_qt - 1 - blockIdx.y) * C::kBQ;
   const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
@@ -424,11 +465,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x < 128) {
     if constexpr (C::kConsumers == 2) sm90::reg_dealloc<24>();
     if (threadIdx.x == 0)
-      produce<D>(&tq, &tk, &tv, qs, ks, vs, bar, b, h, q0, n_kv);
+      produce<D>(&tq, &tk, &tv, qs, ks, vs, bar, b, h, q0, n_kv, col0);
   } else {
     if constexpr (C::kConsumers == 2) sm90::reg_alloc<240>();
     consume<D, In, OutT>(p, qs, ks, vs, bar, threadIdx.x / 128 - 1, b, h, q0,
-                         n_kv);
+                         n_kv, col0);
   }
 }
 
@@ -439,7 +480,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const flash::View* in[3] = {&a.q, &a.k, &a.v};
   for (int i = 0; i < 3; ++i) {
     const cudaError_t err = sm90::bhtd_map<In>(
-        &maps[i], in[i]->p, a.B, a.H, i == 0 ? a.Tq : a.Tk, a.D, in[i]->sb,
+        &maps[i], in[i]->p, a.B, a.H, i == 0 ? a.Tq : a.Tk, a.Dr, in[i]->sb,
         in[i]->sh, in[i]->st, i == 0 ? C::kBQ : C::kBK);
     if (err != cudaSuccess) return err;
   }
@@ -449,15 +490,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return err;
   const int n_qt = (a.Tq + C::kBQ - 1) / C::kBQ;
-  const dim3 grid((unsigned)(a.B * a.H), (unsigned)n_qt);
-  const FwdParams p{a.o, a.lse, a.H, a.Tq, a.Tk, a.causal, n_qt, a.scale};
+  const dim3 grid((unsigned)(a.B * a.H * C::kGroups), (unsigned)n_qt);
+  const FwdParams p{a.o,      a.lse,  a.H,  a.Tq,   a.Tk,
+                    a.causal, n_qt,   a.Dr, a.scale};
   flash_fwd_sm90_kernel<D, In, OutT>
       <<<grid, C::kThreads, C::kSmem, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
-// The instance for the head dim: 64 and 128, and 192, 256 and 320 (the
-// wide ones; the caller routes no other).
+// The instance for the head dim: 64 and 128, and 192, 256, 320, 384 and
+// 512 (the wide ones; 448 runs on 512; the caller routes no other).
 template <typename In, typename OutT>
 cudaError_t forward(const Args& a, cudaStream_t stream) {
   switch (a.D) {
@@ -471,6 +513,11 @@ cudaError_t forward(const Args& a, cudaStream_t stream) {
       return launch<256, In, OutT>(a, stream);
     case 320:
       return launch<320, In, OutT>(a, stream);
+    case 384:
+      return launch<384, In, OutT>(a, stream);
+    case 448:
+    case 512:
+      return launch<512, In, OutT>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -486,9 +533,9 @@ cudaError_t forward_in(const Args& a, cudaStream_t stream) {
 
 namespace flash {
 
-// o = softmax(q k^T * scale) v and lse over [B, H, T, D] views of bf16 or
-// fp16 (D = 64, 128, 192, 256 or 320), o in the input type or fp32
-// (out_f32).
+// o = softmax(q k^T * scale) v and lse over [B, H, T, Dr] views of bf16 or
+// fp16 on the instance of head dim D = 64, 128, 192, 256, 320, 384 or 512
+// (D 448 on 512's), o in the input type or fp32 (out_f32).
 cudaError_t fwd_sm90(const Args& a, cudaStream_t stream) {
   return a.dtype == kF16 ? forward_in<__half>(a, stream)
                          : forward_in<__nv_bfloat16>(a, stream);

@@ -295,9 +295,11 @@ constexpr CUtensorMapDataType tma_type<__half>() {
 
 // The tensor map of a [B, H, T, D] view of In (D contiguous, element strides
 // sb, sh, st) as a 4-d tensor (D, T, H, B), read in boxes of 64 columns by
-// `rows` rows of one (b, h), 128-byte swizzled. TMA needs a 16-byte aligned
-// base and strides that are multiples of 16 bytes; a view without them is
-// refused here (cudaErrorInvalidValue).
+// `rows` rows of one (b, h), 128-byte swizzled. D is the view's own head
+// dim: a kernel built for a larger one reads its columns past D, as its
+// rows past T, as zeros (counted in the transaction bytes all the same).
+// TMA needs a 16-byte aligned base and strides that are multiples of 16
+// bytes; a view without them is refused here (cudaErrorInvalidValue).
 template <typename In>
 cudaError_t bhtd_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
                      int D, long long sb, long long sh, long long st,

@@ -44,7 +44,7 @@ SIGNATURES = {
                          _P, _I, _P, _P, _P],
     "hvd_bn_max_clusters": [_I, _I, _I, _I],
     # (device, dtype, tensors..., strides, B, H, Tq, [Tk,] D, [causal,
-    # scale,] stream)
+    # scale,] stream): D the views' head dim
     "hvd_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I,
                       _I, _F, _P],
     "hvd_flash_bwd_pre": [_I, _I, _P, _P, _P, _LLP, _I, _I, _I, _I, _P],

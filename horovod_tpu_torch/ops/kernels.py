@@ -22,11 +22,15 @@ jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
 =========================  =====================  ========================
 
 The attention kernels take bf16 and fp16 at head dims 64 and 128 (and
-those padded to them) on the Hopper kernels above, dk/dv and dq also at
-192 and 256 (160 is padded to 192), and the forward also at 320 (288 is
-padded to it); fp32 at any head dim and bf16 and fp16 above those run
-``flash_attn.cu``'s mma.sync family (which also holds di and the C entry
-points). :func:`flash_route` says which.
+those below, built at them) on the Hopper kernels above, dk/dv and dq also
+at 192 and 256 (160 is built at 192), and the forward also at 320, 384
+and 512 (288 is built at 320, 448 runs on 512); fp32 at any head dim and
+bf16 and fp16 above those run ``flash_attn.cu``'s mma.sync family (which
+also holds di and the C entry points). :func:`flash_route` says which. The Hopper
+kernels read a head dim below their instance's in place (16, 80, 96, 160,
+288 of a ``[B, T, H, D]`` tensor, and any even one whose strides TMA
+takes); elsewhere the wrapper copies the inputs zero-padded and counts the
+copy (:func:`flash_needs_copy`, ``<wrapper>_pad_copies``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -522,21 +526,24 @@ adasum_scale.launches = 0
 # fp32 [B, H, Tq], contiguous. Causal is the library kernel's rule, key <=
 # query by absolute index (``_causal_mask``). The backward takes lse and di
 # from outside: under a global lse, as ring attention's per-block backward
-# needs, it is the same kernel. Any head dim runs: D <= 128 is zero-padded
-# to the next of FLASH_HEAD_DIMS, a larger D to the next multiple of 64
-# (zero columns change neither q kᵀ nor the softmax, and the padded columns
-# of o, dq, dk and dv come out 0); the outputs are views sliced back to D.
-# bf16 and fp16 run the Hopper kernels (TMA, wgmma) at FLASH_HEAD_DIMS and
-# above them up to each wrapper's SM90_MAX_DIM; the rest runs
-# ``flash_attn.cu``'s mma.sync family, which splits D into slices of 128
-# output columns (:func:`flash_route`).
+# needs, it is the same kernel. Any head dim runs on the kernel instance
+# built for the next of FLASH_HEAD_DIMS (D <= 128) or the next multiple of
+# 64: zero columns change neither q kᵀ nor the softmax. bf16 and fp16 run
+# the Hopper kernels (TMA, wgmma) at FLASH_HEAD_DIMS and above them up to
+# each wrapper's SM90_MAX_DIM; they read a narrower view in place (TMA
+# fills the columns past its D with zeros) and store its D columns, so the
+# outputs are allocated at the real D, laid out as the inputs. The rest
+# runs ``flash_attn.cu``'s mma.sync family, which splits D into slices of
+# 128 output columns (:func:`flash_route`) and reads the built width: its
+# inputs, and views TMA cannot take, are copied zero-padded and the outputs
+# sliced back (:func:`flash_needs_copy`, counted in ``pad_copies``).
 
 FLASH_HEAD_DIMS = (64, 128)      # the head dims of every Hopper kernel
 _FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # the largest head dim of each wrapper's Hopper kernel (``flash_attn.cu``'s
 # run() takes the same): wgmma's N is at most 256, and only the forward's
-# O is split into two accumulators above it
-SM90_MAX_DIM = {"flash_fwd": 320, "flash_seg_fwd": 320,
+# O is split above it (two accumulators at 320, over blocks from 384 on)
+SM90_MAX_DIM = {"flash_fwd": 512, "flash_seg_fwd": 512,
                 "flash_bwd_dkdv": 256, "flash_seg_bwd_dkdv": 256,
                 "flash_bwd_dq": 256, "flash_seg_bwd_dq": 256}
 
@@ -613,19 +620,63 @@ def _flash_dim(d: int) -> int:
 
 
 def flash_strides_ok(t: torch.Tensor) -> bool:
-    """Whether the CUDA kernels take ``t``'s memory as it is: a contiguous
-    head dim, B/H/T strides that are multiples of 8 elements and 16-byte
-    aligned data. A tensor whose head dim is padded is copied anyway."""
-    if t.shape[-1] != _flash_dim(t.shape[-1]):
-        return True
+    """Whether TMA takes ``t``'s memory as it is: a contiguous head dim,
+    B/H/T strides that are multiples of 8 elements (16 bytes at 16 bits)
+    and 16-byte aligned data. The kernels refuse other views at a built
+    head dim and copy them below one (:func:`flash_needs_copy`)."""
     return (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0)
+
+
+def _pairs_ok(t: torch.Tensor) -> bool:
+    """Whether di's kernel reads ``t`` in place: pairs of neighbouring
+    elements, aligned to their size (a contiguous head dim, even strides
+    and base)."""
+    return (t.stride(-1) == 1 and all(s % 2 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % (2 * t.element_size()) == 0)
+
+
+def flash_needs_copy(kernel: str, *ts) -> bool:
+    """Whether the K6/K7 wrapper named ``kernel`` copies its inputs ``ts``
+    ([B, H, T, D] views of one dtype and D) zero-padded to the built head
+    dim (:func:`_flash_dim`) before its launch; a function of their shape,
+    strides, dtype and address alone. Never at a built head dim. Below it:
+    the Hopper kernels (routes "sm90", "sm90_wide") read an even D in place
+    where TMA takes every view (:func:`flash_strides_ok`), as a [B, T, H, D]
+    tensor whose D is a multiple of 8 is; the mma.sync family ("wide", "tf32")
+    reads the built width and always copies; di (``flash_bwd_pre``) reads
+    pairs below D and copies an odd D or misaligned pairs."""
+    d = ts[0].shape[-1]
+    if d == _flash_dim(d):
+        return False
+    if kernel == "flash_bwd_pre":
+        return d % 2 != 0 or not all(_pairs_ok(t) for t in ts)
+    if flash_route(ts[0].dtype, d, kernel) in ("wide", "tf32"):
+        return True
+    return d % 2 != 0 or not all(flash_strides_ok(t) for t in ts)
+
+
+def flash_grad_in(do: torch.Tensor, kernel: str) -> torch.Tensor:
+    """An incoming gradient ``do`` ([B, H, T, D]) as the backward wrappers
+    (``kernel``: dk/dv's name) should get it: itself where TMA takes it
+    (:func:`flash_strides_ok`) or where they copy it anyway, zero-padded
+    (:func:`flash_needs_copy`: the mma.sync routes, or a head dim below a
+    built one that is no multiple of 8, whose contiguous copy TMA takes no
+    more); else one contiguous copy (of a gradient expanded from a sum,
+    say), which they read in place."""
+    d = do.shape[-1]
+    if flash_strides_ok(do) or (d != _flash_dim(d) and (
+            d % 8 != 0 or flash_route(do.dtype, d, kernel) in ("wide",
+                                                                "tf32"))):
+        return do
+    return do.clone(memory_format=torch.contiguous_format)
 
 
 def _check_flash(named):
     """Raise on what the CUDA kernels do not take: tensors on one CUDA
     device, of one of the kernels' dtypes, 4-d with one B, H and D, in
-    memory the kernels take unless D is padded. Returns (dtype code,
+    memory TMA takes where D is a built head dim (below one, a view TMA
+    cannot take is copied: :func:`flash_needs_copy`). Returns (dtype code,
     device, the head dim the kernels run at)."""
     device = dtype = dims = None
     for name, t in named:
@@ -647,7 +698,8 @@ def _check_flash(named):
                              f"{tuple(t.shape)}; expected [B, H, T, D] "
                              "with the B, H and D of the others")
         dims = (t.shape[0], t.shape[1], t.shape[3])
-        if not flash_strides_ok(t):
+        built = t.shape[-1] == _flash_dim(t.shape[-1])
+        if built and not flash_strides_ok(t):
             raise ValueError(
                 f"flash attention: {name} needs a contiguous head dim, B/H/T "
                 f"strides that are multiples of 8 and 16-byte aligned data; "
@@ -668,6 +720,16 @@ def _padded(d: int, *ts):
             torch.nn.functional.pad(t, (0, d - t.shape[-1])) for t in ts]
 
 
+def _flash_views(fn, dp: int, *ts):
+    """(the tensors ``fn``'s kernel reads, their head dim): ``ts`` as they
+    are, or, where :func:`flash_needs_copy` says so, copies zero-padded to
+    the built head dim ``dp``, counted in ``fn.pad_copies``."""
+    if flash_needs_copy(fn.__name__, *ts):
+        fn.pad_copies += 1
+        return _padded(dp, *ts), dp
+    return list(ts), ts[0].shape[-1]
+
+
 def _check_stats(named, bht, device):
     for name, t in named:
         if t.dtype != torch.float32 or tuple(t.shape) != bht \
@@ -684,13 +746,14 @@ def _strides(*ts) -> ctypes.Array:
 def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The kernel that a K6/K7 wrapper (``kernel``, its name) launches on
     the card for inputs of ``dtype`` and head dim ``d``: "sm90", the Hopper
-    kernels (bf16 and fp16 at head dims padded to 64 or 128); "sm90_wide",
-    the same kernels at 192 and 256, and the forward's also at 320 (up to
-    the wrapper's SM90_MAX_DIM); "wide", ``flash_attn.cu``'s mma.sync
-    family on bf16 and fp16 above that (dk/dv and dq above 256, the
-    forward above 320); "tf32", the same family on fp32 (every head dim).
-    ``wgmma``'s N is at most 256: the forward's O at 320 is two
-    accumulators, and dK/dV and dQ above 256 fit no register budget yet."""
+    kernels (bf16 and fp16 at head dims built at 64 or 128); "sm90_wide",
+    the same kernels at 192 and 256, and the forward's also from 320 to
+    512 (up to the wrapper's SM90_MAX_DIM); "wide",
+    ``flash_attn.cu``'s mma.sync family on bf16 and fp16 above that (dk/dv
+    and dq above 256, the forward above 512); "tf32", the same family on
+    fp32 (every head dim). ``wgmma``'s N is at most 256: the forward's O at
+    320 is two accumulators and above it split over blocks, and dK/dV and
+    dQ above 256 fit no register budget yet."""
     if kernel not in MMA_KERNELS_BY_NAME:
         raise ValueError(f"flash_route: {kernel!r} is not a K6/K7 wrapper "
                          f"with a route ({', '.join(MMA_KERNELS_BY_NAME)})")
@@ -724,12 +787,12 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     code, device, dp = _check_flash((("q", q), ("k", k), ("v", v)))
     _same_rows(k, v, ("k", "v"))
     (b, h, tq, d), tk = q.shape, k.shape[2]
-    q, k, v = _padded(dp, q, k, v)
+    (q, k, v), dr = _flash_views(flash_fwd, dp, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(b, h, tq, dtype=torch.float32, device=device)
     _check(_lib().hvd_flash_fwd(
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o), b, h, tq, tk, dp,
+        o.data_ptr(), lse.data_ptr(), _strides(q, k, v, o), b, h, tq, tk, dr,
         int(causal), scale, _stream(device)), "flash_fwd")
     _launched(flash_fwd, q.dtype, dp)
     return o[..., :d], lse
@@ -745,11 +808,11 @@ def flash_bwd_pre(o, do):
     code, device, dp = _check_flash((("o", o), ("do", do)))
     _same_rows(o, do, ("o", "do"))
     b, h, t, _ = o.shape
-    o, do = _padded(dp, o, do)
+    (o, do), dr = _flash_views(flash_bwd_pre, dp, o, do)
     di = torch.empty(b, h, t, dtype=torch.float32, device=device)
     _check(_lib().hvd_flash_bwd_pre(
         device.index, code, o.data_ptr(), do.data_ptr(), di.data_ptr(),
-        _strides(o, do), b, h, t, dp, _stream(device)), "flash_bwd_pre")
+        _strides(o, do), b, h, t, dr, _stream(device)), "flash_bwd_pre")
     flash_bwd_pre.launches += 1
     return di
 
@@ -774,12 +837,12 @@ def flash_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
         return flash_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
     code, device, dp, (b, h, tq, tk, d) = _bwd_inputs(q, k, v, do)
     _check_stats((("lse", lse), ("di", di)), (b, h, tq), device)
-    q, k, v, do = _padded(dp, q, k, v, do)
+    (q, k, v, do), dr = _flash_views(flash_bwd_dkdv, dp, q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _check(_lib().hvd_flash_bwd_dkdv(
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, tq, tk, dp,
+        dv.data_ptr(), _strides(q, k, v, do, dk, dv), b, h, tq, tk, dr,
         int(causal), scale, _stream(device)), "flash_bwd_dkdv")
     _launched(flash_bwd_dkdv, q.dtype, dp)
     return dk[..., :d], dv[..., :d]
@@ -794,12 +857,12 @@ def flash_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
         return flash_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
     code, device, dp, (b, h, tq, tk, d) = _bwd_inputs(q, k, v, do)
     _check_stats((("lse", lse), ("di", di)), (b, h, tq), device)
-    q, k, v, do = _padded(dp, q, k, v, do)
+    (q, k, v, do), dr = _flash_views(flash_bwd_dq, dp, q, k, v, do)
     dq = torch.empty_like(q)
     _check(_lib().hvd_flash_bwd_dq(
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        _strides(q, k, v, do, dq), b, h, tq, tk, dp, int(causal), scale,
+        _strides(q, k, v, do, dq), b, h, tq, tk, dr, int(causal), scale,
         _stream(device)), "flash_bwd_dq")
     _launched(flash_bwd_dq, q.dtype, dp)
     return dq[..., :d]
@@ -915,13 +978,14 @@ def flash_seg_fwd(q, k, v, causal: bool, scale: float):
     if q.device.type == "cpu":
         return flash_seg_fwd_plain(q, k, v, causal, scale)
     code, device, dp, (b, h, s, d) = _seg_inputs(q, k, v)
-    q, k, v = _padded(dp, q, k, v)
+    (q, k, v), dr = _flash_views(flash_seg_fwd, dp, q, k, v)
     o = _seg_out(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=device)
     _check(_lib().hvd_flash_seg_fwd(
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), lse.data_ptr(), _seg_strides([q, k, v], [o], [lse]), b,
-        h, s, s, dp, int(causal), scale, _stream(device)), "flash_seg_fwd")
+        h, s, s, dr, int(causal), scale, _stream(device)),
+        "flash_seg_fwd")
     _launched(flash_seg_fwd, q.dtype, dp)
     return o[..., :d], lse
 
@@ -935,13 +999,13 @@ def flash_seg_bwd_dkdv(q, k, v, do, lse, di, causal: bool, scale: float):
         return flash_seg_bwd_dkdv_plain(q, k, v, do, lse, di, causal, scale)
     code, device, dp, (b, h, s, d) = _seg_inputs(q, k, v, do)
     _check_seg_stats((("lse", lse), ("di", di)), (b, h, s), device)
-    q, k, v, do = _padded(dp, q, k, v, do)
+    (q, k, v, do), dr = _flash_views(flash_seg_bwd_dkdv, dp, q, k, v, do)
     dk, dv = _seg_out(k), _seg_out(v)
     _check(_lib().hvd_flash_seg_bwd_dkdv(
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _seg_strides([q, k, v, do], [dk, dv], [lse, di]), b,
-        h, s, s, dp, int(causal), scale, _stream(device)),
+        h, s, s, dr, int(causal), scale, _stream(device)),
         "flash_seg_bwd_dkdv")
     _launched(flash_seg_bwd_dkdv, q.dtype, dp)
     return dk[..., :d], dv[..., :d]
@@ -956,12 +1020,12 @@ def flash_seg_bwd_dq(q, k, v, do, lse, di, causal: bool, scale: float):
         return flash_seg_bwd_dq_plain(q, k, v, do, lse, di, causal, scale)
     code, device, dp, (b, h, s, d) = _seg_inputs(q, k, v, do)
     _check_seg_stats((("lse", lse), ("di", di)), (b, h, s), device)
-    q, k, v, do = _padded(dp, q, k, v, do)
+    (q, k, v, do), dr = _flash_views(flash_seg_bwd_dq, dp, q, k, v, do)
     dq = _seg_out(q)
     _check(_lib().hvd_flash_seg_bwd_dq(
         device.index, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-        _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, s, dp,
+        _seg_strides([q, k, v, do], [dq], [lse, di]), b, h, s, s, dr,
         int(causal), scale, _stream(device)), "flash_seg_bwd_dq")
     _launched(flash_seg_bwd_dq, q.dtype, dp)
     return dq[..., :d]
@@ -979,6 +1043,9 @@ KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
 MMA_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
                flash_seg_bwd_dkdv, flash_seg_bwd_dq)
 MMA_KERNELS_BY_NAME = {k.__name__: k for k in MMA_KERNELS}
+# wrappers that copy inputs their kernel cannot read in place
+# (flash_needs_copy), counted in ``pad_copies``
+PADDING_KERNELS = MMA_KERNELS + (flash_bwd_pre,)
 
 
 def reset_launch_counts():
@@ -986,19 +1053,26 @@ def reset_launch_counts():
         k.launches = 0
     for k in MMA_KERNELS:
         k.tf32_launches = k.wide_launches = k.sm90_wide_launches = 0
+    for k in PADDING_KERNELS:
+        k.pad_copies = 0
 
 
 def launch_counts() -> dict:
     """Launches by wrapper (every dtype and head dim), and by route
     (:func:`flash_route`): ``<wrapper>_tf32``, the mma.sync family on fp32
     inputs; ``<wrapper>_wide``, the family on bf16 and fp16 (dk/dv and dq
-    above head dim 256, the forward above 320); ``<wrapper>_sm90_wide``,
-    the Hopper kernels above 128 (192 and 256, the forward's also 320)."""
+    above head dim 256, the forward above 512); ``<wrapper>_sm90_wide``,
+    the Hopper kernels above 128 (192 and 256, the forward's also 320 to
+    512). ``<wrapper>_pad_copies`` counts the calls of a K6/K7 wrapper (di
+    included) that copied their inputs zero-padded (:func:`flash_needs_copy`)
+    before the launch."""
     counts = {k.__name__: k.launches for k in KERNELS}
     for k in MMA_KERNELS:
         counts[f"{k.__name__}_tf32"] = k.tf32_launches
         counts[f"{k.__name__}_wide"] = k.wide_launches
         counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches
+    for k in PADDING_KERNELS:
+        counts[f"{k.__name__}_pad_copies"] = k.pad_copies
     return counts
 
 

@@ -5,15 +5,16 @@ The port's counterpart of ``horovod_tpu/parallel/flash_attention.py``
 attention with scale 1/sqrt(D) through kernel K6 (the online-softmax
 forward, ``csrc/flash_fwd_sm90.cu``, and a backward of three launches
 under the saved lse, ``csrc/flash_bwd_sm90.cu``: TMA and wgmma for bf16
-and fp16 at head dims up to 256, and the forward up to 320;
+and fp16 at head dims up to 256, and the forward up to 512;
 ``csrc/flash_attn.cu``'s tf32 mma.sync kernels for fp32, and for the rest
 of bf16 and fp16 above those: ``ops.kernels.flash_route``). On a CUDA
 tensor it always launches K6, in both layouts, for what the reference
 computes: bf16, fp16 or fp32 inputs, any head dim (the Hopper kernels are
-built for 64, 128, 192 and 256, the forward also for 320, and pad the
-others below with zeros; the mma.sync kernels take a head dim padded to a
-multiple of 64 in slices of 128 output columns), and q and k/v of any
-lengths >= 1, different ones
+built for 64, 128, 192 and 256, the forward also for 320, 384 and 512,
+and read a head dim below those in place, the columns past it as
+zeros; the mma.sync kernels take a copy zero-padded to a multiple of 64
+in slices of 128 output columns: ``ops.kernels.flash_needs_copy``), and
+q and k/v of any lengths >= 1, different ones
 included (causal: key <= query by absolute index, the library kernel's
 rule). On a CPU tensor it runs K6's plain PyTorch versions, which
 agree with :func:`horovod_tpu_torch.parallel.ring_attention.local_attention`,
@@ -56,10 +57,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.is_cuda and not K.flash_strides_ok(do):
-            # an incoming gradient in memory the kernels do not take (say,
-            # expanded from a sum): a fresh contiguous copy
-            do = do.clone(memory_format=torch.contiguous_format)
+        if do.is_cuda:
+            do = K.flash_grad_in(do, "flash_bwd_dkdv")
         di = K.flash_bwd_pre(o, do)
         dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, ctx.causal,
                                   ctx.scale)

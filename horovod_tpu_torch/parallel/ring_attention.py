@@ -201,8 +201,8 @@ class _Ring(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         do = dout.to(q.dtype)
-        if do.is_cuda and not K.flash_strides_ok(do):
-            do = do.clone(memory_format=torch.contiguous_format)
+        if do.is_cuda:
+            do = K.flash_grad_in(do, "flash_seg_bwd_dkdv")
         dq, dk, dv = _ring_bwd(q, k, v, out, lse, do, *ctx.args)
         grads = []
         for g, like in ((dq, q), (dk, k), (dv, v)):

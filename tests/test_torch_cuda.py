@@ -275,13 +275,15 @@ def test_cuda_bn_and_mma_kernels_do_not_spill(cuda):
 def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
     """The build's ptxas report: no instance of the Hopper attention
     kernels (every head dim, the wide ones at 192 and 256, and the
-    forward's at 320, included, every input and output type) spills."""
+    forward's at 320, 384 and 512, included, every input and output type)
+    spills."""
     from horovod_tpu_torch.ops import build
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90"):
         report = build.ptxas_report(stem)
         assert any("Li256E" in name for name in report), stem
-        assert any("Li320E" in name for name in report) == \
-            (stem == "flash_fwd_sm90"), stem
+        for d in (320, 384, 512):
+            assert any(f"Li{d}E" in name for name in report) == \
+                (stem == "flash_fwd_sm90"), (stem, d)
         for name, r in report.items():
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
 
@@ -523,19 +525,19 @@ def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
     _check_k6_case(cuda, dtype, d, tq, tk, causal)
 
 
-# head dims above 128: bf16 and fp16 at 160 (padded to 192), 192 and 256
-# on the Hopper kernels, the forward also at 320; the rest on the mma.sync
-# family in slices of 128 columns (flash_route)
-WIDE_DIMS = [160, 192, 256, 320, 384]
+# head dims above 128: bf16 and fp16 at 160 (built at 192), 192 and 256
+# on the Hopper kernels, the forward also from 320 to 512; the rest on the
+# mma.sync family in slices of 128 columns (flash_route)
+WIDE_DIMS = [160, 192, 256, 320, 384, 576]
 WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 def _wide_route(dtype, d, name):
     """The route a wide launch must take: flash_route's answer, checked
-    against the rule it states (the Hopper forward to head dim 320, dk/dv
+    against the rule it states (the Hopper forward to head dim 512, dk/dv
     and dq to 256)."""
     route = K.flash_route(dtype, d, name)
-    largest = 320 if name.endswith("_fwd") else 256
+    largest = 512 if name.endswith("_fwd") else 256
     if dtype == torch.float32:
         assert route == "tf32"
     elif K._flash_dim(d) <= largest:
@@ -550,8 +552,8 @@ def _wide_route(dtype, d, name):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
-    """Every K6 entry point at head dims 160 (padded to 192), 192, 256,
-    320 and 384 in bf16, fp16 and fp32, causal and full, Tq != Tk: within
+    """Every K6 entry point at head dims 160 (built at 192), 192, 256,
+    320, 384 and 576 in bf16, fp16 and fp32, causal and full, Tq != Tk: within
     the flash limits, counted by their route (the Hopper wide kernels, the
     16-bit mma.sync instances or the tf32 ones), dq repeats bitwise."""
     n0 = K.launch_counts()
@@ -618,6 +620,146 @@ def test_cuda_flash_wide_hopper_forward_at_320(cuda, dtype, d, causal, tq,
         assert n1[f"{name}_wide"] == n0[f"{name}_wide"] + 1
         assert n1[f"{name}_sm90_wide"] == n0[f"{name}_sm90_wide"]
     _check_k6_repeats(q, k, v, do, lse, di, causal, d ** -0.5)
+
+
+@pytest.mark.parametrize("tq,tk", [(257, 257), (100, 300), (300, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [352, 384, 448, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_flash_hopper_forward_above_320(cuda, dtype, d, causal, tq,
+                                             tk):
+    """The Hopper forward above head dim 320, O's columns split over blocks
+    (D 384 two groups of 192, 512 two of 256; 352 read in place by the 384
+    instance, 448 by the 512 one, whose last slab lies wholly past it), K6a
+    and K7a (on the first min(Tq, Tk) rows): within
+    the flash limits against the plain version at lengths that end inside
+    the 64-row tiles (Tq = Tk, Tq < Tk, Tq > Tk), each call counted on the
+    sm90_wide route with no zero-padded copy, o laid out as q, the same
+    bits from run to run and on contiguous copies."""
+    q, k, v, _ = _flash_inputs(cuda, 2, 3, tq, d, "bthk", dtype=dtype, tk=tk)
+    scale = d ** -0.5
+    s = min(tq, tk)
+    seg = [x[:, :, :s] for x in (q, k, v)]
+    n0 = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, causal, scale)
+    so, slse = K.flash_seg_fwd(*seg, causal, scale)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for name in ("flash_fwd", "flash_seg_fwd"):
+        assert n1[f"{name}_sm90_wide"] == n0[f"{name}_sm90_wide"] + 1
+        for other in ("wide", "pad_copies"):
+            assert n1[f"{name}_{other}"] == n0[f"{name}_{other}"]
+    assert o.shape == q.shape and o.stride() == q.stride()
+    assert so.dtype == torch.float32 and so.shape == seg[0].shape
+    for fwd, plain, ins, outs in (
+            (K.flash_fwd, K.flash_attention_fwd_plain, (q, k, v), (o, lse)),
+            (K.flash_seg_fwd, K.flash_seg_fwd_plain, seg, (so, slse))):
+        want32 = plain(*(x.float() for x in ins), causal, scale)
+        want = plain(*ins, causal, scale)
+        for name, got, w32, wb in zip(("o", "lse"), outs, want32, want):
+            assert bool(torch.isfinite(got).all()), name
+            _assert_flash_close(name, got, w32, wb)
+        again = fwd(*ins, causal, scale)
+        copies = fwd(*(x.contiguous() for x in ins), causal, scale)
+        for a, b, c in zip(outs, again, copies):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# head dims the kernels are built above: ViT_Tiny's 16 (on the D 64
+# instance), 80 and 96 (128), 160 (192) and 288 (320, the forward only;
+# dk/dv and dq there run the mma.sync family)
+PADDED_DIMS = [16, 80, 96, 160, 288]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_padded_head_dims_read_in_place(cuda, dtype, d, causal):
+    """K6 at a head dim below its kernel's, on [B, T, H, D] views as the
+    models hand them (Tq != Tk): within the flash limits, no zero-padded
+    copy where the Hopper kernels run (each mma.sync call at 288 copies,
+    counted), outputs allocated at the real D and laid out as the inputs,
+    the same bits from run to run and on contiguous copies."""
+    n0 = K.launch_counts()
+    q, k, v, do, lse, di, dq = _check_k6_case(cuda, dtype, d, 150, 200,
+                                              causal)
+    n1 = K.launch_counts()
+    mma = [n for n in ("flash_bwd_dkdv", "flash_bwd_dq")
+           if K.flash_route(dtype, d, n) == "wide"]
+    assert mma == ([] if d < 256 else ["flash_bwd_dkdv", "flash_bwd_dq"])
+    for name in ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
+                 "flash_bwd_dq"):
+        copies = n1[f"{name}_pad_copies"] - n0[f"{name}_pad_copies"]
+        assert copies == (name in mma), (name, copies)
+    scale = d ** -0.5
+    o, _ = K.flash_fwd(q, k, v, causal, scale)
+    dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, causal, scale)
+    outs = [(o, q)] + ([] if mma else [(dq, q), (dk, k), (dv, v)])
+    for got, like in outs:
+        assert got.shape[-1] == d and got.stride() == like.stride()
+        assert got.untyped_storage().nbytes() == \
+            like.untyped_storage().nbytes()
+    _check_k6_repeats(q, k, v, do, lse, di, causal, scale)
+
+
+@pytest.mark.parametrize("part", ["full", "diag"])
+@pytest.mark.parametrize("d", PADDED_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_seg_padded_head_dims_read_in_place(cuda, dtype, d, part):
+    """K7 at a head dim below its kernel's on strided halves: within the
+    flash limits, fp32 outputs [B, H, S, D] at the real D, no zero-padded
+    copy where the Hopper kernels run (the mma.sync dk/dv and dq at 288
+    copy, counted), the same bits on contiguous copies."""
+    n0 = K.launch_counts()
+    seg, got = _check_k7_case(cuda, dtype, d, part)
+    n1 = K.launch_counts()
+    for name in ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq"):
+        mma = K.flash_route(dtype, d, name) == "wide"
+        assert mma == (d > 256 and name != "flash_seg_fwd")
+        copies = n1[f"{name}_pad_copies"] - n0[f"{name}_pad_copies"]
+        assert copies == 2 * mma, (name, copies)   # views and copies
+    for name, g, like in zip(("o", "lse", "dk", "dv", "dq"), got,
+                             (seg[0], seg[4], seg[1], seg[2], seg[0])):
+        assert g.shape == like.shape, name
+        # copied inputs give slices of outputs at the built head dim
+        assert g.is_contiguous() == (d < 256 or name in ("o", "lse")), name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_view_tma_cannot_take_is_copied_and_counted(cuda, dtype):
+    """A [B, T, H, 20] tensor (its H stride of 20 elements is no multiple
+    of 8) is copied zero-padded to 64 for the forward, dk/dv and dq, each
+    copy counted, and runs the same kernel as a view TMA takes (the first
+    20 columns of a 64-wide tensor): the same bits. di reads its pairs in
+    place."""
+    wide = _flash_inputs(cuda, 2, 3, 150, 64, "bthk", seed=9, dtype=dtype)
+    views = [x[..., :20] for x in wide]
+    tight = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in views]
+    assert tight[0].stride()[1] == 20
+    scale = 20 ** -0.5
+    results = {}
+    for what, (q, k, v, do) in (("view", views), ("copy", tight)):
+        n0 = K.launch_counts()
+        o, lse = K.flash_fwd(q, k, v, True, scale)
+        di = K.flash_bwd_pre(o, do)
+        dk, dv = K.flash_bwd_dkdv(q, k, v, do, lse, di, True, scale)
+        dq = K.flash_bwd_dq(q, k, v, do, lse, di, True, scale)
+        torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        for name in ("flash_fwd", "flash_bwd_pre", "flash_bwd_dkdv",
+                     "flash_bwd_dq"):
+            assert n1[name] == n0[name] + 1
+            copies = n1[f"{name}_pad_copies"] - n0[f"{name}_pad_copies"]
+            assert copies == (what == "copy" and name != "flash_bwd_pre")
+        results[what] = (o, lse, di, dk, dv, dq)
+    for a, b in zip(results["view"], results["copy"]):
+        assert a.shape == b.shape and torch.equal(a, b)
+    q, k, v, do = views
+    o32, lse32 = K.flash_attention_fwd_plain(
+        *(x.float() for x in (q, k, v)), True, scale)
+    ob, lseb = K.flash_attention_fwd_plain(q, k, v, True, scale)
+    _assert_flash_close("o", results["view"][0], o32, ob)
+    _assert_flash_close("lse", results["view"][1], lse32, lseb)
 
 
 def _check_k6_case(cuda, dtype, d, tq, tk, causal):
@@ -905,9 +1047,9 @@ def test_cuda_seg_kernels_take_every_dtype(cuda, dtype, d, part):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_seg_kernels_take_any_head_dim(cuda, dtype, d, part):
-    """The three K7 entry points at head dims 160, 192, 256, 320 and 384 in
-    bf16, fp16 and fp32 on strided halves, as the previous test, counted
-    by their route."""
+    """The three K7 entry points at head dims 160, 192, 256, 320, 384 and
+    576 in bf16, fp16 and fp32 on strided halves, as the previous test,
+    counted by their route."""
     n0 = K.launch_counts()
     _check_k7_case(cuda, dtype, d, part)
     n1 = K.launch_counts()

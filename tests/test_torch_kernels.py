@@ -98,16 +98,16 @@ FLASH_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 
 
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 129, 160, 192, 193, 256,
-                               257, 288, 320, 384])
+                               257, 288, 320, 384, 448, 512, 576])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
     """Which kernel a K6/K7 wrapper launches on the card: bf16 and fp16 at
-    head dims padded to 64 or 128 the Hopper kernels; at 192 or 256 (129
-    and 160 are padded to 192, 193 to 256) the Hopper forward, dk/dv and
-    dq; at 320 (257 and 288 are padded to it) the Hopper forward and the
-    mma.sync dk/dv and dq; above 320 the mma.sync family; fp32 the tf32
-    family at every head dim."""
+    head dims built at 64 or 128 the Hopper kernels; at 192 or 256 (129
+    and 160 are built at 192, 193 at 256) the Hopper forward, dk/dv and
+    dq; from 320 to 512 (257 and 288 are built at 320) the Hopper forward
+    and the mma.sync dk/dv and dq; above 512 the mma.sync family; fp32 the
+    tf32 family at every head dim."""
     padded = K._flash_dim(d)
     for kernel in FLASH_ROUTED:
         route = K.flash_route(dtype, d, kernel)
@@ -115,7 +115,7 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
             want = "tf32"
         elif padded <= 128:
             want = "sm90"
-        elif padded <= 256 or (padded == 320 and kernel.endswith("_fwd")):
+        elif padded <= 256 or (padded <= 512 and kernel.endswith("_fwd")):
             want = "sm90_wide"
         else:
             want = "wide"
@@ -126,13 +126,17 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
 def test_flash_route_counters_and_refusals():
     """Each route has its counter in launch_counts (sm90_wide on all six
     wrappers, whose Hopper kernels take head dims 192 and 256, the
-    forwards' also 320); di and other dtypes have no route."""
+    forwards' also 320 to 512), and each of the seven K6/K7 wrappers, di
+    included, its count of zero-padded copies; di and other dtypes have no
+    route."""
     counts = K.launch_counts()
     for kernel in FLASH_ROUTED:
         for route in ("tf32", "wide", "sm90_wide"):
             assert f"{kernel}_{route}" in counts
         assert K.SM90_MAX_DIM[kernel] == \
-            (320 if kernel.endswith("_fwd") else 256)
+            (512 if kernel.endswith("_fwd") else 256)
+    for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
+        assert f"{kernel}_pad_copies" in counts
     assert "flash_bwd_pre_sm90_wide" not in counts
     with pytest.raises(ValueError, match="wrapper"):
         K.flash_route(torch.bfloat16, 256, "flash_bwd_pre")
@@ -164,6 +168,107 @@ def test_wide_flash_wrappers_take_the_plain_path_on_cpu(d):
                     K.flash_seg_fwd_plain(q, k, v, False, scale)):
         assert torch.equal(a, b)
     assert K.launch_counts() == before
+
+
+def _bthd(d, dtype=torch.bfloat16, offset=0, width=None):
+    """A [B, H, T, D] view of a [B, T, H, width] tensor (width defaults to
+    D: the models' layout) whose data starts ``offset`` elements in."""
+    b, t, h = 2, 8, 3
+    width = width or d
+    flat = torch.zeros(offset + b * t * h * width, dtype=dtype)
+    return flat[offset:].view(b, t, h, width)[..., :d].transpose(1, 2)
+
+
+# (what, dtype, head dim, layout) -> the wrappers that copy: every K6/K7
+# wrapper at a built head dim reads its views as they are; below one the
+# Hopper kernels read an even D in place where TMA takes the strides, the
+# mma.sync family (fp32; 16-bit dk/dv and dq above 256) copies, di copies
+# only what its pairs cannot read
+_HOPPER = ("flash_fwd", "flash_seg_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
+           "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
+_MMA_BWD = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_seg_bwd_dkdv",
+            "flash_seg_bwd_dq")
+COPY_CASES = [
+    ("built D64", torch.bfloat16, 64, {}, ()),
+    ("built D128 fp32", torch.float32, 128, {}, ()),
+    ("built D576", torch.bfloat16, 576, {}, ()),
+    ("ViT_Tiny D16", torch.bfloat16, 16, {}, ()),
+    ("D80", torch.bfloat16, 80, {}, ()),
+    ("D96 fp16", torch.float16, 96, {}, ()),
+    ("D160 fp16", torch.float16, 160, {}, ()),
+    ("D288: the mma.sync backward copies", torch.bfloat16, 288, {},
+     _MMA_BWD),
+    ("D336: the same", torch.float16, 336, {}, _MMA_BWD),
+    ("fp32 D16: the tf32 family copies", torch.float32, 16, {}, _HOPPER),
+    ("D20: H stride of 20", torch.bfloat16, 20, {}, _HOPPER),
+    ("D330: H stride of 330", torch.bfloat16, 330, {}, _HOPPER),
+    ("D20 of a 64-wide tensor", torch.bfloat16, 20, {"width": 64}, ()),
+    ("D16 one element past 16 bytes", torch.bfloat16, 16, {"offset": 1},
+     _HOPPER + ("flash_bwd_pre",)),
+    ("D16 four elements past", torch.float16, 16, {"offset": 4}, _HOPPER),
+    ("odd D17 of a 64-wide tensor", torch.bfloat16, 17, {"width": 64},
+     _HOPPER + ("flash_bwd_pre",)),
+]
+
+
+@pytest.mark.parametrize("what,dtype,d,view,copies", COPY_CASES,
+                         ids=[c[0] for c in COPY_CASES])
+def test_flash_copy_decision_follows_route_and_strides(what, dtype, d, view,
+                                                       copies):
+    """Which calls pay a zero-padded copy of their inputs
+    (flash_needs_copy): a function of the views' shape, strides, dtype and
+    address, decided without a card, by route and strides."""
+    x = _bthd(d, dtype, **view)
+    for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
+        assert K.flash_needs_copy(kernel, x, x, x) == (kernel in copies), \
+            kernel
+
+
+def test_flash_copy_decision_reads_every_view():
+    """One view TMA cannot take makes the call copy all of them."""
+    good, bad = _bthd(80), _bthd(80, offset=1)
+    assert not K.flash_needs_copy("flash_fwd", good, good, good)
+    assert K.flash_needs_copy("flash_fwd", good, good, bad)
+    assert K.flash_needs_copy("flash_bwd_pre", good, bad)
+
+
+def _expanded(d, dtype=torch.bfloat16):
+    """A [B, H, T, D] gradient expanded from a scalar: every stride 0."""
+    return torch.ones((), dtype=dtype).expand(2, 3, 8, d)
+
+
+# (what, the incoming gradient, the backward's dk/dv wrapper, whether it is
+# cloned): a clone only where the kernels will read the clone in place
+GRAD_CASES = [
+    ("D80 [B, T, H, D]", lambda: _bthd(80), "flash_bwd_dkdv", False),
+    ("D80 expanded", lambda: _expanded(80), "flash_bwd_dkdv", True),
+    ("D80 misaligned", lambda: _bthd(80, offset=1), "flash_seg_bwd_dkdv",
+     True),
+    ("built D64 expanded", lambda: _expanded(64), "flash_bwd_dkdv", True),
+    ("built fp32 D64 expanded", lambda: _expanded(64, torch.float32),
+     "flash_bwd_dkdv", True),
+    ("D20: no clone TMA takes", lambda: _expanded(20), "flash_bwd_dkdv",
+     False),
+    ("D288: the mma.sync dk/dv copies", lambda: _expanded(288),
+     "flash_seg_bwd_dkdv", False),
+    ("fp32 D16: the tf32 family copies", lambda: _expanded(16, torch.float32),
+     "flash_bwd_dkdv", False),
+]
+
+
+@pytest.mark.parametrize("what,make,kernel,cloned", GRAD_CASES,
+                         ids=[c[0] for c in GRAD_CASES])
+def test_flash_grad_in_clones_only_what_the_kernels_read(what, make, kernel,
+                                                         cloned):
+    """The autograd backwards' incoming gradient: kept where TMA takes it
+    or the wrappers copy it anyway, else one contiguous clone TMA takes."""
+    do = make()
+    got = K.flash_grad_in(do, kernel)
+    assert (got is not do) == cloned
+    if cloned:
+        assert K.flash_strides_ok(got)
+        assert not K.flash_needs_copy(kernel, got)
+        torch.testing.assert_close(got, do, rtol=0, atol=0)
 
 
 def test_pack_rejects_mixed_dtypes_and_empty():
