@@ -37,8 +37,11 @@ and then:
    2048 keys: the Hopper wide kernels; bf16 B1 H4 T1024 D320: the Hopper
    forward, O in two accumulators, and the mma.sync dk/dv and dq in
    slices of 128 columns; D384 and D512: the Hopper forward with O's
-   columns split over blocks; fp32 D256 and bf16 B1 H2 T512 D576: the
-   mma.sync family throughout); and times them beside
+   columns split over blocks; bf16 B1 H2 T512 D576, D640, D1024 and
+   D1280: the deep Hopper forward, S summed over the depth's slabs, Q
+   resident up to 1024 and streamed at 1280, and the mma.sync dk/dv and
+   dq; fp32
+   D256: the mma.sync family throughout); and times them beside
    ``scaled_dot_product_attention``'s forward and backward (a yardstick
    only, never on the path), the forward with its achieved TFLOP/s and its
    share of the bound;
@@ -54,8 +57,9 @@ and then:
    the contiguous n=1 ring's whole segment, a T = 2000, D 64 tail-tile
    shape, a D 256 FULL half-segment (B1 H8 T4096: the Hopper wide
    kernels), D 320, 384 and 512 ones (B1 H4 T2048: the Hopper forward, the
-   mma.sync dk/dv and dq) and a D 576 one (B1 H2 T1024: the mma.sync
-   family), and times them
+   mma.sync dk/dv and dq) and D 576, 640, 1024 and 1280 ones (B1 H2
+   T1024, and D 1024 at B1 H8 T4096, a grid that fills the card: the deep
+   Hopper forward, the mma.sync dk/dv and dq), and times them
    beside SDPA's forward and backward (a yardstick only: with the
    segment's own lse, SDPA's backward of the same segment, causal or
    full, computes the same dq, dk and dv), the forward with its
@@ -85,10 +89,11 @@ and then:
     the zig-zag ring (``force_ring=True``, bf16 D256, D320, D384 and
     D576), forward and backward, against the plain versions, checks which
     route each kernel took (the Hopper kernels up to D 256, the Hopper
-    forward and the mma.sync dk/dv and dq at D 320 and 384, the mma.sync
-    family at D 576), by its launch counter and by the names of the
-    kernels a profiler trace saw (at D 384 the forward must be
-    ``flash_fwd_sm90_kernel<384, ...>``), prints the kernels a trace sees
+    forward and the mma.sync dk/dv and dq above), by its launch counter
+    and by the names of the kernels a profiler trace saw (at D 384 the
+    forward must be ``flash_fwd_sm90_kernel<384, ...>``, at D 576
+    ``flash_fwd_sm90_kernel_deep<...>``, and no 16-bit forward may run the
+    mma.sync family), prints the kernels a trace sees
     per K6 wrapper call at fp16 D160 (one: no zero-pad copy; every path's
     ``*_pad_copies`` on a Hopper route must be 0), and times each path's
     forward + backward with the share of its attention kernels' device
@@ -109,7 +114,8 @@ step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
 68 for the hierarchical one, whose 2 shards a pair halve the work; one of
 each tf32 kernel per layer and step of ViT_Tiny; each wide instance,
-Hopper and mma.sync, at least once in phase 13). Any failed check exits
+Hopper and mma.sync, at least once in phase 13, and the mma.sync forward
+never on 16-bit inputs). Any failed check exits
 non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -166,21 +172,29 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
                 ("D320", 1, 4, 1024, 1024, 320, True, "bfloat16"),
                 ("D384", 1, 4, 1024, 1024, 384, True, "bfloat16"),
                 ("D512", 1, 4, 1024, 1024, 512, True, "bfloat16"),
-                ("D576", 1, 2, 512, 512, 576, True, "bfloat16"))
+                ("D576", 1, 2, 512, 512, 576, True, "bfloat16"),
+                ("D640", 1, 2, 512, 512, 640, True, "bfloat16"),
+                ("D1024", 1, 2, 512, 512, 1024, True, "bfloat16"),
+                ("D1280", 1, 2, 512, 512, 1280, True, "bfloat16"))
 # the shape whose numbers the tf32 family's rows carry: phase 12's path
 TF32_SHAPE = "ViT_Tiny fp32"
 # the rows of the instances above head dim 128, K6 and K7, and the phase-4
 # and phase-8 shapes whose numbers each carries: the Hopper kernels at
 # D 192 and 256 (<name>_sm90_wide) at D 256, the Hopper forward at D 320
 # (<name>_sm90_d320) at D 320, the Hopper forward with O's columns split
-# over blocks at 384 to 512 (<name>_sm90_split) at D 384, the mma.sync
-# dk/dv and dq above 256 (<name>_wide) at D 320, and the mma.sync forward
-# above 512 at D 576
+# over blocks at 384 to 512 (<name>_sm90_split) at D 384, the Hopper
+# forward above 512, S summed over the depth's slabs (<name>_sm90_deep),
+# at D 576 (its D1024 and D1280 shapes under "shapes"), and the mma.sync
+# dk/dv and dq above 256 (<name>_wide) at D 320
 WIDE_ROW_SHAPES = {"sm90_wide": ("D256", "D256 half, FULL"),
                    "sm90_d320": ("D320", "D320 half, FULL"),
                    "sm90_split": ("D384", "D384 half, FULL"),
-                   "wide": ("D320", "D320 half, FULL"),
-                   "wide_fwd": ("D576", "D576 half, FULL")}
+                   "sm90_deep": ("D576", "D576 half, FULL"),
+                   "wide": ("D320", "D320 half, FULL")}
+# the rows of each wide wrapper: the forwards' Hopper instances, dk/dv's
+# and dq's Hopper and mma.sync ones
+WIDE_ROWS = {"fwd": ("sm90_wide", "sm90_d320", "sm90_split", "sm90_deep"),
+             "bwd": ("sm90_wide", "wide")}
 # phase 13: attention above head dim 128 through the user entry points:
 # (what, path, B, T, H, D, dtype), q, k, v [B, T, H, D], causal
 WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
@@ -225,7 +239,12 @@ SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full"),
               ("D320 half, FULL", 1, 4, 2048, 320, "full"),
               ("D384 half, FULL", 1, 4, 2048, 384, "full"),
               ("D512 half, FULL", 1, 4, 2048, 512, "full"),
-              ("D576 half, FULL", 1, 2, 1024, 576, "full"))
+              ("D576 half, FULL", 1, 2, 1024, 576, "full"),
+              ("D640 half, FULL", 1, 2, 1024, 640, "full"),
+              ("D1024 half, FULL", 1, 2, 1024, 1024, "full"),
+              ("D1280 half, FULL", 1, 2, 1024, 1280, "full"),
+              # the deep forward on a grid that fills the card
+              ("D1024 half, FULL, H8 T4096", 1, 8, 4096, 1024, "full"))
 SEG_KERNELS = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the ring path on one card: bench.py:bench_sp_ring's shape, B, T, H, D
 RING_SHAPE = (1, 8192, 16, 128)
@@ -289,12 +308,14 @@ def attention_ptxas(build, log):
     the most of any instantiation, "spill_bytes": their sum}}. The Hopper
     kernels with In outputs are K6's rows, with fp32 outputs K7's, those at
     head dims 192 and 256 ``<row>_sm90_wide``, the forward's at 320
-    ``<row>_sm90_d320`` and at 384 to 512 ``<row>_sm90_split``; the
-    mma.sync family's rows are ``<name>_tf32``
-    (fp32 inputs, K6 and K7 alike) and ``<name>_wide`` (bf16 and fp16)."""
+    ``<row>_sm90_d320``, at 384 to 512 ``<row>_sm90_split`` and its deep
+    kernel (every head dim above 512) ``<row>_sm90_deep``; the mma.sync
+    family's rows are ``<name>_tf32`` (fp32 inputs, K6 and K7 alike) and
+    ``<name>_wide`` (bf16 and fp16 dk/dv and dq)."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
         "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
+        "flash_fwd_sm90_kernel_deep": ("flash_fwd", "flash_seg_fwd"),
         "flash_bwd_dkdv_sm90_kernel": ("flash_bwd_dkdv",
                                        "flash_seg_bwd_dkdv"),
         "flash_bwd_dq_sm90_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
@@ -306,10 +327,10 @@ def attention_ptxas(build, log):
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attn"):
         for mangled, r in sorted(build.ptxas_report(stem).items()):
             # the kernel's name follows its length (the file's does not);
-            # then the slice or head dim, then In and OutT
+            # then the slice, head dim or group width, then In and OutT
             m = re.search(
-                r"(?<=\d)(flash_\w+?_kernel)I(?:Li(\d+)E)?(\w*?)EEv",
-                mangled)
+                r"(?<=\d)(flash_\w+?_kernel(?:_deep)?)I(?:Li(\d+)E)?(\w*?)"
+                r"EEv", mangled)
             check(m is not None and m.group(1) in names and len(r) == 3,
                   f"unexpected ptxas entry {mangled}: {r}")
             kernel, d, types = m.groups()
@@ -320,6 +341,8 @@ def attention_ptxas(build, log):
             if kernel.endswith("mma_kernel"):
                 row = (f"{names[kernel][0]}_tf32" if types.startswith("f")
                        else f"{row}_wide")
+            elif kernel.endswith("_deep"):
+                row += "_sm90_deep"
             elif d and int(d) > 128:
                 row += ("_sm90_wide" if int(d) <= 256 else
                         "_sm90_d320" if int(d) == 320 else "_sm90_split")
@@ -327,7 +350,8 @@ def attention_ptxas(build, log):
             entry = rows.setdefault(row, {"registers": 0, "spill_bytes": 0})
             entry["registers"] = max(entry["registers"], r["registers"])
             entry["spill_bytes"] += spill
-            log(f"  {kernel} {'D' + d + ' ' if d else ''}{types}: "
+            width = ("kOut " if kernel.endswith("_deep") else "D") + (d or "")
+            log(f"  {kernel} {width + ' ' if d else ''}{types}: "
                 f"{r['registers']} registers, {spill} bytes spilled")
     return rows
 
@@ -1231,10 +1255,9 @@ def run_ring_path(torch, K, R, fa, dev, log):
 
 def wide_routes(K, dtype, d, ring):
     """The route each kernel of one wide path takes (flash_route: up to
-    head dim 256 the Hopper kernels, at 320 the Hopper forward and the
-    mma.sync dk/dv and dq, above it the mma.sync family), K7's on the
-    ring, K6's on flash_attention_local: {wrapper: "sm90_wide" or
-    "wide"}."""
+    head dim 256 the Hopper kernels, above it the Hopper forward and the
+    mma.sync dk/dv and dq), K7's on the ring, K6's on
+    flash_attention_local: {wrapper: "sm90_wide" or "wide"}."""
     names = WIDE_KERNELS[3:] if ring else WIDE_KERNELS[:3]
     return {name: K.flash_route(dtype, d, name) for name in names}
 
@@ -1384,12 +1407,13 @@ def run_wide_path(torch, K, R, fa, dev, log):
             for _ in range(WIDE_TRACED_CALLS):
                 fwd_bwd()
             torch.cuda.synchronize()
-        attn = {}
+        attn, seen = {}, {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", 0.0)
             if us > 0 and "flash_" in ev.key:
                 attn[ev.key] = (attn.get(ev.key, 0.0)
                                 + us / 1e3 / WIDE_TRACED_CALLS)
+                seen[ev.key] = seen.get(ev.key, 0) + ev.count
         attn_ms = sum(attn.values())
         dq_ms = sum(v for k_, v in attn.items() if "_dq_" in k_)
         check(attn_ms > 0, f"{what} D{d}: the profiler saw no attention "
@@ -1398,21 +1422,34 @@ def run_wide_path(torch, K, R, fa, dev, log):
               f"{what} D{d}: the traced kernels {sorted(attn)} disagree "
               f"with the counted routes {routes}")
         dp = K._flash_dim(d)
-        if 320 < dp <= K.SM90_MAX_DIM["flash_fwd"]:
-            fwd = [n for n in attn if f"flash_fwd_sm90_kernel<{dp}," in n]
+        if dp > 320:
+            # the split forward's instance, or above 512 the deep kernel
+            want = (f"flash_fwd_sm90_kernel<{dp}," if dp <= 512 else
+                    "flash_fwd_sm90_kernel_deep<")
+            fwd = [n for n in attn if want in n]
             log(f"  {what} D{d}: traced forward {fwd}")
-            check(len(fwd) >= 1, f"{what} D{d}: no flash_fwd_sm90_kernel<"
-                  f"{dp}, ...> in the trace {sorted(attn)}")
+            check(len(fwd) >= 1, f"{what} D{d}: no {want}...> in the trace "
+                  f"{sorted(attn)}")
         log(f"  {what} B{b} T{t} H{h} D{d} {dtype}: {ms:.4f} ms a forward + "
             f"backward (windows {', '.join(f'{x:.4f}' for x in windows)}); "
             f"attention kernels {attn_ms:.4f} ms of device time, dq "
             f"{dq_ms:.4f} ms ({100 * dq_ms / attn_ms:.1f}%)")
+        # each attention kernel's launches the trace saw (it may miss the
+        # first) and its device ms a launch, by its template name
+        by_kernel = {re.sub(r"^.*?(flash_\w+<[^>]*>).*$", r"\1", k_):
+                     (seen[k_], v * WIDE_TRACED_CALLS / seen[k_])
+                     for k_, v in attn.items()}
+        log(f"  {what} B{b} T{t} H{h} D{d} {dtype}: traced launches and "
+            "device ms a launch by kernel: " + ", ".join(
+                f"{k_} {n_} x {v:.4f}"
+                for k_, (n_, v) in sorted(by_kernel.items())))
         summary.append(dict(what=what, shape=[b, t, h, d], dtype=dtype,
                             routes=routes, traced_kernels=sorted(attn),
                             pad_copies=copies,
                             device_ops_per_wrapper_call=per_call,
                             max_abs_err=errors, launches=counts, ms=ms,
                             windows=windows, attention_kernels_ms=attn_ms,
+                            traced_launches_and_ms=by_kernel,
                             dq_ms=dq_ms, dq_share=dq_ms / attn_ms,
                             path_launches={
                                 k: n - path_start[k] - diag.get(k, 0)
@@ -2142,16 +2179,18 @@ def main(argv=None) -> int:
         log(f"  launches on the wide path: {wide_counts}")
         for name in WIDE_KERNELS:
             for route in ("wide", "sm90_wide"):
-                check(wide_counts[f"{name}_{route}"] >= 1,
-                      f"{name}_{route} launched no time on the wide path")
+                # no 16-bit forward runs the mma.sync family
+                want = route == "sm90_wide" or not name.endswith("_fwd")
+                check((wide_counts[f"{name}_{route}"] >= 1) == want,
+                      f"{name}_{route} launched {wide_counts[f'{name}_{route}']}"
+                      " times on the wide path")
     finally:
         hvd.shutdown()
 
     def wide_shape(name, row):
         """The phase-4 (K6) or phase-8 (K7) shape whose numbers the row
         ``<name>_<row>`` of an instance above head dim 128 carries."""
-        key = "wide_fwd" if row == "wide" and name.endswith("_fwd") else row
-        return WIDE_ROW_SHAPES[key][int(name.startswith("flash_seg"))]
+        return WIDE_ROW_SHAPES[row][int(name.startswith("flash_seg"))]
 
     def wide_entry(name, row):
         shape = wide_shape(name, row)
@@ -2168,7 +2207,8 @@ def main(argv=None) -> int:
             dp = K._flash_dim(path["shape"][3])
             return {"wide": True, "sm90_wide": dp <= 256,
                     "sm90_d320": dp == 320,
-                    "sm90_split": 320 < dp <= 512}[row]
+                    "sm90_split": 320 < dp <= 512,
+                    "sm90_deep": dp > 512}[row]
         n = sum(p["path_launches"].get(f"{name}_{route}", 0) for p in wide
                 if takes(p))
         check(n >= 1, f"{name}_{row} launched no time on the wide path")
@@ -2187,6 +2227,11 @@ def main(argv=None) -> int:
 
     def wide_row(name, row, line, source):
         entry = wide_entry(name, row)
+        rows = seg_rows if name.startswith("flash_seg") else flash_rows
+        # the deep forward's other head dims
+        deep = ({"shapes": [e for e in rows[name]["shapes"]
+                            if e["shape"][-1] > 512]}
+                if row == "sm90_deep" else {})
         return dict(
             name=f"{name}_{row}", route="cuda", source=f"{src}/{source}",
             replaces=(f"horovod_tpu/parallel/ring_attention.py:{line}"
@@ -2197,7 +2242,7 @@ def main(argv=None) -> int:
             **{key: entry[key] for key in
                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")},
-            **ptxas[f"{name}_{row}"])
+            **deep, **ptxas[f"{name}_{row}"])
 
     src = "horovod_tpu_torch/csrc"
     kernels = [
@@ -2261,16 +2306,14 @@ def main(argv=None) -> int:
                 if name != "flash_seg_fwd" else {}))
         for name, line in zip(SEG_KERNELS, (169, 188, 194))] + [
         # above head dim 128, K6's and K7's functions: the Hopper kernels
-        # at D 192 and 256, the Hopper forward at 320 and, O's columns
-        # split over blocks, at 384 to 512, and the mma.sync family on
-        # bf16 and fp16 (dk/dv and dq above 256, the forward above 512)
-        wide_row(name, row, line, source)
+        # at D 192 and 256, the Hopper forward at 320, O's columns split
+        # over blocks at 384 to 512 and S summed over the depth's slabs
+        # above 512, and the mma.sync dk/dv and dq on bf16 and fp16 above
+        # 256
+        wide_row(name, row, line,
+                 "flash_attn.cu" if row == "wide" else flash_source(name))
         for name, line in zip(WIDE_KERNELS, (0, 0, 0, 169, 188, 194))
-        for row, source in (("sm90_wide", flash_source(name)),
-                            ("sm90_d320", flash_source(name)),
-                            ("sm90_split", flash_source(name)),
-                            ("wide", "flash_attn.cu"))
-        if row in ("sm90_wide", "wide") or name.endswith("_fwd")] + [
+        for row in WIDE_ROWS["fwd" if name.endswith("_fwd") else "bwd"]] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",
              replaces=f"horovod_tpu/ops/pallas_kernels.py:{line}",

@@ -4,14 +4,15 @@
 // flash_attn.cu.
 //
 // Inputs are bf16 or fp16 at D = 64, 128, 192 or 256, and for the forward
-// also 320, 384 and 512 (the Hopper kernels: TMA and wgmma), or else fp32
-// at any D and bf16 or fp16 above (the tf32 mma.sync kernels of
-// flash_attn.cu, whose run() routes a launch); D is 64, 128 or a multiple
-// of 64 above, the head dim of the kernel instance, which run() derives
-// from the views' own head dim Dr. Dr may be less (at least 2 and even;
-// the forward runs 448 on 512): the Hopper kernels read them
-// through tensor maps whose inner dimension is Dr, which TMA fills with
-// zeros up to D, and store only columns below Dr; the mma.sync family
+// at any D (320, 384 and 512 have instances of their own, and above 512
+// one kernel takes every D): the Hopper kernels, TMA and wgmma; or else
+// fp32 at any D and bf16 or fp16 dk/dv and dq above 256 (the tf32
+// mma.sync kernels of flash_attn.cu, whose run() routes a launch). D is 64,
+// 128 or a multiple of 64 above, the head dim of the kernel instance,
+// which run() derives from the views' own head dim Dr. Dr may be less (at
+// least 2 and even; the forward runs 448 on 512): the Hopper kernels read
+// them through tensor maps whose inner dimension is Dr, which TMA fills
+// with zeros up to D, and store only columns below Dr; the mma.sync family
 // takes Dr = D (the wrapper pads its inputs with zeros). q has Tq rows and
 // k, v Tk rows. Causal means the library kernel's rule: key <= query by
 // absolute index.

@@ -1,7 +1,7 @@
 // Flash attention: the C entry points of K6 and K7, di = rowsum(dO o O)
 // (K6b) for every input type and head dim, and the mma.sync family of the
 // forward and the backward: fp32 inputs at every head dim, and bf16 and
-// fp16 inputs where the Hopper kernels do not run.
+// fp16 dk/dv and dq above head dim 256.
 //
 // Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py:
 // flash_attention_local takes from jax's library (the flash / splash
@@ -12,17 +12,17 @@
 //
 // The route (run() below; ops/kernels.py:flash_route says the same):
 // - bf16 and fp16: the Hopper kernels of flash_fwd_sm90.cu and
-//   flash_bwd_sm90.cu (TMA and wgmma) up to a largest head dim per
-//   function: the forward to 512, dk/dv and dq to 256. They read a head
-//   dim below their instance's in place (Args::Dr);
-// - bf16 and fp16 above those, and fp32 at every head dim: the mma.sync
-//   family below, which takes Dr = D. wgmma's N is at most 256: the
-//   forward's O at 320 is two accumulators of 192 and 128 columns over the
-//   same P, above 320 its columns are split over blocks, but dK and dV
-//   (held together in a dk/dv block) and dQ beside S and dP fit no
-//   register budget above 256 yet; wgmma takes tf32 operands K-major
-//   only, and four of the attention products (P V, P^T dO, dS^T Q, dS K)
-//   would need an MN-major one.
+//   flash_bwd_sm90.cu (TMA and wgmma): the forward at every head dim,
+//   dk/dv and dq up to 256 (kBwdMaxD). They read a head dim below their
+//   instance's in place (Args::Dr);
+// - bf16 and fp16 dk/dv and dq above 256, and fp32 at every head dim: the
+//   mma.sync family below, which takes Dr = D. wgmma's N is at most 256:
+//   the forward's O at 320 is two accumulators of 192 and 128 columns over
+//   the same P, above 320 its columns are split over blocks (and above 512
+//   S is summed over the depth's slabs), but dK and dV (held together in a
+//   dk/dv block) and dQ beside S and dP fit no register budget above 256
+//   yet; wgmma takes tf32 operands K-major only, and four of the attention
+//   products (P V, P^T dO, dS^T Q, dS K) would need an MN-major one.
 // There is no fallback: a launch runs its route's kernel or returns the
 // error.
 //
@@ -64,6 +64,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -702,18 +703,26 @@ struct Mma {
   }
 };
 
-// One kernel of the family for a's inputs: fp32 at D 64 or 128 in one
-// slice of D, everything else (D above 128) in slices of 128; outputs of
-// the input type, or fp32 (out_f32). The family reads D columns of every
+// One kernel of the family for fp32 inputs: at D 64 or 128 in one slice
+// of D, above 128 in slices of 128. The family reads D columns of every
 // view: it takes no narrower one.
+template <template <int, typename, typename, bool> class F>
+cudaError_t mma_f32(const Args& a, cudaStream_t s) {
+  if (a.Dr != a.D || a.dtype != flash::kF32) return cudaErrorInvalidValue;
+  return a.D == 64    ? F<64, float, float, true>::run(a, s)
+         : a.D == 128 ? F<128, float, float, true>::run(a, s)
+                      : F<128, float, float, false>::run(a, s);
+}
+
+// One kernel of the family for a's inputs: fp32 as mma_f32, bf16 and fp16
+// (dk/dv and dq above head dim 256) in slices of 128; outputs of the input
+// type, or fp32 (out_f32).
 template <template <int, typename, typename, bool> class F>
 cudaError_t mma_pick(const Args& a, cudaStream_t s) {
   if (a.Dr != a.D) return cudaErrorInvalidValue;
   switch (a.dtype) {
     case flash::kF32:
-      return a.D == 64    ? F<64, float, float, true>::run(a, s)
-             : a.D == 128 ? F<128, float, float, true>::run(a, s)
-                          : F<128, float, float, false>::run(a, s);
+      return mma_f32<F>(a, s);
     case flash::kF16:
       return a.out_f32 ? F<128, __half, float, false>::run(a, s)
                        : F<128, __half, __half, false>::run(a, s);
@@ -743,8 +752,9 @@ struct DqMma {
   }
 };
 
+// fp32 only: the Hopper forward takes bf16 and fp16 at every head dim
 cudaError_t fwd_mma(const Args& a, cudaStream_t s) {
-  return mma_pick<FwdMma>(a, s);
+  return mma_f32<FwdMma>(a, s);
 }
 cudaError_t dkdv_mma(const Args& a, cudaStream_t s) {
   return mma_pick<DkdvMma>(a, s);
@@ -781,18 +791,18 @@ cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
 
 typedef cudaError_t (*Fn)(const Args&, cudaStream_t);
 
-// The largest head dim of the Hopper kernels: the forward's, and dk/dv's
-// and dq's (ops/kernels.py:SM90_MAX_DIM holds the same).
-constexpr int kFwdMaxD = 512;
+// The largest head dim of the Hopper dk/dv and dq
+// (ops/kernels.py:SM90_BWD_MAX_DIM holds the same); the forward has none.
 constexpr int kBwdMaxD = 256;
 
 // Checks the arguments every kernel relies on (the views' head dim Dr
 // even and at least 2), sets the instance's head dim D (64, 128, or Dr
 // rounded up to a multiple of 64: ops/kernels.py:_flash_dim), selects the
 // device, and runs `sm90` (the Hopper kernels: bf16 and fp16 at D up to
-// `sm90_max_d`, the function's largest Hopper head dim) or `mma` (fp32 at
-// every D, and bf16 and fp16 above it).
-int run(int device, Args a, void* stream, Fn sm90, Fn mma, int sm90_max_d) {
+// `sm90_max_d`, the function's largest Hopper head dim, every D if it has
+// none) or `mma` (fp32 at every D, and bf16 and fp16 above it).
+int run(int device, Args a, void* stream, Fn sm90, Fn mma,
+        int sm90_max_d = INT_MAX) {
   if (a.Dr < 2 || a.Dr % 2 != 0) return (int)cudaErrorInvalidValue;
   a.D = a.Dr <= 64 ? 64 : a.Dr <= 128 ? 128 : (a.Dr + 63) / 64 * 64;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
@@ -868,7 +878,7 @@ int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
                   causal, scale);
   a.o = view(o, strides, 3);
   a.lse = dense_stat(lse, H, Tq);
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma, kFwdMaxD);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
 }
 
 // di = rowsum(dout * o). strides: o, dout.
@@ -933,7 +943,7 @@ int hvd_flash_seg_fwd(int device, int dtype, const void* q, const void* k,
   a.o = view(o, strides, 3);
   a.lse = stat(lse, strides, 4, 0);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma, kFwdMaxD);
+  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
 }
 
 // (dk, dv) of one segment under the given lse and di.

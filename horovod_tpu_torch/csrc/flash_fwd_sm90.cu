@@ -80,7 +80,32 @@
 //   and 48 at 512 (214,272). Head dims 385 to 512 run on the 512 instance,
 //   the columns past theirs read as zeros (a box may lie wholly past
 //   them). Every group computes the same m and l: only the first writes
-//   lse. Above 512 the mma.sync family runs.
+//   lse.
+// - Head dims above 512 (Deep<kOut>, flash_fwd_sm90_kernel_deep): one
+//   instance for every such D, S streamed over the depth. A Q tile and two
+//   whole-depth K slots no longer fit beside V at D 576 (Q, two K and two V
+//   slots: about 221 KB of 227), so S = sum_c Q_c K_c^T is summed over the
+//   64-column slabs c of the depth, ceil(D / 64) of them, a run-time loop:
+//   four m64n64k16 products a slab into the same accumulator, one commit
+//   group a slab. K comes through a TMA ring of 4 slab slots (64 kv rows x
+//   64 columns, 8 KB each), a slot released to the producer once the group
+//   that read it has retired (one group stays in flight behind the next
+//   slab's); so K's shared memory does not depend on D. Q stays resident
+//   (TMA-loaded once, 64 rows x D) while it fits beside the ring and the
+//   two V slots: up to 18 slabs (D 1152) at kOut 192, 16 (D 1024) at 256.
+//   Above that Q streams through the same ring, a slot holding K_c and Q_c
+//   together (re-read from L2 for every kv tile). O's columns are split
+//   over blocks as at 384 and 512, in groups of kOut = 192 or 256 (the
+//   fewest groups, then the narrower width: D 576 is 3 x 192, 640 to 1024
+//   are 256s), so the register picture is that of the D 192 or D 256
+//   forward in a block of 256 threads (255 registers at launch): O (96 or
+//   128), S (32), P (16). The last group may be partial: V's columns past
+//   D read as zeros (a box may lie wholly past them), and only the views'
+//   columns are stored. The kv tile's products overlap its softmax as
+//   elsewhere: S_i's slabs, then P_{i-1} V_{i-1}, whose product runs
+//   while the softmax of S_i does. No 16-bit forward runs the mma.sync
+//   family any more: only fp32 does (wgmma takes tf32 operands K-major
+//   only, and P V needs an MN-major V).
 // The arithmetic does not depend on the views' strides and nothing is
 // accumulated across blocks: strided views and contiguous copies give the
 // same bits, and runs repeat bitwise.
@@ -144,6 +169,35 @@ struct Tiles {
   static_assert(kSmem <= 232448, "more shared memory than a block has");
 };
 
+// Above head dim 512: O's columns in groups of kOut (192 or 256), S summed
+// over the depth's slabs through a ring (see the header). Any D: the
+// number of slabs, and whether Q streams, are run-time values.
+template <int kOut_>
+struct Deep {
+  static constexpr int kOut = kOut_;
+  static constexpr int kThreads = 256;   // a producer and one consumer
+  static constexpr int kBQ = 64, kBK = 64;
+  static constexpr int kSlots = 4;       // ring slots of slabs
+  static constexpr int kSlabElems = 64 * kSlab;   // 64 rows of one slab
+  static constexpr int kVStages = 2;
+  static constexpr int kVElems = kBK * kOut;      // a V tile
+  // the V ring, the barriers, and room to align the base to 1024 bytes
+  static constexpr int kFixed = kVStages * kVElems * 2 + 256 + 1024;
+  // the most slabs of a resident Q beside the ring of K slabs
+  static constexpr int kMaxResident =
+      (232448 - kFixed - kSlots * kSlabElems * 2) / (kSlabElems * 2);
+  // a ring slot: K_c, and Q_c beside it where Q streams
+  __host__ __device__ static int slot_elems(bool stream_q) {
+    return (stream_q ? 2 : 1) * kSlabElems;
+  }
+  static int smem(int n_slab) {
+    const bool stream_q = n_slab > kMaxResident;
+    return kFixed +
+           (kSlots * slot_elems(stream_q) + (stream_q ? 0 : n_slab * kSlabElems)) *
+               2;
+  }
+};
+
 // Two neighbouring output elements: a pair of In, or two floats.
 template <typename T>
 __device__ __forceinline__ void store2(T* dst, float lo, float hi) {
@@ -165,20 +219,20 @@ struct Barriers {
 };
 
 // The i-th K or V tile (kv rows i * kBK .., kCols columns from col0) into
-// its ring slot, once the consumers have emptied the slot's previous tile.
-template <int D, int kCols, typename In>
+// its slot of a ring of kStages, once the consumers have emptied the slot's
+// previous tile.
+template <int kBK, int kStages, int kCols, typename In>
 __device__ __forceinline__ void load_kv(const CUtensorMap* map, In* ring,
                                         uint64_t* full, uint64_t* empty,
                                         int i, int col0, int b, int h) {
-  using C = Tiles<D>;
-  const int st = i % C::kStages;
-  sm90::mbar_wait(empty + st, ((i / C::kStages) & 1) ^ 1);
-  sm90::mbar_arrive_expect_tx(full + st, C::kBK * kCols * 2);
-  In* dst = ring + st * C::kBK * kCols;
+  const int st = i % kStages;
+  sm90::mbar_wait(empty + st, ((i / kStages) & 1) ^ 1);
+  sm90::mbar_arrive_expect_tx(full + st, kBK * kCols * 2);
+  In* dst = ring + st * kBK * kCols;
 #pragma unroll
   for (int s = 0; s < kCols / kSlab; ++s)
-    sm90::tma_load_4d(dst + s * C::kBK * kSlab, map, full + st,
-                      col0 + s * kSlab, i * C::kBK, h, b);
+    sm90::tma_load_4d(dst + s * kBK * kSlab, map, full + st,
+                      col0 + s * kSlab, i * kBK, h, b);
 }
 
 // Warpgroup 0, one thread: Q once, then the kv tiles, K one tile ahead of
@@ -201,12 +255,15 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
     sm90::tma_load_4d(qs + s * C::kBQ * kSlab, tq, bar.q_full, s * kSlab, q0,
                       h, b);
   constexpr int kOut = C::kOut;
+  constexpr int kBK = C::kBK, kStages = C::kStages;
   for (int i = 0; i < n_kv; ++i) {
-    load_kv<D, D>(tk, ks, bar.k_full, bar.k_empty, i, 0, b, h);
+    load_kv<kBK, kStages, D>(tk, ks, bar.k_full, bar.k_empty, i, 0, b, h);
     if (i > 0)
-      load_kv<D, kOut>(tv, vs, bar.v_full, bar.v_empty, i - 1, col0, b, h);
+      load_kv<kBK, kStages, kOut>(tv, vs, bar.v_full, bar.v_empty, i - 1,
+                                  col0, b, h);
   }
-  load_kv<D, kOut>(tv, vs, bar.v_full, bar.v_empty, n_kv - 1, col0, b, h);
+  load_kv<kBK, kStages, kOut>(tv, vs, bar.v_full, bar.v_empty, n_kv - 1,
+                              col0, b, h);
 }
 
 // Scale a score tile into log2 units, masking what the row may not see
@@ -281,15 +338,14 @@ __device__ __forceinline__ void issue_qk(float (&s)[Tiles<D>::kBK / 2],
 }
 
 // O += P V over one V tile (kBK/16 steps of 16 kv rows, 2 KB of a slab),
-// issued and committed, O and V the block's kOut columns. wgmma's N is at
+// issued and committed, O and V the block's kN columns. wgmma's N is at
 // most 256: above it (D 320), O is two accumulators in one array, its
 // first kN0 columns and the rest, each product over the same P operand and
 // its own slabs of V.
-template <int D, typename In>
-__device__ __forceinline__ void issue_pv(
-    float (&o)[Tiles<D>::kOut / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4],
-    const In* vt) {
-  constexpr int kBK = Tiles<D>::kBK, kN = Tiles<D>::kOut;
+template <int kN, int kBK, typename In>
+__device__ __forceinline__ void issue_pv(float (&o)[kN / 2],
+                                         uint32_t (&pa)[kBK / 16][4],
+                                         const In* vt) {
   constexpr int kN0 = kN > 256 ? 192 : kN;
   auto& o0 = *reinterpret_cast<float(*)[kN0 / 2]>(o);
 #pragma unroll
@@ -309,88 +365,21 @@ __device__ __forceinline__ void issue_pv(
   sm90::wgmma_commit();
 }
 
-template <int D>
-__device__ __forceinline__ void fence_pv(
-    float (&o)[Tiles<D>::kOut / 2], uint32_t (&pa)[Tiles<D>::kBK / 16][4]) {
+template <int kN, int kK>
+__device__ __forceinline__ void fence_pv(float (&o)[kN], uint32_t (&pa)[kK][4]) {
   sm90::fence_regs(o);
   sm90::fence_regs(pa);
 }
 
-// The consumer warpgroups: 64 q rows each, every kv tile of the block. The
-// products of one tile overlap the softmax of the next: S_i = Q K_i^T and
-// O += P_{i-1} V_{i-1} are issued together, the softmax of S_i runs while
-// the second is in flight, and O is rescaled and P_i formed after it. Each
-// tile's arithmetic, and its order, are those of the plain online softmax.
-// The first tile is peeled off, so no product is issued under a branch.
-// O is the block's kOut columns from col0.
-template <int D, typename In, typename OutT>
-__device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
-                                        const In* ks, const In* vs,
-                                        const Barriers& bar, int wg, int b,
-                                        int h, int q0, int n_kv,
-                                        int col0) {
-  using C = Tiles<D>;
-  constexpr int kBK = C::kBK, kOut = C::kOut;
-  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int qw0 = q0 + 64 * wg;            // the warpgroup's first q row
-  const int r_lo = qw0 + 16 * warp + g;    // this thread's rows: r_lo, +8
-  const float sl2 = p.scale * kLog2e;
-  // this warpgroup's 64 rows of each Q slab
-  const In* qw = qs + wg * 64 * kSlab;
-  // a tile needs the mask if it crosses Tk or, causal, the diagonal
-  auto mask = [&](int kv0) {
-    return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
-  };
-
-  float o[kOut / 2];
-#pragma unroll
-  for (int i = 0; i < kOut / 2; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2];
-  float s[kBK / 2];
-  uint32_t pa[kBK / 16][4];   // P of the tile whose PV is next
-
-  sm90::mbar_wait(bar.q_full, 0);
-  sm90::mbar_wait(bar.k_full, 0);
-  sm90::wgmma_fence();
-  issue_qk<D>(s, qw, ks);
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(s);
-  sm90::mbar_arrive(bar.k_empty);
-  online_softmax(s, m, alpha, l, mask(0), sl2, 0, r_lo, t, p.Tk, p.causal);
-  sm90::to_operand<In>(s, pa);
-
-  for (int it = 1; it < n_kv; ++it) {
-    const int st = it % C::kStages, prev = (it - 1) % C::kStages;
-    const int kv0 = it * kBK;
-    sm90::mbar_wait(bar.k_full + st, (it / C::kStages) & 1);
-    sm90::wgmma_fence();
-    issue_qk<D>(s, qw, ks + st * C::kKElems);
-    sm90::mbar_wait(bar.v_full + prev, ((it - 1) / C::kStages) & 1);
-    issue_pv<D>(o, pa, vs + prev * C::kVElems);
-    sm90::wgmma_wait<1>();      // S_i is done; P_{i-1} V_{i-1} may not be
-    sm90::fence_regs(s);
-    sm90::mbar_arrive(bar.k_empty + st);
-    float rs[2];
-    online_softmax(s, m, alpha, rs, mask(kv0), sl2, kv0, r_lo, t, p.Tk,
-                   p.causal);
-    sm90::wgmma_wait<0>();
-    fence_pv<D>(o, pa);
-    sm90::mbar_arrive(bar.v_empty + prev);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int i = 0; i < kOut / 2; ++i) o[i] *= alpha[(i / 2) & 1];
-    sm90::to_operand<In>(s, pa);
-  }
-  const int last = (n_kv - 1) % C::kStages;
-  sm90::mbar_wait(bar.v_full + last, ((n_kv - 1) / C::kStages) & 1);
-  sm90::wgmma_fence();
-  issue_pv<D>(o, pa, vs + last * C::kVElems);
-  sm90::wgmma_wait<0>();
-  fence_pv<D>(o, pa);
-  sm90::mbar_arrive(bar.v_empty + last);
-
+// The epilogue of a consumer: o = O / l, the block's kOut columns from
+// col0 (those below the views' d), and, from the first group, lse; rows
+// below Tq. l is this thread's partial row sums.
+template <int kOut, typename OutT>
+__device__ __forceinline__ void store_out(const FwdParams& p,
+                                          const float (&o)[kOut / 2],
+                                          const float (&m)[2], float (&l)[2],
+                                          int b, int h, int r_lo, int t,
+                                          int col0) {
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -423,6 +412,88 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* qs,
   }
 }
 
+// A consumer warpgroup: 64 q rows from qw0, every kv tile of the block. The
+// products of one tile overlap the softmax of the next: S_i = Q K_i^T and
+// O += P_{i-1} V_{i-1} are issued together, the softmax of S_i runs while
+// the second is in flight, and O is rescaled and P_i formed after it. Each
+// tile's arithmetic, and its order, are those of the plain online softmax.
+// The first tile is peeled off, so no product is issued under a branch.
+// O is the block's kOut columns from col0, V a ring of kVStages slots.
+// After q_full, issue_s(s, i) waits for tile i's K (and a streamed Q),
+// fences and issues the products of S_i = Q K_i^T into s, committed;
+// release_s(i) gives back the shared memory they read, once they have
+// retired. (q_full is waited for here, not before the call: there, ptxas
+// scheduled the D 512 instance otherwise, and it ran 2% slower.)
+template <int kOut, int kBK, int kVStages, typename In, typename OutT,
+          typename IssueS, typename ReleaseS>
+__device__ __forceinline__ void consume(const FwdParams& p, const In* vs,
+                                        const Barriers& bar, int b, int h,
+                                        int qw0, int n_kv, int col0,
+                                        IssueS issue_s, ReleaseS release_s) {
+  constexpr int kVElems = kBK * kOut;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_lo = qw0 + 16 * warp + g;    // this thread's rows: r_lo, +8
+  const float sl2 = p.scale * kLog2e;
+  // a tile needs the mask if it crosses Tk or, causal, the diagonal
+  auto mask = [&](int kv0) {
+    return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > qw0);
+  };
+
+  float o[kOut / 2];
+#pragma unroll
+  for (int i = 0; i < kOut / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2];
+  float s[kBK / 2];
+  uint32_t pa[kBK / 16][4];   // P of the tile whose PV is next
+
+  sm90::mbar_wait(bar.q_full, 0);
+  issue_s(s, 0);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  release_s(0);
+  online_softmax(s, m, alpha, l, mask(0), sl2, 0, r_lo, t, p.Tk, p.causal);
+  sm90::to_operand<In>(s, pa);
+
+  for (int it = 1; it < n_kv; ++it) {
+    const int prev = (it - 1) % kVStages;
+    const int kv0 = it * kBK;
+    issue_s(s, it);
+    sm90::mbar_wait(bar.v_full + prev, ((it - 1) / kVStages) & 1);
+    issue_pv<kOut, kBK>(o, pa, vs + prev * kVElems);
+    sm90::wgmma_wait<1>();      // S_i is done; P_{i-1} V_{i-1} may not be
+    sm90::fence_regs(s);
+    release_s(it);
+    float rs[2];
+    online_softmax(s, m, alpha, rs, mask(kv0), sl2, kv0, r_lo, t, p.Tk,
+                   p.causal);
+    sm90::wgmma_wait<0>();
+    fence_pv(o, pa);
+    sm90::mbar_arrive(bar.v_empty + prev);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int i = 0; i < kOut / 2; ++i) o[i] *= alpha[(i / 2) & 1];
+    sm90::to_operand<In>(s, pa);
+  }
+  const int last = (n_kv - 1) % kVStages;
+  sm90::mbar_wait(bar.v_full + last, ((n_kv - 1) / kVStages) & 1);
+  sm90::wgmma_fence();
+  issue_pv<kOut, kBK>(o, pa, vs + last * kVElems);
+  sm90::wgmma_wait<0>();
+  fence_pv(o, pa);
+  sm90::mbar_arrive(bar.v_empty + last);
+
+  store_out<kOut, OutT>(p, o, m, l, b, h, r_lo, t, col0);
+}
+
+// The shared memory of a kernel, its base aligned to the 1024-byte atoms
+// the swizzle is anchored to.
+__device__ __forceinline__ uint8_t* smem_base() {
+  extern __shared__ uint8_t smem_raw[];
+  return smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+}
+
 template <int D, typename In, typename OutT>
 __global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -430,11 +501,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tv,
                       const FwdParams p) {
   using C = Tiles<D>;
-  extern __shared__ uint8_t smem_raw[];
-  // the swizzle is anchored to 1024-byte atoms: align the tiles to them
-  uint8_t* base =
-      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
-  In* qs = reinterpret_cast<In*>(base);
+  In* qs = reinterpret_cast<In*>(smem_base());
   In* ks = qs + C::kQElems;
   In* vs = ks + C::kStages * C::kKElems;
   uint64_t* bars = reinterpret_cast<uint64_t*>(vs + C::kStages * C::kVElems);
@@ -468,38 +535,212 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       produce<D>(&tq, &tk, &tv, qs, ks, vs, bar, b, h, q0, n_kv, col0);
   } else {
     if constexpr (C::kConsumers == 2) sm90::reg_alloc<240>();
-    consume<D, In, OutT>(p, qs, ks, vs, bar, threadIdx.x / 128 - 1, b, h, q0,
-                         n_kv, col0);
+    const int wg = threadIdx.x / 128 - 1;
+    // this warpgroup's 64 rows of each Q slab
+    const In* qw = qs + wg * 64 * kSlab;
+    auto issue_s = [&](float(&s)[C::kBK / 2], int it) {
+      const int st = it % C::kStages;
+      sm90::mbar_wait(bar.k_full + st, (it / C::kStages) & 1);
+      sm90::wgmma_fence();
+      issue_qk<D>(s, qw, ks + st * C::kKElems);
+    };
+    auto release_s = [&](int it) {
+      sm90::mbar_arrive(bar.k_empty + it % C::kStages);
+    };
+    consume<C::kOut, C::kBK, C::kStages, In, OutT>(
+        p, vs, bar, b, h, q0 + 64 * wg, n_kv, col0, issue_s, release_s);
   }
+}
+
+// Above head dim 512. The producer thread: Q once where it stays resident,
+// then for each kv tile its ceil(D / 64) slabs of K (with Q's beside them
+// where Q streams) into the ring, then the tile's V (the block's kOut
+// columns from col0), in the order the consumer takes them.
+template <int kOut, typename In>
+__device__ __forceinline__ void produce_deep(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    In* qs, In* ring, In* vs, const Barriers& bar, int b, int h, int q0,
+    int n_kv, int col0, int n_slab, bool stream_q) {
+  using C = Deep<kOut>;
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  // a streamed Q completes q_full with no bytes
+  sm90::mbar_arrive_expect_tx(bar.q_full,
+                              stream_q ? 0 : n_slab * C::kSlabElems * 2);
+  if (!stream_q) {
+    for (int c = 0; c < n_slab; ++c)
+      sm90::tma_load_4d(qs + c * C::kSlabElems, tq, bar.q_full, c * kSlab,
+                        q0, h, b);
+  }
+  const int slot = C::slot_elems(stream_q);
+  int j = 0;   // slabs put into the ring
+  for (int i = 0; i < n_kv; ++i) {
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % C::kSlots;
+      sm90::mbar_wait(bar.k_empty + st, ((j / C::kSlots) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar.k_full + st, slot * 2);
+      In* dst = ring + st * slot;
+      sm90::tma_load_4d(dst, tk, bar.k_full + st, c * kSlab, i * C::kBK, h,
+                        b);
+      if (stream_q)
+        sm90::tma_load_4d(dst + C::kSlabElems, tq, bar.k_full + st,
+                          c * kSlab, q0, h, b);
+    }
+    load_kv<C::kBK, C::kVStages, kOut>(tv, vs, bar.v_full, bar.v_empty, i,
+                                       col0, b, h);
+  }
+}
+
+// S = Q K^T of one kv tile over the depth, a commit group of four products
+// a slab, into the same accumulator. Each slab's ring slot is released
+// once the group that read it has retired, while the next slab's is in
+// flight; the last slab's group may still be in flight on return, its slot
+// not released. j counts the slabs taken from the ring.
+template <int kOut, typename In>
+__device__ __forceinline__ void issue_s_deep(float (&s)[Deep<kOut>::kBK / 2],
+                                             const In* qs, const In* ring,
+                                             const Barriers& bar, int n_slab,
+                                             bool stream_q, int& j) {
+  using C = Deep<kOut>;
+  const int slot = C::slot_elems(stream_q);
+  // slab c's four products, issued and committed; the first slab's start
+  // the sum
+  auto slab = [&](int c, bool first) {
+    const int st = j % C::kSlots;
+    sm90::mbar_wait(bar.k_full + st, (j / C::kSlots) & 1);
+    const In* kt = ring + st * slot;
+    const In* qt = stream_q ? kt + C::kSlabElems : qs + c * C::kSlabElems;
+#pragma unroll
+    for (int kk = 0; kk < kSlab / 16; ++kk)
+      sm90::Wgmma<C::kBK, In>::template ss<0, 0>(
+          s, sm90::desc_k_major(qt + kk * 16),
+          sm90::desc_k_major(kt + kk * 16), !first || kk > 0);
+    sm90::wgmma_commit();
+    ++j;
+  };
+  slab(0, true);
+  for (int c = 1; c < n_slab; ++c) {
+    slab(c, false);
+    sm90::wgmma_wait<1>();   // slab c - 1's products have retired
+    sm90::mbar_arrive(bar.k_empty + (j - 2) % C::kSlots);
+  }
+}
+
+template <int kOut, typename In, typename OutT>
+__global__ void __launch_bounds__(Deep<kOut>::kThreads, 1)
+flash_fwd_sm90_kernel_deep(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const FwdParams p) {
+  using C = Deep<kOut>;
+  const int n_slab = (p.d + kSlab - 1) / kSlab;
+  const bool stream_q = n_slab > C::kMaxResident;
+  In* vs = reinterpret_cast<In*>(smem_base());
+  In* ring = vs + C::kVStages * C::kVElems;
+  In* qs = ring + C::kSlots * C::slot_elems(stream_q);   // a resident Q
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      qs + (stream_q ? 0 : n_slab * C::kSlabElems));
+  const Barriers bar{bars, bars + 1, bars + 1 + C::kSlots,
+                     bars + 1 + 2 * C::kSlots,
+                     bars + 1 + 2 * C::kSlots + C::kVStages};
+
+  const int groups = (n_slab * kSlab + kOut - 1) / kOut;
+  const int bh = blockIdx.x / groups, b = bh / p.H, h = bh % p.H;
+  const int col0 = blockIdx.x % groups * kOut;
+  const int q0 = (p.n_qt - 1 - blockIdx.y) * C::kBQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
+  const int n_kv = (kv_end + C::kBK - 1) / C::kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.q_full, 1);
+    for (int s = 0; s < C::kSlots; ++s) {
+      sm90::mbar_init(bar.k_full + s, 1);
+      sm90::mbar_init(bar.k_empty + s, 128);
+    }
+    for (int s = 0; s < C::kVStages; ++s) {
+      sm90::mbar_init(bar.v_full + s, 1);
+      sm90::mbar_init(bar.v_empty + s, 128);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0)
+      produce_deep<kOut>(&tq, &tk, &tv, qs, ring, vs, bar, b, h, q0, n_kv,
+                         col0, n_slab, stream_q);
+  } else {
+    int j = 0;   // slabs taken from the ring
+    auto issue_s = [&](float(&s)[C::kBK / 2], int) {
+      sm90::wgmma_fence();
+      issue_s_deep<kOut>(s, qs, ring, bar, n_slab, stream_q, j);
+    };
+    auto release_s = [&](int) {
+      sm90::mbar_arrive(bar.k_empty + (j - 1) % C::kSlots);
+    };
+    consume<kOut, C::kBK, C::kVStages, In, OutT>(
+        p, vs, bar, b, h, q0, n_kv, col0, issue_s, release_s);
+  }
+}
+
+// The tensor maps of q, k and v, read in boxes of 64 columns by q_rows or
+// kv_rows rows.
+template <typename In>
+cudaError_t qkv_maps(const Args& a, CUtensorMap (&maps)[3], int q_rows,
+                     int kv_rows) {
+  const flash::View* in[3] = {&a.q, &a.k, &a.v};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = sm90::bhtd_map<In>(
+        &maps[i], in[i]->p, a.B, a.H, i == 0 ? a.Tq : a.Tk, a.Dr, in[i]->sb,
+        in[i]->sh, in[i]->st, i == 0 ? q_rows : kv_rows);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Opts `kernel` into `smem` bytes of dynamic shared memory (the attribute
+// belongs to the current device: set at every launch) and launches it over
+// (B * H * groups, the blocks of kBQ q rows).
+template <typename K>
+cudaError_t launch_on(K kernel, const Args& a, int groups, int kBQ,
+                      int threads, int smem, cudaStream_t stream,
+                      const CUtensorMap (&maps)[3]) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.Tq + kBQ - 1) / kBQ;
+  const dim3 grid((unsigned)(a.B * a.H * groups), (unsigned)n_qt);
+  const FwdParams p{a.o,      a.lse,  a.H,  a.Tq,   a.Tk,
+                    a.causal, n_qt,   a.Dr, a.scale};
+  kernel<<<grid, threads, smem, stream>>>(maps[0], maps[1], maps[2], p);
+  return cudaGetLastError();
 }
 
 template <int D, typename In, typename OutT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   using C = Tiles<D>;
   CUtensorMap maps[3];
-  const flash::View* in[3] = {&a.q, &a.k, &a.v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = sm90::bhtd_map<In>(
-        &maps[i], in[i]->p, a.B, a.H, i == 0 ? a.Tq : a.Tk, a.Dr, in[i]->sb,
-        in[i]->sh, in[i]->st, i == 0 ? C::kBQ : C::kBK);
-    if (err != cudaSuccess) return err;
-  }
-  // the attribute belongs to the current device: set at every launch
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D, In, OutT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  const cudaError_t err = qkv_maps<In>(a, maps, C::kBQ, C::kBK);
   if (err != cudaSuccess) return err;
-  const int n_qt = (a.Tq + C::kBQ - 1) / C::kBQ;
-  const dim3 grid((unsigned)(a.B * a.H * C::kGroups), (unsigned)n_qt);
-  const FwdParams p{a.o,      a.lse,  a.H,  a.Tq,   a.Tk,
-                    a.causal, n_qt,   a.Dr, a.scale};
-  flash_fwd_sm90_kernel<D, In, OutT>
-      <<<grid, C::kThreads, C::kSmem, stream>>>(maps[0], maps[1], maps[2], p);
-  return cudaGetLastError();
+  return launch_on(flash_fwd_sm90_kernel<D, In, OutT>, a, C::kGroups, C::kBQ,
+                   C::kThreads, C::kSmem, stream, maps);
+}
+
+template <int kOut, typename In, typename OutT>
+cudaError_t launch_deep(const Args& a, cudaStream_t stream) {
+  using C = Deep<kOut>;
+  CUtensorMap maps[3];
+  const cudaError_t err = qkv_maps<In>(a, maps, C::kBQ, C::kBK);
+  if (err != cudaSuccess) return err;
+  return launch_on(flash_fwd_sm90_kernel_deep<kOut, In, OutT>, a,
+                   (a.D + kOut - 1) / kOut, C::kBQ, C::kThreads,
+                   C::smem(a.D / kSlab), stream, maps);
 }
 
 // The instance for the head dim: 64 and 128, and 192, 256, 320, 384 and
-// 512 (the wide ones; 448 runs on 512; the caller routes no other).
+// 512 (the wide ones; 448 runs on 512); above 512 the deep kernel, its
+// groups of O's columns as few as may be, then as narrow (D 576: 3 x 192).
 template <typename In, typename OutT>
 cudaError_t forward(const Args& a, cudaStream_t stream) {
   switch (a.D) {
@@ -519,7 +760,10 @@ cudaError_t forward(const Args& a, cudaStream_t stream) {
     case 512:
       return launch<512, In, OutT>(a, stream);
     default:
-      return cudaErrorInvalidValue;
+      if (a.D <= 512 || a.D % kSlab != 0) return cudaErrorInvalidValue;
+      return (a.D + 191) / 192 <= (a.D + 255) / 256
+                 ? launch_deep<192, In, OutT>(a, stream)
+                 : launch_deep<256, In, OutT>(a, stream);
   }
 }
 
@@ -535,7 +779,8 @@ namespace flash {
 
 // o = softmax(q k^T * scale) v and lse over [B, H, T, Dr] views of bf16 or
 // fp16 on the instance of head dim D = 64, 128, 192, 256, 320, 384 or 512
-// (D 448 on 512's), o in the input type or fp32 (out_f32).
+// (D 448 on 512's), or above 512 (any multiple of 64) on the deep kernel;
+// o in the input type or fp32 (out_f32).
 cudaError_t fwd_sm90(const Args& a, cudaStream_t stream) {
   return a.dtype == kF16 ? forward_in<__half>(a, stream)
                          : forward_in<__nv_bfloat16>(a, stream);

@@ -23,10 +23,12 @@ jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
 
 The attention kernels take bf16 and fp16 at head dims 64 and 128 (and
 those below, built at them) on the Hopper kernels above, dk/dv and dq also
-at 192 and 256 (160 is built at 192), and the forward also at 320, 384
-and 512 (288 is built at 320, 448 runs on 512); fp32 at any head dim and
-bf16 and fp16 above those run ``flash_attn.cu``'s mma.sync family (which
-also holds di and the C entry points). :func:`flash_route` says which. The Hopper
+at 192 and 256 (160 is built at 192), and the forward at every head dim
+(320, 384 and 512 have instances of their own, 288 is built at 320 and
+448 runs on 512, and one kernel takes every head dim above 512); fp32 at
+any head dim and bf16 and fp16 dk/dv and dq above 256 run
+``flash_attn.cu``'s mma.sync family (which also holds di and the C entry
+points). :func:`flash_route` says which. The Hopper
 kernels read a head dim below their instance's in place (16, 80, 96, 160,
 288 of a ``[B, T, H, D]`` tensor, and any even one whose strides TMA
 takes); elsewhere the wrapper copies the inputs zero-padded and counts the
@@ -529,9 +531,9 @@ adasum_scale.launches = 0
 # needs, it is the same kernel. Any head dim runs on the kernel instance
 # built for the next of FLASH_HEAD_DIMS (D <= 128) or the next multiple of
 # 64: zero columns change neither q kᵀ nor the softmax. bf16 and fp16 run
-# the Hopper kernels (TMA, wgmma) at FLASH_HEAD_DIMS and above them up to
-# each wrapper's SM90_MAX_DIM; they read a narrower view in place (TMA
-# fills the columns past its D with zeros) and store its D columns, so the
+# the Hopper kernels (TMA, wgmma): the forward at every head dim, dk/dv and
+# dq up to SM90_BWD_MAX_DIM; they read a narrower view in place (TMA fills
+# the columns past its D with zeros) and store its D columns, so the
 # outputs are allocated at the real D, laid out as the inputs. The rest
 # runs ``flash_attn.cu``'s mma.sync family, which splits D into slices of
 # 128 output columns (:func:`flash_route`) and reads the built width: its
@@ -540,12 +542,12 @@ adasum_scale.launches = 0
 
 FLASH_HEAD_DIMS = (64, 128)      # the head dims of every Hopper kernel
 _FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-# the largest head dim of each wrapper's Hopper kernel (``flash_attn.cu``'s
-# run() takes the same): wgmma's N is at most 256, and only the forward's
-# O is split above it (two accumulators at 320, over blocks from 384 on)
-SM90_MAX_DIM = {"flash_fwd": 512, "flash_seg_fwd": 512,
-                "flash_bwd_dkdv": 256, "flash_seg_bwd_dkdv": 256,
-                "flash_bwd_dq": 256, "flash_seg_bwd_dq": 256}
+# the largest head dim of the Hopper dk/dv and dq (``flash_attn.cu``'s
+# kBwdMaxD): wgmma's N is at most 256, and dK/dV and dQ beside S and dP fit
+# no register budget above it yet. The forward has no largest one: its O
+# is split (two accumulators at 320, over blocks from 384 on) and above
+# 512 its S is summed over the depth's slabs.
+SM90_BWD_MAX_DIM = 256
 
 
 def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
@@ -747,13 +749,13 @@ def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The kernel that a K6/K7 wrapper (``kernel``, its name) launches on
     the card for inputs of ``dtype`` and head dim ``d``: "sm90", the Hopper
     kernels (bf16 and fp16 at head dims built at 64 or 128); "sm90_wide",
-    the same kernels at 192 and 256, and the forward's also from 320 to
-    512 (up to the wrapper's SM90_MAX_DIM); "wide",
-    ``flash_attn.cu``'s mma.sync family on bf16 and fp16 above that (dk/dv
-    and dq above 256, the forward above 512); "tf32", the same family on
-    fp32 (every head dim). ``wgmma``'s N is at most 256: the forward's O at
-    320 is two accumulators and above it split over blocks, and dK/dV and
-    dQ above 256 fit no register budget yet."""
+    the same kernels above 128: the forward at every head dim, dk/dv and
+    dq at 192 and 256 (up to SM90_BWD_MAX_DIM); "wide",
+    ``flash_attn.cu``'s mma.sync family on bf16 and fp16 dk/dv and dq above
+    256; "tf32", the same family on fp32 (every head dim). ``wgmma``'s N is
+    at most 256: the forward's O at 320 is two accumulators and above it
+    split over blocks, and dK/dV and dQ above 256 fit no register budget
+    yet."""
     if kernel not in MMA_KERNELS_BY_NAME:
         raise ValueError(f"flash_route: {kernel!r} is not a K6/K7 wrapper "
                          f"with a route ({', '.join(MMA_KERNELS_BY_NAME)})")
@@ -764,7 +766,7 @@ def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     dp = _flash_dim(d)
     if dp <= FLASH_HEAD_DIMS[-1]:
         return "sm90"
-    if dp <= SM90_MAX_DIM[kernel]:
+    if kernel.endswith("_fwd") or dp <= SM90_BWD_MAX_DIM:
         return "sm90_wide"
     return "wide"
 
@@ -1061,9 +1063,9 @@ def launch_counts() -> dict:
     """Launches by wrapper (every dtype and head dim), and by route
     (:func:`flash_route`): ``<wrapper>_tf32``, the mma.sync family on fp32
     inputs; ``<wrapper>_wide``, the family on bf16 and fp16 (dk/dv and dq
-    above head dim 256, the forward above 512); ``<wrapper>_sm90_wide``,
-    the Hopper kernels above 128 (192 and 256, the forward's also 320 to
-    512). ``<wrapper>_pad_copies`` counts the calls of a K6/K7 wrapper (di
+    above head dim 256; the forwards' stay 0, no 16-bit forward runs it);
+    ``<wrapper>_sm90_wide``, the Hopper kernels above 128 (the forward at
+    every head dim, dk/dv and dq at 192 and 256). ``<wrapper>_pad_copies`` counts the calls of a K6/K7 wrapper (di
     included) that copied their inputs zero-padded (:func:`flash_needs_copy`)
     before the launch."""
     counts = {k.__name__: k.launches for k in KERNELS}

@@ -5,15 +5,16 @@ The port's counterpart of ``horovod_tpu/parallel/flash_attention.py``
 attention with scale 1/sqrt(D) through kernel K6 (the online-softmax
 forward, ``csrc/flash_fwd_sm90.cu``, and a backward of three launches
 under the saved lse, ``csrc/flash_bwd_sm90.cu``: TMA and wgmma for bf16
-and fp16 at head dims up to 256, and the forward up to 512;
-``csrc/flash_attn.cu``'s tf32 mma.sync kernels for fp32, and for the rest
-of bf16 and fp16 above those: ``ops.kernels.flash_route``). On a CUDA
+and fp16, the forward at every head dim and the backward up to 256;
+``csrc/flash_attn.cu``'s tf32 mma.sync kernels for fp32, and for bf16 and
+fp16 dk/dv and dq above 256: ``ops.kernels.flash_route``). On a CUDA
 tensor it always launches K6, in both layouts, for what the reference
 computes: bf16, fp16 or fp32 inputs, any head dim (the Hopper kernels are
-built for 64, 128, 192 and 256, the forward also for 320, 384 and 512,
-and read a head dim below those in place, the columns past it as
-zeros; the mma.sync kernels take a copy zero-padded to a multiple of 64
-in slices of 128 output columns: ``ops.kernels.flash_needs_copy``), and
+built for 64, 128, 192 and 256, the forward also for 320, 384 and 512 and
+one kernel above 512 for every multiple of 64, and read a head dim below
+those in place, the columns past it as zeros; the mma.sync kernels take a
+copy zero-padded to a multiple of 64 in slices of 128 output columns:
+``ops.kernels.flash_needs_copy``), and
 q and k/v of any lengths >= 1, different ones
 included (causal: key <= query by absolute index, the library kernel's
 rule). On a CPU tensor it runs K6's plain PyTorch versions, which

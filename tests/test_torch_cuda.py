@@ -32,6 +32,7 @@ the plain version's error against float64, plus the dtype's epsilon and
 
 import contextlib
 import math
+import re
 
 import numpy as np
 import pytest
@@ -274,9 +275,10 @@ def test_cuda_bn_and_mma_kernels_do_not_spill(cuda):
 
 def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
     """The build's ptxas report: no instance of the Hopper attention
-    kernels (every head dim, the wide ones at 192 and 256, and the
-    forward's at 320, 384 and 512, included, every input and output type)
-    spills."""
+    kernels (every head dim, the wide ones at 192 and 256, the forward's
+    at 320, 384 and 512 and its deep kernel above 512, included, every
+    input and output type) spills; the mma.sync forward is built for fp32
+    inputs only."""
     from horovod_tpu_torch.ops import build
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90"):
         report = build.ptxas_report(stem)
@@ -284,8 +286,15 @@ def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
         for d in (320, 384, 512):
             assert any(f"Li{d}E" in name for name in report) == \
                 (stem == "flash_fwd_sm90"), (stem, d)
+        # kOut 192 and 256, two input and two output types
+        deep = [name for name in report if "kernel_deep" in name]
+        assert len(deep) == (8 if stem == "flash_fwd_sm90" else 0), deep
         for name, r in report.items():
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
+    mma_fwd = [name for name in build.ptxas_report("flash_attn")
+               if "flash_fwd_mma_kernel" in name]
+    assert mma_fwd and all(re.search(r"ILi\d+EffLb[01]E", name)
+                           for name in mma_fwd), mma_fwd
 
 
 def test_cuda_pack_is_bitwise(cuda):
@@ -526,21 +535,20 @@ def test_cuda_flash_takes_what_the_reference_computes(cuda, dtype, d, tq, tk,
 
 
 # head dims above 128: bf16 and fp16 at 160 (built at 192), 192 and 256
-# on the Hopper kernels, the forward also from 320 to 512; the rest on the
-# mma.sync family in slices of 128 columns (flash_route)
-WIDE_DIMS = [160, 192, 256, 320, 384, 576]
+# on the Hopper kernels, the forward at every head dim; dk/dv and dq above
+# 256 on the mma.sync family in slices of 128 columns (flash_route)
+WIDE_DIMS = [160, 192, 256, 320, 384, 576, 640, 1024, 1280]
 WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 def _wide_route(dtype, d, name):
     """The route a wide launch must take: flash_route's answer, checked
-    against the rule it states (the Hopper forward to head dim 512, dk/dv
+    against the rule it states (the Hopper forward at every head dim, dk/dv
     and dq to 256)."""
     route = K.flash_route(dtype, d, name)
-    largest = 512 if name.endswith("_fwd") else 256
     if dtype == torch.float32:
         assert route == "tf32"
-    elif K._flash_dim(d) <= largest:
+    elif name.endswith("_fwd") or K._flash_dim(d) <= 256:
         assert route == "sm90_wide"
     else:
         assert route == "wide"
@@ -553,7 +561,8 @@ def _wide_route(dtype, d, name):
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
     """Every K6 entry point at head dims 160 (built at 192), 192, 256,
-    320, 384 and 576 in bf16, fp16 and fp32, causal and full, Tq != Tk: within
+    320, 384, 576, 640, 1024 and 1280 in bf16, fp16 and fp32, causal and
+    full, Tq != Tk: within
     the flash limits, counted by their route (the Hopper wide kernels, the
     16-bit mma.sync instances or the tf32 ones), dq repeats bitwise."""
     n0 = K.launch_counts()
@@ -636,6 +645,33 @@ def test_cuda_flash_hopper_forward_above_320(cuda, dtype, d, causal, tq,
     the 64-row tiles (Tq = Tk, Tq < Tk, Tq > Tk), each call counted on the
     sm90_wide route with no zero-padded copy, o laid out as q, the same
     bits from run to run and on contiguous copies."""
+    _check_hopper_forward(cuda, dtype, d, causal, tq, tk)
+
+
+@pytest.mark.parametrize("tq,tk", [(257, 257), (100, 300), (300, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [576, 600, 640, 1024, 1152, 1280])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_flash_hopper_forward_above_512(cuda, dtype, d, causal, tq,
+                                             tk):
+    """The Hopper forward above head dim 512, S summed over the depth's
+    slabs (D 576 three groups of 192 columns of O; 600 read in place by the
+    640 instance, whose last group of 256 lies partly past it; 640 and
+    1024 groups of 256 with Q resident, 1152 and 1280 with Q streamed
+    beside K), K6a and K7a as the previous test: within the flash limits
+    against the plain version (twice its error in the input dtype plus
+    1e-3 of the largest entry) on strided [B, T, H, D] views at lengths
+    that end inside the 64-row tiles (Tq = Tk, Tq < Tk, Tq > Tk), each call
+    counted on the sm90_wide route with no zero-padded copy and none on
+    the mma.sync one, the same bits from run to run and on contiguous
+    copies."""
+    _check_hopper_forward(cuda, dtype, d, causal, tq, tk)
+
+
+def _check_hopper_forward(cuda, dtype, d, causal, tq, tk):
+    """K6a and K7a (on the first min(Tq, Tk) rows) at head dim ``d`` on
+    strided [B, T, H, D] views against the plain versions, counted on the
+    sm90_wide route, repeated bitwise and on contiguous copies."""
     q, k, v, _ = _flash_inputs(cuda, 2, 3, tq, d, "bthk", dtype=dtype, tk=tk)
     scale = d ** -0.5
     s = min(tq, tk)
@@ -1047,9 +1083,9 @@ def test_cuda_seg_kernels_take_every_dtype(cuda, dtype, d, part):
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("dtype", WIDE_DTYPES)
 def test_cuda_seg_kernels_take_any_head_dim(cuda, dtype, d, part):
-    """The three K7 entry points at head dims 160, 192, 256, 320, 384 and
-    576 in bf16, fp16 and fp32 on strided halves, as the previous test,
-    counted by their route."""
+    """The three K7 entry points at head dims 160, 192, 256, 320, 384, 576,
+    640, 1024 and 1280 in bf16, fp16 and fp32 on strided halves, as the
+    previous test, counted by their route."""
     n0 = K.launch_counts()
     _check_k7_case(cuda, dtype, d, part)
     n1 = K.launch_counts()

@@ -262,14 +262,18 @@ def test_flash_causal_attention_of_different_lengths_follows_library_rule(
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384])
+@pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384, 512, 576, 640,
+                               1024])
 def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
     """Head dims above 128 (160 padded to 192, 192 and 256: the Hopper wide
     kernels on the card; 288 padded to 320 and 320: the Hopper forward and
-    the mma.sync dk/dv and dq; 384: the mma.sync family in slices of 128
-    columns): flash_attention_local's output against
-    the reference's and (fp32) its gradients against jax.vjp of it, and
-    local_attention against the reference's."""
+    the mma.sync dk/dv and dq; 384 and 512: the forward's O split over
+    blocks; 576, 640 and 1024: the forward with S summed over the depth's
+    slabs, Q resident; the mma.sync dk/dv and dq in slices of 128 columns
+    above 256): flash_attention_local's output against the reference's
+    and (fp32) its gradients against jax.vjp of it, and local_attention
+    against the reference's. The CPU runs the port's plain versions and
+    the reference's materialized fallback; TOL is per dtype."""
     (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(24, dtype, 12, 4, d)
     want = _reference_out_and_grads(qj, kj, vj, doj, causal)
     got = _port_out_and_grads(qt, kt, vt, dot, causal)
@@ -284,7 +288,8 @@ def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
                       np.float32), TOL[dtype])
 
 
-@pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384])
+@pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384, 512, 576, 640,
+                               1024])
 def test_flash_head_dims_above_128_of_different_lengths(d):
     """Tq != Tk above head dim 128: full attention against the reference's
     (output and gradients, fp32), causal attention against a float64

@@ -98,16 +98,17 @@ FLASH_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 
 
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 129, 160, 192, 193, 256,
-                               257, 288, 320, 384, 448, 512, 576])
+                               257, 288, 320, 384, 448, 512, 530, 576, 640,
+                               1024, 1280])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                    torch.float32])
 def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
     """Which kernel a K6/K7 wrapper launches on the card: bf16 and fp16 at
-    head dims built at 64 or 128 the Hopper kernels; at 192 or 256 (129
-    and 160 are built at 192, 193 at 256) the Hopper forward, dk/dv and
-    dq; from 320 to 512 (257 and 288 are built at 320) the Hopper forward
-    and the mma.sync dk/dv and dq; above 512 the mma.sync family; fp32 the
-    tf32 family at every head dim."""
+    head dims built at 64 or 128 the Hopper kernels; above 128 the Hopper
+    forward at every head dim (530 is built at 576), and the Hopper dk/dv
+    and dq at 192 or 256 (129 and 160 are built at 192, 193 at 256), the
+    mma.sync dk/dv and dq above 256 (257 and 288 are built at 320); fp32
+    the tf32 family at every head dim."""
     padded = K._flash_dim(d)
     for kernel in FLASH_ROUTED:
         route = K.flash_route(dtype, d, kernel)
@@ -115,7 +116,7 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
             want = "tf32"
         elif padded <= 128:
             want = "sm90"
-        elif padded <= 256 or (padded <= 512 and kernel.endswith("_fwd")):
+        elif padded <= 256 or kernel.endswith("_fwd"):
             want = "sm90_wide"
         else:
             want = "wide"
@@ -126,15 +127,18 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
 def test_flash_route_counters_and_refusals():
     """Each route has its counter in launch_counts (sm90_wide on all six
     wrappers, whose Hopper kernels take head dims 192 and 256, the
-    forwards' also 320 to 512), and each of the seven K6/K7 wrappers, di
-    included, its count of zero-padded copies; di and other dtypes have no
-    route."""
+    forwards' every head dim above 128), and each of the seven K6/K7
+    wrappers, di included, its count of zero-padded copies; di and other
+    dtypes have no route. dk/dv and dq run the Hopper kernels up to head
+    dim 256, the forwards at every head dim."""
     counts = K.launch_counts()
     for kernel in FLASH_ROUTED:
         for route in ("tf32", "wide", "sm90_wide"):
             assert f"{kernel}_{route}" in counts
-        assert K.SM90_MAX_DIM[kernel] == \
-            (512 if kernel.endswith("_fwd") else 256)
+        assert K.flash_route(torch.bfloat16, K.SM90_BWD_MAX_DIM + 1,
+                             kernel) == \
+            ("sm90_wide" if kernel.endswith("_fwd") else "wide")
+    assert K.SM90_BWD_MAX_DIM == 256
     for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
         assert f"{kernel}_pad_copies" in counts
     assert "flash_bwd_pre_sm90_wide" not in counts
@@ -199,6 +203,9 @@ COPY_CASES = [
     ("D288: the mma.sync backward copies", torch.bfloat16, 288, {},
      _MMA_BWD),
     ("D336: the same", torch.float16, 336, {}, _MMA_BWD),
+    ("D530 of a 536-wide tensor: the forwards read it in place",
+     torch.bfloat16, 530, {"width": 536}, _MMA_BWD),
+    ("D600: the same", torch.float16, 600, {}, _MMA_BWD),
     ("fp32 D16: the tf32 family copies", torch.float32, 16, {}, _HOPPER),
     ("D20: H stride of 20", torch.bfloat16, 20, {}, _HOPPER),
     ("D330: H stride of 330", torch.bfloat16, 330, {}, _HOPPER),
