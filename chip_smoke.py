@@ -29,7 +29,8 @@ and then:
    (B4 H16 T2048 D128, causal) in bf16 and in fp16, ViT-B/16's (B32 H12
    T197 D64, full), a causal T = 1000 tail-tile shape, fp32 inputs (B2 H8
    T1024 D64 causal, and phase 12's ViT_Tiny attention, B32 H4 T65 D16
-   full: the tf32 family), ViT_Tiny's head dim 16 in bf16 and head dims 80
+   full: the Hopper tf32 forward and dq, the tf32 mma.sync dk/dv),
+   ViT_Tiny's head dim 16 in bf16 and head dims 80
    and 96 (read in place by the D 128 kernels: every such shape logs the
    wrappers' zero-pad copies, and one on a Hopper route fails the run),
    q and k/v of different lengths, causal and full, and head dims above
@@ -41,7 +42,9 @@ and then:
    D1280: the deep Hopper forward, S summed over the depth's slabs, Q
    resident up to 1024 and streamed at 1280, and the mma.sync dk/dv and
    dq; fp32
-   D256: the mma.sync family throughout); and times them beside
+   D256 (B2 H4 T512 causal) and D320 (B1 H4 T1024 causal): the Hopper
+   tf32 forward at both, its dq at 256, the mma.sync dk/dv and, at 320,
+   dq); and times them beside
    ``scaled_dot_product_attention``'s forward and backward (a yardstick
    only, never on the path), the forward with its achieved TFLOP/s and its
    share of the bound;
@@ -59,7 +62,8 @@ and then:
    kernels), D 320, 384 and 512 ones (B1 H4 T2048: the Hopper forward, the
    mma.sync dk/dv and dq) and D 576, 640, 1024 and 1280 ones (B1 H2
    T1024, and D 1024 at B1 H8 T4096, a grid that fills the card: the deep
-   Hopper forward, the mma.sync dk/dv and dq), and times them
+   Hopper forward, the mma.sync dk/dv and dq) and the FULL half in fp32
+   (the Hopper tf32 K7a and K7c, the mma.sync K7b), and times them
    beside SDPA's forward and backward (a yardstick only: with the
    segment's own lse, SDPA's backward of the same segment, causal or
    full, computes the same dq, dk and dv), the forward with its
@@ -80,12 +84,15 @@ and then:
     2), against a float64 VHDD of the same gradients, times each whole
     reduction, and applies one AdamW step through
     ``DistributedOptimizer(op=Adasum)``;
-12. trains ViT_Tiny (head dim 16, padded to 64) in fp32 at batch 32, 64 px,
-    three SGD-momentum steps, through the tf32 kernels, its first logits
-    against the same model's on the CPU;
+12. trains ViT_Tiny (head dim 16) in fp32 at batch 32, 64 px, three
+    SGD-momentum steps, through the Hopper tf32 forward and dq (reading
+    the head dim in place) and the tf32 mma.sync dk/dv (on copies padded
+    to 64), its first logits against the same model's on the CPU;
 13. runs attention above head dim 128 through the entry points a user
     calls, ``flash_attention_local`` (bf16 B1 T4096 H8 D256, fp16 B2 T1024
-    H8 D160, bf16 B1 T1024 H4 D320 and D384, B1 T512 H2 D576, causal) and
+    H8 D160, bf16 B1 T1024 H4 D320 and D384, B1 T512 H2 D576, fp32 B1
+    T1024 H4 D320: the Hopper tf32 forward, the mma.sync dk/dv and dq;
+    causal) and
     the zig-zag ring (``force_ring=True``, bf16 D256, D320, D384 and
     D576), forward and backward, against the plain versions, checks which
     route each kernel took (the Hopper kernels up to D 256, the Hopper
@@ -113,9 +120,10 @@ one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
 68 for the hierarchical one, whose 2 shards a pair halve the work; one of
-each tf32 kernel per layer and step of ViT_Tiny; each wide instance,
-Hopper and mma.sync, at least once in phase 13, and the mma.sync forward
-never on 16-bit inputs). Any failed check exits
+each fp32 kernel, the Hopper tf32 forward and dq and the mma.sync dk/dv,
+per layer and step of ViT_Tiny; each wide instance, Hopper and mma.sync,
+at least once in phase 13, the mma.sync dq on fp32 too, and no forward
+on the mma.sync family). Any failed check exits
 non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -169,6 +177,7 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
                 ("D256", 2, 8, 2048, 2048, 256, True, "bfloat16"),
                 ("D160 fp16 Tq<Tk", 2, 8, 1024, 2048, 160, True, "float16"),
                 ("D256 fp32", 2, 4, 512, 512, 256, True, "float32"),
+                ("D320 fp32", 1, 4, 1024, 1024, 320, True, "float32"),
                 ("D320", 1, 4, 1024, 1024, 320, True, "bfloat16"),
                 ("D384", 1, 4, 1024, 1024, 384, True, "bfloat16"),
                 ("D512", 1, 4, 1024, 1024, 512, True, "bfloat16"),
@@ -176,8 +185,17 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
                 ("D640", 1, 2, 512, 512, 640, True, "bfloat16"),
                 ("D1024", 1, 2, 512, 512, 1024, True, "bfloat16"),
                 ("D1280", 1, 2, 512, 512, 1280, True, "bfloat16"))
-# the shape whose numbers the tf32 family's rows carry: phase 12's path
+# the shape whose numbers the fp32 rows carry: phase 12's path
 TF32_SHAPE = "ViT_Tiny fp32"
+# the fp32 rows of the kernels line: (row, the K6 wrapper and the phase-4
+# shape whose numbers it carries, the phase whose counts are its
+# launches). The Hopper tf32 forward and dq (K6 and K7 alike: every
+# fp32-input shape of phases 4 and 8 under "shapes") and the mma.sync
+# dk/dv at phase 12's shape, the mma.sync dq above head dim 256 at D 320.
+TF32_ROWS = (("flash_fwd_sm90_tf32", "flash_fwd", TF32_SHAPE, 12),
+             ("flash_bwd_dq_sm90_tf32", "flash_bwd_dq", TF32_SHAPE, 12),
+             ("flash_bwd_dkdv_tf32", "flash_bwd_dkdv", TF32_SHAPE, 12),
+             ("flash_bwd_dq_tf32", "flash_bwd_dq", "D320 fp32", 13))
 # the rows of the instances above head dim 128, K6 and K7, and the phase-4
 # and phase-8 shapes whose numbers each carries: the Hopper kernels at
 # D 192 and 256 (<name>_sm90_wide) at D 256, the Hopper forward at D 320
@@ -205,14 +223,16 @@ WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
               ("flash_attention_local", "flash", 1, 1024, 4, 384, "bfloat16"),
               ("zig-zag ring", "zigzag", 1, 2048, 4, 384, "bfloat16"),
               ("flash_attention_local", "flash", 1, 512, 2, 576, "bfloat16"),
-              ("zig-zag ring", "zigzag", 1, 1024, 2, 576, "bfloat16"))
+              ("zig-zag ring", "zigzag", 1, 1024, 2, 576, "bfloat16"),
+              ("flash_attention_local", "flash", 1, 1024, 4, 320, "float32"))
 WIDE_WINDOWS = 5               # timed windows of each wide path
 WIDE_WINDOW_CALLS = 2          # forward + backward calls in each window
 WIDE_TRACED_CALLS = 2          # forward + backward calls in the trace
 WIDE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                 "flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the CUDA kernel each wrapper's route launches: the Hopper kernel
-# (sm90_wide) or the mma.sync one (wide), K7's the same as K6's
+# (sm90_wide), the Hopper tf32 one (sm90_tf32) or the mma.sync one (wide,
+# tf32), K7's the same as K6's
 ROUTE_KERNELS = {"flash_fwd": "flash_fwd", "flash_seg_fwd": "flash_fwd",
                  "flash_bwd_dkdv": "flash_bwd_dkdv",
                  "flash_seg_bwd_dkdv": "flash_bwd_dkdv",
@@ -225,26 +245,32 @@ LM_DIMS = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=4,
                d_ff=8192, max_seq=2048)
 LM_WINDOW_STEPS = 5            # steps in each timed window of the LM
 VIT_LAYERS = 12
-# K7 at the ring path's segments: (what, B, H, T, D, part) with q, k, v
-# [B, T, H, D]; "full" is q's zig-zag hi half against the lo half of k/v
-# (S = T/2, every key visible), "diag" the lo halves (the causal diagonal),
-# "whole" the contiguous n=1 ring's one segment (S = T). lse and di are the
-# causal attention's over all T, their halves strided as the ring has them.
-SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full"),
-              ("zigzag half, DIAG", 1, 16, 8192, 128, "diag"),
-              ("contiguous n=1, DIAG", 1, 16, 8192, 128, "whole"),
-              ("tail tile, FULL", 4, 8, 2000, 64, "full"),
-              ("tail tile, DIAG", 4, 8, 2000, 64, "diag"),
-              ("D256 half, FULL", 1, 8, 4096, 256, "full"),
-              ("D320 half, FULL", 1, 4, 2048, 320, "full"),
-              ("D384 half, FULL", 1, 4, 2048, 384, "full"),
-              ("D512 half, FULL", 1, 4, 2048, 512, "full"),
-              ("D576 half, FULL", 1, 2, 1024, 576, "full"),
-              ("D640 half, FULL", 1, 2, 1024, 640, "full"),
-              ("D1024 half, FULL", 1, 2, 1024, 1024, "full"),
-              ("D1280 half, FULL", 1, 2, 1024, 1280, "full"),
+# K7 at the ring path's segments: (what, B, H, T, D, part, dtype) with q,
+# k, v [B, T, H, D]; "full" is q's zig-zag hi half against the lo half of
+# k/v (S = T/2, every key visible), "diag" the lo halves (the causal
+# diagonal), "whole" the contiguous n=1 ring's one segment (S = T). lse and
+# di are the causal attention's over all T, their halves strided as the
+# ring has them.
+SEG_SHAPES = (("zigzag half, FULL", 1, 16, 8192, 128, "full", "bfloat16"),
+              ("zigzag half, DIAG", 1, 16, 8192, 128, "diag", "bfloat16"),
+              ("contiguous n=1, DIAG", 1, 16, 8192, 128, "whole",
+               "bfloat16"),
+              ("tail tile, FULL", 4, 8, 2000, 64, "full", "bfloat16"),
+              ("tail tile, DIAG", 4, 8, 2000, 64, "diag", "bfloat16"),
+              ("D256 half, FULL", 1, 8, 4096, 256, "full", "bfloat16"),
+              ("D320 half, FULL", 1, 4, 2048, 320, "full", "bfloat16"),
+              ("D384 half, FULL", 1, 4, 2048, 384, "full", "bfloat16"),
+              ("D512 half, FULL", 1, 4, 2048, 512, "full", "bfloat16"),
+              ("D576 half, FULL", 1, 2, 1024, 576, "full", "bfloat16"),
+              ("D640 half, FULL", 1, 2, 1024, 640, "full", "bfloat16"),
+              ("D1024 half, FULL", 1, 2, 1024, 1024, "full", "bfloat16"),
+              ("D1280 half, FULL", 1, 2, 1024, 1280, "full", "bfloat16"),
               # the deep forward on a grid that fills the card
-              ("D1024 half, FULL, H8 T4096", 1, 8, 4096, 1024, "full"))
+              ("D1024 half, FULL, H8 T4096", 1, 8, 4096, 1024, "full",
+               "bfloat16"),
+              # the ring's FULL half in fp32: the Hopper tf32 K7a and K7c
+              ("zigzag half, FULL, fp32", 1, 16, 8192, 128, "full",
+               "float32"))
 SEG_KERNELS = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the ring path on one card: bench.py:bench_sp_ring's shape, B, T, H, D
 RING_SHAPE = (1, 8192, 16, 128)
@@ -309,9 +335,10 @@ def attention_ptxas(build, log):
     kernels with In outputs are K6's rows, with fp32 outputs K7's, those at
     head dims 192 and 256 ``<row>_sm90_wide``, the forward's at 320
     ``<row>_sm90_d320``, at 384 to 512 ``<row>_sm90_split`` and its deep
-    kernel (every head dim above 512) ``<row>_sm90_deep``; the mma.sync
-    family's rows are ``<name>_tf32`` (fp32 inputs, K6 and K7 alike) and
-    ``<name>_wide`` (bf16 and fp16 dk/dv and dq)."""
+    kernel (every head dim above 512) ``<row>_sm90_deep``; the Hopper tf32
+    kernels' rows (fp32 inputs, K6 and K7 alike) are ``<name>_sm90_tf32``;
+    the mma.sync family's rows are ``<name>_tf32`` (fp32 inputs, K6 and K7
+    alike) and ``<name>_wide`` (bf16 and fp16 dk/dv and dq)."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
         "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
@@ -320,7 +347,9 @@ def attention_ptxas(build, log):
                                        "flash_seg_bwd_dkdv"),
         "flash_bwd_dq_sm90_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
         "flash_bwd_pre_kernel": ("flash_bwd_pre", "flash_bwd_pre"),
-        "flash_fwd_mma_kernel": ("flash_fwd", "flash_seg_fwd"),
+        "flash_fwd_sm90_tf32_kernel": ("flash_fwd", "flash_seg_fwd"),
+        "flash_bwd_dq_sm90_tf32_kernel": ("flash_bwd_dq",
+                                          "flash_seg_bwd_dq"),
         "flash_bwd_dkdv_mma_kernel": ("flash_bwd_dkdv", "flash_seg_bwd_dkdv"),
         "flash_bwd_dq_mma_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
     }
@@ -328,6 +357,7 @@ def attention_ptxas(build, log):
         for mangled, r in sorted(build.ptxas_report(stem).items()):
             # the kernel's name follows its length (the file's does not);
             # then the slice, head dim or group width, then In and OutT
+            # (the tf32 kernels have neither: fp32 in and out)
             m = re.search(
                 r"(?<=\d)(flash_\w+?_kernel(?:_deep)?)I(?:Li(\d+)E)?(\w*?)"
                 r"EEv", mangled)
@@ -341,6 +371,8 @@ def attention_ptxas(build, log):
             if kernel.endswith("mma_kernel"):
                 row = (f"{names[kernel][0]}_tf32" if types.startswith("f")
                        else f"{row}_wide")
+            elif kernel.endswith("_tf32_kernel"):
+                row = f"{names[kernel][0]}_sm90_tf32"
             elif kernel.endswith("_deep"):
                 row += "_sm90_deep"
             elif d and int(d) > 128:
@@ -350,7 +382,8 @@ def attention_ptxas(build, log):
             entry = rows.setdefault(row, {"registers": 0, "spill_bytes": 0})
             entry["registers"] = max(entry["registers"], r["registers"])
             entry["spill_bytes"] += spill
-            width = ("kOut " if kernel.endswith("_deep") else "D") + (d or "")
+            width = ("kOut " if kernel.endswith(("_deep", "_tf32_kernel"))
+                     else "D") + (d or "")
             log(f"  {kernel} {width + ' ' if d else ''}{types}: "
                 f"{r['registers']} registers, {spill} bytes spilled")
     return rows
@@ -788,12 +821,12 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
     """K6 against its plain versions at each of FLASH_SHAPES: each output's
     error against the plain version in fp32 (from the same inputs) within
     :func:`flash_limit`. Returns a row per kernel (numbers at the flagship
-    shape, every shape under "shapes"), the rows of the routes of their
-    own (the tf32 ones at TF32_SHAPE) and a fwd/fwd+bwd summary per shape
-    beside SDPA's."""
+    shape, every shape under "shapes"), the entries of each fp32 shape
+    ({shape: {kernel: entry}}, the rows of TF32_ROWS) and a fwd/fwd+bwd
+    summary per shape beside SDPA's."""
     import torch.nn.functional as F
     rows = {n: {"shapes": []} for n in FLASH_KERNELS}
-    tf32_rows = {}
+    fp32_entries = {}
     summary = []
     for what, b, h, tq, tk, d, causal, dtype in FLASH_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(2)
@@ -917,9 +950,8 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
             log(f"  {what} {name}: kernel {ms:.4f} ms (host {host_ms:.4f} "
                 f"ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})" + rate_text(entry))
-        if what == TF32_SHAPE:
-            tf32_rows = {f"{n}_tf32": entries[n] for n in
-                         ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}
+        if dtype == "float32":
+            fp32_entries[what] = entries
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
@@ -950,17 +982,19 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
                            if key in first})
         rows[name]["max_abs_err"] = max(e["max_abs_err"]
                                         for e in rows[name]["shapes"])
-    return rows, tf32_rows, summary
+    return rows, fp32_entries, summary
 
 
 def pad_copies_ok(K, dt, d, copies):
-    """Whether no wrapper that runs a Hopper kernel (or di) on 16-bit
-    inputs of head dim ``d`` copied them: those read the views in place;
-    the mma.sync family (tf32, and 16-bit above its Hopper limit) copies."""
+    """Whether no wrapper that runs a Hopper kernel (or di) on inputs of
+    head dim ``d`` copied them: those read the views in place (the shapes
+    here are [B, T, H, D] views whose strides TMA takes); the mma.sync
+    family (fp32 dk/dv, and every dtype's dk/dv and dq above its Hopper
+    limit) copies."""
     for name, n in copies.items():
         hopper = name == "flash_bwd_pre" or (
-            K.flash_route(dt, d, name) in ("sm90", "sm90_wide"))
-        if dt.itemsize == 2 and hopper and n != 0:
+            K.flash_route(dt, d, name) in ("sm90", "sm90_wide", "sm90_tf32"))
+        if hopper and n != 0:
             return False
     return True
 
@@ -1005,34 +1039,37 @@ def flash_source(name):
     return "flash_attn.cu" if name == "flash_bwd_pre" else "flash_bwd_sm90.cu"
 
 
-def seg_work(b, h, s, d, causal):
+def seg_work(b, h, s, d, causal, itemsize):
     """Per K7 kernel on one [B, H, S, D] segment: (bytes, operations, peak
     operations/s), counted as for K6 with fp32 outputs."""
     pairs = flash_pairs(b, h, s, s, causal)
-    x = b * h * s * d * 2          # one bf16 [B, H, S, D] tensor
-    xf = 2 * x                     # one fp32 [B, H, S, D] tensor
+    x = b * h * s * d * itemsize   # one [B, H, S, D] input
+    xf = b * h * s * d * 4         # one fp32 [B, H, S, D] tensor
     st = b * h * s * 4             # one fp32 [B, H, S] tensor (lse, di)
+    peak = TF32_FLOPS if itemsize == 4 else BF16_FLOPS
     return {
-        "flash_seg_fwd": (3 * x + xf + st, 4 * d * pairs, BF16_FLOPS),
+        "flash_seg_fwd": (3 * x + xf + st, 4 * d * pairs, peak),
         "flash_seg_bwd_dkdv": (4 * x + 2 * st + 2 * xf, 8 * d * pairs,
-                               BF16_FLOPS),
-        "flash_seg_bwd_dq": (4 * x + 2 * st + xf, 6 * d * pairs, BF16_FLOPS),
+                               peak),
+        "flash_seg_bwd_dq": (4 * x + 2 * st + xf, 6 * d * pairs, peak),
     }
 
 
 def check_seg_kernels(torch, K, dev, flush, reps, log):
     """K7 against its plain versions at each of SEG_SHAPES, as phase 4 holds
     K6: each output's error against the plain version in fp32 (from the
-    same bf16 inputs) is at most twice the bf16 plain version's, plus 1e-3
-    of the largest entry, and the kernels give the same bits on the strided
-    views as on contiguous copies of them. Returns a row per kernel
-    (numbers at the first shape, every shape under "shapes")."""
+    same inputs) within :func:`flash_limit` (twice the plain version's in
+    the input dtype, fp32's in tf32, plus 1e-3 or TF32_FLOOR of the largest
+    entry), and the kernels give the same bits on the strided views as on
+    contiguous copies of them. Returns a row per kernel (numbers at the
+    first shape, every shape under "shapes")."""
     import torch.nn.functional as F
     rows = {n: {"shapes": []} for n in SEG_KERNELS}
-    for what, b, h, t, d, part in SEG_SHAPES:
+    for what, b, h, t, d, part, dtype in SEG_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(3)
+        dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
-                       .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+                       .to(dt).transpose(1, 2) for _ in range(4))
         scale = d ** -0.5
         # the global lse and di of causal attention over all T (K6)
         o, lse = K.flash_fwd(q, k, v, True, scale)
@@ -1050,9 +1087,10 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
         dq32, dk32, dv32 = K.flash_seg_bwd_plain(
             f32[0], f32[1], f32[2], f32[4], f32[3], f32[5], causal, scale)
         del f32
-        ob, lseb = K.flash_seg_fwd_plain(sq, sk, sv, causal, scale)
-        dqb, dkb, dvb = K.flash_seg_bwd_plain(sq, sk, sv, slse, sdo, sdi,
-                                              causal, scale)
+        with plain_matmuls(torch, dtype):
+            ob, lseb = K.flash_seg_fwd_plain(sq, sk, sv, causal, scale)
+            dqb, dkb, dvb = K.flash_seg_bwd_plain(sq, sk, sv, slse, sdo, sdi,
+                                                  causal, scale)
         kargs = (sq, sk, sv, sdo, slse, sdi, causal, scale)
         o_k, lse_k = K.flash_seg_fwd(sq, sk, sv, causal, scale)
         dk_k, dv_k = K.flash_seg_bwd_dkdv(*kargs)
@@ -1075,9 +1113,10 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
                   f"K7 {what} {name}: not finite")
             err[name] = float((got.float() - want).abs().max())
             base = float((plain.float() - want).abs().max())
-            limit = 2 * base + 1e-3 * float(want.abs().max())
-            log(f"  {what} {name}: kernel error {err[name]:.4g}, bf16 "
-                f"plain error {base:.4g}, limit {limit:.4g}")
+            limit = flash_limit(want, base, dtype)
+            log(f"  {what} {name}: kernel error {err[name]:.4g}, "
+                f"{'tf32' if dtype == 'float32' else 'bf16'} plain error "
+                f"{base:.4g}, limit {limit:.4g}")
             check(err[name] <= limit,
                   f"K7 {what} {name}: error {err[name]:.4g} > {limit:.4g}")
         del o32, lse32, dq32, dk32, dv32, ob, lseb, dqb, dkb, dvb
@@ -1111,13 +1150,14 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
         del qg, kg, vg, sdpa_out
         library = {"flash_seg_fwd": sdpa_ms, "flash_seg_bwd_dkdv": sdpa_bwd_ms,
                    "flash_seg_bwd_dq": sdpa_bwd_ms}
-        work = seg_work(b, h, s, d, causal)
+        work = seg_work(b, h, s, d, causal, dt.itemsize)
         for name, (kern, plain) in calls.items():
             ms, host_ms = time_ms(torch, kern, flush, reps)
             plain_ms, _ = time_ms(torch, plain, flush, max(3, reps // 4))
             bound_ms, bound_by = bound(*work[name])
-            entry = dict(what=what, shape=[b, h, s, d], causal=causal,
-                         ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+            entry = dict(what=what, shape=[b, h, s, d], dtype=dtype,
+                         causal=causal, ms=ms, host_ms=host_ms,
+                         plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=library[name],
                          max_abs_err=errors[name])
@@ -1256,34 +1296,41 @@ def run_ring_path(torch, K, R, fa, dev, log):
 def wide_routes(K, dtype, d, ring):
     """The route each kernel of one wide path takes (flash_route: up to
     head dim 256 the Hopper kernels, above it the Hopper forward and the
-    mma.sync dk/dv and dq), K7's on the ring, K6's on
-    flash_attention_local: {wrapper: "sm90_wide" or "wide"}."""
+    mma.sync dk/dv and dq; fp32: the Hopper tf32 forward, the mma.sync dk/dv
+    and, above 256, dq), K7's on the ring, K6's on flash_attention_local:
+    {wrapper: "sm90_wide", "wide", "sm90_tf32" or "tf32"}."""
     names = WIDE_KERNELS[3:] if ring else WIDE_KERNELS[:3]
     return {name: K.flash_route(dtype, d, name) for name in names}
 
 
+# the routes a wide path's launches may take, and the CUDA kernel (by the
+# suffix of its name after ROUTE_KERNELS' base) each launches
+WIDE_PATH_ROUTES = {"sm90_wide": "_sm90_kernel", "wide": "_mma_kernel",
+                    "sm90_tf32": "_sm90_tf32_kernel", "tf32": "_mma_kernel"}
+
+
 def wide_route_ok(counts, routes):
     """Whether one wide path's launch counts show each wrapper on its route
-    (at least once) and never on the other."""
+    (at least once) and never on another."""
     for name, want in routes.items():
-        other = "wide" if want == "sm90_wide" else "sm90_wide"
-        if counts.get(f"{name}_{want}", 0) < 1 \
-                or counts.get(f"{name}_{other}", 0) != 0:
-            return False
+        for route in WIDE_PATH_ROUTES:
+            n = counts.get(f"{name}_{route}", 0)
+            if (n < 1) if route == want else (n != 0):
+                return False
     return True
 
 
 def traced_route_ok(names, routes):
     """Whether the kernel names of a profiler trace agree with the routes:
-    each wrapper's Hopper kernel (``<kernel>_sm90_kernel``) or mma.sync
-    kernel (``<kernel>_mma_kernel``) seen, and the other never."""
+    each wrapper's kernel on its route (``<kernel>_sm90_kernel``,
+    ``<kernel>_sm90_tf32_kernel`` or ``<kernel>_mma_kernel``) seen, and the
+    others never."""
     for name, route in routes.items():
         base = ROUTE_KERNELS[name]
-        want, other = ((f"{base}_sm90_kernel", f"{base}_mma_kernel")
-                       if route == "sm90_wide" else
-                       (f"{base}_mma_kernel", f"{base}_sm90_kernel"))
+        want = base + WIDE_PATH_ROUTES[route]
+        others = {base + k for k in WIDE_PATH_ROUTES.values()} - {want}
         if not any(want in n for n in names) \
-                or any(other in n for n in names):
+                or any(other in n for other in others for n in names):
             return False
     return True
 
@@ -1293,8 +1340,9 @@ def run_wide_path(torch, K, R, fa, dev, log):
     user calls, ``flash_attention_local`` and ``ring_attention_p``
     (zig-zag, ``force_ring=True``), forward and backward of sum(out²) at
     each of WIDE_PATHS: each output and gradient within twice the plain
-    version's error in the input dtype plus 1e-3 of the largest entry of
-    the fp32 plain version's; each kernel on its route, by its launch
+    version's error in the input dtype (fp32: in tf32) plus 1e-3 (fp32:
+    TF32_FLOOR) of the largest entry of the fp32 plain version's; each
+    kernel on its route, by its launch
     counter (wide_route_ok) and by the kernels a torch.profiler trace of
     two calls saw (traced_route_ok). Times each path's forward + backward
     (CUDA events, median of WIDE_WINDOWS windows) and, from the trace, the
@@ -1372,15 +1420,16 @@ def run_wide_path(torch, K, R, fa, dev, log):
                                                    True, scale))
         del f32, lse32
         lo = [x.transpose(1, 2) for x in base]
-        ob, lseb = K.flash_attention_fwd_plain(*lo, True, scale)
-        refb = (ob, *K.flash_attention_bwd_plain(
-            *lo, ob, lseb, (2 * ob.float()).to(dt), True, scale))
+        with plain_matmuls(torch, dtype):
+            ob, lseb = K.flash_attention_fwd_plain(*lo, True, scale)
+            refb = (ob, *K.flash_attention_bwd_plain(
+                *lo, ob, lseb, (2 * ob.float()).to(dt), True, scale))
         errors = {}
         for name, g, w32, wb in zip(("out", "dq", "dk", "dv"), got, ref32,
                                     refb):
             e = float((g.float() - w32).abs().max())
-            lim = (2 * float((wb.float() - w32).abs().max())
-                   + 1e-3 * float(w32.abs().max()))
+            lim = flash_limit(w32, float((wb.float() - w32).abs().max()),
+                              dtype)
             errors[name] = e
             log(f"  {what} B{b} T{t} H{h} D{d} {dtype} {name}: error {e:.4g}"
                 f" (limit {lim:.4g})")
@@ -1828,10 +1877,11 @@ def profile_steps(torch, step, n, log):
 
 def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     """Phase 12: ViT_Tiny (4 heads of 16) in fp32 on the card, through the
-    tf32 kernels with the head dim padded to 64: its first logits against
-    the same model's on the CPU (K6's plain versions), then TINY_STEPS
-    SGD-momentum steps (losses finite). Returns the summary and the launch
-    counts of the path."""
+    Hopper tf32 forward and dq, which read the head dim of 16 in place, and
+    the tf32 mma.sync dk/dv, which takes copies padded to 64: its first
+    logits against the same model's on the CPU (K6's plain versions), then
+    TINY_STEPS SGD-momentum steps (losses finite). Returns the summary and
+    the launch counts of the path."""
     model = ViT_Tiny(num_classes=10, dtype=torch.float32,
                      image_size=TINY_IMAGE,
                      generator=torch.Generator().manual_seed(0))
@@ -1865,11 +1915,16 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     check(all(v == v and abs(v) != float("inf") for v in losses),
           "non-finite ViT_Tiny loss")
     layers = len(model.blocks)
-    for name in ("flash_fwd_tf32", "flash_bwd_dkdv_tf32",
-                 "flash_bwd_dq_tf32"):
+    for name in ("flash_fwd_sm90_tf32", "flash_bwd_dkdv_tf32",
+                 "flash_bwd_dq_sm90_tf32", "flash_bwd_dkdv_pad_copies"):
         check(counts[name] == layers * TINY_STEPS,
               f"{name} launched {counts[name]} on the ViT_Tiny path, "
               f"expected {layers * TINY_STEPS}")
+    for name in ("flash_fwd_tf32", "flash_bwd_dq_tf32",
+                 "flash_fwd_pad_copies", "flash_bwd_dq_pad_copies",
+                 "flash_bwd_pre_pad_copies"):
+        check(counts[name] == 0, f"{name}: {counts[name]} on the ViT_Tiny "
+              "path, expected 0")
     return (dict(logits_err=err, logits_limit=limit, losses=losses),
             counts)
 
@@ -2040,7 +2095,7 @@ def main(argv=None) -> int:
         log("phase 4: K6 flash-attention kernels against their plain "
             "versions")
         flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
-        flash_rows, tf32_rows, attention = check_flash_kernels(
+        flash_rows, fp32_entries, attention = check_flash_kernels(
             torch, K, dev, flush, args.reps, log)
         del flush
         torch.cuda.empty_cache()
@@ -2164,9 +2219,9 @@ def main(argv=None) -> int:
                                                   adasum_ops, dev, log)
         torch.cuda.empty_cache()
 
-        log(f"phase 12: ViT_Tiny (head dim 16) in fp32 through the tf32 "
-            f"kernels, batch {TINY_BATCH}, {TINY_IMAGE} px, {TINY_STEPS} "
-            "steps")
+        log(f"phase 12: ViT_Tiny (head dim 16) in fp32 through the Hopper "
+            f"tf32 forward and dq and the tf32 mma.sync dk/dv, batch "
+            f"{TINY_BATCH}, {TINY_IMAGE} px, {TINY_STEPS} steps")
         tiny, tiny_counts = run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log)
         torch.cuda.empty_cache()
 
@@ -2184,6 +2239,13 @@ def main(argv=None) -> int:
                 check((wide_counts[f"{name}_{route}"] >= 1) == want,
                       f"{name}_{route} launched {wide_counts[f'{name}_{route}']}"
                       " times on the wide path")
+        # the fp32 path: the Hopper tf32 forward, the mma.sync dk/dv and dq
+        for name in ("flash_fwd_sm90_tf32", "flash_bwd_dkdv_tf32",
+                     "flash_bwd_dq_tf32"):
+            check(wide_counts[name] >= 1,
+                  f"{name} launched no time on the wide path")
+        check(wide_counts["flash_fwd_tf32"] == 0,
+              "a forward ran the mma.sync family on the wide path")
     finally:
         hvd.shutdown()
 
@@ -2217,7 +2279,8 @@ def main(argv=None) -> int:
     def wide_work(name, row):
         shape = wide_shape(name, row)
         if name.startswith("flash_seg"):
-            _, b, h, t, d, _ = next(x for x in SEG_SHAPES if x[0] == shape)
+            _, b, h, t, d, _, _ = next(x for x in SEG_SHAPES
+                                       if x[0] == shape)
             text = f"bf16 D{d}, the FULL half-segment B{b} H{h} S{t // 2}"
         else:
             _, b, h, tq, _, d, _, _ = next(x for x in FLASH_SHAPES
@@ -2243,6 +2306,34 @@ def main(argv=None) -> int:
                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")},
             **deep, **ptxas[f"{name}_{row}"])
+
+    def tf32_row(row, name, shape, phase):
+        """The kernels-line row of an fp32 instance (TF32_ROWS): numbers at
+        ``shape``, launches from ``phase``'s counts; the Hopper tf32 rows
+        list every fp32-input shape of phases 4 and 8 under "shapes"."""
+        entry = fp32_entries[shape][name]
+        hopper = row.endswith("_sm90_tf32")
+        seg = "flash_seg" + name[len("flash"):]
+        shapes = ([fp32_entries[w][name] for w in fp32_entries]
+                  + [e for e in seg_rows[seg]["shapes"]
+                     if e["dtype"] == "float32"]) if hopper else []
+        counts = tiny_counts if phase == 12 else wide_counts
+        line = {"flash_fwd": 169, "flash_bwd_dkdv": 188,
+                "flash_bwd_dq": 194}[name]
+        return dict(
+            name=row, route="cuda",
+            source=f"{src}/" + ("flash_attn.cu" if not hopper else
+                                flash_source(name)),
+            replaces="horovod_tpu/parallel/flash_attention.py:226 and "
+                     f"horovod_tpu/parallel/ring_attention.py:{line}",
+            launches=counts[row], ok=True,
+            work=(f"fp32 {shape} (B, H, Tq, Tk, D: {entry['shape']}, "
+                  f"{'causal' if entry['causal'] else 'full'}), K6 and K7 "
+                  f"alike; launches: phase {phase}"),
+            **{key: entry[key] for key in
+               ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")},
+            **({"shapes": shapes} if shapes else {}), **ptxas[row])
 
     src = "horovod_tpu_torch/csrc"
     kernels = [
@@ -2281,18 +2372,9 @@ def main(argv=None) -> int:
              **({"library_call": "SDPA backward (dq, dk and dv together)"}
                 if name in ("flash_bwd_dkdv", "flash_bwd_dq") else {}))
         for name in FLASH_KERNELS] + [
-        # the fp32 family: the same functions on tf32 tensor cores
-        dict(name=name, route="cuda", source=f"{src}/flash_attn.cu",
-             replaces="horovod_tpu/parallel/flash_attention.py:226",
-             launches=tiny_counts[name], ok=True,
-             work="ViT_Tiny's attention in fp32 (B32 H4 T65, D16 padded "
-                  "to 64, full), the shape phase 12 runs; launches: phase 12",
-             **{key: tf32_rows[name][key] for key in
-                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms", "max_abs_err")},
-             **ptxas[name])
-        for name in ("flash_fwd_tf32", "flash_bwd_dkdv_tf32",
-                     "flash_bwd_dq_tf32")] + [
+        # fp32 inputs: the Hopper tf32 forward and dq, the tf32 mma.sync
+        # dk/dv, and its dq above head dim 256
+        tf32_row(*spec) for spec in TF32_ROWS] + [
         # the ring's per-segment kernels: _seg_fwd_pallas and the two
         # library backward kernels _seg_bwd_pallas calls
         dict(name=name, route="cuda", source=f"{src}/{flash_source(name)}",

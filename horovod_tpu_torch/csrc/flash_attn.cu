@@ -1,7 +1,7 @@
 // Flash attention: the C entry points of K6 and K7, di = rowsum(dO o O)
 // (K6b) for every input type and head dim, and the mma.sync family of the
-// forward and the backward: fp32 inputs at every head dim, and bf16 and
-// fp16 dk/dv and dq above head dim 256.
+// backward: fp32 dk/dv at every head dim, and dk/dv and dq of every input
+// type above head dim 256.
 //
 // Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py:
 // flash_attention_local takes from jax's library (the flash / splash
@@ -11,20 +11,19 @@
 // _seg_bwd_pallas).
 //
 // The route (run() below; ops/kernels.py:flash_route says the same):
-// - bf16 and fp16: the Hopper kernels of flash_fwd_sm90.cu and
-//   flash_bwd_sm90.cu (TMA and wgmma): the forward at every head dim,
-//   dk/dv and dq up to 256 (kBwdMaxD). They read a head dim below their
-//   instance's in place (Args::Dr);
-// - bf16 and fp16 dk/dv and dq above 256, and fp32 at every head dim: the
-//   mma.sync family below, which takes Dr = D. wgmma's N is at most 256:
-//   the forward's O at 320 is two accumulators of 192 and 128 columns over
-//   the same P, above 320 its columns are split over blocks (and above 512
-//   S is summed over the depth's slabs), but dK and dV (held together in a
-//   dk/dv block) and dQ beside S and dP fit no register budget above 256
-//   yet; wgmma takes tf32 operands K-major only, and four of the attention
-//   products (P V, P^T dO, dS^T Q, dS K) would need an MN-major one.
-// There is no fallback: a launch runs its route's kernel or returns the
-// error.
+// - the forward: the Hopper kernels of flash_fwd_sm90.cu (TMA and wgmma)
+//   at every head dim and input type, fp32 on tf32 wgmma;
+// - dk/dv and dq: the Hopper kernels of flash_bwd_sm90.cu up to head dim
+//   256 (kBwdMaxD): bf16 and fp16 dk/dv and dq, fp32 dq (tf32);
+// - the rest, the mma.sync family below: fp32 dk/dv at every head dim, and
+//   dk/dv and dq above 256 for every input type. wgmma's N is at most 256,
+//   and dK and dV (held together in a dk/dv block) and dQ beside S and dP
+//   fit no register budget above 256 yet; fp32 dk/dv would need two
+//   operands transposed in the kernel (P^T dO and dS^T Q contract over q,
+//   and wgmma takes tf32 operands K-major only).
+// The Hopper kernels read a head dim below their instance's in place
+// (Args::Dr); the mma.sync family takes Dr = D (the wrapper pads). There is
+// no fallback: a launch runs its route's kernel or returns the error.
 //
 // The mma.sync family runs mma.sync m16n8k8 on tf32: tiles are staged in
 // shared memory as fp32 (rows padded by 4 floats), every fragment is a
@@ -38,7 +37,6 @@
 // accumulators to a warp's own rows of shared memory to become the next
 // product's A. Each warp owns 16 rows of its block's tile; 4 warps a block,
 // tiles of 64 rows by 32:
-// - forward: a block of 64 q rows, online softmax over kv tiles of 32;
 // - dk/dv: a block of 64 kv rows, q tiles of 32 from the causal diagonal
 //   on, P^T = exp(K Q^T * scale - lse), dV += P^T dO, dK += dS^T Q;
 // - dq: a block of 64 q rows, kv tiles of 32, dQ += dS K.
@@ -286,121 +284,6 @@ struct Cols {
     return ONE ? DS : min(DS, D - ch * DS);
   }
 };
-
-template <int DS>
-constexpr int fwd_smem() {
-  return ((kRows + 2 * kTile) * (DS + kPad) + kRows * kLdP) * 4;
-}
-
-template <int DS, typename In, typename Out, bool ONE>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_mma_kernel(const Args p) {
-  constexpr int LD = DS + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + kRows * LD;
-  float* vs = ks + kTile * LD;
-  float* ps = vs + kTile * LD;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  // causal: the longest rows first, so the last wave is short
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = q0 + warp * 16 + g;
-  float* pw = ps + warp * 16 * kLdP;
-  const float sl2 = p.scale * kLog2e;
-  const Cols<DS, ONE> cols(p.D);
-  const In* qh = head_ptr<In>(p.q, b, h);
-  const In* kh = head_ptr<In>(p.k, b, h);
-  const In* vh = head_ptr<In>(p.v, b, h);
-
-  if (cols.n_chunks == 1)
-    load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, 0, cols.width);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[DS / 8][4];
-  zero(o);
-
-  const int kv_end = p.causal ? min(p.Tk, q0 + kRows) : p.Tk;
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-    float s[kTile / 8][4];
-    zero(s);
-    for (int ch = 0; ch < cols.n_chunks; ++ch) {
-      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
-      __syncthreads();   // the previous chunk or tile is consumed
-      if (cols.n_chunks > 1)
-        load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, ch * DS, w);
-      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * DS, w);
-      if (ch == cols.n_chunks - 1)
-        load_tile<kTile, LD>(vs, vh, p.v.st, kv0, p.Tk, cols.col0,
-                             cols.width);
-      __syncthreads();
-      gemm_nt_chunk<DS, kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, w, g, t);
-    }
-    const bool mask =
-        kv0 + kTile > p.Tk || (p.causal && kv0 + kTile - 1 > q0 + warp * 16);
-    float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r_lo + 8 * (e >> 1);
-        const int col = kv0 + 8 * j + 2 * t + (e & 1);
-        float x = s[j][e] * sl2;
-        if (mask && (col >= p.Tk || (p.causal && col > row))) x = -INFINITY;
-        s[j][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
-      }
-    }
-    float alpha[2], msub[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      const float mnew = fmaxf(m[i], mt[i]);
-      // nothing seen yet in this row: nothing to rescale
-      alpha[i] = mnew == -INFINITY ? 1.f : exp2f(m[i] - mnew);
-      msub[i] = mnew == -INFINITY ? 0.f : mnew;
-      m[i] = mnew;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - msub[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
-#pragma unroll
-    for (int dj = 0; dj < DS / 8; ++dj) {
-      o[dj][0] *= alpha[0];
-      o[dj][1] *= alpha[0];
-      o[dj][2] *= alpha[1];
-      o[dj][3] *= alpha[1];
-    }
-    stage<In>(pw, s, g, t);
-    gemm_nn<kTile, DS / 8>(o, pw, kLdP, vs, LD, g, t);
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    // a row that saw no key: o = 0, lse = the finite sentinel
-    inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
-  }
-  store_rows<DS, Out>(p.o, b, h, r_lo, p.Tq, cols.col0, p.D, o, inv, t);
-  if (t == 0 && blockIdx.z == 0) {
-    float* lse = stat_row(p.lse, b, h);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r_lo + 8 * i;
-      if (r < p.Tq) lse[r] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : kNegInf;
-    }
-  }
-}
 
 template <int DS>
 constexpr int dkdv_smem() {
@@ -685,14 +568,10 @@ cudaError_t launch(K kernel, int smem, int T, int slices, const Args& a,
   return cudaGetLastError();
 }
 
-// The three kernels of the family at slice width DS, for In and Out.
+// The two kernels of the family at slice width DS, for In and Out.
 template <int DS, typename In, typename Out, bool ONE>
 struct Mma {
   static int slices(const Args& a) { return (a.D + DS - 1) / DS; }
-  static cudaError_t fwd(const Args& a, cudaStream_t s) {
-    return launch(flash_fwd_mma_kernel<DS, In, Out, ONE>, fwd_smem<DS>(),
-                  a.Tq, slices(a), a, s);
-  }
   static cudaError_t dkdv(const Args& a, cudaStream_t s) {
     return launch(flash_bwd_dkdv_mma_kernel<DS, In, Out, ONE>,
                   dkdv_smem<DS>(), a.Tk, slices(a), a, s);
@@ -703,9 +582,10 @@ struct Mma {
   }
 };
 
-// One kernel of the family for fp32 inputs: at D 64 or 128 in one slice
-// of D, above 128 in slices of 128. The family reads D columns of every
-// view: it takes no narrower one.
+// One kernel of the family for fp32 inputs (dk/dv at every head dim, dq
+// above 256): at D 64 or 128 in one slice of D, above 128 in slices of
+// 128. The family reads D columns of every view: it takes no narrower
+// one.
 template <template <int, typename, typename, bool> class F>
 cudaError_t mma_f32(const Args& a, cudaStream_t s) {
   if (a.Dr != a.D || a.dtype != flash::kF32) return cudaErrorInvalidValue;
@@ -715,8 +595,8 @@ cudaError_t mma_f32(const Args& a, cudaStream_t s) {
 }
 
 // One kernel of the family for a's inputs: fp32 as mma_f32, bf16 and fp16
-// (dk/dv and dq above head dim 256) in slices of 128; outputs of the input
-// type, or fp32 (out_f32).
+// (above head dim 256) in slices of 128; outputs of the input type, or fp32
+// (out_f32).
 template <template <int, typename, typename, bool> class F>
 cudaError_t mma_pick(const Args& a, cudaStream_t s) {
   if (a.Dr != a.D) return cudaErrorInvalidValue;
@@ -734,12 +614,6 @@ cudaError_t mma_pick(const Args& a, cudaStream_t s) {
 }
 
 template <int DS, typename In, typename Out, bool ONE>
-struct FwdMma {
-  static cudaError_t run(const Args& a, cudaStream_t s) {
-    return Mma<DS, In, Out, ONE>::fwd(a, s);
-  }
-};
-template <int DS, typename In, typename Out, bool ONE>
 struct DkdvMma {
   static cudaError_t run(const Args& a, cudaStream_t s) {
     return Mma<DS, In, Out, ONE>::dkdv(a, s);
@@ -752,10 +626,6 @@ struct DqMma {
   }
 };
 
-// fp32 only: the Hopper forward takes bf16 and fp16 at every head dim
-cudaError_t fwd_mma(const Args& a, cudaStream_t s) {
-  return mma_f32<FwdMma>(a, s);
-}
 cudaError_t dkdv_mma(const Args& a, cudaStream_t s) {
   return mma_pick<DkdvMma>(a, s);
 }
@@ -798,11 +668,12 @@ constexpr int kBwdMaxD = 256;
 // Checks the arguments every kernel relies on (the views' head dim Dr
 // even and at least 2), sets the instance's head dim D (64, 128, or Dr
 // rounded up to a multiple of 64: ops/kernels.py:_flash_dim), selects the
-// device, and runs `sm90` (the Hopper kernels: bf16 and fp16 at D up to
-// `sm90_max_d`, the function's largest Hopper head dim, every D if it has
-// none) or `mma` (fp32 at every D, and bf16 and fp16 above it).
+// device, and runs `sm90` (the Hopper kernels) at D up to the function's
+// largest Hopper head dim for the inputs' type, `max_d` for bf16 and fp16
+// and `max_d_f32` for fp32 (every D by default), else `mma` (the mma.sync
+// family).
 int run(int device, Args a, void* stream, Fn sm90, Fn mma,
-        int sm90_max_d = INT_MAX) {
+        int max_d = INT_MAX, int max_d_f32 = INT_MAX) {
   if (a.Dr < 2 || a.Dr % 2 != 0) return (int)cudaErrorInvalidValue;
   a.D = a.Dr <= 64 ? 64 : a.Dr <= 128 ? 128 : (a.Dr + 63) / 64 * 64;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
@@ -812,7 +683,7 @@ int run(int device, Args a, void* stream, Fn sm90, Fn mma,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool hopper = a.dtype != flash::kF32 && a.D <= sm90_max_d;
+  const bool hopper = a.D <= (a.dtype == flash::kF32 ? max_d_f32 : max_d);
   return (int)(hopper ? sm90 : mma)(a, (cudaStream_t)stream);
 }
 
@@ -860,8 +731,9 @@ extern "C" {
 // Every tensor argument is a [B, H, T, Dr] view, its head dim contiguous,
 // with the element strides of B, H and T given three by three in
 // `strides` (host memory), in argument order. Dr is their head dim, even;
-// the mma.sync family takes 64, 128 or a multiple of 64 above only (the
-// wrapper pads other head dims with zeros). dtype: 0 bf16, 1
+// the mma.sync family (fp32 dk/dv, dk/dv and dq above 256) takes 64, 128
+// or a multiple of 64 above only (the wrapper pads other head dims with
+// zeros). dtype: 0 bf16, 1
 // fp16, 2 fp32 (the inputs'). q and dout have Tq rows, k and v Tk. device:
 // the CUDA ordinal of the tensors and stream.
 //
@@ -878,7 +750,7 @@ int hvd_flash_fwd(int device, int dtype, const void* q, const void* k,
                   causal, scale);
   a.o = view(o, strides, 3);
   a.lse = dense_stat(lse, H, Tq);
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
+  return run(device, a, stream, flash::fwd_sm90, nullptr);
 }
 
 // di = rowsum(dout * o). strides: o, dout.
@@ -894,7 +766,7 @@ int hvd_flash_bwd_pre(int device, int dtype, const void* o, const void* dout,
   a.o = view(o, strides, 0);
   a.dout = view(dout, strides, 1);
   a.di = dense_stat(di, H, T);
-  return run(device, a, stream, bwd_pre, bwd_pre, 0);
+  return run(device, a, stream, bwd_pre, bwd_pre, 0, 0);
 }
 
 // dk = ds^T q * scale, dv = p^T dout, p = exp(q k^T * scale - lse),
@@ -911,7 +783,8 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
   a.dv = view(dv, strides, 5);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD,
+             0);
 }
 
 // dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
@@ -925,7 +798,8 @@ int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.dq = view(dq, strides, 4);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD,
+             kBwdMaxD);
 }
 
 // K7 (ring attention's segments, Tq = Tk = the segment length S): the same
@@ -943,7 +817,7 @@ int hvd_flash_seg_fwd(int device, int dtype, const void* q, const void* k,
   a.o = view(o, strides, 3);
   a.lse = stat(lse, strides, 4, 0);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::fwd_sm90, fwd_mma);
+  return run(device, a, stream, flash::fwd_sm90, nullptr);
 }
 
 // (dk, dv) of one segment under the given lse and di.
@@ -961,7 +835,8 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
   a.lse = stat(lse, strides, 6, 0);
   a.di = stat(di, strides, 6, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD,
+             0);
 }
 
 // dq of one segment under the given lse and di.
@@ -977,7 +852,8 @@ int hvd_flash_seg_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.lse = stat(lse, strides, 5, 0);
   a.di = stat(di, strides, 5, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD,
+             kBwdMaxD);
 }
 
 }  // extern "C"

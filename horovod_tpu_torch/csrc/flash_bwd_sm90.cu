@@ -1,6 +1,7 @@
 // Flash attention backward for Hopper: K6c (dk, dv) and K6d (dq) of flash
 // attention, outputs in the input type, and K7b / K7c, ring attention's
-// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In).
+// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In), and dq for
+// fp32 inputs on tf32 (K6d and K7c alike, fp32 dq).
 //
 // Replaces the custom-VJP backward of the Pallas kernels that
 // horovod_tpu/parallel/flash_attention.py:flash_attention_local takes from
@@ -68,6 +69,25 @@
 //   rings of their own, 3 K slots and 2 V slots (at D 256 Q, dO and the
 //   rings take 229,376 bytes), each V slot released once dP is done and
 //   each K slot once its dQ product is.
+// - dq for fp32 inputs up to head dim 256 (DqTf32<kOut>,
+//   flash_bwd_dq_sm90_tf32_kernel<kOut>): tf32 wgmma, the forward's tf32
+//   design (flash_fwd_sm90.cu) applied to dq. S = Q K^T and dP = dO V^T are
+//   K-major products, summed over the depth's slabs of 32 columns through
+//   a ring whose slot holds K_c and V_c (up to 8 slots, 2 at D 256), Q and
+//   dO resident; dQ += dS K contracts over kv, so K is the operand wgmma
+//   cannot take as stored. The producer warpgroup's 96 converters round
+//   Q, dO and each slab to tf32 in place and, for the K slabs of the
+//   block's columns, write K^T (kOut rows by 64 kv, the kv order of
+//   sm90::to_operand_tf32) into a slot of its own, in the same pass; dS
+//   is the A operand as it lies in the accumulator. dQ's columns go in
+//   groups of kOut (64 at head dims up to 64, else 128: D 256 two groups,
+//   S and dP computed once a group), so a consumer holds dQ (kOut / 2
+//   registers), S and dP (32 each) and dS (32): 160 at kOut 128, in a
+//   block of 256 threads (ptxas: 190 registers at kOut 128, 157 at 64, no
+//   spill). S_j and dP_j are issued with dQ += dS_{j-1}
+//   K_{j-1}, as the 16-bit dq above D 128 does. Above 256 fp32 dq runs the
+//   mma.sync family (flash_attn.cu), as 16-bit dq does; fp32 dk/dv runs it
+//   at every head dim.
 // - Only a tile that crosses the causal diagonal, or Tk in dq, runs the
 //   per-element mask; TMA zero-fills rows past Tq and Tk, whose outputs
 //   are never stored. A dk/dv block past every query (causal, Tk > Tq)
@@ -738,6 +758,309 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// dq, fp32 inputs: tf32 wgmma (see the header)
+
+constexpr int kCols32 = 32;   // fp32 columns of a 128-byte swizzled slab
+
+// The tf32 dq's layout: a block of 64 q rows and the kOut columns of dQ
+// from col0 (64, or 128 in groups), Q and dO resident, S and dP summed over
+// the depth's slabs of 32 fp32 columns through a ring whose slot holds K_c
+// and V_c, K^T (the block's columns) in slots of its own. Warp 0 loads
+// (one thread), warps 1-3 round and transpose, warpgroup 1 consumes.
+template <int kOut_>
+struct DqTf32 {
+  static constexpr int kOut = kOut_;
+  static constexpr int kThreads = 256;
+  static constexpr int kBQ = 64;
+  static constexpr int kSlabElems = 64 * kCols32;   // 64 rows of a slab
+  static constexpr int kSlotElems = 2 * kSlabElems;  // K_c and V_c
+  static constexpr int kKtStages = 2;                // K^T slots
+  static constexpr int kKtElems = kBK * kOut;        // a K^T tile
+  static constexpr int kMaxSlots = 8;
+  // K^T, the barriers and room to align the base to 1024 bytes
+  static constexpr int kFixed = kKtStages * kKtElems * 4 + 512 + 1024;
+  static_assert(kOut % kCols32 == 0 && kOut <= 128, "wgmma's rs members");
+  // the ring slots beside Q and dO (at least 2 up to head dim 256) and the
+  // shared memory of a block
+  __host__ __device__ static int slots(int n_slab) {
+    const int n = (232448 - kFixed - 2 * n_slab * kSlabElems * 4) /
+                  (kSlotElems * 4);
+    return n < kMaxSlots ? n : kMaxSlots;
+  }
+  __host__ __device__ static int smem(int n_slab) {
+    return kFixed + (2 * n_slab * kSlabElems + slots(n_slab) * kSlotElems) *
+                        4;
+  }
+};
+
+// The tf32 dq's barriers: Q and dO as loaded (q_raw) and rounded (q_full);
+// a ring slot as loaded (raw), rounded (full: the 96 converters) and
+// released by the consumer (empty); a K^T slot written (kt_full) and
+// released (kt_empty).
+struct DqTf32Bars {
+  uint64_t *q_raw, *q_full, *raw, *full, *empty, *kt_full, *kt_empty;
+};
+
+// The loading thread: Q and dO once, then each kv tile's K and V slabs.
+template <int kOut>
+__device__ __forceinline__ void dq_load_tf32(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, float* qs, float* dos, float* ring,
+    const DqTf32Bars& bar, int b, int h, int q0, int n_kv, int n_slab,
+    int slots) {
+  using C = DqTf32<kOut>;
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  sm90::prefetch_tensor_map(tdo);
+  sm90::mbar_arrive_expect_tx(bar.q_raw, 2 * n_slab * C::kSlabElems * 4);
+  for (int c = 0; c < n_slab; ++c) {
+    sm90::tma_load_4d(qs + c * C::kSlabElems, tq, bar.q_raw, c * kCols32, q0,
+                      h, b);
+    sm90::tma_load_4d(dos + c * C::kSlabElems, tdo, bar.q_raw, c * kCols32,
+                      q0, h, b);
+  }
+  int j = 0;
+  for (int i = 0; i < n_kv; ++i) {
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % slots;
+      sm90::mbar_wait(bar.empty + st, ((j / slots) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar.raw + st, C::kSlotElems * 4);
+      float* dst = ring + st * C::kSlotElems;
+      sm90::tma_load_4d(dst, tk, bar.raw + st, c * kCols32, i * kBK, h, b);
+      sm90::tma_load_4d(dst + C::kSlabElems, tv, bar.raw + st, c * kCols32,
+                        i * kBK, h, b);
+    }
+  }
+}
+
+// The converters (ct = 0..95): Q and dO rounded once, then each kv tile's
+// slabs rounded in place, the K slabs of the block's columns also
+// transposed into the tile's K^T slot.
+template <int kOut>
+__device__ __forceinline__ void dq_convert_tf32(float* qs, float* ring,
+                                                float* kt,
+                                                const DqTf32Bars& bar,
+                                                int n_kv, int n_slab,
+                                                int slots, int col0, int ct) {
+  using C = DqTf32<kOut>;
+  sm90::mbar_wait(bar.q_raw, 0);
+  sm90::round_tf32(qs, 2 * n_slab * C::kSlabElems, ct);   // Q, then dO
+  sm90::fence_proxy_async();
+  sm90::mbar_arrive(bar.q_full);
+  int j = 0;
+  for (int i = 0; i < n_kv; ++i) {
+    const int ks = i % C::kKtStages;
+    sm90::mbar_wait(bar.kt_empty + ks, ((i / C::kKtStages) & 1) ^ 1);
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % slots;
+      float* slot = ring + st * C::kSlotElems;
+      sm90::mbar_wait(bar.raw + st, (j / slots) & 1);
+      const int row0 = c * kCols32 - col0;   // K^T's rows of this slab
+      if (row0 >= 0 && row0 < kOut)
+        sm90::transpose_tf32<kOut, true>(slot, kt + ks * C::kKtElems, row0,
+                                         ct);
+      else
+        sm90::round_tf32(slot, C::kSlabElems, ct);
+      sm90::round_tf32(slot + C::kSlabElems, C::kSlabElems, ct);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(bar.full + st);
+    }
+    sm90::mbar_arrive(bar.kt_full + ks);
+  }
+}
+
+// S = Q K^T and dP = dO V^T of one kv tile over the depth, a commit group
+// of eight tf32 products a slab: each slab's ring slot released once its
+// group has retired, the last one's group left in flight (as
+// issue_s_deep). j counts the slabs taken from the ring.
+__device__ __forceinline__ void dq_issue_tf32(float (&s)[32], float (&dp)[32],
+                                              const float* qs,
+                                              const float* dos,
+                                              const float* ring,
+                                              const DqTf32Bars& bar,
+                                              int n_slab, int slots, int& j) {
+  constexpr int kSlabElems = 64 * kCols32;
+  // slab c's eight products, issued and committed; the first slab's start
+  // the sums (peeled off, so no product is issued under a branch)
+  auto slab = [&](int c, bool first) {
+    const int st = j % slots;
+    sm90::mbar_wait(bar.full + st, (j / slots) & 1);
+    const float* kt = ring + st * 2 * kSlabElems;
+    const float* qt = qs + c * kSlabElems;
+    const float* dt = dos + c * kSlabElems;
+#pragma unroll
+    for (int kk = 0; kk < kCols32 / 8; ++kk) {
+      sm90::Wgmma<kBK, float>::template ss<0, 0>(
+          s, sm90::desc_k_major(qt + kk * 8),
+          sm90::desc_k_major(kt + kk * 8), !first || kk > 0);
+      sm90::Wgmma<kBK, float>::template ss<0, 0>(
+          dp, sm90::desc_k_major(dt + kk * 8),
+          sm90::desc_k_major(kt + kSlabElems + kk * 8), !first || kk > 0);
+    }
+    sm90::wgmma_commit();
+    ++j;
+  };
+  slab(0, true);
+  for (int c = 1; c < n_slab; ++c) {
+    slab(c, false);
+    sm90::wgmma_wait<1>();   // slab c - 1's products have retired
+    sm90::mbar_arrive(bar.empty + (j - 2) % slots);
+  }
+}
+
+// dQ += dS K over one K^T tile (the block's kOut columns as rows of kBK kv
+// values), dS in registers; issued and committed.
+template <int kOut>
+__device__ __forceinline__ void dq_issue_dsk_tf32(float (&acc)[kOut / 2],
+                                                  uint32_t (&da)[kBK / 8][4],
+                                                  const float* kt) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk)
+    sm90::Wgmma<kOut, float>::template rs<0>(
+        acc, da[kk],
+        sm90::desc_k_major(kt + (kk / 4) * kOut * kCols32 + (kk % 4) * 8), 1);
+  sm90::wgmma_commit();
+}
+
+// The consumer: dQ of the block's 64 q rows and kOut columns over every kv
+// tile. S_j and dP_j are issued with dQ += dS_{j-1} K_{j-1}, and dS_j is
+// formed while that product is in flight (as the 16-bit dq above D 128).
+template <int kOut>
+__device__ __forceinline__ void dq_consume_tf32(
+    const Args& p, const float* qs, const float* dos, const float* ring,
+    const float* kt, const DqTf32Bars& bar, int b, int h, int q0, int n_kv,
+    int n_slab, int slots, int col0) {
+  using C = DqTf32<kOut>;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int r_lo = q0 + 16 * warp + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  float lse_r[2], di_r[2];
+  {
+    const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
+    const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r_lo + 8 * i;
+      lse_r[i] = r < p.Tq ? lse[r] * kLog2e : 0.f;
+      di_r[i] = r < p.Tq ? di[r] : 0.f;
+    }
+  }
+  auto mask = [&](int kv0) {
+    return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > q0);
+  };
+  float acc[kOut / 2];
+#pragma unroll
+  for (int i = 0; i < kOut / 2; ++i) acc[i] = 0.f;
+  float s[kBK / 2], dp[kBK / 2];
+  uint32_t da[kBK / 8][4];   // dS of the tile whose dQ product is next
+  int j = 0;                 // slabs taken from the ring
+  sm90::mbar_wait(bar.q_full, 0);
+  sm90::wgmma_fence();
+  dq_issue_tf32(s, dp, qs, dos, ring, bar, n_slab, slots, j);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(s);
+  sm90::fence_regs(dp);
+  sm90::mbar_arrive(bar.empty + (j - 1) % slots);
+  dq_ds(s, dp, lse_r, di_r, sl2, mask(0), 0, r_lo, t, p.Tk, p.causal);
+  sm90::to_operand_tf32(dp, da);
+  for (int i = 1; i < n_kv; ++i) {
+    const int prev = (i - 1) % C::kKtStages;
+    sm90::wgmma_fence();
+    dq_issue_tf32(s, dp, qs, dos, ring, bar, n_slab, slots, j);
+    sm90::mbar_wait(bar.kt_full + prev, ((i - 1) / C::kKtStages) & 1);
+    dq_issue_dsk_tf32<kOut>(acc, da, kt + prev * C::kKtElems);
+    sm90::wgmma_wait<1>();   // S_i and dP_i are done; dQ may not be
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    sm90::mbar_arrive(bar.empty + (j - 1) % slots);
+    dq_ds(s, dp, lse_r, di_r, sl2, mask(i * kBK), i * kBK, r_lo, t, p.Tk,
+          p.causal);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(da);
+    sm90::mbar_arrive(bar.kt_empty + prev);
+    sm90::to_operand_tf32(dp, da);
+  }
+  const int last = (n_kv - 1) % C::kKtStages;
+  sm90::mbar_wait(bar.kt_full + last, ((n_kv - 1) / C::kKtStages) & 1);
+  sm90::wgmma_fence();
+  dq_issue_dsk_tf32<kOut>(acc, da, kt + last * C::kKtElems);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::fence_regs(da);
+  sm90::mbar_arrive(bar.kt_empty + last);
+  // the block's columns: dq's view from col0, its head dim less col0
+  View out = p.dq;
+  out.p = reinterpret_cast<float*>(out.p) + col0;
+  store_acc<kOut, float>(out, b, h, r_lo, p.Tq, p.Dr - col0, acc, p.scale,
+                         t);
+}
+
+template <int kOut>
+__global__ void __launch_bounds__(DqTf32<kOut>::kThreads, 1)
+flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const Args p) {
+  using C = DqTf32<kOut>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_slab = (p.Dr + kCols32 - 1) / kCols32;
+  const int slots = C::slots(n_slab);
+  float* kt = reinterpret_cast<float*>(base);
+  float* ring = kt + C::kKtStages * C::kKtElems;
+  float* qs = ring + slots * C::kSlotElems;
+  float* dos = qs + n_slab * C::kSlabElems;
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(dos + n_slab * C::kSlabElems);
+  constexpr int kM = C::kMaxSlots;
+  const DqTf32Bars bar{bars,          bars + 1,
+                       bars + 2,      bars + 2 + kM,
+                       bars + 2 + 2 * kM, bars + 2 + 3 * kM,
+                       bars + 2 + 3 * kM + C::kKtStages};
+
+  const int groups = (p.Dr + kOut - 1) / kOut;
+  const int bh = blockIdx.x / groups, b = bh / p.H, h = bh % p.H;
+  const int col0 = blockIdx.x % groups * kOut;
+  // causal: the longest rows first, so the last wave is short
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
+  const int n_kv = (kv_end + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.q_raw, 1);
+    sm90::mbar_init(bar.q_full, sm90::kConverters);
+    for (int s = 0; s < slots; ++s) {
+      sm90::mbar_init(bar.raw + s, 1);
+      sm90::mbar_init(bar.full + s, sm90::kConverters);
+      sm90::mbar_init(bar.empty + s, 128);
+    }
+    for (int s = 0; s < C::kKtStages; ++s) {
+      sm90::mbar_init(bar.kt_full + s, sm90::kConverters);
+      sm90::mbar_init(bar.kt_empty + s, 128);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0)
+      dq_load_tf32<kOut>(&tq, &tk, &tv, &tdo, qs, dos, ring, bar, b, h, q0,
+                         n_kv, n_slab, slots);
+  } else if (threadIdx.x < 128) {
+    dq_convert_tf32<kOut>(qs, ring, kt, bar, n_kv, n_slab, slots, col0,
+                          threadIdx.x - 32);
+  } else {
+    dq_consume_tf32<kOut>(p, qs, dos, ring, kt, bar, b, h, q0, n_kv, n_slab,
+                          slots, col0);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 
 // The tensor maps of q, k, v and dout at the views' head dim (Dr), in boxes
@@ -756,11 +1079,13 @@ cudaError_t maps(const Args& a, int q_rows, int kv_rows,
   return cudaSuccess;
 }
 
-// One launch of `kernel` over (B * H, blocks) in blocks of `threads`, with
-// the q, k, v and dout maps in boxes of q_rows and kv_rows rows.
+// One launch of `kernel` over (B * H * groups, blocks) in blocks of
+// `threads`, with the q, k, v and dout maps in boxes of q_rows and kv_rows
+// rows.
 template <typename In, typename K>
 cudaError_t launch(K kernel, int threads, int smem, int q_rows, int kv_rows,
-                   int blocks, const Args& a, cudaStream_t stream) {
+                   int blocks, const Args& a, cudaStream_t stream,
+                   int groups = 1) {
   CUtensorMap m[4];
   cudaError_t err = maps<In>(a, q_rows, kv_rows, m);
   if (err != cudaSuccess) return err;
@@ -768,7 +1093,7 @@ cudaError_t launch(K kernel, int threads, int smem, int q_rows, int kv_rows,
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(a.B * a.H), (unsigned)blocks);
+  const dim3 grid((unsigned)(a.B * a.H * groups), (unsigned)blocks);
   kernel<<<grid, threads, smem, stream>>>(m[0], m[1], m[2], m[3], a);
   return cudaGetLastError();
 }
@@ -791,6 +1116,16 @@ struct Dq {
                       s);
   }
 };
+
+template <int kOut>
+cudaError_t dq_tf32(const Args& a, cudaStream_t stream) {
+  using C = DqTf32<kOut>;
+  const int n_slab = (a.Dr + kCols32 - 1) / kCols32;
+  return launch<float>(flash_bwd_dq_sm90_tf32_kernel<kOut>, C::kThreads,
+                       C::smem(n_slab), C::kBQ, kBK,
+                       (a.Tq + C::kBQ - 1) / C::kBQ, a, stream,
+                       (a.Dr + kOut - 1) / kOut);
+}
 
 // The instance for the arguments' head dim, input type and output type:
 // D 64, 128, 192 and 256 (the caller routes no other).
@@ -832,8 +1167,14 @@ cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
   return pick<Dkdv>(a, stream);
 }
 
-// dq under the given lse and di, as bwd_dkdv_sm90.
+// dq under the given lse and di: bf16 or fp16 as bwd_dkdv_sm90, and fp32
+// (fp32 dq) on the tf32 kernel at D 64 in one group of 64 columns, at 128,
+// 192 and 256 in groups of 128.
 cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream) {
+  if (a.dtype == kF32) {
+    if (a.D > 256) return cudaErrorInvalidValue;
+    return a.D == 64 ? dq_tf32<64>(a, stream) : dq_tf32<128>(a, stream);
+  }
   return pick<Dq>(a, stream);
 }
 

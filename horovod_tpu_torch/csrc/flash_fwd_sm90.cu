@@ -1,6 +1,7 @@
 // Flash attention forward for Hopper: K6a (flash attention, o in the input
 // type) and K7a (ring attention's segment, fp32 o), one kernel, for bf16 or
-// fp16 inputs (In).
+// fp16 inputs (In), and a kernel of its own for fp32 inputs on tf32 (the
+// last part of this header).
 //
 // Replaces the forward Pallas kernels that horovod_tpu/parallel/
 // flash_attention.py:flash_attention_local takes from jax's library
@@ -103,9 +104,47 @@
 //   D read as zeros (a box may lie wholly past them), and only the views'
 //   columns are stored. The kv tile's products overlap its softmax as
 //   elsewhere: S_i's slabs, then P_{i-1} V_{i-1}, whose product runs
-//   while the softmax of S_i does. No 16-bit forward runs the mma.sync
-//   family any more: only fp32 does (wgmma takes tf32 operands K-major
-//   only, and P V needs an MN-major V).
+//   while the softmax of S_i does.
+// - fp32 inputs (Tf32<kOut>, flash_fwd_sm90_tf32_kernel<kOut>, o fp32 for
+//   K6a and K7a alike): wgmma on tf32, m64nNk8, the plain version's
+//   arithmetic under tf32 products (every operand rounded to nearest,
+//   fp32 sums). What differs from 16 bits, and the answers:
+//   * tf32 operands are K-major only. S = Q K^T is K-major on both sides,
+//     but P V contracts over kv and V is stored kv-major (MN-major). The
+//     wrapper could transpose V (a launch, Tk D 8 bytes and host time a
+//     call, on paths the host already limits); instead the producer
+//     warpgroup does it: warp 0 issues every TMA load, warps 1-3 (96
+//     "converter" threads, sm90.cuh) take each 64 x 32 slab of V from a
+//     staging slot (2 of them) and write it transposed into a V^T slot (2
+//     of them, kOut rows by 64 kv), 128-byte swizzled as TMA would have,
+//     16 bytes a store with no bank conflict (sm90::transpose_tf32).
+//   * P as the register A operand: a tf32 A fragment holds columns t and
+//     t + 4 of an 8-column step, the accumulator 2t and 2t + 1. V^T's
+//     rows take each group of 8 kv in the order 0 2 4 6 1 3 5 7, so S's
+//     accumulator is the A operand as it lies (sm90::to_operand_tf32), no
+//     shuffle; the same transpose writes that order at no cost.
+//   * Rounding: TMA puts raw fp32 into shared memory, and wgmma does not
+//     round an fp32 operand to nearest as it reads it as tf32. The
+//     converters round Q (once), each K slab and V^T with cvt.rna before
+//     the consumer may read them (a proxy fence, then an arrival on a
+//     barrier of 96), and P is rounded as it becomes the operand: every
+//     product the kernel forms is one the plain version forms under
+//     tf32, so its error stays the plain version's, whatever D.
+//   * Shared memory: an fp32 slab of 128 bytes is 32 columns, and a tile
+//     twice the bytes of a 16-bit one. So the deep forward's structure is
+//     taken at every D: S is summed over the depth's slabs of 32 columns
+//     through a ring of up to 8 slots of 64 kv rows (8 KB each), Q
+//     resident while 4 slots fit beside it (up to D 448 at kOut 128, 96 at
+//     64) and streamed beside K above that, and O's columns in groups of
+//     kOut: 64 at head dims up to 64, 128 above (D 256: 2 groups).
+//   * Registers: P as tf32 is one register an element: O (kOut / 2), S
+//     (32) and P (32) at kv tiles of 64. At kOut 128 that is 128 beside
+//     the loop's state, in a block of 256 threads (255 registers at
+//     launch); at kOut 64, 96, and the block is launched for two a SM
+//     (128 registers a thread), which ViT_Tiny's small blocks need. ptxas:
+//     154 and 122 registers, no spill.
+//   The consumer is the 16-bit one (consume), its operand and PV issue
+//   chosen by the input type.
 // The arithmetic does not depend on the views' strides and nothing is
 // accumulated across blocks: strided views and contiguous copies give the
 // same bits, and runs repeat bitwise.
@@ -140,6 +179,7 @@ struct FwdParams {
 };
 
 constexpr int kSlab = 64;     // 16-bit columns of a 128-byte swizzled slab
+constexpr int kCols32 = 32;   // fp32 columns of a 128-byte swizzled slab
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
@@ -365,6 +405,44 @@ __device__ __forceinline__ void issue_pv(float (&o)[kN / 2],
   sm90::wgmma_commit();
 }
 
+// tf32 (fp32 inputs): O += P V over one V^T tile, V^T the block's kN
+// columns of O as rows of kBK kv values (K-major, slabs of 32, the depth
+// of each group of 8 in to_operand_tf32's order), issued and committed.
+// kN is at most 128 (Tf32<kOut>).
+template <int kN, int kBK>
+__device__ __forceinline__ void issue_pv_tf32(float (&o)[kN / 2],
+                                              uint32_t (&pa)[kBK / 8][4],
+                                              const float* vt) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 8; ++kk)
+    sm90::Wgmma<kN, float>::template rs<0>(
+        o, pa[kk],
+        sm90::desc_k_major(vt + (kk / 4) * kN * kCols32 + (kk % 4) * 8), 1);
+  sm90::wgmma_commit();
+}
+
+// P (the softmax's tile, in the accumulator) as the A operands of P V:
+// pairs of In, or tf32 values in the tf32 kernels' depth order.
+template <typename In, int N, int K>
+__device__ __forceinline__ void p_operand(const float (&s)[N],
+                                          uint32_t (&pa)[K][4]) {
+  if constexpr (sm90::kStep<In> == 8)
+    sm90::to_operand_tf32(s, pa);
+  else
+    sm90::to_operand<In>(s, pa);
+}
+
+// O += P V of one tile: issue_pv, or issue_pv_tf32 for fp32 inputs.
+template <int kN, int kBK, typename In, int K>
+__device__ __forceinline__ void issue_p_v(float (&o)[kN / 2],
+                                          uint32_t (&pa)[K][4],
+                                          const In* vt) {
+  if constexpr (sm90::kStep<In> == 8)
+    issue_pv_tf32<kN, kBK>(o, pa, vt);
+  else
+    issue_pv<kN, kBK>(o, pa, vt);
+}
+
 template <int kN, int kK>
 __device__ __forceinline__ void fence_pv(float (&o)[kN], uint32_t (&pa)[kK][4]) {
   sm90::fence_regs(o);
@@ -445,7 +523,7 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* vs,
   for (int i = 0; i < kOut / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2], alpha[2];
   float s[kBK / 2];
-  uint32_t pa[kBK / 16][4];   // P of the tile whose PV is next
+  uint32_t pa[kBK / sm90::kStep<In>][4];   // P of the tile whose PV is next
 
   sm90::mbar_wait(bar.q_full, 0);
   issue_s(s, 0);
@@ -453,14 +531,14 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* vs,
   sm90::fence_regs(s);
   release_s(0);
   online_softmax(s, m, alpha, l, mask(0), sl2, 0, r_lo, t, p.Tk, p.causal);
-  sm90::to_operand<In>(s, pa);
+  p_operand<In>(s, pa);
 
   for (int it = 1; it < n_kv; ++it) {
     const int prev = (it - 1) % kVStages;
     const int kv0 = it * kBK;
     issue_s(s, it);
     sm90::mbar_wait(bar.v_full + prev, ((it - 1) / kVStages) & 1);
-    issue_pv<kOut, kBK>(o, pa, vs + prev * kVElems);
+    issue_p_v<kOut, kBK>(o, pa, vs + prev * kVElems);
     sm90::wgmma_wait<1>();      // S_i is done; P_{i-1} V_{i-1} may not be
     sm90::fence_regs(s);
     release_s(it);
@@ -474,12 +552,12 @@ __device__ __forceinline__ void consume(const FwdParams& p, const In* vs,
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
 #pragma unroll
     for (int i = 0; i < kOut / 2; ++i) o[i] *= alpha[(i / 2) & 1];
-    sm90::to_operand<In>(s, pa);
+    p_operand<In>(s, pa);
   }
   const int last = (n_kv - 1) % kVStages;
   sm90::mbar_wait(bar.v_full + last, ((n_kv - 1) / kVStages) & 1);
   sm90::wgmma_fence();
-  issue_pv<kOut, kBK>(o, pa, vs + last * kVElems);
+  issue_p_v<kOut, kBK>(o, pa, vs + last * kVElems);
   sm90::wgmma_wait<0>();
   fence_pv(o, pa);
   sm90::mbar_arrive(bar.v_empty + last);
@@ -684,8 +762,254 @@ flash_fwd_sm90_kernel_deep(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The tensor maps of q, k and v, read in boxes of 64 columns by q_rows or
-// kv_rows rows.
+// ---------------------------------------------------------------------------
+// fp32 inputs: tf32 wgmma (see the header)
+
+// The tf32 forward's layout: a block of 64 q rows and the kOut columns of
+// O from col0 (64, or 128 in groups), S summed over the depth's slabs of 32
+// fp32 columns through a ring, V transposed into V^T slots by the producer
+// warpgroup. Warp 0 loads (one thread), warps 1-3 (96 threads) round and
+// transpose, warpgroup 1 consumes.
+template <int kOut_>
+struct Tf32 {
+  static constexpr int kOut = kOut_;
+  static constexpr int kThreads = 256;
+  // blocks an SM holds: two at kOut 64 (the consumer's O, S and P fit 128
+  // registers), else one
+  static constexpr int kMinBlocks = kOut == 64 ? 2 : 1;
+  static constexpr int kBQ = 64, kBK = 64;
+  static constexpr int kSlabElems = 64 * kCols32;   // 64 rows of a slab
+  static constexpr int kStage = 2;       // V's staging slots, a slab each
+  static constexpr int kVStages = 2;     // V^T slots
+  static constexpr int kVElems = kBK * kOut;     // a V^T tile
+  static constexpr int kMaxSlots = 8;    // ring slots of K slabs
+  // a block's share of the SM's 228 KB (each block reserves 1 KB), at most
+  // the 227 KB one block may have
+  static constexpr int kCap =
+      kMinBlocks == 1 ? 232448 : 233472 / kMinBlocks - 1024;
+  // V^T, the staging slots, the barriers and room to align the base to
+  // 1024 bytes
+  static constexpr int kFixed =
+      (kVStages * kVElems + kStage * kSlabElems) * 4 + 512 + 1024;
+  static_assert(kOut % kCols32 == 0 && kOut <= 128, "wgmma's rs members");
+  // Q resident (n_slab slabs) while 4 ring slots fit beside it, else
+  // streamed: a ring slot then holds Q_c beside K_c
+  struct Plan {
+    bool stream_q;
+    int slots, smem;
+  };
+  __host__ __device__ static Plan plan(int n_slab) {
+    const int rest = kCap - kFixed, q_bytes = n_slab * kSlabElems * 4;
+    const bool stream_q = rest - q_bytes < 4 * kSlabElems * 4;
+    const int slot = (stream_q ? 2 : 1) * kSlabElems * 4;
+    int slots = (rest - (stream_q ? 0 : q_bytes)) / slot;
+    slots = slots < kMaxSlots ? slots : kMaxSlots;
+    return {stream_q, slots, kFixed + (stream_q ? 0 : q_bytes) + slots * slot};
+  }
+};
+
+// The tf32 forward's barriers beyond Barriers: TMA's completions of the
+// raw tiles the converters round (q_raw, k_raw) and of V's staging slots
+// (s_full), and the converters' release of a staging slot (s_empty).
+// q_full, k_full and v_full complete when the 96 converters arrive.
+struct Tf32Bars {
+  uint64_t *q_raw, *k_raw, *s_full, *s_empty;
+};
+
+// The loading thread: Q where it stays resident, then for each kv tile its
+// K slabs (with Q's beside them where Q streams) into the ring and its V
+// slabs (the block's kOut columns from col0) into the staging slots, in the
+// order the converters take them.
+template <int kOut>
+__device__ __forceinline__ void load_tf32(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    float* qs, float* ring, float* stage, const Barriers& bar,
+    const Tf32Bars& tb, int b, int h, int q0, int n_kv, int col0,
+    int n_slab, bool stream_q, int slots) {
+  using C = Tf32<kOut>;
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  // a streamed Q completes q_raw with no bytes
+  sm90::mbar_arrive_expect_tx(tb.q_raw,
+                              stream_q ? 0 : n_slab * C::kSlabElems * 4);
+  if (!stream_q) {
+    for (int c = 0; c < n_slab; ++c)
+      sm90::tma_load_4d(qs + c * C::kSlabElems, tq, tb.q_raw, c * kCols32,
+                        q0, h, b);
+  }
+  const int slot = (stream_q ? 2 : 1) * C::kSlabElems;
+  int j = 0, g = 0;   // K slabs and V slabs loaded
+  for (int i = 0; i < n_kv; ++i) {
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % slots;
+      sm90::mbar_wait(bar.k_empty + st, ((j / slots) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(tb.k_raw + st, slot * 4);
+      float* dst = ring + st * slot;
+      sm90::tma_load_4d(dst, tk, tb.k_raw + st, c * kCols32, i * C::kBK, h,
+                        b);
+      if (stream_q)
+        sm90::tma_load_4d(dst + C::kSlabElems, tq, tb.k_raw + st,
+                          c * kCols32, q0, h, b);
+    }
+    for (int s = 0; s < kOut / kCols32; ++s, ++g) {
+      const int st = g % C::kStage;
+      sm90::mbar_wait(tb.s_empty + st, ((g / C::kStage) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(tb.s_full + st, C::kSlabElems * 4);
+      sm90::tma_load_4d(stage + st * C::kSlabElems, tv, tb.s_full + st,
+                        col0 + s * kCols32, i * C::kBK, h, b);
+    }
+  }
+}
+
+// The converters (ct = 0..95): Q rounded once where it is resident, then
+// for each kv tile its K slabs (and streamed Q slabs) rounded in place and
+// its V slabs transposed into a V^T slot, in the loader's order; each
+// barrier the consumer waits for completes after their fence.
+template <int kOut>
+__device__ __forceinline__ void convert_tf32(float* qs, float* ring,
+                                             float* stage, float* vt,
+                                             const Barriers& bar,
+                                             const Tf32Bars& tb, int n_kv,
+                                             int n_slab, bool stream_q,
+                                             int slots, int ct) {
+  using C = Tf32<kOut>;
+  if (!stream_q) {
+    sm90::mbar_wait(tb.q_raw, 0);
+    sm90::round_tf32(qs, n_slab * C::kSlabElems, ct);
+  }
+  sm90::fence_proxy_async();
+  sm90::mbar_arrive(bar.q_full);
+  const int slot = (stream_q ? 2 : 1) * C::kSlabElems;
+  int j = 0, g = 0;
+  for (int i = 0; i < n_kv; ++i) {
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % slots;
+      sm90::mbar_wait(tb.k_raw + st, (j / slots) & 1);
+      sm90::round_tf32(ring + st * slot, slot, ct);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(bar.k_full + st);
+    }
+    const int vs = i % C::kVStages;
+    sm90::mbar_wait(bar.v_empty + vs, ((i / C::kVStages) & 1) ^ 1);
+    for (int s = 0; s < kOut / kCols32; ++s, ++g) {
+      const int st = g % C::kStage;
+      sm90::mbar_wait(tb.s_full + st, (g / C::kStage) & 1);
+      sm90::transpose_tf32<kOut, false>(stage + st * C::kSlabElems,
+                                  vt + vs * C::kVElems, s * kCols32, ct);
+      sm90::mbar_arrive(tb.s_empty + st);
+    }
+    sm90::fence_proxy_async();
+    sm90::mbar_arrive(bar.v_full + vs);
+  }
+}
+
+// S = Q K^T of one kv tile over the depth, a commit group of four tf32
+// products a slab (as issue_s_deep): each slab's ring slot released once
+// its group has retired; the last one's group may still be in flight on
+// return, its slot not released. j counts the slabs taken from the ring.
+__device__ __forceinline__ void issue_s_tf32(float (&s)[32], const float* qs,
+                                             const float* ring,
+                                             const Barriers& bar, int n_slab,
+                                             bool stream_q, int slots,
+                                             int& j) {
+  constexpr int kSlabElems = 64 * kCols32;
+  const int slot = (stream_q ? 2 : 1) * kSlabElems;
+  auto slab = [&](int c, bool first) {
+    const int st = j % slots;
+    sm90::mbar_wait(bar.k_full + st, (j / slots) & 1);
+    const float* kt = ring + st * slot;
+    const float* qt = stream_q ? kt + kSlabElems : qs + c * kSlabElems;
+#pragma unroll
+    for (int kk = 0; kk < kCols32 / 8; ++kk)
+      sm90::Wgmma<64, float>::template ss<0, 0>(
+          s, sm90::desc_k_major(qt + kk * 8),
+          sm90::desc_k_major(kt + kk * 8), !first || kk > 0);
+    sm90::wgmma_commit();
+    ++j;
+  };
+  slab(0, true);
+  for (int c = 1; c < n_slab; ++c) {
+    slab(c, false);
+    sm90::wgmma_wait<1>();   // slab c - 1's products have retired
+    sm90::mbar_arrive(bar.k_empty + (j - 2) % slots);
+  }
+}
+
+template <int kOut>
+__global__ void __launch_bounds__(Tf32<kOut>::kThreads,
+                                  Tf32<kOut>::kMinBlocks)
+flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const FwdParams p) {
+  using C = Tf32<kOut>;
+  const int n_slab = (p.d + kCols32 - 1) / kCols32;
+  const typename C::Plan pl = C::plan(n_slab);
+  const int slot = (pl.stream_q ? 2 : 1) * C::kSlabElems;
+  float* vt = reinterpret_cast<float*>(smem_base());
+  float* stage = vt + C::kVStages * C::kVElems;
+  float* ring = stage + C::kStage * C::kSlabElems;
+  float* qs = ring + pl.slots * slot;   // a resident Q
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      qs + (pl.stream_q ? 0 : n_slab * C::kSlabElems));
+  constexpr int kM = C::kMaxSlots;
+  const Barriers bar{bars, bars + 1, bars + 1 + kM, bars + 1 + 2 * kM,
+                     bars + 1 + 2 * kM + C::kVStages};
+  uint64_t* more = bars + 1 + 2 * kM + 2 * C::kVStages;
+  const Tf32Bars tb{more, more + 1, more + 1 + kM,
+                    more + 1 + kM + C::kStage};
+
+  const int groups = (p.d + kOut - 1) / kOut;
+  const int bh = blockIdx.x / groups, b = bh / p.H, h = bh % p.H;
+  const int col0 = blockIdx.x % groups * kOut;
+  const int q0 = (p.n_qt - 1 - blockIdx.y) * C::kBQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
+  const int n_kv = (kv_end + C::kBK - 1) / C::kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.q_full, sm90::kConverters);
+    sm90::mbar_init(tb.q_raw, 1);
+    for (int s = 0; s < pl.slots; ++s) {
+      sm90::mbar_init(tb.k_raw + s, 1);
+      sm90::mbar_init(bar.k_full + s, sm90::kConverters);
+      sm90::mbar_init(bar.k_empty + s, 128);
+    }
+    for (int s = 0; s < C::kVStages; ++s) {
+      sm90::mbar_init(bar.v_full + s, sm90::kConverters);
+      sm90::mbar_init(bar.v_empty + s, 128);
+    }
+    for (int s = 0; s < C::kStage; ++s) {
+      sm90::mbar_init(tb.s_full + s, 1);
+      sm90::mbar_init(tb.s_empty + s, sm90::kConverters);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0)
+      load_tf32<kOut>(&tq, &tk, &tv, qs, ring, stage, bar, tb, b, h, q0,
+                      n_kv, col0, n_slab, pl.stream_q, pl.slots);
+  } else if (threadIdx.x < 128) {
+    convert_tf32<kOut>(qs, ring, stage, vt, bar, tb, n_kv, n_slab,
+                       pl.stream_q, pl.slots, threadIdx.x - 32);
+  } else {
+    int j = 0;   // slabs taken from the ring
+    auto issue_s = [&](float(&s)[C::kBK / 2], int) {
+      sm90::wgmma_fence();
+      issue_s_tf32(s, qs, ring, bar, n_slab, pl.stream_q, pl.slots, j);
+    };
+    auto release_s = [&](int) {
+      sm90::mbar_arrive(bar.k_empty + (j - 1) % pl.slots);
+    };
+    consume<kOut, C::kBK, C::kVStages, float, float>(
+        p, vt, bar, b, h, q0, n_kv, col0, issue_s, release_s);
+  }
+}
+
+// The tensor maps of q, k and v, read in boxes of 128 bytes of columns by
+// q_rows or kv_rows rows.
 template <typename In>
 cudaError_t qkv_maps(const Args& a, CUtensorMap (&maps)[3], int q_rows,
                      int kv_rows) {
@@ -773,15 +1097,35 @@ cudaError_t forward_in(const Args& a, cudaStream_t stream) {
                    : forward<In, In>(a, stream);
 }
 
+// fp32 inputs (o fp32 for K6 and K7 alike): the tf32 kernel, O's columns
+// in one group of 64 at D 64, else in groups of 128.
+template <int kOut>
+cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
+  using C = Tf32<kOut>;
+  CUtensorMap maps[3];
+  const cudaError_t err = qkv_maps<float>(a, maps, C::kBQ, C::kBK);
+  if (err != cudaSuccess) return err;
+  const int n_slab = (a.Dr + kCols32 - 1) / kCols32;
+  return launch_on(flash_fwd_sm90_tf32_kernel<kOut>, a,
+                   (a.Dr + kOut - 1) / kOut, C::kBQ, C::kThreads,
+                   C::plan(n_slab).smem, stream, maps);
+}
+
+cudaError_t forward_tf32(const Args& a, cudaStream_t stream) {
+  return a.D == 64 ? launch_tf32<64>(a, stream) : launch_tf32<128>(a, stream);
+}
+
 }  // namespace
 
 namespace flash {
 
-// o = softmax(q k^T * scale) v and lse over [B, H, T, Dr] views of bf16 or
+// o = softmax(q k^T * scale) v and lse over [B, H, T, Dr] views: bf16 or
 // fp16 on the instance of head dim D = 64, 128, 192, 256, 320, 384 or 512
-// (D 448 on 512's), or above 512 (any multiple of 64) on the deep kernel;
-// o in the input type or fp32 (out_f32).
+// (D 448 on 512's), or above 512 (any multiple of 64) on the deep kernel,
+// o in the input type or fp32 (out_f32); fp32 at any D on the tf32
+// kernel, o in fp32.
 cudaError_t fwd_sm90(const Args& a, cudaStream_t stream) {
+  if (a.dtype == kF32) return forward_tf32(a, stream);
   return a.dtype == kF16 ? forward_in<__half>(a, stream)
                          : forward_in<__nv_bfloat16>(a, stream);
 }

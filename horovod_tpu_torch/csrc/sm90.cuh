@@ -4,16 +4,17 @@
 // Each device wrapper is one PTX instruction or a few; the layouts they
 // assume are written beside them. The attention forward
 // (flash_fwd_sm90.cu) and backward (flash_bwd_sm90.cu) use them for bf16
-// or fp16 inputs (`In`: __nv_bfloat16 or __half); the BatchNorm
-// statistics (bn_stats.cu) use the mbarriers and 2-d TMA loads.
+// or fp16 inputs (`In`: __nv_bfloat16 or __half) and for fp32 ones (tf32
+// products, In = float); the BatchNorm statistics (bn_stats.cu) use the
+// mbarriers and 2-d TMA loads.
 //
 // Shared-memory tiles are what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B:
-// a tile of R rows and 64 16-bit columns (128 bytes a row) is a "slab" of
-// R/8 atoms of 8 rows x 128 bytes = 1024 bytes, the 16-byte chunks of row r
-// permuted by XOR with r % 8. A wider tile is several slabs one after the
-// other. Every slab starts on a 1024-byte boundary, so the permutation,
-// which the hardware takes from address bits 4-6 and 7-9, is the same for
-// TMA's writes and wgmma's reads.
+// a tile of R rows and 128 bytes a row (64 16-bit columns, 32 fp32 ones)
+// is a "slab" of R/8 atoms of 8 rows x 128 bytes = 1024 bytes, the 16-byte
+// chunks of row r permuted by XOR with r % 8. A wider tile is several slabs
+// one after the other. Every slab starts on a 1024-byte boundary, so the
+// permutation, which the hardware takes from address bits 4-6 and 7-9, is
+// the same for TMA's writes, wgmma's reads and the kernels' own.
 
 #pragma once
 
@@ -97,6 +98,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Orders this thread's writes to shared memory (the generic proxy) before
+// later reads of it by wgmma or TMA (the async proxy): a thread that writes
+// an operand runs it before it arrives on the barrier the products wait on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA
 
@@ -144,6 +152,24 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // rounded pairwise to In, are the A operand of a product over depth 16k
 // (to_operand below). The products are Wgmma<N, In> (sm90_wgmma.cuh).
 
+// The depth of one product: 16 bf16 or fp16 values, 8 tf32 ones (32 bytes
+// of each row either way).
+template <typename In>
+constexpr int kStep = 32 / sizeof(In);
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away from zero),
+// the bits of an fp32 whose 13 low bits are 0. wgmma reads an fp32 operand
+// in shared memory or registers as tf32 without rounding it to nearest,
+// so the kernels round every operand with this first.
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float to_tf32(float x) {
+  return __uint_as_float(tf32_bits(x));
+}
+
 // Two floats rounded to a pair of In, the first in the low half.
 template <typename In>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi);
@@ -156,6 +182,85 @@ template <>
 __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// tf32 (wgmma m64nNk8): an A operand in registers is four fp32 values a
+// thread, a[0] = row g column t, a[1] = row g + 8 column t, a[2] = row g
+// column t + 4, a[3] = row g + 8 column t + 4 of an 8-column step, which
+// is not the accumulator's pairing (columns 2t and 2t + 1). So the tf32
+// kernels feed a product its depth in a permuted order: within each group
+// of 8, operand column k holds depth 2k (k < 4) or 2(k - 4) + 1, and the B
+// operand's rows of that depth are written in the same order
+// (transpose_tf32). An accumulator of N registers, each rounded to tf32,
+// is then the A operands of N/4 products of depth 8 with no data crossing
+// threads.
+template <int N>
+__device__ __forceinline__ void to_operand_tf32(const float (&d)[N],
+                                                uint32_t (&a)[N / 4][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    a[j][0] = tf32_bits(d[4 * j]);
+    a[j][1] = tf32_bits(d[4 * j + 2]);
+    a[j][2] = tf32_bits(d[4 * j + 1]);
+    a[j][3] = tf32_bits(d[4 * j + 3]);
+  }
+}
+
+// x's four elements rounded to tf32.
+__device__ __forceinline__ float4 tf32x4(float4 x) {
+  return make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+}
+
+// The tf32 kernels' converters: the 96 threads of warps 1-3 of the
+// producer warpgroup (ct = 0..95), which round and transpose operands in
+// shared memory while warp 0 loads.
+constexpr int kConverters = 96;
+
+// `n` floats of shared memory rounded to tf32 in place, float4 by float4.
+__device__ __forceinline__ void round_tf32(float* x, int n, int ct) {
+  float4* v = reinterpret_cast<float4*>(x);
+  for (int i = ct; i < n / 4; i += kConverters) v[i] = tf32x4(v[i]);
+}
+
+// A slab of 64 rows x 32 fp32 columns in TMA's swizzled layout (row r's
+// 16-byte chunk c at chunk c ^ (r % 8)) transposed, rounded to tf32, into
+// rows row0 .. row0 + 31 of a K-major operand of kRows rows by 64 depth
+// values: two slabs of 32, the slab's row r becoming depth r in
+// to_operand_tf32's order within each group of 8. With kInPlace the
+// rounded values also go back to the slab. A work item is 4 rows of 4
+// columns (4 float4 loads, 4 float4 stores); each 8 consecutive items
+// touch 8 distinct 16-byte bank groups on both sides: no bank conflicts.
+template <int kRows, bool kInPlace>
+__device__ __forceinline__ void transpose_tf32(float* slab, float* dst,
+                                               int row0, int ct) {
+  for (int w = ct; w < 128; w += kConverters) {
+    const int half = w >> 6, u = w & 7, v = (w >> 3) & 7;
+    const int q = u ^ ((v >> 2) << 2);              // the column quad
+    const int odd = ((u >> 1) & 1) ^ (v & 1);       // odd depths or even
+    const int grp = (u >> 2) + ((v >> 1) & 1) * 2;  // group of 8 in the half
+    const int r0 = 32 * half + 8 * grp + odd;       // rows r0 + 2m
+    float4 x[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int r = r0 + 2 * m;
+      float4* src =
+          reinterpret_cast<float4*>(slab + r * 32 + ((q ^ (r & 7)) << 2));
+      x[m] = tf32x4(*src);
+      if (kInPlace) *src = x[m];
+    }
+    // depths r0 + 2m are operand columns 8 grp + 4 odd + m: one chunk
+    const int chunk = 2 * grp + odd;
+    float* out = dst + half * kRows * 32 + (row0 + 4 * q) * 32;
+    const int sw = (4 * q) & 7;   // the swizzle of rows row0 + 4q + i, - i
+    *reinterpret_cast<float4*>(out + ((chunk ^ sw) << 2)) =
+        make_float4(x[0].x, x[1].x, x[2].x, x[3].x);
+    *reinterpret_cast<float4*>(out + 32 + ((chunk ^ (sw + 1)) << 2)) =
+        make_float4(x[0].y, x[1].y, x[2].y, x[3].y);
+    *reinterpret_cast<float4*>(out + 64 + ((chunk ^ (sw + 2)) << 2)) =
+        make_float4(x[0].z, x[1].z, x[2].z, x[3].z);
+    *reinterpret_cast<float4*>(out + 96 + ((chunk ^ (sw + 3)) << 2)) =
+        make_float4(x[0].w, x[1].w, x[2].w, x[3].w);
+  }
 }
 
 // An accumulator of N registers (2N columns), rounded pairwise to In, as
@@ -292,14 +397,20 @@ template <>
 constexpr CUtensorMapDataType tma_type<__half>() {
   return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
+template <>
+constexpr CUtensorMapDataType tma_type<float>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
 
 // The tensor map of a [B, H, T, D] view of In (D contiguous, element strides
-// sb, sh, st) as a 4-d tensor (D, T, H, B), read in boxes of 64 columns by
-// `rows` rows of one (b, h), 128-byte swizzled. D is the view's own head
-// dim: a kernel built for a larger one reads its columns past D, as its
-// rows past T, as zeros (counted in the transaction bytes all the same).
-// TMA needs a 16-byte aligned base and strides that are multiples of 16
-// bytes; a view without them is refused here (cudaErrorInvalidValue).
+// sb, sh, st) as a 4-d tensor (D, T, H, B), read in boxes of 128 bytes of
+// columns (64 of 16 bits, 32 of fp32) by `rows` rows of one (b, h),
+// 128-byte swizzled. D is the view's own head dim: a kernel built for a
+// larger one reads its columns past D, as its rows past T, as zeros
+// (counted in the transaction bytes all the same). TMA needs a 16-byte
+// aligned base and strides that are multiples of 16 bytes (8 elements of
+// 16 bits, 4 of fp32); a view without them is refused here
+// (cudaErrorInvalidValue).
 template <typename In>
 cudaError_t bhtd_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
                      int D, long long sb, long long sh, long long st,
@@ -308,9 +419,12 @@ cudaError_t bhtd_map(CUtensorMap* map, const void* ptr, int B, int H, int T,
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  constexpr cuuint64_t kSize = sizeof(In);
+  const cuuint64_t strides[3] = {(cuuint64_t)st * kSize,
+                                 (cuuint64_t)sh * kSize,
+                                 (cuuint64_t)sb * kSize};
+  const cuuint32_t box[4] = {128 / (cuuint32_t)kSize, (cuuint32_t)rows, 1,
+                             1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(
       map, tma_type<In>(), 4, const_cast<void*>(ptr), dims,

@@ -277,8 +277,8 @@ def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
     """The build's ptxas report: no instance of the Hopper attention
     kernels (every head dim, the wide ones at 192 and 256, the forward's
     at 320, 384 and 512 and its deep kernel above 512, included, every
-    input and output type) spills; the mma.sync forward is built for fp32
-    inputs only."""
+    input and output type, and the tf32 forward and dq of fp32 inputs at
+    kOut 64 and 128) spills; no forward is built on the mma.sync family."""
     from horovod_tpu_torch.ops import build
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90"):
         report = build.ptxas_report(stem)
@@ -289,12 +289,14 @@ def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
         # kOut 192 and 256, two input and two output types
         deep = [name for name in report if "kernel_deep" in name]
         assert len(deep) == (8 if stem == "flash_fwd_sm90" else 0), deep
+        tf32 = [name for name in report if "_sm90_tf32_kernel" in name]
+        assert sorted(re.search(r"ILi(\d+)E", name).group(1)
+                      for name in tf32) == ["128", "64"], tf32
         for name, r in report.items():
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
     mma_fwd = [name for name in build.ptxas_report("flash_attn")
                if "flash_fwd_mma_kernel" in name]
-    assert mma_fwd and all(re.search(r"ILi\d+EffLb[01]E", name)
-                           for name in mma_fwd), mma_fwd
+    assert not mma_fwd, mma_fwd
 
 
 def test_cuda_pack_is_bitwise(cuda):
@@ -544,10 +546,13 @@ WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 def _wide_route(dtype, d, name):
     """The route a wide launch must take: flash_route's answer, checked
     against the rule it states (the Hopper forward at every head dim, dk/dv
-    and dq to 256)."""
+    and dq to 256; for fp32 the Hopper tf32 forward at every head dim and
+    dq to 256, dk/dv on the tf32 mma.sync family)."""
     route = K.flash_route(dtype, d, name)
     if dtype == torch.float32:
-        assert route == "tf32"
+        hopper = name.endswith("_fwd") or (name.endswith("_dq")
+                                           and K._flash_dim(d) <= 256)
+        assert route == ("sm90_tf32" if hopper else "tf32")
     elif name.endswith("_fwd") or K._flash_dim(d) <= 256:
         assert route == "sm90_wide"
     else:
@@ -564,7 +569,8 @@ def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
     320, 384, 576, 640, 1024 and 1280 in bf16, fp16 and fp32, causal and
     full, Tq != Tk: within
     the flash limits, counted by their route (the Hopper wide kernels, the
-    16-bit mma.sync instances or the tf32 ones), dq repeats bitwise."""
+    Hopper tf32 ones, the 16-bit mma.sync instances or the tf32 ones), dq
+    repeats bitwise."""
     n0 = K.launch_counts()
     q, k, v, do, lse, di, dq = _check_k6_case(cuda, dtype, d, tq, tk, causal)
     n1 = K.launch_counts()
@@ -593,6 +599,60 @@ def test_cuda_flash_wide_hopper_kernels(cuda, dtype, d, causal, tq, tk):
         assert n1[f"{name}_sm90_wide"] == n0[f"{name}_sm90_wide"] + 1
         assert n1[f"{name}_wide"] == n0[f"{name}_wide"]
     _check_k6_repeats(q, k, v, do, lse, di, causal, d ** -0.5)
+
+
+@pytest.mark.parametrize("tq,tk", [(257, 257), (100, 300), (300, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 64, 128] + WIDE_DIMS)
+def test_cuda_flash_tf32_hopper_kernels(cuda, d, causal, tq, tk):
+    """The Hopper tf32 kernels on fp32 inputs: K6a and K7a (on the first
+    min(Tq, Tk) rows) at every head dim, K6d and K7c (under the fp32 plain
+    lse and di, K7c's on strided [B, H, S] views) up to 256, on strided
+    [B, T, H, D] views at lengths that end inside the 64-row tiles (Tq =
+    Tk, Tq < Tk, Tq > Tk): within twice the plain version's error in tf32
+    plus 2^-12 of the largest entry, each call counted on the sm90_tf32
+    route with no zero-padded copy, the same bits from run to run and on
+    contiguous copies."""
+    q, k, v, do = _flash_inputs(cuda, 2, 3, tq, d, "bthk", seed=d,
+                                dtype=torch.float32, tk=tk)
+    scale = d ** -0.5
+    s = min(tq, tk)
+    seg = [x[:, :, :s] for x in (q, k, v, do)]
+    o32, lse32 = K.flash_attention_fwd_plain(q, k, v, causal, scale)
+    di32 = K.flash_bwd_pre_plain(o32, do)
+    slse, sdi = lse32[:, :, :s], di32[:, :, :s]
+    cases = [(K.flash_fwd, K.flash_attention_fwd_plain, (q, k, v)),
+             (K.flash_seg_fwd, K.flash_seg_fwd_plain, seg[:3])]
+    if K._flash_dim(d) <= 256:
+        cases += [(K.flash_bwd_dq, K.flash_bwd_dq_plain,
+                   (q, k, v, do, lse32, di32)),
+                  (K.flash_seg_bwd_dq, K.flash_seg_bwd_dq_plain,
+                   (*seg, slse, sdi))]
+    for fn, plain, ins in cases:
+        n0 = K.launch_counts()
+        got = fn(*ins, causal, scale)
+        torch.cuda.synchronize()
+        n1 = K.launch_counts()
+        name = fn.__name__
+        assert n1[f"{name}_sm90_tf32"] == n0[f"{name}_sm90_tf32"] + 1
+        for other in ("tf32", "pad_copies"):
+            assert n1[f"{name}_{other}"] == n0[f"{name}_{other}"], name
+        got = got if isinstance(got, tuple) else (got,)
+        want32 = plain(*ins, causal, scale)
+        with _plain_matmuls(torch.float32):
+            want = plain(*ins, causal, scale)
+        want32 = want32 if isinstance(want32, tuple) else (want32,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert got[0].shape == ins[0].shape
+        for i, (g, w32, wb) in enumerate(zip(got, want32, want)):
+            assert bool(torch.isfinite(g).all()), (name, i)
+            _check_flash_case(g, w32, wb, f"{name}[{i}]", torch.float32)
+        again = fn(*ins, causal, scale)
+        copies = fn(*(x.contiguous() for x in ins), causal, scale)
+        again = again if isinstance(again, tuple) else (again,)
+        copies = copies if isinstance(copies, tuple) else (copies,)
+        for a, b, c in zip(got, again, copies):
+            assert torch.equal(a, b) and torch.equal(a, c), name
 
 
 def _check_k6_repeats(q, k, v, do, lse, di, causal, scale):
@@ -944,8 +1004,11 @@ def test_cuda_transformer_of_any_dtype_and_head_dim_trains(cuda, dtype,
     counts = K.launch_counts()
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         assert counts[name] == 2 * 3, (name, counts)
-        assert counts[f"{name}_tf32"] == (6 if dtype == torch.float32
-                                          else 0)
+        # fp32: the Hopper tf32 forward and dq, the mma.sync dk/dv
+        route = K.flash_route(dtype, 256 // n_heads, name)
+        for fp32_route in ("tf32", "sm90_tf32"):
+            assert counts[f"{name}_{fp32_route}"] == (
+                6 if dtype == torch.float32 and route == fp32_route else 0)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 

@@ -108,12 +108,15 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
     forward at every head dim (530 is built at 576), and the Hopper dk/dv
     and dq at 192 or 256 (129 and 160 are built at 192, 193 at 256), the
     mma.sync dk/dv and dq above 256 (257 and 288 are built at 320); fp32
-    the tf32 family at every head dim."""
+    the Hopper tf32 forward at every head dim and dq up to 256, the tf32
+    mma.sync family for dk/dv and for dq above 256."""
     padded = K._flash_dim(d)
     for kernel in FLASH_ROUTED:
         route = K.flash_route(dtype, d, kernel)
         if dtype == torch.float32:
-            want = "tf32"
+            hopper = kernel.endswith("_fwd") or (kernel.endswith("_dq")
+                                                 and padded <= 256)
+            want = "sm90_tf32" if hopper else "tf32"
         elif padded <= 128:
             want = "sm90"
         elif padded <= 256 or kernel.endswith("_fwd"):
@@ -127,25 +130,55 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
 def test_flash_route_counters_and_refusals():
     """Each route has its counter in launch_counts (sm90_wide on all six
     wrappers, whose Hopper kernels take head dims 192 and 256, the
-    forwards' every head dim above 128), and each of the seven K6/K7
-    wrappers, di included, its count of zero-padded copies; di and other
-    dtypes have no route. dk/dv and dq run the Hopper kernels up to head
-    dim 256, the forwards at every head dim."""
+    forwards' every head dim above 128; sm90_tf32, the Hopper kernels on
+    fp32), and each of the seven K6/K7 wrappers, di included, its count of
+    zero-padded copies; di and other dtypes have no route. dk/dv and dq run
+    the Hopper kernels up to head dim 256 (fp32: dq only), the forwards at
+    every head dim."""
     counts = K.launch_counts()
     for kernel in FLASH_ROUTED:
-        for route in ("tf32", "wide", "sm90_wide"):
+        for route in ("tf32", "wide", "sm90_wide", "sm90_tf32"):
             assert f"{kernel}_{route}" in counts
         assert K.flash_route(torch.bfloat16, K.SM90_BWD_MAX_DIM + 1,
                              kernel) == \
             ("sm90_wide" if kernel.endswith("_fwd") else "wide")
+        assert K.flash_route(torch.float32, K.SM90_BWD_MAX_DIM + 1,
+                             kernel) == \
+            ("sm90_tf32" if kernel.endswith("_fwd") else "tf32")
     assert K.SM90_BWD_MAX_DIM == 256
     for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
         assert f"{kernel}_pad_copies" in counts
     assert "flash_bwd_pre_sm90_wide" not in counts
+    assert "flash_bwd_pre_sm90_tf32" not in counts
     with pytest.raises(ValueError, match="wrapper"):
         K.flash_route(torch.bfloat16, 256, "flash_bwd_pre")
     with pytest.raises(ValueError, match="dtype"):
         K.flash_route(torch.float64, 64, "flash_fwd")
+
+
+@pytest.mark.parametrize("d", [2, 16, 64, 128, 160, 256, 257, 320, 576,
+                               1280])
+def test_fp32_dkdv_and_wide_dq_keep_the_mma_sync_route(d):
+    """fp32 dk/dv runs the tf32 mma.sync family at every head dim, and fp32
+    dq does above SM90_BWD_MAX_DIM; below it dq, and the forwards at every
+    head dim, run the Hopper tf32 kernels. Each route has its own counter,
+    which the plain path on the CPU leaves at 0."""
+    for kernel in ("flash_bwd_dkdv", "flash_seg_bwd_dkdv"):
+        assert K.flash_route(torch.float32, d, kernel) == "tf32"
+    for kernel in ("flash_bwd_dq", "flash_seg_bwd_dq"):
+        assert K.flash_route(torch.float32, d, kernel) == (
+            "sm90_tf32" if K._flash_dim(d) <= K.SM90_BWD_MAX_DIM else "tf32")
+    for kernel in ("flash_fwd", "flash_seg_fwd"):
+        assert K.flash_route(torch.float32, d, kernel) == "sm90_tf32"
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.tensor(rng.randn(1, 2, 9, d), dtype=torch.float32)
+                   for _ in range(4))
+    before = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, True, d ** -0.5)
+    di = K.flash_bwd_pre(o, do)
+    K.flash_bwd_dkdv(q, k, v, do, lse, di, True, d ** -0.5)
+    K.flash_bwd_dq(q, k, v, do, lse, di, True, d ** -0.5)
+    assert K.launch_counts() == before
 
 
 @pytest.mark.parametrize("d", [192, 256, 320])
@@ -185,13 +218,15 @@ def _bthd(d, dtype=torch.bfloat16, offset=0, width=None):
 
 # (what, dtype, head dim, layout) -> the wrappers that copy: every K6/K7
 # wrapper at a built head dim reads its views as they are; below one the
-# Hopper kernels read an even D in place where TMA takes the strides, the
-# mma.sync family (fp32; 16-bit dk/dv and dq above 256) copies, di copies
+# Hopper kernels read an even D in place where TMA takes the strides
+# (multiples of 16 bytes: 8 elements of 16 bits, 4 of fp32), the mma.sync
+# family (fp32 dk/dv; 16-bit dk/dv and dq above 256) copies, di copies
 # only what its pairs cannot read
 _HOPPER = ("flash_fwd", "flash_seg_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
            "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 _MMA_BWD = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_seg_bwd_dkdv",
             "flash_seg_bwd_dq")
+_TF32_DKDV = ("flash_bwd_dkdv", "flash_seg_bwd_dkdv")
 COPY_CASES = [
     ("built D64", torch.bfloat16, 64, {}, ()),
     ("built D128 fp32", torch.float32, 128, {}, ()),
@@ -206,7 +241,18 @@ COPY_CASES = [
     ("D530 of a 536-wide tensor: the forwards read it in place",
      torch.bfloat16, 530, {"width": 536}, _MMA_BWD),
     ("D600: the same", torch.float16, 600, {}, _MMA_BWD),
-    ("fp32 D16: the tf32 family copies", torch.float32, 16, {}, _HOPPER),
+    ("fp32 D16: the tf32 family copies", torch.float32, 16, {},
+     _TF32_DKDV),
+    ("fp32 D20: H stride of 20, a multiple of 4 and not of 8",
+     torch.float32, 20, {}, _TF32_DKDV),
+    ("fp32 D18: H stride of 18, not a multiple of 4", torch.float32, 18, {},
+     _HOPPER),
+    ("fp32 D16 two elements past 16 bytes", torch.float32, 16,
+     {"offset": 2}, _HOPPER),
+    ("fp32 D160 of a 164-wide tensor", torch.float32, 160, {"width": 164},
+     _TF32_DKDV),
+    ("fp32 D288: the mma.sync dk/dv and dq copy", torch.float32, 288, {},
+     _MMA_BWD),
     ("D20: H stride of 20", torch.bfloat16, 20, {}, _HOPPER),
     ("D330: H stride of 330", torch.bfloat16, 330, {}, _HOPPER),
     ("D20 of a 64-wide tensor", torch.bfloat16, 20, {"width": 64}, ()),
@@ -229,6 +275,17 @@ def test_flash_copy_decision_follows_route_and_strides(what, dtype, d, view,
     for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
         assert K.flash_needs_copy(kernel, x, x, x) == (kernel in copies), \
             kernel
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.float32, 16, True), (torch.float32, 20, True),
+    (torch.float32, 18, False), (torch.bfloat16, 20, False),
+    (torch.bfloat16, 24, True), (torch.float16, 12, False)])
+def test_flash_strides_ok_counts_16_bytes(dtype, d, ok):
+    """TMA's stride rule in bytes: a [B, T, H, D] view's strides are
+    multiples of D, so D 20 and 16 pass in fp32 (multiples of 4) and D 20
+    fails in bf16 (not of 8)."""
+    assert K.flash_strides_ok(_bthd(d, dtype)) == ok
 
 
 def test_flash_copy_decision_reads_every_view():
@@ -260,6 +317,10 @@ GRAD_CASES = [
      "flash_seg_bwd_dkdv", False),
     ("fp32 D16: the tf32 family copies", lambda: _expanded(16, torch.float32),
      "flash_bwd_dkdv", False),
+    ("fp32 D20 [B, T, H, D]: TMA takes strides of 4", lambda: _bthd(
+        20, torch.float32), "flash_bwd_dkdv", False),
+    ("fp32 D18 expanded: no clone TMA takes", lambda: _expanded(
+        18, torch.float32), "flash_seg_bwd_dkdv", False),
 ]
 
 
