@@ -29,7 +29,7 @@ and then:
    (B4 H16 T2048 D128, causal) in bf16 and in fp16, ViT-B/16's (B32 H12
    T197 D64, full), a causal T = 1000 tail-tile shape, fp32 inputs (B2 H8
    T1024 D64 causal, and phase 12's ViT_Tiny attention, B32 H4 T65 D16
-   full: the Hopper tf32 forward and dq, the tf32 mma.sync dk/dv),
+   full: the Hopper tf32 forward, dk/dv and dq),
    ViT_Tiny's head dim 16 in bf16 and head dims 80
    and 96 (read in place by the D 128 kernels: every such shape logs the
    wrappers' zero-pad copies, and one on a Hopper route fails the run),
@@ -43,11 +43,13 @@ and then:
    resident up to 1024 and streamed at 1280, and the mma.sync dk/dv and
    dq; fp32
    D256 (B2 H4 T512 causal) and D320 (B1 H4 T1024 causal): the Hopper
-   tf32 forward at both, its dq at 256, the mma.sync dk/dv and, at 320,
-   dq); and times them beside
-   ``scaled_dot_product_attention``'s forward and backward (a yardstick
-   only, never on the path), the forward with its achieved TFLOP/s and its
-   share of the bound;
+   tf32 forward, dk/dv and dq, K and V of a dk/dv block resident at 256
+   and streamed at 320, Q and dO of a dq block likewise); and times them
+   beside ``scaled_dot_product_attention``'s forward and backward (a
+   yardstick only, never on the path), the forward with its achieved
+   TFLOP/s and its share of the bound. Every fp32 shape's kernels must
+   take the Hopper tf32 route, by their counters and by the kernel names
+   of a profiler trace (check_fp32_route: no mma.sync kernel);
 5. trains the flagship decoder LM (d2048 x 4 layers, T 2048, batch 4,
    bf16, ``attention="flash"``) through ``broadcast_parameters`` and
    ``DistributedOptimizer(AdamW)`` (losses finite and falling, tokens/s);
@@ -63,7 +65,8 @@ and then:
    mma.sync dk/dv and dq) and D 576, 640, 1024 and 1280 ones (B1 H2
    T1024, and D 1024 at B1 H8 T4096, a grid that fills the card: the deep
    Hopper forward, the mma.sync dk/dv and dq) and the FULL half in fp32
-   (the Hopper tf32 K7a and K7c, the mma.sync K7b), and times them
+   (the Hopper tf32 K7a, K7b and K7c, checked as phase 4's fp32 shapes),
+   and times them
    beside SDPA's forward and backward (a yardstick only: with the
    segment's own lse, SDPA's backward of the same segment, causal or
    full, computes the same dq, dk and dv), the forward with its
@@ -85,18 +88,19 @@ and then:
     reduction, and applies one AdamW step through
     ``DistributedOptimizer(op=Adasum)``;
 12. trains ViT_Tiny (head dim 16) in fp32 at batch 32, 64 px, three
-    SGD-momentum steps, through the Hopper tf32 forward and dq (reading
-    the head dim in place) and the tf32 mma.sync dk/dv (on copies padded
-    to 64), its first logits against the same model's on the CPU;
+    SGD-momentum steps, through the Hopper tf32 forward, dk/dv and dq,
+    which read the head dim in place (no zero-padded copy), its first
+    logits against the same model's on the CPU, and traces one more
+    forward and backward: only the Hopper tf32 kernels may run;
 13. runs attention above head dim 128 through the entry points a user
     calls, ``flash_attention_local`` (bf16 B1 T4096 H8 D256, fp16 B2 T1024
     H8 D160, bf16 B1 T1024 H4 D320 and D384, B1 T512 H2 D576, fp32 B1
-    T1024 H4 D320: the Hopper tf32 forward, the mma.sync dk/dv and dq;
-    causal) and
+    T1024 H4 D320: the Hopper tf32 forward, dk/dv and dq; causal) and
     the zig-zag ring (``force_ring=True``, bf16 D256, D320, D384 and
     D576), forward and backward, against the plain versions, checks which
     route each kernel took (the Hopper kernels up to D 256, the Hopper
-    forward and the mma.sync dk/dv and dq above), by its launch counter
+    forward and the mma.sync dk/dv and dq above; fp32 the Hopper tf32
+    kernels, no mma.sync one), by its launch counter
     and by the names of the kernels a profiler trace saw (at D 384 the
     forward must be ``flash_fwd_sm90_kernel<384, ...>``, at D 576
     ``flash_fwd_sm90_kernel_deep<...>``, and no 16-bit forward may run the
@@ -120,10 +124,10 @@ one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
 68 for the hierarchical one, whose 2 shards a pair halve the work; one of
-each fp32 kernel, the Hopper tf32 forward and dq and the mma.sync dk/dv,
-per layer and step of ViT_Tiny; each wide instance, Hopper and mma.sync,
-at least once in phase 13, the mma.sync dq on fp32 too, and no forward
-on the mma.sync family). Any failed check exits
+each fp32 kernel, the Hopper tf32 forward, dk/dv and dq, per layer and
+step of ViT_Tiny; each wide instance, Hopper and mma.sync, at least once
+in phase 13, the Hopper tf32 dk/dv and dq at fp32 D 320 too, and no
+forward and no fp32 launch on the mma.sync family). Any failed check exits
 non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -189,13 +193,22 @@ FLASH_SHAPES = (("flagship LM", 4, 16, 2048, 2048, 128, True, "bfloat16"),
 TF32_SHAPE = "ViT_Tiny fp32"
 # the fp32 rows of the kernels line: (row, the K6 wrapper and the phase-4
 # shape whose numbers it carries, the phase whose counts are its
-# launches). The Hopper tf32 forward and dq (K6 and K7 alike: every
-# fp32-input shape of phases 4 and 8 under "shapes") and the mma.sync
-# dk/dv at phase 12's shape, the mma.sync dq above head dim 256 at D 320.
+# launches). The Hopper tf32 forward, dk/dv and dq (K6 and K7 alike) at
+# phase 12's shape, every fp32-input shape of phases 4 and 8 under
+# "shapes", and dk/dv and dq again at D 320 (rows <name>_d320), the head
+# dims above 256 that fp32 dk/dv and dq took to the mma.sync family before
+# they ran on Hopper.
+TF32_D320 = "D320 fp32"
 TF32_ROWS = (("flash_fwd_sm90_tf32", "flash_fwd", TF32_SHAPE, 12),
+             ("flash_bwd_dkdv_sm90_tf32", "flash_bwd_dkdv", TF32_SHAPE, 12),
              ("flash_bwd_dq_sm90_tf32", "flash_bwd_dq", TF32_SHAPE, 12),
-             ("flash_bwd_dkdv_tf32", "flash_bwd_dkdv", TF32_SHAPE, 12),
-             ("flash_bwd_dq_tf32", "flash_bwd_dq", "D320 fp32", 13))
+             ("flash_bwd_dkdv_sm90_tf32_d320", "flash_bwd_dkdv", TF32_D320,
+              13),
+             ("flash_bwd_dq_sm90_tf32_d320", "flash_bwd_dq", TF32_D320, 13))
+# the K6 and K7 wrappers whose fp32 launches must take the Hopper tf32
+# route (di has no route)
+FP32_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+FP32_SEG_ROUTED = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the rows of the instances above head dim 128, K6 and K7, and the phase-4
 # and phase-8 shapes whose numbers each carries: the Hopper kernels at
 # D 192 and 256 (<name>_sm90_wide) at D 256, the Hopper forward at D 320
@@ -231,8 +244,8 @@ WIDE_TRACED_CALLS = 2          # forward + backward calls in the trace
 WIDE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                 "flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the CUDA kernel each wrapper's route launches: the Hopper kernel
-# (sm90_wide), the Hopper tf32 one (sm90_tf32) or the mma.sync one (wide,
-# tf32), K7's the same as K6's
+# (sm90_wide), the Hopper tf32 one (sm90_tf32) or the mma.sync one (wide),
+# K7's the same as K6's
 ROUTE_KERNELS = {"flash_fwd": "flash_fwd", "flash_seg_fwd": "flash_fwd",
                  "flash_bwd_dkdv": "flash_bwd_dkdv",
                  "flash_seg_bwd_dkdv": "flash_bwd_dkdv",
@@ -337,8 +350,8 @@ def attention_ptxas(build, log):
     ``<row>_sm90_d320``, at 384 to 512 ``<row>_sm90_split`` and its deep
     kernel (every head dim above 512) ``<row>_sm90_deep``; the Hopper tf32
     kernels' rows (fp32 inputs, K6 and K7 alike) are ``<name>_sm90_tf32``;
-    the mma.sync family's rows are ``<name>_tf32`` (fp32 inputs, K6 and K7
-    alike) and ``<name>_wide`` (bf16 and fp16 dk/dv and dq)."""
+    the mma.sync family's rows are ``<name>_wide`` (bf16 and fp16 dk/dv and
+    dq: the family has no fp32 instance)."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
         "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
@@ -350,6 +363,8 @@ def attention_ptxas(build, log):
         "flash_fwd_sm90_tf32_kernel": ("flash_fwd", "flash_seg_fwd"),
         "flash_bwd_dq_sm90_tf32_kernel": ("flash_bwd_dq",
                                           "flash_seg_bwd_dq"),
+        "flash_bwd_dkdv_sm90_tf32_kernel": ("flash_bwd_dkdv",
+                                            "flash_seg_bwd_dkdv"),
         "flash_bwd_dkdv_mma_kernel": ("flash_bwd_dkdv", "flash_seg_bwd_dkdv"),
         "flash_bwd_dq_mma_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
     }
@@ -364,13 +379,13 @@ def attention_ptxas(build, log):
             check(m is not None and m.group(1) in names and len(r) == 3,
                   f"unexpected ptxas entry {mangled}: {r}")
             kernel, d, types = m.groups()
-            types = re.sub(r"Lb[01]E$", "", types)   # the family's ONE flag
             # "S1_" repeats In (K6), a final "f" is fp32 (K7)
             k7 = types.endswith("f") and not types.startswith("f")
             row = names[kernel][int(k7)]
             if kernel.endswith("mma_kernel"):
-                row = (f"{names[kernel][0]}_tf32" if types.startswith("f")
-                       else f"{row}_wide")
+                check(not types.startswith("f"),
+                      f"an fp32 instance of the mma.sync family: {mangled}")
+                row += "_wide"
             elif kernel.endswith("_tf32_kernel"):
                 row = f"{names[kernel][0]}_sm90_tf32"
             elif kernel.endswith("_deep"):
@@ -952,6 +967,8 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
                 f"({bound_by})" + rate_text(entry))
         if dtype == "float32":
             fp32_entries[what] = entries
+            check_fp32_route(torch, K, f"K6 {what}", kernel_fwd_bwd,
+                             FP32_ROUTED, log)
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
@@ -989,8 +1006,7 @@ def pad_copies_ok(K, dt, d, copies):
     """Whether no wrapper that runs a Hopper kernel (or di) on inputs of
     head dim ``d`` copied them: those read the views in place (the shapes
     here are [B, T, H, D] views whose strides TMA takes); the mma.sync
-    family (fp32 dk/dv, and every dtype's dk/dv and dq above its Hopper
-    limit) copies."""
+    family (bf16 and fp16 dk/dv and dq above their Hopper limit) copies."""
     for name, n in copies.items():
         hopper = name == "flash_bwd_pre" or (
             K.flash_route(dt, d, name) in ("sm90", "sm90_wide", "sm90_tf32"))
@@ -1169,6 +1185,11 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
                 f"({bound_by})" + rate_text(entry)
                 + (f", SDPA forward {sdpa_ms:.4f} ms"
                    if name == "flash_seg_fwd" else ""))
+        if dtype == "float32":
+            check_fp32_route(
+                torch, K, f"K7 {what}",
+                lambda: [fn() for fn, _ in calls.values()],
+                FP32_SEG_ROUTED, log)
         bwd_ms = sum(rows[n]["shapes"][-1]["ms"] for n in SEG_KERNELS[1:])
         log(f"  {what}: K7b + K7c {bwd_ms:.4f} ms against SDPA's "
             f"{'causal' if causal else 'non-causal'} backward of the segment "
@@ -1296,9 +1317,9 @@ def run_ring_path(torch, K, R, fa, dev, log):
 def wide_routes(K, dtype, d, ring):
     """The route each kernel of one wide path takes (flash_route: up to
     head dim 256 the Hopper kernels, above it the Hopper forward and the
-    mma.sync dk/dv and dq; fp32: the Hopper tf32 forward, the mma.sync dk/dv
-    and, above 256, dq), K7's on the ring, K6's on flash_attention_local:
-    {wrapper: "sm90_wide", "wide", "sm90_tf32" or "tf32"}."""
+    mma.sync dk/dv and dq; fp32: the Hopper tf32 kernels at every head
+    dim), K7's on the ring, K6's on flash_attention_local: {wrapper:
+    "sm90_wide", "wide" or "sm90_tf32"}."""
     names = WIDE_KERNELS[3:] if ring else WIDE_KERNELS[:3]
     return {name: K.flash_route(dtype, d, name) for name in names}
 
@@ -1306,7 +1327,7 @@ def wide_routes(K, dtype, d, ring):
 # the routes a wide path's launches may take, and the CUDA kernel (by the
 # suffix of its name after ROUTE_KERNELS' base) each launches
 WIDE_PATH_ROUTES = {"sm90_wide": "_sm90_kernel", "wide": "_mma_kernel",
-                    "sm90_tf32": "_sm90_tf32_kernel", "tf32": "_mma_kernel"}
+                    "sm90_tf32": "_sm90_tf32_kernel"}
 
 
 def wide_route_ok(counts, routes):
@@ -1333,6 +1354,41 @@ def traced_route_ok(names, routes):
                 or any(other in n for other in others for n in names):
             return False
     return True
+
+
+def check_fp32_route(torch, K, what, call, wrappers, log):
+    """Phases 4, 8 and 12: every fp32 launch of ``call`` on the Hopper tf32
+    route, none on the mma.sync family, by the counters (each launch of
+    ``wrappers`` counted in ``<wrapper>_sm90_tf32``, none in
+    ``<wrapper>_wide``) and by the kernel names a torch.profiler trace of
+    two calls saw (traced_route_ok: each wrapper's ``_sm90_tf32_kernel``,
+    no ``_sm90_kernel`` or ``_mma_kernel``). Returns the traced names of
+    the attention kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    n0 = K.launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a trace may miss its first kernel: one of no interest goes first
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    traced = sorted({re.sub(r"^.*?(flash_\w+?_kernel\w*).*$", r"\1", ev.key)
+                     for ev in prof.key_averages()
+                     if getattr(ev, "self_device_time_total", 0.0) > 0
+                     and "flash_" in ev.key})
+    counted = {w: (n1[f"{w}_sm90_tf32"] - n0[f"{w}_sm90_tf32"],
+                   n1[w] - n0[w], n1[f"{w}_wide"] - n0[f"{w}_wide"])
+               for w in wrappers}
+    log(f"  {what}: fp32 launches (sm90_tf32, all, wide) {counted}, traced "
+        f"{traced}")
+    check(all(tf32 == n >= 2 and wide == 0
+              for tf32, n, wide in counted.values())
+          and traced_route_ok(traced, {w: "sm90_tf32" for w in wrappers}),
+          f"{what}: an fp32 launch off the Hopper tf32 route: {counted}, "
+          f"traced {traced}")
+    return traced
 
 
 def run_wide_path(torch, K, R, fa, dev, log):
@@ -1877,11 +1933,12 @@ def profile_steps(torch, step, n, log):
 
 def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     """Phase 12: ViT_Tiny (4 heads of 16) in fp32 on the card, through the
-    Hopper tf32 forward and dq, which read the head dim of 16 in place, and
-    the tf32 mma.sync dk/dv, which takes copies padded to 64: its first
-    logits against the same model's on the CPU (K6's plain versions), then
-    TINY_STEPS SGD-momentum steps (losses finite). Returns the summary and
-    the launch counts of the path."""
+    Hopper tf32 forward, dk/dv and dq, which read the head dim of 16 in
+    place (no zero-padded copy): its first logits against the same model's
+    on the CPU (K6's plain versions), then TINY_STEPS SGD-momentum steps
+    (losses finite), then a traced forward and backward, whose attention
+    kernels must all be the Hopper tf32 ones (check_fp32_route). Returns
+    the summary and the launch counts of the path."""
     model = ViT_Tiny(num_classes=10, dtype=torch.float32,
                      image_size=TINY_IMAGE,
                      generator=torch.Generator().manual_seed(0))
@@ -1915,18 +1972,24 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     check(all(v == v and abs(v) != float("inf") for v in losses),
           "non-finite ViT_Tiny loss")
     layers = len(model.blocks)
-    for name in ("flash_fwd_sm90_tf32", "flash_bwd_dkdv_tf32",
-                 "flash_bwd_dq_sm90_tf32", "flash_bwd_dkdv_pad_copies"):
-        check(counts[name] == layers * TINY_STEPS,
-              f"{name} launched {counts[name]} on the ViT_Tiny path, "
+    for name in FP32_ROUTED:
+        check(counts[name] == counts[f"{name}_sm90_tf32"]
+              == layers * TINY_STEPS,
+              f"{name} launched {counts[name]} on the ViT_Tiny path "
+              f"({counts[f'{name}_sm90_tf32']} on the Hopper tf32 route), "
               f"expected {layers * TINY_STEPS}")
-    for name in ("flash_fwd_tf32", "flash_bwd_dq_tf32",
-                 "flash_fwd_pad_copies", "flash_bwd_dq_pad_copies",
-                 "flash_bwd_pre_pad_copies"):
-        check(counts[name] == 0, f"{name}: {counts[name]} on the ViT_Tiny "
-              "path, expected 0")
-    return (dict(logits_err=err, logits_limit=limit, losses=losses),
-            counts)
+    for name in FP32_ROUTED + ("flash_bwd_pre",):
+        copies = counts[f"{name}_pad_copies"]
+        check(copies == 0, f"{name}: {copies} zero-padded copies on the "
+              "ViT_Tiny path, expected 0")
+
+    def fwd_bwd():
+        torch.nn.functional.cross_entropy(model(images), labels).backward()
+
+    traced = check_fp32_route(torch, K, "ViT_Tiny", fwd_bwd, FP32_ROUTED,
+                              log)
+    return (dict(logits_err=err, logits_limit=limit, losses=losses,
+                 traced_kernels=traced), counts)
 
 
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
@@ -2220,7 +2283,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         log(f"phase 12: ViT_Tiny (head dim 16) in fp32 through the Hopper "
-            f"tf32 forward and dq and the tf32 mma.sync dk/dv, batch "
+            f"tf32 forward, dk/dv and dq, batch "
             f"{TINY_BATCH}, {TINY_IMAGE} px, {TINY_STEPS} steps")
         tiny, tiny_counts = run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log)
         torch.cuda.empty_cache()
@@ -2239,13 +2302,19 @@ def main(argv=None) -> int:
                 check((wide_counts[f"{name}_{route}"] >= 1) == want,
                       f"{name}_{route} launched {wide_counts[f'{name}_{route}']}"
                       " times on the wide path")
-        # the fp32 path: the Hopper tf32 forward, the mma.sync dk/dv and dq
-        for name in ("flash_fwd_sm90_tf32", "flash_bwd_dkdv_tf32",
-                     "flash_bwd_dq_tf32"):
-            check(wide_counts[name] >= 1,
-                  f"{name} launched no time on the wide path")
-        check(wide_counts["flash_fwd_tf32"] == 0,
-              "a forward ran the mma.sync family on the wide path")
+        # the fp32 path: every kernel on the Hopper tf32 route, by its
+        # counters and its trace, none on the mma.sync family
+        for name in FP32_ROUTED:
+            check(wide_counts[f"{name}_sm90_tf32"] >= 1,
+                  f"{name}_sm90_tf32 launched no time on the wide path")
+        fp32 = [p for p in wide if p["dtype"] == "float32"]
+        check(fp32 and all(
+            p["launches"].get(f"{name}_wide", 0) == 0
+            and p["routes"][name] == "sm90_tf32"
+            for p in fp32 for name in FP32_ROUTED)
+            and not any("_mma_kernel" in k for p in fp32
+                        for k in p["traced_kernels"]),
+            "an fp32 launch ran the mma.sync family on the wide path")
     finally:
         hvd.shutdown()
 
@@ -2309,31 +2378,31 @@ def main(argv=None) -> int:
 
     def tf32_row(row, name, shape, phase):
         """The kernels-line row of an fp32 instance (TF32_ROWS): numbers at
-        ``shape``, launches from ``phase``'s counts; the Hopper tf32 rows
-        list every fp32-input shape of phases 4 and 8 under "shapes"."""
+        ``shape``, launches from ``phase``'s counts of the wrapper's Hopper
+        tf32 route; the rows at phase 12's shape list every fp32-input
+        shape of phases 4 and 8 under "shapes"."""
         entry = fp32_entries[shape][name]
-        hopper = row.endswith("_sm90_tf32")
         seg = "flash_seg" + name[len("flash"):]
         shapes = ([fp32_entries[w][name] for w in fp32_entries]
                   + [e for e in seg_rows[seg]["shapes"]
-                     if e["dtype"] == "float32"]) if hopper else []
+                     if e["dtype"] == "float32"]) if shape == TF32_SHAPE \
+            else []
         counts = tiny_counts if phase == 12 else wide_counts
         line = {"flash_fwd": 169, "flash_bwd_dkdv": 188,
                 "flash_bwd_dq": 194}[name]
         return dict(
-            name=row, route="cuda",
-            source=f"{src}/" + ("flash_attn.cu" if not hopper else
-                                flash_source(name)),
+            name=row, route="cuda", source=f"{src}/{flash_source(name)}",
             replaces="horovod_tpu/parallel/flash_attention.py:226 and "
                      f"horovod_tpu/parallel/ring_attention.py:{line}",
-            launches=counts[row], ok=True,
+            launches=counts[f"{name}_sm90_tf32"], ok=True,
             work=(f"fp32 {shape} (B, H, Tq, Tk, D: {entry['shape']}, "
                   f"{'causal' if entry['causal'] else 'full'}), K6 and K7 "
                   f"alike; launches: phase {phase}"),
             **{key: entry[key] for key in
                ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err")},
-            **({"shapes": shapes} if shapes else {}), **ptxas[row])
+            **({"shapes": shapes} if shapes else {}),
+            **ptxas[f"{name}_sm90_tf32"])
 
     src = "horovod_tpu_torch/csrc"
     kernels = [
@@ -2372,8 +2441,7 @@ def main(argv=None) -> int:
              **({"library_call": "SDPA backward (dq, dk and dv together)"}
                 if name in ("flash_bwd_dkdv", "flash_bwd_dq") else {}))
         for name in FLASH_KERNELS] + [
-        # fp32 inputs: the Hopper tf32 forward and dq, the tf32 mma.sync
-        # dk/dv, and its dq above head dim 256
+        # fp32 inputs: the Hopper tf32 forward, dk/dv and dq
         tf32_row(*spec) for spec in TF32_ROWS] + [
         # the ring's per-segment kernels: _seg_fwd_pallas and the two
         # library backward kernels _seg_bwd_pallas calls

@@ -6,17 +6,18 @@
 // The Hopper kernels (TMA and wgmma) take the forward at any D and every
 // input type (bf16 and fp16: 320, 384 and 512 have instances of their own,
 // and above 512 one kernel takes every D; fp32 on tf32 in groups of 64 or
-// 128 of O's columns), and dk/dv and dq at D = 64, 128, 192 or 256 (fp32
-// dq on tf32; fp32 dk/dv is not theirs); the rest runs the tf32 mma.sync
-// kernels of flash_attn.cu, whose run() routes a launch. D is 64, 128 or a
-// multiple of 64 above, the head dim of the kernel instance, which run()
-// derives from the views' own head dim Dr. Dr may be less (at least 2 and
-// even; the forward runs 448 on 512): the Hopper kernels read them through
-// tensor maps whose inner dimension is Dr, which TMA fills with zeros up
-// to D, and store only columns below Dr; the mma.sync family takes Dr = D
-// (the wrapper pads its inputs with zeros). q has Tq rows and k, v Tk
-// rows. Causal means the library kernel's rule: key <= query by absolute
-// index.
+// 128 of O's columns), fp32 dk/dv and dq at any D (tf32, the output
+// columns in groups), and bf16 and fp16 dk/dv and dq at D = 64, 128, 192
+// or 256; the rest (bf16 and fp16 dk/dv and dq above 256) runs the tf32
+// mma.sync kernels of flash_attn.cu, whose run() routes a launch. D is 64,
+// 128 or a multiple of 64 above, the head dim of the kernel instance, which
+// run() derives from the views' own head dim Dr. Dr may be less (at least 2
+// and even; the forward runs 448 on 512): the Hopper kernels read them
+// through tensor maps whose inner dimension is Dr, which TMA fills with
+// zeros up to D, and store only columns below Dr; the mma.sync family
+// takes Dr = D (the wrapper pads its inputs with zeros). q has Tq rows and
+// k, v Tk rows. Causal means the library kernel's rule: key <= query by
+// absolute index.
 
 #pragma once
 
@@ -49,8 +50,7 @@ struct Args {
   float scale;
 };
 
-// The Hopper kernels: the forward and dq for every dtype, dk/dv for kBF16
-// and kF16.
+// The Hopper kernels: the forward, dk/dv and dq for every dtype.
 cudaError_t fwd_sm90(const Args& a, cudaStream_t stream);
 cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream);
 cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream);

@@ -1,7 +1,6 @@
 // Flash attention: the C entry points of K6 and K7, di = rowsum(dO o O)
 // (K6b) for every input type and head dim, and the mma.sync family of the
-// backward: fp32 dk/dv at every head dim, and dk/dv and dq of every input
-// type above head dim 256.
+// backward: bf16 and fp16 dk/dv and dq above head dim 256.
 //
 // Replaces the Pallas kernels that horovod_tpu/parallel/flash_attention.py:
 // flash_attention_local takes from jax's library (the flash / splash
@@ -13,14 +12,13 @@
 // The route (run() below; ops/kernels.py:flash_route says the same):
 // - the forward: the Hopper kernels of flash_fwd_sm90.cu (TMA and wgmma)
 //   at every head dim and input type, fp32 on tf32 wgmma;
-// - dk/dv and dq: the Hopper kernels of flash_bwd_sm90.cu up to head dim
-//   256 (kBwdMaxD): bf16 and fp16 dk/dv and dq, fp32 dq (tf32);
-// - the rest, the mma.sync family below: fp32 dk/dv at every head dim, and
-//   dk/dv and dq above 256 for every input type. wgmma's N is at most 256,
-//   and dK and dV (held together in a dk/dv block) and dQ beside S and dP
-//   fit no register budget above 256 yet; fp32 dk/dv would need two
-//   operands transposed in the kernel (P^T dO and dS^T Q contract over q,
-//   and wgmma takes tf32 operands K-major only).
+// - dk/dv and dq: the Hopper kernels of flash_bwd_sm90.cu, fp32 at every
+//   head dim (tf32 wgmma, the output columns in groups over blocks), bf16
+//   and fp16 up to head dim 256 (kBwdMaxD);
+// - bf16 and fp16 dk/dv and dq above 256: the mma.sync family below.
+//   wgmma's N is at most 256, and the 16-bit Hopper dk/dv holds dK and dV
+//   of its 64 kv rows at the whole D, and dq dQ beside S and dP, which fit
+//   no register budget above 256 yet.
 // The Hopper kernels read a head dim below their instance's in place
 // (Args::Dr); the mma.sync family takes Dr = D (the wrapper pads). There is
 // no fallback: a launch runs its route's kernel or returns the error.
@@ -30,27 +28,25 @@
 // scalar load from it (so a transposed operand is only another index),
 // operands are rounded to tf32 (cvt.rna) as they are loaded, and the
 // accumulators are fp32. bf16 and fp16 values are exact in tf32 (8 and 11
-// significant bits of tf32's 11), so 16-bit inputs are staged as fp32 and
-// multiplied exactly, and P and dS are rounded to the input type before
-// their products (as the plain versions round them): the 16-bit results are
-// fp32 sums of the products the plain versions form. P and dS go from the
+// significant bits of tf32's 11), so the 16-bit inputs are staged as fp32
+// and multiplied exactly, and P and dS are rounded to the input type before
+// their products (as the plain versions round them): the results are fp32
+// sums of the products the plain versions form. P and dS go from the
 // accumulators to a warp's own rows of shared memory to become the next
 // product's A. Each warp owns 16 rows of its block's tile; 4 warps a block,
 // tiles of 64 rows by 32:
 // - dk/dv: a block of 64 kv rows, q tiles of 32 from the causal diagonal
 //   on, P^T = exp(K Q^T * scale - lse), dV += P^T dO, dK += dS^T Q;
 // - dq: a block of 64 q rows, kv tiles of 32, dQ += dS K.
-// Any head dim: the wrapper pads D to 64, 128 or a multiple of 64 above
-// (the family reads every view at D columns: Dr = D).
-// The grid's third dimension splits the output columns into slices of DS =
-// min(D, 128); a block holds accumulators for its slice only (dk/dv: two 16
-// x 128 a warp, which fit) and computes S = Q K^T and dP = dO V^T over the
-// whole D in chunks of DS columns staged one after the other. Above 128
-// each slice computes S (and dP) again: at D 256 twice the products of S
-// and dP, the price of holding no more than 128 accumulator columns.
-// What bounds it: operations, at tf32's 495 TFLOP/s, half of bf16's; it is
-// the simple tile code, unpipelined. Its error for fp32 inputs is tf32's:
-// the operands keep 10 mantissa bits (unit roundoff 2^-11).
+// The wrapper pads D to a multiple of 64 (the family reads every view at D
+// columns: Dr = D). The grid's third dimension splits the output columns
+// into slices of kDS = 128; a block holds accumulators for its slice only
+// (dk/dv: two 16 x 128 a warp, which fit) and computes S = Q K^T and
+// dP = dO V^T over the whole D in chunks of kDS columns staged one after
+// the other, S (and dP) again in each slice: at D 320 three times the
+// products of S and dP, the price of holding no more than 128 accumulator
+// columns. What bounds it: operations, at tf32's 495 TFLOP/s, half of
+// bf16's; it is the simple tile code, unpipelined.
 //
 // Causal (key <= query by absolute index) tiles past the diagonal are never
 // loaded, and a tile that crosses the diagonal or the end of q or k/v runs
@@ -80,6 +76,7 @@ constexpr int kPad = 4;     // floats of padding at the end of a staged row
 constexpr int kRows = 64;   // rows of a block's own tile (16 a warp)
 constexpr int kTile = 32;   // rows of a streamed tile
 constexpr int kLdP = kTile + kPad;   // row pitch of the staged P or dS
+constexpr int kDS = 128;    // output columns of a block's slice
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;   // the lse of a row that sees no key
@@ -103,10 +100,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 template <typename In>
 __device__ __forceinline__ float round_in(float x);
 template <>
-__device__ __forceinline__ float round_in<float>(float x) {
-  return x;
-}
-template <>
 __device__ __forceinline__ float round_in<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -116,9 +109,6 @@ __device__ __forceinline__ float round_in<__half>(float x) {
 }
 
 // Four neighbouring elements of In as floats.
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 lo = __bfloat1622float2(
@@ -200,17 +190,17 @@ __device__ __forceinline__ void gemm_nt(float (&c)[NT][4], const float* x,
   }
 }
 
-// gemm_nt over a chunk of the depth w = 64 or DS wide (D is a multiple of
+// gemm_nt over a chunk of the depth w = 64 or kDS wide (D is a multiple of
 // 64), each width a loop of compile-time length.
-template <int DS, int NT>
+template <int NT>
 __device__ __forceinline__ void gemm_nt_chunk(float (&c)[NT][4],
                                               const float* x, int ldx,
                                               const float* y, int ldy, int w,
                                               int g, int t) {
-  if (DS == 64 || w == 64)
+  if (w == 64)
     gemm_nt<64, NT>(c, x, ldx, y, ldy, g, t);
   else
-    gemm_nt<DS, NT>(c, x, ldx, y, ldy, g, t);
+    gemm_nt<kDS, NT>(c, x, ldx, y, ldy, g, t);
 }
 
 // c[j] += X[16 rows][0, K) Y[0, K)[8j + n]: Y stored as rows of the depth
@@ -249,12 +239,12 @@ __device__ __forceinline__ void stage(float* pw,
   __syncwarp();
 }
 
-// Rows r_lo and r_lo + 8 of a 16 x DS accumulator, times mul[i], to the
-// rows < T and columns col0 + [0, DS) < D of one head of `out`.
-template <int DS, typename Out>
+// Rows r_lo and r_lo + 8 of a 16 x kDS accumulator, times mul[i], to the
+// rows < T and columns col0 + [0, kDS) < D of one head of `out`.
+template <typename Out>
 __device__ __forceinline__ void store_rows(const View& out, int b, int h,
                                            int r_lo, int T, int col0, int D,
-                                           const float (&acc)[DS / 8][4],
+                                           const float (&acc)[kDS / 8][4],
                                            const float (&mul)[2], int t) {
   Out* head = head_ptr<Out>(out, b, h);
 #pragma unroll
@@ -263,38 +253,35 @@ __device__ __forceinline__ void store_rows(const View& out, int b, int h,
     if (r >= T) continue;
     Out* row = head + r * out.st + col0;
 #pragma unroll
-    for (int dj = 0; dj < DS / 8; ++dj)
+    for (int dj = 0; dj < kDS / 8; ++dj)
       if (col0 + 8 * dj + 2 * t < D)
         store2(row + 8 * dj + 2 * t, acc[dj][2 * i] * mul[i],
                acc[dj][2 * i + 1] * mul[i]);
   }
 }
 
-// The chunks of the depth and the block's slice of the output columns;
-// ONE: D is DS, one chunk and one slice, and every width is a constant
-// (the general loop ran the fp32 forward at D 64 1.29 times as long).
-template <int DS, bool ONE>
+// The chunks of the depth and the block's slice of the output columns.
 struct Cols {
   int n_chunks, col0, width;
   __device__ explicit Cols(int D)
-      : n_chunks(ONE ? 1 : (D + DS - 1) / DS),
-        col0(ONE ? 0 : (int)blockIdx.z * DS),
-        width(ONE ? DS : min(DS, D - (int)blockIdx.z * DS)) {}
+      : n_chunks((D + kDS - 1) / kDS),
+        col0((int)blockIdx.z * kDS),
+        width(min(kDS, D - (int)blockIdx.z * kDS)) {}
   __device__ static int chunk_width(int D, int ch) {
-    return ONE ? DS : min(DS, D - ch * DS);
+    return min(kDS, D - ch * kDS);
   }
 };
 
-template <int DS>
 constexpr int dkdv_smem() {
-  return ((2 * kRows + 2 * kTile) * (DS + kPad) + kRows * kLdP + 2 * kTile) *
+  return ((2 * kRows + 2 * kTile) * (kDS + kPad) + kRows * kLdP +
+          2 * kTile) *
          4;
 }
 
-template <int DS, typename In, typename Out, bool ONE>
+template <typename In, typename Out>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_mma_kernel(const Args p) {
-  constexpr int LD = DS + kPad;
+  constexpr int LD = kDS + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
   float* vs = ks + kRows * LD;
@@ -313,18 +300,13 @@ flash_bwd_dkdv_mma_kernel(const Args p) {
   const float sl2 = p.scale * kLog2e;
   const float* lse = stat_row(p.lse, b, h);
   const float* di = stat_row(p.di, b, h);
-  const Cols<DS, ONE> cols(p.D);
-  const bool one = cols.n_chunks == 1;   // constant when ONE
+  const Cols cols(p.D);
   const In* qh = head_ptr<In>(p.q, b, h);
   const In* kh = head_ptr<In>(p.k, b, h);
   const In* vh = head_ptr<In>(p.v, b, h);
   const In* doh = head_ptr<In>(p.dout, b, h);
 
-  if (one) {
-    load_tile<kRows, LD>(ks, kh, p.k.st, kv0, p.Tk, 0, cols.width);
-    load_tile<kRows, LD>(vs, vh, p.v.st, kv0, p.Tk, 0, cols.width);
-  }
-  float dk[DS / 8][4], dv[DS / 8][4];
+  float dk[kDS / 8][4], dv[kDS / 8][4];
   zero(dk);
   zero(dv);
 
@@ -335,16 +317,10 @@ flash_bwd_dkdv_mma_kernel(const Args p) {
     float pt[kTile / 8][4];
     zero(pt);
     for (int ch = 0; ch < cols.n_chunks; ++ch) {
-      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
+      const int w = Cols::chunk_width(p.D, ch);
       __syncthreads();
-      if (!one) {
-        load_tile<kRows, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * DS, w);
-        load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, ch * DS, w);
-      } else {
-        load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, 0, cols.width);
-        load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, 0,
-                             cols.width);
-      }
+      load_tile<kRows, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * kDS, w);
+      load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, ch * kDS, w);
       if (ch == 0 && threadIdx.x < kTile) {
         const int r = q0 + threadIdx.x;
         // past Tq: lse +inf makes p exactly 0
@@ -352,8 +328,8 @@ flash_bwd_dkdv_mma_kernel(const Args p) {
         di_s[threadIdx.x] = r < p.Tq ? di[r] : 0.f;
       }
       __syncthreads();
-      gemm_nt_chunk<DS, kTile / 8>(pt, ks + warp * 16 * LD, LD, qs, LD, w,
-                                   g, t);
+      gemm_nt_chunk<kTile / 8>(pt, ks + warp * 16 * LD, LD, qs, LD, w, g,
+                               t);
     }
     const bool mask = p.causal && kv0 + warp * 16 + 15 > q0;
 #pragma unroll
@@ -367,27 +343,23 @@ flash_bwd_dkdv_mma_kernel(const Args p) {
       }
     }
     // dV += P^T dO over the block's slice of columns
-    if (!one) {
-      __syncthreads();
-      load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, cols.col0,
-                           cols.width);
-      __syncthreads();
-    }
+    __syncthreads();
+    load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, cols.col0,
+                         cols.width);
+    __syncthreads();
     stage<In>(pw, pt, g, t);
-    gemm_nn<kTile, DS / 8>(dv, pw, kLdP, dos, LD, g, t);
+    gemm_nn<kTile, kDS / 8>(dv, pw, kLdP, dos, LD, g, t);
     // dP^T = V dO^T over the chunks; dS^T = P^T * (dP^T - di)
     float dst[kTile / 8][4];
     zero(dst);
     for (int ch = 0; ch < cols.n_chunks; ++ch) {
-      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
-      if (!one) {
-        __syncthreads();
-        load_tile<kRows, LD>(vs, vh, p.v.st, kv0, p.Tk, ch * DS, w);
-        load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, ch * DS, w);
-        __syncthreads();
-      }
-      gemm_nt_chunk<DS, kTile / 8>(dst, vs + warp * 16 * LD, LD, dos, LD, w,
-                                   g, t);
+      const int w = Cols::chunk_width(p.D, ch);
+      __syncthreads();
+      load_tile<kRows, LD>(vs, vh, p.v.st, kv0, p.Tk, ch * kDS, w);
+      load_tile<kTile, LD>(dos, doh, p.dout.st, q0, p.Tq, ch * kDS, w);
+      __syncthreads();
+      gemm_nt_chunk<kTile / 8>(dst, vs + warp * 16 * LD, LD, dos, LD, w, g,
+                               t);
     }
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
@@ -398,28 +370,25 @@ flash_bwd_dkdv_mma_kernel(const Args p) {
       }
     }
     // dK += dS^T Q over the block's slice of columns
-    if (!one) {
-      __syncthreads();
-      load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, cols.col0, cols.width);
-      __syncthreads();
-    }
+    __syncthreads();
+    load_tile<kTile, LD>(qs, qh, p.q.st, q0, p.Tq, cols.col0, cols.width);
+    __syncthreads();
     stage<In>(pw, dst, g, t);
-    gemm_nn<kTile, DS / 8>(dk, pw, kLdP, qs, LD, g, t);
+    gemm_nn<kTile, kDS / 8>(dk, pw, kLdP, qs, LD, g, t);
   }
   const float one_[2] = {1.f, 1.f}, sc[2] = {p.scale, p.scale};
-  store_rows<DS, Out>(p.dk, b, h, r_lo, p.Tk, cols.col0, p.D, dk, sc, t);
-  store_rows<DS, Out>(p.dv, b, h, r_lo, p.Tk, cols.col0, p.D, dv, one_, t);
+  store_rows<Out>(p.dk, b, h, r_lo, p.Tk, cols.col0, p.D, dk, sc, t);
+  store_rows<Out>(p.dv, b, h, r_lo, p.Tk, cols.col0, p.D, dv, one_, t);
 }
 
-template <int DS>
 constexpr int dq_smem() {
-  return ((2 * kRows + 2 * kTile) * (DS + kPad) + kRows * kLdP) * 4;
+  return ((2 * kRows + 2 * kTile) * (kDS + kPad) + kRows * kLdP) * 4;
 }
 
-template <int DS, typename In, typename Out, bool ONE>
+template <typename In, typename Out>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_mma_kernel(const Args p) {
-  constexpr int LD = DS + kPad;
+  constexpr int LD = kDS + kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* dos = qs + kRows * LD;
@@ -435,8 +404,7 @@ flash_bwd_dq_mma_kernel(const Args p) {
   const float sl2 = p.scale * kLog2e;
   const float* lse = stat_row(p.lse, b, h);
   const float* di = stat_row(p.di, b, h);
-  const Cols<DS, ONE> cols(p.D);
-  const bool one = cols.n_chunks == 1;   // constant when ONE
+  const Cols cols(p.D);
   const In* qh = head_ptr<In>(p.q, b, h);
   const In* kh = head_ptr<In>(p.k, b, h);
   const In* vh = head_ptr<In>(p.v, b, h);
@@ -448,12 +416,7 @@ flash_bwd_dq_mma_kernel(const Args p) {
     lse_r[i] = r < p.Tq ? lse[r] * kLog2e : 0.f;
     di_r[i] = r < p.Tq ? di[r] : 0.f;
   }
-  if (one) {
-    load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, 0, cols.width);
-    load_tile<kRows, LD>(dos, doh, p.dout.st, q0, p.Tq, 0,
-                             cols.width);
-  }
-  float dq[DS / 8][4];
+  float dq[kDS / 8][4];
   zero(dq);
 
   const int kv_end = p.causal ? min(p.Tk, q0 + kRows) : p.Tk;
@@ -463,18 +426,16 @@ flash_bwd_dq_mma_kernel(const Args p) {
     zero(s);
     zero(dp);
     for (int ch = 0; ch < cols.n_chunks; ++ch) {
-      const int w = Cols<DS, ONE>::chunk_width(p.D, ch);
+      const int w = Cols::chunk_width(p.D, ch);
       __syncthreads();
-      if (!one) {
-        load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, ch * DS, w);
-        load_tile<kRows, LD>(dos, doh, p.dout.st, q0, p.Tq, ch * DS, w);
-      }
-      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * DS, w);
-      load_tile<kTile, LD>(vs, vh, p.v.st, kv0, p.Tk, ch * DS, w);
+      load_tile<kRows, LD>(qs, qh, p.q.st, q0, p.Tq, ch * kDS, w);
+      load_tile<kRows, LD>(dos, doh, p.dout.st, q0, p.Tq, ch * kDS, w);
+      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, ch * kDS, w);
+      load_tile<kTile, LD>(vs, vh, p.v.st, kv0, p.Tk, ch * kDS, w);
       __syncthreads();
-      gemm_nt_chunk<DS, kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, w, g, t);
-      gemm_nt_chunk<DS, kTile / 8>(dp, dos + warp * 16 * LD, LD, vs, LD, w,
-                                   g, t);
+      gemm_nt_chunk<kTile / 8>(s, qs + warp * 16 * LD, LD, ks, LD, w, g, t);
+      gemm_nt_chunk<kTile / 8>(dp, dos + warp * 16 * LD, LD, vs, LD, w, g,
+                               t);
     }
     const bool mask =
         kv0 + kTile > p.Tk || (p.causal && kv0 + kTile - 1 > q0 + warp * 16);
@@ -491,16 +452,14 @@ flash_bwd_dq_mma_kernel(const Args p) {
       }
     }
     // dQ += dS K over the block's slice of columns
-    if (!one) {
-      __syncthreads();
-      load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, cols.col0, cols.width);
-      __syncthreads();
-    }
+    __syncthreads();
+    load_tile<kTile, LD>(ks, kh, p.k.st, kv0, p.Tk, cols.col0, cols.width);
+    __syncthreads();
     stage<In>(pw, s, g, t);
-    gemm_nn<kTile, DS / 8>(dq, pw, kLdP, ks, LD, g, t);
+    gemm_nn<kTile, kDS / 8>(dq, pw, kLdP, ks, LD, g, t);
   }
   const float sc[2] = {p.scale, p.scale};
-  store_rows<DS, Out>(p.dq, b, h, r_lo, p.Tq, cols.col0, p.D, dq, sc, t);
+  store_rows<Out>(p.dq, b, h, r_lo, p.Tq, cols.col0, p.D, dq, sc, t);
 }
 
 // di[row] = sum_d dO[row, d] * O[row, d] over the views' head dim Dr (pairs
@@ -568,61 +527,47 @@ cudaError_t launch(K kernel, int smem, int T, int slices, const Args& a,
   return cudaGetLastError();
 }
 
-// The two kernels of the family at slice width DS, for In and Out.
-template <int DS, typename In, typename Out, bool ONE>
+// The two kernels of the family for In and Out, in slices of kDS.
+template <typename In, typename Out>
 struct Mma {
-  static int slices(const Args& a) { return (a.D + DS - 1) / DS; }
+  static int slices(const Args& a) { return (a.D + kDS - 1) / kDS; }
   static cudaError_t dkdv(const Args& a, cudaStream_t s) {
-    return launch(flash_bwd_dkdv_mma_kernel<DS, In, Out, ONE>,
-                  dkdv_smem<DS>(), a.Tk, slices(a), a, s);
+    return launch(flash_bwd_dkdv_mma_kernel<In, Out>, dkdv_smem(), a.Tk,
+                  slices(a), a, s);
   }
   static cudaError_t dq(const Args& a, cudaStream_t s) {
-    return launch(flash_bwd_dq_mma_kernel<DS, In, Out, ONE>, dq_smem<DS>(),
-                  a.Tq, slices(a), a, s);
+    return launch(flash_bwd_dq_mma_kernel<In, Out>, dq_smem(), a.Tq,
+                  slices(a), a, s);
   }
 };
 
-// One kernel of the family for fp32 inputs (dk/dv at every head dim, dq
-// above 256): at D 64 or 128 in one slice of D, above 128 in slices of
-// 128. The family reads D columns of every view: it takes no narrower
-// one.
-template <template <int, typename, typename, bool> class F>
-cudaError_t mma_f32(const Args& a, cudaStream_t s) {
-  if (a.Dr != a.D || a.dtype != flash::kF32) return cudaErrorInvalidValue;
-  return a.D == 64    ? F<64, float, float, true>::run(a, s)
-         : a.D == 128 ? F<128, float, float, true>::run(a, s)
-                      : F<128, float, float, false>::run(a, s);
-}
-
-// One kernel of the family for a's inputs: fp32 as mma_f32, bf16 and fp16
-// (above head dim 256) in slices of 128; outputs of the input type, or fp32
-// (out_f32).
-template <template <int, typename, typename, bool> class F>
+// One kernel of the family for a's inputs, bf16 or fp16 (above head dim
+// 256); outputs of the input type, or fp32 (out_f32).
+template <template <typename, typename> class F>
 cudaError_t mma_pick(const Args& a, cudaStream_t s) {
   if (a.Dr != a.D) return cudaErrorInvalidValue;
   switch (a.dtype) {
-    case flash::kF32:
-      return mma_f32<F>(a, s);
     case flash::kF16:
-      return a.out_f32 ? F<128, __half, float, false>::run(a, s)
-                       : F<128, __half, __half, false>::run(a, s);
+      return a.out_f32 ? F<__half, float>::run(a, s)
+                       : F<__half, __half>::run(a, s);
+    case flash::kBF16:
+      return a.out_f32 ? F<__nv_bfloat16, float>::run(a, s)
+                       : F<__nv_bfloat16, __nv_bfloat16>::run(a, s);
     default:
-      return a.out_f32
-                 ? F<128, __nv_bfloat16, float, false>::run(a, s)
-                 : F<128, __nv_bfloat16, __nv_bfloat16, false>::run(a, s);
+      return cudaErrorInvalidValue;
   }
 }
 
-template <int DS, typename In, typename Out, bool ONE>
+template <typename In, typename Out>
 struct DkdvMma {
   static cudaError_t run(const Args& a, cudaStream_t s) {
-    return Mma<DS, In, Out, ONE>::dkdv(a, s);
+    return Mma<In, Out>::dkdv(a, s);
   }
 };
-template <int DS, typename In, typename Out, bool ONE>
+template <typename In, typename Out>
 struct DqMma {
   static cudaError_t run(const Args& a, cudaStream_t s) {
-    return Mma<DS, In, Out, ONE>::dq(a, s);
+    return Mma<In, Out>::dq(a, s);
   }
 };
 
@@ -661,19 +606,19 @@ cudaError_t bwd_pre(const Args& a, cudaStream_t s) {
 
 typedef cudaError_t (*Fn)(const Args&, cudaStream_t);
 
-// The largest head dim of the Hopper dk/dv and dq
-// (ops/kernels.py:SM90_BWD_MAX_DIM holds the same); the forward has none.
+// The largest head dim of the Hopper dk/dv and dq for bf16 and fp16
+// (ops/kernels.py:SM90_BWD_MAX_DIM holds the same); fp32 and the forward
+// have none.
 constexpr int kBwdMaxD = 256;
 
 // Checks the arguments every kernel relies on (the views' head dim Dr
 // even and at least 2), sets the instance's head dim D (64, 128, or Dr
 // rounded up to a multiple of 64: ops/kernels.py:_flash_dim), selects the
-// device, and runs `sm90` (the Hopper kernels) at D up to the function's
-// largest Hopper head dim for the inputs' type, `max_d` for bf16 and fp16
-// and `max_d_f32` for fp32 (every D by default), else `mma` (the mma.sync
-// family).
+// device, and runs `sm90` (the Hopper kernels) for fp32 inputs and for
+// bf16 and fp16 ones at D up to `max_d` (every D by default), else `mma`
+// (the mma.sync family).
 int run(int device, Args a, void* stream, Fn sm90, Fn mma,
-        int max_d = INT_MAX, int max_d_f32 = INT_MAX) {
+        int max_d = INT_MAX) {
   if (a.Dr < 2 || a.Dr % 2 != 0) return (int)cudaErrorInvalidValue;
   a.D = a.Dr <= 64 ? 64 : a.Dr <= 128 ? 128 : (a.Dr + 63) / 64 * 64;
   if (a.B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0)
@@ -683,7 +628,7 @@ int run(int device, Args a, void* stream, Fn sm90, Fn mma,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const bool hopper = a.D <= (a.dtype == flash::kF32 ? max_d_f32 : max_d);
+  const bool hopper = a.dtype == flash::kF32 || a.D <= max_d;
   return (int)(hopper ? sm90 : mma)(a, (cudaStream_t)stream);
 }
 
@@ -731,10 +676,10 @@ extern "C" {
 // Every tensor argument is a [B, H, T, Dr] view, its head dim contiguous,
 // with the element strides of B, H and T given three by three in
 // `strides` (host memory), in argument order. Dr is their head dim, even;
-// the mma.sync family (fp32 dk/dv, dk/dv and dq above 256) takes 64, 128
-// or a multiple of 64 above only (the wrapper pads other head dims with
-// zeros). dtype: 0 bf16, 1
-// fp16, 2 fp32 (the inputs'). q and dout have Tq rows, k and v Tk. device:
+// the mma.sync family (bf16 and fp16 dk/dv and dq above 256) takes a
+// multiple of 64 only (the wrapper pads other head dims with zeros).
+// dtype: 0 bf16, 1 fp16, 2 fp32 (the inputs'). q and dout have Tq rows, k
+// and v Tk. device:
 // the CUDA ordinal of the tensors and stream.
 //
 // K6 (flash attention): outputs have the inputs' type; lse and di are fp32
@@ -766,7 +711,7 @@ int hvd_flash_bwd_pre(int device, int dtype, const void* o, const void* dout,
   a.o = view(o, strides, 0);
   a.dout = view(dout, strides, 1);
   a.di = dense_stat(di, H, T);
-  return run(device, a, stream, bwd_pre, bwd_pre, 0, 0);
+  return run(device, a, stream, bwd_pre, bwd_pre);
 }
 
 // dk = ds^T q * scale, dv = p^T dout, p = exp(q k^T * scale - lse),
@@ -783,8 +728,7 @@ int hvd_flash_bwd_dkdv(int device, int dtype, const void* q, const void* k,
   a.dv = view(dv, strides, 5);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD,
-             0);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD);
 }
 
 // dq = ds k * scale, ds as above. strides: q, k, v, dout, dq.
@@ -798,8 +742,7 @@ int hvd_flash_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.dq = view(dq, strides, 4);
   a.lse = dense_stat(lse, H, Tq);
   a.di = dense_stat(di, H, Tq);
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD,
-             kBwdMaxD);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD);
 }
 
 // K7 (ring attention's segments, Tq = Tk = the segment length S): the same
@@ -835,8 +778,7 @@ int hvd_flash_seg_bwd_dkdv(int device, int dtype, const void* q,
   a.lse = stat(lse, strides, 6, 0);
   a.di = stat(di, strides, 6, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD,
-             0);
+  return run(device, a, stream, flash::bwd_dkdv_sm90, dkdv_mma, kBwdMaxD);
 }
 
 // dq of one segment under the given lse and di.
@@ -852,8 +794,7 @@ int hvd_flash_seg_bwd_dq(int device, int dtype, const void* q, const void* k,
   a.lse = stat(lse, strides, 5, 0);
   a.di = stat(di, strides, 5, 1);
   a.out_f32 = 1;
-  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD,
-             kBwdMaxD);
+  return run(device, a, stream, flash::bwd_dq_sm90, dq_mma, kBwdMaxD);
 }
 
 }  // extern "C"

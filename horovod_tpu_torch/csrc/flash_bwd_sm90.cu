@@ -1,7 +1,7 @@
 // Flash attention backward for Hopper: K6c (dk, dv) and K6d (dq) of flash
 // attention, outputs in the input type, and K7b / K7c, ring attention's
-// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In), and dq for
-// fp32 inputs on tf32 (K6d and K7c alike, fp32 dq).
+// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In), and dk/dv
+// and dq for fp32 inputs on tf32 (K6 and K7 alike, fp32 outputs).
 //
 // Replaces the custom-VJP backward of the Pallas kernels that
 // horovod_tpu/parallel/flash_attention.py:flash_attention_local takes from
@@ -69,25 +69,62 @@
 //   rings of their own, 3 K slots and 2 V slots (at D 256 Q, dO and the
 //   rings take 229,376 bytes), each V slot released once dP is done and
 //   each K slot once its dQ product is.
-// - dq for fp32 inputs up to head dim 256 (DqTf32<kOut>,
-//   flash_bwd_dq_sm90_tf32_kernel<kOut>): tf32 wgmma, the forward's tf32
-//   design (flash_fwd_sm90.cu) applied to dq. S = Q K^T and dP = dO V^T are
-//   K-major products, summed over the depth's slabs of 32 columns through
-//   a ring whose slot holds K_c and V_c (up to 8 slots, 2 at D 256), Q and
-//   dO resident; dQ += dS K contracts over kv, so K is the operand wgmma
-//   cannot take as stored. The producer warpgroup's 96 converters round
-//   Q, dO and each slab to tf32 in place and, for the K slabs of the
-//   block's columns, write K^T (kOut rows by 64 kv, the kv order of
-//   sm90::to_operand_tf32) into a slot of its own, in the same pass; dS
-//   is the A operand as it lies in the accumulator. dQ's columns go in
-//   groups of kOut (64 at head dims up to 64, else 128: D 256 two groups,
-//   S and dP computed once a group), so a consumer holds dQ (kOut / 2
-//   registers), S and dP (32 each) and dS (32): 160 at kOut 128, in a
-//   block of 256 threads (ptxas: 190 registers at kOut 128, 157 at 64, no
-//   spill). S_j and dP_j are issued with dQ += dS_{j-1}
-//   K_{j-1}, as the 16-bit dq above D 128 does. Above 256 fp32 dq runs the
-//   mma.sync family (flash_attn.cu), as 16-bit dq does; fp32 dk/dv runs it
-//   at every head dim.
+// - dq for fp32 inputs (DqTf32<kOut>, flash_bwd_dq_sm90_tf32_kernel<kOut>):
+//   tf32 wgmma, the forward's tf32 design (flash_fwd_sm90.cu) applied to
+//   dq. S = Q K^T and dP = dO V^T are K-major products, summed over the
+//   depth's slabs of 32 columns through a ring whose slot holds K_c and
+//   V_c (up to 8 slots); dQ += dS K contracts over kv, so K is the operand
+//   wgmma cannot take as stored. The producer warpgroup's 96 converters
+//   round each slab to tf32 in place and, for the K slabs of the block's
+//   columns, write K^T (kOut rows by 64 kv, the kv order of
+//   sm90::to_operand_tf32) into a slot of its own, in the same pass; dS is
+//   the A operand as it lies in the accumulator. dQ's columns go in groups
+//   of kOut (64 at head dims up to 64, else 128: D 256 two groups, D 320
+//   three, S and dP computed once a group), so a consumer holds dQ (kOut /
+//   2 registers), S and dP (32 each) and dS (32): 160 at kOut 128, in a
+//   block of 256 threads (ptxas: 190 registers at kOut 128, 155 at 64, no
+//   spill). S_j and dP_j are issued with dQ += dS_{j-1} K_{j-1}, as the
+//   16-bit dq above D 128 does. Q and dO stay resident while two ring
+//   slots fit beside them (up to D 256: Tf32Plan); above that they stream
+//   through the ring beside K_c and V_c, a slot holding the four slabs
+//   (re-read from L2 for every kv tile, as the deep forward streams Q).
+// - dk/dv for fp32 inputs (DkdvTf32<kOut>,
+//   flash_bwd_dkdv_sm90_tf32_kernel<kOut>): the 16-bit dk/dv's math on
+//   tf32 wgmma. S^T = K Q^T and dP^T = V dO^T are K-major on both sides,
+//   summed over the depth's slabs of 32 columns through a ring whose slot
+//   holds Q_c and dO_c of a q tile of 64 rows. dV += P^T dO and
+//   dK += dS^T Q contract over q, so both dO and Q are operands wgmma
+//   cannot take as stored: for the Q and dO slabs of the block's columns
+//   the converters write Q^T and dO^T (kOut rows by 64 q, to_operand_tf32's
+//   order) into a slot of the q tile's own (two slots), as dq writes K^T,
+//   and the tile's lse (log2 units, +inf past Tq) and di rows beside them;
+//   P^T and dS^T are the A operands as they lie in their accumulators. A
+//   block holds 64 kv rows and one group of kOut of dK's and dV's columns
+//   (groups along blockIdx.x, as dq's); K and V stay resident at the whole
+//   depth while two ring slots fit beside them (up to D 128), above that
+//   they stream through the ring beside Q_c and dO_c. The register budget
+//   decides the rest. At head dims up to 64 (kOut 64, one group) one
+//   consumer holds dK and dV (kOut / 2 each), S^T and dP^T (32 each) and
+//   P^T and dS^T as operands (32 each), 192, and S^T_i and dP^T_i are
+//   issued with tile i-1's dV and dK products, P^T_i and dS^T_i formed
+//   while those are in flight. Above 64 (kOut 128) dK and dV alone take
+//   128 registers, which leaves room for one tile's S^T and dP^T and no
+//   more: a tile's products follow its S^T and dP^T, which are rounded in
+//   place and become the A operands as they lie. Both in a block of 256
+//   threads (255 registers at launch; ptxas: 221 at each kOut, no spill).
+//   Each group computes S^T and dP^T again: 4 D + 4 kOut operations a
+//   visible pair a group, twice the ideal 8 D at D 320 (3 groups).
+//   Timed and not kept: kOut 64 with the overlap at every head dim (5
+//   groups at D 320, 2 at 128: slower at D 320 and on the ring's D 128
+//   half, a little faster at D 256, where K and V stay resident at kOut
+//   64 and stream at 128), and one slot of Q^T and dO^T at kOut 128 (room
+//   for more ring slots, or K and V resident to D 256; slower at D 256 and
+//   320). Rejected without a build: the 16-bit dk/dv's split at kOut 128,
+//   a dV warpgroup (S^T, P^T, dV) handing P^T through shared memory to a
+//   dK warpgroup (dP^T, dS^T, dK) in a block of 384 threads. Its
+//   consumers need about 160 registers beside the 168 a thread of such a
+//   block launches with, and P^T's 16 KB a tile beside two slots of Q^T
+//   and dO^T leave no room for K and V resident above D 64.
 // - Only a tile that crosses the causal diagonal, or Tk in dq, runs the
 //   per-element mask; TMA zero-fills rows past Tq and Tk, whose outputs
 //   are never stored. A dk/dv block past every query (causal, Tk > Tq)
@@ -758,38 +795,151 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// dq, fp32 inputs: tf32 wgmma (see the header)
+// fp32 inputs: tf32 wgmma (see the header)
 
 constexpr int kCols32 = 32;   // fp32 columns of a 128-byte swizzled slab
+constexpr int kSlab32 = 64 * kCols32;   // a slab of 64 rows, in floats
+constexpr int kMaxSlots32 = 8;          // ring slots of the tf32 kernels
+
+// The shared memory of a tf32 block: kFixed bytes of its own, and a pair of
+// operands resident at the whole depth (n_slab slabs each) while at least
+// two ring slots of a pair of slabs fit beside them, else streamed, a ring
+// slot then holding those two slabs beside the streamed ones.
+struct Tf32Plan {
+  bool stream;
+  int slots, smem;
+  __host__ __device__ static Tf32Plan make(int fixed, int n_slab) {
+    const int rest = 232448 - fixed, pair = 2 * n_slab * kSlab32 * 4;
+    const bool stream = rest - pair < 2 * 2 * kSlab32 * 4;
+    const int slot = (stream ? 4 : 2) * kSlab32 * 4;
+    int slots = (rest - (stream ? 0 : pair)) / slot;
+    slots = slots < kMaxSlots32 ? slots : kMaxSlots32;
+    return {stream, slots, fixed + (stream ? 0 : pair) + slots * slot};
+  }
+  // floats of a ring slot
+  __host__ __device__ int slot_elems() const {
+    return (stream ? 4 : 2) * kSlab32;
+  }
+};
+
+// S = A_s B_s^T and dP = A_dp B_dp^T (64 x 64 each, tf32) over the depth's
+// slabs of 32 columns, a commit group of eight products a slab: each slab's
+// ring slot released once its group has retired, the last one's group left
+// in flight and its slot not released (as issue_s_deep). `ops(c, slot)`
+// gives slab c's four operands from its ring slot; j counts the slabs taken
+// from the ring.
+struct SdpOps {
+  const float *a_s, *b_s, *a_dp, *b_dp;
+};
+
+template <typename Ops>
+__device__ __forceinline__ void issue_sdp_tf32(float (&s)[32], float (&dp)[32],
+                                               const float* ring,
+                                               int slot_elems,
+                                               uint64_t* full,
+                                               uint64_t* empty, int n_slab,
+                                               int slots, int& j, Ops ops) {
+  // slab c's eight products, issued and committed; the first slab's start
+  // the sums (peeled off, so no product is issued under a branch)
+  auto slab = [&](int c, bool first) {
+    const int st = j % slots;
+    sm90::mbar_wait(full + st, (j / slots) & 1);
+    const SdpOps o = ops(c, ring + st * slot_elems);
+#pragma unroll
+    for (int kk = 0; kk < kCols32 / 8; ++kk) {
+      sm90::Wgmma<64, float>::template ss<0, 0>(
+          s, sm90::desc_k_major(o.a_s + kk * 8),
+          sm90::desc_k_major(o.b_s + kk * 8), !first || kk > 0);
+      sm90::Wgmma<64, float>::template ss<0, 0>(
+          dp, sm90::desc_k_major(o.a_dp + kk * 8),
+          sm90::desc_k_major(o.b_dp + kk * 8), !first || kk > 0);
+    }
+    sm90::wgmma_commit();
+    ++j;
+  };
+  slab(0, true);
+  for (int c = 1; c < n_slab; ++c) {
+    slab(c, false);
+    sm90::wgmma_wait<1>();   // slab c - 1's products have retired
+    sm90::mbar_arrive(empty + (j - 2) % slots);
+  }
+}
+
+// acc += A B over a depth of 64, A in registers (a tf32 accumulator as
+// to_operand_tf32 gives it), B the transposed tile `bt` (kOut rows of 64
+// depth values in to_operand_tf32's order, two slabs of 32); issued, not
+// committed.
+template <int kOut>
+__device__ __forceinline__ void issue_rs_tf32(float (&acc)[kOut / 2],
+                                              const uint32_t (&a)[8][4],
+                                              const float* bt) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    sm90::Wgmma<kOut, float>::template rs<0>(
+        acc, a[kk],
+        sm90::desc_k_major(bt + (kk / 4) * kOut * kCols32 + (kk % 4) * 8), 1);
+}
+
+// acc += A B as issue_rs_tf32, A an accumulator rounded to tf32 in place
+// (sm90::to_tf32 of each element): to_operand_tf32's operands are the same
+// registers in another order, so they take no registers of their own.
+template <int kOut>
+__device__ __forceinline__ void issue_rs_tf32(float (&acc)[kOut / 2],
+                                              const float (&d)[32],
+                                              const float* bt) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a[4] = {__float_as_uint(d[4 * kk]),
+                           __float_as_uint(d[4 * kk + 2]),
+                           __float_as_uint(d[4 * kk + 1]),
+                           __float_as_uint(d[4 * kk + 3])};
+    sm90::Wgmma<kOut, float>::template rs<0>(
+        acc, a,
+        sm90::desc_k_major(bt + (kk / 4) * kOut * kCols32 + (kk % 4) * 8), 1);
+  }
+}
+
+// The statistics of a consumer thread's two rows (dq: lse in log2 units,
+// di), read once.
+__device__ __forceinline__ void row_stats(const Args& p, int b, int h,
+                                          int r_lo, float (&lse_r)[2],
+                                          float (&di_r)[2]) {
+  const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
+  const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + 8 * i;
+    lse_r[i] = r < p.Tq ? lse[r] * kLog2e : 0.f;
+    di_r[i] = r < p.Tq ? di[r] : 0.f;
+  }
+}
+
+// One group's columns of an output view: from col0, its head dim less col0.
+__device__ __forceinline__ View group_view(View v, int col0) {
+  v.p = reinterpret_cast<float*>(v.p) + col0;
+  return v;
+}
+
+// ---- dq
 
 // The tf32 dq's layout: a block of 64 q rows and the kOut columns of dQ
-// from col0 (64, or 128 in groups), Q and dO resident, S and dP summed over
-// the depth's slabs of 32 fp32 columns through a ring whose slot holds K_c
-// and V_c, K^T (the block's columns) in slots of its own. Warp 0 loads
-// (one thread), warps 1-3 round and transpose, warpgroup 1 consumes.
+// from col0 (64, or 128 in groups), S and dP summed over the depth's slabs
+// through a ring whose slot holds K_c and V_c (and Q_c and dO_c where Q and
+// dO stream: Tf32Plan), K^T (the block's columns) in slots of its own. Warp
+// 0 loads (one thread), warps 1-3 round and transpose, warpgroup 1
+// consumes.
 template <int kOut_>
 struct DqTf32 {
   static constexpr int kOut = kOut_;
   static constexpr int kThreads = 256;
   static constexpr int kBQ = 64;
-  static constexpr int kSlabElems = 64 * kCols32;   // 64 rows of a slab
-  static constexpr int kSlotElems = 2 * kSlabElems;  // K_c and V_c
   static constexpr int kKtStages = 2;                // K^T slots
   static constexpr int kKtElems = kBK * kOut;        // a K^T tile
-  static constexpr int kMaxSlots = 8;
   // K^T, the barriers and room to align the base to 1024 bytes
   static constexpr int kFixed = kKtStages * kKtElems * 4 + 512 + 1024;
   static_assert(kOut % kCols32 == 0 && kOut <= 128, "wgmma's rs members");
-  // the ring slots beside Q and dO (at least 2 up to head dim 256) and the
-  // shared memory of a block
-  __host__ __device__ static int slots(int n_slab) {
-    const int n = (232448 - kFixed - 2 * n_slab * kSlabElems * 4) /
-                  (kSlotElems * 4);
-    return n < kMaxSlots ? n : kMaxSlots;
-  }
-  __host__ __device__ static int smem(int n_slab) {
-    return kFixed + (2 * n_slab * kSlabElems + slots(n_slab) * kSlotElems) *
-                        4;
+  __host__ __device__ static Tf32Plan plan(int n_slab) {
+    return Tf32Plan::make(kFixed, n_slab);
   }
 };
 
@@ -801,68 +951,83 @@ struct DqTf32Bars {
   uint64_t *q_raw, *q_full, *raw, *full, *empty, *kt_full, *kt_empty;
 };
 
-// The loading thread: Q and dO once, then each kv tile's K and V slabs.
-template <int kOut>
+// The loading thread: Q and dO once where they stay resident, then each kv
+// tile's slabs: K_c and V_c, and Q_c and dO_c beside them where they
+// stream.
 __device__ __forceinline__ void dq_load_tf32(
     const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
-    const CUtensorMap* tdo, float* qs, float* dos, float* ring,
-    const DqTf32Bars& bar, int b, int h, int q0, int n_kv, int n_slab,
-    int slots) {
-  using C = DqTf32<kOut>;
+    const CUtensorMap* tdo, float* qs, float* ring, const DqTf32Bars& bar,
+    int b, int h, int q0, int n_kv, int n_slab, const Tf32Plan& pl) {
   sm90::prefetch_tensor_map(tq);
   sm90::prefetch_tensor_map(tk);
   sm90::prefetch_tensor_map(tv);
   sm90::prefetch_tensor_map(tdo);
-  sm90::mbar_arrive_expect_tx(bar.q_raw, 2 * n_slab * C::kSlabElems * 4);
-  for (int c = 0; c < n_slab; ++c) {
-    sm90::tma_load_4d(qs + c * C::kSlabElems, tq, bar.q_raw, c * kCols32, q0,
-                      h, b);
-    sm90::tma_load_4d(dos + c * C::kSlabElems, tdo, bar.q_raw, c * kCols32,
-                      q0, h, b);
+  // streamed, Q and dO complete q_raw with no bytes
+  sm90::mbar_arrive_expect_tx(bar.q_raw,
+                              pl.stream ? 0 : 2 * n_slab * kSlab32 * 4);
+  if (!pl.stream) {
+    float* dos = qs + n_slab * kSlab32;
+    for (int c = 0; c < n_slab; ++c) {
+      sm90::tma_load_4d(qs + c * kSlab32, tq, bar.q_raw, c * kCols32, q0, h,
+                        b);
+      sm90::tma_load_4d(dos + c * kSlab32, tdo, bar.q_raw, c * kCols32, q0,
+                        h, b);
+    }
   }
+  const int slot = pl.slot_elems();
   int j = 0;
   for (int i = 0; i < n_kv; ++i) {
     for (int c = 0; c < n_slab; ++c, ++j) {
-      const int st = j % slots;
-      sm90::mbar_wait(bar.empty + st, ((j / slots) & 1) ^ 1);
-      sm90::mbar_arrive_expect_tx(bar.raw + st, C::kSlotElems * 4);
-      float* dst = ring + st * C::kSlotElems;
+      const int st = j % pl.slots;
+      sm90::mbar_wait(bar.empty + st, ((j / pl.slots) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar.raw + st, slot * 4);
+      float* dst = ring + st * slot;
       sm90::tma_load_4d(dst, tk, bar.raw + st, c * kCols32, i * kBK, h, b);
-      sm90::tma_load_4d(dst + C::kSlabElems, tv, bar.raw + st, c * kCols32,
+      sm90::tma_load_4d(dst + kSlab32, tv, bar.raw + st, c * kCols32,
                         i * kBK, h, b);
+      if (pl.stream) {
+        sm90::tma_load_4d(dst + 2 * kSlab32, tq, bar.raw + st, c * kCols32,
+                          q0, h, b);
+        sm90::tma_load_4d(dst + 3 * kSlab32, tdo, bar.raw + st, c * kCols32,
+                          q0, h, b);
+      }
     }
   }
 }
 
-// The converters (ct = 0..95): Q and dO rounded once, then each kv tile's
-// slabs rounded in place, the K slabs of the block's columns also
+// The converters (ct = 0..95): resident Q and dO rounded once, then each kv
+// tile's slabs rounded in place, the K slabs of the block's columns also
 // transposed into the tile's K^T slot.
 template <int kOut>
 __device__ __forceinline__ void dq_convert_tf32(float* qs, float* ring,
                                                 float* kt,
                                                 const DqTf32Bars& bar,
                                                 int n_kv, int n_slab,
-                                                int slots, int col0, int ct) {
+                                                const Tf32Plan& pl, int col0,
+                                                int ct) {
   using C = DqTf32<kOut>;
-  sm90::mbar_wait(bar.q_raw, 0);
-  sm90::round_tf32(qs, 2 * n_slab * C::kSlabElems, ct);   // Q, then dO
+  if (!pl.stream) {
+    sm90::mbar_wait(bar.q_raw, 0);
+    sm90::round_tf32(qs, 2 * n_slab * kSlab32, ct);   // Q, then dO
+  }
   sm90::fence_proxy_async();
   sm90::mbar_arrive(bar.q_full);
+  const int slot = pl.slot_elems();
   int j = 0;
   for (int i = 0; i < n_kv; ++i) {
     const int ks = i % C::kKtStages;
     sm90::mbar_wait(bar.kt_empty + ks, ((i / C::kKtStages) & 1) ^ 1);
     for (int c = 0; c < n_slab; ++c, ++j) {
-      const int st = j % slots;
-      float* slot = ring + st * C::kSlotElems;
-      sm90::mbar_wait(bar.raw + st, (j / slots) & 1);
+      const int st = j % pl.slots;
+      float* s = ring + st * slot;
+      sm90::mbar_wait(bar.raw + st, (j / pl.slots) & 1);
       const int row0 = c * kCols32 - col0;   // K^T's rows of this slab
       if (row0 >= 0 && row0 < kOut)
-        sm90::transpose_tf32<kOut, true>(slot, kt + ks * C::kKtElems, row0,
-                                         ct);
+        sm90::transpose_tf32<kOut, true>(s, kt + ks * C::kKtElems, row0, ct);
       else
-        sm90::round_tf32(slot, C::kSlabElems, ct);
-      sm90::round_tf32(slot + C::kSlabElems, C::kSlabElems, ct);
+        sm90::round_tf32(s, kSlab32, ct);
+      // V_c, and Q_c and dO_c where they stream
+      sm90::round_tf32(s + kSlab32, slot - kSlab32, ct);
       sm90::fence_proxy_async();
       sm90::mbar_arrive(bar.full + st);
     }
@@ -870,86 +1035,34 @@ __device__ __forceinline__ void dq_convert_tf32(float* qs, float* ring,
   }
 }
 
-// S = Q K^T and dP = dO V^T of one kv tile over the depth, a commit group
-// of eight tf32 products a slab: each slab's ring slot released once its
-// group has retired, the last one's group left in flight (as
-// issue_s_deep). j counts the slabs taken from the ring.
-__device__ __forceinline__ void dq_issue_tf32(float (&s)[32], float (&dp)[32],
-                                              const float* qs,
-                                              const float* dos,
-                                              const float* ring,
-                                              const DqTf32Bars& bar,
-                                              int n_slab, int slots, int& j) {
-  constexpr int kSlabElems = 64 * kCols32;
-  // slab c's eight products, issued and committed; the first slab's start
-  // the sums (peeled off, so no product is issued under a branch)
-  auto slab = [&](int c, bool first) {
-    const int st = j % slots;
-    sm90::mbar_wait(bar.full + st, (j / slots) & 1);
-    const float* kt = ring + st * 2 * kSlabElems;
-    const float* qt = qs + c * kSlabElems;
-    const float* dt = dos + c * kSlabElems;
-#pragma unroll
-    for (int kk = 0; kk < kCols32 / 8; ++kk) {
-      sm90::Wgmma<kBK, float>::template ss<0, 0>(
-          s, sm90::desc_k_major(qt + kk * 8),
-          sm90::desc_k_major(kt + kk * 8), !first || kk > 0);
-      sm90::Wgmma<kBK, float>::template ss<0, 0>(
-          dp, sm90::desc_k_major(dt + kk * 8),
-          sm90::desc_k_major(kt + kSlabElems + kk * 8), !first || kk > 0);
-    }
-    sm90::wgmma_commit();
-    ++j;
-  };
-  slab(0, true);
-  for (int c = 1; c < n_slab; ++c) {
-    slab(c, false);
-    sm90::wgmma_wait<1>();   // slab c - 1's products have retired
-    sm90::mbar_arrive(bar.empty + (j - 2) % slots);
-  }
-}
-
-// dQ += dS K over one K^T tile (the block's kOut columns as rows of kBK kv
-// values), dS in registers; issued and committed.
-template <int kOut>
-__device__ __forceinline__ void dq_issue_dsk_tf32(float (&acc)[kOut / 2],
-                                                  uint32_t (&da)[kBK / 8][4],
-                                                  const float* kt) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 8; ++kk)
-    sm90::Wgmma<kOut, float>::template rs<0>(
-        acc, da[kk],
-        sm90::desc_k_major(kt + (kk / 4) * kOut * kCols32 + (kk % 4) * 8), 1);
-  sm90::wgmma_commit();
-}
-
 // The consumer: dQ of the block's 64 q rows and kOut columns over every kv
 // tile. S_j and dP_j are issued with dQ += dS_{j-1} K_{j-1}, and dS_j is
 // formed while that product is in flight (as the 16-bit dq above D 128).
 template <int kOut>
 __device__ __forceinline__ void dq_consume_tf32(
-    const Args& p, const float* qs, const float* dos, const float* ring,
-    const float* kt, const DqTf32Bars& bar, int b, int h, int q0, int n_kv,
-    int n_slab, int slots, int col0) {
+    const Args& p, const float* qs, const float* ring, const float* kt,
+    const DqTf32Bars& bar, int b, int h, int q0, int n_kv, int n_slab,
+    const Tf32Plan& pl, int col0) {
   using C = DqTf32<kOut>;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int t = lane & 3;
   const int r_lo = q0 + 16 * warp + (lane >> 2);
   const float sl2 = p.scale * kLog2e;
   float lse_r[2], di_r[2];
-  {
-    const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
-    const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = r_lo + 8 * i;
-      lse_r[i] = r < p.Tq ? lse[r] * kLog2e : 0.f;
-      di_r[i] = r < p.Tq ? di[r] : 0.f;
-    }
-  }
+  row_stats(p, b, h, r_lo, lse_r, di_r);
   auto mask = [&](int kv0) {
     return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > q0);
   };
+  // slab c's operands: Q_c and dO_c resident or in the slot, K_c and V_c
+  // in the slot
+  const float* dos = qs + n_slab * kSlab32;
+  const bool stream = pl.stream;
+  auto ops = [=](int c, const float* at) {
+    return SdpOps{stream ? at + 2 * kSlab32 : qs + c * kSlab32, at,
+                  stream ? at + 3 * kSlab32 : dos + c * kSlab32,
+                  at + kSlab32};
+  };
+  const int slot = pl.slot_elems();
   float acc[kOut / 2];
 #pragma unroll
   for (int i = 0; i < kOut / 2; ++i) acc[i] = 0.f;
@@ -958,23 +1071,26 @@ __device__ __forceinline__ void dq_consume_tf32(
   int j = 0;                 // slabs taken from the ring
   sm90::mbar_wait(bar.q_full, 0);
   sm90::wgmma_fence();
-  dq_issue_tf32(s, dp, qs, dos, ring, bar, n_slab, slots, j);
+  issue_sdp_tf32(s, dp, ring, slot, bar.full, bar.empty, n_slab, pl.slots, j,
+                 ops);
   sm90::wgmma_wait<0>();
   sm90::fence_regs(s);
   sm90::fence_regs(dp);
-  sm90::mbar_arrive(bar.empty + (j - 1) % slots);
+  sm90::mbar_arrive(bar.empty + (j - 1) % pl.slots);
   dq_ds(s, dp, lse_r, di_r, sl2, mask(0), 0, r_lo, t, p.Tk, p.causal);
   sm90::to_operand_tf32(dp, da);
   for (int i = 1; i < n_kv; ++i) {
     const int prev = (i - 1) % C::kKtStages;
     sm90::wgmma_fence();
-    dq_issue_tf32(s, dp, qs, dos, ring, bar, n_slab, slots, j);
+    issue_sdp_tf32(s, dp, ring, slot, bar.full, bar.empty, n_slab, pl.slots,
+                   j, ops);
     sm90::mbar_wait(bar.kt_full + prev, ((i - 1) / C::kKtStages) & 1);
-    dq_issue_dsk_tf32<kOut>(acc, da, kt + prev * C::kKtElems);
+    issue_rs_tf32<kOut>(acc, da, kt + prev * C::kKtElems);
+    sm90::wgmma_commit();
     sm90::wgmma_wait<1>();   // S_i and dP_i are done; dQ may not be
     sm90::fence_regs(s);
     sm90::fence_regs(dp);
-    sm90::mbar_arrive(bar.empty + (j - 1) % slots);
+    sm90::mbar_arrive(bar.empty + (j - 1) % pl.slots);
     dq_ds(s, dp, lse_r, di_r, sl2, mask(i * kBK), i * kBK, r_lo, t, p.Tk,
           p.causal);
     sm90::wgmma_wait<0>();
@@ -986,16 +1102,14 @@ __device__ __forceinline__ void dq_consume_tf32(
   const int last = (n_kv - 1) % C::kKtStages;
   sm90::mbar_wait(bar.kt_full + last, ((n_kv - 1) / C::kKtStages) & 1);
   sm90::wgmma_fence();
-  dq_issue_dsk_tf32<kOut>(acc, da, kt + last * C::kKtElems);
+  issue_rs_tf32<kOut>(acc, da, kt + last * C::kKtElems);
+  sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
   sm90::fence_regs(acc);
   sm90::fence_regs(da);
   sm90::mbar_arrive(bar.kt_empty + last);
-  // the block's columns: dq's view from col0, its head dim less col0
-  View out = p.dq;
-  out.p = reinterpret_cast<float*>(out.p) + col0;
-  store_acc<kOut, float>(out, b, h, r_lo, p.Tq, p.Dr - col0, acc, p.scale,
-                         t);
+  store_acc<kOut, float>(group_view(p.dq, col0), b, h, r_lo, p.Tq,
+                         p.Dr - col0, acc, p.scale, t);
 }
 
 template <int kOut>
@@ -1010,14 +1124,13 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* base =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   const int n_slab = (p.Dr + kCols32 - 1) / kCols32;
-  const int slots = C::slots(n_slab);
+  const Tf32Plan pl = C::plan(n_slab);
   float* kt = reinterpret_cast<float*>(base);
   float* ring = kt + C::kKtStages * C::kKtElems;
-  float* qs = ring + slots * C::kSlotElems;
-  float* dos = qs + n_slab * C::kSlabElems;
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(dos + n_slab * C::kSlabElems);
-  constexpr int kM = C::kMaxSlots;
+  float* qs = ring + pl.slots * pl.slot_elems();   // resident Q, then dO
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      qs + (pl.stream ? 0 : 2 * n_slab * kSlab32));
+  constexpr int kM = kMaxSlots32;
   const DqTf32Bars bar{bars,          bars + 1,
                        bars + 2,      bars + 2 + kM,
                        bars + 2 + 2 * kM, bars + 2 + 3 * kM,
@@ -1034,7 +1147,7 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x == 0) {
     sm90::mbar_init(bar.q_raw, 1);
     sm90::mbar_init(bar.q_full, sm90::kConverters);
-    for (int s = 0; s < slots; ++s) {
+    for (int s = 0; s < pl.slots; ++s) {
       sm90::mbar_init(bar.raw + s, 1);
       sm90::mbar_init(bar.full + s, sm90::kConverters);
       sm90::mbar_init(bar.empty + s, 128);
@@ -1049,14 +1162,357 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x < 32) {
     if (threadIdx.x == 0)
-      dq_load_tf32<kOut>(&tq, &tk, &tv, &tdo, qs, dos, ring, bar, b, h, q0,
-                         n_kv, n_slab, slots);
+      dq_load_tf32(&tq, &tk, &tv, &tdo, qs, ring, bar, b, h, q0, n_kv,
+                   n_slab, pl);
   } else if (threadIdx.x < 128) {
-    dq_convert_tf32<kOut>(qs, ring, kt, bar, n_kv, n_slab, slots, col0,
+    dq_convert_tf32<kOut>(qs, ring, kt, bar, n_kv, n_slab, pl, col0,
                           threadIdx.x - 32);
   } else {
-    dq_consume_tf32<kOut>(p, qs, dos, ring, kt, bar, b, h, q0, n_kv, n_slab,
-                          slots, col0);
+    dq_consume_tf32<kOut>(p, qs, ring, kt, bar, b, h, q0, n_kv, n_slab, pl,
+                          col0);
+  }
+}
+
+// ---- dk / dv
+
+// The tf32 dk/dv's layout: a block of 64 kv rows and the kOut columns of
+// dK and dV from col0 (groups along blockIdx.x), q streamed in tiles of 64
+// rows. S^T and dP^T are summed over the depth's slabs through a ring whose
+// slot holds Q_c and dO_c (and K_c and V_c where K and V stream:
+// Tf32Plan); each q tile's Q^T and dO^T (the block's columns, written by
+// the converters) and its lse (log2 units; +inf past Tq) and di rows have
+// slots of their own. Warp 0 loads (one thread), warps 1-3 round, transpose
+// and write the statistics, warpgroup 1 consumes.
+template <int kOut_>
+struct DkdvTf32 {
+  static constexpr int kOut = kOut_;
+  static constexpr int kThreads = 256;
+  static constexpr int kTStages = 2;              // Q^T / dO^T slots
+  static constexpr int kTElems = kBQ * kOut;      // a Q^T or a dO^T tile
+  static constexpr int kStatFloats = 2 * kBQ;     // lse, then di, of a tile
+  // the transposed tiles and statistics, the barriers and room to align
+  // the base to 1024 bytes
+  static constexpr int kFixed =
+      kTStages * (2 * kTElems + kStatFloats) * 4 + 512 + 1024;
+  static_assert(kOut % kCols32 == 0 && kOut <= 128, "wgmma's rs members");
+  __host__ __device__ static Tf32Plan plan(int n_slab) {
+    return Tf32Plan::make(kFixed, n_slab);
+  }
+};
+
+// The tf32 dk/dv's barriers: K and V as loaded (kv_raw) and rounded
+// (kv_full); a ring slot as loaded (raw), rounded (full) and released by
+// the consumer (empty); a slot of Q^T, dO^T and statistics written
+// (t_full) and released (t_empty).
+struct DkdvTf32Bars {
+  uint64_t *kv_raw, *kv_full, *raw, *full, *empty, *t_full, *t_empty;
+};
+
+// The loading thread: K and V once where they stay resident, then each q
+// tile's slabs: Q_c and dO_c, and K_c and V_c beside them where they
+// stream.
+__device__ __forceinline__ void dkdv_load_tf32(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const CUtensorMap* tdo, float* ks, float* ring, const DkdvTf32Bars& bar,
+    int b, int h, int kv0, int q_first, int n_q, int n_slab,
+    const Tf32Plan& pl) {
+  sm90::prefetch_tensor_map(tq);
+  sm90::prefetch_tensor_map(tk);
+  sm90::prefetch_tensor_map(tv);
+  sm90::prefetch_tensor_map(tdo);
+  sm90::mbar_arrive_expect_tx(bar.kv_raw,
+                              pl.stream ? 0 : 2 * n_slab * kSlab32 * 4);
+  if (!pl.stream) {
+    float* vs = ks + n_slab * kSlab32;
+    for (int c = 0; c < n_slab; ++c) {
+      sm90::tma_load_4d(ks + c * kSlab32, tk, bar.kv_raw, c * kCols32, kv0,
+                        h, b);
+      sm90::tma_load_4d(vs + c * kSlab32, tv, bar.kv_raw, c * kCols32, kv0,
+                        h, b);
+    }
+  }
+  const int slot = pl.slot_elems();
+  int j = 0;
+  for (int i = 0; i < n_q; ++i) {
+    const int q0 = q_first + i * kBQ;
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % pl.slots;
+      sm90::mbar_wait(bar.empty + st, ((j / pl.slots) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar.raw + st, slot * 4);
+      float* dst = ring + st * slot;
+      sm90::tma_load_4d(dst, tq, bar.raw + st, c * kCols32, q0, h, b);
+      sm90::tma_load_4d(dst + kSlab32, tdo, bar.raw + st, c * kCols32, q0,
+                        h, b);
+      if (pl.stream) {
+        sm90::tma_load_4d(dst + 2 * kSlab32, tk, bar.raw + st, c * kCols32,
+                          kv0, h, b);
+        sm90::tma_load_4d(dst + 3 * kSlab32, tv, bar.raw + st, c * kCols32,
+                          kv0, h, b);
+      }
+    }
+  }
+}
+
+// The converters (ct = 0..95): resident K and V rounded once, then each q
+// tile's slabs rounded in place, the Q and dO slabs of the block's columns
+// also transposed into the tile's Q^T and dO^T slot, which they take (and
+// fill with the tile's lse and di rows) at the first of those slabs.
+template <int kOut>
+__device__ __forceinline__ void dkdv_convert_tf32(
+    const Args& p, float* ks, float* ring, float* tt, float* stats,
+    const DkdvTf32Bars& bar, int b, int h, int q_first, int n_q, int n_slab,
+    const Tf32Plan& pl, int col0, int ct) {
+  using C = DkdvTf32<kOut>;
+  if (!pl.stream) {
+    sm90::mbar_wait(bar.kv_raw, 0);
+    sm90::round_tf32(ks, 2 * n_slab * kSlab32, ct);   // K, then V
+  }
+  sm90::fence_proxy_async();
+  sm90::mbar_arrive(bar.kv_full);
+  const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
+  const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
+  const int slot = pl.slot_elems();
+  int j = 0;
+  for (int i = 0; i < n_q; ++i) {
+    const int ts = i % C::kTStages;
+    float* qt = tt + ts * 2 * C::kTElems;   // Q^T, then dO^T
+    for (int c = 0; c < n_slab; ++c, ++j) {
+      const int st = j % pl.slots;
+      float* s = ring + st * slot;
+      const int row0 = c * kCols32 - col0;   // Q^T's rows of this slab
+      if (row0 == 0) {
+        sm90::mbar_wait(bar.t_empty + ts, ((i / C::kTStages) & 1) ^ 1);
+        if (ct < kBQ) {
+          const int q = q_first + i * kBQ + ct;
+          float* ls = stats + ts * C::kStatFloats;
+          ls[ct] = q < p.Tq ? lse[q] * kLog2e : INFINITY;
+          ls[kBQ + ct] = q < p.Tq ? di[q] : 0.f;
+        }
+      }
+      sm90::mbar_wait(bar.raw + st, (j / pl.slots) & 1);
+      if (row0 >= 0 && row0 < kOut) {
+        sm90::transpose_tf32<kOut, true>(s, qt, row0, ct);
+        sm90::transpose_tf32<kOut, true>(s + kSlab32, qt + C::kTElems, row0,
+                                         ct);
+      } else {
+        sm90::round_tf32(s, 2 * kSlab32, ct);
+      }
+      if (pl.stream) sm90::round_tf32(s + 2 * kSlab32, 2 * kSlab32, ct);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(bar.full + st);
+    }
+    sm90::mbar_arrive(bar.t_full + ts);
+  }
+}
+
+// P^T and dS^T of q tile i in place of S^T and dP^T: P^T = exp2(S^T *
+// scale * log2 e - lse * log2 e), 0 where causal hides the pair (kv row >
+// q column, only on a tile that crosses the diagonal), dS^T = P^T o (dP^T -
+// di), with the tile's lse and di rows from `ls`.
+__device__ __forceinline__ void dkdv_p_ds(float (&s)[32], float (&dp)[32],
+                                          const float* ls, float sl2,
+                                          bool mask, int q0, int r_lo,
+                                          int t) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int c = 8 * (e / 4) + 2 * t + (e & 1);
+    float x = exp2f(s[e] * sl2 - ls[c]);
+    if (mask && r_lo + 8 * ((e / 2) & 1) > q0 + c) x = 0.f;
+    dp[e] = x * (dp[e] - ls[kBQ + c]);
+    s[e] = x;
+  }
+}
+
+// The consumer: dK and dV of the block's 64 kv rows and kOut columns over
+// every q tile. At kOut 64, S^T_i and dP^T_i are issued with dV +=
+// P^T_{i-1} dO_{i-1} and dK += dS^T_{i-1} Q_{i-1} (one commit group), and
+// P^T_i and dS^T_i are formed while those products are in flight. At kOut
+// 128 dK and dV take 128 registers, which leaves no room for a second
+// tile's S^T and dP^T: the products of a tile follow its S^T and dP^T,
+// which become their A operands in place.
+template <int kOut>
+__device__ __forceinline__ void dkdv_consume_tf32(
+    const Args& p, const float* ks, const float* ring, const float* tt,
+    const float* stats, const DkdvTf32Bars& bar, int b, int h, int kv0,
+    int q_first, int n_q, int n_slab, const Tf32Plan& pl, int col0) {
+  using C = DkdvTf32<kOut>;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3, r_lo = kv0 + 16 * warp + (lane >> 2);
+  float dv[kOut / 2], dk[kOut / 2];
+#pragma unroll
+  for (int i = 0; i < kOut / 2; ++i) dv[i] = dk[i] = 0.f;
+  if (n_q > 0) {
+    const float sl2 = p.scale * kLog2e;
+    // slab c's operands: K_c and V_c resident or in the slot, Q_c and dO_c
+    // in the slot
+    const float* vs = ks + n_slab * kSlab32;
+    const bool stream = pl.stream;
+    auto ops = [=](int c, const float* at) {
+      return SdpOps{stream ? at + 2 * kSlab32 : ks + c * kSlab32, at,
+                    stream ? at + 3 * kSlab32 : vs + c * kSlab32,
+                    at + kSlab32};
+    };
+    const int slot = pl.slot_elems();
+    float s[kBQ / 2], dp[kBQ / 2];
+    int j = 0;   // slabs taken from the ring
+    // P^T_i and dS^T_i in s and dp, once the converters have written the
+    // tile's statistics
+    auto p_ds = [&](int i) {
+      const int ts = i % C::kTStages, q0 = q_first + i * kBQ;
+      sm90::mbar_wait(bar.t_full + ts, (i / C::kTStages) & 1);
+      dkdv_p_ds(s, dp, stats + ts * C::kStatFloats, sl2,
+                p.causal && kv0 + kKV - 1 > q0, q0, r_lo, t);
+    };
+    sm90::mbar_wait(bar.kv_full, 0);
+    if constexpr (kOut == 128) {
+      for (int i = 0; i < n_q; ++i) {
+        const int ts = i % C::kTStages;
+        const float* qt = tt + ts * 2 * C::kTElems;
+        sm90::wgmma_fence();
+        issue_sdp_tf32(s, dp, ring, slot, bar.full, bar.empty, n_slab,
+                       pl.slots, j, ops);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        sm90::mbar_arrive(bar.empty + (j - 1) % pl.slots);
+        p_ds(i);
+#pragma unroll
+        for (int e = 0; e < kBQ / 2; ++e) {
+          s[e] = sm90::to_tf32(s[e]);
+          dp[e] = sm90::to_tf32(dp[e]);
+        }
+        sm90::wgmma_fence();
+        issue_rs_tf32<kOut>(dv, s, qt + C::kTElems);
+        issue_rs_tf32<kOut>(dk, dp, qt);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        sm90::mbar_arrive(bar.t_empty + ts);
+      }
+    } else {
+      // P^T and dS^T of the tile whose dV and dK products are next
+      uint32_t pa[kBQ / 8][4], da[kBQ / 8][4];
+      // dV += P^T dO and dK += dS^T Q over the tile of slot ts, one group
+      auto issue_dvdk = [&](int ts) {
+        const float* qt = tt + ts * 2 * C::kTElems;
+        issue_rs_tf32<kOut>(dv, pa, qt + C::kTElems);
+        issue_rs_tf32<kOut>(dk, da, qt);
+        sm90::wgmma_commit();
+      };
+      sm90::wgmma_fence();
+      issue_sdp_tf32(s, dp, ring, slot, bar.full, bar.empty, n_slab,
+                     pl.slots, j, ops);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::mbar_arrive(bar.empty + (j - 1) % pl.slots);
+      p_ds(0);
+      sm90::to_operand_tf32(s, pa);
+      sm90::to_operand_tf32(dp, da);
+      for (int i = 1; i < n_q; ++i) {
+        const int prev = (i - 1) % C::kTStages;
+        sm90::wgmma_fence();
+        issue_sdp_tf32(s, dp, ring, slot, bar.full, bar.empty, n_slab,
+                       pl.slots, j, ops);
+        issue_dvdk(prev);
+        // S^T_i and dP^T_i are done; dV and dK may not be
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        sm90::mbar_arrive(bar.empty + (j - 1) % pl.slots);
+        p_ds(i);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(da);
+        sm90::mbar_arrive(bar.t_empty + prev);
+        sm90::to_operand_tf32(s, pa);
+        sm90::to_operand_tf32(dp, da);
+      }
+      const int last = (n_q - 1) % C::kTStages;
+      sm90::wgmma_fence();
+      issue_dvdk(last);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::fence_regs(pa);
+      sm90::fence_regs(da);
+      sm90::mbar_arrive(bar.t_empty + last);
+    }
+  }
+  // a block past every query (causal) stores zeros
+  store_acc<kOut, float>(group_view(p.dv, col0), b, h, r_lo, p.Tk,
+                         p.Dr - col0, dv, 1.f, t);
+  store_acc<kOut, float>(group_view(p.dk, col0), b, h, r_lo, p.Tk,
+                         p.Dr - col0, dk, p.scale, t);
+}
+
+template <int kOut>
+__global__ void __launch_bounds__(DkdvTf32<kOut>::kThreads, 1)
+flash_bwd_dkdv_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const Args p) {
+  using C = DkdvTf32<kOut>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_slab = (p.Dr + kCols32 - 1) / kCols32;
+  const Tf32Plan pl = C::plan(n_slab);
+  float* tt = reinterpret_cast<float*>(base);
+  float* ring = tt + C::kTStages * 2 * C::kTElems;
+  float* ks = ring + pl.slots * pl.slot_elems();   // resident K, then V
+  float* stats = ks + (pl.stream ? 0 : 2 * n_slab * kSlab32);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(stats + C::kTStages * C::kStatFloats);
+  constexpr int kM = kMaxSlots32;
+  const DkdvTf32Bars bar{bars,          bars + 1,
+                         bars + 2,      bars + 2 + kM,
+                         bars + 2 + 2 * kM, bars + 2 + 3 * kM,
+                         bars + 2 + 3 * kM + C::kTStages};
+
+  const int groups = (p.Dr + kOut - 1) / kOut;
+  const int bh = blockIdx.x / groups, b = bh / p.H, h = bh % p.H;
+  const int col0 = blockIdx.x % groups * kOut;
+  // the first kv rows see the most q tiles (causal): they start first
+  const int kv0 = blockIdx.y * kKV;
+  // causal: key <= query, so the q tiles from the one holding row kv0 on
+  const int q_first = p.causal ? (kv0 / kBQ) * kBQ : 0;
+  const int n_q = q_first < p.Tq ? (p.Tq - q_first + kBQ - 1) / kBQ : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.kv_raw, 1);
+    sm90::mbar_init(bar.kv_full, sm90::kConverters);
+    for (int s = 0; s < pl.slots; ++s) {
+      sm90::mbar_init(bar.raw + s, 1);
+      sm90::mbar_init(bar.full + s, sm90::kConverters);
+      sm90::mbar_init(bar.empty + s, 128);
+    }
+    for (int s = 0; s < C::kTStages; ++s) {
+      sm90::mbar_init(bar.t_full + s, sm90::kConverters);
+      sm90::mbar_init(bar.t_empty + s, 128);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // a block past every query loads nothing
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0 && n_q > 0)
+      dkdv_load_tf32(&tq, &tk, &tv, &tdo, ks, ring, bar, b, h, kv0, q_first,
+                     n_q, n_slab, pl);
+  } else if (threadIdx.x < 128) {
+    if (n_q > 0)
+      dkdv_convert_tf32<kOut>(p, ks, ring, tt, stats, bar, b, h, q_first,
+                              n_q, n_slab, pl, col0, threadIdx.x - 32);
+  } else {
+    dkdv_consume_tf32<kOut>(p, ks, ring, tt, stats, bar, b, h, kv0, q_first,
+                            n_q, n_slab, pl, col0);
   }
 }
 
@@ -1117,14 +1573,25 @@ struct Dq {
   }
 };
 
+// fp32 inputs: the tf32 kernels, the output columns in groups of kOut along
+// blockIdx.x.
 template <int kOut>
 cudaError_t dq_tf32(const Args& a, cudaStream_t stream) {
   using C = DqTf32<kOut>;
   const int n_slab = (a.Dr + kCols32 - 1) / kCols32;
   return launch<float>(flash_bwd_dq_sm90_tf32_kernel<kOut>, C::kThreads,
-                       C::smem(n_slab), C::kBQ, kBK,
+                       C::plan(n_slab).smem, C::kBQ, kBK,
                        (a.Tq + C::kBQ - 1) / C::kBQ, a, stream,
                        (a.Dr + kOut - 1) / kOut);
+}
+
+template <int kOut>
+cudaError_t dkdv_tf32(const Args& a, cudaStream_t stream) {
+  using C = DkdvTf32<kOut>;
+  const int n_slab = (a.Dr + kCols32 - 1) / kCols32;
+  return launch<float>(flash_bwd_dkdv_sm90_tf32_kernel<kOut>, C::kThreads,
+                       C::plan(n_slab).smem, kBQ, kKV, (a.Tk + kKV - 1) / kKV,
+                       a, stream, (a.Dr + kOut - 1) / kOut);
 }
 
 // The instance for the arguments' head dim, input type and output type:
@@ -1160,21 +1627,23 @@ cudaError_t pick(const Args& a, cudaStream_t stream) {
 
 namespace flash {
 
-// (dk, dv) under the given lse and di, over [B, H, T, Dr] views of bf16 or
-// fp16 on the instance of head dim D = 64, 128, 192 or 256; outputs in the
-// input type or fp32 (out_f32).
+// (dk, dv) under the given lse and di, over [B, H, T, Dr] views: bf16 or
+// fp16 on the instance of head dim D = 64, 128, 192 or 256, outputs in the
+// input type or fp32 (out_f32); fp32 at any D on the tf32 kernel, dK's and
+// dV's columns in one group of 64 at D 64, else in groups of 128, outputs
+// fp32.
 cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
+  if (a.dtype == kF32)
+    return a.D == 64 ? dkdv_tf32<64>(a, stream) : dkdv_tf32<128>(a, stream);
   return pick<Dkdv>(a, stream);
 }
 
-// dq under the given lse and di: bf16 or fp16 as bwd_dkdv_sm90, and fp32
-// (fp32 dq) on the tf32 kernel at D 64 in one group of 64 columns, at 128,
-// 192 and 256 in groups of 128.
+// dq under the given lse and di: bf16 or fp16 as bwd_dkdv_sm90, and fp32 at
+// any D on the tf32 kernel, in one group of 64 columns at D 64, else in
+// groups of 128.
 cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream) {
-  if (a.dtype == kF32) {
-    if (a.D > 256) return cudaErrorInvalidValue;
+  if (a.dtype == kF32)
     return a.D == 64 ? dq_tf32<64>(a, stream) : dq_tf32<128>(a, stream);
-  }
   return pick<Dq>(a, stream);
 }
 

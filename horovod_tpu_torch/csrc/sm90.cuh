@@ -216,10 +216,20 @@ __device__ __forceinline__ float4 tf32x4(float4 x) {
 // shared memory while warp 0 loads.
 constexpr int kConverters = 96;
 
-// `n` floats of shared memory rounded to tf32 in place, float4 by float4.
+// `n` floats of shared memory rounded to tf32 in place, float4 by float4,
+// four loads in flight before their stores.
 __device__ __forceinline__ void round_tf32(float* x, int n, int ct) {
   float4* v = reinterpret_cast<float4*>(x);
-  for (int i = ct; i < n / 4; i += kConverters) v[i] = tf32x4(v[i]);
+  constexpr int kStep = 4 * kConverters;
+  int i = ct;
+  for (; i + 3 * kConverters < n / 4; i += kStep) {
+    float4 a[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) a[u] = v[i + u * kConverters];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[i + u * kConverters] = tf32x4(a[u]);
+  }
+  for (; i < n / 4; i += kConverters) v[i] = tf32x4(v[i]);
 }
 
 // A slab of 64 rows x 32 fp32 columns in TMA's swizzled layout (row r's

@@ -2,6 +2,7 @@
 library hold, function by function, by their sequences of opcodes.
 
     python -m horovod_tpu_torch.ops.sass OLD.so NEW.so [--match REGEX]
+        [--rename REGEX=REPLACEMENT]
 
 Each library is disassembled with the CUDA toolkit's ``cuobjdump -sass``;
 a function is named by its mangled name with the per-file anonymous
@@ -9,9 +10,11 @@ namespace removed (its hash changes with the source), and compared by its
 opcodes alone (registers, addresses and constants left out). Prints, for
 each function whose name matches REGEX, the count of opcode lines that
 differ (0: the same instructions in the same order), and the functions
-only one build has. Used to show that an edit of shared device code left
-an instance's instructions as they were. Needs the toolkit: run it on the
-machine with the card.
+only one build has. ``--rename`` rewrites the old build's names first
+(``re.sub``), so an instance whose template parameters an edit removed is
+compared with its successor. Used to show that an edit of shared device
+code left an instance's instructions as they were. Needs the toolkit: run
+it on the machine with the card.
 """
 
 from __future__ import annotations
@@ -50,6 +53,13 @@ def opcodes(lib: str) -> dict:
     return funcs
 
 
+def renamed(funcs: dict, rule: str) -> dict:
+    """``funcs`` with each name rewritten by ``rule``, "REGEX=REPLACEMENT"
+    (``re.sub``)."""
+    pat, repl = rule.split("=", 1)
+    return {re.sub(pat, repl, name): ops for name, ops in funcs.items()}
+
+
 def diff(old: dict, new: dict, match: str = "") -> dict:
     """{function: opcode lines that differ} over the functions both have
     whose names match ``match``, and the names only one has."""
@@ -70,8 +80,13 @@ def main(argv=None) -> int:
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--match", default="", help="a regex on the names")
+    ap.add_argument("--rename", default="",
+                    help="REGEX=REPLACEMENT applied to the old build's names")
     args = ap.parse_args(argv)
-    res = diff(opcodes(args.old), opcodes(args.new), args.match)
+    old = opcodes(args.old)
+    if args.rename:
+        old = renamed(old, args.rename)
+    res = diff(old, opcodes(args.new), args.match)
     for name, n in res["differ"].items():
         print(f"{n:6d}  {name}")
     for name in res["only_in_one"]:

@@ -264,21 +264,27 @@ def test_cuda_fused_batch_norm_fp16_trains(cuda):
 
 def test_cuda_bn_and_mma_kernels_do_not_spill(cuda):
     """The build's ptxas report: no kernel of bn_stats.cu or flash_attn.cu
-    (the mma.sync family, every slice width and type) spills."""
+    (the mma.sync family's bf16 and fp16 instances) spills, and the family
+    has no instance for fp32 inputs (In = float), which run on Hopper."""
     from horovod_tpu_torch.ops import build
     for stem in ("bn_stats", "flash_attn"):
         report = build.ptxas_report(stem)
         assert report, stem
         for name, r in report.items():
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
+    mma = [name for name in build.ptxas_report("flash_attn")
+           if "_mma_kernel" in name]
+    assert len(mma) == 8 and not any("_mma_kernelIf" in name
+                                     for name in mma), mma
 
 
 def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
     """The build's ptxas report: no instance of the Hopper attention
     kernels (every head dim, the wide ones at 192 and 256, the forward's
     at 320, 384 and 512 and its deep kernel above 512, included, every
-    input and output type, and the tf32 forward and dq of fp32 inputs at
-    kOut 64 and 128) spills; no forward is built on the mma.sync family."""
+    input and output type, and the tf32 forward, dk/dv and dq of fp32
+    inputs at kOut 64 and 128) spills; no forward is built on the mma.sync
+    family."""
     from horovod_tpu_torch.ops import build
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90"):
         report = build.ptxas_report(stem)
@@ -289,9 +295,14 @@ def test_cuda_hopper_attention_kernels_do_not_spill(cuda):
         # kOut 192 and 256, two input and two output types
         deep = [name for name in report if "kernel_deep" in name]
         assert len(deep) == (8 if stem == "flash_fwd_sm90" else 0), deep
-        tf32 = [name for name in report if "_sm90_tf32_kernel" in name]
-        assert sorted(re.search(r"ILi(\d+)E", name).group(1)
-                      for name in tf32) == ["128", "64"], tf32
+        for kernel, outs in (("flash_fwd", ["128", "64"]),
+                             ("flash_bwd_dq", ["128", "64"]),
+                             ("flash_bwd_dkdv", ["128", "64"])):
+            tf32 = [name for name in report
+                    if f"{kernel}_sm90_tf32_kernel" in name]
+            assert sorted(re.search(r"ILi(\d+)E", name).group(1)
+                          for name in tf32) == (
+                outs if stem.startswith(kernel[:9]) else []), tf32
         for name, r in report.items():
             assert r["spill_stores"] == 0 and r["spill_loads"] == 0, name
     mma_fwd = [name for name in build.ptxas_report("flash_attn")
@@ -546,13 +557,10 @@ WIDE_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 def _wide_route(dtype, d, name):
     """The route a wide launch must take: flash_route's answer, checked
     against the rule it states (the Hopper forward at every head dim, dk/dv
-    and dq to 256; for fp32 the Hopper tf32 forward at every head dim and
-    dq to 256, dk/dv on the tf32 mma.sync family)."""
+    and dq to 256; for fp32 the Hopper tf32 kernels at every head dim)."""
     route = K.flash_route(dtype, d, name)
     if dtype == torch.float32:
-        hopper = name.endswith("_fwd") or (name.endswith("_dq")
-                                           and K._flash_dim(d) <= 256)
-        assert route == ("sm90_tf32" if hopper else "tf32")
+        assert route == "sm90_tf32"
     elif name.endswith("_fwd") or K._flash_dim(d) <= 256:
         assert route == "sm90_wide"
     else:
@@ -569,8 +577,8 @@ def test_cuda_flash_takes_any_head_dim(cuda, dtype, d, causal, tq, tk):
     320, 384, 576, 640, 1024 and 1280 in bf16, fp16 and fp32, causal and
     full, Tq != Tk: within
     the flash limits, counted by their route (the Hopper wide kernels, the
-    Hopper tf32 ones, the 16-bit mma.sync instances or the tf32 ones), dq
-    repeats bitwise."""
+    Hopper tf32 ones or the 16-bit mma.sync instances), dq repeats
+    bitwise."""
     n0 = K.launch_counts()
     q, k, v, do, lse, di, dq = _check_k6_case(cuda, dtype, d, tq, tk, causal)
     n1 = K.launch_counts()
@@ -605,9 +613,9 @@ def test_cuda_flash_wide_hopper_kernels(cuda, dtype, d, causal, tq, tk):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [16, 64, 128] + WIDE_DIMS)
 def test_cuda_flash_tf32_hopper_kernels(cuda, d, causal, tq, tk):
-    """The Hopper tf32 kernels on fp32 inputs: K6a and K7a (on the first
-    min(Tq, Tk) rows) at every head dim, K6d and K7c (under the fp32 plain
-    lse and di, K7c's on strided [B, H, S] views) up to 256, on strided
+    """The Hopper tf32 kernels on fp32 inputs at every head dim: K6a and
+    K7a (on the first min(Tq, Tk) rows), K6c and K7b, K6d and K7c (under
+    the fp32 plain lse and di, K7's on strided [B, H, S] views), on strided
     [B, T, H, D] views at lengths that end inside the 64-row tiles (Tq =
     Tk, Tq < Tk, Tq > Tk): within twice the plain version's error in tf32
     plus 2^-12 of the largest entry, each call counted on the sm90_tf32
@@ -622,12 +630,15 @@ def test_cuda_flash_tf32_hopper_kernels(cuda, d, causal, tq, tk):
     di32 = K.flash_bwd_pre_plain(o32, do)
     slse, sdi = lse32[:, :, :s], di32[:, :, :s]
     cases = [(K.flash_fwd, K.flash_attention_fwd_plain, (q, k, v)),
-             (K.flash_seg_fwd, K.flash_seg_fwd_plain, seg[:3])]
-    if K._flash_dim(d) <= 256:
-        cases += [(K.flash_bwd_dq, K.flash_bwd_dq_plain,
-                   (q, k, v, do, lse32, di32)),
-                  (K.flash_seg_bwd_dq, K.flash_seg_bwd_dq_plain,
-                   (*seg, slse, sdi))]
+             (K.flash_seg_fwd, K.flash_seg_fwd_plain, seg[:3]),
+             (K.flash_bwd_dkdv, K.flash_bwd_dkdv_plain,
+              (q, k, v, do, lse32, di32)),
+             (K.flash_seg_bwd_dkdv, K.flash_seg_bwd_dkdv_plain,
+              (*seg, slse, sdi)),
+             (K.flash_bwd_dq, K.flash_bwd_dq_plain,
+              (q, k, v, do, lse32, di32)),
+             (K.flash_seg_bwd_dq, K.flash_seg_bwd_dq_plain,
+              (*seg, slse, sdi))]
     for fn, plain, ins in cases:
         n0 = K.launch_counts()
         got = fn(*ins, causal, scale)
@@ -635,7 +646,7 @@ def test_cuda_flash_tf32_hopper_kernels(cuda, d, causal, tq, tk):
         n1 = K.launch_counts()
         name = fn.__name__
         assert n1[f"{name}_sm90_tf32"] == n0[f"{name}_sm90_tf32"] + 1
-        for other in ("tf32", "pad_copies"):
+        for other in ("wide", "pad_copies"):
             assert n1[f"{name}_{other}"] == n0[f"{name}_{other}"], name
         got = got if isinstance(got, tuple) else (got,)
         want32 = plain(*ins, causal, scale)
@@ -643,7 +654,8 @@ def test_cuda_flash_tf32_hopper_kernels(cuda, d, causal, tq, tk):
             want = plain(*ins, causal, scale)
         want32 = want32 if isinstance(want32, tuple) else (want32,)
         want = want if isinstance(want, tuple) else (want,)
-        assert got[0].shape == ins[0].shape
+        # dk/dv are laid out as k and v, the rest as q
+        assert got[0].shape == ins["dkdv" in name].shape
         for i, (g, w32, wb) in enumerate(zip(got, want32, want)):
             assert bool(torch.isfinite(g).all()), (name, i)
             _check_flash_case(g, w32, wb, f"{name}[{i}]", torch.float32)
@@ -1004,11 +1016,9 @@ def test_cuda_transformer_of_any_dtype_and_head_dim_trains(cuda, dtype,
     counts = K.launch_counts()
     for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
         assert counts[name] == 2 * 3, (name, counts)
-        # fp32: the Hopper tf32 forward and dq, the mma.sync dk/dv
-        route = K.flash_route(dtype, 256 // n_heads, name)
-        for fp32_route in ("tf32", "sm90_tf32"):
-            assert counts[f"{name}_{fp32_route}"] == (
-                6 if dtype == torch.float32 and route == fp32_route else 0)
+        # fp32: every kernel on the Hopper tf32 route
+        assert counts[f"{name}_sm90_tf32"] == (
+            6 if dtype == torch.float32 else 0)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
@@ -1040,8 +1050,9 @@ def test_cuda_flash_attention_local_autograd_dtypes(cuda, dtype, d):
 
 
 def test_cuda_vit_tiny_trains_through_the_flash_kernels(cuda):
-    """ViT_Tiny (head dim 16, padded to 64 on the card) in fp32: the
-    kernels run, the loss is finite and falls."""
+    """ViT_Tiny (head dim 16, read in place at 64 on the card) in fp32:
+    the kernels run on the Hopper tf32 route with no zero-padded copy, the
+    loss is finite and falls."""
     from horovod_tpu_torch.models.vit import ViT_Tiny
     model = ViT_Tiny(num_classes=10, dtype=torch.float32,
                      image_size=32).to(cuda)
@@ -1058,8 +1069,10 @@ def test_cuda_vit_tiny_trains_through_the_flash_kernels(cuda):
         opt.step()
         losses.append(float(loss.detach()))
     layers = len(model.blocks)
-    assert K.launch_counts()["flash_fwd"] == 3 * layers
-    assert K.launch_counts()["flash_bwd_dq"] == 3 * layers
+    counts = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+        assert counts[name] == counts[f"{name}_sm90_tf32"] == 3 * layers
+        assert counts[f"{name}_pad_copies"] == 0
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 

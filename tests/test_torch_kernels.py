@@ -108,15 +108,12 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
     forward at every head dim (530 is built at 576), and the Hopper dk/dv
     and dq at 192 or 256 (129 and 160 are built at 192, 193 at 256), the
     mma.sync dk/dv and dq above 256 (257 and 288 are built at 320); fp32
-    the Hopper tf32 forward at every head dim and dq up to 256, the tf32
-    mma.sync family for dk/dv and for dq above 256."""
+    the Hopper tf32 kernels, every wrapper at every head dim."""
     padded = K._flash_dim(d)
     for kernel in FLASH_ROUTED:
         route = K.flash_route(dtype, d, kernel)
         if dtype == torch.float32:
-            hopper = kernel.endswith("_fwd") or (kernel.endswith("_dq")
-                                                 and padded <= 256)
-            want = "sm90_tf32" if hopper else "tf32"
+            want = "sm90_tf32"
         elif padded <= 128:
             want = "sm90"
         elif padded <= 256 or kernel.endswith("_fwd"):
@@ -131,20 +128,21 @@ def test_flash_route_counters_and_refusals():
     """Each route has its counter in launch_counts (sm90_wide on all six
     wrappers, whose Hopper kernels take head dims 192 and 256, the
     forwards' every head dim above 128; sm90_tf32, the Hopper kernels on
-    fp32), and each of the seven K6/K7 wrappers, di included, its count of
-    zero-padded copies; di and other dtypes have no route. dk/dv and dq run
-    the Hopper kernels up to head dim 256 (fp32: dq only), the forwards at
-    every head dim."""
+    fp32; wide, the 16-bit mma.sync family), and each of the seven K6/K7
+    wrappers, di included, its count of zero-padded copies; di and other
+    dtypes have no route, and no wrapper counts an fp32 mma.sync route.
+    bf16 and fp16 dk/dv and dq run the Hopper kernels up to head dim 256,
+    fp32 every wrapper and the forwards at every head dim."""
     counts = K.launch_counts()
     for kernel in FLASH_ROUTED:
-        for route in ("tf32", "wide", "sm90_wide", "sm90_tf32"):
+        for route in ("wide", "sm90_wide", "sm90_tf32"):
             assert f"{kernel}_{route}" in counts
+        assert f"{kernel}_tf32" not in counts
         assert K.flash_route(torch.bfloat16, K.SM90_BWD_MAX_DIM + 1,
                              kernel) == \
             ("sm90_wide" if kernel.endswith("_fwd") else "wide")
         assert K.flash_route(torch.float32, K.SM90_BWD_MAX_DIM + 1,
-                             kernel) == \
-            ("sm90_tf32" if kernel.endswith("_fwd") else "tf32")
+                             kernel) == "sm90_tf32"
     assert K.SM90_BWD_MAX_DIM == 256
     for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
         assert f"{kernel}_pad_copies" in counts
@@ -159,16 +157,12 @@ def test_flash_route_counters_and_refusals():
 @pytest.mark.parametrize("d", [2, 16, 64, 128, 160, 256, 257, 320, 576,
                                1280])
 def test_fp32_dkdv_and_wide_dq_keep_the_mma_sync_route(d):
-    """fp32 dk/dv runs the tf32 mma.sync family at every head dim, and fp32
-    dq does above SM90_BWD_MAX_DIM; below it dq, and the forwards at every
-    head dim, run the Hopper tf32 kernels. Each route has its own counter,
-    which the plain path on the CPU leaves at 0."""
-    for kernel in ("flash_bwd_dkdv", "flash_seg_bwd_dkdv"):
-        assert K.flash_route(torch.float32, d, kernel) == "tf32"
-    for kernel in ("flash_bwd_dq", "flash_seg_bwd_dq"):
-        assert K.flash_route(torch.float32, d, kernel) == (
-            "sm90_tf32" if K._flash_dim(d) <= K.SM90_BWD_MAX_DIM else "tf32")
-    for kernel in ("flash_fwd", "flash_seg_fwd"):
+    """fp32 dk/dv, dq and the forwards run the Hopper tf32 kernels at every
+    head dim, above SM90_BWD_MAX_DIM as below it: no fp32 launch goes to
+    the mma.sync family any more (the test's name is from when fp32 dk/dv
+    and dq above 256 did). The route's counter, which the plain path on
+    the CPU leaves at 0."""
+    for kernel in FLASH_ROUTED:
         assert K.flash_route(torch.float32, d, kernel) == "sm90_tf32"
     rng = np.random.RandomState(d)
     q, k, v, do = (torch.tensor(rng.randn(1, 2, 9, d), dtype=torch.float32)
@@ -179,6 +173,31 @@ def test_fp32_dkdv_and_wide_dq_keep_the_mma_sync_route(d):
     K.flash_bwd_dkdv(q, k, v, do, lse, di, True, d ** -0.5)
     K.flash_bwd_dq(q, k, v, do, lse, di, True, d ** -0.5)
     assert K.launch_counts() == before
+
+
+@pytest.mark.parametrize("d", [288, 600])
+def test_fp32_wide_backward_on_cpu_counts_no_route(d):
+    """fp32 dk/dv and dq above head dim 256, K6's and K7's, on the CPU:
+    their plain versions bit for bit, and every launch, route and
+    zero-padded copy counter left at 0."""
+    rng = np.random.RandomState(d)
+    q, k, v, do = (torch.tensor(rng.randn(1, 2, 9, d), dtype=torch.float32)
+                   for _ in range(4))
+    scale = d ** -0.5
+    K.reset_launch_counts()
+    o, lse = K.flash_fwd(q, k, v, True, scale)
+    di = K.flash_bwd_pre(o, do)
+    for fn, plain in ((K.flash_bwd_dkdv, K.flash_bwd_dkdv_plain),
+                      (K.flash_bwd_dq, K.flash_bwd_dq_plain),
+                      (K.flash_seg_bwd_dkdv, K.flash_seg_bwd_dkdv_plain),
+                      (K.flash_seg_bwd_dq, K.flash_seg_bwd_dq_plain)):
+        got = fn(q, k, v, do, lse, di, True, scale)
+        want = plain(q, k, v, do, lse, di, True, scale)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b), fn.__name__
+    counts = K.launch_counts()
+    assert counts and all(n == 0 for n in counts.values()), counts
 
 
 @pytest.mark.parametrize("d", [192, 256, 320])
@@ -218,15 +237,16 @@ def _bthd(d, dtype=torch.bfloat16, offset=0, width=None):
 
 # (what, dtype, head dim, layout) -> the wrappers that copy: every K6/K7
 # wrapper at a built head dim reads its views as they are; below one the
-# Hopper kernels read an even D in place where TMA takes the strides
-# (multiples of 16 bytes: 8 elements of 16 bits, 4 of fp32), the mma.sync
-# family (fp32 dk/dv; 16-bit dk/dv and dq above 256) copies, di copies
-# only what its pairs cannot read
+# Hopper kernels (every fp32 wrapper) read an even D in place where TMA
+# takes the strides (multiples of 16 bytes: 8 elements of 16 bits, 4 of
+# fp32), the mma.sync family (16-bit dk/dv and dq above 256) copies, di
+# copies only what its pairs cannot read. The fp32 cases keep the ids they
+# had when the mma.sync family ran fp32 dk/dv (and dq above 256) and
+# copied; every fp32 wrapper now reads them in place.
 _HOPPER = ("flash_fwd", "flash_seg_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
            "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 _MMA_BWD = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_seg_bwd_dkdv",
             "flash_seg_bwd_dq")
-_TF32_DKDV = ("flash_bwd_dkdv", "flash_seg_bwd_dkdv")
 COPY_CASES = [
     ("built D64", torch.bfloat16, 64, {}, ()),
     ("built D128 fp32", torch.float32, 128, {}, ()),
@@ -241,18 +261,17 @@ COPY_CASES = [
     ("D530 of a 536-wide tensor: the forwards read it in place",
      torch.bfloat16, 530, {"width": 536}, _MMA_BWD),
     ("D600: the same", torch.float16, 600, {}, _MMA_BWD),
-    ("fp32 D16: the tf32 family copies", torch.float32, 16, {},
-     _TF32_DKDV),
+    ("fp32 D16: the tf32 family copies", torch.float32, 16, {}, ()),
     ("fp32 D20: H stride of 20, a multiple of 4 and not of 8",
-     torch.float32, 20, {}, _TF32_DKDV),
+     torch.float32, 20, {}, ()),
     ("fp32 D18: H stride of 18, not a multiple of 4", torch.float32, 18, {},
      _HOPPER),
     ("fp32 D16 two elements past 16 bytes", torch.float32, 16,
      {"offset": 2}, _HOPPER),
     ("fp32 D160 of a 164-wide tensor", torch.float32, 160, {"width": 164},
-     _TF32_DKDV),
+     ()),
     ("fp32 D288: the mma.sync dk/dv and dq copy", torch.float32, 288, {},
-     _MMA_BWD),
+     ()),
     ("D20: H stride of 20", torch.bfloat16, 20, {}, _HOPPER),
     ("D330: H stride of 330", torch.bfloat16, 330, {}, _HOPPER),
     ("D20 of a 64-wide tensor", torch.bfloat16, 20, {"width": 64}, ()),
@@ -302,7 +321,9 @@ def _expanded(d, dtype=torch.bfloat16):
 
 
 # (what, the incoming gradient, the backward's dk/dv wrapper, whether it is
-# cloned): a clone only where the kernels will read the clone in place
+# cloned): a clone only where the kernels will read the clone in place. The
+# fp32 D16 case keeps its id from when the tf32 mma.sync dk/dv copied it;
+# the Hopper tf32 dk/dv reads the clone in place.
 GRAD_CASES = [
     ("D80 [B, T, H, D]", lambda: _bthd(80), "flash_bwd_dkdv", False),
     ("D80 expanded", lambda: _expanded(80), "flash_bwd_dkdv", True),
@@ -316,7 +337,7 @@ GRAD_CASES = [
     ("D288: the mma.sync dk/dv copies", lambda: _expanded(288),
      "flash_seg_bwd_dkdv", False),
     ("fp32 D16: the tf32 family copies", lambda: _expanded(16, torch.float32),
-     "flash_bwd_dkdv", False),
+     "flash_bwd_dkdv", True),
     ("fp32 D20 [B, T, H, D]: TMA takes strides of 4", lambda: _bthd(
         20, torch.float32), "flash_bwd_dkdv", False),
     ("fp32 D18 expanded: no clone TMA takes", lambda: _expanded(
@@ -420,3 +441,25 @@ def test_ptxas_report_is_parsed_per_kernel():
         "_Z6fwd128v": {"spill_stores": 12, "spill_loads": 16,
                        "registers": 255}}
     assert parse_ptxas("") == {}
+
+
+def test_sass_rename_matches_an_instance_to_its_successor():
+    """The opcode diff of two builds compares an instance whose template
+    parameters an edit removed (the mma.sync family's slice width and ONE
+    flag) with its successor once --rename rewrites the old build's
+    names; a function whose opcodes moved is counted, one only one build
+    has is listed."""
+    from horovod_tpu_torch.ops.sass import diff, renamed
+    old = {"_ZN12_GLOBAL__N_125flash_bwd_dq_mma_kernelILi128E6__halfS1_Lb0EEEv"
+           "N5flash4ArgsE": ["HMMA", "EXIT"],
+           "_ZN12_GLOBAL__N_1gone": ["EXIT"]}
+    new = {"_ZN12_GLOBAL__N_125flash_bwd_dq_mma_kernelI6__halfS1_EEv"
+           "N5flash4ArgsE": ["HMMA", "EXIT"],
+           "_ZN12_GLOBAL__N_1moved": ["NOP"]}
+    assert diff(old, new)["differ"] == {}
+    res = diff(renamed(old, r"ILi128E(\w+?)Lb0EE=I\1E"), new)
+    assert list(res["differ"].values()) == [0]
+    assert res["only_in_one"] == ["_ZN12_GLOBAL__N_1gone",
+                                  "_ZN12_GLOBAL__N_1moved"]
+    moved = dict(new, **{"_ZN12_GLOBAL__N_1gone": ["NOP", "EXIT"]})
+    assert diff(old, moved, "gone")["differ"] == {"_ZN12_GLOBAL__N_1gone": 1}
