@@ -36,20 +36,22 @@ and then:
    q and k/v of different lengths, causal and full, and head dims above
    128 (bf16 B2 H8 T2048 D256 causal and fp16 D160 with 1024 queries over
    2048 keys: the Hopper wide kernels; bf16 B1 H4 T1024 D320: the Hopper
-   forward, O in two accumulators, and the mma.sync dk/dv and dq in
-   slices of 128 columns; D384 and D512: the Hopper forward with O's
-   columns split over blocks; bf16 B1 H2 T512 D576, D640, D1024 and
-   D1280: the deep Hopper forward, S summed over the depth's slabs, Q
-   resident up to 1024 and streamed at 1280, and the mma.sync dk/dv and
-   dq; fp32
+   forward, O in two accumulators, and the deep dk/dv and dq (output
+   columns in groups over blocks, S and dP summed over the depth's
+   slabs); D384 and D512: the Hopper forward with O's columns split over
+   blocks; bf16 B1 H2 T512 D576, D640, D1024 and D1280: the deep Hopper
+   forward, S summed over the depth's slabs, Q resident up to 1024 and
+   streamed at 1280, and the deep dk/dv and dq; fp32
    D256 (B2 H4 T512 causal) and D320 (B1 H4 T1024 causal): the Hopper
    tf32 forward, dk/dv and dq, K and V of a dk/dv block resident at 256
    and streamed at 320, Q and dO of a dq block likewise); and times them
    beside ``scaled_dot_product_attention``'s forward and backward (a
    yardstick only, never on the path), the forward with its achieved
    TFLOP/s and its share of the bound. Every fp32 shape's kernels must
-   take the Hopper tf32 route, by their counters and by the kernel names
-   of a profiler trace (check_fp32_route: no mma.sync kernel);
+   take the Hopper tf32 route, and every 16-bit shape's above head dim
+   256 the Hopper one, dk/dv and dq on the deep kernels, by their
+   counters and by the kernel names of a profiler trace (check_route: no
+   mma.sync kernel);
 5. trains the flagship decoder LM (d2048 x 4 layers, T 2048, batch 4,
    bf16, ``attention="flash"``) through ``broadcast_parameters`` and
    ``DistributedOptimizer(AdamW)`` (losses finite and falling, tokens/s);
@@ -62,10 +64,11 @@ and then:
    the contiguous n=1 ring's whole segment, a T = 2000, D 64 tail-tile
    shape, a D 256 FULL half-segment (B1 H8 T4096: the Hopper wide
    kernels), D 320, 384 and 512 ones (B1 H4 T2048: the Hopper forward, the
-   mma.sync dk/dv and dq) and D 576, 640, 1024 and 1280 ones (B1 H2
-   T1024, and D 1024 at B1 H8 T4096, a grid that fills the card: the deep
-   Hopper forward, the mma.sync dk/dv and dq) and the FULL half in fp32
-   (the Hopper tf32 K7a, K7b and K7c, checked as phase 4's fp32 shapes),
+   deep dk/dv and dq) and D 576, 640, 1024 and 1280 ones (B1 H2 T1024,
+   and D 1024 at B1 H8 T4096, a grid that fills the card: the deep Hopper
+   forward, dk/dv and dq), each above 256 checked by route as phase 4's,
+   and the FULL half in fp32 (the Hopper tf32 K7a, K7b and K7c, checked
+   as phase 4's fp32 shapes),
    and times them
    beside SDPA's forward and backward (a yardstick only: with the
    segment's own lse, SDPA's backward of the same segment, causal or
@@ -98,13 +101,13 @@ and then:
     T1024 H4 D320: the Hopper tf32 forward, dk/dv and dq; causal) and
     the zig-zag ring (``force_ring=True``, bf16 D256, D320, D384 and
     D576), forward and backward, against the plain versions, checks which
-    route each kernel took (the Hopper kernels up to D 256, the Hopper
-    forward and the mma.sync dk/dv and dq above; fp32 the Hopper tf32
-    kernels, no mma.sync one), by its launch counter
-    and by the names of the kernels a profiler trace saw (at D 384 the
-    forward must be ``flash_fwd_sm90_kernel<384, ...>``, at D 576
-    ``flash_fwd_sm90_kernel_deep<...>``, and no 16-bit forward may run the
-    mma.sync family), prints the kernels a trace sees
+    route each kernel took (the Hopper kernels; fp32 the Hopper tf32
+    ones), by its launch counter and by the names of the kernels a
+    profiler trace saw (at D 384 the forward must be
+    ``flash_fwd_sm90_kernel<384, ...>``, at D 576
+    ``flash_fwd_sm90_kernel_deep<...>``, above 256 dk/dv and dq
+    ``flash_bwd_*_sm90_kernel_deep<...>``, and no path may run an mma.sync
+    kernel), prints the kernels a trace sees
     per K6 wrapper call at fp16 D160 (one: no zero-pad copy; every path's
     ``*_pad_copies`` on a Hopper route must be 0), and times each path's
     forward + backward with the share of its attention kernels' device
@@ -125,9 +128,9 @@ step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
 68 for the hierarchical one, whose 2 shards a pair halve the work; one of
 each fp32 kernel, the Hopper tf32 forward, dk/dv and dq, per layer and
-step of ViT_Tiny; each wide instance, Hopper and mma.sync, at least once
-in phase 13, the Hopper tf32 dk/dv and dq at fp32 D 320 too, and no
-forward and no fp32 launch on the mma.sync family). Any failed check exits
+step of ViT_Tiny; each wide instance, the deep dk/dv and dq included, at
+least once in phase 13, the Hopper tf32 dk/dv and dq at fp32 D 320 too,
+and no mma.sync kernel in any trace). Any failed check exits
 non-zero with no result. The line before the last is
 ``nvidia-smi``'s name and power limit, the one before it the ``kernels``
 JSON, and the last line ``{"ok": true, "device": {...}}``.
@@ -195,9 +198,8 @@ TF32_SHAPE = "ViT_Tiny fp32"
 # shape whose numbers it carries, the phase whose counts are its
 # launches). The Hopper tf32 forward, dk/dv and dq (K6 and K7 alike) at
 # phase 12's shape, every fp32-input shape of phases 4 and 8 under
-# "shapes", and dk/dv and dq again at D 320 (rows <name>_d320), the head
-# dims above 256 that fp32 dk/dv and dq took to the mma.sync family before
-# they ran on Hopper.
+# "shapes", and dk/dv and dq again at D 320 (rows <name>_d320), a head dim
+# at which fp32 dk/dv and dq split their output columns over blocks.
 TF32_D320 = "D320 fp32"
 TF32_ROWS = (("flash_fwd_sm90_tf32", "flash_fwd", TF32_SHAPE, 12),
              ("flash_bwd_dkdv_sm90_tf32", "flash_bwd_dkdv", TF32_SHAPE, 12),
@@ -205,27 +207,28 @@ TF32_ROWS = (("flash_fwd_sm90_tf32", "flash_fwd", TF32_SHAPE, 12),
              ("flash_bwd_dkdv_sm90_tf32_d320", "flash_bwd_dkdv", TF32_D320,
               13),
              ("flash_bwd_dq_sm90_tf32_d320", "flash_bwd_dq", TF32_D320, 13))
-# the K6 and K7 wrappers whose fp32 launches must take the Hopper tf32
-# route (di has no route)
-FP32_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
-FP32_SEG_ROUTED = ("flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
-# the rows of the instances above head dim 128, K6 and K7, and the phase-4
-# and phase-8 shapes whose numbers each carries: the Hopper kernels at
-# D 192 and 256 (<name>_sm90_wide) at D 256, the Hopper forward at D 320
-# (<name>_sm90_d320) at D 320, the Hopper forward with O's columns split
-# over blocks at 384 to 512 (<name>_sm90_split) at D 384, the Hopper
-# forward above 512, S summed over the depth's slabs (<name>_sm90_deep),
-# at D 576 (its D1024 and D1280 shapes under "shapes"), and the mma.sync
-# dk/dv and dq above 256 (<name>_wide) at D 320
-WIDE_ROW_SHAPES = {"sm90_wide": ("D256", "D256 half, FULL"),
-                   "sm90_d320": ("D320", "D320 half, FULL"),
-                   "sm90_split": ("D384", "D384 half, FULL"),
-                   "sm90_deep": ("D576", "D576 half, FULL"),
-                   "wide": ("D320", "D320 half, FULL")}
-# the rows of each wide wrapper: the forwards' Hopper instances, dk/dv's
-# and dq's Hopper and mma.sync ones
-WIDE_ROWS = {"fwd": ("sm90_wide", "sm90_d320", "sm90_split", "sm90_deep"),
-             "bwd": ("sm90_wide", "wide")}
+# the K6 wrappers whose launches must take the Hopper tf32 route on fp32
+# inputs, and the Hopper one (dk/dv and dq deep) on bf16 and fp16 above
+# head dim 256 (di has no route)
+K6_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
+# the rows of the instances above head dim 128, K6 and K7, of the forwards
+# (fwd) and of dk/dv and dq (bwd), and the phase-4 and phase-8 shapes whose
+# numbers each carries: the Hopper kernels at D 192 and 256
+# (<name>_sm90_wide) at D 256, the forward at D 320 (<name>_sm90_d320) at
+# D 320, the forward with O's columns split over blocks at 384 to 512
+# (<name>_sm90_split) at D 384, the deep forward above 512, S summed over
+# the depth's slabs (<name>_sm90_deep), at D 576, and the deep dk/dv and
+# dq above 256, their output columns in groups over blocks and S and dP
+# summed over the depth's slabs (<name>_sm90_deep), at D 320; the deep
+# rows list their other head dims' shapes under "shapes"
+WIDE_ROWS = {"fwd": {"sm90_wide": ("D256", "D256 half, FULL"),
+                     "sm90_d320": ("D320", "D320 half, FULL"),
+                     "sm90_split": ("D384", "D384 half, FULL"),
+                     "sm90_deep": ("D576", "D576 half, FULL")},
+             "bwd": {"sm90_wide": ("D256", "D256 half, FULL"),
+                     "sm90_deep": ("D320", "D320 half, FULL")}}
+# the head dim above which each kind's deep kernels run
+DEEP_ABOVE = {"fwd": 512, "bwd": 256}
 # phase 13: attention above head dim 128 through the user entry points:
 # (what, path, B, T, H, D, dtype), q, k, v [B, T, H, D], causal
 WIDE_PATHS = (("flash_attention_local", "flash", 1, 4096, 8, 256, "bfloat16"),
@@ -244,8 +247,7 @@ WIDE_TRACED_CALLS = 2          # forward + backward calls in the trace
 WIDE_KERNELS = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
                 "flash_seg_fwd", "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
 # the CUDA kernel each wrapper's route launches: the Hopper kernel
-# (sm90_wide), the Hopper tf32 one (sm90_tf32) or the mma.sync one (wide),
-# K7's the same as K6's
+# (sm90_wide) or the Hopper tf32 one (sm90_tf32), K7's the same as K6's
 ROUTE_KERNELS = {"flash_fwd": "flash_fwd", "flash_seg_fwd": "flash_fwd",
                  "flash_bwd_dkdv": "flash_bwd_dkdv",
                  "flash_seg_bwd_dkdv": "flash_bwd_dkdv",
@@ -348,31 +350,33 @@ def attention_ptxas(build, log):
     kernels with In outputs are K6's rows, with fp32 outputs K7's, those at
     head dims 192 and 256 ``<row>_sm90_wide``, the forward's at 320
     ``<row>_sm90_d320``, at 384 to 512 ``<row>_sm90_split`` and its deep
-    kernel (every head dim above 512) ``<row>_sm90_deep``; the Hopper tf32
-    kernels' rows (fp32 inputs, K6 and K7 alike) are ``<name>_sm90_tf32``;
-    the mma.sync family's rows are ``<name>_wide`` (bf16 and fp16 dk/dv and
-    dq: the family has no fp32 instance)."""
+    kernel (every head dim above 512) and the deep dk/dv and dq (every
+    head dim above 256) ``<row>_sm90_deep``; the Hopper tf32 kernels' rows
+    (fp32 inputs, K6 and K7 alike) are ``<name>_sm90_tf32``. flash_attn.cu
+    builds di alone."""
     rows = {}
     names = {  # kernel -> (K6 row, K7 row)
         "flash_fwd_sm90_kernel": ("flash_fwd", "flash_seg_fwd"),
         "flash_fwd_sm90_kernel_deep": ("flash_fwd", "flash_seg_fwd"),
         "flash_bwd_dkdv_sm90_kernel": ("flash_bwd_dkdv",
                                        "flash_seg_bwd_dkdv"),
+        "flash_bwd_dkdv_sm90_kernel_deep": ("flash_bwd_dkdv",
+                                            "flash_seg_bwd_dkdv"),
         "flash_bwd_dq_sm90_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
+        "flash_bwd_dq_sm90_kernel_deep": ("flash_bwd_dq",
+                                          "flash_seg_bwd_dq"),
         "flash_bwd_pre_kernel": ("flash_bwd_pre", "flash_bwd_pre"),
         "flash_fwd_sm90_tf32_kernel": ("flash_fwd", "flash_seg_fwd"),
         "flash_bwd_dq_sm90_tf32_kernel": ("flash_bwd_dq",
                                           "flash_seg_bwd_dq"),
         "flash_bwd_dkdv_sm90_tf32_kernel": ("flash_bwd_dkdv",
                                             "flash_seg_bwd_dkdv"),
-        "flash_bwd_dkdv_mma_kernel": ("flash_bwd_dkdv", "flash_seg_bwd_dkdv"),
-        "flash_bwd_dq_mma_kernel": ("flash_bwd_dq", "flash_seg_bwd_dq"),
     }
     for stem in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_attn"):
         for mangled, r in sorted(build.ptxas_report(stem).items()):
             # the kernel's name follows its length (the file's does not);
-            # then the slice, head dim or group width, then In and OutT
-            # (the tf32 kernels have neither: fp32 in and out)
+            # then the head dim or group width, then In and OutT (the tf32
+            # kernels have neither: fp32 in and out)
             m = re.search(
                 r"(?<=\d)(flash_\w+?_kernel(?:_deep)?)I(?:Li(\d+)E)?(\w*?)"
                 r"EEv", mangled)
@@ -382,11 +386,7 @@ def attention_ptxas(build, log):
             # "S1_" repeats In (K6), a final "f" is fp32 (K7)
             k7 = types.endswith("f") and not types.startswith("f")
             row = names[kernel][int(k7)]
-            if kernel.endswith("mma_kernel"):
-                check(not types.startswith("f"),
-                      f"an fp32 instance of the mma.sync family: {mangled}")
-                row += "_wide"
-            elif kernel.endswith("_tf32_kernel"):
+            if kernel.endswith("_tf32_kernel"):
                 row = f"{names[kernel][0]}_sm90_tf32"
             elif kernel.endswith("_deep"):
                 row += "_sm90_deep"
@@ -874,8 +874,10 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
         pad_copies = {n: n1[f"{n}_pad_copies"] - n0[f"{n}_pad_copies"]
                       for n in FLASH_KERNELS}
         if d != K._flash_dim(d):
+            # every launch is a Hopper kernel's, which reads these [B, T,
+            # H, D] views in place
             log(f"  {what}: zero-pad copies {pad_copies}")
-            check(pad_copies_ok(K, dt, d, pad_copies),
+            check(not any(pad_copies.values()),
                   f"K6 {what}: a Hopper route copied its inputs: "
                   f"{pad_copies}")
         err = {}
@@ -967,8 +969,11 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
                 f"({bound_by})" + rate_text(entry))
         if dtype == "float32":
             fp32_entries[what] = entries
-            check_fp32_route(torch, K, f"K6 {what}", kernel_fwd_bwd,
-                             FP32_ROUTED, log)
+            check_route(torch, K, f"K6 {what}", kernel_fwd_bwd, K6_ROUTED,
+                        "sm90_tf32", log)
+        elif K._flash_dim(d) > DEEP_ABOVE["bwd"]:
+            check_route(torch, K, f"K6 {what}", kernel_fwd_bwd, K6_ROUTED,
+                        "sm90_wide", log, d)
         # attention forward and backward as one function: the products of
         # the forward (S, O: 4 D a pair) and of the backward (S again, dP,
         # dV, dK, dQ: 10 D a pair) on the tensor cores, after the pass that
@@ -1002,43 +1007,109 @@ def check_flash_kernels(torch, K, dev, flush, reps, log):
     return rows, fp32_entries, summary
 
 
-def pad_copies_ok(K, dt, d, copies):
-    """Whether no wrapper that runs a Hopper kernel (or di) on inputs of
-    head dim ``d`` copied them: those read the views in place (the shapes
-    here are [B, T, H, D] views whose strides TMA takes); the mma.sync
-    family (bf16 and fp16 dk/dv and dq above their Hopper limit) copies."""
-    for name, n in copies.items():
-        hopper = name == "flash_bwd_pre" or (
-            K.flash_route(dt, d, name) in ("sm90", "sm90_wide", "sm90_tf32"))
-        if hopper and n != 0:
-            return False
-    return True
+TRACE_TRIES = 6   # traces of a step, while they miss a kernel that ran
+TRACE_PAD_S = 0.02   # host idle before a traced step's launches and after it
+TRACE_RETRY_S = 0.2  # pause before a step is traced again
+TRACE_LOST = []      # (try, kernels seen) of each trace the caller refused
 
 
-def kernels_per_call(torch, calls, n):
-    """Device operations per call from a torch.profiler trace of ``n``
-    calls of each of ``calls`` ({wrapper: (fn, its kernel's name)}), the
-    active step of a schedule whose warm-up step runs the same calls (a
-    trace may miss what runs first): {wrapper: its kernel's launches a
-    call, "other": the operations that are no wrapper's kernel (copies,
-    fills) a call}."""
+def trace_once(torch, step, pad=TRACE_PAD_S):
+    """{name: (launches, device ms)} of the device operations of
+    ``step()`` in one torch.profiler trace: the active step of a schedule
+    whose warm-up step runs the same calls (a trace started cold may miss
+    what runs first), each step with ``pad`` s of idle host time on either
+    side."""
     from torch.profiler import ProfilerActivity, profile, schedule
     seen = {}
 
     def read(prof):   # the active step's events, before they are cleared
-        seen.update({ev.key: ev.count for ev in prof.key_averages()
+        seen.update({ev.key: (ev.count, ev.self_device_time_total / 1e3)
+                     for ev in prof.key_averages()
                      if getattr(ev, "self_device_time_total", 0.0) > 0})
 
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=read) as prof:
         for _ in range(2):
-            for fn, _ in calls.values():
-                for _ in range(n):
-                    fn()
+            time.sleep(pad)
+            step()
             torch.cuda.synchronize()
+            time.sleep(pad)
             prof.step()
+    return seen
+
+
+def trace_kernels(torch, step, ok):
+    """trace_once of ``step``, traced again while ``ok(trace)`` is false.
+    A trace can lose a short step's kernel events while it keeps their
+    launches (``--trace-probe 300`` on an H100: of 300 unpadded traces of
+    phase 4's 1.4 ms K6 D640 step, 2 held none of its four kernels and 1
+    lost one; of 300 with TRACE_PAD_S, none; PERF.md), so each step is
+    padded, and a refused trace is retried after TRACE_RETRY_S, up to
+    TRACE_TRIES traces, each refusal noted in TRACE_LOST for the log. The
+    caller's check reads the last trace, so a kernel that did not run
+    fails it every time."""
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            time.sleep(TRACE_RETRY_S)
+        seen = trace_once(torch, step)
+        if ok(seen):
+            break
+        TRACE_LOST.append((attempt, len(seen)))
+    return seen
+
+
+def trace_probe(torch, K, dev, n, smi, log):
+    """How often trace_once loses a short step's kernels, unpadded and
+    padded (``--trace-probe N``): phase 4's K6 D640 step (forward, di,
+    dk/dv, dq at B1 H2 T512, bf16, causal, two calls) traced N times each
+    way, interleaved; the counts as the last line."""
+    b, h, t, d = 1, 2, 512, 640
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (torch.randn(b, t, h, d, device=dev, generator=gen)
+                   .to(torch.bfloat16).transpose(1, 2) for _ in range(4))
+    scale = d ** -0.5
+
+    def step():
+        for _ in range(2):
+            o, lse = K.flash_fwd(q, k, v, True, scale)
+            di = K.flash_bwd_pre(o, do)
+            K.flash_bwd_dkdv(q, k, v, do, lse, di, True, scale)
+            K.flash_bwd_dq(q, k, v, do, lse, di, True, scale)
+
+    want = ("flash_fwd_", "flash_bwd_pre_", "flash_bwd_dkdv_",
+            "flash_bwd_dq_")
+    step()
+    torch.cuda.synchronize()
+    lost = {0.0: [0] * (len(want) + 1), TRACE_PAD_S: [0] * (len(want) + 1)}
+    for _ in range(n):
+        for pad in lost:
+            seen = trace_once(torch, step, pad)
+            lost[pad][sum(not any(w in k_ for k_ in seen)
+                          for w in want)] += 1
+    for pad, hist in lost.items():
+        log(f"  pad {pad} s: traces by kernels lost (0..{len(want)}): "
+            f"{hist}")
+    print(smi)
+    print(json.dumps({"trace_probe": {
+        "step": f"K6 B{b} H{h} T{t} D{d} bfloat16 causal, 2 calls",
+        "traces_by_kernels_lost": {str(p): h_ for p, h_ in lost.items()}}}))
+    return 0
+
+
+def kernels_per_call(torch, calls, n):
+    """Device operations per call from a torch.profiler trace of ``n``
+    calls of each of ``calls`` ({wrapper: (fn, its kernel's name)})
+    (trace_kernels): {wrapper: its kernel's launches a call, "other": the
+    operations that are no wrapper's kernel (copies, fills) a call}."""
+    def step():
+        for fn, _ in calls.values():
+            for _ in range(n):
+                fn()
     names = [kernel for _, kernel in calls.values()]
+    seen = {k: c for k, (c, _) in trace_kernels(
+        torch, step,
+        lambda t: all(any(n in k for k in t) for n in names)).items()}
     out = {w: sum(c for k, c in seen.items() if kernel in k) / n
            for w, (_, kernel) in calls.items()}
     out["other"] = sum(c for k, c in seen.items()
@@ -1185,11 +1256,11 @@ def check_seg_kernels(torch, K, dev, flush, reps, log):
                 f"({bound_by})" + rate_text(entry)
                 + (f", SDPA forward {sdpa_ms:.4f} ms"
                    if name == "flash_seg_fwd" else ""))
-        if dtype == "float32":
-            check_fp32_route(
+        if dtype == "float32" or K._flash_dim(d) > DEEP_ABOVE["bwd"]:
+            check_route(
                 torch, K, f"K7 {what}",
-                lambda: [fn() for fn, _ in calls.values()],
-                FP32_SEG_ROUTED, log)
+                lambda: [fn() for fn, _ in calls.values()], SEG_KERNELS,
+                "sm90_tf32" if dtype == "float32" else "sm90_wide", log, d)
         bwd_ms = sum(rows[n]["shapes"][-1]["ms"] for n in SEG_KERNELS[1:])
         log(f"  {what}: K7b + K7c {bwd_ms:.4f} ms against SDPA's "
             f"{'causal' if causal else 'non-causal'} backward of the segment "
@@ -1315,18 +1386,18 @@ def run_ring_path(torch, K, R, fa, dev, log):
 
 
 def wide_routes(K, dtype, d, ring):
-    """The route each kernel of one wide path takes (flash_route: up to
-    head dim 256 the Hopper kernels, above it the Hopper forward and the
-    mma.sync dk/dv and dq; fp32: the Hopper tf32 kernels at every head
-    dim), K7's on the ring, K6's on flash_attention_local: {wrapper:
-    "sm90_wide", "wide" or "sm90_tf32"}."""
+    """The route each kernel of one wide path takes (flash_route: bf16 and
+    fp16 the Hopper kernels, the deep dk/dv and dq above head dim 256;
+    fp32: the Hopper tf32 kernels at every head dim), K7's on the ring,
+    K6's on flash_attention_local: {wrapper: "sm90_wide" or
+    "sm90_tf32"}."""
     names = WIDE_KERNELS[3:] if ring else WIDE_KERNELS[:3]
     return {name: K.flash_route(dtype, d, name) for name in names}
 
 
 # the routes a wide path's launches may take, and the CUDA kernel (by the
 # suffix of its name after ROUTE_KERNELS' base) each launches
-WIDE_PATH_ROUTES = {"sm90_wide": "_sm90_kernel", "wide": "_mma_kernel",
+WIDE_PATH_ROUTES = {"sm90_wide": "_sm90_kernel",
                     "sm90_tf32": "_sm90_tf32_kernel"}
 
 
@@ -1341,53 +1412,54 @@ def wide_route_ok(counts, routes):
     return True
 
 
-def traced_route_ok(names, routes):
+def traced_route_ok(names, routes, d=0):
     """Whether the kernel names of a profiler trace agree with the routes:
-    each wrapper's kernel on its route (``<kernel>_sm90_kernel``,
-    ``<kernel>_sm90_tf32_kernel`` or ``<kernel>_mma_kernel``) seen, and the
-    others never."""
+    each wrapper's kernel on its route (``<kernel>_sm90_kernel`` or
+    ``<kernel>_sm90_tf32_kernel``) seen, the other never, and no mma.sync
+    kernel (``_mma_kernel``); at a 16-bit head dim ``d`` above 256, dk/dv's
+    and dq's deep kernels (``<kernel>_sm90_kernel_deep``)."""
+    if any("_mma_kernel" in n for n in names):
+        return False
     for name, route in routes.items():
         base = ROUTE_KERNELS[name]
         want = base + WIDE_PATH_ROUTES[route]
+        if route == "sm90_wide" and d > DEEP_ABOVE["bwd"] \
+                and "_bwd_" in base:
+            want += "_deep"
         others = {base + k for k in WIDE_PATH_ROUTES.values()} - {want}
         if not any(want in n for n in names) \
-                or any(other in n for other in others for n in names):
+                or any(other in n for other in others for n in names
+                       if want not in n):
             return False
     return True
 
 
-def check_fp32_route(torch, K, what, call, wrappers, log):
-    """Phases 4, 8 and 12: every fp32 launch of ``call`` on the Hopper tf32
-    route, none on the mma.sync family, by the counters (each launch of
-    ``wrappers`` counted in ``<wrapper>_sm90_tf32``, none in
-    ``<wrapper>_wide``) and by the kernel names a torch.profiler trace of
-    two calls saw (traced_route_ok: each wrapper's ``_sm90_tf32_kernel``,
-    no ``_sm90_kernel`` or ``_mma_kernel``). Returns the traced names of
-    the attention kernels."""
-    from torch.profiler import ProfilerActivity, profile
+def check_route(torch, K, what, call, wrappers, route, log, d=0):
+    """Phases 4, 8 and 12: every launch of ``call`` by ``wrappers`` on
+    ``route`` (the Hopper tf32 kernels for fp32 inputs; for bf16 and fp16
+    above head dim 256 the Hopper kernels, dk/dv and dq on the deep ones),
+    by the counters (each launch of ``wrappers`` counted in
+    ``<wrapper>_<route>``) and by the kernel names a torch.profiler trace
+    of two calls saw (traced_route_ok: each wrapper's kernel of the route,
+    no other and no mma.sync kernel). Returns the traced names of the
+    attention kernels."""
+    routes = {w: route for w in wrappers}
+
+    def names(trace):
+        return sorted({re.sub(r"^.*?(flash_\w+?_kernel\w*).*$", r"\1", k)
+                       for k in trace if "flash_" in k})
     n0 = K.launch_counts()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # a trace may miss its first kernel: one of no interest goes first
-        torch.zeros(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        for _ in range(2):
-            call()
-        torch.cuda.synchronize()
+    traced = names(trace_kernels(
+        torch, lambda: [call() for _ in range(2)],
+        lambda t: traced_route_ok(names(t), routes, d)))
     n1 = K.launch_counts()
-    traced = sorted({re.sub(r"^.*?(flash_\w+?_kernel\w*).*$", r"\1", ev.key)
-                     for ev in prof.key_averages()
-                     if getattr(ev, "self_device_time_total", 0.0) > 0
-                     and "flash_" in ev.key})
-    counted = {w: (n1[f"{w}_sm90_tf32"] - n0[f"{w}_sm90_tf32"],
-                   n1[w] - n0[w], n1[f"{w}_wide"] - n0[f"{w}_wide"])
+    counted = {w: (n1[f"{w}_{route}"] - n0[f"{w}_{route}"], n1[w] - n0[w])
                for w in wrappers}
-    log(f"  {what}: fp32 launches (sm90_tf32, all, wide) {counted}, traced "
-        f"{traced}")
-    check(all(tf32 == n >= 2 and wide == 0
-              for tf32, n, wide in counted.values())
-          and traced_route_ok(traced, {w: "sm90_tf32" for w in wrappers}),
-          f"{what}: an fp32 launch off the Hopper tf32 route: {counted}, "
-          f"traced {traced}")
+    log(f"  {what}: launches ({route}, all) {counted}, traced {traced}")
+    check(all(on == n >= 2 for on, n in counted.values())
+          and traced_route_ok(traced, routes, d),
+          f"{what}: a launch off the {route} route: {counted}, traced "
+          f"{traced}")
     return traced
 
 
@@ -1404,7 +1476,6 @@ def run_wide_path(torch, K, R, fa, dev, log):
     (CUDA events, median of WIDE_WINDOWS windows) and, from the trace, the
     share of its attention kernels' device time that is dq's. Returns the
     summary per path."""
-    from torch.profiler import ProfilerActivity, profile
     summary = []
     for what, path, b, t, h, d, dtype in WIDE_PATHS:
         path_start = K.launch_counts()
@@ -1435,7 +1506,7 @@ def run_wide_path(torch, K, R, fa, dev, log):
               f"{what} D{d}: kernels off their routes {routes}: {counts}")
         copies = {name: counts.get(f"{name}_pad_copies", 0)
                   for name in routes}
-        check(pad_copies_ok(K, dt, d, copies),
+        check(not any(copies.values()),
               f"{what} D{d}: a Hopper route copied its inputs: {copies}")
         per_call = None
         diag = {}
@@ -1504,29 +1575,21 @@ def run_wide_path(torch, K, R, fa, dev, log):
             torch.cuda.synchronize()
             windows.append(start.elapsed_time(end) / WIDE_WINDOW_CALLS)
         ms = statistics.median(windows)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # a trace may miss its first kernel: one of no interest goes
-            # first, and more than one call is traced
-            torch.zeros(1, device=dev).add_(1)
-            torch.cuda.synchronize()
-            for _ in range(WIDE_TRACED_CALLS):
-                fwd_bwd()
-            torch.cuda.synchronize()
-        attn, seen = {}, {}
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total", 0.0)
-            if us > 0 and "flash_" in ev.key:
-                attn[ev.key] = (attn.get(ev.key, 0.0)
-                                + us / 1e3 / WIDE_TRACED_CALLS)
-                seen[ev.key] = seen.get(ev.key, 0) + ev.count
+        dp = K._flash_dim(d)
+        traced = trace_kernels(
+            torch, lambda: [fwd_bwd() for _ in range(WIDE_TRACED_CALLS)],
+            lambda t: traced_route_ok(t, routes, dp))
+        attn = {k_: ms_ / WIDE_TRACED_CALLS
+                for k_, (_, ms_) in traced.items() if "flash_" in k_}
+        seen = {k_: c_ for k_, (c_, _) in traced.items() if "flash_" in k_}
         attn_ms = sum(attn.values())
         dq_ms = sum(v for k_, v in attn.items() if "_dq_" in k_)
         check(attn_ms > 0, f"{what} D{d}: the profiler saw no attention "
               "kernel")
-        check(traced_route_ok(attn, routes),
+        # above 256 dk/dv and dq traced as their deep kernels
+        check(traced_route_ok(attn, routes, dp),
               f"{what} D{d}: the traced kernels {sorted(attn)} disagree "
               f"with the counted routes {routes}")
-        dp = K._flash_dim(d)
         if dp > 320:
             # the split forward's instance, or above 512 the deep kernel
             want = (f"flash_fwd_sm90_kernel<{dp}," if dp <= 512 else
@@ -1937,7 +2000,7 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     place (no zero-padded copy): its first logits against the same model's
     on the CPU (K6's plain versions), then TINY_STEPS SGD-momentum steps
     (losses finite), then a traced forward and backward, whose attention
-    kernels must all be the Hopper tf32 ones (check_fp32_route). Returns
+    kernels must all be the Hopper tf32 ones (check_route). Returns
     the summary and the launch counts of the path."""
     model = ViT_Tiny(num_classes=10, dtype=torch.float32,
                      image_size=TINY_IMAGE,
@@ -1972,13 +2035,13 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     check(all(v == v and abs(v) != float("inf") for v in losses),
           "non-finite ViT_Tiny loss")
     layers = len(model.blocks)
-    for name in FP32_ROUTED:
+    for name in K6_ROUTED:
         check(counts[name] == counts[f"{name}_sm90_tf32"]
               == layers * TINY_STEPS,
               f"{name} launched {counts[name]} on the ViT_Tiny path "
               f"({counts[f'{name}_sm90_tf32']} on the Hopper tf32 route), "
               f"expected {layers * TINY_STEPS}")
-    for name in FP32_ROUTED + ("flash_bwd_pre",):
+    for name in K6_ROUTED + ("flash_bwd_pre",):
         copies = counts[f"{name}_pad_copies"]
         check(copies == 0, f"{name}: {copies} zero-padded copies on the "
               "ViT_Tiny path, expected 0")
@@ -1986,8 +2049,8 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
     def fwd_bwd():
         torch.nn.functional.cross_entropy(model(images), labels).backward()
 
-    traced = check_fp32_route(torch, K, "ViT_Tiny", fwd_bwd, FP32_ROUTED,
-                              log)
+    traced = check_route(torch, K, "ViT_Tiny", fwd_bwd, K6_ROUTED,
+                         "sm90_tf32", log)
     return (dict(logits_err=err, logits_limit=limit, losses=losses,
                  traced_kernels=traced), counts)
 
@@ -2044,6 +2107,10 @@ def main(argv=None) -> int:
                     help="build, then only train and profile ResNet-50 "
                          "(phase 2) and print its img/s, busy share and "
                          "launches per step as the last line")
+    ap.add_argument("--trace-probe", type=int, default=0, metavar="N",
+                    help="build, then only trace phase 4's K6 D640 step N "
+                         "times unpadded and N times padded and print how "
+                         "many traces lost its kernels as the last line")
     ap.add_argument("--package-root", default=None, metavar="DIR",
                     help="import horovod_tpu_torch from DIR (a parent "
                          "checkout, measured with --resnet-only in the same "
@@ -2084,6 +2151,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = True
     if args.resnet_only:
         return resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log)
+    if args.trace_probe:
+        return trace_probe(torch, K, dev, args.trace_probe, smi, log)
     ptxas = attention_ptxas(build, log)
     check(all(r["spill_bytes"] == 0 for r in ptxas.values()),
           f"an attention kernel spills: {ptxas}")
@@ -2296,32 +2365,32 @@ def main(argv=None) -> int:
         wide_counts = K.launch_counts()
         log(f"  launches on the wide path: {wide_counts}")
         for name in WIDE_KERNELS:
-            for route in ("wide", "sm90_wide"):
-                # no 16-bit forward runs the mma.sync family
-                want = route == "sm90_wide" or not name.endswith("_fwd")
-                check((wide_counts[f"{name}_{route}"] >= 1) == want,
-                      f"{name}_{route} launched {wide_counts[f'{name}_{route}']}"
-                      " times on the wide path")
+            check(wide_counts[f"{name}_sm90_wide"] >= 1,
+                  f"{name}_sm90_wide launched no time on the wide path")
         # the fp32 path: every kernel on the Hopper tf32 route, by its
-        # counters and its trace, none on the mma.sync family
-        for name in FP32_ROUTED:
+        # counters and its trace
+        for name in K6_ROUTED:
             check(wide_counts[f"{name}_sm90_tf32"] >= 1,
                   f"{name}_sm90_tf32 launched no time on the wide path")
         fp32 = [p for p in wide if p["dtype"] == "float32"]
-        check(fp32 and all(
-            p["launches"].get(f"{name}_wide", 0) == 0
-            and p["routes"][name] == "sm90_tf32"
-            for p in fp32 for name in FP32_ROUTED)
-            and not any("_mma_kernel" in k for p in fp32
-                        for k in p["traced_kernels"]),
-            "an fp32 launch ran the mma.sync family on the wide path")
+        check(fp32 and all(p["routes"][name] == "sm90_tf32"
+                           for p in fp32 for name in K6_ROUTED),
+              "an fp32 launch ran off the Hopper tf32 route on the wide "
+              "path")
+        # no path ran an mma.sync kernel (flash_attn.cu builds none)
+        check(not any("_mma_kernel" in k for p in wide
+                      for k in p["traced_kernels"]),
+              "a launch ran an mma.sync kernel on the wide path")
     finally:
         hvd.shutdown()
+
+    def kind(name):
+        return "fwd" if name.endswith("_fwd") else "bwd"
 
     def wide_shape(name, row):
         """The phase-4 (K6) or phase-8 (K7) shape whose numbers the row
         ``<name>_<row>`` of an instance above head dim 128 carries."""
-        return WIDE_ROW_SHAPES[row][int(name.startswith("flash_seg"))]
+        return WIDE_ROWS[kind(name)][row][int(name.startswith("flash_seg"))]
 
     def wide_entry(name, row):
         shape = wide_shape(name, row)
@@ -2330,17 +2399,14 @@ def main(argv=None) -> int:
 
     def wide_launches(name, row):
         """The launches of the instance in phase 13 (checks, timing and
-        trace): its route's counter over the paths at the head dims it
-        takes."""
-        route = "wide" if row == "wide" else "sm90_wide"
-
+        trace): its route's counter over the 16-bit paths at the head dims
+        it takes."""
         def takes(path):
             dp = K._flash_dim(path["shape"][3])
-            return {"wide": True, "sm90_wide": dp <= 256,
-                    "sm90_d320": dp == 320,
+            return {"sm90_wide": dp <= 256, "sm90_d320": dp == 320,
                     "sm90_split": 320 < dp <= 512,
-                    "sm90_deep": dp > 512}[row]
-        n = sum(p["path_launches"].get(f"{name}_{route}", 0) for p in wide
+                    "sm90_deep": dp > DEEP_ABOVE[kind(name)]}[row]
+        n = sum(p["path_launches"].get(f"{name}_sm90_wide", 0) for p in wide
                 if takes(p))
         check(n >= 1, f"{name}_{row} launched no time on the wide path")
         return n
@@ -2360,9 +2426,10 @@ def main(argv=None) -> int:
     def wide_row(name, row, line, source):
         entry = wide_entry(name, row)
         rows = seg_rows if name.startswith("flash_seg") else flash_rows
-        # the deep forward's other head dims
+        # the deep kernels' other head dims
         deep = ({"shapes": [e for e in rows[name]["shapes"]
-                            if e["shape"][-1] > 512]}
+                            if e["shape"][-1] > DEEP_ABOVE[kind(name)]
+                            and e["dtype"] != "float32"]}
                 if row == "sm90_deep" else {})
         return dict(
             name=f"{name}_{row}", route="cuda", source=f"{src}/{source}",
@@ -2458,12 +2525,10 @@ def main(argv=None) -> int:
         # above head dim 128, K6's and K7's functions: the Hopper kernels
         # at D 192 and 256, the Hopper forward at 320, O's columns split
         # over blocks at 384 to 512 and S summed over the depth's slabs
-        # above 512, and the mma.sync dk/dv and dq on bf16 and fp16 above
-        # 256
-        wide_row(name, row, line,
-                 "flash_attn.cu" if row == "wide" else flash_source(name))
+        # above 512, and the deep dk/dv and dq on bf16 and fp16 above 256
+        wide_row(name, row, line, flash_source(name))
         for name, line in zip(WIDE_KERNELS, (0, 0, 0, 169, 188, 194))
-        for row in WIDE_ROWS["fwd" if name.endswith("_fwd") else "bwd"]] + [
+        for row in WIDE_ROWS[kind(name)]] + [
         # adasum_combine_pallas's two passes
         dict(name=name, route="cuda", source=f"{src}/adasum.cu",
              replaces=f"horovod_tpu/ops/pallas_kernels.py:{line}",
@@ -2474,6 +2539,8 @@ def main(argv=None) -> int:
                   "fp32); shapes lists every size and dtype",
              **adasum_rows[name])
         for name, line in zip(ADASUM_KERNELS, (58, 77))]
+    log(f"profiler traces refused and taken again: {len(TRACE_LOST)} "
+        f"(try, kernel names seen): {TRACE_LOST}")
     print(json.dumps({"kernels": kernels, "img_per_s": img_s,
                       "img_per_s_windows": rates, "batch": args.batch,
                       "tokens_per_s": tok_s, "tokens_per_s_windows":

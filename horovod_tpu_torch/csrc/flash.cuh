@@ -3,21 +3,20 @@
 // flash_fwd_sm90.cu and flash_bwd_sm90.cu give the C entry points in
 // flash_attn.cu.
 //
-// The Hopper kernels (TMA and wgmma) take the forward at any D and every
-// input type (bf16 and fp16: 320, 384 and 512 have instances of their own,
-// and above 512 one kernel takes every D; fp32 on tf32 in groups of 64 or
-// 128 of O's columns), fp32 dk/dv and dq at any D (tf32, the output
-// columns in groups), and bf16 and fp16 dk/dv and dq at D = 64, 128, 192
-// or 256; the rest (bf16 and fp16 dk/dv and dq above 256) runs the tf32
-// mma.sync kernels of flash_attn.cu, whose run() routes a launch. D is 64,
-// 128 or a multiple of 64 above, the head dim of the kernel instance, which
-// run() derives from the views' own head dim Dr. Dr may be less (at least 2
-// and even; the forward runs 448 on 512): the Hopper kernels read them
+// The Hopper kernels (TMA and wgmma) take every launch: the forward at any
+// D and input type (bf16 and fp16: 320, 384 and 512 have instances of
+// their own, and above 512 one kernel takes every D; fp32 on tf32 in
+// groups of 64 or 128 of O's columns), fp32 dk/dv and dq at any D (tf32,
+// the output columns in groups), and bf16 and fp16 dk/dv and dq at D = 64,
+// 128, 192 or 256 and, above 256, on one deep kernel each (the output
+// columns in groups, S and dP summed over the depth's slabs). D is 64, 128
+// or a multiple of 64 above, the head dim of the kernel instance, which
+// run() derives from the views' own head dim Dr. Dr may be less (at least
+// 2 and even; the forward runs 448 on 512): the kernels read the views
 // through tensor maps whose inner dimension is Dr, which TMA fills with
-// zeros up to D, and store only columns below Dr; the mma.sync family
-// takes Dr = D (the wrapper pads its inputs with zeros). q has Tq rows and
-// k, v Tk rows. Causal means the library kernel's rule: key <= query by
-// absolute index.
+// zeros up to D, and store only columns below Dr. q has Tq rows and k, v Tk
+// rows. Causal means the library kernel's rule: key <= query by absolute
+// index.
 
 #pragma once
 

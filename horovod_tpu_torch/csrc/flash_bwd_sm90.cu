@@ -1,7 +1,8 @@
 // Flash attention backward for Hopper: K6c (dk, dv) and K6d (dq) of flash
 // attention, outputs in the input type, and K7b / K7c, ring attention's
-// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In), and dk/dv
-// and dq for fp32 inputs on tf32 (K6 and K7 alike, fp32 outputs).
+// per-segment backward, fp32 outputs; bf16 or fp16 inputs (In) at every
+// head dim, and dk/dv and dq for fp32 inputs on tf32 (K6 and K7 alike,
+// fp32 outputs).
 //
 // Replaces the custom-VJP backward of the Pallas kernels that
 // horovod_tpu/parallel/flash_attention.py:flash_attention_local takes from
@@ -125,6 +126,41 @@
 //   consumers need about 160 registers beside the 168 a thread of such a
 //   block launches with, and P^T's 16 KB a tile beside two slots of Q^T
 //   and dO^T leave no room for K and V resident above D 64.
+// - bf16 and fp16 dk/dv and dq above head dim 256 (DkdvDeep<kOut>,
+//   flash_bwd_dkdv_sm90_kernel_deep, and DqDeep<kOut>,
+//   flash_bwd_dq_sm90_kernel_deep: one instance each for every such D).
+//   wgmma's N is at most 256, and dK and dV at the whole D, or dQ beside S
+//   and dP, fit no register budget above 256, so the output columns go in
+//   groups over blocks (along blockIdx.x, as the tf32 kernels'): dK's and
+//   dV's in groups of 128 (one consumer holds both, 128 registers, beside
+//   S^T and dP^T, 64), dQ's in the fewest groups of 192 or 256, then the
+//   narrower (D 320 is 2 x 192, D 1024 4 x 256), beside S and dP. The
+//   16-bit deep forward's structure serves both (flash_fwd_sm90.cu's
+//   issue_s_deep): S^T and dP^T (S and dP) are summed over the depth's
+//   slabs of 64 columns through a TMA ring of slab slots, one commit group
+//   of eight m64n64k16 products a slab, a slot released once its group has
+//   retired. The group's products read its columns of the streamed
+//   operands, dO_g and Q_g (dk/dv) or K_g (dq), which are slabs of that
+//   same stream: the ring takes a tile's slabs in an order that puts the
+//   group's own last (SlabOrder), their slots stay until the group's
+//   products retire, and the products go slab by slab (four m64n64k16 a
+//   slab, the slot an MN-major B as stored, no transpose), each into its
+//   64 columns of the accumulator. So no operand is loaded twice, and a
+//   slot holds one slab of each streamed operand. K and V (dk/dv), or Q
+//   and dO (dq), stay resident at the whole depth while the group's slots
+//   and two more fit beside them (DeepPlan: to D 640 at dk/dv's 128, to
+//   576 at dq's 192, 512 at 256) and stream through the ring beside the
+//   others above. A block is a loading warp (one thread), for dk/dv a warp
+//   that writes each q tile's lse and di rows into slots of their own, and
+//   one consumer warpgroup, 256 threads launched with 255 registers. Each
+//   group computes S and dP again: 4 D + 4 kOut operations a visible pair
+//   a group against the ideal 8 D (dk/dv at D 320: 3 groups, 2.1 times).
+//   The tensor cores idle while the consumer forms P^T and dS^T (dS): the
+//   next tile's slabs may not overtake the group's kept slots. The wait
+//   for a slab, between the products of the previous one and its own, is
+//   warp-uniform (sm90::mbar_wait_warp): with a wait loop that may diverge
+//   there, ptxas serialized every product of the kernel (C7520), which
+//   ran slower.
 // - Only a tile that crosses the causal diagonal, or Tk in dq, runs the
 //   per-element mask; TMA zero-fills rows past Tq and Tk, whose outputs
 //   are never stored. A dk/dv block past every query (causal, Tk > Tq)
@@ -828,8 +864,9 @@ struct Tf32Plan {
 // in flight and its slot not released (as issue_s_deep). `ops(c, slot)`
 // gives slab c's four operands from its ring slot; j counts the slabs taken
 // from the ring.
+template <typename T>
 struct SdpOps {
-  const float *a_s, *b_s, *a_dp, *b_dp;
+  const T *a_s, *b_s, *a_dp, *b_dp;
 };
 
 template <typename Ops>
@@ -844,7 +881,7 @@ __device__ __forceinline__ void issue_sdp_tf32(float (&s)[32], float (&dp)[32],
   auto slab = [&](int c, bool first) {
     const int st = j % slots;
     sm90::mbar_wait(full + st, (j / slots) & 1);
-    const SdpOps o = ops(c, ring + st * slot_elems);
+    const SdpOps<float> o = ops(c, ring + st * slot_elems);
 #pragma unroll
     for (int kk = 0; kk < kCols32 / 8; ++kk) {
       sm90::Wgmma<64, float>::template ss<0, 0>(
@@ -914,9 +951,11 @@ __device__ __forceinline__ void row_stats(const Args& p, int b, int h,
   }
 }
 
-// One group's columns of an output view: from col0, its head dim less col0.
+// One group's columns of an output view of T: from col0, its head dim less
+// col0.
+template <typename T>
 __device__ __forceinline__ View group_view(View v, int col0) {
-  v.p = reinterpret_cast<float*>(v.p) + col0;
+  v.p = reinterpret_cast<T*>(v.p) + col0;
   return v;
 }
 
@@ -1058,9 +1097,9 @@ __device__ __forceinline__ void dq_consume_tf32(
   const float* dos = qs + n_slab * kSlab32;
   const bool stream = pl.stream;
   auto ops = [=](int c, const float* at) {
-    return SdpOps{stream ? at + 2 * kSlab32 : qs + c * kSlab32, at,
-                  stream ? at + 3 * kSlab32 : dos + c * kSlab32,
-                  at + kSlab32};
+    return SdpOps<float>{stream ? at + 2 * kSlab32 : qs + c * kSlab32, at,
+                         stream ? at + 3 * kSlab32 : dos + c * kSlab32,
+                         at + kSlab32};
   };
   const int slot = pl.slot_elems();
   float acc[kOut / 2];
@@ -1108,7 +1147,7 @@ __device__ __forceinline__ void dq_consume_tf32(
   sm90::fence_regs(acc);
   sm90::fence_regs(da);
   sm90::mbar_arrive(bar.kt_empty + last);
-  store_acc<kOut, float>(group_view(p.dq, col0), b, h, r_lo, p.Tq,
+  store_acc<kOut, float>(group_view<float>(p.dq, col0), b, h, r_lo, p.Tq,
                          p.Dr - col0, acc, p.scale, t);
 }
 
@@ -1348,9 +1387,9 @@ __device__ __forceinline__ void dkdv_consume_tf32(
     const float* vs = ks + n_slab * kSlab32;
     const bool stream = pl.stream;
     auto ops = [=](int c, const float* at) {
-      return SdpOps{stream ? at + 2 * kSlab32 : ks + c * kSlab32, at,
-                    stream ? at + 3 * kSlab32 : vs + c * kSlab32,
-                    at + kSlab32};
+      return SdpOps<float>{stream ? at + 2 * kSlab32 : ks + c * kSlab32,
+                           at, stream ? at + 3 * kSlab32 : vs + c * kSlab32,
+                           at + kSlab32};
     };
     const int slot = pl.slot_elems();
     float s[kBQ / 2], dp[kBQ / 2];
@@ -1445,9 +1484,9 @@ __device__ __forceinline__ void dkdv_consume_tf32(
     }
   }
   // a block past every query (causal) stores zeros
-  store_acc<kOut, float>(group_view(p.dv, col0), b, h, r_lo, p.Tk,
+  store_acc<kOut, float>(group_view<float>(p.dv, col0), b, h, r_lo, p.Tk,
                          p.Dr - col0, dv, 1.f, t);
-  store_acc<kOut, float>(group_view(p.dk, col0), b, h, r_lo, p.Tk,
+  store_acc<kOut, float>(group_view<float>(p.dk, col0), b, h, r_lo, p.Tk,
                          p.Dr - col0, dk, p.scale, t);
 }
 
@@ -1513,6 +1552,491 @@ flash_bwd_dkdv_sm90_tf32_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     dkdv_consume_tf32<kOut>(p, ks, ring, tt, stats, bar, b, h, kv0, q_first,
                             n_q, n_slab, pl, col0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and fp16 above head dim 256 (see the header)
+
+constexpr int kSlabElems = 64 * kSlab;   // a 16-bit slab of 64 rows: 8 KB
+constexpr int kMaxSlots16 = 8;           // ring slots of the deep kernels
+
+// The shared memory of a deep block: kFixed bytes of its own, and a pair of
+// operands resident at the whole depth (n_slab slabs each) while min_slots
+// ring slots of a pair of slabs fit beside them, else streamed, a ring slot
+// then holding those two slabs beside the streamed ones (Tf32Plan's rule).
+struct DeepPlan {
+  bool stream;
+  int slots, smem;
+  __host__ __device__ static DeepPlan make(int fixed, int n_slab,
+                                           int min_slots) {
+    const int rest = 232448 - fixed, pair = 2 * n_slab * kSlabElems * 2;
+    const bool stream = rest - pair < min_slots * 2 * kSlabElems * 2;
+    const int slot = (stream ? 4 : 2) * kSlabElems * 2;
+    int slots = (rest - (stream ? 0 : pair)) / slot;
+    slots = slots < kMaxSlots16 ? slots : kMaxSlots16;
+    return {stream, slots, fixed + (stream ? 0 : pair) + slots * slot};
+  }
+  // 16-bit elements of a ring slot
+  __host__ __device__ int slot_elems() const {
+    return (stream ? 4 : 2) * kSlabElems;
+  }
+};
+
+// The order in which a deep block takes the depth's slabs, for a group of
+// kG slabs of output columns from slab c0: the slabs after the group first,
+// wrapping around, so that the group's own slabs (`keep` of them: fewer
+// where the group runs past the views' columns) come last and can stay in
+// the ring for the group's products.
+struct SlabOrder {
+  int n_slab, keep, start;
+  __device__ SlabOrder(int n, int c0, int kG)
+      : n_slab(n), keep(min(kG, n - c0)), start(c0 + min(kG, n - c0)) {}
+  // the slab taken k-th
+  __device__ int at(int k) const {
+    const int c = start + k;
+    return c < n_slab ? c : c - n_slab;
+  }
+};
+
+// The deep kernels' barriers: the resident pair loaded (res_full); a ring
+// slot loaded (full, TMA) and released (empty, the consumer's 128 threads);
+// dk/dv's slot of a q tile's statistics written (t_full, a warp) and
+// released (t_empty).
+struct DeepBars {
+  uint64_t *res_full, *full, *empty, *t_full, *t_empty;
+};
+
+// S = A_s B_s^T and dP = A_dp B_dp^T (64 x 64 each) over the depth's slabs,
+// a commit group of eight products a slab, in the order `ops(k, slot)`
+// gives (SlabOrder): each slab's ring slot released once its group has
+// retired, but for the last `keep`, which stay until the caller releases
+// them; the last slab's group may be in flight on return (as
+// issue_sdp_tf32). j counts the slabs taken from the ring.
+template <typename In, typename Ops>
+__device__ __forceinline__ void issue_sdp_deep(float (&s)[32], float (&dp)[32],
+                                               const In* ring, int slot_elems,
+                                               const DeepBars& bar, int n_slab,
+                                               int keep, int slots, int& j,
+                                               Ops ops) {
+  // slab k's eight products, issued and committed; the first slab's start
+  // the sums (peeled off, so no product is issued under a branch)
+  auto slab = [&](int k, bool first) {
+    const int st = j % slots;
+    sm90::mbar_wait_warp(bar.full + st, (j / slots) & 1);
+    const SdpOps<In> o = ops(k, ring + st * slot_elems);
+#pragma unroll
+    for (int kk = 0; kk < kSlab / 16; ++kk) {
+      sm90::Wgmma<64, In>::template ss<0, 0>(
+          s, sm90::desc_k_major(o.a_s + kk * 16),
+          sm90::desc_k_major(o.b_s + kk * 16), !first || kk > 0);
+      sm90::Wgmma<64, In>::template ss<0, 0>(
+          dp, sm90::desc_k_major(o.a_dp + kk * 16),
+          sm90::desc_k_major(o.b_dp + kk * 16), !first || kk > 0);
+    }
+    sm90::wgmma_commit();
+    ++j;
+  };
+  slab(0, true);
+  for (int k = 1; k < n_slab; ++k) {
+    slab(k, false);
+    sm90::wgmma_wait<1>();   // slab k - 1's products have retired
+    if (k - 1 < n_slab - keep) sm90::mbar_arrive(bar.empty + (j - 2) % slots);
+  }
+}
+
+// acc += A B over a depth of 64 (four products): A in registers, B one slab
+// of 64 depth rows by 64 columns, MN-major; issued, not committed.
+template <typename In>
+__device__ __forceinline__ void issue_rs_slab(float (&acc)[32],
+                                              const uint32_t (&a)[4][4],
+                                              const In* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::Wgmma<64, In>::template rs<1>(
+        acc, a[kk], sm90::desc_mn_major(b + kk * 16 * kSlab, kSlabElems * 2),
+        1);
+}
+
+// The ring slot of the group's m-th slab, the tile's slabs taken (j counts
+// them to its last): the tile's last `keep`; a slab past the views' columns
+// is given the last one, whose products land in columns never stored.
+__device__ __forceinline__ int group_slot(int j, int keep, int m,
+                                          int slots) {
+  return (j - keep + min(m, keep - 1)) % slots;
+}
+
+// An accumulator of kG 64-column slabs as one of kG * 64 columns (the
+// layout is the same: 32 registers a slab).
+template <int kG>
+__device__ __forceinline__ auto flat(const float (&acc)[kG][32])
+    -> const float (&)[kG * 32] {
+  return *reinterpret_cast<const float(*)[kG * 32]>(acc[0]);
+}
+
+// The loading thread of a deep block: the pair (maps ra and rb, rows from
+// r_row) resident at the whole depth where DeepPlan says it fits, then
+// each of n_tiles tiles' slabs in SlabOrder: the streamed operands' (sa
+// and sb, rows from s_row0 + 64 i), and the pair's beside them where it
+// streams. dk/dv streams Q and dO over K and V, dq K and V over Q and dO.
+template <typename In>
+__device__ __forceinline__ void load_deep(
+    const CUtensorMap* ra, const CUtensorMap* rb, int r_row,
+    const CUtensorMap* sa, const CUtensorMap* sb, int s_row0, In* res,
+    In* ring, const DeepBars& bar, int b, int h, int n_tiles,
+    const SlabOrder& order, const DeepPlan& pl) {
+  const int n_slab = order.n_slab;
+  sm90::prefetch_tensor_map(ra);
+  sm90::prefetch_tensor_map(rb);
+  sm90::prefetch_tensor_map(sa);
+  sm90::prefetch_tensor_map(sb);
+  // streamed, the pair completes res_full with no bytes
+  sm90::mbar_arrive_expect_tx(bar.res_full,
+                              pl.stream ? 0 : 2 * n_slab * kSlabElems * 2);
+  if (!pl.stream) {
+    for (int c = 0; c < n_slab; ++c) {
+      sm90::tma_load_4d(res + c * kSlabElems, ra, bar.res_full, c * kSlab,
+                        r_row, h, b);
+      sm90::tma_load_4d(res + (n_slab + c) * kSlabElems, rb, bar.res_full,
+                        c * kSlab, r_row, h, b);
+    }
+  }
+  const int slot = pl.slot_elems();
+  int j = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int row = s_row0 + i * 64;
+    for (int k = 0; k < n_slab; ++k, ++j) {
+      const int c = order.at(k), st = j % pl.slots;
+      sm90::mbar_wait(bar.empty + st, ((j / pl.slots) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar.full + st, slot * 2);
+      In* dst = ring + st * slot;
+      sm90::tma_load_4d(dst, sa, bar.full + st, c * kSlab, row, h, b);
+      sm90::tma_load_4d(dst + kSlabElems, sb, bar.full + st, c * kSlab, row,
+                        h, b);
+      if (pl.stream) {
+        sm90::tma_load_4d(dst + 2 * kSlabElems, ra, bar.full + st,
+                          c * kSlab, r_row, h, b);
+        sm90::tma_load_4d(dst + 3 * kSlabElems, rb, bar.full + st,
+                          c * kSlab, r_row, h, b);
+      }
+    }
+  }
+}
+
+// Slab k's four operands of S (S^T) and dP (dP^T) in a deep block: the
+// pair's slabs c (resident, or the slot's third and fourth where the pair
+// streams) as A, the slot's first two (the streamed operands) as B.
+template <typename In>
+struct DeepOps {
+  SlabOrder order;
+  const In* res;
+  bool stream;
+  __device__ SdpOps<In> operator()(int k, const In* at) const {
+    const int c = order.at(k);
+    return {stream ? at + 2 * kSlabElems : res + c * kSlabElems, at,
+            stream ? at + 3 * kSlabElems
+                   : res + (order.n_slab + c) * kSlabElems,
+            at + kSlabElems};
+  }
+};
+
+// ---- dk / dv
+
+// The deep dk/dv's layout: a block of 64 kv rows and the kOut columns of dK
+// and dV from col0 (groups along blockIdx.x), q streamed in tiles of 64
+// rows. S^T and dP^T are summed over the depth's slabs through a ring whose
+// slot holds Q_c and dO_c (and K_c and V_c where K and V stream:
+// DeepPlan), the group's own slabs last and kept for its products; each q
+// tile's lse (log2 units, +inf past Tq) and di rows have slots of their
+// own. Warp 0 loads (one thread), warp 1 writes the statistics, warpgroup 1
+// consumes.
+template <int kOut_>
+struct DkdvDeep {
+  static constexpr int kOut = kOut_;
+  static constexpr int kGroupSlabs = kOut / kSlab;
+  static constexpr int kThreads = 256;
+  static constexpr int kTStages = 2;            // statistics slots
+  static constexpr int kStatFloats = 2 * kBQ;   // lse, then di, of a tile
+  // the statistics, the barriers and room to align the base to 1024 bytes
+  static constexpr int kFixed = kTStages * kStatFloats * 4 + 512 + 1024;
+  static_assert(kOut % kSlab == 0, "whole slabs of output columns");
+  // the group's slabs stay in the ring beside two that stream
+  __host__ __device__ static DeepPlan plan(int n_slab) {
+    return DeepPlan::make(kFixed, n_slab, kGroupSlabs + 2);
+  }
+};
+
+// One warp: each q tile's lse (log2 units; +inf past Tq, so P^T is 0 there)
+// and di rows into its statistics slot, then the warp's 32 arrivals.
+__device__ __forceinline__ void dkdv_stats_deep(const Args& p, float* stats,
+                                                const DeepBars& bar, int b,
+                                                int h, int q_first,
+                                                int n_q) {
+  const int lane = threadIdx.x % 32;
+  const float* lse = p.lse.p + b * p.lse.sb + h * p.lse.sh;
+  const float* di = p.di.p + b * p.di.sb + h * p.di.sh;
+  for (int i = 0; i < n_q; ++i) {
+    const int ts = i % 2, q0 = q_first + i * kBQ;
+    sm90::mbar_wait(bar.t_empty + ts, ((i / 2) & 1) ^ 1);
+    float* ls = stats + ts * 2 * kBQ;
+    for (int r = lane; r < kBQ; r += 32) {
+      const int q = q0 + r;
+      ls[r] = q < p.Tq ? lse[q] * kLog2e : INFINITY;
+      ls[kBQ + r] = q < p.Tq ? di[q] : 0.f;
+    }
+    sm90::mbar_arrive(bar.t_full + ts);
+  }
+}
+
+// The consumer: dK and dV of the block's 64 kv rows and kOut columns over
+// every q tile: S^T and dP^T over the depth, P^T and dS^T in place, then
+// dV += P^T dO_g and dK += dS^T Q_g, the q tile's slabs of the group's
+// columns from the ring as MN-major B operands, slab by slab.
+template <int kOut, typename In, typename OutT>
+__device__ __forceinline__ void dkdv_consume_deep(
+    const Args& p, const In* ks, const In* ring, const float* stats,
+    const DeepBars& bar, int b, int h, int kv0, int q_first, int n_q,
+    const SlabOrder& order, const DeepPlan& pl, int col0) {
+  constexpr int kG = DkdvDeep<kOut>::kGroupSlabs;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3, r_lo = kv0 + 16 * warp + (lane >> 2);
+  float dv[kG][32], dk[kG][32];
+#pragma unroll
+  for (int m = 0; m < kG; ++m)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dv[m][e] = dk[m][e] = 0.f;
+  if (n_q > 0) {
+    const float sl2 = p.scale * kLog2e;
+    const int n_slab = order.n_slab, keep = order.keep;
+    const DeepOps<In> ops{order, ks, pl.stream};   // K_c, Q_c, V_c, dO_c
+    const int slot = pl.slot_elems();
+    int j = 0;   // slabs taken from the ring
+    sm90::mbar_wait(bar.res_full, 0);
+    for (int i = 0; i < n_q; ++i) {
+      const int ts = i % 2, q0 = q_first + i * kBQ;
+      float s[kBQ / 2], dp[kBQ / 2];
+      sm90::wgmma_fence();
+      issue_sdp_deep(s, dp, ring, slot, bar, n_slab, keep, pl.slots, j, ops);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::mbar_wait(bar.t_full + ts, (i / 2) & 1);
+      dkdv_p_ds(s, dp, stats + ts * 2 * kBQ, sl2,
+                p.causal && kv0 + kKV - 1 > q0, q0, r_lo, t);
+      sm90::mbar_arrive(bar.t_empty + ts);
+      uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+      sm90::to_operand<In>(s, pa);
+      sm90::to_operand<In>(dp, da);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int m = 0; m < kG; ++m) {
+        const In* g = ring + group_slot(j, keep, m, pl.slots) * slot;
+        issue_rs_slab(dv[m], pa, g + kSlabElems);   // dO_c
+        issue_rs_slab(dk[m], da, g);                // Q_c
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < kG; ++m) {
+        sm90::fence_regs(dv[m]);
+        sm90::fence_regs(dk[m]);
+      }
+      sm90::fence_regs(pa);
+      sm90::fence_regs(da);
+      for (int m = 0; m < keep; ++m)
+        sm90::mbar_arrive(bar.empty + (j - keep + m) % pl.slots);
+    }
+  }
+  // a block past every query (causal) stores zeros
+  store_acc<kOut, OutT>(group_view<OutT>(p.dv, col0), b, h, r_lo, p.Tk,
+                        p.Dr - col0, flat(dv), 1.f, t);
+  store_acc<kOut, OutT>(group_view<OutT>(p.dk, col0), b, h, r_lo, p.Tk,
+                        p.Dr - col0, flat(dk), p.scale, t);
+}
+
+template <int kOut, typename In, typename OutT>
+__global__ void __launch_bounds__(DkdvDeep<kOut>::kThreads, 1)
+flash_bwd_dkdv_sm90_kernel_deep(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const Args p) {
+  using C = DkdvDeep<kOut>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_slab = (p.Dr + kSlab - 1) / kSlab;
+  const DeepPlan pl = C::plan(n_slab);
+  In* ring = reinterpret_cast<In*>(base);
+  In* ks = ring + pl.slots * pl.slot_elems();   // resident K, then V
+  float* stats = reinterpret_cast<float*>(
+      ks + (pl.stream ? 0 : 2 * n_slab * kSlabElems));
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(stats + C::kTStages * C::kStatFloats);
+  constexpr int kM = kMaxSlots16;
+  const DeepBars bar{bars, bars + 1, bars + 1 + kM, bars + 1 + 2 * kM,
+                     bars + 1 + 2 * kM + C::kTStages};
+
+  const int groups = (p.Dr + kOut - 1) / kOut;
+  const int bh = blockIdx.x / groups, b = bh / p.H, h = bh % p.H;
+  const int col0 = blockIdx.x % groups * kOut;
+  // the first kv rows see the most q tiles (causal): they start first
+  const int kv0 = blockIdx.y * kKV;
+  // causal: key <= query, so the q tiles from the one holding row kv0 on
+  const int q_first = p.causal ? (kv0 / kBQ) * kBQ : 0;
+  const int n_q = q_first < p.Tq ? (p.Tq - q_first + kBQ - 1) / kBQ : 0;
+  const SlabOrder order(n_slab, col0 / kSlab, C::kGroupSlabs);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.res_full, 1);
+    for (int s = 0; s < pl.slots; ++s) {
+      sm90::mbar_init(bar.full + s, 1);
+      sm90::mbar_init(bar.empty + s, 128);
+    }
+    for (int s = 0; s < C::kTStages; ++s) {
+      sm90::mbar_init(bar.t_full + s, 32);
+      sm90::mbar_init(bar.t_empty + s, 128);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  // a block past every query loads nothing
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0 && n_q > 0)
+      load_deep(&tk, &tv, kv0, &tq, &tdo, q_first, ks, ring, bar, b, h, n_q,
+                order, pl);
+  } else if (threadIdx.x < 64) {
+    if (n_q > 0) dkdv_stats_deep(p, stats, bar, b, h, q_first, n_q);
+  } else if (threadIdx.x >= 128) {
+    dkdv_consume_deep<kOut, In, OutT>(p, ks, ring, stats, bar, b, h, kv0,
+                                      q_first, n_q, order, pl, col0);
+  }
+}
+
+// ---- dq
+
+// The deep dq's layout: a block of 64 q rows and the kOut columns of dQ
+// from col0, S and dP summed over the depth's slabs through a ring whose
+// slot holds K_c and V_c (and Q_c and dO_c where Q and dO stream:
+// DeepPlan), the group's own slabs last and kept for dQ += dS K_g. Warp 0
+// loads (one thread), warpgroup 1 consumes.
+template <int kOut_>
+struct DqDeep {
+  static constexpr int kOut = kOut_;
+  static constexpr int kGroupSlabs = kOut / kSlab;
+  static constexpr int kThreads = 256;
+  static constexpr int kBQ = 64;
+  // the barriers and room to align the base to 1024 bytes
+  static constexpr int kFixed = 512 + 1024;
+  static_assert(kOut % kSlab == 0, "whole slabs of output columns");
+  __host__ __device__ static DeepPlan plan(int n_slab) {
+    return DeepPlan::make(kFixed, n_slab, kGroupSlabs + 2);
+  }
+};
+
+// The consumer: dQ of the block's 64 q rows and kOut columns over every kv
+// tile: S and dP over the depth, dS in place of dP, then dQ += dS K_g, the
+// kv tile's slabs of the group's columns from the ring, slab by slab.
+template <int kOut, typename In, typename OutT>
+__device__ __forceinline__ void dq_consume_deep(
+    const Args& p, const In* qs, const In* ring, const DeepBars& bar, int b,
+    int h, int q0, int n_kv, const SlabOrder& order, const DeepPlan& pl,
+    int col0) {
+  constexpr int kG = DqDeep<kOut>::kGroupSlabs;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int r_lo = q0 + 16 * warp + (lane >> 2);
+  const float sl2 = p.scale * kLog2e;
+  float lse_r[2], di_r[2];
+  row_stats(p, b, h, r_lo, lse_r, di_r);
+  auto mask = [&](int kv0) {
+    return kv0 + kBK > p.Tk || (p.causal && kv0 + kBK - 1 > q0);
+  };
+  const int n_slab = order.n_slab, keep = order.keep;
+  const DeepOps<In> ops{order, qs, pl.stream};   // Q_c, K_c, dO_c, V_c
+  const int slot = pl.slot_elems();
+  float acc[kG][32];
+#pragma unroll
+  for (int m = 0; m < kG; ++m)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[m][e] = 0.f;
+  int j = 0;   // slabs taken from the ring
+  sm90::mbar_wait(bar.res_full, 0);
+  for (int i = 0; i < n_kv; ++i) {
+    float s[kBK / 2], dp[kBK / 2];
+    sm90::wgmma_fence();
+    issue_sdp_deep(s, dp, ring, slot, bar, n_slab, keep, pl.slots, j, ops);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::fence_regs(dp);
+    dq_ds(s, dp, lse_r, di_r, sl2, mask(i * kBK), i * kBK, r_lo, t, p.Tk,
+          p.causal);
+    uint32_t da[kBK / 16][4];
+    sm90::to_operand<In>(dp, da);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < kG; ++m)   // K_c of the group's slabs
+      issue_rs_slab(acc[m], da,
+                    ring + group_slot(j, keep, m, pl.slots) * slot);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < kG; ++m) sm90::fence_regs(acc[m]);
+    sm90::fence_regs(da);
+    for (int m = 0; m < keep; ++m)
+      sm90::mbar_arrive(bar.empty + (j - keep + m) % pl.slots);
+  }
+  store_acc<kOut, OutT>(group_view<OutT>(p.dq, col0), b, h, r_lo, p.Tq,
+                        p.Dr - col0, flat(acc), p.scale, t);
+}
+
+template <int kOut, typename In, typename OutT>
+__global__ void __launch_bounds__(DqDeep<kOut>::kThreads, 1)
+flash_bwd_dq_sm90_kernel_deep(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const Args p) {
+  using C = DqDeep<kOut>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_slab = (p.Dr + kSlab - 1) / kSlab;
+  const DeepPlan pl = C::plan(n_slab);
+  In* ring = reinterpret_cast<In*>(base);
+  In* qs = ring + pl.slots * pl.slot_elems();   // resident Q, then dO
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      qs + (pl.stream ? 0 : 2 * n_slab * kSlabElems));
+  constexpr int kM = kMaxSlots16;
+  const DeepBars bar{bars, bars + 1, bars + 1 + kM, nullptr, nullptr};
+
+  const int groups = (p.Dr + kOut - 1) / kOut;
+  const int bh = blockIdx.x / groups, b = bh / p.H, h = bh % p.H;
+  const int col0 = blockIdx.x % groups * kOut;
+  // causal: the longest rows first, so the last wave is short
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBQ;
+  const int kv_end = p.causal ? min(p.Tk, q0 + C::kBQ) : p.Tk;
+  const int n_kv = (kv_end + kBK - 1) / kBK;
+  const SlabOrder order(n_slab, col0 / kSlab, C::kGroupSlabs);
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar.res_full, 1);
+    for (int s = 0; s < pl.slots; ++s) {
+      sm90::mbar_init(bar.full + s, 1);
+      sm90::mbar_init(bar.empty + s, 128);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0)
+      load_deep(&tq, &tdo, q0, &tk, &tv, 0, qs, ring, bar, b, h, n_kv, order,
+                pl);
+  } else {
+    dq_consume_deep<kOut, In, OutT>(p, qs, ring, bar, b, h, q0, n_kv, order,
+                                    pl, col0);
   }
 }
 
@@ -1594,9 +2118,49 @@ cudaError_t dkdv_tf32(const Args& a, cudaStream_t stream) {
                        a, stream, (a.Dr + kOut - 1) / kOut);
 }
 
+// bf16 and fp16 above head dim 256: the deep kernels, the output columns
+// in groups along blockIdx.x: dK's and dV's in groups of 128, dQ's in the
+// fewest groups of 192 or 256, then the narrower (D 320: 2 x 192).
+template <int kOut, typename In, typename OutT>
+cudaError_t dkdv_deep(const Args& a, cudaStream_t stream) {
+  using C = DkdvDeep<kOut>;
+  const int n_slab = (a.Dr + kSlab - 1) / kSlab;
+  return launch<In>(flash_bwd_dkdv_sm90_kernel_deep<kOut, In, OutT>,
+                    C::kThreads, C::plan(n_slab).smem, kBQ, kKV,
+                    (a.Tk + kKV - 1) / kKV, a, stream,
+                    (a.Dr + kOut - 1) / kOut);
+}
+
+template <int kOut, typename In, typename OutT>
+cudaError_t dq_deep(const Args& a, cudaStream_t stream) {
+  using C = DqDeep<kOut>;
+  const int n_slab = (a.Dr + kSlab - 1) / kSlab;
+  return launch<In>(flash_bwd_dq_sm90_kernel_deep<kOut, In, OutT>,
+                    C::kThreads, C::plan(n_slab).smem, C::kBQ, kBK,
+                    (a.Tq + C::kBQ - 1) / C::kBQ, a, stream,
+                    (a.Dr + kOut - 1) / kOut);
+}
+
+template <typename In, typename OutT>
+struct DkdvAbove256 {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return dkdv_deep<128, In, OutT>(a, s);
+  }
+};
+
+template <typename In, typename OutT>
+struct DqAbove256 {
+  static cudaError_t run(const Args& a, cudaStream_t s) {
+    return (a.Dr + 191) / 192 <= (a.Dr + 255) / 256
+               ? dq_deep<192, In, OutT>(a, s)
+               : dq_deep<256, In, OutT>(a, s);
+  }
+};
+
 // The instance for the arguments' head dim, input type and output type:
-// D 64, 128, 192 and 256 (the caller routes no other).
-template <template <int, typename, typename> class F, typename In,
+// D 64, 128, 192 and 256, and the deep kernel (Deep) above 256.
+template <template <int, typename, typename> class F,
+          template <typename, typename> class Deep, typename In,
           typename OutT>
 cudaError_t pick_d(const Args& a, cudaStream_t stream) {
   switch (a.D) {
@@ -1608,19 +2172,20 @@ cudaError_t pick_d(const Args& a, cudaStream_t stream) {
       return F<192, In, OutT>::run(a, stream);
     case 256:
       return F<256, In, OutT>::run(a, stream);
-    default:
-      return cudaErrorInvalidValue;
+    default:   // run() gives a multiple of 64 above 128
+      return Deep<In, OutT>::run(a, stream);
   }
 }
 
-template <template <int, typename, typename> class F>
+template <template <int, typename, typename> class F,
+          template <typename, typename> class Deep>
 cudaError_t pick(const Args& a, cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
   if (a.dtype == flash::kF16)
-    return a.out_f32 ? pick_d<F, __half, float>(a, stream)
-                     : pick_d<F, __half, __half>(a, stream);
-  return a.out_f32 ? pick_d<F, bf16, float>(a, stream)
-                   : pick_d<F, bf16, bf16>(a, stream);
+    return a.out_f32 ? pick_d<F, Deep, __half, float>(a, stream)
+                     : pick_d<F, Deep, __half, __half>(a, stream);
+  return a.out_f32 ? pick_d<F, Deep, bf16, float>(a, stream)
+                   : pick_d<F, Deep, bf16, bf16>(a, stream);
 }
 
 }  // namespace
@@ -1628,14 +2193,14 @@ cudaError_t pick(const Args& a, cudaStream_t stream) {
 namespace flash {
 
 // (dk, dv) under the given lse and di, over [B, H, T, Dr] views: bf16 or
-// fp16 on the instance of head dim D = 64, 128, 192 or 256, outputs in the
-// input type or fp32 (out_f32); fp32 at any D on the tf32 kernel, dK's and
-// dV's columns in one group of 64 at D 64, else in groups of 128, outputs
-// fp32.
+// fp16 on the instance of head dim D = 64, 128, 192 or 256, above 256 on the
+// deep kernel, outputs in the input type or fp32 (out_f32); fp32 at any D
+// on the tf32 kernel, dK's and dV's columns in one group of 64 at D 64,
+// else in groups of 128, outputs fp32.
 cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
   if (a.dtype == kF32)
     return a.D == 64 ? dkdv_tf32<64>(a, stream) : dkdv_tf32<128>(a, stream);
-  return pick<Dkdv>(a, stream);
+  return pick<Dkdv, DkdvAbove256>(a, stream);
 }
 
 // dq under the given lse and di: bf16 or fp16 as bwd_dkdv_sm90, and fp32 at
@@ -1644,7 +2209,7 @@ cudaError_t bwd_dkdv_sm90(const Args& a, cudaStream_t stream) {
 cudaError_t bwd_dq_sm90(const Args& a, cudaStream_t stream) {
   if (a.dtype == kF32)
     return a.D == 64 ? dq_tf32<64>(a, stream) : dq_tf32<128>(a, stream);
-  return pick<Dq>(a, stream);
+  return pick<Dq, DqAbove256>(a, stream);
 }
 
 }  // namespace flash

@@ -98,6 +98,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait with every branch warp-uniform (votes over the warp's lanes):
+// for a wait between asynchronous products, where ptxas serializes every
+// wgmma of the function (C7520) if the wait's loop may diverge.
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar,
+                                               uint32_t parity) {
+  if (__all_sync(0xffffffffu, mbar_try_wait(bar, parity))) return;
+  const uint64_t t0 = globaltimer_ns();
+  while (!__all_sync(0xffffffffu, mbar_try_wait(bar, parity))) {
+    if (__any_sync(0xffffffffu, globaltimer_ns() - t0 > kWatchdogNs))
+      __trap();
+  }
+}
+
 // Orders this thread's writes to shared memory (the generic proxy) before
 // later reads of it by wgmma or TMA (the async proxy): a thread that writes
 // an operand runs it before it arrives on the barrier the products wait on.

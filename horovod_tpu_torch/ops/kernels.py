@@ -21,18 +21,18 @@ jax's flash backward       ``flash_bwd_sm90.cu``  :func:`flash_bwd_pre`,
                                                   :func:`flash_seg_bwd_dq`
 =========================  =====================  ========================
 
-The attention kernels take bf16 and fp16 at head dims 64 and 128 (and
-those below, built at them) on the Hopper kernels above, dk/dv and dq also
-at 192 and 256 (160 is built at 192), and the forward at every head dim
-(320, 384 and 512 have instances of their own, 288 is built at 320 and
-448 runs on 512, and one kernel takes every head dim above 512); fp32 at
-any head dim and bf16 and fp16 dk/dv and dq above 256 run
-``flash_attn.cu``'s mma.sync family (which also holds di and the C entry
-points). :func:`flash_route` says which. The Hopper
-kernels read a head dim below their instance's in place (16, 80, 96, 160,
-288 of a ``[B, T, H, D]`` tensor, and any even one whose strides TMA
-takes); elsewhere the wrapper copies the inputs zero-padded and counts the
-copy (:func:`flash_needs_copy`, ``<wrapper>_pad_copies``).
+The attention kernels are Hopper kernels (TMA, ``wgmma``) at every head
+dim and dtype: bf16 and fp16 at head dims 64 and 128 (and those below,
+built at them), 192 and 256 (160 is built at 192), the forward also at
+320, 384 and 512 (288 is built at 320 and 448 runs on 512), and one
+forward, one dk/dv and one dq kernel take every head dim above theirs
+(512 for the forward, 256 for dk/dv and dq); fp32 at any head dim on tf32
+``wgmma``. ``flash_attn.cu`` holds di and the C entry points.
+:func:`flash_route` says which route a launch takes. The kernels read a
+head dim below their instance's in place (16, 80, 96, 160, 288 of a
+``[B, T, H, D]`` tensor, and any even one whose strides TMA takes);
+elsewhere the wrapper copies the inputs zero-padded and counts the copy
+(:func:`flash_needs_copy`, ``<wrapper>_pad_copies``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``, same module) for
 a tensor that lies on the CPU, and only then. For a CUDA tensor it checks
@@ -531,26 +531,18 @@ adasum_scale.launches = 0
 # needs, it is the same kernel. Any head dim runs on the kernel instance
 # built for the next of FLASH_HEAD_DIMS (D <= 128) or the next multiple of
 # 64: zero columns change neither q kᵀ nor the softmax. The Hopper kernels
-# (TMA, wgmma) run the forward at every head dim and dtype, fp32 dk/dv and
-# dq at every head dim (tf32), and bf16 and fp16 dk/dv and dq up to
-# SM90_BWD_MAX_DIM; they read a narrower view in place (TMA fills the
-# columns past its D with zeros) and store its D columns, so the outputs
-# are allocated at the real D, laid out as the inputs. The rest (bf16 and
-# fp16 dk/dv and dq above SM90_BWD_MAX_DIM) runs ``flash_attn.cu``'s
-# mma.sync family, which splits D into slices of 128 output columns
-# (:func:`flash_route`) and reads the built width: its inputs, and views
-# TMA cannot take, are copied zero-padded and the outputs sliced back
-# (:func:`flash_needs_copy`, counted in ``pad_copies``).
+# (TMA, wgmma) run every launch: the forward, dk/dv and dq at every head
+# dim and dtype (fp32 on tf32; above 256 the 16-bit dk/dv and dq split
+# their output columns over blocks and sum S and dP over the depth's
+# slabs, as the forward does above 512). They read a narrower view in
+# place (TMA fills the columns past its D with zeros) and store its D
+# columns, so the outputs are allocated at the real D, laid out as the
+# inputs; only a view TMA cannot take below a built head dim is copied
+# zero-padded and the outputs sliced back (:func:`flash_needs_copy`,
+# counted in ``pad_copies``).
 
 FLASH_HEAD_DIMS = (64, 128)      # the head dims of every Hopper kernel
 _FLASH_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-# the largest head dim of the Hopper dk/dv and dq for bf16 and fp16
-# (``flash_attn.cu``'s kBwdMaxD): wgmma's N is at most 256, and their dK/dV
-# and dQ beside S and dP fit no register budget above it yet. fp32 has no
-# largest one (its dk/dv and dq split the output columns over blocks), nor
-# has the forward: its O is split (two accumulators at 320, over blocks
-# from 384 on) and above 512 its S is summed over the depth's slabs.
-SM90_BWD_MAX_DIM = 256
 
 
 def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
@@ -647,19 +639,15 @@ def flash_needs_copy(kernel: str, *ts) -> bool:
     ([B, H, T, D] views of one dtype and D) zero-padded to the built head
     dim (:func:`_flash_dim`) before its launch; a function of their shape,
     strides, dtype and address alone. Never at a built head dim. Below it:
-    the Hopper kernels (routes "sm90", "sm90_wide", "sm90_tf32") read an
-    even D in place where TMA takes every view (:func:`flash_strides_ok`),
-    as a [B, T, H, D] tensor whose D is a multiple of 8 (fp32: 4) is; the
-    mma.sync family ("wide") reads the built width and always copies; di
-    (``flash_bwd_pre``) reads pairs below D and copies an odd D or
-    misaligned pairs."""
+    the Hopper kernels (every route) read an even D in place where TMA
+    takes every view (:func:`flash_strides_ok`), as a [B, T, H, D] tensor
+    whose D is a multiple of 8 (fp32: 4) is; di (``flash_bwd_pre``) reads
+    pairs below D and copies an odd D or misaligned pairs."""
     d = ts[0].shape[-1]
     if d == _flash_dim(d):
         return False
     if kernel == "flash_bwd_pre":
         return d % 2 != 0 or not all(_pairs_ok(t) for t in ts)
-    if flash_route(ts[0].dtype, d, kernel) == "wide":
-        return True
     return d % 2 != 0 or not all(flash_strides_ok(t) for t in ts)
 
 
@@ -667,14 +655,13 @@ def flash_grad_in(do: torch.Tensor, kernel: str) -> torch.Tensor:
     """An incoming gradient ``do`` ([B, H, T, D]) as the backward wrappers
     (``kernel``: dk/dv's name) should get it: itself where TMA takes it
     (:func:`flash_strides_ok`) or where they copy it anyway, zero-padded
-    (:func:`flash_needs_copy`: the mma.sync route, or a head dim below a
-    built one that is no multiple of 16 bytes, whose contiguous copy TMA
-    takes no more); else one contiguous copy (of a gradient expanded from
-    a sum, say), which they read in place."""
+    (:func:`flash_needs_copy`: a head dim below a built one that is no
+    multiple of 16 bytes, whose contiguous copy TMA takes no more); else
+    one contiguous copy (of a gradient expanded from a sum, say), which
+    they read in place."""
     d = do.shape[-1]
-    if flash_strides_ok(do) or (d != _flash_dim(d) and (
-            d % (16 // do.element_size()) != 0
-            or flash_route(do.dtype, d, kernel) == "wide")):
+    if flash_strides_ok(do) or (d != _flash_dim(d)
+                                and d % (16 // do.element_size()) != 0):
         return do
     return do.clone(memory_format=torch.contiguous_format)
 
@@ -752,35 +739,30 @@ def _strides(*ts) -> ctypes.Array:
 
 def flash_route(dtype: torch.dtype, d: int, kernel: str) -> str:
     """The kernel that a K6/K7 wrapper (``kernel``, its name) launches on
-    the card for inputs of ``dtype`` and head dim ``d``: "sm90", the Hopper
-    kernels (bf16 and fp16 at head dims built at 64 or 128); "sm90_wide",
-    the same kernels above 128: the forward at every head dim, dk/dv and
-    dq at 192 and 256 (up to SM90_BWD_MAX_DIM); "wide",
-    ``flash_attn.cu``'s mma.sync family on bf16 and fp16 dk/dv and dq above
-    256; "sm90_tf32", the Hopper kernels on fp32 (tf32 ``wgmma``): every
-    wrapper at every head dim. ``wgmma``'s N is at most 256: the forward's
-    O at 320 is two accumulators and above it split over blocks, fp32's
-    dK/dV and dQ are split over blocks, and the 16-bit dK/dV and dQ above
-    256 fit no register budget yet."""
-    if kernel not in MMA_KERNELS_BY_NAME:
-        raise ValueError(f"flash_route: {kernel!r} is not a K6/K7 wrapper "
-                         f"with a route ({', '.join(MMA_KERNELS_BY_NAME)})")
+    the card for inputs of ``dtype`` and head dim ``d``, every one a Hopper
+    kernel (TMA, ``wgmma``): "sm90" for bf16 and fp16 at head dims built at
+    64 or 128; "sm90_wide" above 128: the forward at every head dim (deep
+    above 512), dk/dv and dq at 192 and 256 and, above 256, on the deep
+    kernels (the output columns split over blocks, S and dP summed over
+    the depth's slabs: ``wgmma``'s N is at most 256); "sm90_tf32" on fp32
+    (tf32 ``wgmma``): every wrapper at every head dim."""
+    if kernel not in ROUTED_KERNELS_BY_NAME:
+        raise ValueError(
+            f"flash_route: {kernel!r} is not a K6/K7 wrapper with a route "
+            f"({', '.join(ROUTED_KERNELS_BY_NAME)})")
     if dtype not in _FLASH_DTYPES:
         raise ValueError(f"flash_route: dtype {dtype} not supported")
     if dtype == torch.float32:
         return "sm90_tf32"
-    dp = _flash_dim(d)
-    if dp <= FLASH_HEAD_DIMS[-1]:
+    if _flash_dim(d) <= FLASH_HEAD_DIMS[-1]:
         return "sm90"
-    if kernel.endswith("_fwd") or dp <= SM90_BWD_MAX_DIM:
-        return "sm90_wide"
-    return "wide"
+    return "sm90_wide"
 
 
 def _launched(fn, dtype: torch.dtype, dp: int):
     """One launch of ``fn``'s kernel, also counted by its route apart from
     the Hopper kernels at 64 and 128 (:func:`flash_route`): in
-    ``sm90_wide_launches``, ``wide_launches`` or ``sm90_tf32_launches``."""
+    ``sm90_wide_launches`` or ``sm90_tf32_launches``."""
     fn.launches += 1
     route = flash_route(dtype, dp, fn.__name__)
     if route != "sm90":
@@ -1045,39 +1027,35 @@ flash_seg_bwd_dq.launches = 0
 KERNELS = (pack, bn_stats, bn_bwd_stats, adasum_triple, adasum_scale,
            flash_fwd, flash_bwd_pre, flash_bwd_dkdv, flash_bwd_dq,
            flash_seg_fwd, flash_seg_bwd_dkdv, flash_seg_bwd_dq)
-# wrappers whose launches also run a route of their own (flash_route): the
-# mma.sync family on bf16 and fp16 (wide), the Hopper kernels above head
-# dim 128 (sm90_wide) and on fp32 (sm90_tf32)
-MMA_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
-               flash_seg_bwd_dkdv, flash_seg_bwd_dq)
-MMA_KERNELS_BY_NAME = {k.__name__: k for k in MMA_KERNELS}
+# wrappers whose launches also count by route (flash_route): the Hopper
+# kernels above head dim 128 (sm90_wide) and on fp32 (sm90_tf32)
+ROUTED_KERNELS = (flash_fwd, flash_bwd_dkdv, flash_bwd_dq, flash_seg_fwd,
+                  flash_seg_bwd_dkdv, flash_seg_bwd_dq)
+ROUTED_KERNELS_BY_NAME = {k.__name__: k for k in ROUTED_KERNELS}
 # wrappers that copy inputs their kernel cannot read in place
 # (flash_needs_copy), counted in ``pad_copies``
-PADDING_KERNELS = MMA_KERNELS + (flash_bwd_pre,)
+PADDING_KERNELS = ROUTED_KERNELS + (flash_bwd_pre,)
 
 
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
-    for k in MMA_KERNELS:
-        k.wide_launches = k.sm90_wide_launches = k.sm90_tf32_launches = 0
+    for k in ROUTED_KERNELS:
+        k.sm90_wide_launches = k.sm90_tf32_launches = 0
     for k in PADDING_KERNELS:
         k.pad_copies = 0
 
 
 def launch_counts() -> dict:
     """Launches by wrapper (every dtype and head dim), and by route
-    (:func:`flash_route`): ``<wrapper>_wide``, the mma.sync family on bf16
-    and fp16 (dk/dv and dq above head dim 256; the forwards' stay 0);
-    ``<wrapper>_sm90_wide``, the Hopper kernels above 128 (the forward at
-    every head dim, dk/dv and dq at 192 and 256); ``<wrapper>_sm90_tf32``,
-    the Hopper kernels on fp32 (every wrapper at every head dim).
-    ``<wrapper>_pad_copies``
-    counts the calls of a K6/K7 wrapper (di included) that copied their
-    inputs zero-padded (:func:`flash_needs_copy`) before the launch."""
+    (:func:`flash_route`): ``<wrapper>_sm90_wide``, the Hopper kernels on
+    bf16 and fp16 above 128 (every wrapper at every head dim);
+    ``<wrapper>_sm90_tf32``, the Hopper kernels on fp32 (every wrapper at
+    every head dim). ``<wrapper>_pad_copies`` counts the calls of a K6/K7
+    wrapper (di included) that copied their inputs zero-padded
+    (:func:`flash_needs_copy`) before the launch."""
     counts = {k.__name__: k.launches for k in KERNELS}
-    for k in MMA_KERNELS:
-        counts[f"{k.__name__}_wide"] = k.wide_launches
+    for k in ROUTED_KERNELS:
         counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches
         counts[f"{k.__name__}_sm90_tf32"] = k.sm90_tf32_launches
     for k in PADDING_KERNELS:

@@ -4,17 +4,14 @@ The port's counterpart of ``horovod_tpu/parallel/flash_attention.py``
 (:189-228): :func:`flash_attention_local` computes causal or full softmax
 attention with scale 1/sqrt(D) through kernel K6 (the online-softmax
 forward, ``csrc/flash_fwd_sm90.cu``, and a backward of three launches
-under the saved lse, ``csrc/flash_bwd_sm90.cu``: TMA and wgmma, the
-forward at every head dim, fp32 (on tf32) at every head dim, the 16-bit
-backward up to 256; ``csrc/flash_attn.cu``'s tf32 mma.sync kernels for
-bf16 and fp16 dk/dv and dq above 256: ``ops.kernels.flash_route``). On a CUDA
+under the saved lse, ``csrc/flash_bwd_sm90.cu``: TMA and wgmma at every
+head dim and dtype, fp32 on tf32: ``ops.kernels.flash_route``). On a CUDA
 tensor it always launches K6, in both layouts, for what the reference
 computes: bf16, fp16 or fp32 inputs, any head dim (the Hopper kernels are
-built for 64, 128, 192 and 256, the forward also for 320, 384 and 512 and
-one kernel above 512 for every multiple of 64, and read a head dim below
-those in place, the columns past it as zeros; the mma.sync kernels take a
-copy zero-padded to a multiple of 64 in slices of 128 output columns:
-``ops.kernels.flash_needs_copy``), and
+built for 64, 128, 192 and 256, the forward also for 320, 384 and 512,
+and one forward, dk/dv and dq kernel for every multiple of 64 above
+those, and read a head dim below their instance's in place, the columns
+past it as zeros: ``ops.kernels.flash_needs_copy``), and
 q and k/v of any lengths >= 1, different ones
 included (causal: key <= query by absolute index, the library kernel's
 rule). On a CPU tensor it runs K6's plain PyTorch versions, which

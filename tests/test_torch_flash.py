@@ -266,11 +266,12 @@ def test_flash_causal_attention_of_different_lengths_follows_library_rule(
                                1024])
 def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
     """Head dims above 128 (160 padded to 192, 192 and 256: the Hopper wide
-    kernels on the card; 288 padded to 320 and 320: the Hopper forward and
-    the mma.sync dk/dv and dq; 384 and 512: the forward's O split over
-    blocks; 576, 640 and 1024: the forward with S summed over the depth's
-    slabs, Q resident; the mma.sync dk/dv and dq in slices of 128 columns
-    above 256): flash_attention_local's output against the reference's
+    kernels on the card; 288 padded to 320 and 320: the Hopper forward, O
+    in two accumulators; 384 and 512: the forward's O split over blocks;
+    576, 640 and 1024: the forward with S summed over the depth's slabs, Q
+    resident; above 256 the deep dk/dv and dq, their output columns in
+    groups over blocks and S and dP summed over the depth's slabs):
+    flash_attention_local's output against the reference's
     and (fp32) its gradients against jax.vjp of it, and local_attention
     against the reference's. The CPU runs the port's plain versions and
     the reference's materialized fallback; TOL is per dtype."""
@@ -286,6 +287,24 @@ def test_flash_head_dims_above_128_match_reference(d, causal, dtype):
     _close(local.float().numpy(),
            np.asarray(jax_local_attention(qj, kj, vj, causal=causal),
                       np.float32), TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [288, 320, 576])
+def test_flash_bf16_gradients_above_256_match_reference(d, causal):
+    """bf16 gradients above head dim 256 (288 read in place by the 320
+    instance, 320, and 576 in three groups of 192 dQ columns: the deep
+    dk/dv and dq on the card): flash_attention_local's dq, dk and dv, on
+    the CPU its plain versions (p and ds rounded to bf16 before their
+    products, as the kernels round them), against jax.vjp of the
+    reference's, within TOL["bfloat16"]."""
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(40, "bfloat16", 14, 4,
+                                                       d)
+    want = _reference_out_and_grads(qj, kj, vj, doj, causal)
+    got = _port_out_and_grads(qt, kt, vt, dot, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == w.shape
+        _close(g.float().numpy(), w, TOL["bfloat16"])
 
 
 @pytest.mark.parametrize("d", [160, 192, 256, 288, 320, 384, 512, 576, 640,

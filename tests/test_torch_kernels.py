@@ -105,10 +105,10 @@ FLASH_ROUTED = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
 def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
     """Which kernel a K6/K7 wrapper launches on the card: bf16 and fp16 at
     head dims built at 64 or 128 the Hopper kernels; above 128 the Hopper
-    forward at every head dim (530 is built at 576), and the Hopper dk/dv
-    and dq at 192 or 256 (129 and 160 are built at 192, 193 at 256), the
-    mma.sync dk/dv and dq above 256 (257 and 288 are built at 320); fp32
-    the Hopper tf32 kernels, every wrapper at every head dim."""
+    wide kernels, every wrapper at every head dim (129 and 160 are built
+    at 192, 193 at 256, 257 and 288 at 320, 530 at 576; dk/dv and dq above
+    256 on the deep kernels); fp32 the Hopper tf32 kernels, every wrapper
+    at every head dim."""
     padded = K._flash_dim(d)
     for kernel in FLASH_ROUTED:
         route = K.flash_route(dtype, d, kernel)
@@ -116,34 +116,30 @@ def test_flash_route_follows_dtype_head_dim_and_entry_point(dtype, d):
             want = "sm90_tf32"
         elif padded <= 128:
             want = "sm90"
-        elif padded <= 256 or kernel.endswith("_fwd"):
-            want = "sm90_wide"
         else:
-            want = "wide"
+            want = "sm90_wide"
         assert route == want, (kernel, route)
     assert padded >= d and padded % 64 == 0
 
 
 def test_flash_route_counters_and_refusals():
     """Each route has its counter in launch_counts (sm90_wide on all six
-    wrappers, whose Hopper kernels take head dims 192 and 256, the
-    forwards' every head dim above 128; sm90_tf32, the Hopper kernels on
-    fp32; wide, the 16-bit mma.sync family), and each of the seven K6/K7
+    wrappers, whose Hopper kernels take every head dim above 128;
+    sm90_tf32, the Hopper kernels on fp32), and each of the seven K6/K7
     wrappers, di included, its count of zero-padded copies; di and other
-    dtypes have no route, and no wrapper counts an fp32 mma.sync route.
-    bf16 and fp16 dk/dv and dq run the Hopper kernels up to head dim 256,
-    fp32 every wrapper and the forwards at every head dim."""
+    dtypes have no route, and no wrapper counts a route off the Hopper
+    kernels (the mma.sync family's "wide" is gone): bf16 and fp16 at every
+    head dim above 128, fp32 at every head dim."""
     counts = K.launch_counts()
     for kernel in FLASH_ROUTED:
-        for route in ("wide", "sm90_wide", "sm90_tf32"):
+        for route in ("sm90_wide", "sm90_tf32"):
             assert f"{kernel}_{route}" in counts
+        assert f"{kernel}_wide" not in counts
         assert f"{kernel}_tf32" not in counts
-        assert K.flash_route(torch.bfloat16, K.SM90_BWD_MAX_DIM + 1,
-                             kernel) == \
-            ("sm90_wide" if kernel.endswith("_fwd") else "wide")
-        assert K.flash_route(torch.float32, K.SM90_BWD_MAX_DIM + 1,
-                             kernel) == "sm90_tf32"
-    assert K.SM90_BWD_MAX_DIM == 256
+        for d in (257, 1280):
+            assert K.flash_route(torch.bfloat16, d, kernel) == "sm90_wide"
+            assert K.flash_route(torch.float32, d, kernel) == "sm90_tf32"
+    assert not hasattr(K, "SM90_BWD_MAX_DIM")
     for kernel in FLASH_ROUTED + ("flash_bwd_pre",):
         assert f"{kernel}_pad_copies" in counts
     assert "flash_bwd_pre_sm90_wide" not in counts
@@ -158,10 +154,10 @@ def test_flash_route_counters_and_refusals():
                                1280])
 def test_fp32_dkdv_and_wide_dq_keep_the_mma_sync_route(d):
     """fp32 dk/dv, dq and the forwards run the Hopper tf32 kernels at every
-    head dim, above SM90_BWD_MAX_DIM as below it: no fp32 launch goes to
-    the mma.sync family any more (the test's name is from when fp32 dk/dv
-    and dq above 256 did). The route's counter, which the plain path on
-    the CPU leaves at 0."""
+    head dim, above 256 as below it: no launch goes to the mma.sync family
+    any more (the test's name is from when fp32 dk/dv and dq above 256
+    did). The route's counter, which the plain path on the CPU leaves at
+    0."""
     for kernel in FLASH_ROUTED:
         assert K.flash_route(torch.float32, d, kernel) == "sm90_tf32"
     rng = np.random.RandomState(d)
@@ -237,16 +233,14 @@ def _bthd(d, dtype=torch.bfloat16, offset=0, width=None):
 
 # (what, dtype, head dim, layout) -> the wrappers that copy: every K6/K7
 # wrapper at a built head dim reads its views as they are; below one the
-# Hopper kernels (every fp32 wrapper) read an even D in place where TMA
-# takes the strides (multiples of 16 bytes: 8 elements of 16 bits, 4 of
-# fp32), the mma.sync family (16-bit dk/dv and dq above 256) copies, di
-# copies only what its pairs cannot read. The fp32 cases keep the ids they
-# had when the mma.sync family ran fp32 dk/dv (and dq above 256) and
-# copied; every fp32 wrapper now reads them in place.
+# Hopper kernels (every wrapper) read an even D in place where TMA takes
+# the strides (multiples of 16 bytes: 8 elements of 16 bits, 4 of fp32),
+# di copies only what its pairs cannot read. The cases whose ids name the
+# mma.sync family keep the ids they had when it ran fp32 dk/dv, then
+# 16-bit dk/dv and dq above 256, and copied; the Hopper kernels now read
+# them in place.
 _HOPPER = ("flash_fwd", "flash_seg_fwd", "flash_bwd_dkdv", "flash_bwd_dq",
            "flash_seg_bwd_dkdv", "flash_seg_bwd_dq")
-_MMA_BWD = ("flash_bwd_dkdv", "flash_bwd_dq", "flash_seg_bwd_dkdv",
-            "flash_seg_bwd_dq")
 COPY_CASES = [
     ("built D64", torch.bfloat16, 64, {}, ()),
     ("built D128 fp32", torch.float32, 128, {}, ()),
@@ -255,12 +249,11 @@ COPY_CASES = [
     ("D80", torch.bfloat16, 80, {}, ()),
     ("D96 fp16", torch.float16, 96, {}, ()),
     ("D160 fp16", torch.float16, 160, {}, ()),
-    ("D288: the mma.sync backward copies", torch.bfloat16, 288, {},
-     _MMA_BWD),
-    ("D336: the same", torch.float16, 336, {}, _MMA_BWD),
+    ("D288: the mma.sync backward copies", torch.bfloat16, 288, {}, ()),
+    ("D336: the same", torch.float16, 336, {}, ()),
     ("D530 of a 536-wide tensor: the forwards read it in place",
-     torch.bfloat16, 530, {"width": 536}, _MMA_BWD),
-    ("D600: the same", torch.float16, 600, {}, _MMA_BWD),
+     torch.bfloat16, 530, {"width": 536}, ()),
+    ("D600: the same", torch.float16, 600, {}, ()),
     ("fp32 D16: the tf32 family copies", torch.float32, 16, {}, ()),
     ("fp32 D20: H stride of 20, a multiple of 4 and not of 8",
      torch.float32, 20, {}, ()),
@@ -322,8 +315,8 @@ def _expanded(d, dtype=torch.bfloat16):
 
 # (what, the incoming gradient, the backward's dk/dv wrapper, whether it is
 # cloned): a clone only where the kernels will read the clone in place. The
-# fp32 D16 case keeps its id from when the tf32 mma.sync dk/dv copied it;
-# the Hopper tf32 dk/dv reads the clone in place.
+# fp32 D16 and the D288 cases keep their ids from when the mma.sync dk/dv
+# copied them; the Hopper dk/dv reads the clone in place.
 GRAD_CASES = [
     ("D80 [B, T, H, D]", lambda: _bthd(80), "flash_bwd_dkdv", False),
     ("D80 expanded", lambda: _expanded(80), "flash_bwd_dkdv", True),
@@ -335,7 +328,7 @@ GRAD_CASES = [
     ("D20: no clone TMA takes", lambda: _expanded(20), "flash_bwd_dkdv",
      False),
     ("D288: the mma.sync dk/dv copies", lambda: _expanded(288),
-     "flash_seg_bwd_dkdv", False),
+     "flash_seg_bwd_dkdv", True),
     ("fp32 D16: the tf32 family copies", lambda: _expanded(16, torch.float32),
      "flash_bwd_dkdv", True),
     ("fp32 D20 [B, T, H, D]: TMA takes strides of 4", lambda: _bthd(

@@ -168,7 +168,7 @@ def test_force_ring_at_head_dim_256_matches_reference(layout, causal):
                                            ("contiguous", False)])
 def test_force_ring_at_head_dim_320_matches_reference(layout, causal):
     """As above at head dim 320, where bf16 and fp16 run the Hopper forward
-    with O in two accumulators and the mma.sync dk/dv and dq."""
+    with O in two accumulators and the deep dk/dv and dq."""
     _check_force_ring(320, layout, causal, seed=12)
 
 
