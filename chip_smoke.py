@@ -111,7 +111,17 @@ and then:
     per K6 wrapper call at fp16 D160 (one: no zero-pad copy; every path's
     ``*_pad_copies`` on a Hopper route must be 0), and times each path's
     forward + backward with the share of its attention kernels' device
-    time that is dq's: the wide kernels' path.
+    time that is dq's: the wide kernels' path;
+14. runs ``SyncBatchNorm`` (world size 1, so its all_reduce is skipped)
+    over ResNet-50's 53 BN layers at batch 64 in bf16 channels_last,
+    forward and backward, against ``FusedBatchNorm`` on the same inputs
+    and against the module's plain path on the CPU at each distinct shape
+    (y and dx within one unit in bf16's last place of the largest entry,
+    the sums and running statistics within ``BN_ULPS`` fp32 units; the
+    CPU's sums within 1e-5 of sum |terms|), checks that issuing the step
+    waits on no device value, and times the stack's forward + backward
+    beside ``FusedBatchNorm``'s, with a profile of both (device time,
+    launches a layer).
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -121,8 +131,9 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12 and 13) and read just after it; every kernel of the path
-must have launched there (53 BN layers per ResNet step for each BN kernel,
+each form of 11, 12, 13 and 14) and read just after it; every kernel of the
+path must have launched there (53 BN layers per ResNet step for each BN
+kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
 one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
@@ -2055,6 +2066,214 @@ def run_vit_tiny(torch, hvd, ViT_Tiny, K, dev, log):
                  traced_kernels=traced), counts)
 
 
+# phase 14: SyncBatchNorm over ResNet-50's BN layers, world size 1
+SYNC_BN_REPS = 5               # timed forward + backward of the stack
+SYNC_BN_SLEEP_CYCLES = 2_000_000_000   # about a second of the card spinning
+SYNC_BN_SLEEP_LAYERS = 8       # about 250 launches: well inside the queue
+# outputs (y, dx) in bf16 against FusedBatchNorm's and the CPU's: one unit
+# in bf16's last place of each tensor's largest entry (both round the same
+# fp32 math, from per-channel terms a few fp32 units apart)
+SYNC_BN_OUT_EPS = 2.0 ** -7
+
+
+def _sync_bn_layer(torch, SyncBatchNorm, FusedBatchNorm, m, c, batch, dev,
+                   gen):
+    """One BN layer of the stack: a bf16 channels_last input of (M, C), its
+    cotangent, and a SyncBatchNorm and a FusedBatchNorm with the same
+    random fp32 parameters."""
+    s = math.isqrt(m // batch)
+    x = torch.randn(batch, c, s, s, device=dev, generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(batch, c, s, s, device=dev, generator=gen).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    scale = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+    bias = 0.1 * torch.randn(c, device=dev, generator=gen)
+    mods = []
+    for cls in (SyncBatchNorm, FusedBatchNorm):
+        mod = cls(c).to(dev)
+        with torch.no_grad():
+            mod.weight.copy_(scale)
+            mod.bias.copy_(bias)
+        mods.append(mod)
+    return x, dy, mods
+
+
+def _bn_step(torch, mods, xs, dys):
+    """Forward and backward of one module per layer; returns (ys, dxs,
+    dscales, dbiases)."""
+    xs = [x.detach().requires_grad_() for x in xs]
+    for mod in mods:
+        mod.zero_grad(set_to_none=True)
+    ys = [mod(x) for mod, x in zip(mods, xs)]
+    torch.autograd.backward(ys, dys)
+    return ([y.detach() for y in ys], [x.grad for x in xs],
+            [m.weight.grad for m in mods], [m.bias.grad for m in mods])
+
+
+def _rel_err(got, want):
+    """Largest difference over the largest entry of ``want``."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def run_sync_bn_path(torch, K, SyncBatchNorm, FusedBatchNorm, dev, batch,
+                     log):
+    """Phase 14: SyncBatchNorm (world size 1: the collective is skipped)
+    over ResNet-50's 53 BN layers at ``batch`` in bf16 channels_last,
+    forward and backward, against FusedBatchNorm on the same inputs and
+    against the module's plain path on the CPU (each distinct shape): y
+    and dx within SYNC_BN_OUT_EPS of the largest entry, dscale, dbias and
+    the running statistics within BN_ULPS fp32 units of the largest entry.
+    Counts K2/K3 per layer (1 and 1 in raw mode), checks that issuing the
+    step waits on no device value (no sync under torch's sync debug mode;
+    the host returns from its first layers while a second of device sleep
+    ahead of them still runs), and times the stack's forward + backward
+    beside FusedBatchNorm's, by the host clock and by a profile of both
+    (device time, busy share, launches a layer). Returns the summary and
+    the path's launch counts."""
+    shapes = resnet50_bn_shapes(batch)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    layers = [_sync_bn_layer(torch, SyncBatchNorm, FusedBatchNorm, m, c,
+                             batch, dev, gen) for m, c in shapes]
+    xs = [x for x, _, _ in layers]
+    dys = [dy for _, dy, _ in layers]
+    sync_mods = [mods[0] for _, _, mods in layers]
+    fused_mods = [mods[1] for _, _, mods in layers]
+
+    # the path: one forward + backward of the stack, counts read after it
+    K.reset_launch_counts()
+    got = _bn_step(torch, sync_mods, xs, dys)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = _bn_step(torch, fused_mods, xs, dys)
+    torch.cuda.synchronize()
+    check(counts["bn_stats"] == len(shapes)
+          and counts["bn_bwd_stats"] == len(shapes),
+          f"SyncBatchNorm launched K2 {counts['bn_stats']} and K3 "
+          f"{counts['bn_bwd_stats']} times over {len(shapes)} layers, "
+          "expected one each a layer")
+    errs = {"y": 0.0, "dx": 0.0, "dscale": 0.0, "dbias": 0.0,
+            "running": 0.0}
+    for i in range(len(shapes)):
+        errs["y"] = max(errs["y"], _rel_err(got[0][i], want[0][i]))
+        errs["dx"] = max(errs["dx"], _rel_err(got[1][i], want[1][i]))
+        errs["dscale"] = max(errs["dscale"],
+                             _rel_err(got[2][i], want[2][i]) / BN_EPS32)
+        errs["dbias"] = max(errs["dbias"],
+                            _rel_err(got[3][i], want[3][i]) / BN_EPS32)
+        for name in ("running_mean", "running_var"):
+            errs["running"] = max(errs["running"], _rel_err(
+                getattr(sync_mods[i], name), getattr(fused_mods[i], name))
+                / BN_EPS32)
+    log(f"  against FusedBatchNorm: y {errs['y']:.3g}, dx {errs['dx']:.3g} "
+        f"of the largest entry (limit {SYNC_BN_OUT_EPS:.3g}); dscale "
+        f"{errs['dscale']:.2f}, dbias {errs['dbias']:.2f}, running "
+        f"statistics {errs['running']:.2f} fp32 units (limit {BN_ULPS})")
+    check(errs["y"] <= SYNC_BN_OUT_EPS and errs["dx"] <= SYNC_BN_OUT_EPS,
+          f"SyncBatchNorm's outputs disagree with FusedBatchNorm's: {errs}")
+    check(max(errs["dscale"], errs["dbias"], errs["running"]) <= BN_ULPS,
+          f"SyncBatchNorm's sums disagree with FusedBatchNorm's: {errs}")
+
+    # the module's plain path on the CPU, each distinct shape once
+    cpu_errs = {"y": 0.0, "dx": 0.0, "dscale": 0.0, "dbias": 0.0}
+    seen = set()
+    for i, shape in enumerate(shapes):
+        if shape in seen:
+            continue
+        seen.add(shape)
+        mod = SyncBatchNorm(shape[1])
+        with torch.no_grad():
+            mod.weight.copy_(fused_mods[i].weight.detach().cpu())
+            mod.bias.copy_(fused_mods[i].bias.detach().cpu())
+        x, dy = xs[i].cpu(), dys[i].cpu()
+        plain = _bn_step(torch, [mod], [x], [dy])
+        for j, key in enumerate(("y", "dx")):
+            cpu_errs[key] = max(cpu_errs[key],
+                                _rel_err(got[j][i].cpu(), plain[j][0]))
+        # the card's sums against torch's on the CPU, in another order:
+        # within BN_REL_TOL of sum |terms|, the share of it reported
+        rows = x.permute(0, 2, 3, 1).reshape(-1, shape[1]).float()
+        dyf = dy.permute(0, 2, 3, 1).reshape(-1, shape[1]).float()
+        xh = (rows - rows.mean(0)) * torch.rsqrt(
+            rows.var(0, unbiased=False) + mod.eps)
+        for j, key, terms in ((2, "dscale", dyf * xh), (3, "dbias", dyf)):
+            bound = BN_REL_TOL * terms.abs().sum(0) + 1e-6
+            cpu_errs[key] = max(cpu_errs[key], float(
+                ((got[j][i].cpu() - plain[j][0]).abs() / bound).max()))
+    log(f"  against the plain path on the CPU ({len(seen)} shapes): y "
+        f"{cpu_errs['y']:.3g}, dx {cpu_errs['dx']:.3g} (limit "
+        f"{SYNC_BN_OUT_EPS:.3g}); dscale {cpu_errs['dscale']:.3g}, dbias "
+        f"{cpu_errs['dbias']:.3g} of their limit ({BN_REL_TOL} of "
+        "sum |terms|)")
+    check(cpu_errs["y"] <= SYNC_BN_OUT_EPS
+          and cpu_errs["dx"] <= SYNC_BN_OUT_EPS
+          and cpu_errs["dscale"] <= 1 and cpu_errs["dbias"] <= 1,
+          f"SyncBatchNorm on the card disagrees with its CPU path: "
+          f"{cpu_errs}")
+    del got, want, plain
+
+    # no host wait: the whole step under torch's sync debug mode (a call
+    # that synchronizes raises), and the first layers' forward and backward
+    # issued behind a second of device sleep: the host must return while
+    # it runs (the whole step's launches would fill the card's launch
+    # queue, which blocks the host by itself)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _bn_step(torch, sync_mods, xs, dys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n = SYNC_BN_SLEEP_LAYERS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SYNC_BN_SLEEP_CYCLES)
+    _bn_step(torch, sync_mods[:n], xs[:n], dys[:n])
+    issue_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream(dev).query()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    log(f"  the step raised no sync under torch.cuda.set_sync_debug_mode; "
+        f"its first {n} layers issued behind {total_s:.3f} s of device work "
+        f"took {issue_s:.3f} s of host time (stream still busy: {busy})")
+    check(busy and issue_s < total_s / 2,
+          f"issuing SyncBatchNorm's step waited on the card ({issue_s:.3f} "
+          f"of {total_s:.3f} s)")
+
+    # time: the stack's forward + backward, SyncBatchNorm and
+    # FusedBatchNorm in turns
+    times = {"sync": [], "fused": []}
+    for _ in range(SYNC_BN_REPS):
+        for key, mods in (("sync", sync_mods), ("fused", fused_mods),
+                          ("fused", fused_mods), ("sync", sync_mods)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _bn_step(torch, mods, xs, dys)
+            torch.cuda.synchronize()
+            times[key].append(1e3 * (time.perf_counter() - t0))
+    sync_ms = statistics.median(times["sync"])
+    fused_ms = statistics.median(times["fused"])
+    log(f"  forward + backward of the {len(shapes)} layers: SyncBatchNorm "
+        f"{sync_ms:.3f} ms, FusedBatchNorm {fused_ms:.3f} ms (medians of "
+        f"{2 * SYNC_BN_REPS}); K2 {counts['bn_stats'] // len(shapes)} and "
+        f"K3 {counts['bn_bwd_stats'] // len(shapes)} a layer")
+    profiles, per_layer = {}, {}
+    for key, mods in (("sync", sync_mods), ("fused", fused_mods)):
+        log(f"  {key}: the stack's device time")
+        profiles[key] = profile_steps(
+            torch, lambda mods=mods: _bn_step(torch, mods, xs, dys), 2, log)
+        per_layer[key] = profiles[key]["launches_per_step"] / len(shapes)
+    log(f"  launches a layer, forward + backward: SyncBatchNorm "
+        f"{per_layer['sync']:.1f}, FusedBatchNorm {per_layer['fused']:.1f}")
+    return (dict(layers=len(shapes), batch=batch, sync_ms=sync_ms,
+                 fused_ms=fused_ms, sync_ms_runs=times["sync"],
+                 fused_ms_runs=times["fused"],
+                 launches_per_layer=per_layer,
+                 k2_per_layer=counts["bn_stats"] / len(shapes),
+                 k3_per_layer=counts["bn_bwd_stats"] / len(shapes),
+                 against_fused=errs, against_cpu=cpu_errs,
+                 issue_s=issue_s, behind_s=total_s, profile=profiles),
+            counts)
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -2134,6 +2353,7 @@ def main(argv=None) -> int:
     from horovod_tpu_torch.ops import adasum as adasum_ops
     from horovod_tpu_torch.ops import build, kernels as K
     from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
+    from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
     from horovod_tpu_torch.parallel import flash_attention, ring_attention
 
     def log(msg):
@@ -2381,6 +2601,13 @@ def main(argv=None) -> int:
         check(not any("_mma_kernel" in k for p in wide
                       for k in p["traced_kernels"]),
               "a launch ran an mma.sync kernel on the wide path")
+        torch.cuda.empty_cache()
+
+        log(f"phase 14: SyncBatchNorm over ResNet-50's 53 BN layers, batch "
+            f"{args.batch}, bf16 channels_last, forward and backward")
+        sync_bn, sync_bn_counts = run_sync_bn_path(
+            torch, K, SyncBatchNorm, FusedBatchNorm, dev, args.batch, log)
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -2488,6 +2715,7 @@ def main(argv=None) -> int:
              ok=True, work=f"53 BN layers of ResNet-50, batch {args.batch}, "
                            "the epilogue mode (raw_ms: the raw sums)",
              module_launches_per_layer=bn_launches, measure_floor=bn_floor,
+             sync_bn_launches=sync_bn_counts["bn_stats"],
              **bn_regs,
              **bn_rows["bn_stats"]),
         dict(name="bn_bwd_stats", route="cuda", source=f"{src}/bn_stats.cu",
@@ -2495,6 +2723,7 @@ def main(argv=None) -> int:
              launches=counts["bn_bwd_stats"], bound_by="bytes", ok=True,
              work=f"53 BN layers of ResNet-50, batch {args.batch}, the "
                   "epilogue mode (raw_ms: the raw sums)",
+             sync_bn_launches=sync_bn_counts["bn_bwd_stats"],
              **bn_regs, **bn_rows["bn_bwd_stats"]),
     ] + [
         # the forward and the custom-VJP backward of the jax library kernel
@@ -2547,7 +2776,7 @@ def main(argv=None) -> int:
                       tok_rates, "lm_batch": lm_batch,
                       "lm_peak_gib": lm_peak, "attention": attention,
                       "ring": ring, "adasum": adasum, "vit_tiny": tiny,
-                      "wide_attention": wide,
+                      "wide_attention": wide, "sync_bn": sync_bn,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,12 +10,15 @@ package's Pallas kernels rewritten by hand in CUDA C++ for Hopper::
     out = hvd.synchronize(h)
 
 Ported so far: the world, the eager engine (allreduce, grouped allreduce,
-allgather, broadcast, reducescatter, barrier, async handles), Adasum (flat
+allgather, broadcast, reducescatter, alltoall with uneven splits, barrier,
+async handles, ``join`` for ranks that run out of data), Adasum (flat
 and hierarchical, ``op=hvd.Adasum``), ``DistributedOptimizer`` and
-``DistributedDeltaAdasumOptimizer``, the broadcast helpers, ResNet with
-the fused BatchNorm, the decoder LM and ViT on the flash-attention kernel,
-and sequence parallelism (ring attention, Ulysses, the LM's loss and train
-step over a (data, seq) mesh; ``horovod_tpu_torch.parallel``).
+``DistributedDeltaAdasumOptimizer``, the broadcast helpers and
+``allreduce_sparse``, ResNet with the fused BatchNorm, ``SyncBatchNorm``
+(``horovod_tpu_torch.ops.sync_batch_norm``), the decoder LM and ViT on the
+flash-attention kernel, and sequence parallelism (ring attention, Ulysses,
+the LM's loss and train step over a (data, seq) mesh;
+``horovod_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -191,6 +194,21 @@ def broadcast(tensor, root_rank: int, name: Optional[str] = None):
     return broadcast_async(tensor, root_rank, name).synchronize()
 
 
+def alltoall_async(tensor, splits=None, name: Optional[str] = None):
+    return _engine().alltoall(tensor, splits=splits, name=name)
+
+
+def alltoall(tensor, splits=None, name: Optional[str] = None):
+    """Without ``splits``: the received tensor alone (dim 0 divides by the
+    size; rank r gets block r). With ``splits`` (rows of dim 0 for each
+    rank, in rank order): ``(received tensor, received splits)``, the
+    splits an int64 CPU tensor (operations.cc:951-1002)."""
+    out, recv_splits = alltoall_async(tensor, splits, name).synchronize()
+    if splits is None:
+        return out
+    return out, recv_splits
+
+
 def reducescatter_async(tensor, name: Optional[str] = None, op=None):
     op = ReduceOp.SUM if op is None else ReduceOp(op)
     return _engine().reducescatter(tensor, name=name, op=op)
@@ -206,6 +224,13 @@ def barrier():
     _engine().barrier()
 
 
+def join() -> int:
+    """This rank is out of data: keep matching the other ranks' collectives
+    with zero tensors until every rank has joined, then return the last
+    rank to join (the same on every rank; 0 at size 1)."""
+    return _engine().join()
+
+
 def poll(handle) -> bool:
     return handle.poll()
 
@@ -218,17 +243,18 @@ from .optimizer import (  # noqa: E402
     DistributedDeltaAdasumOptimizer, DistributedOptimizer)
 from .ops.compression import Compression  # noqa: E402
 from .functions import (  # noqa: E402
-    allgather_object, broadcast_object, broadcast_optimizer_state,
-    broadcast_parameters)
+    allgather_object, allreduce_sparse, broadcast_object,
+    broadcast_optimizer_state, broadcast_parameters)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
     "allreduce", "allreduce_async", "grouped_allreduce",
     "grouped_allreduce_async", "allgather", "allgather_async", "broadcast",
-    "broadcast_async", "reducescatter", "reducescatter_async", "barrier",
-    "poll", "synchronize",
+    "broadcast_async", "alltoall", "alltoall_async", "reducescatter",
+    "reducescatter_async", "barrier", "join", "poll", "synchronize",
     "broadcast_parameters", "broadcast_object", "allgather_object",
+    "allreduce_sparse",
     "broadcast_optimizer_state", "DistributedOptimizer",
     "DistributedDeltaAdasumOptimizer", "Compression",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",

@@ -23,8 +23,11 @@ HOROVOD_TPU_PROCESS_ID = "HOROVOD_TPU_PROCESS_ID"
 HOROVOD_TPU_SHUTDOWN_TIMEOUT = "HOROVOD_TPU_SHUTDOWN_TIMEOUT"
 HOROVOD_PALLAS_PACK = "HOROVOD_PALLAS_PACK"
 HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
+HOROVOD_JOIN_DISABLE = "HOROVOD_JOIN_DISABLE"
+HOROVOD_JOIN_META_SLOTS = "HOROVOD_JOIN_META_SLOTS"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
+DEFAULT_JOIN_META_SLOTS = 16
 
 
 def _get_bool(name: str, default: bool = False) -> bool:
@@ -57,6 +60,12 @@ class Config:
     # only; hierarchical Sum/Average is not ported (ROADMAP A11), and such
     # an allreduce warns once that it runs flat (core/engine.py)
     hierarchical_allreduce: bool = False
+    # the join protocol's per-collective round (off with
+    # HOROVOD_JOIN_DISABLE=1: join() is then a barrier)
+    join_enabled: bool = True
+    # metadata rows carried inline in a join round; a grouped call with
+    # more tensors sends the rest in one overflow exchange
+    join_meta_slots: int = DEFAULT_JOIN_META_SLOTS
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -65,4 +74,7 @@ class Config:
                                             DEFAULT_FUSION_THRESHOLD_BYTES),
             pack_kernel=_get_bool(HOROVOD_PALLAS_PACK),
             hierarchical_allreduce=_get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE),
+            join_enabled=not _get_bool(HOROVOD_JOIN_DISABLE),
+            join_meta_slots=_get_int(HOROVOD_JOIN_META_SLOTS,
+                                     DEFAULT_JOIN_META_SLOTS),
         )

@@ -3,24 +3,41 @@
 The port's counterpart of ``horovod_tpu/core/engine.py``, plain path only:
 named async collectives returning handles, duplicate-name detection,
 tensor fusion (per-dtype buckets of at most ``HOROVOD_FUSION_THRESHOLD``
-bytes, one collective per bucket), reducescatter, and the collectively
-agreed hierarchy (local and cross process groups) that hierarchical Adasum
-runs on. An async handle wraps the ``async_op=True`` work object of its
-collective: ``poll()`` is ``is_completed()`` and ``synchronize()`` is
-``wait()``, then the Average divide and the postscale, once per launch.
-Adasum (``ops/adasum.py``) issues its own exchanges and registers its
-result through :meth:`Engine.track_result`.
+bytes, one collective per bucket), reducescatter, alltoall with uneven
+splits, the join protocol, and the collectively agreed hierarchy (local and
+cross process groups) that hierarchical Adasum runs on. An async handle
+wraps the ``async_op=True`` work objects of its collective: ``poll()`` is
+``is_completed()`` and ``synchronize()`` is ``wait()``, then the Average
+divide and the postscale, once per launch. Adasum (``ops/adasum.py``)
+issues its own exchanges and registers its result through
+:meth:`Engine.track_result`.
 
-Not ported yet (the reference's other engine paths): join, alltoall, the
-ZeRO-1 sharded step, step replay, overlap, wire codecs, algorithm selection
-(hierarchical Sum/Average), autotune, metrics and tracing. Until algorithm
-selection is ported, a Sum/Average allreduce under
-``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat and says so once per process,
-as the reference does when it demotes an algorithm.
+Join (the reference's :1279-1480, operations.cc:1004-1040): at size > 1
+every collective first posts a fixed-shape round, an allgather of int64
+``[active flag, rounds, kind, k, k metadata rows]`` (a row is the op or
+root, dtype code, ndim and up to 7 dims); a grouped call of more than
+``HOROVOD_JOIN_META_SLOTS`` tensors posts the rest in one overflow
+exchange. Active ranks never read the round: it is built in a pinned
+host buffer and copied without a host wait, and its tensors are kept
+until the work completes. A rank in :meth:`Engine.join` reads each round
+and runs the advertised collective through the same engine method with
+zero tensors, so every internal exchange lines up, until every rank has
+joined. ``HOROVOD_JOIN_DISABLE=1`` drops the round, and ``join()`` is a
+barrier. The reference's ``sharded_step`` and ``grouped_alltoall``
+substitutes come with those collectives (ROADMAP A9, A16).
+
+Not ported yet (the reference's other engine paths): the ZeRO-1 sharded
+step, step replay, overlap, wire codecs, alltoall's steady-state splits
+cache, algorithm selection (hierarchical Sum/Average and alltoall),
+autotune, metrics and tracing. Until algorithm selection is ported, a
+Sum/Average allreduce under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat
+and says so once per process, as the reference does when it demotes an
+algorithm.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
@@ -95,11 +112,13 @@ def _dist_op(op: ReduceOp):
 
 class LaunchGroup:
     """Shared completion latch for every handle born from one collective
-    launch: the work object is waited once and the finish step (Average
-    divide, postscale) runs once, whichever handle gets there first."""
+    launch: its work objects (one, or a list) are waited once and the
+    finish step (Average divide, postscale) runs once, whichever handle
+    gets there first."""
 
     def __init__(self, work, finish: Optional[Callable[[], None]] = None):
-        self._work = work
+        self._works = list(work) if isinstance(work, (list, tuple)) \
+            else [work]
         self._finish = finish
         self._done = False
         self._lock = threading.Lock()
@@ -107,7 +126,7 @@ class LaunchGroup:
     def ready(self) -> bool:
         if self._done:
             return True
-        if not _translate_failure(self._work.is_completed):
+        if not all(_translate_failure(w.is_completed) for w in self._works):
             return False
         self.wait()
         return True
@@ -115,7 +134,8 @@ class LaunchGroup:
     def wait(self):
         with self._lock:
             if not self._done:
-                _translate_failure(self._work.wait)
+                for w in self._works:
+                    _translate_failure(w.wait)
                 if self._finish is not None:
                     self._finish()
                 self._done = True
@@ -185,17 +205,79 @@ class Handle:
         self._engine._on_complete(self)
 
 
+class HandleManager:
+    """int handle -> :class:`Handle` map (the reference's, parity:
+    torch/handle_manager.{h,cc})."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._next = 0
+        self._handles: Dict[int, Handle] = {}
+
+    def allocate(self, h: Handle) -> int:
+        with self._lock:
+            hid = self._next
+            self._next += 1
+            self._handles[hid] = h
+            return hid
+
+    def get(self, hid: int) -> Handle:
+        with self._lock:
+            if hid not in self._handles:
+                raise ValueError(f"unknown handle {hid}")
+            return self._handles[hid]
+
+    def release(self, hid: int):
+        with self._lock:
+            self._handles.pop(hid, None)
+
+
+# Join-protocol metadata (the reference's codes, core/engine.py:264-300).
+# The reference's kinds 10 (sharded_step) and 11 (grouped_alltoall) come
+# with those collectives (ROADMAP A9, A16).
+_KIND_CODES = {"allreduce": 1, "grouped_allreduce": 2, "allgather": 3,
+               "broadcast": 4, "alltoall": 5, "reducescatter": 6,
+               "barrier": 7, "adasum": 8, "grouped_broadcast": 9}
+_CODE_KINDS = {v: k for k, v in _KIND_CODES.items()}
+_DTYPE_CODES = {torch.float32: 1, torch.float64: 2, torch.float16: 3,
+                torch.bfloat16: 4, torch.int8: 5, torch.int16: 6,
+                torch.int32: 7, torch.int64: 8, torch.uint8: 9,
+                torch.uint16: 10, torch.uint32: 11, torch.uint64: 12,
+                torch.bool: 13}
+_CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
+_JOIN_META_DIMS = 7
+_JOIN_META_LEN = 3 + _JOIN_META_DIMS  # [op_or_root, dtype, ndim, d0..d6]
+
+
+def _join_meta_row(x: torch.Tensor, op_or_root: int) -> np.ndarray:
+    """One tensor's metadata row of a join round."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
+        raise ValueError(f"dtype {x.dtype} unsupported under the Join "
+                         f"protocol; set HOROVOD_JOIN_DISABLE=1")
+    if x.dim() > _JOIN_META_DIMS:
+        raise ValueError(f"ndim {x.dim()} > {_JOIN_META_DIMS} unsupported "
+                         f"under the Join protocol")
+    dims = [int(d) for d in x.shape] + [-1] * (_JOIN_META_DIMS - x.dim())
+    return np.array([op_or_root, code, x.dim()] + dims, dtype=np.int64)
+
+
 class Engine:
     """Named eager collectives over the default process group."""
 
     def __init__(self, backend: Backend, config: env_mod.Config):
         self.backend = backend
         self.config = config
+        self.handles = HandleManager()
         self._outstanding: Dict[str, Handle] = {}
         self._lock = threading.Lock()
         self._auto_counter: Dict[str, int] = {}
         self._hier_ok: Optional[bool] = None
         self._hier_groups = None
+        # the next engine call is a joined rank's zero substitute
+        self._join_substitute = False
+        # (work, tensors) of posted join rounds, kept until the work is done
+        self._posted = collections.deque()
 
     # -- internals ---------------------------------------------------------
 
@@ -253,8 +335,10 @@ class Engine:
                   prescale_factor: float = 1.0,
                   postscale_factor: float = 1.0) -> Handle:
         x = self._tensor(tensor)
+        sub = self._consume_substitute()
         _check_average_dtype(x, op)
         name = self._register(name, "allreduce")
+        self._join_sync("allreduce", [_join_meta_row(x, int(op))], sub)
         buf = x.clone(memory_format=torch.contiguous_format)
         group = self._reduce_launch(buf, op, prescale_factor,
                                     postscale_factor)
@@ -269,6 +353,7 @@ class Engine:
         threshold, one pack and one collective per bucket; each output is a
         view of its bucket's reduced buffer."""
         tensors = [self._tensor(t) for t in tensors]
+        sub = self._consume_substitute()
         for t in tensors:
             _check_average_dtype(t, op)
         _dist_op(op)
@@ -277,6 +362,8 @@ class Engine:
                  for i in range(len(tensors))]
         if not tensors:
             return []
+        self._join_sync("grouped_allreduce",
+                        [_join_meta_row(t, int(op)) for t in tensors], sub)
         buckets = bucket_by_size(tensors, self.config.fusion_threshold_bytes)
         handles: List[Optional[Handle]] = [None] * len(tensors)
         for idxs in buckets:
@@ -296,42 +383,67 @@ class Engine:
     def broadcast(self, tensor, root_rank: int,
                   name: Optional[str] = None) -> Handle:
         x = self._tensor(tensor)
+        sub = self._consume_substitute()
         self._check_root(root_rank)
         name = self._register(name, "broadcast")
+        self._join_sync("broadcast", [_join_meta_row(x, root_rank)], sub)
         buf = x.clone(memory_format=torch.contiguous_format)
         work = _translate_failure(dist.broadcast, buf, src=root_rank,
                                   async_op=True)
-        return self._track(Handle(name, LaunchGroup(work), lambda: buf, self))
+        flag_works, root_active = self._root_flag(root_rank, sub)
+
+        def extract():
+            root_active()
+            return buf
+
+        return self._track(Handle(name, LaunchGroup([work] + flag_works),
+                                  extract, self))
 
     def grouped_broadcast(self, tensors: Sequence, root_rank: int,
                           name: Optional[str] = None) -> List[Handle]:
         """Fused broadcast: one plain pack and one collective per bucket."""
         tensors = [self._tensor(t) for t in tensors]
+        sub = self._consume_substitute()
         self._check_root(root_rank)
         names = [self._register(None if name is None else f"{name}.{i}",
                                 "grouped_broadcast")
                  for i in range(len(tensors))]
-        handles: List[Optional[Handle]] = [None] * len(tensors)
+        if not tensors:
+            return []
+        self._join_sync("grouped_broadcast",
+                        [_join_meta_row(t, root_rank) for t in tensors], sub)
+        launches = []
         for idxs in bucket_by_size(tensors,
                                    self.config.fusion_threshold_bytes):
             flat = C.pack_bucket([tensors[i] for i in idxs], False)
             work = _translate_failure(dist.broadcast, flat, src=root_rank,
                                       async_op=True)
+            launches.append((idxs, flat, work))
+        # one root-active flag for the call: every handle of a joined
+        # root's call raises
+        _, root_active = self._root_flag(root_rank, sub)
+        handles: List[Optional[Handle]] = [None] * len(tensors)
+        for idxs, flat, work in launches:
             group = LaunchGroup(work)
             views = C.unpack_flat(flat, [tuple(tensors[i].shape)
                                          for i in idxs])
             for i, v in zip(idxs, views):
+                def extract(v=v):
+                    root_active()
+                    return v
                 handles[i] = self._track(
-                    Handle(names[i], group, lambda v=v: v, self))
+                    Handle(names[i], group, extract, self))
         return handles
 
     def allgather(self, tensor, name: Optional[str] = None) -> Handle:
         """Allgather along dim 0 with possibly different dim-0 sizes per rank
         (a size exchange, a padded gather, then trim and concatenate)."""
         x = self._tensor(tensor)
+        sub = self._consume_substitute()
         name = self._register(name, "allgather")
         if x.dim() == 0:
             x = x[None]
+        self._join_sync("allgather", [_join_meta_row(x, 0)], sub)
         sizes = self._exchange_sizes(int(x.shape[0]))
         max_d0 = max(sizes)
         pad = max_d0 - int(x.shape[0])
@@ -350,6 +462,53 @@ class Engine:
         h.recv_sizes = np.asarray(sizes)
         return self._track(h)
 
+    def alltoall(self, tensor, splits=None,
+                 name: Optional[str] = None) -> Handle:
+        """Alltoall with optional uneven splits (the reference's :2384,
+        operations.cc:951): rank r gets ``splits[r]`` rows of this rank's
+        dim 0, in rank order; without ``splits`` dim 0 must divide by the
+        size and goes out in equal blocks. The splits matrix is exchanged
+        once (``recv_splits[r]`` = rank r's ``splits[me]``), then one
+        ``all_to_all_single`` with uneven sizes. The handle's result is
+        ``(received tensor, recv_splits)``, the splits an int64 CPU tensor.
+        At size 1 the result is the input. Not ported: the reference's
+        steady-state splits cache (ROADMAP A10), its hierarchical selection
+        (A11) and its wire codecs (A8)."""
+        x = self._tensor(tensor)
+        sub = self._consume_substitute()
+        if x.dim() == 0:
+            raise ValueError("alltoall requires a tensor with dim 0")
+        size, rank = self.backend.size(), self.backend.rank()
+        d0 = int(x.shape[0])
+        if splits is None:
+            if d0 % size:
+                raise ValueError(
+                    f"alltoall without splits requires dim0 ({d0}) "
+                    f"divisible by size ({size})")
+            send = np.full(size, d0 // size, dtype=np.int64)
+        else:
+            send = np.asarray(torch.as_tensor(splits).cpu(),
+                              dtype=np.int64).reshape(-1)
+            if send.size != size or (send < 0).any():
+                raise ValueError(f"splits must be {size} non-negative row "
+                                 f"counts, got {send.tolist()}")
+            if int(send.sum()) != d0:
+                raise ValueError("splits must sum to tensor dim 0")
+        name = self._register(name, "alltoall")
+        self._join_sync("alltoall", [_join_meta_row(x, 0)], sub)
+        if size == 1:
+            recv = torch.from_numpy(send)
+            return self._track(Handle(name, LaunchGroup(_StreamWork(x.device)),
+                                      lambda: (x, recv), self))
+        recv = self._exchange_rows(send)[:, rank]
+        out = x.new_empty((int(recv.sum()),) + tuple(x.shape[1:]))
+        work = _translate_failure(C.all_to_all, out, x.contiguous(),
+                                  recv.tolist(), send.tolist(), None,
+                                  async_op=True)
+        recv = torch.from_numpy(recv)
+        return self._track(Handle(name, LaunchGroup(work),
+                                  lambda: (out, recv), self))
+
     def reducescatter(self, tensor, name: Optional[str] = None,
                       op: ReduceOp = ReduceOp.SUM) -> Handle:
         """Sum (or Average) over the world, scattered along dim 0: rank r
@@ -360,10 +519,12 @@ class Engine:
             raise ValueError(
                 f"reducescatter supports Sum and Average, got {op!r}")
         x = self._tensor(tensor)
+        sub = self._consume_substitute()
         _check_average_dtype(x, op)
         if x.dim() == 0:
             raise ValueError("reducescatter requires a tensor with dim 0")
         name = self._register(name, "reducescatter")
+        self._join_sync("reducescatter", [_join_meta_row(x, int(op))], sub)
         size, rank = self.backend.size(), self.backend.rank()
         d0 = int(x.shape[0])
         chunk = -(-d0 // size)
@@ -390,9 +551,162 @@ class Engine:
 
     def barrier(self):
         """Blocks until every rank has reached it."""
+        sub = self._consume_substitute()
+        self._join_sync("barrier", [], sub)
         z = torch.zeros(1, dtype=torch.int32, device=self.backend.device)
         _translate_failure(dist.all_reduce, z)
         z.item()  # host-side completion on every backend
+
+    # -- join (the reference's :1279-1480) ---------------------------------
+
+    def join(self) -> int:
+        """This rank is out of data: match the other ranks' collectives with
+        zero tensors until every rank has joined. Returns the last rank to
+        join, the same on every rank: the one that served the fewest
+        rounds, the highest such rank on a tie. 0 at size 1; ``size - 1``
+        under ``HOROVOD_JOIN_DISABLE=1``, where join is a barrier."""
+        size = self.backend.size()
+        if size <= 1:
+            return 0
+        if not self.config.join_enabled:
+            self.barrier()
+            return size - 1
+        return self._join_loop(size)
+
+    def _join_loop(self, size: int) -> int:
+        slots = self.config.join_meta_slots
+        rounds = 0
+        while True:
+            head = self._exchange_rows(self._join_head(1, rounds, 0, []))
+            joined = head[:, 0] == 1
+            if joined.all():
+                least = head[:, 1].min()
+                return max(r for r in range(size) if head[r, 1] == least)
+            act = int(np.argmin(joined))   # the first active rank
+            kind_code, k = int(head[act, 2]), int(head[act, 3])
+            metas = head[act, 4:4 + min(k, slots) * _JOIN_META_LEN] \
+                .reshape(-1, _JOIN_META_LEN)
+            if k > slots:
+                rest = self._exchange_rows(np.zeros(
+                    (k - slots) * _JOIN_META_LEN, dtype=np.int64))
+                metas = np.concatenate(
+                    [metas, rest[act].reshape(-1, _JOIN_META_LEN)])
+            dead_root = None
+            if kind_code in (_KIND_CODES["broadcast"],
+                             _KIND_CODES["grouped_broadcast"]):
+                root = int(metas[0][0])
+                if head[root, 0] == 1:
+                    # the active ranks' call still has to be matched (their
+                    # root flag reads 0 and they raise); then this rank
+                    # raises too
+                    dead_root = root
+            self._dispatch_substitute(kind_code, metas)
+            if dead_root is not None:
+                raise HorovodInternalError(
+                    f"broadcast root rank {dead_root} has already joined; "
+                    f"it has no data to broadcast")
+            rounds += 1
+
+    def _dispatch_substitute(self, kind_code: int, metas: np.ndarray):
+        """Run the advertised collective with zero tensors through the
+        engine method the active ranks ran, so every internal exchange and
+        collective lines up (tensor_queue.h:39-41)."""
+        kind = _CODE_KINDS.get(kind_code)
+        if kind is None:
+            raise HorovodInternalError(
+                f"unknown substitute kind code {kind_code}")
+        dev = self.backend.device
+
+        def zero(row):
+            shape = tuple(int(d) for d in row[3:3 + int(row[2])])
+            return torch.zeros(shape, dtype=_CODE_DTYPES[int(row[1])],
+                               device=dev)
+
+        self._join_substitute = True
+        if kind == "barrier":
+            self.barrier()
+            return
+        arg = int(metas[0][0])
+        if kind == "allreduce":
+            hs = [self.allreduce(zero(metas[0]), op=ReduceOp(arg))]
+        elif kind == "grouped_allreduce":
+            hs = self.grouped_allreduce([zero(r) for r in metas],
+                                        op=ReduceOp(arg))
+        elif kind == "adasum":
+            from ..ops.adasum import adasum_allreduce_handle
+            hs = [adasum_allreduce_handle(self, zero(metas[0]))]
+        elif kind == "allgather":
+            hs = [self.allgather(zero(metas[0]))]
+        elif kind == "broadcast":
+            hs = [self.broadcast(zero(metas[0]), root_rank=arg)]
+        elif kind == "grouped_broadcast":
+            hs = self.grouped_broadcast([zero(r) for r in metas],
+                                        root_rank=arg)
+        elif kind == "reducescatter":
+            hs = [self.reducescatter(zero(metas[0]), op=ReduceOp(arg))]
+        else:   # alltoall: the rows spread evenly, the first ranks one more
+            z = zero(metas[0])
+            base, rem = divmod(int(z.shape[0]), self.backend.size())
+            hs = [self.alltoall(z, splits=[
+                base + (r < rem) for r in range(self.backend.size())])]
+        for h in hs:
+            h.synchronize()
+
+    def _consume_substitute(self) -> bool:
+        sub = self._join_substitute
+        self._join_substitute = False
+        return sub
+
+    def _join_head(self, flag: int, rounds: int, kind_code: int,
+                   metas) -> np.ndarray:
+        """The fixed-shape round: [flag, rounds, kind, k, the first
+        ``join_meta_slots`` metadata rows, zero padding]."""
+        slots = self.config.join_meta_slots
+        vec = np.zeros(4 + slots * _JOIN_META_LEN, dtype=np.int64)
+        vec[0:4] = (flag, rounds, kind_code, len(metas))
+        if metas:
+            inline = np.concatenate(metas[:slots])
+            vec[4:4 + inline.size] = inline
+        return vec
+
+    def _join_sync(self, kind: str, metas, sub: bool):
+        """Post this collective's join round, and the overflow rows when
+        there are more than the round holds; nothing for a substitute,
+        whose round ran in :meth:`_join_loop`, or at size 1."""
+        if sub or not self.config.join_enabled or self.backend.size() <= 1:
+            return
+        slots = self.config.join_meta_slots
+        self._post_exchange(self._join_head(0, 0, _KIND_CODES[kind], metas))
+        if len(metas) > slots:
+            self._post_exchange(np.concatenate(metas[slots:]))
+
+    def _root_flag(self, root_rank: int, sub: bool):
+        """Under join at size > 1 broadcast the root's active flag (0 from
+        a joined root's substitute) after a broadcast's data: returns the
+        flag's work objects and a check that waits for the flag and raises
+        on the active ranks when the root had joined (the reference's
+        ``build_broadcast_flagged``). A substitute does not check: its
+        join loop raises."""
+        if not self.config.join_enabled or self.backend.size() <= 1:
+            return [], lambda: None
+        flag = torch.full((1,), 0 if sub else 1, dtype=torch.int32,
+                          device=self.backend.device)
+        work = _translate_failure(dist.broadcast, flag, src=root_rank,
+                                  async_op=True)
+        state = {}
+
+        def root_active():
+            if sub:
+                return
+            if "ok" not in state:
+                work.wait()
+                state["ok"] = int(flag.item()) == 1
+            if not state["ok"]:
+                raise HorovodInternalError(
+                    f"broadcast root rank {root_rank} has already joined "
+                    f"and has no data to broadcast")
+
+        return [work], root_active
 
     # -- helpers -----------------------------------------------------------
 
@@ -437,11 +751,34 @@ class Engine:
         return self._hier_groups
 
     def _exchange_sizes(self, d0: int) -> List[int]:
-        mine = torch.tensor([d0], dtype=torch.int64,
-                            device=self.backend.device)
-        got = [torch.empty_like(mine) for _ in range(self.backend.size())]
-        _translate_failure(dist.all_gather, got, mine)
-        return [int(g.item()) for g in got]
+        return self._exchange_rows(np.array([d0]))[:, 0].tolist()
+
+    def _exchange_rows(self, vec: np.ndarray) -> np.ndarray:
+        """Allgather of every rank's int64 vector (one length on every
+        rank), read on the host: (size, len)."""
+        mine = torch.from_numpy(np.ascontiguousarray(vec, dtype=np.int64))
+        mine = mine.to(self.backend.device)
+        out = mine.new_empty(self.backend.size() * mine.numel())
+        _translate_failure(C.all_gather, out, mine, None)
+        return out.cpu().numpy().reshape(self.backend.size(), -1)
+
+    def _post_exchange(self, vec: np.ndarray):
+        """The same allgather, posted and never read (a join round on an
+        active rank): on the card the vector goes through a pinned host
+        buffer and an async copy, so nothing waits on the host; its tensors
+        are kept until the work completes."""
+        while self._posted and self._posted[0][0].is_completed():
+            self._posted.popleft()
+        mine = torch.from_numpy(vec)
+        keep = [mine]
+        if self.backend.device.type == "cuda":
+            mine = mine.pin_memory()
+            keep.append(mine)
+            mine = mine.to(self.backend.device, non_blocking=True)
+        out = mine.new_empty(self.backend.size() * mine.numel())
+        work = _translate_failure(C.all_gather, out, mine, None,
+                                  async_op=True)
+        self._posted.append((work, keep + [mine, out]))
 
 
 def bucket_by_size(tensors: Sequence[torch.Tensor],

@@ -1,7 +1,8 @@
 """State-sync helpers (parity: horovod/torch/functions.py —
 broadcast_parameters :30, broadcast_optimizer_state :62, broadcast_object
 :186, allgather_object :229; the port's counterpart of
-``horovod_tpu/functions.py``)."""
+``horovod_tpu/functions.py``), and the sparse allreduce of row-indexed
+updates (``allreduce_sparse``)."""
 
 from __future__ import annotations
 
@@ -89,3 +90,37 @@ def allgather_object(obj: Any, name: Optional[str] = None) -> list:
         out.append(pickle.loads(gathered[off:off + int(s)].tobytes()))
         off += int(s)
     return out
+
+
+def allreduce_sparse(indices, values, n_rows: int,
+                     name: Optional[str] = None, average: bool = True):
+    """Sparse (row-indexed) reduction by allgather, the reference's
+    ``allreduce_sparse`` (its IndexedSlices fallback,
+    tensorflow/__init__.py:52-131): every rank's ``indices`` (rows of an
+    ``n_rows``-row tensor) and ``values`` (one row each) are gathered, the
+    indices as int64, duplicate rows summed on the device with
+    ``index_add_`` and divided by the size when ``average``. Returns
+    ``(rows, values)``, sorted by row: scattered into zeros they give the
+    dense allreduce's Sum (or Average)."""
+    eng = _engine()
+    indices = eng._tensor(indices).to(torch.int64)
+    values = eng._tensor(values)
+    if indices.shape[0] != values.shape[0]:
+        raise ValueError(
+            f"indices ({indices.shape[0]}) and values ({values.shape[0]}) "
+            f"must agree on dim 0")
+    if indices.numel() and (int(indices.min()) < 0
+                            or int(indices.max()) >= n_rows):
+        raise ValueError(f"indices out of range [0, {n_rows})")
+    size = eng.backend.size()
+    name = name or "allreduce_sparse"
+    if size > 1:
+        hi = eng.allgather(indices, name=f"{name}.idx")
+        hv = eng.allgather(values, name=f"{name}.val")
+        indices, values = hi.synchronize(), hv.synchronize()
+    rows, inverse = torch.unique(indices, sorted=True, return_inverse=True)
+    combined = values.new_zeros((rows.numel(),) + tuple(values.shape[1:]))
+    combined.index_add_(0, inverse, values)
+    if average:
+        combined = (combined / size).to(values.dtype)
+    return rows, combined

@@ -12,7 +12,8 @@ of ``horovod_tpu.models.resnet.ResNet`` (leaves as numpy arrays, or anything
   ``Dense_0`` ``fc``.
 
 ``transformer_from_jax``, ``vit_from_flax`` and ``mlp_from_jax`` do the same
-for the decoder LM, the ViT and the MLP.
+for the decoder LM, the ViT and the MLP, and ``sync_batch_norm_from_flax``
+for one ``SyncBatchNorm`` layer.
 """
 
 from __future__ import annotations
@@ -77,6 +78,16 @@ def resnet_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             out[k[:-len("running_mean")] + "num_batches_tracked"] = \
                 torch.tensor(0)
     return out
+
+
+def sync_batch_norm_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's :class:`SyncBatchNorm` from the reference
+    module's variables: ``params/{scale,bias}`` become ``weight`` and
+    ``bias`` (each only where the layer has it), ``batch_stats/{mean,var}``
+    ``running_mean`` and ``running_var``."""
+    return {_BN_LEAVES[key]: torch.tensor(arr)
+            for tree in ("params", "batch_stats")
+            for _, key, arr in _leaves(variables.get(tree, {}))}
 
 
 def transformer_from_jax(params: Mapping, cfg) -> Dict[str, torch.Tensor]:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.engine import _join_meta_row
 from . import collectives as C, kernels as K
 
 
@@ -233,9 +234,13 @@ def adasum_allreduce_handle(engine, tensor, name: Optional[str] = None,
     ``tensor`` over the world (flat, or hierarchical as
     :func:`hierarchical_local_size` decides), with the pre- and postscale
     around it. The work is issued here; on CUDA the handle completes when
-    the stream reaches its end."""
+    the stream reaches its end. At size > 1 it posts the engine's join
+    round first (kind ``adasum``), so a joined rank runs this function with
+    a zero tensor beside it."""
     x = engine._tensor(tensor)
+    sub = engine._consume_substitute()
     name = engine._register(name, "adasum")
+    engine._join_sync("adasum", [_join_meta_row(x, 0)], sub)
     v = x.clone(memory_format=torch.contiguous_format)
     if prescale_factor != 1.0:
         v.mul_(prescale_factor)

@@ -74,3 +74,18 @@ def all_gather(out: torch.Tensor, inp: torch.Tensor, group,
     fn = getattr(dist, "all_gather_single", None) \
         or dist.all_gather_into_tensor
     return fn(out, inp, group=group, async_op=async_op)
+
+
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits: List[int],
+               in_splits: List[int], group, async_op: bool = False):
+    """Send ``in_splits[r]`` rows of ``inp`` (in rank order along dim 0) to
+    rank r of ``group`` (the world when None) and receive ``out_splits[r]``
+    rows from it into ``out``: ``all_to_all_single`` with uneven sizes
+    where torch has it, else ``all_to_all`` on the row blocks."""
+    fn = getattr(dist, "all_to_all_single", None)
+    if fn is not None:
+        return fn(out, inp, out_splits, in_splits, group=group,
+                  async_op=async_op)
+    return dist.all_to_all(list(out.split(out_splits)),
+                           list(inp.split(in_splits)), group=group,
+                           async_op=async_op)

@@ -1,9 +1,11 @@
 """horovod_tpu_torch on the card: each CUDA kernel against its plain
 version, the fused BatchNorm and a small ResNet training through the
 kernels, a small LM and ViT through the flash-attention kernels, the
-engine's grouped allreduce through the pack kernel on NCCL, and Adasum's
+engine's grouped allreduce through the pack kernel on NCCL, Adasum's
 combine kernels (K4/K5) alone and training the flagship LM on 2 and 4
-cards.
+cards, SyncBatchNorm on K2/K3's raw sums (on one card against its CPU
+path; on 2 and 4 cards against the global batch on one card), and
+alltoall and join on 2 and 4 cards.
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -28,11 +30,16 @@ fp32 on the card is held to the CPU's within 1e-2 of the largest entry
 than a float64 one: within 1e-5 of sum |terms|; K5's output within twice
 the plain version's error against float64, plus the dtype's epsilon and
 1e-6 of the largest entry (see ``test_cuda_adasum_kernels_match_plain``).
+SyncBatchNorm's outputs (y, dx) agree to the dtype's epsilon (at least
+1e-5) of the largest entry, its per-channel sums within 1e-4 of sum
+|terms| as the BN statistics above, its statistics and running
+statistics within 1e-5 of the largest entry.
 """
 
 import contextlib
 import math
 import re
+import time
 
 import numpy as np
 import pytest
@@ -47,11 +54,16 @@ from horovod_tpu_torch.models.transformer import (Transformer,
 from horovod_tpu_torch.models.vit import ViT
 from horovod_tpu_torch.ops import adasum as A, kernels as K
 from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
+from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
-from torch_worker import (ADASUM_CARD_STEPS, SP_CARD_DIMS, SP_LRS,
-                          SP_STEPS, SP_VARIANTS, mlp_data, mlp_params,
+from torch_worker import (ADASUM_CARD_STEPS, JOIN_TENSORS,
+                          RESNET_CARD_MODES, SP_CARD_DIMS, SP_LRS, SP_STEPS,
+                          SP_VARIANTS, SYNC_BN_CHANNELS, SYNC_BN_DTYPES,
+                          SYNC_BN_EPS, SYNC_BN_LAYOUTS, alltoall_input,
+                          join_adasum_inputs, mlp_data, mlp_params,
                           run_world, shard_rows, sp_card_model,
-                          sp_card_tokens)
+                          sp_card_tokens, sparse_input, sync_bn_case,
+                          sync_bn_run)
 
 pytestmark = pytest.mark.cuda
 
@@ -375,6 +387,106 @@ def test_cuda_fused_batch_norm_matches_its_cpu_path(cuda):
                            bn.running_mean, bn.running_var)]
     for a, b in zip(outs["cpu"], outs["cuda"]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+SYNC_BN_CUDA_CASES = [(torch.bfloat16, (64, 256, 14, 14)),
+                      (torch.float16, (32, 3, 8, 8)),
+                      (torch.float32, (777, 384)),
+                      (torch.bfloat16, (1000, 12))]
+
+
+def _sync_bn_inputs(dtype, shape, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen).to(dtype)
+    if x.dim() == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    scale = 1 + 0.1 * torch.randn(c, generator=gen)
+    bias = 0.1 * torch.randn(c, generator=gen)
+    return x, dy, scale, bias
+
+
+def _sync_bn_step(dev, x, dy, scale, bias):
+    """One training step of a SyncBatchNorm layer on ``dev``: y, dx,
+    dscale, dbias and the running statistics, on the CPU."""
+    mod = SyncBatchNorm(x.shape[1], eps=SYNC_BN_EPS, device=dev)
+    with torch.no_grad():
+        mod.weight.copy_(scale)
+        mod.bias.copy_(bias)
+    xt = x.to(dev).requires_grad_()
+    y = mod(xt)
+    y.backward(dy.to(dev))
+    return [t.detach().cpu() for t in (y, xt.grad, mod.weight.grad,
+                                       mod.bias.grad, mod.running_mean,
+                                       mod.running_var)]
+
+
+def _rows_of(t):
+    t = t.float()
+    return t.permute(0, 2, 3, 1).reshape(-1, t.shape[1]) if t.dim() == 4 \
+        else t
+
+
+def _assert_rel(got, want, rel):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(np.abs(want).max(), 1e-6)
+    assert np.abs(got - want).max() <= rel * scale, \
+        (np.abs(got - want).max(), rel * scale)
+
+
+@pytest.mark.parametrize("dtype,shape", SYNC_BN_CUDA_CASES)
+def test_cuda_sync_batch_norm_matches_its_cpu_path(cuda, dtype, shape):
+    """SyncBatchNorm on one card (K2 and K3 in raw mode, once each a layer)
+    against the same module on the CPU (their plain versions)."""
+    x, dy, scale, bias = _sync_bn_inputs(dtype, shape)
+    n0 = K.launch_counts()
+    card = _sync_bn_step(cuda, x, dy, scale, bias)
+    n1 = K.launch_counts()
+    assert (n1["bn_stats"] - n0["bn_stats"],
+            n1["bn_bwd_stats"] - n0["bn_bwd_stats"]) == (1, 1)
+    plain = _sync_bn_step(torch.device("cpu"), x, dy, scale, bias)
+    tol = max(torch.finfo(dtype).eps, 1e-5)
+    for i in (0, 1):                                      # y, dx
+        _assert_rel(card[i].float(), plain[i].float(), tol)
+    rows, dyr = _rows_of(x), _rows_of(dy)
+    xh = (rows - rows.mean(0)) * torch.rsqrt(rows.var(0, unbiased=False)
+                                             + SYNC_BN_EPS)
+    for i, terms in ((2, dyr * xh), (3, dyr)):            # dscale, dbias
+        bound = 1e-4 * terms.abs().sum(0) + 1e-6
+        assert ((card[i] - plain[i]).abs() <= bound).all()
+    for i in (4, 5):                                      # running stats
+        _assert_rel(card[i], plain[i], 1e-5)
+
+
+def test_cuda_sync_batch_norm_issues_no_host_wait(cuda):
+    """A forward and backward raise nothing under torch's sync debug mode,
+    and issued behind a second of device sleep they return while the
+    sleep still runs: nothing reads a device value."""
+    x, dy, scale, bias = _sync_bn_inputs(torch.bfloat16, (64, 256, 14, 14))
+    mod = SyncBatchNorm(256, device=cuda)
+    x, dy = x.to(cuda), dy.to(cuda)
+
+    def step():
+        xt = x.detach().requires_grad_()
+        mod(xt).backward(dy)
+
+    step()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(2_000_000_000)
+    step()
+    issue_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    assert busy and issue_s < total_s / 2, (issue_s, total_s)
 
 
 def test_cuda_grouped_allreduce_through_the_pack_kernel(cuda, monkeypatch):
@@ -1586,3 +1698,124 @@ def test_cuda_cards_adasum_lm_on_nccl(cards, tmp_path, n, local):
                  f"largest error against adasum_stacked "
                  f"{max(max(r['grad']['rel_err']) for r in res):.3g}"
                  if kind == "grad" else ""))
+
+
+@pytest.fixture
+def built(cards):
+    """The kernels built in this process before the ranks start, so no
+    rank spends its world timeout on nvcc."""
+    from horovod_tpu_torch.ops import build
+    build.library()
+    return cards
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_sync_bn_on_nccl(built, tmp_path, n):
+    """SyncBatchNorm on each card's rows (torch_worker's sync_bn cases,
+    even and ragged) over NCCL against the module on the global batch on
+    one card: y, dx and eval's y by rows, dscale and dbias summed over the
+    cards, the statistics and running statistics on every card."""
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("sync_bn", n, tmp_path, device="cuda")
+    for dtype in SYNC_BN_DTYPES:
+        tol = max(float(torch.finfo(getattr(torch, dtype)).eps), 1e-5)
+        for c in SYNC_BN_CHANNELS:
+            for layout in SYNC_BN_LAYOUTS:
+                key = (dtype, c, layout)
+                want = sync_bn_run(0, 1, dtype, c, layout, device="cuda")
+                for field in ("y", "dx", "y_eval"):
+                    _assert_rel(np.concatenate([r[key][field] for r in res]),
+                                want[field], tol)
+                case = sync_bn_case(*key)
+                x = case["x"].reshape(-1, c).astype(np.float64)
+                dy = case["dy"].reshape(-1, c).astype(np.float64)
+                xh = (x - x.mean(0)) / np.sqrt(x.var(0) + SYNC_BN_EPS)
+                for field, terms in (("dscale", dy * xh), ("dbias", dy)):
+                    got = sum(r[key][field] for r in res)
+                    bound = 1e-4 * np.abs(terms).sum(0) + 1e-6
+                    assert np.all(np.abs(got - want[field]) <= bound), key
+                for r in res:
+                    for i in (0, 1):
+                        _assert_rel(r[key]["stats"][i], want["stats"][i],
+                                    1e-5)
+                    for field in ("mean1", "var1", "mean2", "var2"):
+                        _assert_rel(r[key][field], want[field], 1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_alltoall_and_sparse_on_nccl(built, tmp_path, n):
+    """alltoall even, uneven and seeded-uneven, and allreduce_sparse, on
+    NCCL: what the gloo tests assert (tests/test_torch_collectives.py)."""
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("collectives", n, tmp_path, device="cuda")
+    ins = [alltoall_input(s, n) for s in range(n)]
+    sp = [sparse_input(s) for s in range(n)]
+    idx = np.concatenate([i for i, _ in sp])
+    rows = np.unique(idx)
+    sums = np.zeros((len(rows), 2))
+    np.add.at(sums, np.searchsorted(rows, idx),
+              np.concatenate([v for _, v in sp]))
+    for rank, r in enumerate(res):
+        np.testing.assert_array_equal(
+            r["even"], [[100.0 * s + rank] * 2 for s in range(n)])
+        assert r["recv_counts"] == list(range(1, n + 1))
+        parts = [t[sum(sp_[:rank]):sum(sp_[:rank + 1])] for t, sp_ in ins]
+        np.testing.assert_array_equal(r["random"], np.concatenate(parts))
+        assert r["random_counts"] == [sp_[rank] for _, sp_ in ins]
+        assert len(r["errors"]) == 2
+        u, c = r["sparse_sum"]
+        np.testing.assert_array_equal(u, rows)
+        np.testing.assert_allclose(c, sums, rtol=1e-6, atol=1e-7)
+        assert r["sparse_ref"][0].tolist() == [1, 3, 5]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_join_on_nccl(built, tmp_path, n):
+    """The join scenario on NCCL, under the world timeout: what the gloo
+    tests assert (tests/test_torch_join.py), and the active ranks' round
+    issued behind a second of device sleep returns while it runs."""
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("join", n, tmp_path, device="cuda")
+    if n == 4:
+        for rank, r in enumerate(res):
+            assert r["sums"] == [10.0, 9.0, 7.0, 4.0][:rank + 1]
+            assert r["last"] == 3
+        return
+    r0, r1 = res
+    assert r0["ragged"] == ([3.0] * 3, 1)
+    assert r1["ragged"] == ([3.0] * 3 + [2.0] * 3, 1)
+    assert r1["grouped"] == ([[3.0, 3.0]] * 2 + [[2.0, 2.0]] * 2, 1)
+    assert r1["mixed"] == {"bcast": 7.0, "gather_rows": 4, "rs": 1.0,
+                           "alltoall": ([0.0, 2.0, 3.0], [1, 2]), "last": 1}
+    assert "no data to broadcast" in r0["dead_root"]
+    assert "has already joined" in r1["dead_root"]
+    assert r1["overflow"][0][2:] == [[2.0] * JOIN_TENSORS] * 2
+    np.testing.assert_array_equal(r1["adasum"][0][1],
+                                  join_adasum_inputs(1)[1])
+    assert (len(r1["optimizer"][0]), r1["optimizer"][1]) == (3, 1)
+    for r in res:
+        assert r["reads"] == [] and r["disabled"] == 1
+        issue_s, total_s = r["wait"]
+        assert issue_s < total_s / 2, r["wait"]
+
+
+def test_cuda_cards_resnet50_join_round_cost(built, tmp_path):
+    """ResNet-50 at batch 64 a card on 2 cards through
+    DistributedOptimizer, windows with the join round on and off in turns:
+    prints each mode's img/s per card (the slower rank's, median of its
+    windows). Recorded, not gated."""
+    res = run_world("resnet_cards", 2, tmp_path, device="cuda", timeout=600)
+    for r in res:
+        assert np.isfinite(r["losses"]).all()
+        assert [on for on, _ in r["windows"]] == list(RESNET_CARD_MODES)
+    rates = {on: [min(r["windows"][i][1] for r in res)
+                  for i, (m, _) in enumerate(res[0]["windows"]) if m == on]
+             for on in (True, False)}
+    print(f"resnet_cards n=2: img/s per card, join round on "
+          f"{np.median(rates[True]):.1f} (windows "
+          f"{', '.join(f'{v:.1f}' for v in rates[True])}), off "
+          f"{np.median(rates[False]):.1f} (windows "
+          f"{', '.join(f'{v:.1f}' for v in rates[False])})")

@@ -22,6 +22,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -609,11 +610,376 @@ def _adasum_cards_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+# -- SyncBatchNorm, alltoall, allreduce_sparse, join -------------------------
+
+SYNC_BN_EPS = 1e-5
+SYNC_BN_DTYPES = ("float32", "bfloat16", "float16")
+SYNC_BN_CHANNELS = (3, 12, 64)
+# "nhwc": an (8, 3, 3, C) batch, N split evenly; "ragged": a (24, C) batch
+# whose ranks hold these row counts (at np=4 one rank holds none)
+SYNC_BN_LAYOUTS = ("nhwc", "ragged")
+SYNC_BN_RAGGED = {1: [24], 2: [5, 19], 4: [0, 4, 8, 12]}
+
+
+def sync_bn_case(dtype: str, c: int, layout: str) -> dict:
+    """The global batch, cotangent, parameters and running statistics of
+    one SyncBatchNorm case, as float32 numpy (x and dy hold values of
+    ``dtype``: rounded through torch)."""
+    import torch
+    seed = 1000 + 10 * SYNC_BN_CHANNELS.index(c) \
+        + SYNC_BN_LAYOUTS.index(layout)
+    rng = np.random.RandomState(seed)
+    shape = (8, 3, 3, c) if layout == "nhwc" else (24, c)
+
+    def rounded(a):
+        t = torch.from_numpy(a.astype(np.float32))
+        return t.to(getattr(torch, dtype)).float().numpy()
+
+    return {"x": rounded(rng.randn(*shape) * 2 + 0.5),
+            "dy": rounded(rng.randn(*shape)),
+            "scale": (1 + 0.1 * rng.randn(c)).astype(np.float32),
+            "bias": (0.1 * rng.randn(c)).astype(np.float32),
+            "mean": rng.randn(c).astype(np.float32),
+            "var": (1 + rng.rand(c)).astype(np.float32)}
+
+
+def sync_bn_rows(layout: str, rank: int, size: int) -> slice:
+    """The rows of dim 0 of a case's global batch that ``rank`` holds."""
+    if layout == "nhwc":
+        return shard_rows(rank, size, 8)
+    counts = SYNC_BN_RAGGED[size]
+    start = sum(counts[:rank])
+    return slice(start, start + counts[rank])
+
+
+def sync_bn_run(rank: int, size: int, dtype: str, c: int, layout: str,
+                device="cpu") -> dict:
+    """One rank's SyncBatchNorm training step on its rows of a case on
+    ``device``, a second forward, then eval mode: outputs as float32 numpy
+    in the reference's layout (channels last)."""
+    import torch
+    from horovod_tpu_torch.models.convert import sync_batch_norm_from_flax
+    from horovod_tpu_torch.ops.sync_batch_norm import (SyncBatchNorm,
+                                                       sync_batch_stats)
+    case = sync_bn_case(dtype, c, layout)
+    rows = sync_bn_rows(layout, rank, size)
+    tdtype = getattr(torch, dtype)
+
+    def to_port(a):
+        t = torch.from_numpy(np.ascontiguousarray(a[rows])).to(device,
+                                                                 tdtype)
+        return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+    def to_ref(t):
+        t = t.detach().float().cpu()
+        return (t.permute(0, 2, 3, 1) if t.dim() == 4 else t).numpy()
+
+    mod = SyncBatchNorm(c, momentum=0.9, eps=SYNC_BN_EPS, device=device)
+    mod.load_state_dict(sync_batch_norm_from_flax(
+        {"params": {k: case[k] for k in ("scale", "bias")},
+         "batch_stats": {k: case[k] for k in ("mean", "var")}}))
+    x = to_port(case["x"]).requires_grad_()
+    y = mod(x)
+    y.backward(to_port(case["dy"]))
+    out = {"y": to_ref(y), "dx": to_ref(x.grad),
+           "dscale": mod.weight.grad.cpu().numpy(),
+           "dbias": mod.bias.grad.cpu().numpy(),
+           "mean1": mod.running_mean.cpu().numpy().copy(),
+           "var1": mod.running_var.cpu().numpy().copy(),
+           "stats": [s.cpu().numpy() for s in sync_batch_stats(x.detach())]}
+    with torch.no_grad():
+        mod(x)
+    out["mean2"] = mod.running_mean.cpu().numpy().copy()
+    out["var2"] = mod.running_var.cpu().numpy().copy()
+    mod.eval()
+    with torch.no_grad():
+        out["y_eval"] = to_ref(mod(x))
+    return out
+
+
+def _sync_bn_scenario(hvd, rank: int, size: int) -> dict:
+    import torch
+    torch.set_num_threads(1)
+    return {(dtype, c, layout): sync_bn_run(rank, size, dtype, c, layout,
+                                            hvd.device())
+            for dtype in SYNC_BN_DTYPES for c in SYNC_BN_CHANNELS
+            for layout in SYNC_BN_LAYOUTS}
+
+
+def alltoall_input(rank: int, size: int):
+    """A rank's (tensor, splits) of the seeded uneven alltoall: 0-3 rows to
+    each rank, rows of 3 float32."""
+    rng = np.random.RandomState(40 + rank)
+    splits = rng.randint(0, 4, size=size)
+    return (rng.randn(int(splits.sum()), 3).astype(np.float32),
+            splits.tolist())
+
+
+def sparse_input(rank: int):
+    """A rank's (indices, values) of the seeded sparse allreduce over 10
+    rows: 4 rows, duplicates allowed."""
+    rng = np.random.RandomState(60 + rank)
+    return (rng.randint(0, 10, size=4),
+            rng.randn(4, 2).astype(np.float32))
+
+
+def _collectives_scenario(hvd, rank: int, size: int) -> dict:
+    """alltoall even, uneven and seeded-uneven, its two ValueError paths,
+    and allreduce_sparse against the dense allreduce."""
+    import torch
+    out = {}
+    x = torch.stack([torch.full((2,), float(100 * rank + d))
+                     for d in range(size)])
+    out["even"] = hvd.alltoall(x, name="at").cpu().numpy()
+    xs = torch.full(((rank + 1) * size, 1), float(rank))
+    recv, counts = hvd.alltoall(xs, splits=[rank + 1] * size, name="atv")
+    out["recv_counts"] = counts.tolist()
+    out["recv_rows"] = int(recv.shape[0])
+    t, splits = alltoall_input(rank, size)
+    h = hvd.alltoall_async(torch.from_numpy(t), splits=splits, name="atr")
+    recv, counts = hvd.synchronize(h)
+    out["random"], out["random_counts"] = recv.cpu().numpy(), counts.tolist()
+    errors = []
+    for bad in (dict(tensor=torch.ones(size + 1, 2)),
+                dict(tensor=torch.ones(3, 2), splits=[1] * size)):
+        try:
+            hvd.alltoall(name="bad", **bad)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    idx, val = sparse_input(rank)
+    out["sparse_sum"] = [a.cpu().numpy() for a in hvd.allreduce_sparse(
+        idx, val, n_rows=10, name="sp.sum", average=False)]
+    out["sparse_avg"] = [a.cpu().numpy() for a in hvd.allreduce_sparse(
+        idx, val, n_rows=10, name="sp.avg")]
+    dense = torch.zeros(10, 2).index_add_(0, torch.from_numpy(idx),
+                                          torch.from_numpy(val))
+    out["dense"] = hvd.allreduce(dense, name="sp.dense",
+                                 op=hvd.Sum).cpu().numpy()
+    # tests/test_multiprocess.py's case
+    idx = np.array([1, 3]) if rank == 0 else np.array([3, 5])
+    out["sparse_ref"] = [a.cpu().numpy() for a in hvd.allreduce_sparse(
+        idx, np.full((2, 2), float(rank + 1), np.float32), n_rows=8,
+        name="sp.ref", average=False)]
+    return out
+
+
+JOIN_TENSORS = 24      # a grouped call past the 16 inline metadata slots
+
+
+def join_adasum_inputs(rank: int) -> list:
+    """A rank's two tensors of the join scenario's Adasum reductions."""
+    rng = np.random.RandomState(80 + rank)
+    return [rng.randn(6).astype(np.float32) for _ in range(2)]
+
+
+def _join_optimizer(hvd, rank: int, size: int, steps: int) -> list:
+    """``steps`` SGD-momentum steps of the optimizer scenario's MLP on this
+    rank's shard through DistributedOptimizer(op=Average); the weights
+    after each step."""
+    dev = hvd.device()
+    import torch
+    data_x, data_y = mlp_data()
+    w1, w2 = mlp_params()
+    model = torch.nn.Sequential(torch.nn.Linear(4, 8, bias=False),
+                                torch.nn.Tanh(),
+                                torch.nn.Linear(8, 2, bias=False))
+    with torch.no_grad():
+        model[0].weight.copy_(torch.from_numpy(w1.T))
+        model[2].weight.copy_(torch.from_numpy(w2.T))
+    model.to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        op=hvd.Average)
+    shard = shard_rows(rank, size, len(data_x))
+    xs = torch.from_numpy(data_x[shard]).to(dev)
+    ys = torch.from_numpy(data_y[shard]).to(dev)
+    traj = []
+    for _ in range(steps):
+        opt.zero_grad()
+        ((model(xs) - ys) ** 2).mean().backward()
+        opt.step()
+        traj.append([model[0].weight.detach().cpu().numpy().T.copy(),
+                     model[2].weight.detach().cpu().numpy().T.copy()])
+    return traj
+
+
+def _join_scenario(hvd, rank: int, size: int) -> dict:
+    """At np=2 the join cases of the reference's tests/test_join.py, one
+    after another in one world (rank 0 runs out of data first), plus
+    alltoall, Adasum and DistributedOptimizer under join, the overflow
+    exchange and HOROVOD_JOIN_DISABLE. At np=4 the reference's round test
+    (rank r runs r + 1 allreduces, then joins)."""
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    out = {}
+    if size == 4:
+        sums = [float(hvd.allreduce(torch.ones(3) * (rank + 1), name=f"j{k}",
+                                    op=hvd.Sum)[0]) for k in range(rank + 1)]
+        return {"sums": sums, "last": hvd.join()}
+    # ragged allreduce: 3 batches against 6
+    res = [float(hvd.allreduce(torch.ones(4) * (rank + 1), name=f"b{b}",
+                               op=hvd.Sum)[0])
+           for b in range(3 if rank == 0 else 6)]
+    out["ragged"] = (res, hvd.join())
+    # ragged grouped: 2 batches against 4
+    sums = []
+    for b in range(2 if rank == 0 else 4):
+        outs = hvd.grouped_allreduce(
+            [torch.ones(3) * (rank + 1), torch.ones(2, 2) * (rank + 1)],
+            name=f"g{b}", op=hvd.Sum)
+        sums.append([float(o.reshape(-1)[0]) for o in outs])
+    out["grouped"] = (sums, hvd.join())
+    # mixed ops after rank 0 joined
+    if rank == 0:
+        out["mixed"] = {"last": hvd.join()}
+    else:
+        mixed = {"bcast": float(hvd.broadcast(torch.full((3,), 7.0), 1,
+                                              name="bc")[0])}
+        mixed["gather_rows"] = int(hvd.allgather(torch.ones(2, 2),
+                                                 name="ag").shape[0])
+        mixed["rs"] = float(hvd.reducescatter(torch.ones(4, 2),
+                                              name="rs")[0, 0])
+        recv, counts = hvd.alltoall(torch.arange(1.0, 4.0)[:, None],
+                                    splits=[1, 2], name="a2a")
+        mixed["alltoall"] = (recv.reshape(-1).tolist(), counts.tolist())
+        mixed["last"] = hvd.join()
+        out["mixed"] = mixed
+    # a broadcast from a joined root raises on both ranks
+    try:
+        if rank == 0:
+            hvd.join()
+        else:
+            hvd.broadcast(torch.ones(3), root_rank=0, name="bad")
+        out["dead_root"] = "no-error"
+    except hvd.HorovodInternalError as e:
+        out["dead_root"] = str(e)
+    # 24 tensors a grouped call: the metadata overflow exchange
+    sums = []
+    for b in range(2 if rank == 0 else 4):
+        outs = hvd.grouped_allreduce(
+            [torch.ones(2, i + 1) * (rank + 1) for i in range(JOIN_TENSORS)],
+            name=f"ov{b}", op=hvd.Sum)
+        sums.append([float(o.reshape(-1)[0]) for o in outs])
+    out["overflow"] = (sums, hvd.join())
+    # Adasum: 1 reduction against 2
+    xs = join_adasum_inputs(rank)
+    out["adasum"] = ([hvd.allreduce(torch.from_numpy(x), name=f"ad{i}",
+                                    op=hvd.Adasum).cpu().numpy()
+                      for i, x in enumerate(xs[:1 if rank == 0 else 2])],
+                     hvd.join())
+    # DistributedOptimizer: 1 step against 3, the joined rank's zeros in
+    # the Average
+    out["optimizer"] = (_join_optimizer(hvd, rank, size,
+                                        1 if rank == 0 else 3), hvd.join())
+    # the active ranks' round issues no host read of a device value
+    dev = hvd.device()
+    ones = torch.ones(5, device=dev)
+    reads = []
+    names = ("item", "tolist", "cpu", "numpy")
+    saved = {n: getattr(torch.Tensor, n) for n in names}
+
+    def counting(n):
+        def f(self, *a, **k):
+            reads.append(n)
+            return saved[n](self, *a, **k)
+        return f
+
+    for n in names:
+        setattr(torch.Tensor, n, counting(n))
+    try:
+        h = hvd.allreduce_async(ones, name="noread")
+    finally:
+        for n in names:
+            setattr(torch.Tensor, n, saved[n])
+    h.synchronize()
+    out["reads"] = reads
+    if dev.type == "cuda":
+        # nor does it wait on the card: issued behind a second of device
+        # sleep, it returns while the sleep runs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(2_000_000_000)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            h = hvd.allreduce_async(ones, name="nowait")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        issue_s = time.perf_counter() - t0
+        h.synchronize()
+        torch.cuda.synchronize()
+        out["wait"] = (issue_s, time.perf_counter() - t0)
+    # HOROVOD_JOIN_DISABLE: join is a barrier and returns size - 1
+    cfg = global_state().config
+    cfg.join_enabled = False
+    out["disabled"] = hvd.join()
+    cfg.join_enabled = True
+    return out
+
+
+RESNET_CARD_STEPS = 10         # steps in each timed window
+# the join round on, off, off, on, ... (a window each; ranks flip together)
+RESNET_CARD_MODES = (True, False, False, True) * 2
+
+
+def _resnet_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """ResNet-50 (bf16, FusedBatchNorm, batch 64 a rank, SGD momentum
+    through DistributedOptimizer(op=Average)) on the card; a tiny ResNet
+    at batch 2 on the CPU rehearsal. After 3 warm-up steps, windows of
+    RESNET_CARD_STEPS steps (2 on the CPU) with the join round on and off
+    in turns (every rank flips at the same step): each window's img/s on
+    this rank."""
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models.resnet import ResNet18ish, ResNet50
+    dev = hvd.device()
+    cuda = dev.type == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)     # the ranks share the cores
+    batch, image = (64, 224) if cuda else (2, 32)
+    model = (ResNet50 if cuda else ResNet18ish)(
+        num_classes=1000, dtype=torch.bfloat16, fused_bn=True,
+        generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator().manual_seed(rank)
+    images = torch.rand(batch, image, image, 3, generator=gen).to(dev)
+    labels = torch.randint(0, 1000, (batch,), generator=gen).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        op=hvd.Average)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = global_state().config
+
+    def step():
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(model(images), labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(step()) for _ in range(3)]
+    steps = RESNET_CARD_STEPS if cuda else 2
+    windows = []
+    for join_on in RESNET_CARD_MODES:
+        cfg.join_enabled = join_on
+        sync()
+        t0 = time.perf_counter()
+        timed = [step() for _ in range(steps)]
+        sync()
+        windows.append((join_on, batch * steps
+                        / (time.perf_counter() - t0)))
+        losses += [float(v) for v in timed]
+    cfg.join_enabled = True
+    return {"windows": windows, "losses": losses, "batch": batch}
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
              "adasum": _adasum_scenario,
-             "adasum_cards": _adasum_cards_scenario}
+             "adasum_cards": _adasum_cards_scenario,
+             "sync_bn": _sync_bn_scenario,
+             "collectives": _collectives_scenario, "join": _join_scenario,
+             "resnet_cards": _resnet_cards_scenario}
 
 
 def main(argv):
