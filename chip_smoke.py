@@ -121,7 +121,20 @@ and then:
     CPU's sums within 1e-5 of sum |terms|), checks that issuing the step
     waits on no device value, and times the stack's forward + backward
     beside ``FusedBatchNorm``'s, with a profile of both (device time,
-    launches a layer).
+    launches a layer);
+15. reduces ResNet-50's 161 gradients (batch 64, bf16 compute, fp32
+    parameters) inside ``hvd.step()`` with ``grouped_allreduce_async``
+    (Average, postscale 0.5) between each backward and SGD step: the
+    warm-up steps record, the stream arms once, and every later step
+    replays as one CUDA graph holding K1 once a bucket, the NCCL allreduce
+    and the finish, its results bitwise the eager path's on the same
+    gradients, a held result unchanged by the next replay, a divergent
+    step (one gradient left out) falling back with correct values, no host
+    wait under ``torch.cuda.set_sync_debug_mode("error")``; a trace of one
+    eager and one replayed reduction (exactly one ``cudaGraphLaunch`` and no
+    ``cudaLaunchKernel``, K1 in the graph, the graph's NCCL operations the
+    eager path's), and the host ms of the reduction, the device ms, the
+    runtime calls, img/s with replay on and off in turns, peak memory.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -131,7 +144,7 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13 and 14) and read just after it; every kernel of the
+each form of 11, 12, 13, 14 and 15) and read just after it; every kernel of the
 path must have launched there (53 BN layers per ResNet step for each BN
 kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
 one pack per 64 MB bucket, one of each K6 kernel per attention layer and
@@ -316,6 +329,14 @@ ADASUM_LOCAL = 2               # the hierarchical form's local size
 ADASUM_WINDOWS = 5             # timed whole reductions of each form
 # phase 12: ViT_Tiny in fp32 (head dim 16), batch, image size, steps
 TINY_BATCH, TINY_IMAGE, TINY_STEPS = 32, 64, 3
+# phase 15: step replay of ResNet-50's gradient reduction
+REPLAY_CHECKED = 3             # replayed steps held bitwise to the eager path
+REPLAY_TIMED = 20              # reductions timed by the host clock each way
+REPLAY_WINDOW_STEPS = 10       # training steps in each timed window
+REPLAY_MODES = (True, False, False, True, True, False)   # replay on/off
+# the runtime and driver calls that launch one kernel
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 class SmokeFailure(Exception):
@@ -2274,6 +2295,268 @@ def run_sync_bn_path(torch, K, SyncBatchNorm, FusedBatchNorm, dev, batch,
             counts)
 
 
+def _traced_reduction(torch, fn, ok):
+    """The host's CUDA runtime calls by name (a Counter) and the device
+    operations as (name, us) of one ``fn()``: the active step of a
+    torch.profiler schedule whose warm-up step runs ``fn()`` too (a trace
+    started cold lost a replayed graph's kernels in most tries after the
+    earlier phases' traces), each step padded with TRACE_PAD_S of idle host
+    time on either side, traced again while ``ok(host, device)`` is false
+    (lost events: trace_kernels)."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cpu = torch.autograd.DeviceType.CPU
+    seen = {}
+
+    def read(prof):   # the active step's events, before they are cleared
+        events = prof.events()
+        seen["host"] = Counter(e.name for e in events
+                               if e.device_type == cpu
+                               and e.name.startswith("cu"))
+        # the schedule's step annotation spans the step on the device too
+        seen["device"] = [(e.name, e.time_range.elapsed_us())
+                          for e in events if e.device_type != cpu
+                          and not e.name.startswith("ProfilerStep")]
+
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            time.sleep(TRACE_RETRY_S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=read) as prof:
+            for _ in range(2):
+                time.sleep(TRACE_PAD_S)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(TRACE_PAD_S)
+                prof.step()
+        if ok(seen["host"], seen["device"]):
+            break
+        TRACE_LOST.append((attempt, len(seen["device"])))
+    return seen["host"], seen["device"]
+
+
+def run_replay_path(torch, hvd, K, ResNet50, bucket_by_size, dev, batch,
+                    log):
+    """Phase 15: ResNet-50's 161 gradients reduced inside ``hvd.step()``
+    (``grouped_allreduce_async``, Average, postscale 0.5) between the
+    backward and the SGD step: the warm-up steps record, the stream arms
+    once, later steps replay as one CUDA graph (K1 once a bucket, the NCCL
+    allreduce, the finish) with results bitwise the eager path's on the
+    same gradients, a held result unchanged by the next replay, a divergent
+    step (one gradient left out) falling back with correct values, and no
+    host wait under the sync debug mode. Then a trace of one eager and one
+    replayed reduction (runtime calls, device time), the host ms of the
+    reduction each way, img/s with replay on and off in turns, peak
+    memory. Returns (summary, launch counts)."""
+    from horovod_tpu_torch.core.state import engine
+    eng = engine()
+    cfg, rep = eng.config, eng.replay
+    check(hvd.size() == 1 and cfg.step_replay and cfg.pack_kernel,
+          "phase 15 needs a size-1 world with replay and the pack kernel on")
+    warm = cfg.step_replay_warmup
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = ResNet50(num_classes=1000, dtype=torch.bfloat16, fused_bn=True,
+                     generator=torch.Generator().manual_seed(0)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.rand(batch, 224, 224, 3, device=dev, generator=gen)
+    labels = torch.randint(0, 1000, (batch,), device=dev, generator=gen)
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=0.01, momentum=0.9)
+    model.train()
+    names = iter(range(1 << 30))
+
+    def backward():
+        opt.zero_grad(set_to_none=True)  # fresh gradients: new addresses
+        loss = torch.nn.functional.cross_entropy(model(images), labels)
+        loss.backward()
+        return float(loss.detach()), [p.grad for p in params]
+
+    def eager(grads):
+        """The eager path on the same gradients (outside a step)."""
+        return [h.synchronize() for h in eng.grouped_allreduce(
+            grads, op=hvd.Average, postscale_factor=0.5)]
+
+    def reduce(grads, debug=True):
+        """The step's reduction; under the sync debug mode nothing may
+        wait on the card."""
+        if debug:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            with hvd.step():
+                hs = hvd.grouped_allreduce_async(
+                    grads, name=f"replay.g{next(names)}", op=hvd.Average,
+                    postscale_factor=0.5)
+            return [h.synchronize() for h in hs]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def apply(outs):
+        for p, g in zip(params, outs):
+            p.grad = g
+        opt.step()
+
+    def counters():
+        return (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+
+    start = counters()
+    K.reset_launch_counts()
+    steps, losses, held = 0, [], None
+    for i in range(warm + REPLAY_CHECKED):
+        loss, grads = backward()
+        want = eager(grads)
+        outs = reduce(grads)
+        steps += 1
+        check(len(outs) == len(grads) == 161
+              and all(torch.equal(a, b) for a, b in zip(outs, want)),
+              f"step {i}: the reduction differs from the eager path's")
+        if held is not None:
+            check(all(torch.equal(o, c) for o, c in held),
+                  f"step {i}: a result held from the step before changed")
+        held = [(o, o.clone()) for o in outs]
+        got = tuple(a - b for a, b in zip(counters(), start))
+        check(got == (int(i + 1 >= warm), max(0, i + 1 - warm), 0),
+              f"step {i}: replay counters {got}")
+        apply(outs)
+        losses.append(loss)
+    n_buckets = len(bucket_by_size(grads, cfg.fusion_threshold_bytes))
+    # a divergent step: one gradient left out falls back to the eager path
+    loss, grads = backward()
+    before = counters()
+    want = eager(grads[:-1])
+    outs = reduce(grads[:-1])
+    steps += 1
+    check(all(torch.equal(a, b) for a, b in zip(outs, want))
+          and counters() == (before[0], before[1], before[2] + 1),
+          f"the divergent step: counters {before} -> {counters()}")
+    apply(outs)
+    losses.append(loss)
+    # the next matching step replays again
+    loss, grads = backward()
+    before = counters()
+    want = eager(grads)
+    outs = reduce(grads)
+    steps += 1
+    check(all(torch.equal(a, b) for a, b in zip(outs, want))
+          and counters() == (before[0], before[1] + 1, before[2]),
+          f"the step after the divergent one did not replay: {counters()}")
+    apply(outs)
+    losses.append(loss)
+    check(all(v == v and abs(v) != float("inf") for v in losses),
+          f"non-finite loss in phase 15: {losses}")
+
+    # one eager and one replayed reduction of the same gradients, traced
+    replayed0 = rep.replayed_steps
+    eager_host, eager_dev = _traced_reduction(
+        torch, lambda: eager(grads),
+        lambda h, d: sum("pack_kernel" in n for n, _ in d) == n_buckets)
+    copies0 = (rep.table_copies, rep.copy_outs)
+    graph_host, graph_dev = _traced_reduction(
+        torch, lambda: reduce(grads, debug=False),
+        lambda h, d: sum("pack_kernel" in n for n, _ in d) == n_buckets)
+    replays = rep.replayed_steps - replayed0
+    check(replays >= 1
+          and rep.table_copies - copies0[0] == n_buckets * replays
+          and rep.copy_outs - copies0[1] == n_buckets * replays,
+          "the traced reductions were not replayed with one table copy and "
+          "one copy-out a bucket")
+    check(graph_host["cudaGraphLaunch"] == 1
+          and sum(graph_host[k] for k in KERNEL_LAUNCH_CALLS) == 0,
+          f"a replayed reduction's runtime calls: {dict(graph_host)}")
+    check(sum("pack_kernel" in n for n, _ in graph_dev) == n_buckets,
+          f"the graph's trace holds no K1 a bucket: {graph_dev}")
+    nccl_eager = sum("nccl" in n.lower() for n, _ in eager_dev)
+    nccl_graph = sum("nccl" in n.lower() for n, _ in graph_dev)
+    check(nccl_graph == nccl_eager,
+          f"NCCL operations: graph {nccl_graph}, eager {nccl_eager}")
+
+    def split(device):
+        """Device us of the kernels, the copies and the table refreshes."""
+        out = {"kernels": 0.0, "copy_outs": 0.0, "table_copies": 0.0}
+        for n, us in device:
+            key = ("table_copies" if "HtoD" in n else "copy_outs"
+                   if "DtoD" in n else "kernels")
+            out[key] += us
+        return {k: v / 1e3 for k, v in out.items()}
+
+    launches = {mode: {k: v for k, v in host.items()
+                       if "Launch" in k or "Memcpy" in k}
+                for mode, host in (("eager", eager_host),
+                                   ("replayed", graph_host))}
+    dev_ms = {"eager": split(eager_dev), "replayed": split(graph_dev)}
+
+    # host ms of the reduction phase, eager (replay off) against replayed,
+    # on the same gradients in turns; the armed stream stays armed
+    host_ms = {True: [], False: []}
+    for _ in range(REPLAY_TIMED):
+        for on in (False, True):
+            cfg.step_replay = on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reduce(grads, debug=False)
+            host_ms[on].append(1e3 * (time.perf_counter() - t0))
+    cfg.step_replay = True
+    torch.cuda.synchronize()
+
+    # img/s of the whole step with replay on and off, in turns
+    windows = []
+    for on in REPLAY_MODES:
+        cfg.step_replay = on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPLAY_WINDOW_STEPS):
+            _, grads = backward()
+            apply(reduce(grads, debug=False))
+        torch.cuda.synchronize()
+        windows.append((on, batch * REPLAY_WINDOW_STEPS
+                        / (time.perf_counter() - t0)))
+        steps += REPLAY_WINDOW_STEPS
+    cfg.step_replay = True
+    counts = K.launch_counts()
+    replayed = rep.replayed_steps - start[1]
+    check(counts["pack_graph"] == n_buckets * replayed,
+          f"K1 ran {counts['pack_graph']} times as a graph node, expected "
+          f"{n_buckets} a replayed step ({replayed})")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rep.invalidate_all("phase 15 done")
+    rates = {on: [r for m, r in windows if m == on] for on in (True, False)}
+    summary = {
+        "tensors": len(params), "buckets": n_buckets,
+        "form": "one CUDA graph a step (K1, the NCCL collectives and the "
+                "finish captured; ProcessGroupNCCL under capture)",
+        "counters": tuple(a - b for a, b in zip(counters(), start)),
+        "host_ms_eager": statistics.median(host_ms[False]),
+        "host_ms_replayed": statistics.median(host_ms[True]),
+        "host_ms_eager_range": (min(host_ms[False]), max(host_ms[False])),
+        "host_ms_replayed_range": (min(host_ms[True]), max(host_ms[True])),
+        "device_ms": dev_ms, "launches": launches,
+        "nccl_ops": {"eager": nccl_eager, "graph": nccl_graph},
+        "graph_kernels": sorted({n for n, _ in graph_dev}),
+        "img_per_s_on": statistics.mean(rates[True]),
+        "img_per_s_off": statistics.mean(rates[False]),
+        "windows": windows, "peak_gib": peak, "losses": losses,
+        "steps": steps}
+    log(f"  form: {summary['form']}")
+    log(f"  counters (captured, replayed, fallbacks): {summary['counters']}; "
+        f"{n_buckets} buckets of {len(params)} gradients")
+    log(f"  host ms of the reduction: eager "
+        f"{summary['host_ms_eager']:.3f} ({min(host_ms[False]):.3f}-"
+        f"{max(host_ms[False]):.3f}), replayed "
+        f"{summary['host_ms_replayed']:.3f} ({min(host_ms[True]):.3f}-"
+        f"{max(host_ms[True]):.3f}), median of {REPLAY_TIMED}")
+    log(f"  device ms: eager {dev_ms['eager']}, replayed {dev_ms['replayed']}"
+        f"; NCCL operations eager {nccl_eager}, graph {nccl_graph}")
+    log(f"  runtime calls: eager {launches['eager']}, replayed "
+        f"{launches['replayed']}; graph kernels {summary['graph_kernels']}")
+    log(f"  img/s: replay on {summary['img_per_s_on']:.1f}, off "
+        f"{summary['img_per_s_off']:.1f} (windows: "
+        f"{', '.join(f'{m}:{r:.1f}' for m, r in windows)}); peak memory "
+        f"{peak:.2f} GiB")
+    return summary, counts
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -2608,6 +2891,17 @@ def main(argv=None) -> int:
         sync_bn, sync_bn_counts = run_sync_bn_path(
             torch, K, SyncBatchNorm, FusedBatchNorm, dev, args.batch, log)
         torch.cuda.empty_cache()
+
+        log(f"phase 15: step replay of ResNet-50's gradient reduction, "
+            f"batch {args.batch}")
+        replay, replay_counts = run_replay_path(
+            torch, hvd, K, ResNet50, bucket_by_size, dev, args.batch, log)
+        check(replay_counts["bn_stats"] == 53 * replay["steps"]
+              and replay_counts["bn_bwd_stats"] == 53 * replay["steps"],
+              f"BN kernels launched {replay_counts['bn_stats']} and "
+              f"{replay_counts['bn_bwd_stats']} times in phase 15, expected "
+              f"{53 * replay['steps']}")
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -2708,7 +3002,8 @@ def main(argv=None) -> int:
              bound_ms=pack_row["bound_ms"], bound_by="bytes",
              library_ms=pack_row["library_ms"], ok=True,
              work="ResNet-50 fp32 gradients, 2 buckets at 64 MB",
-             lm_launches=lm_pack),
+             lm_launches=lm_pack,
+             replay_launches=replay_counts["pack_graph"]),
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
              launches=counts["bn_stats"], bound_by="bytes",
@@ -2777,6 +3072,7 @@ def main(argv=None) -> int:
                       "lm_peak_gib": lm_peak, "attention": attention,
                       "ring": ring, "adasum": adasum, "vit_tiny": tiny,
                       "wide_attention": wide, "sync_bn": sync_bn,
+                      "replay": replay,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ package's Pallas kernels rewritten by hand in CUDA C++ for Hopper::
 
 Ported so far: the world, the eager engine (allreduce, grouped allreduce,
 allgather, broadcast, reducescatter, alltoall with uneven splits, barrier,
-async handles, ``join`` for ranks that run out of data), Adasum (flat
+async handles, ``join`` for ranks that run out of data, step-capture
+replay between ``step_begin``/``step_end`` as one CUDA graph), Adasum (flat
 and hierarchical, ``op=hvd.Adasum``), ``DistributedOptimizer`` and
 ``DistributedDeltaAdasumOptimizer``, the broadcast helpers and
 ``allreduce_sparse``, ResNet with the fused BatchNorm, ``SyncBatchNorm``
@@ -244,7 +245,8 @@ from .optimizer import (  # noqa: E402
 from .ops.compression import Compression  # noqa: E402
 from .functions import (  # noqa: E402
     allgather_object, allreduce_sparse, broadcast_object,
-    broadcast_optimizer_state, broadcast_parameters)
+    broadcast_optimizer_state, broadcast_parameters, step, step_begin,
+    step_end)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
@@ -253,10 +255,10 @@ __all__ = [
     "grouped_allreduce_async", "allgather", "allgather_async", "broadcast",
     "broadcast_async", "alltoall", "alltoall_async", "reducescatter",
     "reducescatter_async", "barrier", "join", "poll", "synchronize",
-    "broadcast_parameters", "broadcast_object", "allgather_object",
+    "step_begin", "step_end", "step", "broadcast_parameters", "broadcast_object", "allgather_object",
     "allreduce_sparse",
     "broadcast_optimizer_state", "DistributedOptimizer",
-    "DistributedDeltaAdasumOptimizer", "Compression",
+    "DistributedDeltaAdasumOptimizer", "Compression", "optimizer",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "HorovodInternalError", "HostsUpdatedInterrupt", "DuplicateNameError",
     "__version__",

@@ -25,6 +25,13 @@ HOROVOD_PALLAS_PACK = "HOROVOD_PALLAS_PACK"
 HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
 HOROVOD_JOIN_DISABLE = "HOROVOD_JOIN_DISABLE"
 HOROVOD_JOIN_META_SLOTS = "HOROVOD_JOIN_META_SLOTS"
+# step-capture replay (core/replay.py): record the collective stream between
+# hvd.step_begin()/step_end() and, once the same signature repeats WARMUP
+# times, service the whole step as one armed program; =0 disables
+HOROVOD_TPU_STEP_REPLAY = "HOROVOD_TPU_STEP_REPLAY"
+HOROVOD_TPU_STEP_REPLAY_WARMUP = "HOROVOD_TPU_STEP_REPLAY_WARMUP"
+# elastic world identity: a bump invalidates every armed replay stream
+HOROVOD_TPU_WORLD_VERSION = "HOROVOD_TPU_WORLD_VERSION"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_JOIN_META_SLOTS = 16
@@ -66,6 +73,9 @@ class Config:
     # metadata rows carried inline in a join round; a grouped call with
     # more tensors sends the rest in one overflow exchange
     join_meta_slots: int = DEFAULT_JOIN_META_SLOTS
+    # step replay: on by default, armed after this many identical steps
+    step_replay: bool = True
+    step_replay_warmup: int = 3
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -77,4 +87,6 @@ class Config:
             join_enabled=not _get_bool(HOROVOD_JOIN_DISABLE),
             join_meta_slots=_get_int(HOROVOD_JOIN_META_SLOTS,
                                      DEFAULT_JOIN_META_SLOTS),
+            step_replay=_get_bool(HOROVOD_TPU_STEP_REPLAY, True),
+            step_replay_warmup=_get_int(HOROVOD_TPU_STEP_REPLAY_WARMUP, 3),
         )

@@ -26,19 +26,26 @@ joined. ``HOROVOD_JOIN_DISABLE=1`` drops the round, and ``join()`` is a
 barrier. The reference's ``sharded_step`` and ``grouped_alltoall``
 substitutes come with those collectives (ROADMAP A9, A16).
 
+Step replay (the reference's :1015-1060, ``core/replay.py``): between
+:meth:`Engine.step_begin` and :meth:`Engine.step_end` every collective
+first reports to :class:`~.replay.StepReplay` (``intercept`` for the
+replayable kinds, before any registration or join round; ``observe`` for
+the others), which services a matching step from its armed program.
+
 Not ported yet (the reference's other engine paths): the ZeRO-1 sharded
-step, step replay, overlap, wire codecs, alltoall's steady-state splits
-cache, algorithm selection (hierarchical Sum/Average and alltoall),
-autotune, metrics and tracing. Until algorithm selection is ported, a
-Sum/Average allreduce under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat
-and says so once per process, as the reference does when it demotes an
-algorithm.
+step, replay's overlap modes and single-launch form, wire codecs,
+alltoall's steady-state splits cache, algorithm selection (hierarchical
+Sum/Average and alltoall), autotune, metrics and tracing. Until algorithm
+selection is ported, a Sum/Average allreduce under
+``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat and says so once per
+process, as the reference does when it demotes an algorithm.
 """
 
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -51,6 +58,7 @@ from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..common.reduce_ops import ReduceOp
 from ..ops import collectives as C
 from .backend import Backend
+from .replay import StepReplay
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -249,17 +257,21 @@ _JOIN_META_DIMS = 7
 _JOIN_META_LEN = 3 + _JOIN_META_DIMS  # [op_or_root, dtype, ndim, d0..d6]
 
 
-def _join_meta_row(x: torch.Tensor, op_or_root: int) -> np.ndarray:
+def _meta_row(shape, dtype: torch.dtype, op_or_root: int) -> np.ndarray:
     """One tensor's metadata row of a join round."""
-    code = _DTYPE_CODES.get(x.dtype)
+    code = _DTYPE_CODES.get(dtype)
     if code is None:
-        raise ValueError(f"dtype {x.dtype} unsupported under the Join "
+        raise ValueError(f"dtype {dtype} unsupported under the Join "
                          f"protocol; set HOROVOD_JOIN_DISABLE=1")
-    if x.dim() > _JOIN_META_DIMS:
-        raise ValueError(f"ndim {x.dim()} > {_JOIN_META_DIMS} unsupported "
-                         f"under the Join protocol")
-    dims = [int(d) for d in x.shape] + [-1] * (_JOIN_META_DIMS - x.dim())
-    return np.array([op_or_root, code, x.dim()] + dims, dtype=np.int64)
+    if len(shape) > _JOIN_META_DIMS:
+        raise ValueError(f"ndim {len(shape)} > {_JOIN_META_DIMS} "
+                         f"unsupported under the Join protocol")
+    dims = [int(d) for d in shape] + [-1] * (_JOIN_META_DIMS - len(shape))
+    return np.array([op_or_root, code, len(shape)] + dims, dtype=np.int64)
+
+
+def _join_meta_row(x: torch.Tensor, op_or_root: int) -> np.ndarray:
+    return _meta_row(tuple(x.shape), x.dtype, op_or_root)
 
 
 class Engine:
@@ -278,6 +290,16 @@ class Engine:
         self._join_substitute = False
         # (work, tensors) of posted join rounds, kept until the work is done
         self._posted = collections.deque()
+        # collective launches: one a bucket of a fused call, one a call
+        # otherwise, one a replayed step
+        self.dispatch_count = 0
+        # elastic world identity: a bump invalidates every armed replay
+        # stream (HOROVOD_TPU_WORLD_VERSION; it only moves forward)
+        self.world_version = int(
+            os.environ.get(env_mod.HOROVOD_TPU_WORLD_VERSION, "0") or 0)
+        # on_replay(event, detail): capture, replay, fallback, invalidate
+        self.on_replay: Optional[Callable[[str, str], None]] = None
+        self._replay = StepReplay(self)
 
     # -- internals ---------------------------------------------------------
 
@@ -311,6 +333,42 @@ class Engine:
             if self._outstanding.get(h.name) is h:
                 del self._outstanding[h.name]
 
+    # -- step-capture replay (core/replay.py) ------------------------------
+
+    def step_begin(self):
+        """Mark the start of one training step. Between step_begin and
+        step_end the engine records the ordered collective stream; once the
+        same signature repeats ``step_replay_warmup`` times, matching steps
+        are serviced by the armed program (one CUDA graph on the card; see
+        core/replay.py)."""
+        self._replay.step_begin()
+
+    def step_end(self):
+        self._replay.step_end()
+
+    @property
+    def replay(self) -> StepReplay:
+        return self._replay
+
+    def _refresh_world_version(self) -> int:
+        """Pick up an elastic world-version bump from
+        ``HOROVOD_TPU_WORLD_VERSION``, which the rendezvous sets before any
+        rank re-enters a step. The attribute only moves forward (tests may
+        bump it directly)."""
+        v = os.environ.get(env_mod.HOROVOD_TPU_WORLD_VERSION)
+        if v:
+            try:
+                ev = int(v)
+            except ValueError:
+                return self.world_version
+            if ev > self.world_version:
+                self.world_version = ev
+        return self.world_version
+
+    def _emit_replay(self, event: str, detail: str):
+        if self.on_replay is not None:
+            self.on_replay(event, detail)
+
     def _reduce_launch(self, flat: torch.Tensor, op: ReduceOp,
                        prescale_factor: float,
                        postscale_factor: float) -> LaunchGroup:
@@ -337,11 +395,18 @@ class Engine:
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         _check_average_dtype(x, op)
+        _dist_op(op)
+        r = self._replay.intercept("allreduce", [x], int(op),
+                                   prescale_factor, postscale_factor, name,
+                                   sub)
+        if r is not None:
+            return r[0]
         name = self._register(name, "allreduce")
         self._join_sync("allreduce", [_join_meta_row(x, int(op))], sub)
         buf = x.clone(memory_format=torch.contiguous_format)
         group = self._reduce_launch(buf, op, prescale_factor,
                                     postscale_factor)
+        self.dispatch_count += 1
         return self._track(Handle(name, group, lambda: buf, self))
 
     def grouped_allreduce(self, tensors: Sequence,
@@ -357,11 +422,16 @@ class Engine:
         for t in tensors:
             _check_average_dtype(t, op)
         _dist_op(op)
+        if not tensors:
+            return []
+        r = self._replay.intercept("grouped_allreduce", tensors, int(op),
+                                   prescale_factor, postscale_factor, name,
+                                   sub)
+        if r is not None:
+            return r
         names = [self._register(None if name is None else f"{name}.{i}",
                                 "grouped_allreduce")
                  for i in range(len(tensors))]
-        if not tensors:
-            return []
         self._join_sync("grouped_allreduce",
                         [_join_meta_row(t, int(op)) for t in tensors], sub)
         buckets = bucket_by_size(tensors, self.config.fusion_threshold_bytes)
@@ -373,6 +443,7 @@ class Engine:
                                  self.config.pack_kernel)
             group = self._reduce_launch(flat, op, prescale_factor,
                                         postscale_factor)
+            self.dispatch_count += 1
             views = C.unpack_flat(flat, [tuple(tensors[i].shape)
                                          for i in idxs])
             for i, v in zip(idxs, views):
@@ -385,11 +456,16 @@ class Engine:
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         self._check_root(root_rank)
+        r = self._replay.intercept("broadcast", [x], root_rank, 1.0, 1.0,
+                                   name, sub)
+        if r is not None:
+            return r[0]
         name = self._register(name, "broadcast")
         self._join_sync("broadcast", [_join_meta_row(x, root_rank)], sub)
         buf = x.clone(memory_format=torch.contiguous_format)
         work = _translate_failure(dist.broadcast, buf, src=root_rank,
                                   async_op=True)
+        self.dispatch_count += 1
         flag_works, root_active = self._root_flag(root_rank, sub)
 
         def extract():
@@ -405,11 +481,15 @@ class Engine:
         tensors = [self._tensor(t) for t in tensors]
         sub = self._consume_substitute()
         self._check_root(root_rank)
+        if not tensors:
+            return []
+        r = self._replay.intercept("grouped_broadcast", tensors, root_rank,
+                                   1.0, 1.0, name, sub)
+        if r is not None:
+            return r
         names = [self._register(None if name is None else f"{name}.{i}",
                                 "grouped_broadcast")
                  for i in range(len(tensors))]
-        if not tensors:
-            return []
         self._join_sync("grouped_broadcast",
                         [_join_meta_row(t, root_rank) for t in tensors], sub)
         launches = []
@@ -418,6 +498,7 @@ class Engine:
             flat = C.pack_bucket([tensors[i] for i in idxs], False)
             work = _translate_failure(dist.broadcast, flat, src=root_rank,
                                       async_op=True)
+            self.dispatch_count += 1
             launches.append((idxs, flat, work))
         # one root-active flag for the call: every handle of a joined
         # root's call raises
@@ -440,6 +521,7 @@ class Engine:
         (a size exchange, a padded gather, then trim and concatenate)."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
+        self._replay.observe("allgather", sub, [x], name)
         name = self._register(name, "allgather")
         if x.dim() == 0:
             x = x[None]
@@ -452,6 +534,7 @@ class Engine:
         x = x.contiguous()
         outs = [torch.empty_like(x) for _ in sizes]
         work = _translate_failure(dist.all_gather, outs, x, async_op=True)
+        self.dispatch_count += 1
 
         def extract():
             if all(s == max_d0 for s in sizes):
@@ -476,6 +559,7 @@ class Engine:
         (A11) and its wire codecs (A8)."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
+        self._replay.observe("alltoall", sub, [x], name)
         if x.dim() == 0:
             raise ValueError("alltoall requires a tensor with dim 0")
         size, rank = self.backend.size(), self.backend.rank()
@@ -505,6 +589,7 @@ class Engine:
         work = _translate_failure(C.all_to_all, out, x.contiguous(),
                                   recv.tolist(), send.tolist(), None,
                                   async_op=True)
+        self.dispatch_count += 1
         recv = torch.from_numpy(recv)
         return self._track(Handle(name, LaunchGroup(work),
                                   lambda: (out, recv), self))
@@ -520,6 +605,7 @@ class Engine:
                 f"reducescatter supports Sum and Average, got {op!r}")
         x = self._tensor(tensor)
         sub = self._consume_substitute()
+        self._replay.observe("reducescatter", sub, [x], name)
         _check_average_dtype(x, op)
         if x.dim() == 0:
             raise ValueError("reducescatter requires a tensor with dim 0")
@@ -536,6 +622,7 @@ class Engine:
         out = x.new_empty((chunk,) + tuple(x.shape[1:]))
         work = _translate_failure(C.reduce_scatter, out, flat, None,
                                   async_op=True)
+        self.dispatch_count += 1
         n = size if op == ReduceOp.AVERAGE else 1
         group = LaunchGroup(work, lambda: C.finish_reduce(out, n, 1.0))
         h = Handle(name, group, lambda: out[:rows[rank]], self)
@@ -552,9 +639,11 @@ class Engine:
     def barrier(self):
         """Blocks until every rank has reached it."""
         sub = self._consume_substitute()
+        self._replay.observe("barrier", sub)
         self._join_sync("barrier", [], sub)
         z = torch.zeros(1, dtype=torch.int32, device=self.backend.device)
         _translate_failure(dist.all_reduce, z)
+        self.dispatch_count += 1
         z.item()  # host-side completion on every backend
 
     # -- join (the reference's :1279-1480) ---------------------------------
@@ -564,7 +653,10 @@ class Engine:
         zero tensors until every rank has joined. Returns the last rank to
         join, the same on every rank: the one that served the fewest
         rounds, the highest such rank on a tie. 0 at size 1; ``size - 1``
-        under ``HOROVOD_JOIN_DISABLE=1``, where join is a barrier."""
+        under ``HOROVOD_JOIN_DISABLE=1``, where join is a barrier. Every
+        armed replay stream is dropped first: the world enters a ragged
+        phase (the reference's :1331)."""
+        self._replay.invalidate_all("join() entered")
         size = self.backend.size()
         if size <= 1:
             return 0

@@ -32,6 +32,10 @@ class GlobalState:
 
     def shutdown(self):
         with self._lock:
+            if self.engine is not None:
+                # armed replay graphs hold NCCL work of the process group:
+                # they go first (handles may keep the engine alive)
+                self.engine.replay.invalidate_all("shutdown")
             self.engine = None
             self.backend.shutdown()
 

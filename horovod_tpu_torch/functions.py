@@ -1,11 +1,13 @@
 """State-sync helpers (parity: horovod/torch/functions.py —
 broadcast_parameters :30, broadcast_optimizer_state :62, broadcast_object
 :186, allgather_object :229; the port's counterpart of
-``horovod_tpu/functions.py``), and the sparse allreduce of row-indexed
-updates (``allreduce_sparse``)."""
+``horovod_tpu/functions.py``), the step markers of step-capture replay
+(``step_begin``, ``step_end``, ``step``), and the sparse allreduce of
+row-indexed updates (``allreduce_sparse``)."""
 
 from __future__ import annotations
 
+import contextlib
 import pickle
 from typing import Any, Optional
 
@@ -13,6 +15,45 @@ import numpy as np
 import torch
 
 from .core.state import engine as _engine
+
+
+def step_begin():
+    """Mark the start of one training step for step-capture replay
+    (core/replay.py): the engine records the ordered (kind, op, dtype,
+    shape, name) collective stream between ``step_begin()`` and
+    ``step_end()``; once the same signature repeats
+    ``HOROVOD_TPU_STEP_REPLAY_WARMUP`` times (default 3; master switch
+    ``HOROVOD_TPU_STEP_REPLAY``), matching steps are serviced by the armed
+    program, one CUDA graph on the card, with a counted zero-padded
+    fallback on any divergence or early wait and invalidation under
+    ``join()`` and elastic world-version bumps.
+
+    ``DistributedOptimizer`` wraps its reduction in these markers at size >
+    1; a loop that calls ``allreduce_async`` itself opts in by bracketing
+    the step (or with :func:`step`)."""
+    _engine().step_begin()
+
+
+def step_end():
+    """Close the step opened by :func:`step_begin` (records, arms or
+    launches as appropriate; safe to call with no step open)."""
+    _engine().step_end()
+
+
+@contextlib.contextmanager
+def step():
+    """The ``with hvd.step():`` form of :func:`step_begin` and
+    :func:`step_end`::
+
+        with hvd.step():
+            handles = [hvd.allreduce_async(g, name=n) for n, g in grads]
+    """
+    eng = _engine()
+    eng.step_begin()
+    try:
+        yield
+    finally:
+        eng.step_end()
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

@@ -239,6 +239,9 @@ def adasum_allreduce_handle(engine, tensor, name: Optional[str] = None,
     a zero tensor beside it."""
     x = engine._tensor(tensor)
     sub = engine._consume_substitute()
+    # the per-tensor coefficient recursion is not a replayable bucket: a
+    # step holding one never arms (core/replay.py)
+    engine.replay.observe("adasum", sub, [x], name)
     name = engine._register(name, "adasum")
     engine._join_sync("adasum", [_join_meta_row(x, 0)], sub)
     v = x.clone(memory_format=torch.contiguous_format)

@@ -119,6 +119,92 @@ def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 pack.launches = 0
+# K1 launched as a node of a replayed CUDA graph (PackTable)
+pack.graph_launches = 0
+
+
+class PackTable:
+    """K1 at fixed sizes inside a captured program (step replay's CUDA
+    graph, ``core/replay.py``): the capture records a launch that reads a
+    device table whose address never moves, and each step writes its own
+    tensors' addresses into that table before the graph runs. K1 is
+    unchanged: it reads ``(src, offset, bytes, first tile)`` rows from a
+    device table as it does for :func:`pack`.
+
+    The rows' offsets, byte counts and tiles are fixed by ``sizes`` (numels,
+    one dtype); only the source pointers change. :meth:`refresh` writes them
+    into a pinned staging buffer and copies it into the device table with
+    one asynchronous host-to-device copy on the current stream. A staging
+    buffer is rewritten only once the event recorded after its last copy
+    has completed (``query()``, never a wait); while every buffer is still
+    in flight, a new one joins the ring. :meth:`capture` launches K1 from
+    the table into ``out`` on the current stream, which a graph capture
+    records; the graph's owner counts each replay of that node in
+    ``pack.graph_launches``."""
+
+    def __init__(self, sizes: Sequence[int], dtype: torch.dtype,
+                 device: torch.device):
+        lib = _lib()
+        tile = lib.hvd_pack_tile_bytes()
+        itemsize = dtype.itemsize
+        self.sizes = [int(n) for n in sizes]
+        self.dtype, self.device = dtype, device
+        self.slots = [i for i, n in enumerate(self.sizes) if n]
+        rows = np.zeros((len(self.slots), 4), dtype=np.int64)
+        offset, tiles, r = 0, 0, 0
+        for n in self.sizes:
+            nbytes = n * itemsize
+            if nbytes:
+                rows[r] = (0, offset * itemsize, nbytes, tiles)
+                tiles += -(-nbytes // tile)
+                r += 1
+            offset += n
+        self.numel, self.tiles, self._rows = offset, tiles, rows
+        self.table = torch.zeros(rows.shape, dtype=torch.int64,
+                                 device=device)
+        self._staging = []      # [pinned (rows, 4) int64, its last copy's event]
+
+    def refresh(self, tensors: Sequence[torch.Tensor]):
+        """Point the table's rows at ``tensors`` (the sizes, dtype and
+        device it was built for, each contiguous)."""
+        if len(tensors) != len(self.sizes):
+            raise ValueError(f"PackTable of {len(self.sizes)} tensors given "
+                             f"{len(tensors)}")
+        for i, (t, n) in enumerate(zip(tensors, self.sizes)):
+            if (t.dtype != self.dtype or t.device != self.device
+                    or t.numel() != n or not t.is_contiguous()):
+                raise ValueError(
+                    f"PackTable: tensor {i} is {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device} (contiguous: {t.is_contiguous()}); the "
+                    f"table holds {n} contiguous {self.dtype} elements on "
+                    f"{self.device}")
+        if not self.slots:
+            return
+        for buf, event in self._staging:
+            if event.query():
+                break
+        else:
+            buf = torch.empty(self._rows.shape, dtype=torch.int64,
+                              pin_memory=True)
+            event = torch.cuda.Event()
+            self._staging.append((buf, event))
+        host = buf.numpy()
+        host[:] = self._rows
+        host[:, 0] = [tensors[i].data_ptr() for i in self.slots]
+        self.table.copy_(buf, non_blocking=True)
+        event.record(torch.cuda.current_stream(self.device))
+
+    def capture(self, out: torch.Tensor):
+        """Launch K1 from the table into ``out`` (``numel`` elements) on the
+        current stream."""
+        if out.numel() != self.numel or out.dtype != self.dtype:
+            raise ValueError(f"PackTable: out must hold {self.numel} "
+                             f"{self.dtype} elements")
+        if not self.slots:
+            return
+        _check(_lib().hvd_pack(self.device.index, self.table.data_ptr(),
+                               len(self.slots), self.tiles, out.data_ptr(),
+                               _stream(self.device)), "pack")
 
 
 # ---------------------------------------------------------------------------
@@ -1040,6 +1126,7 @@ PADDING_KERNELS = ROUTED_KERNELS + (flash_bwd_pre,)
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+    pack.graph_launches = 0
     for k in ROUTED_KERNELS:
         k.sm90_wide_launches = k.sm90_tf32_launches = 0
     for k in PADDING_KERNELS:
@@ -1053,8 +1140,10 @@ def launch_counts() -> dict:
     ``<wrapper>_sm90_tf32``, the Hopper kernels on fp32 (every wrapper at
     every head dim). ``<wrapper>_pad_copies`` counts the calls of a K6/K7
     wrapper (di included) that copied their inputs zero-padded
-    (:func:`flash_needs_copy`) before the launch."""
+    (:func:`flash_needs_copy`) before the launch. ``pack_graph`` counts
+    K1's launches as nodes of replayed CUDA graphs (:class:`PackTable`)."""
     counts = {k.__name__: k.launches for k in KERNELS}
+    counts["pack_graph"] = pack.graph_launches
     for k in ROUTED_KERNELS:
         counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches
         counts[f"{k.__name__}_sm90_tf32"] = k.sm90_tf32_launches

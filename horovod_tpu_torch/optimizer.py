@@ -110,14 +110,23 @@ class DistributedOptimizer(_Wrapper):
             return
         packed = [self.compression.compress(p.grad) for p in params]
         step = self._next_step_name()
-        if self.op == Adasum:
-            # the coefficients are per tensor: one reduction per gradient
-            handles = [adasum_allreduce_handle(eng, c,
-                                               f"grad.adasum.s{step}.{i}")
-                       for i, (c, _) in enumerate(packed)]
-        else:
-            handles = eng.grouped_allreduce([c for c, _ in packed],
-                                            name=f"grad.s{step}", op=self.op)
+        # the reduction is one step of the collective stream: after
+        # step_replay_warmup identical steps the engine services it from
+        # its armed program (core/replay.py; the reference's :810-818)
+        eng.step_begin()
+        try:
+            if self.op == Adasum:
+                # the coefficients are per tensor: one reduction per
+                # gradient
+                handles = [adasum_allreduce_handle(
+                    eng, c, f"grad.adasum.s{step}.{i}")
+                    for i, (c, _) in enumerate(packed)]
+            else:
+                handles = eng.grouped_allreduce([c for c, _ in packed],
+                                                name=f"grad.s{step}",
+                                                op=self.op)
+        finally:
+            eng.step_end()
         for p, (_, ctx), h in zip(params, packed, handles):
             g = self.compression.decompress(h.synchronize(), ctx)
             if g.dtype == p.grad.dtype and g.device == p.grad.device:

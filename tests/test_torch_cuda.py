@@ -4,8 +4,9 @@ kernels, a small LM and ViT through the flash-attention kernels, the
 engine's grouped allreduce through the pack kernel on NCCL, Adasum's
 combine kernels (K4/K5) alone and training the flagship LM on 2 and 4
 cards, SyncBatchNorm on K2/K3's raw sums (on one card against its CPU
-path; on 2 and 4 cards against the global batch on one card), and
-alltoall and join on 2 and 4 cards.
+path; on 2 and 4 cards against the global batch on one card), alltoall
+and join on 2 and 4 cards, and step replay (``-k replay``: the CUDA graph
+against the eager path on one card; ``-k "cards and replay"`` on 2 and 4).
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -57,13 +58,14 @@ from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
 from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
 from torch_worker import (ADASUM_CARD_STEPS, JOIN_TENSORS,
-                          RESNET_CARD_MODES, SP_CARD_DIMS, SP_LRS, SP_STEPS,
+                          REPLAY_EXTRA, REPLAY_STEPS, RESNET_CARD_MODES,
+                          SP_CARD_DIMS, SP_LRS, SP_STEPS,
                           SP_VARIANTS, SYNC_BN_CHANNELS, SYNC_BN_DTYPES,
                           SYNC_BN_EPS, SYNC_BN_LAYOUTS, alltoall_input,
                           join_adasum_inputs, mlp_data, mlp_params,
-                          run_world, shard_rows, sp_card_model,
+                          replay_leaf, run_world, shard_rows, sp_card_model,
                           sp_card_tokens, sparse_input, sync_bn_case,
-                          sync_bn_run)
+                          sync_bn_run, trace_events)
 
 pytestmark = pytest.mark.cuda
 
@@ -506,6 +508,133 @@ def test_cuda_grouped_allreduce_through_the_pack_kernel(cuda, monkeypatch):
             outs = hvd.grouped_allreduce(grads, op=op)
             assert all(torch.equal(o, g) for o, g in zip(outs, grads))
         assert K.launch_counts()["pack"] == 2 * n_buckets
+    finally:
+        hvd.shutdown()
+
+
+# step replay on one card: gradients of these shapes a step, cut into
+# several buckets at a 1 MB fusion threshold
+REPLAY_SHAPES = [(512, 256), (256,), (300, 1000), (7,), (64, 3, 3, 3)]
+REPLAYED_STEPS = 4             # replayed steps after the warm-up
+
+
+def _replay_init(monkeypatch, pack: str):
+    monkeypatch.setenv("HOROVOD_PALLAS_PACK", pack)
+    monkeypatch.setenv("HOROVOD_FUSION_THRESHOLD", str(1 << 20))
+    monkeypatch.delenv("HOROVOD_TPU_COORDINATOR", raising=False)
+    monkeypatch.delenv("HOROVOD_TPU_STEP_REPLAY", raising=False)
+    hvd.init()
+    from horovod_tpu_torch.core.state import engine
+    return engine()
+
+
+def _replay_step(grads, tag):
+    """One step's reduction: a grouped Average with a postscale (so the
+    math is not the identity), issued under the sync debug mode: nothing
+    may wait on the card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with hvd.step():
+            hs = hvd.grouped_allreduce_async(grads, name=tag, op=hvd.Average,
+                                             postscale_factor=0.5)
+        return [h.synchronize() for h in hs]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("pack", ["1", "0"])
+def test_cuda_replay_matches_eager_and_keeps_held_results(cuda, monkeypatch,
+                                                          pack):
+    """Warm-up steps record, the stream arms once, and every later step
+    replays as the CUDA graph: its results bitwise the eager path's on the
+    same gradients, the gradients fresh tensors each step (the pack
+    kernel's table refreshed with new addresses), a result held from one
+    step unchanged after the next replays, K1 a graph node once a bucket
+    and step (with the pack knob off, the plain pack before the graph), and
+    no host wait while arming, refreshing or launching."""
+    eng = _replay_init(monkeypatch, pack)
+    try:
+        warm = eng.config.step_replay_warmup
+        n_buckets = len(bucket_by_size(
+            [torch.empty(s) for s in REPLAY_SHAPES], 1 << 20))
+        assert n_buckets > 1
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        kept, held = [], None
+        K.reset_launch_counts()
+        for step in range(warm + REPLAYED_STEPS):
+            grads = [torch.randn(s, device=cuda, generator=gen)
+                     for s in REPLAY_SHAPES]
+            if kept:
+                assert {g.data_ptr() for g in grads}.isdisjoint(
+                    g.data_ptr() for g in kept[-1])
+            kept.append(grads)
+            want = [h.synchronize() for h in eng.grouped_allreduce(
+                grads, op=hvd.Average, postscale_factor=0.5)]
+            got = _replay_step(grads, f"g.{step}")
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), step
+            if held is not None:
+                assert all(torch.equal(a, b) for a, b in held), step
+            held = [(g, g.clone()) for g in got]
+            r = eng.replay
+            assert (r.captured_streams, r.replayed_steps, r.fallbacks) == \
+                (int(step + 1 >= warm), max(0, step + 1 - warm), 0), step
+        counts = K.launch_counts()
+        assert counts["pack_graph"] == (REPLAYED_STEPS * n_buckets
+                                        if pack == "1" else 0)
+        # the eager references (and the warm-up steps with the knob on)
+        # launch K1 eagerly: once a bucket and call
+        assert counts["pack"] == (
+            (warm + REPLAYED_STEPS + warm) * n_buckets if pack == "1" else 0)
+        torch.cuda.synchronize()
+    finally:
+        hvd.shutdown()
+
+
+def test_cuda_replay_is_one_graph_launch(cuda, monkeypatch):
+    """A profiled replayed reduction issues exactly one cudaGraphLaunch and
+    no kernel launch: its other runtime calls are the counted table
+    refreshes and copy-outs (one of each a bucket). The graph's kernels
+    hold K1 once a bucket. A divergent step (one gradient left out) falls
+    back with correct values and counts one fallback; the next matching
+    step replays again."""
+    eng = _replay_init(monkeypatch, "1")
+    try:
+        warm = eng.config.step_replay_warmup
+        n_buckets = len(bucket_by_size(
+            [torch.empty(s) for s in REPLAY_SHAPES], 1 << 20))
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        grads = [torch.randn(s, device=cuda, generator=gen)
+                 for s in REPLAY_SHAPES]
+        for step in range(warm + 1):
+            _replay_step(grads, f"g.{step}")
+        torch.cuda.synchronize()
+        r = eng.replay
+        before = (r.replayed_steps, r.table_copies, r.copy_outs)
+        out = {}
+        host, dev = trace_events(
+            lambda: out.update(got=_replay_step(grads, "g.100")),
+            lambda h, d: sum("pack_kernel" in n for n in d) == n_buckets)
+        got = out["got"]
+        replays = r.replayed_steps - before[0]
+        assert replays >= 2 and r.fallbacks == 0
+        assert (r.table_copies - before[1], r.copy_outs - before[2]) == \
+            (n_buckets * replays, n_buckets * replays)
+        assert host.count("cudaGraphLaunch") == 1, host
+        assert host.count("cudaLaunchKernel") == 0, host
+        assert host.count("cudaMemcpyAsync") == 2 * n_buckets, host
+        assert sum("pack_kernel" in n for n in dev) == n_buckets, dev
+        for g, o in zip(grads, got):
+            assert torch.equal(o, g * 0.5)
+        # divergence: one gradient left out
+        before = eng.replay.replayed_steps
+        got = _replay_step(grads[:-1], "g.101")
+        assert all(torch.equal(o, g * 0.5) for g, o in zip(grads, got))
+        assert (eng.replay.fallbacks, eng.replay.replayed_steps) == \
+            (1, before)
+        _replay_step(grads, "g.102")
+        assert (eng.replay.fallbacks, eng.replay.replayed_steps) == \
+            (1, before + 1)
+        torch.cuda.synchronize()
     finally:
         hvd.shutdown()
 
@@ -1600,7 +1729,7 @@ def test_cuda_cards_optimizer_on_nccl(cards, tmp_path):
         ref[2].weight.copy_(torch.tensor(mlp_params()[1].T))
     opt = torch.optim.SGD(ref.parameters(), lr=0.01, momentum=0.9)
     shards = [shard_rows(r, cards, len(x)) for r in range(cards)]
-    for step in range(3):
+    for step in range(len(res[0]["traj"])):
         opt.zero_grad()
         for s in shards:
             (((ref(x[s]) - y[s]) ** 2).mean() / cards).backward()
@@ -1800,6 +1929,60 @@ def test_cuda_cards_join_on_nccl(built, tmp_path, n):
         assert r["reads"] == [] and r["disabled"] == 1
         issue_s, total_s = r["wait"]
         assert issue_s < total_s / 2, r["wait"]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_replay_on_nccl(built, tmp_path, n):
+    """Step replay on NCCL (torch_worker's replay scenario, the pack kernel
+    on): DistributedOptimizer's parameters after REPLAY_STEPS steps with
+    replay on are bitwise those with it off (two eager runs agree bitwise
+    too: no spread to hold to); a per-leaf stream arms and replays with
+    the sums of every rank's tensors; rank 0 joins after the warm-up and
+    the others replay against its substitutes with correct sums; and a
+    profiled replayed step is one graph launch and no kernel launch on the
+    host, its graph holding K1 and the NCCL allreduce once a bucket and the
+    advertisement's two all_gathers."""
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("replay", n, tmp_path, device="cuda",
+                    env={"HOROVOD_PALLAS_PACK": "1"})
+    warm = 3
+    total = float(n * (n + 1) // 2)
+    n_buckets = len(bucket_by_size(
+        [torch.empty(2, i + 1) for i in range(JOIN_TENSORS)], 64))
+    for rank, r in enumerate(res):
+        for mode in ("on", "off", "off2"):
+            assert len(r[mode]["traj"]) == REPLAY_STEPS
+            for a, b, c in zip(r["on"]["traj"], r["off"]["traj"],
+                               r["off2"]["traj"]):
+                for x, y, z in zip(a, b, c):
+                    np.testing.assert_array_equal(y, z)    # eager spread: 0
+                    np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(r[mode]["traj"][-1][0],
+                                          res[0][mode]["traj"][-1][0])
+        assert r["on"]["replay"] == (1, REPLAY_STEPS - warm, 0)
+        assert r["leaf"]["replay"] == (1, 2, 0)
+        want = [sum(replay_leaf(q, i) for q in range(n)) for i in range(3)]
+        for sums in r["leaf"]["sums"]:
+            for got, w in zip(sums, want):
+                np.testing.assert_allclose(got, w, rtol=1e-6, atol=1e-6)
+        ej = r["early_join"]
+        extra = 0 if rank == 0 else REPLAY_EXTRA
+        assert ej["replay"] == (1, extra, 0)
+        assert ej["sums"] == ([[total] * JOIN_TENSORS] * warm
+                              + [[total - 1] * JOIN_TENSORS] * extra)
+        assert ej["last"] == n - 1
+        tr = r["trace"]
+        assert tr["replay"][1] >= 1 and tr["replay"][2] == 0
+        assert tr["host"].count("cudaGraphLaunch") == 1, tr["host"]
+        assert tr["host"].count("cudaLaunchKernel") == 0, tr["host"]
+        nccl = [k for k in tr["device"] if "nccl" in k.lower()]
+        print(f"replay_cards n={n} rank {rank}: graph kernels "
+              f"{len(tr['device'])}, NCCL {len(nccl)} "
+              f"({sorted(set(nccl))}), buckets {n_buckets}")
+        assert sum("pack_kernel" in k for k in tr["device"]) == n_buckets
+        assert sum("AllReduce" in k for k in nccl) == n_buckets, nccl
+        assert sum("AllGather" in k for k in nccl) == 2, nccl
 
 
 def test_cuda_cards_resnet50_join_round_cost(built, tmp_path):

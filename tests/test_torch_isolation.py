@@ -61,3 +61,30 @@ def test_chip_smoke_imports_no_jax():
     bad = [(line, root) for line, root in
            _imported_roots(REPO / "chip_smoke.py") if root in FORBIDDEN]
     assert not bad
+
+
+# names of the reference's __all__ the port does not export yet, and the one
+# it exports that the reference lacks
+OWED = {"mesh", "step_heartbeat", "metrics_snapshot", "metrics", "faults",
+        "distributed", "elastic"}
+PORT_ONLY = {"device"}
+
+
+def test_public_names_are_the_references_but_the_owed_ones():
+    """The port's ``__all__`` is the reference's (read with ``ast``, so
+    jax is not imported) minus exactly the names still owed, plus
+    ``device``."""
+    tree = ast.parse((REPO / "horovod_tpu" / "__init__.py").read_text())
+    ref = next(ast.literal_eval(node.value) for node in tree.body
+               if isinstance(node, ast.Assign)
+               and any(getattr(t, "id", None) == "__all__"
+                       for t in node.targets))
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import horovod_tpu_torch as h; print('\\n'.join(h.__all__))"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    port = res.stdout.split()
+    assert len(port) == len(set(port))
+    assert OWED <= set(ref)
+    assert set(port) == (set(ref) - OWED) | PORT_ONLY

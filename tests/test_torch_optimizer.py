@@ -2,8 +2,9 @@
 
 np=2 on gloo: each rank trains the same MLP on its half of the data; the
 trajectory must equal the reference math (the two shard gradients averaged,
-then optax.sgd(0.01, momentum=0.9)) to fp32 rounding (rtol 1e-5 over three
-steps) and be bitwise identical on both ranks. At np=1 the wrapper must take
+then optax.sgd(0.01, momentum=0.9)) to fp32 rounding (rtol 1e-5 over five
+steps, the last two replayed by step replay, and over the same steps with
+replay off) and be bitwise identical on both ranks. At np=1 the wrapper must take
 the size-1 shortcut and step exactly like the wrapped optimizer, with
 op=Adasum and in the delta-Adasum form too.
 """
@@ -47,11 +48,15 @@ def world2(tmp_path_factory):
 
 
 def test_np2_sgd_momentum_trajectory_matches_reference(world2):
-    want = _reference_trajectory(3, 2)
+    """Every step, the replayed ones after the warm-up included, and the
+    same steps with step replay off."""
+    want = _reference_trajectory(len(world2[0]["traj"]), 2)
     for res in world2:
-        for got_step, want_step in zip(res["traj"], want):
-            for g, w in zip(got_step, want_step):
-                np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+        for traj in (res["traj"], res["traj_off"]):
+            assert len(traj) == len(want)
+            for got_step, want_step in zip(traj, want):
+                for g, w in zip(got_step, want_step):
+                    np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
 
 
 def test_np2_ranks_stay_identical(world2):

@@ -17,6 +17,7 @@ public API, and pickles a dict of numpy results to OUT_FILE. The tests call
 
 from __future__ import annotations
 
+import faulthandler
 import os
 import pickle
 import socket
@@ -60,7 +61,8 @@ class World:
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        env = dict(os.environ, PYTHONPATH=str(REPO), **(env or {}))
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   TORCH_WORKER_TIMEOUT_S=str(timeout), **(env or {}))
         self.scenario = scenario
         self.timeout = timeout
         tag = f"{scenario}.n{size}.l{local_size or size}"
@@ -78,6 +80,14 @@ class World:
         try:
             for p in self.procs:
                 logs.append(p.communicate(timeout=self.timeout)[0])
+        except subprocess.TimeoutExpired:
+            # each rank dumped its threads' stacks just before the timeout
+            for p in self.procs:
+                p.kill()
+            raise RuntimeError(f"{self.scenario!r} timed out after "
+                               f"{self.timeout} s:\n" + "\n".join(
+                                   f"--- rank {r}:\n{p.communicate()[0]}"
+                                   for r, p in enumerate(self.procs)))
         finally:
             for p in self.procs:
                 if p.poll() is None:
@@ -149,12 +159,22 @@ def _engine_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
-def _optimizer_scenario(hvd, rank: int, size: int) -> dict:
+OPT_STEPS = 5           # the optimizer scenario: replay's warm-up + 2
+
+
+def _replay_counters(hvd) -> tuple:
+    r = hvd.global_state().engine.replay
+    return (r.captured_streams, r.replayed_steps, r.fallbacks)
+
+
+def _mlp_trajectory(hvd, rank: int, size: int, steps: int):
+    """``steps`` SGD-momentum steps of the MLP on this rank's shard through
+    DistributedOptimizer(op=Average), every rank starting from its own
+    weights, which broadcast_parameters makes rank 0's: the weights after
+    each step, the optimizer, and the replay counters' change."""
     import torch
     data_x, data_y = mlp_data()
     w1, w2 = mlp_params()
-    # every rank starts from its own weights: broadcast_parameters must
-    # make them rank 0's
     model = torch.nn.Sequential(torch.nn.Linear(4, 8, bias=False),
                                 torch.nn.Tanh(),
                                 torch.nn.Linear(8, 2, bias=False))
@@ -169,16 +189,31 @@ def _optimizer_scenario(hvd, rank: int, size: int) -> dict:
     shard = shard_rows(rank, size, len(data_x))
     xs = torch.from_numpy(data_x[shard]).to(hvd.device())
     ys = torch.from_numpy(data_y[shard]).to(hvd.device())
+    before = _replay_counters(hvd)
     traj = []
-    for _ in range(3):
+    for _ in range(steps):
         opt.zero_grad()
         loss = ((model(xs) - ys) ** 2).mean()
         loss.backward()
         opt.step()
         traj.append([model[0].weight.detach().cpu().numpy().T.copy(),
                      model[2].weight.detach().cpu().numpy().T.copy()])
+    counters = tuple(a - b for a, b in zip(_replay_counters(hvd), before))
+    hvd.global_state().engine.replay.invalidate_all("next run")
+    return traj, opt, counters
+
+
+def _optimizer_scenario(hvd, rank: int, size: int) -> dict:
+    """OPT_STEPS steps with step replay on (the warm-up, then replayed
+    steps), then the same steps from the same start with it off."""
+    cfg = hvd.global_state().config
+    traj, opt, counters = _mlp_trajectory(hvd, rank, size, OPT_STEPS)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
-    return {"traj": traj}
+    cfg.step_replay = False
+    traj_off, _, counters_off = _mlp_trajectory(hvd, rank, size, OPT_STEPS)
+    cfg.step_replay = True
+    return {"traj": traj, "traj_off": traj_off, "replay": counters,
+            "replay_off": counters_off}
 
 
 def lm_config():
@@ -917,6 +952,125 @@ def _join_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+REPLAY_STEPS = 6        # DistributedOptimizer steps of the replay scenario
+REPLAY_EXTRA = 3        # steps the active ranks replay after rank 0 joined
+
+
+def replay_leaf(rank: int, i: int) -> np.ndarray:
+    """Rank ``rank``'s i-th tensor of the replay scenario's per-leaf
+    stream."""
+    return np.random.RandomState(90 + 7 * rank + i).randn(3 + i, 2) \
+        .astype(np.float32)
+
+
+def _replay_scenario(hvd, rank: int, size: int) -> dict:
+    """Step replay at size > 1: DistributedOptimizer's trajectory with
+    replay on, off and off again (REPLAY_STEPS steps each from the same
+    start); a per-leaf allreduce stream that arms and replays; rank 0
+    joining after the warm-up while the others replay REPLAY_EXTRA steps of
+    a grouped Sum of JOIN_TENSORS tensors (the advertisement's overflow
+    rows included); and on the card a profile of one replayed step."""
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    eng = global_state().engine
+    cfg = global_state().config
+    dev = hvd.device()
+    out = {}
+    for mode in ("on", "off", "off2"):
+        cfg.step_replay = mode == "on"
+        traj, _, counters = _mlp_trajectory(hvd, rank, size, REPLAY_STEPS)
+        out[mode] = {"traj": traj, "replay": counters}
+    cfg.step_replay = True
+    warm = cfg.step_replay_warmup
+    # per-leaf allreduce_async calls, fused by the armed program
+    before = _replay_counters(hvd)
+    leaves = [torch.from_numpy(replay_leaf(rank, i)).to(dev)
+              for i in range(3)]
+    sums = []
+    for step in range(warm + 2):
+        with hvd.step():
+            hs = [hvd.allreduce_async(x, name=f"leaf.{step}.{i}", op=hvd.Sum)
+                  for i, x in enumerate(leaves)]
+        sums.append([h.synchronize().cpu().numpy() for h in hs])
+    out["leaf"] = {"sums": sums, "replay": tuple(
+        a - b for a, b in zip(_replay_counters(hvd), before))}
+    eng.replay.invalidate_all("next case")
+    # rank 0 joins after the warm-up; the others replay against its
+    # substitutes
+    before = _replay_counters(hvd)
+    ts = [torch.full((2, i + 1), float(rank + 1), device=dev)
+          for i in range(JOIN_TENSORS)]
+    sums = []
+    for step in range(warm + (0 if rank == 0 else REPLAY_EXTRA)):
+        with hvd.step():
+            hs = hvd.grouped_allreduce_async(ts, name=f"ej.{step}",
+                                             op=hvd.Sum)
+        sums.append([float(h.synchronize().reshape(-1)[0]) for h in hs])
+    counters = tuple(a - b for a, b in zip(_replay_counters(hvd), before))
+    out["early_join"] = {"sums": sums, "replay": counters,
+                         "last": hvd.join()}
+    if dev.type == "cuda":
+        out["trace"] = _replay_trace(hvd, torch, ts, warm)
+    return out
+
+
+def trace_events(fn, ok, tries: int = 6):
+    """(host events, device operations) by name of one ``fn()`` on the card:
+    the active step of a torch.profiler schedule whose warm-up step runs
+    ``fn()`` too, each padded with 20 ms of idle host time, traced again
+    (at most ``tries`` times) while ``ok(host, device)`` is false. A trace
+    started cold, or a short step's, can lose kernel events that ran
+    (PERF.md)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cpu = torch.autograd.DeviceType.CPU
+    seen = {}
+
+    def read(prof):
+        events = prof.events()
+        seen["host"] = [e.name for e in events if e.device_type == cpu]
+        # the schedule's step annotation spans the step on the device too
+        seen["device"] = [e.name for e in events if e.device_type != cpu
+                          and not e.name.startswith("ProfilerStep")]
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=read) as prof:
+            for _ in range(2):
+                time.sleep(0.02)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.02)
+                prof.step()
+        if ok(seen["host"], seen["device"]):
+            break
+    return seen["host"], seen["device"]
+
+
+def _replay_trace(hvd, torch, ts, warm: int) -> dict:
+    """Trace one replayed grouped Sum: the host's events and the device
+    operations (the graph's among them)."""
+    from horovod_tpu_torch.core.engine import bucket_by_size
+    names = iter(range(1 << 20))
+
+    def step():
+        with hvd.step():
+            hs = hvd.grouped_allreduce_async(ts, name=f"tr.{next(names)}",
+                                             op=hvd.Sum)
+        [h.synchronize() for h in hs]
+
+    for _ in range(warm + 1):
+        step()
+    n_buckets = len(bucket_by_size(
+        ts, hvd.global_state().config.fusion_threshold_bytes))
+    host, device = trace_events(
+        step, lambda h, d: sum("pack_kernel" in k for k in d) == n_buckets)
+    return {"host": host, "device": device, "replay": _replay_counters(hvd)}
+
+
 RESNET_CARD_STEPS = 10         # steps in each timed window
 # the join round on, off, off, on, ... (a window each; ranks flip together)
 RESNET_CARD_MODES = (True, False, False, True) * 2
@@ -979,10 +1133,15 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "adasum_cards": _adasum_cards_scenario,
              "sync_bn": _sync_bn_scenario,
              "collectives": _collectives_scenario, "join": _join_scenario,
-             "resnet_cards": _resnet_cards_scenario}
+             "resnet_cards": _resnet_cards_scenario,
+             "replay": _replay_scenario}
 
 
 def main(argv):
+    # a rank still running near the world's timeout prints its stacks
+    faulthandler.dump_traceback_later(
+        max(float(os.environ.get("TORCH_WORKER_TIMEOUT_S",
+                                 WORLD_TIMEOUT_S)) - 5, 1))
     scenario, rank, size, port, out_file = argv[:5]
     device = argv[5] if len(argv) > 5 else "cpu"
     local = int(argv[6]) if len(argv) > 6 else int(size)
