@@ -17,8 +17,11 @@ and then:
    step's 53 layers; the measure's own floor (a memset, K2 on a tiny
    input, the stem layer with and without the flush); K2/K3 on what the
    TMA route does not take (fp16 C=3,
-   bf16 C=12, one row, an unaligned view); and one ``FusedBatchNorm``
-   layer's kernel launches forward and backward (at most 2 and 4);
+   bf16 C=12, one row, an unaligned view); one ``FusedBatchNorm``
+   layer's kernel launches forward and backward (at most 2 and 4); and
+   K1's ``out=`` form (ZeRO-1's padded buckets) at ResNet-50's buckets
+   with an unaligned tail, into buffers padded for 4 ranks, bitwise
+   against its plain version and the padding untouched;
 2. drives the main path: ``hvd.init()`` on NCCL, ``ResNet50(fused_bn=True)``
    in bf16, ``broadcast_parameters``, ``DistributedOptimizer(SGD)``, a few
    training steps on a fixed synthetic batch (losses finite and falling);
@@ -134,7 +137,18 @@ and then:
     eager and one replayed reduction (exactly one ``cudaGraphLaunch`` and no
     ``cudaLaunchKernel``, K1 in the graph, the graph's NCCL operations the
     eager path's), and the host ms of the reduction, the device ms, the
-    runtime calls, img/s with replay on and off in turns, peak memory.
+    runtime calls, img/s with replay on and off in turns, peak memory;
+16. trains the flagship LM (AdamW) through
+    ``DistributedOptimizer(sharded=True)`` (ZeRO-1) at world size 1 and,
+    from the same seed, through the dense ``DistributedOptimizer``: the
+    warm-up's eager steps, then replayed steps whose packs (K1 into the
+    padded buckets), reduce-scatters and finishes are one CUDA graph, the
+    AdamW update and the all-gathers after it; the parameters bitwise the
+    dense run's (else within 1e-6 of the largest entry), the losses finite
+    and falling, K1's launches in padded mode and as graph nodes, a
+    replayed step with no host wait, the host ms of the optimizer step
+    eager against replayed, the graph's device ms, a step's runtime calls
+    each way, the optimizer-state bytes and the peak memory of both runs.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -144,9 +158,11 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13, 14 and 15) and read just after it; every kernel of the
-path must have launched there (53 BN layers per ResNet step for each BN
-kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
+each form of 11, 12, 13, 14, 15 and 16) and read just after it; every kernel
+of the path must have launched there (53 BN layers per ResNet step for each
+BN kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
+K1 in padded mode once a bucket for the move and each eager step of phase
+16 and as a graph node once a bucket each replayed step,
 one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
@@ -334,6 +350,9 @@ REPLAY_CHECKED = 3             # replayed steps held bitwise to the eager path
 REPLAY_TIMED = 20              # reductions timed by the host clock each way
 REPLAY_WINDOW_STEPS = 10       # training steps in each timed window
 REPLAY_MODES = (True, False, False, True, True, False)   # replay on/off
+# phase 16: ZeRO-1 (the flagship LM) at world size 1
+SHARDED_REPLAYED = 4           # replayed steps after the warm-up
+SHARDED_TIMED = 20             # optimizer steps timed each way
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -778,6 +797,54 @@ def check_pack_kernel(torch, K, bucket_by_size, dev, shapes, flush, reps,
             f"torch.cat {lib_ms:.4f} ms, bound {bound_ms:.4f} ms, bitwise "
             "equal")
     return row, grads
+
+
+PACK_OUT_RANKS = 4      # the world whose padding phase 1's K1 out= check has
+PACK_OUT_TAIL = 13      # a tensor of 13 fp32 after a bucket: no 16-byte tail
+
+
+def check_pack_out_kernel(torch, K, bucket_by_size, dev, grads, flush, reps,
+                          log):
+    """K1's out= form (ZeRO-1's padded buckets) against its plain version
+    on ResNet-50's gradient buckets at the 64 MB fusion threshold, each
+    with a 13-element tensor after it (a tail of no whole 16-byte word),
+    into a buffer padded for PACK_OUT_RANKS ranks whose padding holds a
+    sentinel: bitwise on the packed prefix, the padding untouched. Times
+    summed over buckets, beside ``torch.cat(out=)`` (the library call)."""
+    tail = torch.arange(PACK_OUT_TAIL, dtype=torch.float32, device=dev)
+    row = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "max_abs_err": 0.0}
+    for idxs in bucket_by_size(grads, 64 * 1024 * 1024):
+        bucket = [grads[i] for i in idxs] + [tail]
+        total = sum(t.numel() for t in bucket)
+        shard = -(-total // PACK_OUT_RANKS)
+        got = torch.full((shard * PACK_OUT_RANKS,), 7.0, device=dev)
+        want = got.clone()
+        check(K.pack(bucket, out=got) is got, "pack(out=) returned another "
+              "buffer")
+        K.pack_plain(bucket, out=want)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want) and bool((got[total:] == 7.0).all()),
+              "pack(out=) differs from its plain version or wrote past its "
+              "prefix")
+        flat_views = [t.view(-1) for t in bucket]
+        ms, host_ms = time_ms(torch, lambda: K.pack(bucket, out=got), flush,
+                              reps)
+        plain_ms, _ = time_ms(torch, lambda: K.pack_plain(bucket, out=want),
+                              flush, reps)
+        lib_ms, _ = time_ms(torch, lambda: torch.cat(
+            flat_views, out=want[:total]), flush, reps)
+        bound_ms = 1e3 * 2 * 4 * total / HBM_BYTES_PER_S
+        for key, v in (("ms", ms), ("host_ms", host_ms),
+                       ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bound_ms", bound_ms)):
+            row[key] += v
+        log(f"  pack(out=) bucket of {len(bucket)} tensors, {total} fp32 "
+            f"into {shard * PACK_OUT_RANKS}: kernel {ms:.4f} ms (host "
+            f"{host_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.cat(out=) "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms, bitwise equal, "
+            "padding untouched")
+    return row
 
 
 def flash_pairs(b, h, tq, tk, causal):
@@ -1903,8 +1970,10 @@ def run_adasum_path(torch, hvd, tm, K, A, dev, log):
     return summary, launches
 
 
-def make_lm_trainer(torch, hvd, tm, dev, batch):
-    """The flagship LM, its data and optimizer; returns one train step."""
+def make_lm_trainer(torch, hvd, tm, dev, batch, sharded=None):
+    """The flagship LM, its data and optimizer (``sharded`` as
+    ``DistributedOptimizer`` takes it); returns one train step, whose
+    ``opt`` attribute is the optimizer."""
     cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
                                **LM_DIMS)
     model = tm.Transformer(cfg, generator=torch.Generator().manual_seed(0))
@@ -1917,7 +1986,8 @@ def make_lm_trainer(torch, hvd, tm, dev, batch):
     # optax.adamw(3e-4)'s settings (PyTorch's weight decay default is 1e-2)
     opt = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
-                          eps=1e-8, weight_decay=1e-4), op=hvd.Average)
+                          eps=1e-8, weight_decay=1e-4), op=hvd.Average,
+        sharded=sharded)
 
     def step():
         opt.zero_grad()
@@ -1926,6 +1996,7 @@ def make_lm_trainer(torch, hvd, tm, dev, batch):
         opt.step()
         return loss.detach()
 
+    step.opt = opt
     return cfg, model, step
 
 
@@ -2557,6 +2628,181 @@ def run_replay_path(torch, hvd, K, ResNet50, bucket_by_size, dev, batch,
     return summary, counts
 
 
+def _state_bytes(torch, optimizer):
+    return sum(v.nbytes for st in optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v))
+
+
+def run_sharded_path(torch, hvd, K, tm, dev, log):
+    """Phase 16: the flagship LM (AdamW) through
+    ``DistributedOptimizer(sharded=True)`` at world size 1 (shard = total),
+    against the dense ``DistributedOptimizer`` from the same seed over the
+    same SHARDED_STEPS steps: the warm-up records, the stream arms, and the
+    later steps replay the packs, the reduce-scatters and the finishes as
+    one CUDA graph, the update and the all-gathers after it. The
+    parameters bitwise the dense run's (else within 1e-6 of the largest
+    entry), the losses finite and falling, K1's launches in padded mode and
+    as graph nodes, a replayed step with no host wait, the host ms of the
+    optimizer step eager against replayed, the graph's device ms, the
+    runtime calls of a step each way, the optimizer-state bytes and the
+    peak memory of both runs. Returns (summary, launch counts)."""
+    from horovod_tpu_torch.core.state import engine
+    eng = engine()
+    cfg, rep = eng.config, eng.replay
+    check(hvd.size() == 1 and cfg.step_replay and cfg.pack_kernel,
+          "phase 16 needs a size-1 world with replay and the pack kernel on")
+    warm = cfg.step_replay_warmup
+    steps = warm + SHARDED_REPLAYED
+    batch = 4
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, dense, dense_step = make_lm_trainer(torch, hvd, tm, dev, batch,
+                                           sharded=False)
+    dense_losses = [float(dense_step()) for _ in range(steps)]
+    dense_state = _state_bytes(torch, dense_step.opt.optimizer)
+    dense_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # held on the host, so that the sharded run's peak is its own
+    want = [p.detach().cpu() for p in dense.parameters()]
+    del dense, dense_step
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm_cfg, model, step = make_lm_trainer(torch, hvd, tm, dev, batch,
+                                          sharded=True)
+    opt = step.opt
+    start = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+    K.reset_launch_counts()
+    losses, allocated = [], []
+    for _ in range(steps):
+        losses.append(float(step()))
+        allocated.append(torch.cuda.memory_allocated(dev) / 2**30)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    got = tuple(a - b for a, b in zip(
+        (rep.captured_streams, rep.replayed_steps, rep.fallbacks), start))
+    check(got == (1, steps - warm, 0), f"replay counters {got}, expected "
+          f"(1, {steps - warm}, 0)")
+    zero = opt._zero
+    n_buckets = len(zero.buckets)
+    check(all(v == v and abs(v) != float("inf") for v in losses)
+          and losses[-1] < losses[0],
+          f"phase 16's losses are not finite and falling: {losses}")
+    # K1 moved each bucket's parameters once, packed each eager step's
+    # gradients in padded mode, and ran a graph node a bucket each
+    # replayed step; K6 ran once a layer and step
+    check(counts["pack_out"] == counts["pack"] == n_buckets * (1 + warm),
+          f"K1 ran {counts['pack']} times, {counts['pack_out']} in padded "
+          f"mode, expected {n_buckets * (1 + warm)}")
+    check(counts["pack_graph"] == n_buckets * (steps - warm),
+          f"K1 ran {counts['pack_graph']} times as a graph node, expected "
+          f"{n_buckets * (steps - warm)}")
+    for name in FLASH_KERNELS:
+        check(counts[name] == lm_cfg.n_layers * steps,
+              f"{name} launched {counts[name]} times in phase 16, expected "
+              f"{lm_cfg.n_layers * steps}")
+    with torch.no_grad():
+        max_diff = max_entry = 0.0
+        bitwise = True
+        for p, q in zip(model.parameters(), want):
+            q = q.to(dev)
+            max_diff = max(max_diff, float((p - q).abs().max()))
+            max_entry = max(max_entry, float(q.abs().max()))
+            bitwise = bitwise and torch.equal(p, q)
+    check(bitwise or max_diff <= 1e-6 * max_entry,
+          f"the sharded parameters are {max_diff} from the dense ones "
+          f"(largest entry {max_entry})")
+    del want
+
+    # a replayed step waits on nothing on the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # one eager and one replayed optimizer step, traced (the step re-runs
+    # AdamW on the last gradients)
+    ok = (lambda h, d: sum("pack_kernel" in n for n, _ in d) == n_buckets)
+    cfg.step_replay = False
+    eager_host, eager_dev = _traced_reduction(torch, opt.step, ok)
+    cfg.step_replay = True
+    graph_host, graph_dev = _traced_reduction(torch, opt.step, ok)
+    check(graph_host["cudaGraphLaunch"] == 1
+          and eager_host["cudaGraphLaunch"] == 0,
+          f"graph launches: replayed {graph_host['cudaGraphLaunch']}, "
+          f"eager {eager_host['cudaGraphLaunch']}")
+    calls = {mode: {k: v for k, v in host.items()
+                    if "Launch" in k or "Memcpy" in k}
+             for mode, host in (("eager", eager_host),
+                                ("replayed", graph_host))}
+    # the device's operations, not the optimizer's annotation around them
+    dev_ms = {mode: sum(us for n, us in d
+                        if not n.startswith("Optimizer.")) / 1e3
+              for mode, d in (("eager", eager_dev), ("replayed", graph_dev))}
+    # host ms of the optimizer step, eager (replay off) against replayed,
+    # in turns; the armed stream stays armed
+    host_ms = {True: [], False: []}
+    for _ in range(SHARDED_TIMED):
+        for on in (False, True):
+            cfg.step_replay = on
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.step()
+            host_ms[on].append(1e3 * (time.perf_counter() - t0))
+    cfg.step_replay = True
+    torch.cuda.synchronize()
+    # the graph alone (its table still points at the last gradients)
+    program = next(e["armed"].program for e in rep._seen.values()
+                   if e.get("armed") is not None)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    graph_ms, graph_host_ms = time_ms(torch, program.graph.replay, flush,
+                                      SHARDED_TIMED)
+    del flush
+    state = zero.state_bytes()
+    rep.invalidate_all("phase 16 done")
+    summary = {
+        "params": sum(p.numel() for p in model.parameters()),
+        "buckets": n_buckets, "steps": steps,
+        "shards": [(b.total, b.shard) for b in zero.buckets],
+        "counters": got, "bitwise": bitwise, "max_diff": max_diff,
+        "max_entry": max_entry, "losses": losses,
+        "dense_losses": dense_losses,
+        "k1_padded_launches": counts["pack_out"],
+        "k1_graph_launches": counts["pack_graph"],
+        "host_ms_eager": statistics.median(host_ms[False]),
+        "host_ms_replayed": statistics.median(host_ms[True]),
+        "host_ms_eager_range": (min(host_ms[False]), max(host_ms[False])),
+        "host_ms_replayed_range": (min(host_ms[True]),
+                                   max(host_ms[True])),
+        "graph_ms": graph_ms, "graph_host_ms": graph_host_ms,
+        "step_device_ms": dev_ms, "runtime_calls": calls,
+        "step_kernels": sorted({n for n, _ in graph_dev}),
+        "state_bytes": state, "dense_state_bytes": dense_state,
+        "peak_gib": peak, "dense_peak_gib": dense_peak,
+        "allocated_gib": allocated}
+    log(f"  {summary['params'] / 1e6:.1f} M parameters in {n_buckets} "
+        f"buckets; counters (captured, replayed, fallbacks) {got}")
+    log(f"  parameters against the dense run: bitwise {bitwise}, largest "
+        f"difference {max_diff:.3g} (largest entry {max_entry:.3g}); losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)} (dense "
+        f"{' '.join(f'{v:.4f}' for v in dense_losses)})")
+    log(f"  K1: {counts['pack_out']} launches in padded mode (the move and "
+        f"the eager steps), {counts['pack_graph']} as graph nodes")
+    log(f"  host ms of the optimizer step: eager "
+        f"{summary['host_ms_eager']:.3f} ({min(host_ms[False]):.3f}-"
+        f"{max(host_ms[False]):.3f}), replayed "
+        f"{summary['host_ms_replayed']:.3f} ({min(host_ms[True]):.3f}-"
+        f"{max(host_ms[True]):.3f}), median of {SHARDED_TIMED}; the graph "
+        f"{graph_ms:.4f} ms on the device ({graph_host_ms:.4f} host)")
+    log(f"  device ms of an optimizer step: {dev_ms}; runtime calls: "
+        f"eager {calls['eager']}, replayed {calls['replayed']}")
+    log(f"  optimizer state {state / 2**30:.3f} GiB (dense "
+        f"{dense_state / 2**30:.3f}); peak memory {peak:.2f} GiB (dense "
+        f"{dense_peak:.2f}); allocated after each step "
+        f"{' '.join(f'{v:.2f}' for v in allocated)} GiB")
+    return summary, counts
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -2678,10 +2924,15 @@ def main(argv=None) -> int:
         bn_launches = bn_module_launches(torch, FusedBatchNorm, dev, log)
         param_shapes = [tuple(p.shape) for p in ResNet50(
             num_classes=1000, fused_bn=True).parameters()]
-        pack_row, _ = check_pack_kernel(torch, K, bucket_by_size, dev,
-                                        param_shapes, flush, args.reps, log)
+        pack_row, pack_grads = check_pack_kernel(
+            torch, K, bucket_by_size, dev, param_shapes, flush, args.reps,
+            log)
         check(pack_row["buckets"] == 2,
               f"{pack_row['buckets']} buckets at 64 MB, expected 2")
+        pack_out_row = check_pack_out_kernel(torch, K, bucket_by_size, dev,
+                                             pack_grads, flush, args.reps,
+                                             log)
+        del pack_grads
         del flush
         torch.cuda.empty_cache()
 
@@ -2902,6 +3153,13 @@ def main(argv=None) -> int:
               f"{replay_counts['bn_bwd_stats']} times in phase 15, expected "
               f"{53 * replay['steps']}")
         torch.cuda.empty_cache()
+
+        log(f"phase 16: ZeRO-1, the flagship LM through "
+            f"DistributedOptimizer(sharded=True) against the dense one, "
+            f"batch 4 x {LM_DIMS['max_seq']} tokens")
+        sharded, sharded_counts = run_sharded_path(torch, hvd, K, tm, dev,
+                                                   log)
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -3003,7 +3261,23 @@ def main(argv=None) -> int:
              library_ms=pack_row["library_ms"], ok=True,
              work="ResNet-50 fp32 gradients, 2 buckets at 64 MB",
              lm_launches=lm_pack,
-             replay_launches=replay_counts["pack_graph"]),
+             replay_launches=replay_counts["pack_graph"],
+             sharded_launches=sharded_counts["pack"],
+             sharded_graph_launches=sharded_counts["pack_graph"]),
+        # K1 into a ZeRO-1 bucket's padded buffer (out=): phase 16's
+        # launches, phase 1's numbers
+        dict(name="pack_out", route="cuda", source=f"{src}/pack.cu",
+             replaces="horovod_tpu/ops/pallas_kernels.py:138",
+             launches=sharded_counts["pack_out"],
+             graph_launches=sharded_counts["pack_graph"],
+             max_abs_err=pack_out_row["max_abs_err"],
+             ms=pack_out_row["ms"], host_ms=pack_out_row["host_ms"],
+             plain_ms=pack_out_row["plain_ms"],
+             bound_ms=pack_out_row["bound_ms"], bound_by="bytes",
+             library_ms=pack_out_row["library_ms"], ok=True,
+             work=f"ResNet-50 fp32 gradients, 2 buckets at 64 MB, each with "
+                  f"{PACK_OUT_TAIL} fp32 after it, into buffers padded for "
+                  f"{PACK_OUT_RANKS} ranks; launches: phase 16"),
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
              launches=counts["bn_stats"], bound_by="bytes",
@@ -3072,7 +3346,7 @@ def main(argv=None) -> int:
                       "lm_peak_gib": lm_peak, "attention": attention,
                       "ring": ring, "adasum": adasum, "vit_tiny": tiny,
                       "wide_attention": wide, "sync_bn": sync_bn,
-                      "replay": replay,
+                      "replay": replay, "sharded": sharded,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ Ported so far: the world, the eager engine (allreduce, grouped allreduce,
 allgather, broadcast, reducescatter, alltoall with uneven splits, barrier,
 async handles, ``join`` for ranks that run out of data, step-capture
 replay between ``step_begin``/``step_end`` as one CUDA graph), Adasum (flat
-and hierarchical, ``op=hvd.Adasum``), ``DistributedOptimizer`` and
-``DistributedDeltaAdasumOptimizer``, the broadcast helpers and
+and hierarchical, ``op=hvd.Adasum``), ``DistributedOptimizer`` (ZeRO-1 with
+``sharded=True``), ``DistributedDeltaAdasumOptimizer`` and the mesh-axis
+wrapper ``distributed`` (``shard_optimizer=True``), the broadcast helpers and
 ``allreduce_sparse``, ResNet with the fused BatchNorm, ``SyncBatchNorm``
 (``horovod_tpu_torch.ops.sync_batch_norm``), the decoder LM and ViT on the
 flash-attention kernel, and sequence parallelism (ring attention, Ulysses,
@@ -241,7 +242,7 @@ def synchronize(handle):
 
 
 from .optimizer import (  # noqa: E402
-    DistributedDeltaAdasumOptimizer, DistributedOptimizer)
+    DistributedDeltaAdasumOptimizer, DistributedOptimizer, distributed)
 from .ops.compression import Compression  # noqa: E402
 from .functions import (  # noqa: E402
     allgather_object, allreduce_sparse, broadcast_object,
@@ -258,7 +259,8 @@ __all__ = [
     "step_begin", "step_end", "step", "broadcast_parameters", "broadcast_object", "allgather_object",
     "allreduce_sparse",
     "broadcast_optimizer_state", "DistributedOptimizer",
-    "DistributedDeltaAdasumOptimizer", "Compression", "optimizer",
+    "DistributedDeltaAdasumOptimizer", "distributed", "Compression",
+    "optimizer",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "HorovodInternalError", "HostsUpdatedInterrupt", "DuplicateNameError",
     "__version__",

@@ -30,6 +30,9 @@ HOROVOD_JOIN_META_SLOTS = "HOROVOD_JOIN_META_SLOTS"
 # times, service the whole step as one armed program; =0 disables
 HOROVOD_TPU_STEP_REPLAY = "HOROVOD_TPU_STEP_REPLAY"
 HOROVOD_TPU_STEP_REPLAY_WARMUP = "HOROVOD_TPU_STEP_REPLAY_WARMUP"
+# ZeRO-1: DistributedOptimizer(sharded=None) shards the optimizer state
+# when this is on (an optimizer it does not suit stays replicated)
+HOROVOD_TPU_SHARD_OPTIMIZER = "HOROVOD_TPU_SHARD_OPTIMIZER"
 # elastic world identity: a bump invalidates every armed replay stream
 HOROVOD_TPU_WORLD_VERSION = "HOROVOD_TPU_WORLD_VERSION"
 
@@ -76,6 +79,8 @@ class Config:
     # step replay: on by default, armed after this many identical steps
     step_replay: bool = True
     step_replay_warmup: int = 3
+    # the default of DistributedOptimizer(sharded=None): ZeRO-1 off
+    shard_optimizer: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -89,4 +94,5 @@ class Config:
                                      DEFAULT_JOIN_META_SLOTS),
             step_replay=_get_bool(HOROVOD_TPU_STEP_REPLAY, True),
             step_replay_warmup=_get_int(HOROVOD_TPU_STEP_REPLAY_WARMUP, 3),
+            shard_optimizer=_get_bool(HOROVOD_TPU_SHARD_OPTIMIZER, False),
         )

@@ -23,8 +23,16 @@ until the work completes. A rank in :meth:`Engine.join` reads each round
 and runs the advertised collective through the same engine method with
 zero tensors, so every internal exchange lines up, until every rank has
 joined. ``HOROVOD_JOIN_DISABLE=1`` drops the round, and ``join()`` is a
-barrier. The reference's ``sharded_step`` and ``grouped_alltoall``
-substitutes come with those collectives (ROADMAP A9, A16).
+barrier. A sharded step has no substitute (a joined rank owns a shard):
+its round is read by every rank before any exchange, and every rank
+raises. The reference's ``grouped_alltoall`` substitute comes with that
+collective (ROADMAP A16).
+
+ZeRO-1 (the reference's ``sharded_step``, :1911-2164): per bucket of the
+caller's frozen layout, K1 packs the gradients into a padded buffer and a
+reduce-scatter sums it into this rank's shard in place; the caller's
+update steps the shards; an all-gather writes every rank's shard into the
+flat parameter buffer in place (``ops/collectives.py``).
 
 Step replay (the reference's :1015-1060, ``core/replay.py``): between
 :meth:`Engine.step_begin` and :meth:`Engine.step_end` every collective
@@ -32,11 +40,11 @@ first reports to :class:`~.replay.StepReplay` (``intercept`` for the
 replayable kinds, before any registration or join round; ``observe`` for
 the others), which services a matching step from its armed program.
 
-Not ported yet (the reference's other engine paths): the ZeRO-1 sharded
-step, replay's overlap modes and single-launch form, wire codecs,
-alltoall's steady-state splits cache, algorithm selection (hierarchical
-Sum/Average and alltoall), autotune, metrics and tracing. Until algorithm
-selection is ported, a Sum/Average allreduce under
+Not ported yet (the reference's other engine paths): the ZeRO-1
+all-gather prefetch leg, replay's overlap modes and single-launch form,
+wire codecs, alltoall's steady-state splits cache, algorithm selection
+(hierarchical Sum/Average and alltoall), autotune, metrics and tracing.
+Until algorithm selection is ported, a Sum/Average allreduce under
 ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat and says so once per
 process, as the reference does when it demotes an algorithm.
 """
@@ -241,11 +249,12 @@ class HandleManager:
 
 
 # Join-protocol metadata (the reference's codes, core/engine.py:264-300).
-# The reference's kinds 10 (sharded_step) and 11 (grouped_alltoall) come
-# with those collectives (ROADMAP A9, A16).
+# The reference's kind 11 (grouped_alltoall) comes with that collective
+# (ROADMAP A16).
 _KIND_CODES = {"allreduce": 1, "grouped_allreduce": 2, "allgather": 3,
                "broadcast": 4, "alltoall": 5, "reducescatter": 6,
-               "barrier": 7, "adasum": 8, "grouped_broadcast": 9}
+               "barrier": 7, "adasum": 8, "grouped_broadcast": 9,
+               "sharded_step": 10}
 _CODE_KINDS = {v: k for k, v in _KIND_CODES.items()}
 _DTYPE_CODES = {torch.float32: 1, torch.float64: 2, torch.float16: 3,
                 torch.bfloat16: 4, torch.int8: 5, torch.int16: 6,
@@ -255,6 +264,15 @@ _DTYPE_CODES = {torch.float32: 1, torch.float64: 2, torch.float16: 3,
 _CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 _JOIN_META_DIMS = 7
 _JOIN_META_LEN = 3 + _JOIN_META_DIMS  # [op_or_root, dtype, ndim, d0..d6]
+
+# what every rank raises when join() meets a sharded step (the reference's
+# text, core/engine.py:1453-1461)
+SHARDED_JOIN_ERROR = (
+    "sharded optimizer steps cannot be matched by a join() zero substitute: "
+    "a rank without data still owns a parameter shard that must keep "
+    "receiving real updates. Keep stepping with zero gradients instead of "
+    "join(), or use the replicated (sharded=False) optimizer for "
+    "ragged-batch workloads")
 
 
 def _meta_row(shape, dtype: torch.dtype, op_or_root: int) -> np.ndarray:
@@ -300,6 +318,8 @@ class Engine:
         # on_replay(event, detail): capture, replay, fallback, invalidate
         self.on_replay: Optional[Callable[[str, str], None]] = None
         self._replay = StepReplay(self)
+        # the side stream a sharded step's join round runs on (the card)
+        self._guard_stream = None
 
     # -- internals ---------------------------------------------------------
 
@@ -629,6 +649,67 @@ class Engine:
         h.recv_sizes = np.asarray(rows)
         return self._track(h)
 
+    def shard_layout(self, total: int) -> tuple:
+        """``(padded, shard)`` of ``total`` elements over this world
+        (:func:`~..ops.collectives.shard_spec`): the ZeRO-1 padding rule."""
+        return C.shard_spec(int(total), self.backend.size())
+
+    def sharded_step(self, grads: Sequence, buckets: Sequence,
+                     update: Callable[[], object],
+                     name: Optional[str] = None,
+                     op: ReduceOp = ReduceOp.AVERAGE,
+                     prescale_factor: float = 1.0,
+                     postscale_factor: float = 1.0):
+        """One ZeRO-1 step over the world (the reference's :1911-2164,
+        without the prefetch leg): for each of ``buckets``
+        (:class:`~..ops.collectives.ShardBucket`, the caller's frozen
+        layout, whose ``idxs`` index ``grads``) pack the gradients into its
+        padded buffer (K1 under ``HOROVOD_PALLAS_PACK``), prescale,
+        reduce-scatter into this rank's shard in place and finish it
+        (Average's divide, the postscale); then ``update()`` (the wrapped
+        optimizer's step on the shards); then all-gather every rank's
+        updated shard into the bucket's parameter buffer in place. The host
+        waits on no device work: each completion is a stream dependency.
+
+        Inside a step the first half reports to replay as kind
+        ``sharded_step``; a step that is one sharded step arms after the
+        warm-up, and its packs, reduce-scatters and finishes then run as
+        the armed program (one CUDA graph on the card). ``update`` always
+        runs eagerly: an optimizer reads its hyperparameters as Python
+        numbers at every step. At size > 1 with join live the step's join
+        round is read first (a wait for the peers), and a joined peer makes
+        every rank raise :data:`SHARDED_JOIN_ERROR`."""
+        grads = [self._tensor(g) for g in grads]
+        if not grads:
+            raise ValueError("sharded_step needs at least one gradient")
+        sub = self._consume_substitute()
+        if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise ValueError(
+                f"sharded_step supports Sum and Average, got {op!r}")
+        for g in grads:
+            _check_average_dtype(g, op)
+        r = self._replay.intercept("sharded_step", grads, int(op),
+                                   prescale_factor, postscale_factor, name,
+                                   sub, layout=buckets)
+        if r is not None:
+            # the armed program ran the first half (its one dispatch
+            # covers the gathers too); this orders the stream after it
+            r[0].synchronize()
+            update()
+            _translate_failure(C.gather_shards, buckets, None)
+            return
+        for i in range(len(grads)):
+            self._register(None if name is None else f"{name}.{i}",
+                           "sharded_step")
+        self._join_guard("sharded_step")
+        n = self.backend.size() if op == ReduceOp.AVERAGE else 1
+        self.dispatch_count += _translate_failure(
+            C.scatter_shards, buckets, grads, self.config.pack_kernel, n,
+            prescale_factor, postscale_factor, None)
+        update()
+        self.dispatch_count += _translate_failure(C.gather_shards, buckets,
+                                                  None)
+
     def track_result(self, name: str, out: torch.Tensor) -> Handle:
         """Register ``out``, computed under the name ``name`` on this
         process's current stream (the Adasum path), as a handle: it
@@ -707,6 +788,11 @@ class Engine:
         if kind is None:
             raise HorovodInternalError(
                 f"unknown substitute kind code {kind_code}")
+        if kind == "sharded_step":
+            # this rank owns a shard: a zero substitute would publish it
+            # stale into every peer's parameters. The active ranks read
+            # this round too (_join_guard) and raise the same error
+            raise HorovodInternalError(SHARDED_JOIN_ERROR)
         dev = self.backend.device
 
         def zero(row):
@@ -771,6 +857,28 @@ class Engine:
         self._post_exchange(self._join_head(0, 0, _KIND_CODES[kind], metas))
         if len(metas) > slots:
             self._post_exchange(np.concatenate(metas[slots:]))
+
+    def _join_guard(self, kind: str):
+        """The round of a collective no zero substitute can stand in for (a
+        sharded step): posted as :meth:`_join_sync` posts one, with no
+        metadata rows, but read here before any of the collective's
+        exchanges. A rank in :meth:`join` reads the same round and raises,
+        and so does every active rank here, so nothing is exchanged and
+        no rank hangs. On the card the round runs on a side stream: the
+        read waits for the peers, not for the work queued on the current
+        stream."""
+        if not self.config.join_enabled or self.backend.size() <= 1:
+            return
+        vec = self._join_head(0, 0, _KIND_CODES[kind], [])
+        if self.backend.device.type == "cuda":
+            if self._guard_stream is None:
+                self._guard_stream = torch.cuda.Stream(self.backend.device)
+            with torch.cuda.stream(self._guard_stream):
+                rows = self._exchange_rows(vec)
+        else:
+            rows = self._exchange_rows(vec)
+        if (rows[:, 0] == 1).any():
+            raise HorovodInternalError(SHARDED_JOIN_ERROR)
 
     def _root_flag(self, root_rank: int, sub: bool):
         """Under join at size > 1 broadcast the root's active flag (0 from

@@ -44,14 +44,29 @@ per-step host cost, there one fused XLA launch; here one CUDA graph):
 - ``join()`` and an elastic world-version bump invalidate every armed
   stream; a move of the fusion threshold, the pack knob or the join switch
   rebuilds the armed program before its next launch.
+- The sharded arm (the reference's ``intercept("sharded_step", ...)``,
+  ``core/engine.py:1996``): a step that is one ``Engine.sharded_step``
+  (ZeRO-1) arms after the warm-up like any other. Its program holds the
+  first half of the step over the caller's frozen buckets: on the card one
+  CUDA graph (:class:`_ShardedGraphProgram`: per bucket K1 from its
+  ``PackTable`` into the bucket's padded gradient buffer, whose tail stays
+  zero, the prescale, the NCCL reduce-scatter into this rank's shard in
+  place and the finish), on gloo the same issued eagerly
+  (:class:`_ShardedEagerProgram`). The wrapped optimizer's update is not
+  captured (it reads ``lr`` and the other hyperparameters as Python
+  numbers at every step, so a scheduler's moves must reach it): it runs
+  eagerly after the launch, and the all-gathers after it as eager NCCL
+  calls, all within the step's one dispatch. With join live, the step's
+  join round is read on the host before the launch
+  (``Engine._join_guard``), outside the graph.
 
-Replayable kinds: allreduce, grouped_allreduce, broadcast and
-grouped_broadcast. allgather, alltoall, reducescatter, barrier and Adasum go
-through :meth:`StepReplay.observe`: a step holding one never arms. Not
-ported, since the port has none of these calls yet: the reference's
-sharded (ZeRO-1) step arm (ROADMAP A9), its grouped_alltoall arm (A16) and
-its wire-codec rows (A8); nor its overlap modes, staged sub-launches and
-single-launch form (A10's remainder). The metrics-registry instruments
+Replayable kinds: allreduce, grouped_allreduce, broadcast,
+grouped_broadcast and sharded_step. allgather, alltoall, reducescatter,
+barrier and Adasum go through :meth:`StepReplay.observe`: a step holding
+one never arms. Not ported, since the port has none of these calls yet:
+the reference's grouped_alltoall arm (A16) and its wire-codec rows (A8);
+nor its overlap modes, staged sub-launches, the ZeRO-1 prefetch leg and
+the single-launch form (A10's remainder). The metrics-registry instruments
 wait for A12: the plain counters (``captured_streams``, ``replayed_steps``,
 ``fallbacks``) and the engine's ``on_replay(event, detail)`` hook stay.
 """
@@ -76,6 +91,8 @@ _DIGITS = re.compile(r"\d+")
 
 _REDUCE_KINDS = ("allreduce", "grouped_allreduce")
 _BCAST_KINDS = ("broadcast", "grouped_broadcast")
+_SHARDED = "sharded_step"
+_REPLAYABLE = _REDUCE_KINDS + _BCAST_KINDS + (_SHARDED,)
 _MAX_STREAMS = 16  # bound on the per-signature table (LRU)
 
 
@@ -90,16 +107,22 @@ class CallSig(NamedTuple):
     post: float
     name: str          # digit-normalized name template
     replayable: bool
+    # a sharded step's buckets (collectives.ShardBucket, the caller's
+    # frozen layout), compared by identity: another optimizer's step is
+    # another signature
+    layout: object = None
 
 
 def _make_sig(kind: str, tensors, code: int, pre: float, post: float,
-              name: Optional[str], replayable: bool) -> CallSig:
+              name: Optional[str], replayable: bool,
+              layout=None) -> CallSig:
     return CallSig(
         kind, int(code),
         tuple(tuple(t.shape) for t in tensors),
         tuple(str(t.dtype) for t in tensors),
         float(pre), float(post),
-        _DIGITS.sub("#", name or ""), replayable)
+        _DIGITS.sub("#", name or ""), replayable,
+        None if layout is None else tuple(layout))
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -304,6 +327,74 @@ class _GraphProgram:
         return out
 
 
+class _ShardedEagerProgram:
+    """The sharded arm on CPU tensors: the step's join round, read
+    (``Engine._join_guard``), then per bucket the pack, prescale,
+    reduce-scatter and finish, as ``Engine.sharded_step`` issues them."""
+    tables = 0
+    copy_outs = 0
+
+    def __init__(self, engine, sig: CallSig):
+        self.engine, self.sig = engine, sig
+        # Average's divide
+        self.n = engine.backend.size() if sig.code == ReduceOp.AVERAGE else 1
+
+    def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
+        from .engine import LaunchGroup, _StreamWork
+        eng, sig = self.engine, self.sig
+        eng._join_guard(_SHARDED)
+        C.scatter_shards(sig.layout, inputs, eng.config.pack_kernel, self.n,
+                         sig.pre, sig.post, None)
+        group = LaunchGroup(_StreamWork(eng.backend.device))
+        return [_Bound(group, None)] * len(inputs)
+
+
+class _ShardedGraphProgram(_ShardedEagerProgram):
+    """The sharded arm as one CUDA graph, captured once into a private
+    pool: per bucket K1 from its :class:`~..ops.kernels.PackTable` into the
+    bucket's padded gradient buffer (or nothing, where the plain pack
+    fills it before the launch), the prescale, the NCCL reduce-scatter
+    into this rank's shard in place and the finish. The buffers are the
+    layout's own, so the graph copies nothing out: the wrapped optimizer
+    reads the shard's gradient where the graph left it."""
+
+    def __init__(self, engine, sig: CallSig):
+        super().__init__(engine, sig)
+        dev = self.device = engine.backend.device
+        self._tables = [kernels.PackTable(b.sizes, b.grads.dtype, dev)
+                        if engine.config.pack_kernel else None
+                        for b in sig.layout]
+        self.tables = sum(t is not None for t in self._tables)
+        self.graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                                     capture_error_mode="thread_local")
+            try:
+                for b, table in zip(sig.layout, self._tables):
+                    if table is not None:
+                        table.capture(b.grads[:b.total])
+                    C.prescale(b.grads[:b.total], sig.pre)
+                    C.rs_flat(b.grads, b.grad_shard, None)
+                    C.finish_reduce(b.grad_shard, self.n, sig.post)
+            finally:
+                self.graph.capture_end()
+
+    def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
+        from .engine import LaunchGroup, _StreamWork
+        self.engine._join_guard(_SHARDED)
+        for b, table in zip(self.sig.layout, self._tables):
+            ts = [inputs[i] for i in b.idxs]
+            if table is not None:
+                table.refresh(ts)
+            else:
+                kernels.pack_plain(ts, out=b.grads)
+        self.graph.replay()
+        kernels.pack.graph_launches += self.tables
+        group = LaunchGroup(_StreamWork(self.device))
+        return [_Bound(group, None)] * len(inputs)
+
+
 class _Armed(NamedTuple):
     # the knobs the program was built under: a move rebuilds it
     threshold: int
@@ -422,10 +513,12 @@ class StepReplay:
     # -- per-call interception --------------------------------------------
 
     def intercept(self, kind: str, tensors: Sequence, code: int, pre: float,
-                  post: float, name: Optional[str], sub: bool):
+                  post: float, name: Optional[str], sub: bool,
+                  layout: Optional[Sequence] = None):
         """Called by every replayable engine entry point before it
-        registers anything. Returns None to proceed on the eager path, or
-        the handles servicing the call from the (pending) armed launch."""
+        registers anything (a sharded step passes its buckets as
+        ``layout``). Returns None to proceed on the eager path, or the
+        handles servicing the call from the (pending) armed launch."""
         mode = self._mode
         if mode in ("idle", "off"):
             return None
@@ -438,7 +531,7 @@ class StepReplay:
                                              name, replayable=False))
             return None
         sig = _make_sig(kind, tensors, code, pre, post, name,
-                        replayable=kind in _REDUCE_KINDS + _BCAST_KINDS)
+                        replayable=kind in _REPLAYABLE, layout=layout)
         self._recording.append(sig)
         if mode == "record":
             return None
@@ -523,6 +616,16 @@ class StepReplay:
         if not all(sig.replayable for sig in stream):
             return None
         join_live = self._join_live()
+        if any(sig.kind == _SHARDED for sig in stream):
+            # the sharded arm: a step that is one sharded step (the update
+            # between its halves must run before anything after it)
+            if len(stream) != 1:
+                return None
+            program_cls = (_ShardedGraphProgram
+                           if eng.backend.device.type == "cuda"
+                           else _ShardedEagerProgram)
+            return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel,
+                          join_live, program_cls(eng, stream[0]))
         segs: List[dict] = []
         for sig in stream:
             cls = "reduce" if sig.kind in _REDUCE_KINDS else "bcast"
@@ -592,6 +695,13 @@ class StepReplay:
                         for s, d in zip(sig.shapes, sig.dtypes)]
             flat.extend(bufs)
         program = armed.program
+        # launched once a step, even if the launch raises (a sharded
+        # step's join guard): step_end must not issue it again
+        self._launched = True
+        # the step's inputs are the program's now: holding them until the
+        # next step_begin would keep a step's gradients alive through the
+        # next backward
+        self._buffered = []
         bound = _translate_failure(program.launch, flat)
         eng.dispatch_count += 1
         self.table_copies += program.tables
@@ -603,7 +713,6 @@ class StepReplay:
                 if hs is not None:
                     hs[j]._bound = bound[k]
                 k += 1
-        self._launched = True
         if not padded:
             self.replayed_steps += 1
             eng._emit_replay(

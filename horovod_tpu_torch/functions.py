@@ -86,7 +86,20 @@ def _to_cpu(obj):
 def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
     """Make every process's optimizer state equal to ``root_rank``'s, in
     place (``load_state_dict`` moves the state tensors to the parameters'
-    devices)."""
+    devices).
+
+    A ZeRO-1 sharded optimizer is refused (the reference's
+    ``functions.py:104-110``): its state is rank-local shards, and rank 0's
+    would overwrite every other rank's slice. Broadcast the parameters and
+    build the optimizer anew instead."""
+    is_sharded = getattr(optimizer, "_is_sharded", None)
+    if is_sharded is not None and is_sharded():
+        raise ValueError(
+            "broadcast_optimizer_state cannot broadcast a ZeRO-1 sharded "
+            "state: its leaves are rank-local shards, and overwriting them "
+            "with rank 0's would corrupt every other rank's parameter "
+            "slice. Use broadcast_parameters(model.state_dict()) and build "
+            "the sharded optimizer anew")
     eng = _engine()
     if eng.backend.size() == 1:
         return

@@ -1,10 +1,12 @@
-"""Pack/unpack layer of the fused allreduce.
+"""Pack/unpack layer of the fused allreduce, and the buckets of the ZeRO-1
+sharded step.
 
 Counterpart of the pack, scale and unpack steps of
 ``horovod_tpu/ops/collectives.py`` (``build_pack`` :1291, ``build_pack_group``
 :1130, ``_unpack_flat`` :1395, the prescale/postscale of
-``build_fused_allreduce`` :1044-1093). The collective itself is a
-``torch.distributed`` call made by the engine.
+``build_fused_allreduce`` :1044-1093), and of its ZeRO-1 helpers
+(``shard_spec`` :1304, ``_rs_flat`` :1315, ``_ag_flat`` :1367). The
+collective itself is a ``torch.distributed`` call made by the engine.
 """
 
 from __future__ import annotations
@@ -89,3 +91,107 @@ def all_to_all(out: torch.Tensor, inp: torch.Tensor, out_splits: List[int],
     return dist.all_to_all(list(out.split(out_splits)),
                            list(inp.split(in_splits)), group=group,
                            async_op=async_op)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: padded buckets, the flat reduce-scatter and the in-place all-gather
+# ---------------------------------------------------------------------------
+
+
+def shard_spec(total: int, n: int) -> tuple:
+    """``(padded, shard)`` of a flat bucket of ``total`` elements over ``n``
+    ranks: ``shard = ceil(total / n)`` and ``padded = shard * n``; rank r owns
+    ``[r·shard, (r+1)·shard)`` of the zero-padded buffer, so the
+    reduce-scatter and all-gather pair is exact for any total."""
+    shard = -(-int(total) // int(n)) if n > 0 else int(total)
+    return shard * n, shard
+
+
+class ShardBucket:
+    """One fusion bucket of a ZeRO-1 layout over ``n`` ranks: ``sizes``
+    elements of one dtype (the layout's tensors ``idxs``), padded to
+    ``padded = shard * n``. ``params`` is the flat home of the bucket's
+    parameters, each a view of it; ``grads`` is the buffer its gradients are
+    packed into. Both start as zeros and only ``[0, total)`` is ever written,
+    so their tails stay zero with no memset. ``param_shard`` and
+    ``grad_shard`` are this rank's ``[rank·shard, (rank+1)·shard)`` of each:
+    the reduce-scatter writes its sum into ``grad_shard`` in place and the
+    all-gather reads ``param_shard`` in place."""
+
+    def __init__(self, idxs: Sequence[int], sizes: Sequence[int],
+                 dtype: torch.dtype, device: torch.device, n: int,
+                 rank: int):
+        self.idxs = tuple(int(i) for i in idxs)
+        self.sizes = tuple(int(s) for s in sizes)
+        self.total = sum(self.sizes)
+        self.padded, self.shard = shard_spec(self.total, n)
+        self.params = torch.zeros(self.padded, dtype=dtype, device=device)
+        self.grads = torch.zeros_like(self.params)
+        lo = rank * self.shard
+        self.param_shard = self.params[lo:lo + self.shard]
+        self.grad_shard = self.grads[lo:lo + self.shard]
+
+
+def pack_padded(tensors: Sequence[torch.Tensor], out: torch.Tensor,
+                use_kernel: bool) -> torch.Tensor:
+    """Pack ``tensors`` into ``out[:numel]`` of a padded buffer whose tail
+    the caller keeps zero: K1's ``out=`` form when ``use_kernel``, else the
+    plain one. No copy pads the bucket."""
+    if use_kernel:
+        return kernels.pack(tensors, out=out)
+    return kernels.pack_plain(tensors, out=out)
+
+
+def rs_flat(flat: torch.Tensor, shard: torch.Tensor, group,
+            async_op: bool = False):
+    """Sum the padded ``flat`` over ``group`` (the world when None), this
+    rank's chunk landing in ``shard``, its own slice of ``flat`` (in place).
+    Average is this Sum, then :func:`finish_reduce`'s divide on the shard,
+    as the reference's ``_rs_flat`` does it."""
+    return reduce_scatter(shard, flat, group, async_op)
+
+
+def ag_flat(flat: torch.Tensor, shard: torch.Tensor, group,
+            async_op: bool = False):
+    """The inverse of :func:`rs_flat`: every rank's ``shard`` (its own slice
+    of ``flat``) gathered into ``flat`` in place (the reference's
+    ``_ag_flat``; the padded tail is never read back)."""
+    return all_gather(flat, shard, group, async_op)
+
+
+def scatter_shards(buckets: Sequence[ShardBucket],
+                   tensors: Sequence[torch.Tensor], use_kernel: bool,
+                   average_over: int, prescale_factor: float,
+                   postscale_factor: float, group,
+                   collective: bool = True) -> int:
+    """A sharded step's first half: per bucket pack ``tensors`` (the
+    gradients, indexed by the bucket's ``idxs``), prescale and post the
+    reduce-scatter; then wait for each (a stream dependency on the card)
+    and finish its shard (Average's divide, the postscale). Without
+    ``collective`` (a group of one rank outside the world) the packed
+    buffer is the sum. Returns the collectives launched."""
+    works = []
+    for b in buckets:
+        pack_padded([tensors[i] for i in b.idxs], b.grads, use_kernel)
+        prescale(b.grads[:b.total], prescale_factor)
+        if collective:
+            works.append(rs_flat(b.grads, b.grad_shard, group, async_op=True))
+    for w in works:
+        w.wait()
+    for b in buckets:
+        finish_reduce(b.grad_shard, average_over, postscale_factor)
+    return len(works)
+
+
+def gather_shards(buckets: Sequence[ShardBucket], group,
+                  collective: bool = True) -> int:
+    """A sharded step's second half: every bucket's all-gather into its
+    parameter buffer, in place, then a wait for each (a stream dependency
+    on the card, never a host wait). Returns the collectives launched."""
+    if not collective:
+        return 0
+    works = [ag_flat(b.params, b.param_shard, group, async_op=True)
+             for b in buckets]
+    for w in works:
+        w.wait()
+    return len(works)

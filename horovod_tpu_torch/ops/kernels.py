@@ -46,7 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,14 +70,39 @@ def _lib():
 # ---------------------------------------------------------------------------
 
 
-def pack_plain(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Flatten and concatenate (the reference's ``build_pack``)."""
-    return torch.cat([t.reshape(-1) for t in tensors])
+def _pack_out(tensors: Sequence[torch.Tensor], out: torch.Tensor):
+    """``out[:numel]`` for ``out=`` of the packs: a 1-d contiguous buffer of
+    the tensors' dtype and device holding at least their elements."""
+    total = sum(t.numel() for t in tensors)
+    t0 = tensors[0]
+    if (out.dim() != 1 or not out.is_contiguous() or out.dtype != t0.dtype
+            or out.device != t0.device or out.numel() < total):
+        raise ValueError(
+            f"pack: out must be a 1-d contiguous {t0.dtype} buffer on "
+            f"{t0.device} of at least {total} elements; got {out.dtype} "
+            f"{tuple(out.shape)} on {out.device} (contiguous: "
+            f"{out.is_contiguous()})")
+    return out[:total]
 
 
-def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def pack_plain(tensors: Sequence[torch.Tensor],
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flatten and concatenate (the reference's ``build_pack``); with
+    ``out``, into ``out[:numel]``, the rest of ``out`` left as it is."""
+    flat = [t.reshape(-1) for t in tensors]
+    if out is None:
+        return torch.cat(flat)
+    torch.cat(flat, out=_pack_out(tensors, out))
+    return out
+
+
+def pack(tensors: Sequence[torch.Tensor],
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-launch copy of ``tensors`` (one dtype, one device) into a new flat
-    buffer at prefix-sum offsets; bitwise equal to :func:`pack_plain`."""
+    buffer at prefix-sum offsets; bitwise equal to :func:`pack_plain`. With
+    ``out`` (a ZeRO-1 bucket's padded buffer), K1 writes ``out[:numel]``
+    and leaves the rest alone, and ``out`` is returned; such launches are
+    also counted in ``pack.out_launches``."""
     if not tensors:
         raise ValueError("pack needs at least one tensor")
     dtype, device = tensors[0].dtype, tensors[0].device
@@ -86,8 +111,10 @@ def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
             raise ValueError("pack takes tensors of one dtype on one device; "
                              f"got {t.dtype} on {t.device} beside {dtype} on "
                              f"{device}")
+    if out is not None:
+        _pack_out(tensors, out)
     if device.type == "cpu":
-        return pack_plain(tensors)
+        return pack_plain(tensors, out)
     if device.type != "cuda":
         raise ValueError(f"pack: unsupported device {device}")
     for i, t in enumerate(tensors):
@@ -103,7 +130,9 @@ def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
             rows.append((t.data_ptr(), offset * itemsize, nbytes, tiles))
             tiles += -(-nbytes // tile)
         offset += t.numel()
-    out = torch.empty(offset, dtype=dtype, device=device)
+    given = out is not None
+    if not given:
+        out = torch.empty(offset, dtype=dtype, device=device)
     if not rows:
         return out
     # one small asynchronous host-to-device copy of the table from pinned
@@ -115,10 +144,13 @@ def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     _check(lib.hvd_pack(device.index, table.data_ptr(), len(rows), tiles,
                         out.data_ptr(), _stream(device)), "pack")
     pack.launches += 1
+    pack.out_launches += given
     return out
 
 
 pack.launches = 0
+# of them, K1 into a caller's buffer (out=: the ZeRO-1 padded buckets)
+pack.out_launches = 0
 # K1 launched as a node of a replayed CUDA graph (PackTable)
 pack.graph_launches = 0
 
@@ -1126,7 +1158,7 @@ PADDING_KERNELS = ROUTED_KERNELS + (flash_bwd_pre,)
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
-    pack.graph_launches = 0
+    pack.out_launches = pack.graph_launches = 0
     for k in ROUTED_KERNELS:
         k.sm90_wide_launches = k.sm90_tf32_launches = 0
     for k in PADDING_KERNELS:
@@ -1140,9 +1172,12 @@ def launch_counts() -> dict:
     ``<wrapper>_sm90_tf32``, the Hopper kernels on fp32 (every wrapper at
     every head dim). ``<wrapper>_pad_copies`` counts the calls of a K6/K7
     wrapper (di included) that copied their inputs zero-padded
-    (:func:`flash_needs_copy`) before the launch. ``pack_graph`` counts
-    K1's launches as nodes of replayed CUDA graphs (:class:`PackTable`)."""
+    (:func:`flash_needs_copy`) before the launch. ``pack_out`` counts
+    K1's launches into a caller's buffer (``out=``, among ``pack``'s) and
+    ``pack_graph`` its launches as nodes of replayed CUDA graphs
+    (:class:`PackTable`)."""
     counts = {k.__name__: k.launches for k in KERNELS}
+    counts["pack_out"] = pack.out_launches
     counts["pack_graph"] = pack.graph_launches
     for k in ROUTED_KERNELS:
         counts[f"{k.__name__}_sm90_wide"] = k.sm90_wide_launches

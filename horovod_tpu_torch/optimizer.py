@@ -1,5 +1,6 @@
 """Distributed optimizers around a ``torch.optim.Optimizer``: gradient
-allreduce, and the delta-model Adasum form.
+allreduce, ZeRO-1 optimizer-state sharding, the delta-model Adasum form, and
+the mesh-axis wrapper :func:`distributed`.
 
 The port's counterpart of ``horovod_tpu/optimizer.py``'s
 ``DistributedEagerOptimizer`` (:458-949) in the shape of Horovod's torch
@@ -17,25 +18,168 @@ in a size-1 world.
         loss_fn(model, batch).backward()
         opt.step()
 
+``sharded=True`` is ZeRO-1 (Rajbhandari et al., 2020; the reference's
+``sharded=``, :458-684): at the first step the wrapped optimizer's
+parameters are cut into fusion buckets (frozen from then on) and moved,
+one K1 pack a bucket, into padded flat buffers of which each parameter
+becomes a view; the wrapped optimizer is rebuilt over this rank's
+``ceil(total / size)`` slice of each bucket, so its state and its update's
+work shrink by the world size. Each step is one ``Engine.sharded_step``:
+the gradients are packed and reduce-scattered into the shards' ``.grad``,
+the rebuilt optimizer steps the shards, and an all-gather writes every
+rank's shard back into the flat buffers, which updates the model's
+parameters in place. The step runs at size 1 too.
+
 :class:`DistributedDeltaAdasumOptimizer` is the reference's
 ``DistributedDeltaAdasumOptimizer`` (:1021-1131): the wrapped optimizer
 steps on the local gradients and the parameter delta is Adasum-reduced.
+
+:func:`distributed` is the reference's SPMD wrapper (:149-440) in torch's
+per-process form: the same reduction, or ZeRO-1 with
+``shard_optimizer=True``, over one axis of a training mesh, issued straight
+to the axis's process group with K1's packs (no engine names, join rounds
+or replay, as the reference's in-graph ``psum`` has none).
 """
 
 from __future__ import annotations
 
-from typing import List
+import inspect
+from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
-from .common.reduce_ops import Adasum, Average, ReduceOp
-from .core.state import engine as _engine
+from .common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+from .common.lru import lru_get, lru_put
+from .common.reduce_ops import Adasum, Average, ReduceOp, Sum
+from .core.state import engine as _engine, global_state
+from .ops import collectives as C
+from .ops import kernels
 from .ops.adasum import adasum_allreduce_handle
 from .ops.compression import Compression
 
 
+def _check_shardable(op: ReduceOp, compression, what: str):
+    """The reference's restrictions of ZeRO-1 (:497-560, :353-370)."""
+    if op not in (Average, Sum):
+        raise ValueError(f"{what} supports op=Average|Sum only (Adasum "
+                         "mixes whole updates, not shards)")
+    if compression is not Compression.none:
+        raise ValueError(
+            f"{what} does not compose with compression (Compression.none "
+            "only): cast compressors would change the packed buffers' "
+            "dtype-uniform layout, and the wire codecs (Compression.fp8/"
+            "int8) are not ported yet")
+
+
+def _zero1_plan(optimizer: torch.optim.Optimizer, n: int, threshold: int):
+    """The ZeRO-1 bucket layout of ``optimizer``'s trainable parameters
+    over ``n`` ranks (the reference's ``_zero1_layout``, :292-308):
+    ``bucket_by_size`` over each param group's parameters in turn, so a
+    bucket holds parameters of one group and one dtype. Returns the plan,
+    per bucket ``(group, positions, sizes, shard)`` with positions into the
+    flat list of parameters, that list, and a label of each parameter."""
+    from .core.engine import bucket_by_size
+    plan, params, labels = [], [], []
+    for gi, group in enumerate(optimizer.param_groups):
+        ps = [(j, p) for j, p in enumerate(group["params"])
+              if p.requires_grad]
+        for idxs in bucket_by_size([p for _, p in ps], threshold):
+            sizes = tuple(ps[i][1].numel() for i in idxs)
+            plan.append((gi, tuple(len(params) + i for i in idxs), sizes,
+                         C.shard_spec(sum(sizes), n)[1]))
+        params += [p for _, p in ps]
+        labels += [f"param_groups[{gi}]['params'][{j}] "
+                   f"{tuple(p.shape)}" for j, p in ps]
+    return tuple(plan), params, labels
+
+
+class _Zero1:
+    """One wrapped optimizer's ZeRO-1 state on this rank (the reference's
+    ``ShardedEagerState``, :443-455): the frozen plan; per bucket a
+    :class:`~.ops.collectives.ShardBucket` whose parameter buffer is the
+    home of the bucket's parameters (each ``p.data`` a view of it, moved
+    there by one K1 pack) and whose shard is a leaf ``nn.Parameter``
+    sharing its storage; and the wrapped optimizer rebuilt over those shard
+    parameters, one param group per source group with that group's
+    hyperparameters (its ``foreach``/``fused`` flags among them). The
+    rebuilt optimizer's ``state_dict()`` is this rank's alone."""
+
+    def __init__(self, source: torch.optim.Optimizer, n: int, rank: int,
+                 threshold: int):
+        self.source = source
+        self.plan, self.params, self.labels = _zero1_plan(source, n,
+                                                          threshold)
+        if not self.plan:
+            raise ValueError("a sharded optimizer needs at least one "
+                             "parameter that requires grad")
+        self.buckets = []
+        with torch.no_grad():
+            for _, idxs, sizes, _ in self.plan:
+                ps = [self.params[i] for i in idxs]
+                if any(p.device != ps[0].device for p in ps):
+                    raise ValueError("a sharded optimizer's parameters must "
+                                     "lie on one device")
+                b = C.ShardBucket(idxs, sizes, ps[0].dtype, ps[0].device, n,
+                                  rank)
+                kernels.pack([p.detach().contiguous() for p in ps],
+                             out=b.params)
+                for p, view in zip(ps, C.unpack_flat(
+                        b.params, [tuple(p.shape) for p in ps])):
+                    p.data = view
+                self.buckets.append(b)
+        self.shards = [torch.nn.Parameter(b.param_shard)
+                       for b in self.buckets]
+        groups = {}
+        for (gi, _, _, _), sp in zip(self.plan, self.shards):
+            groups.setdefault(gi, []).append(sp)
+        # the source group of each rebuilt group
+        self.group_of = sorted(groups)
+        accepted = inspect.signature(type(source).__init__).parameters
+        self.optimizer = type(source)(
+            [dict(_hyper(source.param_groups[gi]), params=groups[gi])
+             for gi in self.group_of],
+            **{k: v for k, v in source.defaults.items() if k in accepted})
+
+    def grads(self) -> List[torch.Tensor]:
+        """The layout's gradients, in its order; a parameter with no
+        gradient raises (a zero would move it under momentum or weight
+        decay, where the replicated path leaves it alone)."""
+        out = []
+        for p, label in zip(self.params, self.labels):
+            if p.grad is None:
+                raise ValueError(
+                    f"sharded optimizer: parameter {label} has no gradient; "
+                    "every parameter of the layout needs one at each step "
+                    "(set requires_grad=False on parameters left out of the "
+                    "loss before the first step)")
+            out.append(p.grad.contiguous())
+        return out
+
+    def update(self):
+        """The wrapped optimizer's step on this rank's shards, with the
+        source groups' hyperparameters (where a scheduler moves them)."""
+        for dst, gi in zip(self.optimizer.param_groups, self.group_of):
+            dst.update(_hyper(self.source.param_groups[gi]))
+        for b, sp in zip(self.buckets, self.shards):
+            sp.grad = b.grad_shard
+        self.optimizer.step()
+        # what an LR scheduler bound to the wrapped optimizer reads to know
+        # that it stepped (torch.optim.lr_scheduler's step counting)
+        self.source._opt_called = True
+
+    def state_bytes(self) -> int:
+        """Bytes of the rebuilt optimizer's state tensors on this rank."""
+        return sum(v.nbytes for st in self.optimizer.state.values()
+                   for v in st.values() if isinstance(v, torch.Tensor))
+
+
+def _hyper(group: dict) -> dict:
+    return {k: v for k, v in group.items() if k != "params"}
+
+
 class _Wrapper:
-    """What both optimizers share: attributes the wrapper does not define
+    """What the optimizers share: attributes the wrapper does not define
     (``param_groups``, ``state``, ``defaults``, ...) are the wrapped
     optimizer's, and ``step()`` steps on every ``backward_passes_per_step``-th
     call, ``zero_grad()`` leaving the summed gradients alone in between."""
@@ -49,6 +193,8 @@ class _Wrapper:
         self.backward_passes_per_step = backward_passes_per_step
         self._count = 0
         self._step = 0
+        # the ZeRO-1 state, made at the first sharded step
+        self._zero: Optional[_Zero1] = None
 
     def __getattr__(self, name):
         # only reached for names this wrapper does not define
@@ -78,11 +224,30 @@ class _Wrapper:
         if self._count == 0:
             self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    def _is_sharded(self) -> bool:
+        return False
+
+    def _zero1(self) -> _Zero1:
+        raise NotImplementedError
+
+    def _closure(self, closure):
+        if closure is None:
+            return None
+        with torch.enable_grad():
+            return closure()
+
     def state_dict(self):
+        """The wrapped optimizer's; sharded, this rank's shard optimizer's
+        (rank-local: ``broadcast_optimizer_state`` refuses it)."""
+        if self._is_sharded():
+            return self._zero1().optimizer.state_dict()
         return self.optimizer.state_dict()
 
     def load_state_dict(self, state_dict):
-        self.optimizer.load_state_dict(state_dict)
+        if self._is_sharded():
+            self._zero1().optimizer.load_state_dict(state_dict)
+        else:
+            self.optimizer.load_state_dict(state_dict)
 
 
 class DistributedOptimizer(_Wrapper):
@@ -92,16 +257,75 @@ class DistributedOptimizer(_Wrapper):
     With ``backward_passes_per_step=k`` call ``step()`` after every backward
     pass: the first k-1 calls return without stepping and ``zero_grad()``
     leaves the gradients alone meanwhile, so autograd sums the k passes into
-    ``p.grad``; the k-th call reduces that sum and steps."""
+    ``p.grad``; the k-th call reduces that sum and steps.
+
+    ``sharded=True`` selects ZeRO-1 (see the module's docstring; op Average
+    or Sum and no compression). ``sharded=None`` defers to
+    ``HOROVOD_TPU_SHARD_OPTIMIZER`` (off by default), read at the first step,
+    and stays replicated for an optimizer ZeRO-1 does not suit. Sharded,
+    the wrapped optimizer (whose ``param_groups`` a scheduler may move)
+    lends its hyperparameters to the shard optimizer at every step, and
+    the layout is frozen at the first step: a later move of
+    ``HOROVOD_FUSION_THRESHOLD`` does not re-bucket a live run."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  op: ReduceOp = Average, compression=Compression.none,
-                 backward_passes_per_step: int = 1):
+                 backward_passes_per_step: int = 1,
+                 sharded: Optional[bool] = None):
         super().__init__(optimizer, compression, backward_passes_per_step)
         self.op = ReduceOp(op)
+        if sharded:
+            _check_shardable(self.op, compression, "sharded=True")
+        self._sharded = None if sharded is None else bool(sharded)
+        # the frozen layout's plans, by world size and parameter shapes
+        self._layout_cache: dict = {}
+
+    def _is_sharded(self) -> bool:
+        """Resolved once the world is up (the reference's ``_is_sharded``,
+        :560-574)."""
+        if self._sharded is None:
+            st = global_state()
+            if not st.initialized:
+                return False
+            self._sharded = bool(st.config.shard_optimizer
+                                 and self.op in (Average, Sum)
+                                 and self.compression is Compression.none)
+        return self._sharded
+
+    def _zero1(self) -> _Zero1:
+        """The ZeRO-1 state, made at the first use. The plan is cached by
+        world size and parameter shapes; a plan recomputed after the cache
+        lost it (at the fusion threshold and world size of now) must be the
+        live one, or the step raises rather than run on mismatched
+        shards (the reference's :640-651)."""
+        eng = _engine()
+        n, threshold = eng.backend.size(), eng.config.fusion_threshold_bytes
+        key = (n, tuple(tuple((tuple(p.shape), p.dtype) for p in g["params"]
+                              if p.requires_grad)
+                        for g in self.optimizer.param_groups))
+        if self._zero is None:
+            self._zero = _Zero1(self.optimizer, n, eng.backend.rank(),
+                                threshold)
+        elif lru_get(self._layout_cache, key) is None:
+            plan = _zero1_plan(self.optimizer, n, threshold)[0]
+            if plan != self._zero.plan:
+                raise ValueError(
+                    f"sharded state layout mismatch: {len(plan)} buckets "
+                    f"({[b[3] for b in plan]} shards) at the fusion "
+                    f"threshold and world size of now, {len(self._zero.plan)}"
+                    f" ({[b[3] for b in self._zero.plan]}) in the live "
+                    "state: the fusion threshold, the parameters or the "
+                    "world size changed after the layout froze; build a new "
+                    "optimizer over the (broadcast) parameters instead")
+        lru_put(self._layout_cache, key, self._zero.plan, 16)
+        return self._zero
 
     def synchronize(self):
         """Reduce every ``p.grad`` in place (a no-op in a size-1 world)."""
+        if self._is_sharded():
+            raise ValueError("a sharded optimizer reduces its gradients "
+                             "inside step(); synchronize() is the "
+                             "replicated path's")
         eng = _engine()
         if eng.backend.size() == 1:
             return
@@ -138,8 +362,23 @@ class DistributedOptimizer(_Wrapper):
     def step(self, closure=None):
         if not self._due():
             return None
-        self.synchronize()
-        return self.optimizer.step(closure)
+        if not self._is_sharded():
+            self.synchronize()
+            return self.optimizer.step(closure)
+        loss = self._closure(closure)
+        zero = self._zero1()
+        eng = _engine()
+        grads = zero.grads()
+        step = self._next_step_name()
+        # one step of the collective stream, at size 1 too: after the
+        # warm-up its first half is the armed program (core/replay.py)
+        eng.step_begin()
+        try:
+            eng.sharded_step(grads, zero.buckets, zero.update,
+                             name=f"grad.zero.s{step}", op=self.op)
+        finally:
+            eng.step_end()
+        return loss
 
 
 class DistributedDeltaAdasumOptimizer(_Wrapper):
@@ -178,3 +417,154 @@ class DistributedDeltaAdasumOptimizer(_Wrapper):
                 p.copy_(s.add_(self.compression.decompress(h.synchronize(),
                                                            ctx)))
         return loss
+
+
+def _axis(axis_name: str, mesh):
+    """``(group, size, rank, collective)`` of the ranks ``axis_name`` names:
+    the world for ``"world"`` with no mesh, else the axis of ``mesh`` (a
+    ``parallel.mesh.TrainingMesh``), whose process group is this rank's
+    line of ranks along it. ``collective`` is False on an axis of size 1,
+    which has no group: its reduction is the identity."""
+    if mesh is None:
+        if axis_name != "world":
+            raise ValueError(
+                f"axis_name {axis_name!r} needs mesh= (a TrainingMesh of "
+                "horovod_tpu_torch.parallel.mesh.training_mesh); without "
+                "one only 'world' names a group")
+        backend = _engine().backend
+        return None, backend.size(), backend.rank(), True
+    if axis_name not in mesh.shape:
+        raise ValueError(f"mesh {mesh.shape} has no axis {axis_name!r}")
+    n = mesh.size(axis_name)
+    return mesh.group(axis_name), n, mesh.index[axis_name], n > 1
+
+
+def allreduce_gradients(grads, axis_name: str = "world", mesh=None,
+                        op: ReduceOp = Average, compression=Compression.none,
+                        fusion_threshold_bytes: Optional[int] = None
+                        ) -> List[torch.Tensor]:
+    """Reduce ``grads`` (a list of tensors) over ``axis_name``, the
+    reference's ``allreduce_gradients`` (:73-135) in per-process form: the
+    compressed gradients in per-dtype buckets of at most
+    ``fusion_threshold_bytes`` (default 64 MB), one K1 pack and one
+    ``all_reduce`` on the axis's group a bucket, Average's divide, then the
+    decompressed results (views of the reduced buckets). No engine: no
+    names, join rounds or replay. op Adasum over an axis is not ported."""
+    from .core.engine import _dist_op, bucket_by_size
+    op = ReduceOp(op)
+    if op == Adasum:
+        raise ValueError("op=Adasum over a mesh axis is not ported yet "
+                         "(ROADMAP A9): use DistributedOptimizer(op=Adasum) "
+                         "over the world")
+    group, n, _, collective = _axis(axis_name, mesh)
+    packed = [compression.compress(g) for g in grads]
+    cs = [c.contiguous() for c, _ in packed]
+    launches = []
+    for idxs in bucket_by_size(
+            cs, fusion_threshold_bytes or DEFAULT_FUSION_THRESHOLD_BYTES):
+        flat = kernels.pack([cs[i] for i in idxs])
+        work = (dist.all_reduce(flat, op=_dist_op(op), group=group,
+                                async_op=True) if collective else None)
+        launches.append((idxs, flat, work))
+    out: List[Optional[torch.Tensor]] = [None] * len(cs)
+    for idxs, flat, work in launches:
+        if work is not None:
+            work.wait()
+        C.finish_reduce(flat, n if op == Average else 1, 1.0)
+        for i, v in zip(idxs, C.unpack_flat(flat, [tuple(cs[i].shape)
+                                                  for i in idxs])):
+            out[i] = compression.decompress(v, packed[i][1])
+    return out
+
+
+class DistributedAxisOptimizer(_Wrapper):
+    """What :func:`distributed` returns: ``step()`` reduces every ``p.grad``
+    over the axis (:func:`allreduce_gradients`) and steps the wrapped
+    optimizer; with ``shard_optimizer=True`` it is ZeRO-1 over the axis's
+    group (the module's docstring), issued straight to that group."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, axis_name: str,
+                 mesh, op, compression, backward_passes_per_step: int,
+                 shard_optimizer: bool,
+                 fusion_threshold_bytes: Optional[int]):
+        super().__init__(optimizer, compression, backward_passes_per_step)
+        self.op = ReduceOp(op)
+        if shard_optimizer:
+            _check_shardable(self.op, compression, "shard_optimizer=True")
+            if backward_passes_per_step != 1:
+                raise ValueError(
+                    "shard_optimizer=True requires backward_passes_per_step"
+                    "=1 (accumulate the passes in .grad before calling step "
+                    "instead)")
+        elif self.op == Adasum:
+            raise ValueError("op=Adasum over a mesh axis is not ported yet "
+                             "(ROADMAP A9): use DistributedOptimizer("
+                             "op=Adasum) over the world")
+        self.axis_name, self.mesh = axis_name, mesh
+        self.shard_optimizer = bool(shard_optimizer)
+        self.fusion_threshold_bytes = int(fusion_threshold_bytes
+                                          or DEFAULT_FUSION_THRESHOLD_BYTES)
+
+    def _is_sharded(self) -> bool:
+        return self.shard_optimizer
+
+    def _zero1(self) -> _Zero1:
+        if self._zero is None:
+            _, n, rank, _ = _axis(self.axis_name, self.mesh)
+            self._zero = _Zero1(self.optimizer, n, rank,
+                                self.fusion_threshold_bytes)
+        return self._zero
+
+    def step(self, closure=None):
+        if not self._due():
+            return None
+        if not self.shard_optimizer:
+            params = self._params_with_grads()
+            reduced = allreduce_gradients(
+                [p.grad for p in params], self.axis_name, self.mesh,
+                self.op, self.compression, self.fusion_threshold_bytes)
+            for p, g in zip(params, reduced):
+                if g.dtype == p.grad.dtype:
+                    p.grad = g
+                else:
+                    p.grad.copy_(g)
+            return self.optimizer.step(closure)
+        loss = self._closure(closure)
+        zero = self._zero1()
+        group, n, _, collective = _axis(self.axis_name, self.mesh)
+        C.scatter_shards(zero.buckets, zero.grads(), True,
+                         n if self.op == Average else 1, 1.0, 1.0, group,
+                         collective)
+        zero.update()
+        C.gather_shards(zero.buckets, group, collective)
+        return loss
+
+
+def distributed(optimizer: torch.optim.Optimizer, axis_name: str = "world",
+                mesh=None, op: ReduceOp = Average,
+                compression=Compression.none,
+                backward_passes_per_step: int = 1,
+                shard_optimizer: bool = False,
+                fusion_threshold_bytes: Optional[int] = None
+                ) -> DistributedAxisOptimizer:
+    """The reference's ``distributed`` (:149-277) for one process a device:
+    wrap ``optimizer`` so that ``step()`` sees gradients reduced over
+    ``axis_name`` (``"world"``, or an axis of ``mesh``, a
+    ``parallel.mesh.TrainingMesh``: ``{"data": 2, "seq": 2}``'s ``"data"``
+    averages over the data replicas of each seq position)::
+
+        mesh = training_mesh({"data": 2, "seq": 2})
+        opt = hvd.distributed(torch.optim.AdamW(model.parameters()),
+                              axis_name="data", mesh=mesh)
+
+    ``backward_passes_per_step=k`` sums k local passes before a reduction,
+    as :class:`DistributedOptimizer` does. ``shard_optimizer=True`` is ZeRO-1
+    over the axis (op Average or Sum, no compression,
+    ``backward_passes_per_step=1``, the reference's restrictions :353-370).
+    The packs are K1's, the collectives go straight to the axis's group:
+    no engine names, join rounds or step replay."""
+    if backward_passes_per_step < 1:
+        raise ValueError("backward_passes_per_step must be >= 1")
+    return DistributedAxisOptimizer(optimizer, axis_name, mesh, op,
+                                    compression, backward_passes_per_step,
+                                    shard_optimizer, fusion_threshold_bytes)

@@ -6,7 +6,10 @@ combine kernels (K4/K5) alone and training the flagship LM on 2 and 4
 cards, SyncBatchNorm on K2/K3's raw sums (on one card against its CPU
 path; on 2 and 4 cards against the global batch on one card), alltoall
 and join on 2 and 4 cards, and step replay (``-k replay``: the CUDA graph
-against the eager path on one card; ``-k "cards and replay"`` on 2 and 4).
+against the eager path on one card; ``-k "cards and replay"`` on 2 and 4),
+and the ZeRO-1 sharded optimizer (``-k sharded``: K1's ``out=`` form and
+the sharded LM against the dense one on one card; ``-k "cards and
+sharded"`` on 2 and 4).
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -634,6 +637,131 @@ def test_cuda_replay_is_one_graph_launch(cuda, monkeypatch):
         _replay_step(grads, "g.102")
         assert (eng.replay.fallbacks, eng.replay.replayed_steps) == \
             (1, before + 1)
+        torch.cuda.synchronize()
+    finally:
+        hvd.shutdown()
+
+
+# K1's out= form (ZeRO-1's padded buckets): (dtype, shapes, padded)
+# a tail that is no whole 16-byte word, a one-element tensor, a bucket
+# whose padding is most of a shard, and a large bucket past many tiles
+PACK_OUT_CASES = [
+    (torch.float32, [(512, 256), (7,), (1,), (299, 5)], 4 * 34625),
+    (torch.bfloat16, [(3,), (129, 3), (1,)], 4 * 100),
+    (torch.float16, [(5,)], 8),
+    (torch.float32, [(2048, 2048), (8192,), (13,)], 4 * 1050628)]
+
+
+@pytest.mark.parametrize("case", range(len(PACK_OUT_CASES)))
+def test_cuda_sharded_pack_out_matches_plain(cuda, case):
+    """K1 into a caller's padded buffer: ``out[:numel]`` bitwise the plain
+    version's, the tail (filled with a sentinel) untouched, one launch
+    counted in ``pack`` and in ``pack_out``."""
+    dtype, shapes, padded = PACK_OUT_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(case)
+    ts = [torch.randn(s, device=cuda, generator=gen).to(dtype)
+          for s in shapes]
+    total = sum(t.numel() for t in ts)
+    assert padded > total and (total * ts[0].element_size()) % 16
+    got = torch.full((padded,), 7.0, device=cuda, dtype=dtype)
+    want = got.clone()
+    K.reset_launch_counts()
+    assert K.pack(ts, out=got) is got
+    K.pack_plain(ts, out=want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool((got[total:] == 7.0).all())
+    counts = K.launch_counts()
+    assert (counts["pack"], counts["pack_out"]) == (1, 1)
+    with pytest.raises(ValueError, match="out must be"):
+        K.pack(ts, out=got[:total - 1])
+
+
+# the sharded LM on one card: SP_CARD_DIMS' LM, fp32 parameters, bf16
+# compute, cut into several buckets at a 1 MB fusion threshold
+SHARDED_CARD_LM_STEPS = 6      # the warm-up (3) + 3 replayed steps
+
+
+def _moment_bytes(optimizer) -> int:
+    return sum(v.nbytes for st in optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim())
+
+
+def _sharded_lm_run(cuda, sharded, steps=SHARDED_CARD_LM_STEPS):
+    model = sp_card_model(TransformerConfig(
+        dtype=torch.bfloat16, attention="flash", **SP_CARD_DIMS), cuda)
+    x, y = (torch.from_numpy(a).to(cuda) for a in sp_card_tokens())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4),
+        sharded=sharded)
+
+    def step():
+        opt.zero_grad()
+        loss = lean_lm_loss(model, x, y)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    return model, opt, [step() for _ in range(steps)]
+
+
+def test_cuda_sharded_lm_step_matches_dense(cuda, monkeypatch):
+    """DistributedOptimizer(sharded=True) on one card (size 1: shard =
+    total, the collectives NCCL's own) against the dense optimizer from
+    the same seed: the same losses and bitwise the same parameters after
+    the warm-up's eager steps and the replayed ones; K1 moves each
+    bucket's parameters once, packs each eager step's gradients in padded
+    mode and runs once a bucket as a graph node of each replayed step;
+    and the shard optimizer's state is the dense one's."""
+    eng = _replay_init(monkeypatch, "1")
+    try:
+        warm = eng.config.step_replay_warmup
+        dense, dense_opt, want = _sharded_lm_run(cuda, False)
+        K.reset_launch_counts()
+        model, opt, got = _sharded_lm_run(cuda, True)
+        counts = K.launch_counts()
+        n = len(opt._zero.buckets)
+        assert n > 1
+        assert got == want
+        for p, q in zip(model.parameters(), dense.parameters()):
+            assert torch.equal(p, q)
+        r = eng.replay
+        assert (r.captured_streams, r.replayed_steps, r.fallbacks) == (
+            1, SHARDED_CARD_LM_STEPS - warm, 0)
+        assert counts["pack_out"] == counts["pack"] == n * (1 + warm)
+        assert counts["pack_graph"] == n * (SHARDED_CARD_LM_STEPS - warm)
+        # the moments, all of them at size 1 (the step counts are scalars
+        # a parameter, or a shard)
+        assert [_moment_bytes(o) for o in (opt._zero.optimizer,
+                                           dense_opt.optimizer)] == [
+            2 * 4 * sum(p.numel() for p in model.parameters())] * 2
+    finally:
+        hvd.shutdown()
+
+
+def test_cuda_sharded_replay_graph_holds_k1_and_no_host_wait(cuda,
+                                                             monkeypatch):
+    """A replayed sharded step: one cudaGraphLaunch, K1 a graph node once a
+    bucket (the table refreshes are its only copies), and no host wait
+    under the sync debug mode, the optimizer's update and the all-gathers
+    included."""
+    eng = _replay_init(monkeypatch, "1")
+    try:
+        model, opt, _ = _sharded_lm_run(cuda, True)
+        n = len(opt._zero.buckets)
+        assert eng.replay.replayed_steps >= 1
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host, dev = trace_events(
+            opt.step, lambda h, d: sum("pack_kernel" in k for k in d) == n)
+        assert host.count("cudaGraphLaunch") == 1, host
+        assert sum("pack_kernel" in k for k in dev) == n, dev
+        assert host.count("cudaMemcpyAsync") == n, host
+        assert eng.replay.fallbacks == 0
         torch.cuda.synchronize()
     finally:
         hvd.shutdown()
@@ -1983,6 +2111,53 @@ def test_cuda_cards_replay_on_nccl(built, tmp_path, n):
         assert sum("pack_kernel" in k for k in tr["device"]) == n_buckets
         assert sum("AllReduce" in k for k in nccl) == n_buckets, nccl
         assert sum("AllGather" in k for k in nccl) == 2, nccl
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_sharded_on_nccl(built, tmp_path, n):
+    """ZeRO-1 on NCCL (torch_worker's sharded_cards scenario: the flagship
+    LM, AdamW, one sequence a card, the pack kernel on): every card's
+    parameters bitwise alike in both runs; the sharded run's equal to the
+    dense run's (bitwise at 2 cards, whose sums have one order; within
+    1e-6 of the largest entry at 4, where NCCL's allreduce and
+    reduce-scatter may add in other orders); each card's AdamW state near
+    1/n of the dense run's; and a replayed step's trace: one graph launch,
+    K1 and the NCCL reduce-scatter once a bucket in the graph, the
+    all-gathers a bucket after it."""
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("sharded_cards", n, tmp_path, device="cuda",
+                    env={"HOROVOD_PALLAS_PACK": "1"}, timeout=600)
+    for kind in ("dense", "sharded"):
+        assert len({r[kind]["digest"] for r in res}) == 1, kind
+        for r in res:
+            assert r[kind]["replay"] == (1, 2, 0), (kind, r[kind]["replay"])
+    for rank, r in enumerate(res):
+        sh, de = r["sharded"], r["dense"]
+        buckets = sh["buckets"]
+        assert all(s == -(-t // n) for t, s, _ in buckets)
+        if n == 2:
+            assert sh["bitwise"], sh["max_diff"]
+        assert sh["max_diff"] <= 1e-6 * sh["max_entry"], sh["max_diff"]
+        ratio = sh["state_bytes"] / de["state_bytes"]
+        pad = sum(p - t for t, _, p in buckets) / sum(t for t, _, _ in
+                                                      buckets)
+        assert abs(ratio - 1 / n) <= 1e-3 + pad, ratio
+        host, device = sh["trace"]["host"], sh["trace"]["device"]
+        nccl = [k for k in device if "nccl" in k.lower()]
+        calls = sorted((k, host.count(k)) for k in set(host) if "cuda" in k)
+        print(f"sharded_cards n={n} rank {rank}: {len(buckets)} buckets, "
+              f"state {sh['state_bytes'] / 2**30:.3f} GiB against "
+              f"{de['state_bytes'] / 2**30:.3f} (ratio {ratio:.4f}), "
+              f"largest difference {sh['max_diff']:.3g} of "
+              f"{sh['max_entry']:.3g}, bitwise {sh['bitwise']}, NCCL "
+              f"{sorted(set(nccl))}, runtime calls {calls}")
+        assert host.count("cudaGraphLaunch") == 1, host
+        assert sum("pack_kernel" in k for k in device) == len(buckets)
+        assert sum("ReduceScatter" in k for k in nccl) == len(buckets), nccl
+        # the all-gathers a bucket, and the join round's (read on a side
+        # stream before the launch)
+        assert sum("AllGather" in k for k in nccl) == len(buckets) + 1, nccl
 
 
 def test_cuda_cards_resnet50_join_round_cost(built, tmp_path):

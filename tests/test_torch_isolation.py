@@ -66,7 +66,7 @@ def test_chip_smoke_imports_no_jax():
 # names of the reference's __all__ the port does not export yet, and the one
 # it exports that the reference lacks
 OWED = {"mesh", "step_heartbeat", "metrics_snapshot", "metrics", "faults",
-        "distributed", "elastic"}
+        "elastic"}
 PORT_ONLY = {"device"}
 
 

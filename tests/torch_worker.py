@@ -1126,6 +1126,271 @@ def _resnet_cards_scenario(hvd, rank: int, size: int) -> dict:
     return {"windows": windows, "losses": losses, "batch": batch}
 
 
+SHARDED_SIZES = (5, 7, 3)       # the MLP of the ``sharded`` scenario
+SHARDED_ROWS = 8                 # its batch, split over the data replicas
+SHARDED_STEPS = 5
+# at 256 bytes the buckets are [w1, b1, w2] (63 floats) and [b2] (3): no
+# total divides 2 or 4, and at 4 ranks the last rank's shard of [b2] is
+# all padding
+SHARDED_THRESHOLD = 256
+SHARDED_OPTS = {"sgd_momentum": ("SGD", dict(lr=0.05, momentum=0.9)),
+                "adam": ("Adam", dict(lr=1e-2))}
+SHARDED_GROUP_LRS = (0.05, 0.01)  # the two param groups' case, SGD momentum
+SHARDED_JOIN_STEPS = 4           # rank 0's steps before it joins
+
+
+def sharded_params() -> list:
+    """The MLP's starting weights: w1 (5, 7), b1, w2 (7, 3), b2, (in, out)
+    like a flax Dense kernel."""
+    rng = np.random.RandomState(21)
+    d0, d1, d2 = SHARDED_SIZES
+    return [0.5 * rng.randn(d0, d1).astype(np.float32),
+            0.1 * rng.randn(d1).astype(np.float32),
+            0.5 * rng.randn(d1, d2).astype(np.float32),
+            0.1 * rng.randn(d2).astype(np.float32)]
+
+
+def sharded_data():
+    rng = np.random.RandomState(22)
+    return (rng.randn(SHARDED_ROWS, SHARDED_SIZES[0]).astype(np.float32),
+            rng.randn(SHARDED_ROWS, SHARDED_SIZES[2]).astype(np.float32))
+
+
+def sharded_model(device):
+    """The MLP with the seeded weights; its parameters in the order of
+    :func:`sharded_params`."""
+    import torch
+    d0, d1, d2 = SHARDED_SIZES
+    model = torch.nn.Sequential(torch.nn.Linear(d0, d1), torch.nn.Tanh(),
+                                torch.nn.Linear(d1, d2))
+    w1, b1, w2, b2 = sharded_params()
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), (w1.T, b1, w2.T, b2)):
+            p.copy_(torch.from_numpy(np.ascontiguousarray(v)))
+    return model.to(device)
+
+
+def sharded_weights(model) -> list:
+    """The parameters as numpy, in :func:`sharded_params`' layout."""
+    w1, b1, w2, b2 = (p.detach().cpu().numpy() for p in model.parameters())
+    return [w1.T.copy(), b1.copy(), w2.T.copy(), b2.copy()]
+
+
+def _sharded_run(hvd, rows, steps, make_opt, groups=None):
+    """``steps`` steps of the MLP on ``rows`` through ``make_opt(params)``
+    (a list of param-group dicts when ``groups`` gives their lrs): the
+    weights after each step, the engine dispatches each step took, and the
+    optimizer."""
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    eng = global_state().engine
+    model = sharded_model(hvd.device())
+    ps = list(model.parameters())
+    opt = make_opt([{"params": ps[:2], "lr": groups[0]},
+                    {"params": ps[2:], "lr": groups[1]}]
+                   if groups else ps)
+    x, y = (torch.from_numpy(a[rows]).to(hvd.device())
+            for a in sharded_data())
+    traj, dispatches = [], []
+    for _ in range(steps):
+        opt.zero_grad()
+        ((model(x) - y) ** 2).mean().backward()
+        d0 = eng.dispatch_count
+        opt.step()
+        dispatches.append(eng.dispatch_count - d0)
+        traj.append(sharded_weights(model))
+    return traj, dispatches, opt
+
+
+def _sharded_scenario(hvd, rank: int, size: int) -> dict:
+    """ZeRO-1 at ``size`` ranks: DistributedOptimizer(sharded=True) with
+    SGD momentum and Adam against the dense one (replay on, and off),
+    backward_passes_per_step=2, two param groups of different lr, the
+    shard layout and state, hvd.distributed dense and sharded over the
+    world and (4 ranks) over the data axis of a {"data": 2, "seq": 2}
+    mesh, and rank 0 joining against the others' sharded step."""
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    torch.set_num_threads(1)
+    cfg = global_state().config
+    rep = global_state().engine.replay
+    cfg.fusion_threshold_bytes = SHARDED_THRESHOLD
+    rows = shard_rows(rank, size, SHARDED_ROWS)
+    out = {}
+
+    def make(kind, **kw):
+        cls, args = SHARDED_OPTS[kind]
+        return lambda ps: hvd.DistributedOptimizer(
+            getattr(torch.optim, cls)(ps, **args), op=hvd.Average, **kw)
+
+    def counters():
+        return (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+
+    for kind in SHARDED_OPTS:
+        res = {}
+        res["dense"], _, dense = _sharded_run(hvd, rows, SHARDED_STEPS,
+                                              make(kind))
+        rep.invalidate_all("next run")
+        before = counters()
+        res["sharded"], res["dispatches"], opt = _sharded_run(
+            hvd, rows, SHARDED_STEPS, make(kind, sharded=True))
+        res["replay"] = tuple(a - b for a, b in zip(counters(), before))
+        res["layout"] = [(b.total, b.shard, b.padded)
+                         for b in opt._zero.buckets]
+        res["state_shapes"] = sorted(
+            tuple(v.shape) for st in opt._zero.optimizer.state.values()
+            for v in st.values() if v.dim())
+        res["state_bytes"] = opt._zero.state_bytes()
+        res["dense_state_bytes"] = sum(
+            v.nbytes for st in dense.optimizer.state.values()
+            for v in st.values() if torch.is_tensor(v))
+        rep.invalidate_all("next run")
+        cfg.step_replay = False
+        res["sharded_off"], res["dispatches_off"], _ = _sharded_run(
+            hvd, rows, SHARDED_STEPS, make(kind, sharded=True))
+        cfg.step_replay = True
+        out[kind] = res
+    # k = 2 local passes a step, summed
+    sgd = lambda **kw: lambda ps: hvd.DistributedOptimizer(  # noqa: E731
+        torch.optim.SGD(ps, lr=0.1), backward_passes_per_step=2, **kw)
+    out["accum"] = {"dense": _sharded_run(hvd, rows, 4, sgd())[0],
+                    "sharded": _sharded_run(hvd, rows, 4,
+                                            sgd(sharded=True))[0]}
+    rep.invalidate_all("next run")
+    out["groups"] = {
+        "dense": _sharded_run(hvd, rows, SHARDED_STEPS, make("sgd_momentum"),
+                              SHARDED_GROUP_LRS)[0],
+        "sharded": _sharded_run(hvd, rows, SHARDED_STEPS,
+                                make("sgd_momentum", sharded=True),
+                                SHARDED_GROUP_LRS)[0]}
+    rep.invalidate_all("next run")
+    # hvd.distributed over the world
+    adam = SHARDED_OPTS["adam"][1]
+    for key, kw in (("world", {}), ("world_sharded",
+                                    {"shard_optimizer": True})):
+        out[key] = _sharded_run(
+            hvd, rows, SHARDED_STEPS, lambda ps, kw=kw: hvd.distributed(
+                torch.optim.Adam(ps, **adam),
+                fusion_threshold_bytes=SHARDED_THRESHOLD, **kw))[0]
+    if size == 4:
+        from horovod_tpu_torch.parallel.mesh import training_mesh
+        mesh = training_mesh({"data": 2, "seq": 2})
+        data_rows = shard_rows(mesh.index["data"], 2, SHARDED_ROWS)
+        for key, kw in (("mesh", {}), ("mesh_sharded",
+                                       {"shard_optimizer": True})):
+            out[key] = _sharded_run(
+                hvd, data_rows, SHARDED_STEPS,
+                lambda ps, kw=kw: hvd.distributed(
+                    torch.optim.Adam(ps, **adam), axis_name="data",
+                    mesh=mesh, fusion_threshold_bytes=SHARDED_THRESHOLD,
+                    **kw))[0]
+        out["data_index"] = mesh.index["data"]
+    if size > 1:
+        # rank 0 joins after SHARDED_JOIN_STEPS sharded steps (the last
+        # replayed); the others' next step meets it: every rank raises
+        errors = []
+        try:
+            _sharded_run(hvd, rows, SHARDED_JOIN_STEPS + (rank > 0),
+                         make("sgd_momentum", sharded=True))
+            hvd.join()
+        except hvd.HorovodInternalError as e:
+            errors.append(str(e))
+        # and the world goes on
+        out["join"] = {"errors": errors, "after": float(hvd.allreduce(
+            torch.ones(1, device=hvd.device()), name="after.join",
+            op=hvd.Sum))}
+    return out
+
+
+SHARDED_CARD_STEPS = 5          # replay's warm-up (3) + 2 replayed steps
+
+
+def _sharded_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The bf16 LM with fp32 parameters (the flagship on the card, a tiny
+    one on the CPU rehearsal), one sequence a rank, SHARDED_CARD_STEPS
+    AdamW steps through the dense DistributedOptimizer and then through
+    DistributedOptimizer(sharded=True) from the same seed, at the default
+    64 MB fusion threshold. Returns the losses, a digest of each run's
+    parameters (ranks must agree bitwise), the largest difference between
+    the two runs' parameters beside the largest entry, each run's
+    optimizer-state bytes on this rank, the buckets, the replay counters,
+    and on the card a trace of one replayed sharded step."""
+    import hashlib
+    import torch
+    from horovod_tpu_torch.common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lean_lm_loss)
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    cfg = global_state().config
+    cfg.fusion_threshold_bytes = DEFAULT_FUSION_THRESHOLD_BYTES
+    rep = global_state().engine.replay
+    dims = ADASUM_CARD_DIMS if dev.type == "cuda" else ADASUM_CPU_DIMS
+    lm = TransformerConfig(dtype=torch.bfloat16, attention="flash", **dims)
+    tokens = np.random.RandomState(15).randint(
+        0, lm.vocab_size, size=(size, lm.max_seq + 1))
+    x = torch.from_numpy(tokens[rank:rank + 1, :-1]).to(dev)
+    y = torch.from_numpy(tokens[rank:rank + 1, 1:]).to(dev)
+    out, finals = {}, {}
+    for kind in ("dense", "sharded"):
+        model = Transformer(lm, generator=torch.Generator().manual_seed(0))
+        model.to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            op=hvd.Average, sharded=kind == "sharded")
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+
+        def step():
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        res = {"losses": [step() for _ in range(SHARDED_CARD_STEPS)]}
+        res["replay"] = tuple(a - b for a, b in zip(
+            (rep.captured_streams, rep.replayed_steps, rep.fallbacks),
+            before))
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        res["digest"] = digest.hexdigest()
+        inner = opt._zero.optimizer if kind == "sharded" else opt.optimizer
+        res["state_bytes"] = sum(
+            v.nbytes for st in inner.state.values() for v in st.values()
+            if torch.is_tensor(v))
+        if kind == "sharded":
+            res["buckets"] = [(b.total, b.shard, b.padded)
+                              for b in opt._zero.buckets]
+            with torch.no_grad():
+                diffs = [float((p - q).abs().max()) for p, q in
+                         zip(model.parameters(), finals["dense"])]
+                res["max_diff"] = max(diffs)
+                res["max_entry"] = max(float(q.abs().max())
+                                       for q in finals["dense"])
+                res["bitwise"] = all(torch.equal(p, q) for p, q in zip(
+                    model.parameters(), finals["dense"]))
+            if dev.type == "cuda":
+                # replayed optimizer steps on the last gradients: they
+                # move the parameters, so they come after the comparison
+                n = len(opt._zero.buckets)
+                host, device = trace_events(
+                    opt.step, lambda h, d: sum(
+                        "pack_kernel" in k for k in d) == n)
+                res["trace"] = {"host": host, "device": device}
+        finals[kind] = [p.detach().clone() for p in model.parameters()]
+        out[kind] = res
+        rep.invalidate_all("next run")
+        del model, opt, inner
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -1134,7 +1399,8 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "sync_bn": _sync_bn_scenario,
              "collectives": _collectives_scenario, "join": _join_scenario,
              "resnet_cards": _resnet_cards_scenario,
-             "replay": _replay_scenario}
+             "replay": _replay_scenario, "sharded": _sharded_scenario,
+             "sharded_cards": _sharded_cards_scenario}
 
 
 def main(argv):
