@@ -148,7 +148,22 @@ and then:
     and falling, K1's launches in padded mode and as graph nodes, a
     replayed step with no host wait, the host ms of the optimizer step
     eager against replayed, the graph's device ms, a step's runtime calls
-    each way, the optimizer-state bytes and the peak memory of both runs.
+    each way, the optimizer-state bytes and the peak memory of both runs;
+17. reduces the flagship LM's 268.5 M fp32 gradients (seeded, in phase
+    16's 17 buckets) with the wire codecs' flat compressed reduction
+    (``ops/collectives.py`` ``codec_allreduce``: K1 into a zero-tailed
+    padded buffer, the error-feedback encode, the all-to-all, the scales'
+    all-gather, the decode-sum, the all-gather) on the NCCL world of one,
+    for int8, fp8 and bf16: 3 eager steps whose payloads, scales,
+    residuals and results of the first and last bucket are bitwise the
+    plain path's on the CPU from the same inputs, then the whole reduction
+    captured as one CUDA graph and replayed 4 times with the residuals
+    carried in place, each replay bitwise the eager path on the same
+    inputs and residuals; a capture with a host sync in it must raise. It
+    prints each codec's device ms of the encode and the decode-sum for
+    the whole LM and a 64 MB bucket beside their bytes bound, the device
+    operations a bucket's reduction launches, the host ms of the
+    reduction eager against replayed, and the peak memory.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -158,11 +173,13 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13, 14, 15 and 16) and read just after it; every kernel
-of the path must have launched there (53 BN layers per ResNet step for each
+each form of 11, 12, 13, 14, 15, 16 and 17) and read just after it;
+every kernel of the path must have launched there (53 BN layers per ResNet step for each
 BN kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
 K1 in padded mode once a bucket for the move and each eager step of phase
-16 and as a graph node once a bucket each replayed step,
+16 and as a graph node once a bucket each replayed step, K1 in padded
+mode once a bucket each eager step of phase 17 and as a graph node once a
+bucket each replay,
 one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
@@ -353,6 +370,17 @@ REPLAY_MODES = (True, False, False, True, True, False)   # replay on/off
 # phase 16: ZeRO-1 (the flagship LM) at world size 1
 SHARDED_REPLAYED = 4           # replayed steps after the warm-up
 SHARDED_TIMED = 20             # optimizer steps timed each way
+# phase 17: the wire codecs' flat reduction of the LM's gradients, size 1
+CODEC_CODECS = ("int8", "fp8", "bf16")
+CODEC_EAGER = 3                # eager steps, checked against the CPU
+CODEC_REPLAYED = 4             # replays of the captured reduction
+CODEC_TIMED = 10               # reductions timed by the host clock each way
+CODEC_REPS = 10                # timed encodes and decode-sums
+# bytes an element of the encode (read g and r; write the payload and r)
+# and of the decode-sum at size 1 (read the payload, write the sum)
+CODEC_ENCODE_BYTES = {"int8": 4 + 4 + 1 + 4, "fp8": 4 + 4 + 1 + 4,
+                      "bf16": 4 + 2}
+CODEC_DECODE_BYTES = {"int8": 1 + 4, "fp8": 1 + 4, "bf16": 2 + 4}
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -2803,6 +2831,282 @@ def run_sharded_path(torch, hvd, K, tm, dev, log):
     return summary, counts
 
 
+def _codec_step(torch, C, buckets, grads, residuals, codec, dev, use_kernel,
+                collective=True):
+    """One eager compressed reduction of every bucket of ``grads`` (lists
+    of indices) on this world of one: K1 (or the plain pack) into a
+    zero-tailed padded buffer, then ``codec_allreduce`` with the bucket's
+    residual, updated in place. Returns per bucket (reduced prefix,
+    payload, scale)."""
+    out = []
+    for idxs, res in zip(buckets, residuals):
+        ts = [grads[i] for i in idxs]
+        total = sum(t.numel() for t in ts)
+        flat = C.padded_bucket(total, 1, ts[0].dtype, dev)
+        C.pack_padded(ts, flat, use_kernel)
+        payload, scale = C.codec_allreduce(flat, total, res, codec, 1, 0, 1,
+                                           1.0, 1.0, None, collective)
+        out.append((flat[:total], payload, scale))
+    return out
+
+
+def _codec_graph(torch, C, K, buckets, grads, residuals, codec, dev):
+    """The whole compressed reduction as one CUDA graph, captured on a
+    side stream into a private pool as step replay captures it: per
+    bucket K1 from a PackTable into a zero-tailed padded buffer, then
+    ``codec_allreduce`` on the bucket's residual. Returns (graph, tables,
+    the reduced prefixes)."""
+    tables = [K.PackTable([grads[i].numel() for i in idxs], torch.float32,
+                          dev) for idxs in buckets]
+    flats = []
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                            capture_error_mode="thread_local")
+        try:
+            for table, res in zip(tables, residuals):
+                flat = C.padded_bucket(table.numel, 1, torch.float32, dev)
+                table.capture(flat[:table.numel])
+                C.codec_allreduce(flat, table.numel, res, codec, 1, 0, 1,
+                                  1.0, 1.0, None)
+                flats.append(flat[:table.numel])
+        finally:
+            graph.capture_end()
+    return graph, tables, flats
+
+
+def _codec_replay(torch, K, graph, tables, buckets, grads):
+    for table, idxs in zip(tables, buckets):
+        table.refresh([grads[i] for i in idxs])
+    graph.replay()
+    K.pack.graph_launches += len(tables)
+
+
+def _capture_refuses_host_sync(torch, comp, dev) -> str:
+    """A capture of the int8 encode with a host read of its scale in it
+    must raise (a program that cannot be captured fails the run; nothing
+    falls back to an eager path). Returns the error."""
+    x = torch.randn(1 << 20, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                                capture_error_mode="thread_local")
+            try:
+                _, scale = comp.ef_encode_(x, torch.zeros_like(x), "int8")
+                scale.item()
+            finally:
+                graph.capture_end()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        # the card goes on working after the refused capture
+        check(float(torch.ones(4, device=dev).sum()) == 4.0,
+              "the card failed after a refused capture")
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    raise SmokeFailure("a capture with a host sync in it did not raise")
+
+
+def _bitwise(torch, a, b) -> bool:
+    """Equal bits, whatever the dtype (fp8 has no equality kernel)."""
+    if a is None or b is None:
+        return a is None and b is None
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def run_codec_path(torch, hvd, K, tm, bucket_by_size, dev, log):
+    """Phase 17: the flagship LM's fp32 gradients (seeded, phase 16's 64 MB
+    buckets) through the wire codecs' flat reduction
+    (``collectives.codec_allreduce``) on the NCCL world of one (the
+    engine resolves every codec to none at size 1, as the reference
+    does, so the phase drives the reduction itself): for each codec,
+    CODEC_EAGER eager steps (payloads, scales, residuals and results of
+    the first and last bucket bitwise the plain path's on the CPU), the
+    reduction captured as one CUDA graph and replayed CODEC_REPLAYED
+    times on new gradients (results and residuals bitwise the eager path
+    from the same residuals), a capture holding a host sync refused, and
+    the times: encode and decode-sum device ms for the whole LM and a
+    bucket beside their bytes bound, the device operations of a bucket's
+    reduction, the host ms eager against replayed, the peak memory.
+    Returns (summary, launch counts)."""
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import compression as comp
+    check(hvd.size() == 1, "phase 17 needs a size-1 world")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                               **LM_DIMS)
+    shapes = [tuple(p.shape) for p in tm.Transformer(
+        cfg, generator=torch.Generator().manual_seed(0)).parameters()]
+    grads = [torch.empty(s, device=dev) for s in shapes]
+    buckets = bucket_by_size(grads, 64 * 1024 * 1024)
+    n_elems = sum(g.numel() for g in grads)
+    checked = sorted({0, len(buckets) - 1})
+    typical = next(b for b, idxs in enumerate(buckets)
+                   if sum(grads[i].nbytes for i in idxs)
+                   <= 64 * 1024 * 1024)
+    gen = torch.Generator(device=dev)
+
+    def fill(step):
+        gen.manual_seed(1000 + step)
+        for g in grads:
+            g.normal_(generator=gen).mul_(1e-3)
+
+    def totals(b):
+        return sum(grads[i].numel() for i in buckets[b])
+
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    K.reset_launch_counts()
+    summary = {"params": n_elems, "buckets": len(buckets),
+               "bucket_elems": [totals(b) for b in range(len(buckets))],
+               "checked_buckets": checked, "typical_bucket": typical,
+               "codecs": {}}
+    for codec in CODEC_CODECS:
+        ef = codec in comp.EF_CODECS
+        residuals = [torch.zeros(totals(b), device=dev) if ef else None
+                     for b in range(len(buckets))]
+        cpu_res = {b: torch.zeros(totals(b)) if ef else None
+                   for b in checked}
+        # the eager steps against the plain path on the CPU
+        for step in range(CODEC_EAGER):
+            fill(step)
+            got = _codec_step(torch, C, buckets, grads, residuals, codec,
+                              dev, True)
+            for b in checked:
+                ts = [grads[i].cpu() for i in buckets[b]]
+                want = _codec_step(torch, C, [list(range(len(ts)))], ts,
+                                   [cpu_res[b]], codec, torch.device("cpu"),
+                                   False, collective=False)[0]
+                for what, x, y in (("result", got[b][0], want[0]),
+                                   ("payload", got[b][1], want[1]),
+                                   ("scale", got[b][2], want[2]),
+                                   ("residual", residuals[b], cpu_res[b])):
+                    check(_bitwise(torch, None if x is None else x.cpu(),
+                                   y),
+                          f"{codec} step {step} bucket {b}: the {what} "
+                          "is not bitwise the CPU's plain path")
+            del got
+        # the reduction as one graph, replayed on new gradients against the
+        # eager path from the same residuals
+        graph, tables, flats = _codec_graph(torch, C, K, buckets, grads,
+                                            residuals, codec, dev)
+        for step in range(CODEC_EAGER, CODEC_EAGER + CODEC_REPLAYED):
+            fill(step)
+            mirror = [None if r is None else r.clone() for r in residuals]
+            want = _codec_step(torch, C, buckets, grads, mirror, codec, dev,
+                               True)
+            _codec_replay(torch, K, graph, tables, buckets, grads)
+            for b in range(len(buckets)):
+                check(torch.equal(flats[b], want[b][0])
+                      and _bitwise(torch, residuals[b], mirror[b]),
+                      f"{codec} replay {step}: bucket {b}'s result or "
+                      "residual is not bitwise the eager path's")
+            del want, mirror
+        torch.cuda.synchronize()
+        # host ms of the whole reduction, eager against replayed, in turns
+        host_ms = {"eager": [], "replayed": []}
+        for _ in range(CODEC_TIMED):
+            for mode in ("eager", "replayed"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "eager":
+                    _codec_step(torch, C, buckets, grads, residuals, codec,
+                                dev, True)
+                else:
+                    _codec_replay(torch, K, graph, tables, buckets, grads)
+                torch.cuda.synchronize()
+                host_ms[mode].append(1e3 * (time.perf_counter() - t0))
+        # the encode and the decode-sum alone, the whole LM and a bucket
+        flats_in = [C.padded_bucket(totals(b), 1, torch.float32, dev)
+                    for b in range(len(buckets))]
+        for flat, idxs in zip(flats_in, buckets):
+            K.pack_plain([grads[i] for i in idxs], out=flat)
+        scratch = [None if r is None else r.clone() for r in residuals]
+        enc = [comp.ef_encode_(f.clone(), r, codec)
+               for f, r in zip(flats_in, scratch)]
+        outs = [torch.empty_like(f) for f in flats_in]
+
+        def encode(bs):
+            return lambda: [comp.ef_encode_(flats_in[b], scratch[b], codec)
+                            for b in bs]
+
+        def decode(bs):
+            return lambda: [comp.decode_sum(
+                enc[b][0].view(1, -1), enc[b][1], codec, torch.float32,
+                out=outs[b]) for b in bs]
+
+        every = range(len(buckets))
+        times = {}
+        for name, fn in (("encode", encode), ("decode_sum", decode)):
+            for scope, bs in (("lm", every), ("bucket", [typical])):
+                ms, hms = time_ms(torch, fn(bs), flush, CODEC_REPS)
+                per = (CODEC_ENCODE_BYTES if name == "encode"
+                       else CODEC_DECODE_BYTES)[codec]
+                elems = sum(totals(b) for b in bs)
+                times[f"{name}_{scope}"] = {
+                    "ms": ms, "host_ms": hms,
+                    "bound_ms": bound(per * elems, 0, 1.0)[0],
+                    "bound_by": "bytes", "bytes": per * elems}
+        # the runtime calls and device operations of one bucket's eager
+        # reduction (a trace may lose device events; the host's calls it
+        # keeps)
+        one = [buckets[typical]]
+        calls, ops = _traced_reduction(
+            torch, lambda: _codec_step(torch, C, one, grads,
+                                       [scratch[typical]], codec, dev, True),
+            lambda h, d: any("pack_kernel" in n for n, _ in d))
+        calls = {k: v for k, v in calls.items()
+                 if "Launch" in k or "Memcpy" in k or "Memset" in k}
+        torch.cuda.synchronize()
+        row = {"host_ms_eager": statistics.median(host_ms["eager"]),
+               "host_ms_replayed": statistics.median(host_ms["replayed"]),
+               "host_ms_eager_range": (min(host_ms["eager"]),
+                                       max(host_ms["eager"])),
+               "host_ms_replayed_range": (min(host_ms["replayed"]),
+                                          max(host_ms["replayed"])),
+               "bucket_runtime_calls": calls,
+               "bucket_launches": sum(calls.values()),
+               "bucket_device_ops": len(ops),
+               "bucket_op_names": sorted({n for n, _ in ops}), **times}
+        summary["codecs"][codec] = row
+        t = times
+        log(f"  {codec}: eager steps bitwise the CPU's (buckets {checked}),"
+            f" {CODEC_REPLAYED} replays bitwise the eager path; encode "
+            f"{t['encode_lm']['ms']:.3f} ms for the LM (bound "
+            f"{t['encode_lm']['bound_ms']:.3f}, "
+            f"{t['encode_lm']['bytes'] / 1e9:.2f} GB), "
+            f"{t['encode_bucket']['ms']:.4f} a bucket; decode-sum "
+            f"{t['decode_sum_lm']['ms']:.3f} (bound "
+            f"{t['decode_sum_lm']['bound_ms']:.3f}), "
+            f"{t['decode_sum_bucket']['ms']:.4f} a bucket; "
+            f"{row['bucket_launches']} launches a bucket ({calls}; "
+            f"{len(ops)} device operations traced); host ms eager "
+            f"{row['host_ms_eager']:.3f} against replayed "
+            f"{row['host_ms_replayed']:.3f}")
+        del graph, tables, flats, flats_in, scratch, enc, outs, residuals
+        torch.cuda.empty_cache()
+    del flush, grads
+    counts = K.launch_counts()
+    summary["sync_capture_refused"] = _capture_refuses_host_sync(
+        torch, comp, dev)
+    log(f"  a capture holding a host sync raised: "
+        f"{summary['sync_capture_refused']}")
+    n_b = len(buckets)
+    steps = len(CODEC_CODECS) * (CODEC_EAGER + CODEC_REPLAYED + CODEC_TIMED)
+    check(counts["pack_out"] >= n_b * len(CODEC_CODECS) * CODEC_EAGER,
+          f"K1 ran {counts['pack_out']} times in padded mode in phase 17")
+    check(counts["pack_graph"] == n_b * len(CODEC_CODECS)
+          * (CODEC_REPLAYED + CODEC_TIMED),
+          f"K1 ran {counts['pack_graph']} times as a graph node in phase 17")
+    summary["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    summary["k1_padded_launches"] = counts["pack_out"]
+    summary["k1_graph_launches"] = counts["pack_graph"]
+    summary["steps"] = steps
+    log(f"  {n_elems / 1e6:.1f} M gradients in {n_b} buckets; K1 "
+        f"{counts['pack_out']} launches in padded mode, "
+        f"{counts['pack_graph']} as graph nodes; peak memory "
+        f"{summary['peak_gib']:.2f} GiB")
+    return summary, counts
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -3160,6 +3464,12 @@ def main(argv=None) -> int:
         sharded, sharded_counts = run_sharded_path(torch, hvd, K, tm, dev,
                                                    log)
         torch.cuda.empty_cache()
+
+        log("phase 17: the wire codecs' flat reduction of the flagship LM's "
+            "gradients (int8, fp8, bf16) on the NCCL world of one")
+        codec, codec_counts = run_codec_path(torch, hvd, K, tm,
+                                             bucket_by_size, dev, log)
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -3263,7 +3573,9 @@ def main(argv=None) -> int:
              lm_launches=lm_pack,
              replay_launches=replay_counts["pack_graph"],
              sharded_launches=sharded_counts["pack"],
-             sharded_graph_launches=sharded_counts["pack_graph"]),
+             sharded_graph_launches=sharded_counts["pack_graph"],
+             codec_launches=codec_counts["pack"],
+             codec_graph_launches=codec_counts["pack_graph"]),
         # K1 into a ZeRO-1 bucket's padded buffer (out=): phase 16's
         # launches, phase 1's numbers
         dict(name="pack_out", route="cuda", source=f"{src}/pack.cu",
@@ -3275,9 +3587,11 @@ def main(argv=None) -> int:
              plain_ms=pack_out_row["plain_ms"],
              bound_ms=pack_out_row["bound_ms"], bound_by="bytes",
              library_ms=pack_out_row["library_ms"], ok=True,
+             codec_launches=codec_counts["pack_out"],
              work=f"ResNet-50 fp32 gradients, 2 buckets at 64 MB, each with "
                   f"{PACK_OUT_TAIL} fp32 after it, into buffers padded for "
-                  f"{PACK_OUT_RANKS} ranks; launches: phase 16"),
+                  f"{PACK_OUT_RANKS} ranks; launches: phase 16 "
+                  f"(codec_launches: phase 17)"),
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
              launches=counts["bn_stats"], bound_by="bytes",
@@ -3347,7 +3661,7 @@ def main(argv=None) -> int:
                       "ring": ring, "adasum": adasum, "vit_tiny": tiny,
                       "wide_attention": wide, "sync_bn": sync_bn,
                       "replay": replay, "sharded": sharded,
-                      "resnet_profile": resnet_profile}))
+                      "codec": codec, "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

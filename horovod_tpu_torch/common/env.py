@@ -7,6 +7,7 @@ and only the :class:`Config` fields the port reads so far.
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 
@@ -35,9 +36,18 @@ HOROVOD_TPU_STEP_REPLAY_WARMUP = "HOROVOD_TPU_STEP_REPLAY_WARMUP"
 HOROVOD_TPU_SHARD_OPTIMIZER = "HOROVOD_TPU_SHARD_OPTIMIZER"
 # elastic world identity: a bump invalidates every armed replay stream
 HOROVOD_TPU_WORLD_VERSION = "HOROVOD_TPU_WORLD_VERSION"
+# the wire codec of Sum/Average reductions (ops/compression.py): "none",
+# "bf16" (2 bytes an element), or the error-feedback "fp8"/"int8" (1 byte,
+# a residual carried per bucket); the optimizer's compression= argument
+# overrides it per call (the reference's common/env.py:223-233)
+HOROVOD_TPU_COMPRESSION = "HOROVOD_TPU_COMPRESSION"
+# bounds the engine's table of error-feedback residuals
+HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_JOIN_META_SLOTS = 16
+DEFAULT_CACHE_CAPACITY = 1024
+COMPRESSION_MODES = ("none", "bf16", "fp8", "int8")
 
 
 def _get_bool(name: str, default: bool = False) -> bool:
@@ -45,6 +55,21 @@ def _get_bool(name: str, default: bool = False) -> bool:
     if v is None:
         return default
     return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _get_choice(name: str, default: str, choices) -> str:
+    """``name``'s value, lower-cased, if it is one of ``choices``; else
+    ``default``, with a warning for a value outside them."""
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    v = v.strip().lower()
+    if v not in choices:
+        logging.getLogger("horovod_tpu_torch").warning(
+            "%s=%r is not one of %s; using %r", name, v, list(choices),
+            default)
+        return default
+    return v
 
 
 def _get_int(name: str, default: int) -> int:
@@ -81,6 +106,12 @@ class Config:
     step_replay_warmup: int = 3
     # the default of DistributedOptimizer(sharded=None): ZeRO-1 off
     shard_optimizer: bool = False
+    # the engine's wire codec when a call names none (CODECS of
+    # ops/compression.py); read per call, so a live move takes effect at
+    # the next collective and rebuilds an armed replay program
+    compression: str = "none"
+    # the most error-feedback residual buffers the engine keeps
+    cache_capacity: int = DEFAULT_CACHE_CAPACITY
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -95,4 +126,8 @@ class Config:
             step_replay=_get_bool(HOROVOD_TPU_STEP_REPLAY, True),
             step_replay_warmup=_get_int(HOROVOD_TPU_STEP_REPLAY_WARMUP, 3),
             shard_optimizer=_get_bool(HOROVOD_TPU_SHARD_OPTIMIZER, False),
+            compression=_get_choice(HOROVOD_TPU_COMPRESSION, "none",
+                                    COMPRESSION_MODES),
+            cache_capacity=_get_int(HOROVOD_CACHE_CAPACITY,
+                                    DEFAULT_CACHE_CAPACITY),
         )

@@ -40,13 +40,31 @@ first reports to :class:`~.replay.StepReplay` (``intercept`` for the
 replayable kinds, before any registration or join round; ``observe`` for
 the others), which services a matching step from its armed program.
 
+Wire codecs (the reference's :742-886 and the codec arms of ``allreduce``,
+``grouped_allreduce`` and ``sharded_step``): a call's codec is its
+``codec=`` argument (the optimizer's ``compression=``) or
+``HOROVOD_TPU_COMPRESSION``, ``none`` at size 1 and for ops other than
+Sum and Average. Each fusion bucket resolves it by dtype
+(``ops/compression.py``) and a bucket with a codec runs the flat
+compressed reduction (``ops/collectives.py``: K1 into a zero-tailed
+padded buffer, encode, all-to-all, decode-sum, all-gather; on a sharded
+step the reduce-scatter leg alone). fp8 and int8 carry an error-feedback
+residual a bucket: a device buffer in the engine's table, updated in
+place, zeros on first use, after :meth:`Engine.invalidate_residuals`
+(``join()``, a world-version bump), on a shape drift or another world
+version. Join's op field carries the call codec in bits 4 and up, so a
+joined rank's zero substitute runs the same compressed program.
+
 Not ported yet (the reference's other engine paths): the ZeRO-1
 all-gather prefetch leg, replay's overlap modes and single-launch form,
-wire codecs, alltoall's steady-state splits cache, algorithm selection
-(hierarchical Sum/Average and alltoall), autotune, metrics and tracing.
-Until algorithm selection is ported, a Sum/Average allreduce under
-``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat and says so once per
-process, as the reference does when it demotes an algorithm.
+alltoall's codec and steady-state splits cache, algorithm selection
+(hierarchical Sum/Average and alltoall, and the hierarchical codec arm),
+autotune, metrics and tracing: ``codec_selections`` and
+``residual_invalidations`` are plain counters until the metric
+instruments come (ROADMAP A12). Until algorithm selection is ported, a
+Sum/Average allreduce under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat
+and says so once per process, as the reference does when it demotes an
+algorithm.
 """
 
 from __future__ import annotations
@@ -65,8 +83,9 @@ from ..common import env as env_mod
 from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..common.reduce_ops import ReduceOp
 from ..ops import collectives as C
+from ..ops import compression as comp
 from .backend import Backend
-from .replay import StepReplay
+from .replay import _DIGITS, StepReplay
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -292,6 +311,17 @@ def _join_meta_row(x: torch.Tensor, op_or_root: int) -> np.ndarray:
     return _meta_row(tuple(x.shape), x.dtype, op_or_root)
 
 
+def _op_field(op: ReduceOp, call_codec: str) -> int:
+    """A reduction's join op field: the op in bits 0-3, the call codec's
+    index in CODECS above them (the reference's :1672-1679)."""
+    return int(op) | (comp.CODECS.index(call_codec) << 4)
+
+
+def _split_op_field(code: int):
+    """``(op, call codec)`` of a join op field."""
+    return ReduceOp(code & 15), comp.CODECS[(code >> 4) % len(comp.CODECS)]
+
+
 class Engine:
     """Named eager collectives over the default process group."""
 
@@ -320,6 +350,13 @@ class Engine:
         self._replay = StepReplay(self)
         # the side stream a sharded step's join round runs on (the card)
         self._guard_stream = None
+        # error-feedback residuals: key -> {"world_version", "buf"}, the
+        # buffers updated in place (insertion order: the oldest first)
+        self._residuals: Dict[tuple, dict] = {}
+        # plain counters: codec selections by (kind, codec), a bucket
+        # each; residual buffers dropped or zeroed by an invalidation
+        self.codec_selections = collections.Counter()
+        self.residual_invalidations = 0
 
     # -- internals ---------------------------------------------------------
 
@@ -389,16 +426,21 @@ class Engine:
         if self.on_replay is not None:
             self.on_replay(event, detail)
 
-    def _reduce_launch(self, flat: torch.Tensor, op: ReduceOp,
-                       prescale_factor: float,
-                       postscale_factor: float) -> LaunchGroup:
-        """Launch the in-place allreduce of one private flat buffer."""
+    def _flat_only(self, op: ReduceOp):
+        """Warn once that a Sum/Average allreduce under
+        ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat (C3)."""
         if self.config.hierarchical_allreduce and op in (ReduceOp.SUM,
                                                          ReduceOp.AVERAGE):
             _demote(("allreduce", "hierarchical"),
                     "HOROVOD_HIERARCHICAL_ALLREDUCE asks for the two-level "
                     "Sum/Average allreduce, which is not ported yet "
                     "(ROADMAP A11; it selects hierarchical Adasum only)")
+
+    def _reduce_launch(self, flat: torch.Tensor, op: ReduceOp,
+                       prescale_factor: float,
+                       postscale_factor: float) -> LaunchGroup:
+        """Launch the in-place allreduce of one private flat buffer."""
+        self._flat_only(op)
         C.prescale(flat, prescale_factor)
         work = _translate_failure(dist.all_reduce, flat, op=_dist_op(op),
                                   async_op=True)
@@ -406,37 +448,202 @@ class Engine:
         return LaunchGroup(
             work, lambda: C.finish_reduce(flat, n, postscale_factor))
 
+    # -- wire codecs (the reference's :742-886) ------------------------------
+
+    def _call_codec(self, override: Optional[str],
+                    op: Optional[ReduceOp] = None) -> str:
+        """The call's wire codec: ``override`` (the optimizer's
+        ``compression=``, carried in the replay signature) or
+        ``HOROVOD_TPU_COMPRESSION``; "none" at size <= 1 and for ops other
+        than Sum and Average (only they have a decode-sum form)."""
+        if self.backend.size() <= 1:
+            return comp.CODEC_NONE
+        if op is not None and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            return comp.CODEC_NONE
+        base = override if override is not None else self.config.compression
+        return base if base in comp.CODECS else comp.CODEC_NONE
+
+    def _bucket_codecs(self, kind: str, dtypes: Sequence[torch.dtype],
+                       call_codec: str, count: bool = True) -> tuple:
+        """Each bucket's codec (one of ``dtypes``, a bucket's, each), the
+        same on every rank: ``resolve_codec(call_codec, dtype)``. With
+        ``count`` the selections go into ``codec_selections``."""
+        if call_codec == comp.CODEC_NONE:
+            return (comp.CODEC_NONE,) * len(dtypes)
+        out = tuple(comp.resolve_codec(call_codec, d) for d in dtypes)
+        if count:
+            for c in out:
+                self.codec_selections[(kind, c)] += 1
+        return out
+
+    def _residual_key(self, tag: str, name: Optional[str], bucket: int,
+                      codec: str, elems: int, dtype_str: str) -> tuple:
+        """The identity of one error-feedback lineage: the call's name with
+        its digit runs made ``#`` (the optimizer's per-step names collapse
+        to one template), the bucket's position, codec, length and dtype.
+        Replay derives the same keys from its signatures, so a single-call
+        step's lineage carries from the eager warm-up into the replayed
+        steps."""
+        return (tag, _DIGITS.sub("#", name or ""), int(bucket), codec,
+                int(elems), dtype_str)
+
+    def _grouped_residuals(self, tag: str, name: Optional[str], sizes,
+                           dtypes, codecs) -> list:
+        """``(bucket, key, elems, dtype)`` of each error-feedback bucket of
+        one call (``sizes``: the buckets' element counts), in bucket
+        order."""
+        n = self.backend.size()
+        out = []
+        for b, (total, dtype, codec) in enumerate(zip(sizes, dtypes,
+                                                      codecs)):
+            elems = C.codec_residual_elems("reduce", total, n, codec)
+            if elems is not None:
+                out.append((b, self._residual_key(tag, name, b, codec, elems,
+                                                  str(dtype)),
+                            elems, dtype))
+        return out
+
+    def _fetch_residuals(self, rows) -> dict:
+        """``{bucket: residual buffer}`` of ``rows`` (``(bucket, key, elems,
+        dtype)``, as :meth:`_grouped_residuals` gives them), after a sweep
+        of another world version's."""
+        if not rows:
+            return {}
+        self._residual_gc()
+        return {b: self._residual_fetch(key, elems, dtype)
+                for b, key, elems, dtype in rows}
+
+    def _residual_fetch(self, key: tuple, elems: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """This rank's residual buffer for one error-feedback bucket, which
+        the codec updates in place: the table's, or a new one of zeros
+        (first use, after invalidation, on a shape drift or another world
+        version: starting fresh costs one step of compression error)."""
+        with self._lock:
+            ent = self._residuals.get(key)
+            if (ent is not None and ent["world_version"] == self.world_version
+                    and ent["buf"].numel() == int(elems)
+                    and ent["buf"].dtype == dtype):
+                return ent["buf"]
+        buf = torch.zeros(int(elems), dtype=dtype, device=self.backend.device)
+        self._residual_store(key, buf)
+        return buf
+
+    def _residual_store(self, key: tuple, buf: torch.Tensor):
+        """Make ``buf`` the residual of ``key``; past ``cache_capacity``
+        entries the oldest go, but never a buffer an armed replay program
+        holds (its graph would keep updating a buffer the eager path no
+        longer reads)."""
+        held = self._replay.held_residuals()
+        with self._lock:
+            self._residuals.pop(key, None)
+            self._residuals[key] = {"world_version": self.world_version,
+                                    "buf": buf}
+            over = len(self._residuals) - max(self.config.cache_capacity, 1)
+            if over > 0:
+                for old in [k for k in self._residuals
+                            if k not in held and k != key][:over]:
+                    del self._residuals[old]
+
+    def invalidate_residuals(self, reason: str):
+        """Drop every error-feedback residual (``join()``, a world-version
+        bump, explicit resets): the next compressed step starts a fresh
+        lineage. A buffer an armed program holds is zeroed in place and
+        kept, so its graph and the eager path go on sharing it."""
+        held = self._replay.held_residuals()
+        with self._lock:
+            dropped = len(self._residuals)
+            for key in list(self._residuals):
+                if key in held:
+                    self._residuals[key]["buf"].zero_()
+                else:
+                    del self._residuals[key]
+        if dropped:
+            self.residual_invalidations += dropped
+            self._emit_replay("residual-invalidate", reason)
+
+    def _residual_gc(self):
+        """Drop the residuals of another world version (an elastic bump
+        seen outside the step markers)."""
+        v = self._refresh_world_version()
+        with self._lock:
+            stale = [k for k, ent in self._residuals.items()
+                     if ent["world_version"] != v]
+            for k in stale:
+                del self._residuals[k]
+        if stale:
+            self.residual_invalidations += len(stale)
+            self._emit_replay("residual-invalidate",
+                              f"world-version bump (-> {v})")
+
+    def _codec_launch(self, tensors: Sequence[torch.Tensor], codec: str,
+                      residual: Optional[torch.Tensor], op: ReduceOp,
+                      prescale_factor: float, postscale_factor: float):
+        """One bucket's compressed allreduce: K1 (under
+        ``HOROVOD_PALLAS_PACK``) into a zero-tailed padded buffer, then the
+        flat codec reduction (``C.codec_allreduce``), ordered on this
+        process's stream. Returns the reduced prefix and its launch
+        group."""
+        self._flat_only(op)
+        n, rank = self.backend.size(), self.backend.rank()
+        total = sum(t.numel() for t in tensors)
+        flat = C.padded_bucket(total, n, tensors[0].dtype,
+                               tensors[0].device)
+        C.pack_padded(tensors, flat, self.config.pack_kernel)
+        _translate_failure(C.codec_allreduce, flat, total, residual, codec,
+                           n, rank, n if op == ReduceOp.AVERAGE else 1,
+                           prescale_factor, postscale_factor, None)
+        return flat[:total], LaunchGroup(_StreamWork(flat.device))
+
     # -- collectives -------------------------------------------------------
 
     def allreduce(self, tensor, name: Optional[str] = None,
                   op: ReduceOp = ReduceOp.SUM,
                   prescale_factor: float = 1.0,
-                  postscale_factor: float = 1.0) -> Handle:
+                  postscale_factor: float = 1.0,
+                  codec: Optional[str] = None) -> Handle:
+        """``codec`` overrides ``HOROVOD_TPU_COMPRESSION`` for this call."""
         x = self._tensor(tensor)
+        orig_name = name
         sub = self._consume_substitute()
         _check_average_dtype(x, op)
         _dist_op(op)
+        call_codec = self._call_codec(codec, op)
         r = self._replay.intercept("allreduce", [x], int(op),
                                    prescale_factor, postscale_factor, name,
-                                   sub)
+                                   sub, codec=call_codec)
         if r is not None:
             return r[0]
         name = self._register(name, "allreduce")
-        self._join_sync("allreduce", [_join_meta_row(x, int(op))], sub)
+        self._join_sync("allreduce",
+                        [_join_meta_row(x, _op_field(op, call_codec))], sub)
+        bucket_codec = self._bucket_codecs("allreduce", [x.dtype],
+                                           call_codec)[0]
+        self.dispatch_count += 1
+        if bucket_codec != comp.CODEC_NONE:
+            residuals = self._fetch_residuals(self._grouped_residuals(
+                "gar", orig_name, [x.numel()], [x.dtype], [bucket_codec]))
+            flat, group = self._codec_launch(
+                [x.contiguous()], bucket_codec, residuals.get(0), op,
+                prescale_factor, postscale_factor)
+            return self._track(Handle(name, group,
+                                      lambda: flat.view(x.shape), self))
         buf = x.clone(memory_format=torch.contiguous_format)
         group = self._reduce_launch(buf, op, prescale_factor,
                                     postscale_factor)
-        self.dispatch_count += 1
         return self._track(Handle(name, group, lambda: buf, self))
 
     def grouped_allreduce(self, tensors: Sequence,
                           name: Optional[str] = None,
                           op: ReduceOp = ReduceOp.SUM,
                           prescale_factor: float = 1.0,
-                          postscale_factor: float = 1.0) -> List[Handle]:
+                          postscale_factor: float = 1.0,
+                          codec: Optional[str] = None) -> List[Handle]:
         """Fused allreduce: per-dtype buckets of at most the fusion
-        threshold, one pack and one collective per bucket; each output is a
-        view of its bucket's reduced buffer."""
+        threshold, one pack and one collective per bucket (the compressed
+        reduction for a bucket with a wire codec: ``codec`` overrides
+        ``HOROVOD_TPU_COMPRESSION``); each output is a view of its
+        bucket's reduced buffer."""
         tensors = [self._tensor(t) for t in tensors]
         sub = self._consume_substitute()
         for t in tensors:
@@ -444,25 +651,39 @@ class Engine:
         _dist_op(op)
         if not tensors:
             return []
+        call_codec = self._call_codec(codec, op)
         r = self._replay.intercept("grouped_allreduce", tensors, int(op),
                                    prescale_factor, postscale_factor, name,
-                                   sub)
+                                   sub, codec=call_codec)
         if r is not None:
             return r
         names = [self._register(None if name is None else f"{name}.{i}",
                                 "grouped_allreduce")
                  for i in range(len(tensors))]
         self._join_sync("grouped_allreduce",
-                        [_join_meta_row(t, int(op)) for t in tensors], sub)
+                        [_join_meta_row(t, _op_field(op, call_codec))
+                         for t in tensors], sub)
         buckets = bucket_by_size(tensors, self.config.fusion_threshold_bytes)
+        codecs = self._bucket_codecs(
+            "grouped_allreduce", [tensors[idxs[0]].dtype for idxs in buckets],
+            call_codec)
+        residuals = self._fetch_residuals(self._grouped_residuals(
+            "gar", name, [sum(tensors[i].numel() for i in idxs)
+                          for idxs in buckets],
+            [tensors[idxs[0]].dtype for idxs in buckets], codecs))
         handles: List[Optional[Handle]] = [None] * len(tensors)
-        for idxs in buckets:
+        for b, idxs in enumerate(buckets):
             # per bucket: pack, then reduce (the form the reference takes
             # with its Pallas pack, whose packing is its own launch)
-            flat = C.pack_bucket([tensors[i] for i in idxs],
-                                 self.config.pack_kernel)
-            group = self._reduce_launch(flat, op, prescale_factor,
-                                        postscale_factor)
+            bucket = [tensors[i] for i in idxs]
+            if codecs[b] != comp.CODEC_NONE:
+                flat, group = self._codec_launch(
+                    bucket, codecs[b], residuals.get(b), op,
+                    prescale_factor, postscale_factor)
+            else:
+                flat = C.pack_bucket(bucket, self.config.pack_kernel)
+                group = self._reduce_launch(flat, op, prescale_factor,
+                                            postscale_factor)
             self.dispatch_count += 1
             views = C.unpack_flat(flat, [tuple(tensors[i].shape)
                                          for i in idxs])
@@ -576,7 +797,7 @@ class Engine:
         ``(received tensor, recv_splits)``, the splits an int64 CPU tensor.
         At size 1 the result is the input. Not ported: the reference's
         steady-state splits cache (ROADMAP A10), its hierarchical selection
-        (A11) and its wire codecs (A8)."""
+        (A11) and its wire codec (A11: hierarchical buckets only)."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         self._replay.observe("alltoall", sub, [x], name)
@@ -659,7 +880,8 @@ class Engine:
                      name: Optional[str] = None,
                      op: ReduceOp = ReduceOp.AVERAGE,
                      prescale_factor: float = 1.0,
-                     postscale_factor: float = 1.0):
+                     postscale_factor: float = 1.0,
+                     codec: Optional[str] = None):
         """One ZeRO-1 step over the world (the reference's :1911-2164,
         without the prefetch leg): for each of ``buckets``
         (:class:`~..ops.collectives.ShardBucket`, the caller's frozen
@@ -670,6 +892,10 @@ class Engine:
         optimizer's step on the shards); then all-gather every rank's
         updated shard into the bucket's parameter buffer in place. The host
         waits on no device work: each completion is a stream dependency.
+        A bucket with a wire codec (``codec``, else
+        ``HOROVOD_TPU_COMPRESSION``) runs the compressed reduce-scatter, its
+        residual covering the whole padded bucket; the parameter
+        all-gather stays full precision (the reference's :1956-2050).
 
         Inside a step the first half reports to replay as kind
         ``sharded_step``; a step that is one sharded step arms after the
@@ -688,9 +914,10 @@ class Engine:
                 f"sharded_step supports Sum and Average, got {op!r}")
         for g in grads:
             _check_average_dtype(g, op)
+        call_codec = self._call_codec(codec, op)
         r = self._replay.intercept("sharded_step", grads, int(op),
                                    prescale_factor, postscale_factor, name,
-                                   sub, layout=buckets)
+                                   sub, layout=buckets, codec=call_codec)
         if r is not None:
             # the armed program ran the first half (its one dispatch
             # covers the gathers too); this orders the stream after it
@@ -703,12 +930,40 @@ class Engine:
                            "sharded_step")
         self._join_guard("sharded_step")
         n = self.backend.size() if op == ReduceOp.AVERAGE else 1
+        codecs = self._bucket_codecs("sharded_step",
+                                     [b.grads.dtype for b in buckets],
+                                     call_codec)
+        residuals = self._sharded_residuals(buckets, codecs)
         self.dispatch_count += _translate_failure(
             C.scatter_shards, buckets, grads, self.config.pack_kernel, n,
-            prescale_factor, postscale_factor, None)
+            prescale_factor, postscale_factor, None, True, codecs, residuals)
         update()
         self.dispatch_count += _translate_failure(C.gather_shards, buckets,
                                                   None)
+
+    def _sharded_residual_key(self, bucket, codec: str) -> Optional[tuple]:
+        """The residual of a sharded step's bucket (``cls`` "sharded": the
+        whole padded bucket), keyed by the bucket's own token, as the
+        reference keys it by its optimizer's."""
+        elems = C.codec_residual_elems("sharded", bucket.total, bucket.n,
+                                       codec)
+        if elems is None:
+            return None
+        return ("zrs", "", bucket.token, codec, elems,
+                str(bucket.grads.dtype))
+
+    def _sharded_residuals(self, buckets, codecs) -> Optional[list]:
+        """Each bucket's residual buffer (None without error feedback), or
+        None when no bucket has a codec."""
+        if all(c == comp.CODEC_NONE for c in codecs):
+            return None
+        keys = [self._sharded_residual_key(b, c)
+                for b, c in zip(buckets, codecs)]
+        bufs = self._fetch_residuals([(i, k, k[4], b.grads.dtype)
+                                      for i, (b, k) in enumerate(zip(buckets,
+                                                                     keys))
+                                      if k is not None])
+        return [bufs.get(i) for i in range(len(buckets))]
 
     def track_result(self, name: str, out: torch.Tensor) -> Handle:
         """Register ``out``, computed under the name ``name`` on this
@@ -806,10 +1061,14 @@ class Engine:
             return
         arg = int(metas[0][0])
         if kind == "allreduce":
-            hs = [self.allreduce(zero(metas[0]), op=ReduceOp(arg))]
+            # the op field carries the call codec: the substitute runs the
+            # active ranks' compressed program (the reference's :1412-1429)
+            op, codec = _split_op_field(arg)
+            hs = [self.allreduce(zero(metas[0]), op=op, codec=codec)]
         elif kind == "grouped_allreduce":
-            hs = self.grouped_allreduce([zero(r) for r in metas],
-                                        op=ReduceOp(arg))
+            op, codec = _split_op_field(arg)
+            hs = self.grouped_allreduce([zero(r) for r in metas], op=op,
+                                        codec=codec)
         elif kind == "adasum":
             from ..ops.adasum import adasum_allreduce_handle
             hs = [adasum_allreduce_handle(self, zero(metas[0]))]

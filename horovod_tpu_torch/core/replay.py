@@ -42,8 +42,21 @@ per-step host cost, there one fused XLA launch; here one CUDA graph):
   joined rank's zero substitute (one grouped allreduce of the advertised
   rows) issues the graph's collectives: the same buckets in the same order.
 - ``join()`` and an elastic world-version bump invalidate every armed
-  stream; a move of the fusion threshold, the pack knob or the join switch
+  stream and every error-feedback residual; a move of the fusion
+  threshold, the pack knob, the join switch or ``HOROVOD_TPU_COMPRESSION``
   rebuilds the armed program before its next launch.
+- Wire codecs (the reference's :187-192, :574-701): the call's codec is
+  part of each :class:`CallSig` and of a segment's key. A bucket whose
+  codec is not ``none`` runs the flat compressed reduction
+  (``ops/collectives.py``) in the program, on the card inside the graph:
+  K1 into a zero-tailed padded buffer, the encode, the all-to-all, the
+  scales' all-gather, the decode-sum and the all-gather; a sharded step's
+  bucket its compressed reduce-scatter. fp8 and int8 read and update, in
+  place, the engine's own residual buffer of the bucket's key (fetched
+  when the program is built, before any capture), so a single-call
+  step's lineage runs on bitwise from the eager warm-up into the replayed
+  steps; a buffer an armed program holds is never evicted or swapped
+  (``held_residuals``), and an invalidation zeroes it in place.
 - The sharded arm (the reference's ``intercept("sharded_step", ...)``,
   ``core/engine.py:1996``): a step that is one ``Engine.sharded_step``
   (ZeRO-1) arms after the warm-up like any other. Its program holds the
@@ -64,7 +77,7 @@ Replayable kinds: allreduce, grouped_allreduce, broadcast,
 grouped_broadcast and sharded_step. allgather, alltoall, reducescatter,
 barrier and Adasum go through :meth:`StepReplay.observe`: a step holding
 one never arms. Not ported, since the port has none of these calls yet:
-the reference's grouped_alltoall arm (A16) and its wire-codec rows (A8);
+the reference's grouped_alltoall arm (A16) and alltoall's codec (A11);
 nor its overlap modes, staged sub-launches, the ZeRO-1 prefetch leg and
 the single-launch form (A10's remainder). The metrics-registry instruments
 wait for A12: the plain counters (``captured_streams``, ``replayed_steps``,
@@ -83,6 +96,7 @@ import torch.distributed as dist
 from ..common.lru import lru_get, lru_put
 from ..common.reduce_ops import ReduceOp
 from ..ops import collectives as C
+from ..ops import compression as _comp
 from ..ops import kernels
 
 # step counters in tensor names ("grad.s17") must not make otherwise
@@ -111,18 +125,20 @@ class CallSig(NamedTuple):
     # frozen layout), compared by identity: another optimizer's step is
     # another signature
     layout: object = None
+    # the call's wire codec (the reference's extra=(call_codec,))
+    codec: str = "none"
 
 
 def _make_sig(kind: str, tensors, code: int, pre: float, post: float,
               name: Optional[str], replayable: bool,
-              layout=None) -> CallSig:
+              layout=None, codec: str = "none") -> CallSig:
     return CallSig(
         kind, int(code),
         tuple(tuple(t.shape) for t in tensors),
         tuple(str(t.dtype) for t in tensors),
         float(pre), float(post),
         _DIGITS.sub("#", name or ""), replayable,
-        None if layout is None else tuple(layout))
+        None if layout is None else tuple(layout), codec)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -182,7 +198,8 @@ class ReplayHandle:
 
 
 class _Segment(NamedTuple):
-    """Consecutive recorded calls of one class, op or root and scales."""
+    """Consecutive recorded calls of one class, op or root, scales and
+    call codec."""
     cls: str           # "reduce" or "bcast"
     code: int          # ReduceOp code, or the root rank
     pre: float
@@ -191,6 +208,8 @@ class _Segment(NamedTuple):
     dtypes: tuple
     buckets: tuple     # tuples of indices into shapes
     base: int          # the segment's first slot in the step's tensors
+    codecs: tuple      # each bucket's wire codec
+    residuals: tuple   # each bucket's (residual key, elems) or None
 
 
 class _Bucket(NamedTuple):
@@ -198,6 +217,8 @@ class _Bucket(NamedTuple):
     slots: tuple       # slots of the step's tensors, in pack order
     shapes: tuple
     dtype: torch.dtype
+    codec: str
+    residual: Optional[tuple]   # (engine residual key, elems)
 
     @property
     def numels(self) -> List[int]:
@@ -207,14 +228,31 @@ class _Bucket(NamedTuple):
 def _buckets(segments) -> List[_Bucket]:
     return [_Bucket(seg, tuple(seg.base + i for i in idxs),
                     tuple(seg.shapes[i] for i in idxs),
-                    _torch_dtype(seg.dtypes[idxs[0]]))
-            for seg in segments for idxs in seg.buckets]
+                    _torch_dtype(seg.dtypes[idxs[0]]), seg.codecs[j],
+                    seg.residuals[j])
+            for seg in segments for j, idxs in enumerate(seg.buckets)]
+
+
+def _residual_buffers(engine, buckets) -> list:
+    """The engine's residual buffer of each bucket (None without error
+    feedback), fetched now: never inside a capture, where a new buffer's
+    zero fill would become a node of the graph."""
+    bufs = engine._fetch_residuals([(j, b.residual[0], b.residual[1],
+                                     b.dtype)
+                                    for j, b in enumerate(buckets)
+                                    if b.residual is not None])
+    return [bufs.get(j) for j in range(len(buckets))]
+
+
+def _held_keys(buckets) -> frozenset:
+    return frozenset(b.residual[0] for b in buckets if b.residual is not None)
 
 
 class _EagerProgram:
     """The armed plan issued eagerly, for CPU tensors: per bucket the pack,
-    the prescale, the collective and the finish, as the eager grouped
-    calls issue them, behind one join advertisement a step."""
+    the prescale, the collective (or the compressed reduction) and the
+    finish, as the eager grouped calls issue them, behind one join
+    advertisement a step."""
     tables = 0
     copy_outs = 0
 
@@ -222,17 +260,24 @@ class _EagerProgram:
         self.engine = engine
         self.buckets = _buckets(segments)
         self.join_metas = join_metas
+        self.residual_keys = _held_keys(self.buckets)
+        self.codecs = [b.codec for b in self.buckets]
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _translate_failure
         eng = self.engine
         if self.join_metas is not None:
             eng._join_sync("grouped_allreduce", self.join_metas, False)
+        residuals = _residual_buffers(eng, self.buckets)
         out: List[Optional[_Bound]] = [None] * len(inputs)
-        for b in self.buckets:
+        for b, residual in zip(self.buckets, residuals):
             ts = [inputs[s] for s in b.slots]
             seg = b.seg
-            if seg.cls == "reduce":
+            if b.codec != _comp.CODEC_NONE:
+                flat, group = eng._codec_launch(ts, b.codec, residual,
+                                                ReduceOp(seg.code), seg.pre,
+                                                seg.post)
+            elif seg.cls == "reduce":
                 flat = C.pack_bucket(ts, eng.config.pack_kernel)
                 group = eng._reduce_launch(flat, ReduceOp(seg.code), seg.pre,
                                            seg.post)
@@ -250,7 +295,9 @@ class _GraphProgram:
     the join advertisement's all_gathers, then per bucket K1 from its
     :class:`~..ops.kernels.PackTable` (or nothing, where the plain pack
     fills the bucket's buffer before the launch), the prescale, the NCCL
-    collective and the finish. A launch refreshes the tables, replays the
+    collective and the finish; a bucket with a wire codec packs into a
+    zero-tailed padded buffer and runs the compressed reduction on the
+    engine's residual buffer. A launch refreshes the tables, replays the
     graph on the current stream and copies each bucket's reduced buffer
     into a fresh one, whose views are the results."""
 
@@ -259,7 +306,10 @@ class _GraphProgram:
         eng = self.engine = engine
         dev = self.device = eng.backend.device
         self.buckets = _buckets(segments)
-        size = eng.backend.size()
+        self.residual_keys = _held_keys(self.buckets)
+        self.codecs = [b.codec for b in self.buckets]
+        residuals = _residual_buffers(eng, self.buckets)
+        size, rank = eng.backend.size(), eng.backend.rank()
         # the step's one advertisement: the join round's head and overflow
         # rows, constant, on the device from pinned memory with no host wait
         self._advert = []
@@ -280,6 +330,8 @@ class _GraphProgram:
                         for b in self.buckets]
         self.tables = sum(t is not None for t in self._tables)
         self.copy_outs = len(self.buckets)
+        # each bucket's reduced elements: the whole buffer, or the prefix
+        # of a codec bucket's padded one
         self._flats: List[torch.Tensor] = []
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)
@@ -289,14 +341,25 @@ class _GraphProgram:
             try:
                 for _, mine, gathered in self._advert:
                     C.all_gather(gathered, mine, None)
-                for b, table in zip(self.buckets, self._tables):
+                for b, table, residual in zip(self.buckets, self._tables,
+                                              residuals):
                     seg = b.seg
-                    flat = torch.empty(sum(b.numels), dtype=b.dtype,
-                                       device=dev)
+                    total = sum(b.numels)
+                    if b.codec != _comp.CODEC_NONE:
+                        padded = C.padded_bucket(total, size, b.dtype, dev)
+                        flat = padded[:total]
+                    else:
+                        flat = torch.empty(total, dtype=b.dtype, device=dev)
                     self._flats.append(flat)
                     if table is not None:
                         table.capture(flat)
-                    if seg.cls == "reduce":
+                    if b.codec != _comp.CODEC_NONE:
+                        op = ReduceOp(seg.code)
+                        C.codec_allreduce(
+                            padded, total, residual, b.codec, size, rank,
+                            size if op == ReduceOp.AVERAGE else 1, seg.pre,
+                            seg.post, None)
+                    elif seg.cls == "reduce":
                         op = ReduceOp(seg.code)
                         C.prescale(flat, seg.pre)
                         dist.all_reduce(flat, op=_dist_op(op))
@@ -330,7 +393,8 @@ class _GraphProgram:
 class _ShardedEagerProgram:
     """The sharded arm on CPU tensors: the step's join round, read
     (``Engine._join_guard``), then per bucket the pack, prescale,
-    reduce-scatter and finish, as ``Engine.sharded_step`` issues them."""
+    reduce-scatter (compressed, for a bucket with a wire codec) and finish,
+    as ``Engine.sharded_step`` issues them."""
     tables = 0
     copy_outs = 0
 
@@ -338,13 +402,21 @@ class _ShardedEagerProgram:
         self.engine, self.sig = engine, sig
         # Average's divide
         self.n = engine.backend.size() if sig.code == ReduceOp.AVERAGE else 1
+        self.codecs = engine._bucket_codecs(
+            _SHARDED, [b.grads.dtype for b in sig.layout], sig.codec,
+            count=False)
+        self.residual_keys = frozenset(
+            k for k in (engine._sharded_residual_key(b, c)
+                        for b, c in zip(sig.layout, self.codecs))
+            if k is not None)
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _StreamWork
         eng, sig = self.engine, self.sig
         eng._join_guard(_SHARDED)
         C.scatter_shards(sig.layout, inputs, eng.config.pack_kernel, self.n,
-                         sig.pre, sig.post, None)
+                         sig.pre, sig.post, None, True, self.codecs,
+                         eng._sharded_residuals(sig.layout, self.codecs))
         group = LaunchGroup(_StreamWork(eng.backend.device))
         return [_Bound(group, None)] * len(inputs)
 
@@ -354,13 +426,17 @@ class _ShardedGraphProgram(_ShardedEagerProgram):
     pool: per bucket K1 from its :class:`~..ops.kernels.PackTable` into the
     bucket's padded gradient buffer (or nothing, where the plain pack
     fills it before the launch), the prescale, the NCCL reduce-scatter
-    into this rank's shard in place and the finish. The buffers are the
-    layout's own, so the graph copies nothing out: the wrapped optimizer
-    reads the shard's gradient where the graph left it."""
+    into this rank's shard in place (the compressed one on the engine's
+    residual buffer, for a bucket with a wire codec) and the finish. The
+    buffers are the layout's own, so the graph copies nothing out: the
+    wrapped optimizer reads the shard's gradient where the graph left
+    it."""
 
     def __init__(self, engine, sig: CallSig):
         super().__init__(engine, sig)
         dev = self.device = engine.backend.device
+        residuals = (engine._sharded_residuals(sig.layout, self.codecs)
+                     or [None] * len(sig.layout))
         self._tables = [kernels.PackTable(b.sizes, b.grads.dtype, dev)
                         if engine.config.pack_kernel else None
                         for b in sig.layout]
@@ -371,11 +447,16 @@ class _ShardedGraphProgram(_ShardedEagerProgram):
             self.graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
                                      capture_error_mode="thread_local")
             try:
-                for b, table in zip(sig.layout, self._tables):
+                for b, table, codec, residual in zip(
+                        sig.layout, self._tables, self.codecs, residuals):
                     if table is not None:
                         table.capture(b.grads[:b.total])
                     C.prescale(b.grads[:b.total], sig.pre)
-                    C.rs_flat(b.grads, b.grad_shard, None)
+                    if codec != _comp.CODEC_NONE:
+                        C.rs_flat_codec(b.grads, b.grad_shard, residual,
+                                        codec, b.n, None)
+                    else:
+                        C.rs_flat(b.grads, b.grad_shard, None)
                     C.finish_reduce(b.grad_shard, self.n, sig.post)
             finally:
                 self.graph.capture_end()
@@ -400,6 +481,7 @@ class _Armed(NamedTuple):
     threshold: int
     pack_kernel: bool
     join_live: bool
+    compression: str
     program: object               # _GraphProgram or _EagerProgram
 
 
@@ -509,16 +591,26 @@ class StepReplay:
             self._cands = []
         if had_armed:
             self.engine._emit_replay("invalidate", reason)
+        # the residuals ride the same edge, once no armed program holds one
+        self.engine.invalidate_residuals(reason)
+
+    def held_residuals(self) -> set:
+        """The residual keys the armed programs hold (their buffers are
+        nodes' operands in a graph on the card)."""
+        return {k for ent in self._seen.values()
+                if ent.get("armed") is not None
+                for k in ent["armed"].program.residual_keys}
 
     # -- per-call interception --------------------------------------------
 
     def intercept(self, kind: str, tensors: Sequence, code: int, pre: float,
                   post: float, name: Optional[str], sub: bool,
-                  layout: Optional[Sequence] = None):
+                  layout: Optional[Sequence] = None, codec: str = "none"):
         """Called by every replayable engine entry point before it
         registers anything (a sharded step passes its buckets as
-        ``layout``). Returns None to proceed on the eager path, or the
-        handles servicing the call from the (pending) armed launch."""
+        ``layout``, a reduction its call codec). Returns None to proceed on
+        the eager path, or the handles servicing the call from the
+        (pending) armed launch."""
         mode = self._mode
         if mode in ("idle", "off"):
             return None
@@ -531,7 +623,8 @@ class StepReplay:
                                              name, replayable=False))
             return None
         sig = _make_sig(kind, tensors, code, pre, post, name,
-                        replayable=kind in _REPLAYABLE, layout=layout)
+                        replayable=kind in _REPLAYABLE, layout=layout,
+                        codec=codec)
         self._recording.append(sig)
         if mode == "record":
             return None
@@ -595,22 +688,24 @@ class StepReplay:
         return eng.config.join_enabled and eng.backend.size() > 1
 
     def _current_armed(self, stream: tuple, ent: dict) -> Optional[_Armed]:
-        """The armed program, rebuilt if the fusion threshold, the pack knob
-        or the join switch moved since it was built."""
+        """The armed program, rebuilt if the fusion threshold, the pack
+        knob, the join switch or the wire codec knob moved since it was
+        built."""
         armed = ent.get("armed")
         if armed is None:
             return None
         cfg = self.engine.config
         if (armed.threshold != cfg.fusion_threshold_bytes
                 or armed.pack_kernel != cfg.pack_kernel
-                or armed.join_live != self._join_live()):
+                or armed.join_live != self._join_live()
+                or armed.compression != cfg.compression):
             ent["armed"] = None      # the old graph goes before the new one
             armed = self._build_armed(stream)
             ent["armed"] = armed
         return armed
 
     def _build_armed(self, stream: tuple) -> Optional[_Armed]:
-        from .engine import _meta_row, bucket_by_size
+        from .engine import _meta_row, _op_field, bucket_by_size
         eng = self.engine
         cfg = eng.config
         if not all(sig.replayable for sig in stream):
@@ -625,13 +720,15 @@ class StepReplay:
                            if eng.backend.device.type == "cuda"
                            else _ShardedEagerProgram)
             return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel,
-                          join_live, program_cls(eng, stream[0]))
+                          join_live, cfg.compression,
+                          program_cls(eng, stream[0]))
         segs: List[dict] = []
         for sig in stream:
             cls = "reduce" if sig.kind in _REDUCE_KINDS else "bcast"
-            key = (cls, sig.code, sig.pre, sig.post)
+            key = (cls, sig.code, sig.pre, sig.post, sig.codec)
             if not segs or segs[-1]["key"] != key:
-                segs.append({"key": key, "shapes": [], "dtypes": []})
+                segs.append({"key": key, "shapes": [], "dtypes": [],
+                             "name": sig.name, "kind": sig.kind})
             segs[-1]["shapes"].extend(sig.shapes)
             segs[-1]["dtypes"].extend(sig.dtypes)
         join_metas = None
@@ -641,26 +738,40 @@ class StepReplay:
             # for a single reduce segment; anything else stays unarmed
             if len(segs) != 1 or segs[0]["key"][0] != "reduce":
                 return None
+            _, code, _, _, codec = segs[0]["key"]
             try:
-                join_metas = [_meta_row(s, _torch_dtype(d), segs[0]["key"][1])
+                join_metas = [_meta_row(s, _torch_dtype(d),
+                                        _op_field(ReduceOp(code), codec))
                               for s, d in zip(segs[0]["shapes"],
                                               segs[0]["dtypes"])]
             except ValueError:    # a dtype or rank the join rows cannot carry
                 return None
         segments, base = [], 0
         for seg in segs:
-            cls, code, pre, post = seg["key"]
+            cls, code, pre, post, codec = seg["key"]
             proxies = [_LeafProxy(s, d)
                        for s, d in zip(seg["shapes"], seg["dtypes"])]
             buckets = bucket_by_size(proxies, cfg.fusion_threshold_bytes)
+            # the codecs and residual rows the eager calls resolve
+            dtypes = [proxies[b[0]].dtype for b in buckets]
+            codecs = eng._bucket_codecs(seg["kind"], dtypes, codec,
+                                        count=False)
+            residuals = [None] * len(buckets)
+            for b, key, elems, _ in eng._grouped_residuals(
+                    "gar", seg["name"],
+                    [sum(int(np.prod(proxies[i].shape)) for i in idxs)
+                     for idxs in buckets], dtypes, codecs):
+                residuals[b] = (key, elems)
             segments.append(_Segment(cls, code, pre, post,
                                      tuple(seg["shapes"]),
                                      tuple(seg["dtypes"]),
-                                     tuple(tuple(b) for b in buckets), base))
+                                     tuple(tuple(b) for b in buckets), base,
+                                     codecs, tuple(residuals)))
             base += len(seg["shapes"])
         program_cls = (_GraphProgram if eng.backend.device.type == "cuda"
                        else _EagerProgram)
         return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel, join_live,
+                      cfg.compression,
                       program_cls(eng, segments, join_metas))
 
     def _fallback(self, reason: str):
@@ -704,6 +815,9 @@ class StepReplay:
         self._buffered = []
         bound = _translate_failure(program.launch, flat)
         eng.dispatch_count += 1
+        for codec in program.codecs:
+            if codec != _comp.CODEC_NONE:
+                eng.codec_selections[("replay", codec)] += 1
         self.table_copies += program.tables
         self.copy_outs += program.copy_outs
         k = 0

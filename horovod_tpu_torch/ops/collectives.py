@@ -1,22 +1,40 @@
-"""Pack/unpack layer of the fused allreduce, and the buckets of the ZeRO-1
-sharded step.
+"""Pack/unpack layer of the fused allreduce, the buckets of the ZeRO-1
+sharded step, and the wire codecs' compressed reduction.
 
 Counterpart of the pack, scale and unpack steps of
 ``horovod_tpu/ops/collectives.py`` (``build_pack`` :1291, ``build_pack_group``
 :1130, ``_unpack_flat`` :1395, the prescale/postscale of
-``build_fused_allreduce`` :1044-1093), and of its ZeRO-1 helpers
-(``shard_spec`` :1304, ``_rs_flat`` :1315, ``_ag_flat`` :1367). The
+``build_fused_allreduce`` :1044-1093), of its ZeRO-1 helpers
+(``shard_spec`` :1304, ``_rs_flat`` :1315, ``_ag_flat`` :1367), and of its
+codec reducers' flat arm (``codec_residual_elems`` :310, ``_rs_flat_codec``
+:1332, ``_make_codec_reducer`` :388-393, ``ef_allreduce_p`` :398). The
 collective itself is a ``torch.distributed`` call made by the engine.
+
+The compressed reduction (:func:`rs_flat_codec`, :func:`codec_allreduce`):
+a quantized payload cannot be summed on the wire, so each rank encodes its
+whole zero-padded bucket (with error feedback: quantize(flat + residual)),
+an all-to-all hands rank r chunk r of every peer's payload, and rank r
+decodes its chunks with their senders' scales and sums them in float32
+into its own slice; a full-precision all-gather then returns every slice
+(enc + nbytes on the wire against the ring's 2 x nbytes). Payloads travel
+as byte views, so neither NCCL nor gloo needs to know int8, fp8 or bf16:
+they move the bytes and never reduce them. The reference's hierarchical
+arm (:360-387, only the cross-slice leg encoded) waits for ROADMAP A11:
+under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` a codec bucket runs this flat
+form, and the engine says so once.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import List, Sequence
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from . import compression as comp
 from . import kernels
 
 
@@ -107,6 +125,9 @@ def shard_spec(total: int, n: int) -> tuple:
     return shard * n, shard
 
 
+_BUCKET_TOKENS = itertools.count()
+
+
 class ShardBucket:
     """One fusion bucket of a ZeRO-1 layout over ``n`` ranks: ``sizes``
     elements of one dtype (the layout's tensors ``idxs``), padded to
@@ -121,6 +142,9 @@ class ShardBucket:
     def __init__(self, idxs: Sequence[int], sizes: Sequence[int],
                  dtype: torch.dtype, device: torch.device, n: int,
                  rank: int):
+        # the identity of the bucket's error-feedback residual lineage
+        self.token = next(_BUCKET_TOKENS)
+        self.n = n
         self.idxs = tuple(int(i) for i in idxs)
         self.sizes = tuple(int(s) for s in sizes)
         self.total = sum(self.sizes)
@@ -163,24 +187,32 @@ def scatter_shards(buckets: Sequence[ShardBucket],
                    tensors: Sequence[torch.Tensor], use_kernel: bool,
                    average_over: int, prescale_factor: float,
                    postscale_factor: float, group,
-                   collective: bool = True) -> int:
+                   collective: bool = True, codecs=None,
+                   residuals=None) -> int:
     """A sharded step's first half: per bucket pack ``tensors`` (the
     gradients, indexed by the bucket's ``idxs``), prescale and post the
     reduce-scatter; then wait for each (a stream dependency on the card)
-    and finish its shard (Average's divide, the postscale). Without
-    ``collective`` (a group of one rank outside the world) the packed
-    buffer is the sum. Returns the collectives launched."""
-    works = []
-    for b in buckets:
-        pack_padded([tensors[i] for i in b.idxs], b.grads, use_kernel)
+    and finish its shard (Average's divide, the postscale). A bucket whose
+    ``codecs`` entry is a wire codec runs the compressed reduce-scatter
+    (:func:`rs_flat_codec`) instead, its ``residuals`` entry updated in
+    place. Without ``collective`` (a group of one rank outside the world)
+    the packed buffer is the sum. Returns the collectives launched."""
+    works, launched = [], 0
+    for i, b in enumerate(buckets):
+        pack_padded([tensors[j] for j in b.idxs], b.grads, use_kernel)
         prescale(b.grads[:b.total], prescale_factor)
-        if collective:
+        codec = codecs[i] if codecs else comp.CODEC_NONE
+        if codec != comp.CODEC_NONE:
+            rs_flat_codec(b.grads, b.grad_shard, residuals[i], codec, b.n,
+                          group, collective)
+            launched += collective
+        elif collective:
             works.append(rs_flat(b.grads, b.grad_shard, group, async_op=True))
     for w in works:
         w.wait()
     for b in buckets:
         finish_reduce(b.grad_shard, average_over, postscale_factor)
-    return len(works)
+    return launched + len(works)
 
 
 def gather_shards(buckets: Sequence[ShardBucket], group,
@@ -195,3 +227,103 @@ def gather_shards(buckets: Sequence[ShardBucket], group,
     for w in works:
         w.wait()
     return len(works)
+
+
+# ---------------------------------------------------------------------------
+# wire codecs: the flat compressed reduction
+# ---------------------------------------------------------------------------
+
+
+def codec_residual_elems(cls: str, total: int, n: int,
+                         codec: str) -> Optional[int]:
+    """Length of one error-feedback bucket's residual, the one shape rule
+    the engine and replay share (the reference's :310-330 on its flat
+    arm): the whole zero-padded bucket, ``shard_spec(total, n)[0]``, for
+    the allreduce family (``cls`` "reduce": the compressed reduce-scatter
+    encodes every element before the exchange) and for the ZeRO-1
+    reduce-scatter leg ("sharded"). None: the codec carries no residual."""
+    if codec not in comp.EF_CODECS:
+        return None
+    if cls not in ("reduce", "sharded"):
+        raise ValueError(f"unknown residual class {cls!r}")
+    return shard_spec(int(total), n)[0]
+
+
+def padded_bucket(total: int, n: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """An uninitialised buffer of ``shard_spec(total, n)[0]`` elements whose
+    tail past ``total`` is zero: a bucket is packed into its prefix, so no
+    copy pads it."""
+    padded = shard_spec(int(total), n)[0]
+    buf = torch.empty(padded, dtype=dtype, device=device)
+    buf[total:].zero_()
+    return buf
+
+
+def rs_flat_codec(flat: torch.Tensor, shard: torch.Tensor,
+                  residual: Optional[torch.Tensor], codec: str, n: int,
+                  group, collective: bool = True):
+    """The compressed reduce-scatter (the reference's ``_rs_flat_codec``):
+    encode the whole padded ``flat`` (in place with ``residual``, which
+    takes the new residual), send chunk r of the payload to rank r of
+    ``group`` and gather every rank's scale, then decode and sum the
+    received chunks in float32 into ``shard``, this rank's slice of
+    ``flat`` (Sum; Average divides it after). Without ``collective`` (a
+    group of one rank) the payload is the only contribution. Returns this
+    rank's ``(payload, scale)``."""
+    payload, scale = comp.ef_encode_(flat, residual, codec)
+    recv, scales = payload, scale
+    if collective:
+        # byte views: the transports move the bytes, never reduce them
+        recv = torch.empty_like(payload)
+        chunks = [payload.numel() * payload.element_size() // n] * n
+        all_to_all(recv.view(torch.uint8), payload.view(torch.uint8),
+                   chunks, chunks, group)
+        if scale is not None:
+            scales = scale.new_empty(n)
+            all_gather(scales, scale, group)
+    comp.decode_sum(recv.view(n, -1), scales, codec, flat.dtype, out=shard)
+    return payload, scale
+
+
+def codec_allreduce(flat: torch.Tensor, total: int,
+                    residual: Optional[torch.Tensor], codec: str, n: int,
+                    rank: int, average_over: int, prescale_factor: float,
+                    postscale_factor: float, group,
+                    collective: bool = True):
+    """The flat codec reduction of one padded bucket, in place: prescale
+    ``flat[:total]``, :func:`rs_flat_codec` into this rank's slice,
+    Average's divide on it, the full-precision all-gather of every slice
+    into ``flat`` (in place), then the postscale (the reference's
+    ``_make_codec_reducer`` flat arm, :388-393). ``flat`` holds
+    ``shard_spec(total, n)[0]`` elements with a zero tail. Returns this
+    rank's ``(payload, scale)``."""
+    shard_len = shard_spec(int(total), n)[1]
+    prescale(flat[:total], prescale_factor)
+    shard = flat[rank * shard_len:(rank + 1) * shard_len]
+    payload, scale = rs_flat_codec(flat, shard, residual, codec, n, group,
+                                   collective)
+    if average_over > 1:
+        shard.div_(average_over)
+    if collective:
+        all_gather(flat, shard, group)
+    finish_reduce(flat[:total], 1, postscale_factor)
+    return payload, scale
+
+
+def ef_allreduce(x: torch.Tensor, residual: Optional[torch.Tensor],
+                 codec: str, average: bool, group, n: int, rank: int,
+                 collective: bool = True,
+                 use_kernel: bool = True) -> torch.Tensor:
+    """One tensor's compressed allreduce outside the engine (the
+    reference's ``ef_allreduce_p``, what ``hvd.distributed`` and
+    ``allreduce_gradients`` run): K1 packs ``x`` into a zero-tailed padded
+    buffer, then :func:`codec_allreduce` with ``residual`` (the padded
+    length, updated in place; None: one-shot). Returns the reduced tensor
+    in ``x``'s shape, a view of that buffer."""
+    total = x.numel()
+    flat = padded_bucket(total, n, x.dtype, x.device)
+    pack_padded([x.contiguous()], flat, use_kernel)
+    codec_allreduce(flat, total, residual, codec, n, rank,
+                    n if average else 1, 1.0, 1.0, group, collective)
+    return flat[:total].view(x.shape)

@@ -39,6 +39,18 @@ per-process form: the same reduction, or ZeRO-1 with
 ``shard_optimizer=True``, over one axis of a training mesh, issued straight
 to the axis's process group with K1's packs (no engine names, join rounds
 or replay, as the reference's in-graph ``psum`` has none).
+
+Wire codecs (``compression=Compression.fp8`` or ``.int8``; the reference's
+:73-135, :143-265, :498-569): the optimizers leave the gradients as they
+are and pass the codec to the engine, which encodes each fusion bucket
+inside the collective with an error-feedback residual it keeps
+(``core/engine.py``); ``sharded=True`` compresses its reduce-scatter
+legs. :func:`distributed` carries the residual in the wrapper's state
+(:attr:`DistributedAxisOptimizer.residuals`, one per parameter) through
+a compressed reduction of each gradient over the axis, and
+:func:`allreduce_gradients` runs the codec once, with no residual. Adasum
+takes no wire codec, and the cast compressors (``fp16``, ``bf16``) do not
+compose with ZeRO-1.
 """
 
 from __future__ import annotations
@@ -54,22 +66,44 @@ from .common.lru import lru_get, lru_put
 from .common.reduce_ops import Adasum, Average, ReduceOp, Sum
 from .core.state import engine as _engine, global_state
 from .ops import collectives as C
+from .ops import compression as comp
 from .ops import kernels
 from .ops.adasum import adasum_allreduce_handle
 from .ops.compression import Compression
 
+# the reference's refusals (optimizer.py:353-360, :510-539, :1039-1043)
+WIRE_CODEC_OP_ERROR = ("wire-codec compression (Compression.fp8/int8) "
+                       "supports op=Average|Sum only")
+SHARDED_CAST_ERROR = (
+    "sharded=True composes only with wire-codec compression "
+    "(Compression.fp8/int8, applied to the reduce-scatter legs) or "
+    "Compression.none — cast compressors would change the packed buffers' "
+    "dtype-uniform layout")
+AXIS_SHARDED_COMPRESSION_ERROR = (
+    "the shard_optimizer=True path of distributed() does not compose with "
+    "compression; the DistributedOptimizer(sharded=True, "
+    "compression=Compression.int8) path compresses its reduce-scatter legs")
+DELTA_ADASUM_CODEC_ERROR = (
+    "delta-Adasum has no wire-codec path (Adasum mixes whole updates, not "
+    "additive sums); use Compression.none/fp16/bf16")
 
-def _check_shardable(op: ReduceOp, compression, what: str):
-    """The reference's restrictions of ZeRO-1 (:497-560, :353-370)."""
+
+def _wire_codec(compression) -> Optional[str]:
+    return getattr(compression, "wire_codec", None)
+
+
+def _check_shardable(op: ReduceOp, what: str):
+    """The reference's op restriction of ZeRO-1 (:497-560, :353-370)."""
     if op not in (Average, Sum):
         raise ValueError(f"{what} supports op=Average|Sum only (Adasum "
                          "mixes whole updates, not shards)")
-    if compression is not Compression.none:
-        raise ValueError(
-            f"{what} does not compose with compression (Compression.none "
-            "only): cast compressors would change the packed buffers' "
-            "dtype-uniform layout, and the wire codecs (Compression.fp8/"
-            "int8) are not ported yet")
+
+
+def _shards_with(compression) -> bool:
+    """Whether ZeRO-1 composes with ``compression``: none, or a wire codec
+    (applied to the reduce-scatter legs)."""
+    return compression is Compression.none or \
+        _wire_codec(compression) is not None
 
 
 def _zero1_plan(optimizer: torch.optim.Optimizer, n: int, threshold: int):
@@ -195,6 +229,9 @@ class _Wrapper:
         self._step = 0
         # the ZeRO-1 state, made at the first sharded step
         self._zero: Optional[_Zero1] = None
+        # the engine's wire codec this wrapper's reductions run (None: the
+        # HOROVOD_TPU_COMPRESSION knob decides)
+        self._wire_codec = _wire_codec(compression)
 
     def __getattr__(self, name):
         # only reached for names this wrapper does not define
@@ -259,8 +296,12 @@ class DistributedOptimizer(_Wrapper):
     leaves the gradients alone meanwhile, so autograd sums the k passes into
     ``p.grad``; the k-th call reduces that sum and steps.
 
+    ``compression=Compression.fp8`` or ``.int8`` selects the engine's wire
+    codec for every reduction (op Average or Sum only); the cast
+    compressors cast the gradients around it.
+
     ``sharded=True`` selects ZeRO-1 (see the module's docstring; op Average
-    or Sum and no compression). ``sharded=None`` defers to
+    or Sum, compression none or a wire codec). ``sharded=None`` defers to
     ``HOROVOD_TPU_SHARD_OPTIMIZER`` (off by default), read at the first step,
     and stays replicated for an optimizer ZeRO-1 does not suit. Sharded,
     the wrapped optimizer (whose ``param_groups`` a scheduler may move)
@@ -274,8 +315,12 @@ class DistributedOptimizer(_Wrapper):
                  sharded: Optional[bool] = None):
         super().__init__(optimizer, compression, backward_passes_per_step)
         self.op = ReduceOp(op)
+        if self._wire_codec is not None and self.op not in (Average, Sum):
+            raise ValueError(WIRE_CODEC_OP_ERROR)
         if sharded:
-            _check_shardable(self.op, compression, "sharded=True")
+            _check_shardable(self.op, "sharded=True")
+            if not _shards_with(compression):
+                raise ValueError(SHARDED_CAST_ERROR)
         self._sharded = None if sharded is None else bool(sharded)
         # the frozen layout's plans, by world size and parameter shapes
         self._layout_cache: dict = {}
@@ -289,7 +334,7 @@ class DistributedOptimizer(_Wrapper):
                 return False
             self._sharded = bool(st.config.shard_optimizer
                                  and self.op in (Average, Sum)
-                                 and self.compression is Compression.none)
+                                 and _shards_with(self.compression))
         return self._sharded
 
     def _zero1(self) -> _Zero1:
@@ -348,7 +393,8 @@ class DistributedOptimizer(_Wrapper):
             else:
                 handles = eng.grouped_allreduce([c for c, _ in packed],
                                                 name=f"grad.s{step}",
-                                                op=self.op)
+                                                op=self.op,
+                                                codec=self._wire_codec)
         finally:
             eng.step_end()
         for p, (_, ctx), h in zip(params, packed, handles):
@@ -375,7 +421,8 @@ class DistributedOptimizer(_Wrapper):
         eng.step_begin()
         try:
             eng.sharded_step(grads, zero.buckets, zero.update,
-                             name=f"grad.zero.s{step}", op=self.op)
+                             name=f"grad.zero.s{step}", op=self.op,
+                             codec=self._wire_codec)
         finally:
             eng.step_end()
         return loss
@@ -395,6 +442,8 @@ class DistributedDeltaAdasumOptimizer(_Wrapper):
     def __init__(self, optimizer: torch.optim.Optimizer,
                  compression=Compression.none,
                  backward_passes_per_step: int = 1):
+        if _wire_codec(compression) is not None:
+            raise ValueError(DELTA_ADASUM_CODEC_ERROR)
         super().__init__(optimizer, compression, backward_passes_per_step)
 
     def step(self, closure=None):
@@ -449,14 +498,44 @@ def allreduce_gradients(grads, axis_name: str = "world", mesh=None,
     ``fusion_threshold_bytes`` (default 64 MB), one K1 pack and one
     ``all_reduce`` on the axis's group a bucket, Average's divide, then the
     decompressed results (views of the reduced buckets). No engine: no
-    names, join rounds or replay. op Adasum over an axis is not ported."""
-    from .core.engine import _dist_op, bucket_by_size
+    names, join rounds or replay. op Adasum over an axis is not ported.
+    A wire codec (``Compression.fp8``/``.int8``) runs once a gradient
+    whose dtype takes it, with no residual (:func:`distributed` carries
+    one); its other gradients take the plain reduction."""
     op = ReduceOp(op)
     if op == Adasum:
         raise ValueError("op=Adasum over a mesh axis is not ported yet "
                          "(ROADMAP A9): use DistributedOptimizer(op=Adasum) "
                          "over the world")
-    group, n, _, collective = _axis(axis_name, mesh)
+    return _axis_reduce(list(grads), axis_name, mesh, op, compression,
+                        fusion_threshold_bytes, None)
+
+
+def _axis_reduce(grads, axis_name, mesh, op, compression,
+                 fusion_threshold_bytes, residuals):
+    """:func:`allreduce_gradients`' reduction; with a wire codec, each
+    gradient it resolves for runs the compressed reduction, carrying
+    ``residuals[i]`` (the padded length, in place) when given."""
+    from .core.engine import _dist_op, bucket_by_size
+    group, n, rank, collective = _axis(axis_name, mesh)
+    wire = _wire_codec(compression)
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    plain = list(range(len(grads)))
+    if wire is not None:
+        if op not in (Average, Sum):
+            raise ValueError(WIRE_CODEC_OP_ERROR)
+        plain = []
+        for i, g in enumerate(grads):
+            codec = comp.resolve_codec(wire, g.dtype)
+            if codec == comp.CODEC_NONE:
+                plain.append(i)
+                continue
+            out[i] = C.ef_allreduce(
+                g, None if residuals is None else residuals[i], codec,
+                op == Average, group, n, rank, collective)
+        if not plain:
+            return out
+    grads = [grads[i] for i in plain]
     packed = [compression.compress(g) for g in grads]
     cs = [c.contiguous() for c, _ in packed]
     launches = []
@@ -466,14 +545,13 @@ def allreduce_gradients(grads, axis_name: str = "world", mesh=None,
         work = (dist.all_reduce(flat, op=_dist_op(op), group=group,
                                 async_op=True) if collective else None)
         launches.append((idxs, flat, work))
-    out: List[Optional[torch.Tensor]] = [None] * len(cs)
     for idxs, flat, work in launches:
         if work is not None:
             work.wait()
         C.finish_reduce(flat, n if op == Average else 1, 1.0)
         for i, v in zip(idxs, C.unpack_flat(flat, [tuple(cs[i].shape)
                                                   for i in idxs])):
-            out[i] = compression.decompress(v, packed[i][1])
+            out[plain[i]] = compression.decompress(v, packed[i][1])
     return out
 
 
@@ -481,7 +559,12 @@ class DistributedAxisOptimizer(_Wrapper):
     """What :func:`distributed` returns: ``step()`` reduces every ``p.grad``
     over the axis (:func:`allreduce_gradients`) and steps the wrapped
     optimizer; with ``shard_optimizer=True`` it is ZeRO-1 over the axis's
-    group (the module's docstring), issued straight to that group."""
+    group (the module's docstring), issued straight to that group. Under
+    an error-feedback wire codec ``residuals`` holds each parameter's
+    residual (zeros at the first reduction, ``shard_spec(numel, axis
+    size)[0]`` elements, a parameter the codec does not take None), which
+    each reduction carries forward in place (the reference's
+    ``DistributedState.residual``)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, axis_name: str,
                  mesh, op, compression, backward_passes_per_step: int,
@@ -489,8 +572,12 @@ class DistributedAxisOptimizer(_Wrapper):
                  fusion_threshold_bytes: Optional[int]):
         super().__init__(optimizer, compression, backward_passes_per_step)
         self.op = ReduceOp(op)
+        if self._wire_codec is not None and self.op not in (Average, Sum):
+            raise ValueError(WIRE_CODEC_OP_ERROR)
         if shard_optimizer:
-            _check_shardable(self.op, compression, "shard_optimizer=True")
+            _check_shardable(self.op, "shard_optimizer=True")
+            if compression is not Compression.none:
+                raise ValueError(AXIS_SHARDED_COMPRESSION_ERROR)
             if backward_passes_per_step != 1:
                 raise ValueError(
                     "shard_optimizer=True requires backward_passes_per_step"
@@ -504,9 +591,31 @@ class DistributedAxisOptimizer(_Wrapper):
         self.shard_optimizer = bool(shard_optimizer)
         self.fusion_threshold_bytes = int(fusion_threshold_bytes
                                           or DEFAULT_FUSION_THRESHOLD_BYTES)
+        self.residuals: Optional[List[Optional[torch.Tensor]]] = None
 
     def _is_sharded(self) -> bool:
         return self.shard_optimizer
+
+    def _residuals_of(self, params) -> Optional[list]:
+        """The error-feedback residuals of ``params`` (made at the first
+        reduction, for the parameters the codec takes), or None."""
+        if self._wire_codec not in comp.EF_CODECS:
+            return None
+        if self.residuals is None:
+            _, n, _, _ = _axis(self.axis_name, self.mesh)
+            self.residuals = [
+                None if comp.resolve_codec(self._wire_codec, p.dtype)
+                not in comp.EF_CODECS else
+                torch.zeros(C.shard_spec(p.numel(), n)[0], dtype=p.dtype,
+                            device=p.device)
+                for p in params]
+        if len(self.residuals) != len(params):
+            raise ValueError(
+                f"distributed(): {len(params)} parameters have gradients, "
+                f"{len(self.residuals)} carried a residual before; every "
+                "parameter needs a gradient at each step under an "
+                "error-feedback codec")
+        return self.residuals
 
     def _zero1(self) -> _Zero1:
         if self._zero is None:
@@ -520,9 +629,10 @@ class DistributedAxisOptimizer(_Wrapper):
             return None
         if not self.shard_optimizer:
             params = self._params_with_grads()
-            reduced = allreduce_gradients(
+            reduced = _axis_reduce(
                 [p.grad for p in params], self.axis_name, self.mesh,
-                self.op, self.compression, self.fusion_threshold_bytes)
+                self.op, self.compression, self.fusion_threshold_bytes,
+                self._residuals_of(params))
             for p, g in zip(params, reduced):
                 if g.dtype == p.grad.dtype:
                     p.grad = g
@@ -561,8 +671,11 @@ def distributed(optimizer: torch.optim.Optimizer, axis_name: str = "world",
     as :class:`DistributedOptimizer` does. ``shard_optimizer=True`` is ZeRO-1
     over the axis (op Average or Sum, no compression,
     ``backward_passes_per_step=1``, the reference's restrictions :353-370).
-    The packs are K1's, the collectives go straight to the axis's group:
-    no engine names, join rounds or step replay."""
+    ``compression=Compression.fp8`` or ``.int8`` reduces each gradient
+    with the wire codec and its error-feedback residual, carried in the
+    wrapper (``residuals``). The packs are K1's, the collectives go
+    straight to the axis's group: no engine names, join rounds or step
+    replay."""
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     return DistributedAxisOptimizer(optimizer, axis_name, mesh, op,

@@ -7,9 +7,10 @@ cards, SyncBatchNorm on K2/K3's raw sums (on one card against its CPU
 path; on 2 and 4 cards against the global batch on one card), alltoall
 and join on 2 and 4 cards, and step replay (``-k replay``: the CUDA graph
 against the eager path on one card; ``-k "cards and replay"`` on 2 and 4),
-and the ZeRO-1 sharded optimizer (``-k sharded``: K1's ``out=`` form and
+the ZeRO-1 sharded optimizer (``-k sharded``: K1's ``out=`` form and
 the sharded LM against the dense one on one card; ``-k "cards and
-sharded"`` on 2 and 4).
+sharded"`` on 2 and 4), and the wire codecs (``-k "cards and codec"``:
+the flagship LM through int8, fp8, bf16 and sharded int8 on 2 and 4).
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -60,7 +61,8 @@ from horovod_tpu_torch.ops import adasum as A, kernels as K
 from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
 from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
-from torch_worker import (ADASUM_CARD_STEPS, JOIN_TENSORS,
+from torch_worker import (ADASUM_CARD_STEPS, CODEC_CARD_RUNS,
+                          CODEC_CARD_STEPS, JOIN_TENSORS,
                           REPLAY_EXTRA, REPLAY_STEPS, RESNET_CARD_MODES,
                           SP_CARD_DIMS, SP_LRS, SP_STEPS,
                           SP_VARIANTS, SYNC_BN_CHANNELS, SYNC_BN_DTYPES,
@@ -2159,6 +2161,102 @@ def test_cuda_cards_sharded_on_nccl(built, tmp_path, n):
         # stream before the launch)
         assert sum("AllGather" in k for k in nccl) == len(buckets) + 1, nccl
 
+
+@pytest.fixture(scope="module")
+def codec_worlds(tmp_path_factory):
+    """torch_worker's codec_cards scenario on NCCL (the flagship LM,
+    AdamW, one sequence a card, the pack kernel on) on 2 and 4 cards,
+    each world run once for the tests below; n is skipped where the
+    machine has fewer cards."""
+    from horovod_tpu_torch.ops import build
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    build.library()
+    worlds = {}
+
+    def get(n):
+        if n > torch.cuda.device_count():
+            pytest.skip(f"needs {n} CUDA devices")
+        if n not in worlds:
+            worlds[n] = run_world(
+                "codec_cards", n, tmp_path_factory.mktemp(f"codec{n}"),
+                device="cuda", env={"HOROVOD_PALLAS_PACK": "1"},
+                timeout=900)
+        return worlds[n]
+
+    return get
+
+
+def _codec_rel(res, run) -> float:
+    """The largest relative difference of ``run``'s loss from the
+    uncompressed run's over the steps."""
+    return max(abs(a - b) / abs(b) for a, b in zip(res[0][run]["losses"],
+                                                  res[0]["none"]["losses"]))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_codec_on_nccl(codec_worlds, n):
+    """The wire codecs on NCCL: uncompressed,
+    DistributedOptimizer(compression=Compression.int8) with replay on and
+    off, fp8, the bf16 codec through HOROVOD_TPU_COMPRESSION and
+    sharded=True with int8, CODEC_CARD_STEPS steps each from the same
+    seed, replayed after the warm-up. Every card's parameters bitwise
+    alike; losses finite and falling; a replayed step one graph launch
+    holding K1 and the codec legs (the all-to-all's send/receive and the
+    all-gathers); the replayed int8 run bitwise the eager one. Prints each
+    run's losses and step time against the uncompressed run's (recorded,
+    not gated) before any check."""
+    res = codec_worlds(n)
+    warm = 3
+
+    def step_ms(run):
+        # the replayed steps' host ms, the slower rank's
+        return float(np.median([max(r[run]["step_ms"][i] for r in res)
+                                for i in range(warm, CODEC_CARD_STEPS)]))
+
+    faults = []
+    for run, codec, knob, sharded, replay in CODEC_CARD_RUNS:
+        got = res[0][run]
+        print(f"codec_cards n={n} {run}: losses "
+              f"{' '.join(f'{v:.4f}' for v in got['losses'])} (largest "
+              f"difference from none {_codec_rel(res, run):.2e}); step "
+              f"{step_ms(run):.2f} ms against none's {step_ms('none'):.2f} "
+              f"(steps 4-7, slower rank); residuals "
+              f"{got['residual_bytes'] / 2**30:.3f} GiB; selections "
+              f"{got['selections']}")
+        if len({r[run]["digest"] for r in res}) != 1:
+            faults.append((run, "the ranks' parameters differ"))
+        for r in res:
+            want = (1, CODEC_CARD_STEPS - warm, 0) if replay else (0, 0, 0)
+            if r[run]["replay"] != want:
+                faults.append((run, "replay", r[run]["replay"]))
+            ls = r[run]["losses"]
+            if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+                faults.append((run, "losses not finite and falling", ls))
+        if run == "none" or not replay:
+            continue
+        host, device = got["trace"]["host"], got["trace"]["device"]
+        nccl = sorted({k for k in device if "nccl" in k.lower()})
+        print(f"  {run}: the replayed step's graph NCCL {nccl}")
+        if (host.count("cudaGraphLaunch") != 1
+                or not any("pack_kernel" in k for k in device)
+                or not any("SendRecv" in k or "AllToAll" in k for k in nccl)
+                or sum("AllGather" in k for k in device) < 2):
+            faults.append((run, "the replayed step's trace", host, nccl))
+    # the codec legs in the graph compute what the eager path does
+    if (res[0]["int8_eager"]["losses"] != res[0]["int8"]["losses"]
+            or res[0]["int8_eager"]["digest"] != res[0]["int8"]["digest"]):
+        faults.append(("int8", "replayed not bitwise the eager run"))
+    assert not faults, faults
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_codec_losses_near_uncompressed(codec_worlds, n):
+    """Every compressed run's loss within 2% of the uncompressed run's at
+    every step (the same worlds as the test above)."""
+    res = codec_worlds(n)
+    far = {run: _codec_rel(res, run) for run, *_ in CODEC_CARD_RUNS}
+    assert all(v < 0.02 for v in far.values()), far
 
 def test_cuda_cards_resnet50_join_round_cost(built, tmp_path):
     """ResNet-50 at batch 64 a card on 2 cards through

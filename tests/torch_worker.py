@@ -1391,6 +1391,330 @@ def _sharded_cards_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+# the wire codecs' worlds (tests/test_torch_compression.py)
+CODEC_NAMES = ("int8", "fp8", "bf16")
+CODEC_OPS = ("SUM", "AVERAGE")
+CODEC_TOTALS = (7, 1001)        # buckets that divide neither 2 nor 4
+CODEC_STEPS = 5                 # steps a residual is carried across
+CODEC_OPT_STEPS = 5             # replay's warm-up (3) + 2 replayed steps
+CODEC_SGD_LR = 0.1
+CODEC_CLOSE_STEPS = 12          # the reference's int8-trains-close case
+CODEC_CLOSE_LR = 0.05
+CODEC_CLOSE_DIM = 16
+
+
+def codec_input(rank: int, step: int, total: int) -> np.ndarray:
+    """Rank ``rank``'s float32 bucket of ``total`` elements at ``step``."""
+    rng = np.random.RandomState(1000 * rank + 100 * step + total % 97)
+    return rng.randn(total).astype(np.float32)
+
+
+def codec_close_data(size: int) -> np.ndarray:
+    """(size, 16): each rank's row of the reference's 16-float problem."""
+    return np.random.RandomState(3).randn(size, CODEC_CLOSE_DIM).astype(
+        np.float32)
+
+
+def _codec_run(hvd, rows, steps, make_opt, residuals=None):
+    """``steps`` steps of the sharded scenario's MLP on ``rows`` through
+    ``make_opt(params)``: the parameters before the first step, then per
+    step this rank's gradients before the step and the parameters after it
+    (torch's layout, as numpy), and ``residuals(opt)`` after it."""
+    import torch
+    model = sharded_model(hvd.device())
+    params = list(model.parameters())
+    opt = make_opt(params)
+    x, y = (torch.from_numpy(a[rows]).to(hvd.device())
+            for a in sharded_data())
+
+    def numpy(ts):
+        return [t.detach().cpu().numpy().copy() for t in ts]
+
+    out = {"init": numpy(params), "grads": [], "traj": [], "residuals": []}
+    for _ in range(steps):
+        opt.zero_grad()
+        ((model(x) - y) ** 2).mean().backward()
+        out["grads"].append(numpy(p.grad for p in params))
+        opt.step()
+        out["traj"].append(numpy(params))
+        if residuals is not None:
+            out["residuals"].append(residuals(opt))
+    return out
+
+
+def engine_residuals(eng) -> dict:
+    """The engine's error-feedback residuals by key, as numpy."""
+    return {k: v["buf"].cpu().numpy().copy()
+            for k, v in eng._residuals.items()}
+
+
+def _codec_scenario(hvd, rank: int, size: int) -> dict:
+    """The wire codecs at ``size`` ranks: the flat compressed reduction
+    (``codec_allreduce``) of every codec, Sum and Average, buckets of 7
+    and 1001 elements, a residual carried over CODEC_STEPS steps; the
+    ZeRO-1 compressed reduce-scatter (``scatter_shards``); the engine's
+    codec rules (the op rule, a non-float bucket, the knob) and a joined
+    rank's substitute; DistributedOptimizer(compression=int8) with replay
+    on and off, sharded=True with int8, hvd.distributed(compression=int8)
+    on the MLP, and the reference's int8-trains-close problem."""
+    import collections
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import compression as comp
+    torch.set_num_threads(1)
+    eng = global_state().engine
+    cfg = global_state().config
+    rep = eng.replay
+    cpu = torch.device("cpu")
+    out = {"flat": {}, "rs": {}}
+    for codec in CODEC_NAMES:
+        ef = codec in comp.EF_CODECS
+        for op in CODEC_OPS:
+            avg = size if op == "AVERAGE" else 1
+            for total in CODEC_TOTALS:
+                padded = C.shard_spec(total, size)[0]
+                res = torch.zeros(padded) if ef else None
+                steps = []
+                for step in range(CODEC_STEPS):
+                    flat = C.padded_bucket(total, size, torch.float32, cpu)
+                    C.pack_padded([torch.from_numpy(
+                        codec_input(rank, step, total))], flat, True)
+                    p, sc = C.codec_allreduce(flat, total, res, codec, size,
+                                              rank, avg, 1.0, 1.0, None)
+                    steps.append({
+                        "out": flat[:total].numpy().copy(),
+                        "payload": p.view(torch.uint8).numpy().copy(),
+                        "scale": None if sc is None else sc.numpy().copy(),
+                        "residual": None if res is None
+                        else res.numpy().copy()})
+                out["flat"][(codec, op, total)] = steps
+                # the ZeRO-1 leg: one step of the compressed reduce-scatter
+                b = C.ShardBucket((0,), (total,), torch.float32, cpu, size,
+                                  rank)
+                r0 = torch.zeros(b.padded) if ef else None
+                C.scatter_shards([b], [torch.from_numpy(
+                    codec_input(rank, 0, total))], True, avg, 1.0, 1.0,
+                    None, True, (codec,), [r0])
+                out["rs"][(codec, op, total)] = {
+                    "shard": b.grad_shard.numpy().copy(),
+                    "residual": None if r0 is None else r0.numpy().copy()}
+    # the engine's rules
+    out["call_codec"] = {op.name: eng._call_codec("int8", op)
+                         for op in hvd.ReduceOp if op != hvd.Adasum}
+    before = collections.Counter(eng.codec_selections)
+    ints = torch.arange(6, dtype=torch.int32) * (rank + 1)
+    hs = eng.grouped_allreduce(
+        [ints, torch.from_numpy(codec_input(rank, 0, 33))],
+        name="codec.mixed", op=hvd.Sum, codec="int8")
+    out["mixed"] = [h.synchronize().numpy().copy() for h in hs]
+    out["mixed_selections"] = dict(eng.codec_selections - before)
+    cfg.compression = "int8"
+    out["knob"] = hvd.allreduce(
+        torch.from_numpy(codec_input(rank, 1, 1001)), name="codec.knob.7",
+        op=hvd.Sum).numpy().copy()
+    cfg.compression = "none"
+    out["knob_residuals"] = engine_residuals(eng)
+    out["plain"] = hvd.allreduce(
+        torch.from_numpy(codec_input(rank, 1, 1001)), name="codec.plain",
+        op=hvd.Sum).numpy().copy()
+    # rank 0 joins; the others' compressed grouped call meets its
+    # substitute, which runs the same compressed program
+    before = collections.Counter(eng.codec_selections)
+    values = None
+    if rank > 0:
+        hs = eng.grouped_allreduce(
+            [torch.from_numpy(codec_input(rank, 2, 1001)),
+             torch.from_numpy(codec_input(rank, 3, 7))],
+            name="codec.join", op=hvd.Sum, codec="int8")
+        values = [h.synchronize().numpy().copy() for h in hs]
+    last = hvd.join()
+    out["join"] = {"values": values, "last": last,
+                   "selections": dict(eng.codec_selections - before),
+                   "residuals_after": len(eng._residuals)}
+    # the optimizers on the MLP
+    cfg.fusion_threshold_bytes = SHARDED_THRESHOLD
+    rows = shard_rows(rank, size, SHARDED_ROWS)
+
+    def dense(**kw):
+        return lambda ps: hvd.DistributedOptimizer(
+            torch.optim.SGD(ps, lr=CODEC_SGD_LR), op=hvd.Average,
+            compression=hvd.Compression.int8, **kw)
+
+    def counters():
+        return (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+
+    runs = {}
+    for key, make, replay in (("dense_on", dense(), True),
+                              ("dense_off", dense(), False),
+                              ("sharded", dense(sharded=True), True)):
+        rep.invalidate_all("next run")
+        cfg.step_replay = replay
+        start = counters()
+        runs[key] = _codec_run(hvd, rows, CODEC_OPT_STEPS, make,
+                               lambda opt: engine_residuals(eng))
+        runs[key]["replay"] = tuple(a - b for a, b in zip(counters(), start))
+        if key == "dense_on":
+            out["held"] = _held_residuals_case(eng, cfg)
+    cfg.step_replay = True
+    rep.invalidate_all("next run")
+    runs["axis"] = _codec_run(
+        hvd, rows, CODEC_OPT_STEPS, lambda ps: hvd.distributed(
+            torch.optim.SGD(ps, lr=CODEC_SGD_LR),
+            compression=hvd.Compression.int8),
+        lambda opt: [r.numpy().copy() for r in opt.residuals])
+    out["runs"] = runs
+    # the reference's int8-trains-close problem (12 SGD steps at lr 0.05)
+    data = torch.from_numpy(codec_close_data(size)[rank])
+    close = {}
+    for key, wrap, compression in (
+            ("dense_none", "dense", hvd.Compression.none),
+            ("dense_int8", "dense", hvd.Compression.int8),
+            ("axis_none", "axis", hvd.Compression.none),
+            ("axis_int8", "axis", hvd.Compression.int8)):
+        rep.invalidate_all("next run")
+        w = torch.nn.Parameter(torch.ones(CODEC_CLOSE_DIM))
+        inner = torch.optim.SGD([w], lr=CODEC_CLOSE_LR)
+        opt = (hvd.DistributedOptimizer(inner, compression=compression)
+               if wrap == "dense" else
+               hvd.distributed(inner, compression=compression))
+        for _ in range(CODEC_CLOSE_STEPS):
+            opt.zero_grad()
+            ((w - data) ** 2).sum().backward()
+            opt.step()
+        res = (engine_residuals(eng) if wrap == "dense" else
+               {0: opt.residuals[0].numpy().copy()}
+               if opt.residuals else {})
+        close[key] = {"w": w.detach().numpy().copy(),
+                      "residual_max": max([float(np.abs(v).max())
+                                           for v in res.values()] or [0.0])}
+    out["close"] = close
+    return out
+
+
+def _held_residuals_case(eng, cfg) -> dict:
+    """With an armed program holding residuals: a new key past
+    ``cache_capacity`` evicts none of them, and an invalidation zeroes
+    them in place and keeps them."""
+    import torch
+    held = eng.replay.held_residuals()
+    bufs = {k: eng._residuals[k]["buf"] for k in held}
+    nonzero = all(bool(b.abs().max() > 0) for b in bufs.values())
+    cap = cfg.cache_capacity
+    cfg.cache_capacity = 1
+    try:
+        extra = ("gar", "extra", 0, "int8", 8, "torch.float32")
+        eng._residual_fetch(extra, 8, torch.float32)
+        kept = all(eng._residuals[k]["buf"] is b for k, b in bufs.items())
+        n_after_store = len(eng._residuals)
+    finally:
+        cfg.cache_capacity = cap
+    eng.invalidate_residuals("test")
+    return {"held": sorted(held), "nonzero": nonzero, "kept": kept,
+            "entries_after_store": n_after_store,
+            "zeroed_in_place": all(
+                eng._residuals[k]["buf"] is b and not bool(b.any())
+                for k, b in bufs.items()),
+            "extra_dropped": extra not in eng._residuals}
+
+
+CODEC_CARD_STEPS = 7            # replay's warm-up (3) + 4 replayed steps
+# (run, compression, HOROVOD_TPU_COMPRESSION, sharded, step replay)
+CODEC_CARD_RUNS = (("none", "none", "none", False, True),
+                   ("int8", "int8", "none", False, True),
+                   ("int8_eager", "int8", "none", False, False),
+                   ("fp8", "fp8", "none", False, True),
+                   ("bf16", "none", "bf16", False, True),
+                   ("int8_sharded", "int8", "none", True, True))
+
+
+def _codec_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The bf16 LM with fp32 parameters (the flagship on the card, a tiny
+    one on the CPU rehearsal), one sequence a rank, CODEC_CARD_STEPS AdamW
+    steps each of CODEC_CARD_RUNS from the same seed, at the default 64 MB
+    fusion threshold: uncompressed, DistributedOptimizer(compression=
+    Compression.int8) with step replay on and off, then fp8, then the bf16
+    codec through HOROVOD_TPU_COMPRESSION, then sharded=True with int8.
+    Returns per run
+    the losses, the host ms of each step (ending in the loss's read), a
+    digest of the parameters (ranks must agree bitwise), the replay
+    counters and codec selections, and on the card a trace of one replayed
+    step."""
+    import collections
+    import hashlib
+    import torch
+    from horovod_tpu_torch.common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lean_lm_loss)
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    cfg = global_state().config
+    cfg.fusion_threshold_bytes = DEFAULT_FUSION_THRESHOLD_BYTES
+    eng = global_state().engine
+    rep = eng.replay
+    dims = ADASUM_CARD_DIMS if dev.type == "cuda" else ADASUM_CPU_DIMS
+    lm = TransformerConfig(dtype=torch.bfloat16, attention="flash", **dims)
+    tokens = np.random.RandomState(16).randint(
+        0, lm.vocab_size, size=(size, lm.max_seq + 1))
+    x = torch.from_numpy(tokens[rank:rank + 1, :-1]).to(dev)
+    y = torch.from_numpy(tokens[rank:rank + 1, 1:]).to(dev)
+    out = {}
+    for run, codec, knob, sharded, replay in CODEC_CARD_RUNS:
+        cfg.compression = knob
+        cfg.step_replay = replay
+        model = Transformer(lm, generator=torch.Generator().manual_seed(0))
+        model.to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            op=hvd.Average, sharded=sharded,
+            compression=getattr(hvd.Compression, codec))
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+        selections = collections.Counter(eng.codec_selections)
+
+        def step():
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        res = {"losses": [], "step_ms": []}
+        for _ in range(CODEC_CARD_STEPS):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res["losses"].append(step())
+            res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        res["replay"] = tuple(a - b for a, b in zip(
+            (rep.captured_streams, rep.replayed_steps, rep.fallbacks),
+            before))
+        res["selections"] = dict(eng.codec_selections - selections)
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        res["digest"] = digest.hexdigest()
+        res["residual_bytes"] = sum(v["buf"].nbytes
+                                    for v in eng._residuals.values())
+        if dev.type == "cuda" and run != "none" and replay:
+            # a replayed step on the last gradients (it moves the
+            # parameters, so it comes after the digest)
+            host, device = trace_events(
+                opt.step, lambda h, d: any("pack_kernel" in k for k in d))
+            res["trace"] = {"host": host, "device": device}
+        out[run] = res
+        cfg.compression = "none"
+        cfg.step_replay = True
+        rep.invalidate_all("next run")
+        del model, opt
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -1400,7 +1724,8 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "collectives": _collectives_scenario, "join": _join_scenario,
              "resnet_cards": _resnet_cards_scenario,
              "replay": _replay_scenario, "sharded": _sharded_scenario,
-             "sharded_cards": _sharded_cards_scenario}
+             "sharded_cards": _sharded_cards_scenario,
+             "codec": _codec_scenario, "codec_cards": _codec_cards_scenario}
 
 
 def main(argv):
