@@ -164,6 +164,22 @@ and then:
     the whole LM and a 64 MB bucket beside their bytes bound, the device
     operations a bucket's reduction launches, the host ms of the
     reduction eager against replayed, and the peak memory.
+18. The collective algorithms on the NCCL world of one: ResNet-50's 161
+    gradients through the engine's grouped allreduce under each of
+    HOROVOD_TPU_COLLECTIVE_ALGO=auto, flat, tree and hierarchical (every
+    bucket resolves to flat, a forced form warns once, results, K1
+    launches and collectives bitwise and count for count the unforced
+    run's); then the flagship LM's fp32 gradients in 64 MB buckets
+    through the tree's pair rounds and the ladder's four legs of
+    ``ops/collectives.py`` directly, the world group as the local group
+    and a second group of rank 0 as the cross group (two communicators),
+    and a (4096, 2048) bf16 block through the two-phase alltoall: each
+    eagerly 3 times (bitwise the flat reduction and the flat alltoall),
+    then captured as one CUDA graph and replayed 4 times (bitwise the
+    eager path); a capture on a communicator never initialised must
+    raise. It prints each form's device ms for the LM (eager and
+    replayed) beside the flat reduction's, the launches of one bucket's
+    reduction (K1 and the NCCL legs) and the peak memory.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -173,13 +189,13 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13, 14, 15, 16 and 17) and read just after it;
+each form of 11, 12, 13, 14, 15, 16, 17 and 18) and read just after it;
 every kernel of the path must have launched there (53 BN layers per ResNet step for each
 BN kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
 K1 in padded mode once a bucket for the move and each eager step of phase
 16 and as a graph node once a bucket each replayed step, K1 in padded
 mode once a bucket each eager step of phase 17 and as a graph node once a
-bucket each replay,
+bucket each replay, the same in phase 18 for each of its three forms,
 one pack per 64 MB bucket, one of each K6 kernel per attention layer and
 step, 3 of each K7 kernel per zig-zag ring call and 1 per contiguous one,
 one K4 and one K5 per pair, level and tensor: 136 each for the flat form,
@@ -381,6 +397,12 @@ CODEC_REPS = 10                # timed encodes and decode-sums
 CODEC_ENCODE_BYTES = {"int8": 4 + 4 + 1 + 4, "fp8": 4 + 4 + 1 + 4,
                       "bf16": 4 + 2}
 CODEC_DECODE_BYTES = {"int8": 1 + 4, "fp8": 1 + 4, "bf16": 2 + 4}
+# phase 18: the collective algorithms at world size 1
+ALGO_FORMS = ("auto", "flat", "tree", "hierarchical")   # the knob's values
+ALGO_EAGER = 3                 # eager reductions of each form
+ALGO_REPLAYED = 4              # replays of each captured form
+ALGO_REPS = 10                 # timed reductions of each form
+ALGO_A2A_SHAPE = (4096, 2048)  # the alltoall's bf16 block
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -2882,28 +2904,34 @@ def _codec_replay(torch, K, graph, tables, buckets, grads):
     K.pack.graph_launches += len(tables)
 
 
-def _capture_refuses_host_sync(torch, comp, dev) -> str:
-    """A capture of the int8 encode with a host read of its scale in it
-    must raise (a program that cannot be captured fails the run; nothing
-    falls back to an eager path). Returns the error."""
-    x = torch.randn(1 << 20, device=dev)
+def _capture_raises(torch, dev, fn, what: str) -> str:
+    """A capture of ``fn()`` must raise (a program that cannot be captured
+    fails the run; nothing falls back to an eager path), and the card must
+    go on working after it. Returns the error."""
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.stream(torch.cuda.Stream(dev)):
             graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
                                 capture_error_mode="thread_local")
             try:
-                _, scale = comp.ef_encode_(x, torch.zeros_like(x), "int8")
-                scale.item()
+                fn()
             finally:
                 graph.capture_end()
     except RuntimeError as e:
         torch.cuda.synchronize()
-        # the card goes on working after the refused capture
         check(float(torch.ones(4, device=dev).sum()) == 4.0,
               "the card failed after a refused capture")
         return f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
-    raise SmokeFailure("a capture with a host sync in it did not raise")
+    raise SmokeFailure(f"a capture {what} did not raise")
+
+
+def _capture_refuses_host_sync(torch, comp, dev) -> str:
+    """A capture of the int8 encode with a host read of its scale in it."""
+    x = torch.randn(1 << 20, device=dev)
+    return _capture_raises(
+        torch, dev, lambda: comp.ef_encode_(x, torch.zeros_like(x),
+                                            "int8")[1].item(),
+        "with a host sync in it")
 
 
 def _bitwise(torch, a, b) -> bool:
@@ -3104,6 +3132,304 @@ def run_codec_path(torch, hvd, K, tm, bucket_by_size, dev, log):
         f"{counts['pack_out']} launches in padded mode, "
         f"{counts['pack_graph']} as graph nodes; peak memory "
         f"{summary['peak_gib']:.2f} GiB")
+    return summary, counts
+
+
+def _algo_legs(C, form, cross):
+    """One bucket's collectives under ``form`` on the world of one, the
+    world group as the local group and ``cross`` (a second group of rank
+    0) as the cross group: flat one ``all_reduce``, tree a pair round on
+    each group, the ladder's four legs."""
+    import torch.distributed as dist
+    if form == "flat":
+        return lambda flat: dist.all_reduce(flat)
+    if form == "tree":
+        return lambda flat: C.tree_allreduce(flat, [None, cross])
+    return lambda flat: C.hier_allreduce(flat, None, cross, 1, 1)
+
+
+def _algo_eager(torch, C, buckets, grads, legs, dev):
+    """Every bucket packed by K1 into a padded buffer (``out=``) and
+    reduced by ``legs``; returns the reduced buffers."""
+    outs = []
+    for idxs in buckets:
+        ts = [grads[i] for i in idxs]
+        flat = C.padded_bucket(sum(t.numel() for t in ts), 1, ts[0].dtype,
+                               dev)
+        C.pack_padded(ts, flat, True)
+        legs(flat)
+        outs.append(flat)
+    return outs
+
+
+def _algo_graph(torch, C, K, buckets, grads, legs, dev):
+    """The same as one CUDA graph captured on a side stream into a private
+    pool, as step replay captures it: per bucket K1 from a PackTable into
+    a padded buffer, then the legs. Returns (graph, tables, buffers)."""
+    tables = [K.PackTable([grads[i].numel() for i in idxs], grads[0].dtype,
+                          dev) for idxs in buckets]
+    flats = []
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                            capture_error_mode="thread_local")
+        try:
+            for table in tables:
+                flat = C.padded_bucket(table.numel, 1, grads[0].dtype, dev)
+                table.capture(flat[:table.numel])
+                legs(flat)
+                flats.append(flat)
+        finally:
+            graph.capture_end()
+    return graph, tables, flats
+
+
+def _cold_capture_refused(torch, dev) -> str:
+    """A capture holding a collective on a group whose NCCL communicator was
+    never created (it cannot be created inside a capture)."""
+    import torch.distributed as dist
+    cold = dist.new_group([0])
+    x = torch.ones(1024, device=dev)
+    return _capture_raises(torch, dev,
+                           lambda: dist.all_reduce(x, group=cold),
+                           "on a communicator never initialised")
+
+
+def run_algo_path(torch, hvd, K, tm, ResNet50, bucket_by_size, dev, log):
+    """Phase 18: the collective algorithms on the NCCL world of one. First
+    ResNet-50's 161 gradients through the engine's ``grouped_allreduce``
+    (Average, postscale 0.5) under each value of
+    HOROVOD_TPU_COLLECTIVE_ALGO (``engine.config.collective_algo``, read
+    per call): every bucket resolves to flat, a forced tree or
+    hierarchical form warns once, and every form's results, K1 launches
+    and collectives are bitwise and count for count the unforced run's.
+    Then the flagship LM's fp32 gradients in 64 MB buckets through the
+    reducers of ``ops/collectives.py`` directly, the world group as the
+    local group and a second group of rank 0 as the cross group (two NCCL
+    communicators): flat, the tree's pair rounds and the ladder's four
+    legs, each ALGO_EAGER times eagerly (K1 in padded mode, bitwise the
+    flat reduction's), captured as one CUDA graph and replayed
+    ALGO_REPLAYED times on new gradients (bitwise the eager path's); the
+    two-phase alltoall of a (4096, 2048) bf16 block the same way against
+    the flat ``all_to_all_single``; a capture on a communicator never
+    initialised refused. Prints each form's device ms for the whole LM
+    (eager and replayed) against the flat reduction's, the launches of
+    one bucket's reduction (K1 and the NCCL legs) and the peak memory.
+    Returns (summary, launch counts)."""
+    import collections
+    import logging
+    import torch.distributed as dist
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.ops import collectives as C
+    eng = engine()
+    cfg = eng.config
+    check(hvd.size() == 1 and cfg.pack_kernel,
+          "phase 18 needs a size-1 world with the pack kernel on")
+    torch.cuda.reset_peak_memory_stats(dev)
+    warned = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "using flat" in record.getMessage():
+                warned.append(record.getMessage())
+
+    catch = Catch()
+    logging.getLogger("horovod_tpu_torch").addHandler(catch)
+    K.reset_launch_counts()
+    summary = {"resnet": {}, "lm": {}, "alltoall": {}}
+    # the engine at size 1 under every value of the knob
+    gen = torch.Generator(device=dev).manual_seed(18)
+    params = ResNet50(num_classes=1000, dtype=torch.bfloat16, fused_bn=True,
+                      generator=torch.Generator().manual_seed(0)).parameters()
+    grads = [torch.randn(p.shape, dtype=p.dtype, device=dev, generator=gen)
+             for p in params]
+    n_buckets = len(bucket_by_size(grads, cfg.fusion_threshold_bytes))
+    base = None
+    try:
+        for form in ALGO_FORMS:
+            cfg.collective_algo = form
+            sel = collections.Counter(eng.algo_selections)
+            packs, d0, w0 = K.launch_counts()["pack"], eng.dispatch_count, \
+                len(warned)
+            outs = [h.synchronize() for h in eng.grouped_allreduce(
+                grads, name="algo.resnet", op=hvd.Average,
+                postscale_factor=0.5)]
+            torch.cuda.synchronize()
+            row = {"selections": {f"{k}/{a}": v for (k, a), v in
+                                  (eng.algo_selections - sel).items()},
+                   "k1": K.launch_counts()["pack"] - packs,
+                   "collectives": eng.dispatch_count - d0,
+                   "warnings": warned[w0:]}
+            check(row["selections"] == {"allreduce/flat": n_buckets},
+                  f"phase 18 {form}: buckets resolved {row['selections']}")
+            check(len(row["warnings"]) == (form in ("tree", "hierarchical")),
+                  f"phase 18 {form}: warnings {row['warnings']}")
+            if base is None:
+                base = (outs, row["k1"], row["collectives"])
+            else:
+                check(all(torch.equal(a, b) for a, b in zip(outs, base[0])),
+                      f"phase 18 {form}: results not bitwise the unforced "
+                      "run's")
+                check((row["k1"], row["collectives"]) == base[1:],
+                      f"phase 18 {form}: {row['k1']} K1 launches and "
+                      f"{row['collectives']} collectives against "
+                      f"{base[1:]}")
+            summary["resnet"][form] = row
+            log(f"  ResNet-50, {form}: {n_buckets} buckets "
+                f"{row['selections']}, K1 {row['k1']}, collectives "
+                f"{row['collectives']}, warnings {len(row['warnings'])}")
+    finally:
+        cfg.collective_algo = "auto"
+        logging.getLogger("horovod_tpu_torch").removeHandler(catch)
+    del grads, base, outs
+    # the reducers directly on the flagship LM's gradients
+    lm = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                              **LM_DIMS)
+    shapes = [tuple(p.shape) for p in tm.Transformer(
+        lm, generator=torch.Generator().manual_seed(0)).parameters()]
+    grads = [torch.empty(s, device=dev) for s in shapes]
+    buckets = bucket_by_size(grads, 64 * 1024 * 1024)
+    lm_gen = torch.Generator(device=dev)
+
+    def fill(step):
+        lm_gen.manual_seed(1800 + step)
+        for g in grads:
+            g.normal_(generator=lm_gen).mul_(1e-3)
+
+    cross = dist.new_group([0])
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    want = {}
+    for form in ("flat", "tree", "ladder"):
+        legs = _algo_legs(C, form, cross)
+        for step in range(ALGO_EAGER):
+            fill(step)
+            got = _algo_eager(torch, C, buckets, grads, legs, dev)
+            if form == "flat":
+                want[step] = got
+            else:
+                check(all(torch.equal(a, b) for a, b in zip(got,
+                                                            want[step])),
+                      f"phase 18 {form} step {step}: not bitwise the flat "
+                      "reduction's")
+            del got
+        graph, tables, flats = _algo_graph(torch, C, K, buckets, grads, legs,
+                                           dev)
+        for step in range(ALGO_EAGER, ALGO_EAGER + ALGO_REPLAYED):
+            fill(step)
+            eager = _algo_eager(torch, C, buckets, grads, legs, dev)
+            for table, idxs in zip(tables, buckets):
+                table.refresh([grads[i] for i in idxs])
+            graph.replay()
+            K.pack.graph_launches += len(tables)
+            check(all(torch.equal(a, b) for a, b in zip(flats, eager)),
+                  f"phase 18 {form} replay {step}: not bitwise the eager "
+                  "path's")
+            del eager
+
+        def replayed():
+            for table, idxs in zip(tables, buckets):
+                table.refresh([grads[i] for i in idxs])
+            graph.replay()
+            K.pack.graph_launches += len(tables)
+
+        ms, host_ms = time_ms(torch, lambda: _algo_eager(
+            torch, C, buckets, grads, legs, dev), flush, ALGO_REPS)
+        graph_ms, graph_host_ms = time_ms(torch, replayed, flush, ALGO_REPS)
+        one = [buckets[0]]
+        calls, ops = _traced_reduction(
+            torch, lambda: _algo_eager(torch, C, one, grads, legs, dev),
+            lambda h, d: any("pack_kernel" in n for n, _ in d))
+        launches = sum(v for k, v in calls.items()
+                       if k in KERNEL_LAUNCH_CALLS)
+        summary["lm"][form] = {
+            "ms": ms, "host_ms": host_ms, "graph_ms": graph_ms,
+            "graph_host_ms": graph_host_ms,
+            "bucket_launches": launches,
+            "bucket_device_ops": sorted(n for n, _ in ops),
+            "bucket_runtime_calls": {k: v for k, v in calls.items()
+                                     if "Launch" in k or "Memcpy" in k
+                                     or "Memset" in k}}
+        log(f"  LM, {form}: {len(buckets)} buckets, {ALGO_EAGER} eager "
+            f"reductions bitwise the flat one's, {ALGO_REPLAYED} replays "
+            f"bitwise the eager path; device ms {ms:.3f} eager, "
+            f"{graph_ms:.3f} replayed; a bucket: {launches} kernel "
+            f"launches, device operations {summary['lm'][form]['bucket_device_ops']}")
+        del graph, tables, flats
+        torch.cuda.empty_cache()
+    del want, flush
+    # the graphs' device time: the eager reductions' is the host's time to
+    # launch them
+    for form in ("tree", "ladder"):
+        summary["lm"][form]["vs_flat"] = (summary["lm"][form]["graph_ms"]
+                                          / summary["lm"]["flat"]["graph_ms"])
+    # the two-phase alltoall against the flat one
+    x = torch.empty(ALGO_A2A_SHAPE, dtype=torch.bfloat16, device=dev)
+    a2a_gen = torch.Generator(device=dev)
+
+    def fill_x(step):
+        a2a_gen.manual_seed(1850 + step)
+        x.normal_(generator=a2a_gen)
+
+    def flat_a2a():
+        out = torch.empty_like(x)
+        C.all_to_all(out, x, [x.shape[0]], [x.shape[0]], None)
+        return out
+
+    def two_phase():
+        return C.hier_alltoall(x, None, cross, 1, 1)
+
+    for step in range(ALGO_EAGER):
+        fill_x(step)
+        check(torch.equal(two_phase(), flat_a2a()),
+              f"phase 18 alltoall step {step}: not bitwise the flat one's")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
+                            capture_error_mode="thread_local")
+        try:
+            captured = two_phase()
+        finally:
+            graph.capture_end()
+    for step in range(ALGO_EAGER, ALGO_EAGER + ALGO_REPLAYED):
+        fill_x(step)
+        graph.replay()
+        check(torch.equal(captured, two_phase())
+              and torch.equal(captured, flat_a2a()),
+              f"phase 18 alltoall replay {step}: not bitwise the eager path")
+    a2a_flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8,
+                            device=dev)
+    for name, fn in (("flat", flat_a2a), ("two_phase", two_phase),
+                     ("two_phase_graph", graph.replay)):
+        ms, host_ms = time_ms(torch, fn, a2a_flush, ALGO_REPS)
+        summary["alltoall"][name] = {"ms": ms, "host_ms": host_ms}
+    del graph, captured, a2a_flush, x
+    log(f"  alltoall {ALGO_A2A_SHAPE} bf16: {ALGO_EAGER} eager and "
+        f"{ALGO_REPLAYED} replayed two-phase exchanges bitwise the flat "
+        f"one; device ms flat {summary['alltoall']['flat']['ms']:.4f}, "
+        f"two-phase {summary['alltoall']['two_phase']['ms']:.4f}, "
+        f"replayed {summary['alltoall']['two_phase_graph']['ms']:.4f}")
+    summary["cold_capture_refused"] = _cold_capture_refused(torch, dev)
+    log(f"  a capture on a communicator never initialised raised: "
+        f"{summary['cold_capture_refused']}")
+    counts = K.launch_counts()
+    n_b = len(buckets)
+    check(counts["pack_out"] >= 3 * n_b * (ALGO_EAGER + ALGO_REPLAYED),
+          f"K1 ran {counts['pack_out']} times in padded mode in phase 18")
+    check(counts["pack_graph"] >= 3 * n_b * ALGO_REPLAYED,
+          f"K1 ran {counts['pack_graph']} times as a graph node in phase 18")
+    summary["buckets"] = n_b
+    summary["params"] = sum(g.numel() for g in grads)
+    summary["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    summary["k1_launches"] = counts["pack"]
+    summary["k1_padded_launches"] = counts["pack_out"]
+    summary["k1_graph_launches"] = counts["pack_graph"]
+    log(f"  {summary['params'] / 1e6:.1f} M gradients in {n_b} buckets; "
+        f"tree/flat {summary['lm']['tree']['vs_flat']:.3f}, ladder/flat "
+        f"{summary['lm']['ladder']['vs_flat']:.3f} of the graph's device "
+        f"time; K1 {counts['pack']} launches ({counts['pack_out']} in "
+        f"padded mode, {counts['pack_graph']} as graph nodes); peak "
+        f"memory {summary['peak_gib']:.2f} GiB")
+    del grads
     return summary, counts
 
 
@@ -3470,6 +3796,14 @@ def main(argv=None) -> int:
         codec, codec_counts = run_codec_path(torch, hvd, K, tm,
                                              bucket_by_size, dev, log)
         torch.cuda.empty_cache()
+
+        log("phase 18: the collective algorithms on the NCCL world of one: "
+            "ResNet-50's gradients through the engine under each "
+            "HOROVOD_TPU_COLLECTIVE_ALGO, the flagship LM's through the "
+            "tree and the ladder, the two-phase alltoall")
+        algo, algo_counts = run_algo_path(torch, hvd, K, tm, ResNet50,
+                                          bucket_by_size, dev, log)
+        torch.cuda.empty_cache()
     finally:
         hvd.shutdown()
 
@@ -3575,7 +3909,9 @@ def main(argv=None) -> int:
              sharded_launches=sharded_counts["pack"],
              sharded_graph_launches=sharded_counts["pack_graph"],
              codec_launches=codec_counts["pack"],
-             codec_graph_launches=codec_counts["pack_graph"]),
+             codec_graph_launches=codec_counts["pack_graph"],
+             algo_launches=algo_counts["pack"],
+             algo_graph_launches=algo_counts["pack_graph"]),
         # K1 into a ZeRO-1 bucket's padded buffer (out=): phase 16's
         # launches, phase 1's numbers
         dict(name="pack_out", route="cuda", source=f"{src}/pack.cu",
@@ -3588,10 +3924,12 @@ def main(argv=None) -> int:
              bound_ms=pack_out_row["bound_ms"], bound_by="bytes",
              library_ms=pack_out_row["library_ms"], ok=True,
              codec_launches=codec_counts["pack_out"],
+             algo_launches=algo_counts["pack_out"],
              work=f"ResNet-50 fp32 gradients, 2 buckets at 64 MB, each with "
                   f"{PACK_OUT_TAIL} fp32 after it, into buffers padded for "
                   f"{PACK_OUT_RANKS} ranks; launches: phase 16 "
-                  f"(codec_launches: phase 17)"),
+                  f"(codec_launches: phase 17; algo_launches: phase 18, "
+                  f"the tree's and the ladder's buckets)"),
         dict(name="bn_stats", route="cuda", source=f"{src}/bn_stats.cu",
              replaces="horovod_tpu/ops/pallas_kernels.py:223",
              launches=counts["bn_stats"], bound_by="bytes",
@@ -3661,7 +3999,8 @@ def main(argv=None) -> int:
                       "ring": ring, "adasum": adasum, "vit_tiny": tiny,
                       "wide_attention": wide, "sync_bn": sync_bn,
                       "replay": replay, "sharded": sharded,
-                      "codec": codec, "resnet_profile": resnet_profile}))
+                      "codec": codec, "algo": algo,
+                      "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

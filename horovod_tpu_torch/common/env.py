@@ -24,6 +24,7 @@ HOROVOD_TPU_PROCESS_ID = "HOROVOD_TPU_PROCESS_ID"
 HOROVOD_TPU_SHUTDOWN_TIMEOUT = "HOROVOD_TPU_SHUTDOWN_TIMEOUT"
 HOROVOD_PALLAS_PACK = "HOROVOD_PALLAS_PACK"
 HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
+HOROVOD_HIERARCHICAL_ALLGATHER = "HOROVOD_HIERARCHICAL_ALLGATHER"
 HOROVOD_JOIN_DISABLE = "HOROVOD_JOIN_DISABLE"
 HOROVOD_JOIN_META_SLOTS = "HOROVOD_JOIN_META_SLOTS"
 # step-capture replay (core/replay.py): record the collective stream between
@@ -43,11 +44,36 @@ HOROVOD_TPU_WORLD_VERSION = "HOROVOD_TPU_WORLD_VERSION"
 HOROVOD_TPU_COMPRESSION = "HOROVOD_TPU_COMPRESSION"
 # bounds the engine's table of error-feedback residuals
 HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
+# the collective algorithm of every reduction and gather bucket (the
+# reference's common/env.py:160-167): "auto" picks per (bytes, topology),
+# the recursive-doubling tree for small buckets on power-of-two worlds of
+# four or more ranks, the two-level (local, cross) ladder where the
+# topology factorizes, the flat ring otherwise; "flat", "tree" and
+# "hierarchical" force one form (a form the world cannot express demotes
+# to flat with one warning)
+HOROVOD_TPU_COLLECTIVE_ALGO = "HOROVOD_TPU_COLLECTIVE_ALGO"
+# alltoall's own choice ("auto", "flat" or "hierarchical": the two-phase
+# exchange, local then cross), its wire codec (the cross phase of a
+# hierarchical alltoall only, no residual) and its flat/hierarchical
+# crossover in bytes (0: hierarchical wherever the topology factorizes)
+HOROVOD_TPU_ALLTOALL_ALGO = "HOROVOD_TPU_ALLTOALL_ALGO"
+HOROVOD_TPU_ALLTOALL_CODEC = "HOROVOD_TPU_ALLTOALL_CODEC"
+HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES = \
+    "HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES"
+# ranks on one fast-fabric island (an NVLink box): overrides the
+# launcher's HOROVOD_LOCAL_SIZE and the ranks' host names
+# (parallel/mesh.py detect_topology)
+HOROVOD_TPU_LOCAL_SIZE = "HOROVOD_TPU_LOCAL_SIZE"
+# "auto" takes the tree for a reduction bucket of at most this many bytes
+HOROVOD_TPU_TREE_THRESHOLD_BYTES = "HOROVOD_TPU_TREE_THRESHOLD_BYTES"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_JOIN_META_SLOTS = 16
 DEFAULT_CACHE_CAPACITY = 1024
 COMPRESSION_MODES = ("none", "bf16", "fp8", "int8")
+DEFAULT_TREE_THRESHOLD_BYTES = 256 * 1024
+COLLECTIVE_ALGO_MODES = ("auto", "flat", "tree", "hierarchical")
+ALLTOALL_ALGO_MODES = ("auto", "flat", "hierarchical")
 
 
 def _get_bool(name: str, default: bool = False) -> bool:
@@ -90,11 +116,12 @@ class Config:
     # HOROVOD_PALLAS_PACK keeps the JAX package's name so launch scripts run
     # unchanged; in the port it selects the hand-written CUDA pack kernel
     pack_kernel: bool = False
-    # HOROVOD_HIERARCHICAL_ALLREDUCE: the two-level (local, cross) form where
-    # the agreed topology has one. So far it selects hierarchical Adasum
-    # only; hierarchical Sum/Average is not ported (ROADMAP A11), and such
-    # an allreduce warns once that it runs flat (core/engine.py)
+    # HOROVOD_HIERARCHICAL_ALLREDUCE / _ALLGATHER: a forced preference for
+    # the two-level (local, cross) form of their kind where the agreed
+    # topology has one (core/engine.py _choose_algo); the first also
+    # selects hierarchical Adasum
     hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
     # the join protocol's per-collective round (off with
     # HOROVOD_JOIN_DISABLE=1: join() is then a barrier)
     join_enabled: bool = True
@@ -112,6 +139,17 @@ class Config:
     compression: str = "none"
     # the most error-feedback residual buffers the engine keeps
     cache_capacity: int = DEFAULT_CACHE_CAPACITY
+    # algorithm selection (ops/collectives.py choose_algorithm), read per
+    # call; a move rebuilds an armed replay program
+    collective_algo: str = "auto"
+    tree_threshold_bytes: int = DEFAULT_TREE_THRESHOLD_BYTES
+    # the flat/hierarchical crossover: 0 (hierarchical wherever it can be
+    # expressed) until a calibration probe derives one (ROADMAP A15); not
+    # a knob, as in the reference
+    hier_threshold_bytes: int = 0
+    alltoall_algo: str = "auto"
+    alltoall_codec: str = "none"
+    alltoall_hier_threshold_bytes: int = 0
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -120,6 +158,7 @@ class Config:
                                             DEFAULT_FUSION_THRESHOLD_BYTES),
             pack_kernel=_get_bool(HOROVOD_PALLAS_PACK),
             hierarchical_allreduce=_get_bool(HOROVOD_HIERARCHICAL_ALLREDUCE),
+            hierarchical_allgather=_get_bool(HOROVOD_HIERARCHICAL_ALLGATHER),
             join_enabled=not _get_bool(HOROVOD_JOIN_DISABLE),
             join_meta_slots=_get_int(HOROVOD_JOIN_META_SLOTS,
                                      DEFAULT_JOIN_META_SLOTS),
@@ -130,4 +169,14 @@ class Config:
                                     COMPRESSION_MODES),
             cache_capacity=_get_int(HOROVOD_CACHE_CAPACITY,
                                     DEFAULT_CACHE_CAPACITY),
+            collective_algo=_get_choice(HOROVOD_TPU_COLLECTIVE_ALGO, "auto",
+                                        COLLECTIVE_ALGO_MODES),
+            tree_threshold_bytes=_get_int(HOROVOD_TPU_TREE_THRESHOLD_BYTES,
+                                          DEFAULT_TREE_THRESHOLD_BYTES),
+            alltoall_algo=_get_choice(HOROVOD_TPU_ALLTOALL_ALGO, "auto",
+                                      ALLTOALL_ALGO_MODES),
+            alltoall_codec=_get_choice(HOROVOD_TPU_ALLTOALL_CODEC, "none",
+                                       COMPRESSION_MODES),
+            alltoall_hier_threshold_bytes=_get_int(
+                HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES, 0),
         )

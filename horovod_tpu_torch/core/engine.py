@@ -55,16 +55,31 @@ place, zeros on first use, after :meth:`Engine.invalidate_residuals`
 version. Join's op field carries the call codec in bits 4 and up, so a
 joined rank's zero substitute runs the same compressed program.
 
+Algorithm selection (the reference's :396-413, :646-738, :775-795): the
+engine resolves its :class:`~..parallel.mesh.Topology` at init (host names
+gathered once at size > 1), agrees on whether every rank sees the same
+two-level layout (``_hierarchical_ok``, one allgather of the local sizes)
+and creates every process group a selection can need, on every rank in
+one order: the local and cross groups when the world factorizes, the pair
+groups of every tree round when its size is a power of two. Each fusion
+bucket of a Sum or Average then picks flat, tree or the ladder
+(``_choose_algo``, ``ops/collectives.py`` ``choose_algorithm``); a codec
+bucket on the ladder runs the codec's hierarchical arm; allgather picks
+flat or the two-level gather; an alltoall whose exchanged splits matrix is
+uniform picks flat or the two-phase exchange, with
+``HOROVOD_TPU_ALLTOALL_CODEC`` on its cross phase; a sharded step's
+all-gather picks per bucket while its reduce-scatter stays flat. The
+choice is a function of the advertised shapes, the topology and the
+knobs, so a joined rank's zero substitute runs the same programs.
+``algo_selections[(kind, algo)]`` (a bucket each) and
+``link_bytes[link]`` (``link_split``'s attribution) are plain counters,
+as ``codec_selections`` and ``residual_invalidations`` are, until the
+metric instruments come (ROADMAP A12).
+
 Not ported yet (the reference's other engine paths): the ZeRO-1
 all-gather prefetch leg, replay's overlap modes and single-launch form,
-alltoall's codec and steady-state splits cache, algorithm selection
-(hierarchical Sum/Average and alltoall, and the hierarchical codec arm),
-autotune, metrics and tracing: ``codec_selections`` and
-``residual_invalidations`` are plain counters until the metric
-instruments come (ROADMAP A12). Until algorithm selection is ported, a
-Sum/Average allreduce under ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat
-and says so once per process, as the reference does when it demotes an
-algorithm.
+alltoall's steady-state splits cache (ROADMAP A10), the calibration probe
+and autotune (A15), metrics and tracing (A12).
 """
 
 from __future__ import annotations
@@ -72,7 +87,9 @@ from __future__ import annotations
 import collections
 import logging
 import os
+import socket
 import threading
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -84,6 +101,7 @@ from ..common.exceptions import DuplicateNameError, HorovodInternalError
 from ..common.reduce_ops import ReduceOp
 from ..ops import collectives as C
 from ..ops import compression as comp
+from ..parallel.mesh import detect_topology
 from .backend import Backend
 from .replay import _DIGITS, StepReplay
 
@@ -94,7 +112,8 @@ _warned_demotions: set = set()
 
 def _demote(key: tuple, msg: str):
     """One WARNING per process and reason that a collective runs flat (the
-    reference's ``_demote``, ``horovod_tpu/ops/collectives.py``)."""
+    reference's ``_demote``, ``horovod_tpu/ops/collectives.py``): the
+    engine's own, for a forced form a world of one rank cannot express."""
     if key not in _warned_demotions:
         _warned_demotions.add(key)
         logger.warning("collective algorithm selection: %s; using flat", msg)
@@ -357,6 +376,29 @@ class Engine:
         # each; residual buffers dropped or zeroed by an invalidation
         self.codec_selections = collections.Counter()
         self.residual_invalidations = 0
+        # plain counters of the algorithm selection: buckets by (kind,
+        # algo) and submitted bytes by fabric link (link_split)
+        self.algo_selections = collections.Counter()
+        self.link_bytes = collections.Counter()
+        # the topology, resolved once (an elastic reset builds a new
+        # engine), and the process groups its algorithms run on
+        size = backend.size()
+        hosts = None
+        if size > 1:
+            hosts = self._exchange_rows(np.array([_host_key()]))[:, 0]
+        self.topology = detect_topology(
+            size, backend.local_size(),
+            None if hosts is None else hosts.tolist(),
+            "gpu" if backend.device.type == "cuda" else "cpu")
+        self._tree_groups: Optional[list] = None
+        # ids of the groups a captured program has warmed (every group a
+        # graph's leg runs on ran a collective eagerly first)
+        self._warmed: set = set()
+        if size > 1:
+            # agreed here, where every rank arrives before any collective,
+            # so no join() loop or replay capture is ever what runs it
+            self._hierarchical_ok()
+            self._make_groups()
 
     # -- internals ---------------------------------------------------------
 
@@ -426,27 +468,195 @@ class Engine:
         if self.on_replay is not None:
             self.on_replay(event, detail)
 
-    def _flat_only(self, op: ReduceOp):
-        """Warn once that a Sum/Average allreduce under
-        ``HOROVOD_HIERARCHICAL_ALLREDUCE`` runs flat (C3)."""
-        if self.config.hierarchical_allreduce and op in (ReduceOp.SUM,
-                                                         ReduceOp.AVERAGE):
-            _demote(("allreduce", "hierarchical"),
-                    "HOROVOD_HIERARCHICAL_ALLREDUCE asks for the two-level "
-                    "Sum/Average allreduce, which is not ported yet "
-                    "(ROADMAP A11; it selects hierarchical Adasum only)")
-
     def _reduce_launch(self, flat: torch.Tensor, op: ReduceOp,
                        prescale_factor: float,
-                       postscale_factor: float) -> LaunchGroup:
-        """Launch the in-place allreduce of one private flat buffer."""
-        self._flat_only(op)
-        C.prescale(flat, prescale_factor)
-        work = _translate_failure(dist.all_reduce, flat, op=_dist_op(op),
-                                  async_op=True)
+                       postscale_factor: float,
+                       algo: str = C.ALGO_FLAT,
+                       total: Optional[int] = None) -> LaunchGroup:
+        """Launch the in-place allreduce of one private flat buffer under
+        ``algo``: one async ``all_reduce`` (flat, and every op other than
+        Sum and Average), the tree's pair rounds, or the ladder on a
+        buffer padded to the world size whose first ``total`` elements are
+        the bucket (its tail zero)."""
+        view = flat if total is None else flat[:total]
+        C.prescale(view, prescale_factor)
         n = self.backend.size() if op == ReduceOp.AVERAGE else 1
-        return LaunchGroup(
-            work, lambda: C.finish_reduce(flat, n, postscale_factor))
+        if algo == C.ALGO_FLAT or op not in (ReduceOp.SUM,
+                                             ReduceOp.AVERAGE):
+            work = _translate_failure(dist.all_reduce, flat,
+                                      op=_dist_op(op), async_op=True)
+            return LaunchGroup(
+                work, lambda: C.finish_reduce(view, n, postscale_factor))
+        if algo == C.ALGO_TREE:
+            _translate_failure(C.tree_allreduce, flat, self._tree_groups)
+        else:
+            _translate_failure(C.hier_allreduce, flat,
+                               *self.hierarchical_groups(),
+                               *self._hier_sizes())
+        return LaunchGroup(_StreamWork(flat.device),
+                           lambda: C.finish_reduce(view, n,
+                                                   postscale_factor))
+
+    # -- algorithm selection (the reference's :646-738) --------------------
+
+    def _choose_algo(self, kind: str, nbytes: int) -> str:
+        """The algorithm of one collective of ``kind`` moving ``nbytes``
+        (the reference's engine face of ``choose_algorithm``): the legacy
+        ``HOROVOD_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER`` act as a forced
+        preference for their kind, alltoall has its own knob and
+        threshold, and a hierarchical outcome also needs the agreed
+        ``_hierarchical_ok``, read whatever this rank's own view says (a
+        rank-local read could pick different programs on different ranks).
+        A world of one rank runs every collective flat; a forced tree or
+        hierarchical form says so once (a port addition: the reference
+        is silent there)."""
+        topo, cfg = self.topology, self.config
+        if topo.size <= 1:
+            self._note_single_rank(kind)
+            return C.ALGO_FLAT
+        hier_ok = self._hierarchical_ok()
+        if kind == "alltoall":
+            force = cfg.alltoall_algo
+            if force != "auto":
+                algo = C.validate_algorithm(kind, force, topo.size,
+                                            topo.local_size)
+            else:
+                algo = C.choose_algorithm(
+                    kind, nbytes, topo,
+                    tree_threshold_bytes=cfg.tree_threshold_bytes,
+                    hier_threshold_bytes=cfg.alltoall_hier_threshold_bytes)
+        else:
+            force = cfg.collective_algo
+            if force != "auto":
+                algo = C.validate_algorithm(kind, force, topo.size,
+                                            topo.local_size)
+            elif (kind == "allreduce" and cfg.hierarchical_allreduce
+                  and hier_ok):
+                algo = C.ALGO_HIERARCHICAL
+            elif (kind == "allgather" and cfg.hierarchical_allgather
+                  and hier_ok):
+                algo = C.ALGO_HIERARCHICAL
+            else:
+                algo = C.choose_algorithm(
+                    kind, nbytes, topo,
+                    tree_threshold_bytes=cfg.tree_threshold_bytes,
+                    hier_threshold_bytes=cfg.hier_threshold_bytes)
+        if algo == C.ALGO_HIERARCHICAL and not hier_ok:
+            return C.ALGO_FLAT
+        return algo
+
+    def _note_single_rank(self, kind: str):
+        """The one warning that a forced tree or two-level form runs flat
+        in a world of one rank."""
+        cfg = self.config
+        forced = []
+        if kind == "alltoall":
+            forced.append((env_mod.HOROVOD_TPU_ALLTOALL_ALGO,
+                           cfg.alltoall_algo))
+        else:
+            forced.append((env_mod.HOROVOD_TPU_COLLECTIVE_ALGO,
+                           cfg.collective_algo))
+            if kind == "allreduce" and cfg.hierarchical_allreduce:
+                forced.append((env_mod.HOROVOD_HIERARCHICAL_ALLREDUCE,
+                               C.ALGO_HIERARCHICAL))
+            if kind == "allgather" and cfg.hierarchical_allgather:
+                forced.append((env_mod.HOROVOD_HIERARCHICAL_ALLGATHER,
+                               C.ALGO_HIERARCHICAL))
+        for knob, algo in forced:
+            if algo in (C.ALGO_TREE, C.ALGO_HIERARCHICAL):
+                _demote((kind, algo, knob),
+                        f"{knob} asks for the {algo} {kind}, which a world "
+                        f"of one rank cannot express")
+
+    def _bucket_algos(self, kind: str, nbytes: Sequence[int],
+                      op: Optional[ReduceOp] = None) -> tuple:
+        """Each bucket's algorithm (``nbytes``: the buckets' payload
+        bytes), its own (bytes, topology) decision: a step's small bucket
+        can take the tree while its large one takes the ladder. Ops other
+        than Sum and Average run flat."""
+        if op is not None and op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            return (C.ALGO_FLAT,) * len(nbytes)
+        return tuple(self._choose_algo(kind, int(b)) for b in nbytes)
+
+    def _algo_sig(self) -> tuple:
+        """The knobs the selection reads: replay rebuilds an armed program
+        on any move of them (the reference's :722-738 without its pipeline
+        knobs, ROADMAP A16)."""
+        cfg = self.config
+        return (cfg.collective_algo, cfg.tree_threshold_bytes,
+                cfg.hier_threshold_bytes,
+                cfg.hierarchical_allreduce, cfg.hierarchical_allgather,
+                cfg.compression,
+                cfg.alltoall_algo, cfg.alltoall_codec,
+                cfg.alltoall_hier_threshold_bytes)
+
+    def _a2a_codecs(self, dtypes: Sequence[torch.dtype],
+                    algos: Sequence[str], count: bool = True) -> tuple:
+        """Each alltoall bucket's wire codec (the reference's :775-795):
+        ``HOROVOD_TPU_ALLTOALL_CODEC`` resolved by the bucket's dtype, on
+        hierarchical buckets only (a flat one has no cross leg to
+        encode); no residual. With ``count`` the selections go into
+        ``codec_selections``."""
+        base = self.config.alltoall_codec
+        if base == comp.CODEC_NONE or self.topology.size <= 1:
+            return (comp.CODEC_NONE,) * len(algos)
+        out = tuple(comp.resolve_codec(base, d)
+                    if a == C.ALGO_HIERARCHICAL else comp.CODEC_NONE
+                    for d, a in zip(dtypes, algos))
+        if count:
+            for c in out:
+                if c != comp.CODEC_NONE:
+                    self.codec_selections[("alltoall", c)] += 1
+        return out
+
+    def _selection_counts(self, kind: str, nbytes: Sequence[int],
+                          itemsizes: Sequence[int], algos,
+                          codecs=None):
+        """``(algo_selections, link_bytes)`` increments of one call: a
+        bucket each by (kind, algo), and each bucket's payload bytes
+        (``nbytes``, its elements of ``itemsizes`` bytes) split by its
+        algorithm and codec (``link_split``). The reference splits each
+        tensor; a bucket at once costs the host two calls where ResNet-50's
+        161 tensors cost 0.4 ms, and differs from the sum of its tensors'
+        splits by the rounding of ``nbytes // local_size``."""
+        sel = collections.Counter((kind, a) for a in algos)
+        links = collections.Counter()
+        local, size = self.topology.local_size, self.topology.size
+        codecs = codecs or (comp.CODEC_NONE,) * len(algos)
+        for b, item, algo, codec in zip(nbytes, itemsizes, algos, codecs):
+            for link, v in C.link_split(algo, b, local, kind=kind,
+                                        codec=codec, itemsize=item,
+                                        size=size).items():
+                links[link] += v
+        return sel, links
+
+    def _count(self, counts):
+        """Add :meth:`_selection_counts`' increments to the counters."""
+        sel, links = counts
+        self.algo_selections.update(sel)
+        self.link_bytes.update(links)
+
+    def _hier_sizes(self) -> tuple:
+        local = self.topology.local_size
+        return local, self.topology.size // local
+
+    def _warm_groups(self, algos: Sequence[str]):
+        """Run one collective on every process group ``algos`` need that
+        no captured program has warmed yet: NCCL creates a group's
+        communicator at its first collective, which cannot happen inside a
+        CUDA graph capture. Called by every rank at the same point (a
+        program's build), so the warm-ups line up."""
+        groups = []
+        if C.ALGO_TREE in algos:
+            groups.extend(self._tree_groups or ())
+        if C.ALGO_HIERARCHICAL in algos:
+            groups.extend(self.hierarchical_groups())
+        for g in groups:
+            if g is None or id(g) in self._warmed:
+                continue
+            _translate_failure(dist.all_reduce, torch.zeros(
+                1, device=self.backend.device), group=g)
+            self._warmed.add(id(g))
 
     # -- wire codecs (the reference's :742-886) ------------------------------
 
@@ -488,15 +698,19 @@ class Engine:
                 int(elems), dtype_str)
 
     def _grouped_residuals(self, tag: str, name: Optional[str], sizes,
-                           dtypes, codecs) -> list:
+                           dtypes, codecs, algos=None) -> list:
         """``(bucket, key, elems, dtype)`` of each error-feedback bucket of
-        one call (``sizes``: the buckets' element counts), in bucket
-        order."""
-        n = self.backend.size()
+        one call (``sizes``: the buckets' element counts; ``algos`` their
+        algorithms, flat when None), in bucket order. The length tells
+        the ladder's residual from the flat arm's (``codec_residual_elems``),
+        so the key needs no algorithm."""
+        n, local = self.backend.size(), self.topology.local_size
+        algos = algos or (C.ALGO_FLAT,) * len(sizes)
         out = []
-        for b, (total, dtype, codec) in enumerate(zip(sizes, dtypes,
-                                                      codecs)):
-            elems = C.codec_residual_elems("reduce", total, n, codec)
+        for b, (total, dtype, codec, algo) in enumerate(zip(
+                sizes, dtypes, codecs, algos)):
+            elems = C.codec_residual_elems("reduce", total, n, local, algo,
+                                           codec)
             if elems is not None:
                 out.append((b, self._residual_key(tag, name, b, codec, elems,
                                                   str(dtype)),
@@ -578,22 +792,54 @@ class Engine:
 
     def _codec_launch(self, tensors: Sequence[torch.Tensor], codec: str,
                       residual: Optional[torch.Tensor], op: ReduceOp,
-                      prescale_factor: float, postscale_factor: float):
+                      prescale_factor: float, postscale_factor: float,
+                      algo: str = C.ALGO_FLAT):
         """One bucket's compressed allreduce: K1 (under
         ``HOROVOD_PALLAS_PACK``) into a zero-tailed padded buffer, then the
-        flat codec reduction (``C.codec_allreduce``), ordered on this
-        process's stream. Returns the reduced prefix and its launch
-        group."""
-        self._flat_only(op)
+        codec reduction, ordered on this process's stream: the
+        hierarchical arm (``C.codec_hier_allreduce``, the bucket padded to
+        the local size) on the ladder, the flat one (``C.codec_allreduce``,
+        padded to the world size) on flat and tree, whose pair rounds
+        would compound the quantization error. Returns the reduced prefix
+        and its launch group."""
         n, rank = self.backend.size(), self.backend.rank()
+        avg = n if op == ReduceOp.AVERAGE else 1
         total = sum(t.numel() for t in tensors)
-        flat = C.padded_bucket(total, n, tensors[0].dtype,
-                               tensors[0].device)
+        hier = algo == C.ALGO_HIERARCHICAL
+        local, cross = self._hier_sizes()
+        flat = C.padded_bucket(total, local if hier else n,
+                               tensors[0].dtype, tensors[0].device)
         C.pack_padded(tensors, flat, self.config.pack_kernel)
-        _translate_failure(C.codec_allreduce, flat, total, residual, codec,
-                           n, rank, n if op == ReduceOp.AVERAGE else 1,
-                           prescale_factor, postscale_factor, None)
+        if hier:
+            _translate_failure(C.codec_hier_allreduce, flat, total,
+                               residual, codec, local, cross, avg,
+                               prescale_factor, postscale_factor,
+                               *self.hierarchical_groups())
+        else:
+            _translate_failure(C.codec_allreduce, flat, total, residual,
+                               codec, n, rank, avg, prescale_factor,
+                               postscale_factor, None)
         return flat[:total], LaunchGroup(_StreamWork(flat.device))
+
+    def _bucket_launch(self, tensors: Sequence[torch.Tensor], op: ReduceOp,
+                       prescale_factor: float, postscale_factor: float,
+                       algo: str):
+        """One uncompressed bucket: the pack (K1 under
+        ``HOROVOD_PALLAS_PACK``) and the reduction under ``algo``; the
+        ladder's bucket is packed with K1's ``out=`` form straight into a
+        buffer padded to the world size. Returns the reduced buffer and
+        its launch group."""
+        if algo != C.ALGO_HIERARCHICAL or op not in (ReduceOp.SUM,
+                                                     ReduceOp.AVERAGE):
+            flat = C.pack_bucket(tensors, self.config.pack_kernel)
+            return flat, self._reduce_launch(flat, op, prescale_factor,
+                                             postscale_factor, algo)
+        total = sum(t.numel() for t in tensors)
+        padded = C.padded_bucket(total, self.backend.size(),
+                                 tensors[0].dtype, tensors[0].device)
+        C.pack_padded(tensors, padded, self.config.pack_kernel)
+        return padded[:total], self._reduce_launch(
+            padded, op, prescale_factor, postscale_factor, algo, total)
 
     # -- collectives -------------------------------------------------------
 
@@ -619,18 +865,29 @@ class Engine:
                         [_join_meta_row(x, _op_field(op, call_codec))], sub)
         bucket_codec = self._bucket_codecs("allreduce", [x.dtype],
                                            call_codec)[0]
+        algo = self._bucket_algos("allreduce", [x.nbytes], op)[0]
+        self._count(self._selection_counts(
+            "allreduce", [x.nbytes], [x.element_size()], [algo],
+            [bucket_codec]))
         self.dispatch_count += 1
         if bucket_codec != comp.CODEC_NONE:
             residuals = self._fetch_residuals(self._grouped_residuals(
-                "gar", orig_name, [x.numel()], [x.dtype], [bucket_codec]))
+                "gar", orig_name, [x.numel()], [x.dtype], [bucket_codec],
+                [algo]))
             flat, group = self._codec_launch(
                 [x.contiguous()], bucket_codec, residuals.get(0), op,
-                prescale_factor, postscale_factor)
+                prescale_factor, postscale_factor, algo)
+            return self._track(Handle(name, group,
+                                      lambda: flat.view(x.shape), self))
+        if algo == C.ALGO_HIERARCHICAL:
+            flat, group = self._bucket_launch([x.contiguous()], op,
+                                              prescale_factor,
+                                              postscale_factor, algo)
             return self._track(Handle(name, group,
                                       lambda: flat.view(x.shape), self))
         buf = x.clone(memory_format=torch.contiguous_format)
         group = self._reduce_launch(buf, op, prescale_factor,
-                                    postscale_factor)
+                                    postscale_factor, algo)
         return self._track(Handle(name, group, lambda: buf, self))
 
     def grouped_allreduce(self, tensors: Sequence,
@@ -667,10 +924,16 @@ class Engine:
         codecs = self._bucket_codecs(
             "grouped_allreduce", [tensors[idxs[0]].dtype for idxs in buckets],
             call_codec)
+        nbytes = [sum(tensors[i].nbytes for i in idxs) for idxs in buckets]
+        algos = self._bucket_algos("allreduce", nbytes, op)
+        self._count(self._selection_counts(
+            "allreduce", nbytes,
+            [tensors[idxs[0]].element_size() for idxs in buckets], algos,
+            codecs))
         residuals = self._fetch_residuals(self._grouped_residuals(
             "gar", name, [sum(tensors[i].numel() for i in idxs)
                           for idxs in buckets],
-            [tensors[idxs[0]].dtype for idxs in buckets], codecs))
+            [tensors[idxs[0]].dtype for idxs in buckets], codecs, algos))
         handles: List[Optional[Handle]] = [None] * len(tensors)
         for b, idxs in enumerate(buckets):
             # per bucket: pack, then reduce (the form the reference takes
@@ -679,11 +942,10 @@ class Engine:
             if codecs[b] != comp.CODEC_NONE:
                 flat, group = self._codec_launch(
                     bucket, codecs[b], residuals.get(b), op,
-                    prescale_factor, postscale_factor)
+                    prescale_factor, postscale_factor, algos[b])
             else:
-                flat = C.pack_bucket(bucket, self.config.pack_kernel)
-                group = self._reduce_launch(flat, op, prescale_factor,
-                                            postscale_factor)
+                flat, group = self._bucket_launch(
+                    bucket, op, prescale_factor, postscale_factor, algos[b])
             self.dispatch_count += 1
             views = C.unpack_flat(flat, [tuple(tensors[i].shape)
                                          for i in idxs])
@@ -759,7 +1021,11 @@ class Engine:
 
     def allgather(self, tensor, name: Optional[str] = None) -> Handle:
         """Allgather along dim 0 with possibly different dim-0 sizes per rank
-        (a size exchange, a padded gather, then trim and concatenate)."""
+        (a size exchange, a padded gather, then trim and concatenate). The
+        gather is flat or, where the selection says so (the reference's
+        :2185-2244), two-level: a local gather, then a cross gather of the
+        islands' blocks. The choice reads the agreed padded size, so every
+        rank makes it alike."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         self._replay.observe("allgather", sub, [x], name)
@@ -769,12 +1035,27 @@ class Engine:
         self._join_sync("allgather", [_join_meta_row(x, 0)], sub)
         sizes = self._exchange_sizes(int(x.shape[0]))
         max_d0 = max(sizes)
-        pad = max_d0 - int(x.shape[0])
+        d0 = int(x.shape[0])
+        algo = self._choose_algo(
+            "allgather", x.nbytes // max(d0, 1) * max_d0)
+        self._count(self._selection_counts("allgather", [x.nbytes],
+                                           [x.element_size()], [algo]))
+        pad = max_d0 - d0
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
         x = x.contiguous()
-        outs = [torch.empty_like(x) for _ in sizes]
-        work = _translate_failure(dist.all_gather, outs, x, async_op=True)
+        if algo == C.ALGO_HIERARCHICAL:
+            gathered = x.new_empty((len(sizes) * max_d0,)
+                                   + tuple(x.shape[1:]))
+            _translate_failure(C.hier_all_gather, gathered, x,
+                               *self.hierarchical_groups(),
+                               *self._hier_sizes())
+            outs = list(gathered.split(max_d0))
+            work = _StreamWork(x.device)
+        else:
+            outs = [torch.empty_like(x) for _ in sizes]
+            work = _translate_failure(dist.all_gather, outs, x,
+                                      async_op=True)
         self.dispatch_count += 1
 
         def extract():
@@ -795,9 +1076,13 @@ class Engine:
         once (``recv_splits[r]`` = rank r's ``splits[me]``), then one
         ``all_to_all_single`` with uneven sizes. The handle's result is
         ``(received tensor, recv_splits)``, the splits an int64 CPU tensor.
-        At size 1 the result is the input. Not ported: the reference's
-        steady-state splits cache (ROADMAP A10), its hierarchical selection
-        (A11) and its wire codec (A11: hierarchical buckets only)."""
+        At size 1 the result is the input. When the exchanged splits matrix
+        is uniform (an agreed predicate: then every rank's bytes, hence its
+        selection, are alike) the exchange is flat or the two-phase one
+        (the reference's :2384-2500), with ``HOROVOD_TPU_ALLTOALL_CODEC``
+        on the two-phase exchange's cross phase; other splits keep the
+        flat exchange. Not ported: the reference's steady-state splits
+        cache (ROADMAP A10)."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         self._replay.observe("alltoall", sub, [x], name)
@@ -822,14 +1107,29 @@ class Engine:
         name = self._register(name, "alltoall")
         self._join_sync("alltoall", [_join_meta_row(x, 0)], sub)
         if size == 1:
+            self._note_single_rank("alltoall")
             recv = torch.from_numpy(send)
             return self._track(Handle(name, LaunchGroup(_StreamWork(x.device)),
                                       lambda: (x, recv), self))
-        recv = self._exchange_rows(send)[:, rank]
-        out = x.new_empty((int(recv.sum()),) + tuple(x.shape[1:]))
-        work = _translate_failure(C.all_to_all, out, x.contiguous(),
-                                  recv.tolist(), send.tolist(), None,
-                                  async_op=True)
+        matrix = self._exchange_rows(send)
+        recv = matrix[:, rank]
+        algo, codec = C.ALGO_FLAT, comp.CODEC_NONE
+        if (matrix == matrix[0, 0]).all():
+            algo = self._choose_algo("alltoall", x.nbytes)
+            codec = self._a2a_codecs([x.dtype], [algo])[0]
+        self._count(self._selection_counts("alltoall", [x.nbytes],
+                                           [x.element_size()], [algo],
+                                           [codec]))
+        if algo == C.ALGO_HIERARCHICAL:
+            out = _translate_failure(C.hier_alltoall, x.contiguous(),
+                                     *self.hierarchical_groups(),
+                                     *self._hier_sizes(), codec)
+            work = _StreamWork(x.device)
+        else:
+            out = x.new_empty((int(recv.sum()),) + tuple(x.shape[1:]))
+            work = _translate_failure(C.all_to_all, out, x.contiguous(),
+                                      recv.tolist(), send.tolist(), None,
+                                      async_op=True)
         self.dispatch_count += 1
         recv = torch.from_numpy(recv)
         return self._track(Handle(name, LaunchGroup(work),
@@ -895,7 +1195,9 @@ class Engine:
         A bucket with a wire codec (``codec``, else
         ``HOROVOD_TPU_COMPRESSION``) runs the compressed reduce-scatter, its
         residual covering the whole padded bucket; the parameter
-        all-gather stays full precision (the reference's :1956-2050).
+        all-gather stays full precision (the reference's :1956-2050). The
+        reduce-scatter is always flat (shard ownership); each bucket's
+        all-gather picks flat or the two-level gather (:1951-1975).
 
         Inside a step the first half reports to replay as kind
         ``sharded_step``; a step that is one sharded step arms after the
@@ -915,15 +1217,20 @@ class Engine:
         for g in grads:
             _check_average_dtype(g, op)
         call_codec = self._call_codec(codec, op)
+        ag_algos = self._sharded_ag_algos(grads, buckets)
         r = self._replay.intercept("sharded_step", grads, int(op),
                                    prescale_factor, postscale_factor, name,
                                    sub, layout=buckets, codec=call_codec)
         if r is not None:
+            self._count(self._sharded_counts(
+                grads, buckets, self._bucket_codecs(
+                    "sharded_step", [b.grads.dtype for b in buckets],
+                    call_codec, count=False), ag_algos))
             # the armed program ran the first half (its one dispatch
             # covers the gathers too); this orders the stream after it
             r[0].synchronize()
             update()
-            _translate_failure(C.gather_shards, buckets, None)
+            self._gather_shards(buckets, ag_algos)
             return
         for i in range(len(grads)):
             self._register(None if name is None else f"{name}.{i}",
@@ -934,19 +1241,47 @@ class Engine:
                                      [b.grads.dtype for b in buckets],
                                      call_codec)
         residuals = self._sharded_residuals(buckets, codecs)
+        self._count(self._sharded_counts(grads, buckets, codecs, ag_algos))
         self.dispatch_count += _translate_failure(
             C.scatter_shards, buckets, grads, self.config.pack_kernel, n,
             prescale_factor, postscale_factor, None, True, codecs, residuals)
         update()
-        self.dispatch_count += _translate_failure(C.gather_shards, buckets,
-                                                  None)
+        self.dispatch_count += self._gather_shards(buckets, ag_algos)
+
+    def _sharded_ag_algos(self, grads, buckets) -> tuple:
+        """Each ZeRO-1 bucket's all-gather algorithm, by its gradients'
+        bytes."""
+        return self._bucket_algos("allgather", [
+            sum(grads[i].nbytes for i in b.idxs) for b in buckets])
+
+    def _sharded_counts(self, grads, buckets, codecs, ag_algos):
+        """A sharded step's selection counts: each bucket once flat as a
+        reduce-scatter (its codec's bytes) and once as an all-gather."""
+        nbytes = [sum(grads[i].nbytes for i in b.idxs) for b in buckets]
+        items = [b.grads.element_size() for b in buckets]
+        sel, links = self._selection_counts(
+            "reducescatter", nbytes, items, (C.ALGO_FLAT,) * len(buckets),
+            codecs)
+        sel2, links2 = self._selection_counts("allgather", nbytes, items,
+                                              ag_algos)
+        return sel + sel2, links + links2
+
+    def _gather_shards(self, buckets, algos) -> int:
+        """The sharded step's second half: each bucket's all-gather, flat
+        or two-level, into its parameter buffer in place. Returns the
+        collectives launched (one a bucket)."""
+        hier = None
+        if C.ALGO_HIERARCHICAL in algos:
+            hier = (*self.hierarchical_groups(), *self._hier_sizes())
+        return _translate_failure(C.gather_shards, buckets, None, True,
+                                  algos, hier)
 
     def _sharded_residual_key(self, bucket, codec: str) -> Optional[tuple]:
         """The residual of a sharded step's bucket (``cls`` "sharded": the
         whole padded bucket), keyed by the bucket's own token, as the
         reference keys it by its optimizer's."""
         elems = C.codec_residual_elems("sharded", bucket.total, bucket.n,
-                                       codec)
+                                       0, None, codec)
         if elems is None:
             return None
         return ("zrs", "", bucket.token, codec, elems,
@@ -1176,37 +1511,61 @@ class Engine:
 
     def _hierarchical_ok(self) -> bool:
         """Whether the world has a usable (cross, local) layout, decided
-        once and agreed by every rank: an allgather of the local sizes,
-        true only when they are equal and 1 < local < size, size % local
-        == 0 (a rank-local test could pick different programs on
-        different ranks)."""
+        once and agreed by every rank (the reference's :1591-1607,
+        mpi_controller.cc:26-82): an allgather of every rank's topology
+        local size, true only when they are equal and 1 < local < size,
+        size % local == 0. Resolved at init; a rank-local test could pick
+        different programs on different ranks."""
         if self._hier_ok is None:
             size = self.backend.size()
-            local = self.backend.local_size()
+            local = self.topology.local_size
             sizes = self._exchange_sizes(local) if size > 1 else [local]
             self._hier_ok = (all(s == sizes[0] for s in sizes)
                              and 1 < local < size and size % local == 0)
         return self._hier_ok
 
+    def _make_groups(self):
+        """Create every process group a selection can need, on every rank
+        in one order (``dist.new_group`` is collective): the pair groups of
+        each tree round when the size is a power of two (a pair that is
+        the whole world is the default group), and the local and cross
+        groups when the agreed layout has two levels."""
+        size, rank = self.backend.size(), self.backend.rank()
+        if C._is_pow2(size):
+            self._tree_groups = []
+            for pairs in C.tree_groups(size):
+                mine = None
+                for pair in pairs:
+                    g = None if len(pair) == size else dist.new_group(pair)
+                    if rank in pair:
+                        mine = g
+                self._tree_groups.append(mine)
+        if self._hier_ok:
+            self.hierarchical_groups()
+
     def hierarchical_groups(self):
-        """(local group, cross group) of this rank, ranks laid out as
-        c·local + l: local group c holds the ranks of node c, cross group l
-        the l-th rank of every node. Created the first time they are asked
-        for (after :meth:`_hierarchical_ok`, which every rank passes),
-        every group on every rank in one order: ``dist.new_group`` is
-        collective."""
+        """(local group, cross group) of this rank under ``slice_groups``'
+        layout (island c holds ranks c·local + l; cross group l the l-th
+        rank of every island), the one layout the ladder, the two-level
+        gather and alltoall and hierarchical Adasum share. Created at init
+        where the agreed layout has two levels (or the first time they are
+        asked for after every rank agreed on one): every group on every
+        rank in one order."""
         if self._hier_groups is None:
-            local = self.backend.local_size()
-            cross = self.backend.size() // local
+            if not self._hierarchical_ok():
+                raise HorovodInternalError(
+                    "the world has no agreed two-level layout "
+                    f"(topology {self.topology.describe()})")
             rank = self.backend.rank()
-            local_groups = [dist.new_group([c * local + l
-                                            for l in range(local)])
-                            for c in range(cross)]
-            cross_groups = [dist.new_group([c * local + l
-                                            for c in range(cross)])
-                            for l in range(local)]
-            self._hier_groups = (local_groups[rank // local],
-                                 cross_groups[rank % local])
+            locals_, crosses = C.slice_groups(self.backend.size(),
+                                              self.topology.local_size)
+            mine = [None, None]
+            for i, lists in enumerate((locals_, crosses)):
+                for ranks in lists:
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        mine[i] = g
+            self._hier_groups = tuple(mine)
         return self._hier_groups
 
     def _exchange_sizes(self, d0: int) -> List[int]:
@@ -1238,6 +1597,11 @@ class Engine:
         work = _translate_failure(C.all_gather, out, mine, None,
                                   async_op=True)
         self._posted.append((work, keep + [mine, out]))
+
+
+def _host_key() -> int:
+    """This process's host, as an int64 an allgather can carry."""
+    return zlib.crc32(socket.gethostname().encode())
 
 
 def bucket_by_size(tensors: Sequence[torch.Tensor],

@@ -43,8 +43,21 @@ per-step host cost, there one fused XLA launch; here one CUDA graph):
   rows) issues the graph's collectives: the same buckets in the same order.
 - ``join()`` and an elastic world-version bump invalidate every armed
   stream and every error-feedback residual; a move of the fusion
-  threshold, the pack knob, the join switch or ``HOROVOD_TPU_COMPRESSION``
-  rebuilds the armed program before its next launch.
+  threshold, the pack knob, the join switch or any knob the algorithm
+  selection reads (``Engine._algo_sig``: ``HOROVOD_TPU_COLLECTIVE_ALGO``,
+  the thresholds, the legacy hierarchy switches, ``HOROVOD_TPU_COMPRESSION``
+  and the alltoall knobs) rebuilds the armed program before its next
+  launch.
+- Algorithms (the reference's :704-760): a segment carries each bucket's
+  algorithm beside its codec, as the eager calls resolve them, and the
+  program runs that bucket's legs: the flat ``all_reduce``, the tree's
+  pair rounds, the ladder's four legs on a buffer padded to the world
+  size, or the codec's hierarchical arm. Before a capture every process
+  group a graph's legs run on has run one collective eagerly
+  (``Engine._warm_groups``): NCCL creates a group's communicator at its
+  first collective, which a capture cannot hold. A sharded step's
+  all-gathers, run eagerly after the wrapped update, pick flat or the
+  two-level gather per bucket.
 - Wire codecs (the reference's :187-192, :574-701): the call's codec is
   part of each :class:`CallSig` and of a segment's key. A bucket whose
   codec is not ``none`` runs the flat compressed reduction
@@ -77,8 +90,8 @@ Replayable kinds: allreduce, grouped_allreduce, broadcast,
 grouped_broadcast and sharded_step. allgather, alltoall, reducescatter,
 barrier and Adasum go through :meth:`StepReplay.observe`: a step holding
 one never arms. Not ported, since the port has none of these calls yet:
-the reference's grouped_alltoall arm (A16) and alltoall's codec (A11);
-nor its overlap modes, staged sub-launches, the ZeRO-1 prefetch leg and
+the reference's grouped_alltoall arm, with its per-bucket algorithms and
+codecs (A16); nor its overlap modes, staged sub-launches, the ZeRO-1 prefetch leg and
 the single-launch form (A10's remainder). The metrics-registry instruments
 wait for A12: the plain counters (``captured_streams``, ``replayed_steps``,
 ``fallbacks``) and the engine's ``on_replay(event, detail)`` hook stay.
@@ -210,6 +223,7 @@ class _Segment(NamedTuple):
     base: int          # the segment's first slot in the step's tensors
     codecs: tuple      # each bucket's wire codec
     residuals: tuple   # each bucket's (residual key, elems) or None
+    algos: tuple       # each bucket's collective algorithm
 
 
 class _Bucket(NamedTuple):
@@ -219,6 +233,7 @@ class _Bucket(NamedTuple):
     dtype: torch.dtype
     codec: str
     residual: Optional[tuple]   # (engine residual key, elems)
+    algo: str
 
     @property
     def numels(self) -> List[int]:
@@ -229,7 +244,7 @@ def _buckets(segments) -> List[_Bucket]:
     return [_Bucket(seg, tuple(seg.base + i for i in idxs),
                     tuple(seg.shapes[i] for i in idxs),
                     _torch_dtype(seg.dtypes[idxs[0]]), seg.codecs[j],
-                    seg.residuals[j])
+                    seg.residuals[j], seg.algos[j])
             for seg in segments for j, idxs in enumerate(seg.buckets)]
 
 
@@ -248,6 +263,17 @@ def _held_keys(buckets) -> frozenset:
     return frozenset(b.residual[0] for b in buckets if b.residual is not None)
 
 
+def _selection_counts(engine, buckets):
+    """The engine's selection counts of one launch of the program's reduce
+    buckets (``Engine._selection_counts``): a replayed step moves the
+    bytes the eager step would."""
+    reduce = [b for b in buckets if b.seg.cls == "reduce"]
+    return engine._selection_counts(
+        "allreduce", [sum(b.numels) * b.dtype.itemsize for b in reduce],
+        [b.dtype.itemsize for b in reduce], [b.algo for b in reduce],
+        [b.codec for b in reduce])
+
+
 class _EagerProgram:
     """The armed plan issued eagerly, for CPU tensors: per bucket the pack,
     the prescale, the collective (or the compressed reduction) and the
@@ -262,6 +288,7 @@ class _EagerProgram:
         self.join_metas = join_metas
         self.residual_keys = _held_keys(self.buckets)
         self.codecs = [b.codec for b in self.buckets]
+        self.counts = _selection_counts(engine, self.buckets)
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _translate_failure
@@ -276,11 +303,10 @@ class _EagerProgram:
             if b.codec != _comp.CODEC_NONE:
                 flat, group = eng._codec_launch(ts, b.codec, residual,
                                                 ReduceOp(seg.code), seg.pre,
-                                                seg.post)
+                                                seg.post, b.algo)
             elif seg.cls == "reduce":
-                flat = C.pack_bucket(ts, eng.config.pack_kernel)
-                group = eng._reduce_launch(flat, ReduceOp(seg.code), seg.pre,
-                                           seg.post)
+                flat, group = eng._bucket_launch(ts, ReduceOp(seg.code),
+                                                 seg.pre, seg.post, b.algo)
             else:
                 flat = C.pack_bucket(ts, False)
                 group = LaunchGroup(_translate_failure(
@@ -295,11 +321,15 @@ class _GraphProgram:
     the join advertisement's all_gathers, then per bucket K1 from its
     :class:`~..ops.kernels.PackTable` (or nothing, where the plain pack
     fills the bucket's buffer before the launch), the prescale, the NCCL
-    collective and the finish; a bucket with a wire codec packs into a
-    zero-tailed padded buffer and runs the compressed reduction on the
-    engine's residual buffer. A launch refreshes the tables, replays the
-    graph on the current stream and copies each bucket's reduced buffer
-    into a fresh one, whose views are the results."""
+    collectives of the bucket's algorithm (one ``all_reduce``, the tree's
+    pair rounds, or the ladder on a buffer padded to the world size) and
+    the finish; a bucket with a wire codec packs into a zero-tailed padded
+    buffer and runs the compressed reduction (its hierarchical arm on the
+    ladder) on the engine's residual buffer. Every process group the legs
+    run on has run a collective before the capture. A launch refreshes
+    the tables, replays the graph on the current stream and copies each
+    bucket's reduced buffer into a fresh one, whose views are the
+    results."""
 
     def __init__(self, engine, segments, join_metas):
         from .engine import _KIND_CODES, _dist_op
@@ -308,8 +338,14 @@ class _GraphProgram:
         self.buckets = _buckets(segments)
         self.residual_keys = _held_keys(self.buckets)
         self.codecs = [b.codec for b in self.buckets]
+        self.counts = _selection_counts(eng, self.buckets)
         residuals = _residual_buffers(eng, self.buckets)
         size, rank = eng.backend.size(), eng.backend.rank()
+        algos = [b.algo for b in self.buckets if b.seg.cls == "reduce"]
+        eng._warm_groups(algos)
+        hier_groups = (eng.hierarchical_groups()
+                       if C.ALGO_HIERARCHICAL in algos else None)
+        local, cross = eng._hier_sizes()
         # the step's one advertisement: the join round's head and overflow
         # rows, constant, on the device from pinned memory with no host wait
         self._advert = []
@@ -345,27 +381,41 @@ class _GraphProgram:
                                               residuals):
                     seg = b.seg
                     total = sum(b.numels)
-                    if b.codec != _comp.CODEC_NONE:
-                        padded = C.padded_bucket(total, size, b.dtype, dev)
+                    avg = size if (seg.cls == "reduce" and seg.code
+                                   == ReduceOp.AVERAGE) else 1
+                    hier = b.algo == C.ALGO_HIERARCHICAL
+                    coded = b.codec != _comp.CODEC_NONE
+                    if coded or hier:
+                        # the codec's hierarchical arm pads to the local
+                        # size, the ladder and the flat arm to the world's
+                        padded = C.padded_bucket(
+                            total, local if hier and coded else size,
+                            b.dtype, dev)
                         flat = padded[:total]
                     else:
                         flat = torch.empty(total, dtype=b.dtype, device=dev)
                     self._flats.append(flat)
                     if table is not None:
                         table.capture(flat)
-                    if b.codec != _comp.CODEC_NONE:
-                        op = ReduceOp(seg.code)
+                    if coded and hier:
+                        C.codec_hier_allreduce(
+                            padded, total, residual, b.codec, local, cross,
+                            avg, seg.pre, seg.post, *hier_groups)
+                    elif coded:
                         C.codec_allreduce(
                             padded, total, residual, b.codec, size, rank,
-                            size if op == ReduceOp.AVERAGE else 1, seg.pre,
-                            seg.post, None)
+                            avg, seg.pre, seg.post, None)
                     elif seg.cls == "reduce":
-                        op = ReduceOp(seg.code)
                         C.prescale(flat, seg.pre)
-                        dist.all_reduce(flat, op=_dist_op(op))
-                        C.finish_reduce(
-                            flat, size if op == ReduceOp.AVERAGE else 1,
-                            seg.post)
+                        if b.algo == C.ALGO_TREE:
+                            C.tree_allreduce(flat, eng._tree_groups)
+                        elif hier:
+                            C.hier_allreduce(padded, *hier_groups, local,
+                                             cross)
+                        else:
+                            dist.all_reduce(flat,
+                                            op=_dist_op(ReduceOp(seg.code)))
+                        C.finish_reduce(flat, avg, seg.post)
                     else:
                         dist.broadcast(flat, src=seg.code)
             finally:
@@ -397,6 +447,8 @@ class _ShardedEagerProgram:
     as ``Engine.sharded_step`` issues them."""
     tables = 0
     copy_outs = 0
+    # the engine counts a sharded step's selections on both of its paths
+    counts = None
 
     def __init__(self, engine, sig: CallSig):
         self.engine, self.sig = engine, sig
@@ -482,6 +534,7 @@ class _Armed(NamedTuple):
     pack_kernel: bool
     join_live: bool
     compression: str
+    algo_sig: tuple               # Engine._algo_sig() at the build
     program: object               # _GraphProgram or _EagerProgram
 
 
@@ -689,8 +742,8 @@ class StepReplay:
 
     def _current_armed(self, stream: tuple, ent: dict) -> Optional[_Armed]:
         """The armed program, rebuilt if the fusion threshold, the pack
-        knob, the join switch or the wire codec knob moved since it was
-        built."""
+        knob, the join switch or a knob the selection reads (the wire codec
+        knob among them) moved since it was built."""
         armed = ent.get("armed")
         if armed is None:
             return None
@@ -698,7 +751,8 @@ class StepReplay:
         if (armed.threshold != cfg.fusion_threshold_bytes
                 or armed.pack_kernel != cfg.pack_kernel
                 or armed.join_live != self._join_live()
-                or armed.compression != cfg.compression):
+                or armed.compression != cfg.compression
+                or armed.algo_sig != self.engine._algo_sig()):
             ent["armed"] = None      # the old graph goes before the new one
             armed = self._build_armed(stream)
             ent["armed"] = armed
@@ -720,7 +774,7 @@ class StepReplay:
                            if eng.backend.device.type == "cuda"
                            else _ShardedEagerProgram)
             return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel,
-                          join_live, cfg.compression,
+                          join_live, cfg.compression, eng._algo_sig(),
                           program_cls(eng, stream[0]))
         segs: List[dict] = []
         for sig in stream:
@@ -752,26 +806,31 @@ class StepReplay:
             proxies = [_LeafProxy(s, d)
                        for s, d in zip(seg["shapes"], seg["dtypes"])]
             buckets = bucket_by_size(proxies, cfg.fusion_threshold_bytes)
-            # the codecs and residual rows the eager calls resolve
+            # the codecs, algorithms and residual rows the eager calls
+            # resolve
             dtypes = [proxies[b[0]].dtype for b in buckets]
             codecs = eng._bucket_codecs(seg["kind"], dtypes, codec,
                                         count=False)
+            algos = ((C.ALGO_FLAT,) * len(buckets) if cls != "reduce" else
+                     eng._bucket_algos("allreduce", [
+                         sum(proxies[i].nbytes for i in idxs)
+                         for idxs in buckets], ReduceOp(code)))
             residuals = [None] * len(buckets)
             for b, key, elems, _ in eng._grouped_residuals(
                     "gar", seg["name"],
                     [sum(int(np.prod(proxies[i].shape)) for i in idxs)
-                     for idxs in buckets], dtypes, codecs):
+                     for idxs in buckets], dtypes, codecs, algos):
                 residuals[b] = (key, elems)
             segments.append(_Segment(cls, code, pre, post,
                                      tuple(seg["shapes"]),
                                      tuple(seg["dtypes"]),
                                      tuple(tuple(b) for b in buckets), base,
-                                     codecs, tuple(residuals)))
+                                     codecs, tuple(residuals), algos))
             base += len(seg["shapes"])
         program_cls = (_GraphProgram if eng.backend.device.type == "cuda"
                        else _EagerProgram)
         return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel, join_live,
-                      cfg.compression,
+                      cfg.compression, eng._algo_sig(),
                       program_cls(eng, segments, join_metas))
 
     def _fallback(self, reason: str):
@@ -815,6 +874,8 @@ class StepReplay:
         self._buffered = []
         bound = _translate_failure(program.launch, flat)
         eng.dispatch_count += 1
+        if program.counts is not None:
+            eng._count(program.counts)
         for codec in program.codecs:
             if codec != _comp.CODEC_NONE:
                 eng.codec_selections[("replay", codec)] += 1

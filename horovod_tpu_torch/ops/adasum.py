@@ -218,12 +218,13 @@ def adasum_stacked(x: torch.Tensor, local_size: int = 0,
 def hierarchical_local_size(engine) -> int:
     """The local size of the hierarchical form when
     ``HOROVOD_HIERARCHICAL_ALLREDUCE`` is on and the collectively agreed
-    topology has one with a power-of-two cross size; else 0 (flat)."""
+    topology (``engine.topology``, the layout every two-level collective
+    shares) has one with a power-of-two cross size; else 0 (flat)."""
     if not (engine.config.hierarchical_allreduce
             and engine._hierarchical_ok()):
         return 0
-    local = engine.backend.local_size()
-    cross = engine.backend.size() // local
+    local = engine.topology.local_size
+    cross = engine.topology.size // local
     return local if local > 1 and not cross & (cross - 1) else 0
 
 

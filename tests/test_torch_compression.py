@@ -244,13 +244,13 @@ def test_fp8_demotes_to_int8_without_float8(monkeypatch):
 @pytest.mark.parametrize("n", (1, 2, 4, 8))
 def test_codec_residual_elems_is_the_references_flat_rule(n, total, codec):
     for cls, algo in (("reduce", "flat"), ("sharded", None)):
-        assert C.codec_residual_elems(cls, total, n, codec) == \
+        assert C.codec_residual_elems(cls, total, n, 4, algo, codec) == \
             RC.codec_residual_elems(cls, total, n, 4, algo, codec)
 
 
 def test_codec_residual_elems_refuses_an_unknown_class():
     with pytest.raises(ValueError, match="residual class"):
-        C.codec_residual_elems("hierarchical", 10, 2, "int8")
+        C.codec_residual_elems("hierarchical", 10, 2, 1, "flat", "int8")
 
 
 # ---------------------------------------------------------------------------

@@ -57,11 +57,13 @@ from horovod_tpu_torch.models.transformer import (Transformer,
                                                   TransformerConfig,
                                                   lean_lm_loss)
 from horovod_tpu_torch.models.vit import ViT
-from horovod_tpu_torch.ops import adasum as A, kernels as K
+from horovod_tpu_torch.ops import adasum as A, collectives as C, \
+    kernels as K
 from horovod_tpu_torch.ops.fused_batch_norm import FusedBatchNorm
 from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
-from torch_worker import (ADASUM_CARD_STEPS, CODEC_CARD_RUNS,
+from horovod_tpu_torch.parallel.mesh import Topology
+from torch_worker import (ADASUM_CARD_STEPS, ALGO_CARD_FORMS, CODEC_CARD_RUNS,
                           CODEC_CARD_STEPS, JOIN_TENSORS,
                           REPLAY_EXTRA, REPLAY_STEPS, RESNET_CARD_MODES,
                           SP_CARD_DIMS, SP_LRS, SP_STEPS,
@@ -70,7 +72,7 @@ from torch_worker import (ADASUM_CARD_STEPS, CODEC_CARD_RUNS,
                           join_adasum_inputs, mlp_data, mlp_params,
                           replay_leaf, run_world, shard_rows, sp_card_model,
                           sp_card_tokens, sparse_input, sync_bn_case,
-                          sync_bn_run, trace_events)
+                          sync_bn_run, trace_events, check_algo_cards)
 
 pytestmark = pytest.mark.cuda
 
@@ -2078,8 +2080,16 @@ def test_cuda_cards_replay_on_nccl(built, tmp_path, n):
                     env={"HOROVOD_PALLAS_PACK": "1"})
     warm = 3
     total = float(n * (n + 1) // 2)
-    n_buckets = len(bucket_by_size(
-        [torch.empty(2, i + 1) for i in range(JOIN_TENSORS)], 64))
+    buckets = bucket_by_size(
+        [torch.empty(2, i + 1) for i in range(JOIN_TENSORS)], 64)
+    n_buckets = len(buckets)
+    # auto's form of these small buckets on one node of n cards: the
+    # tree's log2(n) pair rounds at 4 or more, else one all_reduce
+    topo = Topology(size=n, local_size=n)
+    rounds = sum(
+        int(math.log2(n)) if C.choose_algorithm(
+            "allreduce", sum(8 * (i + 1) for i in b), topo) == "tree" else 1
+        for b in buckets)
     for rank, r in enumerate(res):
         for mode in ("on", "off", "off2"):
             assert len(r[mode]["traj"]) == REPLAY_STEPS
@@ -2111,7 +2121,7 @@ def test_cuda_cards_replay_on_nccl(built, tmp_path, n):
               f"{len(tr['device'])}, NCCL {len(nccl)} "
               f"({sorted(set(nccl))}), buckets {n_buckets}")
         assert sum("pack_kernel" in k for k in tr["device"]) == n_buckets
-        assert sum("AllReduce" in k for k in nccl) == n_buckets, nccl
+        assert sum("AllReduce" in k for k in nccl) == rounds, nccl
         assert sum("AllGather" in k for k in nccl) == 2, nccl
 
 
@@ -2275,3 +2285,65 @@ def test_cuda_cards_resnet50_join_round_cost(built, tmp_path):
           f"{', '.join(f'{v:.1f}' for v in rates[True])}), off "
           f"{np.median(rates[False]):.1f} (windows "
           f"{', '.join(f'{v:.1f}' for v in rates[False])})")
+
+
+@pytest.fixture(scope="module")
+def algo_worlds(tmp_path_factory):
+    """torch_worker's algo_cards scenario on NCCL (the flagship LM, AdamW,
+    one sequence a card, the pack kernel on): 2 cards as one node, 4
+    cards as two nodes of 2 (``HOROVOD_LOCAL_SIZE=2``: two "islands" on
+    one NVLink box), each world run once for the tests below."""
+    from horovod_tpu_torch.ops import build
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    build.library()
+    worlds = {}
+
+    def get(n):
+        if n > torch.cuda.device_count():
+            pytest.skip(f"needs {n} CUDA devices")
+        if n not in worlds:
+            worlds[n] = run_world(
+                "algo_cards", n, tmp_path_factory.mktemp(f"algo{n}"),
+                device="cuda", local_size=2,
+                env={"HOROVOD_PALLAS_PACK": "1"}, timeout=900)
+        return worlds[n]
+
+    return get
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_algo_on_nccl(algo_worlds, n):
+    """The collective algorithms on NCCL (torch_worker.check_algo_cards):
+    the flagship LM trained under auto, flat, tree and hierarchical,
+    replayed after the warm-up, ranks bitwise alike, the first reduced
+    gradients and the losses near the flat run's; auto's ladder for the
+    LM's buckets on two nodes of 2 and its tree for 64 KiB; the two-level
+    allgather and alltoall bitwise the flat ones; ZeRO-1's two-level
+    all-gather bitwise the flat leg; int8 on the ladder replayed. Prints
+    each form's losses and step time (recorded, not gated; the "cross"
+    legs are NVLink too on one box) before any check."""
+    res = algo_worlds(n)
+    warm = 3
+
+    def step_ms(run):
+        # the replayed steps' host ms, the slower rank's
+        return float(np.median([max(r["forms"][run]["step_ms"][i]
+                                    for r in res)
+                                for i in range(warm, len(res[0]["forms"][
+                                    run]["step_ms"]))]))
+
+    for form in ALGO_CARD_FORMS:
+        got = res[0]["forms"][form]
+        print(f"algo_cards n={n} {form}: losses "
+              f"{' '.join(f'{v:.5f}' for v in got['losses'])}; step "
+              f"{step_ms(form):.2f} ms (replayed steps, slower rank); "
+              f"selections {got['selections']}; first gradients "
+              f"{got['grad_ratio']:.3f} of the bound (bitwise "
+              f"{got['grad_bitwise']})")
+    print(f"algo_cards n={n}: 64 KiB {res[0]['small_selections']}, "
+          f"alltoall int8 error {res[0]['alltoall_int8_err']}, sharded "
+          f"auto {res[0]['sharded_auto']['selections']}, int8 ladder "
+          f"losses {res[0]['int8_hier']['losses']}")
+    check_algo_cards(res, n, "hierarchical" if n == 4 else "flat")
+

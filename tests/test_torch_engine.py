@@ -131,11 +131,13 @@ def test_average_of_integers_raises(world1):
 
 
 def test_hierarchical_sum_warns_once_that_it_runs_flat(monkeypatch, caplog):
-    """HOROVOD_HIERARCHICAL_ALLREDUCE with a Sum or Average allreduce: the
-    two-level ladder is not ported (ROADMAP A11), so the allreduce runs
-    flat, with the right result, and says so once per process (the
-    reference's one-time demotion warning); Max and a world without the
-    knob say nothing."""
+    """HOROVOD_HIERARCHICAL_ALLREDUCE with a Sum or Average allreduce in a
+    world of one rank: the two-level ladder needs more than one rank, so
+    the allreduce runs flat, with the right result, and says so once per
+    process (the reference's one-time demotion warning, naming the knob);
+    Max, which never takes the ladder, and a world without the knob say
+    nothing. Worlds that factorize run the ladder
+    (tests/test_torch_topology.py)."""
     from horovod_tpu_torch.core import engine as engine_mod
     monkeypatch.setattr(engine_mod, "_warned_demotions", set())
     for var in ("HOROVOD_TPU_COORDINATOR", "HOROVOD_TPU_NUM_PROCESSES"):

@@ -41,6 +41,8 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.ops.adasum\n"
         "import horovod_tpu_torch.ops.sync_batch_norm\n"
         "import horovod_tpu_torch.ops.compression\n"
+        "import horovod_tpu_torch.ops.collectives\n"
+        "import horovod_tpu_torch.common.env\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

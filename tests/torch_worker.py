@@ -1215,6 +1215,10 @@ def _sharded_scenario(hvd, rank: int, size: int) -> dict:
     cfg = global_state().config
     rep = global_state().engine.replay
     cfg.fusion_threshold_bytes = SHARDED_THRESHOLD
+    # ZeRO-1's reduce-scatter is always the flat ring (shard ownership):
+    # the dense runs it is held to bitwise take the flat ring too, where
+    # auto would take the tree for these small buckets at 4 ranks
+    cfg.collective_algo = "flat"
     rows = shard_rows(rank, size, SHARDED_ROWS)
     out = {}
 
@@ -1715,6 +1719,524 @@ def _codec_cards_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+# -- algorithm selection (the ``algo`` and ``algo_cards`` scenarios) --------
+
+ALGO_TOTALS = (7, 1001)         # divide neither 2 nor 4
+ALGO_OPS = ("SUM", "AVERAGE")
+ALGO_SCALES = ((1.0, 1.0), (2.0, 0.5))
+ALGO_FORMS = ("flat", "tree", "hierarchical")
+ALGO_CODECS = ("int8", "fp8", "bf16")
+ALGO_CODEC_STEPS = 2
+ALGO_A2A_ROWS = 3               # rows a rank sends each peer
+ALGO_JOIN_BIG = 100_000         # float32: past the 256 KiB tree band
+ALGO_OPT_STEPS = 5              # replay's warm-up (3) + 2 replayed steps
+
+
+def algo_input(rank: int, seed: int, total: int) -> np.ndarray:
+    """Rank ``rank``'s float32 bucket of ``total`` elements."""
+    rng = np.random.RandomState(500 + 97 * rank + 13 * seed + total % 89)
+    return rng.randn(total).astype(np.float32)
+
+
+def algo_split(total: int) -> list:
+    """The two tensors one bucket of ``total`` elements is packed from."""
+    return [(total // 3,), (total - total // 3,)]
+
+
+def algo_grid(n: int, local: int, elems: int = 512) -> np.ndarray:
+    """(n, elems) integers on the int8 grid of the ladder's cross leg (the
+    reference's test_hierarchical_ici_legs_bit_exact): each island's sum of
+    each local chunk has amax exactly 127 (scale 1), every other entry
+    small, so the cross leg's encode is exact."""
+    data = np.random.RandomState(11).randint(-7, 8, size=(n, elems)).astype(
+        np.float32)
+    chunk = elems // local
+    for j in range(local):
+        data[:, j * chunk] = 0.0
+        data[::local, j * chunk] = 127.0
+    return data
+
+
+def algo_a2a_input(rank: int, size: int) -> np.ndarray:
+    """A rank's (size·ALGO_A2A_ROWS, 5) alltoall input."""
+    rng = np.random.RandomState(700 + rank)
+    return rng.randn(size * ALGO_A2A_ROWS, 5).astype(np.float32)
+
+
+def _selections(eng, before) -> dict:
+    return dict(eng.algo_selections - before)
+
+
+def _algo_scenario(hvd, rank: int, size: int) -> dict:
+    """The collective algorithms at ``size`` ranks (laid out in nodes of
+    the launch's local size): each forced form's grouped Sum and Average
+    of one bucket of 7 and of 1001 elements, with and without scales; the
+    codec's hierarchical arm over ALGO_CODEC_STEPS steps with its
+    residual carried; the two-level allgather (even and uneven rows) and
+    the two-phase alltoall (plain and with each codec) against the flat
+    ones; the reference's exact-integer parity under auto, flat, tree and
+    hierarchical; a world of 2's demotion warning; rank 0 joining
+    against tree and ladder buckets; ZeRO-1's flat reduce-scatter beside a
+    hierarchical all-gather; DistributedOptimizer replayed under each
+    form; and, on a flat world of 4, two ranks whose topology view
+    factorizes agreeing with the others on flat."""
+    import collections
+    import logging
+    import torch
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import compression as comp
+    torch.set_num_threads(1)
+    eng = global_state().engine
+    cfg = global_state().config
+    cpu = torch.device("cpu")
+    warnings = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            if "using flat" in record.getMessage():
+                warnings.append(record.getMessage())
+
+    logging.getLogger("horovod_tpu_torch").addHandler(_Catch())
+    out = {"topology": eng.topology.describe(),
+           "hier_ok": eng._hierarchical_ok(),
+           "tree_rounds": len(eng._tree_groups or [])}
+    if cfg.collective_algo != "auto":
+        return _algo_forced_case(hvd, eng, cfg, out, warnings)
+    if eng.topology.local_size == size and size == 4:
+        return _algo_hetero_case(hvd, eng, cfg, out, rank)
+    cfg.fusion_threshold_bytes = 1 << 30
+    # each forced form on one bucket, through the engine
+    red, sel = {}, {}
+    for form in ALGO_FORMS:
+        cfg.collective_algo = form
+        before = collections.Counter(eng.algo_selections)
+        for op in ALGO_OPS:
+            for pre, post in ALGO_SCALES:
+                for total in ALGO_TOTALS:
+                    x = algo_input(rank, 0, total)
+                    parts = np.split(x, [algo_split(total)[0][0]])
+                    hs = eng.grouped_allreduce(
+                        [torch.from_numpy(p) for p in parts],
+                        name=f"red.{form}.{op}.{pre}.{total}",
+                        op=getattr(hvd.ReduceOp, op), prescale_factor=pre,
+                        postscale_factor=post)
+                    red[(form, op, pre, total)] = np.concatenate(
+                        [h.synchronize().numpy() for h in hs])
+        sel[form] = _selections(eng, before)
+    out["reduce"], out["reduce_selections"] = red, sel
+    cfg.collective_algo = "auto"
+    # the codec's hierarchical arm on the agreed groups
+    codec_out = {}
+    if eng._hierarchical_ok():
+        groups = eng.hierarchical_groups()
+        local, cross = eng._hier_sizes()
+        for codec in ALGO_CODECS:
+            ef = codec in comp.EF_CODECS
+            for op in ALGO_OPS:
+                avg = size if op == "AVERAGE" else 1
+                for total in ALGO_TOTALS:
+                    res = (torch.zeros(C.shard_spec(total, local)[1])
+                           if ef else None)
+                    steps = []
+                    for step in range(ALGO_CODEC_STEPS):
+                        flat = C.padded_bucket(total, local, torch.float32,
+                                               cpu)
+                        C.pack_padded([torch.from_numpy(
+                            algo_input(rank, 1 + step, total))], flat, True)
+                        p, sc = C.codec_hier_allreduce(
+                            flat, total, res, codec, local, cross, avg,
+                            1.0, 1.0, *groups)
+                        steps.append({
+                            "out": flat[:total].numpy().copy(),
+                            "payload": p.view(torch.uint8).numpy().copy(),
+                            "scale": None if sc is None
+                            else sc.numpy().copy(),
+                            "residual": None if res is None
+                            else res.numpy().copy()})
+                    codec_out[(codec, op, total)] = steps
+        grid = algo_grid(size, local)[rank]
+        flat = C.padded_bucket(grid.size, local, torch.float32, cpu)
+        C.pack_padded([torch.from_numpy(grid)], flat, True)
+        res = torch.zeros(C.shard_spec(grid.size, local)[1])
+        C.codec_hier_allreduce(flat, grid.size, res, "int8", local, cross,
+                               1, 1.0, 1.0, *groups)
+        codec_out["grid"] = {"out": flat.numpy().copy(),
+                             "residual": res.numpy().copy()}
+    out["codec_hier"] = codec_out
+    # allgather and alltoall, flat against two-level
+    gathers, a2a = {}, {}
+    even = np.random.RandomState(800 + rank).randn(3, 4).astype(np.float32)
+    ragged = np.full((rank + 1, 2), float(rank), np.float32)
+    for form in ("flat", "hierarchical"):
+        cfg.collective_algo = form
+        before = collections.Counter(eng.algo_selections)
+        gathers[form] = {
+            "even": hvd.allgather(torch.from_numpy(even)).numpy(),
+            "ragged": hvd.allgather(torch.from_numpy(ragged)).numpy(),
+            "selections": _selections(eng, before)}
+    cfg.collective_algo = "auto"
+    xa = torch.from_numpy(algo_a2a_input(rank, size))
+    for form, codec in (("flat", "none"), ("hierarchical", "none"),
+                        ("hierarchical", "int8"), ("hierarchical", "fp8"),
+                        ("hierarchical", "bf16"), ("flat", "int8")):
+        cfg.alltoall_algo, cfg.alltoall_codec = form, codec
+        before = collections.Counter(eng.algo_selections)
+        got = hvd.alltoall(xa)
+        a2a[(form, codec)] = {"out": got.numpy(),
+                              "selections": _selections(eng, before)}
+    # uneven splits keep the flat exchange
+    cfg.alltoall_algo, cfg.alltoall_codec = "hierarchical", "none"
+    before = collections.Counter(eng.algo_selections)
+    t, splits = alltoall_input(rank, size)
+    got, recv = hvd.alltoall(torch.from_numpy(t),
+                             splits=torch.tensor(splits))
+    a2a["uneven"] = {"out": got.numpy(), "recv": recv.numpy(),
+                     "selections": _selections(eng, before)}
+    cfg.alltoall_algo, cfg.alltoall_codec = "auto", "none"
+    out["allgather"], out["alltoall"] = gathers, a2a
+    # the reference's exact-integer parity under every forcing
+    parity = {}
+    for form in ("auto",) + ALGO_FORMS:
+        cfg.collective_algo = form
+        x = torch.arange(8.0) * (rank + 1)
+        g0, g1 = hvd.grouped_allreduce([x, x + 1.0], name=f"g.{form}",
+                                       op=hvd.Sum)
+        parity[form] = {
+            "allreduce": hvd.allreduce(x, name=f"ar.{form}",
+                                       op=hvd.Sum).numpy(),
+            "grouped": [g0.numpy(), g1.numpy()],
+            "allgather": hvd.allgather(torch.tensor([float(rank)]),
+                                       name=f"ag.{form}").numpy(),
+            "reducescatter": hvd.reducescatter(
+                torch.ones(size, 3) * (rank + 1), name=f"rs.{form}",
+                op=hvd.Sum).numpy()}
+    cfg.collective_algo = "auto"
+    out["parity"] = parity
+    # the legacy switch: a forced preference for the ladder, no warning
+    cfg.hierarchical_allreduce = True
+    before = collections.Counter(eng.algo_selections)
+    warned = len(warnings)
+    out["legacy"] = {
+        "sum": hvd.allreduce(torch.ones(16384), name="legacy",
+                             op=hvd.Sum)[:4].numpy(),
+        "selections": _selections(eng, before),
+        "warnings": warnings[warned:]}
+    cfg.hierarchical_allreduce = False
+    # auto's choices: a 64 KiB allreduce, a 1 MiB one
+    before = collections.Counter(eng.algo_selections)
+    hvd.allreduce(torch.ones(16384), name="auto.small", op=hvd.Sum)
+    hvd.allreduce(torch.ones(262144), name="auto.big", op=hvd.Sum)
+    out["auto_selections"] = _selections(eng, before)
+    out["link_bytes"] = dict(eng.link_bytes)
+    # rank 0 joins; the others' tree and ladder buckets meet its substitute
+    cfg.fusion_threshold_bytes = 64 * 1024
+    before = collections.Counter(eng.algo_selections)
+    values = None
+    if rank > 0:
+        hs = eng.grouped_allreduce(
+            [torch.full((16,), float(rank)),
+             torch.full((ALGO_JOIN_BIG,), float(rank))],
+            name="algo.join", op=hvd.Sum)
+        values = [h.synchronize().numpy().copy() for h in hs]
+    out["join"] = {"values": values, "last": hvd.join(),
+                   "selections": _selections(eng, before)}
+    # ZeRO-1: a flat reduce-scatter beside a two-level all-gather, against
+    # every leg flat; DistributedOptimizer replayed under each form
+    cfg.fusion_threshold_bytes = SHARDED_THRESHOLD
+    rows = shard_rows(rank, size, SHARDED_ROWS)
+    runs = {}
+    for key, form, sharded, replay in (
+            ("sharded_auto", "auto", True, True),
+            ("sharded_flat", "flat", True, True),
+            ("dense_tree", "tree", False, True),
+            ("dense_tree_off", "tree", False, False),
+            ("dense_hier", "hierarchical", False, True),
+            ("dense_hier_off", "hierarchical", False, False),
+            ("dense_hier_int8", "hierarchical", False, True),
+            ("dense_hier_int8_off", "hierarchical", False, False)):
+        cfg.collective_algo, cfg.step_replay = form, replay
+        eng.replay.invalidate_all("next run")
+        before = collections.Counter(eng.algo_selections)
+        codec = hvd.Compression.int8 if key.startswith(
+            "dense_hier_int8") else hvd.Compression.none
+        start = _replay_counters(hvd)
+        runs[key] = _codec_run(hvd, rows, ALGO_OPT_STEPS, lambda ps: (
+            hvd.DistributedOptimizer(torch.optim.SGD(ps, lr=CODEC_SGD_LR),
+                                     op=hvd.Average, sharded=sharded,
+                                     compression=codec)),
+            lambda opt: engine_residuals(eng))
+        runs[key]["replay"] = tuple(
+            a - b for a, b in zip(_replay_counters(hvd), start))
+        runs[key]["selections"] = _selections(eng, before)
+    cfg.collective_algo, cfg.step_replay = "auto", True
+    eng.replay.invalidate_all("done")
+    out["runs"] = runs
+    out["warnings"] = warnings
+    return out
+
+
+def _algo_forced_case(hvd, eng, cfg, out, warnings) -> dict:
+    """A world launched with HOROVOD_TPU_COLLECTIVE_ALGO forced: one Sum of
+    each kind, the selections and the warnings."""
+    import collections
+    import torch
+    rank = hvd.rank()
+    before = collections.Counter(eng.algo_selections)
+    x = torch.arange(8.0) * (rank + 1)
+    out["allreduce"] = hvd.allreduce(x, name="f.ar", op=hvd.Sum).numpy()
+    out["grouped"] = [h.numpy() for h in hvd.grouped_allreduce(
+        [x, x + 1.0], name="f.g", op=hvd.Sum)]
+    out["allgather"] = hvd.allgather(torch.tensor([float(rank)])).numpy()
+    out["selections"] = _selections(eng, before)
+    out["warnings"] = warnings
+    return out
+
+
+def _algo_hetero_case(hvd, eng, cfg, out, rank) -> dict:
+    """Ranks 0 and 1 hold a topology view that factorizes, ranks 2 and 3
+    the launcher's flat one: the agreement, run again by every rank at
+    the next selection, agrees on no hierarchy, and a large allreduce
+    runs flat on every rank without a deadlock (the reference's
+    tests/test_multiprocess.py:935-985)."""
+    import collections
+    import dataclasses
+    import torch
+    if rank < 2:
+        eng.topology = dataclasses.replace(eng.topology, local_size=2)
+    out["view_ok"] = eng.topology.hierarchical_ok
+    out["local"] = eng.topology.local_size
+    eng._hier_ok = None
+    before = collections.Counter(eng.algo_selections)
+    big = torch.ones(128 * 1024)           # 512 KiB: past the tree band
+    out["sum"] = hvd.allreduce(big, name="het", op=hvd.Sum)[:4].numpy()
+    out["hier_ok"] = eng._hierarchical_ok()
+    out["selections"] = _selections(eng, before)
+    return out
+
+
+ALGO_CARD_STEPS = 5             # replay's warm-up (3) + 2 replayed steps
+ALGO_CARD_FORMS = ("auto", "flat", "tree", "hierarchical")
+
+
+def _algo_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The bf16 LM with fp32 parameters (the flagship on the card, a tiny
+    one on the CPU rehearsal), one sequence a rank, ALGO_CARD_STEPS AdamW
+    steps through DistributedOptimizer under each of ALGO_CARD_FORMS from
+    the same seed at the default 64 MB fusion threshold, replayed after
+    the warm-up. Per form: the losses, the host ms of each step, a digest
+    of the parameters, the replay counters, the selections, and the first
+    step's reduced gradients against the flat run's (the largest ratio of
+    their difference to 2 fp32 units of the sum of the ranks' |terms|).
+    Then: a 64 KiB allreduce's selection; the two-level allgather and
+    the two-phase alltoall (plain and int8) against the flat ones;
+    sharded=True under auto against every leg flat; int8 on the ladder
+    replayed; and the warnings the forcings gave."""
+    import collections
+    import hashlib
+    import logging
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch.common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lean_lm_loss)
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    cfg = global_state().config
+    cfg.fusion_threshold_bytes = DEFAULT_FUSION_THRESHOLD_BYTES
+    eng = global_state().engine
+    rep = eng.replay
+    warnings = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            if "using flat" in record.getMessage():
+                warnings.append(record.getMessage())
+
+    logging.getLogger("horovod_tpu_torch").addHandler(_Catch())
+    dims = ADASUM_CARD_DIMS if dev.type == "cuda" else ADASUM_CPU_DIMS
+    lm = TransformerConfig(dtype=torch.bfloat16, attention="flash", **dims)
+    tokens = np.random.RandomState(19).randint(
+        0, lm.vocab_size, size=(size, lm.max_seq + 1))
+    x = torch.from_numpy(tokens[rank:rank + 1, :-1]).to(dev)
+    y = torch.from_numpy(tokens[rank:rank + 1, 1:]).to(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def digest(model):
+        h = hashlib.sha256()
+        for p in model.parameters():
+            h.update(p.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def train(form, sharded=False, codec="none", steps=ALGO_CARD_STEPS,
+              first=None):
+        cfg.collective_algo = form
+        rep.invalidate_all("next run")
+        model = Transformer(lm, generator=torch.Generator().manual_seed(0))
+        model.to(dev)
+        params = list(model.parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            op=hvd.Average, sharded=sharded,
+            compression=getattr(hvd.Compression, codec))
+        seen = {}
+        if first is not None:
+            # the first step's reduced gradients, read by the wrapped
+            # optimizer's step
+            def keep(optimizer, args, kwargs):
+                seen.setdefault("reduced",
+                                [p.grad.detach().clone() for p in params])
+
+            hook = opt.optimizer.register_step_pre_hook(keep)
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+        selections = collections.Counter(eng.algo_selections)
+        warned = len(warnings)
+        res = {"losses": [], "step_ms": []}
+        for step in range(steps):
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            if step == 0 and first is not None:
+                # 2 fp32 units of the sum of the ranks' |terms| (Average)
+                terms = [p.grad.detach().abs() / size for p in params]
+                for t in terms:
+                    dist.all_reduce(t)
+                seen["bound"] = [t.mul_(2.0 ** -22) for t in terms]
+            opt.step()
+            res["losses"].append(float(loss.detach()))
+            sync()
+            res["step_ms"].append(1e3 * (time.perf_counter() - t0))
+            if step == 0 and first is not None:
+                hook.remove()
+        res["replay"] = tuple(a - b for a, b in zip(
+            (rep.captured_streams, rep.replayed_steps, rep.fallbacks),
+            before))
+        res["selections"] = dict(eng.algo_selections - selections)
+        res["warnings"] = warnings[warned:]
+        res["digest"] = digest(model)
+        res["finite"] = all(bool(torch.isfinite(p).all()) for p in params)
+        if first is not None:
+            reduced = seen["reduced"]
+            if form == "flat":
+                first["flat"] = reduced
+            ratio = 0.0
+            for got, want, bound in zip(reduced, first["flat"],
+                                        seen["bound"]):
+                diff = (got - want).abs()
+                over = diff / bound.clamp_min(1e-38)
+                ratio = max(ratio, float(over.max()))
+            res["grad_ratio"] = ratio
+            res["grad_bitwise"] = all(torch.equal(a, b) for a, b in
+                                      zip(reduced, first["flat"]))
+        del model, opt, params, seen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return res
+
+    out = {"topology": eng.topology.describe(),
+           "hier_ok": eng._hierarchical_ok(),
+           "tree_rounds": len(eng._tree_groups or []), "forms": {}}
+    first = {}
+    for form in ("flat",) + tuple(f for f in ALGO_CARD_FORMS
+                                  if f != "flat"):
+        out["forms"][form] = train(form, first=first)
+    del first
+    cfg.collective_algo = "auto"
+    before = collections.Counter(eng.algo_selections)
+    hvd.allreduce(torch.ones(16384, device=dev), name="card.64k", op=hvd.Sum)
+    out["small_selections"] = dict(eng.algo_selections - before)
+    # the two-level allgather and the two-phase alltoall
+    g = torch.from_numpy(np.random.RandomState(30 + rank).randn(
+        4096, 256).astype(np.float32)).to(dev)
+    a = torch.from_numpy(np.random.RandomState(40 + rank).randn(
+        size * 1024, 512).astype(np.float32)).to(dev).to(torch.bfloat16)
+    ex = {}
+    for form in ("flat", "hierarchical"):
+        cfg.collective_algo = form
+        ex[f"allgather_{form}"] = hvd.allgather(g)
+    cfg.collective_algo = "auto"
+    for form, codec in (("flat", "none"), ("hierarchical", "none"),
+                        ("hierarchical", "int8")):
+        cfg.alltoall_algo, cfg.alltoall_codec = form, codec
+        before = collections.Counter(eng.algo_selections)
+        ex[f"alltoall_{form}_{codec}"] = hvd.alltoall(a)
+        out[f"alltoall_{form}_{codec}_selections"] = dict(
+            eng.algo_selections - before)
+    cfg.alltoall_algo, cfg.alltoall_codec = "auto", "none"
+    out["allgather_bitwise"] = torch.equal(ex["allgather_flat"],
+                                           ex["allgather_hierarchical"])
+    out["alltoall_bitwise"] = torch.equal(ex["alltoall_flat_none"],
+                                          ex["alltoall_hierarchical_none"])
+    # the int8 codec on the cross phase: each received element within half
+    # a step of its sender's scale (its payload's amax / 127, at most the
+    # world's amax / 127) plus the rounding back to bf16 (2^-8 of amax)
+    err = (ex["alltoall_hierarchical_int8"].float()
+           - ex["alltoall_flat_none"].float()).abs().max()
+    amax = a.float().abs().max()
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    out["alltoall_int8_err"] = (float(err),
+                                float(amax) * (0.5 / 127 + 2.0 ** -8))
+    del ex, g, a
+    # ZeRO-1 under auto (the all-gather two-level where the world
+    # factorizes) against every leg flat; int8 on the ladder, replayed
+    out["sharded_auto"] = train("auto", sharded=True)
+    out["sharded_flat"] = train("flat", sharded=True)
+    out["int8_hier"] = train("hierarchical", codec="int8")
+    out["warnings"] = warnings
+    cfg.collective_algo = "auto"
+    return out
+
+
+def check_algo_cards(res, n: int, lm_algo: str):
+    """The checks of the ``algo_cards`` scenario's results on ``n`` ranks
+    (``lm_algo``: the form auto picks for the LM's buckets): every form's
+    parameters alike on every rank, replayed after the warm-up, finite,
+    its first reduced gradients within 2 fp32 units of the sum of the
+    ranks' |terms| of the flat run's and its losses within 0.1% of that
+    run's; each forced form resolved as the world can express it (at 2
+    ranks the ladder demotes with one warning and the tree is one pair
+    round); a 64 KiB allreduce on the tree at 4 ranks; the two-level
+    allgather and alltoall bitwise the flat ones, int8 on the alltoall
+    within its error; ZeRO-1 under auto bitwise every leg flat; int8 on
+    the ladder finite and replayed."""
+    for r in res:
+        flat = r["forms"]["flat"]["losses"]     # this rank's sequence
+        assert r["hier_ok"] == (n == 4)
+        for form, run in r["forms"].items():
+            assert run["digest"] == res[0]["forms"][form]["digest"], form
+            assert run["replay"] == (1, 2, 0), (form, run["replay"])
+            assert run["finite"]
+            assert run["grad_ratio"] <= 1.0, (form, run["grad_ratio"])
+            assert max(abs(a - b) / abs(b) for a, b in
+                       zip(run["losses"], flat)) < 1e-3, form
+        assert set(r["forms"]["auto"]["selections"]) == {
+            ("allreduce", lm_algo)}
+        for form in ("tree", "hierarchical"):
+            want = form if (form, n) != ("hierarchical", 2) else "flat"
+            assert set(r["forms"][form]["selections"]) == {
+                ("allreduce", want)}
+        warned = r["forms"]["hierarchical"]["warnings"]
+        assert len(warned) == (n == 2), warned
+        assert r["tree_rounds"] == int(np.log2(n))
+        assert r["small_selections"] == {
+            ("allreduce", "tree" if n == 4 else "flat"): 1}
+        assert r["allgather_bitwise"] and r["alltoall_bitwise"]
+        err, bound = r["alltoall_int8_err"]
+        assert err <= bound, (err, bound)
+        assert r["sharded_auto"]["digest"] == r["sharded_flat"]["digest"]
+        assert r["sharded_auto"]["losses"] == r["sharded_flat"]["losses"]
+        assert r["int8_hier"]["finite"]
+        assert r["int8_hier"]["replay"] == (1, 2, 0)
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -1725,7 +2247,8 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "resnet_cards": _resnet_cards_scenario,
              "replay": _replay_scenario, "sharded": _sharded_scenario,
              "sharded_cards": _sharded_cards_scenario,
-             "codec": _codec_scenario, "codec_cards": _codec_cards_scenario}
+             "codec": _codec_scenario, "codec_cards": _codec_cards_scenario,
+             "algo": _algo_scenario, "algo_cards": _algo_cards_scenario}
 
 
 def main(argv):
