@@ -203,6 +203,18 @@ and then:
     same counted steps; every instrumented run, the in-process one
     included, may synchronize no more times than the bare ones. It prints
     each arm's medians and ranges.
+20. The tensor axis's paths at world size 1, on the flagship LM's widths
+    with the MoE FFN (8 experts, capacity factor 2; bench.py's
+    bench_moe_ep): ``make_moe_ep_train_step`` eager and then with replay
+    armed (the replayed losses bitwise the eager ones, one CUDA graph an
+    exchange: 4·L a replayed step, the host synchronizations of a
+    replayed step, the routing skew, tokens/s and peak memory),
+    ``make_train_step`` on the (1, 1, 1) mesh with the MoE FFN, and the
+    dense flagship through ``make_train_step`` against
+    ``DistributedOptimizer`` on the same weights (the parameters bitwise),
+    then ``moe_ep_vs_dense``: the dense step's time over the MoE-EP
+    step's at matched active parameters. Every K6 kernel once a layer and
+    step in each part.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -212,7 +224,8 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13, 14, 15, 16, 17 and 18) and read just after it;
+each form of 11, 12, 13, 14, 15, 16, 17 and 18, each part of 20) and read
+just after it;
 every kernel of the path must have launched there (53 BN layers per ResNet step for each
 BN kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
 K1 in padded mode once a bucket for the move and each eager step of phase
@@ -443,6 +456,13 @@ OBS_KNOBS = tuple(OBS_OFF) + ("HOROVOD_TIMELINE", "HOROVOD_TPU_METRICS_FILE",
                               "HOROVOD_TPU_TRACE_DUMP_DIR",
                               "HOROVOD_TPU_DEBUG_CONSISTENCY")
 OBS_ARMS = ("defaults", "off", "all")
+# phase 20: the tensor axis's paths at world size 1 on the flagship LM's
+# widths, the MoE FFN with bench.py:bench_moe_ep's experts and factor
+MOE_EXPERTS, MOE_FACTOR, MOE_BATCH = 8, 2.0, 4
+MOE_STEPS = 5                  # MoE-EP steps each way (eager, replay armed)
+MOE_WARM = 2                   # of them the replay's warm-up
+MOE_TP_STEPS = 3               # make_train_step steps of (b) and (c)
+MOE_DENSE_TIMED = 4            # dense lean-loss steps timed for the ratio
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -3759,6 +3779,252 @@ def run_observability_overhead(log):
     return {"arms": summary, "rounds": OBS_ROUNDS, "rows": rows}
 
 
+def _sync_count(torch, fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: its result and the
+    synchronizing calls it made."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def _adamw(torch, params):
+    # optax.adamw(3e-4)'s settings, as phase 5
+    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+def _finite_falling(losses) -> bool:
+    return (all(v == v and abs(v) != float("inf") for v in losses)
+            and losses[-1] < losses[0])
+
+
+def run_moe_path(torch, hvd, K, tm, dev, smi, log):
+    """Phase 20: the tensor axis's paths on one card at world size 1, on
+    the flagship LM's widths (``LM_DIMS``, batch ``MOE_BATCH``, bf16 on
+    fp32 parameters, AdamW, ``attention="flash"``) with the MoE FFN of
+    ``MOE_EXPERTS`` experts at capacity factor ``MOE_FACTOR``:
+
+    (a) ``make_moe_ep_train_step`` from the same weights ``MOE_STEPS``
+        steps with replay off, then as many with it on (``MOE_WARM``
+        warm-up steps, then every exchange a replayed CUDA graph): the
+        losses finite and falling, the replayed run's bitwise the eager
+        one's; K6's launches (one of each kernel a layer and step) and the
+        graph launches of a replayed step (4·L); the host synchronizations
+        of a replayed step; the routing skew; tokens/s of the replayed
+        steps; peak memory;
+    (b) ``make_train_step`` on the (1, 1, 1) mesh with the MoE FFN: the
+        losses finite and falling, its first within 2e-2 of (a)'s (fp32
+        logits against (a)'s bf16 ones);
+    (c) the dense flagship through ``make_train_step`` on (1, 1, 1)
+        against ``DistributedOptimizer`` on the same loss from the same
+        weights: the parameters bitwise, or within 1e-6 of each one's
+        largest entry; then the dense step of ``lean_lm_loss`` timed for
+        ``moe_ep_vs_dense`` (bench.py:1029-1032: the dense step's time
+        over the MoE-EP step's at matched active parameters, one d_ff FFN
+        a token).
+
+    Returns the phase's summary and its K6 and K1 launches."""
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    t_phase = time.perf_counter()
+    eng = hvd.global_state().engine
+    check(hvd.size() == 1, "phase 20 needs a size-1 world")
+    cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                               use_moe=True, n_experts=MOE_EXPERTS,
+                               moe_capacity_factor=MOE_FACTOR, **LM_DIMS)
+    L, T, B = cfg.n_layers, cfg.max_seq, MOE_BATCH
+    gen = torch.Generator(device=dev).manual_seed(20)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), device=dev,
+                           generator=gen)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    model = tm.Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if n.endswith((".w1", ".w2")))
+    shared, expert = tm.moe_ep_partition(model, 0, 1, cfg)
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    log(f"  MoE LM: {n_params / 1e9:.3f} G parameters ({n_expert / 1e9:.3f}"
+        f" G in the experts; {len(shared)} shared and {len(expert)} expert "
+        f"leaves), B{B} T{T}, E{MOE_EXPERTS} top-1, capacity factor "
+        f"{MOE_FACTOR} ({smi})")
+    out = {"parameters": n_params, "expert_parameters": n_expert,
+           "card": smi}
+    counts = {}
+
+    def ep_run(replay):
+        model.load_state_dict(state0)
+        eng.config.step_replay = replay
+        eng.replay.invalidate_all(f"phase 20 ({'replay' if replay else 'eager'})")
+        opt = _adamw(torch, model.parameters())
+        step = tm.make_moe_ep_train_step(eng, cfg, opt)
+        losses, ms, marks = [], [], []
+        for _ in range(MOE_STEPS):
+            d0, r0 = eng.dispatch_count, eng.replay.replayed_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(model, x, y)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            marks.append((eng.dispatch_count - d0,
+                          eng.replay.replayed_steps - r0))
+        return step, losses, ms, marks
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    _, eager, eager_ms, _ = ep_run(False)
+    counts["eager"] = K.launch_counts()
+    K.reset_launch_counts()
+    step, replayed, rep_ms, marks = ep_run(True)
+    counts["replay"] = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # one more replayed step, its synchronizations counted
+    d0 = eng.dispatch_count
+    loss, syncs = _sync_count(torch, lambda: step(model, x, y))
+    sync_dispatches = eng.dispatch_count - d0
+    eng.config.step_replay = True
+    log(f"  (a) MoE-EP eager losses {' '.join(f'{v:.4f}' for v in eager)} "
+        f"({smi})")
+    log(f"      replayed losses     "
+        f"{' '.join(f'{v:.4f}' for v in replayed)}; dispatches and "
+        f"replayed exchanges a step {marks}")
+    check(_finite_falling(eager), f"phase 20 (a): eager losses {eager}")
+    check(replayed == eager, f"phase 20 (a): the replayed run's losses "
+          f"{replayed} are not bitwise the eager run's {eager}")
+    rounds = 4 * L
+    check(all(m == (rounds, rounds) for m in marks[MOE_WARM:]),
+          f"phase 20 (a): replayed steps' dispatches {marks}, expected "
+          f"{rounds} graph launches a step")
+    check(sync_dispatches == rounds, f"phase 20 (a): the counted step "
+          f"dispatched {sync_dispatches}")
+    for run in ("eager", "replay"):
+        for name in FLASH_KERNELS:
+            check(counts[run][name] == L * MOE_STEPS,
+                  f"phase 20 (a) {run}: {name} launched "
+                  f"{counts[run][name]}, expected {L * MOE_STEPS}")
+    snap = hvd.metrics_snapshot()
+    skew = {lab.get("layer"): v for lab, v in snap.get("gauges", {}).get(
+        "hvd_tpu_moe_dispatch_skew", {}).get("values", [])}
+    check(sorted(skew) == [str(i) for i in range(L)]
+          and all(v >= 1.0 for v in skew.values()),
+          f"phase 20 (a): routing skew gauges {skew}")
+    steady = statistics.median(rep_ms[MOE_WARM:])
+    moe_tok_s = B * T / (steady / 1e3)
+    log(f"      step ms eager {' '.join(f'{v:.1f}' for v in eager_ms)}; "
+        f"replayed {' '.join(f'{v:.1f}' for v in rep_ms)} (median of the "
+        f"replayed {steady:.2f} ms, {moe_tok_s:.1f} tokens/s); "
+        f"synchronizations a replayed step {len(syncs)}: {syncs}; skew "
+        f"{skew}; peak {peak:.2f} GiB ({smi})")
+    out["ep"] = {"eager_losses": eager, "replayed_losses": replayed,
+                 "bitwise": replayed == eager, "eager_ms": eager_ms,
+                 "replayed_ms": rep_ms, "marks": marks,
+                 "graphs_per_step": rounds, "syncs_per_step": len(syncs),
+                 "syncs": syncs, "skew": skew, "tokens_per_s": moe_tok_s,
+                 "step_ms": steady, "peak_gib": peak,
+                 "k6_launches_per_step": {
+                     n: counts["replay"][n] // MOE_STEPS
+                     for n in FLASH_KERNELS}}
+    del step
+    # (b) make_train_step on the (1, 1, 1) mesh with the MoE FFN
+    mesh = training_mesh({"data": 1, "seq": 1, "tensor": 1})
+    model.load_state_dict(state0)
+    K.reset_launch_counts()
+    tp_step = tm.make_train_step(mesh, cfg, _adamw(torch, model.parameters()))
+    tp_losses = [float(tp_step(model, x, y)) for _ in range(MOE_TP_STEPS)]
+    counts["tp_moe"] = K.launch_counts()
+    log(f"  (b) make_train_step (1, 1, 1), MoE FFN: losses "
+        f"{' '.join(f'{v:.4f}' for v in tp_losses)} ({smi})")
+    check(_finite_falling(tp_losses), f"phase 20 (b): losses {tp_losses}")
+    check(abs(tp_losses[0] - eager[0]) <= 2e-2 * abs(eager[0]),
+          f"phase 20 (b): first loss {tp_losses[0]} against (a)'s "
+          f"{eager[0]}")
+    for name in FLASH_KERNELS:
+        check(counts["tp_moe"][name] == L * MOE_TP_STEPS,
+              f"phase 20 (b): {name} launched {counts['tp_moe'][name]}")
+    out["tp_moe_losses"] = tp_losses
+    del tp_step, model, state0
+    torch.cuda.empty_cache()
+    # (c) the dense flagship: make_train_step against DistributedOptimizer
+    dcfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                                **LM_DIMS)
+    dense = tm.Transformer(dcfg, generator=torch.Generator().manual_seed(0))
+    dense.to(dev)
+    dstate = {k: v.detach().clone() for k, v in dense.state_dict().items()}
+    K.reset_launch_counts()
+    tp_step = tm.make_train_step(mesh, dcfg, _adamw(torch, dense.parameters()))
+    tp_dense = [float(tp_step(dense, x, y)) for _ in range(MOE_TP_STEPS)]
+    counts["tp_dense"] = K.launch_counts()
+    got = {n: p.detach().clone() for n, p in dense.named_parameters()}
+    del tp_step
+    dense.load_state_dict(dstate)
+    opt = hvd.DistributedOptimizer(_adamw(torch, dense.parameters()),
+                                   op=hvd.Sum)
+    plain = []
+    for _ in range(MOE_TP_STEPS):
+        opt.zero_grad()
+        total, count = tm._local_loss(dense, x, y)
+        loss = total / count
+        loss.backward()
+        opt.step()
+        plain.append(float(loss.detach()))
+    worst, bitwise = 0.0, True
+    for n, p in dense.named_parameters():
+        p = p.detach()
+        bitwise = bitwise and torch.equal(p, got[n])
+        worst = max(worst, float((p - got[n]).abs().max()
+                                 / p.abs().max().clamp_min(1e-30)))
+    log(f"  (c) dense make_train_step (1, 1, 1) losses "
+        f"{' '.join(f'{v:.4f}' for v in tp_dense)}; DistributedOptimizer "
+        f"{' '.join(f'{v:.4f}' for v in plain)}; parameters bitwise "
+        f"{bitwise}, largest difference {worst:.3g} of the largest entry "
+        f"({smi})")
+    check(_finite_falling(tp_dense), f"phase 20 (c): losses {tp_dense}")
+    check(bitwise or worst <= 1e-6, f"phase 20 (c): parameters {worst:.3g} "
+          "of the largest entry apart")
+    for name in FLASH_KERNELS:
+        check(counts["tp_dense"][name] == dcfg.n_layers * MOE_TP_STEPS,
+              f"phase 20 (c): {name} launched {counts['tp_dense'][name]}")
+    # the dense step of lean_lm_loss, timed as (a)'s replayed steps
+    dense.load_state_dict(dstate)
+    opt = hvd.DistributedOptimizer(_adamw(torch, dense.parameters()),
+                                   op=hvd.Average)
+    dense_ms = []
+    for _ in range(MOE_DENSE_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        tm.lean_lm_loss(dense, x, y).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+    dense_step = statistics.median(dense_ms[1:])
+    ratio = dense_step / steady
+    log(f"  moe_ep_vs_dense {ratio:.4f}: the dense step {dense_step:.2f} ms "
+        f"({B * T / (dense_step / 1e3):.1f} tokens/s) against MoE-EP "
+        f"{steady:.2f} ms ({moe_tok_s:.1f} tokens/s) ({smi})")
+    out.update(tp_dense_losses=tp_dense, plain_losses=plain,
+               tp_dense_bitwise=bitwise, tp_dense_max_rel=worst,
+               dense_step_ms=dense_step, dense_ms=dense_ms,
+               dense_tokens_per_s=B * T / (dense_step / 1e3),
+               moe_ep_vs_dense=ratio)
+    del dense, dstate, got, opt
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20: {out['seconds']:.1f} s ({smi})")
+    total = {name: sum(c.get(name, 0) for c in counts.values())
+             for name in FLASH_KERNELS + ("pack",)}
+    return out, total
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -4156,6 +4422,13 @@ def main(argv=None) -> int:
               f"{observability['syncs_on']} times, the bare ones "
               f"{off_syncs}")
         hvd.init()
+
+        log(f"phase 20: the tensor axis's paths on the flagship LM's widths "
+            f"at world size 1: the MoE-EP step (E{MOE_EXPERTS}, capacity "
+            f"factor {MOE_FACTOR}) eager and replayed, make_train_step on "
+            f"(1, 1, 1) with the MoE FFN and dense against "
+            f"DistributedOptimizer")
+        moe, moe_counts = run_moe_path(torch, hvd, K, tm, dev, smi, log)
     finally:
         hvd.shutdown()
 
@@ -4263,7 +4536,8 @@ def main(argv=None) -> int:
              codec_launches=codec_counts["pack"],
              codec_graph_launches=codec_counts["pack_graph"],
              algo_launches=algo_counts["pack"],
-             algo_graph_launches=algo_counts["pack_graph"]),
+             algo_graph_launches=algo_counts["pack_graph"],
+             moe_launches=moe_counts["pack"]),
         # K1 into a ZeRO-1 bucket's padded buffer (out=): phase 16's
         # launches, phase 1's numbers
         dict(name="pack_out", route="cuda", source=f"{src}/pack.cu",
@@ -4303,7 +4577,8 @@ def main(argv=None) -> int:
         # that flash_attention_local calls there
         dict(name=name, route="cuda", source=f"{src}/{flash_source(name)}",
              replaces="horovod_tpu/parallel/flash_attention.py:226",
-             launches=lm_counts[name], vit_launches=vit_counts[name], ok=True,
+             launches=lm_counts[name], vit_launches=vit_counts[name],
+             moe_launches=moe_counts[name], ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
              **flash_rows[name], **ptxas[name],
@@ -4352,7 +4627,7 @@ def main(argv=None) -> int:
                       "wide_attention": wide, "sync_bn": sync_bn,
                       "replay": replay, "sharded": sharded,
                       "codec": codec, "algo": algo,
-                      "observability": observability,
+                      "observability": observability, "moe": moe,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

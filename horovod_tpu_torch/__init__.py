@@ -95,6 +95,16 @@ def device():
     return _backend().device
 
 
+def mesh():
+    """The 1-D world mesh of the running ``init()`` (one rank per process,
+    axis ``world`` on the default process group): a
+    :class:`~.parallel.mesh.TrainingMesh`, as ``training_mesh`` builds
+    them."""
+    _backend()
+    from .parallel.mesh import world_mesh
+    return world_mesh()
+
+
 # Build introspection: the port's data plane is NCCL on CUDA (gloo on CPU).
 def mpi_built() -> bool:
     return False
@@ -278,6 +288,7 @@ from . import faults  # noqa: E402
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
+    "mesh",
     "allreduce", "allreduce_async", "grouped_allreduce",
     "grouped_allreduce_async", "allgather", "allgather_async", "broadcast",
     "broadcast_async", "alltoall", "alltoall_async", "reducescatter",

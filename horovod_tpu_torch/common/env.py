@@ -61,6 +61,7 @@ HOROVOD_TPU_ALLTOALL_ALGO = "HOROVOD_TPU_ALLTOALL_ALGO"
 HOROVOD_TPU_ALLTOALL_CODEC = "HOROVOD_TPU_ALLTOALL_CODEC"
 HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES = \
     "HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES"
+HOROVOD_TPU_MOE_CAPACITY_FACTOR = "HOROVOD_TPU_MOE_CAPACITY_FACTOR"
 # ranks on one fast-fabric island (an NVLink box): overrides the
 # launcher's HOROVOD_LOCAL_SIZE and the ranks' host names
 # (parallel/mesh.py detect_topology)
@@ -194,6 +195,9 @@ class Config:
     alltoall_algo: str = "auto"
     alltoall_codec: str = "none"
     alltoall_hier_threshold_bytes: int = 0
+    # the MoE-EP train step's capacity factor when above 0, else the
+    # model config's (models/transformer.py make_moe_ep_train_step)
+    moe_capacity_factor: float = 0.0
     # observability (the reference's Config:431-622, its defaults); the
     # HOROVOD_TPU_METRICS switch is read by metrics.metrics_enabled(): the
     # registry is process-wide and outlives any Config
@@ -244,6 +248,8 @@ class Config:
                                        COMPRESSION_MODES),
             alltoall_hier_threshold_bytes=_get_int(
                 HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES, 0),
+            moe_capacity_factor=_get_float(
+                HOROVOD_TPU_MOE_CAPACITY_FACTOR, 0.0),
             timeline_path=os.environ.get(HOROVOD_TIMELINE) or None,
             timeline_mark_cycles=_get_bool(HOROVOD_TIMELINE_MARK_CYCLES),
             stall_check_disable=_get_bool(HOROVOD_STALL_CHECK_DISABLE),

@@ -25,8 +25,8 @@ zero tensors, so every internal exchange lines up, until every rank has
 joined. ``HOROVOD_JOIN_DISABLE=1`` drops the round, and ``join()`` is a
 barrier. A sharded step has no substitute (a joined rank owns a shard):
 its round is read by every rank before any exchange, and every rank
-raises. The reference's ``grouped_alltoall`` substitute comes with that
-collective (ROADMAP A16).
+raises. A grouped alltoall's substitute (kind 11) is a zero group of the
+advertised shapes, whose buckets and exchanges are the active ranks'.
 
 ZeRO-1 (the reference's ``sharded_step``, :1911-2164): per bucket of the
 caller's frozen layout, K1 packs the gradients into a padded buffer and a
@@ -350,12 +350,10 @@ class HandleManager:
 
 
 # Join-protocol metadata (the reference's codes, core/engine.py:264-300).
-# The reference's kind 11 (grouped_alltoall) comes with that collective
-# (ROADMAP A16).
 _KIND_CODES = {"allreduce": 1, "grouped_allreduce": 2, "allgather": 3,
                "broadcast": 4, "alltoall": 5, "reducescatter": 6,
                "barrier": 7, "adasum": 8, "grouped_broadcast": 9,
-               "sharded_step": 10}
+               "sharded_step": 10, "grouped_alltoall": 11}
 _CODE_KINDS = {v: k for k, v in _KIND_CODES.items()}
 _DTYPE_CODES = {torch.float32: 1, torch.float64: 2, torch.float16: 3,
                 torch.bfloat16: 4, torch.int8: 5, torch.int16: 6,
@@ -973,7 +971,7 @@ class Engine:
     def _algo_sig(self) -> tuple:
         """The knobs the selection reads: replay rebuilds an armed program
         on any move of them (the reference's :722-738 without its pipeline
-        knobs, ROADMAP A16)."""
+        knobs, ROADMAP A16b)."""
         cfg = self.config
         return (cfg.collective_algo, cfg.tree_threshold_bytes,
                 cfg.hier_threshold_bytes,
@@ -1632,6 +1630,121 @@ class Engine:
         return self._track(Handle(name, LaunchGroup(work),
                                   lambda: (out, recv), self, "alltoall"))
 
+    def grouped_alltoall(self, tensors: Sequence,
+                         name: Optional[str] = None) -> List[Handle]:
+        """Fused even-split alltoall of many tensors (the reference's
+        :2504-2590): every tensor's dim 0 must divide by the world size
+        (the capacity-routed MoE dispatch shape: fixed a step and alike on
+        every rank, which makes the call replayable). Per fusion bucket
+        the members' ``(n, w_i)`` chunk matrices (row j the chunk bound for
+        rank j) are concatenated into one ``(n, R_b)`` buffer and exchanged
+        once (``ops/collectives.py`` ``a2a_pack``), flat or two-phase by
+        the bucket's bytes and the topology, with
+        ``HOROVOD_TPU_ALLTOALL_CODEC`` on a two-phase bucket's cross phase
+        only; the columns unpack into each tensor's shape. One handle a
+        tensor, whose result is the received tensor (the splits are even
+        by contract). At size 1 the result is the input."""
+        tensors = [self._tensor(t) for t in tensors]
+        sub = self._consume_substitute()
+        size = self.backend.size()
+        for t in tensors:
+            if t.dim() == 0 or int(t.shape[0]) % size:
+                raise ValueError(
+                    f"grouped_alltoall requires every tensor's dim 0 "
+                    f"divisible by size ({size}); got {tuple(t.shape)}. "
+                    f"Use alltoall(splits=...) for ragged dispatch.")
+        links = None
+        buckets = None
+        if tensors:
+            if self.topology.size > 1:
+                # selection and link attribution, counted before replay
+                # sees the call; the buckets are reused below
+                buckets = bucket_by_size(tensors,
+                                         self.config.fusion_threshold_bytes)
+                _, algos, codecs = self._a2a_plan(tensors, buckets,
+                                                  count=False)
+                self._m_selections("alltoall", algos, "alltoall",
+                                   [c for c in codecs
+                                    if c != comp.CODEC_NONE],
+                                   self.config.alltoall_codec)
+                links = self._tensor_links("alltoall", tensors, buckets,
+                                           algos, codecs, size=size)
+                self._m_codec_saved("alltoall", tensors, buckets, algos,
+                                    codecs, links, size=size)
+            self._m_account("grouped_alltoall", tensors, links)
+            r = self._replay.intercept("grouped_alltoall", tensors, 0, 1.0,
+                                       1.0, name, sub)
+            if r is not None:
+                return r
+        names = self._register_many(
+            [None if name is None else f"{name}.{i}"
+             for i in range(len(tensors))], "grouped_alltoall", tensors,
+            links)
+        self._join_sync("grouped_alltoall",
+                        [_join_meta_row(t, 0) for t in tensors], sub)
+        self._debug_check(names[0] if names else "empty",
+                          "grouped_alltoall", tensors, wildcard=sub)
+        if not tensors:
+            return []
+        if buckets is None:
+            buckets = bucket_by_size(tensors,
+                                     self.config.fusion_threshold_bytes)
+        nbytes, algos, codecs = self._a2a_plan(tensors, buckets)
+        self._m_buckets_obs(tensors, buckets)
+        self._count(self._selection_counts(
+            "alltoall", nbytes,
+            [tensors[idxs[0]].element_size() for idxs in buckets], algos,
+            codecs))
+        if size == 1:
+            self._note_single_rank("alltoall")
+            # nothing to launch: the call's span, no launch counted
+            self._launched(names, self._pre_launch(), 0)
+            group = LaunchGroup(_StreamWork(tensors[0].device))
+            return [self._track(Handle(nm, group, lambda t=t: t, self,
+                                       "grouped_alltoall"))
+                    for nm, t in zip(names, tensors)]
+        handles: List[Optional[Handle]] = [None] * len(tensors)
+        for idxs, algo, codec in zip(buckets, algos, codecs):
+            members = [tensors[i] for i in idxs]
+            t0 = self._pre_launch()
+            out, group = self._a2a_launch(C.a2a_pack(members, size), algo,
+                                          codec)
+            self._launched([names[i] for i in idxs], t0)
+            # the columns are read once the exchange is done
+            unpack = C.lazy_a2a_unpack(out, [tuple(t.shape)
+                                             for t in members])
+            for j, i in enumerate(idxs):
+                handles[i] = self._track(Handle(
+                    names[i], group, lambda j=j, f=unpack: f()[j], self,
+                    "grouped_alltoall"))
+        return handles
+
+    def _a2a_plan(self, tensors, buckets, count: bool = True) -> tuple:
+        """``(nbytes, algos, codecs)`` of a grouped alltoall's buckets: each
+        bucket's algorithm by its bytes and the topology, its codec on a
+        two-phase bucket (``count``: into ``codec_selections``)."""
+        nbytes = [sum(tensors[i].nbytes for i in idxs) for idxs in buckets]
+        algos = tuple(self._choose_algo("alltoall", b) for b in nbytes)
+        codecs = self._a2a_codecs([tensors[idxs[0]].dtype
+                                   for idxs in buckets], algos, count=count)
+        return nbytes, algos, codecs
+
+    def _a2a_launch(self, packed: torch.Tensor, algo: str, codec: str):
+        """One bucket's exchange of its ``(n, R_b)`` buffer (the
+        reference's ``_a2a_exchange``): the two-phase exchange on a
+        hierarchical bucket, else one ``all_to_all_single``. Returns the
+        received buffer and its launch group."""
+        if algo == C.ALGO_HIERARCHICAL:
+            out = _translate_failure(C.hier_alltoall, packed,
+                                     *self.hierarchical_groups(),
+                                     *self._hier_sizes(), codec)
+            return out, LaunchGroup(_StreamWork(packed.device))
+        out = torch.empty_like(packed)
+        rows = [1] * packed.shape[0]
+        work = _translate_failure(C.all_to_all, out, packed, rows, rows, None,
+                                  async_op=True)
+        return out, LaunchGroup(work)
+
     def reducescatter(self, tensor, name: Optional[str] = None,
                       op: ReduceOp = ReduceOp.SUM) -> Handle:
         """Sum (or Average) over the world, scattered along dim 0: rank r
@@ -1968,6 +2081,10 @@ class Engine:
                                         root_rank=arg)
         elif kind == "reducescatter":
             hs = [self.reducescatter(zero(metas[0]), op=ReduceOp(arg))]
+        elif kind == "grouped_alltoall":
+            # the advertised shapes divide the world (the even-split
+            # contract), so a zero group runs the active ranks' buckets
+            hs = self.grouped_alltoall([zero(r) for r in metas])
         else:   # alltoall: the rows spread evenly, the first ranks one more
             z = zero(metas[0])
             base, rem = divmod(int(z.shape[0]), self.backend.size())

@@ -87,12 +87,21 @@ per-step host cost, there one fused XLA launch; here one CUDA graph):
   (``Engine._join_guard``), outside the graph.
 
 Replayable kinds: allreduce, grouped_allreduce, broadcast,
-grouped_broadcast and sharded_step. allgather, alltoall, reducescatter,
-barrier and Adasum go through :meth:`StepReplay.observe`: a step holding
-one never arms. Not ported, since the port has none of these calls yet:
-the reference's grouped_alltoall arm, with its per-bucket algorithms and
-codecs (A16); nor its overlap modes, staged sub-launches, the ZeRO-1
-prefetch leg and the single-launch form (A10's remainder).
+grouped_broadcast, grouped_alltoall and sharded_step. allgather, the
+uneven alltoall, reducescatter, barrier and Adasum go through
+:meth:`StepReplay.observe`: a step holding one never arms.
+- The grouped-alltoall arm (the reference's "a2a" segments): its buckets
+  carry the eager call's algorithm and cross-phase codec; the program
+  packs each bucket's members into a static (n, R) buffer (before the
+  launch on the card, where the graph holds the ``all_to_all_single`` or
+  the two-phase exchange), and each result is a column block of a fresh
+  copy of the received buffer. With join live at size > 1 such a stream
+  stays unarmed, as in the reference (a joined rank's substitute would
+  post its own round mid-step); the MoE-EP step replays under
+  ``HOROVOD_JOIN_DISABLE=1``.
+
+Not ported: the reference's overlap modes, staged sub-launches, the
+ZeRO-1 prefetch leg and the single-launch form (A10's remainder).
 
 Observability (the reference's :227-235, :771-875): the registry counts
 bracketed steps, armed streams, replayed steps, fallbacks (by reason,
@@ -109,6 +118,7 @@ keeps every stream unarmed, so every call is checked.
 
 from __future__ import annotations
 
+import collections
 import re
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
@@ -131,8 +141,11 @@ _DIGITS = re.compile(r"\d+")
 
 _REDUCE_KINDS = ("allreduce", "grouped_allreduce")
 _BCAST_KINDS = ("broadcast", "grouped_broadcast")
+# the even-split grouped alltoall (the MoE dispatch): fixed shapes a step,
+# so it replays; the uneven eager alltoall stays on the observe path
+_A2A_KINDS = ("grouped_alltoall",)
 _SHARDED = "sharded_step"
-_REPLAYABLE = _REDUCE_KINDS + _BCAST_KINDS + (_SHARDED,)
+_REPLAYABLE = _REDUCE_KINDS + _BCAST_KINDS + _A2A_KINDS + (_SHARDED,)
 _MAX_STREAMS = 16  # bound on the per-signature table (LRU)
 
 
@@ -183,10 +196,11 @@ class _LeafProxy:
 
 
 class _Bound:
-    """Result of one replayed tensor: its value and the launch's shared
-    completion (one :class:`~.engine.LaunchGroup` a launch). ``rep`` is the
-    step's tracked handle: the first wait that sees the launch complete
-    reports its completion."""
+    """Result of one replayed tensor: its value (or a function that reads
+    it once the launch is done) and the launch's shared completion (one
+    :class:`~.engine.LaunchGroup` a launch). ``rep`` is the step's tracked
+    handle: the first wait that sees the launch complete reports its
+    completion."""
     __slots__ = ("_group", "_value", "rep")
 
     def __init__(self, group, value):
@@ -204,6 +218,8 @@ class _Bound:
         self._group.wait()
         if self.rep is not None:
             self.rep.poll()
+        if callable(self._value):
+            self._value = self._value()
         return self._value
 
 
@@ -234,7 +250,7 @@ class ReplayHandle:
 class _Segment(NamedTuple):
     """Consecutive recorded calls of one class, op or root, scales and
     call codec."""
-    cls: str           # "reduce" or "bcast"
+    cls: str           # "reduce", "bcast" or "a2a"
     code: int          # ReduceOp code, or the root rank
     pre: float
     post: float
@@ -292,13 +308,18 @@ def _held_keys(buckets) -> frozenset:
 
 def _selection_counts(engine, buckets):
     """The engine's selection counts of one launch of the program's reduce
-    buckets (``Engine._selection_counts``): a replayed step moves the
-    bytes the eager step would."""
-    reduce = [b for b in buckets if b.seg.cls == "reduce"]
-    return engine._selection_counts(
-        "allreduce", [sum(b.numels) * b.dtype.itemsize for b in reduce],
-        [b.dtype.itemsize for b in reduce], [b.algo for b in reduce],
-        [b.codec for b in reduce])
+    and alltoall buckets (``Engine._selection_counts``): a replayed step
+    moves the bytes the eager step would."""
+    sel, links = collections.Counter(), collections.Counter()
+    for kind, cls in (("allreduce", "reduce"), ("alltoall", "a2a")):
+        bs = [b for b in buckets if b.seg.cls == cls]
+        s, l = engine._selection_counts(
+            kind, [sum(b.numels) * b.dtype.itemsize for b in bs],
+            [b.dtype.itemsize for b in bs], [b.algo for b in bs],
+            [b.codec for b in bs])
+        sel.update(s)
+        links.update(l)
+    return sel, links
 
 
 class _EagerProgram:
@@ -327,6 +348,17 @@ class _EagerProgram:
         for b, residual in zip(self.buckets, residuals):
             ts = [inputs[s] for s in b.slots]
             seg = b.seg
+            if seg.cls == "a2a":
+                size = eng.backend.size()
+                packed = C.a2a_pack(ts, size)
+                if size == 1:
+                    got, group = packed, LaunchGroup(())
+                else:
+                    got, group = eng._a2a_launch(packed, b.algo, b.codec)
+                unpack = C.lazy_a2a_unpack(got, b.shapes)
+                for j, s in enumerate(b.slots):
+                    out[s] = _Bound(group, lambda j=j, f=unpack: f()[j])
+                continue
             if b.codec != _comp.CODEC_NONE:
                 flat, group = eng._codec_launch(ts, b.codec, residual,
                                                 ReduceOp(seg.code), seg.pre,
@@ -368,7 +400,7 @@ class _GraphProgram:
         self.counts = _selection_counts(eng, self.buckets)
         residuals = _residual_buffers(eng, self.buckets)
         size, rank = eng.backend.size(), eng.backend.rank()
-        algos = [b.algo for b in self.buckets if b.seg.cls == "reduce"]
+        algos = [b.algo for b in self.buckets if b.seg.cls != "bcast"]
         eng._warm_groups(algos)
         hier_groups = (eng.hierarchical_groups()
                        if C.ALGO_HIERARCHICAL in algos else None)
@@ -393,6 +425,12 @@ class _GraphProgram:
                         for b in self.buckets]
         self.tables = sum(t is not None for t in self._tables)
         self.copy_outs = len(self.buckets)
+        # an alltoall bucket's (n, R) exchange buffer, filled before each
+        # launch with its members' chunk matrices
+        self._a2a_in = [torch.empty((size, sum(b.numels) // size),
+                                    dtype=b.dtype, device=dev)
+                        if b.seg.cls == "a2a" else None
+                        for b in self.buckets]
         # each bucket's reduced elements: the whole buffer, or the prefix
         # of a codec bucket's padded one
         self._flats: List[torch.Tensor] = []
@@ -404,10 +442,22 @@ class _GraphProgram:
             try:
                 for _, mine, gathered in self._advert:
                     C.all_gather(gathered, mine, None)
-                for b, table, residual in zip(self.buckets, self._tables,
-                                              residuals):
+                for b, table, residual, a2a_in in zip(
+                        self.buckets, self._tables, residuals, self._a2a_in):
                     seg = b.seg
                     total = sum(b.numels)
+                    if seg.cls == "a2a":
+                        if size == 1:
+                            got = a2a_in.clone()
+                        elif b.algo == C.ALGO_HIERARCHICAL:
+                            got = C.hier_alltoall(a2a_in, *hier_groups,
+                                                  local, cross, b.codec)
+                        else:
+                            got = torch.empty_like(a2a_in)
+                            C.all_to_all(got, a2a_in, [1] * size,
+                                         [1] * size, None)
+                        self._flats.append(got)
+                        continue
                     avg = size if (seg.cls == "reduce" and seg.code
                                    == ReduceOp.AVERAGE) else 1
                     hier = b.algo == C.ALGO_HIERARCHICAL
@@ -450,9 +500,13 @@ class _GraphProgram:
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _StreamWork
-        for b, table, flat in zip(self.buckets, self._tables, self._flats):
+        for b, table, flat, a2a_in in zip(self.buckets, self._tables,
+                                          self._flats, self._a2a_in):
             ts = [inputs[s] for s in b.slots]
-            if table is not None:
+            if a2a_in is not None:
+                n = a2a_in.shape[0]
+                torch.cat([t.reshape(n, -1) for t in ts], dim=1, out=a2a_in)
+            elif table is not None:
                 table.refresh(ts)
             else:
                 torch.cat([t.reshape(-1) for t in ts], out=flat)
@@ -462,7 +516,9 @@ class _GraphProgram:
         group = LaunchGroup(_StreamWork(self.device))
         out: List[Optional[_Bound]] = [None] * len(inputs)
         for b, buf in zip(self.buckets, fresh):
-            for s, v in zip(b.slots, C.unpack_flat(buf, b.shapes)):
+            views = (C.a2a_unpack(buf, b.shapes) if b.seg.cls == "a2a"
+                     else C.unpack_flat(buf, b.shapes))
+            for s, v in zip(b.slots, views):
                 out[s] = _Bound(group, v)
         return out
 
@@ -824,7 +880,8 @@ class StepReplay:
                           nbytes=_stream_nbytes(stream))
         segs: List[dict] = []
         for sig in stream:
-            cls = "reduce" if sig.kind in _REDUCE_KINDS else "bcast"
+            cls = ("reduce" if sig.kind in _REDUCE_KINDS else
+                   "a2a" if sig.kind in _A2A_KINDS else "bcast")
             key = (cls, sig.code, sig.pre, sig.post, sig.codec)
             if not segs or segs[-1]["key"] != key:
                 segs.append({"key": key, "shapes": [], "dtypes": [],
@@ -835,7 +892,9 @@ class StepReplay:
         if join_live:
             # a joined peer matches the advertisement with one zero
             # grouped allreduce, whose collectives are the program's only
-            # for a single reduce segment; anything else stays unarmed
+            # for a single reduce segment; anything else stays unarmed (an
+            # alltoall's substitute would post its own round mid-step: MoE
+            # replay runs with HOROVOD_JOIN_DISABLE=1, as in the reference)
             if len(segs) != 1 or segs[0]["key"][0] != "reduce":
                 return None
             _, code, _, _, codec = segs[0]["key"]
@@ -855,17 +914,25 @@ class StepReplay:
             # the codecs, algorithms and residual rows the eager calls
             # resolve
             dtypes = [proxies[b[0]].dtype for b in buckets]
-            codecs = eng._bucket_codecs(seg["kind"], dtypes, codec,
-                                        count=False)
-            algos = ((C.ALGO_FLAT,) * len(buckets) if cls != "reduce" else
-                     eng._bucket_algos("allreduce", [
-                         sum(proxies[i].nbytes for i in idxs)
-                         for idxs in buckets], ReduceOp(code)))
+            nbytes = [sum(proxies[i].nbytes for i in idxs)
+                      for idxs in buckets]
+            if cls == "a2a":
+                # each bucket's algorithm and cross-phase codec, as the
+                # eager call resolves them; no residual (stateless codec)
+                _, algos, codecs = eng._a2a_plan(proxies, buckets,
+                                                 count=False)
+            else:
+                codecs = eng._bucket_codecs(seg["kind"], dtypes, codec,
+                                            count=False)
+                algos = ((C.ALGO_FLAT,) * len(buckets) if cls != "reduce"
+                         else eng._bucket_algos("allreduce", nbytes,
+                                                ReduceOp(code)))
             residuals = [None] * len(buckets)
-            for b, key, elems, _ in eng._grouped_residuals(
+            for b, key, elems, _ in ([] if cls == "a2a" else
+                                     eng._grouped_residuals(
                     "gar", seg["name"],
                     [sum(int(np.prod(proxies[i].shape)) for i in idxs)
-                     for idxs in buckets], dtypes, codecs, algos):
+                     for idxs in buckets], dtypes, codecs, algos)):
                 residuals[b] = (key, elems)
             segments.append(_Segment(cls, code, pre, post,
                                      tuple(seg["shapes"]),

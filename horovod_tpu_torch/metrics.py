@@ -103,6 +103,17 @@ METRIC_SPECS: Dict[str, Tuple[str, str]] = {
     "hvd_tpu_sharded_step_seconds": (
         "histogram", "Wall time of one sharded optimizer step's dispatch "
                      "phase (pack + rs->update->ag launch)"),
+    # models/transformer.py (the MoE-EP train step)
+    "hvd_tpu_moe_expert_tokens_total": (
+        "counter", "Tokens routed to each expert by the MoE-EP engine "
+                   "train step's capacity router, by expert index "
+                   "(pre-capacity counts — dropped-overflow tokens still "
+                   "count toward the expert they chose)"),
+    "hvd_tpu_moe_dispatch_skew": (
+        "gauge", "Last MoE-EP routing decision's expert load imbalance: "
+                 "max per-expert token count / mean (1.0 = perfectly "
+                 "balanced), by layer — the per-expert face of the "
+                 "arrival-skew machinery"),
     # trace.py (cross-rank collective tracing)
     "hvd_tpu_collective_skew_seconds": (
         "histogram", "Cross-rank arrival skew per correlated collective "

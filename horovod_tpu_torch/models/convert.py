@@ -12,8 +12,12 @@ of ``horovod_tpu.models.resnet.ResNet`` (leaves as numpy arrays, or anything
   ``Dense_0`` ``fc``.
 
 ``transformer_from_jax``, ``vit_from_flax`` and ``mlp_from_jax`` do the same
-for the decoder LM, the ViT and the MLP, and ``sync_batch_norm_from_flax``
-for one ``SyncBatchNorm`` layer.
+for the decoder LM (dense or MoE: the reference's stacked ``router``, ``w1``
+[L, E, D, F] and ``w2`` [L, E, F, D] become each layer's), the ViT and the
+MLP, and ``sync_batch_norm_from_flax`` for one ``SyncBatchNorm`` layer.
+``transformer_to_jax`` goes back, and ``transformer_shard`` /
+``transformer_unshard`` carry a full LM state to one rank's tensor-parallel
+or MoE-EP placement and back.
 """
 
 from __future__ import annotations
@@ -155,4 +159,68 @@ def mlp_from_jax(params: Sequence[Mapping]) -> Dict[str, torch.Tensor]:
             np.ascontiguousarray(np.asarray(layer["w"], dtype=np.float32).T))
         out[f"layers.{i}.bias"] = torch.tensor(
             np.asarray(layer["b"], dtype=np.float32))
+    return out
+
+
+def transformer_to_jax(state: Mapping, cfg) -> Dict[str, object]:
+    """The reference's ``init_params`` tree (numpy, each ``layers`` leaf
+    stacked on a leading n_layers axis) from a full state dict of the
+    port's :class:`Transformer`: :func:`transformer_from_jax` inverted,
+    the MoE leaves (``router`` [L, D, E], ``w1`` [L, E, D, F], ``w2``
+    [L, E, F, D]) included."""
+    def arr(t):
+        return np.asarray(t.detach().cpu() if torch.is_tensor(t) else t,
+                          dtype=np.float32)
+
+    names = sorted({k.split(".", 2)[2] for k in state
+                    if k.startswith("layers.")})
+    layers = {name: np.stack([arr(state[f"layers.{i}.{name}"])
+                              for i in range(cfg.n_layers)])
+              for name in names}
+    return {"embed": arr(state["embed"]), "layers": layers,
+            "ln_f": arr(state["ln_f"])}
+
+
+def _shard_dims(cfg, ep: bool) -> Dict[str, int]:
+    """Leaf name -> sharded dim of a placement: the tensor axis's
+    (``param_specs``), or with ``ep`` the MoE-EP one (the experts of
+    ``w1``/``w2`` over the world, everything else replicated)."""
+    from .transformer import param_specs
+    if ep:
+        return {"w1": 0, "w2": 0}
+    return {name: dim for name, dim in param_specs(cfg)["layers"].items()
+            if dim is not None}
+
+
+def transformer_shard(state: Mapping, cfg, size: int, rank: int,
+                      ep: bool = False) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s state dict of ``size`` ranks from a full one: the
+    tensor axis's placement (``shard_params``), or with ``ep`` the MoE-EP
+    one (``moe_ep_partition``)."""
+    dims = _shard_dims(cfg, ep)
+    out = {}
+    for key, t in state.items():
+        dim = dims.get(key.rsplit(".", 1)[-1]) if key.startswith(
+            "layers.") else None
+        if dim is None or size == 1:
+            out[key] = t.clone()
+            continue
+        k = t.shape[dim] // size
+        out[key] = t.narrow(dim, rank * k, k).clone()
+    return out
+
+
+def transformer_unshard(states: Sequence[Mapping], cfg,
+                        ep: bool = False) -> Dict[str, torch.Tensor]:
+    """The full state dict from every rank's shard (``states`` in rank
+    order along the sharded axis), :func:`transformer_shard` inverted:
+    sharded leaves concatenated, replicated ones taken from the first."""
+    dims = _shard_dims(cfg, ep)
+    out = {}
+    for key, t in states[0].items():
+        dim = dims.get(key.rsplit(".", 1)[-1]) if key.startswith(
+            "layers.") else None
+        out[key] = (t.clone() if dim is None or len(states) == 1 else
+                    torch.cat([torch.as_tensor(s[key]) for s in states],
+                              dim=dim))
     return out

@@ -396,6 +396,46 @@ def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group,
     return fn(out, inp, group=group, async_op=async_op)
 
 
+def a2a_pack(tensors: Sequence[torch.Tensor], n: int) -> torch.Tensor:
+    """One alltoall bucket's exchange buffer (the reference's
+    ``_a2a_pack``): each (d0_i, ...) tensor, d0_i % n == 0, viewed as its
+    (n, w_i) chunk matrix (row j the chunk bound for rank j), the rows
+    concatenated into one contiguous (n, R) buffer, so the pack is the
+    fusion: every destination's data is one row."""
+    parts = [t.reshape(n, -1) for t in tensors]
+    if len(parts) == 1:
+        return parts[0].contiguous()
+    return torch.cat(parts, dim=1)
+
+
+def a2a_unpack(out: torch.Tensor, shapes) -> List[torch.Tensor]:
+    """Each member's received tensor from a bucket's (n, R) result: its
+    columns, in the pack's order, reshaped to its shape (a view for a
+    bucket of one)."""
+    if len(shapes) == 1:
+        return [out.reshape(shapes[0])]
+    n, res, off = out.shape[0], [], 0
+    for shape in shapes:
+        w = math.prod(shape) // n
+        res.append(out[:, off:off + w].reshape(shape))
+        off += w
+    return res
+
+
+def lazy_a2a_unpack(out: torch.Tensor, shapes):
+    """:func:`a2a_unpack` deferred to the first call and kept: a bucket of
+    several members copies its columns, which must wait until the
+    exchange that fills ``out`` is done."""
+    done: List[List[torch.Tensor]] = []
+
+    def unpack() -> List[torch.Tensor]:
+        if not done:
+            done.append(a2a_unpack(out, shapes))
+        return done[0]
+
+    return unpack
+
+
 def all_gather(out: torch.Tensor, inp: torch.Tensor, group,
                async_op: bool = False):
     """Concatenate every rank's ``inp`` of ``group`` along dim 0 into

@@ -476,12 +476,14 @@ class DistributedDeltaAdasumOptimizer(_Wrapper):
         return loss
 
 
-def _axis(axis_name: str, mesh):
+def _axis(axis_name, mesh):
     """``(group, size, rank, collective)`` of the ranks ``axis_name`` names:
     the world for ``"world"`` with no mesh, else the axis of ``mesh`` (a
     ``parallel.mesh.TrainingMesh``), whose process group is this rank's
-    line of ranks along it. ``collective`` is False on an axis of size 1,
-    which has no group: its reduction is the identity."""
+    line of ranks along it, or a tuple of its axes (the reference's
+    ``psum`` over several axes), whose group is this rank's block of ranks
+    across them. ``collective`` is False where the size is 1, which has no
+    group: its reduction is the identity."""
     if mesh is None:
         if axis_name != "world":
             raise ValueError(
@@ -490,10 +492,12 @@ def _axis(axis_name: str, mesh):
                 "one only 'world' names a group")
         backend = _engine().backend
         return None, backend.size(), backend.rank(), True
-    if axis_name not in mesh.shape:
-        raise ValueError(f"mesh {mesh.shape} has no axis {axis_name!r}")
-    n = mesh.size(axis_name)
-    return mesh.group(axis_name), n, mesh.index[axis_name], n > 1
+    names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    for name in names:
+        if name not in mesh.shape:
+            raise ValueError(f"mesh {mesh.shape} has no axis {name!r}")
+    n = mesh.size(names)
+    return mesh.group(names), n, mesh.rank_in(names), n > 1
 
 
 def allreduce_gradients(grads, axis_name: str = "world", mesh=None,

@@ -6,8 +6,14 @@ The port's counterpart of ``horovod_tpu/parallel/mesh.py``:
   form of the port: a mesh is the world's ranks laid out on named axes,
   row-major in the order of the dict (the reference's device order), with
   one ``torch.distributed`` process group for each line of ranks along an
-  axis of size > 1. A rank's group on an axis is what the reference names
-  by the axis inside ``shard_map``.
+  axis of size > 1, and one for each line of every combination of such
+  axes (``mesh.group(("data", "seq"))``, what a ``psum`` over a tuple of
+  axes names inside the reference's ``shard_map``). A rank's group on an
+  axis is what the reference names by the axis inside ``shard_map``.
+- the mesh helpers (the reference's :354-464): :func:`world_mesh` (one
+  ``world`` axis on the default group), :func:`hierarchical_mesh`
+  (``(cross, local)``), :func:`multislice_mesh` (the slow-fabric axes
+  major, the fast-fabric ones inside an island) and :func:`pp_dp_sp_mesh`.
 - :class:`Topology` and :func:`detect_topology` (the reference's :53-195,
   :288-351): how many ranks share one fast-fabric island (the ranks of an
   NVLink box on the card; the reference's ICI slice), resolved once a world
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import logging
 import math
 import os
@@ -33,6 +40,9 @@ from ..common import env as env_mod
 DATA_AXIS = "data"
 SEQ_AXIS = "seq"
 TENSOR_AXIS = "tensor"
+WORLD_AXIS = "world"
+CROSS_AXIS = "cross"   # between islands: the slow fabric
+LOCAL_AXIS = "local"   # inside an island: NVLink on the card
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -138,6 +148,18 @@ class Topology:
         calibrated one, waits for ROADMAP A15)."""
         return False
 
+    # -- mesh integration (the reference's :180-193) ------------------------
+
+    def hierarchical_mesh(self) -> "TrainingMesh":
+        """The ``(cross, local)`` mesh of this topology's islands."""
+        return hierarchical_mesh(self.local_size)
+
+    def multislice_mesh(self, dcn_axes: dict,
+                        ici_axes: dict) -> "TrainingMesh":
+        """:func:`multislice_mesh` checked against this topology's
+        islands."""
+        return multislice_mesh(dcn_axes, ici_axes, local_size=self.local_size)
+
 
 def _host_local_size(hosts: Sequence) -> Tuple[int, str]:
     """Ranks an island from each rank's host identity (the counterpart of
@@ -213,32 +235,106 @@ def detect_topology(size: int, local_size: Optional[int] = None,
 class TrainingMesh:
     """This rank's view of a mesh: the axes in major order, their sizes,
     this rank's index on each, and its process group on each axis of size
-    > 1 (None on an axis of size 1)."""
+    > 1 (None on an axis of size 1) and on each combination of them, keyed
+    by the tuple of their names in the mesh's order."""
 
     axis_names: Tuple[str, ...]
     shape: Dict[str, int]
     index: Dict[str, int]
-    groups: Dict[str, Optional[dist.ProcessGroup]]
+    groups: Dict[object, Optional[dist.ProcessGroup]]
 
-    def size(self, axis: str) -> int:
-        """The axis's size; 1 for an axis the mesh does not have."""
-        return self.shape.get(axis, 1)
+    def _axes(self, axes) -> Tuple[str, ...]:
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for name in names:
+            if name not in self.shape:
+                raise ValueError(f"mesh {self.shape} has no axis {name!r}")
+        return tuple(a for a in self.axis_names if a in names)
 
-    def group(self, axis: str) -> Optional[dist.ProcessGroup]:
-        return self.groups.get(axis)
+    def size(self, axes) -> int:
+        """The axis's size (the product over a tuple of axes); 1 for an
+        axis the mesh does not have."""
+        if isinstance(axes, str):
+            return self.shape.get(axes, 1)
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def rank_in(self, axes) -> int:
+        """This rank's index in its group on ``axes`` (row-major over a
+        tuple of axes, in the mesh's order)."""
+        idx = 0
+        for a in self._axes(axes):
+            idx = idx * self.shape[a] + self.index[a]
+        return idx
+
+    def group(self, axes) -> Optional[dist.ProcessGroup]:
+        """This rank's process group on ``axes`` (an axis name or a tuple
+        of them): None where their sizes multiply to 1."""
+        if isinstance(axes, str):
+            return self.groups.get(axes)
+        live = tuple(a for a in self._axes(axes) if self.shape[a] > 1)
+        if not live:
+            return None
+        if len(live) == 1:
+            return self.groups.get(live[0])
+        return self.groups[live]
+
+
+def _mesh(names, sizes, world_group: bool = False) -> TrainingMesh:
+    """The :class:`TrainingMesh` of ``sizes`` over every rank, creating its
+    groups (collective: every rank, one order). With ``world_group`` a
+    single axis over the whole world takes the default group and nothing is
+    created."""
+    n = dist.get_world_size()
+    if math.prod(sizes) != n:
+        raise ValueError(f"mesh {dict(zip(names, sizes))} needs "
+                         f"{math.prod(sizes)} ranks, have {n}")
+    grid = np.arange(n).reshape(sizes)
+    me = dist.get_rank()
+    coords = dict(zip(names, (int(c) for c in np.argwhere(grid == me)[0])))
+    groups: Dict[object, Optional[dist.ProcessGroup]] = {
+        name: None for name in names}
+    if world_group and len(names) == 1:
+        if n > 1:
+            groups[names[0]] = dist.group.WORLD
+        return TrainingMesh(tuple(names), dict(zip(names, sizes)), coords,
+                            groups)
+    live = [axis for axis, size in enumerate(sizes) if size > 1]
+    # every axis of size > 1, then every combination of two or more of
+    # them, each as all its lines of ranks, in one order on every rank
+    combos = [(a,) for a in live] + [
+        c for k in range(2, len(live) + 1)
+        for c in itertools.combinations(live, k)]
+    for combo in combos:
+        rest = [a for a in range(len(sizes)) if a not in combo]
+        span = math.prod(sizes[a] for a in combo)
+        lines = np.transpose(grid, rest + list(combo)).reshape(-1, span)
+        key = names[combo[0]] if len(combo) == 1 else tuple(
+            names[a] for a in combo)
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if me in line:
+                groups[key] = group
+    return TrainingMesh(tuple(names), dict(zip(names, sizes)), coords,
+                        groups)
+
+
+def _require_world(what: str) -> int:
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what} needs an initialized world: call "
+                           "hvd.init() first")
+    return dist.get_world_size()
 
 
 def training_mesh(axis_sizes: dict) -> TrainingMesh:
-    """N-D training mesh over every rank, e.g. ``{"data": 2, "seq": 2}``.
+    """N-D training mesh over every rank, e.g. ``{"data": 2, "seq": 2,
+    "tensor": 2}``.
 
-    One axis may be -1 and takes the ranks that are left. Every rank must
-    call this with the same argument: it creates every axis group, in the
-    same order on every rank (``dist.new_group`` is collective). The
-    tensor axis is not ported: ``tensor > 1`` raises."""
-    if not dist.is_initialized():
-        raise RuntimeError("training_mesh needs an initialized world: call "
-                           "hvd.init() first")
-    n = dist.get_world_size()
+    One axis may be -1 and takes the ranks that are left. The dict's order
+    is the mesh's major order: put the axis that should ride the slow
+    fabric first and the most bandwidth-hungry one (tensor) last, so its
+    lines are neighbouring ranks of one island. Every rank must call this
+    with the same argument: it creates every group, in the same order on
+    every rank (``dist.new_group`` is collective)."""
+    n = _require_world("training_mesh")
     names = tuple(axis_sizes)
     sizes = [int(s) for s in axis_sizes.values()]
     if sizes.count(-1) > 1:
@@ -248,26 +344,80 @@ def training_mesh(axis_sizes: dict) -> TrainingMesh:
         if n % known:
             raise ValueError(f"{n} ranks not divisible by {known}")
         sizes[sizes.index(-1)] = n // known
-    shape = dict(zip(names, sizes))
-    if shape.get(TENSOR_AXIS, 1) > 1:
-        raise NotImplementedError(
-            "tensor parallelism is not ported to horovod_tpu_torch yet "
-            "(ROADMAP A16): use a tensor axis of size 1")
+    return _mesh(names, sizes)
+
+
+def world_mesh() -> TrainingMesh:
+    """1-D mesh over every rank, the global communicator: its one axis,
+    ``world``, is the default process group, so no group is created and
+    any rank may call it alone (``hvd.mesh()``)."""
+    n = _require_world("world_mesh")
+    return _mesh((WORLD_AXIS,), [n], world_group=True)
+
+
+def _default_local_size() -> int:
+    """Ranks an island of the running world: the engine's agreed topology
+    when one is up, else the launcher's ``HOROVOD_LOCAL_SIZE``, else 1."""
+    from ..core import state
+    if state.global_state().engine is not None:
+        return state.global_state().engine.topology.local_size
+    try:
+        return max(1, int(os.environ.get("HOROVOD_LOCAL_SIZE", "1")))
+    except ValueError:
+        return 1
+
+
+def hierarchical_mesh(local_size: Optional[int] = None) -> TrainingMesh:
+    """2-D ``(cross, local)`` mesh for hierarchical collectives: ``local``
+    the ranks of one island (default: the running world's topology), in
+    rank order, ``cross`` the islands. A ``local_size`` that does not divide
+    the world falls back to the largest divisor below it (the reference's
+    :373-377)."""
+    n = _require_world("hierarchical_mesh")
+    if local_size is None:
+        local_size = _default_local_size()
+    local_size = max(1, min(int(local_size), n))
+    if n % local_size:
+        local_size = max(d for d in range(1, local_size + 1) if n % d == 0)
+    return _mesh((CROSS_AXIS, LOCAL_AXIS), [n // local_size, local_size])
+
+
+def multislice_mesh(dcn_axes: dict, ici_axes: dict,
+                    local_size: Optional[int] = None) -> TrainingMesh:
+    """Fabric-aware mesh (the reference's :408): ``dcn_axes`` partition
+    across islands (data or pipeline parallelism: the slow fabric between
+    NVLink boxes), ``ici_axes`` within one (tensor, sequence, expert: the
+    fast one). The slow axes are the major ones, so with ranks numbered
+    island by island the fast axes' lines lie inside one island of
+    ``local_size`` ranks (default: the running world's topology) whenever
+    their product divides it; otherwise a warning says which axes cross
+    islands. The axes keep the reference's order: the slow ones, then the
+    fast ones."""
+    names = tuple(dcn_axes) + tuple(ici_axes)
+    if len(set(names)) != len(names):
+        raise ValueError(f"an axis is named twice in {dcn_axes} and "
+                         f"{ici_axes}")
+    sizes = [int(v) for v in dcn_axes.values()] + [int(v) for v in
+                                                  ici_axes.values()]
+    n = _require_world("multislice_mesh")
     if math.prod(sizes) != n:
-        raise ValueError(f"mesh {shape} needs {math.prod(sizes)} ranks, "
-                         f"have {n}")
-    grid = np.arange(n).reshape(sizes)
-    me = dist.get_rank()
-    coords = dict(zip(names, (int(c) for c in np.argwhere(grid == me)[0])))
-    groups: Dict[str, Optional[dist.ProcessGroup]] = {}
-    for axis, name in enumerate(names):
-        groups[name] = None
-        if sizes[axis] == 1:
-            continue
-        # every line of ranks along this axis, in one order on every rank
-        lines = np.moveaxis(grid, axis, -1).reshape(-1, sizes[axis])
-        for line in lines:
-            group = dist.new_group([int(r) for r in line])
-            if me in line:
-                groups[name] = group
-    return TrainingMesh(names, shape, coords, groups)
+        raise ValueError(f"mesh {dict(zip(names, sizes))} needs "
+                         f"{math.prod(sizes)} ranks, have {n}")
+    local = _default_local_size() if local_size is None else int(local_size)
+    inner = math.prod(int(v) for v in ici_axes.values())
+    if local > 1 and local % inner:
+        logger.warning(
+            "multislice_mesh: the fast-fabric axes %s span %d ranks, which "
+            "do not divide an island of %d: their lines cross islands",
+            dict(ici_axes), inner, local)
+    return _mesh(names, sizes)
+
+
+def pp_dp_sp_mesh(n_stages: int, data: int = -1,
+                  seq: int = 1) -> TrainingMesh:
+    """The pipeline x data x sequence composition mesh (the reference's
+    :449): ``pipe`` outermost (stage boundaries are the fewest and most
+    latency-tolerant transfers, one hop a tick, so the pipeline absorbs the
+    slow fabric), ``data`` in the middle (-1 takes the ranks that are
+    left), ``seq`` innermost, on the fastest links."""
+    return training_mesh({"pipe": n_stages, "data": data, "seq": seq})

@@ -2443,3 +2443,215 @@ def test_cuda_cards_algo_on_nccl(algo_worlds, n):
           f"losses {res[0]['int8_hier']['losses']}")
     check_algo_cards(res, n, "hierarchical" if n == 4 else "flat")
 
+
+
+# -- the tensor axis: tensor parallelism and MoE-EP --------------------------
+
+def _one_card_tp(cfg, dev, x, y, steps, timed):
+    """The one-card run of tp_cards: ``steps`` SGD steps of the whole
+    batch's loss (with the MoE FFN's aux term): the losses, the parameters
+    after the first step, and the ms of ``timed`` steps after them."""
+    from horovod_tpu_torch.models.transformer import _local_loss_aux
+    model = sp_card_model(cfg, dev)
+    opt = torch.optim.SGD(model.parameters(), lr=SP_LRS["sgd"])
+
+    def step():
+        opt.zero_grad()
+        total, count, aux = _local_loss_aux(model, x, y)
+        loss = total / count + (cfg.moe_aux_weight * aux if cfg.use_moe
+                                else 0.0)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    losses = [step()]
+    params1 = {n: p.detach().float().cpu().clone()
+               for n, p in model.named_parameters()}
+    losses += [step() for _ in range(steps - 1)]
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, params1, ms
+
+
+def _change_close(got, start, want, what, tol=5e-2):
+    """Each parameter's change from ``start`` (one SGD step: the gradient)
+    within ``tol`` of the one-card change's largest entry (bf16 compute,
+    or fp32 through K6's tf32 route: the two paths round apart)."""
+    for name, w in want.items():
+        dw = w - start[name]
+        dg = got[name] - start[name]
+        scale = float(dw.abs().max()) or 1e-12
+        err = float((dg - dw).abs().max())
+        assert err <= tol * scale, (what, name, err, scale)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_tensor_parallel_on_nccl(built, tmp_path, n):
+    """Tensor parallelism on NCCL (torch_worker's tp_cards: the LM, K6 on
+    each card's heads, two SGD steps): the whole world on the tensor axis,
+    dense in bf16 and with the MoE FFN in fp32 (its experts over the tensor
+    axis), and (data 2, tensor 2) on 4 cards, against the one-card run of
+    the same weights: the losses of both steps to 2e-2 relative, each
+    parameter's change over the first step (the gradient) to 5e-2 of its
+    largest entry, the ranks of one tensor index bitwise alike, K6 once a
+    layer and step on every card. Prints the step times beside one card's
+    (recorded, not gated)."""
+    from horovod_tpu_torch.models.convert import transformer_unshard
+    from torch_worker import (TP_CARD_STEPS, TP_CARD_TIMED, tp_card_cases,
+                              tp_card_config)
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("tp_cards", n, tmp_path, device="cuda", timeout=600)
+    dev = torch.device("cuda", 0)
+    x, y = (torch.from_numpy(a).to(dev) for a in sp_card_tokens())
+    for kind, axes in tp_card_cases(n):
+        key = (kind, tuple(axes.values()))
+        cfg = tp_card_config(torch, kind)
+        t = axes["tensor"]
+        want_losses, want, one_ms = _one_card_tp(cfg, dev, x, y,
+                                                 TP_CARD_STEPS, TP_CARD_TIMED)
+        start = {k: v.float().cpu() for k, v in
+                 sp_card_model(cfg, "cpu").state_dict().items()}
+        states = {}
+        for r, res_r in enumerate(res):
+            got = res_r[key]
+            assert got["tensor_index"] == r % t
+            np.testing.assert_allclose(got["losses"], want_losses,
+                                       rtol=2e-2)
+            mine = {k: torch.from_numpy(v)
+                    for k, v in got["params1"].items()}
+            if r % t in states:
+                for k, v in mine.items():
+                    assert torch.equal(v, states[r % t][k]), (key, r, k)
+            states.setdefault(r % t, mine)
+            layers = cfg.n_layers * TP_CARD_STEPS
+            assert got["k6"] == {"flash_fwd": layers,
+                                 "flash_bwd_dkdv": layers,
+                                 "flash_bwd_dq": layers}, got["k6"]
+            print(f"tp_cards n={n} {kind} {axes} rank {r}: losses "
+                  f"{got['losses']} (one card {want_losses}); step ms "
+                  f"{' '.join(f'{v:.2f}' for v in got['step_ms'])} (one "
+                  f"card {' '.join(f'{v:.2f}' for v in one_ms)})")
+        full = transformer_unshard([states[i] for i in range(t)], cfg)
+        _change_close(full, start, want, key)
+
+
+def _one_card_moe_ep(cfg, dev, n):
+    """The one-card run of moe_cards' first step: each rank's token block
+    through the single-shard MoE LM (every expert local), the shared
+    gradients averaged and the experts' summed over the blocks (the EP
+    step's reduction), one SGD step. Returns the blocks' mean loss and the
+    full parameters after the step."""
+    from horovod_tpu_torch.models.transformer import lean_lm_loss
+    from torch_worker import moe_card_tokens
+    model = sp_card_model(cfg, dev)
+    grads, losses = [], []
+    for r in range(n):
+        model.zero_grad()
+        x, y = (torch.from_numpy(a).to(dev) for a in moe_card_tokens(r))
+        loss = lean_lm_loss(model, x, y)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad.detach().float().clone()
+                      for k, p in model.named_parameters()})
+    out = {}
+    for k, p in model.named_parameters():
+        g = sum(gr[k] for gr in grads)
+        if not k.endswith((".w1", ".w2")):
+            g = g / n
+        out[k] = (p.detach().float() - SP_LRS["sgd"] * g).cpu()
+    return sum(losses) / n, out
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_moe_ep_on_nccl(built, tmp_path, n):
+    """The MoE-EP step on NCCL (torch_worker's moe_cards: the bf16 MoE LM,
+    8 experts over the cards, each card its own tokens, join off): the
+    first step's loss (the world mean) to 2e-2 and each rank's parameters'
+    change (the shared ones and its experts) to 5e-2 of the one-card run's
+    largest entry; once armed, each of the 4·L exchange rounds and the
+    shared-gradient round one replayed dispatch a step; K6 once a layer and
+    step and K1 in the shared-gradient round. Prints the step times
+    (recorded, not gated)."""
+    from horovod_tpu_torch.models.convert import transformer_shard
+    from torch_worker import (MOE_CARD_STEPS, MOE_CARD_WARM,
+                              tp_card_config)
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("moe_cards", n, tmp_path, device="cuda",
+                    env={"HOROVOD_JOIN_DISABLE": "1",
+                         "HOROVOD_PALLAS_PACK": "1"}, timeout=600)
+    cfg = tp_card_config(torch, "moe", factor=2.0, aux_weight=0.01)
+    dev = torch.device("cuda", 0)
+    want_loss, want = _one_card_moe_ep(cfg, dev, n)
+    start = {k: v.float().cpu() for k, v in
+             sp_card_model(cfg, "cpu").state_dict().items()}
+    rounds = 4 * cfg.n_layers + 1
+    for r, got in enumerate(res):
+        print(f"moe_cards n={n} rank {r}: losses "
+              f"{' '.join(f'{v:.4f}' for v in got['losses'])} (one card's "
+              f"first {want_loss:.4f}); step ms "
+              f"{' '.join(f'{v:.2f}' for v in got['step_ms'])}; "
+              f"dispatches, replayed rounds {got['marks']}")
+        assert abs(got["losses"][0] - want_loss) <= 2e-2 * abs(want_loss)
+        assert got["losses"][-1] < got["losses"][0]
+        mine = transformer_shard(want, cfg, n, r, ep=True)
+        begin = transformer_shard(start, cfg, n, r, ep=True)
+        _change_close({k: torch.from_numpy(v)
+                       for k, v in got["params1"].items()}, begin, mine,
+                      ("moe_ep", n, r))
+        for m in got["marks"][MOE_CARD_WARM:]:
+            assert m == (rounds, rounds), got["marks"]
+        for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            assert got["counts"][name] == cfg.n_layers * MOE_CARD_STEPS
+        assert got["counts"]["pack"] + got["counts"].get(
+            "pack_graph", 0) >= 1
+
+
+def test_cuda_moe_ep_step_replays_bitwise(cuda, monkeypatch):
+    """The MoE-EP step at size 1 on the card: replay armed gives the eager
+    run's losses bitwise, each replayed step is 4·L graph launches, and a
+    replayed step synchronizes the host once (the routing counts' read)."""
+    import warnings
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.models.transformer import (
+        make_moe_ep_train_step, moe_ep_partition)
+    from torch_worker import moe_card_tokens, tp_card_config
+    for var in ("HOROVOD_TPU_COORDINATOR", "HOROVOD_TPU_NUM_PROCESSES",
+                "HOROVOD_TPU_STEP_REPLAY"):
+        monkeypatch.delenv(var, raising=False)
+    hvd.init()
+    eng = engine()
+    cfg = tp_card_config(torch, "moe", factor=2.0, aux_weight=0.01)
+    x, y = (torch.from_numpy(a).to(cuda) for a in moe_card_tokens(0))
+
+    def run(replay, steps=5):
+        eng.config.step_replay = replay
+        eng.replay.invalidate_all("test")
+        model = sp_card_model(cfg, cuda)
+        moe_ep_partition(model, 0, 1, cfg)
+        step = make_moe_ep_train_step(eng, cfg, torch.optim.SGD(
+            model.parameters(), lr=0.1))
+        return [float(step(model, x, y)) for _ in range(steps)], step, model
+
+    eager, _, _ = run(False)
+    replayed, step, model = run(True)
+    eng.config.step_replay = True
+    assert replayed == eager
+    d0 = eng.dispatch_count
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(model, x, y)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert eng.dispatch_count - d0 == 4 * cfg.n_layers
+    assert len(syncs) <= 1, [str(w.message) for w in syncs]

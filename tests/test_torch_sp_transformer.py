@@ -131,9 +131,13 @@ def test_sp_steps_lower_the_loss(sp):
 
 
 def test_tensor_parallel_mesh_raises(sp):
+    """A tensor axis the heads do not split over (2 heads over tensor 4)
+    raises on every rank; tensor parallelism itself is
+    tests/test_torch_tensor_parallel.py's."""
     ranks, _ = sp
     for res in ranks:
-        assert "ROADMAP A16" in res["tensor_error"]
+        assert "n_heads 2 does not split over tensor 4" in \
+            res["tensor_error"]
 
 
 def test_zigzag_with_ulysses_raises():

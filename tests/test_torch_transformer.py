@@ -134,10 +134,19 @@ def test_lm_remat_equals_no_remat(lm_pair, remat):
 
 
 def test_lm_rejects_unknown_remat_and_moe():
+    """An unknown remat mode; the MoE-EP placement of a dense model, and of
+    experts that do not divide over the ranks (the MoE FFN itself builds:
+    tests/test_torch_moe.py)."""
+    from horovod_tpu_torch.models.transformer import moe_ep_partition
     with pytest.raises(ValueError, match="unknown remat mode 'layer'"):
         _port("flash", remat="layer")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port("flash", use_moe=True)
+    cfg, model = _port("flash")
+    with pytest.raises(ValueError, match="use_moe"):
+        moe_ep_partition(model, 0, 2, cfg)
+    cfg, model = _port("flash", use_moe=True, n_experts=6)
+    assert tuple(model.layers[0].w1.shape) == (6, 32, 64)
+    with pytest.raises(ValueError, match="must divide over 4"):
+        moe_ep_partition(model, 0, 4, cfg)
 
 
 def test_lean_xent_matches_reference_on_bf16_logits():

@@ -367,9 +367,11 @@ def _sp_lm_scenario(hvd, rank: int, size: int) -> dict:
     from horovod_tpu_torch.parallel.mesh import training_mesh
     torch.set_num_threads(1)     # tiny tensors; the ranks share the cores
     out = {}
-    try:
-        training_mesh({"data": 1, "seq": size // 2, "tensor": 2})
-    except NotImplementedError as e:
+    try:     # a tensor axis the heads do not split over
+        make_spmd_loss(training_mesh({"data": 1, "seq": 1, "tensor": size}),
+                       TransformerConfig(dtype=torch.float32,
+                                         **dict(SP_DIMS, n_heads=2)))
+    except ValueError as e:
         out["tensor_error"] = str(e)
     meshes = {shape: training_mesh({"data": shape[0], "seq": shape[1],
                                     "tensor": 1}) for shape in SP_MESHES}
@@ -401,6 +403,264 @@ def _sp_lm_scenario(hvd, rank: int, size: int) -> dict:
                     for n, p in model.named_parameters()}}
             out[((d, s), attention, layout)] = case
     return out
+
+
+# tensor parallelism (test_torch_tensor_parallel.py): (data, seq, tensor)
+TP_MESHES = ((2, 1, 2), (1, 2, 2), (1, 1, 4))
+TP_EXPERTS = 4
+TP_MOE_FACTOR = 4.0          # test_transformer_spmd.py:137's
+TP_PAD_FACTOR = 8.0          # :173's
+TP_MULTISLICE = ({"data": 2}, {"seq": 1, "tensor": 2})
+
+
+def tp_params(moe: bool = False) -> dict:
+    """The LM's weights in the reference's tree, as :func:`sp_params`, with
+    the MoE FFN's stacked ``router`` [L, D, E], ``w1`` [L, E, D, F] and
+    ``w2`` [L, E, F, D] in place of the dense MLP's for ``moe``."""
+    params = sp_params()
+    rng = np.random.RandomState(111)
+    d, f, n = (SP_DIMS[k] for k in ("d_model", "d_ff", "n_layers"))
+    if moe:
+        e = TP_EXPERTS
+        params["layers"]["router"] = (
+            rng.randn(n, d, e) * d ** -0.5 * 0.1).astype(np.float32)
+        params["layers"]["w1"] = (rng.randn(n, e, d, f)
+                                  * d ** -0.5).astype(np.float32)
+        params["layers"]["w2"] = (rng.randn(n, e, f, d)
+                                  * f ** -0.5).astype(np.float32)
+    return params
+
+
+def tp_pad_tokens():
+    """(inputs, targets) [3, 6]: 18 tokens over tensor 4, a pad of 2."""
+    rng = np.random.RandomState(7)
+    return (rng.randint(0, SP_DIMS["vocab_size"], size=(3, 6)),
+            rng.randint(0, SP_DIMS["vocab_size"], size=(3, 6)))
+
+
+def tp_config(torch, moe: bool, factor: float = TP_MOE_FACTOR, **kw):
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(dtype=torch.float32, use_moe=moe,
+                             n_experts=TP_EXPERTS,
+                             moe_capacity_factor=factor, **SP_DIMS, **kw)
+
+
+def _tp_case(hvd, mesh, cfg, params, tokens, opts):
+    """One mesh's loss, data x seq-reduced gradients and, per optimizer in
+    ``opts``, two steps' losses and parameters: this rank's slices."""
+    import torch
+    from horovod_tpu_torch.models.convert import transformer_from_jax
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, make_spmd_loss, make_train_step, shard_params,
+        shard_tokens)
+    from horovod_tpu_torch.optimizer import allreduce_gradients
+    full = transformer_from_jax(params, cfg)
+    x, y = (shard_tokens(mesh, torch.from_numpy(a)) for a in tokens)
+
+    def model():
+        m = Transformer(cfg)
+        m.load_state_dict(full)
+        return shard_params(m, mesh, cfg)
+
+    m = model()
+    loss = make_spmd_loss(mesh, cfg)(m, x, y)
+    loss.backward()
+    rest = tuple(a for a in mesh.axis_names if a != "tensor")
+    names = [n for n, _ in m.named_parameters()]
+    grads = allreduce_gradients([p.grad for p in m.parameters()],
+                                axis_name=rest, mesh=mesh, op=hvd.Sum)
+    case = {"loss": float(loss), "grads": {
+        n: g.numpy().copy() for n, g in zip(names, grads)}}
+    for name in opts:
+        m = model()
+        lr = SP_LRS[name]
+        opt = (torch.optim.SGD(m.parameters(), lr=lr) if name == "sgd" else
+               torch.optim.AdamW(m.parameters(), lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=1e-4))
+        step = make_train_step(mesh, cfg, opt)
+        losses = [float(step(m, x, y)) for _ in range(SP_STEPS)]
+        case[name] = {"losses": losses, "params": {
+            n: p.detach().numpy().copy() for n, p in m.named_parameters()}}
+    return case
+
+
+def _tp_lm_scenario(hvd, rank: int, size: int) -> dict:
+    """The LM under tensor parallelism on (data, seq, tensor) meshes: dense
+    (SGD and AdamW), the MoE FFN with the experts over the tensor axis
+    (AdamW), the pad-row case and a multislice mesh's SGD steps."""
+    import torch
+    from horovod_tpu_torch.parallel import mesh as pm
+    torch.set_num_threads(1)     # tiny tensors; the ranks share the cores
+    out = {"world_mesh": hvd.mesh().shape}
+    tokens = sp_tokens()
+    for shape in TP_MESHES:
+        mesh = pm.training_mesh(dict(zip(("data", "seq", "tensor"), shape)))
+        out[("dense", shape)] = _tp_case(hvd, mesh, tp_config(torch, False),
+                                         tp_params(), tokens, SP_LRS)
+        out[("moe", shape)] = _tp_case(hvd, mesh, tp_config(torch, True),
+                                       tp_params(True), tokens, ("adamw",))
+        out[("coords", shape)] = dict(mesh.index)
+    mesh = pm.training_mesh({"data": 1, "seq": 1, "tensor": 4})
+    out["pad"] = _tp_case(hvd, mesh, tp_config(torch, True, TP_PAD_FACTOR),
+                          tp_params(True), tp_pad_tokens(), ())
+    mesh = pm.multislice_mesh(*TP_MULTISLICE)
+    out["multislice"] = _tp_case(hvd, mesh, tp_config(torch, False),
+                                 tp_params(), tokens, ("sgd",))
+    out["multislice_axes"] = (mesh.axis_names, dict(mesh.shape),
+                              dict(mesh.index))
+    hier = pm.hierarchical_mesh()
+    out["hierarchical"] = (hier.axis_names, dict(hier.shape),
+                           dict(hier.index))
+    out["pp_dp_sp"] = dict(pm.pp_dp_sp_mesh(2, seq=1).shape)
+    return out
+
+
+# the MoE layer and the MoE-EP train step (test_torch_moe.py): the
+# reference's test_moe.py shapes
+MOE_LAYER = dict(experts=8, d=16, f=32, tokens=64, factor=8.0)
+MOE_EP_DIMS = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2,
+                   d_ff=64, max_seq=16)
+MOE_EP_EXPERTS = 4
+MOE_EP_FACTOR = 2.0
+MOE_EP_LR = 0.1
+MOE_EP_STEPS = 5
+
+
+def moe_layer_inputs():
+    """(x [T, d], router [d, E], w_in [E, d, f], w_out [E, f, d]) of the
+    MoE layer case, the reference's ``init_moe`` scales."""
+    rng = np.random.RandomState(31)
+    e, d, f, t = (MOE_LAYER[k] for k in ("experts", "d", "f", "tokens"))
+    return (rng.randn(t, d).astype(np.float32),
+            (rng.randn(d, e) * 0.02).astype(np.float32),
+            (rng.randn(e, d, f) * (2.0 / d) ** 0.5).astype(np.float32),
+            (rng.randn(e, f, d) * (2.0 / f) ** 0.5).astype(np.float32))
+
+
+def moe_ep_params() -> dict:
+    """The MoE LM's weights in the reference's tree: :func:`tp_params`'s
+    scales at the MoE-EP case's dims."""
+    rng = np.random.RandomState(41)
+    d, h, f, v, n = (MOE_EP_DIMS[k] for k in ("d_model", "n_heads", "d_ff",
+                                               "vocab_size", "n_layers"))
+    e, dh = MOE_EP_EXPERTS, d // h
+
+    def normal(shape, fan_in):
+        return (rng.randn(*shape) * fan_in ** -0.5).astype(np.float32)
+
+    layers = {"ln1": (1 + 0.1 * rng.randn(n, d)).astype(np.float32),
+              "wq": normal((n, d, h, dh), d), "wk": normal((n, d, h, dh), d),
+              "wv": normal((n, d, h, dh), d), "wo": normal((n, h, dh, d), d),
+              "ln2": (1 + 0.1 * rng.randn(n, d)).astype(np.float32),
+              "router": normal((n, d, e), d) * 0.1,
+              "w1": normal((n, e, d, f), d), "w2": normal((n, e, f, d), f)}
+    return {"embed": normal((v, d), d) * 0.02 * d ** 0.5, "layers": layers,
+            "ln_f": (1 + 0.1 * rng.randn(d)).astype(np.float32)}
+
+
+def moe_ep_tokens(rank: int):
+    """(inputs, targets) [2, 16] of rank ``rank`` in the MoE-EP case."""
+    rng = np.random.RandomState(50 + rank)
+    v = MOE_EP_DIMS["vocab_size"]
+    return rng.randint(0, v, (2, 16)), rng.randint(0, v, (2, 16))
+
+
+def moe_ep_config(torch, device_dtype=None):
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(dtype=device_dtype or torch.float32,
+                             attention="flash", use_moe=True,
+                             n_experts=MOE_EP_EXPERTS,
+                             moe_capacity_factor=MOE_EP_FACTOR,
+                             **MOE_EP_DIMS)
+
+
+def moe_ep_trajectory(hvd, eng, rank: int, size: int, steps: int,
+                      device="cpu") -> dict:
+    """``steps`` MoE-EP SGD steps from :func:`moe_ep_params` on this rank's
+    tokens: the losses, this rank's parameters after them, and per step
+    (engine dispatches, replayed steps, fallbacks so far)."""
+    import torch
+    from horovod_tpu_torch.models.convert import transformer_from_jax
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, make_moe_ep_train_step, moe_ep_partition)
+    cfg = moe_ep_config(torch)
+    model = Transformer(cfg)
+    model.load_state_dict(transformer_from_jax(moe_ep_params(), cfg))
+    model.to(device)
+    shared, expert = moe_ep_partition(model, rank, size, cfg)
+    opt = torch.optim.SGD(model.parameters(), lr=MOE_EP_LR)
+    step = make_moe_ep_train_step(eng, cfg, opt)
+    x, y = (torch.from_numpy(a).to(device) for a in moe_ep_tokens(rank))
+    losses, marks = [], []
+    for _ in range(steps):
+        d0, r0 = eng.dispatch_count, eng.replay.replayed_steps
+        losses.append(float(step(model, x, y)))
+        marks.append((eng.dispatch_count - d0,
+                      eng.replay.replayed_steps - r0, eng.replay.fallbacks))
+    return {"losses": losses, "marks": marks,
+            "shared": sorted(shared), "expert": sorted(expert),
+            "params": {n: p.detach().cpu().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+def _moe_ep_scenario(hvd, rank: int, size: int) -> dict:
+    """The MoE layer over the world (at size 4), the MoE-EP train step
+    (twice from the same start, the metrics and the replay counters), and
+    at size 2 grouped_alltoall's join substitute and debug check."""
+    import torch
+    import torch.distributed as dist
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.metrics import registry
+    from horovod_tpu_torch.parallel.moe import MoEParams, moe_layer_p
+    torch.set_num_threads(1)
+    eng = engine()
+    out = {}
+    if size == 4:
+        x, router, w_in, w_out = (torch.from_numpy(a)
+                                  for a in moe_layer_inputs())
+        el = MOE_LAYER["experts"] // size
+        params = [t.clone().requires_grad_() for t in (
+            router, w_in[rank * el:(rank + 1) * el],
+            w_out[rank * el:(rank + 1) * el])]
+        xg = x.clone().requires_grad_()
+        y, aux = moe_layer_p(xg, MoEParams(*params), dist.group.WORLD, size,
+                             capacity_factor=MOE_LAYER["factor"])
+        (y.pow(2).sum() + 0.01 * aux).backward()
+        out["layer"] = {"y": y.detach().numpy(), "aux": float(aux),
+                        "grads": [xg.grad.numpy()] + [
+                            p.grad.numpy() for p in params]}
+    eng.replay.invalidate_all("moe_ep scenario")
+    before = registry().snapshot()
+    out["ep"] = moe_ep_trajectory(hvd, eng, rank, size, MOE_EP_STEPS)
+    out["metrics"] = (before, registry().snapshot())
+    eng.replay.invalidate_all("moe_ep scenario")
+    out["ep_again"] = moe_ep_trajectory(hvd, eng, rank, size, 4)["losses"]
+    if size == 2:
+        out["join"] = _a2a_join_case(hvd, eng, rank)
+    return out
+
+
+def _a2a_join_case(hvd, eng, rank: int) -> dict:
+    """Rank 1 joins while rank 0 runs a grouped alltoall (the kind-11
+    substitute), then a shape mismatch under the debug check."""
+    import torch
+    res = {}
+    eng.config.join_enabled = True       # on every rank at this point
+    a = torch.arange(1.0, 13.0).reshape(4, 3)
+    b = torch.arange(1.0, 3.0)
+    if rank == 0:
+        outs = [h.synchronize()
+                for h in eng.grouped_alltoall([a, b], name="join.a2a")]
+        res["outs"] = [o.numpy() for o in outs]
+    res["last"] = hvd.join()
+    eng.config.join_enabled = False
+    eng.config.debug_consistency = True
+    try:
+        eng.grouped_alltoall([torch.zeros(2 + 2 * rank, 3)], name="dc.a2a")
+    except Exception as e:  # noqa: BLE001
+        res["mismatch"] = type(e).__name__
+    eng.config.debug_consistency = False
+    return res
 
 
 SP_CARD_DIMS = dict(vocab_size=256, d_model=256, n_heads=4, n_layers=2,
@@ -448,6 +708,137 @@ def _sp_cards_scenario(hvd, rank: int, size: int) -> dict:
         losses = [float(step(model, x, y)) for _ in range(SP_STEPS)]
         out[(attention, layout)] = {"losses": losses, "params": {
             n: p.detach().cpu().numpy() for n, p in model.named_parameters()}}
+    return out
+
+
+# tensor parallelism and MoE-EP on the card (test_torch_cuda.py -k "cards
+# and (tensor or moe)"): the bf16 LM of sp_cards, K6 attention
+TP_CARD_STEPS = 2              # SGD steps held to the one-card run
+TP_CARD_TIMED = 5              # steps timed after them
+MOE_CARD_EXPERTS = 8
+MOE_CARD_STEPS = 6             # MoE-EP steps: the first held to one card,
+MOE_CARD_WARM = 3              # the warm-up, then replayed
+
+
+def tp_card_cases(size: int) -> list:
+    """(kind, mesh axes) of the tp_cards scenario on ``size`` cards: the
+    whole world on the tensor axis, dense and with the MoE FFN, and on 4
+    cards (data 2, tensor 2)."""
+    whole = {"data": 1, "seq": 1, "tensor": size}
+    cases = [("dense", whole), ("moe", whole)]
+    if size == 4:
+        cases.append(("dense", {"data": 2, "seq": 1, "tensor": 2}))
+    return cases
+
+
+def tp_card_config(torch, kind: str, factor: float = 8.0,
+                   aux_weight: float = 0.0):
+    """The LM of the card scenarios (K6 attention): dense in bf16, or with
+    the MoE FFN in fp32 (K6 on its tf32 route). In bf16 the router's
+    logits tie often, and the card's expert products batched another way
+    (the world's [E/n, n·C, d] against one card's [E, C, d]) flip ties:
+    fp32 keeps the multi-card run and its one-card run on the same
+    routes. tp_cards holds the MoE under the tensor axis to one card's
+    single shard, so it takes no aux loss (the tensor axis's aux is the
+    mean of each rank's share's, not the whole batch's: the CPU tests
+    hold it to the reference's) and a factor that drops no token."""
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(dtype=torch.float32 if kind == "moe"
+                             else torch.bfloat16, attention="flash",
+                             use_moe=kind == "moe",
+                             n_experts=MOE_CARD_EXPERTS,
+                             moe_capacity_factor=factor,
+                             moe_aux_weight=aux_weight, **SP_CARD_DIMS)
+
+
+def moe_card_tokens(rank: int):
+    """(inputs, targets) [2, 256] of rank ``rank`` in moe_cards."""
+    rng = np.random.RandomState(60 + rank)
+    return (rng.randint(0, 256, size=(2, 256)),
+            rng.randint(0, 256, size=(2, 256)))
+
+
+def _timed(torch, fn):
+    """``(fn(), its ms by the host clock)``, the card drained on each
+    side."""
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _tp_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The LM under tensor parallelism on the card (NCCL, K6 on this
+    rank's heads): per case of :func:`tp_card_cases`, two SGD steps'
+    losses, this rank's parameters after the first (its change is the
+    gradient), the K6 launches, and the time of the steps after them."""
+    import torch
+    from horovod_tpu_torch.models.transformer import (
+        make_train_step, shard_params, shard_tokens)
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    dev = hvd.device()
+    inputs, targets = sp_card_tokens()
+    out = {}
+    for kind, axes in tp_card_cases(size):
+        mesh = training_mesh(axes)
+        cfg = tp_card_config(torch, kind)
+        model = shard_params(sp_card_model(cfg, dev), mesh, cfg)
+        x, y = (shard_tokens(mesh, torch.from_numpy(a)).to(dev)
+                for a in (inputs, targets))
+        step = make_train_step(mesh, cfg, torch.optim.SGD(
+            model.parameters(), lr=SP_LRS["sgd"]))
+        K.reset_launch_counts()
+        losses = [float(step(model, x, y))]
+        params1 = {n: p.detach().float().cpu().numpy().copy()
+                   for n, p in model.named_parameters()}
+        losses += [float(step(model, x, y))
+                   for _ in range(TP_CARD_STEPS - 1)]
+        counts = K.launch_counts()
+        ms = [_timed(torch, lambda: step(model, x, y))[1]
+              for _ in range(TP_CARD_TIMED)]
+        out[(kind, tuple(axes.values()))] = {
+            "losses": losses, "params1": params1, "step_ms": ms,
+            "tensor_index": mesh.index["tensor"],
+            "k6": {n: counts.get(n, 0) for n in (
+                "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}}
+    return out
+
+
+def _moe_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The MoE LM's MoE-EP step on the card (NCCL, the experts over
+    the world, join off so the exchanges replay): the losses, this rank's
+    parameters before and after the first step, each step's dispatches and
+    replayed rounds, and the step times."""
+    import torch
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.models.transformer import (
+        make_moe_ep_train_step, moe_ep_partition)
+    from horovod_tpu_torch.ops import kernels as K
+    dev = hvd.device()
+    eng = engine()
+    cfg = tp_card_config(torch, "moe", factor=2.0, aux_weight=0.01)
+    model = sp_card_model(cfg, dev)
+    moe_ep_partition(model, rank, size, cfg)
+    step = make_moe_ep_train_step(eng, cfg, torch.optim.SGD(
+        model.parameters(), lr=SP_LRS["sgd"]))
+    x, y = (torch.from_numpy(a).to(dev) for a in moe_card_tokens(rank))
+    out = {"losses": [], "marks": [], "step_ms": []}
+    K.reset_launch_counts()
+    for i in range(MOE_CARD_STEPS):
+        d0, r0 = eng.dispatch_count, eng.replay.replayed_steps
+        loss, ms = _timed(torch, lambda: step(model, x, y))
+        out["losses"].append(float(loss))
+        out["step_ms"].append(ms)
+        out["marks"].append((eng.dispatch_count - d0,
+                             eng.replay.replayed_steps - r0))
+        if i == 0:
+            out["params1"] = {n: p.detach().float().cpu().numpy().copy()
+                              for n, p in model.named_parameters()}
+    out["counts"] = K.launch_counts()
     return out
 
 
@@ -2468,6 +2859,9 @@ def _obs_faults_scenario(hvd, rank: int, size: int) -> dict:
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
+             "tp_lm": _tp_lm_scenario, "moe_ep": _moe_ep_scenario,
+             "tp_cards": _tp_cards_scenario,
+             "moe_cards": _moe_cards_scenario,
              "adasum": _adasum_scenario,
              "adasum_cards": _adasum_cards_scenario,
              "sync_bn": _sync_bn_scenario,
