@@ -215,6 +215,18 @@ and then:
     then ``moe_ep_vs_dense``: the dense step's time over the MoE-EP
     step's at matched active parameters. Every K6 kernel once a layer and
     step in each part.
+21. The pipelined flagship at pipe 1 (world size 1: every hop a copy; 1F1B
+    and zb refuse one stage, as the reference does), the flagship LM's
+    widths, batch 4 in 4 microbatches of 1 x 2048, AdamW:
+    ``make_pp_train_step`` interleaved with 2 and 4 chunks from the same
+    weights (the losses and parameters bitwise each other, the first loss
+    within 1e-3 of ``make_train_step``'s), ``make_pp_engine_train_step``
+    through ``DistributedOptimizer(sharded=True)`` eager and then replayed
+    (the losses bitwise, one dispatch a replayed step), the host
+    synchronizations of a step of each (none: the loss is read after it),
+    step ms, tokens/s against phase 5's, peak memory and K6's launches a
+    step (the stage's recompute: the forward 1 + (v-1)/v times a layer
+    and microbatch, each backward kernel once).
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -224,7 +236,8 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13, 14, 15, 16, 17 and 18, each part of 20) and read
+each form of 11, 12, 13, 14, 15, 16, 17 and 18, each part of 20 and 21)
+and read
 just after it;
 every kernel of the path must have launched there (53 BN layers per ResNet step for each
 BN kernel, and one K2 and one K3 in raw mode a layer of phase 14's step,
@@ -463,6 +476,13 @@ MOE_STEPS = 5                  # MoE-EP steps each way (eager, replay armed)
 MOE_WARM = 2                   # of them the replay's warm-up
 MOE_TP_STEPS = 3               # make_train_step steps of (b) and (c)
 MOE_DENSE_TIMED = 4            # dense lean-loss steps timed for the ratio
+# phase 21: the pipelined flagship at pipe 1
+PP_MICRO = 4                   # microbatches a step (1 x 2048 tokens each)
+PP_VIRTUAL = (2, 4)            # interleaved chunks of the one stage
+PP_CHECKED = 3                 # steps of each, held bitwise each other
+PP_TIMED = 5                   # v=2 steps timed after them
+PP_ENGINE = 5                  # engine steps each way (eager, replayed)
+PP_PROFILED = 3                # v=2 steps traced for the busy share
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -4025,6 +4045,200 @@ def run_moe_path(torch, hvd, K, tm, dev, smi, log):
     return out, total
 
 
+def run_pipeline_path(torch, hvd, K, tm, dev, smi, log, dense_tok_s):
+    """Phase 21: the pipelined flagship at pipe 1 on one card (world size
+    1, every hop a copy), the flagship LM's widths (``LM_DIMS``, bf16 on
+    fp32 parameters, AdamW, ``attention="flash"``), batch 4 in
+    ``PP_MICRO`` microbatches:
+
+    (a) ``make_pp_train_step`` interleaved with each of ``PP_VIRTUAL``
+        chunks, ``PP_CHECKED`` steps from the same weights: the losses and
+        the parameters bitwise alike, finite and falling; each K6 kernel's
+        launches (the forward of the F slots and of each B slot's
+        recompute, the backward once a layer and microbatch); then
+        ``PP_TIMED`` timed steps (v=2) and one with its synchronizations
+        counted, then ``PP_PROFILED`` traced (device time by layer, busy
+        share, launches a step);
+    (b) the first loss within 1e-3 of ``make_train_step``'s on the (1, 1,
+        1) mesh from the same weights (its fp32-logit loss);
+    (c) ``zb`` and ``1f1b`` at pipe 1 raise the reference's errors;
+    (d) ``make_pp_engine_train_step`` (v=2) through
+        ``DistributedOptimizer(sharded=True)``, ``PP_ENGINE`` steps with
+        replay off, then as many with it on from the same weights: the
+        losses bitwise, one dispatch a replayed step, a replayed step's
+        synchronizations.
+
+    Returns the phase's summary and its K6 and K1 launches."""
+    import copy
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    t_phase = time.perf_counter()
+    eng = hvd.global_state().engine
+    check(hvd.size() == 1, "phase 21 needs a size-1 world")
+    cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                               **LM_DIMS)
+    L, T, B, m = cfg.n_layers, cfg.max_seq, 4, PP_MICRO
+    gen = torch.Generator(device=dev).manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T + 1), device=dev,
+                           generator=gen)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    pristine = tm.Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    pristine.to(dev)
+    mesh = training_mesh({"pipe": 1})
+    out = {"card": smi, "microbatches": m, "batch": B}
+    counts = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def fwd_per_step(v):
+        # F of chunks 0..v-2, then every chunk's recompute in its B slot
+        return m * L * (2 * v - 1) // v
+
+    # (a) interleaved at v = 2 and 4 from the same weights
+    runs = {}
+    for v in PP_VIRTUAL:
+        model = copy.deepcopy(pristine)
+        step = tm.make_pp_train_step(mesh, cfg, _adamw(
+            torch, model.parameters()), m, schedule="interleaved",
+            n_virtual=v)
+        K.reset_launch_counts()
+        losses = [float(step(model, x, y)) for _ in range(PP_CHECKED)]
+        counts[f"v{v}"] = K.launch_counts()
+        runs[v] = (losses, {n: p.detach().clone()
+                            for n, p in model.named_parameters()})
+        for name in FLASH_KERNELS:
+            want = PP_CHECKED * (fwd_per_step(v) if name == "flash_fwd"
+                                 else m * L)
+            check(counts[f"v{v}"][name] == want,
+                  f"phase 21 (a) v={v}: {name} launched "
+                  f"{counts[f'v{v}'][name]}, expected {want}")
+        if v == PP_VIRTUAL[0]:
+            ms = []
+            for _ in range(PP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(step(model, x, y))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            _, syncs = _sync_count(torch, lambda: step(model, x, y))
+            prof = profile_steps(torch, lambda: step(model, x, y),
+                                 PP_PROFILED, log)
+        del step, model
+        torch.cuda.empty_cache()
+    (l2, p2), (l4, p4) = runs[2], runs[4]
+    bitwise = l2 == l4 and all(torch.equal(p2[n], p4[n]) for n in p2)
+    log(f"  (a) make_pp_train_step interleaved v=2 losses "
+        f"{' '.join(f'{v:.4f}' for v in l2)}; v=4 "
+        f"{' '.join(f'{v:.4f}' for v in l4)}; bitwise {bitwise} ({smi})")
+    check(_finite_falling(l2), f"phase 21 (a): losses {l2}")
+    check(bitwise, "phase 21 (a): v=2 and v=4 are not bitwise alike")
+    check(not syncs, f"phase 21 (a): a step synchronized {syncs}")
+    del runs, p2, p4
+    step_ms = statistics.median(ms)
+    tok_s = B * T / (step_ms / 1e3)
+    ratio = tok_s / dense_tok_s
+    k6 = {n: counts["v2"][n] // PP_CHECKED for n in FLASH_KERNELS}
+    log(f"      step ms {' '.join(f'{v:.2f}' for v in ms)} (median "
+        f"{step_ms:.2f}, {tok_s:.1f} tokens/s, {ratio:.4f} of phase 5's "
+        f"{dense_tok_s:.1f}); K6 a step {k6}; synchronizations a step "
+        f"{len(syncs)} ({smi})")
+    # (b) the first loss against make_train_step's
+    model = copy.deepcopy(pristine)
+    tp_step = tm.make_train_step(
+        training_mesh({"data": 1, "seq": 1, "tensor": 1}), cfg,
+        _adamw(torch, model.parameters()))
+    first = float(tp_step(model, x, y))
+    del tp_step, model
+    torch.cuda.empty_cache()
+    rel = abs(l2[0] - first) / abs(first)
+    log(f"  (b) make_train_step's first loss {first:.6f}, the pipeline's "
+        f"{l2[0]:.6f} ({rel:.3g} relative)")
+    check(rel <= 1e-3, f"phase 21 (b): first loss {l2[0]} against "
+          f"make_train_step's {first}")
+    # (c) the schedules one stage cannot run, as the reference refuses them
+    refused = {}
+    for sched, exc, text in (("zb", RuntimeError, "stalled (zb, p=1"),
+                             ("1f1b", ValueError, "n_stages >= 2")):
+        step = tm.make_pp_train_step(mesh, cfg, None, m, schedule=sched)
+        try:
+            step(pristine, x, y)
+            refused[sched] = None
+        except exc as e:
+            refused[sched] = str(e)
+        check(refused[sched] is not None and text in refused[sched],
+              f"phase 21 (c): {sched} at pipe 1: {refused[sched]}")
+    log(f"  (c) refused at pipe 1: {refused}")
+    # (d) the engine step, eager then replayed
+    warm = eng.config.step_replay_warmup
+    engine_runs = {}
+    for replay in (False, True):
+        model = copy.deepcopy(pristine)
+        eng.config.step_replay = replay
+        eng.replay.invalidate_all(f"phase 21 ({replay})")
+        opt = hvd.DistributedOptimizer(_adamw(torch, model.parameters()),
+                                       op=hvd.Sum, sharded=True)
+        step = tm.make_pp_engine_train_step(mesh, cfg, opt, m,
+                                            schedule="interleaved",
+                                            n_virtual=2)
+        K.reset_launch_counts()
+        losses, marks, ems = [], [], []
+        for _ in range(PP_ENGINE):
+            d0, r0 = eng.dispatch_count, eng.replay.replayed_steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(model, x, y)))
+            ems.append((time.perf_counter() - t0) * 1e3)
+            marks.append((eng.dispatch_count - d0,
+                          eng.replay.replayed_steps - r0))
+        counts[f"engine_{'replay' if replay else 'eager'}"] = \
+            K.launch_counts()
+        if replay:
+            d0 = eng.dispatch_count
+            _, esyncs = _sync_count(torch, lambda: step(model, x, y))
+            sync_dispatches = eng.dispatch_count - d0
+        engine_runs[replay] = (losses, marks, ems)
+        del step, opt, model
+        torch.cuda.empty_cache()
+    eng.config.step_replay = True
+    eager, _, eager_ms = engine_runs[False]
+    replayed, marks, rep_ms = engine_runs[True]
+    log(f"  (d) make_pp_engine_train_step eager losses "
+        f"{' '.join(f'{v:.4f}' for v in eager)}; replayed "
+        f"{' '.join(f'{v:.4f}' for v in replayed)}; dispatches and replayed "
+        f"steps a step {marks}; synchronizations a replayed step "
+        f"{len(esyncs)}; ms eager {' '.join(f'{v:.1f}' for v in eager_ms)}, "
+        f"replayed {' '.join(f'{v:.1f}' for v in rep_ms)} ({smi})")
+    check(_finite_falling(eager), f"phase 21 (d): losses {eager}")
+    check(replayed == eager, f"phase 21 (d): the replayed losses {replayed} "
+          f"are not bitwise the eager ones {eager}")
+    check(all(mk == (1, 1) for mk in marks[warm:]) and sync_dispatches == 1,
+          f"phase 21 (d): replayed steps' dispatches {marks}, counted "
+          f"{sync_dispatches}")
+    check(not esyncs, f"phase 21 (d): a replayed step synchronized {esyncs}")
+    for run in ("engine_eager", "engine_replay"):
+        for name in FLASH_KERNELS:
+            want = PP_ENGINE * (fwd_per_step(2) if name == "flash_fwd"
+                                else m * L)
+            check(counts[run][name] == want, f"phase 21 (d) {run}: {name} "
+                  f"launched {counts[run][name]}, expected {want}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del pristine
+    torch.cuda.empty_cache()
+    out.update(losses_v2=l2, losses_v4=l4, bitwise=bitwise, step_ms=step_ms,
+               timed_ms=ms, tokens_per_s=tok_s, vs_dense=ratio,
+               dense_tokens_per_s=dense_tok_s, syncs_per_step=len(syncs),
+               k6_launches_per_step=k6, first_loss_train_step=first,
+               first_loss_rel=rel, refused=refused, profile=prof,
+               engine={"eager_losses": eager, "replayed_losses": replayed,
+                       "bitwise": replayed == eager, "marks": marks,
+                       "eager_ms": eager_ms, "replayed_ms": rep_ms,
+                       "step_ms": statistics.median(rep_ms[warm:]),
+                       "syncs_per_step": len(esyncs)},
+               peak_gib=peak)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  peak {peak:.2f} GiB; phase 21: {out['seconds']:.1f} s ({smi})")
+    total = {name: sum(c.get(name, 0) for c in counts.values())
+             for name in FLASH_KERNELS + ("pack", "pack_out")}
+    return out, total
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -4429,6 +4643,14 @@ def main(argv=None) -> int:
             f"(1, 1, 1) with the MoE FFN and dense against "
             f"DistributedOptimizer")
         moe, moe_counts = run_moe_path(torch, hvd, K, tm, dev, smi, log)
+        torch.cuda.empty_cache()
+
+        log(f"phase 21: the pipelined flagship at pipe 1 (every hop a copy): "
+            f"make_pp_train_step interleaved v={PP_VIRTUAL}, "
+            f"{PP_MICRO} microbatches, against make_train_step, zb and "
+            f"1f1b refused, make_pp_engine_train_step eager and replayed")
+        pipeline, pp_counts = run_pipeline_path(torch, hvd, K, tm, dev, smi,
+                                                log, tok_s)
     finally:
         hvd.shutdown()
 
@@ -4537,7 +4759,8 @@ def main(argv=None) -> int:
              codec_graph_launches=codec_counts["pack_graph"],
              algo_launches=algo_counts["pack"],
              algo_graph_launches=algo_counts["pack_graph"],
-             moe_launches=moe_counts["pack"]),
+             moe_launches=moe_counts["pack"],
+             pp_launches=pp_counts["pack"]),
         # K1 into a ZeRO-1 bucket's padded buffer (out=): phase 16's
         # launches, phase 1's numbers
         dict(name="pack_out", route="cuda", source=f"{src}/pack.cu",
@@ -4551,6 +4774,7 @@ def main(argv=None) -> int:
              library_ms=pack_out_row["library_ms"], ok=True,
              codec_launches=codec_counts["pack_out"],
              algo_launches=algo_counts["pack_out"],
+             pp_launches=pp_counts["pack_out"],
              work=f"ResNet-50 fp32 gradients, 2 buckets at 64 MB, each with "
                   f"{PACK_OUT_TAIL} fp32 after it, into buffers padded for "
                   f"{PACK_OUT_RANKS} ranks; launches: phase 16 "
@@ -4578,7 +4802,8 @@ def main(argv=None) -> int:
         dict(name=name, route="cuda", source=f"{src}/{flash_source(name)}",
              replaces="horovod_tpu/parallel/flash_attention.py:226",
              launches=lm_counts[name], vit_launches=vit_counts[name],
-             moe_launches=moe_counts[name], ok=True,
+             moe_launches=moe_counts[name], pp_launches=pp_counts[name],
+             ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
              **flash_rows[name], **ptxas[name],
@@ -4628,6 +4853,7 @@ def main(argv=None) -> int:
                       "replay": replay, "sharded": sharded,
                       "codec": codec, "algo": algo,
                       "observability": observability, "moe": moe,
+                      "pipeline": pipeline,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

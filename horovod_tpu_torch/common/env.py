@@ -62,6 +62,19 @@ HOROVOD_TPU_ALLTOALL_CODEC = "HOROVOD_TPU_ALLTOALL_CODEC"
 HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES = \
     "HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES"
 HOROVOD_TPU_MOE_CAPACITY_FACTOR = "HOROVOD_TPU_MOE_CAPACITY_FACTOR"
+# pipeline schedules (parallel/pipeline.py; the reference's
+# common/env.py:234-251): SCHEDULE picks the microbatch schedule, "1f1b"
+# (the default), "interleaved" (virtual-stage round-robin chunks), "zb"
+# (the backward split into its activation and weight halves) or "auto"
+# (the cheapest under the predictor); a degenerate combination demotes to
+# 1f1b with one warning. VIRTUAL_STAGES is the chunks a stage v (>= 2
+# interleaves), MICROBATCHES the microbatch count m (0: the caller's), and
+# BOUNDARY_CODEC the wire codec of the stage-boundary hops that cross
+# islands (the others stay raw)
+HOROVOD_TPU_PIPELINE_SCHEDULE = "HOROVOD_TPU_PIPELINE_SCHEDULE"
+HOROVOD_TPU_PIPELINE_VIRTUAL_STAGES = "HOROVOD_TPU_PIPELINE_VIRTUAL_STAGES"
+HOROVOD_TPU_PIPELINE_MICROBATCHES = "HOROVOD_TPU_PIPELINE_MICROBATCHES"
+HOROVOD_TPU_PIPELINE_BOUNDARY_CODEC = "HOROVOD_TPU_PIPELINE_BOUNDARY_CODEC"
 # ranks on one fast-fabric island (an NVLink box): overrides the
 # launcher's HOROVOD_LOCAL_SIZE and the ranks' host names
 # (parallel/mesh.py detect_topology)
@@ -108,6 +121,7 @@ COMPRESSION_MODES = ("none", "bf16", "fp8", "int8")
 DEFAULT_TREE_THRESHOLD_BYTES = 256 * 1024
 COLLECTIVE_ALGO_MODES = ("auto", "flat", "tree", "hierarchical")
 ALLTOALL_ALGO_MODES = ("auto", "flat", "hierarchical")
+PIPELINE_SCHEDULE_MODES = ("1f1b", "interleaved", "zb", "auto")
 DEFAULT_STALL_WARNING_SECONDS = 60.0
 
 
@@ -198,6 +212,12 @@ class Config:
     # the MoE-EP train step's capacity factor when above 0, else the
     # model config's (models/transformer.py make_moe_ep_train_step)
     moe_capacity_factor: float = 0.0
+    # the pipeline's schedule knobs (parallel/pipeline.py), read by
+    # make_pp_engine_train_step when the caller names no schedule
+    pipeline_schedule: str = "1f1b"
+    pipeline_virtual_stages: int = 1
+    pipeline_microbatches: int = 0
+    pipeline_boundary_codec: str = "none"
     # observability (the reference's Config:431-622, its defaults); the
     # HOROVOD_TPU_METRICS switch is read by metrics.metrics_enabled(): the
     # registry is process-wide and outlives any Config
@@ -250,6 +270,16 @@ class Config:
                 HOROVOD_TPU_ALLTOALL_HIER_THRESHOLD_BYTES, 0),
             moe_capacity_factor=_get_float(
                 HOROVOD_TPU_MOE_CAPACITY_FACTOR, 0.0),
+            pipeline_schedule=_get_choice(
+                HOROVOD_TPU_PIPELINE_SCHEDULE, "1f1b",
+                PIPELINE_SCHEDULE_MODES),
+            pipeline_virtual_stages=_get_int(
+                HOROVOD_TPU_PIPELINE_VIRTUAL_STAGES, 1),
+            pipeline_microbatches=_get_int(
+                HOROVOD_TPU_PIPELINE_MICROBATCHES, 0),
+            pipeline_boundary_codec=_get_choice(
+                HOROVOD_TPU_PIPELINE_BOUNDARY_CODEC, "none",
+                COMPRESSION_MODES),
             timeline_path=os.environ.get(HOROVOD_TIMELINE) or None,
             timeline_mark_cycles=_get_bool(HOROVOD_TIMELINE_MARK_CYCLES),
             stall_check_disable=_get_bool(HOROVOD_STALL_CHECK_DISABLE),

@@ -970,15 +970,19 @@ class Engine:
 
     def _algo_sig(self) -> tuple:
         """The knobs the selection reads: replay rebuilds an armed program
-        on any move of them (the reference's :722-738 without its pipeline
-        knobs, ROADMAP A16b)."""
+        on any move of them (the reference's :722-740, the pipeline's
+        schedule knobs included)."""
         cfg = self.config
         return (cfg.collective_algo, cfg.tree_threshold_bytes,
                 cfg.hier_threshold_bytes,
                 cfg.hierarchical_allreduce, cfg.hierarchical_allgather,
                 cfg.compression,
                 cfg.alltoall_algo, cfg.alltoall_codec,
-                cfg.alltoall_hier_threshold_bytes)
+                cfg.alltoall_hier_threshold_bytes,
+                # a pipeline schedule or boundary-codec move changes the
+                # step's program: an armed one is rebuilt
+                cfg.pipeline_schedule, cfg.pipeline_virtual_stages,
+                cfg.pipeline_boundary_codec)
 
     def _a2a_codecs(self, dtypes: Sequence[torch.dtype],
                     algos: Sequence[str], count: bool = True) -> tuple:

@@ -17,7 +17,10 @@ for the decoder LM (dense or MoE: the reference's stacked ``router``, ``w1``
 MLP, and ``sync_batch_norm_from_flax`` for one ``SyncBatchNorm`` layer.
 ``transformer_to_jax`` goes back, and ``transformer_shard`` /
 ``transformer_unshard`` carry a full LM state to one rank's tensor-parallel
-or MoE-EP placement and back.
+or MoE-EP placement and back; ``transformer_pp_shard`` /
+``transformer_pp_unshard`` to one pipeline stage's rows of the layer stack
+(in ``pp_layer_order``'s permuted order under a round-robin placement)
+and back to model order.
 """
 
 from __future__ import annotations
@@ -223,4 +226,58 @@ def transformer_unshard(states: Sequence[Mapping], cfg,
         out[key] = (t.clone() if dim is None or len(states) == 1 else
                     torch.cat([torch.as_tensor(s[key]) for s in states],
                               dim=dim))
+    return out
+
+
+def _layer_index(key: str):
+    """(layer index, leaf name) of a ``layers.{i}.{name}`` key, else None."""
+    if not key.startswith("layers."):
+        return None
+    _, i, name = key.split(".", 2)
+    return int(i), name
+
+
+def transformer_pp_shard(state: Mapping, cfg, n_stages: int, stage: int,
+                         order=None) -> Dict[str, torch.Tensor]:
+    """Stage ``stage``'s state dict of a pipeline of ``n_stages`` (the
+    model ``pp_shard_layers`` leaves) from a full one: the embedding and
+    ``ln_f`` as they are, and rows ``[stage·rows, (stage+1)·rows)`` of the
+    layer stack in ``order`` (``pp_layer_order``'s; model order by
+    default) as its layers 0 .. rows-1: the reference's ``P("pipe")``
+    block of ``stack[order]``."""
+    n = cfg.n_layers
+    order = np.arange(n) if order is None else np.asarray(order)
+    rows = n // n_stages
+    mine = order[stage * rows:(stage + 1) * rows]
+    out = {}
+    for key, t in state.items():
+        li = _layer_index(key)
+        if li is None:
+            out[key] = torch.as_tensor(t).clone()
+        elif li[0] in mine:
+            local = int(np.nonzero(mine == li[0])[0][0])
+            out[f"layers.{local}.{li[1]}"] = torch.as_tensor(t).clone()
+    return out
+
+
+def transformer_pp_unshard(states: Sequence[Mapping], cfg,
+                           order=None) -> Dict[str, torch.Tensor]:
+    """The full state dict in model order from every stage's (``states``
+    in stage order), :func:`transformer_pp_shard` inverted (the
+    reference's ``np.argsort(order)``): the replicated leaves from stage
+    0."""
+    n_stages = len(states)
+    n = cfg.n_layers
+    order = np.arange(n) if order is None else np.asarray(order)
+    rows = n // n_stages
+    out = {}
+    for stage, st in enumerate(states):
+        for key, t in st.items():
+            li = _layer_index(key)
+            if li is None:
+                if stage == 0:
+                    out[key] = torch.as_tensor(t).clone()
+                continue
+            layer = int(order[stage * rows + li[0]])
+            out[f"layers.{layer}.{li[1]}"] = torch.as_tensor(t).clone()
     return out

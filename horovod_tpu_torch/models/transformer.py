@@ -48,15 +48,28 @@ and ``w2``, and each replicated input of a sharded product gets its
 gradient summed over the group, so every parameter's gradient needs only
 the data x seq reduction the reference's transpose gives it.
 
-Not here yet: the pipeline's train-step factories (:387-715), which come
-with the pipeline (ROADMAP A16b).
+Pipeline parallelism (the reference's :387-715): the layer stack splits
+over the ``pipe`` axis, one stage a rank (``parallel/pipeline.py``), the
+embedding and ``ln_f`` replicated::
+
+    mesh = training_mesh({"data": 2, "pipe": 2})
+    order = pp_layer_order(cfg.n_layers, 2, v, schedule)  # round-robin
+    pp_shard_layers(pp_permute_layers(model, order), mesh)  # this stage's
+    step = make_pp_train_step(mesh, cfg, torch.optim.AdamW(
+        model.parameters()), n_micro=4, schedule=schedule, n_virtual=v)
+    loss = step(model, inputs, targets)    # this data shard's batch
+
+:func:`make_pp_engine_train_step` keeps the whole model on every rank
+and hands the full gradient to a ``DistributedOptimizer`` (the engine:
+buckets, codecs, replay, ZeRO-1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -65,10 +78,14 @@ from torch.utils.checkpoint import checkpoint
 from ..common.reduce_ops import Average, Sum
 from ..core.state import engine as _engine
 from ..metrics import registry as _metrics_registry
-from ..optimizer import DistributedOptimizer, distributed
+from ..ops import collectives as C
+from ..optimizer import (DistributedOptimizer, allreduce_gradients,
+                         distributed)
 from ..parallel import moe as M
+from ..parallel import pipeline as PL
 from ..parallel.flash_attention import flash_attention_local
-from ..parallel.mesh import DATA_AXIS, SEQ_AXIS, TENSOR_AXIS, TrainingMesh
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS,
+                             TrainingMesh)
 from ..parallel.ring_attention import local_attention, ring_attention_p
 from ..parallel.tensor_parallel import (copy_to_group, gather_rows,
                                         mean_from_group, reduce_from_group,
@@ -502,6 +519,289 @@ def shard_params(model: Transformer, mesh: TrainingMesh,
                 _slice_leaf(getattr(layer, name), dim, t, rank, full,
                             f"layers.{i}.{name}")
     return model
+
+
+# -- pipeline parallelism (the reference's :387-715) -----------------------
+
+def _pp_layer(layer: TransformerLayer, h, block: bool = False):
+    """One layer on a stage's activation block: the layer's own forward
+    with no seq or tensor group (K6 attention; with ``use_moe`` the MoE
+    FFN with every expert on the stage, its aux loss left out of the
+    pipeline's objective, as the reference's :396-400). ``block``
+    recomputes the layer from its input in the backward."""
+    if block:
+        return checkpoint(layer, h, use_reentrant=False)[0]
+    return layer(h)[0]
+
+
+def pp_param_specs(cfg: TransformerConfig) -> dict:
+    """Each leaf's placement in the pipeline: the axis its layer stack
+    splits over (``"pipe"``: a stage owns its rows' modules), None where
+    it is replicated (the embedding and ``ln_f``); the reference's
+    ``P(PIPE_AXIS)`` and ``P()``. The MoE FFN adds the router (every
+    expert on its stage)."""
+    keys = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
+    if cfg.use_moe:
+        keys = keys + ("router",)
+    return {"embed": None, "layers": {k: PIPE_AXIS for k in keys},
+            "ln_f": None}
+
+
+def pp_layer_order(n_layers: int, n_stages: int, n_virtual: int,
+                   schedule: str = "interleaved"):
+    """The physical order of the layer stack: ``order`` such that stage s
+    owns rows ``order[s·rows:(s+1)·rows]`` (rows = n_layers / n_stages),
+    its chunks in local order. Round-robin placements (interleaved or zb
+    at ``n_virtual > 1``) give stage s the model chunks s, s+p, s+2p, ...;
+    contiguous ones the identity. ``np.argsort(order)`` maps back to model
+    order."""
+    if PL.pipeline_chunk_placement(schedule, n_virtual) == "contiguous":
+        return np.arange(n_layers)
+    lpc = n_layers // (n_stages * n_virtual)
+    return np.concatenate([
+        np.arange((j * n_stages + s) * lpc, (j * n_stages + s + 1) * lpc)
+        for s in range(n_stages) for j in range(n_virtual)])
+
+
+def _is_identity(order) -> bool:
+    return bool(np.all(np.asarray(order) == np.arange(len(order))))
+
+
+def pp_permute_layers(params, order):
+    """Apply :func:`pp_layer_order` to a :class:`Transformer`'s layers (in
+    place, before :func:`pp_shard_layers` and the optimizer) or to a
+    tree's stacked ``params["layers"]`` leaves (a new tree). The identity
+    leaves either as it is."""
+    if _is_identity(order):
+        return params
+    idx = np.asarray(order)
+    if isinstance(params, Transformer):
+        layers = list(params.layers)
+        params.layers = nn.ModuleList(layers[i] for i in idx)
+        return params
+    out = dict(params)
+    out["layers"] = {k: v[idx] for k, v in params["layers"].items()}
+    return out
+
+
+def pp_shard_layers(model: Transformer, mesh: TrainingMesh) -> Transformer:
+    """Keep this rank's stage of ``model``'s layers, in place: rows
+    [s·rows, (s+1)·rows) of the (permuted) stack, s its index on the
+    ``pipe`` axis (the reference's ``P(PIPE_AXIS)`` placement). The
+    embedding and ``ln_f`` stay. Build the optimizer after it."""
+    p = mesh.size(PIPE_AXIS)
+    n = model.cfg.n_layers
+    if len(model.layers) != n:
+        raise ValueError(f"the model holds {len(model.layers)} of "
+                         f"{n} layers: already a stage?")
+    if n % p:
+        raise ValueError(f"n_layers {n} must divide into {p} stages")
+    rows = n // p
+    s = mesh.rank_in(PIPE_AXIS) if PIPE_AXIS in mesh.shape else 0
+    model.layers = nn.ModuleList(list(model.layers)[s * rows:(s + 1) * rows])
+    return model
+
+
+def _pp_check(cfg: TransformerConfig, n_stages: int, n_virtual: int):
+    if cfg.n_layers % (n_stages * n_virtual):
+        raise ValueError(f"n_layers {cfg.n_layers} must divide into "
+                         f"{n_stages} pipeline stages x {n_virtual} "
+                         f"virtual chunks")
+    if cfg.remat not in ("none", "block"):
+        raise NotImplementedError(
+            f"PP flagship supports remat='none'|'block', got {cfg.remat!r}")
+
+
+def _pp_grads(cfg: TransformerConfig, n_virtual: int, n_micro: int,
+              schedule: str, boundary_codec, topology, group,
+              n_stages: int):
+    """``grads(model, layers, inputs, targets) -> (loss, per-layer
+    gradient lists, embed gradient, ln_f gradient)``: one pipelined
+    forward and backward of this stage's ``layers`` (the stage's rows in
+    local order) on this rank's batch."""
+    dt, block = cfg.dtype, cfg.remat == "block"
+    v = n_virtual
+
+    def stage_fn(layers, x):
+        for layer in layers:
+            x = _pp_layer(layer, x, block)
+        return x
+
+    def first_fn(fp, tok):
+        return fp["embed"][tok].to(dt)
+
+    def last_fn(lp, y):
+        return _rmsnorm(y, lp["ln_f"]) @ lp["embed"].to(dt).t()
+
+    def grads(model: Transformer, layers: List[TransformerLayer], inputs,
+              targets):
+        micro_in = PL.split_microbatches(inputs, n_micro)
+        micro_tgt = PL.split_microbatches(targets, n_micro)
+        lpc = len(layers) // v
+        sp = [layers[j * lpc:(j + 1) * lpc] for j in range(v)] if v > 1 \
+            else layers
+        act = ((micro_in.shape[1], micro_in.shape[2], cfg.d_model), dt)
+        loss, gs, gf, gl = PL.pipeline_train_step(
+            stage_fn, sp, micro_in, micro_tgt, lean_xent, group, n_stages,
+            schedule=schedule, n_virtual=v, first_fn=first_fn,
+            first_params={"embed": model.embed}, last_fn=last_fn,
+            last_params={"embed": model.embed, "ln_f": model.ln_f},
+            boundary_codec=boundary_codec, topology=topology,
+            act_struct=act)
+        per_layer = [lg for chunk in gs for lg in chunk] if v > 1 else gs
+        return loss, per_layer, gf["embed"] + gl["embed"], gl["ln_f"]
+
+    return grads
+
+
+def _set_grads(model: Transformer, layers, per_layer, g_embed, g_ln_f):
+    model.embed.grad = g_embed
+    model.ln_f.grad = g_ln_f
+    for layer, gl in zip(layers, per_layer):
+        for p, g in zip([q for q in layer.parameters() if q.requires_grad],
+                        gl):
+            p.grad = g
+
+
+def make_pp_train_step(mesh: TrainingMesh, cfg: TransformerConfig,
+                       optimizer: torch.optim.Optimizer, n_micro: int,
+                       schedule: str = "1f1b", n_virtual: int = 1,
+                       boundary_codec=None, topology=None):
+    """The pipelined flagship's train step over a ``("pipe",)`` or
+    ``("data", "pipe")`` mesh (the reference's :476-602):
+    ``step(model, inputs, targets) -> loss``, ``model`` this stage's
+    (:func:`pp_shard_layers`), ``optimizer`` a plain
+    ``torch.optim.Optimizer`` over its parameters, ``inputs`` and
+    ``targets`` this data shard's [B/d, T] tokens, microbatched per
+    replica.
+
+    The embedding runs on stage 0, ``n_layers/p`` layers a stage, ``ln_f``,
+    the tied head and :func:`lean_xent` on the last stage, scheduled by
+    ``schedule`` (resolved once here: 1f1b, interleaved with ``n_virtual
+    >= 2``, zb or auto; every one 1F1B's bits at matched ``n_micro``).
+    Under a round-robin placement the model's layers must be permuted by
+    :func:`pp_layer_order` before :func:`pp_shard_layers`; gradients stay
+    in that layout. The embedding's gradient is its stage-0 (lookup) part
+    plus its last-stage (head) part, each summed over the pipe group; at
+    data > 1 every gradient and the loss are averaged over the data group
+    (:func:`~horovod_tpu_torch.optimizer.allreduce_gradients`). Dense FFN
+    only; ``remat`` "none" or "block" (each layer recomputed inside the
+    stage's recompute). Every stage's backward recomputes its layers, so
+    K6 runs under recompute."""
+    if cfg.use_moe:
+        raise NotImplementedError("PP flagship: dense FFN only (compose "
+                                  "MoE with dp/sp/tp via make_train_step)")
+    d_size, n_stages = mesh.size(DATA_AXIS), mesh.size(PIPE_AXIS)
+    schedule, n_virtual = PL.resolve_pipeline_schedule(
+        schedule, n_stages, n_micro, n_virtual, topology)
+    _pp_check(cfg, n_stages, n_virtual)
+    grads = _pp_grads(cfg, n_virtual, n_micro, schedule, boundary_codec,
+                      topology, mesh.group(PIPE_AXIS), n_stages)
+    rows = cfg.n_layers // n_stages
+
+    def step(model: Transformer, inputs, targets):
+        if model.cfg != cfg:
+            raise ValueError("the model's config is not the step's")
+        if len(model.layers) != rows:
+            raise ValueError(f"the model holds {len(model.layers)} layers, "
+                             f"a stage {rows}: pp_shard_layers first")
+        layers = list(model.layers)
+        loss, per_layer, g_embed, g_ln_f = grads(model, layers, inputs,
+                                                 targets)
+        if d_size > 1:
+            flat = [g_embed] + [g for lg in per_layer for g in lg] + [
+                g_ln_f, loss.reshape(1)]
+            flat = allreduce_gradients(flat, axis_name=DATA_AXIS, mesh=mesh,
+                                       op=Average)
+            g_embed, g_ln_f, loss = flat[0], flat[-2], flat[-1][0]
+            it = iter(flat[1:-2])
+            per_layer = [[next(it) for _ in lg] for lg in per_layer]
+        _set_grads(model, layers, per_layer, g_embed, g_ln_f)
+        optimizer.step()
+        return loss
+
+    return step
+
+
+def make_pp_engine_train_step(mesh: TrainingMesh, cfg: TransformerConfig,
+                              opt, n_micro: int,
+                              schedule: Optional[str] = None,
+                              n_virtual: int = 0, boundary_codec=None,
+                              topology=None):
+    """The pipeline composed with the engine's data parallelism (the
+    reference's :605-715): ``step(model, inputs, targets) -> loss``, the
+    model whole on every rank (its layers in the :func:`pp_layer_order`
+    layout), ``opt`` a :class:`~horovod_tpu_torch.optimizer.
+    DistributedOptimizer` over its parameters (dense or ``sharded=True``:
+    buckets, codecs, replay and ZeRO-1 all apply), the world the mesh's.
+
+    A rank runs its stage's rows of the layers on its replica's batch
+    (``inputs``/``targets``: the data shard's tokens), then the stage's
+    layer gradients are all-gathered over the pipe group, so every rank of
+    a replica hands the optimizer the same full gradient: the world's
+    reduction is the mean over the replicas. Under ``op=Sum`` each rank
+    hands over its share (the gradient over the world size), under
+    ``op=Average`` the gradient itself. The loss is this replica's. With
+    ``schedule=None`` the ``HOROVOD_TPU_PIPELINE_*`` knobs decide. The
+    MoE FFN runs with every expert on its stage. The pipeline's own
+    transfers are ``torch.distributed`` calls on the pipe group; the
+    optimizer's one step of the collective stream replays after its
+    warm-up, one dispatch a step whatever ``n_micro``."""
+    from ..common.env import Config
+    if schedule is None:
+        ecfg = Config.from_env()
+        schedule = ecfg.pipeline_schedule
+        n_virtual = n_virtual or ecfg.pipeline_virtual_stages
+    n_virtual = max(1, int(n_virtual))
+    n_stages = mesh.size(PIPE_AXIS)
+    schedule, n_virtual = PL.resolve_pipeline_schedule(
+        schedule, n_stages, n_micro, n_virtual, topology)
+    _pp_check(cfg, n_stages, n_virtual)
+    group = mesh.group(PIPE_AXIS)
+    grads = _pp_grads(cfg, n_virtual, n_micro, schedule, boundary_codec,
+                      topology, group, n_stages)
+    rows = cfg.n_layers // n_stages
+    s = mesh.rank_in(PIPE_AXIS) if PIPE_AXIS in mesh.shape else 0
+    if opt.op not in (Sum, Average):
+        raise ValueError("make_pp_engine_train_step needs op=Sum or "
+                         "op=Average")
+
+    def step(model: Transformer, inputs, targets):
+        if model.cfg != cfg:
+            raise ValueError("the model's config is not the step's")
+        if len(model.layers) != cfg.n_layers:
+            raise ValueError("the engine step's model holds every layer")
+        all_layers = list(model.layers)
+        layers = all_layers[s * rows:(s + 1) * rows]
+        loss, per_layer, g_embed, g_ln_f = grads(model, layers, inputs,
+                                                 targets)
+        if n_stages > 1:
+            # every stage's rows to every rank of the replica: one gather
+            flat = torch.cat([g.reshape(-1) for lg in per_layer
+                              for g in lg])
+            out = flat.new_empty(n_stages * flat.numel())
+            C.all_gather(out, flat, group)
+            per_layer = []
+            for r in range(n_stages):
+                block = out[r * flat.numel():(r + 1) * flat.numel()]
+                off = 0
+                for layer in all_layers[r * rows:(r + 1) * rows]:
+                    lg = []
+                    for p in layer.parameters():
+                        if p.requires_grad:
+                            lg.append(block[off:off + p.numel()].view_as(p))
+                            off += p.numel()
+                    per_layer.append(lg)
+            layers = all_layers
+        share = 1.0 / _engine().backend.size() if opt.op == Sum else 1.0
+        if share != 1.0:
+            g_embed, g_ln_f = g_embed * share, g_ln_f * share
+            per_layer = [[g * share for g in lg] for lg in per_layer]
+        _set_grads(model, layers, per_layer, g_embed, g_ln_f)
+        opt.step()
+        return loss
+
+    return step
 
 
 # -- expert parallelism over the engine world (the reference's :717-959) --

@@ -212,8 +212,9 @@ def slice_groups(n: int, local_size: int):
 
 def ring_edge_is_dcn(n: int, local_size: int) -> Tuple[bool, ...]:
     """Whether each of the n ring edges (rank i to rank (i+1) % n) crosses
-    islands under :func:`slice_groups`' layout (the pipeline boundary
-    codec's rule, ROADMAP A16). A world of one island has none."""
+    islands under :func:`slice_groups`' layout (the rule of the pipeline
+    boundary codec's ``parallel/mesh.py`` ``pipeline_boundary_edges`` at
+    one rank a stage). A world of one island has none."""
     if local_size <= 1 or local_size >= n or n % local_size:
         return tuple([False] * n)
     return tuple((i // local_size) != (((i + 1) % n) // local_size)

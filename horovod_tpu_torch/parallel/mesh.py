@@ -14,6 +14,10 @@ The port's counterpart of ``horovod_tpu/parallel/mesh.py``:
   ``world`` axis on the default group), :func:`hierarchical_mesh`
   (``(cross, local)``), :func:`multislice_mesh` (the slow-fabric axes
   major, the fast-fabric ones inside an island) and :func:`pp_dp_sp_mesh`.
+- :func:`pipeline_boundary_edges` (the reference's :467): which stage
+  boundaries of a pipeline cross islands, for the boundary codec; and a
+  rank's neighbours on an axis (:meth:`TrainingMesh.neighbours`), the
+  pipeline's previous and next stage on the ``pipe`` axis.
 - :class:`Topology` and :func:`detect_topology` (the reference's :53-195,
   :288-351): how many ranks share one fast-fabric island (the ranks of an
   NVLink box on the card; the reference's ICI slice), resolved once a world
@@ -38,6 +42,7 @@ import torch.distributed as dist
 from ..common import env as env_mod
 
 DATA_AXIS = "data"
+PIPE_AXIS = "pipe"
 SEQ_AXIS = "seq"
 TENSOR_AXIS = "tensor"
 WORLD_AXIS = "world"
@@ -265,6 +270,24 @@ class TrainingMesh:
             idx = idx * self.shape[a] + self.index[a]
         return idx
 
+    def global_rank(self, index: Dict[str, int]) -> int:
+        """The world rank at ``index`` (an index on every axis; the mesh
+        is the world's ranks row-major in the axes' order)."""
+        rank = 0
+        for a in self.axis_names:
+            rank = rank * self.shape[a] + index[a] % self.shape[a]
+        return rank
+
+    def neighbours(self, axis: str) -> Tuple[int, int]:
+        """The world ranks of this rank's previous and next rank on its
+        line of ``axis``, cyclically (itself on an axis of size 1): a
+        pipeline stage's neighbours on the ``pipe`` axis."""
+        self._axes(axis)
+        prv, nxt = dict(self.index), dict(self.index)
+        prv[axis] -= 1
+        nxt[axis] += 1
+        return self.global_rank(prv), self.global_rank(nxt)
+
     def group(self, axes) -> Optional[dist.ProcessGroup]:
         """This rank's process group on ``axes`` (an axis name or a tuple
         of them): None where their sizes multiply to 1."""
@@ -421,3 +444,26 @@ def pp_dp_sp_mesh(n_stages: int, data: int = -1,
     slow fabric), ``data`` in the middle (-1 takes the ranks that are
     left), ``seq`` innermost, on the fastest links."""
     return training_mesh({"pipe": n_stages, "data": data, "seq": seq})
+
+
+def pipeline_boundary_edges(topology: Topology, n_stages: int,
+                            stage_size: Optional[int] = None
+                            ) -> Tuple[bool, ...]:
+    """Which boundaries of a pipeline's ring cross islands (the reference's
+    :467): entry i is the boundary between stage i and stage (i+1) %
+    n_stages. A stage owns ``stage_size`` consecutive ranks of the
+    island-major layout (default size // n_stages: the
+    :func:`pp_dp_sp_mesh` layout, each stage's data x seq block
+    contiguous), and a boundary crosses when the two stages' blocks start
+    on different islands. The ``coded_edges`` of the boundary codec
+    (``parallel/pipeline.py``): only those hops are encoded."""
+    p = n_stages
+    g = stage_size if stage_size else max(1, topology.size // max(1, p))
+    ls = max(1, topology.local_size)
+    if ls <= 1 or ls >= topology.size:
+        return tuple([False] * p)
+
+    def island(s: int) -> int:
+        return ((s % p) * g) // ls
+
+    return tuple(island(i) != island(i + 1) for i in range(p))

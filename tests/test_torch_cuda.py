@@ -2655,3 +2655,95 @@ def test_cuda_moe_ep_step_replays_bitwise(cuda, monkeypatch):
     syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
     assert eng.dispatch_count - d0 == 4 * cfg.n_layers
     assert len(syncs) <= 1, [str(w.message) for w in syncs]
+
+
+# -- the pipeline: its schedules over NCCL P2P -------------------------------
+
+def _one_card_pp_losses(dims, n_layers, dev):
+    """One card's first loss of pp_cards' seed-0 weights on each
+    microbatch count's whole batch (lean_lm_loss: the pipeline's
+    objective, bf16 logits)."""
+    from horovod_tpu_torch.models.transformer import Transformer, lean_lm_loss
+    from torch_worker import PP_CARD_MICRO, pp_card_config, pp_card_tokens
+    cfg = pp_card_config(torch, dims, n_layers)
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0)).to(
+        dev)
+    x_all, y_all = pp_card_tokens(dims, max(PP_CARD_MICRO))
+    out = {}
+    with torch.no_grad():
+        for m in PP_CARD_MICRO:
+            x, y = (torch.from_numpy(a[:m]).to(dev) for a in (x_all, y_all))
+            out[m] = float(lean_lm_loss(model, x, y))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_pipeline_on_nccl(built, tmp_path, n):
+    """The pipelined flagship on NCCL (torch_worker's pp_cards: the
+    flagship LM's widths, bf16 on fp32 parameters, AdamW, microbatches of
+    one sequence, 8 and 4 a step): 1f1b, zb and interleaved v=2 over the
+    whole world as the pipe axis (interleaved at 8 layers on 4 stages,
+    beside 1f1b there), and the engine step (pipe 2; data 2 x pipe 2 on 4
+    cards). At a fixed stage count and depth every schedule's losses and
+    embedding bitwise 1F1B's; every rank the same loss (each replica's in
+    the engine step); the first loss within 1e-3 of one card's on the
+    same batch (the replicas' mean in the engine step); K6 on every card.
+    Prints each schedule's step ms and its bubble measured by the
+    marginal-microbatch method beside pipeline_bubble_fraction and
+    predict_schedule_bubble (recorded, not gated)."""
+    from horovod_tpu_torch.parallel import pipeline as PL
+    from torch_worker import (PP_CARD_DIMS, PP_CARD_MICRO, PP_CARD_STEPS,
+                              pp_card_cases)
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("pp_cards", n, tmp_path, device="cuda", timeout=1200)
+    dev = torch.device("cuda", 0)
+    cases = pp_card_cases(n)
+    one = {nl: _one_card_pp_losses(PP_CARD_DIMS, nl, dev)
+           for nl in sorted({c[4] for c in cases})}
+    base = {4: "1f1b", 8: "1f1b_l8"}
+    m_hi, m_lo = PP_CARD_MICRO
+    for name, axes, sched, v, n_layers, engine in cases:
+        p, d = axes["pipe"], axes.get("data", 1)
+        for m in PP_CARD_MICRO:
+            got = [r[name][m] for r in res]
+            if engine:
+                for dd in range(d):
+                    rep = [g["losses"] for g, r in zip(got, res)
+                           if r[name]["index"].get("data", 0) == dd]
+                    assert all(x == rep[0] for x in rep), (name, m, rep)
+                first = np.mean([g["losses"][0] for g in got])
+            else:
+                assert all(g["losses"] == got[0]["losses"] for g in got)
+                first = got[0]["losses"][0]
+                b = [r[base[n_layers]][m] for r in res]
+                assert got[0]["losses"] == b[0]["losses"], (name, m)
+                assert [g["embed_sum"] for g in got] == \
+                    [g["embed_sum"] for g in b], (name, m)
+            assert abs(first - one[n_layers][m]) <= \
+                1e-3 * abs(one[n_layers][m]), (name, m, first, one)
+            for g in got:
+                assert all(np.isfinite(g["losses"]))
+                assert min(g["k6"].values()) >= 1, g["k6"]
+        t_hi = float(np.median([np.median(r[name][m_hi]["ms"])
+                                for r in res]))
+        t_lo = float(np.median([np.median(r[name][m_lo]["ms"])
+                                for r in res]))
+        c = (t_hi - t_lo) / (m_hi - m_lo)
+        bubble = (t_hi - m_hi * c) / t_hi
+        resolved = res[0][name][m_hi]["resolved"]
+        pb = PL.pipeline_bubble_fraction(p, m_hi // d, resolved[0],
+                                         resolved[1])
+        pr = PL.predict_schedule_bubble(resolved[0], p, m_hi // d,
+                                        resolved[1])
+        print(f"pp_cards n={n} {name} {axes} L{n_layers} {resolved}: "
+              f"losses m={m_hi} {res[0][name][m_hi]['losses']} (one card "
+              f"{one[n_layers][m_hi]:.6f}); step ms m={m_hi} "
+              f"{' '.join(f'{x:.2f}' for x in res[0][name][m_hi]['ms'])}, "
+              f"m={m_lo} "
+              f"{' '.join(f'{x:.2f}' for x in res[0][name][m_lo]['ms'])}; "
+              f"measured bubble {bubble:.4f} (pipeline_bubble_fraction "
+              f"{pb:.4f}, predicted {pr:.4f}); K6 {res[0][name][m_hi]['k6']}"
+              f"; peak {res[0][name][m_hi].get('peak_gib', 0):.2f} GiB")

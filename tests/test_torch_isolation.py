@@ -36,6 +36,7 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.parallel.mesh\n"
         "import horovod_tpu_torch.parallel.moe\n"
         "import horovod_tpu_torch.parallel.tensor_parallel\n"
+        "import horovod_tpu_torch.parallel.pipeline\n"
         "import horovod_tpu_torch.parallel\n"
         "import horovod_tpu_torch.models.transformer\n"
         "import horovod_tpu_torch.models.vit\n"

@@ -2856,6 +2856,476 @@ def _obs_faults_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+# -- the pipeline (parallel/pipeline.py, the pipelined flagship) ----------
+
+PP_STAGES = 4                  # the pipe axis of the schedule suite
+PP_CELLS, PP_D, PP_BM = 8, 16, 6   # its tanh cells, width, microbatch rows
+PP_SCHEDULES = (("1f1b", 1), ("interleaved", 2), ("zb", 1))
+PP_MICRO = (8, 6, 2)           # divisible, ragged, fewer than the stages
+PP_SUITE_STEPS = 2
+PP_APPLY_D, PP_APPLY_V = 8, 12    # pipeline_apply_p's widths and vocab
+PP_DIMS = dict(vocab_size=64, d_model=32, n_heads=4, n_layers=4, d_ff=64,
+               max_seq=16)
+PP_BATCH, PP_MB = 8, 4         # the flagship's batch and microbatches
+# (name, mesh axes, remat, schedule, n_virtual) of the flagship cases
+PP_FLAGSHIP = (("pipe4", {"pipe": 4}, "none", "1f1b", 1),
+               ("pipe4_block", {"pipe": 4}, "block", "1f1b", 1),
+               ("pipe4_zb", {"pipe": 4}, "none", "zb", 1),
+               ("dp2pp2", {"data": 2, "pipe": 2}, "none", "1f1b", 1),
+               ("dp2pp2_interleaved", {"data": 2, "pipe": 2}, "none",
+                "interleaved", 2))
+PP_ENGINE_STEPS = 2            # engine steps held to make_pp_train_step's
+PP_MOE_DIMS = dict(vocab_size=32, d_model=16, n_heads=2, n_layers=2,
+                   d_ff=32, max_seq=8)
+PP_MOE_STEPS = 4
+
+
+def pp_cells():
+    """(w [NC, D, D], b [NC, D]) of the schedule suite's tanh cells."""
+    rng = np.random.RandomState(0)
+    return ((rng.randn(PP_CELLS, PP_D, PP_D) * 0.3).astype(np.float32),
+            (rng.randn(PP_CELLS, PP_D) * 0.1).astype(np.float32))
+
+
+def pp_cell_data(n_micro: int):
+    """(inputs, targets) [n_micro·BM, D] of the schedule suite."""
+    rng = np.random.RandomState(100)
+    return (rng.randn(n_micro * PP_BM, PP_D).astype(np.float32),
+            rng.randn(n_micro * PP_BM, PP_D).astype(np.float32))
+
+
+def pp_cell_order(schedule: str, v: int, p: int = PP_STAGES) -> np.ndarray:
+    """The cells' physical order under a resolved (schedule, v)."""
+    if v > 1 and schedule != "1f1b":
+        lpc = PP_CELLS // (p * v)
+        return np.concatenate([np.arange((j * p + s) * lpc,
+                                         (j * p + s + 1) * lpc)
+                               for s in range(p) for j in range(v)])
+    return np.arange(PP_CELLS)
+
+
+def pp_apply_params(kind: str, seed: int) -> dict:
+    """pipeline_apply_p's weights (test_pipeline.py's): ``tanh`` stages
+    (w [4, D, D], b [4, D]) or the ``lm`` form (emb, w, b, out)."""
+    rng = np.random.RandomState(seed)
+    d, v = PP_APPLY_D, PP_APPLY_V
+    if kind == "tanh":
+        return {"w": rng.randn(PP_STAGES, d, d).astype(np.float32) * 0.5,
+                "b": rng.randn(PP_STAGES, d).astype(np.float32) * 0.1}
+    return {"emb": rng.randn(v, d).astype(np.float32) * 0.3,
+            "w": rng.randn(PP_STAGES, d, d).astype(np.float32) * 0.4,
+            "b": rng.randn(PP_STAGES, d).astype(np.float32) * 0.1,
+            "out": rng.randn(d, v).astype(np.float32) * 0.3}
+
+
+def pp_apply_data(kind: str, seed: int):
+    """pipeline_apply_p's inputs: [16 or 8, D] rows, or (tokens, targets)
+    [8, 5] of the lm form."""
+    rng = np.random.RandomState(seed)
+    if kind == "tanh":
+        return rng.randn(16 if seed == 1 else 8, PP_APPLY_D).astype(
+            np.float32)
+    return (rng.randint(0, PP_APPLY_V, size=(8, 5)).astype(np.int32),
+            rng.randint(0, PP_APPLY_V, size=(8, 5)).astype(np.int32))
+
+
+def pp_params(dims=None, moe_experts: int = 0) -> dict:
+    """The pipelined flagship's weights in the reference's tree (layers
+    stacked), fp32 (with ``moe_experts`` the MoE FFN's leaves)."""
+    dims = dims or PP_DIMS
+    rng = np.random.RandomState(21)
+    d, h, f, v, n = (dims[k] for k in ("d_model", "n_heads", "d_ff",
+                                       "vocab_size", "n_layers"))
+    dh = d // h
+
+    def normal(shape, fan_in):
+        return (rng.randn(*shape) * fan_in ** -0.5).astype(np.float32)
+
+    layers = {"ln1": (1 + 0.1 * rng.randn(n, d)).astype(np.float32),
+              "wq": normal((n, d, h, dh), d), "wk": normal((n, d, h, dh), d),
+              "wv": normal((n, d, h, dh), d), "wo": normal((n, h, dh, d), d),
+              "ln2": (1 + 0.1 * rng.randn(n, d)).astype(np.float32)}
+    if moe_experts:
+        e = moe_experts
+        layers.update(router=normal((n, d, e), d) * 0.1,
+                      w1=normal((n, e, d, f), d), w2=normal((n, e, f, d), f))
+    else:
+        layers.update(w1=normal((n, d, f), d), w2=normal((n, f, d), f))
+    return {"embed": normal((v, d), 1) * 0.5, "layers": layers,
+            "ln_f": (1 + 0.1 * rng.randn(d)).astype(np.float32)}
+
+
+def pp_tokens(dims=None, batch: int = PP_BATCH):
+    """(inputs, targets) [batch, T] of the flagship cases."""
+    dims = dims or PP_DIMS
+    rng = np.random.RandomState(11)
+    shape = (batch, dims["max_seq"])
+    return (rng.randint(0, dims["vocab_size"], size=shape),
+            rng.randint(0, dims["vocab_size"], size=shape))
+
+
+def pp_config(torch, dims=None, **kw):
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(dtype=torch.float32, attention="flash",
+                             **(dims or PP_DIMS), **kw)
+
+
+def _pp_cell_run(torch, PL, mesh, schedule, v, n_micro, codec=None):
+    """PP_SUITE_STEPS SGD steps of the tanh cells: (losses, this stage's
+    rows of (w, b) after them, in the physical order)."""
+    p, s, group = (mesh.size("pipe"), mesh.rank_in("pipe"),
+                   mesh.group("pipe"))
+    sched, vv = PL.resolve_pipeline_schedule(schedule, p, n_micro, v)
+    order = pp_cell_order(sched, vv, p)
+    w, b = pp_cells()
+    rows = PP_CELLS // p
+    mine = order[s * rows:(s + 1) * rows]
+    W, B = torch.from_numpy(w[mine]), torch.from_numpy(b[mine])
+    x, t = (torch.from_numpy(a) for a in pp_cell_data(n_micro))
+    mi, mt = PL.split_microbatches(x, n_micro), PL.split_microbatches(
+        t, n_micro)
+
+    def stage_fn(sp, h):
+        for i in range(sp["w"].shape[0]):
+            h = torch.tanh(h @ sp["w"][i] + sp["b"][i])
+        return h
+
+    def loss_fn(y, tgt):
+        return ((y - tgt) ** 2).mean()
+
+    lpc = rows // vv
+    losses = []
+    for _ in range(PP_SUITE_STEPS):
+        sp = ([{"w": W[j * lpc:(j + 1) * lpc], "b": B[j * lpc:(j + 1) * lpc]}
+               for j in range(vv)] if vv > 1 else {"w": W, "b": B})
+        loss, gs, _, _ = PL.pipeline_train_step(
+            stage_fn, sp, mi, mt, loss_fn, group, p, schedule=sched,
+            n_virtual=vv, boundary_codec=codec)
+        if vv > 1:
+            gs = {k: torch.cat([g[k] for g in gs]) for k in ("w", "b")}
+        W, B = W - 0.1 * gs["w"], B - 0.1 * gs["b"]
+        losses.append(float(loss))
+    return losses, (W.numpy().copy(), B.numpy().copy())
+
+
+def _pp_apply_cases(torch, PL, mesh) -> dict:
+    """pipeline_apply_p on pipe 4: the tanh stages' outputs at m 1, 4, 8,
+    their gradients, and the lm form's loss and gradients (remat off and
+    on); every result this rank's (its stage's rows of w and b)."""
+    p, s, group = (mesh.size("pipe"), mesh.rank_in("pipe"),
+                   mesh.group("pipe"))
+
+    def tanh_stage(sp, x):
+        return torch.tanh(x @ sp["w"] + sp["b"])
+
+    def block(sp, x):
+        return x + torch.tanh(x @ sp["w"] + sp["b"])
+
+    out = {}
+    prm = pp_apply_params("tanh", 0)
+    sp = {"w": torch.from_numpy(prm["w"][s]), "b": torch.from_numpy(
+        prm["b"][s])}
+    x = torch.from_numpy(pp_apply_data("tanh", 1))
+    for m in (1, 4, 8):
+        y = PL.pipeline_apply_p(tanh_stage, sp, PL.split_microbatches(x, m),
+                                group, p)
+        out[f"tanh_m{m}"] = PL.merge_microbatches(y).detach().numpy()
+    prm = pp_apply_params("tanh", 2)
+    sp = {"w": torch.from_numpy(prm["w"][s]).requires_grad_(),
+          "b": torch.from_numpy(prm["b"][s]).requires_grad_()}
+    x = torch.from_numpy(pp_apply_data("tanh", 3))
+    y = PL.pipeline_apply_p(tanh_stage, sp, PL.split_microbatches(x, 4),
+                            group, p)
+    (PL.merge_microbatches(y) ** 2).sum().backward()
+    out["tanh_grads"] = {k: v.grad.numpy().copy() for k, v in sp.items()}
+    prm = pp_apply_params("lm", 5)
+    tok, tgt = (torch.from_numpy(a).long() for a in pp_apply_data("lm", 6))
+    for remat in (False, True):
+        emb = torch.from_numpy(prm["emb"]).requires_grad_()
+        head = torch.from_numpy(prm["out"]).requires_grad_()
+        sp = {"w": torch.from_numpy(prm["w"][s]).requires_grad_(),
+              "b": torch.from_numpy(prm["b"][s]).requires_grad_()}
+        logits = PL.pipeline_apply_p(
+            block, sp, PL.split_microbatches(tok, 4), group, p,
+            first_fn=lambda fp, t: fp["emb"][t], first_params={"emb": emb},
+            last_fn=lambda lp, h: h @ lp["out"], last_params={"out": head},
+            remat=remat)
+        logp = torch.log_softmax(PL.merge_microbatches(logits), -1)
+        loss = -logp.gather(-1, tgt[..., None]).mean()
+        loss.backward()
+        out[f"lm_remat{int(remat)}"] = {
+            "loss": float(loss.detach()), "emb": emb.grad.numpy().copy(),
+            "out": head.grad.numpy().copy(), "w": sp["w"].grad.numpy().copy(),
+            "b": sp["b"].grad.numpy().copy()}
+    return out
+
+
+def _pp_flagship(torch, hvd, mesh, remat, schedule, v) -> dict:
+    """One SGD(0.1) step of make_pp_train_step from pp_params on this
+    data shard's rows of pp_tokens: the loss and this stage's state."""
+    from horovod_tpu_torch.models import transformer as tm
+    from horovod_tpu_torch.models.convert import transformer_from_jax
+    from horovod_tpu_torch.parallel import pipeline as PL
+    cfg = pp_config(torch, remat=remat)
+    p, d = mesh.size("pipe"), mesh.size("data")
+    sched, vv = PL.resolve_pipeline_schedule(schedule, p, PP_MB, v)
+    order = tm.pp_layer_order(cfg.n_layers, p, vv, sched)
+    model = tm.Transformer(cfg)
+    model.load_state_dict(transformer_from_jax(pp_params(), cfg))
+    tm.pp_shard_layers(tm.pp_permute_layers(model, order), mesh)
+    step = tm.make_pp_train_step(mesh, cfg, torch.optim.SGD(
+        model.parameters(), lr=0.1), n_micro=PP_MB, schedule=schedule,
+        n_virtual=v)
+    x, y = pp_tokens()
+    rows = shard_rows(mesh.index.get("data", 0), d, PP_BATCH)
+    loss = step(model, torch.from_numpy(x[rows]), torch.from_numpy(y[rows]))
+    return {"loss": float(loss), "order": order,
+            "state": {k: t.detach().numpy().copy()
+                      for k, t in model.state_dict().items()}}
+
+
+def _pp_engine_cases(torch, hvd, eng) -> dict:
+    """make_pp_engine_train_step on data 2 x pipe 2 with
+    DistributedOptimizer(sharded=True, op=Sum): PP_ENGINE_STEPS steps
+    beside make_pp_train_step's on the same mesh, the steady-state
+    dispatches a step at m = 4 and 8, and the 2-expert MoE trajectory
+    twice from the same state."""
+    from horovod_tpu_torch.models import transformer as tm
+    from horovod_tpu_torch.models.convert import transformer_from_jax
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    mesh = training_mesh({"data": 2, "pipe": 2})
+    cfg = pp_config(torch)
+    x, y = pp_tokens()
+    rows = shard_rows(mesh.index["data"], 2, PP_BATCH)
+    x, y = torch.from_numpy(x[rows]), torch.from_numpy(y[rows])
+    out = {}
+
+    def engine_model(cfg, tree):
+        model = tm.Transformer(cfg)
+        model.load_state_dict(transformer_from_jax(tree, cfg))
+        return model
+
+    # the engine step against make_pp_train_step, SGD(0.1)
+    model = engine_model(cfg, pp_params())
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1),
+                                   op=hvd.Sum, sharded=True)
+    step = tm.make_pp_engine_train_step(mesh, cfg, opt, PP_MB,
+                                        schedule="1f1b")
+    out["engine_losses"] = [float(step(model, x, y))
+                            for _ in range(PP_ENGINE_STEPS)]
+    out["engine_state"] = {k: t.detach().numpy().copy()
+                           for k, t in model.state_dict().items()}
+    model = engine_model(cfg, pp_params())
+    tm.pp_shard_layers(model, mesh)
+    step = tm.make_pp_train_step(mesh, cfg, torch.optim.SGD(
+        model.parameters(), lr=0.1), PP_MB)
+    out["pp_losses"] = [float(step(model, x, y))
+                        for _ in range(PP_ENGINE_STEPS)]
+    out["pp_state"] = {k: t.detach().numpy().copy()
+                       for k, t in model.state_dict().items()}
+    # steady-state dispatches a step: the same at m = 4 and m = 8 (the
+    # whole batch on each replica: 8 rows)
+    fx, fy = (torch.from_numpy(a) for a in pp_tokens())
+    for m in (4, 8):
+        eng.replay.invalidate_all("pipeline scenario")
+        c0, r0 = eng.replay.captured_streams, eng.replay.replayed_steps
+        model = engine_model(cfg, pp_params())
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(
+            model.parameters(), lr=0.05), op=hvd.Sum, sharded=True)
+        step = tm.make_pp_engine_train_step(mesh, cfg, opt, m,
+                                            schedule="zb")
+        for _ in range(eng.config.step_replay_warmup + 2):
+            step(model, fx, fy)
+        d0 = eng.dispatch_count
+        loss = step(model, fx, fy)
+        out[f"dispatches_m{m}"] = eng.dispatch_count - d0
+        out[f"captured_m{m}"] = eng.replay.captured_streams - c0
+        out[f"replayed_m{m}"] = eng.replay.replayed_steps - r0
+        out[f"loss_m{m}"] = float(loss)
+    # the MoE FFN, 2 experts a stage-local layer: twice from one state
+    mcfg = pp_config(torch, PP_MOE_DIMS, use_moe=True, n_experts=2,
+                     moe_capacity_factor=2.0)
+    # the reference's batch, 4 x 8, on each replica (one row a microbatch)
+    mx, my = (torch.from_numpy(a) for a in pp_tokens(PP_MOE_DIMS, 4))
+    trajectories = []
+    for _ in range(2):
+        eng.replay.invalidate_all("pipeline scenario")
+        model = engine_model(mcfg, pp_params(PP_MOE_DIMS, moe_experts=2))
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(
+            model.parameters(), lr=0.05), op=hvd.Sum, sharded=True)
+        step = tm.make_pp_engine_train_step(mesh, mcfg, opt, 4,
+                                            schedule="1f1b")
+        trajectories.append([float(step(model, mx, my))
+                             for _ in range(PP_MOE_STEPS)])
+    out["moe_trajectories"] = trajectories
+    return out
+
+
+def _pipeline_scenario(hvd, rank: int, size: int) -> dict:
+    """The pipeline at 4 ranks (laid out as two islands of 2): the
+    schedule suite's tanh cells under each schedule and microbatch count
+    on pipe 4, pipeline_apply_p, the pipelined flagship's cases, the
+    engine step, the boundary codec, the mesh's pipe neighbours."""
+    import torch
+    from horovod_tpu_torch.parallel import pipeline as PL
+    from horovod_tpu_torch.parallel.mesh import (pipeline_boundary_edges,
+                                                 training_mesh)
+    torch.set_num_threads(1)
+    eng = hvd.global_state().engine
+    eng.config.fusion_threshold_bytes = 64 * 1024 * 1024
+    pipe4 = training_mesh({"pipe": PP_STAGES})
+    out = {"suite": {}}
+    for sched, v in PP_SCHEDULES:
+        for m in PP_MICRO:
+            out["suite"][sched, v, m] = _pp_cell_run(torch, PL, pipe4, sched,
+                                                     v, m)
+    out["apply"] = _pp_apply_cases(torch, PL, pipe4)
+    # the boundary codec: bf16 on the hops that cross islands
+    edges = pipeline_boundary_edges(eng.topology, PP_STAGES)
+    out["edges"] = edges
+    PL.reset_wire_bytes()
+    out["raw_run"] = _pp_cell_run(torch, PL, pipe4, "1f1b", 1, 8)
+    out["raw_bytes"] = PL.wire_bytes()
+    PL.reset_wire_bytes()
+    out["coded_run"] = _pp_cell_run(torch, PL, pipe4, "1f1b", 1, 8,
+                                    codec=("bf16", edges))
+    out["coded_bytes"] = PL.wire_bytes()
+    meshes = {}
+    out["flagship"] = {}
+    for name, axes, remat, sched, v in PP_FLAGSHIP:
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = training_mesh(axes)
+        mesh = meshes[key]
+        out["flagship"][name] = _pp_flagship(torch, hvd, mesh, remat, sched,
+                                             v)
+        out["flagship"][name]["index"] = dict(mesh.index)
+    dp2pp2 = meshes[(("data", 2), ("pipe", 2))]
+    out["neighbours"] = dp2pp2.neighbours("pipe")
+    out["stage"] = dp2pp2.rank_in("pipe")
+    out.update(_pp_engine_cases(torch, hvd, eng))
+    return out
+
+
+# the pipeline on the card (pp_cards): the flagship LM's widths
+# (chip_smoke.py's LM_DIMS), bf16 on fp32 parameters, AdamW, microbatches
+# of one sequence; a tiny LM for the gloo rehearsal
+PP_CARD_DIMS = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=4,
+                    d_ff=8192, max_seq=2048)
+PP_CARD_CPU_DIMS = dict(vocab_size=256, d_model=64, n_heads=4, n_layers=4,
+                        d_ff=128, max_seq=64)
+PP_CARD_MICRO = (8, 4)         # a step's sequences: the marginal bubble
+PP_CARD_STEPS = 2              # steps held bitwise across schedules
+PP_CARD_TIMED = 5              # steps timed after them
+
+
+def pp_card_cases(size: int) -> list:
+    """(name, mesh axes, schedule, n_virtual, n_layers, engine step?) of
+    pp_cards on ``size`` cards: every schedule on the whole world as the
+    pipe axis (interleaved at 8 layers on 4 stages, beside 1f1b there),
+    and the engine step (data 2 x pipe 2 on 4 cards)."""
+    pipe = {"pipe": size}
+    cases = [("1f1b", pipe, "1f1b", 1, 4, False),
+             ("zb", pipe, "zb", 1, 4, False)]
+    if size == 2:
+        cases.append(("interleaved", pipe, "interleaved", 2, 4, False))
+        cases.append(("engine", pipe, "1f1b", 1, 4, True))
+    else:
+        cases.append(("1f1b_l8", pipe, "1f1b", 1, 8, False))
+        cases.append(("interleaved_l8", pipe, "interleaved", 2, 8, False))
+        cases.append(("engine", {"data": 2, "pipe": 2}, "1f1b", 1, 4, True))
+    return cases
+
+
+def pp_card_tokens(dims, batch: int):
+    """(inputs, targets) [batch, T] of pp_cards."""
+    rng = np.random.RandomState(22)
+    shape = (batch, dims["max_seq"])
+    return (rng.randint(0, dims["vocab_size"], size=shape),
+            rng.randint(0, dims["vocab_size"], size=shape))
+
+
+def pp_card_config(torch, dims, n_layers: int):
+    from horovod_tpu_torch.models.transformer import TransformerConfig
+    return TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                             **dict(dims, n_layers=n_layers))
+
+
+def _pp_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The pipelined flagship on the card (NCCL, K6 in each stage's
+    recompute): per case of :func:`pp_card_cases` and microbatch count of
+    PP_CARD_MICRO, PP_CARD_STEPS AdamW steps from seed-0 weights (losses,
+    the embedding's float64 sum after them, K6's launches), then the ms of
+    PP_CARD_TIMED more."""
+    import copy
+    import torch
+    from horovod_tpu_torch.models import transformer as tm
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel import pipeline as PL
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    dev = hvd.device()
+    dims = PP_CARD_DIMS if dev.type == "cuda" else PP_CARD_CPU_DIMS
+    if dev.type != "cuda":
+        torch.set_num_threads(1)
+    x_all, y_all = pp_card_tokens(dims, max(PP_CARD_MICRO))
+    templates, meshes, out = {}, {}, {}
+    for name, axes, sched, v, n_layers, engine in pp_card_cases(size):
+        key = tuple(axes.items())
+        if key not in meshes:
+            meshes[key] = training_mesh(axes)
+        mesh = meshes[key]
+        cfg = pp_card_config(torch, dims, n_layers)
+        if n_layers not in templates:
+            templates[n_layers] = tm.Transformer(
+                cfg, generator=torch.Generator().manual_seed(0))
+        p, d = mesh.size("pipe"), mesh.size("data")
+        res = {"index": dict(mesh.index)}
+        for m in PP_CARD_MICRO:
+            model = copy.deepcopy(templates[n_layers])
+            resolved = PL.resolve_pipeline_schedule(sched, p, m // d, v)
+            tm.pp_permute_layers(model, tm.pp_layer_order(n_layers, p,
+                                                          resolved[1],
+                                                          resolved[0]))
+            if not engine:
+                tm.pp_shard_layers(model, mesh)
+            model.to(dev)
+            adamw = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                      betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=1e-4)
+            if engine:
+                opt = hvd.DistributedOptimizer(adamw, op=hvd.Average,
+                                               sharded=True)
+                step = tm.make_pp_engine_train_step(mesh, cfg, opt, m // d,
+                                                    schedule=sched,
+                                                    n_virtual=v)
+            else:
+                step = tm.make_pp_train_step(mesh, cfg, adamw, m // d,
+                                             schedule=sched, n_virtual=v)
+            rows = shard_rows(mesh.index.get("data", 0), d, m)
+            x, y = (torch.from_numpy(a[:m][rows]).to(dev)
+                    for a in (x_all, y_all))
+            K.reset_launch_counts()
+            losses = [float(step(model, x, y))
+                      for _ in range(PP_CARD_STEPS)]
+            counts = K.launch_counts()
+            embed_sum = float(model.embed.detach().double().sum())
+            ms = [_timed(torch, lambda: float(step(model, x, y)))[1]
+                  for _ in range(PP_CARD_TIMED)]
+            res[m] = {"losses": losses, "embed_sum": embed_sum, "ms": ms,
+                      "resolved": resolved,
+                      "k6": {n: counts.get(n, 0) for n in (
+                          "flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")}}
+            del model, step, adamw
+            if dev.type == "cuda":
+                res[m]["peak_gib"] = torch.cuda.max_memory_allocated(
+                    dev) / 2**30
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+        out[name] = res
+    return out
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -2874,7 +3344,9 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "obs_metrics": _obs_metrics_scenario,
              "consistency": _consistency_scenario,
              "obs_straggler": _obs_straggler_scenario,
-             "obs_faults": _obs_faults_scenario}
+             "obs_faults": _obs_faults_scenario,
+             "pipeline": _pipeline_scenario,
+             "pp_cards": _pp_cards_scenario}
 
 
 def main(argv):
