@@ -483,6 +483,13 @@ PP_CHECKED = 3                 # steps of each, held bitwise each other
 PP_TIMED = 5                   # v=2 steps timed after them
 PP_ENGINE = 5                  # engine steps each way (eager, replayed)
 PP_PROFILED = 3                # v=2 steps traced for the busy share
+# phase 22: durable checkpointing of the flagship LM at world size 1
+CKPT_INTERVAL = 5              # HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS
+CKPT_WINDOW = 5                # steps in each window of an arm
+CKPT_STEPS = 15                # steps of each arm: a warm-up window, then 2
+CKPT_RESUMED = 3               # steps after the restored one, run both ways
+CKPT_ZERO1_STEPS = 2           # ZeRO-1 steps before its payload
+CKPT_SLEEP_CYCLES = 200_000_000  # the card spinning ahead of snapshot()
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -4239,6 +4246,417 @@ def run_pipeline_path(torch, hvd, K, tm, dev, smi, log, dense_tok_s):
     return out, total
 
 
+def _stall_seconds(hvd):
+    """(sum, count) of ``hvd_tpu_ckpt_snapshot_stall_seconds``."""
+    snap = hvd.metrics_snapshot().get("histograms", {}).get(
+        "hvd_tpu_ckpt_snapshot_stall_seconds", {"values": []})
+    vals = [v for _, v in snap["values"]]
+    return (sum(v["sum"] for v in vals), sum(v["count"] for v in vals))
+
+
+def _ckpt_arm(torch, hvd, step, tokens, mgr):
+    """CKPT_STEPS steps in windows of CKPT_WINDOW, each step bracketed by
+    ``hvd.step()`` (at size 1 the optimizer brackets nothing, and the
+    bracket's end is the engine's step hook). Returns the losses, the
+    tokens/s of the windows after the first, and for each of them whether
+    a snapshot was pending or being written at its start and end."""
+    losses, rates, busy = [], [], []
+    for _ in range(CKPT_STEPS // CKPT_WINDOW):
+        torch.cuda.synchronize()
+        b0 = mgr is not None and not mgr.wait_idle(0)
+        t0 = time.perf_counter()
+        for _ in range(CKPT_WINDOW):
+            with hvd.step():
+                losses.append(step())
+        torch.cuda.synchronize()
+        rates.append(tokens * CKPT_WINDOW / (time.perf_counter() - t0))
+        busy.append([b0, mgr is not None and not mgr.wait_idle(0)])
+    return [float(v) for v in losses], rates[1:], busy[1:]
+
+
+def _ckpt_tensors(tree) -> dict:
+    """A training_state tree's tensors by name (``model.<name>``,
+    ``opt.<index>.<key>``)."""
+    out = {f"model.{k}": v for k, v in tree["model"].items()}
+    for i, st in tree["opt"]["state"].items():
+        out.update({f"opt.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def _ckpt_rates(stages) -> dict:
+    """A generation's seconds by stage and GB/s of the stream's bytes."""
+    b = stages["bytes"]
+    return {**{f"{k}_s": v for k, v in stages.items() if k != "bytes"},
+            "bytes": b,
+            **{f"{k}_gb_s": b / v / 1e9 for k, v in stages.items()
+               if k in ("d2h", "checksum", "files", "wall") and v > 0}}
+
+
+def _meminfo_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def run_checkpoint_path(torch, hvd, K, tm, dev, smi, log):
+    """Phase 22: durable checkpointing of the flagship LM (``LM_DIMS``,
+    bf16 on fp32 parameters, AdamW, batch 4 x 2048) at world size 1:
+
+    (a) the off arm: CKPT_STEPS steps with no checkpoint directory;
+    (b) the on arm, in a world re-initialized with
+        ``HOROVOD_TPU_CHECKPOINT_DIR`` (a fresh temporary directory) and
+        an interval of CKPT_INTERVAL: a registered provider returns
+        ``training_state(model, opt)`` and the engine's step hook
+        snapshots it every CKPT_INTERVAL steps; the host seconds inside
+        ``snapshot()`` (the stall histogram), each stamp's device ms (CUDA
+        events around the hook), tokens/s of the windows with a write in
+        flight beside the off arm's, peak memory against the off arm's,
+        the generations written and skipped, and one generation's seconds
+        by stage; then the same generation again, stamped behind
+        CKPT_SLEEP_CYCLES of device spinning with every synchronizing call
+        counted: ``snapshot()`` returns before the card gets to it;
+    (c) restore: a fresh ``CheckpointManager`` on the directory restores
+        into a fresh model and AdamW: parameters and moments bitwise a
+        device copy taken at the snapshot's step, then CKPT_RESUMED steps
+        whose losses are held to the uninterrupted run's (bitwise, else
+        the gap is recorded and only a non-finite loss fails);
+    (d) ZeRO-1: phase 16's sharded LM after CKPT_ZERO1_STEPS steps through
+        ``checkpoint_payload()`` and ``snapshot_zero1``, restored by
+        ``restore_from_durable`` into a fresh sharded LM: the shards, the
+        moments and the parameters bitwise;
+    (e) the failpoints: ``checkpoint.write=1*drop()`` leaves no committed
+        generation, ``checkpoint.restore`` surfaces its error.
+
+    Fails, with the bytes it saw, where the disk or host memory cannot
+    hold the generations. Returns the summary and the phase's launches."""
+    import shutil
+    import tempfile
+    import warnings
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.checkpoint import (CheckpointManager,
+                                              CheckpointRestoreError,
+                                              load_training_state,
+                                              training_state,
+                                              training_template)
+    from horovod_tpu_torch.common import env as env_mod
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    t_phase = time.perf_counter()
+    check(hvd.size() == 1, "phase 22 needs a size-1 world")
+    batch = 4
+    tokens = batch * LM_DIMS["max_seq"]
+    knobs = (env_mod.HOROVOD_TPU_CHECKPOINT_DIR,
+             env_mod.HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS)
+    root = tempfile.mkdtemp(prefix="hvd_ckpt_")
+    out = {"card": smi, "interval": CKPT_INTERVAL, "batch": batch}
+    K.reset_launch_counts()
+    lm_steps = 0
+    try:
+        # (a) the off arm
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, model, step = make_lm_trainer(torch, hvd, tm, dev, batch)
+        n_params = sum(p.numel() for p in model.parameters())
+        state_bytes = 3 * 4 * n_params
+        free, avail = shutil.disk_usage(root).free, _meminfo_available()
+        # three generations exist at once until the GC after the third;
+        # the host holds the pinned buffer and a restore's shard bytes,
+        # stream and leaves
+        need_disk, need_ram = 3 * state_bytes + 2**30, 4 * state_bytes
+        log(f"  {n_params / 1e6:.1f} M parameters, {state_bytes / 1e9:.3f} "
+            f"GB of state a generation; {free / 1e9:.1f} GB free under "
+            f"{root} (need {need_disk / 1e9:.1f}), {avail / 1e9:.1f} GB of "
+            f"host memory available (need {need_ram / 1e9:.1f})")
+        check(free >= need_disk, f"phase 22: {free} bytes free under {root}, "
+              f"{need_disk} needed for the generations")
+        check(avail >= need_ram, f"phase 22: {avail} bytes of host memory "
+              f"available, {need_ram} needed")
+        off_losses, off_rates, _ = _ckpt_arm(torch, hvd, step, tokens, None)
+        lm_steps += CKPT_STEPS
+        off_peak = torch.cuda.max_memory_allocated(dev)
+        del model, step
+        torch.cuda.empty_cache()
+
+        # (b) the on arm: the manager is built at init from the knobs
+        ckdir = os.path.join(root, "ckpt")
+        hvd.shutdown()
+        os.environ[knobs[0]] = ckdir
+        os.environ[knobs[1]] = str(CKPT_INTERVAL)
+        hvd.init()
+        gs = hvd.global_state()
+        mgr, eng = gs.checkpoint_manager, gs.engine
+        check(mgr is not None and mgr.interval_steps == CKPT_INTERVAL
+              and eng.on_step_complete == mgr.on_step,
+              "phase 22: the world built no checkpoint manager from "
+              "HOROVOD_TPU_CHECKPOINT_DIR, or did not hook it to the steps")
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, model, step = make_lm_trainer(torch, hvd, tm, dev, batch)
+        opt = step.opt
+        mgr.register_provider(lambda: (training_state(model, opt),
+                                       eng.step_index))
+        stamps = []
+
+        def hooked(i):
+            if i % CKPT_INTERVAL:
+                return mgr.on_step(i)
+            s0 = _stall_seconds(hvd)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            mgr.on_step(i)
+            hook_s = time.perf_counter() - t0
+            e1.record()
+            s1 = _stall_seconds(hvd)
+            stamps.append((i, e0, e1, s1[0] - s0[0], s1[1] - s0[1], hook_s))
+
+        eng.on_step_complete = hooked
+        written0 = mgr.last_written_step
+        on_losses, on_rates, busy = _ckpt_arm(torch, hvd, step, tokens, mgr)
+        lm_steps += CKPT_STEPS
+        on_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.synchronize()
+        want = {k: v.detach().clone() for k, v in
+                _ckpt_tensors(training_state(model, opt)).items()}
+        check(mgr.wait_idle(300), "phase 22: the snapshots did not drain in "
+              "300 s")
+        stages_on = mgr.last_write_stages
+        reg = hvd.metrics_snapshot()["counters"]
+        outcomes = {o: int(sum(v for lab, v in
+                               reg["hvd_tpu_ckpt_snapshots_total"]["values"]
+                               if lab.get("outcome") == o))
+                    for o in ("written", "skipped", "failed")}
+        check([s[0] for s in stamps] == list(range(
+            CKPT_INTERVAL, CKPT_STEPS + 1, CKPT_INTERVAL))
+              and all(s[4] == 1 for s in stamps),
+              f"phase 22: snapshots at {[s[0] for s in stamps]}, expected "
+              f"every {CKPT_INTERVAL} steps, one snapshot() each")
+        check(mgr.last_written_step == CKPT_STEPS and
+              outcomes["failed"] == 0,
+              f"phase 22: last written generation {mgr.last_written_step} "
+              f"(from {written0}), outcomes {outcomes}")
+        stall_ms = [s[3] * 1e3 for s in stamps]
+        stamp_ms = [s[1].elapsed_time(s[2]) for s in stamps]
+        check(all(v == v and abs(v) != float("inf") for v in on_losses),
+              f"phase 22: non-finite losses on the on arm: {on_losses}")
+        # the same generation again, stamped behind the card spinning:
+        # snapshot() issues its copies and returns before the card
+        # reaches them, with no synchronizing call
+        tree = training_state(model, opt)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.cuda._sleep(CKPT_SLEEP_CYCLES)
+                t0 = time.perf_counter()
+                mgr.snapshot(tree, CKPT_STEPS)
+                snap_s = time.perf_counter() - t0
+                after = torch.cuda.Event()
+                after.record()
+                ahead = not after.query()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(w.message) for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        check(not syncs and ahead, f"phase 22: snapshot() synchronized "
+              f"({syncs}) or returned after the card caught up "
+              f"({snap_s * 1e3:.3f} ms)")
+        del tree
+        check(mgr.wait_idle(300), "phase 22: the snapshot did not drain")
+        stages = mgr.last_write_stages
+        check(mgr.last_written_step == CKPT_STEPS, "phase 22: the second "
+              f"write of generation {CKPT_STEPS} failed")
+        gen_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                        for dp, _, fs in os.walk(ckdir) for f in fs)
+        # the uninterrupted run's next steps
+        ref_losses = [float(step()) for _ in range(CKPT_RESUMED)]
+        lm_steps += CKPT_RESUMED
+        mgr.register_provider(None)
+        del model, step, opt
+        torch.cuda.empty_cache()
+
+        # (c) restore into a fresh model and AdamW through a fresh manager
+        _, fresh, fstep = make_lm_trainer(torch, hvd, tm, dev, batch)
+        rm = CheckpointManager(ckdir)
+        try:
+            t0 = time.perf_counter()
+            res = rm.restore_latest(template=training_template(fresh,
+                                                               fstep.opt))
+            load_training_state(res.tree, fresh, fstep.opt)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            rm.close(flush=False)
+        got = _ckpt_tensors(training_state(fresh, fstep.opt))
+        check(res.step == CKPT_STEPS and got.keys() == want.keys(),
+              f"phase 22: restored generation {res.step} with "
+              f"{len(got)} tensors, expected {CKPT_STEPS} and {len(want)}")
+        differ = [k for k in want if not (
+            got[k].device == want[k].device and torch.equal(got[k], want[k]))]
+        check(not differ, f"phase 22: restored tensors differ from the "
+              f"copy at the snapshot's step: {differ[:5]}")
+        del res, want, got
+        resumed = [float(fstep()) for _ in range(CKPT_RESUMED)]
+        lm_steps += CKPT_RESUMED
+        check(all(v == v and abs(v) != float("inf") for v in resumed),
+              f"phase 22: non-finite resumed losses {resumed}")
+        resumed_bitwise = resumed == ref_losses
+        del fresh, fstep
+        torch.cuda.empty_cache()
+        eng.on_step_complete = mgr.on_step
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+        # (d) ZeRO-1 through checkpoint_payload()
+        _, zmodel, zstep = make_lm_trainer(torch, hvd, tm, dev, batch,
+                                           sharded=True)
+        for _ in range(CKPT_ZERO1_STEPS):
+            zstep()
+        lm_steps += CKPT_ZERO1_STEPS
+        shards, leaves, layout = zstep.opt.checkpoint_payload()
+        zdir = os.path.join(root, "zero1")
+        zm = CheckpointManager(zdir)
+        try:
+            t0 = time.perf_counter()
+            zm.snapshot_zero1(shards, leaves, layout, step=CKPT_ZERO1_STEPS)
+            zsnap_s = time.perf_counter() - t0
+            check(zm.wait_idle(300), "phase 22: the ZeRO-1 snapshot did not "
+                  "drain")
+            zstages = zm.last_write_stages
+            check(zm.last_written_step == CKPT_ZERO1_STEPS,
+                  "phase 22: the ZeRO-1 generation was not written")
+            t0 = time.perf_counter()
+            zres = zm.restore_latest()
+            _, zfresh, zfstep = make_lm_trainer(torch, hvd, tm, dev, batch,
+                                                sharded=True)
+            zfstep.opt.restore_from_durable(zres.tree)
+            torch.cuda.synchronize()
+            zrestore_s = time.perf_counter() - t0
+        finally:
+            zm.close(flush=False)
+        check(zres.mode == "zero1", f"phase 22: restored mode {zres.mode}")
+        del zres
+        g_shards, g_leaves, g_layout = zfstep.opt.checkpoint_payload()
+        check(g_layout == layout and len(g_shards) == len(shards)
+              and len(g_leaves) == len(leaves)
+              and all(torch.equal(a, b) for a, b in zip(
+                  shards + leaves, g_shards + g_leaves))
+              and all(torch.equal(a, b) for a, b in zip(
+                  zmodel.parameters(), zfresh.parameters())),
+              "phase 22: the ZeRO-1 restore is not bitwise the payload")
+        n_shards, n_leaves = len(shards), len(leaves)
+        del shards, leaves, g_shards, g_leaves
+        zlosses = [float(zstep()), float(zfstep())]
+        lm_steps += 2
+        zero1_next_bitwise = zlosses[0] == zlosses[1] and all(
+            torch.equal(a, b) for a, b in zip(zmodel.parameters(),
+                                              zfresh.parameters()))
+        del zmodel, zstep, zfresh, zfstep
+        torch.cuda.empty_cache()
+
+        # (e) the failpoints, on a small tree on the card
+        small = {"w": torch.randn(256, 256, device=dev)}
+        fdir = os.path.join(root, "failpoints")
+        fm = CheckpointManager(fdir)
+        try:
+            faults.arm("checkpoint.write=1*drop()")
+            fm.snapshot(small, step=1)
+            check(fm.wait_idle(60) and fm.latest_generation() is None,
+                  "phase 22: a dropped write committed a generation")
+            try:
+                fm.restore_latest()
+                raised = None
+            except CheckpointRestoreError as e:
+                raised = e
+            check(raised is not None, "phase 22: restore found a generation "
+                  "after the dropped write")
+            faults.disarm()
+            fm.snapshot(small, step=2)
+            check(fm.wait_idle(60) and fm.latest_generation()[0] == 2,
+                  "phase 22: the write after the drop did not commit")
+            faults.arm("checkpoint.restore=1*raise(HorovodInternalError)")
+            try:
+                fm.restore_latest()
+                raised = None
+            except HorovodInternalError as e:
+                raised = e
+            check(raised is not None, "phase 22: checkpoint.restore's "
+                  "raise did not surface")
+        finally:
+            faults.disarm()
+            fm.close(flush=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if any(k in os.environ for k in knobs):
+            hvd.shutdown()
+            for k in knobs:
+                os.environ.pop(k, None)
+            hvd.init()
+    counts = K.launch_counts()
+    for name in FLASH_KERNELS:
+        check(counts[name] == LM_DIMS["n_layers"] * lm_steps,
+              f"{name} launched {counts[name]} in phase 22, expected "
+              f"{LM_DIMS['n_layers'] * lm_steps}")
+    check(counts["pack_out"] >= 1, "K1's out= form launched no time in the "
+          "ZeRO-1 arm of phase 22")
+    off_tok = statistics.mean(off_rates)
+    on_tok = statistics.mean(on_rates)
+    out.update({
+        "n_params": n_params, "state_bytes": state_bytes,
+        "off_tokens_per_s": off_tok, "off_windows": off_rates,
+        "on_tokens_per_s": on_tok, "on_windows": on_rates,
+        "on_vs_off": on_tok / off_tok, "windows_busy": busy,
+        "stall_ms": stall_ms, "stall_ms_mean": statistics.mean(stall_ms),
+        "stall_ms_max": max(stall_ms), "stamp_device_ms": stamp_ms,
+        "hook_ms": [s[5] * 1e3 for s in stamps],
+        "snapshot_behind_sleep_ms": snap_s * 1e3, "syncs": len(syncs),
+        "off_peak_gib": off_peak / 2**30, "on_peak_gib": on_peak / 2**30,
+        "outcomes": outcomes, "generation": _ckpt_rates(stages),
+        "generation_in_training": _ckpt_rates(stages_on),
+        "disk_bytes": gen_bytes, "restore_s": restore_s,
+        "losses_off": off_losses, "losses_on": on_losses,
+        "arms_bitwise": on_losses == off_losses,
+        "losses_uninterrupted": ref_losses, "losses_resumed": resumed,
+        "resumed_bitwise": resumed_bitwise,
+        "zero1": {"shards": n_shards, "state_leaves": n_leaves,
+                  "snapshot_ms": zsnap_s * 1e3,
+                  "generation": _ckpt_rates(zstages),
+                  "restore_s": zrestore_s, "bitwise": True,
+                  "next_step_bitwise": zero1_next_bitwise,
+                  "next_losses": zlosses},
+        "failpoints": "ok", "phase_s": time.perf_counter() - t_phase})
+    gen = out["generation"]
+    log(f"  tokens/s off {off_tok:.1f} (windows "
+        f"{', '.join(f'{r:.1f}' for r in off_rates)}), on {on_tok:.1f} "
+        f"(windows {', '.join(f'{r:.1f}' for r in on_rates)}; a write "
+        f"pending or in flight at each window's start and end: {busy}); "
+        f"on/off {on_tok / off_tok:.4f}")
+    log(f"  snapshot() host ms (stall histogram) "
+        f"{', '.join(f'{v:.3f}' for v in stall_ms)}: mean "
+        f"{out['stall_ms_mean']:.3f}, max {out['stall_ms_max']:.3f}; the "
+        f"hook with the provider {', '.join(f'{v:.3f}' for v in out['hook_ms'])}"
+        f"; the stamp's device ms {', '.join(f'{v:.3f}' for v in stamp_ms)}"
+        f"; behind {CKPT_SLEEP_CYCLES} cycles of spinning snapshot() took "
+        f"{snap_s * 1e3:.3f} ms, 0 synchronizing calls")
+    log(f"  one generation ({gen['bytes'] / 1e9:.3f} GB): d2h "
+        f"{gen['d2h_s']:.3f} s ({gen.get('d2h_gb_s', 0):.2f} GB/s), encode "
+        f"{gen['encode_s']:.4f} s, checksum {gen['checksum_s']:.3f} s "
+        f"({gen.get('checksum_gb_s', 0):.2f} GB/s), files {gen['files_s']:.3f}"
+        f" s ({gen.get('files_gb_s', 0):.2f} GB/s), in all {gen['wall_s']:.3f}"
+        f" s ({gen.get('wall_gb_s', 0):.2f} GB/s); written during training:"
+        f" {out['generation_in_training']}; {gen_bytes / 1e9:.3f} GB on "
+        f"disk; snapshots {outcomes}; peak {on_peak / 2**30:.2f} GiB on "
+        f"against {off_peak / 2**30:.2f} off")
+    log(f"  restore {restore_s:.2f} s, bitwise the copy at step {CKPT_STEPS}"
+        f"; resumed losses {resumed} against the uninterrupted "
+        f"{ref_losses}: {'bitwise' if resumed_bitwise else 'NOT bitwise'}")
+    log(f"  ZeRO-1: {n_shards} shards and {n_leaves} state leaves, "
+        f"snapshot_zero1 {zsnap_s * 1e3:.3f} ms, generation "
+        f"{out['zero1']['generation']}, restore {zrestore_s:.2f} s, bitwise;"
+        f" next step {'bitwise' if zero1_next_bitwise else 'NOT bitwise'} "
+        f"({zlosses}); failpoints ok; phase {out['phase_s']:.1f} s")
+    return out, counts
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -4651,6 +5069,15 @@ def main(argv=None) -> int:
             f"1f1b refused, make_pp_engine_train_step eager and replayed")
         pipeline, pp_counts = run_pipeline_path(torch, hvd, K, tm, dev, smi,
                                                 log, tok_s)
+        torch.cuda.empty_cache()
+
+        log(f"phase 22: durable checkpointing of the flagship LM: AdamW "
+            f"steps with no checkpoint directory, then snapshots every "
+            f"{CKPT_INTERVAL} steps through the engine's step hook, a "
+            f"restore into a fresh model and optimizer, the ZeRO-1 payload, "
+            f"the failpoints")
+        ckpt, ckpt_counts = run_checkpoint_path(torch, hvd, K, tm, dev, smi,
+                                                log)
     finally:
         hvd.shutdown()
 
@@ -4775,6 +5202,7 @@ def main(argv=None) -> int:
              codec_launches=codec_counts["pack_out"],
              algo_launches=algo_counts["pack_out"],
              pp_launches=pp_counts["pack_out"],
+             ckpt_launches=ckpt_counts["pack_out"],
              work=f"ResNet-50 fp32 gradients, 2 buckets at 64 MB, each with "
                   f"{PACK_OUT_TAIL} fp32 after it, into buffers padded for "
                   f"{PACK_OUT_RANKS} ranks; launches: phase 16 "
@@ -4803,7 +5231,7 @@ def main(argv=None) -> int:
              replaces="horovod_tpu/parallel/flash_attention.py:226",
              launches=lm_counts[name], vit_launches=vit_counts[name],
              moe_launches=moe_counts[name], pp_launches=pp_counts[name],
-             ok=True,
+             ckpt_launches=ckpt_counts[name], ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
              **flash_rows[name], **ptxas[name],
@@ -4853,7 +5281,7 @@ def main(argv=None) -> int:
                       "replay": replay, "sharded": sharded,
                       "codec": codec, "algo": algo,
                       "observability": observability, "moe": moe,
-                      "pipeline": pipeline,
+                      "pipeline": pipeline, "checkpoint": ckpt,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -284,6 +284,9 @@ from .functions import (  # noqa: E402
     step_end)
 from . import metrics  # noqa: E402
 from . import faults  # noqa: E402
+# hvd.checkpoint.CheckpointManager, as the reference reaches it (not in its
+# __all__ either)
+from . import checkpoint  # noqa: E402,F401
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",

@@ -113,6 +113,29 @@ HOROVOD_TPU_STEP_HEALTH_DUMP_INTERVAL = (
     "HOROVOD_TPU_STEP_HEALTH_DUMP_INTERVAL")
 HOROVOD_TPU_HBM = "HOROVOD_TPU_HBM"
 HOROVOD_TPU_COLLECTIVE_DEADLINE = "HOROVOD_TPU_COLLECTIVE_DEADLINE"
+# durable checkpointing (checkpoint/; the reference's common/env.py:256,
+# :304-307): setting the directory builds the CheckpointManager at init;
+# INTERVAL_STEPS snapshots the registered provider every k completed steps
+# (0: only explicit snapshots), REDUNDANCY is how many successor ranks'
+# shards each rank holds, KEEP the generations kept, KV_CHUNK_BYTES the
+# chunk of a shard published to the rendezvous KV
+HOROVOD_TPU_CHECKPOINT_DIR = "HOROVOD_TPU_CHECKPOINT_DIR"
+HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS = "HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS"
+HOROVOD_TPU_CHECKPOINT_REDUNDANCY = "HOROVOD_TPU_CHECKPOINT_REDUNDANCY"
+HOROVOD_TPU_CHECKPOINT_KEEP = "HOROVOD_TPU_CHECKPOINT_KEEP"
+HOROVOD_TPU_CHECKPOINT_KV_CHUNK_BYTES = "HOROVOD_TPU_CHECKPOINT_KV_CHUNK_BYTES"
+# the rendezvous KV (runner/; the reference's common/env.py:51-52,
+# :268-275): the server's address and port, or ENDPOINTS, a replica set
+# "h1:p1,h2:p2" that overrides them; the client's circuit breaker
+# (consecutive failures that trip an endpoint open, the base reopen delay
+# in seconds) and the server's per-scope byte budget behind its 429
+# answer (0: unlimited). Resolved once at init
+HOROVOD_GLOO_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
+HOROVOD_GLOO_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+HOROVOD_KV_ENDPOINTS = "HOROVOD_KV_ENDPOINTS"
+HOROVOD_KV_BREAKER_FAILURES = "HOROVOD_KV_BREAKER_FAILURES"
+HOROVOD_KV_BREAKER_RESET = "HOROVOD_KV_BREAKER_RESET"
+HOROVOD_KV_SCOPE_BUDGET_BYTES = "HOROVOD_KV_SCOPE_BUDGET_BYTES"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_JOIN_META_SLOTS = 16
@@ -123,6 +146,7 @@ COLLECTIVE_ALGO_MODES = ("auto", "flat", "tree", "hierarchical")
 ALLTOALL_ALGO_MODES = ("auto", "flat", "hierarchical")
 PIPELINE_SCHEDULE_MODES = ("1f1b", "interleaved", "zb", "auto")
 DEFAULT_STALL_WARNING_SECONDS = 60.0
+DEFAULT_CHECKPOINT_KV_CHUNK_BYTES = 4 * 1024 * 1024
 
 
 def _get_bool(name: str, default: bool = False) -> bool:
@@ -239,6 +263,12 @@ class Config:
     step_health_mad_k: float = 3.0
     step_health_dump_interval: float = 60.0
     hbm_telemetry: bool = True
+    # durable checkpointing (the reference's Config:499-503)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_interval_steps: int = 0
+    checkpoint_redundancy: int = 1
+    checkpoint_keep: int = 2
+    checkpoint_kv_chunk_bytes: int = DEFAULT_CHECKPOINT_KV_CHUNK_BYTES
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -303,4 +333,14 @@ class Config:
             step_health_dump_interval=_get_float(
                 HOROVOD_TPU_STEP_HEALTH_DUMP_INTERVAL, 60.0),
             hbm_telemetry=_get_bool(HOROVOD_TPU_HBM, True),
+            checkpoint_dir=os.environ.get(HOROVOD_TPU_CHECKPOINT_DIR)
+            or None,
+            checkpoint_interval_steps=_get_int(
+                HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS, 0),
+            checkpoint_redundancy=_get_int(
+                HOROVOD_TPU_CHECKPOINT_REDUNDANCY, 1),
+            checkpoint_keep=_get_int(HOROVOD_TPU_CHECKPOINT_KEEP, 2),
+            checkpoint_kv_chunk_bytes=_get_int(
+                HOROVOD_TPU_CHECKPOINT_KV_CHUNK_BYTES,
+                DEFAULT_CHECKPOINT_KV_CHUNK_BYTES),
         )

@@ -1,6 +1,6 @@
 """Shared bounded-retry helper for the control-plane transports (the
-port's copy of ``horovod_tpu/common/retry.py``; the rendezvous KV clients
-that call it come with the launcher, ROADMAP A14).
+port's copy of ``horovod_tpu/common/retry.py``; its caller is the
+rendezvous KV client's PUT, ``runner/http_client.py``).
 
 :func:`retrying` is the one policy every control-plane write shares: bounded attempts, exponential backoff with jitter, deadline-aware,
 and registry-counted (``hvd_tpu_kv_retries_total`` per retried attempt,

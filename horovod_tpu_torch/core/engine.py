@@ -451,8 +451,12 @@ class Engine:
         self.replay_fallback_counter: Optional[Callable[[str], None]] = None
         # a rank parked in join() stops advancing its heartbeat on purpose
         self.on_join_state: Optional[Callable[[bool], None]] = None
-        # completed steps (step_end)
+        # completed steps (step_end), and the hook called with the count
+        # after each one (GlobalState wires it to the checkpoint manager's
+        # on_step: interval snapshots ride the step boundary, never the
+        # step body)
         self.step_index = 0
+        self.on_step_complete: Optional[Callable[[int], None]] = None
         # the collective watchdog's escalation: once set, every submission,
         # synchronize and join raises it
         self._poison: Optional[Exception] = None
@@ -834,6 +838,12 @@ class Engine:
         self.step_index += 1
         if self.health is not None:
             self.health.on_step_end()
+        if self.on_step_complete is not None:
+            try:
+                self.on_step_complete(self.step_index)
+            except Exception:
+                logging.getLogger("horovod_tpu_torch").debug(
+                    "step-complete hook failed", exc_info=True)
 
     @property
     def replay(self) -> StepReplay:

@@ -2,9 +2,11 @@
 engine and the observability around it (the reference's
 ``core/state.py:44-219``): the timeline, the trace recorder, the flight
 dumper, the stall inspector and collective watchdog, the metrics emitter
-with its device-memory sampler, and the step-health monitor. The
-reference's rendezvous-KV publishers, slice aggregator, checkpoint manager
-and autotune come with their subsystems (ROADMAP A13-A15)."""
+with its device-memory sampler, the step-health monitor, and the
+checkpoint manager with the rendezvous KV it writes through. The
+reference's other KV consumers (the telemetry publishers, the slice
+aggregator) come with the launcher (ROADMAP A14), autotune with ROADMAP
+A15."""
 
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ class GlobalState:
         self.step_health = None
         self.flight_dumper = None
         self.hbm_sampler = None
+        self.checkpoint_manager = None
+        # the rendezvous KV, resolved at init: (addr, port), an endpoint
+        # set, or None
+        self.kv = None
 
     @property
     def initialized(self) -> bool:
@@ -44,9 +50,25 @@ class GlobalState:
             self.engine = Engine(self.backend, self.config)
             self._wire_observability()
 
+    def _resolve_kv(self):
+        """The rendezvous KV of this world (the reference's
+        ``core/state.py:44-63``): ``HOROVOD_KV_ENDPOINTS``, a replica set,
+        else ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT``, else None.
+        Resolved once here, off the step path."""
+        spec = os.environ.get(env_mod.HOROVOD_KV_ENDPOINTS)
+        addr = os.environ.get(env_mod.HOROVOD_GLOO_RENDEZVOUS_ADDR)
+        port = os.environ.get(env_mod.HOROVOD_GLOO_RENDEZVOUS_PORT)
+        if spec:
+            from ..runner.http_client import resolve_endpoints
+            return (resolve_endpoints(spec), None)
+        if addr and port:
+            return (addr, int(port))
+        return None
+
     def _wire_observability(self):
         cfg = self.config
         rank = self.backend.rank()
+        self.kv = self._resolve_kv()
         if cfg.timeline_path:
             from ..timeline import Timeline
             # every rank records its own timeline (pid = rank, so two
@@ -114,6 +136,21 @@ class GlobalState:
                 mad_k=cfg.step_health_mad_k, dumper=self.flight_dumper,
                 hbm=self.hbm_sampler)
             self.engine.health = self.step_health
+        # durable checkpointing (checkpoint/): built at every init so rank,
+        # size and world_version track the live world; the engine's step
+        # hook drives interval snapshots of a registered provider
+        if cfg.checkpoint_dir:
+            from ..checkpoint import CheckpointManager
+            self.checkpoint_manager = CheckpointManager(
+                cfg.checkpoint_dir, rank=rank, world_size=self.backend.size(),
+                world_version=self.engine.world_version, kv=self.kv,
+                redundancy=cfg.checkpoint_redundancy,
+                keep=cfg.checkpoint_keep,
+                kv_chunk_bytes=cfg.checkpoint_kv_chunk_bytes,
+                trace=self.trace_recorder)
+            self.checkpoint_manager.interval_steps = \
+                cfg.checkpoint_interval_steps
+            self.engine.on_step_complete = self.checkpoint_manager.on_step
         self._wire_hooks()
 
     def _wire_hooks(self):
@@ -168,6 +205,13 @@ class GlobalState:
                 # armed replay graphs hold NCCL work of the process group:
                 # they go first (handles may keep the engine alive)
                 self.engine.replay.invalidate_all("shutdown")
+            if self.checkpoint_manager is not None:
+                # flush the pending and in-flight snapshot, bounded: a
+                # clean shutdown keeps the last generation, but a write
+                # stuck waiting on a dead peer's replica must not hold
+                # the shutdown for the whole replica timeout
+                self.checkpoint_manager.close(flush=True, timeout=10.0)
+                self.checkpoint_manager = None
             # then the instruments, flushed, before the backend goes: the
             # emitter's final tick leaves a JSONL record of short jobs
             if self.metrics_emitter is not None:
@@ -183,6 +227,7 @@ class GlobalState:
             self.step_health = None
             self.flight_dumper = None
             self.hbm_sampler = None
+            self.kv = None
             self.engine = None
             self.backend.shutdown()
 

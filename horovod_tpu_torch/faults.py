@@ -62,6 +62,26 @@ FAULT_SPECS: Dict[str, str] = {
                           "surface as HorovodInternalError for the "
                           "elastic loop, with residual buffers "
                           "invalidated (never poisoned) on the restore",
+    # runner/http_client.py
+    "kv.put": "Inside each PUT attempt of put_data_into_kvstore (before "
+              "the HTTP request) — transient KV-fabric write outages",
+    "kv.read": "Inside each GET attempt of read_data_from_kvstore — "
+               "transient KV-fabric read outages",
+    # runner/http_server.py
+    "kv.server.get": "In the KV server's GET handler; hang() models a hung "
+                     "server connection, drop() serves a 404",
+    "kv.server.put": "In the KV server's PUT handler; drop() silently "
+                     "discards the write (acks 200 without storing)",
+    # checkpoint/manager.py
+    "checkpoint.write": "At the top of the background generation write "
+                        "(after device_get, before any file/KV I/O): "
+                        "drop() models a lost snapshot — no files, no "
+                        "manifest, the generation never commits; raise() "
+                        "a failed write (counted, training unaffected)",
+    "checkpoint.restore": "At the top of restore_latest, before "
+                          "generation discovery — hang()/raise() model a "
+                          "restore that must surface to the elastic "
+                          "run-loop instead of wedging recovery",
     # observability/monitor.py
     "observability.dump": "Inside the rate-limited flight dumper, before "
                           "the trace-ring dump is written; raise() models "

@@ -12,9 +12,10 @@
   plain nested dict; :func:`render_prometheus` renders one as Prometheus
   text; the :class:`MetricsEmitter` thread appends snapshots to
   ``HOROVOD_TPU_METRICS_FILE`` (JSONL) and samples wire-byte and dispatch
-  rates into Chrome-trace counter tracks of the timeline. Publishing to a
-  rendezvous KV and its ``GET /metrics`` endpoint come with the launcher
-  (ROADMAP A14).
+  rates into Chrome-trace counter tracks of the timeline. The KV server
+  (``runner/http_server.py``) renders ``GET /metrics`` from the snapshots
+  published under ``metrics/<rank>``; the emitter's KV publish comes with
+  the launcher (ROADMAP A14).
 
 ``HOROVOD_TPU_METRICS=0`` disables the whole subsystem: every factory
 returns a shared no-op instrument whose methods take no lock.
@@ -160,6 +161,54 @@ METRIC_SPECS: Dict[str, Tuple[str, str]] = {
     "hvd_tpu_kv_gave_up_total": (
         "counter", "Control-plane KV operations that exhausted their "
                    "retry budget, by op"),
+    # checkpoint/manager.py
+    "hvd_tpu_ckpt_snapshots_total": (
+        "counter", "Checkpoint snapshot requests, by outcome (written, "
+                   "skipped when a newer request replaced a pending one, "
+                   "failed)"),
+    "hvd_tpu_ckpt_bytes_total": (
+        "counter", "Checkpoint bytes moved, by kind (shard = own shard "
+                   "written, replica = peer shard held, manifest, "
+                   "restore = shard bytes read back)"),
+    "hvd_tpu_ckpt_restore_seconds": (
+        "histogram", "Wall time of one durable-generation restore "
+                     "(discovery, shard sourcing, checksum, decode)"),
+    "hvd_tpu_ckpt_gc_total": (
+        "counter", "Checkpoint generations garbage-collected, by kind "
+                   "(generation, partial = crashed write, kv = chunked "
+                   "shard values dropped from the rendezvous KV)"),
+    "hvd_tpu_ckpt_snapshot_stall_seconds": (
+        "histogram", "Step-path time spent inside snapshot() stamping "
+                     "the async request (the stall budget — near zero "
+                     "by construction; bench reports the per-step mean)"),
+    "hvd_tpu_ckpt_last_step": (
+        "gauge", "Step of the last locally-written checkpoint "
+                 "generation"),
+    # runner/http_client.py + runner/http_server.py
+    "hvd_tpu_kv_failover_total": (
+        "counter", "KV requests that succeeded only after failing over "
+                   "past a dead/not-primary endpoint of the replica set, "
+                   "by op"),
+    "hvd_tpu_kv_breaker_open_total": (
+        "counter", "KV endpoint circuit-breaker trips (consecutive "
+                   "transport failures -> open, jittered half-open "
+                   "probe), by endpoint"),
+    "hvd_tpu_kv_shed_bytes_total": (
+        "counter", "Telemetry publish bytes shed on server backpressure "
+                   "(429 per-scope byte budget) instead of blocking the "
+                   "step path, by scope — degradation made visible, "
+                   "never silent"),
+    "hvd_tpu_kv_backpressure_total": (
+        "counter", "KV writes refused with 429 + Retry-After (per-scope "
+                   "byte budget), by scope — counted on the server"),
+    "hvd_tpu_kv_requests_total": (
+        "counter", "KV/rendezvous HTTP requests served by this server, by "
+                   "verb (get/put/delete) and scope — the O(ranks) vs "
+                   "O(slices) control-plane load claim, measured server-"
+                   "side"),
+    "hvd_tpu_kv_request_bytes_total": (
+        "counter", "Request payload bytes received by this KV server "
+                   "(PUT bodies), by verb and scope"),
     # faults.py
     "hvd_tpu_fault_injections_total": (
         "counter", "Fired fault-injection actions, by failpoint name and "

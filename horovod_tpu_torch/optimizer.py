@@ -436,6 +436,121 @@ class DistributedOptimizer(_Wrapper):
         return loss
 
 
+    # -- durable checkpointing of the ZeRO-1 state (the reference's
+    # optimizer.py:700-756) -------------------------------------------------
+
+    def checkpoint_payload(self):
+        """``(shards, state_leaves, layout)`` for
+        ``CheckpointManager.snapshot_zero1``: this rank's per-bucket flat
+        parameter shards, the shard optimizer's state in optax's leaf
+        order (:func:`_zero1_state_order`), and the FROZEN bucket layout
+        ``[(idxs, sizes, total, shard)]`` — each rank persists exactly its
+        1/world slice, and a restore at a different world size re-slices
+        it (``checkpoint.shard_io.zero1_reshard``). The tensors are the
+        live ones: the snapshot copies them."""
+        if not self._is_sharded():
+            raise ValueError(
+                "checkpoint_payload needs a ZeRO-1 optimizer (sharded="
+                "True); replicated state checkpoints through "
+                "CheckpointManager.snapshot directly")
+        zero = self._zero
+        if zero is None:
+            raise ValueError(
+                "checkpoint_payload: the ZeRO-1 layout and state exist "
+                "from the first sharded step on; step before taking a "
+                "payload")
+        states = [zero.optimizer.state.get(sp) for sp in zero.shards]
+        if not all(states):
+            raise ValueError("checkpoint_payload: the shard optimizer has "
+                             "no state yet; step before taking a payload")
+        leaves = []
+        for key, per_bucket in _zero1_state_order(zero):
+            if per_bucket:
+                leaves += [st[key] for st in states]
+            else:
+                # optax's count: one int32 scalar
+                leaves.append(states[0][key].to(torch.int32))
+        layout = [(idxs, sizes, sum(sizes), shard)
+                  for _, idxs, sizes, shard in zero.plan]
+        return [b.param_shard for b in zero.buckets], leaves, layout
+
+    def restore_from_durable(self, restore_tree):
+        """Load a zero1 ``RestoreResult.tree`` (the reshard dict) into this
+        optimizer for THIS world, in place: the full parameters from the
+        unpacked logical buckets (this rank's shards are views of them),
+        the shard optimizer's state from the new-world reslice —
+        optimizer momenta survive an N→M elastic resize. Before the first
+        step the layout is made here, as the first step would make it; a
+        layout other than the generation's raises."""
+        header = restore_tree["header"]
+        zero = self._zero1()
+        if len(zero.plan) != len(header["buckets"]) or any(
+                tuple(p[1]) != tuple(b["idxs"]) or sum(p[2]) != b["total"]
+                for p, b in zip(zero.plan, header["buckets"])):
+            raise ValueError(
+                "durable ZeRO-1 checkpoint bucket layout does not match "
+                "this optimizer's (fusion threshold or tree changed); "
+                "restore the parameters and re-run init() instead")
+        order = _zero1_state_order(zero)
+        want = sum(len(zero.shards) if per else 1 for _, per in order)
+        restored = restore_tree["state_leaves"]
+        if len(restored) != want:
+            raise ValueError(
+                f"inner optimizer state has {want} leaves, checkpoint has "
+                f"{len(restored)} — different inner transform; re-run "
+                f"init() instead")
+        opt = zero.optimizer
+        with torch.no_grad():
+            for b, flat in zip(zero.buckets, restore_tree["full_buckets"]):
+                # the padded tail stays zero
+                b.params[:b.total].copy_(flat)
+            it = iter(restored)
+            for key, per_bucket in order:
+                vals = ([next(it) for _ in zero.shards] if per_bucket
+                        else [next(it)] * len(zero.shards))
+                for sp, v in zip(zero.shards, vals):
+                    st = opt.state[sp]
+                    if key in st:
+                        st[key].copy_(v)
+                    elif per_bucket:
+                        st[key] = v.to(sp.device) if v.dim() else v.clone()
+                    else:
+                        st[key] = _step_tensor(opt, sp, v)
+
+
+def _zero1_state_order(zero: _Zero1) -> list:
+    """The shard optimizer's state as optax lays it out, ``[(key,
+    per_bucket)]``: a per-bucket key contributes every bucket's tensor in
+    turn, the count one int32 scalar. Adam/AdamW: the count, every
+    bucket's ``exp_avg``, every bucket's ``exp_avg_sq`` (optax: count,
+    mu[0..B-1], nu[0..B-1]; with amsgrad, nu_max after them); SGD with
+    momentum: every bucket's ``momentum_buffer`` (optax's trace); any
+    other optimizer its state keys in sorted order, per bucket."""
+    opt = zero.optimizer
+    if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+        order = [("step", False), ("exp_avg", True), ("exp_avg_sq", True)]
+        if any(g.get("amsgrad") for g in opt.param_groups):
+            order.append(("max_exp_avg_sq", True))
+        return order
+    if isinstance(opt, torch.optim.SGD):
+        return ([("momentum_buffer", True)]
+                if any(g.get("momentum") for g in opt.param_groups) else [])
+    keys = sorted({k for sp in zero.shards
+                   for k in opt.state.get(sp, {})})
+    return [(k, True) for k in keys]
+
+
+def _step_tensor(opt: torch.optim.Optimizer, param, count) -> torch.Tensor:
+    """A restored step count as the optimizer keeps it: float32, on the
+    parameter's device where the group is ``capturable`` or ``fused``,
+    else on the CPU."""
+    group = next(g for g in opt.param_groups
+                 if any(p is param for p in g["params"]))
+    on_dev = group.get("capturable") or group.get("fused")
+    return torch.tensor(float(count), dtype=torch.float32,
+                        device=param.device if on_dev else "cpu")
+
+
 class DistributedDeltaAdasumOptimizer(_Wrapper):
     """Delta-model Adasum (Horovod's torch ``_DistributedAdasumOptimizer``):
     each ``step()`` stashes the parameters, runs the wrapped optimizer's

@@ -20,8 +20,9 @@
   so a hang post-mortem has the spans that led into it.
 
 Publishing segments and clock beacons to the rendezvous KV (the reference's
-``TracePublisher`` and ``publish_segment``, feeding ``GET /trace``) comes
-with the launcher (ROADMAP A14).
+``TracePublisher`` and ``publish_segment``) comes with the launcher
+(ROADMAP A14); the KV server (``runner/http_server.py``) already renders
+``GET /trace`` from what is published under ``trace/<rank>``.
 
 ``HOROVOD_TPU_TRACE=0`` leaves the engine's ``trace`` hook ``None``: the
 dispatch path pays one ``is None`` check per site.

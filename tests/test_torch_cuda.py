@@ -13,7 +13,10 @@ sharded"`` on 2 and 4), and the wire codecs (``-k "cards and codec"``:
 the flagship LM through int8, fp8, bf16 and sharded int8 on 2 and 4), and
 the observability around the engine (``-k observability``: no instrument
 synchronizes, the native timeline, the memory gauge against
-``torch.cuda.memory_stats()``, the watchdog breaking a hung launch).
+``torch.cuda.memory_stats()``, the watchdog breaking a hung launch), and
+durable checkpointing (``-k checkpoint``: a snapshot copies on the card
+with no host wait; ``-k "cards and checkpoint"``: 4 cards write, 2
+restore).
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -2677,6 +2680,73 @@ def _one_card_pp_losses(dims, n_layers, dev):
     del model
     torch.cuda.empty_cache()
     return out
+
+
+def test_cuda_checkpoint_snapshot_copies_on_the_card_without_a_wait(
+        cuda, tmp_path):
+    """snapshot() of a tree of CUDA tensors (fp32, bf16 at an odd byte
+    offset, a bool mask), a CPU step count and a Python scalar, stamped
+    behind the card spinning: no synchronizing call, it returns before the
+    card reaches its copies, and a write in place queued after it does not
+    reach the generation; the restore puts each leaf on its template
+    leaf's device, bitwise."""
+    import warnings
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"a_mask": torch.rand(3, device=cuda, generator=g) > 0.5,
+            "h": torch.randn(333, device=cuda, generator=g).to(
+                torch.bfloat16),
+            "w": torch.randn(1024, 1024, device=cuda, generator=g),
+            "step": torch.tensor(3.0), "lr": 0.1}
+    want = {k: v.clone() for k, v in tree.items() if torch.is_tensor(v)}
+    m = CheckpointManager(str(tmp_path))
+    try:
+        # a first generation warms the allocator, the pinned ring and the
+        # side stream
+        assert m.snapshot(tree, step=1) and m.wait_idle(60)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                torch.cuda._sleep(200_000_000)
+                assert m.snapshot(tree, step=2)
+                after = torch.cuda.Event()
+                after.record()
+                ahead = not after.query()
+                tree["w"].mul_(2.0)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert ahead
+        assert not [w for w in caught
+                    if "called a synchronizing" in str(w.message)]
+        assert m.wait_idle(60) and m.last_written_step == 2
+        res = m.restore_latest(template=tree)
+    finally:
+        m.close(flush=False)
+    assert res.step == 2 and res.tree["lr"] == 0.1
+    for k, v in want.items():
+        assert res.tree[k].device == v.device and torch.equal(res.tree[k], v)
+
+
+def test_cuda_cards_checkpoint_restores_4_cards_on_2(built, tmp_path):
+    """Durable checkpointing on NCCL (torch_worker's ckpt_cards: the SP
+    card LM, bf16 on fp32 parameters, AdamW, one sequence a card): 4 cards
+    snapshot at every step through the engine's step hook at redundancy 1
+    through a test-started KVStoreServer, then take as many ZeRO-1 steps
+    and snapshot checkpoint_payload(); with rank3/ deleted, 2 cards
+    restore both: parameters and moments bitwise the 4-card run's, the
+    ZeRO-1 state through zero1_reshard 4 → 2 (check_ckpt_cards)."""
+    from torch_worker import check_ckpt_cards, run_ckpt_cards
+    if built < 4:
+        pytest.skip("needs 4 CUDA devices")
+    t0 = time.perf_counter()
+    written, restored = run_ckpt_cards(tmp_path, "cuda", 4, 2)
+    check_ckpt_cards(written, restored)
+    print(f"ckpt_cards: 4 cards wrote and 2 restored in "
+          f"{time.perf_counter() - t0:.1f} s; losses "
+          f"{[r['losses'] for r in written]}, ZeRO-1 "
+          f"{written[0]['zero1_losses']}")
 
 
 @pytest.mark.parametrize("n", [2, 4])

@@ -53,6 +53,14 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.native\n"
         "import horovod_tpu_torch.observability\n"
         "import horovod_tpu_torch.observability.monitor\n"
+        "import horovod_tpu_torch.checkpoint\n"
+        "import horovod_tpu_torch.checkpoint.flatten\n"
+        "import horovod_tpu_torch.checkpoint.manager\n"
+        "import horovod_tpu_torch.checkpoint.manifest\n"
+        "import horovod_tpu_torch.checkpoint.shard_io\n"
+        "import horovod_tpu_torch.runner\n"
+        "import horovod_tpu_torch.runner.http_client\n"
+        "import horovod_tpu_torch.runner.http_server\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

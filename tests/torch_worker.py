@@ -3326,6 +3326,284 @@ def _pp_cards_scenario(hvd, rank: int, size: int) -> dict:
     return out
 
 
+# the ckpt scenario: the sharded scenario's MLP under AdamW, a snapshot at
+# every step through the engine's step hook (HOROVOD_TPU_CHECKPOINT_DIR
+# and _INTERVAL_STEPS=1 set by the test), then ZeRO-1 steps whose state
+# goes through checkpoint_payload() into CKPT_ZERO1_DIR when the test sets it
+CKPT_STEPS = 5
+CKPT_ZERO1_STEPS = 3
+CKPT_ADAMW = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2)
+
+
+def ckpt_model_and_opt(hvd, device, sharded=False):
+    """The MLP and its DistributedOptimizer(AdamW) of the ckpt scenario."""
+    import torch
+    model = sharded_model(device)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **CKPT_ADAMW), op=hvd.Average,
+        sharded=sharded)
+    return model, opt
+
+
+def ckpt_numpy(tree):
+    """A copy of a training_state tree's tensors as numpy, keyed as in a
+    state dict: ``model.<name>`` and ``opt.<index>.<key>``."""
+    out = {f"model.{k}": v.detach().cpu().numpy().copy()
+           for k, v in tree["model"].items()}
+    for i, st in tree["opt"]["state"].items():
+        for k, v in st.items():
+            out[f"opt.{i}.{k}"] = v.detach().cpu().numpy().copy()
+    return out
+
+
+def _ckpt_steps(torch, model, opt, xs, ys, steps, mgr=None):
+    """``steps`` steps; with ``mgr``, each lets the snapshot its step hook
+    took finish before the next, so both ranks write every generation and
+    each takes the other's shard as its replica at once (a rank whose
+    pending request was replaced makes its peer wait for its next
+    commit)."""
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = ((model(xs) - ys) ** 2).mean()
+        loss.backward()
+        opt.step()
+        if mgr is not None:
+            assert mgr.wait_idle(60)
+
+
+def _ckpt_scenario(hvd, rank: int, size: int) -> dict:
+    """CKPT_STEPS steps of the MLP on this rank's rows; the provider
+    returns training_state(model, opt) and records a copy of what it
+    returned, by step. Then, where CKPT_ZERO1_DIR is set, CKPT_ZERO1_STEPS
+    sharded steps at SHARDED_THRESHOLD and one snapshot_zero1 of
+    checkpoint_payload() through a manager of this world on that
+    directory."""
+    import torch
+    from horovod_tpu_torch.checkpoint import (CheckpointManager,
+                                              training_state)
+    from horovod_tpu_torch.core.state import global_state
+    torch.set_num_threads(1)
+    gs = global_state()
+    mgr = gs.checkpoint_manager
+    dev = hvd.device()
+    data_x, data_y = sharded_data()
+    rows = shard_rows(rank, size, len(data_x))
+    xs = torch.from_numpy(data_x[rows]).to(dev)
+    ys = torch.from_numpy(data_y[rows]).to(dev)
+    model, opt = ckpt_model_and_opt(hvd, dev)
+    provided = {}
+
+    def provider():
+        step = len(provided) + 1
+        tree = training_state(model, opt)
+        provided[step] = ckpt_numpy(tree)
+        return tree, step, {"batch": step}
+
+    mgr.register_provider(provider)
+    _ckpt_steps(torch, model, opt, xs, ys, CKPT_STEPS, mgr)
+    out = {"idle": mgr.wait_idle(60), "interval": mgr.interval_steps,
+           "kv": gs.kv is not None, "last_written": mgr.last_written_step,
+           "provided": provided}
+    mgr.register_provider(None)
+    zdir = os.environ.get("CKPT_ZERO1_DIR")
+    if zdir:
+        gs.config.fusion_threshold_bytes = SHARDED_THRESHOLD
+        model, opt = ckpt_model_and_opt(hvd, dev, sharded=True)
+        _ckpt_steps(torch, model, opt, xs, ys, CKPT_ZERO1_STEPS)
+        shards, leaves, layout = opt.checkpoint_payload()
+        zm = CheckpointManager(zdir, rank=rank, world_size=size)
+        try:
+            zm.snapshot_zero1(shards, leaves, layout, step=CKPT_ZERO1_STEPS)
+            out["zero1_idle"] = zm.wait_idle(60)
+            out["zero1_written"] = zm.last_written_step
+        finally:
+            zm.close(flush=False)
+        out["zero1"] = {
+            "params": [p.detach().cpu().numpy().copy()
+                       for p in model.parameters()],
+            "shards": [s.detach().cpu().numpy().copy() for s in shards],
+            "state": [l.detach().cpu().numpy().copy() for l in leaves],
+            "layout": layout}
+    return out
+
+
+# the ckpt_cards scenario: the SP card LM (SP_CARD_DIMS, bf16 compute on
+# fp32 parameters; a tiny one in the CPU rehearsal), one sequence a rank,
+# CKPT_CARD_STEPS AdamW steps with a snapshot at each through the step
+# hook, then as many ZeRO-1 steps snapshotted through checkpoint_payload();
+# with CKPT_PHASE=restore the world restores both instead
+CKPT_CARD_STEPS = 3
+
+
+def ckpt_card_lm(hvd, dev, sharded):
+    import torch
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    dims = SP_CARD_DIMS if dev.type == "cuda" else ADASUM_CPU_DIMS
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash", **dims)
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        op=hvd.Average, sharded=sharded)
+    return cfg, model, opt
+
+
+def _ckpt_cards_scenario(hvd, rank: int, size: int) -> dict:
+    import torch
+    from horovod_tpu_torch.checkpoint import (CheckpointManager,
+                                              load_training_state,
+                                              training_state,
+                                              training_template)
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models.transformer import lean_lm_loss
+    gs = global_state()
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    mgr = gs.checkpoint_manager
+    zdir = os.environ["CKPT_ZERO1_DIR"]
+    # ZeRO-1 at the default threshold: one bucket of the LM's parameters
+    from horovod_tpu_torch.common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+    gs.config.fusion_threshold_bytes = DEFAULT_FUSION_THRESHOLD_BYTES
+    out = {}
+    if os.environ.get("CKPT_PHASE") == "restore":
+        cfg, model, opt = ckpt_card_lm(hvd, dev, sharded=False)
+        res = mgr.restore_latest(template=training_template(model, opt))
+        load_training_state(res.tree, model, opt)
+        out["step"] = res.step
+        out["restored"] = ckpt_numpy(training_state(model, opt))
+        cfg, model, opt = ckpt_card_lm(hvd, dev, sharded=True)
+        zm = CheckpointManager(zdir, rank=rank, world_size=size)
+        try:
+            zres = zm.restore_latest()
+        finally:
+            zm.close(flush=False)
+        opt.restore_from_durable(zres.tree)
+        z = opt._zero
+        out["zero1"] = {
+            "params": [p.detach().cpu().numpy().copy()
+                       for p in model.parameters()],
+            "shards": [s.detach().cpu().numpy().copy() for s in z.shards],
+            "state": [v.detach().cpu().numpy().copy()
+                      for v in opt.checkpoint_payload()[1]],
+            "totals": [b.total for b in z.buckets]}
+        return out
+    cfg, model, opt = ckpt_card_lm(hvd, dev, sharded=False)
+    tokens = np.random.RandomState(23).randint(
+        0, cfg.vocab_size, size=(size, cfg.max_seq + 1))
+    x = torch.from_numpy(tokens[rank:rank + 1, :-1]).to(dev)
+    y = torch.from_numpy(tokens[rank:rank + 1, 1:]).to(dev)
+    provided = {}
+
+    def provider():
+        step = len(provided) + 1
+        tree = training_state(model, opt)
+        provided[step] = ckpt_numpy(tree)
+        return tree, step
+
+    def train(opt, wait=False):
+        # wait: each step's snapshot drains before the next (see
+        # _ckpt_steps), so every rank writes every generation
+        losses = []
+        for _ in range(CKPT_CARD_STEPS):
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            if wait:
+                assert mgr.wait_idle(120)
+        return losses
+
+    mgr.register_provider(provider)
+    out["losses"] = train(opt, wait=True)
+    out["idle"] = mgr.wait_idle(120)
+    out["last_written"] = mgr.last_written_step
+    out["provided"] = provided if rank == 0 else {}
+    mgr.register_provider(None)
+    cfg, model, opt = ckpt_card_lm(hvd, dev, sharded=True)
+    out["zero1_losses"] = train(opt)
+    shards, leaves, layout = opt.checkpoint_payload()
+    # its own manager on the shared disk: the KV holds one generation
+    # keyspace a world, the replicated manager's
+    zm = CheckpointManager(zdir, rank=rank, world_size=size)
+    try:
+        zm.snapshot_zero1(shards, leaves, layout, step=CKPT_CARD_STEPS)
+        out["zero1_idle"] = zm.wait_idle(120)
+    finally:
+        zm.close(flush=False)
+    out["zero1"] = {
+        "params": [p.detach().cpu().numpy().copy()
+                   for p in model.parameters()],
+        "shards": [s.detach().cpu().numpy().copy() for s in shards],
+        "state": [l.detach().cpu().numpy().copy() for l in leaves],
+        "totals": [b.total for b in opt._zero.buckets]}
+    return out
+
+
+def run_ckpt_cards(out_dir, device: str, n: int, m: int, timeout=900):
+    """The ckpt_cards scenario written by ``n`` ranks through a
+    KVStoreServer of this process, then, with the last rank's directories
+    deleted, restored by ``m`` ranks: (the writers' results, the
+    restorers')."""
+    import shutil
+    from horovod_tpu_torch.runner.http_server import KVStoreServer
+    out_dir = Path(out_dir)
+    server = KVStoreServer(("127.0.0.1", 0))
+    server.start()
+    try:
+        env = {"HOROVOD_TPU_CHECKPOINT_DIR": str(out_dir / "ckpt"),
+               "HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS": "1",
+               "HOROVOD_TPU_CHECKPOINT_REDUNDANCY": "1",
+               "CKPT_ZERO1_DIR": str(out_dir / "zero1"),
+               "HOROVOD_GLOO_RENDEZVOUS_ADDR": "127.0.0.1",
+               "HOROVOD_GLOO_RENDEZVOUS_PORT": str(server.port)}
+        (out_dir / "write").mkdir(parents=True, exist_ok=True)
+        (out_dir / "restore").mkdir(parents=True, exist_ok=True)
+        written = run_world("ckpt_cards", n, out_dir / "write", device,
+                            env=env, timeout=timeout)
+        for sub in ("ckpt", "zero1"):
+            shutil.rmtree(out_dir / sub / f"rank{n - 1}")
+        restored = run_world("ckpt_cards", m, out_dir / "restore", device,
+                             env=dict(env, CKPT_PHASE="restore"),
+                             timeout=timeout)
+    finally:
+        server.stop()
+    return written, restored
+
+
+def check_ckpt_cards(written, restored):
+    """The checks of run_ckpt_cards: every writer drained its snapshots;
+    each restorer's parameters and AdamW state are bitwise what rank 0's
+    provider returned at the restored step; the ZeRO-1 restore's
+    parameters are the writers', its moments the writers' shards joined
+    and re-cut for the smaller world, its count the writers'."""
+    assert all(r["idle"] and r["zero1_idle"] for r in written)
+    assert all(r["last_written"] == CKPT_CARD_STEPS for r in written)
+    assert all(np.isfinite(r["losses"]).all() for r in written)
+    want = written[0]["provided"]
+    for r in restored:
+        assert r["step"] == CKPT_CARD_STEPS
+        ref = want[r["step"]]
+        assert r["restored"].keys() == ref.keys()
+        for k in ref:
+            assert r["restored"][k].tobytes() == ref[k].tobytes(), k
+        z, w0 = r["zero1"], written[0]["zero1"]
+        for a, b in zip(z["params"], w0["params"]):
+            assert a.tobytes() == b.tobytes()
+        assert z["totals"] == w0["totals"]
+        assert z["state"][0] == w0["state"][0]
+    nb = len(written[0]["zero1"]["totals"])
+    for j in range(1, len(written[0]["zero1"]["state"])):
+        total = written[0]["zero1"]["totals"][(j - 1) % nb]
+        joined = [np.concatenate([r["zero1"]["state"][j]
+                                  for r in res])[:total]
+                  for res in (written, restored)]
+        assert joined[0].tobytes() == joined[1].tobytes(), j
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -3346,7 +3624,8 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "obs_straggler": _obs_straggler_scenario,
              "obs_faults": _obs_faults_scenario,
              "pipeline": _pipeline_scenario,
-             "pp_cards": _pp_cards_scenario}
+             "pp_cards": _pp_cards_scenario,
+             "ckpt": _ckpt_scenario, "ckpt_cards": _ckpt_cards_scenario}
 
 
 def main(argv):
