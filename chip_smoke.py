@@ -228,6 +228,15 @@ and then:
     step (the stage's recompute: the forward 1 + (v-1)/v times a layer
     and microbatch, each backward kernel once).
 
+22. Durable checkpointing of the flagship LM (``run_checkpoint_path``).
+23. Elastic training of the flagship LM (``run_elastic_path``): an
+    injected failure and a host update under ``@hvd.elastic.run``, each
+    reset a new NCCL world in this process, the losses after each reset
+    bitwise the uninterrupted run's; then a worker killed by
+    ``os._exit(137)`` under ``python -m horovod_tpu_torch.runner
+    --elastic``, relaunched by the driver and restored from the durable
+    tier (``--elastic-worker`` runs one life of it), its losses bitwise.
+
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
 launches per step. ``--resnet-only`` runs phase 2 alone and prints its
@@ -490,6 +499,13 @@ CKPT_STEPS = 15                # steps of each arm: a warm-up window, then 2
 CKPT_RESUMED = 3               # steps after the restored one, run both ways
 CKPT_ZERO1_STEPS = 2           # ZeRO-1 steps before its payload
 CKPT_SLEEP_CYCLES = 200_000_000  # the card spinning ahead of snapshot()
+# phase 23: elastic training of the flagship LM at world size 1
+ELASTIC_STEPS = 15             # steps of each run
+ELASTIC_COMMIT = 5             # state.commit() every this many steps
+ELASTIC_FAIL_AT = 8            # (a): HorovodInternalError after this step
+ELASTIC_NOTIFY_AT = 9          # (a): the host update, after the recovery
+ELASTIC_KILL_AFTER = 10        # (b): the worker dies after this commit
+ELASTIC_CHILD_TIMEOUT = 300    # (b): the launcher's job, seconds at most
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -4657,6 +4673,473 @@ def run_checkpoint_path(torch, hvd, K, tm, dev, smi, log):
     return out, counts
 
 
+def _timed_state(TPUState, torch, marks):
+    """A ``TPUState`` whose save, restore, sync and on_reset record their
+    host seconds (after a device synchronize) in ``marks``."""
+    class TimedState(TPUState):
+        def _mark(self, what, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                marks.append((what, t0, time.perf_counter()))
+
+        def save(self):
+            return self._mark("save", super().save)
+
+        def restore(self):
+            return self._mark("restore", super().restore)
+
+        def sync(self):
+            return self._mark("sync", super().sync)
+
+        def on_reset(self):
+            marks.append(("on_reset", time.perf_counter(), None))
+            return super().on_reset()
+
+    return TimedState
+
+
+def _ms(marks, what) -> list:
+    return [(t1 - t0) * 1e3 for w, t0, t1 in marks if w == what]
+
+
+def _wait_exit(pid: int, timeout: float) -> bool:
+    """Wait for process ``pid`` (not a child of this one) to exit; kill it
+    if it has not after ``timeout`` seconds. Returns whether it exited."""
+    import signal
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    return True
+        except OSError:
+            return True
+        time.sleep(0.1)
+    try:
+        os.kill(pid, signal.SIGKILL)
+    except OSError:
+        pass
+    return False
+
+
+def run_elastic_path(torch, hvd, K, tm, dev, smi, log):
+    """Phase 23: elastic training of the flagship LM (``LM_DIMS``, bf16 on
+    fp32 parameters, AdamW, batch 4 x 2048) at world size 1:
+
+    (a) in process: ELASTIC_STEPS steps uninterrupted, then a fresh model
+        from the same seed under ``@hvd.elastic.run`` with
+        ``TPUState(params=model, opt_state=opt, step=0)``, committing every
+        ELASTIC_COMMIT steps. After step ELASTIC_FAIL_AT the training
+        function raises ``HorovodInternalError`` (at size 1 the optimizer
+        reduces nothing, so no failpoint of the engine is reached): the
+        run loop restores the commit, resets the world (``hvd.shutdown()``
+        and ``hvd.init()`` on NCCL in this process) and syncs. After step
+        ELASTIC_NOTIFY_AT a real ``WorkerNotificationClient`` pushes an
+        ADDED host update to the worker's notification service; the next
+        ``commit()`` raises ``HostsUpdatedInterrupt(skip_sync=True)`` and
+        the world is reset without a sync. The losses of every step after
+        each reset must be bitwise the uninterrupted run's, the world
+        version must move forward and the engine be a new object at each
+        reset, replay's graphs must be invalidated before each process
+        group is destroyed, and K6a-d must launch on the steps after each
+        reset. It records commit(), restore() and sync() ms, the reset
+        seconds and the peak memory.
+    (b) a killed worker: ``python -m horovod_tpu_torch.runner --elastic
+        -np 1`` with a discovery script that prints ``localhost:1`` runs
+        this script with ``--elastic-worker`` (HOROVOD_TPU_CHECKPOINT_DIR
+        a temporary directory): the child trains the same LM under
+        ``hvd.elastic.run``, every commit a durable snapshot; after the
+        commit of step ELASTIC_KILL_AFTER is written it dies hard
+        (``os._exit(137)``, once: a marker file). The driver relaunches
+        the slot, the new process restores that generation through the
+        durable tier and trains the rest. The launcher must exit 0, the
+        relaunched losses must be bitwise the uninterrupted run's, and the
+        child must have run K6. It records the seconds from the kill to
+        the new process's first step and the restore seconds.
+
+    Returns the summary and (a)'s launches."""
+    import shutil
+    import stat
+    import subprocess
+    import tempfile
+    import torch.distributed as dist
+    from horovod_tpu_torch.common import env as env_mod
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    from horovod_tpu_torch.core.replay import StepReplay
+    from horovod_tpu_torch.elastic import (HostUpdateResult, TPUState,
+                                           WorkerNotificationClient,
+                                           notification_manager)
+    from horovod_tpu_torch.runner.http_server import KVStoreServer
+    t_phase = time.perf_counter()
+    check(hvd.size() == 1, "phase 23 needs a size-1 world")
+    for knob in (env_mod.HOROVOD_TPU_CHECKPOINT_DIR,
+                 env_mod.HOROVOD_TPU_CHECKPOINT_INTERVAL_STEPS):
+        check(knob not in os.environ, f"phase 23: {knob} is set")
+    batch = 4
+    out = {"card": smi, "steps": ELASTIC_STEPS, "commit": ELASTIC_COMMIT,
+           "batch": batch}
+
+    # (a) the uninterrupted run, then the same from the same seed under
+    # the elastic run loop
+    _, model, step = make_lm_trainer(torch, hvd, tm, dev, batch)
+    want = [float(step()) for _ in range(ELASTIC_STEPS)]
+    check(all(math.isfinite(v) for v in want),
+          f"phase 23: non-finite losses {want}")
+    del model, step
+    torch.cuda.empty_cache()
+
+    kv = KVStoreServer()
+    kv.start()
+    manager = notification_manager()
+    manager.init(rendezvous_addr="127.0.0.1", rendezvous_port=kv.port,
+                 rank=0, hostname="127.0.0.1")
+    addr = kv.snapshot()["worker_addresses"]["0"].decode()
+    order = []
+    real_invalidate = StepReplay.invalidate_all
+    real_destroy = dist.destroy_process_group
+
+    def invalidate_all(self, reason, *a, **kw):
+        order.append(f"invalidate:{reason}")
+        return real_invalidate(self, reason, *a, **kw)
+
+    def destroy_process_group(*a, **kw):
+        order.append("destroy")
+        return real_destroy(*a, **kw)
+
+    marks = []
+    lives = []
+    got = []
+    version0 = os.environ.get(env_mod.HOROVOD_TPU_WORLD_VERSION)
+    StepReplay.invalidate_all = invalidate_all
+    dist.destroy_process_group = destroy_process_group
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, model, step = make_lm_trainer(torch, hvd, tm, dev, batch)
+        state = _timed_state(TPUState, torch, marks)(
+            params=model, opt_state=step.opt, step=0)
+        K.reset_launch_counts()
+
+        @hvd.elastic.run
+        def train(state):
+            eng = hvd._engine()
+            lives.append(dict(engine=eng, version=eng.world_version,
+                              device=hvd.device(), start=state.step,
+                              counts=dict(K.launch_counts()),
+                              order=len(order)))
+            while state.step < ELASTIC_STEPS:
+                loss = float(step())
+                state.step += 1
+                got.append((len(lives), state.step, loss))
+                if state.step == ELASTIC_FAIL_AT and len(lives) == 1:
+                    raise HorovodInternalError(
+                        f"phase 23: injected after step {state.step}")
+                if state.step == ELASTIC_NOTIFY_AT and len(lives) == 2:
+                    WorkerNotificationClient(addr).notify_hosts_updated(
+                        int(time.time() * 1e6), HostUpdateResult.ADDED)
+                    deadline = time.monotonic() + 10
+                    while state._host_messages.empty() and \
+                            time.monotonic() < deadline:
+                        time.sleep(0.01)
+                    check(not state._host_messages.empty(),
+                          "phase 23: the host update never reached the "
+                          "state")
+                if state.step % ELASTIC_COMMIT == 0:
+                    state.commit()
+            return state.step
+
+        check(train(state) == ELASTIC_STEPS, "phase 23: train ended early")
+        peak = torch.cuda.max_memory_allocated(dev)
+        final_counts = dict(K.launch_counts())
+        final_engine = hvd._engine()
+    finally:
+        StepReplay.invalidate_all = real_invalidate
+        dist.destroy_process_group = real_destroy
+        manager.shutdown()
+        kv.stop()
+        if version0 is None:
+            os.environ.pop(env_mod.HOROVOD_TPU_WORLD_VERSION, None)
+        else:
+            os.environ[env_mod.HOROVOD_TPU_WORLD_VERSION] = version0
+    check(len(lives) == 3, f"phase 23: {len(lives)} lives of the training "
+          "function, expected 3 (the start, the recovery, the host update)")
+    check([life["start"] for life in lives] ==
+          [0, ELASTIC_COMMIT, 2 * ELASTIC_COMMIT],
+          f"phase 23: the lives started at steps "
+          f"{[life['start'] for life in lives]}")
+    versions = [life["version"] for life in lives]
+    check(versions[0] < versions[1] < versions[2],
+          f"phase 23: world versions {versions} did not move forward")
+    check(lives[0]["engine"] is not lives[1]["engine"]
+          and lives[1]["engine"] is not lives[2]["engine"]
+          and lives[2]["engine"] is final_engine,
+          "phase 23: a reset kept its engine")
+    check(all(life["device"] == dev for life in lives),
+          f"phase 23: a reset moved the world off {dev}: "
+          f"{[str(life['device']) for life in lives]}")
+    # each reset: replay's graphs invalidated, then the process group gone
+    resets = [order[lives[i]["order"]:lives[i + 1]["order"]]
+              for i in range(2)]
+    for r in resets:
+        check(r.count("destroy") == 1 and "invalidate:shutdown" in
+              r[:r.index("destroy")],
+              f"phase 23: teardown order {r}, expected replay's "
+              "invalidation before the process group's destruction")
+    after_fail = [(s, v) for life, s, v in got if life == 2]
+    after_notify = [(s, v) for life, s, v in got if life == 3]
+    check([s for s, _ in after_fail] ==
+          list(range(ELASTIC_COMMIT + 1, 2 * ELASTIC_COMMIT + 1)) and
+          [s for s, _ in after_notify] ==
+          list(range(2 * ELASTIC_COMMIT + 1, ELASTIC_STEPS + 1)),
+          f"phase 23: steps after the resets {after_fail}, {after_notify}")
+    bitwise_fail = all(v == want[s - 1] for s, v in after_fail)
+    bitwise_notify = all(v == want[s - 1] for s, v in after_notify)
+    check(bitwise_fail and bitwise_notify,
+          f"phase 23: losses after the resets {after_fail} and "
+          f"{after_notify}, the uninterrupted run's {want}")
+    ends = [life["counts"] for life in lives[1:]] + [final_counts]
+    layers = LM_DIMS["n_layers"]
+    launches = {name: 0 for name in FLASH_KERNELS}
+    for i, life in enumerate(lives[1:]):
+        n = ELASTIC_COMMIT
+        for name in FLASH_KERNELS:
+            d = ends[i + 1][name] - life["counts"][name]
+            check(d == layers * n,
+                  f"phase 23: {name} launched {d} times in the {n} steps "
+                  f"after reset {i + 1}, expected {layers * n}")
+    for name in FLASH_KERNELS:
+        launches[name] = final_counts[name]
+    saves = _ms(marks, "save")
+    restore_ms = _ms(marks, "restore")
+    syncs = _ms(marks, "sync")
+    ev = {w: [(t0, t1) for x, t0, t1 in marks if x == w]
+          for w in ("save", "restore", "on_reset")}
+    # reset seconds: the failure's restore, or the host update's save, to
+    # the state's on_reset after the world is back
+    def before(what, t):
+        return max(t1 for t0, t1 in ev[what] if t1 <= t)
+
+    reset_s = [ev["on_reset"][0][0] - before("restore", ev["on_reset"][0][0]),
+               ev["on_reset"][1][0] - before("save", ev["on_reset"][1][0])]
+    state_bytes = 3 * 4 * sum(p.numel() for p in model.parameters())
+    del model, step, state, lives, final_engine, train
+    torch.cuda.empty_cache()
+    out["in_process"] = {
+        "losses_uninterrupted": want, "losses_after_failure": after_fail,
+        "losses_after_host_update": after_notify,
+        "bitwise_after_failure": bitwise_fail,
+        "bitwise_after_host_update": bitwise_notify,
+        "world_versions": versions, "teardown_order": resets,
+        "commit_ms": saves, "restore_ms": restore_ms, "sync_ms": syncs,
+        "reset_s": reset_s, "peak_gib": peak / 2**30,
+        "state_bytes": state_bytes, "host_copy": "pageable",
+        "launches": launches}
+    log(f"  (a) losses after the failure {after_fail} and after the host "
+        f"update {after_notify}: bitwise the uninterrupted run's; world "
+        f"versions {versions}; teardown {resets}")
+    log(f"  (a) commit() ms {', '.join(f'{v:.1f}' for v in saves)} "
+        f"({state_bytes / 1e9:.3f} GB to host, pageable); restore() ms "
+        f"{', '.join(f'{v:.1f}' for v in restore_ms)}; sync() ms "
+        f"{', '.join(f'{v:.1f}' for v in syncs)}; reset s "
+        f"{', '.join(f'{v:.3f}' for v in reset_s)}; peak "
+        f"{peak / 2**30:.2f} GiB; K6 launches {launches}")
+
+    # (b) a killed worker, relaunched by the driver, restored from the
+    # durable tier
+    root = tempfile.mkdtemp(prefix="hvd_elastic_")
+    try:
+        script = os.path.join(root, "hosts.sh")
+        with open(script, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\n")
+        os.chmod(script, os.stat(script).st_mode | stat.S_IXUSR)
+        env = {k: v for k, v in os.environ.items()
+               if k not in (env_mod.HOROVOD_TPU_WORLD_VERSION,
+                            env_mod.HOROVOD_TPU_COORDINATOR,
+                            env_mod.HOROVOD_TPU_NUM_PROCESSES,
+                            env_mod.HOROVOD_TPU_PROCESS_ID)}
+        pkg_root = os.path.dirname(os.path.dirname(
+            os.path.abspath(hvd.__file__)))
+        env.update({
+            env_mod.HOROVOD_TPU_CHECKPOINT_DIR: os.path.join(root, "ckpt"),
+            env_mod.HOROVOD_ELASTIC_FAILURE_BACKOFF: "0.5",
+            env_mod.HOROVOD_TPU_SHUTDOWN_TIMEOUT: "30",
+            "ELASTIC_SMOKE_OUT": root,
+            "PYTHONPATH": os.pathsep.join(
+                [pkg_root, env.get("PYTHONPATH", "")]),
+        })
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "--elastic",
+               "-np", "1", "--min-np", "1", "--max-np", "1",
+               "--host-discovery-script", script, sys.executable,
+               os.path.abspath(__file__), "--elastic-worker"]
+        if pkg_root != os.path.dirname(os.path.abspath(__file__)):
+            cmd += ["--package-root", pkg_root]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=ELASTIC_CHILD_TIMEOUT)
+        job_s = time.perf_counter() - t0
+        tail = (res.stdout + res.stderr)[-6000:]
+        check(res.returncode == 0,
+              f"phase 23: the elastic launcher exited {res.returncode}:\n"
+              f"{tail}")
+        check(os.path.exists(os.path.join(root, "killed.marker")),
+              f"phase 23: the worker never died:\n{tail}")
+        lives_b = []
+        for n in (1, 2):
+            path = os.path.join(root, f"life{n}.json")
+            check(os.path.exists(path), f"phase 23: no {path}:\n{tail}")
+            with open(path) as f:
+                lives_b.append(json.load(f))
+        # the driver ends the job when the worker reports its success; the
+        # worker's process then shuts its world down and exits
+        exited = _wait_exit(lives_b[1]["pid"], 60.0)
+        check(exited, f"phase 23: the relaunched worker (pid "
+              f"{lives_b[1]['pid']}) had not exited 60 s after its job")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, second = lives_b
+    first_losses = {int(k): v for k, v in first["losses"].items()}
+    resumed = {int(k): v for k, v in second["losses"].items()}
+    check(sorted(resumed) == list(range(ELASTIC_KILL_AFTER + 1,
+                                        ELASTIC_STEPS + 1)),
+          f"phase 23: the relaunched worker ran steps {sorted(resumed)}")
+    child_bitwise = all(first_losses[s] == want[s - 1]
+                        for s in first_losses)
+    resumed_bitwise = all(v == want[s - 1] for s, v in resumed.items())
+    check(resumed_bitwise,
+          f"phase 23: the relaunched worker's losses {resumed} against "
+          f"the uninterrupted run's {want[ELASTIC_KILL_AFTER:]} (its first "
+          f"life's steps bitwise this process's: {child_bitwise})")
+    check(second["entered_at"] == ELASTIC_KILL_AFTER
+          and second["restored_generation"] ==
+          ELASTIC_KILL_AFTER // ELASTIC_COMMIT
+          and second["durable_recoveries"] == 1,
+          f"phase 23: the relaunched worker entered at step "
+          f"{second['entered_at']} with {second['durable_recoveries']} "
+          "durable recoveries")
+    for name in FLASH_KERNELS:
+        want_n = LM_DIMS["n_layers"] * (ELASTIC_STEPS - ELASTIC_KILL_AFTER)
+        check(second["counts"][name] == want_n,
+              f"phase 23: the relaunched worker launched {name} "
+              f"{second['counts'][name]} times, expected {want_n}")
+    kill_to_first = second["t_first_step"] - first["t_kill"]
+    out["killed_worker"] = {
+        "launcher_exit": res.returncode, "job_s": job_s,
+        "kill_to_first_step_s": kill_to_first,
+        "relaunch_to_init_s": second["t_init"] - first["t_kill"],
+        "restore_s": second["restore_s"],
+        "restore_stages_s": second["restore_stages"],
+        "init_to_model_s": second["t_model"] - second["t_init"],
+        "restored_generation": second["restored_generation"],
+        "first_life_losses": first_losses, "resumed_losses": resumed,
+        "first_life_bitwise": child_bitwise,
+        "resumed_bitwise": resumed_bitwise,
+        "child_launches": second["counts"],
+        "child_peak_gib": [first["peak_gib"], second["peak_gib"]]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  (b) the launcher exited 0 in {job_s:.1f} s; kill to the new "
+        f"process's first step {kill_to_first:.2f} s (to its init "
+        f"{out['killed_worker']['relaunch_to_init_s']:.2f} s, its model "
+        f"{out['killed_worker']['init_to_model_s']:.2f} s after), durable "
+        f"restore {second['restore_s']:.2f} s (by stage "
+        f"{second['restore_stages']}; generation "
+        f"{second['restored_generation']}, step {ELASTIC_KILL_AFTER}'s "
+        f"commit); resumed losses {resumed}: bitwise; "
+        f"the first life's {'bitwise' if child_bitwise else 'NOT bitwise'}"
+        f" this process's; child K6 launches {second['counts']}; phase "
+        f"{out['phase_s']:.1f} s")
+    return out, launches
+
+
+def elastic_child(torch, hvd, K, tm, log) -> int:
+    """One life of phase 23 (b)'s worker (``--elastic-worker``, launched by
+    the port's elastic launcher): the flagship LM under
+    ``hvd.elastic.run``, a commit and a durable snapshot every
+    ELASTIC_COMMIT steps. On its first life it dies hard after the commit
+    of step ELASTIC_KILL_AFTER is written. Writes ``life<n>.json`` into
+    ``$ELASTIC_SMOKE_OUT``: its losses by step, its wall-clock marks, its
+    restore seconds and its K6 launches."""
+    from horovod_tpu_torch.checkpoint import manager as ckpt_manager
+    from horovod_tpu_torch.elastic import TPUState
+    out_dir = os.environ["ELASTIC_SMOKE_OUT"]
+    marker = os.path.join(out_dir, "killed.marker")
+    life = 2 if os.path.exists(marker) else 1
+    rec = {"life": life, "t_start": time.time(), "losses": {}}
+    hvd.init()
+    rec["t_init"] = time.time()
+    dev = hvd.device()
+    mgr = hvd.global_state().checkpoint_manager
+    check(mgr is not None, "the elastic worker has no checkpoint manager")
+    _, model, step = make_lm_trainer(torch, hvd, tm, dev, 4)
+    rec["t_model"] = time.time()
+    marks = []
+    state = _timed_state(TPUState, torch, marks)(
+        params=model, opt_state=step.opt, step=0)
+    K.reset_launch_counts()
+    # the durable restore's stages: discovery, the optimizer's template,
+    # the generation's read and decode (restore_latest)
+    stages = rec["restore_stages"] = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stages[name] = stages.get(name, 0.0) + \
+                    time.perf_counter() - t0
+        return run
+
+    mgr.latest_generation = timed("discovery", mgr.latest_generation)
+    mgr.restore_latest = timed("restore_latest", mgr.restore_latest)
+    ckpt_manager.optimizer_template = timed(
+        "template", ckpt_manager.optimizer_template)
+
+    def write():
+        rec["counts"] = {k: K.launch_counts()[k] for k in FLASH_KERNELS}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        rec["pid"] = os.getpid()
+        with open(os.path.join(out_dir, f"life{life}.json"), "w") as f:
+            json.dump(rec, f)
+
+    @hvd.elastic.run
+    def train(state):
+        rec["entered_at"] = state.step
+        rec["restored_generation"] = state._durable_step
+        while state.step < ELASTIC_STEPS:
+            rec.setdefault("t_first_step", time.time())
+            rec["losses"][state.step + 1] = float(step())
+            state.step += 1
+            if state.step % ELASTIC_COMMIT:
+                continue
+            state.commit()
+            if life == 1 and state.step == ELASTIC_KILL_AFTER:
+                check(mgr.wait_idle(120),
+                      "the generation before the kill was not written")
+                rec["t_kill"] = time.time()
+                write()
+                with open(marker, "w") as f:
+                    f.write(str(os.getpid()))
+                os._exit(137)   # a hard crash: no teardown, no flush
+        # the record before the run loop reports this worker's success:
+        # the driver may end the job as soon as it hears of it
+        restores = [(t1 - t0) for w, t0, t1 in marks if w == "restore"]
+        rec["restore_s"] = restores[0] if restores else None
+        snap = hvd.metrics_snapshot()["counters"].get(
+            "hvd_tpu_elastic_recoveries_total", {"values": []})["values"]
+        rec["durable_recoveries"] = sum(
+            v for labels, v in snap if dict(labels).get("kind") == "durable")
+        write()
+        return state.step
+
+    train(state)
+    hvd.shutdown()
+    return 0
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -4717,6 +5200,10 @@ def main(argv=None) -> int:
                     help="build, then only run one overhead process of "
                          "phase 19 (its knobs already in the environment) "
                          "and print its numbers as the last line")
+    ap.add_argument("--elastic-worker", action="store_true",
+                    help="build, then only run one life of phase 23's "
+                         "elastic worker (launched by the port's elastic "
+                         "launcher, $ELASTIC_SMOKE_OUT set)")
     ap.add_argument("--package-root", default=None, metavar="DIR",
                     help="import horovod_tpu_torch from DIR (a parent "
                          "checkout, measured with --resnet-only in the same "
@@ -4760,6 +5247,8 @@ def main(argv=None) -> int:
         return resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log)
     if args.trace_probe:
         return trace_probe(torch, K, dev, args.trace_probe, smi, log)
+    if args.elastic_worker:
+        return elastic_child(torch, hvd, K, tm, log)
     if args.obs_arm:
         return obs_child(torch, hvd, tm, ResNet50, dev, args.obs_arm,
                          [tuple(p.shape) for p in ResNet50(
@@ -5078,6 +5567,18 @@ def main(argv=None) -> int:
             f"the failpoints")
         ckpt, ckpt_counts = run_checkpoint_path(torch, hvd, K, tm, dev, smi,
                                                 log)
+        torch.cuda.empty_cache()
+
+        log(f"phase 23: elastic training of the flagship LM: "
+            f"@hvd.elastic.run with TPUState, a commit every "
+            f"{ELASTIC_COMMIT} steps, an injected HorovodInternalError after "
+            f"step {ELASTIC_FAIL_AT} and a host update after step "
+            f"{ELASTIC_NOTIFY_AT}, each reset a new NCCL world in this "
+            f"process; then a worker killed after step {ELASTIC_KILL_AFTER}, "
+            f"relaunched by the port's elastic launcher and restored from "
+            f"the durable tier")
+        elastic, elastic_counts = run_elastic_path(torch, hvd, K, tm, dev,
+                                                   smi, log)
     finally:
         hvd.shutdown()
 
@@ -5231,7 +5732,10 @@ def main(argv=None) -> int:
              replaces="horovod_tpu/parallel/flash_attention.py:226",
              launches=lm_counts[name], vit_launches=vit_counts[name],
              moe_launches=moe_counts[name], pp_launches=pp_counts[name],
-             ckpt_launches=ckpt_counts[name], ok=True,
+             ckpt_launches=ckpt_counts[name],
+             elastic_launches=elastic_counts[name],
+             elastic_child_launches=elastic["killed_worker"][
+                 "child_launches"][name], ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
                   "D128, causal); shapes lists every shape",
              **flash_rows[name], **ptxas[name],
@@ -5282,6 +5786,7 @@ def main(argv=None) -> int:
                       "codec": codec, "algo": algo,
                       "observability": observability, "moe": moe,
                       "pipeline": pipeline, "checkpoint": ckpt,
+                      "elastic": elastic,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,10 @@ the LM's loss and train step over a (data, seq) mesh;
 metrics registry (``metrics_snapshot``), the trace recorder and its flight
 dump, the Chrome-trace timeline (``HOROVOD_TIMELINE``), the stall inspector
 and collective watchdog (``step_heartbeat``), the step-health monitor,
-failpoints (``faults``) and the debug consistency check.
+failpoints (``faults``) and the debug consistency check; durable
+checkpoints (``checkpoint``) and elastic training (``elastic``: the
+``State`` objects and ``@hvd.elastic.run``; the launcher is ``python -m
+horovod_tpu_torch.runner``).
 """
 
 from __future__ import annotations
@@ -59,6 +62,11 @@ def is_initialized() -> bool:
 
 
 def _backend():
+    st = global_state()
+    if st.backend.removed:
+        # an elastic worker scaled out before it joined a world: the
+        # inert backend answers rank 0 of size 1, as the reference's does
+        return st.backend
     return _engine().backend
 
 
@@ -287,6 +295,7 @@ from . import faults  # noqa: E402
 # hvd.checkpoint.CheckpointManager, as the reference reaches it (not in its
 # __all__ either)
 from . import checkpoint  # noqa: E402,F401
+from . import elastic  # noqa: E402
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
@@ -301,7 +310,7 @@ __all__ = [
     "allreduce_sparse",
     "broadcast_optimizer_state", "DistributedOptimizer",
     "DistributedDeltaAdasumOptimizer", "distributed", "Compression",
-    "optimizer",
+    "optimizer", "elastic",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "HorovodInternalError", "HostsUpdatedInterrupt", "DuplicateNameError",
     "__version__",

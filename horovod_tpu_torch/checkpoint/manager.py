@@ -1189,12 +1189,11 @@ def training_state(model: torch.nn.Module, optimizer) -> dict:
             "opt": _inner_optimizer(optimizer).state_dict()}
 
 
-def training_template(model: torch.nn.Module, optimizer) -> dict:
-    """:func:`training_state` of a model and optimizer about to be
-    restored into, for ``restore_latest(template=...)``. A ``torch.optim``
-    optimizer makes its state at its first step, so one that has not
-    stepped first takes a step at learning rate 0 on zero gradients
-    (which leaves the parameters as they are); the restore then
+def optimizer_template(optimizer) -> dict:
+    """The ``state_dict()`` of an optimizer about to be restored into. A
+    ``torch.optim`` optimizer makes its state at its first step, so one
+    that has not stepped first takes a step at learning rate 0 on zero
+    gradients (which leaves the parameters as they are); the restore then
     overwrites that state."""
     opt = _inner_optimizer(optimizer)
     if not opt.state:
@@ -1217,7 +1216,15 @@ def training_template(model: torch.nn.Module, optimizer) -> dict:
                     g["lr"] = lr
             for p, g in zip(params, grads):
                 p.grad = g
-    return training_state(model, opt)
+    return opt.state_dict()
+
+
+def training_template(model: torch.nn.Module, optimizer) -> dict:
+    """:func:`training_state` of a model and optimizer about to be
+    restored into, for ``restore_latest(template=...)``: the optimizer's
+    part is :func:`optimizer_template`."""
+    return {"model": model.state_dict(),
+            "opt": optimizer_template(optimizer)}
 
 
 def load_training_state(tree: dict, model: torch.nn.Module, optimizer):

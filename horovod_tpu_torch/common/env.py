@@ -136,6 +136,33 @@ HOROVOD_KV_ENDPOINTS = "HOROVOD_KV_ENDPOINTS"
 HOROVOD_KV_BREAKER_FAILURES = "HOROVOD_KV_BREAKER_FAILURES"
 HOROVOD_KV_BREAKER_RESET = "HOROVOD_KV_BREAKER_RESET"
 HOROVOD_KV_SCOPE_BUDGET_BYTES = "HOROVOD_KV_SCOPE_BUDGET_BYTES"
+# the launcher and elastic training (runner/, elastic/; the reference's
+# common/env.py:43-66, :154-158): the launch contract's size and host
+# name, the elastic switch (set by the elastic launcher: the rank comes
+# from the rendezvous at every init), the rendezvous wait, the NICs the
+# driver may advertise, and the device a world runs on when init() is
+# given none ("cpu" or "cuda"; the reference's test override). The
+# driver's slot-failure backoff (base seconds, doubling per strike) and
+# strike limit (past it the slot's host is blacklisted), its wait for
+# slots (seconds), the run loop's bound on consecutive recoveries from a
+# raw torch.distributed error, and how long rank 0 of an elastic NCCL
+# world waits for its peers' teardown before its store goes (seconds)
+HOROVOD_SIZE = "HOROVOD_SIZE"
+HOROVOD_HOSTNAME = "HOROVOD_HOSTNAME"
+HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
+HOROVOD_GLOO_TIMEOUT_SECONDS = "HOROVOD_GLOO_TIMEOUT_SECONDS"
+HOROVOD_GLOO_IFACE = "HOROVOD_GLOO_IFACE"
+HOROVOD_TPU_PLATFORM = "HOROVOD_TPU_PLATFORM"
+HOROVOD_ELASTIC_FAILURE_BACKOFF = "HOROVOD_ELASTIC_FAILURE_BACKOFF"
+HOROVOD_ELASTIC_SLOT_FAILURE_LIMIT = "HOROVOD_ELASTIC_SLOT_FAILURE_LIMIT"
+HOROVOD_ELASTIC_TIMEOUT = "HOROVOD_ELASTIC_TIMEOUT"
+HOROVOD_ELASTIC_MAX_RUNTIME_RETRIES = "HOROVOD_ELASTIC_MAX_RUNTIME_RETRIES"
+HOROVOD_TPU_SHUTDOWN_ORDER_TIMEOUT = "HOROVOD_TPU_SHUTDOWN_ORDER_TIMEOUT"
+# knobs the launcher's flags export for the workers (launch.py
+# env_from_args); the port's workers read them with ROADMAP A15
+HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
+HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
+HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_JOIN_META_SLOTS = 16
@@ -269,6 +296,8 @@ class Config:
     checkpoint_redundancy: int = 1
     checkpoint_keep: int = 2
     checkpoint_kv_chunk_bytes: int = DEFAULT_CHECKPOINT_KV_CHUNK_BYTES
+    # elastic training (elastic/): the launcher's HOROVOD_ELASTIC
+    elastic: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -343,4 +372,5 @@ class Config:
             checkpoint_kv_chunk_bytes=_get_int(
                 HOROVOD_TPU_CHECKPOINT_KV_CHUNK_BYTES,
                 DEFAULT_CHECKPOINT_KV_CHUNK_BYTES),
+            elastic=_get_bool(HOROVOD_ELASTIC),
         )

@@ -113,6 +113,7 @@ and autotune (A15).
 from __future__ import annotations
 
 import collections
+import datetime
 import hashlib
 import logging
 import os
@@ -137,7 +138,7 @@ from ..metrics import registry as metrics_registry
 from ..ops import collectives as C
 from ..ops import compression as comp
 from ..parallel.mesh import detect_topology
-from .backend import Backend
+from .backend import Backend, new_group
 from .replay import _DIGITS, StepReplay
 
 logger = logging.getLogger("horovod_tpu_torch")
@@ -199,6 +200,13 @@ def _dist_op(op: ReduceOp):
     return _DIST_OPS[op]
 
 
+def _wait_bound() -> Optional[datetime.timedelta]:
+    """The running world's bound on a completion wait
+    (``Backend.wait_timeout``: an elastic NCCL world's, None elsewhere)."""
+    from .state import global_state
+    return global_state().backend.wait_timeout
+
+
 class LaunchGroup:
     """Shared completion latch for every handle born from one collective
     launch: its work objects (one, or a list) are waited once and the
@@ -225,8 +233,14 @@ class LaunchGroup:
     def wait(self):
         with self._lock:
             if not self._done:
+                timeout = _wait_bound()
                 for w in self._works:
-                    _translate_failure(w.wait)
+                    if timeout is not None and \
+                            isinstance(w, dist.Work) and \
+                            not torch.cuda.is_current_stream_capturing():
+                        _translate_failure(w.wait, timeout)
+                    else:
+                        _translate_failure(w.wait)
                 if self._finish is not None:
                     self._finish()
                 self._done = True
@@ -250,6 +264,20 @@ class _StreamWork:
 
     def wait(self):
         if self._event is not None:
+            timeout = _wait_bound()
+            if timeout is not None and \
+                    not torch.cuda.is_current_stream_capturing():
+                # an elastic world's bounded wait (Backend.wait_timeout)
+                deadline = time.monotonic() + timeout.total_seconds()
+                pause = 5e-5
+                while not self._event.query():
+                    if time.monotonic() > deadline:
+                        raise HorovodInternalError(
+                            f"a collective did not complete within "
+                            f"{timeout.total_seconds():.0f} s (a peer died "
+                            f"or stopped contributing)")
+                    time.sleep(pause)
+                    pause = min(2 * pause, 1e-3)
             torch.cuda.current_stream(self._device).wait_event(self._event)
 
 
@@ -408,6 +436,13 @@ class Engine:
     def __init__(self, backend: Backend, config: env_mod.Config):
         self.backend = backend
         self.config = config
+        if backend.wait_timeout is not None and \
+                env_mod.HOROVOD_TPU_STEP_REPLAY not in os.environ:
+            # a collective launched inside a CUDA graph is invisible to
+            # the NCCL watchdog and its wait: a dead peer would hang the
+            # replayed step for good. An elastic NCCL world replays only
+            # when HOROVOD_TPU_STEP_REPLAY asks for it
+            config.step_replay = False
         self.handles = HandleManager()
         self._outstanding: Dict[str, Handle] = {}
         self._lock = threading.Lock()
@@ -2219,7 +2254,7 @@ class Engine:
             for pairs in C.tree_groups(size):
                 mine = None
                 for pair in pairs:
-                    g = None if len(pair) == size else dist.new_group(pair)
+                    g = None if len(pair) == size else new_group(pair)
                     if rank in pair:
                         mine = g
                 self._tree_groups.append(mine)
@@ -2245,7 +2280,7 @@ class Engine:
             mine = [None, None]
             for i, lists in enumerate((locals_, crosses)):
                 for ranks in lists:
-                    g = dist.new_group(ranks)
+                    g = new_group(ranks)
                     if rank in ranks:
                         mine[i] = g
             self._hier_groups = tuple(mine)

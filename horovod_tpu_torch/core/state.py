@@ -3,10 +3,11 @@ engine and the observability around it (the reference's
 ``core/state.py:44-219``): the timeline, the trace recorder, the flight
 dumper, the stall inspector and collective watchdog, the metrics emitter
 with its device-memory sampler, the step-health monitor, and the
-checkpoint manager with the rendezvous KV it writes through. The
-reference's other KV consumers (the telemetry publishers, the slice
-aggregator) come with the launcher (ROADMAP A14), autotune with ROADMAP
-A15."""
+checkpoint manager with the rendezvous KV it writes through. An elastic
+worker scaled out before it joined a world keeps an inert, removed
+backend and no engine. The reference's other KV consumers (the telemetry
+publishers, the slice aggregator) come with ROADMAP A14b, autotune with
+ROADMAP A15."""
 
 from __future__ import annotations
 
@@ -39,14 +40,20 @@ class GlobalState:
 
     @property
     def initialized(self) -> bool:
-        return self.engine is not None
+        # a removed backend (an elastic worker scaled out before it joined
+        # a world) is initialized with no engine
+        return self.engine is not None or (self.backend.initialized
+                                           and self.backend.removed)
 
     def init(self, device=None):
         with self._lock:
-            if self.engine is not None:
+            if self.initialized:
                 return
             self.config = env_mod.Config.from_env()
             self.backend.init(device)
+            if self.backend.removed:
+                # scaled out before joining a world: nothing to run
+                return
             self.engine = Engine(self.backend, self.config)
             self._wire_observability()
 

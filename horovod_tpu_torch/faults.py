@@ -24,7 +24,7 @@ path), :func:`disarm`, or its duration. Every fired action increments
 Every call site uses a name declared in :data:`FAULT_SPECS`, and
 :func:`arm` rejects clauses for undeclared names; names beginning with
 ``test.`` are exempt. Arming from the rendezvous KV (the reference's
-``arm_from_kv``) comes with the port's launcher (ROADMAP A14).
+``arm_from_kv``) comes with ROADMAP A14b.
 """
 
 from __future__ import annotations
@@ -72,6 +72,16 @@ FAULT_SPECS: Dict[str, str] = {
                      "server connection, drop() serves a 404",
     "kv.server.put": "In the KV server's PUT handler; drop() silently "
                      "discards the write (acks 200 without storing)",
+    # elastic/
+    "elastic.rendezvous.get": "In the elastic rendezvous rank_and_size "
+                              "lookup; drop() long-polls the worker",
+    "elastic.discovery": "Inside the driver's host-discovery poll",
+    "elastic.reregister": "Inside each attempt of the worker notification "
+                          "re-registration after a world reset",
+    "elastic.notify": "Inside the driver->worker hosts-updated push",
+    "driver.discovery": "Inside each attempt of the hardened host-"
+                        "discovery probe: drop() fails the attempt "
+                        "(retried with backoff, then last-known-good)",
     # checkpoint/manager.py
     "checkpoint.write": "At the top of the background generation write "
                         "(after device_get, before any file/KV I/O): "

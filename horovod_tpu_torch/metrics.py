@@ -15,7 +15,7 @@
   rates into Chrome-trace counter tracks of the timeline. The KV server
   (``runner/http_server.py``) renders ``GET /metrics`` from the snapshots
   published under ``metrics/<rank>``; the emitter's KV publish comes with
-  the launcher (ROADMAP A14).
+  ROADMAP A14b.
 
 ``HOROVOD_TPU_METRICS=0`` disables the whole subsystem: every factory
 returns a shared no-op instrument whose methods take no lock.
@@ -155,6 +155,28 @@ METRIC_SPECS: Dict[str, Tuple[str, str]] = {
         "counter", "Collective-watchdog deadline escalations (hang "
                    "converted to HorovodInternalError for elastic "
                    "recovery)"),
+    # elastic/worker.py
+    "hvd_tpu_notify_rejects_total": (
+        "counter", "Malformed hosts-updated notifications rejected by the "
+                   "worker notification service (likely driver/worker "
+                   "version skew)"),
+    # elastic/run.py
+    "hvd_tpu_elastic_recoveries_total": (
+        "counter", "Elastic run-loop recovery events, by kind (internal, "
+                   "raw_runtime, hosts_updated, durable = restored from "
+                   "a durable checkpoint generation, driver_failover = "
+                   "a standby promoted over a dead driver and resumed "
+                   "its in-flight resize)"),
+    # elastic/driver.py
+    "hvd_tpu_elastic_world_version": (
+        "gauge", "Current elastic world version (bumps on every resume)"),
+    "hvd_tpu_elastic_events": (
+        "events", "Monotonic elastic membership event log: world "
+                  "activations, rank join/leave, blacklists"),
+    # elastic/discovery.py
+    "hvd_tpu_discovery_failures_total": (
+        "counter", "Host-discovery probes that failed all retry attempts "
+                   "(the manager served its last-known-good snapshot)"),
     # common/retry.py
     "hvd_tpu_kv_retries_total": (
         "counter", "Retried control-plane KV operations, by op"),

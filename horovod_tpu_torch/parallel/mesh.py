@@ -40,6 +40,7 @@ import numpy as np
 import torch.distributed as dist
 
 from ..common import env as env_mod
+from ..core.backend import new_group
 
 DATA_AXIS = "data"
 PIPE_AXIS = "pipe"
@@ -333,7 +334,7 @@ def _mesh(names, sizes, world_group: bool = False) -> TrainingMesh:
         key = names[combo[0]] if len(combo) == 1 else tuple(
             names[a] for a in combo)
         for line in lines:
-            group = dist.new_group([int(r) for r in line])
+            group = new_group([int(r) for r in line])
             if me in line:
                 groups[key] = group
     return TrainingMesh(tuple(names), dict(zip(names, sizes)), coords,

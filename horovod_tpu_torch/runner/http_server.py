@@ -1,17 +1,22 @@
-"""Threaded HTTP KV store (the port's copy of
-``horovod_tpu/runner/http_server.py``'s ``KVStoreServer``; parity:
-Horovod's ``horovod/runner/http/http_server.py``, ``KVStoreHandler`` GET/PUT
-:35-110 and the standalone ``KVStoreServer``). Plain Python: no torch.
+"""Threaded HTTP KV store + rendezvous server (the port's copy of
+``horovod_tpu/runner/http_server.py``; parity: Horovod's
+``horovod/runner/http/http_server.py``, ``KVStoreHandler`` GET/PUT
+:35-110, ``RendezvousHandler`` with per-scope key extraction and
+host-allocation-plan lookup :112-173, and the standalone
+``KVStoreServer``). Plain Python: no torch.
 
-Role in the port: the rendezvous KV that checkpoint shards, manifests and
-headers go through (``checkpoint/manager.py``), and the scrape endpoints
-``GET /metrics``, ``GET /trace`` and ``GET /clock`` over what ranks publish
-under ``metrics/<rank>`` and ``trace/<rank>``. The launcher's
-``RendezvousServer`` (slot plans, the coordinator address), the ranks'
-telemetry publishers and the replication tier come with the launcher
-(ROADMAP A14): :meth:`KVStoreServer.enable_replication` raises until then.
-Per-scope byte budgets answer over-budget writes with ``429 + Retry-After``
-so publishers shed instead of piling onto a struggling control plane.
+Role in the port: the launcher starts a ``RendezvousServer`` on the
+driver; workers fetch their ``SlotInfo`` (rank/local/cross) and the
+address of rank 0's store from it, and the elastic driver uses the PUT
+channel for worker address registration (reference
+elastic/rendezvous.py:37-55). Checkpoint shards, manifests and headers go
+through the same KV (``checkpoint/manager.py``), and the scrape endpoints
+``GET /metrics``, ``GET /trace`` and ``GET /clock`` serve what ranks
+publish under ``metrics/<rank>`` and ``trace/<rank>``. The ranks'
+telemetry publishers and the replication tier come with ROADMAP A14b:
+:meth:`KVStoreServer.enable_replication` raises until then. Per-scope
+byte budgets answer over-budget writes with ``429 + Retry-After`` so
+publishers shed instead of piling onto a struggling control plane.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import collections
 import json
 import logging
+import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
@@ -254,11 +260,11 @@ class KVStoreServer(ThreadingHTTPServer):
         """Attach a replication coordinator: this server becomes one
         replica of the ordered ``replicas`` endpoint set (``host:port``
         strings; ``self_addr`` must be one of them). The coordinator
-        (``runner/replication.py``) comes with the launcher: until then
+        (``runner/replication.py``) comes with ROADMAP A14b: until then
         this raises, and the server stays the standalone store."""
         raise NotImplementedError(
             "KV replication (runner/replication.py's ReplicaCoordinator) "
-            "is not ported yet (ROADMAP A14); the port's KVStoreServer "
+            "is not ported yet (ROADMAP A14b); the port's KVStoreServer "
             "runs standalone")
 
     @property
@@ -281,10 +287,10 @@ class KVStoreServer(ThreadingHTTPServer):
     def _store_apply_locked(self, op: str, scope: str, key: str,
                             value: Optional[bytes], seq: int = 0,
                             epoch: int = 0) -> bool:
-        """The mutation core for callers already holding the lock (the
-        launcher's RendezvousServer.init, ROADMAP A14, swaps the slot plan
-        and the coordinator key under ONE lock hold — byte totals must
-        move with the store either way)."""
+        """The mutation core for callers already holding the lock
+        (RendezvousServer.init swaps the slot plan and the coordinator
+        key under ONE lock hold — byte totals must move with the store
+        either way)."""
         if op == "put":
             old = self._store[scope].get(key)
             self._scope_bytes[scope] = (
@@ -557,3 +563,57 @@ class KVStoreServer(ThreadingHTTPServer):
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+
+
+class RendezvousServer(KVStoreServer):
+    """KV store that additionally answers GET ``/rank_and_size/<host>:<local>``
+    with the worker's colon-joined SlotInfo, and exposes the coordinator
+    address under GET ``/coordinator/addr``.
+
+    Reference: RendezvousHandler scope extraction (http_server.py:112-173).
+    Elastic subclasses override ``handle_get`` to record readiness
+    (elastic/rendezvous.py:37-42).
+    """
+
+    SCOPE_RANK = "rank_and_size"
+    SCOPE_COORD = "coordinator"
+
+    def __init__(self, addr=("0.0.0.0", 0)):
+        super().__init__(addr)
+        self._slots_by_key: Dict[str, "SlotInfo"] = {}
+
+    def init(self, host_assignments, coordinator_addr: Optional[str] = None):
+        """(Re)load the host allocation plan; returns the server port.
+
+        The slot plan and coordinator key swap under ONE lock hold (a GET
+        must never see a half-updated pair); the coordinator write goes
+        through the locked mutation core so scope byte totals stay
+        consistent with the store. Note the plan itself is per-server
+        launcher config, not replicated state — see the fault-domain
+        table in docs/control_plane.md."""
+        from .hosts import SlotInfo  # noqa: F401  (type only)
+        with self._lock:
+            self._slots_by_key = {
+                f"{s.hostname}:{s.local_rank}": s for s in host_assignments}
+            if coordinator_addr is not None:
+                self._store_apply_locked("put", self.SCOPE_COORD, "addr",
+                                         coordinator_addr.encode())
+        return self.port
+
+    def handle_get(self, scope: str, key: str, handler):
+        if scope == self.SCOPE_RANK:
+            with self._lock:
+                slot = self._slots_by_key.get(key)
+            if slot is None:
+                return None
+            return slot.to_response_string().encode()
+        return super().handle_get(scope, key, handler)
+
+
+def find_free_port(bind: str = "") -> int:
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        s.bind((bind, 0))
+        return s.getsockname()[1]
+    finally:
+        s.close()

@@ -12,7 +12,7 @@ armed fault ``hang()`` is broken with the same ``HorovodInternalError``.
 The heartbeat (``hvd.step_heartbeat``) and replay's fallback reasons are
 kept for the cross-rank layer: publishing liveness reports to the
 rendezvous KV, rank 0's attribution of missing tensors and silent ranks,
-and the watchdog's peer-heartbeat leg come with the launcher (ROADMAP A14).
+and the watchdog's peer-heartbeat leg come with ROADMAP A14b.
 """
 
 from __future__ import annotations
@@ -114,7 +114,7 @@ class StallInspector:
 
     def record_heartbeat(self, step: Optional[int] = None):
         """Liveness signal: call once per train step (``hvd.step_heartbeat``).
-        The cross-rank layer reads it (ROADMAP A14)."""
+        The cross-rank layer reads it (ROADMAP A14b)."""
         with self._lock:
             self._heartbeat_step = self._heartbeat_step + 1 if step is None \
                 else int(step)

@@ -16,7 +16,10 @@ synchronizes, the native timeline, the memory gauge against
 ``torch.cuda.memory_stats()``, the watchdog breaking a hung launch), and
 durable checkpointing (``-k checkpoint``: a snapshot copies on the card
 with no host wait; ``-k "cards and checkpoint"``: 4 cards write, 2
-restore).
+restore), and elastic training (``-k "elastic and not cards"``: a
+recovery and a host update in process on NCCL; ``-k "cards and
+elastic"``: a worker killed on 4 cards and relaunched by the port's
+elastic launcher, and a scale-down from 4 cards to 2).
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -2817,3 +2820,153 @@ def test_cuda_cards_pipeline_on_nccl(built, tmp_path, n):
               f"measured bubble {bubble:.4f} (pipeline_bubble_fraction "
               f"{pb:.4f}, predicted {pr:.4f}); K6 {res[0][name][m_hi]['k6']}"
               f"; peak {res[0][name][m_hi].get('peak_gib', 0):.2f} GiB")
+
+
+def test_cuda_elastic_in_process_recovery(cuda):
+    """``@hvd.elastic.run`` on one card (chip_smoke's phase 23 (a) at the
+    256-wide LM): a HorovodInternalError after step 3 restores the commit
+    of step 2 and builds a new NCCL world in this process; a host update
+    pushed through a real WorkerNotificationClient interrupts the commit
+    of step 4 and resets without a sync. The losses after each reset are
+    bitwise an uninterrupted run's, the world version moves forward, the
+    engine is new and K6 launches on the steps after each reset."""
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    from horovod_tpu_torch.elastic import (HostUpdateResult, TPUState,
+                                           WorkerNotificationClient,
+                                           notification_manager)
+    from horovod_tpu_torch.runner.http_server import KVStoreServer
+    steps, commit = 6, 2
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                            **SP_CARD_DIMS)
+    x, y = (torch.from_numpy(a).to(cuda) for a in sp_card_tokens())
+
+    def trainer():
+        model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+        model.to(cuda)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+
+        def step():
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+        return model, opt, step
+
+    import os
+    version = os.environ.get("HOROVOD_TPU_WORLD_VERSION")
+    hvd.init()
+    kv = KVStoreServer()
+    kv.start()
+    manager = notification_manager()
+    try:
+        _, _, step = trainer()
+        want = [step() for _ in range(steps)]
+        manager.init(rendezvous_addr="127.0.0.1", rendezvous_port=kv.port,
+                     rank=0, hostname="127.0.0.1")
+        addr = kv.snapshot()["worker_addresses"]["0"].decode()
+        model, opt, step = trainer()
+        state = TPUState(params=model, opt_state=opt, step=0)
+        lives, got = [], []
+        K.reset_launch_counts()
+
+        @hvd.elastic.run
+        def train(state):
+            lives.append((hvd._engine(), hvd._engine().world_version,
+                          K.launch_counts()["flash_fwd"]))
+            while state.step < steps:
+                loss = step()
+                state.step += 1
+                got.append((len(lives), state.step, loss))
+                if state.step == 3 and len(lives) == 1:
+                    raise HorovodInternalError("injected")
+                if state.step == 3 and len(lives) == 2:
+                    WorkerNotificationClient(addr).notify_hosts_updated(
+                        1, HostUpdateResult.ADDED)
+                    deadline = time.monotonic() + 10
+                    while state._host_messages.empty() and \
+                            time.monotonic() < deadline:
+                        time.sleep(0.01)
+                if state.step % commit == 0:
+                    state.commit()
+            return state.step
+
+        assert train(state) == steps
+        end = K.launch_counts()["flash_fwd"]
+    finally:
+        manager.shutdown()
+        kv.stop()
+        hvd.shutdown()
+        if version is None:
+            os.environ.pop("HOROVOD_TPU_WORLD_VERSION", None)
+        else:
+            os.environ["HOROVOD_TPU_WORLD_VERSION"] = version
+    assert len(lives) == 3
+    assert lives[0][1] < lives[1][1] < lives[2][1]
+    assert lives[0][0] is not lives[1][0] and lives[1][0] is not lives[2][0]
+    after = [(s, v) for life, s, v in got if life > 1]
+    assert [s for s, _ in after] == [3, 4, 5, 6]
+    assert all(v == want[s - 1] for s, v in after), (after, want)
+    ends = [lives[1][2], lives[2][2], end]
+    assert ends[1] - lives[1][2] == cfg.n_layers * 2
+    assert ends[2] - lives[2][2] == cfg.n_layers * 2
+
+
+def _elastic_card_env():
+    return {"HOROVOD_TPU_SHUTDOWN_TIMEOUT": "30",
+            "HOROVOD_ELASTIC_FAILURE_BACKOFF": "0.5"}
+
+
+def test_cuda_cards_elastic_crash_recovery_4_cards(built, tmp_path):
+    """Elastic training on NCCL through the port's launcher (torch_worker
+    elastic: the 256-wide LM, bf16 on fp32 parameters, AdamW, a commit
+    every batch): rank 3 dies hard at batch 20 of 60. The survivors must
+    get HorovodInternalError within the elastic timeout (no hang, no
+    abort by the NCCL watchdog), restore and re-rendezvous; the driver
+    relaunches the slot. All 4 finish at size 4 with bitwise-equal
+    parameters, K6 launched on every card."""
+    from torch_worker import run_elastic_job
+    if built < 4:
+        pytest.skip("needs 4 CUDA devices")
+    t0 = time.perf_counter()
+    rc, log, done, removed, lingering = run_elastic_job(
+        tmp_path, "localhost:4\n", np_=4, max_np=4, total=60,
+        device="cuda", timeout=600,
+        env=dict(_elastic_card_env(), TEST_CRASH_RANK="3",
+                 TEST_CRASH_BATCH="20"))
+    took = time.perf_counter() - t0
+    assert rc == 0, log[-8000:]
+    assert not lingering, log[-8000:]
+    assert (tmp_path / "crashed.marker").exists()
+    assert len(done) == 4 and not removed, log[-8000:]
+    assert all(r["size"] == 4 and r["batch"] == 60 for r in done), done
+    assert len({r["digest"] for r in done}) == 1
+    assert all(r["flash_launches"]["flash_fwd"] > 0 for r in done)
+    lives = {r["rank"]: r["lives"] for r in done}
+    print(f"elastic_cards crash: 4 cards, rank 3 killed at batch 20, "
+          f"finished in {took:.1f} s; lives {lives}")
+
+
+def test_cuda_cards_elastic_scale_down_4_to_2(built, tmp_path):
+    """4 workers on NCCL; the discovery script drops to 2 slots mid-run:
+    the two removed workers exit 0, the two left finish at size 2 with
+    equal parameters (the reference's test_elastic_scale_down)."""
+    from torch_worker import run_elastic_job, set_hosts
+    if built < 4:
+        pytest.skip("needs 4 CUDA devices")
+    t0 = time.perf_counter()
+    rc, log, done, removed, lingering = run_elastic_job(
+        tmp_path, "localhost:4\n", np_=4, max_np=4, min_np=2, total=120,
+        device="cuda", timeout=600,
+        env=dict(_elastic_card_env(), TEST_BATCH_SLEEP="0.05"),
+        on_world=lambda hostsfile: set_hosts(hostsfile, "localhost:2\n"))
+    took = time.perf_counter() - t0
+    assert rc == 0, log[-8000:]
+    assert not lingering, log[-8000:]
+    assert len(done) == 2, log[-8000:]
+    assert all(r["size"] == 2 and r["batch"] == 120 for r in done), done
+    assert len({r["digest"] for r in done}) == 1
+    assert len(removed) == 2 and all(r == {"removed": True}
+                                     for r in removed)
+    print(f"elastic_cards scale-down: 4 cards to 2 in {took:.1f} s")

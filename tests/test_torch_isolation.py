@@ -61,6 +61,12 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.runner\n"
         "import horovod_tpu_torch.runner.http_client\n"
         "import horovod_tpu_torch.runner.http_server\n"
+        "import horovod_tpu_torch.elastic\n"
+        "import horovod_tpu_torch.elastic.launcher\n"
+        "import horovod_tpu_torch.runner.launch\n"
+        "import horovod_tpu_torch.runner.run_task\n"
+        "import horovod_tpu_torch.runner.task_agent\n"
+        "import horovod_tpu_torch.runner.service\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -84,9 +90,42 @@ def test_chip_smoke_imports_no_jax():
     assert not bad
 
 
+# top-level packages the port imports only inside the functions that need
+# them: the card's machine may lack them (the launcher's --config-file
+# reads YAML; the programmatic run() pickles with cloudpickle if it can)
+LAZY = ("yaml", "cloudpickle")
+
+
+def _module_level_roots(path: Path):
+    """The roots a module imports when it is imported: its top-level
+    statements, ``try`` and ``if`` blocks included, not its functions'."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif isinstance(node, (ast.Try, ast.If, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo.extend(getattr(node, field, []) or [])
+        elif isinstance(node, ast.ExceptHandler):
+            todo.extend(node.body)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_module_imports_yaml_or_cloudpickle_at_import(path):
+    bad = [(line, root) for line, root in _module_level_roots(path)
+           if root in LAZY]
+    assert not bad, f"{path}: {bad}"
+
+
 # names of the reference's __all__ the port does not export yet, and the one
 # it exports that the reference lacks
-OWED = {"elastic"}
+OWED = set()
 PORT_ONLY = {"device"}
 
 

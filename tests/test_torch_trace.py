@@ -364,7 +364,8 @@ def test_size1_event_sequences_match_the_reference(monkeypatch):
     hvd.init(device="cpu")
     ref_eng, eng = ref_hvd._engine(), port_engine()
     saved = (ref_eng.trace, ref_eng.config.fusion_threshold_bytes,
-             ref_eng.config.step_replay_warmup, ref_eng.config.step_replay)
+             ref_eng.config.step_replay_warmup, ref_eng.config.step_replay,
+             ref_eng.world_version)
     try:
         seqs = []
         for pkg, e, tensor, mod in ((ref_hvd, ref_eng, _ref_tensor,
@@ -375,6 +376,9 @@ def test_size1_event_sequences_match_the_reference(monkeypatch):
             e.config.step_replay = True
             e.replay.invalidate_all("test isolation")
             e.replay._step_token = 0
+            # the corr ids carry the world version: the reference's engine
+            # is the process's, and an earlier test may have moved it on
+            e.world_version = 0
             e.trace = rec = mod.TraceRecorder(rank=0)
             obs_sequence(pkg, e, tensor, 0, 1)
             evs = rec.segment(max_bytes=1 << 30)["events"]
@@ -392,6 +396,6 @@ def test_size1_event_sequences_match_the_reference(monkeypatch):
     finally:
         ref_eng.replay.invalidate_all("test isolation")
         (ref_eng.trace, ref_eng.config.fusion_threshold_bytes,
-         ref_eng.config.step_replay_warmup,
-         ref_eng.config.step_replay) = saved
+         ref_eng.config.step_replay_warmup, ref_eng.config.step_replay,
+         ref_eng.world_version) = saved
         hvd.shutdown()

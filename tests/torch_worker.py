@@ -3604,6 +3604,270 @@ def check_ckpt_cards(written, restored):
         assert joined[0].tobytes() == joined[1].tobytes(), j
 
 
+
+def _elastic_zero1_scenario(hvd, rank: int, size: int) -> dict:
+    """A ZeRO-1 optimizer steps in this world of 2, which then ends; rank
+    0 inits the world of 1 that follows, where the frozen layout must
+    refuse to step, and a new optimizer must step."""
+    import torch
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(8, 8), torch.nn.Linear(8, 3))
+
+    def step(opt):
+        opt.zero_grad()
+        model(torch.ones(4, 8)).square().mean().backward()
+        opt.step()
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-2), sharded=True)
+    step(opt)
+    hvd.shutdown()
+    out = {"raised": False, "message": "", "fresh_ok": False}
+    if rank != 0:
+        return out
+    os.environ["HOROVOD_TPU_NUM_PROCESSES"] = "1"
+    os.environ.pop("HOROVOD_TPU_COORDINATOR", None)
+    hvd.init(device="cpu")
+    try:
+        step(opt)
+    except ValueError as e:
+        out.update(raised=True, message=str(e))
+    fresh = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-2), sharded=True)
+    step(fresh)
+    out["fresh_ok"] = True
+    return out
+
+
+
+def _group_timeouts_scenario(hvd, rank: int, size: int) -> dict:
+    """The timeout of every process group the port makes: the world's,
+    the engine's tree pairs and island groups, and a training mesh's."""
+    import torch
+    from horovod_tpu_torch.parallel.mesh import training_mesh
+    eng = hvd._engine()
+
+    def seconds(g):
+        return g._get_backend(torch.device("cpu")).options._timeout \
+            .total_seconds()
+
+    groups = [g for g in (eng._tree_groups or []) if g is not None]
+    groups += [g for g in eng.hierarchical_groups() if g is not None]
+    mesh = training_mesh({"data": 2, "seq": size // 2})
+    groups += [mesh.group("data"), mesh.group("seq"),
+               mesh.group(("data", "seq"))]
+    return {"world": seconds(torch.distributed.group.WORLD),
+            "groups": [seconds(g) for g in groups]}
+
+def elastic_main(argv):
+    """One worker of an elastic job, launched by the port's elastic
+    launcher (``python -m horovod_tpu_torch.runner ... python
+    tests/torch_worker.py elastic OUT_DIR DEVICE``): its rank comes from
+    the rendezvous. It trains an LM under ``hvd.elastic.run`` with a
+    ``TPUState`` committed every batch, each rank on its own tokens of the
+    batch, for ``TEST_TOTAL_BATCHES`` batches; ``TEST_CRASH_RANK`` dies
+    hard at ``TEST_CRASH_BATCH`` on its first life. The tiny fp32 LM on
+    the CPU, the 256-wide bf16 LM (``SP_CARD_DIMS``) on ``cuda``. Writes
+    ``done_<rank>_<pid>.pkl`` (rank, size, batches, the parameters'
+    digest, the attention kernels' launches) or ``removed_<pid>.pkl``."""
+    out_dir, device = argv[0], argv[1]
+    import hashlib
+    import signal
+    # a hung worker writes its threads' stacks on SIGUSR1
+    stacks = open(os.path.join(out_dir, f"stacks_{os.getpid()}.txt"), "w")
+    faulthandler.register(signal.SIGUSR1, file=stacks)
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig,
+                                                      lean_lm_loss)
+    from horovod_tpu_torch.ops import kernels as K
+    torch.set_num_threads(1)
+    total = int(os.environ["TEST_TOTAL_BATCHES"])
+    crash_rank = int(os.environ.get("TEST_CRASH_RANK", "-1"))
+    crash_batch = int(os.environ.get("TEST_CRASH_BATCH", "-1"))
+    pause = float(os.environ.get("TEST_BATCH_SLEEP", "0"))
+    marker = os.path.join(out_dir, "crashed.marker")
+    hvd.init(device="cpu" if device == "cpu" else None)
+    # a worker scaled out before its first world has no device: it
+    # builds its model on the CPU and trains nothing
+    removed = hvd.global_state().backend.removed
+    dev = torch.device("cpu") if removed else hvd.device()
+    if device == "cpu":
+        cfg = lm_config()
+    else:
+        cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                                **SP_CARD_DIMS)
+    model = Transformer(cfg, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=3e-4, weight_decay=1e-4))
+    state = hvd.elastic.TPUState(params=model, opt_state=opt, batch=0)
+    lives = []
+
+    def tokens(batch: int, rank: int):
+        rng = np.random.RandomState(1000 * batch + rank)
+        t = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                         size=(2, cfg.max_seq + 1)))
+        return t[:, :-1].to(dev), t[:, 1:].to(dev)
+
+    @hvd.elastic.run
+    def train(state):
+        lives.append((hvd.rank(), hvd.size()))
+        while state.batch < total:
+            if (state.batch == crash_batch and hvd.rank() == crash_rank
+                    and not os.path.exists(marker)):
+                with open(marker, "w") as f:
+                    f.write(str(os.getpid()))
+                os._exit(137)   # a hard crash, no teardown
+            x, y = tokens(state.batch, hvd.rank())
+            opt.zero_grad()
+            lean_lm_loss(model, x, y).backward()
+            opt.step()
+            state.batch += 1
+            state.commit()
+            started = os.path.join(out_dir, "started")
+            if not os.path.exists(started):
+                open(started, "w").close()
+            if pause:
+                time.sleep(pause)
+        digest = hashlib.sha256()
+        for t in model.state_dict().values():
+            digest.update(t.detach().float().cpu().numpy().tobytes())
+        return {"rank": hvd.rank(), "size": hvd.size(),
+                "batch": state.batch, "digest": digest.hexdigest(),
+                "lives": list(lives),
+                "flash_launches": {k: v for k, v in
+                                   K.launch_counts().items()
+                                   if k.startswith("flash")}}
+
+    result = train(state)
+    if result is not None:
+        path = os.path.join(out_dir,
+                            f"done_{result['rank']}_{os.getpid()}.pkl")
+    else:
+        path = os.path.join(out_dir, f"removed_{os.getpid()}.pkl")
+        result = {"removed": True}
+    with open(path, "wb") as f:
+        pickle.dump(result, f)
+    hvd.shutdown()
+
+
+def _kill_tree(proc):
+    """Kill a launcher and every process under it: its workers run in
+    process groups of their own and outlive it otherwise."""
+    try:
+        import psutil
+        kids = psutil.Process(proc.pid).children(recursive=True)
+    except Exception:  # noqa: BLE001  gone already, or no psutil
+        kids = []
+    proc.kill()
+    for k in kids:
+        try:
+            k.kill()
+        except Exception:  # noqa: BLE001  exited meanwhile
+            pass
+    proc.wait()
+
+
+def run_elastic_job(out_dir, hosts_text: str, np_: int, max_np: int,
+                    total: int, device: str = "cpu", env=None,
+                    timeout: float = 120.0, on_world=None, min_np=None):
+    env_extra = env
+    """Launch ``elastic_main`` workers through the port's elastic launcher
+    (``python -m horovod_tpu_torch.runner``, ``--min-np`` ``min_np``, by
+    default ``np_``) with a discovery script that
+    reads ``hosts.txt`` in ``out_dir``. ``on_world(hostsfile)``, if given,
+    runs once the launcher's first world has finished a batch (a worker's
+    first commit: the file ``out_dir/started``). Returns (the launcher's
+    exit code and output, done results, removed results, the pids of
+    workers still running 20 s after the job, each killed after its
+    stacks were taken into the output)."""
+    out = Path(out_dir)
+    hostsfile = out / "hosts.txt"
+    hostsfile.write_text(hosts_text)
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               TEST_TOTAL_BATCHES=str(total),
+               HOROVOD_STALL_CHECK_DISABLE="1",
+               HOROVOD_TPU_SHUTDOWN_TIMEOUT="20",
+               HOROVOD_ELASTIC_FAILURE_BACKOFF="0.2")
+    env.update(env_extra or {})
+    if device == "cpu":
+        env["HOROVOD_TPU_PLATFORM"] = "cpu"
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner", "--elastic",
+           "-np", str(np_), "--min-np", str(min_np or np_),
+           "--max-np", str(max_np),
+           "--host-discovery-script", f"cat {hostsfile}",
+           sys.executable, str(Path(__file__).resolve()), "elastic",
+           str(out), device]
+    # the workers' flight dumps land in their working directory
+    proc = subprocess.Popen(cmd, env=env, cwd=str(out),
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        if on_world is not None:
+            deadline = time.monotonic() + timeout
+            while not (out / "started").exists() and \
+                    time.monotonic() < deadline and proc.poll() is None:
+                time.sleep(0.1)
+            on_world(hostsfile)
+        log = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            _kill_tree(proc)
+    done = [pickle.load(open(p, "rb")) for p in sorted(out.glob("done_*"))]
+    removed = [pickle.load(open(p, "rb"))
+               for p in sorted(out.glob("removed_*"))]
+    lingering = _lingering(out)
+    if lingering:
+        log += "\nworkers still running after the job:\n" + "\n".join(
+            f"--- pid {pid}:\n{stacks}" for pid, stacks in lingering)
+    return proc.returncode, log, done, removed, [p for p, _ in lingering]
+
+
+def _lingering(out: Path, grace: float = 20.0) -> list:
+    """Workers whose result file exists but whose process has not exited
+    ``grace`` seconds after the job: (pid, its stacks), each then killed."""
+    import signal
+    pids = [int(p.stem.rsplit("_", 1)[1]) for p in
+            list(out.glob("done_*")) + list(out.glob("removed_*"))]
+
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+        except OSError:
+            return False
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().split()[2] != "Z"
+        except OSError:
+            return False
+
+    deadline = time.monotonic() + grace
+    while any(alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    found = []
+    for pid in pids:
+        if not alive(pid):
+            continue
+        os.kill(pid, signal.SIGUSR1)
+        time.sleep(1.0)
+        path = out / f"stacks_{pid}.txt"
+        found.append((pid, path.read_text() if path.exists() else ""))
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return found
+
+
+def set_hosts(hostsfile, text: str):
+    """Replace the discovery script's host list atomically (a plain write
+    truncates first, and the script can read the empty file)."""
+    tmp = Path(str(hostsfile) + ".tmp")
+    tmp.write_text(text)
+    os.replace(tmp, hostsfile)
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -3625,10 +3889,14 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "obs_faults": _obs_faults_scenario,
              "pipeline": _pipeline_scenario,
              "pp_cards": _pp_cards_scenario,
-             "ckpt": _ckpt_scenario, "ckpt_cards": _ckpt_cards_scenario}
+             "ckpt": _ckpt_scenario, "ckpt_cards": _ckpt_cards_scenario,
+             "elastic_zero1": _elastic_zero1_scenario,
+             "group_timeouts": _group_timeouts_scenario}
 
 
 def main(argv):
+    if argv[0] == "elastic":
+        return elastic_main(argv[1:])
     # a rank still running near the world's timeout prints its stacks
     faulthandler.dump_traceback_later(
         max(float(os.environ.get("TORCH_WORKER_TIMEOUT_S",
