@@ -236,6 +236,13 @@ and then:
     ``os._exit(137)`` under ``python -m horovod_tpu_torch.runner
     --elastic``, relaunched by the driver and restored from the durable
     tier (``--elastic-worker`` runs one life of it), its losses bitwise.
+24. The survivable control plane on the flagship LM
+    (``run_control_plane_path``).
+25. The estimator layer on the flagship LM (``run_estimator_path``):
+    ``Estimator.fit`` on a ``ShardedNpzDataset``, uninterrupted and then
+    stopped and resumed through a ``LocalStore`` (the resumed epoch's
+    losses and the final parameters bitwise), ``predict``, and a hand loop
+    under the training callbacks.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -514,6 +521,13 @@ CP_COMMIT = 5                  # (b): state.commit() every this many steps
 CP_KILL_AFTER = 5              # (b): the primary dies after this step
 CP_CHILD_TIMEOUT = 300         # (b): the worker's seconds at most
 CP_PROMOTE_TIMEOUT = 60        # (b): the kill to both promotions, at most
+# phase 25: the estimator on the flagship LM at world size 1
+EST_TRAIN_SEQS = 40            # training sequences of T + 1 tokens
+EST_SHARDS = 5                 # the ShardedNpzDataset's shard files
+EST_VAL_SEQS = 4               # validation sequences
+EST_EPOCHS = 2                 # run A's epochs (run B: 1, then resumed)
+EST_CB_STEPS = 5               # the callbacks' hand loop: steps an epoch
+EST_CB_SIZE = 4                # the warm-up's world size (its ramp from 1/4)
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -5776,6 +5790,283 @@ def cp_child(torch, hvd, K, tm, log) -> int:
     return 0
 
 
+def _est_layout_bytes(cfg) -> int:
+    """Bytes of one estimator checkpoint's tensors: the fp32 parameters
+    (the tied embedding, each layer's norms, projections and FFN, the final
+    norm) and AdamW's two moments of each."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    params = cfg.vocab_size * d + L * (4 * d * d + 2 * d * f + 2 * d) + d
+    return 3 * 4 * params
+
+
+def run_estimator_path(torch, hvd, K, tm, dev, smi, log, dense_tok_s):
+    """Phase 25: the estimator layer on the flagship LM (``LM_DIMS``, bf16
+    on fp32 parameters, ``attention="flash"``, AdamW with phase 5's
+    settings, batch 4 x 2048) at world size 1. The data: EST_TRAIN_SEQS
+    sequences of 2049 tokens from a seed, written as a ``ShardedNpzDataset``
+    of EST_SHARDS files (``x`` the first 2048 tokens, ``y`` the last), and
+    EST_VAL_SEQS validation sequences, in a temporary directory the phase
+    removes, after ``shutil.disk_usage`` showed room for two generations.
+
+    (a) run A: ``Estimator.fit`` for EST_EPOCHS epochs, no store, a
+        ``loss`` metric on the validation sequences;
+    (b) run B: ``fit`` of 1 epoch into a ``LocalStore``, then a new
+        ``Estimator`` of EST_EPOCHS epochs on the same store resumes at
+        epoch 1: its history is that epoch alone, the store's steps [0,
+        1], its train and validation losses and every final parameter
+        bitwise run A's; run A's epoch 1 below its epoch 0, every loss
+        finite; ``predict`` on one sequence gives float32 logits (1, 2048,
+        vocab), finite;
+    (c) the callbacks: a fresh model through EST_EPOCHS x EST_CB_STEPS
+        steps of a hand loop under one ``CallbackList``
+        (``BroadcastGlobalVariablesCallback(0)``,
+        ``LearningRateWarmupCallback`` over ``scaled_lr(AdamW)`` wrapped
+        by ``DistributedOptimizer``, ``MetricAverageCallback``,
+        ``BestModelCheckpoint``, ``CommitStateCallback`` over a
+        ``TPUState`` every EST_CB_STEPS batches): each step's lr the
+        warm-up table x 3e-4, ``set_lr_scale`` with no host
+        synchronization, EST_EPOCHS commits, the best file on rank 0.
+
+    Records the estimator's tokens/s (a step's period: CUDA events the
+    loss function records at each step's start, gaps within an epoch)
+    against phase 5's, the steps' median ms, ``save_checkpoint``'s and
+    ``load_checkpoint``'s seconds and the bytes on disk, the resume's
+    seconds (``fit``'s start to its first step), peak memory and the
+    phase's seconds. Every K6 kernel once a layer and training step, the
+    forward once more a layer and validation or ``predict`` call. Returns
+    the summary and K6's launches."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch.data import ShardedNpzDataset
+    from horovod_tpu_torch.elastic import TPUState
+    from horovod_tpu_torch.estimator import Estimator
+    from horovod_tpu_torch.store import CHECKPOINT_FILE, LocalStore
+    t_phase = time.perf_counter()
+    check(hvd.size() == 1 and hvd.device() == dev,
+          "phase 25 needs a size-1 world on the card")
+    batch, seq = 4, LM_DIMS["max_seq"]
+    cfg = tm.TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                               **LM_DIMS)
+    root = tempfile.mkdtemp(prefix="hvd_est_")
+    out = {"card": smi, "batch": batch}
+    K.reset_launch_counts()
+    try:
+        gen_bytes = _est_layout_bytes(cfg)
+        tokens = np.random.RandomState(25).randint(
+            0, cfg.vocab_size, (EST_TRAIN_SEQS + EST_VAL_SEQS, seq + 1))
+        shard_bytes = 2 * EST_TRAIN_SEQS * seq * tokens.itemsize
+        free = shutil.disk_usage(root).free
+        need = 2 * gen_bytes + shard_bytes + 2**30
+        log(f"  {gen_bytes / 1e9:.3f} GB a generation; {free / 1e9:.1f} GB "
+            f"free under {root} (need {need / 1e9:.1f})")
+        check(free >= need, f"phase 25: {free} bytes free under {root}, "
+              f"{need} needed for two generations and the shards")
+        train = tokens[:EST_TRAIN_SEQS]
+        ds = ShardedNpzDataset.write_shards(os.path.join(root, "shards"),
+                                            train[:, :-1], train[:, 1:],
+                                            EST_SHARDS)
+        val = (tokens[EST_TRAIN_SEQS:, :-1], tokens[EST_TRAIN_SEQS:, 1:])
+
+        class TimedStore(LocalStore):
+            """The estimator's store, its saves and loads timed."""
+            save_s, load_s = [], []
+
+            def save_checkpoint(self, run_id, step, tree):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = super().save_checkpoint(run_id, step, tree)
+                self.save_s.append(time.perf_counter() - t0)
+                return path
+
+            def load_checkpoint(self, run_id, step=None):
+                t0 = time.perf_counter()
+                tree = super().load_checkpoint(run_id, step)
+                self.load_s.append(time.perf_counter() - t0)
+                return tree
+
+        def estimator(epochs, store, marks):
+            def loss_fn(model, x, y):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((time.perf_counter(), ev))
+                return tm.lean_lm_loss(model, x, y)
+            return Estimator(
+                init_fn=lambda g: tm.Transformer(cfg, generator=g),
+                forward_fn=lambda m, t: m.forward_aux(
+                    t, logits_f32=False)[0],
+                loss_fn=loss_fn, optimizer=lambda ps: _adamw(torch, ps),
+                store=store, run_id="lm", epochs=epochs, batch_size=batch,
+                metric_fns={"loss": tm.lean_lm_loss})
+
+        steps_per_epoch = EST_TRAIN_SEQS // batch
+        # (a) run A, uninterrupted
+        torch.cuda.reset_peak_memory_stats(dev)
+        marks_a = []
+        t0 = time.perf_counter()
+        run_a = estimator(EST_EPOCHS, None, marks_a).fit(ds, val_data=val)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        hist_a = run_a.history
+        check(sum(p.numel() for p in run_a.params.parameters()) * 12
+              == gen_bytes, "phase 25: the generation's byte count is not "
+              "the model's")
+        check([h["epoch"] for h in hist_a] == list(range(EST_EPOCHS))
+              and len(marks_a) == EST_EPOCHS * steps_per_epoch,
+              f"phase 25 (a): history {hist_a}, {len(marks_a)} steps")
+        losses = [h[k] for h in hist_a for k in ("train_loss", "val_loss")]
+        check(all(math.isfinite(v) for v in losses)
+              and hist_a[1]["train_loss"] < hist_a[0]["train_loss"],
+              f"phase 25 (a): losses {hist_a}")
+        gaps = [marks_a[i][1].elapsed_time(marks_a[i + 1][1])
+                for i in range(len(marks_a) - 1)
+                if (i + 1) % steps_per_epoch]
+        step_ms = statistics.median(gaps)
+        tok_s = batch * seq / (step_ms / 1e3)
+        log(f"  (a) {EST_EPOCHS} epochs of {steps_per_epoch} steps in "
+            f"{fit_s:.2f} s (the model's build included); losses "
+            f"{[(h['train_loss'], h['val_loss']) for h in hist_a]}; a step "
+            f"{step_ms:.2f} ms (median of {len(gaps)}, range "
+            f"{min(gaps):.2f}-{max(gaps):.2f}), {tok_s:.1f} tokens/s, "
+            f"{tok_s / dense_tok_s:.4f} of phase 5's; peak {peak:.2f} GiB")
+
+        # (b) run B: one epoch into the store, then resumed
+        store = TimedStore(os.path.join(root, "store"))
+        estimator(1, store, []).fit(ds, val_data=val)
+        check(store.checkpoint_steps("lm") == [0],
+              f"phase 25 (b): steps {store.checkpoint_steps('lm')}")
+        marks_b = []
+        t0 = time.perf_counter()
+        run_b = estimator(EST_EPOCHS, store, marks_b).fit(ds, val_data=val)
+        resume_s = marks_b[0][0] - t0
+        hist_b = run_b.history
+        check([h["epoch"] for h in hist_b] == [1]
+              and store.checkpoint_steps("lm") == [0, 1],
+              f"phase 25 (b): history {hist_b}, steps "
+              f"{store.checkpoint_steps('lm')}")
+        check((hist_b[0]["train_loss"], hist_b[0]["val_loss"])
+              == (hist_a[1]["train_loss"], hist_a[1]["val_loss"]),
+              f"phase 25 (b): the resumed epoch's losses {hist_b[0]} are "
+              f"not run A's {hist_a[1]}")
+        a_state, b_state = (r.params.state_dict() for r in (run_a, run_b))
+        differ = [k for k in a_state if not torch.equal(a_state[k],
+                                                       b_state[k])]
+        check(not differ, f"phase 25 (b): parameters not bitwise run A's: "
+              f"{differ}")
+        logits = run_b.predict(val[0][:1])
+        check(logits.dtype == np.float32
+              and logits.shape == (1, seq, cfg.vocab_size)
+              and np.isfinite(logits).all(),
+              f"phase 25 (b): predict gave {logits.dtype} {logits.shape}")
+        disk = [os.path.getsize(os.path.join(store._step_dir("lm", s),
+                                             CHECKPOINT_FILE))
+                for s in (0, 1)]
+        log(f"  (b) resumed at epoch 1 in {resume_s:.2f} s (fit's start to "
+            f"its first step: the model's build, the load "
+            f"{store.load_s[-1]:.2f} s, load_state_dict); the epoch's losses "
+            f"and {len(a_state)} tensors bitwise run A's; save_checkpoint "
+            f"{', '.join(f'{t:.2f}' for t in store.save_s)} s, "
+            f"{', '.join(str(b) for b in disk)} bytes on disk; predict "
+            f"{logits.dtype} {logits.shape}")
+        out.update(
+            run_a=hist_a, run_b=hist_b, fit_s=fit_s, step_ms=step_ms,
+            step_ms_range=[min(gaps), max(gaps)], steps_timed=len(gaps),
+            tokens_per_s=tok_s, tokens_per_s_of_phase5=tok_s / dense_tok_s,
+            peak_gib=peak, save_s=list(store.save_s),
+            load_s=list(store.load_s), disk_bytes=disk, resume_s=resume_s,
+            bitwise=True)
+        del run_a, run_b, a_state, b_state, logits
+        torch.cuda.empty_cache()
+
+        # (c) the callbacks over a hand loop
+        model = tm.Transformer(cfg, generator=torch.Generator().manual_seed(
+            0)).to(dev)
+        inner = _adamw(torch, model.parameters())
+        opt = hvd.DistributedOptimizer(cb.scaled_lr(inner), op=hvd.Average)
+        loop = cb.TrainLoopState(params=model, opt_state=opt)
+        elastic_state = TPUState(params=model, opt_state=opt, batch=0)
+        best = os.path.join(root, "best.pt")
+        callbacks = cb.CallbackList([
+            cb.BroadcastGlobalVariablesCallback(0),
+            cb.LearningRateWarmupCallback(warmup_epochs=EST_EPOCHS,
+                                          steps_per_epoch=EST_CB_STEPS,
+                                          size=EST_CB_SIZE),
+            cb.MetricAverageCallback(),
+            cb.BestModelCheckpoint(best, monitor="loss"),
+            cb.CommitStateCallback(elastic_state,
+                                   batches_per_commit=EST_CB_STEPS)])
+        callbacks.on_train_begin(loop)
+        lrs, syncs, epoch_losses = [], [], []
+        for epoch in range(EST_EPOCHS):
+            loop.epoch = epoch
+            callbacks.on_epoch_begin(loop)
+            step_losses = []
+            batches = iter(ds.iter_batches(0, 1, batch, seed=epoch))
+            for b in range(EST_CB_STEPS):
+                bx, by = next(batches)
+                _, s = _sync_count(torch,
+                                   lambda: callbacks.on_batch_begin(loop, b))
+                syncs += s
+                lrs.append(inner.param_groups[0]["lr"])
+                x = torch.from_numpy(bx).to(dev)
+                y = torch.from_numpy(by).to(dev)
+                opt.zero_grad()
+                loss = tm.lean_lm_loss(model, x, y)
+                loss.backward()
+                opt.step()
+                step_losses.append(loss.detach())
+                callbacks.on_batch_end(loop, b)
+            batches.close()
+            logs = {"loss": float(torch.stack(step_losses).mean())}
+            callbacks.on_epoch_end(loop, logs)
+            epoch_losses.append(logs["loss"])
+
+        def warm(frac):
+            return (1.0 / EST_CB_SIZE) * (
+                min(frac / EST_EPOCHS, 1.0) * (EST_CB_SIZE - 1) + 1.0)
+        want = [3e-4 * warm(e + b / EST_CB_STEPS)
+                for e in range(EST_EPOCHS) for b in range(EST_CB_STEPS)]
+        commits = getattr(elastic_state, "_commit_count", 0)
+        saved = torch.load(best, map_location="cpu", weights_only=True)
+        check(all(math.isclose(g, w, rel_tol=1e-12)
+                  for g, w in zip(lrs, want)) and len(lrs) == len(want),
+              f"phase 25 (c): lrs {lrs}, the warm-up table x 3e-4 {want}")
+        check(not syncs, f"phase 25 (c): set_lr_scale synchronized: {syncs}")
+        check(commits == EST_EPOCHS, f"phase 25 (c): {commits} commits, "
+              f"expected {EST_EPOCHS}")
+        check(saved["loss"] == min(epoch_losses)
+              and set(saved["params"]) == set(model.state_dict()),
+              f"phase 25 (c): the best file holds {saved.get('loss')} of "
+              f"{epoch_losses}")
+        check(all(math.isfinite(v) for v in epoch_losses),
+              f"phase 25 (c): losses {epoch_losses}")
+        log(f"  (c) lrs {', '.join(f'{v:.6g}' for v in lrs)} (the warm-up "
+            f"table x 3e-4); {commits} commits; no synchronization in "
+            f"set_lr_scale; the best file at epoch {saved['epoch']} "
+            f"(loss {saved['loss']:.4f}); epoch losses {epoch_losses}")
+        out["callbacks"] = {"lrs": lrs, "commits": commits,
+                            "epoch_losses": epoch_losses,
+                            "best_epoch": saved["epoch"]}
+        del model, inner, opt, loop, elastic_state, saved
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    counts = K.launch_counts()
+    steps = (EST_EPOCHS + 1 + 1) * steps_per_epoch + EST_EPOCHS * EST_CB_STEPS
+    forwards = EST_EPOCHS + 1 + 1 + 1   # validations and predict
+    for name in FLASH_KERNELS:
+        want_n = cfg.n_layers * (steps + (forwards if name == "flash_fwd"
+                                          else 0))
+        check(counts[name] == want_n, f"phase 25: {name} launched "
+              f"{counts[name]} times, expected {want_n}")
+    out["launches"] = {name: counts[name] for name in FLASH_KERNELS}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  K6 {out['launches']}; phase {out['phase_s']:.1f} s ({smi})")
+    return out, out["launches"]
+
+
 def resnet_only(torch, hvd, K, ResNet50, dev, args, smi, log):
     """Phase 2 alone, with the profile: ResNet-50's img/s, busy share and
     kernel launches per step, as a JSON last line (``--resnet-only``; with
@@ -6243,6 +6534,14 @@ def main(argv=None) -> int:
             f"step {CP_KILL_AFTER}")
         control_plane, cp_counts = run_control_plane_path(
             torch, hvd, K, tm, dev, smi, log)
+        torch.cuda.empty_cache()
+
+        log(f"phase 25: the estimator on the flagship LM: Estimator.fit on "
+            f"a ShardedNpzDataset of {EST_SHARDS} shards, {EST_EPOCHS} "
+            f"epochs uninterrupted, then 1 into a LocalStore and resumed "
+            f"(bitwise), predict; the training callbacks over a hand loop")
+        estimator, est_counts = run_estimator_path(torch, hvd, K, tm, dev,
+                                                   smi, log, tok_s)
     finally:
         hvd.shutdown()
 
@@ -6401,6 +6700,7 @@ def main(argv=None) -> int:
              elastic_child_launches=elastic["killed_worker"][
                  "child_launches"][name],
              control_plane_launches=cp_counts[name],
+             estimator_launches=est_counts[name],
              control_plane_worker_launches=control_plane["failover"][
                  "launches"][name], ok=True,
              work="one attention layer of the flagship LM (B4 H16 T2048 "
@@ -6454,6 +6754,7 @@ def main(argv=None) -> int:
                       "observability": observability, "moe": moe,
                       "pipeline": pipeline, "checkpoint": ckpt,
                       "elastic": elastic, "control_plane": control_plane,
+                      "estimator": estimator,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

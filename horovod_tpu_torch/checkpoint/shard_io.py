@@ -348,6 +348,37 @@ def _reslice(full: torch.Tensor, total: int, new_rank: int,
     return full[new_rank * new_shard:(new_rank + 1) * new_shard].clone()
 
 
+def _state_leaf_buckets(header: dict) -> List[Optional[int]]:
+    """The bucket each state leaf of a ZeRO-1 header reshards with.
+
+    The header's own map (``_assign_state_buckets``, kept byte for byte
+    the reference's) restarts its count at every change of shard size, so
+    buckets of one shard size that are not adjacent take each other's
+    index: shards [5, 2, 5] map mu/nu to buckets [0, 1, 0] and [2, 1, 0].
+    The reader repairs it where the layout is the one both optimizers
+    write (optax's count, mu[0..B-1], nu[0..B-1]; ``checkpoint_payload``'s
+    step, every ``exp_avg``, every ``exp_avg_sq``, ``max_exp_avg_sq``):
+    the shard-shaped leaves (1-D, with a bucket in the header) are k·B in
+    number for B buckets, and leaf i is as long as bucket i mod B's
+    shard. Then leaf i takes bucket i mod B. Any other layout keeps the
+    header's map."""
+    buckets = header["buckets"]
+    metas = header["state_leaves"]
+    mapped = [j for j, m in enumerate(metas)
+              if m["bucket"] is not None and len(m["shape"]) == 1]
+    out = [None if m["bucket"] is None else int(m["bucket"])
+           for m in metas]
+    n_b = len(buckets)
+    if not mapped or not n_b or len(mapped) % n_b:
+        return out
+    if any(int(metas[j]["shape"][0]) != int(buckets[i % n_b]["shard"])
+           for i, j in enumerate(mapped)):
+        return out
+    for i, j in enumerate(mapped):
+        out[j] = i % n_b
+    return out
+
+
 def zero1_reshard(header: dict, payloads: Dict[int, bytes],
                   new_rank: int, new_n: int) -> Dict[str, Any]:
     """N→M reshard of a ZeRO-1 generation: reassemble each bucket's
@@ -374,14 +405,15 @@ def zero1_reshard(header: dict, payloads: Dict[int, bytes],
         full_buckets.append(full[:int(spec["total"])].clone())
         new_shards.append(_reslice(full, int(spec["total"]), new_rank,
                                    new_n))
+    leaf_bucket = _state_leaf_buckets(header)
     new_state = []
     for j, m in enumerate(header["state_leaves"]):
-        if m["bucket"] is None:
+        if leaf_bucket[j] is None:
             # replicated state leaf (e.g. the step count): identical on
             # every writer, take rank 0's
             new_state.append(parsed[0][1][j])
             continue
-        spec = header["buckets"][int(m["bucket"])]
+        spec = header["buckets"][leaf_bucket[j]]
         full = torch.cat([parsed[r][1][j] for r in range(n)])
         new_state.append(_reslice(full, int(spec["total"]), new_rank,
                                   new_n))

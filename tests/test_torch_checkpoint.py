@@ -206,6 +206,75 @@ class TestShardIO:
                 for a, b in zip(re[key], ref[key]):
                     np.testing.assert_array_equal(a.numpy(), b)
 
+    @pytest.mark.parametrize("new_n", [1, 3])
+    @pytest.mark.parametrize("writer", ["port", "reference"])
+    def test_zero1_reshard_maps_split_buckets_of_one_shard_size(
+            self, writer, new_n):
+        """Three buckets of totals [10, 4, 9] over 2 ranks (shards [5, 2,
+        5]) with AdamW's state (count, mu[0..2], nu[0..2]): the header maps
+        the moments to buckets [0, 1, 0] and [2, 1, 0], restarting its
+        count at each change of shard size. The port's reader maps them to
+        [0, 1, 2] twice, so every moment comes back as its bucket's logical
+        vector (lengths 10, 4, 9) from either package's generation.
+
+        The reference's reader keeps the header's map: resharded 2 → 1 its
+        mu/nu come back with lengths [10, 4, 10] and [9, 4, 10]; 2 → 3
+        with per-rank shards [4, 2, 4] and [3, 2, 4] where [4, 2, 3] are
+        right."""
+        totals, n = [10, 4, 9], 2
+        shards = [-(-t // n) for t in totals]
+        layout = [((b,), (t,), t, s)
+                  for b, (t, s) in enumerate(zip(totals, shards))]
+        rng = np.random.RandomState(3)
+
+        def padded(t, s):
+            v = np.zeros(s * n, np.float32)
+            v[:t] = rng.rand(t)
+            return v
+        params = [padded(t, s) for t, s in zip(totals, shards)]
+        mu = [padded(t, s) for t, s in zip(totals, shards)]
+        nu = [padded(t, s) for t, s in zip(totals, shards)]
+        payloads, header = {}, None
+        for r in range(n):
+            part = [[v[r * s:(r + 1) * s] for v, s in zip(vs, shards)]
+                    for vs in (params, mu, nu)]
+            state = [np.array(7, np.int32)] + part[1] + part[2]
+            if writer == "port":
+                header = shard_io.zero1_header(
+                    layout, [torch.from_numpy(a) for a in part[0]],
+                    [torch.from_numpy(a) for a in state], step=7,
+                    world_version=0, world_size=n)
+                payloads[r] = shard_io.zero1_payload(
+                    [torch.from_numpy(a) for a in part[0]],
+                    [torch.from_numpy(a) for a in state])
+            else:
+                header = ref_shard_io.zero1_header(
+                    layout, part[0], state, step=7, world_version=0,
+                    world_size=n)
+                payloads[r] = ref_shard_io.zero1_payload(part[0], state)
+        assert [m["bucket"] for m in header["state_leaves"]] == \
+            [None, 0, 1, 0, 2, 1, 0]
+        got = [zero1_reshard(header, payloads, nr, new_n)
+               for nr in range(new_n)]
+        ref = [ref_shard_io.zero1_reshard(header, payloads, nr, new_n)
+               for nr in range(new_n)]
+        new_shards = [-(-t // new_n) for t in totals]
+        wrong = {1: [[10, 4, 10], [9, 4, 10]],
+                 3: [[4, 2, 4], [3, 2, 4]]}[new_n]
+        assert int(got[0]["state_leaves"][0]) == 7
+        for k, vs in ((0, mu), (1, nu)):
+            for b, (t, s) in enumerate(zip(totals, new_shards)):
+                j = 1 + 3 * k + b
+                assert [g["state_leaves"][j].shape[0] for g in got] == \
+                    [s] * new_n
+                assert ref[0]["state_leaves"][j].shape[0] == wrong[k][b]
+                joined = torch.cat([g["state_leaves"][j] for g in got])
+                np.testing.assert_array_equal(joined[:t].numpy(), vs[b][:t])
+                assert not joined[t:].any()
+        for g, want in zip(got[0]["full_buckets"], params):
+            assert g.numel() in totals
+            np.testing.assert_array_equal(g.numpy(), want[:g.numel()])
+
     def test_zero1_reshard_missing_rank_raises(self):
         layout = [((0,), (4,), 4, 2)]
         shards = [torch.arange(2, dtype=torch.float32)]

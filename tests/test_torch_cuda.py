@@ -22,7 +22,9 @@ elastic"``: a worker killed on 4 cards and relaunched by the port's
 elastic launcher, and a scale-down from 4 cards to 2), and the survivable
 control plane (``-k "cards and control_plane"``: 4 workers on 4 cards as
 two islands outlive a SIGKILL of their driver and KV primary, the
-telemetry rolled up per slice).
+telemetry rolled up per slice), and the estimator (``-k "cards and
+estimator"``: the flagship at 2 layers through ``Estimator.fit`` on 2
+cards with uneven shards, the replicas bitwise after each epoch).
 
 These tests import only torch and the port, so they also run where jax is
 not installed. On a machine with a GPU and nvcc:
@@ -3038,3 +3040,30 @@ def test_cuda_cards_control_plane_survives_primary_kill_4_cards(
     assert sorted(slices) == ["0", "1"], runs[True]["agg"]
     assert not runs[False]["agg"]["slices"], runs[False]["agg"]
     assert runs[True]["put_rate"] < runs[False]["put_rate"]
+
+
+def test_cuda_cards_estimator_on_nccl(built, tmp_path):
+    """The estimator on NCCL (torch_worker's estimator scenario): the
+    flagship LM at full width and 2 layers, bf16 on fp32 parameters,
+    AdamW, through ``Estimator.fit`` for 2 epochs on 3 uneven shards (rank
+    1 joins halfway each epoch): finite losses, the model and AdamW state
+    bitwise equal on both cards after each epoch, K1 in every reduction and
+    the join's substitutes counted; rank 0's LocalStore checkpoints,
+    resumed by both ranks, the trained model bitwise
+    (check_estimator_world)."""
+    from torch_worker import check_estimator_world, write_estimator_data
+    write_estimator_data(str(tmp_path), "cuda")
+    t0 = time.perf_counter()
+    res = run_world("estimator", 2, tmp_path, device="cuda",
+                    env={"ESTIMATOR_DIR": str(tmp_path),
+                         "HOROVOD_PALLAS_PACK": "1"}, timeout=600)
+    check_estimator_world(res, "cuda")
+    print(f"estimator cards: {time.perf_counter() - t0:.1f} s; fit "
+          f"{[round(r['seconds'], 2) for r in res]} s, resume "
+          f"{[round(r['resume_s'], 2) for r in res]} s; losses "
+          f"{[(h['train_loss'], h['val_loss']) for h in res[0]['history']]}"
+          f"; batches {[r['batches'] for r in res]}, substitutes "
+          f"{[len(r['subs']) for r in res]}; K1 "
+          f"{[(r['pack'], r['pack_graph'], r['n_buckets']) for r in res]}; "
+          f"K6a {[r['flash']['flash_fwd'] for r in res]}; peak "
+          f"{[round(r['peak_gib'], 2) for r in res]} GiB")

@@ -4121,6 +4121,239 @@ def _agg_world_scenario(hvd, rank: int, size: int) -> dict:
             "slice": None if route is None else route.slice_index}
 
 
+def _tensor_bytes(t) -> bytes:
+    import torch
+    return t.detach().cpu().contiguous().reshape(-1).view(
+        torch.uint8).numpy().tobytes()
+
+
+def estimator_join_fn():
+    """One rank of the np=2 uneven-shards estimator run, through the port's
+    runner (``TEST_SHARD_DIR``: 3 npz shards, rank 0 holds 2 of them;
+    ``TEST_OPTIMIZER``: ``sgd`` 0.05 or ``adam`` 1e-2): the MLP (8, 16, 3)
+    for 2 unshuffled epochs of batch 16. Returns the batches it trained an
+    epoch, the final parameters and the optimizer's state tensors."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.data import ShardedNpzDataset
+    from horovod_tpu_torch.estimator import Estimator
+    from horovod_tpu_torch.models.mlp import MLP, softmax_cross_entropy
+    torch.set_num_threads(1)
+    opts, batches = [], []
+
+    def optimizer(ps):
+        opts.append(torch.optim.SGD(ps, lr=0.05)
+                    if os.environ["TEST_OPTIMIZER"] == "sgd"
+                    else torch.optim.Adam(ps, lr=1e-2))
+        return opts[-1]
+
+    def loss_fn(m, x, y):
+        batches.append(1)
+        return softmax_cross_entropy(m(x), y.long())
+
+    est = Estimator(init_fn=lambda g: MLP((8, 16, 3), generator=g),
+                    forward_fn=lambda m, x: m(x), loss_fn=loss_fn,
+                    optimizer=optimizer, epochs=2, batch_size=16,
+                    shuffle=False)
+    model = est.fit(ShardedNpzDataset(os.environ["TEST_SHARD_DIR"]))
+    opt = opts[-1]
+    return {"rank": hvd.rank(), "epochs": len(model.history),
+            "batches": len(batches) // 2,
+            "losses_finite": all(np.isfinite(h["train_loss"])
+                                 for h in model.history),
+            "params": [p.detach().numpy().copy()
+                       for p in model.params.parameters()],
+            "state": [v.detach().numpy().copy()
+                      for p in opt.param_groups[0]["params"]
+                      for _, v in sorted(opt.state[p].items())]}
+
+
+def metric_average_fn():
+    """``MetricAverageCallback`` at the epoch's end on this rank's logs
+    ({"loss": rank + 1, "acc": 0.25 * rank}); returns the averaged logs."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.callbacks import (MetricAverageCallback,
+                                             TrainLoopState)
+    logs = {"loss": float(hvd.rank() + 1), "acc": 0.25 * hvd.rank()}
+    MetricAverageCallback().on_epoch_end(TrainLoopState(epoch=3), logs)
+    return logs
+
+
+# the estimator scenario: the flagship's widths at 2 layers on the card, the
+# tiny LM on gloo, bf16 on fp32 parameters, AdamW, through Estimator.fit on
+# a ShardedNpzDataset of 3 shards of ESTIMATOR_SHARD_SEQS sequences: rank 0
+# holds shards 0 and 2, rank 1 shard 1, so rank 1 joins halfway each epoch
+ESTIMATOR_CARD_DIMS = dict(ADASUM_CARD_DIMS, n_layers=2)
+ESTIMATOR_SHARD_SEQS = 8
+ESTIMATOR_BATCH = 2
+ESTIMATOR_EPOCHS = 2
+ESTIMATOR_VAL_SEQS = 2
+
+
+def estimator_dims(device: str) -> dict:
+    return ESTIMATOR_CARD_DIMS if device == "cuda" else ADASUM_CPU_DIMS
+
+
+def write_estimator_data(out_dir, device: str):
+    """The scenario's shards (``<out_dir>/shards``) and validation tokens
+    (``<out_dir>/val.npy``), from a seed: sequences of max_seq + 1 tokens,
+    ``x`` the first max_seq and ``y`` the last."""
+    from horovod_tpu_torch.data import ShardedNpzDataset
+    dims = estimator_dims(device)
+    rng = np.random.RandomState(11)
+    tokens = rng.randint(0, dims["vocab_size"],
+                         (3 * ESTIMATOR_SHARD_SEQS + ESTIMATOR_VAL_SEQS,
+                          dims["max_seq"] + 1)).astype(np.int64)
+    train, val = tokens[:-ESTIMATOR_VAL_SEQS], tokens[-ESTIMATOR_VAL_SEQS:]
+    ShardedNpzDataset.write_shards(os.path.join(out_dir, "shards"),
+                                   train[:, :-1], train[:, 1:], 3)
+    np.save(os.path.join(out_dir, "val.npy"), val)
+
+
+def _estimator_scenario(hvd, rank: int, size: int) -> dict:
+    """``Estimator.fit`` for ESTIMATOR_EPOCHS epochs with a rank-0
+    ``LocalStore`` on the shared ``ESTIMATOR_DIR``, then a second
+    estimator on the same store that resumes on every rank. Returns the
+    epochs' losses, a sha256 of the model's and AdamW's tensors after each
+    epoch (taken by a validation metric, after the re-broadcast from the
+    last joiner), the batches this rank trained, the join substitutes it
+    ran by kind code, K1's launches and the fusion buckets of a step, the
+    resumed run's history and digest, and the seconds and peak memory."""
+    import hashlib
+    import torch
+    from horovod_tpu_torch.common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+    from horovod_tpu_torch.core.engine import bucket_by_size
+    from horovod_tpu_torch.data import ShardedNpzDataset
+    from horovod_tpu_torch.estimator import Estimator
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig,
+                                                      lean_lm_loss)
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.store import LocalStore
+    gs = hvd.global_state()
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    # the LM's gradients in 64 MB buckets, K1 packing each
+    gs.config.fusion_threshold_bytes = DEFAULT_FUSION_THRESHOLD_BYTES
+    root = os.environ["ESTIMATOR_DIR"]
+    cfg = TransformerConfig(dtype=torch.bfloat16, attention="flash",
+                            **estimator_dims(dev.type))
+    val = np.load(os.path.join(root, "val.npy"))
+    ds = ShardedNpzDataset(os.path.join(root, "shards"))
+    store = LocalStore(os.path.join(root, "store"))
+    eng = gs.engine
+    subs, opts, digests, batches = [], [], [], []
+    dispatch = eng._dispatch_substitute
+
+    def counted(kind_code, metas):
+        subs.append(int(kind_code))
+        return dispatch(kind_code, metas)
+    eng._dispatch_substitute = counted
+
+    def adamw(ps):
+        opts.append(torch.optim.AdamW(ps, lr=3e-4, betas=(0.9, 0.999),
+                                      eps=1e-8, weight_decay=1e-4))
+        return opts[-1]
+
+    def model_digest(model) -> str:
+        h = hashlib.sha256()
+        for t in model.state_dict().values():
+            h.update(_tensor_bytes(t))
+        return h.hexdigest()
+
+    def digest(model, x, y):
+        h = hashlib.sha256(model_digest(model).encode())
+        opt = opts[-1]
+        for p in opt.param_groups[0]["params"]:
+            for _, v in sorted(opt.state[p].items()):
+                h.update(_tensor_bytes(v))
+        digests.append(h.hexdigest())
+        return torch.zeros(())
+
+    def loss_fn(m, a, b):
+        batches.append(1)
+        return lean_lm_loss(m, a, b)
+
+    def make(epochs):
+        return Estimator(
+            init_fn=lambda g: Transformer(cfg, generator=g),
+            forward_fn=lambda m, t: m(t), loss_fn=loss_fn, optimizer=adamw,
+            store=store, run_id="lm", epochs=epochs,
+            batch_size=ESTIMATOR_BATCH,
+            metric_fns={"loss": lambda m, a, b: lean_lm_loss(m, a, b),
+                        "digest": digest})
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = make(ESTIMATOR_EPOCHS).fit(
+        ds, val_data=(val[:, :-1], val[:, 1:]))
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    n_buckets = len(bucket_by_size(list(model.params.parameters()),
+                                   DEFAULT_FUSION_THRESHOLD_BYTES))
+    final = model_digest(model.params)
+    trained = len(batches)
+    history = model.history
+    del model
+    hvd.barrier()     # rank 0's last checkpoint is on the disk
+    t0 = time.perf_counter()
+    resumed = make(ESTIMATOR_EPOCHS).fit(ds)
+    resume_s = time.perf_counter() - t0
+    return {
+        "rank": rank, "history": history, "digests": digests,
+        "batches": trained,
+        "subs": subs, "pack": counts.get("pack", 0),
+        "pack_graph": counts.get("pack_graph", 0), "n_buckets": n_buckets,
+        "flash": {k: v for k, v in counts.items() if k.startswith("flash")},
+        "final": final, "resumed_history": resumed.history,
+        "resumed": model_digest(resumed.params),
+        "steps": store.checkpoint_steps("lm"), "seconds": seconds,
+        "resume_s": resume_s,
+        "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                     if dev.type == "cuda" else None)}
+
+
+def check_estimator_world(res: list, device: str):
+    """What the estimator scenario must show at np=2: both ranks trained
+    every epoch to finite losses, equal on both; rank 1 joined halfway
+    each epoch (its grouped allreduces substituted); the model and AdamW
+    state bitwise equal on both ranks after each epoch; on the card K1
+    packed every bucket of every reduction, the substitutes included, and
+    K6 ran; rank 0's two checkpoints, resumed by both ranks, the trained
+    model bitwise."""
+    from horovod_tpu_torch.core.engine import _KIND_CODES
+    r0, r1 = res
+    per_epoch = ESTIMATOR_SHARD_SEQS // ESTIMATOR_BATCH
+    assert (r0["batches"], r1["batches"]) == \
+        (2 * per_epoch * ESTIMATOR_EPOCHS, per_epoch * ESTIMATOR_EPOCHS)
+    assert r0["subs"] == []
+    assert r1["subs"] == [_KIND_CODES["grouped_allreduce"]] * \
+        (per_epoch * ESTIMATOR_EPOCHS), r1["subs"]
+    for r in res:
+        assert [h["epoch"] for h in r["history"]] == \
+            list(range(ESTIMATOR_EPOCHS)), r["history"]
+        assert all(np.isfinite(h[k]) for h in r["history"]
+                   for k in ("train_loss", "val_loss")), r["history"]
+        assert len(r["digests"]) == ESTIMATOR_EPOCHS
+        if device == "cuda":
+            reductions = r["batches"] + len(r["subs"])
+            assert r["pack"] + r["pack_graph"] >= \
+                r["n_buckets"] * reductions, r
+            assert r["flash"]["flash_fwd"] >= \
+                ESTIMATOR_CARD_DIMS["n_layers"] * r["batches"], r["flash"]
+        assert r["steps"] == list(range(ESTIMATOR_EPOCHS))
+        assert r["resumed_history"] == []
+        assert r["resumed"] == r0["final"]
+    for a, b in zip(r0["history"], r1["history"]):
+        assert (a["train_loss"], a["val_loss"]) == \
+            (b["train_loss"], b["val_loss"])
+    assert r0["digests"] == r1["digests"]
+    assert r0["final"] == r1["final"]
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -4145,7 +4378,8 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "ckpt": _ckpt_scenario, "ckpt_cards": _ckpt_cards_scenario,
              "elastic_zero1": _elastic_zero1_scenario,
              "group_timeouts": _group_timeouts_scenario,
-             "agg_world": _agg_world_scenario}
+             "agg_world": _agg_world_scenario,
+             "estimator": _estimator_scenario}
 
 
 def main(argv):
