@@ -400,10 +400,6 @@ class CheckpointManager:
             self._pending = None
             self._cond.notify_all()
         self._thread.join(timeout=5)
-        if not self._thread.is_alive():
-            self._host_buf = None
-            self._pinned = []
-            self._side_stream = None
 
     @property
     def last_written_step(self) -> int:
@@ -430,7 +426,7 @@ class CheckpointManager:
                 while self._pending is None and not self._stopped:
                     self._cond.wait(0.5)
                 if self._stopped:
-                    return
+                    break
                 req = self._pending
                 self._pending = None
                 self._writing = True
@@ -448,6 +444,12 @@ class CheckpointManager:
                 with self._cond:
                     self._writing = False
                     self._cond.notify_all()
+        # the writer owns its host buffer, pinned ring and side stream and
+        # lets them go as it stops: close() never touches them, so a writer
+        # still finishing a generation past close()'s join keeps them
+        self._host_buf = None
+        self._pinned = []
+        self._side_stream = None
 
     def _ring(self, dev: torch.device):
         """The side stream and the pinned ring for leaves on ``dev``."""
@@ -951,9 +953,8 @@ class CheckpointManager:
                         put_data_into_kvstore(
                             self.kv[0], self.kv[1], CKPT_KV_SCOPE, r,
                             f.read(), timeout=self.kv_timeout)
+            # errflow: ignore[best-effort re-publish: a rank that needs a shard this rank failed to publish fails loudly in _gather_shards with CheckpointRestoreError]
             except Exception as e:
-                # best-effort: a rank that needs a missing shard fails
-                # loudly in _gather_shards
                 logger.debug("republish of %s failed: %s", fn, e)
 
     def _gather_shards(self, step: int, header: dict,

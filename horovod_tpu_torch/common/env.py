@@ -205,6 +205,9 @@ HOROVOD_TPU_SHUTDOWN_ORDER_TIMEOUT = "HOROVOD_TPU_SHUTDOWN_ORDER_TIMEOUT"
 HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
 HOROVOD_AUTOTUNE = "HOROVOD_AUTOTUNE"
 HOROVOD_AUTOTUNE_LOG = "HOROVOD_AUTOTUNE_LOG"
+# the level of the horovod_tpu_torch logger, applied at init
+# (core/state.py _apply_log_level; the reference's core/state.py:527-550)
+HOROVOD_LOG_LEVEL = "HOROVOD_LOG_LEVEL"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 DEFAULT_JOIN_META_SLOTS = 16

@@ -194,13 +194,15 @@ class Backend:
             self._cross_rank = slot.cross_rank
             self._cross_size = slot.cross_size
         else:
-            env = os.environ
-            self._local_rank = int(env.get(env_mod.HOROVOD_LOCAL_RANK, "0"))
-            self._local_size = int(env.get(env_mod.HOROVOD_LOCAL_SIZE, "1"))
+            environ = os.environ
+            self._local_rank = int(environ.get(env_mod.HOROVOD_LOCAL_RANK,
+                                               "0"))
+            self._local_size = int(environ.get(env_mod.HOROVOD_LOCAL_SIZE,
+                                               "1"))
             per_host = max(self._local_size, 1)
-            self._cross_rank = int(env.get(env_mod.HOROVOD_CROSS_RANK,
-                                           str(self._rank // per_host)))
-            self._cross_size = int(env.get(
+            self._cross_rank = int(environ.get(
+                env_mod.HOROVOD_CROSS_RANK, str(self._rank // per_host)))
+            self._cross_size = int(environ.get(
                 env_mod.HOROVOD_CROSS_SIZE,
                 str(max(1, self._size // per_host))))
         self._initialized = True

@@ -214,6 +214,8 @@ class LaunchGroup:
     gets there first; then every handle of the launch (``handles``)
     completes at once."""
 
+    _GUARDED_BY = {"_done": "_lock"}
+
     def __init__(self, work, finish: Optional[Callable[[], None]] = None):
         self._works = list(work) if isinstance(work, (list, tuple)) \
             else [work]
@@ -223,6 +225,7 @@ class LaunchGroup:
         self.handles: List["Handle"] = []
 
     def ready(self) -> bool:
+        # lockcheck: ignore[double-checked fast path: _done only transitions False->True, a stale read just re-polls]
         if self._done:
             return True
         if not all(_translate_failure(w.is_completed) for w in self._works):
@@ -289,7 +292,7 @@ def _dtype_name(dtype: torch.dtype) -> str:
     metric series and the consistency fingerprint carry."""
     name = _DTYPE_NAMES.get(dtype)
     if name is None:
-        name = _DTYPE_NAMES[dtype] = str(dtype).replace("torch.", "")
+        name = _DTYPE_NAMES[dtype] = str(dtype).removeprefix("torch.")
     return name
 
 
@@ -353,6 +356,8 @@ class Handle:
 class HandleManager:
     """int handle -> :class:`Handle` map (the reference's, parity:
     torch/handle_manager.{h,cc})."""
+
+    _GUARDED_BY = {"_next": "_lock", "_handles": "_lock"}
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -432,6 +437,11 @@ def _split_op_field(code: int):
 
 class Engine:
     """Named eager collectives over the default process group."""
+
+    _GUARDED_BY = {
+        "_outstanding": "_lock",
+        "_residuals": "_lock",
+    }
 
     def __init__(self, backend: Backend, config: env_mod.Config):
         self.backend = backend
@@ -876,9 +886,12 @@ class Engine:
         if self.on_step_complete is not None:
             try:
                 self.on_step_complete(self.step_index)
-            except Exception:
-                logging.getLogger("horovod_tpu_torch").debug(
-                    "step-complete hook failed", exc_info=True)
+            except HorovodInternalError:
+                # the recovery carrier reaches the elastic loop
+                raise
+            # errflow: ignore[the recovery carrier is re-raised by the clause above; any other hook failure (a snapshot the checkpoint manager cannot stamp) must not fail the completed step and is WARNING-logged]
+            except Exception as e:
+                logger.warning("step-complete hook failed: %r", e)
 
     @property
     def replay(self) -> StepReplay:
@@ -889,6 +902,7 @@ class Engine:
         ``HOROVOD_TPU_WORLD_VERSION``, which the rendezvous sets before any
         rank re-enters a step. The attribute only moves forward (tests may
         bump it directly)."""
+        # divcheck: ignore[this re-read IS the replay re-arm edge: the rendezvous stamps the bump before any rank re-enters a step, and the value only moves forward]
         v = os.environ.get(env_mod.HOROVOD_TPU_WORLD_VERSION)
         if v:
             try:

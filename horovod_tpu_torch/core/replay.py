@@ -675,6 +675,7 @@ class StepReplay:
         self._handles = []
         self._launched = False
         version = eng._refresh_world_version()
+        # divcheck: agreed[world-version bumps are rendezvous-stamped before any rank re-enters a step, so every rank compares the same pair at its next step_begin]
         if version != self._world_version:
             self.invalidate_all("world-version bump "
                                 f"({self._world_version} -> {version})")

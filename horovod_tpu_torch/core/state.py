@@ -59,6 +59,7 @@ class GlobalState:
             if self.initialized:
                 return
             self.config = env_mod.Config.from_env()
+            _apply_log_level()
             self.backend.init(device)
             if self.backend.removed:
                 # scaled out before joining a world: nothing to run
@@ -317,6 +318,29 @@ class GlobalState:
             self.kv = None
             self.engine = None
             self.backend.shutdown()
+
+
+def _apply_log_level():
+    """HOROVOD_LOG_LEVEL (the reference's ``core/state.py:527-550``):
+    trace/debug/info/warning/error/fatal onto the port's logger."""
+    import logging
+    level = os.environ.get(env_mod.HOROVOD_LOG_LEVEL)
+    if not level:
+        return
+    mapping = {"trace": logging.DEBUG, "debug": logging.DEBUG,
+               "info": logging.INFO, "warning": logging.WARNING,
+               "error": logging.ERROR, "fatal": logging.CRITICAL}
+    lvl = mapping.get(level.strip().lower())
+    if lvl is not None:
+        logger = logging.getLogger("horovod_tpu_torch")
+        logger.setLevel(lvl)
+        # without a handler, DEBUG/INFO would be filtered by Python's
+        # lastResort handler (WARNING) and the knob would be a silent no-op
+        if not logger.handlers and not logging.getLogger().handlers:
+            h = logging.StreamHandler()
+            h.setFormatter(logging.Formatter(
+                "[%(asctime)s] %(levelname)s %(name)s: %(message)s"))
+            logger.addHandler(h)
 
 
 _state = GlobalState()

@@ -242,6 +242,7 @@ class _Clause:
 
 def _current_rank() -> int:
     try:
+        # divcheck: ignore[failpoint @rank targeting reads the launcher-pinned rank id — constant for the process lifetime, not a tunable knob; inert unless HOROVOD_TPU_FAULTS is armed]
         return int(os.environ.get("HOROVOD_RANK", "0") or 0)
     except ValueError:
         return 0

@@ -76,6 +76,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
+    # divcheck: ignore[the lazy build runs once, at a kernel's first use, outside every capture window: the replay programs' PackTables load the library before capture_begin]
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = Path(cuda_home) / "bin" / "nvcc"
     if cand.exists():
@@ -87,11 +88,13 @@ def _nvcc() -> str:
 
 
 def sources():
+    # divcheck: ignore[the lazy build runs once, at a kernel's first use, outside every capture window: the replay programs' PackTables load the library before capture_begin]
     return sorted(CSRC.glob("*.cu"))
 
 
 def _key(nvcc: str) -> str:
     h = hashlib.sha256()
+    # divcheck: ignore[the lazy build runs once, at a kernel's first use, outside every capture window: the replay programs' PackTables load the library before capture_begin]
     for p in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -136,7 +139,9 @@ def build() -> Path:
                                f"{res.stdout}")
         # atomic publish: concurrent ranks may build the same key
         for report in reports:
+            # divcheck: ignore[the lazy build runs once, at a kernel's first use, outside every capture window: the replay programs' PackTables load the library before capture_begin]
             os.replace(report, out_dir / report.name)
+        # divcheck: ignore[the lazy build runs once, at a kernel's first use, outside every capture window: the replay programs' PackTables load the library before capture_begin]
         os.replace(tmp_lib, lib_path)
     return lib_path
 

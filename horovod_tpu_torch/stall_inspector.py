@@ -370,8 +370,7 @@ class StallInspector:
         if self.escalate is not None:
             try:
                 self.escalate(err)
-            # escalation must go on to break_hangs even when the poison
-            # hook fails; the failure is logged
+            # errflow: ignore[escalation must continue to break_hangs even when the poison hook fails; the failure is WARNING-logged]
             except Exception as e:
                 logger.warning("watchdog escalation hook failed: %s", e)
         from . import faults
@@ -387,6 +386,7 @@ class StallInspector:
             if path:
                 logger.warning("flight recorder: trace ring dumped to %s",
                                path)
+        # errflow: ignore[flight dump is best-effort: an escalation is never blocked on a disk failure (WARNING-logged)]
         except Exception as e:
             logger.warning("flight-recorder dump failed: %s", e)
 

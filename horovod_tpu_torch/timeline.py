@@ -231,8 +231,7 @@ class Timeline:
                 try:
                     ev = self._q.get(timeout=0.5)
                 except queue.Empty:
-                    # single-writer shutdown flag: stop() also enqueues a
-                    # None sentinel, a stale read costs one 0.5 s poll
+                    # lockcheck: ignore[single-writer shutdown flag: stop() also enqueues a None sentinel, a stale read costs one 0.5s poll]
                     if not self._running:
                         break
                     continue

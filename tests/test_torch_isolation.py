@@ -70,6 +70,15 @@ def test_import_loads_no_jax_and_no_jax_package_module():
         "import horovod_tpu_torch.runner.replication\n"
         "import horovod_tpu_torch.runner.aggregator\n"
         "import horovod_tpu_torch.elastic.failover\n"
+        "import horovod_tpu_torch.common.knobs\n"
+        "import horovod_tpu_torch.analysis.check\n"
+        "import horovod_tpu_torch.analysis.lockcheck\n"
+        "import horovod_tpu_torch.analysis.divcheck\n"
+        "import horovod_tpu_torch.analysis.errflow\n"
+        "import horovod_tpu_torch.analysis.knobcheck\n"
+        "import horovod_tpu_torch.analysis.metriccheck\n"
+        "import horovod_tpu_torch.analysis.faultcheck\n"
+        "import horovod_tpu_torch.analysis.traceschema\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

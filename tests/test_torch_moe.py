@@ -103,7 +103,9 @@ def port_eng(monkeypatch):
     hvd.init(device="cpu")
     eng = port_engine()
     eng.replay.invalidate_all("test isolation")
-    return eng
+    yield eng
+    # a world left up would hand the next test file's hvd.init() this one
+    hvd.shutdown()
 
 
 # -- the layer (test_moe.py) ------------------------------------------------
