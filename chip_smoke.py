@@ -243,6 +243,19 @@ and then:
     stopped and resumed through a ``LocalStore`` (the resumed epoch's
     losses and the final parameters bitwise), ``predict``, and a hand loop
     under the training callbacks.
+26. The overlap modes (``run_overlap_path``): ResNet-50's 161 gradients
+    (K1 on) and the flagship LM's 34 (K1 off: the single-launch form)
+    reduced under ``HOROVOD_TPU_OVERLAP_PIPELINE`` off, interleave and
+    staged, eager and replayed (one graph, or one a bucket staged),
+    bitwise alike, with the stage and step counters, K1's launches as
+    kernels and graph nodes, the host ms of a reduction each way, the
+    graphs' device ms and each mode's armed program launched alone, the
+    modes in turns; the LM's eager reduction with
+    ``HOROVOD_TPU_SINGLE_LAUNCH`` on and off, bitwise, timed in turns;
+    the sharded LM under staged with the ZeRO-1
+    prefetch leg, without it and under off, bitwise alike, and a
+    world-version bump dropping the held leg. ``--overlap-only`` runs it
+    alone and prints its summary as the last line.
 
 Phases 2 and 5 end with a ``torch.profiler`` trace of ``--profile`` steps
 (3 by default): device time by layer, the busy share and the kernel
@@ -252,7 +265,8 @@ img/s, busy share and launches per step as the last line;
 measure a parent checkout the same way.
 
 Launch counts are zeroed just before each path (phases 2-3, 5, 6, 7, 9,
-each form of 11, 12, 13, 14, 15, 16, 17 and 18, each part of 20 and 21)
+each form of 11, 12, 13, 14, 15, 16, 17 and 18, each part of 20 and 21,
+and 26)
 and read
 just after it;
 every kernel of the path must have launched there (53 BN layers per ResNet step for each
@@ -528,6 +542,13 @@ EST_VAL_SEQS = 4               # validation sequences
 EST_EPOCHS = 2                 # run A's epochs (run B: 1, then resumed)
 EST_CB_STEPS = 5               # the callbacks' hand loop: steps an epoch
 EST_CB_SIZE = 4                # the warm-up's world size (its ramp from 1/4)
+# phase 26: the overlap modes at world size 1
+OVERLAP_MODES = ("off", "interleave", "staged")
+OVERLAP_CHECKED = 2            # replayed reductions after the warm-up
+OVERLAP_TIMED = 10             # reductions timed by the host clock each way
+OVERLAP_SHARDED_STEPS = 8      # AdamW steps of each sharded run
+# (overlap mode, zero1_prefetch) of the sharded runs; the first holds legs
+OVERLAP_SHARDED_RUNS = (("staged", True), ("staged", False), ("off", True))
 # the runtime and driver calls that launch one kernel
 KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                        "cuLaunchKernel", "cuLaunchKernelEx")
@@ -2173,6 +2194,340 @@ def make_lm_trainer(torch, hvd, tm, dev, batch, sharded=None):
 
     step.opt = opt
     return cfg, model, step
+
+
+def _by_label(snap, name, label):
+    """A counter's totals by one label's values (metrics.snapshot())."""
+    out = {}
+    for labels, v in snap["counters"].get(name, {"values": []})["values"]:
+        out[labels.get(label)] = out.get(labels.get(label), 0.0) + v
+    return out
+
+
+def _overlap_counters():
+    """The overlap instruments now: stage launches by kind, steps by mode,
+    legs launched and dropped."""
+    from horovod_tpu_torch import metrics
+    snap = metrics.snapshot()
+    return {"stages": _by_label(snap, "hvd_tpu_overlap_stage_launches_total",
+                                "kind"),
+            "steps": _by_label(snap, "hvd_tpu_overlap_steps_total", "mode"),
+            "legs": metrics.counter_total(snap,
+                                          "hvd_tpu_overlap_prefetch_total"),
+            "dropped": metrics.counter_total(
+                snap, "hvd_tpu_overlap_prefetch_invalidations_total")}
+
+
+def _counter_moves(after, before):
+    return {"stages": {k: v - before["stages"].get(k, 0.0)
+                       for k, v in after["stages"].items()
+                       if v != before["stages"].get(k, 0.0)},
+            "steps": {k: v - before["steps"].get(k, 0.0)
+                      for k, v in after["steps"].items()
+                      if v != before["steps"].get(k, 0.0)},
+            "legs": after["legs"] - before["legs"],
+            "dropped": after["dropped"] - before["dropped"]}
+
+
+def _armed_program(rep):
+    """The armed program of the one armed stream."""
+    return next(e["armed"].program for e in rep._seen.values()
+                if e.get("armed") is not None)
+
+
+def _armed_graphs(rep):
+    """The CUDA graphs of the armed program: one, or one a stage."""
+    program = _armed_program(rep)
+    return [st.graph for st in getattr(program, "stages", [program])]
+
+
+def _alternating_ms(torch, fns, flush, reps: int):
+    """Each of ``fns`` (a dict of calls) timed as time_ms times one call,
+    the calls in turns whose order reverses every round, so a drift of the
+    card's or the host's speed falls on each alike. Returns {key: (median
+    device ms, median host ms)}."""
+    keys = list(fns)
+    for k in keys:
+        fns[k]()
+    events = {k: [] for k in keys}
+    host = {k: [] for k in keys}
+    for r in range(reps):
+        for k in keys if r % 2 == 0 else keys[::-1]:
+            flush.zero_()
+            torch.cuda._sleep(HEAD_START_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fns[k]()
+            host[k].append(1e3 * (time.perf_counter() - t0))
+            end.record()
+            events[k].append((start, end))
+            torch.cuda.synchronize()
+    return {k: (statistics.median(s.elapsed_time(e) for s, e in events[k]),
+                statistics.median(host[k])) for k in keys}
+
+
+def _overlap_reductions(torch, hvd, eng, K, grads, tag, flush, log):
+    """Phase 26's reduction of ``grads`` (Average, postscale 0.5, inside
+    ``hvd.step()``) under each of OVERLAP_MODES: the warm-up and
+    OVERLAP_CHECKED replays, and an eager call after them, bitwise one
+    eager reduction taken first; the moves of the overlap counters and of
+    K1's launches (as kernels and as graph nodes); the host ms of a
+    reduction eager (replay off) and replayed, in turns; the armed
+    graphs' device ms; then each mode's armed program launched alone, the
+    modes in turns (_alternating_ms): the device and host ms of the
+    launch (the plain packs, the graph or graphs, the copy-outs). Returns
+    the rows by mode."""
+    cfg, rep = eng.config, eng.replay
+    names = iter(range(1 << 30))
+
+    def eager():
+        return [h.synchronize() for h in eng.grouped_allreduce(
+            grads, op=hvd.Average, postscale_factor=0.5)]
+
+    def reduce():
+        with hvd.step():
+            hs = hvd.grouped_allreduce_async(
+                grads, name=f"{tag}.g{next(names)}", op=hvd.Average,
+                postscale_factor=0.5)
+        return [h.synchronize() for h in hs]
+
+    want = eager()
+    from horovod_tpu_torch.core.engine import bucket_by_size
+    n_buckets = len(bucket_by_size(grads, cfg.fusion_threshold_bytes))
+    warm = cfg.step_replay_warmup
+    rows, programs = {}, {}
+    for mode in OVERLAP_MODES:
+        cfg.overlap_pipeline = mode
+        rep.invalidate_all(f"phase 26 {tag} {mode}")
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+        c0, k0 = _overlap_counters(), K.launch_counts()
+        for i in range(warm + OVERLAP_CHECKED):
+            outs = reduce()
+            check(all(torch.equal(a, b) for a, b in zip(outs, want)),
+                  f"phase 26 {tag} {mode} step {i}: not bitwise the first "
+                  f"eager reduction")
+        del outs
+        moved = _counter_moves(_overlap_counters(), c0)
+        k1 = K.launch_counts()
+        got = tuple(a - b for a, b in zip(
+            (rep.captured_streams, rep.replayed_steps, rep.fallbacks),
+            before))
+        check(got == (1, OVERLAP_CHECKED, 0),
+              f"phase 26 {tag} {mode}: replay counters {got}")
+        check(all(torch.equal(a, b) for a, b in zip(eager(), want)),
+              f"phase 26 {tag} {mode}: the eager reduction differs")
+        row = {"buckets": n_buckets, "counters": moved,
+               "k1": k1["pack"] - k0["pack"],
+               "k1_graph": k1["pack_graph"] - k0["pack_graph"]}
+        if cfg.pack_kernel:
+            check(row["k1"] == n_buckets * warm
+                  and row["k1_graph"] == n_buckets * OVERLAP_CHECKED,
+                  f"phase 26 {tag} {mode}: K1 {row['k1']} kernels, "
+                  f"{row['k1_graph']} graph nodes, {n_buckets} buckets")
+        stages = n_buckets * OVERLAP_CHECKED if mode == "staged" else 0
+        check(moved["stages"].get("replay_seg", 0) == stages,
+              f"phase 26 {tag} {mode}: stage launches {moved['stages']}")
+        if mode != "off":
+            check(moved["steps"].get(mode, 0) >= OVERLAP_CHECKED,
+                  f"phase 26 {tag} {mode}: overlap steps {moved['steps']}")
+        else:
+            check(not moved["steps"],
+                  f"phase 26 {tag} off: overlap steps {moved['steps']}")
+        host_ms = {True: [], False: []}
+        for _ in range(OVERLAP_TIMED):
+            for on in (False, True):
+                cfg.step_replay = on
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                reduce()
+                host_ms[on].append(1e3 * (time.perf_counter() - t0))
+        cfg.step_replay = True
+        torch.cuda.synchronize()
+        programs[mode] = _armed_program(rep)
+        graphs = _armed_graphs(rep)
+        row["graphs"] = len(graphs)
+        row["graph_ms"], row["graph_host_ms"] = time_ms(
+            torch, lambda: [g.replay() for g in graphs], flush,
+            OVERLAP_TIMED)
+        row["host_ms_eager"] = statistics.median(host_ms[False])
+        row["host_ms_replayed"] = statistics.median(host_ms[True])
+        row["host_ms_eager_range"] = (min(host_ms[False]),
+                                      max(host_ms[False]))
+        row["host_ms_replayed_range"] = (min(host_ms[True]),
+                                         max(host_ms[True]))
+        rows[mode] = row
+        log(f"  {tag} {mode}: bitwise the first eager reduction; "
+            f"{len(graphs)} graph(s) of {n_buckets} buckets; counters "
+            f"{moved['stages']} {moved['steps']}; K1 {row['k1']} kernels, "
+            f"{row['k1_graph']} graph nodes; host ms eager "
+            f"{row['host_ms_eager']:.3f} ({min(host_ms[False]):.3f}-"
+            f"{max(host_ms[False]):.3f}), replayed "
+            f"{row['host_ms_replayed']:.3f} ({min(host_ms[True]):.3f}-"
+            f"{max(host_ms[True]):.3f}), median of {OVERLAP_TIMED}; the "
+            f"graphs {row['graph_ms']:.4f} ms on the device "
+            f"({row['graph_host_ms']:.4f} host)")
+    rep.invalidate_all(f"phase 26 {tag} done")
+    launch = _alternating_ms(
+        torch, {m: (lambda p=p: p.launch(grads)) for m, p in
+                programs.items()}, flush, OVERLAP_TIMED)
+    # the graphs go before the next arm (and long before the process group)
+    del programs
+    torch.cuda.synchronize()
+    for mode, (dev_ms, host_ms) in launch.items():
+        rows[mode]["launch_ms"], rows[mode]["launch_host_ms"] = dev_ms, host_ms
+    log(f"  {tag} armed programs launched alone, in turns: " + "; ".join(
+        f"{m} {d:.4f} ms device, {h:.4f} host" for m, (d, h) in
+        launch.items()))
+    cfg.overlap_pipeline = "auto"
+    return rows
+
+
+def _overlap_sharded(torch, hvd, tm, eng, dev, log):
+    """Phase 16's sharded flagship LM (AdamW, batch 4) for
+    OVERLAP_SHARDED_STEPS steps under each of OVERLAP_SHARDED_RUNS: the
+    losses and parameters bitwise alike; the prefetch legs, the held row
+    and the counters; after the staged run with the prefetch, a forced
+    world-version bump: the next step drops the held leg (one
+    invalidation) and holds a new one."""
+    cfg, rep = eng.config, eng.replay
+    warm = cfg.step_replay_warmup
+    runs, first = {}, None
+    for mode, prefetch in OVERLAP_SHARDED_RUNS:
+        cfg.overlap_pipeline, cfg.zero1_prefetch = mode, prefetch
+        rep.invalidate_all(f"phase 26 sharded {mode} {prefetch}")
+        _, model, step = make_lm_trainer(torch, hvd, tm, dev, 4,
+                                         sharded=True)
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+        c0, d0 = _overlap_counters(), eng.dispatch_count
+        losses = [float(step()) for _ in range(OVERLAP_SHARDED_STEPS)]
+        run = {"losses": losses,
+               "counters": _counter_moves(_overlap_counters(), c0),
+               "dispatches": eng.dispatch_count - d0,
+               "held": len(eng._zero1_prefetch),
+               "replay": tuple(a - b for a, b in zip(
+                   (rep.captured_streams, rep.replayed_steps,
+                    rep.fallbacks), before))}
+        check(run["replay"] == (1, OVERLAP_SHARDED_STEPS - warm, 0),
+              f"phase 26 sharded {mode} {prefetch}: replay {run['replay']}")
+        legs = run["counters"]["legs"]
+        params = [p.detach().clone() for p in model.parameters()]
+        if first is None:
+            first = (losses, params)
+        else:
+            check(losses == first[0]
+                  and all(torch.equal(a, b)
+                          for a, b in zip(params, first[1])),
+                  f"phase 26 sharded {mode} {prefetch}: not bitwise the "
+                  f"staged prefetch run")
+        del params
+        if mode == "staged" and prefetch:
+            check(legs == OVERLAP_SHARDED_STEPS and run["held"] == 1,
+                  f"phase 26 sharded staged: {legs} legs, {run['held']} "
+                  f"held")
+            # a world-version bump drops the held leg at the next step
+            c1 = _overlap_counters()
+            os.environ["HOROVOD_TPU_WORLD_VERSION"] = str(
+                eng.world_version + 1)
+            step()
+            bump = _counter_moves(_overlap_counters(), c1)
+            run["bump"] = {"dropped": bump["dropped"], "legs": bump["legs"],
+                           "held": len(eng._zero1_prefetch)}
+            check(bump["dropped"] == 1 and bump["legs"] == 1
+                  and run["bump"]["held"] == 1,
+                  f"phase 26 sharded: the bump moved {run['bump']}")
+        else:
+            check(legs == 0 and run["held"] == 0,
+                  f"phase 26 sharded {mode} {prefetch}: {legs} legs")
+        runs[f"{mode}{'' if prefetch else '_no_prefetch'}"] = run
+        log(f"  sharded {mode} (prefetch {prefetch}): losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}; dispatches "
+            f"{run['dispatches']}; counters {run['counters']}; held "
+            f"{run['held']}{'; bump ' + str(run['bump']) if 'bump' in run else ''}")
+        del model, step
+        torch.cuda.empty_cache()
+    del first
+    os.environ.pop("HOROVOD_TPU_WORLD_VERSION", None)
+    rep.invalidate_all("phase 26 sharded done")
+    cfg.overlap_pipeline, cfg.zero1_prefetch = "auto", True
+    return runs
+
+
+def _single_launch_ms(torch, hvd, eng, grads, flush, log):
+    """Phase 26's eager grouped reduction of ``grads`` (the pack off,
+    Average, postscale 0.5) under HOROVOD_TPU_SINGLE_LAUNCH on (one plain
+    pack of every bucket into one buffer) and off (a plain pack a bucket):
+    bitwise alike; the device and host ms of each, in turns
+    (_alternating_ms). Returns {"on"/"off": (device ms, host ms)}."""
+    cfg = eng.config
+
+    def reduce(on):
+        def fn():
+            cfg.single_launch = on
+            return [h.synchronize() for h in eng.grouped_allreduce(
+                grads, op=hvd.Average, postscale_factor=0.5)]
+        return fn
+
+    try:
+        on, off = reduce(True)(), reduce(False)()
+        check(all(torch.equal(a, b) for a, b in zip(on, off)),
+              "phase 26: single_launch on and off differ")
+        del on, off
+        got = _alternating_ms(torch, {"on": reduce(True),
+                                      "off": reduce(False)}, flush,
+                              OVERLAP_TIMED)
+    finally:
+        cfg.single_launch = True
+    log("  lm single_launch (eager, pack off), in turns: bitwise; " +
+        "; ".join(f"{k} {d:.4f} ms device, {h:.4f} host"
+                  for k, (d, h) in got.items()))
+    return got
+
+
+def run_overlap_path(torch, hvd, K, tm, ResNet50, dev, batch, log):
+    """Phase 26: the overlap modes at world size 1. ResNet-50's 161
+    gradients on phase 15's rig (the pack kernel on: K1 a bucket eager, a
+    graph node a bucket replayed) and the flagship LM's 34 with the pack
+    off (the single-launch form eager, the plain pack before each graph)
+    through ``_overlap_reductions`` under "off", "interleave" and
+    "staged", and the LM's eager reduction with single_launch on and off
+    (``_single_launch_ms``); then phase 16's sharded LM through
+    ``_overlap_sharded``. Returns (summary, launch counts)."""
+    from horovod_tpu_torch.core.state import engine
+    eng = engine()
+    cfg = eng.config
+    check(hvd.size() == 1 and cfg.step_replay and cfg.pack_kernel,
+          "phase 26 needs a size-1 world with replay and the pack kernel on")
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    K.reset_launch_counts()
+    _, backward, _, _, _ = _replay_rig(torch, hvd, eng, ResNet50, dev,
+                                       batch)
+    _, grads = backward()
+    check(len(grads) == 161, f"{len(grads)} ResNet-50 gradients")
+    resnet = _overlap_reductions(torch, hvd, eng, K, grads, "resnet", flush,
+                                 log)
+    del backward, grads
+    torch.cuda.empty_cache()
+    _, model, step = make_lm_trainer(torch, hvd, tm, dev, 4, sharded=False)
+    step()
+    grads = [p.grad for p in model.parameters()]
+    check(len(grads) == 34, f"{len(grads)} LM gradients")
+    cfg.pack_kernel = False
+    try:
+        lm = _overlap_reductions(torch, hvd, eng, K, grads, "lm", flush, log)
+        single = _single_launch_ms(torch, hvd, eng, grads, flush, log)
+    finally:
+        cfg.pack_kernel = True
+    del model, step, grads, flush
+    torch.cuda.empty_cache()
+    sharded = _overlap_sharded(torch, hvd, tm, eng, dev, log)
+    counts = K.launch_counts()
+    check(counts["pack"] > 0 and counts["pack_graph"] > 0,
+          f"K1 did not run in phase 26: {counts['pack']} kernels, "
+          f"{counts['pack_graph']} graph nodes")
+    return {"resnet": resnet, "lm": lm, "lm_single_launch": single,
+            "sharded": sharded}, counts
 
 
 def make_trainer(torch, hvd, ResNet50, dev, batch):
@@ -6135,6 +6490,9 @@ def main(argv=None) -> int:
                     help="build, then only trace phase 15's replayed "
                          "reduction in this fresh process and print the "
                          "trace as the last line")
+    ap.add_argument("--overlap-only", action="store_true",
+                    help="build, then only run phase 26 and print its "
+                         "summary and K1's launches as the last line")
     ap.add_argument("--cp-primary", nargs=3, default=None,
                     metavar=("P1", "P2", "HOSTS"),
                     help="run phase 24's KV primary and journaled driver "
@@ -6191,6 +6549,17 @@ def main(argv=None) -> int:
         return elastic_child(torch, hvd, K, tm, log)
     if args.cp_worker:
         return cp_child(torch, hvd, K, tm, log)
+    if args.overlap_only:
+        hvd.init()
+        try:
+            summary, counts = run_overlap_path(torch, hvd, K, tm, ResNet50,
+                                               dev, args.batch, log)
+        finally:
+            hvd.shutdown()
+        print(nvidia_smi_line())
+        print(json.dumps({"overlap": summary, "pack": counts["pack"],
+                          "pack_graph": counts["pack_graph"]}))
+        return 0
     if args.replay_trace:
         return replay_trace_child(torch, hvd, K, ResNet50, bucket_by_size,
                                   dev, args.batch)
@@ -6542,6 +6911,18 @@ def main(argv=None) -> int:
             f"(bitwise), predict; the training callbacks over a hand loop")
         estimator, est_counts = run_estimator_path(torch, hvd, K, tm, dev,
                                                    smi, log, tok_s)
+        torch.cuda.empty_cache()
+
+        t26 = time.perf_counter()
+        log(f"phase 26: the overlap modes ({', '.join(OVERLAP_MODES)}) at "
+            f"world size 1: ResNet-50's 161 gradients with the pack kernel, "
+            f"the flagship LM's 34 with it off (the single-launch form), "
+            f"eager and replayed; the sharded LM under staged with and "
+            f"without the prefetch leg and under off")
+        overlap, overlap_counts = run_overlap_path(
+            torch, hvd, K, tm, ResNet50, dev, args.batch, log)
+        overlap["seconds"] = time.perf_counter() - t26
+        log(f"  phase 26 took {overlap['seconds']:.1f} s")
     finally:
         hvd.shutdown()
 
@@ -6651,7 +7032,9 @@ def main(argv=None) -> int:
              algo_launches=algo_counts["pack"],
              algo_graph_launches=algo_counts["pack_graph"],
              moe_launches=moe_counts["pack"],
-             pp_launches=pp_counts["pack"]),
+             pp_launches=pp_counts["pack"],
+             overlap_launches=overlap_counts["pack"],
+             overlap_graph_launches=overlap_counts["pack_graph"]),
         # K1 into a ZeRO-1 bucket's padded buffer (out=): phase 16's
         # launches, phase 1's numbers
         dict(name="pack_out", route="cuda", source=f"{src}/pack.cu",
@@ -6754,7 +7137,7 @@ def main(argv=None) -> int:
                       "observability": observability, "moe": moe,
                       "pipeline": pipeline, "checkpoint": ckpt,
                       "elastic": elastic, "control_plane": control_plane,
-                      "estimator": estimator,
+                      "estimator": estimator, "overlap": overlap,
                       "resnet_profile": resnet_profile}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

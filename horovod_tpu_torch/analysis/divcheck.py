@@ -118,6 +118,7 @@ COLLECTIVE_SEEDS: Set[str] = {
     # engine-internal submission funnels + agreement exchanges
     "_register", "_register_many", "_join_sync", "_join_loop",
     "_dispatch_substitute", "_hierarchical_ok", "_exchange_sizes",
+    "_exchange_sizes_cached", "_dispatch_exchange",
     "_exchange_rows", "_post_exchange", "_root_flag", "_make_groups",
     "hierarchical_groups", "_warm_groups",
     # the engine's launchers and ops/collectives' (one collective, or a

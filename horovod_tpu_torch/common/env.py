@@ -33,6 +33,34 @@ HOROVOD_JOIN_META_SLOTS = "HOROVOD_JOIN_META_SLOTS"
 # times, service the whole step as one armed program; =0 disables
 HOROVOD_TPU_STEP_REPLAY = "HOROVOD_TPU_STEP_REPLAY"
 HOROVOD_TPU_STEP_REPLAY_WARMUP = "HOROVOD_TPU_STEP_REPLAY_WARMUP"
+# a grouped allreduce as one pack of every bucket into one buffer, then
+# the buckets' collectives back to back (the reference's single-launch
+# form); with HOROVOD_PALLAS_PACK=1 the per-bucket form (K1 a bucket)
+# stays, as the reference keeps it for its Pallas pack
+HOROVOD_TPU_SINGLE_LAUNCH = "HOROVOD_TPU_SINGLE_LAUNCH"
+# the steady-state size cache of allgather and the uneven alltoall: after
+# WARMUP identical exchanges under one (kind, name) the blocking size
+# exchange becomes a posted advertisement, checked when the result is
+# read; =0 negotiates at every call
+HOROVOD_TPU_META_CACHE = "HOROVOD_TPU_META_CACHE"
+HOROVOD_TPU_META_CACHE_WARMUP = "HOROVOD_TPU_META_CACHE_WARMUP"
+# bucket-pipelined overlap (the reference's common/env.py:96-117): "off"
+# issues each bucket's pack, collective and finish in turn; "interleave"
+# every pack first, then the collectives back to back; "staged" splits a
+# replayed step into per-bucket sub-launches (one CUDA graph each on the
+# card, all on the current stream: the host launches bucket k+1 while
+# bucket k runs, their device work does not overlap);
+# "auto" (default) picks per (bytes, topology), Engine._overlap_mode; on
+# a CUDA device "auto" is "off" (one stream: nothing to overlap)
+HOROVOD_TPU_OVERLAP_PIPELINE = "HOROVOD_TPU_OVERLAP_PIPELINE"
+# auto switches from "interleave" to "staged" when a step's gradient bytes
+# reach this (and the world has peers)
+HOROVOD_TPU_OVERLAP_STAGE_BYTES = "HOROVOD_TPU_OVERLAP_STAGE_BYTES"
+# the ZeRO-1 all-gather prefetch leg: under the staged schedule a sharded
+# step's parameter all-gathers issue as their own leg after the update,
+# held by the engine across the step boundary and dropped on world-version
+# bumps; =0 keeps the step in one piece
+HOROVOD_TPU_ZERO1_PREFETCH = "HOROVOD_TPU_ZERO1_PREFETCH"
 # ZeRO-1: DistributedOptimizer(sharded=None) shards the optimizer state
 # when this is on (an optimizer it does not suit stays replicated)
 HOROVOD_TPU_SHARD_OPTIMIZER = "HOROVOD_TPU_SHARD_OPTIMIZER"
@@ -217,6 +245,8 @@ DEFAULT_TREE_THRESHOLD_BYTES = 256 * 1024
 COLLECTIVE_ALGO_MODES = ("auto", "flat", "tree", "hierarchical")
 ALLTOALL_ALGO_MODES = ("auto", "flat", "hierarchical")
 PIPELINE_SCHEDULE_MODES = ("1f1b", "interleaved", "zb", "auto")
+OVERLAP_PIPELINE_MODES = ("auto", "off", "interleave", "staged")
+DEFAULT_OVERLAP_STAGE_BYTES = 8 * 1024 * 1024
 DEFAULT_STALL_WARNING_SECONDS = 60.0
 DEFAULT_CHECKPOINT_KV_CHUNK_BYTES = 4 * 1024 * 1024
 AGG_CARDINALITY_MODES = ("rank", "slice")
@@ -287,6 +317,16 @@ class Config:
     # step replay: on by default, armed after this many identical steps
     step_replay: bool = True
     step_replay_warmup: int = 3
+    # the steady-state size cache of allgather and the uneven alltoall
+    meta_cache: bool = True
+    meta_cache_warmup: int = 2
+    # a grouped allreduce's single-launch form (pack off only)
+    single_launch: bool = True
+    # the collective schedule of a step (Engine._overlap_mode) and the
+    # ZeRO-1 prefetch leg of the staged one; read when a stream arms
+    overlap_pipeline: str = "auto"
+    overlap_stage_bytes: int = DEFAULT_OVERLAP_STAGE_BYTES
+    zero1_prefetch: bool = True
     # the default of DistributedOptimizer(sharded=None): ZeRO-1 off
     shard_optimizer: bool = False
     # the engine's wire codec when a call names none (CODECS of
@@ -364,6 +404,15 @@ class Config:
                                      DEFAULT_JOIN_META_SLOTS),
             step_replay=_get_bool(HOROVOD_TPU_STEP_REPLAY, True),
             step_replay_warmup=_get_int(HOROVOD_TPU_STEP_REPLAY_WARMUP, 3),
+            meta_cache=_get_bool(HOROVOD_TPU_META_CACHE, True),
+            meta_cache_warmup=_get_int(HOROVOD_TPU_META_CACHE_WARMUP, 2),
+            single_launch=_get_bool(HOROVOD_TPU_SINGLE_LAUNCH, True),
+            overlap_pipeline=_get_choice(
+                HOROVOD_TPU_OVERLAP_PIPELINE, "auto",
+                OVERLAP_PIPELINE_MODES),
+            overlap_stage_bytes=_get_int(HOROVOD_TPU_OVERLAP_STAGE_BYTES,
+                                         DEFAULT_OVERLAP_STAGE_BYTES),
+            zero1_prefetch=_get_bool(HOROVOD_TPU_ZERO1_PREFETCH, True),
             shard_optimizer=_get_bool(HOROVOD_TPU_SHARD_OPTIMIZER, False),
             compression=_get_choice(HOROVOD_TPU_COMPRESSION, "none",
                                     COMPRESSION_MODES),

@@ -12,10 +12,9 @@ a launch environment written for the reference carries over.
 Two more tables account for the reference's knobs the port does not read:
 
 - :data:`OWED`: a knob a named ROADMAP item will port, mapped to that
-  item (A10: the overlap pipeline and the launch shapes; A15: autotune and
-  calibration). The launcher already writes ``HOROVOD_AUTOTUNE``,
-  ``HOROVOD_CYCLE_TIME`` and ``HOROVOD_AUTOTUNE_LOG`` for its workers; no
-  port module reads them until A15.
+  item (A15: autotune and calibration). The launcher already writes
+  ``HOROVOD_AUTOTUNE``, ``HOROVOD_CYCLE_TIME`` and ``HOROVOD_AUTOTUNE_LOG``
+  for its workers; no port module reads them until A15.
 - :data:`NOT_OWED`: a knob with no meaning on CUDA, mapped to the reason.
 
 :mod:`horovod_tpu_torch.analysis.knobcheck` lints the three tables: every
@@ -76,6 +75,37 @@ KNOB_SPECS: Dict[str, dict] = {
     "HOROVOD_TPU_STEP_REPLAY_WARMUP": {
         "type": "int", "default": "3",
         "help": "Identical step signatures before a replay stream arms."},
+    "HOROVOD_TPU_SINGLE_LAUNCH": {
+        "type": "bool", "default": "1",
+        "help": "Service a grouped allreduce as one pack of every bucket "
+                "into one buffer, then the buckets' collectives back to "
+                "back (with HOROVOD_PALLAS_PACK=0); =0 restores the "
+                "per-bucket form."},
+    "HOROVOD_TPU_META_CACHE": {
+        "type": "bool", "default": "1",
+        "help": "Steady-state size-negotiation cache for unequal "
+                "allgather/alltoall: hot entries skip the blocking "
+                "exchange with a deferred extract-time check."},
+    "HOROVOD_TPU_META_CACHE_WARMUP": {
+        "type": "int", "default": "2",
+        "help": "Identical world observations before a size-cache entry "
+                "goes hot (posted exchanges)."},
+    "HOROVOD_TPU_OVERLAP_PIPELINE": {
+        "type": "choice", "default": "auto",
+        "choices": ("auto", "off", "interleave", "staged"),
+        "help": "Collective schedule of a step: serial chain, back-to-back "
+                "interleave, per-bucket staged sub-launches (a CUDA graph "
+                "each), or auto per (bytes, topology); auto is off on a "
+                "CUDA device."},
+    "HOROVOD_TPU_OVERLAP_STAGE_BYTES": {
+        "type": "int", "default": str(8 * 1024 * 1024),
+        "help": "Auto mode switches interleave -> staged when a step's "
+                "gradient bytes reach this threshold."},
+    "HOROVOD_TPU_ZERO1_PREFETCH": {
+        "type": "bool", "default": "1",
+        "help": "Split the ZeRO-1 step so the parameter all-gather rides "
+                "as its own prefetch leg under the step tail (staged "
+                "schedule only)."},
     # -- collective algorithm selection ------------------------------------
     "HOROVOD_TPU_COLLECTIVE_ALGO": {
         "type": "choice", "default": "auto",
@@ -398,15 +428,6 @@ KNOB_SPECS: Dict[str, dict] = {
 
 # The reference's knobs a named ROADMAP item will port: knob -> item.
 OWED: Dict[str, str] = {
-    # A10, the overlap remainder: one-launch grouped reductions, the
-    # steady-state size cache, the bucket-pipelined overlap and the ZeRO-1
-    # prefetch
-    "HOROVOD_TPU_SINGLE_LAUNCH": "A10",
-    "HOROVOD_TPU_META_CACHE": "A10",
-    "HOROVOD_TPU_META_CACHE_WARMUP": "A10",
-    "HOROVOD_TPU_OVERLAP_PIPELINE": "A10",
-    "HOROVOD_TPU_OVERLAP_STAGE_BYTES": "A10",
-    "HOROVOD_TPU_ZERO1_PREFETCH": "A10",
     # A15, autotune and calibration; the launcher already writes the first
     # three for its workers (runner/launch.py env_from_args)
     "HOROVOD_AUTOTUNE": "A15",

@@ -32,7 +32,8 @@ ZeRO-1 (the reference's ``sharded_step``, :1911-2164): per bucket of the
 caller's frozen layout, K1 packs the gradients into a padded buffer and a
 reduce-scatter sums it into this rank's shard in place; the caller's
 update steps the shards; an all-gather writes every rank's shard into the
-flat parameter buffer in place (``ops/collectives.py``).
+flat parameter buffer in place (``ops/collectives.py``), as the prefetch
+leg under the staged schedule.
 
 Step replay (the reference's :1015-1060, ``core/replay.py``): between
 :meth:`Engine.step_begin` and :meth:`Engine.step_end` every collective
@@ -104,10 +105,33 @@ allgathers a fingerprint of its name, kind, op, dtype and shape
 (:meth:`Engine._debug_check`) and every rank raises the same error on a
 mismatch; a joined rank's zero substitute sends wildcard rows.
 
-Not ported yet (the reference's other engine paths): the ZeRO-1
-all-gather prefetch leg, replay's overlap modes and single-launch form,
-alltoall's steady-state splits cache (ROADMAP A10), the calibration probe
-and autotune (A15).
+Launch shapes and overlap (the reference's :1065-1160, :1806-1850,
+:2050-2160): with ``HOROVOD_TPU_SINGLE_LAUNCH`` on (the default) and the
+pack kernel off, a grouped allreduce packs every bucket into one buffer
+with one plain pack (a codec's or the ladder's padded bucket into its
+own) and issues the buckets' collectives back to back; with
+``HOROVOD_PALLAS_PACK=1`` each bucket is packed (K1) and reduced in turn.
+:meth:`Engine._overlap_mode` resolves ``HOROVOD_TPU_OVERLAP_PIPELINE``
+for a step (off, interleave, staged; auto by bytes, buckets and world),
+and replay arms its program in that mode (``core/replay.py``). Under
+staged with ``HOROVOD_TPU_ZERO1_PREFETCH`` on, a sharded step's
+all-gathers after the update are the prefetch leg, held in
+``_zero1_prefetch`` across the step boundary and dropped by a
+world-version bump, ``join()`` or a reset
+(:meth:`Engine.invalidate_prefetch`); the values are those of the
+unsplit step. ``hvd_tpu_overlap_*`` count stages, steps and legs.
+
+The steady-state size cache (the reference's :2681-2780): allgather's
+sizes and the uneven alltoall's splits matrix are exchanged under their
+name's hash; after ``HOROVOD_TPU_META_CACHE_WARMUP`` identical exchanges
+the exchange is posted, not read, the collective is built from the cached
+world, and the posted world is checked when the result is read. A
+mismatch raises :class:`HorovodInternalError` on every rank (the rank
+whose sizes changed knows it at once) and the next call negotiates
+again. ``host_fetches`` counts the blocking host reads of a metadata
+exchange, ``deferred_meta_checks`` the checks.
+
+Not ported yet: the calibration probe and autotune (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -132,6 +156,7 @@ from ..common.exceptions import (ConsistencyError, DuplicateNameError,
                                  HorovodInternalError,
                                  TensorDtypeMismatchError,
                                  TensorShapeMismatchError)
+from ..common.lru import lru_put, lru_touch
 from ..common.reduce_ops import ReduceOp
 from ..faults import failpoint
 from ..metrics import registry as metrics_registry
@@ -438,9 +463,15 @@ def _split_op_field(code: int):
 class Engine:
     """Named eager collectives over the default process group."""
 
+    # lock discipline (analysis/lockcheck.py): the outstanding table and
+    # the residuals are shared with handle completion; the ZeRO-1 prefetch
+    # registry is written on the dispatch path and cleared from the
+    # replay, join and elastic invalidation edges. Everything else (the
+    # size cache, replay state, counters) is the dispatching thread's
     _GUARDED_BY = {
         "_outstanding": "_lock",
         "_residuals": "_lock",
+        "_zero1_prefetch": "_lock",
     }
 
     def __init__(self, backend: Backend, config: env_mod.Config):
@@ -464,8 +495,18 @@ class Engine:
         # (work, tensors) of posted join rounds, kept until the work is done
         self._posted = collections.deque()
         # collective launches: one a bucket of a fused call, one a call
-        # otherwise, one a replayed step
+        # otherwise, one a replayed step (one a stage of a staged one)
         self.dispatch_count = 0
+        # blocking host reads of a metadata exchange (_exchange_rows): the
+        # steady-state allgather and uneven alltoall must not grow this
+        self.host_fetches = 0
+        # the steady-state size cache (the reference's ResponseCache role,
+        # response_cache.h:45-102): (kind, name hash) -> the last world
+        # observation, this rank's own row and the streak; a hot entry
+        # posts its exchange and checks it when the result is read
+        self._meta_cache: Dict[tuple, dict] = {}
+        # those extract-time checks of a posted exchange
+        self.deferred_meta_checks = 0
         # metrics registry instruments (metrics.py). With
         # HOROVOD_TPU_METRICS=0 every one is a shared lock-free no-op and
         # _m_enabled short-circuits the bookkeeping branches
@@ -484,6 +525,20 @@ class Engine:
         self._m_saved = _reg.counter("hvd_tpu_compression_bytes_saved_total")
         self._m_res_inval = _reg.counter(
             "hvd_tpu_compression_residual_invalidations_total")
+        # the bucket-pipelined overlap (Engine._overlap_mode): the held
+        # ZeRO-1 all-gather prefetch legs, update key -> {"world_version"}
+        # (the leg's buffers are the layout's own: the row is only the
+        # accounting), and the latch that counts one overlap step a
+        # bracketed step
+        self._zero1_prefetch: Dict[tuple, dict] = {}
+        self._in_step_bracket = False
+        self._overlap_step_noted = False
+        self._m_overlap_stages = _reg.counter(
+            "hvd_tpu_overlap_stage_launches_total")
+        self._m_overlap_steps = _reg.counter("hvd_tpu_overlap_steps_total")
+        self._m_prefetch = _reg.counter("hvd_tpu_overlap_prefetch_total")
+        self._m_prefetch_inval = _reg.counter(
+            "hvd_tpu_overlap_prefetch_invalidations_total")
         # the trace recorder (trace.py) and the step-health monitor
         # (observability/), wired by GlobalState; None when switched off
         self.trace = None
@@ -874,10 +929,13 @@ class Engine:
         core/replay.py)."""
         if self.trace is not None:
             self.trace.record_step(begin=True)
+        self._in_step_bracket = True
+        self._overlap_step_noted = False
         self._replay.step_begin()
 
     def step_end(self):
         self._replay.step_end()
+        self._in_step_bracket = False
         if self.trace is not None:
             self.trace.record_step(begin=False)
         self.step_index += 1
@@ -916,6 +974,90 @@ class Engine:
     def _emit_replay(self, event: str, detail: str):
         if self.on_replay is not None:
             self.on_replay(event, detail)
+
+    # -- bucket-pipelined overlap (the reference's :1065-1160) --------------
+
+    def _overlap_mode(self, nbytes: int = 0, n_buckets: int = 1,
+                      sharded: bool = False) -> str:
+        """The collective schedule of one step: "off" (each bucket's pack,
+        collective and finish in turn), "interleave" (every pack, then the
+        collectives back to back, then the finishes) or "staged" (replay
+        splits the step into per-bucket sub-launches). "auto" picks staged
+        only when the world has peers, the step has more than one stage to
+        overlap (several buckets, or a sharded step) and its bytes reach
+        ``overlap_stage_bytes``; interleave otherwise. In a join-live world
+        with peers staged demotes to interleave on every path: a joined
+        peer's zero substitute services the advertisement with one grouped
+        call. The eager path and replay's stage plan both resolve here, so
+        the warm-up and the steady state pick the same schedule.
+
+        On a CUDA device "auto" is off: every mode's launches go to the
+        one stream the single graph uses, so a staged or interleaved
+        schedule overlaps nothing there and staged adds a graph launch a
+        bucket (PERF.md, phase 26). The explicit modes still pass
+        through."""
+        base = self.config.overlap_pipeline
+        if base == "off" or (base == "auto"
+                             and self.backend.device.type == "cuda"):
+            return "off"
+        mode = base
+        if base == "auto":
+            mode = ("staged"
+                    if (self.backend.size() > 1 and (sharded or n_buckets > 1)
+                        and nbytes >= self.config.overlap_stage_bytes)
+                    else "interleave")
+        if (mode == "staged" and self.config.join_enabled
+                and self.backend.size() > 1):
+            return "interleave"
+        return mode
+
+    def _note_overlap_step(self, mode: str) -> None:
+        """Count a step serviced by a pipelined schedule: once a bracketed
+        step (the latch), once a call outside the brackets. Replayed steps
+        count in core/replay.py: interception returns before this path
+        runs, so the two never count one step twice."""
+        if self._in_step_bracket:
+            if self._overlap_step_noted:
+                return
+            self._overlap_step_noted = True
+        self._m_overlap_steps.inc(mode=mode)
+
+    def _note_prefetch(self, update_key: tuple) -> None:
+        """Record a launched ZeRO-1 all-gather prefetch leg, held across
+        the step boundary. The row is retired, without counting an
+        invalidation, when the next sharded step of ``update_key`` arrives
+        (its gradients were computed from the leg's parameters: the leg
+        was used); a world-version bump, ``join()`` or a reset drops it
+        (:meth:`invalidate_prefetch`)."""
+        with self._lock:
+            self._zero1_prefetch[update_key] = {
+                "world_version": self.world_version}
+        self._m_prefetch.inc()
+
+    def invalidate_prefetch(self, reason: str) -> None:
+        """Drop every held prefetch leg (invalidate, never poison: the next
+        sharded step gathers again)."""
+        with self._lock:
+            dropped = len(self._zero1_prefetch)
+            self._zero1_prefetch.clear()
+        if not dropped:
+            return
+        self._m_prefetch_inval.inc(dropped)
+        self._emit_replay("prefetch-invalidate", reason)
+
+    def _prefetch_gc(self) -> None:
+        """Drop held legs of another world version (an elastic bump seen
+        outside the step markers)."""
+        v = self._refresh_world_version()
+        with self._lock:
+            stale = [k for k, ent in self._zero1_prefetch.items()
+                     if ent["world_version"] != v]
+            for k in stale:
+                del self._zero1_prefetch[k]
+        if stale:
+            self._m_prefetch_inval.inc(len(stale))
+            self._emit_replay("prefetch-invalidate",
+                              f"world-version bump (-> {v})")
 
     def _reduce_launch(self, flat: torch.Tensor, op: ReduceOp,
                        prescale_factor: float,
@@ -1245,27 +1387,45 @@ class Engine:
             self._emit_replay("residual-invalidate",
                               f"world-version bump (-> {v})")
 
-    def _codec_launch(self, tensors: Sequence[torch.Tensor], codec: str,
+    @staticmethod
+    def _padded(op: ReduceOp, algo: str, codec: str) -> bool:
+        """Whether a bucket packs into a padded buffer of its own: a wire
+        codec's zero-tailed one, or the ladder's, padded to the world size
+        (a Sum or Average on the hierarchical algorithm)."""
+        return codec != comp.CODEC_NONE or (
+            algo == C.ALGO_HIERARCHICAL
+            and op in (ReduceOp.SUM, ReduceOp.AVERAGE))
+
+    def _bucket_pack(self, tensors: Sequence[torch.Tensor], op: ReduceOp,
+                     algo: str, codec: str) -> torch.Tensor:
+        """One bucket's tensors packed into a buffer of its own (K1 under
+        ``HOROVOD_PALLAS_PACK``): a new flat buffer, or where
+        :meth:`_padded` says so K1's ``out=`` form into a zero-tailed
+        buffer padded to the local size (a codec's hierarchical arm) or to
+        the world size (the flat codec arm, the ladder)."""
+        if not self._padded(op, algo, codec):
+            return C.pack_bucket(tensors, self.config.pack_kernel)
+        hier = algo == C.ALGO_HIERARCHICAL
+        n = (self._hier_sizes()[0] if hier and codec != comp.CODEC_NONE
+             else self.backend.size())
+        padded = C.padded_bucket(sum(t.numel() for t in tensors), n,
+                                 tensors[0].dtype, tensors[0].device)
+        return C.pack_padded(tensors, padded, self.config.pack_kernel)
+
+    def _codec_launch(self, flat: torch.Tensor, total: int, codec: str,
                       residual: Optional[torch.Tensor], op: ReduceOp,
                       prescale_factor: float, postscale_factor: float,
                       algo: str = C.ALGO_FLAT):
-        """One bucket's compressed allreduce: K1 (under
-        ``HOROVOD_PALLAS_PACK``) into a zero-tailed padded buffer, then the
-        codec reduction, ordered on this process's stream: the
-        hierarchical arm (``C.codec_hier_allreduce``, the bucket padded to
-        the local size) on the ladder, the flat one (``C.codec_allreduce``,
-        padded to the world size) on flat and tree, whose pair rounds
-        would compound the quantization error. Returns the reduced prefix
-        and its launch group."""
+        """One bucket's compressed allreduce on its packed zero-tailed
+        buffer (:meth:`_bucket_pack`), ordered on this process's stream:
+        the hierarchical arm (``C.codec_hier_allreduce``) on the ladder,
+        the flat one (``C.codec_allreduce``) on flat and tree, whose pair
+        rounds would compound the quantization error. Returns the reduced
+        prefix and its launch group."""
         n, rank = self.backend.size(), self.backend.rank()
         avg = n if op == ReduceOp.AVERAGE else 1
-        total = sum(t.numel() for t in tensors)
-        hier = algo == C.ALGO_HIERARCHICAL
-        local, cross = self._hier_sizes()
-        flat = C.padded_bucket(total, local if hier else n,
-                               tensors[0].dtype, tensors[0].device)
-        C.pack_padded(tensors, flat, self.config.pack_kernel)
-        if hier:
+        if algo == C.ALGO_HIERARCHICAL:
+            local, cross = self._hier_sizes()
             _translate_failure(C.codec_hier_allreduce, flat, total,
                                residual, codec, local, cross, avg,
                                prescale_factor, postscale_factor,
@@ -1276,25 +1436,25 @@ class Engine:
                                postscale_factor, None)
         return flat[:total], LaunchGroup(_StreamWork(flat.device))
 
-    def _bucket_launch(self, tensors: Sequence[torch.Tensor], op: ReduceOp,
+    def _bucket_launch(self, buf: torch.Tensor, total: int, op: ReduceOp,
                        prescale_factor: float, postscale_factor: float,
-                       algo: str):
-        """One uncompressed bucket: the pack (K1 under
-        ``HOROVOD_PALLAS_PACK``) and the reduction under ``algo``; the
-        ladder's bucket is packed with K1's ``out=`` form straight into a
-        buffer padded to the world size. Returns the reduced buffer and
-        its launch group."""
-        if algo != C.ALGO_HIERARCHICAL or op not in (ReduceOp.SUM,
-                                                     ReduceOp.AVERAGE):
-            flat = C.pack_bucket(tensors, self.config.pack_kernel)
-            return flat, self._reduce_launch(flat, op, prescale_factor,
-                                             postscale_factor, algo)
-        total = sum(t.numel() for t in tensors)
-        padded = C.padded_bucket(total, self.backend.size(),
-                                 tensors[0].dtype, tensors[0].device)
-        C.pack_padded(tensors, padded, self.config.pack_kernel)
-        return padded[:total], self._reduce_launch(
-            padded, op, prescale_factor, postscale_factor, algo, total)
+                       algo: str, codec: str = comp.CODEC_NONE,
+                       residual: Optional[torch.Tensor] = None):
+        """One bucket's reduction on its packed buffer (its first ``total``
+        elements; :meth:`_bucket_pack`, or a slice of the single-launch
+        form's group buffer): the compressed one for a bucket with a wire
+        codec, else the reduction under ``algo``, the ladder's on the
+        buffer padded to the world size. Returns the reduced elements and
+        their launch group."""
+        if codec != comp.CODEC_NONE:
+            return self._codec_launch(buf, total, codec, residual, op,
+                                      prescale_factor, postscale_factor,
+                                      algo)
+        if buf.numel() == total:
+            return buf, self._reduce_launch(buf, op, prescale_factor,
+                                            postscale_factor, algo)
+        return buf[:total], self._reduce_launch(
+            buf, op, prescale_factor, postscale_factor, algo, total)
 
     # -- collectives -------------------------------------------------------
 
@@ -1339,24 +1499,18 @@ class Engine:
         self._count(self._selection_counts(
             "allreduce", [x.nbytes], [x.element_size()], [algo],
             [bucket_codec]))
+        residual = None
         if bucket_codec != comp.CODEC_NONE:
             failpoint("compression.encode")
-            residuals = self._fetch_residuals(self._grouped_residuals(
+            residual = self._fetch_residuals(self._grouped_residuals(
                 "gar", orig_name, [x.numel()], [x.dtype], [bucket_codec],
-                [algo]))
-            t0 = self._pre_launch()
-            flat, group = self._codec_launch(
-                [x.contiguous()], bucket_codec, residuals.get(0), op,
-                prescale_factor, postscale_factor, algo)
-            self._launched(name, t0)
-            return self._track(Handle(name, group,
-                                      lambda: flat.view(x.shape), self,
-                                      "allreduce"))
+                [algo])).get(0)
         t0 = self._pre_launch()
-        if algo == C.ALGO_HIERARCHICAL:
-            flat, group = self._bucket_launch([x.contiguous()], op,
-                                              prescale_factor,
-                                              postscale_factor, algo)
+        if bucket_codec != comp.CODEC_NONE or algo == C.ALGO_HIERARCHICAL:
+            buf = self._bucket_pack([x.contiguous()], op, algo, bucket_codec)
+            flat, group = self._bucket_launch(
+                buf, x.numel(), op, prescale_factor, postscale_factor, algo,
+                bucket_codec, residual)
             self._launched(name, t0)
             return self._track(Handle(name, group,
                                       lambda: flat.view(x.shape), self,
@@ -1375,10 +1529,13 @@ class Engine:
                           postscale_factor: float = 1.0,
                           codec: Optional[str] = None) -> List[Handle]:
         """Fused allreduce: per-dtype buckets of at most the fusion
-        threshold, one pack and one collective per bucket (the compressed
-        reduction for a bucket with a wire codec: ``codec`` overrides
+        threshold, one collective per bucket (the compressed reduction for
+        a bucket with a wire codec: ``codec`` overrides
         ``HOROVOD_TPU_COMPRESSION``); each output is a view of its
-        bucket's reduced buffer."""
+        bucket's reduced buffer. With ``HOROVOD_TPU_SINGLE_LAUNCH`` on
+        (the default) and ``HOROVOD_PALLAS_PACK`` off one plain pack fills
+        every bucket's slice of one buffer before the collectives; with
+        the pack kernel each bucket is packed (K1) and reduced in turn."""
         tensors = [self._tensor(t) for t in tensors]
         sub = self._consume_substitute()
         for t in tensors:
@@ -1442,23 +1599,41 @@ class Engine:
             "allreduce", nbytes,
             [tensors[idxs[0]].element_size() for idxs in buckets], algos,
             codecs))
+        # one derivation of the residual rows for both forms below: a
+        # codec's lineage runs on across a single_launch flip
+        sizes = [sum(tensors[i].numel() for i in idxs) for idxs in buckets]
         residuals = self._fetch_residuals(self._grouped_residuals(
-            "gar", name, [sum(tensors[i].numel() for i in idxs)
-                          for idxs in buckets],
-            [tensors[idxs[0]].dtype for idxs in buckets], codecs, algos))
+            "gar", name, sizes, [tensors[idxs[0]].dtype for idxs in buckets],
+            codecs, algos))
+        bufs = pres = None
+        if self.config.single_launch and not self.config.pack_kernel:
+            # the single-launch form (the reference's :1806-1850): one pack
+            # of every bucket into one buffer, prescaled once (a padded
+            # bucket, a codec's or the ladder's, packs into its own), then
+            # the buckets' collectives back to back, nothing between two
+            if self._overlap_mode(sum(t.nbytes for t in tensors),
+                                  len(buckets)) != "off":
+                self._note_overlap_step("interleave")
+            padded = [self._padded(op, a, c) for a, c in zip(algos, codecs)]
+            shared = iter(C.pack_group(
+                tensors, [idxs for idxs, p in zip(buckets, padded) if not p],
+                prescale_factor))
+            bufs = [self._bucket_pack([tensors[i] for i in idxs], op,
+                                      algos[b], codecs[b]) if padded[b]
+                    else next(shared) for b, idxs in enumerate(buckets)]
+            pres = [prescale_factor if p else 1.0 for p in padded]
         handles: List[Optional[Handle]] = [None] * len(tensors)
         for b, idxs in enumerate(buckets):
-            # per bucket: pack, then reduce (the form the reference takes
-            # with its Pallas pack, whose packing is its own launch)
-            bucket = [tensors[i] for i in idxs]
             t0 = self._pre_launch()
-            if codecs[b] != comp.CODEC_NONE:
-                flat, group = self._codec_launch(
-                    bucket, codecs[b], residuals.get(b), op,
-                    prescale_factor, postscale_factor, algos[b])
-            else:
-                flat, group = self._bucket_launch(
-                    bucket, op, prescale_factor, postscale_factor, algos[b])
+            buf, pre = (bufs[b], pres[b]) if bufs is not None else (
+                # per bucket: pack, then reduce (the form the reference
+                # takes with its Pallas pack, whose packing is its own
+                # launch)
+                self._bucket_pack([tensors[i] for i in idxs], op, algos[b],
+                                  codecs[b]), prescale_factor)
+            flat, group = self._bucket_launch(
+                buf, sizes[b], op, pre, postscale_factor, algos[b],
+                codecs[b], residuals.get(b))
             self._launched([names[i] for i in idxs], t0)
             views = C.unpack_flat(flat, [tuple(tensors[i].shape)
                                          for i in idxs])
@@ -1543,13 +1718,21 @@ class Engine:
                            "grouped_broadcast"))
         return handles
 
-    def allgather(self, tensor, name: Optional[str] = None) -> Handle:
+    def allgather(self, tensor, name: Optional[str] = None,
+                  _sub_hash: Optional[int] = None) -> Handle:
         """Allgather along dim 0 with possibly different dim-0 sizes per rank
         (a size exchange, a padded gather, then trim and concatenate). The
         gather is flat or, where the selection says so (the reference's
         :2185-2244), two-level: a local gather, then a cross gather of the
         islands' blocks. The choice reads the agreed padded size, so every
-        rank makes it alike."""
+        rank makes it alike. The size exchange goes through the
+        steady-state cache (:meth:`_exchange_sizes_cached`): once hot it
+        is posted and checked when the result is read.
+
+        ``_sub_hash`` (internal): a joined rank's zero substitute passes the
+        advertised name hash, so it contributes zeros of the size it
+        advertised for that name before and replays its hot peers' posted
+        exchange (the reference's :2168-2183)."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         links = None
@@ -1567,12 +1750,27 @@ class Engine:
                               links[0] if links else None)
         if x.dim() == 0:
             x = x[None]
-        self._join_sync("allgather", [_join_meta_row(x, 0)], sub)
+        key_hash = (_sub_hash if _sub_hash is not None
+                    else self._meta_hash(name))
+        # the join row's op field carries the name hash (bit 0, the
+        # reference's equal-sizes flag, stays clear)
+        self._join_sync("allgather", [_join_meta_row(x, key_hash << 1)],
+                        sub)
         self._debug_check(name, "allgather", [x], check_dim0=False,
                           wildcard=sub)
-        sizes = self._exchange_sizes(int(x.shape[0]))
-        max_d0 = max(sizes)
+        if _sub_hash is not None:
+            ent = self._meta_cache.get(("allgather", _sub_hash))
+            if ent is not None:
+                x = x.new_zeros((int(ent["local"][0]),) + tuple(x.shape[1:]))
         d0 = int(x.shape[0])
+        world, deferred = self._exchange_sizes_cached(
+            "allgather", key_hash, np.array([d0]))
+        sizes = world[:, 0].tolist()
+        max_d0 = max(sizes)
+        if d0 > max_d0:
+            # this rank's rows grew past its hot peers' cached shape: that
+            # shape goes out all the same (every rank raises at extract)
+            x, d0 = x[:max_d0], max_d0
         algo = self._choose_algo(
             "allgather", x.nbytes // max(d0, 1) * max_d0)
         self._count(self._selection_counts("allgather", [x.nbytes],
@@ -1597,6 +1795,7 @@ class Engine:
         self._launched(name, t0)
 
         def extract():
+            self._verify_deferred(name, deferred)
             if all(s == max_d0 for s in sizes):
                 return torch.cat(outs)
             return torch.cat([o[:s] for o, s in zip(outs, sizes)])
@@ -1605,8 +1804,8 @@ class Engine:
         h.recv_sizes = np.asarray(sizes)
         return self._track(h)
 
-    def alltoall(self, tensor, splits=None,
-                 name: Optional[str] = None) -> Handle:
+    def alltoall(self, tensor, splits=None, name: Optional[str] = None,
+                 _sub_hash: Optional[int] = None) -> Handle:
         """Alltoall with optional uneven splits (the reference's :2384,
         operations.cc:951): rank r gets ``splits[r]`` rows of this rank's
         dim 0, in rank order; without ``splits`` dim 0 must divide by the
@@ -1619,14 +1818,22 @@ class Engine:
         selection, are alike) the exchange is flat or the two-phase one
         (the reference's :2384-2500), with ``HOROVOD_TPU_ALLTOALL_CODEC``
         on the two-phase exchange's cross phase; other splits keep the
-        flat exchange. Not ported: the reference's steady-state splits
-        cache (ROADMAP A10)."""
+        flat exchange. The splits matrix goes through the steady-state
+        size cache (:meth:`_exchange_sizes_cached`), as allgather's sizes
+        do; ``_sub_hash`` is :meth:`allgather`'s."""
         x = self._tensor(tensor)
         sub = self._consume_substitute()
         self._replay.observe("alltoall", sub, [x], name)
         if x.dim() == 0:
             raise ValueError("alltoall requires a tensor with dim 0")
         size, rank = self.backend.size(), self.backend.rank()
+        if _sub_hash is not None:
+            ent = self._meta_cache.get(("alltoall", _sub_hash))
+            if ent is not None:
+                # zeros under the joined rank's own earlier splits, so its
+                # hot peers' cached matrix (and shapes) still hold
+                splits = ent["local"]
+                x = x.new_zeros((int(splits.sum()),) + tuple(x.shape[1:]))
         d0 = int(x.shape[0])
         if splits is None:
             if d0 % size:
@@ -1658,7 +1865,9 @@ class Engine:
         self._m_account("alltoall", [x], links)
         name = self._register(name, "alltoall", x.nbytes,
                               links[0] if links else None)
-        self._join_sync("alltoall", [_join_meta_row(x, 0)], sub)
+        key_hash = (_sub_hash if _sub_hash is not None
+                    else self._meta_hash(name))
+        self._join_sync("alltoall", [_join_meta_row(x, key_hash << 1)], sub)
         self._debug_check(name, "alltoall", [x], check_dim0=False,
                           wildcard=sub)
         if size == 1:
@@ -1668,7 +1877,16 @@ class Engine:
             self._launched(name, self._pre_launch(), 0)
             return self._track(Handle(name, LaunchGroup(_StreamWork(x.device)),
                                       lambda: (x, recv), self, "alltoall"))
-        matrix = self._exchange_rows(send)
+        matrix, deferred = self._exchange_sizes_cached("alltoall", key_hash,
+                                                       send)
+        if deferred is not None and deferred["stale_local"]:
+            # this rank's splits changed while its peers are hot: its
+            # cached row goes out, the rows cut or zero-padded to it (every
+            # rank raises at extract)
+            send = matrix[rank].copy()
+            rows = int(send.sum())
+            x = x[:rows] if rows <= x.shape[0] else torch.cat(
+                [x, x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))])
         recv = matrix[:, rank]
         algo, codec = C.ALGO_FLAT, comp.CODEC_NONE
         if (matrix == matrix[0, 0]).all():
@@ -1690,8 +1908,13 @@ class Engine:
                                       async_op=True)
         self._launched(name, t0)
         recv = torch.from_numpy(recv)
-        return self._track(Handle(name, LaunchGroup(work),
-                                  lambda: (out, recv), self, "alltoall"))
+
+        def extract():
+            self._verify_deferred(name, deferred)
+            return out, recv
+
+        return self._track(Handle(name, LaunchGroup(work), extract, self,
+                                  "alltoall"))
 
     def grouped_alltoall(self, tensors: Sequence,
                          name: Optional[str] = None) -> List[Handle]:
@@ -1906,10 +2129,17 @@ class Engine:
                     "sharded_step", [b.grads.dtype for b in buckets],
                     call_codec, count=False), ag_algos))
             # the armed program ran the first half (its one dispatch
-            # covers the gathers too); this orders the stream after it
-            r[0].synchronize()
+            # covers the gathers too, but for the staged prefetch leg's);
+            # this orders the stream after it
+            zag = r[0].synchronize()
             update()
-            self._gather_shards(buckets, ag_algos)
+            if zag:
+                # the staged program's second stage: the prefetch leg
+                self._prefetch_leg(buckets, ag_algos)
+                self._count_dispatch()
+                self._m_overlap_stages.inc(kind="replay_zag")
+            else:
+                self._gather_shards(buckets, ag_algos)
             return
         names = self._register_many(
             [None if name is None else f"{name}.{i}"
@@ -1925,14 +2155,34 @@ class Engine:
         self._count(self._sharded_counts(grads, buckets, codecs, ag_algos))
         if any(c != comp.CODEC_NONE for c in codecs):
             failpoint("compression.encode")
+        # a world-version bump drops held prefetch legs outside the step
+        # markers too; then this layout's own leg is retired: the
+        # gradients arriving now were computed from its parameters
+        self._prefetch_gc()
+        with self._lock:
+            self._zero1_prefetch.pop(_update_key(buckets), None)
+        mode = self._overlap_mode(sum(g.nbytes for g in grads), len(buckets),
+                                  sharded=True)
+        # the split leg belongs to the staged schedule, the one replay
+        # sustains with its zupd and zag stages
+        prefetch = self.config.zero1_prefetch and mode == "staged"
+        if mode != "off" and not prefetch:
+            self._note_overlap_step("interleave")
         t0 = self._pre_launch()
         launches = _translate_failure(
             C.scatter_shards, buckets, grads, self.config.pack_kernel, n,
-            prescale_factor, postscale_factor, None, True, codecs, residuals)
+            prescale_factor, postscale_factor, None, True, codecs, residuals,
+            interleave=mode != "off")
         self._launched(names, t0, launches)
         update()
         t0 = self._pre_launch()
-        self._launched(names, t0, self._gather_shards(buckets, ag_algos))
+        if prefetch:
+            self._launched(names, t0, self._prefetch_leg(buckets, ag_algos))
+            # the two sub-launches of the split step
+            self._m_overlap_stages.inc(2.0, kind="sharded_prefetch")
+            self._note_overlap_step("staged")
+        else:
+            self._launched(names, t0, self._gather_shards(buckets, ag_algos))
         # no handle waits on a sharded step: its completion is ordered on
         # the stream, and the host's edge is here
         self._note_done(names)
@@ -1994,6 +2244,20 @@ class Engine:
             hier = (*self.hierarchical_groups(), *self._hier_sizes())
         return _translate_failure(C.gather_shards, buckets, None, True,
                                   algos, hier)
+
+    def _prefetch_leg(self, buckets, algos) -> int:
+        """The ZeRO-1 all-gather prefetch leg (the reference's :2127-2152):
+        after the ``overlap.prefetch`` failpoint every bucket's all-gather
+        issues as one leg into the layout's parameter buffers, and the leg
+        is held (:meth:`_note_prefetch`). The parameters are views of those
+        buffers, so nothing may read them before the leg lands: the
+        current stream waits on its works before this returns (a stream
+        dependency on the card, never a host wait; on gloo the works are
+        waited). Returns the collectives launched."""
+        failpoint("overlap.prefetch")
+        launched = self._gather_shards(buckets, algos)
+        self._note_prefetch(_update_key(buckets))
+        return launched
 
     def _sharded_residual_key(self, bucket, codec: str) -> Optional[tuple]:
         """The residual of a sharded step's bucket (``cls`` "sharded": the
@@ -2136,7 +2400,7 @@ class Engine:
             from ..ops.adasum import adasum_allreduce_handle
             hs = [adasum_allreduce_handle(self, zero(metas[0]))]
         elif kind == "allgather":
-            hs = [self.allgather(zero(metas[0]))]
+            hs = [self.allgather(zero(metas[0]), _sub_hash=arg >> 1)]
         elif kind == "broadcast":
             hs = [self.broadcast(zero(metas[0]), root_rank=arg)]
         elif kind == "grouped_broadcast":
@@ -2148,11 +2412,14 @@ class Engine:
             # the advertised shapes divide the world (the even-split
             # contract), so a zero group runs the active ranks' buckets
             hs = self.grouped_alltoall([zero(r) for r in metas])
-        else:   # alltoall: the rows spread evenly, the first ranks one more
+        else:   # alltoall: the rows spread evenly, the first ranks one
+            # more (alltoall takes this rank's own earlier splits instead
+            # where its size cache holds the advertised name)
             z = zero(metas[0])
             base, rem = divmod(int(z.shape[0]), self.backend.size())
             hs = [self.alltoall(z, splits=[
-                base + (r < rem) for r in range(self.backend.size())])]
+                base + (r < rem) for r in range(self.backend.size())],
+                _sub_hash=arg >> 1)]
         for h in hs:
             h.synchronize()
 
@@ -2305,21 +2572,25 @@ class Engine:
 
     def _exchange_rows(self, vec: np.ndarray) -> np.ndarray:
         """Allgather of every rank's int64 vector (one length on every
-        rank), read on the host: (size, len)."""
+        rank), read on the host: (size, len). Each call is one blocking
+        host read, counted in ``host_fetches``."""
         mine = torch.from_numpy(np.ascontiguousarray(vec, dtype=np.int64))
         mine = mine.to(self.backend.device)
         out = mine.new_empty(self.backend.size() * mine.numel())
         _translate_failure(C.all_gather, out, mine, None)
+        self.host_fetches += 1
         return out.cpu().numpy().reshape(self.backend.size(), -1)
 
-    def _post_exchange(self, vec: np.ndarray):
-        """The same allgather, posted and never read (a join round on an
-        active rank): on the card the vector goes through a pinned host
-        buffer and an async copy, so nothing waits on the host; its tensors
-        are kept until the work completes."""
+    def _dispatch_exchange(self, vec: np.ndarray):
+        """The same allgather, posted and not read here (a join round on an
+        active rank, a hot size cache's advertisement): on the card the
+        vector goes through a pinned host buffer and an async copy, so
+        nothing waits on the host; its tensors are kept until the work
+        completes. Returns ``(work, gathered)``: a later read of the
+        gathered (size * len) tensor waits on ``work`` first."""
         while self._posted and self._posted[0][0].is_completed():
             self._posted.popleft()
-        mine = torch.from_numpy(vec)
+        mine = torch.from_numpy(np.ascontiguousarray(vec, dtype=np.int64))
         keep = [mine]
         if self.backend.device.type == "cuda":
             mine = mine.pin_memory()
@@ -2329,6 +2600,100 @@ class Engine:
         work = _translate_failure(C.all_gather, out, mine, None,
                                   async_op=True)
         self._posted.append((work, keep + [mine, out]))
+        return work, out
+
+    def _post_exchange(self, vec: np.ndarray):
+        """:meth:`_dispatch_exchange` whose result nobody reads (a join
+        round on an active rank)."""
+        self._dispatch_exchange(vec)
+
+    # -- the steady-state size cache (the reference's :2681-2780) ----------
+
+    def _meta_hash(self, name: str) -> int:
+        """The 30-bit name hash that keys the size cache and rides a join
+        row (shifted left one bit), so a joined rank's substitute finds
+        its own entry for the op it matches. A collision merges two
+        names' entries; differing sizes then surface through the deferred
+        check as a loud mismatch, never as silent corruption."""
+        return self._h63(name) & ((1 << 30) - 1)
+
+    def _exchange_sizes_cached(self, kind: str, key_hash: int,
+                               local_vec: np.ndarray):
+        """The size exchange of ``kind`` under one name, with the
+        steady-state cache: after ``meta_cache_warmup`` identical world
+        observations the exchange is posted (:meth:`_dispatch_exchange`)
+        and the cached world shapes the collective now; the posted one is
+        checked when the result is read (:meth:`_verify_deferred`).
+        Returns ``(world, deferred)``, world an int64 (size, len) array."""
+        local_vec = np.asarray(local_vec, dtype=np.int64).reshape(-1)
+        if self.backend.size() == 1:
+            return local_vec[None], None
+        key = (kind, key_hash)
+        ent = self._meta_cache.get(key)
+        if (self.config.meta_cache and ent is not None
+                and ent["streak"] >= self.config.meta_cache_warmup):
+            lru_touch(self._meta_cache, key, ent)
+            work, gathered = self._dispatch_exchange(local_vec)
+            # this rank's sizes changed while its peers are hot: a blocking
+            # exchange here would build another collective than theirs (a
+            # hang), so the cached world stands on every rank (the call
+            # fits its input to it; the data is garbage) and the check
+            # fails everywhere: the peers see the changed advertisement,
+            # this rank knows it changed
+            stale = not np.array_equal(ent["local"], local_vec)
+            deferred = {"key": key, "work": work, "gathered": gathered,
+                        "expected": ent["world"], "error": None,
+                        "checked": False, "stale_local": stale}
+            return ent["world"], deferred
+        world = self._exchange_rows(local_vec)
+        if ent is not None and np.array_equal(ent["world"], world):
+            ent["streak"] += 1
+            ent["local"] = local_vec.copy()
+            lru_touch(self._meta_cache, key, ent)
+        else:
+            lru_put(self._meta_cache, key,
+                    {"world": world, "streak": 1, "local": local_vec.copy()},
+                    self.config.cache_capacity)
+        return world, None
+
+    def _verify_deferred(self, name: str, deferred) -> None:
+        """The extract-time check of a posted size exchange: what the peers
+        advertised against the cached world the collective was built from.
+        A mismatch drops the entry (the next call negotiates) and raises
+        on every rank. The outcome is remembered: every later extract of
+        the handle raises again."""
+        if deferred is None:
+            return
+        if deferred["checked"]:
+            if deferred["error"] is not None:
+                raise deferred["error"]
+            return
+        mismatch = deferred["stale_local"]
+        if not mismatch:
+            self.deferred_meta_checks += 1
+            _translate_failure(deferred["work"].wait)
+            world = deferred["gathered"].cpu().numpy().reshape(
+                self.backend.size(), -1)
+            mismatch = not np.array_equal(world, deferred["expected"])
+        deferred["checked"] = True
+        if mismatch:
+            self._meta_cache.pop(deferred["key"], None)
+            deferred["error"] = HorovodInternalError(
+                f"steady-state size cache mismatch for {name!r}: tensor "
+                f"sizes changed after {self.config.meta_cache_warmup} "
+                f"identical exchanges (cached "
+                f"{deferred['expected'].tolist()}). The op's result was "
+                f"discarded on every rank. Use distinct tensor names for "
+                f"varying-size collectives, or set "
+                f"HOROVOD_TPU_META_CACHE=0.")
+            raise deferred["error"]
+
+
+def _update_key(buckets) -> tuple:
+    """The identity of one ZeRO-1 layout's update (the reference's
+    ``update_key``): its buckets' tokens, the key of its held prefetch
+    leg."""
+    return ("zero1",) + tuple(b.token for b in buckets)
 
 
 def _host_key() -> int:

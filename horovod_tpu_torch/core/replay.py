@@ -42,7 +42,8 @@ per-step host cost, there one fused XLA launch; here one CUDA graph):
   joined rank's zero substitute (one grouped allreduce of the advertised
   rows) issues the graph's collectives: the same buckets in the same order.
 - ``join()`` and an elastic world-version bump invalidate every armed
-  stream and every error-feedback residual; a move of the fusion
+  stream, every held ZeRO-1 prefetch leg and every error-feedback
+  residual; a move of the fusion
   threshold, the pack knob, the join switch or any knob the algorithm
   selection reads (``Engine._algo_sig``: ``HOROVOD_TPU_COLLECTIVE_ALGO``,
   the thresholds, the legacy hierarchy switches, ``HOROVOD_TPU_COMPRESSION``
@@ -100,8 +101,24 @@ uneven alltoall, reducescatter, barrier and Adasum go through
   post its own round mid-step); the MoE-EP step replays under
   ``HOROVOD_JOIN_DISABLE=1``.
 
-Not ported: the reference's overlap modes, staged sub-launches, the
-ZeRO-1 prefetch leg and the single-launch form (A10's remainder).
+Overlap modes (the reference's :440-474, :689-692, :704-780, :821-969):
+a stream arms in the mode ``Engine._overlap_mode`` resolves for its bytes
+and buckets, with ``zero1_prefetch`` beside it; a move of either rebuilds
+the program. Under "off" each bucket's pack, collective and finish follow
+the last bucket's; under "interleave" the program (one CUDA graph, or the
+eager plan) holds every pack first, then the collectives back to back,
+then the finishes; under "staged" each bucket is a stage of its own
+(:func:`_stage_plan`; one CUDA graph each on the card, an
+:class:`_EagerProgram` each on gloo) launched in order, one dispatch a
+stage: the host launches stage k+1 while stage k runs, but on the card
+every stage goes to the one current stream, so no two stages' device
+work overlaps. A staged sharded step is the ``zupd`` stage (K1, the
+reduce-scatter and the finish), the eager update, then the ``zag`` stage:
+the all-gathers as the engine's prefetch leg; with the prefetch off it
+stays one stage. ``hvd_tpu_overlap_stage_launches_total`` counts each
+stage (``replay_seg``, ``replay_zupd``, ``replay_zag``) and
+``hvd_tpu_overlap_steps_total`` each replayed step not under "off"; a
+replayed step counts here only, never on the eager path too.
 
 Observability (the reference's :227-235, :771-875): the registry counts
 bracketed steps, armed streams, replayed steps, fallbacks (by reason,
@@ -322,21 +339,46 @@ def _selection_counts(engine, buckets):
     return sel, links
 
 
+def _stage_plan(segments) -> List[list]:
+    """The per-bucket stages of the "staged" overlap mode (the reference's
+    ``_stage_plan``, :704-780): each bucket of a reduce, broadcast or
+    alltoall segment becomes its own one-bucket segment list, in the
+    step's order. A stage's slots are the step's own, so its results land
+    where the monolithic program's do."""
+    return [[seg._replace(buckets=(idxs,), codecs=(seg.codecs[j],),
+                          residuals=(seg.residuals[j],),
+                          algos=(seg.algos[j],))]
+            for seg in segments for j, idxs in enumerate(seg.buckets)]
+
+
 class _EagerProgram:
-    """The armed plan issued eagerly, for CPU tensors: per bucket the pack,
-    the prescale, the collective (or the compressed reduction) and the
-    finish, as the eager grouped calls issue them, behind one join
-    advertisement a step."""
+    """The armed plan issued eagerly, for CPU tensors, behind one join
+    advertisement a step: per bucket the pack, the prescale, the
+    collective (or the compressed reduction) and the finish, as the eager
+    grouped calls issue them; under "interleave" every bucket's pack
+    first, then the collectives back to back."""
     tables = 0
     copy_outs = 0
+    # the program is one launch: no stage of the staged mode
+    stage_kinds = ()
 
-    def __init__(self, engine, segments, join_metas):
+    def __init__(self, engine, segments, join_metas, mode: str = "off"):
         self.engine = engine
+        self.mode = mode
         self.buckets = _buckets(segments)
         self.join_metas = join_metas
         self.residual_keys = _held_keys(self.buckets)
         self.codecs = [b.codec for b in self.buckets]
         self.counts = _selection_counts(engine, self.buckets)
+
+    def _pack(self, b: _Bucket, inputs) -> torch.Tensor:
+        ts = [inputs[s] for s in b.slots]
+        if b.seg.cls == "a2a":
+            return C.a2a_pack(ts, self.engine.backend.size())
+        if b.seg.cls == "reduce":
+            return self.engine._bucket_pack(ts, ReduceOp(b.seg.code),
+                                            b.algo, b.codec)
+        return C.pack_bucket(ts, False)
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _translate_failure
@@ -344,35 +386,37 @@ class _EagerProgram:
         if self.join_metas is not None:
             eng._join_sync("grouped_allreduce", self.join_metas, False)
         residuals = _residual_buffers(eng, self.buckets)
+        bufs = ([self._pack(b, inputs) for b in self.buckets]
+                if self.mode == "interleave" else None)
         out: List[Optional[_Bound]] = [None] * len(inputs)
-        for b, residual in zip(self.buckets, residuals):
-            ts = [inputs[s] for s in b.slots]
+        for j, (b, residual) in enumerate(zip(self.buckets, residuals)):
+            buf = bufs[j] if bufs is not None else self._pack(b, inputs)
             seg = b.seg
             if seg.cls == "a2a":
                 size = eng.backend.size()
-                packed = C.a2a_pack(ts, size)
                 if size == 1:
-                    got, group = packed, LaunchGroup(())
+                    got, group = buf, LaunchGroup(())
                 else:
-                    got, group = eng._a2a_launch(packed, b.algo, b.codec)
+                    got, group = eng._a2a_launch(buf, b.algo, b.codec)
                 unpack = C.lazy_a2a_unpack(got, b.shapes)
-                for j, s in enumerate(b.slots):
-                    out[s] = _Bound(group, lambda j=j, f=unpack: f()[j])
+                for k, s in enumerate(b.slots):
+                    out[s] = _Bound(group, lambda k=k, f=unpack: f()[k])
                 continue
-            if b.codec != _comp.CODEC_NONE:
-                flat, group = eng._codec_launch(ts, b.codec, residual,
-                                                ReduceOp(seg.code), seg.pre,
-                                                seg.post, b.algo)
-            elif seg.cls == "reduce":
-                flat, group = eng._bucket_launch(ts, ReduceOp(seg.code),
-                                                 seg.pre, seg.post, b.algo)
+            if seg.cls == "reduce":
+                flat, group = eng._bucket_launch(
+                    buf, sum(b.numels), ReduceOp(seg.code), seg.pre,
+                    seg.post, b.algo, b.codec, residual)
             else:
-                flat = C.pack_bucket(ts, False)
+                flat = buf
                 group = LaunchGroup(_translate_failure(
                     dist.broadcast, flat, src=seg.code, async_op=True))
             for s, v in zip(b.slots, C.unpack_flat(flat, b.shapes)):
                 out[s] = _Bound(group, v)
         return out
+
+
+def _nothing():
+    pass
 
 
 class _GraphProgram:
@@ -384,14 +428,17 @@ class _GraphProgram:
     pair rounds, or the ladder on a buffer padded to the world size) and
     the finish; a bucket with a wire codec packs into a zero-tailed padded
     buffer and runs the compressed reduction (its hierarchical arm on the
-    ladder) on the engine's residual buffer. Every process group the legs
-    run on has run a collective before the capture. A launch refreshes
-    the tables, replays the graph on the current stream and copies each
-    bucket's reduced buffer into a fresh one, whose views are the
-    results."""
+    ladder) on the engine's residual buffer. Under "off" each bucket's
+    nodes follow the last bucket's; under "interleave" every bucket's pack
+    comes first, then the collectives back to back, then the finishes.
+    Every process group the legs run on has run a collective before the
+    capture. A launch refreshes the tables, replays the graph on the
+    current stream and copies each bucket's reduced buffer into a fresh
+    one, whose views are the results."""
+    stage_kinds = ()
 
-    def __init__(self, engine, segments, join_metas):
-        from .engine import _KIND_CODES, _dist_op
+    def __init__(self, engine, segments, join_metas, mode: str = "off"):
+        from .engine import _KIND_CODES
         eng = self.engine = engine
         dev = self.device = eng.backend.device
         self.buckets = _buckets(segments)
@@ -399,12 +446,11 @@ class _GraphProgram:
         self.codecs = [b.codec for b in self.buckets]
         self.counts = _selection_counts(eng, self.buckets)
         residuals = _residual_buffers(eng, self.buckets)
-        size, rank = eng.backend.size(), eng.backend.rank()
+        size = eng.backend.size()
         algos = [b.algo for b in self.buckets if b.seg.cls != "bcast"]
         eng._warm_groups(algos)
         hier_groups = (eng.hierarchical_groups()
                        if C.ALGO_HIERARCHICAL in algos else None)
-        local, cross = eng._hier_sizes()
         # the step's one advertisement: the join round's head and overflow
         # rows, constant, on the device from pinned memory with no host wait
         self._advert = []
@@ -432,8 +478,10 @@ class _GraphProgram:
                         if b.seg.cls == "a2a" else None
                         for b in self.buckets]
         # each bucket's reduced elements: the whole buffer, or the prefix
-        # of a codec bucket's padded one
-        self._flats: List[torch.Tensor] = []
+        # of a codec bucket's padded one (the exchange's output for an
+        # alltoall bucket)
+        self._flats: List[Optional[torch.Tensor]] = [None] * len(
+            self.buckets)
         self.graph = torch.cuda.CUDAGraph()
         stream = torch.cuda.Stream(dev)
         with torch.cuda.stream(stream):
@@ -442,61 +490,82 @@ class _GraphProgram:
             try:
                 for _, mine, gathered in self._advert:
                     C.all_gather(gathered, mine, None)
-                for b, table, residual, a2a_in in zip(
-                        self.buckets, self._tables, residuals, self._a2a_in):
-                    seg = b.seg
-                    total = sum(b.numels)
-                    if seg.cls == "a2a":
-                        if size == 1:
-                            got = a2a_in.clone()
-                        elif b.algo == C.ALGO_HIERARCHICAL:
-                            got = C.hier_alltoall(a2a_in, *hier_groups,
-                                                  local, cross, b.codec)
-                        else:
-                            got = torch.empty_like(a2a_in)
-                            C.all_to_all(got, a2a_in, [1] * size,
-                                         [1] * size, None)
-                        self._flats.append(got)
-                        continue
-                    avg = size if (seg.cls == "reduce" and seg.code
-                                   == ReduceOp.AVERAGE) else 1
-                    hier = b.algo == C.ALGO_HIERARCHICAL
-                    coded = b.codec != _comp.CODEC_NONE
-                    if coded or hier:
-                        # the codec's hierarchical arm pads to the local
-                        # size, the ladder and the flat arm to the world's
-                        padded = C.padded_bucket(
-                            total, local if hier and coded else size,
-                            b.dtype, dev)
-                        flat = padded[:total]
-                    else:
-                        flat = torch.empty(total, dtype=b.dtype, device=dev)
-                    self._flats.append(flat)
-                    if table is not None:
-                        table.capture(flat)
-                    if coded and hier:
-                        C.codec_hier_allreduce(
-                            padded, total, residual, b.codec, local, cross,
-                            avg, seg.pre, seg.post, *hier_groups)
-                    elif coded:
-                        C.codec_allreduce(
-                            padded, total, residual, b.codec, size, rank,
-                            avg, seg.pre, seg.post, None)
-                    elif seg.cls == "reduce":
-                        C.prescale(flat, seg.pre)
-                        if b.algo == C.ALGO_TREE:
-                            C.tree_allreduce(flat, eng._tree_groups)
-                        elif hier:
-                            C.hier_allreduce(padded, *hier_groups, local,
-                                             cross)
-                        else:
-                            dist.all_reduce(flat,
-                                            op=_dist_op(ReduceOp(seg.code)))
-                        C.finish_reduce(flat, avg, seg.post)
-                    else:
-                        dist.broadcast(flat, src=seg.code)
+                phases = [self._phases(j, b, table, residual, a2a_in,
+                                       hier_groups)
+                          for j, (b, table, residual, a2a_in) in enumerate(
+                              zip(self.buckets, self._tables, residuals,
+                                  self._a2a_in))]
+                if mode == "interleave":
+                    phases = list(zip(*phases))
+                for fns in phases:
+                    for fn in fns:
+                        fn()
             finally:
                 self.graph.capture_end()
+
+    def _phases(self, j: int, b: _Bucket, table, residual, a2a_in,
+                hier_groups) -> tuple:
+        """Bucket ``j``'s capture as (pack, collectives, finish), its
+        buffers allocated now (inside the capture, from the graph's
+        pool)."""
+        from .engine import _dist_op
+        eng, seg = self.engine, b.seg
+        size, rank = eng.backend.size(), eng.backend.rank()
+        local, cross = eng._hier_sizes()
+        total = sum(b.numels)
+        if seg.cls == "a2a":
+            def exchange():
+                if size == 1:
+                    got = a2a_in.clone()
+                elif b.algo == C.ALGO_HIERARCHICAL:
+                    got = C.hier_alltoall(a2a_in, *hier_groups, local, cross,
+                                          b.codec)
+                else:
+                    got = torch.empty_like(a2a_in)
+                    C.all_to_all(got, a2a_in, [1] * size, [1] * size, None)
+                self._flats[j] = got
+            return _nothing, exchange, _nothing
+        avg = size if (seg.cls == "reduce"
+                       and seg.code == ReduceOp.AVERAGE) else 1
+        hier = b.algo == C.ALGO_HIERARCHICAL
+        coded = b.codec != _comp.CODEC_NONE
+        if coded or hier:
+            # the codec's hierarchical arm pads to the local size, the
+            # ladder and the flat arm to the world's
+            padded = C.padded_bucket(total, local if hier and coded
+                                     else size, b.dtype, self.device)
+            flat = padded[:total]
+        else:
+            flat = torch.empty(total, dtype=b.dtype, device=self.device)
+        self._flats[j] = flat
+
+        def pack():
+            if table is not None:
+                table.capture(flat)
+            if seg.cls == "reduce" and not coded:
+                C.prescale(flat, seg.pre)
+
+        if coded and hier:
+            return pack, lambda: C.codec_hier_allreduce(
+                padded, total, residual, b.codec, local, cross, avg,
+                seg.pre, seg.post, *hier_groups), _nothing
+        if coded:
+            return pack, lambda: C.codec_allreduce(
+                padded, total, residual, b.codec, size, rank, avg, seg.pre,
+                seg.post, None), _nothing
+        if seg.cls != "reduce":
+            return pack, lambda: dist.broadcast(flat, src=seg.code), \
+                _nothing
+        if b.algo == C.ALGO_TREE:
+            def reduce():
+                C.tree_allreduce(flat, eng._tree_groups)
+        elif hier:
+            def reduce():
+                C.hier_allreduce(padded, *hier_groups, local, cross)
+        else:
+            def reduce():
+                dist.all_reduce(flat, op=_dist_op(ReduceOp(seg.code)))
+        return pack, reduce, lambda: C.finish_reduce(flat, avg, seg.post)
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _StreamWork
@@ -523,18 +592,61 @@ class _GraphProgram:
         return out
 
 
+class _StagedProgram:
+    """The armed plan under "staged" (the reference's ``_launch_stages``):
+    each bucket of the step its own program (:func:`_stage_plan`), a
+    :class:`_GraphProgram` of its own on the card and an
+    :class:`_EagerProgram` on gloo, launched in order on the current
+    stream (the host launches stage k+1 while stage k runs; their device
+    work does not overlap). The step's join advertisement, if any, rides
+    the first stage."""
+
+    def __init__(self, engine, segments, join_metas, program_cls):
+        self.stages = [program_cls(engine, sub,
+                                   join_metas if k == 0 else None)
+                       for k, sub in enumerate(_stage_plan(segments))]
+        self.buckets = [b for st in self.stages for b in st.buckets]
+        self.residual_keys = frozenset().union(
+            *(st.residual_keys for st in self.stages))
+        self.codecs = [b.codec for b in self.buckets]
+        self.counts = _selection_counts(engine, self.buckets)
+        self.tables = sum(st.tables for st in self.stages)
+        self.copy_outs = sum(st.copy_outs for st in self.stages)
+        self.stage_kinds = ("seg",) * len(self.stages)
+
+    def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
+        out: List[Optional[_Bound]] = [None] * len(inputs)
+        for st in self.stages:
+            for s, bound in enumerate(st.launch(inputs)):
+                if bound is not None:
+                    out[s] = bound
+        return out
+
+
 class _ShardedEagerProgram:
     """The sharded arm on CPU tensors: the step's join round, read
     (``Engine._join_guard``), then per bucket the pack, prescale,
     reduce-scatter (compressed, for a bucket with a wire codec) and finish,
-    as ``Engine.sharded_step`` issues them."""
+    as ``Engine.sharded_step`` issues them (every pack first under
+    "interleave"). Under "staged" with ``HOROVOD_TPU_ZERO1_PREFETCH`` on
+    (``zag``) this launch is the ``zupd`` stage and the all-gathers after
+    the update, which ``Engine.sharded_step`` issues, are the ``zag``
+    stage, the prefetch leg; with the prefetch off the whole step is one
+    ``seg`` stage. Each result's value is ``zag``: a bound result never
+    holds the program, whose graph must go before the process group
+    (the last step's handles outlive ``invalidate_all``)."""
     tables = 0
     copy_outs = 0
     # the engine counts a sharded step's selections on both of its paths
     counts = None
 
-    def __init__(self, engine, sig: CallSig):
-        self.engine, self.sig = engine, sig
+    def __init__(self, engine, sig: CallSig, mode: str = "off",
+                 prefetch: bool = True):
+        self.engine, self.sig, self.mode = engine, sig, mode
+        staged = mode == "staged"
+        self.zag = staged and prefetch
+        self.stage_kinds = (("zupd",) if self.zag else
+                            ("seg",) if staged else ())
         # Average's divide
         self.n = engine.backend.size() if sig.code == ReduceOp.AVERAGE else 1
         self.codecs = engine._bucket_codecs(
@@ -551,9 +663,10 @@ class _ShardedEagerProgram:
         eng._join_guard(_SHARDED)
         C.scatter_shards(sig.layout, inputs, eng.config.pack_kernel, self.n,
                          sig.pre, sig.post, None, True, self.codecs,
-                         eng._sharded_residuals(sig.layout, self.codecs))
+                         eng._sharded_residuals(sig.layout, self.codecs),
+                         interleave=self.mode != "off")
         group = LaunchGroup(_StreamWork(eng.backend.device))
-        return [_Bound(group, None)] * len(inputs)
+        return [_Bound(group, self.zag)] * len(inputs)
 
 
 class _ShardedGraphProgram(_ShardedEagerProgram):
@@ -562,13 +675,14 @@ class _ShardedGraphProgram(_ShardedEagerProgram):
     bucket's padded gradient buffer (or nothing, where the plain pack
     fills it before the launch), the prescale, the NCCL reduce-scatter
     into this rank's shard in place (the compressed one on the engine's
-    residual buffer, for a bucket with a wire codec) and the finish. The
-    buffers are the layout's own, so the graph copies nothing out: the
-    wrapped optimizer reads the shard's gradient where the graph left
-    it."""
+    residual buffer, for a bucket with a wire codec) and the finish; every
+    pack first under "interleave". The buffers are the layout's own, so
+    the graph copies nothing out: the wrapped optimizer reads the shard's
+    gradient where the graph left it."""
 
-    def __init__(self, engine, sig: CallSig):
-        super().__init__(engine, sig)
+    def __init__(self, engine, sig: CallSig, mode: str = "off",
+                 prefetch: bool = True):
+        super().__init__(engine, sig, mode, prefetch)
         dev = self.device = engine.backend.device
         residuals = (engine._sharded_residuals(sig.layout, self.codecs)
                      or [None] * len(sig.layout))
@@ -582,19 +696,36 @@ class _ShardedGraphProgram(_ShardedEagerProgram):
             self.graph.capture_begin(pool=torch.cuda.graph_pool_handle(),
                                      capture_error_mode="thread_local")
             try:
-                for b, table, codec, residual in zip(
-                        sig.layout, self._tables, self.codecs, residuals):
-                    if table is not None:
-                        table.capture(b.grads[:b.total])
-                    C.prescale(b.grads[:b.total], sig.pre)
-                    if codec != _comp.CODEC_NONE:
-                        C.rs_flat_codec(b.grads, b.grad_shard, residual,
-                                        codec, b.n, None)
-                    else:
-                        C.rs_flat(b.grads, b.grad_shard, None)
-                    C.finish_reduce(b.grad_shard, self.n, sig.post)
+                phases = [self._phases(b, table, codec, residual)
+                          for b, table, codec, residual in zip(
+                              sig.layout, self._tables, self.codecs,
+                              residuals)]
+                if mode != "off":
+                    phases = list(zip(*phases))
+                for fns in phases:
+                    for fn in fns:
+                        fn()
             finally:
                 self.graph.capture_end()
+
+    def _phases(self, b, table, codec, residual) -> tuple:
+        """One bucket's capture as (pack, reduce-scatter, finish)."""
+        sig = self.sig
+
+        def pack():
+            if table is not None:
+                table.capture(b.grads[:b.total])
+            C.prescale(b.grads[:b.total], sig.pre)
+
+        if codec != _comp.CODEC_NONE:
+            def scatter():
+                C.rs_flat_codec(b.grads, b.grad_shard, residual, codec, b.n,
+                                None)
+        else:
+            def scatter():
+                C.rs_flat(b.grads, b.grad_shard, None)
+        return pack, scatter, lambda: C.finish_reduce(b.grad_shard, self.n,
+                                                      sig.post)
 
     def launch(self, inputs: Sequence[torch.Tensor]) -> List[_Bound]:
         from .engine import LaunchGroup, _StreamWork
@@ -608,7 +739,7 @@ class _ShardedGraphProgram(_ShardedEagerProgram):
         self.graph.replay()
         kernels.pack.graph_launches += self.tables
         group = LaunchGroup(_StreamWork(self.device))
-        return [_Bound(group, None)] * len(inputs)
+        return [_Bound(group, self.zag)] * len(inputs)
 
 
 class _Armed(NamedTuple):
@@ -618,11 +749,17 @@ class _Armed(NamedTuple):
     join_live: bool
     compression: str
     algo_sig: tuple               # Engine._algo_sig() at the build
-    program: object               # _GraphProgram or _EagerProgram
+    program: object               # _GraphProgram, _EagerProgram, ...
     # the step's payload bytes and their split by link (None for the
     # sharded arm), stamped on the replayed step's trace event
     nbytes: int = 0
     link_bytes: Optional[dict] = None
+    # the overlap mode it was built under (Engine._overlap_mode of its
+    # bytes, buckets and arm) and zero1_prefetch then: a move rebuilds it
+    mode: str = "off"
+    prefetch: bool = True
+    n_buckets: int = 1
+    sharded: bool = False
 
 
 class StepReplay:
@@ -735,7 +872,9 @@ class StepReplay:
     def invalidate_all(self, reason: str):
         """Drop every armed stream and recorded streak (join(), elastic
         world-version bumps, explicit resets); the armed graphs and their
-        buffers go with them."""
+        buffers go with them, and so do the held ZeRO-1 prefetch legs
+        (invalidate, never poison)."""
+        self.engine.invalidate_prefetch(reason)
         had_armed = any(e.get("armed") for e in self._seen.values())
         self._seen.clear()
         if self._mode in ("replay", "drain"):
@@ -844,17 +983,22 @@ class StepReplay:
 
     def _current_armed(self, stream: tuple, ent: dict) -> Optional[_Armed]:
         """The armed program, rebuilt if the fusion threshold, the pack
-        knob, the join switch or a knob the selection reads (the wire codec
-        knob among them) moved since it was built."""
+        knob, the join switch, a knob the selection reads (the wire codec
+        knob among them), the overlap mode it resolves to or
+        ``zero1_prefetch`` moved since it was built."""
         armed = ent.get("armed")
         if armed is None:
             return None
-        cfg = self.engine.config
+        eng = self.engine
+        cfg = eng.config
         if (armed.threshold != cfg.fusion_threshold_bytes
                 or armed.pack_kernel != cfg.pack_kernel
                 or armed.join_live != self._join_live()
                 or armed.compression != cfg.compression
-                or armed.algo_sig != self.engine._algo_sig()):
+                or armed.algo_sig != eng._algo_sig()
+                or armed.mode != eng._overlap_mode(
+                    armed.nbytes, armed.n_buckets, armed.sharded)
+                or armed.prefetch != bool(cfg.zero1_prefetch)):
             ent["armed"] = None      # the old graph goes before the new one
             armed = self._build_armed(stream)
             ent["armed"] = armed
@@ -875,10 +1019,14 @@ class StepReplay:
             program_cls = (_ShardedGraphProgram
                            if eng.backend.device.type == "cuda"
                            else _ShardedEagerProgram)
+            nbytes, n_buckets = _stream_nbytes(stream), len(stream[0].layout)
+            mode = eng._overlap_mode(nbytes, n_buckets, sharded=True)
+            prefetch = bool(cfg.zero1_prefetch)
             return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel,
                           join_live, cfg.compression, eng._algo_sig(),
-                          program_cls(eng, stream[0]),
-                          nbytes=_stream_nbytes(stream))
+                          program_cls(eng, stream[0], mode, prefetch),
+                          nbytes=nbytes, mode=mode, prefetch=prefetch,
+                          n_buckets=n_buckets, sharded=True)
         segs: List[dict] = []
         for sig in stream:
             cls = ("reduce" if sig.kind in _REDUCE_KINDS else
@@ -943,11 +1091,17 @@ class StepReplay:
             base += len(seg["shapes"])
         program_cls = (_GraphProgram if eng.backend.device.type == "cuda"
                        else _EagerProgram)
-        program = program_cls(eng, segments, join_metas)
+        nbytes = _stream_nbytes(stream)
+        n_buckets = sum(len(seg.buckets) for seg in segments)
+        mode = eng._overlap_mode(nbytes, n_buckets)
+        program = (_StagedProgram(eng, segments, join_metas, program_cls)
+                   if mode == "staged" else
+                   program_cls(eng, segments, join_metas, mode))
         return _Armed(cfg.fusion_threshold_bytes, cfg.pack_kernel, join_live,
                       cfg.compression, eng._algo_sig(), program,
-                      nbytes=_stream_nbytes(stream),
-                      link_bytes=dict(program.counts[1]))
+                      nbytes=nbytes, link_bytes=dict(program.counts[1]),
+                      mode=mode, prefetch=bool(cfg.zero1_prefetch),
+                      n_buckets=n_buckets)
 
     def _fallback(self, reason: str):
         self.fallbacks += 1
@@ -1009,7 +1163,15 @@ class StepReplay:
             failpoint("compression.encode")
         t0 = time.perf_counter()
         bound = _translate_failure(program.launch, flat)
-        eng._launched(rep_name, t0, activity="XLA_REPLAY_DISPATCH")
+        # one dispatch a step, one a stage of a staged one (a sharded
+        # step's zag stage counts where it launches, after the update)
+        stages = program.stage_kinds
+        eng._launched(rep_name, t0, max(len(stages), 1),
+                      activity="XLA_REPLAY_DISPATCH")
+        for kind in stages:
+            eng._m_overlap_stages.inc(kind="replay_" + kind)
+        if armed.mode != "off":
+            eng._m_overlap_steps.inc(mode=armed.mode)
         # one tracked handle a replayed step: its completion reaches the
         # trace, the timeline and the stall inspector
         rep = eng._track(Handle(rep_name, LaunchGroup(()), lambda: None,
@@ -1034,5 +1196,6 @@ class StepReplay:
             self.replayed_steps += 1
             self._m_replayed.inc()
             eng._emit_replay(
-                "replay", f"{len(flat)} tensors in one launch "
-                f"({type(program).__name__})")
+                "replay", f"{len(flat)} tensors in {max(len(stages), 1)} "
+                f"launch(es) ({type(program).__name__}, "
+                f"overlap={armed.mode})")

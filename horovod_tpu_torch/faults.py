@@ -62,6 +62,11 @@ FAULT_SPECS: Dict[str, str] = {
                           "surface as HorovodInternalError for the "
                           "elastic loop, with residual buffers "
                           "invalidated (never poisoned) on the restore",
+    "overlap.prefetch": "Before the ZeRO-1 parameter all-gather prefetch "
+                        "leg is launched under the step tail: raise() "
+                        "models a prefetch launch failure — it must "
+                        "surface as HorovodInternalError for the elastic "
+                        "loop, never poison held state",
     # runner/http_client.py
     "kv.put": "Inside each PUT attempt of put_data_into_kvstore (before "
               "the HTTP request) — transient KV-fabric write outages",

@@ -97,11 +97,20 @@ METRIC_SPECS: Dict[str, Tuple[str, str]] = {
     "hvd_tpu_replay_invalidations_total": (
         "counter", "Armed replay streams dropped (join(), elastic "
                    "world-version bumps, explicit resets)"),
-    # read by the step-health digest; the prefetch leg that counts it
-    # comes with replay's overlap modes (ROADMAP A10)
+    # core/engine.py + core/replay.py (the bucket-pipelined overlap)
+    "hvd_tpu_overlap_stage_launches_total": (
+        "counter", "Pipeline-stage sub-launches dispatched by the staged "
+                   "overlap mode (a monolithic fused step counts 0), by "
+                   "stage kind"),
+    "hvd_tpu_overlap_steps_total": (
+        "counter", "Steps serviced with a pipelined (non-serial) "
+                   "collective schedule, by overlap mode"),
     "hvd_tpu_overlap_prefetch_total": (
         "counter", "ZeRO-1 parameter all-gather prefetch legs launched "
                    "under the step tail"),
+    "hvd_tpu_overlap_prefetch_invalidations_total": (
+        "counter", "Held prefetch legs dropped before reuse (elastic "
+                   "world-version bumps, join(), explicit resets)"),
     # optimizer.py (ZeRO-1 sharded path)
     "hvd_tpu_sharded_step_seconds": (
         "histogram", "Wall time of one sharded optimizer step's dispatch "

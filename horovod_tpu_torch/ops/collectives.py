@@ -358,6 +358,45 @@ def pack_bucket(tensors: Sequence[torch.Tensor],
     return kernels.pack_plain(tensors)
 
 
+# bytes: each bucket of a mixed-dtype group buffer starts on a multiple
+_GROUP_ALIGN = 16
+
+
+def pack_group(tensors: Sequence[torch.Tensor], buckets,
+               prescale_factor: float = 1.0) -> List[torch.Tensor]:
+    """Every bucket of ``buckets`` (index lists into ``tensors``, one dtype a
+    bucket) packed by one plain pack into one buffer (the reference's
+    ``build_pack_group``, the single-launch form's pack), then scaled in
+    place by ``prescale_factor``: each bucket's flat buffer is a slice of
+    it. Buckets of one dtype share a buffer of that dtype; a group of
+    several dtypes packs bytes, each bucket starting on a 16-byte
+    boundary."""
+    if not buckets:
+        return []
+    members = [[tensors[i].reshape(-1) for i in idxs] for idxs in buckets]
+    if len({m[0].dtype for m in members}) == 1:
+        flat = prescale(torch.cat([t for m in members for t in m]),
+                        prescale_factor)
+        return unpack_flat(flat, [(sum(t.numel() for t in m),)
+                                  for m in members])
+    parts, spans, offset, pad = [], [], 0, None
+    for m in members:
+        nbytes = sum(t.numel() * t.element_size() for t in m)
+        parts += [t.view(torch.uint8) for t in m]
+        spans.append((offset, nbytes, m[0].dtype))
+        offset += nbytes
+        gap = -offset % _GROUP_ALIGN
+        if gap:
+            if pad is None:
+                pad = torch.zeros(_GROUP_ALIGN, dtype=torch.uint8,
+                                  device=m[0].device)
+            parts.append(pad[:gap])
+            offset += gap
+    raw = torch.cat(parts)
+    return [prescale(raw[o:o + n].view(dtype), prescale_factor)
+            for o, n, dtype in spans]
+
+
 def prescale(flat: torch.Tensor, factor: float) -> torch.Tensor:
     """In place on the private packed buffer, before the reduce."""
     if factor != 1.0:
@@ -538,19 +577,28 @@ def scatter_shards(buckets: Sequence[ShardBucket],
                    average_over: int, prescale_factor: float,
                    postscale_factor: float, group,
                    collective: bool = True, codecs=None,
-                   residuals=None) -> int:
+                   residuals=None, interleave: bool = False) -> int:
     """A sharded step's first half: per bucket pack ``tensors`` (the
     gradients, indexed by the bucket's ``idxs``), prescale and post the
-    reduce-scatter; then wait for each (a stream dependency on the card)
-    and finish its shard (Average's divide, the postscale). A bucket whose
-    ``codecs`` entry is a wire codec runs the compressed reduce-scatter
-    (:func:`rs_flat_codec`) instead, its ``residuals`` entry updated in
-    place. Without ``collective`` (a group of one rank outside the world)
-    the packed buffer is the sum. Returns the collectives launched."""
-    works, launched = [], 0
-    for i, b in enumerate(buckets):
+    reduce-scatter (with ``interleave``, every bucket's pack first, then
+    the reduce-scatters back to back); then wait for each (a stream
+    dependency on the card) and finish its shard (Average's divide, the
+    postscale). A bucket whose ``codecs`` entry is a wire codec runs the
+    compressed reduce-scatter (:func:`rs_flat_codec`) instead, its
+    ``residuals`` entry updated in place. Without ``collective`` (a group
+    of one rank outside the world) the packed buffer is the sum. Returns
+    the collectives launched."""
+    def pack(b):
         pack_padded([tensors[j] for j in b.idxs], b.grads, use_kernel)
         prescale(b.grads[:b.total], prescale_factor)
+
+    if interleave:
+        for b in buckets:
+            pack(b)
+    works, launched = [], 0
+    for i, b in enumerate(buckets):
+        if not interleave:
+            pack(b)
         codec = codecs[i] if codecs else comp.CODEC_NONE
         if codec != comp.CODEC_NONE:
             rs_flat_codec(b.grads, b.grad_shard, residuals[i], codec, b.n,

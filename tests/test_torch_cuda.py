@@ -14,6 +14,11 @@ the flagship LM through int8, fp8, bf16 and sharded int8 on 2 and 4), and
 the observability around the engine (``-k observability``: no instrument
 synchronizes, the native timeline, the memory gauge against
 ``torch.cuda.memory_stats()``, the watchdog breaking a hung launch), and
+the overlap modes and the size cache (``-k "cards and overlap"``: the
+flagship LM's reduction and ZeRO-1 step under off, interleave and staged
+on 2 and 4 cards, bitwise alike; ``-k "cards and meta_cache"``: no
+blocking size exchange in steady state on 2 cards, a size change raising
+on both), and
 durable checkpointing (``-k checkpoint``: a snapshot copies on the card
 with no host wait; ``-k "cards and checkpoint"``: 4 cards write, 2
 restore), and elastic training (``-k "elastic and not cards"``: a
@@ -78,7 +83,7 @@ from horovod_tpu_torch.ops.sync_batch_norm import SyncBatchNorm
 from horovod_tpu_torch.parallel.flash_attention import flash_attention_local
 from horovod_tpu_torch.parallel.mesh import Topology
 from torch_worker import (ADASUM_CARD_STEPS, ALGO_CARD_FORMS, CODEC_CARD_RUNS,
-                          CODEC_CARD_STEPS, JOIN_TENSORS,
+                          CODEC_CARD_STEPS, JOIN_TENSORS, OVERLAP_CARD_RUNS,
                           REPLAY_EXTRA, REPLAY_STEPS, RESNET_CARD_MODES,
                           SP_CARD_DIMS, SP_LRS, SP_STEPS,
                           SP_VARIANTS, SYNC_BN_CHANNELS, SYNC_BN_DTYPES,
@@ -2279,6 +2284,81 @@ def test_cuda_cards_sharded_on_nccl(built, tmp_path, n):
         assert sum("AllGather" in k for k in nccl) == len(buckets) + 1, nccl
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_cards_overlap_on_nccl(built, tmp_path, n):
+    """The overlap modes on NCCL (torch_worker's overlap_cards scenario:
+    the flagship LM's widths at 2 layers, AdamW, one sequence a card, join
+    off so "staged" stays staged): the dense reduction under off and
+    staged with K1, and staged with the pack off (the single-launch form
+    in the warm-up); ZeRO-1 under off and under staged with the prefetch
+    leg.
+    Every card's parameters alike in each run; each run's parameters and
+    losses bitwise the first run's of its arm (the modes move launches,
+    never arithmetic); sharded_off's parameters equal to dense_off's
+    (bitwise at 2 cards, whose sums have one order; within 1e-6 of the
+    largest entry at 4, where NCCL's allreduce and reduce-scatter may add
+    in other orders, as in test_cuda_cards_sharded_on_nccl); each run
+    armed once and replayed twice with no fallback; a staged replay one
+    sub-launch a bucket; the staged ZeRO-1 run one leg a step."""
+    from torch_worker import OVERLAP_CARD_STEPS
+    if n > built:
+        pytest.skip(f"needs {n} CUDA devices")
+    res = run_world("overlap_cards", n, tmp_path, device="cuda",
+                    env={"HOROVOD_JOIN_DISABLE": "1"}, timeout=600)
+    runs = [r for r, *_ in OVERLAP_CARD_RUNS]
+    for rank, r in enumerate(res):
+        print(f"overlap_cards n={n} rank {rank}: " + "; ".join(
+            f"{k} digest {r[k]['digest'][:12]}, largest difference "
+            f"{r[k]['max_diff']:.3g} of {r[k]['max_entry']:.3g}, "
+            f"dispatches {r[k]['dispatches']}, counters (stages, steps, "
+            f"legs) {r[k]['counters']}" for k in runs))
+    for k in runs:
+        assert len({r[k]["digest"] for r in res}) == 1, k
+    for r in res:
+        for arm in ("dense_", "sharded_"):
+            mine = [k for k in runs if k.startswith(arm)]
+            for k in mine:
+                assert r[k]["digest"] == r[mine[0]]["digest"], k
+                assert r[k]["losses"] == r[mine[0]]["losses"], k
+        for k in runs:
+            assert r[k]["replay"] == (1, 2, 0), (k, r[k]["replay"])
+        sh = r["sharded_off"]
+        if n == 2:
+            assert sh["digest"] == r["dense_off"]["digest"]
+            assert sh["losses"] == r["dense_off"]["losses"]
+        assert sh["max_diff"] <= 1e-6 * sh["max_entry"], sh["max_diff"]
+        buckets = r["dense_off"]["buckets"]
+        assert buckets > 1
+        for k in ("dense_staged", "dense_single_staged"):
+            assert r[k]["counters"][0] == 2 * buckets, (k, r[k])
+            assert r[k]["dispatches"] == OVERLAP_CARD_STEPS * buckets
+        assert r["sharded_staged"]["counters"][2] == OVERLAP_CARD_STEPS
+        assert r["sharded_off"]["counters"][2] == 0
+
+
+def test_cuda_cards_meta_cache_on_nccl(built, tmp_path):
+    """The steady-state size cache on 2 cards (torch_worker's meta_cache
+    scenario on NCCL): after the warm-up, ten rounds of an uneven
+    allgather and alltoall make no blocking host fetch and twenty
+    deferred checks, with the reference's rows; a size change after the
+    entry went hot raises on both cards at every extract, then 1 + 2 rows
+    are negotiated."""
+    from torch_worker import META_ROUNDS
+    res = run_world("meta_cache", 2, tmp_path, device="cuda", timeout=300)
+    for rank, r in enumerate(res):
+        print(f"meta_cache cards rank {rank}: host_fetches {r['fetches']}, "
+              f"deferred checks {r['checks']} over {META_ROUNDS} rounds")
+        assert r["fetches"] == 0 and r["checks"] == 2 * META_ROUNDS
+        assert r["g"].shape == (3, 2) and r["counts"] == [1, 2]
+        assert r["recv"][:, 0].tolist() == [0.0, 1.0, 1.0]
+        assert r["b"] == 7.0
+        assert len(r["mismatch"]["errors"]) == 2
+        assert all("size cache mismatch" in e
+                   for e in r["mismatch"]["errors"])
+        assert r["mismatch"]["after"].tolist() == \
+            [[1.0, 1.0], [2.0, 2.0], [2.0, 2.0]]
+
+
 @pytest.fixture(scope="module")
 def codec_worlds(tmp_path_factory):
     """torch_worker's codec_cards scenario on NCCL (the flagship LM,
@@ -2586,9 +2666,10 @@ def test_cuda_cards_moe_ep_on_nccl(built, tmp_path, n):
     first step's loss (the world mean) to 2e-2 and each rank's parameters'
     change (the shared ones and its experts) to 5e-2 of the one-card run's
     largest entry; once armed, each of the 4·L exchange rounds and the
-    shared-gradient round one replayed dispatch a step; K6 once a layer and
-    step and K1 in the shared-gradient round. Prints the step times
-    (recorded, not gated)."""
+    shared-gradient round one replayed dispatch a step, with no staged
+    sub-launch ("auto" is off on the card); K6 once a layer and step and
+    K1 in the shared-gradient round. Prints the step times (recorded, not
+    gated)."""
     from horovod_tpu_torch.models.convert import transformer_shard
     from torch_worker import (MOE_CARD_STEPS, MOE_CARD_WARM,
                               tp_card_config)
@@ -2617,7 +2698,7 @@ def test_cuda_cards_moe_ep_on_nccl(built, tmp_path, n):
                        for k, v in got["params1"].items()}, begin, mine,
                       ("moe_ep", n, r))
         for m in got["marks"][MOE_CARD_WARM:]:
-            assert m == (rounds, rounds), got["marks"]
+            assert m == (rounds, rounds, 0), got["marks"]
         for name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
             assert got["counts"][name] == cfg.n_layers * MOE_CARD_STEPS
         assert got["counts"]["pack"] + got["counts"].get(

@@ -175,13 +175,15 @@ def test_every_live_suppression_carries_a_reason(live):
 
 def test_guard_tables_the_copies_lost_are_restored():
     """The reference's _GUARDED_BY tables of LaunchGroup, HandleManager
-    and Engine (core/engine.py) are back on the port's classes."""
+    and Engine (core/engine.py) are back on the port's classes, the
+    ZeRO-1 prefetch registry's row among them."""
     from horovod_tpu_torch.core import engine
     assert engine.LaunchGroup._GUARDED_BY == {"_done": "_lock"}
     assert engine.HandleManager._GUARDED_BY == {"_next": "_lock",
                                                 "_handles": "_lock"}
     assert engine.Engine._GUARDED_BY == {"_outstanding": "_lock",
-                                         "_residuals": "_lock"}
+                                         "_residuals": "_lock",
+                                         "_zero1_prefetch": "_lock"}
 
 
 def test_checkpoint_writer_owns_its_buffers(tmp_path):

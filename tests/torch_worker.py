@@ -811,9 +811,10 @@ def _tp_cards_scenario(hvd, rank: int, size: int) -> dict:
 def _moe_cards_scenario(hvd, rank: int, size: int) -> dict:
     """The MoE LM's MoE-EP step on the card (NCCL, the experts over
     the world, join off so the exchanges replay): the losses, this rank's
-    parameters before and after the first step, each step's dispatches and
-    replayed rounds, and the step times."""
+    parameters before and after the first step, each step's dispatches,
+    replayed rounds and staged sub-launches, and the step times."""
     import torch
+    from horovod_tpu_torch import metrics as M
     from horovod_tpu_torch.core.state import engine
     from horovod_tpu_torch.models.transformer import (
         make_moe_ep_train_step, moe_ep_partition)
@@ -828,13 +829,19 @@ def _moe_cards_scenario(hvd, rank: int, size: int) -> dict:
     x, y = (torch.from_numpy(a).to(dev) for a in moe_card_tokens(rank))
     out = {"losses": [], "marks": [], "step_ms": []}
     K.reset_launch_counts()
+    def stages():
+        return M.counter_total(M.snapshot(),
+                               "hvd_tpu_overlap_stage_launches_total")
+
     for i in range(MOE_CARD_STEPS):
-        d0, r0 = eng.dispatch_count, eng.replay.replayed_steps
+        d0, r0, s0 = (eng.dispatch_count, eng.replay.replayed_steps,
+                      stages())
         loss, ms = _timed(torch, lambda: step(model, x, y))
         out["losses"].append(float(loss))
         out["step_ms"].append(ms)
         out["marks"].append((eng.dispatch_count - d0,
-                             eng.replay.replayed_steps - r0))
+                             eng.replay.replayed_steps - r0,
+                             stages() - s0))
         if i == 0:
             out["params1"] = {n: p.detach().float().cpu().numpy().copy()
                               for n, p in model.named_parameters()}
@@ -4354,6 +4361,260 @@ def check_estimator_world(res: list, device: str):
     assert r0["final"] == r1["final"]
 
 
+# the steady-state size cache's worlds (tests/test_torch_meta_cache.py)
+META_WARM_ROUNDS = 3     # the reference's warm-up: hot at streak 2
+META_ROUNDS = 10         # measured rounds of an allgather and an alltoall
+
+
+def _meta_cache_scenario(hvd, rank: int, size: int) -> dict:
+    """The steady-state size cache (the reference's
+    tests/test_multiprocess.py:201-336): META_ROUNDS rounds of an uneven
+    allgather, an uneven alltoall and a broadcast after the warm-up, with
+    the blocking host fetches and deferred checks they made; then rank
+    1's rows change after its ``mm.ag`` entry went hot (every rank must
+    raise, then a fresh negotiation gathers 1 + 2 rows); then, on gloo,
+    rank 1 joins while rank 0 runs one more hot uneven allgather (the
+    substitute contributes zeros of its earlier 3 rows)."""
+    import torch
+    from horovod_tpu_torch.common.exceptions import HorovodInternalError
+    from horovod_tpu_torch.core.state import engine
+    eng, dev = engine(), hvd.device()
+    d0, splits = rank + 1, [rank + 1] * size
+
+    def one_round():
+        g = hvd.allgather(torch.full((d0, 2), float(rank), device=dev),
+                          name="ss.ag")
+        recv, counts = hvd.alltoall(
+            torch.full(((rank + 1) * size, 1), float(rank), device=dev),
+            splits=splits, name="ss.a2a")
+        b = hvd.broadcast(torch.tensor([rank + 7.0], device=dev),
+                          root_rank=0, name="ss.bc")
+        return g.cpu().numpy(), recv.cpu().numpy(), counts.numpy(), \
+            b.cpu().numpy()
+
+    for _ in range(META_WARM_ROUNDS):
+        one_round()
+    f0, c0 = eng.host_fetches, eng.deferred_meta_checks
+    rounds = [one_round() for _ in range(META_ROUNDS)]
+    g, recv, counts, b = rounds[-1]
+    out = {"fetches": eng.host_fetches - f0,
+           "checks": eng.deferred_meta_checks - c0,
+           "g": g, "recv": recv, "counts": counts.tolist(),
+           "b": float(b[0])}
+    # a size change after the entry went hot
+    for _ in range(META_WARM_ROUNDS):
+        hvd.allgather(torch.ones((1, 2), device=dev) * rank, name="mm.ag")
+    d1 = 2 if rank == 1 else 1
+    h = eng.allgather(torch.ones((d1, 2), device=dev), name="mm.ag")
+    errors = []
+    for _ in range(2):      # every extract of the handle raises again
+        try:
+            h.synchronize()
+        except HorovodInternalError as e:
+            errors.append(str(e))
+    again = hvd.allgather(torch.ones((d1, 2), device=dev) * (rank + 1),
+                          name="mm.ag")
+    out["mismatch"] = {"errors": errors, "after": again.cpu().numpy()}
+    if dev.type == "cpu":
+        d2 = rank + 2
+        for _ in range(META_WARM_ROUNDS):
+            hvd.allgather(torch.full((d2, 2), float(rank)), name="ju.ag")
+        if rank == 0:
+            out["join_gather"] = hvd.allgather(
+                torch.full((d2, 2), 7.0), name="ju.ag").numpy()
+        out["last_joined"] = hvd.join()
+    return out
+
+
+# the overlap worlds (tests/test_torch_overlap.py)
+OVERLAP_SIZES = (5, 13, 2, 31, 7)    # fp32: 4 buckets at 64 bytes
+OVERLAP_STEPS = 6                    # the knob flips after OVERLAP_FLIP
+OVERLAP_FLIP = 3
+OVERLAP_ZERO1_STEPS = 8              # replay's warm-up (3), then replays
+OVERLAP_BUMP = 5                     # a world-version bump before this step
+
+
+def overlap_input(rank: int, step: int, i: int) -> np.ndarray:
+    """Rank ``rank``'s i-th float32 tensor of the single-launch runs."""
+    return np.random.RandomState(1000 * rank + 10 * step + i).randn(
+        OVERLAP_SIZES[i]).astype(np.float32)
+
+
+def _overlap_scenario(hvd, rank: int, size: int) -> dict:
+    """The overlap remainder at ``size`` ranks with join off (so "staged"
+    stays staged): OVERLAP_STEPS grouped Sums of OVERLAP_SIZES, with
+    single_launch on throughout, off throughout and flipped on -> off
+    after OVERLAP_FLIP steps, each uncompressed and int8 (the residuals
+    fresh before each run; every step's outputs and the last residuals);
+    then ZeRO-1 (DistributedOptimizer(sharded=True), SGD momentum) for
+    OVERLAP_ZERO1_STEPS steps under "off" and under "staged" with the
+    prefetch on, a world-version bump before step OVERLAP_BUMP of each:
+    the parameters after every step, the legs launched, the legs held
+    before the bump and the invalidations, the replay counters."""
+    import torch
+    from horovod_tpu_torch import metrics as M
+    from horovod_tpu_torch.core.state import engine
+    eng, cfg = engine(), engine().config
+    dev = hvd.device()
+
+    def ctr(name):
+        return M.counter_total(M.snapshot(), name)
+
+    out = {}
+    for codec in ("none", "int8"):
+        for run, forms in (("on", (True,) * OVERLAP_STEPS),
+                           ("off", (False,) * OVERLAP_STEPS),
+                           ("flip", (True,) * OVERLAP_FLIP
+                            + (False,) * (OVERLAP_STEPS - OVERLAP_FLIP))):
+            eng.invalidate_residuals("next run")
+            steps = []
+            for step, single in enumerate(forms):
+                cfg.single_launch = single
+                hs = eng.grouped_allreduce(
+                    [torch.from_numpy(overlap_input(rank, step, i)).to(dev)
+                     for i in range(len(OVERLAP_SIZES))],
+                    name=f"ov.s{step}", op=hvd.Sum, codec=codec)
+                steps.append([h.synchronize().cpu().numpy() for h in hs])
+            out[(codec, run)] = {
+                "steps": steps,
+                "residuals": {k: v["buf"].cpu().numpy().copy()
+                              for k, v in eng._residuals.items()}}
+    cfg.single_launch = True
+    rep = eng.replay
+    x = torch.ones(2, 4, device=dev) * (rank + 1)
+    for mode in ("off", "staged"):
+        cfg.overlap_pipeline = mode
+        rep.invalidate_all(f"mode {mode}")
+        w = torch.nn.Parameter(torch.ones(4, 4, device=dev))
+        b = torch.nn.Parameter(torch.zeros(4, device=dev))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD([w, b], lr=0.1, momentum=0.9), sharded=True)
+        legs0 = ctr("hvd_tpu_overlap_prefetch_total")
+        inval0 = ctr("hvd_tpu_overlap_prefetch_invalidations_total")
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+        res = {"params": []}
+        for step in range(OVERLAP_ZERO1_STEPS):
+            if step == OVERLAP_BUMP:
+                res["held_before_bump"] = len(eng._zero1_prefetch)
+                os.environ["HOROVOD_TPU_WORLD_VERSION"] = str(
+                    eng.world_version + 1)
+            opt.zero_grad()
+            ((x @ w + b) ** 2).sum().backward()
+            opt.step()
+            res["params"].append([w.detach().cpu().numpy().copy(),
+                                  b.detach().cpu().numpy().copy()])
+        res["legs"] = ctr("hvd_tpu_overlap_prefetch_total") - legs0
+        res["invalidations"] = ctr(
+            "hvd_tpu_overlap_prefetch_invalidations_total") - inval0
+        res["held_after"] = len(eng._zero1_prefetch)
+        res["replay"] = tuple(a - b for a, b in zip(
+            (rep.captured_streams, rep.replayed_steps, rep.fallbacks),
+            before))
+        out[("zero1", mode)] = res
+    cfg.overlap_pipeline = "auto"
+    return out
+
+
+OVERLAP_CARD_STEPS = 5          # replay's warm-up (3) + 2 replayed steps
+# (run, sharded, overlap mode, HOROVOD_PALLAS_PACK) of overlap_cards; each
+# run is held bitwise to the first of its arm (dense_, sharded_), and
+# sharded_off to dense_off as test_cuda_cards_sharded_on_nccl holds them
+OVERLAP_CARD_RUNS = (("dense_off", False, "off", True),
+                     ("dense_staged", False, "staged", True),
+                     ("dense_single_staged", False, "staged", False),
+                     ("sharded_off", True, "off", True),
+                     ("sharded_staged", True, "staged", True))
+# the card scenario's LM: the flagship's widths at 2 layers (9 buckets),
+# so four ranks' five model builds stay short
+OVERLAP_CARD_DIMS = dict(ADASUM_CARD_DIMS, n_layers=2)
+
+
+def _overlap_cards_scenario(hvd, rank: int, size: int) -> dict:
+    """The overlap modes on the bf16 LM with fp32 parameters (the
+    flagship's widths at 2 layers on the card, a tiny LM on the CPU
+    rehearsal), one sequence a rank, AdamW at the default 64 MB fusion
+    threshold (4 KB on the CPU), join off: each run of OVERLAP_CARD_RUNS
+    trains OVERLAP_CARD_STEPS steps from the same seed (the dense ones
+    through the per-bucket K1 form or, with the pack off, the
+    single-launch form; the sharded ones with the prefetch leg under
+    staged). Returns each run's losses, a digest of its parameters, the
+    largest difference of its parameters from the first run's and the
+    first run's largest entry, its replay counters, its buckets, its
+    dispatches and its moves of the overlap counters (stage launches,
+    overlap steps, prefetch legs)."""
+    import hashlib
+    import torch
+    from horovod_tpu_torch import metrics as M
+    from horovod_tpu_torch.common.env import DEFAULT_FUSION_THRESHOLD_BYTES
+    from horovod_tpu_torch.core.engine import bucket_by_size
+    from horovod_tpu_torch.core.state import engine
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, lean_lm_loss)
+    dev = hvd.device()
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    eng = engine()
+    cfg, rep = eng.config, eng.replay
+    # the tiny LM's buckets at 4 KB: several, as the flagship's 17 at 64 MB
+    cfg.fusion_threshold_bytes = (DEFAULT_FUSION_THRESHOLD_BYTES
+                                  if dev.type == "cuda" else 4096)
+    dims = OVERLAP_CARD_DIMS if dev.type == "cuda" else ADASUM_CPU_DIMS
+    lm = TransformerConfig(dtype=torch.bfloat16, attention="flash", **dims)
+    tokens = np.random.RandomState(16).randint(
+        0, lm.vocab_size, size=(size, lm.max_seq + 1))
+    x = torch.from_numpy(tokens[rank:rank + 1, :-1]).to(dev)
+    y = torch.from_numpy(tokens[rank:rank + 1, 1:]).to(dev)
+    names = ("hvd_tpu_overlap_stage_launches_total",
+             "hvd_tpu_overlap_steps_total", "hvd_tpu_overlap_prefetch_total")
+    out, first = {}, None
+    for run, sharded, mode, pack in OVERLAP_CARD_RUNS:
+        cfg.overlap_pipeline, cfg.pack_kernel = mode, pack
+        rep.invalidate_all(f"run {run}")
+        model = Transformer(lm, generator=torch.Generator().manual_seed(0))
+        model.to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4),
+            op=hvd.Average, sharded=sharded)
+        before = (rep.captured_streams, rep.replayed_steps, rep.fallbacks)
+        c0 = [M.counter_total(M.snapshot(), n) for n in names]
+        d0 = eng.dispatch_count
+        losses = []
+        for _ in range(OVERLAP_CARD_STEPS):
+            opt.zero_grad()
+            loss = lean_lm_loss(model, x, y)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        digest = hashlib.sha256()
+        for p in model.parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        if first is None:
+            first = [p.detach().clone() for p in model.parameters()]
+        with torch.no_grad():
+            max_diff = max(float((p - q).abs().max())
+                           for p, q in zip(model.parameters(), first))
+        out[run] = {
+            "losses": losses, "digest": digest.hexdigest(),
+            "max_diff": max_diff,
+            "max_entry": max(float(q.abs().max()) for q in first),
+            "buckets": len(bucket_by_size(list(model.parameters()),
+                                          cfg.fusion_threshold_bytes)),
+            "replay": tuple(a - b for a, b in zip(
+                (rep.captured_streams, rep.replayed_steps, rep.fallbacks),
+                before)),
+            "dispatches": eng.dispatch_count - d0,
+            "counters": [M.counter_total(M.snapshot(), n) - c for n, c in
+                         zip(names, c0)]}
+        del model, opt
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    del first
+    rep.invalidate_all("done")
+    return out
+
+
 SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "lm": _lm_scenario, "ring": _ring_scenario,
              "sp_lm": _sp_lm_scenario, "sp_cards": _sp_cards_scenario,
@@ -4379,7 +4640,10 @@ SCENARIOS = {"engine": _engine_scenario, "optimizer": _optimizer_scenario,
              "elastic_zero1": _elastic_zero1_scenario,
              "group_timeouts": _group_timeouts_scenario,
              "agg_world": _agg_world_scenario,
-             "estimator": _estimator_scenario}
+             "estimator": _estimator_scenario,
+             "meta_cache": _meta_cache_scenario,
+             "overlap": _overlap_scenario,
+             "overlap_cards": _overlap_cards_scenario}
 
 
 def main(argv):
